@@ -1,9 +1,10 @@
-"""Parameters carried across from the JAX package.
+"""Parameters and optimizer state carried across from the JAX package.
 
 The port keeps the JAX package's parameter names and layouts (``fc``
 weights [in, out], ``lstmemory`` w0 [H, 4H] and wbias [7H], embedding
-tables [vocab, dim]), so a JAX parameter dict, as numpy, maps onto the
-port's by name. PTM1 files carry the same names.
+tables [vocab, dim]) and its optimizer-state tree, so a JAX parameter
+dict or optimizer state, as numpy, maps onto the port's by name. PTM1
+files and checkpoints carry the same names.
 """
 
 from __future__ import annotations
@@ -30,3 +31,27 @@ def params_from_numpy(np_params: Dict[str, object], device="cuda",
                                  f"the graph needs {tuple(spec.shape)}")
     return {name: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for name, v in np_params.items()}
+
+
+def _tensor(v, device) -> torch.Tensor:
+    a = np.array(v)
+    return torch.from_numpy(a.astype(np.int32 if a.dtype.kind in "iu"
+                                     else np.float32)).to(device)
+
+
+def opt_state_from_numpy(np_state: Dict[str, object],
+                         device="cuda") -> Dict[str, object]:
+    """A JAX optimizer state as numpy (``{"slots": {name: {slot: array}},
+    "t": array, "num_samples": array}``, plus ``"avg"``) -> the port's
+    state: slot tensors on ``device`` (float32, the integer ``t_rows`` of
+    lazy sparse rows as int32), ``t`` an int and ``num_samples`` a
+    float."""
+    state = {"slots": {name: {s: _tensor(v, device) for s, v in d.items()}
+                       for name, d in np_state["slots"].items()},
+             "t": int(np.asarray(np_state["t"])),
+             "num_samples": float(np.asarray(np_state["num_samples"],
+                                             dtype=np.float32))}
+    if "avg" in np_state:
+        state["avg"] = {n: _tensor(v, device)
+                        for n, v in np_state["avg"].items()}
+    return state

@@ -134,8 +134,7 @@ def pooling(input, *, pooling_type: str = "max",
 
 
 def classification_cost(input, label, *, name: str = None) -> LayerOutput:
-    """Cross-entropy on post-softmax input. Graph only: the port serves
-    outputs and does not evaluate costs yet."""
+    """Cross-entropy on post-softmax input (``layers/cost.py``)."""
     ldef = LayerDef(name=name or _auto_name("cost"),
                     type="multi-class-cross-entropy",
                     inputs=[Input(_in(input)[0].name),

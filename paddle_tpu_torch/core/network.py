@@ -4,7 +4,8 @@ The port's counterpart of ``paddle_tpu/core/network.py``: the same
 topological order, the same parameter table and the same
 ``_{layer}.{suffix}`` parameter names, so a JAX parameter dict drives this
 executor unchanged. PyTorch runs eagerly: ``apply`` walks the layers and
-calls each one's torch implementation.
+calls each one's torch implementation; with ``train=True`` the autograd
+graph it builds is what the trainer differentiates.
 """
 
 from __future__ import annotations
@@ -159,3 +160,9 @@ class Network:
                 out = out.with_value(out.value * (1.0 - layer.drop_rate))
             ctx.outputs[name] = out
         return ctx.outputs
+
+    def param_meta(self) -> Dict[str, ParamSpec]:
+        """Per-parameter ``ParamSpec`` (learning_rate, l1/l2 rates,
+        is_static, sparse_grad, sparsity_ratio) as the layer attrs resolved
+        them: the optimizer's ``meta``."""
+        return dict(self.param_specs)

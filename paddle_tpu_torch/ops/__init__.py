@@ -1,11 +1,30 @@
 """Fused operators: the hand-written CUDA kernels, their wrappers and their
 plain PyTorch versions."""
 
+_COUNTERS = ("launches", "step_launches")
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from paddle_tpu_torch.kernels.opt_update import adam, momentum
+    from paddle_tpu_torch.ops.lstm import lstm_bwd_step, lstm_seq, \
+        lstm_seq_train
+    return {"lstm_seq": lstm_seq, "lstm_seq_train": lstm_seq_train,
+            "lstm_bwd_step": lstm_bwd_step, "momentum": momentum,
+            "adam": adam}
+
 
 def kernel_counts() -> dict:
     """{kernel: {counter: n}} of this process: the launches each kernel
-    wrapper counted (``/healthz`` reports them, so a run can show that
-    its main path went through the kernels)."""
-    from paddle_tpu_torch.ops.lstm import lstm_seq
-    return {"lstm_seq": {"launches": lstm_seq.launches,
-                         "step_launches": lstm_seq.step_launches}}
+    wrapper counted (``/healthz`` and ``--job train`` report them, so a run
+    can show that its main path went through the kernels)."""
+    return {name: {k: getattr(fn, k) for k in _COUNTERS if hasattr(fn, k)}
+            for name, fn in _wrappers().items()}
+
+
+def reset_kernel_counts():
+    """Set every kernel wrapper's counters to 0."""
+    for fn in _wrappers().values():
+        for k in _COUNTERS:
+            if hasattr(fn, k):
+                setattr(fn, k, 0)

@@ -1,25 +1,43 @@
-"""Command line of the port: ``--job serve``, the counterpart of
-``paddle_tpu/trainer/cli.py`` (``_serving_plan`` / ``cmd_serve``).
+"""Command line of the port: ``--job train|test|merge|serve``, the
+counterpart of ``paddle_tpu/trainer/cli.py`` (``cmd_train``, ``cmd_test``,
+``cmd_merge``, ``_serving_plan`` / ``cmd_serve``) without the parallel,
+health and quantize flags.
 
+    python -m paddle_tpu_torch.trainer.cli --config conf.py --job train \\
+        --save_dir ckpt --num_passes 3 [--device cuda]
+    python -m paddle_tpu_torch.trainer.cli --config conf.py --job merge \\
+        --save_dir ckpt --model_path m.ptmodel
     python -m paddle_tpu_torch.trainer.cli --config conf.py --job serve \\
-        [--init_model_path m.ptmodel] --max_batch 64 \\
-        --serving_length_buckets 32,64,128 --port 8000 [--device cuda]
+        --init_model_path m.ptmodel --max_batch 64 \\
+        --serving_length_buckets 32,64,128 --port 8000
 
 The config is a Python file that builds its graph with
-``paddle_tpu_torch.config.dsl`` and names ``feeding`` (data-layer name ->
-InputType) and ``outputs`` (the layers to serve) as module variables.
-Parameters come from a PTM1 merged model (``--init_model_path``, written
-by either package), else from a fresh initialisation seeded by
-``--seed``. The server runs on ``--device`` (``cuda`` unless the caller
-asks for ``cpu``); it prints one ``serving on http://host:port`` line when
-ready, and drains and exits 0 on SIGTERM.
+``paddle_tpu_torch.config.dsl`` and names, as module variables, ``cost``,
+``feeding`` (data-layer name -> InputType, or a ``DataFeeder``),
+``train_reader``/``test_reader`` and optionally ``optimizer`` (default
+``Momentum(learning_rate=0.01, momentum=0.9)``, as in the JAX package)
+and ``outputs`` (the layers to merge and serve).
+
+``--job train`` prints ``Pass N: cost=... classification_error=...`` at
+each pass end, saves ``checkpoint-p{pass:05d}-b00000000.npz`` into
+``--save_dir`` (the JAX package's file format and names), and ends with a
+``train_summary {...}`` JSON line: the kernel launch counts of the
+training loop and its wall ms per training step. ``--job test`` and
+``--job merge`` read ``--init_model_path`` (a ``.ptmodel`` or a checkpoint
+``.npz``), else the newest checkpoint of ``--save_dir``; merge writes a
+PTM1 file to ``--model_path``. Parameters otherwise come from a fresh initialisation
+seeded by ``--seed``. Every job runs on ``--device`` (``cuda`` unless the
+caller asks for ``cpu``); the server prints one ``serving on
+http://host:port`` line when ready, and drains and exits 0 on SIGTERM.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import statistics
 import sys
 
 import torch
@@ -28,11 +46,23 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.trainer.cli")
     p.add_argument("--config", required=True)
-    p.add_argument("--job", required=True, choices=["serve"],
-                   help="serve: answer /v1/score over HTTP (the only job "
-                        "ported so far)")
+    p.add_argument("--job", required=True,
+                   choices=["train", "test", "merge", "serve"],
+                   help="train: the training loop; test: the test reader's "
+                        "cost and evaluators; merge: write a PTM1 model; "
+                        "serve: answer /v1/score over HTTP")
     p.add_argument("--init_model_path", default=None,
-                   help="PTM1 merged model (.ptmodel) to serve")
+                   help="merged model (.ptmodel) or checkpoint (.npz) to "
+                        "start from; serve takes a .ptmodel")
+    p.add_argument("--save_dir", default=None,
+                   help="checkpoint directory (train) / source (test, "
+                        "merge)")
+    p.add_argument("--model_path", default=None,
+                   help="output path for --job=merge")
+    p.add_argument("--num_passes", type=int, default=1)
+    p.add_argument("--log_period", type=int, default=100)
+    p.add_argument("--test_period", type=int, default=0,
+                   help="run the test reader every N passes during train")
     p.add_argument("--seed", type=int, default=0,
                    help="parameter init seed when no model is given")
     p.add_argument("--device", default="cuda")
@@ -71,16 +101,14 @@ def _serving_plan(ns, args):
     from paddle_tpu_torch.config import dsl
     feeding = ns.get("feeding")
     if not isinstance(feeding, dict):
+        feeding = getattr(feeding, "feeding", None)
+    if not isinstance(feeding, dict):
         raise SystemExit("--job=serve needs the config to define "
                          "`feeding` (data-layer name -> InputType)")
-    outputs = ns.get("outputs")
-    if outputs:
-        names = [o.name if hasattr(o, "name") else o for o in outputs]
-    elif "cost" in ns:
-        names = [ns["cost"].name]
-    else:
+    if not ns.get("outputs") and "cost" not in ns:
         raise SystemExit("--job=serve needs the config to define "
                          "`outputs` (the layers to serve)")
+    names = _output_names(ns)
     graph = dsl.current_graph()
     max_batch = max(args.max_batch, 1)
     batch_buckets = [1]
@@ -114,6 +142,141 @@ def _serving_plan(ns, args):
     return graph, params, names, feeding, pred_kwargs, eng_kwargs
 
 
+def _build_trainer(ns, args):
+    from paddle_tpu_torch.optim import Momentum
+    from paddle_tpu_torch.trainer.trainer import SGD, Topology
+    if "cost" not in ns:
+        raise SystemExit(f"--job={args.job} needs the config to define "
+                         "`cost`")
+    topo = (ns["cost"] if isinstance(ns["cost"], Topology)
+            else Topology(ns["cost"]))
+    optimizer = ns.get("optimizer") or Momentum(learning_rate=0.01,
+                                                momentum=0.9)
+    trainer = SGD(cost=topo, update_equation=optimizer, seed=args.seed,
+                  device=args.device)
+    if args.init_model_path:
+        _load_into(trainer, args.init_model_path)
+    return trainer
+
+
+def _load_into(trainer, path):
+    """A merged model's parameters, or a checkpoint's parameters and
+    optimizer state, into ``trainer``."""
+    if path.endswith(".ptmodel"):
+        from paddle_tpu_torch.trainer.merge_model import load_merged_ex
+        _, params, _, extras = load_merged_ex(path)
+        if extras:
+            raise SystemExit(f"{path}: quantized merged models are not "
+                             "read by paddle_tpu_torch yet")
+        trainer.load_state(params)
+    else:
+        from paddle_tpu_torch.trainer.checkpoint import load_params
+        trainer.load_state(*load_params(path))
+
+
+def _restore(trainer, args):
+    """test/merge: without --init_model_path, the newest checkpoint of
+    --save_dir (if any) replaces the fresh parameters."""
+    if args.init_model_path or not args.save_dir:
+        return
+    from paddle_tpu_torch.trainer.checkpoint import latest_checkpoint
+    path = latest_checkpoint(args.save_dir)
+    if path is not None:
+        logging.getLogger("paddle_tpu_torch.cli").info(
+            "restored checkpoint %s", path)
+        _load_into(trainer, path)
+
+
+def _feeder(ns, device):
+    """The config's feeding as a DataFeeder whose batches land on
+    ``device``."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    feeding = ns.get("feeding")
+    if isinstance(feeding, dict):
+        return DataFeeder(feeding, device=device)
+    if not isinstance(feeding, DataFeeder):
+        raise SystemExit("the config must define `feeding` (data-layer name "
+                         "-> InputType, or a DataFeeder)")
+    feeding.device = torch.device(device)
+    return feeding
+
+
+def _output_names(ns):
+    outputs = ns.get("outputs")
+    if outputs:
+        return [o.name if hasattr(o, "name") else o for o in outputs]
+    return [ns["cost"].name]
+
+
+def _evals(evaluator):
+    return " ".join(f"{k}={v:.5g}" for k, v in evaluator.items())
+
+
+def cmd_train(ns, args) -> int:
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.trainer import events as ev
+    from paddle_tpu_torch.trainer.checkpoint import save_generation
+    reader = ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define `train_reader` for --job=train")
+    trainer = _build_trainer(ns, args)
+    feeder = _feeder(ns, args.device)
+    test_reader = ns.get("test_reader")
+
+    def handler(e):
+        if isinstance(e, ev.EndPass):
+            print(f"Pass {e.pass_id}: " + _evals(
+                {"cost": _pass_cost[0] / max(_pass_cost[1], 1),
+                 **e.evaluator}), flush=True)
+            _pass_cost[:] = [0.0, 0]
+            if args.save_dir:
+                save_generation(args.save_dir, e.pass_id, trainer.params,
+                                trainer.opt_state)
+            if (test_reader is not None and args.test_period
+                    and (e.pass_id + 1) % args.test_period == 0):
+                res = trainer.test(test_reader, feeder=feeder)
+                print(f"  Test: cost={res.cost:.5g} " + _evals(res.evaluator),
+                      flush=True)
+        elif isinstance(e, ev.EndIteration):
+            _pass_cost[0] += e.cost
+            _pass_cost[1] += 1
+
+    _pass_cost = [0.0, 0]
+    ops.reset_kernel_counts()  # the summary counts this loop's launches
+    trainer.train(reader, feeder=feeder, num_passes=args.num_passes,
+                  event_handler=handler, log_period=args.log_period)
+    steps_ms = [1e3 * s for s in trainer.step_seconds]
+    print("train_summary " + json.dumps({
+        "device": str(trainer.device), "steps": len(steps_ms),
+        "step_ms": steps_ms,
+        "median_step_ms": statistics.median(steps_ms) if steps_ms else None,
+        "kernels": ops.kernel_counts()}), flush=True)
+    return 0
+
+
+def cmd_test(ns, args) -> int:
+    trainer = _build_trainer(ns, args)
+    _restore(trainer, args)
+    reader = ns.get("test_reader") or ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define `test_reader` (or "
+                         "`train_reader`) for --job=test")
+    res = trainer.test(reader, feeder=_feeder(ns, args.device))
+    print(f"Test: cost={res.cost:.5g} " + _evals(res.evaluator), flush=True)
+    return 0
+
+
+def cmd_merge(ns, args) -> int:
+    from paddle_tpu_torch.trainer.merge_model import merge_model
+    trainer = _build_trainer(ns, args)
+    _restore(trainer, args)
+    out_path = args.model_path or "model.ptmodel"
+    merge_model(out_path, trainer.topology.graph, trainer.params,
+                outputs=_output_names(ns))
+    print(f"merged model written to {out_path}", flush=True)
+    return 0
+
+
 def build_serving_engine(ns, args):
     """One engine from the serving plan (tests and embedders build it
     without entering serve_forever)."""
@@ -136,12 +299,13 @@ def main(argv=None) -> int:
     if torch.device(args.device).type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(f"--device {args.device}: no CUDA device; "
-                             "pass --device cpu to serve on the CPU")
+                             "pass --device cpu to run on the CPU")
         # the f32 reference semantics: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     ns = load_config(args.config)
-    return {"serve": cmd_serve}[args.job](ns, args)
+    return {"train": cmd_train, "test": cmd_test, "merge": cmd_merge,
+            "serve": cmd_serve}[args.job](ns, args)
 
 
 if __name__ == "__main__":

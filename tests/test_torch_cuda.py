@@ -1,13 +1,17 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips where there is no
-NVIDIA GPU: a CUDA kernel has no CPU mode. The file imports neither JAX
-nor the JAX package, so it runs on a machine that has only PyTorch:
+"""The port's CUDA kernels (the LSTM recurrence in its primal and residual
+forms, the LSTM backward step, the Momentum and Adam updates) against
+their plain PyTorch versions, on the card. Every test here is marked
+``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
+mode. The file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py -q
 
-Tolerance rtol 1e-4 / atol 1e-5: the kernel sums h @ W in another order
-than cuBLAS, over K=H and T steps of recurrence.
+Tolerance rtol 1e-4 / atol 1e-5 for the LSTM forms (the kernel sums
+h @ W in another order than cuBLAS, over K=H and T steps of recurrence;
+the gradients per tensor, relative to the tensor's largest entry); the
+optimizer kernels' is stated at their test.
 """
 
 import numpy as np
@@ -59,3 +63,91 @@ def test_lstm_kernel_rejects_bad_inputs(cuda_device):
         tlstm.lstm_seq(ins[0].double(), *ins[1:])
     with pytest.raises(ValueError, match="shape"):
         tlstm.lstm_seq(ins[0], ins[1][:, :1].contiguous(), *ins[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(20, 33, 40), (6, 5, 96)])
+def test_lstm_residual_forward_and_backward_match_plain_on_card(
+        cuda_device, T, B, H):
+    """The residual forward kernel and the backward step kernel, through
+    ``LstmFunction``, against their plain versions on the card, at widths
+    that do not fill a tile."""
+    ins = [torch.from_numpy(a).to(cuda_device)
+           for a in _inputs(T, B, H, seed=3 * B + H)]
+    xs, mask, w, pI, pF, pO, h0, c0 = ins
+    before = (tlstm.lstm_seq_train.launches, tlstm.lstm_bwd_step.launches)
+    got = tlstm.lstm_seq_train(*ins)
+    torch.cuda.synchronize()
+    want = tlstm.lstm_sequence_residual_plain(*ins)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-5)
+    rng = np.random.default_rng(B)
+    dys, dhT, dcT = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(cuda_device) for s in ((T, B, H), (B, H), (B, H)))
+    _, hs, cs, gates = got
+    res = (mask, w, pI, pF, pO, h0, c0, hs, cs, gates)
+    got_b = tlstm.lstm_backward(*res, dys, dhT, dcT)
+    torch.cuda.synchronize()
+    assert tlstm.lstm_seq_train.launches == before[0] + 1
+    assert tlstm.lstm_bwd_step.launches == before[1] + T
+    want_b = tlstm.lstm_backward(*res, dys, dhT, dcT,
+                                 step=tlstm.lstm_bwd_step_plain)
+    for name, g, w_ in zip(("dxs", "dW", "dpI", "dpF", "dpO", "dh0", "dc0"),
+                           got_b, want_b):
+        # per tensor: the sums over T*B rows make elementwise rtol
+        # meaningless for entries near zero
+        err = (g - w_).abs().max().item()
+        assert err <= 1e-4 * w_.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 1025, 4099])
+def test_optimizer_kernels_match_apply_one_on_card(cuda_device, n):
+    """Momentum and Adam kernels against ``_apply_one`` on the same card
+    tensors, at sizes with a scalar tail. The kernels spell every
+    operation with a round-to-nearest intrinsic in the plain chain's
+    order, so they agree to the last bit or within 1e-6 relative."""
+    from paddle_tpu_torch.kernels import opt_update
+    from paddle_tpu_torch.optim import Adam, Momentum
+    rng = np.random.default_rng(n)
+    p, g, m, v = (torch.from_numpy(rng.normal(size=(n,)).astype(np.float32))
+                  .to(cuda_device) for _ in range(4))
+    v = v.abs()
+    mo = Momentum(momentum=0.9)
+    before = opt_update.momentum.launches
+    got = opt_update.momentum(mo, p, g, {"mom": m}, 0.05, 1e-3)
+    assert opt_update.momentum.launches == before + 1
+    want = mo._apply_one(p, g, {"mom": m}, 0.05, 1e-3, 0)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    ad = Adam()
+    got = opt_update.adam(ad, p, g, {"mom": m, "v": v}, 2e-3, 1e-3, 3)
+    want = ad._apply_one(p, g, {"mom": m, "v": v}, 2e-3, 1e-3, 3)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_training_kernels_reject_bad_inputs(cuda_device):
+    from paddle_tpu_torch.kernels import opt_update
+    from paddle_tpu_torch.optim import Adam
+    ins = [torch.from_numpy(a).to(cuda_device)
+           for a in _inputs(4, 2, 8, seed=0)]
+    with pytest.raises(ValueError, match="float32"):
+        tlstm.lstm_seq_train(ins[0].double(), *ins[1:])
+    xs_nc = ins[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlstm.lstm_seq_train(xs_nc, *ins[1:])
+    B, H = 2, 8
+    z = torch.zeros(B, H, device=cuda_device)
+    step = [z, torch.ones(B, device=cuda_device),
+            torch.zeros(B, 4 * H, device=cuda_device), z, z,
+            *(torch.zeros(H, device=cuda_device) for _ in range(3)),
+            z, z.clone(), z.clone(), torch.zeros(B, 4 * H,
+                                                 device=cuda_device)]
+    with pytest.raises(ValueError, match="float32"):
+        tlstm.lstm_bwd_step(step[0].double(), *step[1:])
+    p = torch.zeros(6, 4, device=cuda_device)
+    slots = {"mom": torch.zeros_like(p), "v": torch.zeros_like(p)}
+    with pytest.raises(ValueError, match="float32"):
+        opt_update.adam(Adam(), p.double(), p.double(), slots, 0.1, 0.0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        opt_update.adam(Adam(), p.t(), p.t(), slots, 0.1, 0.0, 1)
