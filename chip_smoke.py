@@ -10,8 +10,9 @@ non-zero without the result line:
 1. device: a CUDA card is required (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
-   csrc``: ``lstm_seq.cu``, ``opt_update.cu``; one nvcc per source,
-   started together) and prints the seconds and the register report.
+   csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``; one nvcc
+   per source, started together) and prints the seconds and the register
+   report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
@@ -23,11 +24,23 @@ non-zero without the result line:
    gradient, per tensor within 1e-4 of the tensor's largest entry + 1e-5:
    sums over T*B rows) against their plain versions; reverse through
    ``LstmFunction`` at (64, 1280); the Momentum and Adam kernels against
-   ``_apply_one`` at every parameter size of the h=1280 model and at 1, 7
-   and 1025 elements (rtol 1e-6 / atol 1e-7: the kernels take the plain
-   chain's roundings). Kernel and plain times are CUDA events, median of
-   10 calls after warmup, beside the bound.
-5. train: ``lstm_text_classifier`` at its widest published width (vocab
+   ``_apply_one`` at every parameter size of both trained models (the
+   h=1280 classifier, the full-width seq2seq) and at 1, 7 and 1025
+   elements (rtol 1e-6 / atol 1e-7: the kernels take the plain chain's
+   roundings). Kernel and plain times are CUDA events, median of 10 calls
+   after warmup, beside the bound.
+5. GRU kernel check: at every GRU_SHAPES (batch, hidden, T) — the seq2seq
+   path's (50, 512, 50), (64, 256, 100) and (1, 512, 50) — with a ragged
+   mask, nonzero h0 and the two non-contiguous column slices of one w0
+   [H, 3H] as the weights: the primal kernel in both directions and the
+   residual kernel (ys, hT; hs, gates) within rtol 1e-4 / atol 1e-5 of the
+   plain versions, and every gradient through ``GruFunction`` (both
+   directions; the backward step kernels) per tensor within 1e-4 of the
+   largest entry + 1e-5 of autograd through the plain loop, and of the
+   backward with the plain step. The GRU cell at (50, 512) and
+   (1, 512): both entries' forward against the plain math, the gradient
+   likewise. Times and bounds as in phase 4.
+6. train: ``lstm_text_classifier`` at its widest published width (vocab
    30000, embed 128, hidden 1280, 2 LSTM layers, 2 classes) trained by
    ``python -m paddle_tpu_torch.trainer.cli --job train`` with
    ``Adam(learning_rate=2e-3)`` for 3 passes over 4 fixed batches of 64
@@ -43,15 +56,27 @@ non-zero without the result line:
    + 1e-6 (float32 through 100 recurrent steps each way; the plain path
    in float64 is reported beside both as the exact reference); then
    ``--job merge`` of the save dir.
-6. serve: the merged trained model served by ``--job serve`` (max_batch
+7. serve: the merged trained model served by ``--job serve`` (max_batch
    64, length buckets 32,64,128). Single samples and a rows batch of
    lengths 1-100 must answer softmax rows that sum to 1, repeat
    identically, match the port's plain path run on the CPU from the same
    file, and go through the kernel (its launch count, read from the
    server's /healthz before and after the requests, grows). SIGTERM must
    drain the server to exit 0.
-7. kernels: one JSON line ``{"kernels": [...]}`` for every ported kernel,
-   with the launches of the main path (phases 5 and 6).
+8. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
+   width (dicts 30000, embed 512, hidden 512) trained by ``--job train``
+   with ``Adam(learning_rate=5e-4)`` for 3 passes over 4 fixed batches of
+   50 (source lengths uniform in 10-50, padded to 50; ids from the seed;
+   the target is the source reversed): the cost must be finite and fall
+   from pass 0 to pass 2, and the fresh process's counts must show the
+   residual GRU kernel, the backward step kernels, the GRU cell and Adam
+   launched. Then the
+   full-width gradients (8 rows) from the trained checkpoint, card
+   against CPU as in phase 6, and ``--job test`` of the checkpoint on the
+   card, whose counts must show the primal GRU kernel and the cell's
+   inference entry launched.
+9. kernels: one JSON line ``{"kernels": [...]}`` for every ported kernel,
+   with the launches of the main paths (phases 6, 7 and 8).
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -76,10 +101,12 @@ import time
 import numpy as np
 import torch
 
+from paddle_tpu_torch.kernels import rnn_cells as C
 from paddle_tpu_torch.ops import build
+from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
-SOURCES = ["lstm_seq", "opt_update"]
+SOURCES = ["lstm_seq", "gru_seq", "opt_update"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -99,6 +126,16 @@ LENGTH_BUCKETS = [32, 64, 128]
 # the shapes the serving path hands the kernel: (batch, T) at hidden 1280
 SERVE_SHAPES = [(1, 32), (64, 128)]
 SEED = 2017
+# seq2seq_attention at the seqToseq demo's published width (wmt14 dicts of
+# 30000, word vectors and encoder/decoder of 512), trained as its
+# train.conf does: batch 50, Adam(5e-4)
+S2S = dict(src_vocab=30000, trg_vocab=30000, embed_dim=512, hidden=512)
+S2S_BATCH, S2S_BATCHES, S2S_PASSES, S2S_LEN = 50, 4, 3, 50
+S2S_MIN_LEN = 10
+S2S_GRAD_ROWS = 8
+# GRU kernel check shapes (B, H, T): the path's own, a longer one, batch 1
+GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50)]
+GRU_CELL_SHAPES = [(50, 512), (1, 512)]
 
 
 def phase(title: str, **kv):
@@ -244,6 +281,17 @@ def _grad_err(got, want):
             1e-4 * want.abs().max().item() + 1e-5)
 
 
+def _check_grads(where, got, want, names):
+    err = 0.0
+    for name, g, w in zip(names, got, want):
+        e, limit = _grad_err(g, w)
+        if not (e <= limit):
+            raise AssertionError(f"{where} d{name}: max abs err {e} > "
+                                 f"{limit}")
+        err = max(err, e)
+    return err
+
+
 def _residual_args(a):
     return ((a["xs"] + a["bias"]).contiguous(), a["mask"], a["w"], a["pI"],
             a["pF"], a["pO"], a["h0"], a["c0"])
@@ -283,14 +331,8 @@ def check_train_shape(B, H, T, seed):
     got_b = L.lstm_backward(*res, *cot)
     torch.cuda.synchronize()
     want_b = L.lstm_backward(*res, *cot, step=L.lstm_bwd_step_plain)
-    bwd_err = 0.0
-    for name, g, w in zip(("dxs", "dW", "dpI", "dpF", "dpO", "dh0", "dc0"),
-                          got_b, want_b):
-        err, limit = _grad_err(g, w)
-        if not (err <= limit):
-            raise AssertionError(f"B={B} H={H} T={T} backward {name}: "
-                                 f"max abs err {err} > {limit}")
-        bwd_err = max(bwd_err, err)
+    bwd_err = _check_grads(f"B={B} H={H} T={T} backward", got_b, want_b,
+                           ("xs", "W", "pI", "pF", "pO", "h0", "c0"))
     step = _bwd_step_args(res, cot)
     row = dict(
         B=B, H=H, T=T, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
@@ -333,31 +375,32 @@ def check_reverse(B, H, T, seed):
         cs, gates, dys.flip(0), dhT, dcT, step=L.lstm_bwd_step_plain)
     want = (dxs.flip(0), dW, dxs.sum(dim=(0, 1)), dpI, dpF, dpO, dh0, dc0)
     torch.testing.assert_close(ys, w_ys.flip(0), **TOL)
-    err = 0.0
-    for name, g, w in zip(names, got, want):
-        e, limit = _grad_err(g, w)
-        if not (e <= limit):
-            raise AssertionError(f"reverse B={B} H={H} d{name}: max abs err "
-                                 f"{e} > {limit}")
-        err = max(err, e)
+    err = _check_grads(f"reverse B={B} H={H}", got, want, names)
     phase("train_kernel_check_reverse", B=B, H=H, T=T, max_abs_err=err)
     return err
 
 
 def _model_param_sizes():
+    """Every parameter size of the h=1280 LSTM classifier and of the
+    full-width seq2seq model."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.network import Network
     from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
-    dsl.reset()
-    cost, _, _ = lstm_text_classifier(**MODEL)
-    specs = Network(dsl.current_graph(), outputs=[cost.name]).param_specs
-    return {int(np.prod(s.shape)) for s in specs.values()}
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    sizes = set()
+    for build_model in (lambda: lstm_text_classifier(**MODEL),
+                        lambda: seq2seq_attention(**S2S)):
+        dsl.reset()
+        cost = build_model()[0]
+        specs = Network(dsl.current_graph(), outputs=[cost.name]).param_specs
+        sizes |= {int(np.prod(s.shape)) for s in specs.values()}
+    return sizes
 
 
 def check_optimizer_kernels():
     """Momentum and Adam against ``_apply_one`` on the same card tensors,
-    at every parameter size of the model and at 1, 7 and 1025; timed at
-    the largest size."""
+    at every parameter size of both trained models and at 1, 7 and 1025;
+    timed at the largest size."""
     from paddle_tpu_torch.kernels import opt_update
     from paddle_tpu_torch.optim import Adam, Momentum
     sizes = sorted(_model_param_sizes() | {1, 7, 1025})
@@ -406,7 +449,173 @@ def check_train_kernels():
     return rows, reverse_err, check_optimizer_kernels()
 
 
-# ------------------------------------------------------------- 5. train
+# --------------------------------------------------- 5. GRU kernel check
+def _gru_inputs(B, H, T, seed):
+    """xs [T,B,3H], a ragged mask, bias, h0, and the two column slices of
+    one w0 [H,3H]: non-contiguous views, as the layers pass them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    lens[0] = T
+    mask = (torch.arange(T, device="cuda")[:, None] < lens[None, :]).float()
+    w0 = randn(H, 3 * H, scale=H ** -0.5)
+    return dict(xs=randn(T, B, 3 * H), mask=mask.contiguous(),
+                wg=w0[:, :2 * H], ws=w0[:, 2 * H:],
+                bias=randn(3 * H, scale=0.1), h0=randn(B, H, scale=0.5))
+
+
+def _gru_bound_ms(B, H, T, residuals=False):
+    """The recurrence: its two products, 2*B*H*3H per step; xs, mask, W,
+    h0 in, ys and hT (or the residuals hs and gates) out."""
+    outs = (T * B * H + T * B * 3 * H) if residuals else B * H
+    return _bound(2.0 * B * H * 3 * H * T,
+                  4 * (T * B * 3 * H + T * B + 3 * H * H + B * H
+                       + T * B * H + outs))
+
+
+def check_gru_shape(B, H, T, seed):
+    """Primal and residual forward against the plain versions (both
+    directions through ``gru_sequence``); every gradient through
+    ``GruFunction`` against autograd of the plain loop; times."""
+    a = _gru_inputs(B, H, T, seed)
+    if a["wg"].is_contiguous() or a["ws"].is_contiguous():
+        raise AssertionError("the GRU check must pass strided w0 slices")
+    fwd_err, bwd_err = 0.0, 0.0
+    names = ("xs", "wg", "ws", "bias", "h0")
+    for reverse in (False, True):
+        with torch.no_grad():
+            got = G.gru_sequence(a["xs"], a["mask"], a["wg"], a["ws"],
+                                 a["bias"], a["h0"], reverse=reverse)
+        leaves = {k: a[k].detach().clone().requires_grad_(True)
+                  for k in names}
+        xs_p, m_p = ((leaves["xs"].flip(0), a["mask"].flip(0)) if reverse
+                     else (leaves["xs"], a["mask"]))
+        ys_p, hT_p = G.gru_sequence_plain(xs_p + leaves["bias"], m_p,
+                                          leaves["wg"], leaves["ws"],
+                                          leaves["h0"])
+        want = (ys_p.flip(0) if reverse else ys_p, hT_p)
+        for name, g, w in zip(("ys", "hT"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"GRU B={B} H={H}: {name} not finite")
+            fwd_err = max(fwd_err, (g - w).abs().max().item())
+            torch.testing.assert_close(
+                g, w.detach(), **TOL, msg=lambda m: f"GRU B={B} H={H} T={T} "
+                f"reverse={reverse} {name}: {m}")
+        gen = torch.Generator(device="cuda").manual_seed(seed + reverse)
+        dys = torch.randn(want[0].shape, generator=gen, device="cuda")
+        dhT = torch.randn(want[1].shape, generator=gen, device="cuda")
+        want_g = torch.autograd.grad(
+            (want[0] * dys).sum() + (want[1] * dhT).sum(),
+            [leaves[k] for k in names])
+        kl = {k: a[k].detach().clone().requires_grad_(True) for k in names}
+        ys, hT = G.gru_sequence(kl["xs"], a["mask"], kl["wg"], kl["ws"],
+                                kl["bias"], kl["h0"], reverse=reverse)
+        got_g = torch.autograd.grad((ys * dys).sum() + (hT * dhT).sum(),
+                                    [kl[k] for k in names])
+        torch.cuda.synchronize()
+        bwd_err = max(bwd_err, _check_grads(
+            f"GRU B={B} H={H} T={T} reverse={reverse}", got_g, want_g,
+            names))
+    xs_b = (a["xs"] + a["bias"]).contiguous()
+    args = (xs_b, a["mask"], a["wg"], a["ws"], a["h0"])
+    res_got = G.gru_seq_train(*args)
+    torch.cuda.synchronize()
+    res_want = G.gru_sequence_residual_plain(*args)
+    for name, g, w in zip(("ys", "hs", "gates"), res_got, res_want):
+        fwd_err = max(fwd_err, (g - w).abs().max().item())
+        torch.testing.assert_close(
+            g, w, **TOL, msg=lambda m: f"GRU residual B={B} H={H} T={T} "
+            f"{name}: {m}")
+    _, hs, gates = res_got
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dys = torch.randn(T, B, H, generator=gen, device="cuda")
+    dhT = torch.randn(B, H, generator=gen, device="cuda")
+    res = (a["mask"], a["wg"], a["ws"], a["h0"], hs, gates, dys, dhT)
+    got_b = G.gru_backward(*res)
+    torch.cuda.synchronize()
+    bwd_err = max(bwd_err, _check_grads(
+        f"GRU backward step B={B} H={H} T={T}", got_b,
+        G.gru_backward(*res, step=G.gru_bwd_step_plain),
+        ("xs", "wg", "ws", "h0")))
+    # one reverse step (the last), on copies of its in-place operands
+    h_pv = hs[-2] if T > 1 else a["h0"]
+    step = lambda fn: fn(dys[-1], a["mask"][-1], gates[-1], h_pv, a["wg"],
+                         a["ws"], dhT.clone(), torch.empty_like(dhT),
+                         torch.empty_like(gates[-1]))
+    row = dict(
+        B=B, H=H, T=T, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+        ms=_time_ms(lambda: G.gru_seq(*args)),
+        plain_ms=_time_ms(lambda: G.gru_sequence_plain(*args)),
+        train_ms=_time_ms(lambda: G.gru_seq_train(*args)),
+        train_plain_ms=_time_ms(lambda: G.gru_sequence_residual_plain(*args)),
+        bwd_ms=_time_ms(lambda: G.gru_backward(*res)),
+        bwd_plain_ms=_time_ms(lambda: G.gru_backward(
+            *res, step=G.gru_bwd_step_plain)),
+        step_ms=_time_ms(lambda: step(G.gru_bwd_step), reps=50),
+        step_plain_ms=_time_ms(lambda: step(G.gru_bwd_step_plain), reps=50))
+    row["bound_ms"], row["bound_by"] = _gru_bound_ms(B, H, T)
+    row["train_bound_ms"], row["train_bound_by"] = _gru_bound_ms(B, H, T,
+                                                                 True)
+    # one backward step: dy, mask, gates, h_prev, dh, Wg, Ws in; dh, dxs,
+    # drh out; the products 2*B*H*H and 2*B*2H*H plus ~25 operations per
+    # element
+    row["step_bound_ms"], row["step_bound_by"] = _bound(
+        6.0 * B * H * H + 25.0 * B * H,
+        4 * (B + 6 * B * H + 3 * H * H + 5 * B * H))
+    phase("gru_kernel_check", **row)
+    return row
+
+
+def check_gru_cell(B, H, seed):
+    """The cell's kernel (training and inference entries) against the
+    plain math on strided w0 slices; its recompute backward against
+    autograd of the plain math; times of one step."""
+    a = _gru_inputs(B, H, 1, seed)
+    x = a["xs"][0].contiguous()
+    names = ("x", "h", "wg", "ws")
+    base = dict(x=x, h=a["h0"], wg=a["wg"], ws=a["ws"])
+    plain = {k: v.detach().clone().requires_grad_(True)
+             for k, v in base.items()}
+    kern = {k: v.detach().clone().requires_grad_(True)
+            for k, v in base.items()}
+    want = C.gru_cell_plain(*(plain[k] for k in names))
+    got = C.gru_cell(*(kern[k] for k in names))
+    with torch.no_grad():
+        got_i = C.gru_cell_infer(x, a["h0"], a["wg"], a["ws"])
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g in (("gru_cell", got), ("gru_cell_infer", got_i)):
+        err = max(err, (g - want).abs().max().item())
+        torch.testing.assert_close(g.detach(), want.detach(), **TOL,
+                                   msg=lambda m: f"{name} B={B} H={H}: {m}")
+    dout = torch.randn_like(want)
+    bwd_err = _check_grads(
+        f"gru_cell B={B} H={H}",
+        torch.autograd.grad(got, [kern[k] for k in names], dout),
+        torch.autograd.grad(want, [plain[k] for k in names], dout), names)
+    args = (x, a["h0"], a["wg"], a["ws"])
+    with torch.no_grad():
+        row = dict(B=B, H=H, max_abs_err=err, bwd_max_abs_err=bwd_err,
+                   ms=_time_ms(lambda: C.gru_cell_infer(*args)),
+                   plain_ms=_time_ms(lambda: C.gru_cell_plain(*args)))
+    # x, h, W in; h_new out; the two products 2*B*H*3H
+    row["bound_ms"], row["bound_by"] = _bound(
+        2.0 * B * H * 3 * H, 4 * (B * 3 * H + 2 * B * H + 3 * H * H))
+    phase("gru_cell_check", **row)
+    return row
+
+
+def check_gru_kernels():
+    rows = [check_gru_shape(B, H, T, seed=3 * B + H + T)
+            for B, H, T in GRU_SHAPES]
+    cells = [check_gru_cell(B, H, seed=B + 11 * H) for B, H in GRU_CELL_SHAPES]
+    return rows, cells
+
+
+# ------------------------------------------------------------- 6. train
 def _write_config(path, optimizer):
     with open(path, "w") as f:
         f.write(textwrap.dedent(f"""
@@ -452,7 +661,7 @@ def _cli(args, timeout):
     return res.stdout
 
 
-def _train_run(conf, passes, save_dir=None):
+def _train_run(conf, passes, save_dir=None, batches=TRAIN_BATCHES):
     """One ``--job train`` process: (per-pass costs, train_summary)."""
     args = ["--config", conf, "--job", "train", "--num_passes", str(passes),
             "--seed", str(SEED)]
@@ -463,44 +672,32 @@ def _train_run(conf, passes, save_dir=None):
              for ln in out.splitlines() if ln.startswith("Pass ")]
     summary = json.loads(next(ln for ln in out.splitlines()
                               if ln.startswith("train_summary "))[14:])
-    if len(costs) != passes or summary["steps"] != passes * TRAIN_BATCHES:
+    if len(costs) != passes or summary["steps"] != passes * batches:
         raise AssertionError(f"train run printed {costs}, {summary}")
     return costs, summary
 
 
-def check_full_width_grads(save_dir):
-    """One batch's loss and every parameter gradient from the trained
-    checkpoint: the card (kernels) against the plain path on the CPU,
-    per tensor ``max|g_card - g_cpu| <= 1e-3 * max|g_cpu| + 1e-6``: both
-    are float32 through 100 recurrent steps each way, with every sum in
-    another order. The same plain path in float64 on the CPU is the
+def _grads_card_vs_cpu(build_model, save_dir, feed, optimizer):
+    """One batch's loss and every parameter gradient from the newest
+    checkpoint of ``save_dir``: the card (kernels) against the plain path
+    on the CPU, per tensor ``max|g_card - g_cpu| <= 1e-3 * max|g_cpu| +
+    1e-6``: both are float32 through every recurrent step, with every sum
+    in another order. The same plain path in float64 on the CPU is the
     reference that shows how far each float32 result is from the exact
     one (``err64``)."""
     from paddle_tpu_torch.config import dsl
-    from paddle_tpu_torch.data.feeder import DataFeeder
-    from paddle_tpu_torch.data.types import (integer_value,
-                                             integer_value_sequence)
-    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
-    from paddle_tpu_torch.optim import Adam
     from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
                                                      load_params)
     from paddle_tpu_torch.trainer.trainer import SGD
     dsl.reset()
-    cost, _, _ = lstm_text_classifier(**MODEL)
+    cost = build_model()[0]
     params, _ = load_params(latest_checkpoint(save_dir))
-    rng = np.random.default_rng(SEED + 1)
-    batch = [(rng.integers(0, MODEL["vocab_size"], size=int(n)).tolist(),
-              int(rng.integers(0, MODEL["classes"])))
-             for n in rng.integers(1, SEQLEN + 1, size=GRAD_CHECK_ROWS)]
-    feed = DataFeeder({"words": integer_value_sequence(MODEL["vocab_size"]),
-                       "label": integer_value(MODEL["classes"])},
-                      pad_multiple=SEQLEN, device="cpu")(batch)
     runs = {}
     for key, device, dtype in (("cuda", "cuda", torch.float32),
                                ("cpu", "cpu", torch.float32),
                                ("cpu64", "cpu", torch.float64)):
         trainer = SGD(cost, parameters=params, device=device,
-                      update_equation=Adam(learning_rate=2e-3))
+                      update_equation=optimizer)
         trainer.params = {k: v.to(dtype) for k, v in trainer.params.items()}
         t0 = time.perf_counter()
         _, loss, grads = trainer.loss_and_grads(trainer._to_device(feed))
@@ -523,9 +720,29 @@ def check_full_width_grads(save_dir):
         if not (err <= limit):
             raise AssertionError(f"gradient {name}: max abs err {err} > "
                                  f"{limit} ({errs[name]})")
-    return dict(rows=GRAD_CHECK_ROWS, loss_cuda=loss_g, loss_cpu=loss_c,
+    return dict(loss_cuda=loss_g, loss_cpu=loss_c,
                 loss_cpu64=runs["cpu64"][0], grads=errs,
                 seconds={k: v[2] for k, v in runs.items()})
+
+
+def check_full_width_grads(save_dir):
+    """The LSTM classifier's full-width gradients (16 rows, lengths 1-100)
+    from the trained checkpoint, card against CPU."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.optim import Adam
+    rng = np.random.default_rng(SEED + 1)
+    batch = [(rng.integers(0, MODEL["vocab_size"], size=int(n)).tolist(),
+              int(rng.integers(0, MODEL["classes"])))
+             for n in rng.integers(1, SEQLEN + 1, size=GRAD_CHECK_ROWS)]
+    feed = DataFeeder({"words": integer_value_sequence(MODEL["vocab_size"]),
+                       "label": integer_value(MODEL["classes"])},
+                      pad_multiple=SEQLEN, device="cpu")(batch)
+    return dict(rows=GRAD_CHECK_ROWS, **_grads_card_vs_cpu(
+        lambda: lstm_text_classifier(**MODEL), save_dir, feed,
+        Adam(learning_rate=2e-3)))
 
 
 def train(tmp):
@@ -560,7 +777,186 @@ def train(tmp):
     return result, conf, model
 
 
-# ------------------------------------------------------------- 6. serve
+# ----------------------------------------------------- 7. seq2seq train
+_S2S_SAMPLES = """
+def samples(rng, n):
+    # source ids past 0 = <s> and 1 = </s>, lengths {lo}-{hi}; the target
+    # is the source reversed, fed as <s> + target[:-1] and predicted whole
+    out = []
+    for length in rng.integers({lo}, {hi} + 1, size=n):
+        src = rng.integers(2, {vocab}, size=int(length)).tolist()
+        trg = src[::-1]
+        out.append((src, [0] + trg[:-1], trg))
+    return out
+""".format(lo=S2S_MIN_LEN, hi=S2S_LEN, vocab=S2S["src_vocab"])
+
+
+def _s2s_samples(rng, n):
+    ns = {}
+    exec(_S2S_SAMPLES, ns)
+    return ns["samples"](rng, n)
+
+
+def _s2s_feeding():
+    from paddle_tpu_torch.data.types import integer_value_sequence
+    return {"source_words": integer_value_sequence(S2S["src_vocab"]),
+            "target_words": integer_value_sequence(S2S["trg_vocab"]),
+            "target_next": integer_value_sequence(S2S["trg_vocab"])}
+
+
+def _write_s2s_config(path):
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import integer_value_sequence
+            from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+            from paddle_tpu_torch.optim import Adam
+            cost, probs, _ = seq2seq_attention(**{S2S!r})
+            optimizer = Adam(learning_rate=5e-4)
+            feeding = DataFeeder(
+                {{"source_words": integer_value_sequence({S2S['src_vocab']}),
+                  "target_words": integer_value_sequence({S2S['trg_vocab']}),
+                  "target_next": integer_value_sequence({S2S['trg_vocab']})}},
+                pad_multiple={S2S_LEN})
+        """) + _S2S_SAMPLES + textwrap.dedent(f"""
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({S2S_BATCHES}):
+                    yield samples(rng, {S2S_BATCH})
+
+            def test_reader():
+                rng = np.random.default_rng({SEED + 2})
+                for _ in range(2):
+                    yield samples(rng, {S2S_BATCH})
+        """))
+
+
+def _s2s_step_split(save_dir):
+    """Where one full-width seq2seq training step's time goes, on the card
+    from the trained checkpoint, for one batch of S2S_BATCH rows (host
+    clock, each part ending in a synchronise; median of 3 after one warm
+    step): the encoder's forward alone (embedding, both GRU kernels, the
+    projections), the whole forward (the recurrent group's Python loop on
+    top), the backward and the Adam update; and, from one step under
+    ``torch.profiler``, the device's busy time (every kernel's device
+    time summed), its idle share and the five kernels that take most."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = seq2seq_attention(**S2S)[0]
+    params, _ = load_params(latest_checkpoint(save_dir))
+    tr = SGD(cost, parameters=params, device="cuda",
+             update_equation=Adam(learning_rate=5e-4))
+    encoder = Network(tr.topology.graph,
+                      outputs=["encoded_proj", "decoder_boot"])
+    feed = tr._to_device(DataFeeder(
+        _s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
+        _s2s_samples(np.random.default_rng(SEED), S2S_BATCH)))
+
+    def step(times=None, encoder_alone=True):
+        t0 = time.perf_counter()
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in tr.params.items()}
+        if encoder_alone:
+            encoder.apply(leaves, feed, train=True)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = tr._total_cost(tr.network.apply(leaves, feed, train=True))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.params, tr.opt_state = tr.optimizer.update(
+            grads, tr.opt_state, tr.params, tr.meta, batch_size=S2S_BATCH)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if times is not None:
+            for k, v in (("encoder_fwd_ms", t1 - t0), ("fwd_ms", t2 - t1),
+                         ("bwd_ms", t3 - t2), ("update_ms", t4 - t3)):
+                times.setdefault(k, []).append(1e3 * v)
+
+    step()
+    times = {}
+    for _ in range(3):
+        step(times)
+    split = {k: statistics.median(v) for k, v in times.items()}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(encoder_alone=False)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side events only: a CPU op's own entry repeats the device
+    # time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    split.update(
+        profiled_step_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+        top_kernels=[dict(name=e.key[:80], ms=1e-3 * e.self_device_time_total,
+                          count=e.count) for e in top])
+    return split
+
+
+def train_seq2seq(tmp):
+    """--job train of the full-width seq2seq model (Adam(5e-4), 3 passes,
+    --save_dir), the full-width gradient check card vs CPU, and --job test
+    of the trained checkpoint on the card."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "seq2seq_conf.py")
+    _write_s2s_config(conf)
+    save_dir = os.path.join(tmp, "s2s_ckpt")
+    costs, summary = _train_run(conf, S2S_PASSES, save_dir,
+                                batches=S2S_BATCHES)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"seq2seq pass costs {costs} do not fall")
+    counts = summary["kernels"]
+    for name in ("gru_seq_train", "gru_bwd_step", "gru_cell", "adam"):
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"seq2seq --job train never launched "
+                                 f"{name}")
+    feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
+        _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
+    grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
+        lambda: seq2seq_attention(**S2S), save_dir, feed,
+        Adam(learning_rate=5e-4)))
+    split = _s2s_step_split(save_dir)
+    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
+               timeout=600)
+    test_cost = float(out.split("Test: cost=")[1].split()[0])
+    test_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("test_summary "))[13:])[
+        "kernels"]
+    if not np.isfinite(test_cost):
+        raise AssertionError(f"--job test cost {test_cost}")
+    for name in ("gru_seq", "gru_cell_infer"):
+        if test_counts[name]["launches"] <= 0:
+            raise AssertionError(f"seq2seq --job test never launched {name}")
+    result = dict(pass_costs=costs, steps=summary["steps"],
+                  median_step_ms=summary["median_step_ms"],
+                  step_ms=summary["step_ms"], kernels=counts,
+                  grad_check=grads, step_split=split, test_cost=test_cost,
+                  test_kernels=test_counts)
+    phase("seq2seq_train", **result)
+    return result
+
+
+# ------------------------------------------------------------- 8. serve
 def _batch_buckets(max_batch):
     """The serve CLI's menu: powers of two up to max_batch."""
     out = [1]
@@ -709,19 +1105,30 @@ def main() -> int:
     build_kernels()
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
+    gru_rows, cell_rows = check_gru_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained, conf, model = train(tmp)
         served = serve(tmp, conf, model)
+        s2s = train_seq2seq(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
     # the training path's shape: batch 64 at h=1280, T=100
     t_row = next(r for r in train_rows
                  if (r["B"], r["H"]) == (TRAIN_BATCH, MODEL["hidden"]))
+    # the seq2seq path's shapes: batch 50 at h=512, T=50
+    g_row = next(r for r in gru_rows
+                 if (r["B"], r["H"], r["T"]) == (S2S_BATCH, S2S["hidden"],
+                                                 S2S_LEN))
+    c_row = next(r for r in cell_rows if r["B"] == S2S_BATCH)
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
+    gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
     counts = trained["kernels"]
+    s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
+    gru_fwd_err = max(r["fwd_max_abs_err"] for r in gru_rows)
+    cell_err = max(r["max_abs_err"] for r in cell_rows)
     entries = [
         dict(_entry("lstm_seq", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     served["launches"],
@@ -739,13 +1146,35 @@ def main() -> int:
                     max([r["bwd_max_abs_err"] for r in train_rows]
                         + [reverse_err]), t_row, "step_"),
              shape={"B": t_row["B"], "H": t_row["H"], "T": 1}),
+        dict(_entry("gru_seq", gru_src, "paddle_tpu/ops/gru.py:57",
+                    s2s_test["gru_seq"]["launches"], gru_fwd_err, g_row),
+             shape={k: g_row[k] for k in ("B", "H", "T")}),
+        dict(_entry("gru_seq_train", gru_src, "paddle_tpu/ops/gru.py:57",
+                    s2s_counts["gru_seq_train"]["launches"], gru_fwd_err,
+                    g_row, "train_"),
+             shape={k: g_row[k] for k in ("B", "H", "T")}),
+        dict(_entry("gru_bwd_step", gru_src,
+                    "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
+                    s2s_counts["gru_bwd_step"]["launches"],
+                    max(r["bwd_max_abs_err"] for r in gru_rows), g_row,
+                    "step_"),
+             shape={"B": g_row["B"], "H": g_row["H"], "T": 1}),
+        dict(_entry("gru_cell", gru_src,
+                    "paddle_tpu/kernels/rnn_cells.py:171",
+                    s2s_counts["gru_cell"]["launches"], cell_err, c_row),
+             shape={"B": c_row["B"], "H": c_row["H"]}),
+        dict(_entry("gru_cell_infer", gru_src,
+                    "paddle_tpu/kernels/rnn_cells.py:171",
+                    s2s_test["gru_cell_infer"]["launches"], cell_err, c_row),
+             shape={"B": c_row["B"], "H": c_row["H"]}),
         dict(_entry("momentum", opt_src,
                     "paddle_tpu/kernels/opt_update.py:83",
                     trained["momentum_kernels"]["momentum"]["launches"],
                     opt_rows["momentum"]["max_abs_err"], opt_rows["momentum"]),
              shape={"n": opt_rows["momentum"]["n"]}),
         dict(_entry("adam", opt_src, "paddle_tpu/kernels/opt_update.py:110",
-                    counts["adam"]["launches"],
+                    counts["adam"]["launches"]
+                    + s2s_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              shape={"n": opt_rows["adam"]["n"]}),
     ]
@@ -757,8 +1186,9 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"bench_shapes": rows, "serve_shapes": serve_rows,
                    "train_shapes": train_rows, "reverse_err": reverse_err,
-                   "optimizer": opt_rows, "train": trained, "serve": served,
-                   **kernels}, f, indent=1)
+                   "optimizer": opt_rows, "gru_shapes": gru_rows,
+                   "gru_cell_shapes": cell_rows, "train": trained,
+                   "serve": served, "seq2seq": s2s, **kernels}, f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

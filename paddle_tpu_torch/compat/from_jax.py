@@ -1,10 +1,12 @@
 """Parameters and optimizer state carried across from the JAX package.
 
 The port keeps the JAX package's parameter names and layouts (``fc``
-weights [in, out], ``lstmemory`` w0 [H, 4H] and wbias [7H], embedding
-tables [vocab, dim]) and its optimizer-state tree, so a JAX parameter
-dict or optimizer state, as numpy, maps onto the port's by name. PTM1
-files and checkpoints carry the same names.
+weights [in, out], ``lstmemory`` w0 [H, 4H] and wbias [7H],
+``gated_recurrent`` / ``gru_step`` w0 [H, 3H] and wbias [3H], embedding
+tables [vocab, dim], a recurrent group's sub-layer parameters under their
+own names such as ``_dec_in.w1``) and its optimizer-state tree, so a JAX
+parameter dict or optimizer state, as numpy, maps onto the port's by
+name. PTM1 files and checkpoints carry the same names.
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
 """Layer-construction DSL: the subset of ``paddle_tpu/config/dsl.py`` that
-``lstm_text_classifier`` and a serve config need.
+``lstm_text_classifier``, ``seq2seq_attention``'s training graph and a
+serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
-attributes and auto-generated names (``__fc_layer_0__``) match the JAX
-DSL, so both build the same graph from the same calls.
+attributes and auto-generated names (``__fc_layer_0__``,
+``__recurrent_group_0__``) match the JAX DSL, so both build the same graph,
+with the same parameter names, from the same calls. Nested groups
+(``SubsequenceInput``) and generation (``GeneratedInput``,
+``beam_search``) raise ``NotImplementedError``: they are later slices.
 """
 
 from __future__ import annotations
@@ -23,10 +27,13 @@ _SHAPES: Dict[str, Any] = {}
 
 def reset():
     """Start a fresh graph."""
-    global _GRAPH, _COUNTERS
+    global _GRAPH, _COUNTERS, _GROUP_CTX
     _GRAPH = ModelDef()
     _COUNTERS = {}
     _SHAPES.clear()
+    # a build that raised inside a recurrent_group step must not leave the
+    # group context armed for the next build
+    _GROUP_CTX = None
 
 
 def current_graph() -> ModelDef:
@@ -121,15 +128,89 @@ def lstmemory(input, *, name: str = None, reverse: bool = False,
     return _add(ldef)
 
 
+def grumemory(input, *, name: str = None, reverse: bool = False,
+              act: str = "tanh", gate_act: str = "sigmoid",
+              bias_attr=True, param_attr=None) -> LayerOutput:
+    src = _in(input)[0]
+    ldef = LayerDef(name=name or _auto_name("gru"), type="gated_recurrent",
+                    inputs=[Input(src.name, param_attr=_param(param_attr))],
+                    bias=_bias(bias_attr),
+                    attrs={"reversed": reverse, "active_type": act,
+                           "active_gate_type": gate_act})
+    return _add(ldef)
+
+
+def addto(inputs, *, act: str = "linear", name: str = None,
+          bias_attr=False) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("addto"), type="addto",
+                    inputs=[Input(i.name) for i in _in(inputs)], act=act,
+                    bias=_bias(bias_attr))
+    return _add(ldef)
+
+
+def concat(inputs, *, name: str = None, act: str = "linear") -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("concat"), type="concat",
+                    inputs=[Input(i.name) for i in _in(inputs)], act=act,
+                    bias=False)
+    return _add(ldef)
+
+
+_POOL_TYPES = {"max": "max", "avg": "average", "average": "average",
+               "sum": "average", "sqrt": "average", "last": "seqlastins",
+               "first": "seqlastins"}
+
+
 def pooling(input, *, pooling_type: str = "max",
             name: str = None) -> LayerOutput:
-    """Sequence pooling; only max over time is ported so far."""
-    if pooling_type != "max":
-        raise NotImplementedError(
-            f"pooling_type={pooling_type!r} is not ported yet (max is)")
+    """Sequence pooling (``pooling_layer`` in the reference DSL)."""
     src = _in(input)[0]
-    ldef = LayerDef(name=name or _auto_name("seq_max"), type="max",
-                    inputs=[Input(src.name)], bias=False, attrs={})
+    attrs = {}
+    if pooling_type == "sum":
+        attrs["average_strategy"] = "sum"
+    if pooling_type == "sqrt":
+        attrs["average_strategy"] = "squarerootn"
+    if pooling_type == "first":
+        attrs["select_first"] = True
+    ldef = LayerDef(name=name or _auto_name(f"seq_{pooling_type}"),
+                    type=_POOL_TYPES[pooling_type], inputs=[Input(src.name)],
+                    bias=False, attrs=attrs)
+    return _add(ldef)
+
+
+def last_seq(input, **kw):
+    return pooling(input, pooling_type="last", **kw)
+
+
+def first_seq(input, **kw):
+    return pooling(input, pooling_type="first", **kw)
+
+
+def expand(input, expand_as, *, name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("expand"), type="expand",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(expand_as)[0].name)], bias=False)
+    return _add(ldef)
+
+
+def scaling_layer(input, weight, *, name=None):
+    """Row-wise scale: out[i] = weight[i] * input[i] (weight is [B, 1] or
+    per-timestep [B, T, 1]); the attention-weighting primitive."""
+    ldef = LayerDef(name=name or _auto_name("scaling"), type="scaling",
+                    inputs=[Input(_in(weight)[0].name),
+                            Input(_in(input)[0].name)], bias=False)
+    return _add(ldef)
+
+
+def gru_step_layer(input, output_mem, *, size: int = None, act: str = "tanh",
+                   gate_act: str = "sigmoid", name=None, bias_attr=True,
+                   param_attr=None):
+    ldef = LayerDef(name=name or _auto_name("gru_step"), type="gru_step",
+                    inputs=[Input(_in(input)[0].name,
+                                  param_attr=_param(param_attr)),
+                            Input(_in(output_mem)[0].name)],
+                    bias=_bias(bias_attr),
+                    attrs={"active_type": act,
+                           "active_gate_type": gate_act})
     return _add(ldef)
 
 
@@ -140,3 +221,136 @@ def classification_cost(input, label, *, name: str = None) -> LayerOutput:
                     inputs=[Input(_in(input)[0].name),
                             Input(_in(label)[0].name)], bias=False)
     return _add(ldef)
+
+
+# ------------------------------------------------------ recurrent groups
+@dataclasses.dataclass
+class StaticInput:
+    """Non-time-varying input to a recurrent_group (read whole each
+    timestep, not sliced)."""
+
+    input: LayerOutput
+
+
+class SubsequenceInput:
+    """Two-level (nested) sequence input to a recurrent_group: not ported
+    yet."""
+
+    def __init__(self, input):
+        raise NotImplementedError(
+            "SubsequenceInput (nested recurrent groups) is not ported yet: "
+            "two-level sequences come with a later slice of the port")
+
+
+class GeneratedInput:
+    """Generation-mode input of a beam search: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "GeneratedInput (generation) is not ported yet: beam search "
+            "comes with the seq2seq generation slice of the port")
+
+
+def beam_search(*args, **kwargs):
+    raise NotImplementedError(
+        "beam_search is not ported yet: it comes with the seq2seq "
+        "generation slice of the port")
+
+
+_GROUP_CTX: Optional[Dict[str, Any]] = None
+
+
+def memory(*, name: str, size: int, boot_layer: Optional[LayerOutput] = None,
+           boot_with_const_value: float = 0.0) -> LayerOutput:
+    """Declare a recurrent memory inside a recurrent_group step function:
+    the previous timestep's output of the layer called ``name`` (zero,
+    constant or boot-layer initialised)."""
+    if _GROUP_CTX is None:
+        raise RuntimeError(
+            "memory() must be called inside a recurrent_group step function")
+    bname = f"{_GROUP_CTX['name']}@mem_{name}"
+    out = _add(LayerDef(name=bname, type="data", size=size, bias=False))
+    _GROUP_CTX["memories"].append(
+        {"boundary": bname, "link": name, "boot_layer": boot_layer,
+         "init": boot_with_const_value, "agent_name": None})
+    return out
+
+
+def recurrent_group(step, input, *, reverse: bool = False,
+                    name: str = None, target_inlink=None):
+    """Unroll a user step network over the timesteps of the sequence
+    inputs (``layers/group.py``). ``input`` items: sequence LayerOutputs
+    (one frame per step) and StaticInput (whole every step). The step
+    function may call memory() and returns one LayerOutput or a tuple
+    (first = main out_link)."""
+    global _GRAPH, _GROUP_CTX
+    inputs = [input] if isinstance(input, (LayerOutput, StaticInput)) \
+        else list(input)
+    # the reference's auto-name convention: __recurrent_group_0__
+    c = _COUNTERS.setdefault("recurrent_group", itertools.count())
+    gname = name or f"__recurrent_group_{next(c)}__"
+    outer = _GRAPH
+    sub = ModelDef()
+    ins_meta: List[Dict[str, Any]] = []
+    outer_in_names: List[str] = []
+    proxies: List[LayerOutput] = []
+    prev_ctx = _GROUP_CTX
+    _GRAPH = sub
+    _GROUP_CTX = {"name": gname, "memories": []}
+    try:
+        for i, x in enumerate(inputs):
+            if isinstance(x, StaticInput):
+                src, bname, kind = x.input, f"{gname}@static{i}", "static"
+            else:
+                src, bname = x, f"{gname}@seq{i}"
+                # a source the graph knows is a sequence steps per
+                # timestep; otherwise the fed data decides ("auto")
+                info = _SHAPES.get(src.name)
+                kind = "seq" if info is not None and info.is_sequence \
+                    else "auto"
+            # the boundary is a plain data layer: the step sees one frame
+            proxies.append(_add(LayerDef(name=bname, type="data",
+                                         size=src.size, bias=False)))
+            ins_meta.append({"boundary": bname, "kind": kind})
+            outer_in_names.append(src.name)
+        traced = step(*proxies)
+        memories = _GROUP_CTX["memories"]
+    finally:
+        _GRAPH = outer
+        _GROUP_CTX = prev_ctx
+
+    out_handles = list(traced) if isinstance(traced, (tuple, list)) \
+        else [traced]
+    for mem in memories:
+        if mem["link"] not in sub.layers:
+            raise ValueError(
+                f"memory(name={mem['link']!r}) has no matching layer "
+                f"inside recurrent_group {gname!r}")
+        bl = mem.pop("boot_layer")
+        if bl is not None:
+            ins_meta.append({"boundary": mem["boundary"], "kind": "boot"})
+            outer_in_names.append(bl.name)
+    target_idx = 0
+    if target_inlink is not None:
+        for i, x in enumerate(inputs):
+            src_in = getattr(x, "input", x)
+            if getattr(src_in, "name", None) == target_inlink.name:
+                target_idx = i
+                break
+    ldef = LayerDef(
+        name=gname, type="recurrent_layer_group",
+        inputs=[Input(n) for n in outer_in_names], bias=False,
+        attrs={"sub_model": sub, "ins": ins_meta, "memories": memories,
+               "outputs": [h.name for h in out_handles],
+               "reverse": reverse,
+               "target_boundary": ins_meta[target_idx]["boundary"]})
+    main = _add(ldef)
+    if len(out_handles) == 1:
+        return main
+    extras = []
+    for h in out_handles[1:]:
+        odef = LayerDef(name=f"{gname}@out_{h.name}", type="group_output",
+                        inputs=[Input(main.name)], size=h.size, bias=False,
+                        attrs={"sub_name": h.name})
+        extras.append(_add(odef))
+    return (main, *extras)

@@ -151,7 +151,8 @@ class Network:
             ctx.out_info = self.shape_infos[name]
             out = impl.apply(layer, lparams, ins, ctx)
             if layer.act and layer.act not in ("linear", ""):
-                out = out.with_value(apply_activation(layer.act, out.value))
+                out = out.with_value(apply_activation(layer.act, out.value,
+                                                      out.mask))
             if layer.drop_rate > 0.0:
                 if train:
                     raise NotImplementedError(

@@ -1,7 +1,9 @@
-"""Core dense layers: data, fc, embedding (``DataLayer``,
-``FullyConnectedLayer``, ``TableProjection`` in the reference). The port's
-counterpart of the same layers in ``paddle_tpu/layers/common.py``; fc over
-a sequence is one batched ``torch.matmul``."""
+"""Core dense layers: data, fc, embedding, addto, concat, scaling
+(``DataLayer``, ``FullyConnectedLayer``, ``TableProjection``,
+``AddtoLayer``, ``ConcatenateLayer``, ``ScalingLayer`` in the reference).
+The port's counterpart of the same layers in
+``paddle_tpu/layers/common.py``; fc over a sequence is one batched
+``torch.matmul``."""
 
 from __future__ import annotations
 
@@ -81,6 +83,61 @@ class EmbeddingLayer(LayerImpl):
     def apply(self, cfg, params, ins, ctx):
         out = _table_lookup(params["w0"], ins[0].value.long())
         return Argument(value=out, mask=ins[0].mask)
+
+
+@register_layer("addto")
+class AddtoLayer(LayerImpl):
+    """Element-wise sum of the inputs (plus an optional bias)."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=in_infos[0].size,
+                         channels=in_infos[0].channels,
+                         height=in_infos[0].height, width=in_infos[0].width,
+                         is_sequence=any(i.is_sequence for i in in_infos))
+
+    def params(self, cfg, in_infos):
+        if cfg.bias:
+            return {"wbias": ParamSpec(shape=(in_infos[0].size,),
+                                       init="zeros", is_bias=True)}
+        return {}
+
+    def apply(self, cfg, params, ins, ctx):
+        out = ins[0].value
+        for a in ins[1:]:
+            out = out + a.value
+        if "wbias" in params:
+            out = out + params["wbias"]
+        return Argument(value=out, mask=_first_mask(ins))
+
+
+@register_layer("concat")
+class ConcatLayer(LayerImpl):
+    """Feature-wise concatenation of flat or sequence inputs (image
+    inputs are not ported yet)."""
+
+    def infer(self, cfg, in_infos):
+        if any(i.channels is not None for i in in_infos):
+            raise NotImplementedError(
+                "channel-wise concat of image inputs is not ported yet")
+        return ShapeInfo(size=sum(i.size for i in in_infos),
+                         is_sequence=any(i.is_sequence for i in in_infos))
+
+    def apply(self, cfg, params, ins, ctx):
+        return Argument(value=torch.cat([a.value for a in ins], dim=-1),
+                        mask=_first_mask(ins))
+
+
+@register_layer("scaling")
+class ScalingLayer(LayerImpl):
+    """out[i] = w[i] * x[i]: the weight input first ([B, 1], or [B, T, 1]
+    per timestep), the data input second (``ScalingLayer.cpp``)."""
+
+    def infer(self, cfg, in_infos):
+        return in_infos[1]
+
+    def apply(self, cfg, params, ins, ctx):
+        w, x = ins
+        return Argument(value=w.value * x.value, mask=x.mask)
 
 
 def _table_lookup(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

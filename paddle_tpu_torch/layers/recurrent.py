@@ -1,12 +1,21 @@
-"""Recurrent layers: lstmemory (``LstmLayer.cpp``).
+"""Recurrent layers: lstmemory (``LstmLayer.cpp``), gated_recurrent
+(``GruLayer.cpp``) and the single GRU step gru_step (``GruStepLayer.cpp``).
 
-The port's counterpart of ``paddle_tpu/layers/recurrent.py:LstmLayer``.
-The incoming projection supplies 4 gate blocks in order [input,
-input_gate, forget_gate, output_gate]; the recurrent weight is [size,
-4*size]; the bias parameter is 7*size = 4 gate biases + 3 peephole
-diagonals (checkI/F/O). Default activations take the fused recurrence
-(``ops/lstm.py``: the CUDA kernel on the card); other activations take an
-inline step in plain torch. Padded steps hold the carried state.
+The port's counterpart of ``paddle_tpu/layers/recurrent.py``'s
+``LstmLayer``, ``GruLayer`` and ``GruStepLayer``.
+
+- LSTM: the incoming projection supplies 4 gate blocks in order [input,
+  input_gate, forget_gate, output_gate]; the recurrent weight is [size,
+  4*size]; the bias parameter is 7*size = 4 gate biases + 3 peephole
+  diagonals (checkI/F/O).
+- GRU: gate blocks [update z, reset r, candidate c]; one [size, 3*size]
+  parameter holds the gate weight (its first 2*size columns) and the state
+  weight (the last size columns); the bias is 3*size.
+
+Default activations take the fused recurrences (``ops/lstm.py``,
+``ops/gru.py``: the CUDA kernels on the card) and the fused GRU cell
+(``kernels/rnn_cells.py``); other activations take an inline step in plain
+torch. Padded steps hold the carried state.
 """
 
 from __future__ import annotations
@@ -17,7 +26,14 @@ from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
                                             register_layer)
 from paddle_tpu_torch.layers.activations import apply_activation
+from paddle_tpu_torch.kernels.rnn_cells import (activation, gru_cell,
+                                                gru_cell_infer, gru_math)
+from paddle_tpu_torch.ops.gru import gru_sequence
 from paddle_tpu_torch.ops.lstm import lstm_sequence
+
+
+def _steps(T: int, reverse: bool):
+    return range(T - 1, -1, -1) if reverse else range(T)
 
 
 @register_layer("lstmemory")
@@ -71,9 +87,7 @@ class LstmLayer(LayerImpl):
         # kernels of paddle_tpu/kernels/rnn_cells.py are not ported yet)
         h, c = h0, c0
         ys = [None] * xs.shape[0]
-        steps = range(xs.shape[0] - 1, -1, -1) if reverse \
-            else range(xs.shape[0])
-        for t in steps:
+        for t in _steps(xs.shape[0], reverse):
             gates = xs[t] + h @ w + gate_bias
             g_in, g_ig, g_fg, g_og = gates.chunk(4, dim=-1)
             g_in = apply_activation(act_in, g_in)
@@ -89,3 +103,85 @@ class LstmLayer(LayerImpl):
         value = (torch.stack(ys, dim=1) if ys
                  else a.value.new_zeros(B, 0, size))
         return Argument(value=value, mask=a.mask, state=(h, c))
+
+
+@register_layer("gated_recurrent")
+class GruLayer(LayerImpl):
+    def infer(self, cfg, in_infos):
+        if in_infos[0].size % 3:
+            raise ValueError("gated_recurrent input must be 3*size")
+        return ShapeInfo(size=in_infos[0].size // 3, is_sequence=True)
+
+    def params(self, cfg, in_infos):
+        size = in_infos[0].size // 3
+        specs = {"w0": ParamSpec(shape=(size, 3 * size))}
+        if cfg.bias:
+            specs["wbias"] = ParamSpec(shape=(3 * size,), init="zeros",
+                                       is_bias=True)
+        return specs
+
+    def apply(self, cfg, params, ins, ctx):
+        a = ins[0]
+        size = ctx.out_info.size
+        act_in = cfg.attrs.get("active_type", "tanh")
+        act_gate = cfg.attrs.get("active_gate_type", "sigmoid")
+        reverse = bool(cfg.attrs.get("reversed", False))
+        w_gate = params["w0"][:, :2 * size]   # [size, 2*size] for z, r
+        w_state = params["w0"][:, 2 * size:]  # [size, size] for candidate
+        bias = (params["wbias"] if "wbias" in params
+                else a.value.new_zeros(3 * size))
+        B = a.value.shape[0]
+        xs = a.value.transpose(0, 1)   # [T, B, 3*size]
+        mask = a.mask.transpose(0, 1)  # [T, B]
+        carried = None if reverse else ctx.carried.get(cfg.name)
+        h = carried if carried is not None else a.value.new_zeros(B, size)
+
+        if act_in in ("tanh", "") and act_gate == "sigmoid":
+            ys, hT = gru_sequence(xs, mask, w_gate, w_state, bias, h,
+                                  reverse=reverse)
+            return Argument(value=ys.transpose(0, 1), mask=a.mask, state=hT)
+
+        # inline step for non-default activations
+        ys = [None] * xs.shape[0]
+        act_in, act_gate = activation(act_in), activation(act_gate)
+        for t in _steps(xs.shape[0], reverse):
+            out = gru_math(xs[t] + bias, h, w_gate, w_state, act_in,
+                           act_gate)
+            m = mask[t].unsqueeze(-1)
+            h = torch.where(m > 0, out, h)
+            ys[t] = out * m
+        value = (torch.stack(ys, dim=1) if ys
+                 else a.value.new_zeros(B, 0, size))
+        return Argument(value=value, mask=a.mask, state=h)
+
+
+@register_layer("gru_step")
+class GruStepLayer(LayerImpl):
+    """Single GRU step for use inside recurrent groups: inputs = (gate
+    projection x [B, 3*size], previous output [B, size]); the recurrent
+    weight lives here. Training runs ``gru_cell`` (differentiable), the
+    no-grad forward ``gru_cell_infer``."""
+
+    def infer(self, cfg, in_infos):
+        if in_infos[0].size % 3:
+            raise ValueError("gru_step input must be 3*size")
+        return ShapeInfo(size=in_infos[0].size // 3)
+
+    def params(self, cfg, in_infos):
+        size = in_infos[0].size // 3
+        specs = {"w0": ParamSpec(shape=(size, 3 * size))}
+        if cfg.bias:
+            specs["wbias"] = ParamSpec(shape=(3 * size,), init="zeros",
+                                       is_bias=True)
+        return specs
+
+    def apply(self, cfg, params, ins, ctx):
+        x, h = ins[0].value, ins[1].value
+        size = ctx.out_info.size
+        if "wbias" in params:
+            x = x + params["wbias"]
+        cell = gru_cell if ctx.train else gru_cell_infer
+        return Argument(value=cell(
+            x, h, params["w0"][:, :2 * size], params["w0"][:, 2 * size:],
+            cfg.attrs.get("active_type", "tanh"),
+            cfg.attrs.get("active_gate_type", "sigmoid")))

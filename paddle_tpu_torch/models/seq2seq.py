@@ -1,0 +1,82 @@
+"""Seq2seq NMT with Bahdanau attention: the training graph of the
+reference's seqToseq demo (``simple_attention`` in
+``trainer_config_helpers/networks.py``): a bidirectional GRU encoder and a
+GRU decoder, driven each step by an additive-attention context, in a
+recurrent group. The same graph, with the same layer and parameter names,
+as ``paddle_tpu/models/seq2seq.py``, built with the port's DSL.
+
+Generation (beam search) and the sequence-parallel encoder
+self-attention are later slices of the port and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from paddle_tpu_torch.config import dsl
+
+
+def _attention(name, enc_seq, enc_proj, state, hidden):
+    """Additive attention: score = v.tanh(W_d s + W_e h_t); returns the
+    attention-weighted context vector (``simple_attention``)."""
+    dproj = dsl.fc(input=state, size=hidden, act="linear",
+                   name=f"{name}_dproj", bias_attr=False)
+    expanded = dsl.expand(dproj, enc_proj, name=f"{name}_expand")
+    comb = dsl.addto([expanded, enc_proj], act="tanh", name=f"{name}_comb")
+    weight = dsl.fc(input=comb, size=1, act="sequence_softmax",
+                    name=f"{name}_weight", bias_attr=False)
+    scaled = dsl.scaling_layer(enc_seq, weight, name=f"{name}_scaled")
+    return dsl.pooling(input=scaled, pooling_type="sum",
+                       name=f"{name}_context")
+
+
+def seq2seq_attention(*, src_vocab: int = 5000, trg_vocab: int = 5000,
+                      embed_dim: int = 64, hidden: int = 64,
+                      beam_size: int = 4, max_length: int = 20,
+                      generating: bool = False,
+                      seq_parallel: str = None, num_heads: int = 4):
+    """Build the training graph: returns (cost, probs_seq, data_names).
+    The reference's published width is ``src_vocab = trg_vocab = 30000``,
+    ``embed_dim = hidden = 512``."""
+    if generating:
+        raise NotImplementedError(
+            "seq2seq_attention(generating=True) is not ported yet: beam "
+            "search comes with the seq2seq generation slice of the port")
+    if seq_parallel:
+        raise NotImplementedError(
+            "seq2seq_attention(seq_parallel=...) is not ported yet: it "
+            "needs the flash-attention kernel and the sequence mesh, later "
+            "slices of the port")
+    src = dsl.data(name="source_words", size=src_vocab, is_sequence=True)
+    semb = dsl.embedding(input=src, size=embed_dim, name="src_emb")
+    f_in = dsl.fc(input=semb, size=hidden * 3, act="linear", name="enc_f_in")
+    fwd = dsl.grumemory(input=f_in, name="enc_fwd")
+    b_in = dsl.fc(input=semb, size=hidden * 3, act="linear", name="enc_b_in")
+    bwd = dsl.grumemory(input=b_in, reverse=True, name="enc_bwd")
+    enc = dsl.concat([fwd, bwd], name="encoded")
+    enc_proj = dsl.fc(input=enc, size=hidden, act="linear",
+                      name="encoded_proj", bias_attr=False)
+    # backward GRU's first frame summarizes the sentence -> decoder boot
+    boot = dsl.fc(input=dsl.first_seq(bwd, name="enc_bwd_first"),
+                  size=hidden, act="tanh", name="decoder_boot")
+
+    def step(trg_emb, enc_static, proj_static):
+        state = dsl.memory(name="gru_decoder", size=hidden,
+                           boot_layer=boot)
+        context = _attention("att", enc_static, proj_static, state, hidden)
+        dec_in = dsl.fc(input=[context, trg_emb], size=hidden * 3,
+                        act="linear", name="dec_in")
+        gru = dsl.gru_step_layer(dec_in, state, size=hidden,
+                                 name="gru_decoder")
+        return dsl.fc(input=gru, size=trg_vocab, act="softmax",
+                      name="dec_out", bias_attr=False)
+
+    trg = dsl.data(name="target_words", size=trg_vocab, is_sequence=True)
+    trg_next = dsl.data(name="target_next", size=trg_vocab,
+                        is_sequence=True)
+    temb = dsl.embedding(input=trg, size=embed_dim, name="trg_emb")
+    probs = dsl.recurrent_group(
+        step, [temb, dsl.StaticInput(enc), dsl.StaticInput(enc_proj)],
+        name="decoder_group")
+    cost = dsl.classification_cost(input=probs, label=trg_next,
+                                   name="nmt_cost")
+    return cost, probs, ["source_words", "target_words", "target_next"]

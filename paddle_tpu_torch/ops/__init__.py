@@ -7,10 +7,16 @@ _COUNTERS = ("launches", "step_launches")
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from paddle_tpu_torch.kernels.opt_update import adam, momentum
+    from paddle_tpu_torch.kernels.rnn_cells import gru_cell, gru_cell_infer
+    from paddle_tpu_torch.ops.gru import gru_bwd_step, gru_seq, \
+        gru_seq_train
     from paddle_tpu_torch.ops.lstm import lstm_bwd_step, lstm_seq, \
         lstm_seq_train
     return {"lstm_seq": lstm_seq, "lstm_seq_train": lstm_seq_train,
-            "lstm_bwd_step": lstm_bwd_step, "momentum": momentum,
+            "lstm_bwd_step": lstm_bwd_step, "gru_seq": gru_seq,
+            "gru_seq_train": gru_seq_train, "gru_bwd_step": gru_bwd_step,
+            "gru_cell": gru_cell,
+            "gru_cell_infer": gru_cell_infer, "momentum": momentum,
             "adam": adam}
 
 

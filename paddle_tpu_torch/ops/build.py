@@ -1,5 +1,7 @@
 """Builds the port's CUDA sources (``paddle_tpu_torch/csrc/*.cu``) into
-shared libraries with a plain C interface and loads them with ctypes.
+shared libraries with a plain C interface and loads them with ctypes; and
+the helpers every kernel wrapper shares (``bind``, ``cuda_device``,
+``check_tensors``, ``raise_on``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` at its first use, into
 ``build/paddle_tpu_torch/`` under the checkout (listed in ``.gitignore``).
@@ -11,6 +13,7 @@ build. ``build_all`` starts one ``nvcc`` per source, all at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -89,3 +94,43 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, entry: str, n_ptr: int, n_int: int):
+    """The C function ``entry`` of ``csrc/<name>.cu`` taking ``n_ptr``
+    pointers, ``n_int`` ints and the stream, returning an int error."""
+    fn = getattr(load(name), entry)
+    # every pointer as c_void_p: an undeclared argument would pass as a
+    # 32-bit int and cut the pointer
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cuda_device(kernel: str, t: torch.Tensor) -> torch.device:
+    if not t.is_cuda:
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+    return t.device
+
+
+def check_tensors(kernel: str, device, **tensors):
+    """Every tensor a contiguous float32 CUDA tensor on ``device`` with the
+    given shape (``name=(tensor, shape)``)."""
+    for name, (t, shape) in tensors.items():
+        if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous float32 "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                             f"{device}")
+
+
+def raise_on(err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA "
+                           f"error {err}")

@@ -31,8 +31,6 @@ only; bf16 is later work.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -121,38 +119,6 @@ def lstm_bwd_step_plain(dy_t, m_t, gates_t, c_new, c_prev, check_i,
     dgates_t.copy_(torch.cat([da_i, da_ig, da_fg, da_og], dim=-1))
 
 
-def _check(kernel, device, **tensors):
-    """Every tensor a contiguous float32 CUDA tensor on ``device`` with the
-    given shape (``name=(tensor, shape)``)."""
-    for name, (t, shape) in tensors.items():
-        if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be a contiguous float32 "
-                             f"CUDA tensor, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
-                             f"expected {tuple(shape)}")
-        if t.device != device:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
-                             f"{device}")
-
-
-@functools.lru_cache(maxsize=None)
-def _fn(entry, n_ptr, n_int):
-    fn = getattr(build.load("lstm_seq"), entry)
-    # every pointer as c_void_p: an undeclared argument would pass as a
-    # 32-bit int and cut the pointer
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _raise_on(err, kernel):
-    if err != 0:
-        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA "
-                           f"error {err}")
-
-
 def _seq_shapes(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
     T, B, H4 = xs_b.shape
     H = H4 // 4
@@ -160,12 +126,6 @@ def _seq_shapes(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
                 w=(w, (H, 4 * H)), check_i=(check_i, (H,)),
                 check_f=(check_f, (H,)), check_o=(check_o, (H,)),
                 h0=(h0, (B, H)), c0=(c0, (B, H)))
-
-
-def _device_of(kernel, t):
-    if not t.is_cuda:
-        raise ValueError(f"{kernel}: no kernel for device {t.device}")
-    return t.device
 
 
 def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0) -> Tensors:
@@ -176,8 +136,8 @@ def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0) -> Tensors:
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
         return lstm_sequence_plain(*args)
-    dev = _device_of("lstm_seq", xs_b)
-    _check("lstm_seq", dev, **_seq_shapes(*args))
+    dev = build.cuda_device("lstm_seq", xs_b)
+    build.check_tensors("lstm_seq", dev, **_seq_shapes(*args))
     T, B, H4 = xs_b.shape
     H = H4 // 4
     h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
@@ -186,11 +146,11 @@ def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0) -> Tensors:
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("lstm_seq_forward", 9, 3)(
+        err = build.bind("lstm_seq", "lstm_seq_forward", 9, 3)(
             xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
             check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
             h.data_ptr(), c.data_ptr(), ys.data_ptr(), T, B, H, stream)
-    _raise_on(err, "lstm_seq")
+    build.raise_on(err, "lstm_seq")
     lstm_seq.launches += 1
     lstm_seq.step_launches += T
     return ys, h[T % 2], c
@@ -207,8 +167,8 @@ def lstm_seq_train(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
         return lstm_sequence_residual_plain(*args)
-    dev = _device_of("lstm_seq_train", xs_b)
-    _check("lstm_seq_train", dev, **_seq_shapes(*args))
+    dev = build.cuda_device("lstm_seq_train", xs_b)
+    build.check_tensors("lstm_seq_train", dev, **_seq_shapes(*args))
     T, B, H4 = xs_b.shape
     H = H4 // 4
     ys, hs, cs = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
@@ -216,12 +176,12 @@ def lstm_seq_train(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("lstm_seq_forward_train", 12, 3)(
+        err = build.bind("lstm_seq", "lstm_seq_forward_train", 12, 3)(
             xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
             check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
             cs.data_ptr(), gates.data_ptr(), T, B, H, stream)
-    _raise_on(err, "lstm_seq_train")
+    build.raise_on(err, "lstm_seq_train")
     lstm_seq_train.launches += 1
     lstm_seq_train.step_launches += T
     return ys, hs, cs, gates
@@ -240,20 +200,20 @@ def lstm_bwd_step(dy_t, m_t, gates_t, c_new, c_prev, check_i, check_f,
             dhw, dh, dc, dgates_t)
     if dh.device.type == "cpu":
         return lstm_bwd_step_plain(*args)
-    dev = _device_of("lstm_bwd_step", dh)
+    dev = build.cuda_device("lstm_bwd_step", dh)
     B, H = dh.shape
     bh = (B, H)
-    _check("lstm_bwd_step", dev, dy=(dy_t, bh), mask=(m_t, (B,)),
-           gates=(gates_t, (B, 4 * H)), c_new=(c_new, bh),
-           c_prev=(c_prev, bh), check_i=(check_i, (H,)),
-           check_f=(check_f, (H,)), check_o=(check_o, (H,)),
-           dhw=(dhw, bh), dh=(dh, bh), dc=(dc, bh),
-           dgates=(dgates_t, (B, 4 * H)))
+    build.check_tensors(
+        "lstm_bwd_step", dev, dy=(dy_t, bh), mask=(m_t, (B,)),
+        gates=(gates_t, (B, 4 * H)), c_new=(c_new, bh), c_prev=(c_prev, bh),
+        check_i=(check_i, (H,)), check_f=(check_f, (H,)),
+        check_o=(check_o, (H,)), dhw=(dhw, bh), dh=(dh, bh), dc=(dc, bh),
+        dgates=(dgates_t, (B, 4 * H)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("lstm_bwd_step", 12, 2)(*(a.data_ptr() for a in args),
-                                          B, H, stream)
-    _raise_on(err, "lstm_bwd_step")
+        err = build.bind("lstm_seq", "lstm_bwd_step", 12, 2)(
+            *(a.data_ptr() for a in args), B, H, stream)
+    build.raise_on(err, "lstm_bwd_step")
     lstm_bwd_step.launches += 1
 
 

@@ -22,10 +22,12 @@ and ``outputs`` (the layers to merge and serve).
 each pass end, saves ``checkpoint-p{pass:05d}-b00000000.npz`` into
 ``--save_dir`` (the JAX package's file format and names), and ends with a
 ``train_summary {...}`` JSON line: the kernel launch counts of the
-training loop and its wall ms per training step. ``--job test`` and
-``--job merge`` read ``--init_model_path`` (a ``.ptmodel`` or a checkpoint
-``.npz``), else the newest checkpoint of ``--save_dir``; merge writes a
-PTM1 file to ``--model_path``. Parameters otherwise come from a fresh initialisation
+training loop and its wall ms per training step; ``--job test`` prints
+``Test: cost=...`` and a ``test_summary`` JSON line with the kernel
+launch counts of the test pass. ``--job test`` and ``--job merge`` read
+``--init_model_path`` (a ``.ptmodel`` or a checkpoint ``.npz``), else the
+newest checkpoint of ``--save_dir``; merge writes a PTM1 file to
+``--model_path``. Parameters otherwise come from a fresh initialisation
 seeded by ``--seed``. Every job runs on ``--device`` (``cuda`` unless the
 caller asks for ``cpu``); the server prints one ``serving on
 http://host:port`` line when ready, and drains and exits 0 on SIGTERM.
@@ -255,14 +257,19 @@ def cmd_train(ns, args) -> int:
 
 
 def cmd_test(ns, args) -> int:
+    from paddle_tpu_torch import ops
     trainer = _build_trainer(ns, args)
     _restore(trainer, args)
     reader = ns.get("test_reader") or ns.get("train_reader")
     if reader is None:
         raise SystemExit("config must define `test_reader` (or "
                          "`train_reader`) for --job=test")
+    ops.reset_kernel_counts()  # the summary counts this pass's launches
     res = trainer.test(reader, feeder=_feeder(ns, args.device))
     print(f"Test: cost={res.cost:.5g} " + _evals(res.evaluator), flush=True)
+    print("test_summary " + json.dumps({
+        "device": str(trainer.device), "kernels": ops.kernel_counts()}),
+        flush=True)
     return 0
 
 

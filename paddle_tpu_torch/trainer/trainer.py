@@ -5,9 +5,10 @@ One training step is the JAX package's jitted step (``:701-758``) run
 eagerly: the forward of the cost's sub-graph with autograd recording, the
 batch-mean cost (row-masked when the feeder pads rows), ``torch.autograd
 .grad`` for every learnable parameter, and ``Optimizer.update`` with the
-live row count as the batch size. On ``cuda`` the LSTM layers run the
-residual recurrence kernel and its backward step kernel, and the Momentum
-and Adam updates run their fused kernels. Parameters are plain tensors on
+live row count as the batch size. On ``cuda`` the LSTM and GRU layers
+run their residual recurrence kernels and backward step kernels, the GRU
+step of a recurrent group its cell kernel, and the Momentum and Adam
+updates their fused kernels. Parameters are plain tensors on
 the trainer's device, held in a dict by name (the JAX package's pytree).
 
 Not ported: the mesh, ZeRO-1, FSDP and pipeline planes, gradient

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
-forms, the LSTM backward step, the Momentum and Adam updates) against
+forms, the LSTM backward step, the GRU recurrence in its primal and
+residual forms, the GRU backward step, the GRU cell, the Momentum and
+Adam updates) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -8,16 +10,18 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py -q
 
-Tolerance rtol 1e-4 / atol 1e-5 for the LSTM forms (the kernel sums
-h @ W in another order than cuBLAS, over K=H and T steps of recurrence;
-the gradients per tensor, relative to the tensor's largest entry); the
-optimizer kernels' is stated at their test.
+Tolerance rtol 1e-4 / atol 1e-5 for the LSTM and GRU forms (the kernel
+sums h @ W in another order than cuBLAS, over K=H and T steps of
+recurrence; the gradients per tensor, relative to the tensor's largest
+entry); the optimizer kernels' is stated at their test.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import rnn_cells
+from paddle_tpu_torch.ops import gru as tgru
 from paddle_tpu_torch.ops import lstm as tlstm
 
 
@@ -151,3 +155,112 @@ def test_training_kernels_reject_bad_inputs(cuda_device):
         opt_update.adam(Adam(), p.double(), p.double(), slots, 0.1, 0.0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         opt_update.adam(Adam(), p.t(), p.t(), slots, 0.1, 0.0, 1)
+
+
+def _gru_inputs(T, B, H, seed, device):
+    """xs [T,B,3H] (bias folded), a ragged mask, the two column slices of
+    one w0 [H,3H] (non-contiguous views, as the layers pass them), h0."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (rng.normal(size=s) * scale).astype(np.float32)).to(device)
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0] = T
+    mask = torch.from_numpy(
+        (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)).to(device)
+    w0 = f(H, 3 * H, scale=H ** -0.5)
+    return f(T, B, 3 * H), mask, w0[:, :2 * H], w0[:, 2 * H:], f(B, H,
+                                                                   scale=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(20, 5, 40), (12, 50, 96), (3, 33, 64)])
+def test_gru_kernels_match_plain_on_card(cuda_device, T, B, H):
+    """Primal and residual GRU forward through non-contiguous w0 slices,
+    ragged batches, widths that do not fill a tile; the backward step
+    kernels against the plain step; then the whole backward through
+    ``GruFunction`` in both directions against autograd of the plain
+    loop."""
+    xs, mask, wg, ws, h0 = _gru_inputs(T, B, H, B + H, cuda_device)
+    assert not wg.is_contiguous() and not ws.is_contiguous()
+    before = (tgru.gru_seq.launches, tgru.gru_seq_train.launches)
+    got = tgru.gru_seq(xs, mask, wg, ws, h0)
+    got_r = tgru.gru_seq_train(xs, mask, wg, ws, h0)
+    torch.cuda.synchronize()
+    assert (tgru.gru_seq.launches, tgru.gru_seq_train.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tgru.gru_sequence_plain(xs, mask, wg, ws, h0)
+    want_r = tgru.gru_sequence_residual_plain(xs, mask, wg, ws, h0)
+    for g, w in zip(list(got) + list(got_r), list(want) + list(want_r)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    _, hs, gates = got_r
+    dys, dhT = torch.randn_like(hs), torch.randn_like(h0)
+    before_b = tgru.gru_bwd_step.launches
+    got_b = tgru.gru_backward(mask, wg, ws, h0, hs, gates, dys, dhT)
+    torch.cuda.synchronize()
+    assert tgru.gru_bwd_step.launches == before_b + T
+    want_b = tgru.gru_backward(mask, wg, ws, h0, hs, gates, dys, dhT,
+                               step=tgru.gru_bwd_step_plain)
+    for name, g, w in zip(("dxs", "dWg", "dWs", "dh0"), got_b, want_b):
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+    bias = torch.zeros(3 * H, device=cuda_device)
+    for reverse in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xs, wg, ws, h0)]
+        ys, hT = tgru.gru_sequence(leaves[0], mask, leaves[1], leaves[2],
+                                   bias, leaves[3], reverse=reverse)
+        dys = torch.randn_like(ys)
+        got_g = torch.autograd.grad((ys * dys).sum() + hT.sum(), leaves)
+        plain = [t.detach().clone().requires_grad_(True)
+                 for t in (xs, wg, ws, h0)]
+        xs_p, m_p = ((plain[0].flip(0), mask.flip(0)) if reverse
+                     else (plain[0], mask))
+        ys_p, hT_p = tgru.gru_sequence_plain(xs_p, m_p, plain[1], plain[2],
+                                             plain[3])
+        ys_p = ys_p.flip(0) if reverse else ys_p
+        torch.testing.assert_close(ys, ys_p, rtol=1e-4, atol=1e-5)
+        want_g = torch.autograd.grad((ys_p * dys).sum() + hT_p.sum(), plain)
+        for name, g, w in zip(("dxs", "dWg", "dWs", "dh0"), got_g, want_g):
+            err = (g - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 512), (50, 96), (7, 40)])
+def test_gru_cell_kernel_matches_plain_on_card(cuda_device, B, H):
+    """The cell's kernel forward (training and inference entries) and its
+    recompute backward, through non-contiguous w0 slices."""
+    _, _, wg, ws, h = _gru_inputs(1, B, H, 7 * B + H, cuda_device)
+    x = torch.randn(B, 3 * H, device=cuda_device)
+    before = (rnn_cells.gru_cell.launches, rnn_cells.gru_cell_infer.launches)
+    out_i = rnn_cells.gru_cell_infer(x, h, wg, ws)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, h, wg, ws)]
+    out = rnn_cells.gru_cell(*leaves)
+    torch.cuda.synchronize()
+    assert (rnn_cells.gru_cell.launches,
+            rnn_cells.gru_cell_infer.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    plain = [t.detach().clone().requires_grad_(True) for t in (x, h, wg, ws)]
+    want = rnn_cells.gru_cell_plain(*plain)
+    torch.testing.assert_close(out_i, want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    dout = torch.randn_like(out)
+    for g, w in zip(torch.autograd.grad(out, leaves, dout),
+                    torch.autograd.grad(want, plain, dout)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() \
+            + 1e-5
+
+
+@pytest.mark.cuda
+def test_gru_kernels_reject_bad_weights(cuda_device):
+    """A transposed weight (columns not contiguous) or a weight of another
+    shape raises instead of reading the wrong numbers."""
+    xs, mask, wg, ws, h0 = _gru_inputs(4, 3, 8, 0, cuda_device)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        tgru.gru_seq(xs, mask, wg, ws.t(), h0)
+    with pytest.raises(ValueError, match="shape"):
+        tgru.gru_seq_train(xs, mask, wg[:, :8], ws, h0)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        rnn_cells.gru_cell_infer(xs[0], h0, wg, ws.t())
+    with pytest.raises(ValueError, match="float32"):
+        tgru.gru_seq(xs.double(), mask, wg, ws, h0)
