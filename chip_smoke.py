@@ -10,9 +10,9 @@ non-zero without the result line:
 1. device: a CUDA card is required (no CPU fallback); prints
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
-   csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``; one nvcc
-   per source, started together) and prints the seconds and the register
-   report.
+   csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``,
+   ``crf.cu``; one nvcc per source, started together) and prints the
+   seconds and the register report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
@@ -40,7 +40,17 @@ non-zero without the result line:
    backward with the plain step. The GRU cell at (50, 512) and
    (1, 512): both entries' forward against the plain math, the gradient
    likewise. Times and bounds as in phase 4.
-6. train: ``lstm_text_classifier`` at its widest published width (vocab
+6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
+   ragged lengths 1-80, an all-padding row, two forbidden transitions at
+   -1e4) and its serving shape (B=1): the forward kernel's alphas and
+   log Z within rtol 1e-4 / atol 1e-5 of the plain loop, the backward
+   kernel's gradients per tensor within 1e-4 of the largest entry + 1e-5
+   of the plain analytic backward (forbidden ones finite and below 1e-6,
+   two runs bit-equal), the Viterbi paths identical to the plain decode's.
+   Each kernel's device time (``torch.profiler``, 20 calls), CUDA events
+   around one wrapper call (median of 50) and the plain version's time
+   (median of 10), beside the bound for this mask's live steps.
+7. train: ``lstm_text_classifier`` at its widest published width (vocab
    30000, embed 128, hidden 1280, 2 LSTM layers, 2 classes) trained by
    ``python -m paddle_tpu_torch.trainer.cli --job train`` with
    ``Adam(learning_rate=2e-3)`` for 3 passes over 4 fixed batches of 64
@@ -56,14 +66,14 @@ non-zero without the result line:
    + 1e-6 (float32 through 100 recurrent steps each way; the plain path
    in float64 is reported beside both as the exact reference); then
    ``--job merge`` of the save dir.
-7. serve: the merged trained model served by ``--job serve`` (max_batch
+8. serve: the merged trained model served by ``--job serve`` (max_batch
    64, length buckets 32,64,128). Single samples and a rows batch of
    lengths 1-100 must answer softmax rows that sum to 1, repeat
    identically, match the port's plain path run on the CPU from the same
    file, and go through the kernel (its launch count, read from the
    server's /healthz before and after the requests, grows). SIGTERM must
    drain the server to exit 0.
-8. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
+9. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
    width (dicts 30000, embed 512, hidden 512) trained by ``--job train``
    with ``Adam(learning_rate=5e-4)`` for 3 passes over 4 fixed batches of
    50 (source lengths uniform in 10-50, padded to 50; ids from the seed;
@@ -75,8 +85,23 @@ non-zero without the result line:
    against CPU as in phase 6, and ``--job test`` of the checkpoint on the
    card, whose counts must show the primal GRU kernel and the cell's
    inference entry launched.
-9. kernels: one JSON line ``{"kernels": [...]}`` for every ported kernel,
-   with the launches of the main paths (phases 6, 7 and 8).
+10. tagger: ``bilstm_crf_tagger`` at CoNLL-2000 width (word dictionary
+   6778, embed 128, hidden 128, 23 labels) with the reference demo's
+   labelled decode and its ``sum`` error and ``chunk`` F1 evaluators,
+   trained by ``--job train`` with ``Adam(learning_rate=5e-3)`` for 3
+   passes over 4 fixed batches of 64 synthetic sentences (lengths 5-78,
+   padded to 80; tags from a rule on the words): the cost must fall and
+   the counts show the CRF forward, backward and Viterbi kernels, the
+   residual LSTM kernel, its backward step and Adam launched. Then the
+   full-width gradients (8 rows) card against CPU as in phase 7, ``--job
+   test`` on 2 more batches (cost, error, chunk_f1; the CRF forward, the
+   Viterbi and the primal LSTM kernels launched), ``--job merge`` with
+   outputs = the decode, and ``--job serve`` of it (length buckets 32,80):
+   3 single sentences (lengths 1, 23, 78) and one call of 16 rows answer
+   the Viterbi ids of the CPU plain path on the same file, exactly, and
+   /healthz counts crf_viterbi launches.
+11. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+   kernel, with the launches of the main paths (phases 7 to 10).
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -84,6 +109,7 @@ The last line is ``{"ok": true, "device": {...}}``. Full results go to
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import os
@@ -103,10 +129,11 @@ import torch
 
 from paddle_tpu_torch.kernels import rnn_cells as C
 from paddle_tpu_torch.ops import build
+from paddle_tpu_torch.ops import crf as CRF
 from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
-SOURCES = ["lstm_seq", "gru_seq", "opt_update"]
+SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -136,6 +163,21 @@ S2S_GRAD_ROWS = 8
 # GRU kernel check shapes (B, H, T): the path's own, a longer one, batch 1
 GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50)]
 GRU_CELL_SHAPES = [(50, 512), (1, 512)]
+# bilstm_crf_tagger at CoNLL-2000 width as rnn_crf.py hardcodes it (word
+# dictionary 6778, 23 chunk labels: IOB over 11 chunk types plus O) with
+# the demo config's word and hidden dims; trained as the JAX package's
+# tagging test trains it, Adam(5e-3)
+TAGGER = dict(vocab_size=6778, embed_dim=128, hidden=128, num_labels=23)
+TAG_BATCH, TAG_BATCHES, TAG_PASSES, TAG_LEN = 64, 4, 3, 80
+TAG_MIN_LEN, TAG_MAX_LEN = 5, 78
+TAG_GRAD_ROWS = 8
+TAG_LENGTH_BUCKETS = [32, 80]
+TAG_SERVE_LENGTHS = (1, 23, 78)  # the single sentences served
+# the shapes the tagger's serving path hands the LSTM kernel, (batch, T):
+# the single sentences in buckets 32 and 80, the call of 16 rows
+TAG_SERVE_SHAPES = [(1, 32), (1, 80), (16, 80)]
+# CRF kernel check shapes (B, T, C): the training path's, the serving one's
+CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23)]
 
 
 def phase(title: str, **kv):
@@ -215,6 +257,28 @@ def _time_ms(fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, kernel, calls=20):
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, from ``torch.profiler`` over ``calls`` calls of ``fn``
+    after one warm call: for a kernel shorter than its wrapper's host
+    work, where CUDA events around the call measure the host."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key]
+    if len(found) != 1 or found[0].count != calls:
+        raise AssertionError(f"profiler found {[(e.key, e.count) for e in found]}"
+                             f" for {kernel}")
+    return 1e-3 * found[0].self_device_time_total / calls
 
 
 def _bound(ops, nbytes):
@@ -381,15 +445,17 @@ def check_reverse(B, H, T, seed):
 
 
 def _model_param_sizes():
-    """Every parameter size of the h=1280 LSTM classifier and of the
-    full-width seq2seq model."""
+    """Every parameter size of the h=1280 LSTM classifier, the full-width
+    seq2seq model and the CoNLL-2000-width tagger."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.network import Network
     from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
     from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
     sizes = set()
     for build_model in (lambda: lstm_text_classifier(**MODEL),
-                        lambda: seq2seq_attention(**S2S)):
+                        lambda: seq2seq_attention(**S2S),
+                        lambda: bilstm_crf_tagger(**TAGGER)):
         dsl.reset()
         cost = build_model()[0]
         specs = Network(dsl.current_graph(), outputs=[cost.name]).param_specs
@@ -615,7 +681,131 @@ def check_gru_kernels():
     return rows, cells
 
 
-# ------------------------------------------------------------- 6. train
+# --------------------------------------------------- 6. CRF kernel check
+def _crf_inputs(B, T, C, seed):
+    """x [B,T,C], ragged lengths 1..T (row 0 full; with more than one row,
+    the last all padding, as a batch bucket pads it), trans with two
+    forbidden transitions (-1e4), a, b, and the cotangent g [B]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    lens = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None]).float()
+    trans = randn(C, C)
+    trans[0, 1] = trans[2, 3] = -1e4
+    return randn(B, T, C), mask.contiguous(), trans, randn(C), randn(C), \
+        randn(B)
+
+
+def _crf_bounds(B, T, C, mask):
+    """Least times of the three kernels for these inputs, by the work this
+    mask needs: live steps (t >= 1 with mask 1) and live pairs (steps t
+    and t-1 both real). Forward: 2C^2 + 6C operations per live step
+    (product, max, exp, log, adds) and 5C per sequence; x, mask, trans, a,
+    b in, alphas and log Z out. Backward: per step 6C for the unary
+    marginal, per live pair 7C^2 (the pairwise marginal's three adds, min,
+    exp, product and sum), per live step 2C^2 + 7C (the beta step); x,
+    mask, trans, b, alphas, log Z, g in, dx, dtrans, da, db out. Viterbi:
+    2C^2 + C per live step (adds and compares); x, mask, trans, a, b in,
+    the path and the score out."""
+    live = float(mask[:, 1:].sum())
+    pairs = float((mask[:, 1:] * mask[:, :-1]).sum())
+    steps = float(B * T)
+    ins = 4 * (B * T * C + B * T + C * C + 2 * C)
+    return {
+        "fwd": _bound(live * (2 * C * C + 6 * C) + 5.0 * B * C,
+                      ins + 4 * (B * T * C + B)),
+        "bwd": _bound(steps * 6 * C + pairs * 7 * C * C
+                      + live * (2 * C * C + 7 * C),
+                      ins + 4 * (B * T * C + 2 * B)
+                      + 4 * (B * T * C + C * C + 2 * C)),
+        "viterbi": _bound(live * (2 * C * C + C) + 3.0 * B * C,
+                          ins + 4 * (B * T + B)),
+    }
+
+
+def check_crf_shape(B, T, C, seed):
+    """The three CRF kernels against their plain versions on the same card
+    tensors: alphas and log Z within rtol 1e-4 / atol 1e-5, every gradient
+    per tensor within 1e-4 of its largest entry + 1e-5, the forbidden
+    transitions' gradients finite and near 0, the Viterbi paths identical
+    (scores within 1e-5); two backward runs bit-equal; times and bounds."""
+    x, mask, trans, a, b, g = _crf_inputs(B, T, C, seed)
+    alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
+    grads = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    path, score = CRF.crf_viterbi(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+    w_alphas, w_log_z = CRF.crf_forward_plain(x, mask, trans, a, b)
+    fwd_err = 0.0
+    for name, got, want in (("alphas", alphas, w_alphas),
+                            ("log_z", log_z, w_log_z)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"CRF B={B}: {name} is not finite")
+        fwd_err = max(fwd_err, (got - want).abs().max().item())
+        torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
+            f"CRF B={B} T={T} C={C} {name}: {m}"))
+    w_grads = CRF.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
+    if not all(torch.isfinite(t).all() for t in grads):
+        raise AssertionError(f"CRF B={B}: a gradient is not finite")
+    bwd_err = _check_grads(f"CRF B={B} T={T} C={C}", grads, w_grads,
+                           ("x", "trans", "a", "b"))
+    forbidden = max(abs(grads[1][0, 1].item()), abs(grads[1][2, 3].item()))
+    if forbidden > 1e-6:
+        raise AssertionError(f"forbidden transitions' gradient {forbidden}")
+    again = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    if not all(torch.equal(u, v) for u, v in zip(grads, again)):
+        raise AssertionError("two CRF backward runs differ")
+    w_path, w_score = CRF.crf_viterbi_plain(x, mask, trans, a, b)
+    if not torch.equal(path, w_path):
+        raise AssertionError(f"Viterbi paths differ at "
+                             f"{int((path != w_path).sum())} steps")
+    torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+    row = dict(B=B, T=T, C=C, live_steps=float(mask[:, 1:].sum()),
+               fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+               viterbi_score_err=(score - w_score).abs().max().item(),
+               forbidden_grad=forbidden)
+    # ms: the kernel's device time (torch.profiler); call_ms: CUDA events
+    # around one wrapper call, median of 50 (the host work inside the
+    # events counts: checks, allocations, the ctypes call, the backward's
+    # sums over the batch); plain_ms: the plain version, median of 10
+    for kind, kernel, plain, args in (
+            ("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
+             (x, mask, trans, a, b)),
+            ("bwd", CRF.crf_bwd, CRF.crf_bwd_plain,
+             (x, mask, trans, b, alphas, log_z, g)),
+            ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain,
+             (x, mask, trans, a, b))):
+        row[f"{kind}_ms"] = _device_ms(lambda: kernel(*args),
+                                       f"{kernel.__name__}_kernel")
+        row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
+        row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
+    for kind, (bound_ms, bound_by) in _crf_bounds(B, T, C, mask).items():
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
+    phase("crf_kernel_check", **row)
+    return row
+
+
+def check_crf_kernels():
+    """The CRF kernels at CRF_SHAPES, and the LSTM kernels at the tagger's
+    shapes (H=128: the JAX package's resident-weight ``_lstm_kernel`` at
+    this width): primal in both directions at the test pass's (64, 80) and
+    at TAG_SERVE_SHAPES, the residual forward with the backward step at
+    (64, 80)."""
+    rows = [check_crf_shape(B, T, C, seed=B + T + C) for B, T, C in CRF_SHAPES]
+    lstm = dict(
+        primal=[check_shape(B, TAGGER["hidden"], T, (False, True), seed=B + T)
+                for B, T in [(TAG_BATCH, TAG_LEN), *TAG_SERVE_SHAPES]],
+        train=check_train_shape(TAG_BATCH, TAGGER["hidden"], TAG_LEN,
+                                seed=TAG_LEN + 1))
+    return rows, lstm
+
+
+# ------------------------------------------------------------- 7. train
 def _write_config(path, optimizer):
     with open(path, "w") as f:
         f.write(textwrap.dedent(f"""
@@ -777,7 +967,7 @@ def train(tmp):
     return result, conf, model
 
 
-# ----------------------------------------------------- 7. seq2seq train
+# ----------------------------------------------------- 8. seq2seq train
 _S2S_SAMPLES = """
 def samples(rng, n):
     # source ids past 0 = <s> and 1 = </s>, lengths {lo}-{hi}; the target
@@ -956,7 +1146,7 @@ def train_seq2seq(tmp):
     return result
 
 
-# ------------------------------------------------------------- 8. serve
+# ------------------------------------------------------------- 9. serve
 def _batch_buckets(max_batch):
     """The serve CLI's menu: powers of two up to max_batch."""
     out = [1]
@@ -977,11 +1167,11 @@ def _http(port, method, path, body=None, timeout=300):
         conn.close()
 
 
-def _launches(port):
+def _launches(port, kernel="lstm_seq"):
     status, h = _http(port, "GET", "/healthz")
     if status != 200:
         raise AssertionError(f"/healthz answered {status}: {h}")
-    return h["kernels"]["lstm_seq"]
+    return h["kernels"][kernel]
 
 
 def _wait_ready(proc, timeout):
@@ -1002,6 +1192,37 @@ def _wait_ready(proc, timeout):
     raise AssertionError(f"server not ready within {timeout}s")
 
 
+@contextlib.contextmanager
+def _server(tmp, conf, model, length_buckets):
+    """A ``--job serve`` process of the merged ``model``: yields (port,
+    seconds until ready, [exit code]); on leaving, SIGTERM must drain it to
+    exit 0, and the list then holds that code."""
+    t_start = time.perf_counter()
+    log_path = os.path.join(tmp, "server.stderr")
+    err_log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", "--config",
+         conf, "--job", "serve", "--init_model_path", model,
+         "--max_batch", str(MAX_BATCH), "--serving_length_buckets",
+         ",".join(map(str, length_buckets)), "--port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
+    rc = []
+    try:
+        port = _wait_ready(proc, timeout=600)
+        yield port, time.perf_counter() - t_start, rc
+        proc.send_signal(signal.SIGTERM)
+        rc.append(proc.wait(timeout=120))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err_log.close()
+    if rc[0] != 0:
+        with open(log_path) as f:
+            sys.stderr.write(f.read()[-4000:])
+        raise AssertionError(f"server exited {rc[0]} after SIGTERM")
+
+
 def serve(tmp, conf, model):
     """Serve the merged PTM1 ``model`` with the config ``conf``."""
     from paddle_tpu_torch.data.types import (integer_value,
@@ -1020,17 +1241,7 @@ def serve(tmp, conf, model):
     singles = [sample(n) for n in (1, 37, 100)]
     rows = [sample(int(n)) for n in rng.integers(1, 101, size=24)]
 
-    t_start = time.perf_counter()
-    err_log = open(os.path.join(tmp, "server.stderr"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", "--config",
-         conf, "--job", "serve", "--init_model_path", model,
-         "--max_batch", str(MAX_BATCH), "--serving_length_buckets",
-         ",".join(map(str, LENGTH_BUCKETS)), "--port", "0"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
-    try:
-        port = _wait_ready(proc, timeout=600)
-        ready_s = time.perf_counter() - t_start
+    with _server(tmp, conf, model, LENGTH_BUCKETS) as (port, ready_s, rc):
         before = _launches(port)
         answers, times_ms = [], []
         for s in singles + [singles[-1]]:
@@ -1047,17 +1258,6 @@ def serve(tmp, conf, model):
             raise AssertionError(f"/v1/score rows answered {status}: {body}")
         answers += [r["outputs"]["output"] for r in body["results"]]
         after = _launches(port)
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
-        err_log.close()
-    if rc != 0:
-        with open(os.path.join(tmp, "server.stderr")) as f:
-            sys.stderr.write(f.read()[-4000:])
-        raise AssertionError(f"server exited {rc} after SIGTERM")
 
     got = np.asarray(answers, dtype=np.float64)
     if got.shape != (len(singles) + 1 + len(rows), MODEL["classes"]):
@@ -1086,8 +1286,221 @@ def serve(tmp, conf, model):
                   rows_ms=rows_ms, requests=len(singles) + 1 + len(rows),
                   launches=launches, step_launches=steps,
                   max_abs_err_vs_cpu=ref_err, softmax_sum_err=sum_err,
-                  server_exit=rc)
+                  server_exit=rc[0])
     phase("serve", **result)
+    return result
+
+
+# ------------------------------------------------------------ 10. tagger
+_TAG_SAMPLES = """
+def samples(rng, lengths):
+    # word ids from the seed; a word's chunk type is its id mod 12 (11 is
+    # outside a chunk); IOB labels: 2 * type for the word that opens a
+    # chunk, 2 * type + 1 for one that continues the previous word's type,
+    # 22 = O, so each label depends on the word and the one before it
+    out = []
+    for length in lengths:
+        words = rng.integers(0, {vocab}, size=int(length))
+        tags, prev = [], -1
+        for kind in (words % 12).tolist():
+            tags.append(22 if kind == 11 else 2 * kind + (kind == prev))
+            prev = kind
+        out.append((words.tolist(), tags))
+    return out
+
+
+def batch(rng):
+    return samples(rng, rng.integers({lo}, {hi} + 1, size={n}))
+"""
+
+
+def _tag_samples_src():
+    return _TAG_SAMPLES.format(vocab=TAGGER["vocab_size"], lo=TAG_MIN_LEN,
+                               hi=TAG_MAX_LEN, n=TAG_BATCH)
+
+
+def _tag_samples():
+    ns = {}
+    exec(_tag_samples_src(), ns)
+    return ns["samples"], ns["batch"]
+
+
+def _tag_feeding():
+    from paddle_tpu_torch.data.types import integer_value_sequence
+    return {"word": integer_value_sequence(TAGGER["vocab_size"]),
+            "label": integer_value_sequence(TAGGER["num_labels"])}
+
+
+def _write_tagger_configs(tmp):
+    """The training config (the tagger, the reference demo's labelled
+    crf_decoding_layer on the shared transitions with its ``sum`` error
+    and ``chunk`` F1 evaluators, outputs = the decode) and the serving one
+    (the same model, fed the word slot alone)."""
+    C = TAGGER["num_labels"]
+    conf = os.path.join(tmp, "tagger_conf.py")
+    with open(conf, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.config.model_config import ParamAttr
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import integer_value_sequence
+            from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
+            from paddle_tpu_torch.optim import Adam
+            cost, decoded, _ = bilstm_crf_tagger(**{TAGGER!r})
+            label = dsl.LayerOutput("label", {C})
+            checked = dsl.crf_decoding_layer(
+                input=dsl.LayerOutput("emission", {C}), size={C},
+                label=label, param_attr=ParamAttr(name="crf_transitions"),
+                name="crf_check")
+            dsl.evaluator("sum", checked, name="error")
+            dsl.evaluator("chunk", checked, label=label, name="chunk_f1",
+                          chunk_scheme="IOB", num_chunk_types={(C - 1) // 2})
+            outputs = [decoded]
+            optimizer = Adam(learning_rate=5e-3)
+            feeding = DataFeeder(
+                {{"word": integer_value_sequence({TAGGER['vocab_size']}),
+                  "label": integer_value_sequence({C})}},
+                pad_multiple={TAG_LEN})
+        """) + _tag_samples_src() + textwrap.dedent(f"""
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({TAG_BATCHES}):
+                    yield batch(rng)
+
+            def test_reader():
+                rng = np.random.default_rng({SEED + 2})
+                for _ in range(2):
+                    yield batch(rng)
+        """))
+    serve_conf = os.path.join(tmp, "tagger_serve_conf.py")
+    with open(serve_conf, "w") as f:
+        f.write(textwrap.dedent(f"""
+            from paddle_tpu_torch.data.types import integer_value_sequence
+            from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
+            cost, decoded, _ = bilstm_crf_tagger(**{TAGGER!r})
+            outputs = [decoded]
+            feeding = {{"word": integer_value_sequence(
+                {TAGGER['vocab_size']})}}
+        """))
+    return conf, serve_conf
+
+
+def train_tagger(tmp):
+    """--job train of the tagger at CoNLL-2000 width (Adam(5e-3), 3 passes
+    over 4 fixed batches, --save_dir), the full-width gradient check card
+    vs CPU (8 rows), --job test of the checkpoint on 2 more batches, and
+    --job merge with outputs = the decode."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
+    from paddle_tpu_torch.optim import Adam
+    conf, serve_conf = _write_tagger_configs(tmp)
+    save_dir = os.path.join(tmp, "tagger_ckpt")
+    out = _cli(["--config", conf, "--job", "train", "--num_passes",
+                str(TAG_PASSES), "--seed", str(SEED), "--save_dir",
+                save_dir], timeout=900)
+    passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
+    costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
+    summary = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("train_summary "))[14:])
+    if len(costs) != TAG_PASSES or summary["steps"] != TAG_PASSES * \
+            TAG_BATCHES:
+        raise AssertionError(f"tagger train printed {passes}, {summary}")
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"tagger pass costs {costs} do not fall")
+    counts = summary["kernels"]
+    for name in ("crf_alpha_fwd", "crf_bwd", "crf_viterbi", "lstm_seq_train",
+                 "lstm_bwd_step", "adam"):
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"tagger --job train never launched {name}")
+    samples, batch = _tag_samples()
+    rng = np.random.default_rng(SEED + 1)
+    feed = DataFeeder(_tag_feeding(), pad_multiple=TAG_LEN, device="cpu")(
+        samples(rng, rng.integers(TAG_MIN_LEN, TAG_MAX_LEN + 1,
+                                  size=TAG_GRAD_ROWS)))
+    grads = dict(rows=TAG_GRAD_ROWS, **_grads_card_vs_cpu(
+        lambda: bilstm_crf_tagger(**TAGGER), save_dir, feed,
+        Adam(learning_rate=5e-3)))
+    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
+               timeout=600)
+    line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test = {k: float(v) for k, v in (kv.split("=") for kv in
+                                     line[len("Test: "):].split())}
+    test_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("test_summary "))[13:])[
+        "kernels"]
+    if set(test) != {"cost", "error", "chunk_f1"} or not all(
+            np.isfinite(list(test.values()))):
+        raise AssertionError(f"tagger --job test printed {line}")
+    for name in ("crf_alpha_fwd", "crf_viterbi", "lstm_seq"):
+        if test_counts[name]["launches"] <= 0:
+            raise AssertionError(f"tagger --job test never launched {name}")
+    model = os.path.join(tmp, "tagger.ptmodel")
+    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+          "--model_path", model], timeout=600)
+    result = dict(pass_lines=passes, pass_costs=costs,
+                  steps=summary["steps"],
+                  median_step_ms=summary["median_step_ms"],
+                  step_ms=summary["step_ms"], kernels=counts,
+                  grad_check=grads, test=test, test_kernels=test_counts)
+    phase("tagger_train", **result)
+    return result, serve_conf, model
+
+
+def serve_tagger(tmp, serve_conf, model):
+    """--job serve of the merged tagger's Viterbi decode: 3 single
+    sentences (lengths 1, 23, 78) and one call of 16 rows; the ids over
+    the padded batch must equal the CPU plain path's on the same PTM1
+    file, and /healthz must count crf_viterbi launches."""
+    from paddle_tpu_torch.serving import ServingPredictor
+    samples, _ = _tag_samples()
+    rng = np.random.default_rng(SEED + 3)
+    singles = [[w] for w, _ in samples(rng, TAG_SERVE_LENGTHS)]
+    rows = [[w] for w, _ in samples(
+        rng, rng.integers(1, TAG_MAX_LEN + 1, size=16))]
+    with _server(tmp, serve_conf, model, TAG_LENGTH_BUCKETS) as (
+            port, ready_s, rc):
+        before = {k: _launches(port, k) for k in ("crf_viterbi", "lstm_seq")}
+        answers, times_ms = [], []
+        for s in singles:
+            t0 = time.perf_counter()
+            status, body = _http(port, "POST", "/v1/score", {"sample": s})
+            times_ms.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"/v1/score answered {status}: {body}")
+            answers.append(body["outputs"]["crf_decode"])
+        t0 = time.perf_counter()
+        status, body = _http(port, "POST", "/v1/score", {"rows": rows})
+        rows_ms = 1e3 * (time.perf_counter() - t0)
+        if status != 200:
+            raise AssertionError(f"/v1/score rows answered {status}: {body}")
+        answers += [r["outputs"]["crf_decode"] for r in body["results"]]
+        after = {k: _launches(port, k) for k in ("crf_viterbi", "lstm_seq")}
+    ref = ServingPredictor.from_merged(
+        model, {"word": _tag_feeding()["word"]},
+        batch_buckets=_batch_buckets(MAX_BATCH),
+        length_buckets=TAG_LENGTH_BUCKETS, device="cpu")
+    want = [ref.predict_rows([s])[0]["crf_decode"][0].tolist()
+            for s in singles]
+    want += ref.predict_rows(rows)[0]["crf_decode"][:len(rows)].tolist()
+    wrong = [i for i, (g, w) in enumerate(zip(answers, want)) if g != w]
+    if len(answers) != len(want) or wrong:
+        raise AssertionError(f"served decodes differ from the CPU plain "
+                             f"path's in answers {wrong}")
+    lengths = [len(s[0]) for s in singles + rows]
+    launches = {k: after[k]["launches"] - before[k]["launches"]
+                for k in after}
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the serving path never launched {k}")
+    result = dict(ready_s=ready_s, single_lengths=lengths[:3],
+                  single_ms=times_ms, rows=len(rows), rows_ms=rows_ms,
+                  requests=len(answers), launches=launches["crf_viterbi"],
+                  lstm_seq_launches=launches["lstm_seq"],
+                  answer_steps=[len(a) for a in answers],
+                  equal_to_cpu=True, server_exit=rc[0])
+    phase("tagger_serve", **result)
     return result
 
 
@@ -1106,11 +1519,14 @@ def main() -> int:
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
     gru_rows, cell_rows = check_gru_kernels()
+    crf_rows, tag_lstm_rows = check_crf_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained, conf, model = train(tmp)
         served = serve(tmp, conf, model)
         s2s = train_seq2seq(tmp)
+        tagger, tag_conf, tag_model = train_tagger(tmp)
+        tag_served = serve_tagger(tmp, tag_conf, tag_model)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -1125,27 +1541,59 @@ def main() -> int:
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
     gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
+    crf_src = "paddle_tpu_torch/csrc/crf.cu"
     counts = trained["kernels"]
     s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
+    tag_counts, tag_test = tagger["kernels"], tagger["test_kernels"]
+    crf_row = crf_rows[0]  # the training path's shape
+    crf_err = {k: max(r[f"{k}_max_abs_err"] for r in crf_rows)
+               for k in ("fwd", "bwd")}
     gru_fwd_err = max(r["fwd_max_abs_err"] for r in gru_rows)
     cell_err = max(r["max_abs_err"] for r in cell_rows)
+    # the tagger's LSTM runs at H=128, where the JAX package takes the
+    # resident-weight _lstm_kernel: its own entries, with the tagger's
+    # launches and the times at the tagger's shapes
+    tag_p_row = tag_lstm_rows["primal"][0]  # the test pass's (64, 128, 80)
+    tag_t_row = tag_lstm_rows["train"]
     entries = [
         dict(_entry("lstm_seq", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     served["launches"],
                     max(r["max_abs_err"] for r in rows + serve_rows),
                     main_row),
-             shape={k: main_row[k] for k in ("B", "H", "T")}),
+             shape={k: main_row[k] for k in ("B", "H", "T")},
+             path="lstm_text_classifier serve"),
         dict(_entry("lstm_seq_train", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     counts["lstm_seq_train"]["launches"],
                     max(r["fwd_max_abs_err"] for r in train_rows), t_row,
                     "fwd_"),
-             shape={k: t_row[k] for k in ("B", "H", "T")}),
+             shape={k: t_row[k] for k in ("B", "H", "T")},
+             path="lstm_text_classifier train"),
         dict(_entry("lstm_bwd_step", lstm_src,
                     "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
                     counts["lstm_bwd_step"]["launches"],
                     max([r["bwd_max_abs_err"] for r in train_rows]
                         + [reverse_err]), t_row, "step_"),
-             shape={"B": t_row["B"], "H": t_row["H"], "T": 1}),
+             shape={"B": t_row["B"], "H": t_row["H"], "T": 1},
+             path="lstm_text_classifier train"),
+        dict(_entry("lstm_seq_h128", lstm_src, "paddle_tpu/ops/lstm.py:73",
+                    tag_test["lstm_seq"]["launches"]
+                    + tag_served["lstm_seq_launches"],
+                    max(r["max_abs_err"] for r in tag_lstm_rows["primal"]),
+                    tag_p_row),
+             shape={k: tag_p_row[k] for k in ("B", "H", "T")},
+             path="bilstm_crf_tagger test and serve"),
+        dict(_entry("lstm_seq_train_h128", lstm_src,
+                    "paddle_tpu/ops/lstm.py:73",
+                    tag_counts["lstm_seq_train"]["launches"],
+                    tag_t_row["fwd_max_abs_err"], tag_t_row, "fwd_"),
+             shape={k: tag_t_row[k] for k in ("B", "H", "T")},
+             path="bilstm_crf_tagger train"),
+        dict(_entry("lstm_bwd_step_h128", lstm_src,
+                    "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
+                    tag_counts["lstm_bwd_step"]["launches"],
+                    tag_t_row["bwd_max_abs_err"], tag_t_row, "step_"),
+             shape={"B": tag_t_row["B"], "H": tag_t_row["H"], "T": 1},
+             path="bilstm_crf_tagger train"),
         dict(_entry("gru_seq", gru_src, "paddle_tpu/ops/gru.py:57",
                     s2s_test["gru_seq"]["launches"], gru_fwd_err, g_row),
              shape={k: g_row[k] for k in ("B", "H", "T")}),
@@ -1174,9 +1622,28 @@ def main() -> int:
              shape={"n": opt_rows["momentum"]["n"]}),
         dict(_entry("adam", opt_src, "paddle_tpu/kernels/opt_update.py:110",
                     counts["adam"]["launches"]
-                    + s2s_counts["adam"]["launches"],
+                    + s2s_counts["adam"]["launches"]
+                    + tag_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              shape={"n": opt_rows["adam"]["n"]}),
+        dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
+                    tag_counts["crf_alpha_fwd"]["launches"]
+                    + tag_test["crf_alpha_fwd"]["launches"], crf_err["fwd"],
+                    crf_row, "fwd_"),
+             shape={k: crf_row[k] for k in ("B", "T", "C")}),
+        dict(_entry("crf_bwd", crf_src,
+                    "JAX lax.scan paddle_tpu/ops/crf.py:158 (_crf_bwd)",
+                    tag_counts["crf_bwd"]["launches"], crf_err["bwd"],
+                    crf_row, "bwd_"),
+             shape={k: crf_row[k] for k in ("B", "T", "C")}),
+        dict(_entry("crf_viterbi", crf_src,
+                    "JAX lax.scan paddle_tpu/layers/chain.py:65 (crf_decode)",
+                    tag_counts["crf_viterbi"]["launches"]
+                    + tag_test["crf_viterbi"]["launches"]
+                    + tag_served["launches"],
+                    max(r["viterbi_score_err"] for r in crf_rows), crf_row,
+                    "viterbi_"),
+             shape={k: crf_row[k] for k in ("B", "T", "C")}),
     ]
     for e in entries:
         if e["launches"] <= 0:
@@ -1187,8 +1654,11 @@ def main() -> int:
         json.dump({"bench_shapes": rows, "serve_shapes": serve_rows,
                    "train_shapes": train_rows, "reverse_err": reverse_err,
                    "optimizer": opt_rows, "gru_shapes": gru_rows,
-                   "gru_cell_shapes": cell_rows, "train": trained,
-                   "serve": served, "seq2seq": s2s, **kernels}, f, indent=1)
+                   "gru_cell_shapes": cell_rows, "crf_shapes": crf_rows,
+                   "tagger_lstm_shapes": tag_lstm_rows,
+                   "train": trained, "serve": served, "seq2seq": s2s,
+                   "tagger": tagger, "tagger_serve": tag_served, **kernels},
+                  f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

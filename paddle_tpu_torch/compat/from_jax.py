@@ -4,7 +4,9 @@ The port keeps the JAX package's parameter names and layouts (``fc``
 weights [in, out], ``lstmemory`` w0 [H, 4H] and wbias [7H],
 ``gated_recurrent`` / ``gru_step`` w0 [H, 3H] and wbias [3H], embedding
 tables [vocab, dim], a recurrent group's sub-layer parameters under their
-own names such as ``_dec_in.w1``) and its optimizer-state tree, so a JAX
+own names such as ``_dec_in.w1``, a CRF's packed (C+2, C) start / end /
+transition matrix under its shared ``ParamAttr`` name such as
+``crf_transitions``) and its optimizer-state tree, so a JAX
 parameter dict or optimizer state, as numpy, maps onto the port's by
 name. PTM1 files and checkpoints carry the same names.
 """

@@ -1,5 +1,6 @@
 """Layer-construction DSL: the subset of ``paddle_tpu/config/dsl.py`` that
-``lstm_text_classifier``, ``seq2seq_attention``'s training graph and a
+``lstm_text_classifier``, ``seq2seq_attention``'s training graph,
+``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators) and a
 serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
@@ -221,6 +222,54 @@ def classification_cost(input, label, *, name: str = None) -> LayerOutput:
                     inputs=[Input(_in(input)[0].name),
                             Input(_in(label)[0].name)], bias=False)
     return _add(ldef)
+
+
+def crf_layer(input, label, *, size: int = None, weight=None,
+              param_attr=None, name: str = None) -> LayerOutput:
+    """Linear-chain CRF cost (``layers/chain.py``); a ``param_attr`` name
+    shares the (C+2, C) transition parameter with a ``crf_decoding_layer``."""
+    ins = [Input(_in(input)[0].name, param_attr=_param(param_attr)),
+           Input(_in(label)[0].name)]
+    if weight is not None:
+        ins.append(Input(_in(weight)[0].name))
+    ldef = LayerDef(name=name or _auto_name("crf"), type="crf",
+                    inputs=ins, bias=False)
+    return _add(ldef)
+
+
+def crf_decoding_layer(input, *, size: int = None, label=None,
+                       param_attr=None, name: str = None) -> LayerOutput:
+    """Viterbi decode; with ``label``, the per-sequence error indicator."""
+    ins = [Input(_in(input)[0].name, param_attr=_param(param_attr))]
+    if label is not None:
+        ins.append(Input(_in(label)[0].name))
+    ldef = LayerDef(name=name or _auto_name("crf_decoding"),
+                    type="crf_decoding", inputs=ins, bias=False)
+    return _add(ldef)
+
+
+def evaluator(type: str, input, *, label=None, weight=None, name: str = None,
+              **kwargs):
+    """Attach a metric evaluator to the graph (the native spelling of the
+    reference's evaluator config funcs, `trainer_config_helpers/
+    evaluators.py`); the trainer wires it to the metric registry
+    (``trainer/metrics.py``) each pass."""
+    ins = [input] if isinstance(input, LayerOutput) else list(input)
+    names = [i.name for i in ins]
+    n_outputs = len(names)
+    for extra in (label, weight):
+        if extra is not None:
+            names.append(extra.name)
+    cfg = {"type": type,
+           "name": name or _auto_name(f"{type}_evaluator").replace(
+               "_layer_", "_"),
+           "input_layers": names,
+           "_roles": {"n_outputs": n_outputs,
+                      "has_label": label is not None,
+                      "has_weight": weight is not None}}
+    cfg.update({k: v for k, v in kwargs.items() if v is not None})
+    current_graph().evaluators.append(cfg)
+    return cfg
 
 
 # ------------------------------------------------------ recurrent groups

@@ -8,6 +8,7 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from paddle_tpu_torch.kernels.opt_update import adam, momentum
     from paddle_tpu_torch.kernels.rnn_cells import gru_cell, gru_cell_infer
+    from paddle_tpu_torch.ops.crf import crf_alpha_fwd, crf_bwd, crf_viterbi
     from paddle_tpu_torch.ops.gru import gru_bwd_step, gru_seq, \
         gru_seq_train
     from paddle_tpu_torch.ops.lstm import lstm_bwd_step, lstm_seq, \
@@ -16,8 +17,9 @@ def _wrappers() -> dict:
             "lstm_bwd_step": lstm_bwd_step, "gru_seq": gru_seq,
             "gru_seq_train": gru_seq_train, "gru_bwd_step": gru_bwd_step,
             "gru_cell": gru_cell,
-            "gru_cell_infer": gru_cell_infer, "momentum": momentum,
-            "adam": adam}
+            "gru_cell_infer": gru_cell_infer, "crf_alpha_fwd": crf_alpha_fwd,
+            "crf_bwd": crf_bwd, "crf_viterbi": crf_viterbi,
+            "momentum": momentum, "adam": adam}
 
 
 def kernel_counts() -> dict:

@@ -7,7 +7,10 @@ sizes come from ``batch_buckets`` and padded sequence lengths from
 ``length_buckets``: a closed menu, warmed before the first request. A
 sequence longer than the largest edge is inadmissible (typed
 ``BadRequest``). The forward runs eagerly on ``device``; on ``cuda`` its
-LSTM layers launch the hand-written recurrence kernel.
+LSTM layers launch the hand-written recurrence kernel and a CRF decode
+its Viterbi kernel. Outputs come back as the layers give them: a decode's
+int32 ids [B, T, 1] over the padded batch and length bucket, as the JAX
+predictor returns them.
 """
 
 from __future__ import annotations

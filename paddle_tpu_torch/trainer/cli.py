@@ -18,9 +18,11 @@ The config is a Python file that builds its graph with
 ``Momentum(learning_rate=0.01, momentum=0.9)``, as in the JAX package)
 and ``outputs`` (the layers to merge and serve).
 
-``--job train`` prints ``Pass N: cost=... classification_error=...`` at
-each pass end, saves ``checkpoint-p{pass:05d}-b00000000.npz`` into
-``--save_dir`` (the JAX package's file format and names), and ends with a
+``--job train`` prints ``Pass N: cost=...`` with the pass's evaluators
+(``classification_error`` for a classification cost, and the config's
+own, such as a tagger's ``error=... chunk_f1=...``) at each pass end,
+saves ``checkpoint-p{pass:05d}-b00000000.npz`` into ``--save_dir`` (the
+JAX package's file format and names), and ends with a
 ``train_summary {...}`` JSON line: the kernel launch counts of the
 training loop and its wall ms per training step; ``--job test`` prints
 ``Test: cost=...`` and a ``test_summary`` JSON line with the kernel

@@ -11,10 +11,16 @@ step of a recurrent group its cell kernel, and the Momentum and Adam
 updates their fused kernels. Parameters are plain tensors on
 the trainer's device, held in a dict by name (the JAX package's pytree).
 
+Config-declared evaluators (``dsl.evaluator``, ``trainer/metrics.py``) are
+wired as the JAX trainer wires them: the executed sub-graph grows to the
+layers they read (such as a CRF decode branch off the loss path), each
+batch fetches those layers' outputs (with a decoded-ids view where the
+layer carries one), and the host evaluators see the live rows only.
+
 Not ported: the mesh, ZeRO-1, FSDP and pipeline planes, gradient
 accumulation, ``prev_batch_state``, the health plane, bf16 compute, async
-prefetch, the auto-resume ``Checkpointer`` and the host evaluators of
-``trainer/metrics.py``.
+prefetch, the auto-resume ``Checkpointer`` and the evaluator types of
+``paddle_tpu/trainer/metrics.py`` other than ``chunk`` and ``sum``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from paddle_tpu_torch.core.network import Network
 from paddle_tpu_torch.data.feeder import ROW_MASK_KEY
 from paddle_tpu_torch.optim.optimizers import Optimizer
 from paddle_tpu_torch.trainer import events as ev
+from paddle_tpu_torch.trainer import metrics as _metrics
 from paddle_tpu_torch.trainer.evaluators import (Accumulator,
                                                  classification_error)
 
@@ -46,6 +53,16 @@ def _param(v, device) -> torch.Tensor:
     t = v.detach() if isinstance(v, torch.Tensor) else torch.tensor(
         np.asarray(v, dtype=np.float32))
     return t.to(device=device, dtype=torch.float32)
+
+
+def _eval_view(arg: Argument) -> tuple:
+    """(value, mask) of a layer an evaluator reads, plus (ids, ids_mask)
+    where the layer carries a decoded-ids view (crf_decoding with a
+    label)."""
+    view = (arg.value, arg.mask)
+    if isinstance(arg.state, dict) and "ids" in arg.state:
+        view += (arg.state["ids"], arg.state.get("ids_mask"))
+    return view
 
 
 class Topology:
@@ -83,6 +100,18 @@ class SGD:
         self.topology = (cost if isinstance(cost, Topology)
                          else Topology(cost, extra_outputs=extra_layers))
         self.network = self.topology.network
+        graph = self.topology.graph
+        self._host_evals = _metrics.build_from_configs(graph.evaluators)
+        needed = {n for _, ins, _ in self._host_evals for n in ins
+                  if n in graph.layers}
+        missing = needed - set(self.network.shape_infos)
+        if missing:
+            # evaluator inputs off the loss path (a decode branch): extend
+            # the executed sub-graph to cover them
+            self.network = Network(graph, outputs=list(
+                graph.output_layer_names) + sorted(missing))
+            self.topology.network = self.network
+        self._eval_layers = sorted(needed)
         self.optimizer = update_equation
         self.device = torch.device(device)
         self.meta = self.network.param_meta()
@@ -130,6 +159,10 @@ class SGD:
             out_l, lab_l = cdef.input_names()[0], cdef.input_names()[1]
             metrics["classification_error"] = classification_error(
                 outputs[out_l], outputs[lab_l], row_mask=row_mask)
+        if self._eval_layers:
+            # the outputs the evaluators read, fetched once per batch
+            metrics["eval_outputs"] = {n: _eval_view(outputs[n])
+                                       for n in self._eval_layers}
         return metrics
 
     def _to_device(self, feed: Dict[str, Argument]) -> Dict[str, Argument]:
@@ -193,6 +226,7 @@ class SGD:
         for pass_id in range(num_passes):
             event_handler(ev.BeginPass(pass_id))
             acc.reset()
+            self._start_host_evaluators()
             window_cost, window_n = 0.0, 0
             for batch_id, data in enumerate(reader()):
                 event_handler(ev.BeginIteration(pass_id, batch_id))
@@ -202,23 +236,28 @@ class SGD:
                 cost = float(metrics["cost"])  # waits for the device
                 self.step_seconds.append(time.perf_counter() - t0)
                 evals = self._accumulate(acc, metrics)
+                self._feed_host_evaluators(metrics, feed)
                 window_cost += cost
                 window_n += 1
                 if log_period and (batch_id + 1) % log_period == 0:
                     logger.info(
                         "Pass=%d Batch=%d Cost=%.5f AvgEval: %s", pass_id,
                         batch_id + 1, window_cost / window_n,
-                        " ".join(f"{k}={v:.5g}" for k, v in evals.items()))
+                        " ".join(f"{k}={v:.5g}" for k, v in
+                                 {**evals,
+                                  **self.host_eval_values()}.items()))
                     window_cost, window_n = 0.0, 0
                 event_handler(ev.EndIteration(pass_id, batch_id, cost,
                                               evals))
             self.params, self.opt_state = self.optimizer.catch_up(
                 self.params, self.opt_state, self.meta, num_passes=pass_id)
-            event_handler(ev.EndPass(pass_id, acc.result()))
+            event_handler(ev.EndPass(
+                pass_id, {**acc.result(), **self.host_eval_values()}))
 
     def test(self, reader, *, feeder=None) -> ev.TestResult:
         """The cost and evaluators over ``reader``'s batches, no update."""
         acc = Accumulator()
+        self._start_host_evaluators()
         total_cost, batches = 0.0, 0
         with torch.no_grad():
             for data in reader():
@@ -228,7 +267,9 @@ class SGD:
                 total_cost += float(metrics["cost"])
                 batches += 1
                 self._accumulate(acc, metrics)
-        return ev.TestResult(0, total_cost / max(batches, 1), acc.result())
+                self._feed_host_evaluators(metrics, feed)
+        return ev.TestResult(0, total_cost / max(batches, 1),
+                             {**acc.result(), **self.host_eval_values()})
 
     @staticmethod
     def _accumulate(acc: Accumulator, metrics) -> Dict[str, float]:
@@ -236,6 +277,46 @@ class SGD:
             if isinstance(v, tuple):
                 acc.add(k, *v)
         return acc.result()
+
+    # -------------------------------------------- config-driven evaluators
+    def _start_host_evaluators(self):
+        for e, _, _ in self._host_evals:
+            e.start()
+
+    def _feed_host_evaluators(self, metrics, feed):
+        """One batch into the config-declared evaluators. Inputs bind by
+        the roles the DSL recorded ([outputs..., label?, weight?]); rows
+        the batch bucket padded are cut off first (they sit at the end of
+        the batch), so the evaluators see live rows only."""
+        outs = metrics.get("eval_outputs")
+        if not outs:
+            return
+        host = {k: tuple(None if v is None else v.cpu().numpy() for v in tup)
+                for k, tup in outs.items()}
+        row_mask = self._row_mask(feed)
+        if row_mask is not None:
+            n_live = int(row_mask.sum())
+            host = {k: tuple(None if v is None else v[:n_live] for v in tup)
+                    for k, tup in host.items()}
+        for e, ins, roles in self._host_evals:
+            if not ins or ins[0] not in host:
+                continue
+            vals = [host[n][0] if n in host else None for n in ins]
+            rest = vals[roles.get("n_outputs", 1):]
+            kwargs = {"mask": host[ins[0]][1]}
+            if getattr(e, "wants_ids", False) and len(host[ins[0]]) > 2:
+                # the decoded path, not the error indicator (ChunkEvaluator
+                # reads output_.ids in the reference)
+                vals[0] = host[ins[0]][2]
+                kwargs["mask"] = host[ins[0]][3]
+            if roles.get("has_label") and rest:
+                kwargs["label"] = rest.pop(0)
+            if roles.get("has_weight") and rest:
+                kwargs["weight"] = rest.pop(0)
+            e.eval_batch(vals[0], **kwargs)
+
+    def host_eval_values(self) -> Dict[str, float]:
+        return {e.name: e.value() for e, _, _ in self._host_evals}
 
     # --------------------------------------------------------------- state
     def load_state(self, params: Dict[str, Any], opt_flat=None):

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
 forms, the LSTM backward step, the GRU recurrence in its primal and
 residual forms, the GRU backward step, the GRU cell, the Momentum and
-Adam updates) against
+Adam updates, the CRF forward, backward and Viterbi kernels) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import rnn_cells
+from paddle_tpu_torch.ops import crf as tcrf
 from paddle_tpu_torch.ops import gru as tgru
 from paddle_tpu_torch.ops import lstm as tlstm
 
@@ -264,3 +265,79 @@ def test_gru_kernels_reject_bad_weights(cuda_device):
         rnn_cells.gru_cell_infer(xs[0], h0, wg, ws.t())
     with pytest.raises(ValueError, match="float32"):
         tgru.gru_seq(xs.double(), mask, wg, ws, h0)
+
+
+def _crf_inputs(B, T, C, seed, device):
+    """x [B,T,C], a ragged mask with one length-1 row and one all-padding
+    row, trans with two forbidden transitions (-1e4), a, b, and the
+    cotangent g [B]."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(device)
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0], lens[-1] = T, 0
+    if B > 2:
+        lens[1] = 1
+    mask = torch.from_numpy(
+        (np.arange(T)[None, :] < lens[:, None]).astype(np.float32)).to(device)
+    trans = f(C, C)
+    trans[0, 1] = trans[min(2, C - 1), C - 1] = -1e4
+    return f(B, T, C), mask, trans, f(C), f(C), f(B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C", [(64, 80, 23), (1, 80, 23), (5, 7, 9),
+                                   (6, 12, 33), (4, 5, 96)])
+def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
+    """The tagger's shape (B=64, T=80, C=23), its serving shape (B=1), and
+    class counts below, across and at the top of the lanes a warp owns:
+    log Z and the alphas within rtol 1e-4 / atol 1e-5; every gradient per
+    tensor within 1e-4 of its largest entry + 1e-5 (sums over steps and
+    rows in another order), forbidden transitions finite and near 0;
+    the Viterbi paths identical and their scores within 1e-5."""
+    x, mask, trans, a, b, g = _crf_inputs(B, T, C, B * T + C, cuda_device)
+    before = (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
+              tcrf.crf_viterbi.launches)
+    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    got_b = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+    assert (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
+            tcrf.crf_viterbi.launches) == tuple(n + 1 for n in before)
+    w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    torch.testing.assert_close(alphas, w_alphas, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(log_z, w_log_z, rtol=1e-4, atol=1e-5)
+    want_b = tcrf.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
+    for name, gk, gp in zip(("dx", "dtrans", "da", "db"), got_b, want_b):
+        assert torch.isfinite(gk).all(), name
+        err = (gk - gp).abs().max().item()
+        assert err <= 1e-4 * gp.abs().max().item() + 1e-5, (name, err)
+    assert abs(got_b[1][0, 1].item()) < 1e-6
+    # the all-padding row takes no unary marginal
+    assert got_b[0][-1].abs().max().item() == 0.0
+    w_path, w_score = tcrf.crf_viterbi_plain(x, mask, trans, a, b)
+    assert torch.equal(path, w_path)
+    torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+    # two runs give the same bits (no float atomics)
+    again = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    for g1, g2 in zip(got_b, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_crf_kernels_reject_bad_inputs(cuda_device):
+    """A CPU tensor into a CUDA path, a wrong dtype, and a class count
+    beyond the kernels' shared memory all raise."""
+    x, mask, trans, a, b, g = _crf_inputs(3, 4, 5, 0, cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcrf.crf_alpha_fwd(x, mask.cpu(), trans, a, b)
+    with pytest.raises(ValueError, match="float32"):
+        tcrf.crf_viterbi(x.double(), mask, trans, a, b)
+    with pytest.raises(ValueError, match="float32"):
+        tcrf.crf_bwd(x, mask, trans, b, x, g.double(), g)
+    big = torch.zeros(2, 3, tcrf.MAX_CLASSES + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="classes"):
+        tcrf.crf_alpha_fwd(big, mask[:2, :3].contiguous(),
+                           torch.zeros(big.shape[-1], big.shape[-1],
+                                       device=cuda_device),
+                           big[0, 0], big[0, 0])
