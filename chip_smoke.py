@@ -11,8 +11,8 @@ non-zero without the result line:
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
    csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``,
-   ``crf.cu``; one nvcc per source, started together) and prints the
-   seconds and the register report.
+   ``crf.cu``, ``flash_attn.cu``; one nvcc per source, started together)
+   and prints the seconds and the register report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
@@ -50,7 +50,21 @@ non-zero without the result line:
    Each kernel's device time (``torch.profiler``, 20 calls), CUDA events
    around one wrapper call (median of 50) and the plain version's time
    (median of 10), beside the bound for this mask's live steps.
-7. train: ``lstm_text_classifier`` at its widest published width (vocab
+7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
+   — the attention seq2seq path's (50, 4, 50, 50, 128) with kv lengths
+   10-50 and one all-padding row, its batch 1, a causal cross-attention
+   (2, 4, 200, 333, 64) and a long self-attention (2, 4, 4096, 4096, 128)
+   non-causal and causal — the forward kernel's o and row statistics
+   within rtol 1e-4 / atol 1e-5 of ``blockwise_plain``, the backward
+   kernels' gradients per tensor within 1e-4 of the largest entry + 1e-5
+   of ``flash_bwd_plain`` and of autograd through ``mha_plain``, two
+   backward runs bit-equal, every output finite. Times: CUDA events
+   around each wrapper call (median of 10), the kernels' device time
+   (``torch.profiler``), the plain versions, and the library yardstick
+   ``scaled_dot_product_attention`` (the same additive -1e9 mask, TF32
+   off; forward, backward, both; the backend that ran), beside the bounds
+   by the visible (query, key) pairs.
+8. train: ``lstm_text_classifier`` at its widest published width (vocab
    30000, embed 128, hidden 1280, 2 LSTM layers, 2 classes) trained by
    ``python -m paddle_tpu_torch.trainer.cli --job train`` with
    ``Adam(learning_rate=2e-3)`` for 3 passes over 4 fixed batches of 64
@@ -66,14 +80,14 @@ non-zero without the result line:
    + 1e-6 (float32 through 100 recurrent steps each way; the plain path
    in float64 is reported beside both as the exact reference); then
    ``--job merge`` of the save dir.
-8. serve: the merged trained model served by ``--job serve`` (max_batch
+9. serve: the merged trained model served by ``--job serve`` (max_batch
    64, length buckets 32,64,128). Single samples and a rows batch of
    lengths 1-100 must answer softmax rows that sum to 1, repeat
    identically, match the port's plain path run on the CPU from the same
    file, and go through the kernel (its launch count, read from the
    server's /healthz before and after the requests, grows). SIGTERM must
    drain the server to exit 0.
-9. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
+10. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
    width (dicts 30000, embed 512, hidden 512) trained by ``--job train``
    with ``Adam(learning_rate=5e-4)`` for 3 passes over 4 fixed batches of
    50 (source lengths uniform in 10-50, padded to 50; ids from the seed;
@@ -84,8 +98,11 @@ non-zero without the result line:
    full-width gradients (8 rows) from the trained checkpoint, card
    against CPU as in phase 6, and ``--job test`` of the checkpoint on the
    card, whose counts must show the primal GRU kernel and the cell's
-   inference entry launched.
-10. tagger: ``bilstm_crf_tagger`` at CoNLL-2000 width (word dictionary
+   inference entry launched. Then the same for the model with its encoder
+   self-attention block (``seq_parallel="ring"``, 4 heads of 128; no
+   sequence mesh, so dense): its counts must also show the flash forward
+   and backward kernels in training and the forward in ``--job test``.
+11. tagger: ``bilstm_crf_tagger`` at CoNLL-2000 width (word dictionary
    6778, embed 128, hidden 128, 23 labels) with the reference demo's
    labelled decode and its ``sum`` error and ``chunk`` F1 evaluators,
    trained by ``--job train`` with ``Adam(learning_rate=5e-3)`` for 3
@@ -100,8 +117,8 @@ non-zero without the result line:
    3 single sentences (lengths 1, 23, 78) and one call of 16 rows answer
    the Viterbi ids of the CPU plain path on the same file, exactly, and
    /healthz counts crf_viterbi launches.
-11. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 7 to 10).
+12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+   kernel, with the launches of the main paths (phases 8 to 11).
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -123,17 +140,19 @@ import tempfile
 import textwrap
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch.kernels import rnn_cells as C
+from paddle_tpu_torch.ops import attention as ATT
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops import crf as CRF
 from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
-SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf"]
+SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf", "flash_attn"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -178,6 +197,17 @@ TAG_SERVE_LENGTHS = (1, 23, 78)  # the single sentences served
 TAG_SERVE_SHAPES = [(1, 32), (1, 80), (16, 80)]
 # CRF kernel check shapes (B, T, C): the training path's, the serving one's
 CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23)]
+# seq2seq_attention with its encoder self-attention block: 4 heads of 128
+# over the 512-wide embedding (the JAX model's num_heads default)
+S2S_ATT = dict(S2S, seq_parallel="ring", num_heads=4)
+# flash-attention check shapes (B, N, Tq, Tk, D, causal, shortest kv
+# length): the path's (ragged 10-50, one all-padding row), its batch 1, a
+# causal cross-attention, a long self-attention both ways (no padding)
+FLASH_SHAPES = [(S2S_BATCH, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN),
+                (1, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN),
+                (2, 4, 200, 333, 64, True, 1),
+                (2, 4, 4096, 4096, 128, False, 4096),
+                (2, 4, 4096, 4096, 128, True, 4096)]
 
 
 def phase(title: str, **kv):
@@ -260,10 +290,11 @@ def _time_ms(fn, reps=10, warmup=2):
 
 
 def _device_ms(fn, kernel, calls=20):
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, from ``torch.profiler`` over ``calls`` calls of ``fn``
-    after one warm call: for a kernel shorter than its wrapper's host
-    work, where CUDA events around the call measure the host."""
+    """Device time of one call of ``fn``: the CUDA kernels whose names
+    contain ``kernel`` (each launched once per call), from
+    ``torch.profiler`` over ``calls`` calls after one warm call: for a
+    kernel shorter than its wrapper's host work, where CUDA events around
+    the call measure the host."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -275,10 +306,10 @@ def _device_ms(fn, kernel, calls=20):
     found = [e for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.key]
-    if len(found) != 1 or found[0].count != calls:
+    if not found or any(e.count != calls for e in found):
         raise AssertionError(f"profiler found {[(e.key, e.count) for e in found]}"
                              f" for {kernel}")
-    return 1e-3 * found[0].self_device_time_total / calls
+    return 1e-3 * sum(e.self_device_time_total for e in found) / calls
 
 
 def _bound(ops, nbytes):
@@ -446,7 +477,8 @@ def check_reverse(B, H, T, seed):
 
 def _model_param_sizes():
     """Every parameter size of the h=1280 LSTM classifier, the full-width
-    seq2seq model and the CoNLL-2000-width tagger."""
+    seq2seq model with and without its self-attention block and the
+    CoNLL-2000-width tagger."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.network import Network
     from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
@@ -455,6 +487,7 @@ def _model_param_sizes():
     sizes = set()
     for build_model in (lambda: lstm_text_classifier(**MODEL),
                         lambda: seq2seq_attention(**S2S),
+                        lambda: seq2seq_attention(**S2S_ATT),
                         lambda: bilstm_crf_tagger(**TAGGER)):
         dsl.reset()
         cost = build_model()[0]
@@ -805,7 +838,161 @@ def check_crf_kernels():
     return rows, lstm
 
 
-# ------------------------------------------------------------- 7. train
+# ------------------------------------------ 7. flash-attention kernel check
+def _flash_inputs(B, N, Tq, Tk, D, seed, min_len):
+    """q, k, v, dO [B,N,T,D] and a kv mask [B,Tk] of lengths min_len..Tk
+    (row 0 full; with more than two rows the last all padding, as a batch
+    bucket pads it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    lens = torch.randint(min_len, Tk + 1, (B,), generator=g, device="cuda")
+    lens[0] = Tk
+    if B > 2:
+        lens[-1] = 0
+    mask = (torch.arange(Tk, device="cuda")[None, :] < lens[:, None]).float()
+    return (randn(B, N, Tq, D), randn(B, N, Tk, D), randn(B, N, Tk, D),
+            mask.contiguous(), randn(B, N, Tq, D))
+
+
+def _flash_visible(B, Tq, Tk, mask, causal):
+    """[B, Tq, Tk] bool: the (query, key) pairs the mask and causal leave
+    visible (``kj <= qi + Tk - Tq``)."""
+    vis = (mask[:, None, :] > 0).expand(B, Tq, Tk)
+    if causal:
+        qi = torch.arange(Tq, device=mask.device)[:, None] + (Tk - Tq)
+        vis = vis & (torch.arange(Tk, device=mask.device)[None, :] <= qi)
+    return vis
+
+
+def _flash_bounds(B, N, Tq, Tk, D, visible):
+    """Least times of the forward and the backward for these inputs, by
+    the pairs this mask and causal leave visible (a row that sees no key
+    needs only v's mean): 4 D operations per pair forward (two products),
+    10 D backward (five). Bytes: q, k, v, mask in, o and the row
+    statistics out; the backward's q, k, v, mask, o, dO and statistics
+    in, dq, dk, dv out."""
+    pairs = N * float(visible.sum())
+    q_el, kv_el = B * N * Tq * D, B * N * Tk * D
+    return {"fwd": _bound(4.0 * D * pairs,
+                          4 * (q_el + 2 * kv_el + B * Tk + q_el
+                               + 2 * B * N * Tq)),
+            "bwd": _bound(10.0 * D * pairs,
+                          4 * (3 * q_el + 2 * kv_el + B * Tk + 2 * B * N * Tq
+                               + q_el + 2 * kv_el))}
+
+
+def _sdpa(q, k, v, do, bias, scale):
+    """The library yardstick: one ``scaled_dot_product_attention`` call
+    with the additive -1e9 bias [B, 1, Tq, Tk] (never on the port's path).
+    The first backend, of the fused ones then the math one, that takes
+    these inputs forward and backward; returns (call, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(q, k, v, backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(q, k, v, attn_mask=bias, scale=scale)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # a backend says why not
+                torch.autograd.grad(call(*leaves), leaves, do)
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise AssertionError("no scaled_dot_product_attention backend ran")
+
+
+def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, seed):
+    """The forward and backward kernels against ``blockwise_plain`` and
+    ``flash_bwd_plain`` on the same card tensors (o and the row statistics
+    within rtol 1e-4 / atol 1e-5; every gradient per tensor within 1e-4
+    of its largest entry + 1e-5), the backward also against autograd
+    through ``mha_plain``; two backward runs bit-equal; every output
+    finite (an all-padding row included). Times: each wrapper call by
+    CUDA events (median of 10) and its kernels' device time
+    (``torch.profiler``), the plain versions, and SDPA forward, backward
+    and both, beside the bounds."""
+    q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, seed, min_len)
+    o, lse = ATT.flash_fwd(q, k, v, mask, causal)
+    grads = ATT.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    where = f"flash B={B} N={N} Tq={Tq} Tk={Tk} D={D} causal={causal}"
+    for name, t in (("o", o), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{where}: {name} is not finite")
+    w_o, w_lse = ATT.blockwise_plain(q, k, v, mask, causal)
+    fwd_err = 0.0
+    for name, got, want in (("o", o, w_o), ("lse", lse, w_lse)):
+        fwd_err = max(fwd_err, (got - want).abs().max().item())
+        torch.testing.assert_close(got, want, **TOL,
+                                   msg=lambda m: f"{where} {name}: {m}")
+    names = ("q", "k", "v")
+    bwd_err = _check_grads(where, grads, ATT.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal), names)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = ATT.mha_plain(*leaves, mask, causal)
+    ref_err = _check_grads(f"{where} vs autograd of mha_plain", grads,
+                           torch.autograd.grad((ref * do).sum(), leaves),
+                           names)
+    del ref, leaves
+    again = ATT.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    if not all(torch.equal(u, w) for u, w in zip(grads, again)):
+        raise AssertionError(f"{where}: two backward runs differ")
+    visible = _flash_visible(B, Tq, Tk, mask, causal)
+    scale = D ** -0.5
+    row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal,
+               all_padding_rows=int((mask.sum(dim=1) == 0).sum()),
+               visible_pairs=N * float(visible.sum()),
+               fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+               bwd_vs_mha_autograd_err=ref_err, bwd_bit_equal=True,
+               fwd_ms=_time_ms(lambda: ATT.flash_fwd(q, k, v, mask, causal)),
+               bwd_ms=_time_ms(lambda: ATT.flash_bwd(q, k, v, mask, o, lse,
+                                                     do, causal)),
+               fwd_device_ms=_device_ms(
+                   lambda: ATT.flash_fwd(q, k, v, mask, causal),
+                   "flash_fwd_kernel", calls=10),
+               bwd_device_ms=_device_ms(
+                   lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
+                   "flash_bwd_", calls=10),
+               fwd_plain_ms=_time_ms(lambda: ATT.blockwise_plain(
+                   q, k, v, mask, causal)),
+               bwd_plain_ms=_time_ms(lambda: ATT.flash_bwd_plain(
+                   q, k, v, mask, w_o, w_lse, do, causal)))
+    bias = torch.zeros((B, 1, Tq, Tk), device="cuda").masked_fill(
+        ~visible[:, None], -1e9)
+    call, row["sdpa_backend"] = _sdpa(q, k, v, do, bias, scale)
+    with torch.no_grad():
+        row["sdpa_max_abs_err"] = (call(q, k, v) - w_o).abs().max().item()
+    s_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(call(*s_leaves), s_leaves, do)
+
+    row["fwd_library_ms"] = _time_ms(lambda: call(q, k, v))
+    row["fwd_bwd_library_ms"] = _time_ms(sdpa_fwd_bwd)
+    s_out = call(*s_leaves)
+    row["bwd_library_ms"] = _time_ms(lambda: torch.autograd.grad(
+        s_out, s_leaves, do, retain_graph=True))
+    del s_out, s_leaves, bias
+    for kind, (bound_ms, bound_by) in _flash_bounds(B, N, Tq, Tk, D,
+                                                    visible).items():
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
+    phase("flash_kernel_check", **row)
+    return row
+
+
+def check_flash_kernels():
+    return [check_flash_shape(*shape, seed=sum(shape[:5]))
+            for shape in FLASH_SHAPES]
+
+
+# ------------------------------------------------------------- 8. train
 def _write_config(path, optimizer):
     with open(path, "w") as f:
         f.write(textwrap.dedent(f"""
@@ -994,7 +1181,7 @@ def _s2s_feeding():
             "target_next": integer_value_sequence(S2S["trg_vocab"])}
 
 
-def _write_s2s_config(path):
+def _write_s2s_config(path, model):
     with open(path, "w") as f:
         f.write(textwrap.dedent(f"""
             import numpy as np
@@ -1002,7 +1189,7 @@ def _write_s2s_config(path):
             from paddle_tpu_torch.data.types import integer_value_sequence
             from paddle_tpu_torch.models.seq2seq import seq2seq_attention
             from paddle_tpu_torch.optim import Adam
-            cost, probs, _ = seq2seq_attention(**{S2S!r})
+            cost, probs, _ = seq2seq_attention(**{model!r})
             optimizer = Adam(learning_rate=5e-4)
             feeding = DataFeeder(
                 {{"source_words": integer_value_sequence({S2S['src_vocab']}),
@@ -1023,7 +1210,7 @@ def _write_s2s_config(path):
         """))
 
 
-def _s2s_step_split(save_dir):
+def _s2s_step_split(save_dir, model):
     """Where one full-width seq2seq training step's time goes, on the card
     from the trained checkpoint, for one batch of S2S_BATCH rows (host
     clock, each part ending in a synchronise; median of 3 after one warm
@@ -1041,7 +1228,7 @@ def _s2s_step_split(save_dir):
                                                      load_params)
     from paddle_tpu_torch.trainer.trainer import SGD
     dsl.reset()
-    cost = seq2seq_attention(**S2S)[0]
+    cost = seq2seq_attention(**model)[0]
     params, _ = load_params(latest_checkpoint(save_dir))
     tr = SGD(cost, parameters=params, device="cuda",
              update_equation=Adam(learning_rate=5e-4))
@@ -1101,31 +1288,34 @@ def _s2s_step_split(save_dir):
     return split
 
 
-def train_seq2seq(tmp):
-    """--job train of the full-width seq2seq model (Adam(5e-4), 3 passes,
-    --save_dir), the full-width gradient check card vs CPU, and --job test
-    of the trained checkpoint on the card."""
+def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
+    """--job train of the full-width seq2seq ``model`` (Adam(5e-4), 3
+    passes, --save_dir), the full-width gradient check card vs CPU, the
+    step split, and --job test of the trained checkpoint on the card; the
+    fresh processes' counts must show the GRU kernels, Adam and the named
+    ``train_kernels`` / ``test_kernels`` launched."""
     from paddle_tpu_torch.data.feeder import DataFeeder
     from paddle_tpu_torch.models.seq2seq import seq2seq_attention
     from paddle_tpu_torch.optim import Adam
-    conf = os.path.join(tmp, "seq2seq_conf.py")
-    _write_s2s_config(conf)
-    save_dir = os.path.join(tmp, "s2s_ckpt")
+    conf = os.path.join(tmp, f"{title}_conf.py")
+    _write_s2s_config(conf, model)
+    save_dir = os.path.join(tmp, f"{title}_ckpt")
     costs, summary = _train_run(conf, S2S_PASSES, save_dir,
                                 batches=S2S_BATCHES)
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
-        raise AssertionError(f"seq2seq pass costs {costs} do not fall")
+        raise AssertionError(f"{title} pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("gru_seq_train", "gru_bwd_step", "gru_cell", "adam"):
+    for name in ("gru_seq_train", "gru_bwd_step", "gru_cell", "adam",
+                 *train_kernels):
         if counts[name]["launches"] <= 0:
-            raise AssertionError(f"seq2seq --job train never launched "
+            raise AssertionError(f"{title} --job train never launched "
                                  f"{name}")
     feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
         _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
     grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
-        lambda: seq2seq_attention(**S2S), save_dir, feed,
+        lambda: seq2seq_attention(**model), save_dir, feed,
         Adam(learning_rate=5e-4)))
-    split = _s2s_step_split(save_dir)
+    split = _s2s_step_split(save_dir, model)
     out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
                timeout=600)
     test_cost = float(out.split("Test: cost=")[1].split()[0])
@@ -1134,15 +1324,15 @@ def train_seq2seq(tmp):
         "kernels"]
     if not np.isfinite(test_cost):
         raise AssertionError(f"--job test cost {test_cost}")
-    for name in ("gru_seq", "gru_cell_infer"):
+    for name in ("gru_seq", "gru_cell_infer", *test_kernels):
         if test_counts[name]["launches"] <= 0:
-            raise AssertionError(f"seq2seq --job test never launched {name}")
+            raise AssertionError(f"{title} --job test never launched {name}")
     result = dict(pass_costs=costs, steps=summary["steps"],
                   median_step_ms=summary["median_step_ms"],
                   step_ms=summary["step_ms"], kernels=counts,
                   grad_check=grads, step_split=split, test_cost=test_cost,
                   test_kernels=test_counts)
-    phase("seq2seq_train", **result)
+    phase(title, **result)
     return result
 
 
@@ -1509,8 +1699,8 @@ def _entry(name, source, replaces, launches, err, row, prefix=""):
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": row[prefix + "ms"], "plain_ms": row[prefix + "plain_ms"],
             "bound_ms": row[prefix + "bound_ms"],
-            "bound_by": row[prefix + "bound_by"], "library_ms": None,
-            "check": "pass"}
+            "bound_by": row[prefix + "bound_by"],
+            "library_ms": row.get(prefix + "library_ms"), "check": "pass"}
 
 
 def main() -> int:
@@ -1520,11 +1710,14 @@ def main() -> int:
     train_rows, reverse_err, opt_rows = check_train_kernels()
     gru_rows, cell_rows = check_gru_kernels()
     crf_rows, tag_lstm_rows = check_crf_kernels()
+    flash_rows = check_flash_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained, conf, model = train(tmp)
         served = serve(tmp, conf, model)
-        s2s = train_seq2seq(tmp)
+        s2s = train_seq2seq(tmp, S2S, "seq2seq_train")
+        s2s_att = train_seq2seq(tmp, S2S_ATT, "seq2seq_attention_train",
+                                ("flash_fwd", "flash_bwd"), ("flash_fwd",))
         tagger, tag_conf, tag_model = train_tagger(tmp)
         tag_served = serve_tagger(tmp, tag_conf, tag_model)
     finally:
@@ -1542,6 +1735,9 @@ def main() -> int:
     gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
     crf_src = "paddle_tpu_torch/csrc/crf.cu"
+    flash_src = "paddle_tpu_torch/csrc/flash_attn.cu"
+    att_counts, att_test = s2s_att["kernels"], s2s_att["test_kernels"]
+    f_row = flash_rows[0]  # the attention seq2seq path's shape
     counts = trained["kernels"]
     s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
     tag_counts, tag_test = tagger["kernels"], tagger["test_kernels"]
@@ -1623,7 +1819,8 @@ def main() -> int:
         dict(_entry("adam", opt_src, "paddle_tpu/kernels/opt_update.py:110",
                     counts["adam"]["launches"]
                     + s2s_counts["adam"]["launches"]
-                    + tag_counts["adam"]["launches"],
+                    + tag_counts["adam"]["launches"]
+                    + att_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              shape={"n": opt_rows["adam"]["n"]}),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
@@ -1644,6 +1841,27 @@ def main() -> int:
                     max(r["viterbi_score_err"] for r in crf_rows), crf_row,
                     "viterbi_"),
              shape={k: crf_row[k] for k in ("B", "T", "C")}),
+        dict(_entry("flash_fwd", flash_src,
+                    "paddle_tpu/ops/attention.py:107",
+                    att_counts["flash_fwd"]["launches"]
+                    + att_test["flash_fwd"]["launches"],
+                    max(r["fwd_max_abs_err"] for r in flash_rows), f_row,
+                    "fwd_"),
+             shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=f_row["fwd_device_ms"],
+             library=f"scaled_dot_product_attention ({f_row['sdpa_backend']})",
+             path="seq2seq_attention(seq_parallel) train and test"),
+        dict(_entry("flash_bwd", flash_src,
+                    "jax.vjp of blockwise_attention, paddle_tpu/ops/"
+                    "attention.py:206 (_flash_bwd)",
+                    att_counts["flash_bwd"]["launches"],
+                    max(r["bwd_max_abs_err"] for r in flash_rows), f_row,
+                    "bwd_"),
+             shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=f_row["bwd_device_ms"],
+             library=f"scaled_dot_product_attention backward "
+                     f"({f_row['sdpa_backend']})",
+             path="seq2seq_attention(seq_parallel) train"),
     ]
     for e in entries:
         if e["launches"] <= 0:
@@ -1656,7 +1874,9 @@ def main() -> int:
                    "optimizer": opt_rows, "gru_shapes": gru_rows,
                    "gru_cell_shapes": cell_rows, "crf_shapes": crf_rows,
                    "tagger_lstm_shapes": tag_lstm_rows,
+                   "flash_shapes": flash_rows,
                    "train": trained, "serve": served, "seq2seq": s2s,
+                   "seq2seq_attention": s2s_att,
                    "tagger": tagger, "tagger_serve": tag_served, **kernels},
                   f, indent=1)
     print(json.dumps(kernels), flush=True)

@@ -6,7 +6,10 @@ weights [in, out], ``lstmemory`` w0 [H, 4H] and wbias [7H],
 tables [vocab, dim], a recurrent group's sub-layer parameters under their
 own names such as ``_dec_in.w1``, a CRF's packed (C+2, C) start / end /
 transition matrix under its shared ``ParamAttr`` name such as
-``crf_transitions``) and its optimizer-state tree, so a JAX
+``crf_transitions``, a ``multi_head_attention`` layer's projections
+``wq`` [q_in, S], ``wk`` and ``wv`` [kv_in, S], ``wo`` [S, S] and
+``wbias`` [S], such as ``_enc_self_att.wq``; heads are column blocks of S)
+and its optimizer-state tree, so a JAX
 parameter dict or optimizer state, as numpy, maps onto the port's by
 name. PTM1 files and checkpoints carry the same names.
 """

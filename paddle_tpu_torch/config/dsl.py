@@ -1,7 +1,7 @@
 """Layer-construction DSL: the subset of ``paddle_tpu/config/dsl.py`` that
-``lstm_text_classifier``, ``seq2seq_attention``'s training graph,
-``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators) and a
-serve config need.
+``lstm_text_classifier``, ``seq2seq_attention``'s training graph (with its
+encoder self-attention block), ``bilstm_crf_tagger`` (the CRF layers and
+config-declared evaluators) and a serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
@@ -138,6 +138,32 @@ def grumemory(input, *, name: str = None, reverse: bool = False,
                     bias=_bias(bias_attr),
                     attrs={"reversed": reverse, "active_type": act,
                            "active_gate_type": gate_act})
+    return _add(ldef)
+
+
+def multi_head_attention(query, key_value=None, *, size: int = None,
+                         num_heads: int = 1, causal: bool = False,
+                         seq_parallel: str = None, seq_axis: str = "seq",
+                         name: str = None, bias_attr=True,
+                         param_attr=None) -> LayerOutput:
+    """Fused multi-head attention (the flash kernels on the card);
+    self-attention when key_value is omitted. ``seq_parallel`` and
+    ``seq_axis`` are recorded as the JAX DSL records them; the port has no
+    sequence mesh yet, so the layer runs dense (``layers/attention.py``)."""
+    q = _in(query)[0]
+    inputs = [Input(q.name, param_attr=_param(param_attr))]
+    if key_value is not None:
+        inputs.append(Input(_in(key_value)[0].name))
+    if seq_parallel not in (None, "ring", "ulysses"):
+        raise ValueError(f"seq_parallel must be ring/ulysses, "
+                         f"got {seq_parallel!r}")
+    ldef = LayerDef(name=name or _auto_name("mha"),
+                    type="multi_head_attention", inputs=inputs,
+                    size=size or q.size, act="linear",
+                    bias=_bias(bias_attr),
+                    attrs={"num_heads": num_heads, "causal": causal,
+                           "seq_parallel": seq_parallel,
+                           "seq_axis": seq_axis})
     return _add(ldef)
 
 

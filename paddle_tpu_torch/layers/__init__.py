@@ -2,6 +2,7 @@
 layer type."""
 
 from paddle_tpu_torch.layers import activations  # noqa: F401
+from paddle_tpu_torch.layers import attention  # noqa: F401
 from paddle_tpu_torch.layers import chain  # noqa: F401
 from paddle_tpu_torch.layers import common  # noqa: F401
 from paddle_tpu_torch.layers import cost  # noqa: F401

@@ -5,9 +5,11 @@ GRU decoder, driven each step by an additive-attention context, in a
 recurrent group. The same graph, with the same layer and parameter names,
 as ``paddle_tpu/models/seq2seq.py``, built with the port's DSL.
 
-Generation (beam search) and the sequence-parallel encoder
-self-attention are later slices of the port and raise
-``NotImplementedError``.
+``seq_parallel="ring"|"ulysses"`` adds the encoder self-attention block
+``enc_self_att`` (``multi_head_attention``, ``num_heads`` heads over the
+embedding) as the JAX model does; the port has no sequence mesh, so the
+block runs dense through the flash-attention kernels. Generation (beam
+search) is a later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,18 +38,18 @@ def seq2seq_attention(*, src_vocab: int = 5000, trg_vocab: int = 5000,
                       seq_parallel: str = None, num_heads: int = 4):
     """Build the training graph: returns (cost, probs_seq, data_names).
     The reference's published width is ``src_vocab = trg_vocab = 30000``,
-    ``embed_dim = hidden = 512``."""
+    ``embed_dim = hidden = 512``; with ``seq_parallel`` and the default
+    ``num_heads = 4`` the self-attention heads are 128 wide."""
     if generating:
         raise NotImplementedError(
             "seq2seq_attention(generating=True) is not ported yet: beam "
             "search comes with the seq2seq generation slice of the port")
-    if seq_parallel:
-        raise NotImplementedError(
-            "seq2seq_attention(seq_parallel=...) is not ported yet: it "
-            "needs the flash-attention kernel and the sequence mesh, later "
-            "slices of the port")
     src = dsl.data(name="source_words", size=src_vocab, is_sequence=True)
     semb = dsl.embedding(input=src, size=embed_dim, name="src_emb")
+    if seq_parallel:
+        semb = dsl.multi_head_attention(
+            semb, num_heads=num_heads, seq_parallel=seq_parallel,
+            name="enc_self_att")
     f_in = dsl.fc(input=semb, size=hidden * 3, act="linear", name="enc_f_in")
     fwd = dsl.grumemory(input=f_in, name="enc_fwd")
     b_in = dsl.fc(input=semb, size=hidden * 3, act="linear", name="enc_b_in")

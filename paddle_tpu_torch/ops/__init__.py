@@ -8,6 +8,7 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from paddle_tpu_torch.kernels.opt_update import adam, momentum
     from paddle_tpu_torch.kernels.rnn_cells import gru_cell, gru_cell_infer
+    from paddle_tpu_torch.ops.attention import flash_bwd, flash_fwd
     from paddle_tpu_torch.ops.crf import crf_alpha_fwd, crf_bwd, crf_viterbi
     from paddle_tpu_torch.ops.gru import gru_bwd_step, gru_seq, \
         gru_seq_train
@@ -19,6 +20,7 @@ def _wrappers() -> dict:
             "gru_cell": gru_cell,
             "gru_cell_infer": gru_cell_infer, "crf_alpha_fwd": crf_alpha_fwd,
             "crf_bwd": crf_bwd, "crf_viterbi": crf_viterbi,
+            "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "momentum": momentum, "adam": adam}
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
 forms, the LSTM backward step, the GRU recurrence in its primal and
 residual forms, the GRU backward step, the GRU cell, the Momentum and
-Adam updates, the CRF forward, backward and Viterbi kernels) against
+Adam updates, the CRF forward, backward and Viterbi kernels, the
+flash-attention forward and backward kernels) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import rnn_cells
+from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.ops import crf as tcrf
 from paddle_tpu_torch.ops import gru as tgru
 from paddle_tpu_torch.ops import lstm as tlstm
@@ -341,3 +343,120 @@ def test_crf_kernels_reject_bad_inputs(cuda_device):
                            torch.zeros(big.shape[-1], big.shape[-1],
                                        device=cuda_device),
                            big[0, 0], big[0, 0])
+
+
+def _attn_inputs(B, N, Tq, Tk, D, seed, device, all_padding=False):
+    """q, k, v, dO and a ragged kv mask (row 0 full; with ``all_padding``
+    the last row has no real key)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(device)
+    lens = rng.integers(1, Tk + 1, size=B)
+    lens[0] = Tk
+    if all_padding:
+        lens[-1] = 0
+    mask = torch.from_numpy(
+        (np.arange(Tk)[None, :] < lens[:, None]).astype(np.float32)).to(device)
+    return (f(B, N, Tq, D), f(B, N, Tk, D), f(B, N, Tk, D), mask,
+            f(B, N, Tq, D))
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal,all_padding", [
+    (3, 2, 70, 133, 16, True, False),   # causal cross, Tq != Tk, ragged
+    (4, 4, 50, 50, 128, False, True),   # the seq2seq path's head width
+    (2, 2, 130, 130, 64, True, False),
+    (2, 3, 9, 5, 8, False, False)])
+def test_flash_kernels_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
+                                           causal, all_padding):
+    """The forward kernel within rtol 1e-4 / atol 1e-5 of
+    ``blockwise_plain`` (o and the row statistics), the backward kernels'
+    gradients per tensor within 1e-4 of the largest entry + 1e-5 of
+    ``flash_bwd_plain`` and of autograd through ``mha_plain`` (sums over
+    Tk and Tq in another order); two backward runs bit-equal; an
+    all-padding row finite, with a zero dq."""
+    q, k, v, mask, do = _attn_inputs(B, N, Tq, Tk, D, B * Tq + D,
+                                     cuda_device, all_padding)
+    before = (tattn.flash_fwd.launches, tattn.flash_bwd.launches)
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (tattn.flash_fwd.launches, tattn.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = tattn.mha_plain(*leaves, mask, causal)
+    _assert_grads_close(grads, torch.autograd.grad((ref * do).sum(), leaves))
+    if all_padding:
+        assert grads[0][-1].abs().max().item() == 0.0
+    again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    for g1, g2 in zip(grads, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_attention_layer_runs_the_kernels_on_card(cuda_device):
+    """The layer's strided head views reach the kernels (made contiguous
+    in ``flash_attention``): forward and every gradient on the card
+    against the same layer on the CPU (the plain versions)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    dsl.reset()
+    x = dsl.data(name="x", size=64, is_sequence=True)
+    out = dsl.multi_head_attention(x, num_heads=4, causal=True, name="att")
+    net = Network(dsl.current_graph(), outputs=[out.name])
+    rng = np.random.default_rng(3)
+    params = {k: rng.normal(size=s.shape).astype(np.float32) * 0.2
+              for k, s in net.param_specs.items()}
+    mask = torch.from_numpy((np.arange(37)[None, :] < np.array(
+        [[37], [20], [0]])).astype(np.float32))  # ragged, one all padding
+    xv = torch.from_numpy(rng.normal(size=(3, 37, 64)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(3, 37, 64)).astype(np.float32))
+    results = []
+    for dev in ("cpu", cuda_device):
+        p = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+             for k, v in params.items()}
+        before = tattn.flash_bwd.launches
+        y = net.apply(p, {"x": Argument(xv.to(dev), mask.to(dev))})[
+            out.name].value
+        gs = torch.autograd.grad((y * ct.to(dev)).sum(), list(p.values()))
+        if dev != "cpu":
+            assert tattn.flash_bwd.launches == before + 1
+        results.append((y.detach().cpu(), [g.cpu() for g in gs]))
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = results
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=1e-4, atol=1e-5)
+    for g, w in zip(g_gpu, g_cpu):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() \
+            + 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_bad_inputs(cuda_device):
+    """An unsupported head width, a non-contiguous input, a wrong dtype
+    and a CPU mask all raise with the reason."""
+    q, k, v, mask, do = _attn_inputs(2, 2, 8, 8, 16, 0, cuda_device)
+    wide = torch.zeros(2, 2, 8, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head width D=32"):
+        tattn.flash_fwd(wide, wide, wide, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.flash_fwd(q.transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError, match="float32"):
+        tattn.flash_fwd(q.double(), k, v, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_fwd(q, k, v, mask.cpu())
+    o, lse = tattn.flash_fwd(q, k, v, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        tattn.flash_bwd(q, k, v, mask, o, lse, do.transpose(2, 3))

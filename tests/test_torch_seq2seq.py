@@ -6,9 +6,10 @@ target lengths up to 6, some batches row-padded by the feeder's batch
 bucket, so dead rows cross the encoder and the recurrent group).
 
 The JAX side runs under ``force_mode("interpret")`` and ``fused_rnn(True)``,
-so both of its Pallas kernels are taken: ``ops/gru.py:_gru_kernel`` (the
-bidirectional encoder) and ``kernels/rnn_cells.py:_gru_cell_kernel`` (the
-decoder's ``gru_step`` inside the group's ``lax.scan``).
+so its Pallas kernels are taken: ``ops/gru.py:_gru_kernel`` (the
+bidirectional encoder), ``kernels/rnn_cells.py:_gru_cell_kernel`` (the
+decoder's ``gru_step`` inside the group's ``lax.scan``) and, with
+``seq_parallel``, ``ops/attention.py:_flash_kernel``.
 
 - the graph: layer names and types, parameter names and shapes, the
   group's auto-names;
@@ -21,7 +22,10 @@ decoder's ``gru_step`` inside the group's ``lax.scan``).
 - a 5-step Adam trajectory and ``test()``;
 - checkpoints both ways (the JAX ``Checkpointer`` reads a port save
   directory);
-- the CLI: ``--job train`` then ``--job test`` on ``--device cpu``.
+- the CLI: ``--job train`` then ``--job test`` on ``--device cpu``;
+- the model with ``seq_parallel="ring"`` (the encoder self-attention
+  block, 2 heads of 8; JAX's flash kernel interpreted too): graph and
+  parameter names, the loss and every gradient, and the CLI.
 
 Tolerances: forward rtol/atol 1e-5; loss rtol 1e-5; gradients rtol 1e-4 /
 atol 1e-5 (f32 sums in other orders, through both recurrences);
@@ -51,6 +55,7 @@ from paddle_tpu.optim import Adam as JAdam
 from paddle_tpu.trainer import SGD as JSGD
 from paddle_tpu.trainer import events as jev
 from paddle_tpu.trainer.checkpoint import save_params as j_save_params
+from paddle_tpu_torch.compat.from_jax import params_from_numpy
 from paddle_tpu_torch.config import dsl as tdsl
 from paddle_tpu_torch.core.argument import Argument as TArgument
 from paddle_tpu_torch.core.network import Network as TNetwork
@@ -69,6 +74,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 RUN_TOL = dict(rtol=1e-4, atol=1e-4)
 BUCKETS = [4]
 MODEL = dict(src_vocab=SV, trg_vocab=TV, embed_dim=E, hidden=H)
+# the encoder self-attention block: 2 heads of 8 over the 16-wide embedding
+HEADS = 2
 
 
 @pytest.fixture(autouse=True)
@@ -307,6 +314,64 @@ def test_loss_and_every_gradient_match_jax(model):
     np.testing.assert_array_equal(tout.mask.numpy(), np.asarray(jout.mask))
 
 
+@pytest.fixture(scope="module")
+def att_model():
+    """The model with its encoder self-attention block
+    (``seq_parallel="ring"``; no mesh, so dense): (JAX cost, port cost,
+    shared numpy parameters)."""
+    jdsl.reset()
+    jcost, _, _ = j_seq2seq(**MODEL, seq_parallel="ring", num_heads=HEADS)
+    tdsl.reset()
+    tcost, _, _ = t_seq2seq(**MODEL, seq_parallel="ring", num_heads=HEADS)
+    rng = np.random.default_rng(1)
+    jtr = JSGD(cost=jcost, update_equation=JAdam(), seed=1)
+    params = {k: (rng.normal(size=np.shape(v)) * 0.3).astype(np.float32)
+              for k, v in jtr.params.items()}
+    return jcost, tcost, params
+
+
+def test_attention_graph_and_parameter_names_match_jax(att_model):
+    test_graph_and_parameter_names_match_jax(att_model)
+    jcost, tcost, _ = att_model
+    att = tcost.graph.layers["enc_self_att"]
+    assert att.type == "multi_head_attention"
+    assert att.attrs == jcost.graph.layers["enc_self_att"].attrs
+    assert tcost.graph.layers["enc_f_in"].input_names() == ["enc_self_att"]
+    specs = TNetwork(tcost.graph, outputs=[tcost.name]).param_specs
+    for suffix, shape in (("wq", (E, E)), ("wk", (E, E)), ("wv", (E, E)),
+                          ("wo", (E, E)), ("wbias", (E,))):
+        assert tuple(specs[f"_enc_self_att.{suffix}"].shape) == shape
+
+
+def test_attention_loss_and_every_gradient_match_jax(att_model):
+    """One batch (ragged, one row padded by the batch bucket): the loss and
+    every parameter gradient, the attention block's among them, and the
+    eval forward."""
+    test_loss_and_every_gradient_match_jax(att_model)
+
+
+def test_attention_parameters_map_from_jax_by_name(att_model):
+    """A JAX parameter dict of the self-attention graph maps onto the
+    port's by name, and ``network=`` checks every shape: a transposed
+    ``wq`` and a missing ``wo`` are refused."""
+    jcost, tcost, _ = att_model
+    jparams = {k: np.asarray(v) for k, v in
+               JSGD(cost=jcost, update_equation=JAdam(), seed=3)
+               .params.items()}
+    net = TNetwork(tcost.graph, outputs=[tcost.name])
+    got = params_from_numpy(jparams, device="cpu", network=net)
+    assert sorted(got) == sorted(net.param_specs)
+    for k, v in jparams.items():
+        np.testing.assert_array_equal(got[k].numpy(), v)
+    bad = dict(jparams)
+    bad["_enc_self_att.wq"] = np.zeros((E, E + 1), np.float32)
+    with pytest.raises(ValueError, match="_enc_self_att.wq"):
+        params_from_numpy(bad, device="cpu", network=net)
+    del bad["_enc_self_att.wo"]
+    with pytest.raises(KeyError, match="_enc_self_att.wo"):
+        params_from_numpy(bad, device="cpu", network=net)
+
+
 def _run_jax(trainer, batches):
     costs = []
     trainer.train(lambda: iter(batches), feeder=_jfeeder(), num_passes=1,
@@ -434,12 +499,52 @@ def test_cli_train_then_test_on_cpu(tmp_path, capsys):
     assert np.isfinite(test_cost) and test_cost < costs[0]
 
 
+def test_attention_cli_train_then_test_on_cpu(tmp_path, capsys):
+    """The CLI with the self-attention model: costs fall over 3 passes,
+    ``--job test`` runs from the save directory; on the CPU the flash
+    wrappers run their plain versions and count no launch."""
+    conf = tmp_path / "conf.py"
+    conf.write_text(_CONF.replace(
+        f"hidden={H})", f"hidden={H},\n"
+        f"                                   seq_parallel='ring', "
+        f"num_heads={HEADS})"))
+    assert "seq_parallel='ring'" in conf.read_text()
+    save_dir = tmp_path / "ckpt"
+    assert cli.main(["--config", str(conf), "--job", "train", "--device",
+                     "cpu", "--num_passes", "3", "--save_dir",
+                     str(save_dir)]) == 0
+    out = capsys.readouterr().out
+    costs = [float(ln.split("cost=")[1].split()[0])
+             for ln in out.splitlines() if ln.startswith("Pass ")]
+    assert len(costs) == 3 and all(np.isfinite(costs))
+    assert costs[-1] < costs[0]
+    summary = json.loads(next(ln for ln in out.splitlines() if
+                              ln.startswith("train_summary "))[14:])
+    assert summary["kernels"]["flash_fwd"]["launches"] == 0
+    assert summary["kernels"]["flash_bwd"]["launches"] == 0
+    assert cli.main(["--config", str(conf), "--job", "test", "--device",
+                     "cpu", "--save_dir", str(save_dir)]) == 0
+    out = capsys.readouterr().out
+    test_cost = float(out.split("Test: cost=")[1].split()[0])
+    assert np.isfinite(test_cost) and test_cost < costs[0]
+
+
 def test_unported_paths_raise_not_implemented():
     tdsl.reset()
     with pytest.raises(NotImplementedError, match="generation"):
         t_seq2seq(**MODEL, generating=True)
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        t_seq2seq(**MODEL, seq_parallel="ring")
+    # seq_parallel is ported: without a sequence mesh both kinds build the
+    # same dense graph
+    graphs = []
+    for kind in ("ring", "ulysses"):
+        tdsl.reset()
+        t_seq2seq(**MODEL, seq_parallel=kind, num_heads=HEADS)
+        g = tdsl.current_graph()
+        graphs.append([(n, l.type, l.size, l.input_names())
+                       for n, l in g.layers.items()])
+        assert g.layers["enc_self_att"].attrs["seq_parallel"] == kind
+    assert graphs[0] == graphs[1]
+    tdsl.reset()
     with pytest.raises(NotImplementedError, match="SubsequenceInput"):
         tdsl.SubsequenceInput(None)
     with pytest.raises(NotImplementedError, match="beam_search"):
