@@ -11,8 +11,8 @@ non-zero without the result line:
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
    csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``,
-   ``crf.cu``, ``flash_attn.cu``; one nvcc per source, started together)
-   and prints the seconds and the register report.
+   ``crf.cu``, ``flash_attn.cu``, ``lstm_cell.cu``; one nvcc per source,
+   started together) and prints the seconds and the register report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
@@ -40,6 +40,13 @@ non-zero without the result line:
    backward with the plain step. The GRU cell at (50, 512) and
    (1, 512): both entries' forward against the plain math, the gradient
    likewise. Times and bounds as in phase 4.
+5b. LSTM cell kernel check: at the LSTM-step decoder's decode (32 rows:
+   8 sources x beam 4), training (50) and one row, H = 512, nonzero
+   peepholes: both entries' h and c within rtol 1e-4 / atol 1e-5 of
+   ``lstm_cell_plain``, the gradient through ``LstmCellFunction`` per
+   tensor within 1e-4 of the largest entry + 1e-5 of autograd through the
+   plain version; CUDA-event time, device time (``torch.profiler``),
+   plain time and bound.
 6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
    ragged lengths 1-80, an all-padding row, two forbidden transitions at
    -1e4) and its serving shape (B=1): the forward kernel's alphas and
@@ -53,11 +60,15 @@ non-zero without the result line:
 7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
    — the attention seq2seq path's (50, 4, 50, 50, 128) with kv lengths
    10-50 and one all-padding row, its batch 1, a causal cross-attention
-   (2, 4, 200, 333, 64) and a long self-attention (2, 4, 4096, 4096, 128)
-   non-causal and causal — the forward kernel's o and row statistics
+   (2, 4, 200, 333, 64), a long self-attention (2, 4, 4096, 4096, 128)
+   non-causal and causal, and query rows that see no key: an all-padding
+   kv row at (2, 4, 64, 333, 64) and causal (2, 4, 333, 200, 64), where
+   JAX divides such a row by Tk padded to a multiple of min(256, Tk) —
+   the forward kernel's o and row statistics
    within rtol 1e-4 / atol 1e-5 of ``blockwise_plain``, the backward
    kernels' gradients per tensor within 1e-4 of the largest entry + 1e-5
-   of ``flash_bwd_plain`` and of autograd through ``mha_plain``, two
+   of ``flash_bwd_plain`` and, where it is the same function, of
+   autograd through ``mha_plain``, two
    backward runs bit-equal, every output finite. Times: CUDA events
    around each wrapper call (median of 10), the kernels' device time
    (``torch.profiler``), the plain versions, and the library yardstick
@@ -102,6 +113,30 @@ non-zero without the result line:
    self-attention block (``seq_parallel="ring"``, 4 heads of 128; no
    sequence mesh, so dense): its counts must also show the flash forward
    and backward kernels in training and the forward in ``--job test``.
+10b. seq2seq generation served (path A): ``--job merge`` of
+   ``seq2seq_attention(generating=True)`` (beam 4, outputs of up to 50
+   words) from phase 10's save dir, whose checkpoint must hold every
+   generating parameter; ``--job serve`` of it (max_batch 8, length
+   buckets 16,50); ``POST /v1/generate`` of three single sources
+   (lengths 1, 23, 50), a repeat and one ``rows`` call of 8: 4 beams
+   each, best first, scores within 1e-4 relative of the port's CPU plain
+   path on the same file, rank by rank, and tokens equal to its, unless
+   the searches parted at a near-tie that float32 rounding decides: then
+   the CPU's teacher-forced scores of the card's beams must equal the
+   card's within 1e-5 relative (``_compare_beams``); the repeat answers
+   the same; an off-menu beam size is the typed 400 with the menu; /healthz
+   shows gru_cell_infer launches growing; SIGTERM drains to exit 0.
+11b. LSTM-step decoder (path B): the lstmemory_group form of the
+   seqToseq decoder at 30000/512/512 (``lstm_step`` over fc([word, h])
+   with its peepholes, the cell state carried through ``get_output``,
+   booted from the average source embedding), trained by ``--job train``
+   (Adam(5e-4), 3 passes over phase 10's batches: the cost falls, the
+   counts show lstm_cell and Adam launched), its full-width gradients (8
+   rows) card against CPU, then the same step in a beam search (beam 4,
+   up to 50 words) of 8 sources from the trained checkpoint on the card
+   (counts reset just before, read just after: lstm_cell_infer launched)
+   and on the CPU, compared as in phase 10b; the full scan identical to
+   the chunked decode.
 11. tagger: ``bilstm_crf_tagger`` at CoNLL-2000 width (word dictionary
    6778, embed 128, hidden 128, 23 labels) with the reference demo's
    labelled decode and its ``sum`` error and ``chunk`` F1 evaluators,
@@ -118,7 +153,7 @@ non-zero without the result line:
    the Viterbi ids of the CPU plain path on the same file, exactly, and
    /healthz counts crf_viterbi launches.
 12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 11).
+   kernel, with the launches of the main paths (phases 8 to 11b).
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -152,7 +187,8 @@ from paddle_tpu_torch.ops import crf as CRF
 from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
-SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf", "flash_attn"]
+SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf", "flash_attn",
+           "lstm_cell"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -182,6 +218,18 @@ S2S_GRAD_ROWS = 8
 # GRU kernel check shapes (B, H, T): the path's own, a longer one, batch 1
 GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50)]
 GRU_CELL_SHAPES = [(50, 512), (1, 512)]
+# beam search of the seq2seq demo's width: beam 4 (the model's default) and
+# outputs of up to 50 words (the longest target trained); 8 sources decode
+# as B*K = 32 rows of the step network
+GEN_BEAM, GEN_MAX_LEN, GEN_SOURCES = 4, S2S_LEN, 8
+GEN_MAX_BATCH = 8
+GEN_EOS = 1  # the end mark of both decoders (seq2seq_attention's eos_id)
+GEN_LENGTH_BUCKETS = [16, S2S_LEN]
+GEN_SERVE_LENGTHS = (1, 23, 50)  # the single sources served
+# LSTM cell check shapes (rows, H): the LSTM-step decoder's decode
+# (B*K = 32), its training batch (50), one row
+LSTM_CELL_SHAPES = [(GEN_SOURCES * GEN_BEAM, 512), (S2S_BATCH, 512),
+                    (1, 512)]
 # bilstm_crf_tagger at CoNLL-2000 width as rnn_crf.py hardcodes it (word
 # dictionary 6778, 23 chunk labels: IOB over 11 chunk types plus O) with
 # the demo config's word and hidden dims; trained as the JAX package's
@@ -201,13 +249,19 @@ CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23)]
 # over the 512-wide embedding (the JAX model's num_heads default)
 S2S_ATT = dict(S2S, seq_parallel="ring", num_heads=4)
 # flash-attention check shapes (B, N, Tq, Tk, D, causal, shortest kv
-# length): the path's (ragged 10-50, one all-padding row), its batch 1, a
-# causal cross-attention, a long self-attention both ways (no padding)
-FLASH_SHAPES = [(S2S_BATCH, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN),
-                (1, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN),
-                (2, 4, 200, 333, 64, True, 1),
-                (2, 4, 4096, 4096, 128, False, 4096),
-                (2, 4, 4096, 4096, 128, True, 4096)]
+# length, last kv row all padding): the path's (ragged 10-50, one
+# all-padding row), its batch 1, a causal cross-attention, a long
+# self-attention both ways (no padding), and the two kinds of query rows
+# that see no key: an all-padding kv row with Tk > 256 and Tk % 256 != 0,
+# and causal with Tq > Tk
+FLASH_SHAPES = [
+    (S2S_BATCH, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN, True),
+    (1, 4, S2S_LEN, S2S_LEN, 128, False, S2S_MIN_LEN, False),
+    (2, 4, 200, 333, 64, True, 1, False),
+    (2, 4, 4096, 4096, 128, False, 4096, False),
+    (2, 4, 4096, 4096, 128, True, 4096, False),
+    (2, 4, 64, 333, 64, False, 1, True),
+    (2, 4, 333, 200, 64, True, 1, False)]
 
 
 def phase(title: str, **kv):
@@ -294,22 +348,32 @@ def _device_ms(fn, kernel, calls=20):
     contain ``kernel`` (each launched once per call), from
     ``torch.profiler`` over ``calls`` calls after one warm call: for a
     kernel shorter than its wrapper's host work, where CUDA events around
-    the call measure the host."""
+    the call measure the host. Each kernel's time is its mean over the
+    launches the trace holds; a trace that holds fewer than half of them
+    (the profiler here drops launches now and then) is taken again, up to
+    three times. Returns (ms, record): the record holds ``calls`` and
+    each trace's launches by kernel name, so that a trace with dropped
+    launches shows beside the time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.key]
-    if not found or any(e.count != calls for e in found):
-        raise AssertionError(f"profiler found {[(e.key, e.count) for e in found]}"
-                             f" for {kernel}")
-    return 1e-3 * sum(e.self_device_time_total for e in found) / calls
+    traces = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.key]
+        traces.append({e.key: e.count for e in found})
+        if found and all(calls // 2 <= e.count <= calls for e in found):
+            return 1e-3 * sum(e.self_device_time_total / e.count
+                              for e in found), dict(calls=calls,
+                                                    traces=traces)
+    raise AssertionError(f"profiler found {traces} for {kernel} in three "
+                         "traces")
 
 
 def _bound(ops, nbytes):
@@ -714,6 +778,58 @@ def check_gru_kernels():
     return rows, cells
 
 
+# --------------------------------------------- 5b. LSTM cell kernel check
+def check_lstm_cell(B, H, seed):
+    """The LSTM cell kernel (training and inference entries) against
+    ``lstm_cell_plain`` with nonzero peepholes, h and c within rtol 1e-4 /
+    atol 1e-5; the gradient through ``LstmCellFunction`` against autograd
+    of the plain version (per tensor within 1e-4 of the largest entry +
+    1e-5). Times of one step: CUDA events around the wrapper (median of
+    10), the kernel's device time (``torch.profiler``), the plain
+    version, beside the bound."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ins = [torch.randn(B, 4 * H, generator=g, device="cuda"),
+           torch.randn(B, H, generator=g, device="cuda"),
+           *(0.5 * torch.randn(H, generator=g, device="cuda")
+             for _ in range(3))]
+    names = ("gates", "c_prev", "check_i", "check_f", "check_o")
+    plain = [t.detach().clone().requires_grad_(True) for t in ins]
+    kern = [t.detach().clone().requires_grad_(True) for t in ins]
+    want = C.lstm_cell_plain(*plain)
+    got = C.lstm_cell(*kern)
+    with torch.no_grad():
+        got_i = C.lstm_cell_infer(*ins)
+    torch.cuda.synchronize()
+    err = 0.0
+    for entry, out in (("lstm_cell", got), ("lstm_cell_infer", got_i)):
+        for part, g_t, w_t in zip(("h", "c"), out, want):
+            err = max(err, (g_t - w_t).abs().max().item())
+            torch.testing.assert_close(
+                g_t.detach(), w_t.detach(), **TOL,
+                msg=lambda m: f"{entry} {part} B={B} H={H}: {m}")
+    cot = [torch.randn_like(want[0]), torch.randn_like(want[1])]
+    bwd_err = _check_grads(f"lstm_cell B={B} H={H}",
+                           torch.autograd.grad(got, kern, cot),
+                           torch.autograd.grad(want, plain, cot), names)
+    with torch.no_grad():
+        dev_ms, dev_trace = _device_ms(lambda: C.lstm_cell_infer(*ins),
+                                       "lstm_cell_kernel")
+        row = dict(B=B, H=H, max_abs_err=err, bwd_max_abs_err=bwd_err,
+                   ms=_time_ms(lambda: C.lstm_cell_infer(*ins)),
+                   device_ms=dev_ms, device_trace=dev_trace,
+                   plain_ms=_time_ms(lambda: C.lstm_cell_plain(*ins)))
+    # gates, c_prev, the peepholes in; h, c out; ~30 operations an element
+    row["bound_ms"], row["bound_by"] = _bound(
+        30.0 * B * H, 4 * (4 * B * H + B * H + 3 * H + 2 * B * H))
+    phase("lstm_cell_check", **row)
+    return row
+
+
+def check_lstm_cells():
+    return [check_lstm_cell(B, H, seed=B + 7 * H)
+            for B, H in LSTM_CELL_SHAPES]
+
+
 # --------------------------------------------------- 6. CRF kernel check
 def _crf_inputs(B, T, C, seed):
     """x [B,T,C], ragged lengths 1..T (row 0 full; with more than one row,
@@ -813,8 +929,8 @@ def check_crf_shape(B, T, C, seed):
              (x, mask, trans, b, alphas, log_z, g)),
             ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain,
              (x, mask, trans, a, b))):
-        row[f"{kind}_ms"] = _device_ms(lambda: kernel(*args),
-                                       f"{kernel.__name__}_kernel")
+        row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
+            lambda: kernel(*args), f"{kernel.__name__}_kernel")
         row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
         row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
     for kind, (bound_ms, bound_by) in _crf_bounds(B, T, C, mask).items():
@@ -839,10 +955,10 @@ def check_crf_kernels():
 
 
 # ------------------------------------------ 7. flash-attention kernel check
-def _flash_inputs(B, N, Tq, Tk, D, seed, min_len):
+def _flash_inputs(B, N, Tq, Tk, D, seed, min_len, pad_row):
     """q, k, v, dO [B,N,T,D] and a kv mask [B,Tk] of lengths min_len..Tk
-    (row 0 full; with more than two rows the last all padding, as a batch
-    bucket pads it)."""
+    (row 0 full; with ``pad_row`` the last all padding, as a batch bucket
+    pads it)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -850,7 +966,7 @@ def _flash_inputs(B, N, Tq, Tk, D, seed, min_len):
 
     lens = torch.randint(min_len, Tk + 1, (B,), generator=g, device="cuda")
     lens[0] = Tk
-    if B > 2:
+    if pad_row:
         lens[-1] = 0
     mask = (torch.arange(Tk, device="cuda")[None, :] < lens[:, None]).float()
     return (randn(B, N, Tq, D), randn(B, N, Tk, D), randn(B, N, Tk, D),
@@ -908,17 +1024,20 @@ def _sdpa(q, k, v, do, bias, scale):
     raise AssertionError("no scaled_dot_product_attention backend ran")
 
 
-def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, seed):
+def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
     """The forward and backward kernels against ``blockwise_plain`` and
     ``flash_bwd_plain`` on the same card tensors (o and the row statistics
     within rtol 1e-4 / atol 1e-5; every gradient per tensor within 1e-4
     of its largest entry + 1e-5), the backward also against autograd
-    through ``mha_plain``; two backward runs bit-equal; every output
-    finite (an all-padding row included). Times: each wrapper call by
-    CUDA events (median of 10) and its kernels' device time
-    (``torch.profiler``), the plain versions, and SDPA forward, backward
-    and both, beside the bounds."""
-    q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, seed, min_len)
+    through ``mha_plain`` where that is the same function (no query row
+    that sees no key, or Tk a multiple of JAX's kv block min(256, Tk):
+    otherwise JAX, and so the kernels, divide such a row by the padded
+    Tk); two backward runs bit-equal; every output finite (an all-padding
+    row included). Times: each wrapper call by CUDA events (median of 10)
+    and its kernels' device time (``torch.profiler``), the plain
+    versions, and SDPA forward, backward and both, beside the bounds."""
+    q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, seed, min_len,
+                                      pad_row)
     o, lse = ATT.flash_fwd(q, k, v, mask, causal)
     grads = ATT.flash_bwd(q, k, v, mask, o, lse, do, causal)
     torch.cuda.synchronize()
@@ -935,31 +1054,36 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, seed):
     names = ("q", "k", "v")
     bwd_err = _check_grads(where, grads, ATT.flash_bwd_plain(
         q, k, v, mask, w_o, w_lse, do, causal), names)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    ref = ATT.mha_plain(*leaves, mask, causal)
-    ref_err = _check_grads(f"{where} vs autograd of mha_plain", grads,
-                           torch.autograd.grad((ref * do).sum(), leaves),
-                           names)
-    del ref, leaves
+    visible = _flash_visible(B, Tq, Tk, mask, causal)
+    no_key_rows = int((~visible.any(dim=-1)).sum())
+    ref_err = None
+    if no_key_rows == 0 or Tk % min(256, Tk) == 0:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = ATT.mha_plain(*leaves, mask, causal)
+        ref_err = _check_grads(f"{where} vs autograd of mha_plain", grads,
+                               torch.autograd.grad((ref * do).sum(), leaves),
+                               names)
+        del ref, leaves
     again = ATT.flash_bwd(q, k, v, mask, o, lse, do, causal)
     if not all(torch.equal(u, w) for u, w in zip(grads, again)):
         raise AssertionError(f"{where}: two backward runs differ")
-    visible = _flash_visible(B, Tq, Tk, mask, causal)
     scale = D ** -0.5
+    fwd_dev = _device_ms(lambda: ATT.flash_fwd(q, k, v, mask, causal),
+                         "flash_fwd_kernel", calls=10)
+    bwd_dev = _device_ms(
+        lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
+        "flash_bwd_", calls=10)
     row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal,
                all_padding_rows=int((mask.sum(dim=1) == 0).sum()),
+               no_key_rows=no_key_rows,
                visible_pairs=N * float(visible.sum()),
                fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
                bwd_vs_mha_autograd_err=ref_err, bwd_bit_equal=True,
                fwd_ms=_time_ms(lambda: ATT.flash_fwd(q, k, v, mask, causal)),
                bwd_ms=_time_ms(lambda: ATT.flash_bwd(q, k, v, mask, o, lse,
                                                      do, causal)),
-               fwd_device_ms=_device_ms(
-                   lambda: ATT.flash_fwd(q, k, v, mask, causal),
-                   "flash_fwd_kernel", calls=10),
-               bwd_device_ms=_device_ms(
-                   lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
-                   "flash_bwd_", calls=10),
+               fwd_device_ms=fwd_dev[0], fwd_device_trace=fwd_dev[1],
+               bwd_device_ms=bwd_dev[0], bwd_device_trace=bwd_dev[1],
                fwd_plain_ms=_time_ms(lambda: ATT.blockwise_plain(
                    q, k, v, mask, causal)),
                bwd_plain_ms=_time_ms(lambda: ATT.flash_bwd_plain(
@@ -1333,7 +1457,7 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
                   grad_check=grads, step_split=split, test_cost=test_cost,
                   test_kernels=test_counts)
     phase(title, **result)
-    return result
+    return result, save_dir
 
 
 # ------------------------------------------------------------- 9. serve
@@ -1383,7 +1507,7 @@ def _wait_ready(proc, timeout):
 
 
 @contextlib.contextmanager
-def _server(tmp, conf, model, length_buckets):
+def _server(tmp, conf, model, length_buckets, max_batch=MAX_BATCH):
     """A ``--job serve`` process of the merged ``model``: yields (port,
     seconds until ready, [exit code]); on leaving, SIGTERM must drain it to
     exit 0, and the list then holds that code."""
@@ -1393,7 +1517,7 @@ def _server(tmp, conf, model, length_buckets):
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", "--config",
          conf, "--job", "serve", "--init_model_path", model,
-         "--max_batch", str(MAX_BATCH), "--serving_length_buckets",
+         "--max_batch", str(max_batch), "--serving_length_buckets",
          ",".join(map(str, length_buckets)), "--port", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
     rc = []
@@ -1478,6 +1602,538 @@ def serve(tmp, conf, model):
                   max_abs_err_vs_cpu=ref_err, softmax_sum_err=sum_err,
                   server_exit=rc[0])
     phase("serve", **result)
+    return result
+
+
+# ------------------------------------------- 10b. seq2seq generation
+def _write_gen_config(path):
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            from paddle_tpu_torch.data.types import integer_value_sequence
+            from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+            gen, _ = seq2seq_attention(**{S2S!r}, beam_size={GEN_BEAM},
+                                       max_length={GEN_MAX_LEN},
+                                       generating=True)
+            outputs = [gen]
+            feeding = {{"source_words": integer_value_sequence(
+                {S2S['src_vocab']})}}
+        """))
+
+
+def _assert_generation_names(graph, trained, where):
+    """Every parameter a generating graph reads (its encoder's, its beam
+    group's hoisted step parameters, the generated word's embedding) is
+    in the trained checkpoint: no generation parameter is made up."""
+    from paddle_tpu_torch.core.generation import generation_params
+    from paddle_tpu_torch.core.network import Network
+    names = set(Network(graph, outputs=["gen"]).param_specs) | set(
+        generation_params(graph))
+    missing = sorted(names - set(trained))
+    if missing:
+        raise AssertionError(f"{where}: generation parameters missing from "
+                             f"the trained checkpoint: {missing}")
+    return sorted(names)
+
+
+def _s2s_training():
+    """The training graph of ``seq2seq_attention`` at S2S: its cost."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    dsl.reset()
+    return seq2seq_attention(**S2S)[0]
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _rescore_cpu(build_training, params, src, beams):
+    """Teacher-forced scores on the CPU of the token sequences ``beams``
+    for the source ``src``: the training graph's decoder (the same
+    parameters) fed <s> + tokens[:-1], summing log max(p(token), 1e-20)
+    over each sequence (in float64), the sum the search accumulates."""
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    cost = build_training()
+    net = Network(cost.graph, outputs=["decoder_group"])
+    feed = DataFeeder(_s2s_feeding(), pad_multiple=max(map(len, beams)),
+                      device="cpu")([(src, [0] + b[:-1], b) for b in beams])
+    p = {k: torch.as_tensor(np.asarray(params[k])) for k in net.param_specs}
+    with torch.no_grad():
+        probs = net.apply(p, feed)["decoder_group"].value
+    nxt = feed["target_next"]
+    lp = torch.log(torch.clamp_min(probs.gather(
+        -1, nxt.value.long()[..., None])[..., 0], 1e-20))
+    return (lp.double() * nxt.mask.double()).sum(dim=1).tolist()
+
+
+#: the largest relative gap between the CPU's float32 totals of the two
+#: beams at which the card's and the CPU's searches first part that float32
+#: rounding (sums in another order on the card) may decide
+TIE_RTOL = 1e-6
+
+
+def _row_beams(tokens, scores, lengths, b):
+    """Row ``b`` of a search's (tokens, scores, lengths) as a list of
+    {"tokens", "score"}, best first."""
+    return [{"tokens": tokens[b, k, :lengths[b, k]].tolist(),
+             "score": float(scores[b, k])} for k in range(tokens.shape[1])]
+
+
+def _predictor_generate(pred, rows, **hooks):
+    """``pred.generate_rows(rows)``'s search with ``hooks``: the same
+    feed, encoder and engine call, returning (tokens, scores, lengths)."""
+    feed = pred.feeder([tuple(r) for r in rows])
+    with torch.inference_mode():
+        outer = pred.encoder.apply(pred.params, feed, train=False)
+        return pred.engine.generate(
+            pred.params, outer, beam_size=pred.gen_beam_size,
+            max_length=pred.gen_max_length,
+            decode_chunk=pred.gen_decode_chunk, **hooks)
+
+
+def _search_trace(generate, b):
+    """Run ``generate(**hooks)`` with a ``candidate_adjust`` and a
+    ``stop_beam_search`` hook that change nothing and record, for row
+    ``b``, each step's inputs to the candidate totals (the parents'
+    prefixes, totals and finished flags, the log-probabilities) and the
+    beams it kept (prefixes and totals). Returns (row b's beams, the
+    steps)."""
+    steps = []
+
+    def adjust(logp, state):
+        K = state["scores"].shape[1]
+        steps.append(dict(parents=state["tokens"][b].cpu(),
+                          scores=state["scores"][b].cpu(),
+                          finished=state["finished"][b].cpu(),
+                          logp=logp[b * K:(b + 1) * K].cpu()))
+        return logp
+
+    def stop(state, t):
+        steps[-1].update(kept=state["tokens"][b, :, :t + 1].cpu(),
+                         totals=state["scores"][b].cpu())
+        return False
+
+    out = [x.cpu() for x in generate(candidate_adjust=adjust,
+                                     stop_beam_search=stop)]
+    return _row_beams(*out, b), steps
+
+
+def _candidate_total(step, t, prefix, eos):
+    """A search's own float32 total at step ``t`` of the candidate
+    ``prefix`` (its parent's total plus the token's log-probability, or
+    the zero-cost EOS of a finished parent), from ``_search_trace``'s
+    record of that step."""
+    from paddle_tpu_torch.core.generation import NEG
+    parents = [tuple(p[:t].tolist()) for p in step["parents"]]
+    k, tok = parents.index(tuple(prefix[:-1])), prefix[-1]
+    if bool(step["finished"][k]):
+        return float(step["scores"][k] + (0.0 if tok == eos else NEG))
+    return float(step["scores"][k] + step["logp"][k, tok])
+
+
+def _parting(card, cpu, eos):
+    """Where two traces of one search (``_search_trace``) first keep
+    different beams, and how near a tie it was: the step, the beams only
+    one of them kept, and the relative gap between the CPU's totals of
+    the CPU's and the card's choices there (and the card's, of the
+    same). Two searches that keep the same beams at every step and end
+    in another order part at their final ranking."""
+    for t, (a, c) in enumerate(zip(card, cpu)):
+        kept_a = [tuple(p.tolist()) for p in a["kept"]]
+        kept_c = [tuple(p.tolist()) for p in c["kept"]]
+        if set(kept_a) != set(kept_c):
+            only_a = sorted(set(kept_a) - set(kept_c))
+            only_c = sorted(set(kept_c) - set(kept_a))
+            break
+    else:
+        t = len(card) - 1
+        moved = [k for k, (x, y) in enumerate(zip(kept_a, kept_c)) if x != y]
+        only_a = [kept_a[k] for k in moved]
+        only_c = [kept_c[k] for k in moved]
+
+    def gap(trace, chose, other):
+        mine = [_candidate_total(trace[t], t, p, eos) for p in chose]
+        theirs = [_candidate_total(trace[t], t, p, eos) for p in other]
+        return ((max(mine + theirs) - min(mine + theirs))
+                / max(abs(x) for x in mine + theirs)), mine, theirs
+
+    cpu_gap, cpu_own, cpu_of_card = gap(cpu, only_c, only_a)
+    card_gap, card_own, card_of_cpu = gap(card, only_a, only_c)
+    return dict(step=t, card_only=[list(p) for p in only_a],
+                cpu_only=[list(p) for p in only_c],
+                cpu_totals=cpu_own, cpu_totals_of_card_beams=cpu_of_card,
+                card_totals=card_own, card_totals_of_cpu_beams=card_of_cpu,
+                cpu_rel_gap=cpu_gap, card_rel_gap=card_gap)
+
+
+def _compare_beams(got, want, rescore, trace, where):
+    """The card's beams ``got`` against the CPU plain path's ``want``
+    (lists of {"tokens", "score"}): best first, scores within 1e-4
+    relative rank by rank, and the tokens identical, unless the two
+    searches parted at a near-tie that float32 rounding decides. Then
+    ``trace()`` (``_search_trace`` of the same search on the card and on
+    the CPU, which must give ``got`` and ``want`` again) finds the first
+    step at which they part, where the CPU's own totals of the beams that
+    only one of them kept must lie within ``TIE_RTOL`` of each other;
+    and ``rescore`` (the CPU's teacher-forced scores of the card's own
+    beams) must give the card's scores within 1e-5 relative: the card's
+    beams score what it says. Returns (worst relative score error
+    against the CPU's beams, the parting or None)."""
+    scores = [g["score"] for g in got]
+    if len(got) != len(want) or scores != sorted(scores, reverse=True):
+        raise AssertionError(f"{where}: beams {scores} not {len(want)} "
+                             "best first")
+    worst = max(_rel(g["score"], w["score"]) for g, w in zip(got, want))
+    if not worst <= 1e-4:
+        raise AssertionError(f"{where}: scores {scores} vs "
+                             f"{[w['score'] for w in want]}")
+    tokens = [g["tokens"] for g in got]
+    if tokens == [w["tokens"] for w in want]:
+        return worst, None
+    (card_beams, card), (cpu_beams, cpu) = trace()
+    if ([g["tokens"] for g in card_beams] != tokens
+            or [w["tokens"] for w in cpu_beams]
+            != [w["tokens"] for w in want]):
+        raise AssertionError(f"{where}: the traced searches do not give "
+                             "the beams they trace")
+    part = _parting(card, cpu, GEN_EOS)
+    if not part["cpu_rel_gap"] <= TIE_RTOL:
+        raise AssertionError(
+            f"{where}: the searches part at step {part['step']} where the "
+            f"CPU's totals differ by {part['cpu_rel_gap']:.3g} relative, "
+            f"more than float32 rounding decides: {part}")
+    cpu_scores = rescore(tokens)
+    if not all(_rel(g, c) <= 1e-5 for g, c in zip(scores, cpu_scores)):
+        raise AssertionError(
+            f"{where}: tokens differ from the CPU's ({tokens} vs "
+            f"{[w['tokens'] for w in want]}) and the card's scores {scores} "
+            f"are not their CPU rescoring {cpu_scores}")
+    return worst, part
+
+
+def _check_partings(partings, answers, where):
+    """At most one answer in eight (and one at least) may part from the
+    CPU's at a float32 near-tie."""
+    if len(partings) > max(1, answers // 8):
+        raise AssertionError(f"{where}: {len(partings)} of {answers} "
+                             f"answers part from the CPU's: {partings}")
+
+
+def serve_generation(tmp, save_dir):
+    """Path A: ``seq2seq_attention(generating=True)`` at 30000/512/512,
+    beam 4, outputs of up to 50 words. ``--job merge`` of the generating
+    config from phase 10's save dir (every generating parameter must be in
+    the checkpoint), ``--job serve`` of it (max_batch 8, length buckets
+    16,50): three single sources (lengths 1, 23, 50), a repeat and one
+    ``rows`` call of 8 to ``POST /v1/generate``; each answer carries 4
+    beams, best first, as the port's CPU plain path on the same file
+    gives them; a repeat answers the
+    same; an off-menu beam size gets the typed 400 with the menu;
+    /healthz counts gru_cell_infer launches growing; SIGTERM drains to
+    exit 0. The answers are held against the CPU's by
+    ``_compare_beams``."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.data.types import integer_value_sequence
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    from paddle_tpu_torch.serving import ServingPredictor
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    conf = os.path.join(tmp, "s2s_gen_conf.py")
+    _write_gen_config(conf)
+    dsl.reset()
+    seq2seq_attention(**S2S, beam_size=GEN_BEAM, max_length=GEN_MAX_LEN,
+                      generating=True)
+    names = _assert_generation_names(
+        dsl.current_graph(), load_params(latest_checkpoint(save_dir))[0],
+        "seq2seq_attention(generating=True)")
+    model = os.path.join(tmp, "s2s_gen.ptmodel")
+    t0 = time.perf_counter()
+    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+          "--model_path", model], timeout=600)
+    merge_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 4)
+
+    def source(n):
+        return [rng.integers(2, S2S["src_vocab"], size=int(n)).tolist()]
+
+    singles = [source(n) for n in GEN_SERVE_LENGTHS]
+    rows = [source(n) for n in rng.integers(1, S2S_LEN + 1,
+                                            size=GEN_MAX_BATCH)]
+    menu = {"beam_size": [GEN_BEAM], "max_length": [GEN_MAX_LEN]}
+    with _server(tmp, conf, model, GEN_LENGTH_BUCKETS, GEN_MAX_BATCH) as (
+            port, ready_s, rc):
+        before = _launches(port, "gru_cell_infer")
+        answers, times_ms = [], []
+        for s in singles + [singles[1]]:
+            t0 = time.perf_counter()
+            status, body = _http(port, "POST", "/v1/generate", {"sample": s})
+            times_ms.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"/v1/generate answered {status}: "
+                                     f"{body}")
+            answers.append(body["sequences"])
+        t0 = time.perf_counter()
+        status, body = _http(port, "POST", "/v1/generate", {"rows": rows})
+        rows_ms = 1e3 * (time.perf_counter() - t0)
+        if status != 200:
+            raise AssertionError(f"/v1/generate rows answered {status}: "
+                                 f"{body}")
+        answers += [r["sequences"] for r in body["results"]]
+        status, bad = _http(port, "POST", "/v1/generate",
+                            {"sample": singles[0], "beam_size": GEN_BEAM + 1})
+        if status != 400 or bad["error"].get("allowed") != menu:
+            raise AssertionError(f"off-menu beam_size answered {status}: "
+                                 f"{bad}")
+        after = _launches(port, "gru_cell_infer")
+    if answers[1] != answers[3]:
+        raise AssertionError("two identical requests answered differently")
+    ref = ServingPredictor.from_merged(
+        model, {"source_words": integer_value_sequence(S2S["src_vocab"])},
+        batch_buckets=_batch_buckets(GEN_MAX_BATCH),
+        length_buckets=GEN_LENGTH_BUCKETS, device="cpu")
+    from paddle_tpu_torch.trainer.merge_model import load_merged_ex
+    merged = load_merged_ex(model)[1]
+    card = []  # the served search again, in this process, to trace it
+
+    def trace(i, s, got):
+        """The served search of answer ``i`` traced on the card (its
+        batch: the source alone, or the ``rows`` call, which the batcher
+        may have run whole or in parts; the first that gives the served
+        beams) and the CPU reference's."""
+        if not card:
+            card.append(ServingPredictor.from_merged(
+                model, ref.feeding, batch_buckets=ref.batch_buckets,
+                length_buckets=ref.length_buckets, device="cuda"))
+        tried = [([s], 0)]
+        if i > len(singles):
+            tried.insert(0, (rows, i - len(singles) - 1))
+        for batch, b in tried:
+            traced = _search_trace(lambda **h: _predictor_generate(
+                card[0], batch, **h), b)
+            if [x["tokens"] for x in traced[0]] == [
+                    x["tokens"] for x in got]:
+                break
+        return traced, _search_trace(lambda **h: _predictor_generate(
+            ref, [s], **h), 0)
+
+    worst, partings, t_cpu = 0.0, [], time.perf_counter()
+    for i, (s, got) in enumerate(zip(singles + [singles[1]] + rows,
+                                     answers)):
+        (tk, sc, ln), _ = ref.generate_rows([tuple(s)])
+        err, part = _compare_beams(
+            got, _row_beams(tk, sc, ln, 0),
+            lambda beams, src=s[0]: _rescore_cpu(
+                _s2s_training, merged, src, beams),
+            lambda i=i, s=s, got=got: trace(i, s, got), f"answer {i}")
+        worst = max(worst, err)
+        if part is not None:
+            partings.append(dict(answer=i, **part))
+    _check_partings(partings, len(answers), "/v1/generate")
+    launches = after["launches"] - before["launches"]
+    if launches <= 0:
+        raise AssertionError("the generate path never launched "
+                             "gru_cell_infer")
+    result = dict(merge_s=merge_s, ready_s=ready_s,
+                  single_lengths=list(GEN_SERVE_LENGTHS), single_ms=times_ms,
+                  rows=len(rows), rows_ms=rows_ms, requests=len(answers),
+                  answer_lengths=[[len(b["tokens"]) for b in a]
+                                  for a in answers],
+                  launches=launches,
+                  step_launches=after["step_launches"]
+                  - before["step_launches"],
+                  max_rel_score_err_vs_cpu=worst, tie_flips=len(partings),
+                  partings=partings,
+                  cpu_reference_s=time.perf_counter() - t_cpu,
+                  generation_params=len(names), server_exit=rc[0])
+    phase("seq2seq_generate_serve", **result)
+    return result
+
+
+# ------------------------------------------ 11b. LSTM-step decoder path
+# the lstmemory_group form of the seqToseq demo's decoder (width 30000 /
+# 512 / 512): lstm_step over fc([word, h]) with its peepholes, the cell
+# state carried by a memory linked to get_output; booted from the average
+# source embedding. Training runs its step in a recurrent_group over the
+# target embedding, generation the same step in a beam search.
+_LSTM_DECODER = """
+def lstm_decoder(dsl, generating=False):
+    src = dsl.data(name="source_words", size={V}, is_sequence=True)
+    semb = dsl.embedding(input=src, size={D}, name="src_emb")
+    boot = dsl.fc(input=dsl.pooling(input=semb, pooling_type="avg",
+                                    name="src_avg"),
+                  size={D}, act="tanh", name="boot")
+
+    def step(word):
+        h = dsl.memory(name="h", size={D}, boot_layer=boot)
+        c = dsl.memory(name="cst", size={D})
+        gates = dsl.fc(input=[word, h], size={G}, act="linear",
+                       name="gates")
+        out = dsl.lstm_step_layer(gates, c, size={D}, name="h")
+        dsl.get_output_layer(out, arg_name="state", size={D}, name="cst")
+        return dsl.fc(input=out, size={V}, act="softmax", name="prob")
+
+    if generating:
+        return dsl.beam_search(
+            step, [dsl.GeneratedInput(size={V}, embedding_name="_trg_emb.w0",
+                                      embedding_size={D})],
+            bos_id=0, eos_id={EOS}, beam_size={K}, max_length={L}, name="gen")
+    trg = dsl.data(name="target_words", size={V}, is_sequence=True)
+    trg_next = dsl.data(name="target_next", size={V}, is_sequence=True)
+    temb = dsl.embedding(input=trg, size={D}, name="trg_emb")
+    probs = dsl.recurrent_group(step, [temb], name="decoder_group")
+    return dsl.classification_cost(input=probs, label=trg_next,
+                                   name="decoder_cost")
+""".format(V=S2S["trg_vocab"], D=S2S["hidden"], G=4 * S2S["hidden"],
+           K=GEN_BEAM, L=GEN_MAX_LEN, EOS=GEN_EOS)
+
+
+def _lstm_decoder(generating=False):
+    from paddle_tpu_torch.config import dsl
+    ns = {}
+    exec(_LSTM_DECODER, ns)
+    dsl.reset()
+    return ns["lstm_decoder"](dsl, generating)
+
+
+def _write_lstm_decoder_config(path):
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import integer_value_sequence
+            from paddle_tpu_torch.optim import Adam
+        """) + _LSTM_DECODER + _S2S_SAMPLES + textwrap.dedent(f"""
+
+            cost = lstm_decoder(dsl)
+            optimizer = Adam(learning_rate=5e-4)
+            feeding = DataFeeder(
+                {{"source_words": integer_value_sequence({S2S['src_vocab']}),
+                  "target_words": integer_value_sequence({S2S['trg_vocab']}),
+                  "target_next": integer_value_sequence({S2S['trg_vocab']})}},
+                pad_multiple={S2S_LEN})
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({S2S_BATCHES}):
+                    yield samples(rng, {S2S_BATCH})
+        """))
+
+
+def _decode_lstm_decoder(save_dir):
+    """Beam search (K = 4, up to 50 words) of 8 sources with the
+    LSTM-step decoder from the trained checkpoint, on the card (the counts
+    set to 0 just before, read just after) and on the CPU, held together
+    by ``_compare_beams``; lstm_cell_infer launched; the full scan
+    identical to the chunked decode."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core.generation import SequenceGenerator
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import integer_value_sequence
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    from paddle_tpu_torch.config import dsl
+    _lstm_decoder(generating=True)
+    graph = dsl.current_graph()
+    trained, _ = load_params(latest_checkpoint(save_dir))
+    names = _assert_generation_names(graph, trained, "lstm_step decoder")
+    sources = [(s,) for s, _, _ in _s2s_samples(
+        np.random.default_rng(SEED + 5), GEN_SOURCES)]
+    gen = SequenceGenerator(graph, "gen")
+    encoder = Network(graph, outputs=gen.static_input_layers())
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: torch.as_tensor(np.asarray(trained[k])).to(dev)
+                  for k in names}
+        feed = DataFeeder({"source_words": integer_value_sequence(
+            S2S["src_vocab"])}, pad_multiple=S2S_LEN, device=dev)(sources)
+        with torch.no_grad():
+            outer = encoder.apply(params, feed)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = [t.cpu() for t in gen.generate(
+            params, outer, beam_size=GEN_BEAM, max_length=GEN_MAX_LEN)]
+        runs[dev] = dict(out=out, ms=1e3 * (time.perf_counter() - t0),
+                         info=dict(gen.last_info), params=params,
+                         outer=outer)
+        if dev == "cuda":
+            runs[dev]["counts"] = ops.kernel_counts()
+            full = [t.cpu() for t in gen.generate(
+                params, outer, beam_size=GEN_BEAM, max_length=GEN_MAX_LEN,
+                full_scan=True)]
+            if not all(torch.equal(a, b) for a, b in zip(out, full)):
+                raise AssertionError("lstm_step decoder: the full scan "
+                                     "differs from the chunked decode")
+    def search(dev):
+        r = runs[dev]
+        return lambda **hooks: gen.generate(
+            r["params"], r["outer"], beam_size=GEN_BEAM,
+            max_length=GEN_MAX_LEN, **hooks)
+
+    def trace(b):
+        return (_search_trace(search("cuda"), b),
+                _search_trace(search("cpu"), b))
+
+    worst, partings = 0.0, []
+    got, want = runs["cuda"]["out"], runs["cpu"]["out"]
+    for b in range(GEN_SOURCES):
+        err, part = _compare_beams(
+            _row_beams(*got, b), _row_beams(*want, b),
+            lambda toks, src=sources[b][0]: _rescore_cpu(
+                _lstm_decoder, trained, src, toks),
+            lambda b=b: trace(b), f"source {b}")
+        worst = max(worst, err)
+        if part is not None:
+            partings.append(dict(source=b, **part))
+    _check_partings(partings, GEN_SOURCES, "lstm_step decoder")
+    counts = runs["cuda"]["counts"]
+    if counts["lstm_cell_infer"]["launches"] <= 0:
+        raise AssertionError("the decode never launched lstm_cell_infer")
+    return dict(sources=GEN_SOURCES, beam=GEN_BEAM, max_length=GEN_MAX_LEN,
+                cuda_ms=runs["cuda"]["ms"], cpu_ms=runs["cpu"]["ms"],
+                info=runs["cuda"]["info"],
+                lengths=got[2].tolist(),
+                launches=counts["lstm_cell_infer"]["launches"],
+                max_rel_score_err_vs_cpu=worst, tie_flips=len(partings),
+                partings=partings, full_scan_identical=True, generation_params=len(names))
+
+
+def lstm_decoder_path(tmp):
+    """Path B: the LSTM-step decoder trained by ``--job train``
+    (Adam(5e-4), 3 passes over 4 fixed batches of 50: the cost must fall,
+    and the counts show lstm_cell and Adam launched), its full-width
+    gradients (8 rows) card against CPU, then its beam search on the card
+    against the CPU (``_decode_lstm_decoder``)."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "lstm_decoder_conf.py")
+    _write_lstm_decoder_config(conf)
+    save_dir = os.path.join(tmp, "lstm_decoder_ckpt")
+    costs, summary = _train_run(conf, S2S_PASSES, save_dir,
+                                batches=S2S_BATCHES)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"lstm_step decoder pass costs {costs} do not "
+                             "fall")
+    counts = summary["kernels"]
+    for name in ("lstm_cell", "adam"):
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"lstm_step decoder --job train never "
+                                 f"launched {name}")
+    feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
+        _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
+    grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
+        lambda: (_lstm_decoder(),), save_dir, feed,
+        Adam(learning_rate=5e-4)))
+    decode = _decode_lstm_decoder(save_dir)
+    result = dict(pass_costs=costs, steps=summary["steps"],
+                  median_step_ms=summary["median_step_ms"],
+                  step_ms=summary["step_ms"], kernels=counts,
+                  grad_check=grads, decode=decode)
+    phase("lstm_decoder", **result)
     return result
 
 
@@ -1709,15 +2365,19 @@ def main() -> int:
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
     gru_rows, cell_rows = check_gru_kernels()
+    lstm_cell_rows = check_lstm_cells()
     crf_rows, tag_lstm_rows = check_crf_kernels()
     flash_rows = check_flash_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained, conf, model = train(tmp)
         served = serve(tmp, conf, model)
-        s2s = train_seq2seq(tmp, S2S, "seq2seq_train")
-        s2s_att = train_seq2seq(tmp, S2S_ATT, "seq2seq_attention_train",
-                                ("flash_fwd", "flash_bwd"), ("flash_fwd",))
+        s2s, s2s_dir = train_seq2seq(tmp, S2S, "seq2seq_train")
+        gen_served = serve_generation(tmp, s2s_dir)
+        s2s_att, _ = train_seq2seq(tmp, S2S_ATT, "seq2seq_attention_train",
+                                   ("flash_fwd", "flash_bwd"),
+                                   ("flash_fwd",))
+        lstm_dec = lstm_decoder_path(tmp)
         tagger, tag_conf, tag_model = train_tagger(tmp)
         tag_served = serve_tagger(tmp, tag_conf, tag_model)
     finally:
@@ -1736,6 +2396,12 @@ def main() -> int:
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
     crf_src = "paddle_tpu_torch/csrc/crf.cu"
     flash_src = "paddle_tpu_torch/csrc/flash_attn.cu"
+    lstm_cell_src = "paddle_tpu_torch/csrc/lstm_cell.cu"
+    # the LSTM cell's shapes: the decoder's training batch, its decode
+    lc_train = next(r for r in lstm_cell_rows if r["B"] == S2S_BATCH)
+    lc_decode = next(r for r in lstm_cell_rows
+                     if r["B"] == GEN_SOURCES * GEN_BEAM)
+    lc_err = max(r["max_abs_err"] for r in lstm_cell_rows)
     att_counts, att_test = s2s_att["kernels"], s2s_att["test_kernels"]
     f_row = flash_rows[0]  # the attention seq2seq path's shape
     counts = trained["kernels"]
@@ -1809,8 +2475,27 @@ def main() -> int:
              shape={"B": c_row["B"], "H": c_row["H"]}),
         dict(_entry("gru_cell_infer", gru_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
-                    s2s_test["gru_cell_infer"]["launches"], cell_err, c_row),
-             shape={"B": c_row["B"], "H": c_row["H"]}),
+                    s2s_test["gru_cell_infer"]["launches"]
+                    + gen_served["launches"], cell_err, c_row),
+             shape={"B": c_row["B"], "H": c_row["H"]},
+             path="seq2seq_attention test and /v1/generate"),
+        dict(_entry("lstm_cell", lstm_cell_src,
+                    "paddle_tpu/kernels/rnn_cells.py:78",
+                    lstm_dec["kernels"]["lstm_cell"]["launches"], lc_err,
+                    lc_train),
+             shape={"B": lc_train["B"], "H": lc_train["H"]},
+             device_ms=lc_train["device_ms"],
+             library="none: torch's lstm_cell has no peepholes and takes "
+                     "its own weight products",
+             path="lstm_step decoder train"),
+        dict(_entry("lstm_cell_infer", lstm_cell_src,
+                    "paddle_tpu/kernels/rnn_cells.py:78",
+                    lstm_dec["decode"]["launches"], lc_err, lc_decode),
+             shape={"B": lc_decode["B"], "H": lc_decode["H"]},
+             device_ms=lc_decode["device_ms"],
+             library="none: torch's lstm_cell has no peepholes and takes "
+                     "its own weight products",
+             path="lstm_step decoder beam search"),
         dict(_entry("momentum", opt_src,
                     "paddle_tpu/kernels/opt_update.py:83",
                     trained["momentum_kernels"]["momentum"]["launches"],
@@ -1820,7 +2505,8 @@ def main() -> int:
                     counts["adam"]["launches"]
                     + s2s_counts["adam"]["launches"]
                     + tag_counts["adam"]["launches"]
-                    + att_counts["adam"]["launches"],
+                    + att_counts["adam"]["launches"]
+                    + lstm_dec["kernels"]["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              shape={"n": opt_rows["adam"]["n"]}),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
@@ -1872,11 +2558,13 @@ def main() -> int:
         json.dump({"bench_shapes": rows, "serve_shapes": serve_rows,
                    "train_shapes": train_rows, "reverse_err": reverse_err,
                    "optimizer": opt_rows, "gru_shapes": gru_rows,
-                   "gru_cell_shapes": cell_rows, "crf_shapes": crf_rows,
+                   "gru_cell_shapes": cell_rows,
+                   "lstm_cell_shapes": lstm_cell_rows, "crf_shapes": crf_rows,
                    "tagger_lstm_shapes": tag_lstm_rows,
                    "flash_shapes": flash_rows,
                    "train": trained, "serve": served, "seq2seq": s2s,
-                   "seq2seq_attention": s2s_att,
+                   "seq2seq_generate_serve": gen_served,
+                   "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
                    "tagger": tagger, "tagger_serve": tag_served, **kernels},
                   f, indent=1)
     print(json.dumps(kernels), flush=True)

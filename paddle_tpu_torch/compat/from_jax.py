@@ -8,10 +8,16 @@ own names such as ``_dec_in.w1``, a CRF's packed (C+2, C) start / end /
 transition matrix under its shared ``ParamAttr`` name such as
 ``crf_transitions``, a ``multi_head_attention`` layer's projections
 ``wq`` [q_in, S], ``wk`` and ``wv`` [kv_in, S], ``wo`` [S, S] and
-``wbias`` [S], such as ``_enc_self_att.wq``; heads are column blocks of S)
-and its optimizer-state tree, so a JAX
-parameter dict or optimizer state, as numpy, maps onto the port's by
-name. PTM1 files and checkpoints carry the same names.
+``wbias`` [S], such as ``_enc_self_att.wq``; heads are column blocks of S;
+an ``lstm_step``'s ``wbias`` [3H], its three peephole vectors) and its
+optimizer-state tree, so a JAX parameter dict or optimizer state, as numpy,
+maps onto the port's by name. A generating graph (a ``beam_search``
+group) hoists its step network's parameters under the same absolute names
+as the training graph's recurrent group (``_dec_in.w0``,
+``_gru_decoder.w0``, ...) and reads its generated words' embedding under
+the training graph's name (``_trg_emb.w0``), so a training checkpoint of
+either package serves generation unchanged. PTM1 files and checkpoints
+carry the same names.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """Layer-construction DSL: the subset of ``paddle_tpu/config/dsl.py`` that
-``lstm_text_classifier``, ``seq2seq_attention``'s training graph (with its
-encoder self-attention block), ``bilstm_crf_tagger`` (the CRF layers and
-config-declared evaluators) and a serve config need.
+``lstm_text_classifier``, ``seq2seq_attention`` (its training graph, with
+its encoder self-attention block, and its generating graph),
+``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators), an
+``lstm_step`` decoder and a serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
 attributes and auto-generated names (``__fc_layer_0__``,
-``__recurrent_group_0__``) match the JAX DSL, so both build the same graph,
-with the same parameter names, from the same calls. Nested groups
-(``SubsequenceInput``) and generation (``GeneratedInput``,
-``beam_search``) raise ``NotImplementedError``: they are later slices.
+``__recurrent_group_0__``, ``__beam_search_layer_0__``) match the JAX DSL,
+so both build the same graph, with the same parameter names, from the same
+calls. Nested groups (``SubsequenceInput``) raise ``NotImplementedError``:
+they are a later slice.
 """
 
 from __future__ import annotations
@@ -241,6 +242,31 @@ def gru_step_layer(input, output_mem, *, size: int = None, act: str = "tanh",
     return _add(ldef)
 
 
+def lstm_step_layer(input, state_mem, *, size: int = None, act: str = "tanh",
+                    gate_act: str = "sigmoid", state_act: str = "tanh",
+                    name=None, bias_attr=True):
+    """One LSTM step inside a recurrent group: ``input`` the gate
+    projection [4*size], ``state_mem`` the previous cell state; with a bias,
+    the three peephole vectors. The new cell state is read with
+    ``get_output_layer(..., arg_name="state")``."""
+    ldef = LayerDef(name=name or _auto_name("lstm_step"), type="lstm_step",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(state_mem)[0].name)],
+                    bias=_bias(bias_attr),
+                    attrs={"active_type": act, "active_gate_type": gate_act,
+                           "active_state_type": state_act})
+    return _add(ldef)
+
+
+def get_output_layer(input, *, arg_name: str = "state", size: int = None,
+                     name=None):
+    """A named auxiliary output of ``input`` (an lstm_step's ``state``)."""
+    ldef = LayerDef(name=name or _auto_name("get_output"), type="get_output",
+                    inputs=[Input(_in(input)[0].name)], size=size,
+                    act="linear", bias=False, attrs={"arg_name": arg_name})
+    return _add(ldef)
+
+
 def classification_cost(input, label, *, name: str = None) -> LayerOutput:
     """Cross-entropy on post-softmax input (``layers/cost.py``)."""
     ldef = LayerDef(name=name or _auto_name("cost"),
@@ -317,19 +343,17 @@ class SubsequenceInput:
             "two-level sequences come with a later slice of the port")
 
 
+@dataclasses.dataclass
 class GeneratedInput:
-    """Generation-mode input of a beam search: not ported yet."""
+    """Generation-mode input of a beam search: at each step the previous
+    step's generated word id is embedded (with the shared embedding
+    parameter ``embedding_name``) and fed."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GeneratedInput (generation) is not ported yet: beam search "
-            "comes with the seq2seq generation slice of the port")
-
-
-def beam_search(*args, **kwargs):
-    raise NotImplementedError(
-        "beam_search is not ported yet: it comes with the seq2seq "
-        "generation slice of the port")
+    size: int                      # vocabulary size
+    embedding_name: str            # shared embedding parameter name
+    embedding_size: int
+    bos_id: int = 0
+    eos_id: int = 1
 
 
 _GROUP_CTX: Optional[Dict[str, Any]] = None
@@ -429,3 +453,90 @@ def recurrent_group(step, input, *, reverse: bool = False,
                         attrs={"sub_name": h.name})
         extras.append(_add(odef))
     return (main, *extras)
+
+
+def beam_search(step, input, *, bos_id: int = None, eos_id: int = None,
+                beam_size: int = 5, max_length: int = 100,
+                candidate_adjust=None, drop_callback=None,
+                norm_or_drop=None, stop_beam_search=None,
+                decode_chunk: int = None, full_scan: bool = False,
+                name: str = None) -> LayerOutput:
+    """Generation-mode recurrent group (``beam_search`` in the reference
+    DSL). The step function receives the embedding of the previously
+    generated word for the GeneratedInput slot (and the StaticInputs) and
+    returns post-softmax probabilities over the vocabulary. Run it with
+    ``paddle_tpu_torch.core.generation.SequenceGenerator``.
+
+    The four beam-control hooks (``candidate_adjust``, ``drop_callback``,
+    ``norm_or_drop``, ``stop_beam_search``; signatures in
+    ``SequenceGenerator.generate``) pinned here are the defaults of every
+    ``generate`` call on this config, the serving endpoint's included; use
+    module-level functions if the model will be merged (``--job merge``
+    pickles the graph). ``decode_chunk`` / ``full_scan`` pin the decode
+    policy: chunks of ``decode_chunk`` steps with an exit check between
+    them, or one length-``max_length`` loop."""
+    global _GRAPH, _GROUP_CTX
+    inputs = list(input) if isinstance(input, (list, tuple)) else [input]
+    gname = name or _auto_name("beam_search")
+    outer = _GRAPH
+    sub = ModelDef()
+    ins_meta: List[Dict[str, Any]] = []
+    outer_in_names: List[str] = []
+    proxies: List[LayerOutput] = []
+    gen_spec = None
+    prev_ctx = _GROUP_CTX
+    _GRAPH = sub
+    _GROUP_CTX = {"name": gname, "memories": []}
+    try:
+        for i, x in enumerate(inputs):
+            if isinstance(x, GeneratedInput):
+                if gen_spec is not None:
+                    raise ValueError("only one GeneratedInput allowed")
+                bname = f"{gname}@gen{i}"
+                proxies.append(_add(LayerDef(
+                    name=bname, type="data", size=x.embedding_size,
+                    bias=False)))
+                gen_spec = {"boundary": bname, "size": x.size,
+                            "embedding_name": x.embedding_name,
+                            "embedding_size": x.embedding_size,
+                            "bos_id": x.bos_id if bos_id is None else bos_id,
+                            "eos_id": x.eos_id if eos_id is None else eos_id}
+            elif isinstance(x, StaticInput):
+                bname = f"{gname}@static{i}"
+                proxies.append(_add(LayerDef(
+                    name=bname, type="data", size=x.input.size, bias=False)))
+                ins_meta.append({"boundary": bname, "kind": "static"})
+                outer_in_names.append(x.input.name)
+            else:
+                raise TypeError(
+                    "beam_search inputs must be GeneratedInput/StaticInput")
+        traced = step(*proxies)
+        memories = _GROUP_CTX["memories"]
+    finally:
+        _GRAPH = outer
+        _GROUP_CTX = prev_ctx
+    if gen_spec is None:
+        raise ValueError("beam_search needs a GeneratedInput")
+    out_handles = list(traced) if isinstance(traced, (tuple, list)) \
+        else [traced]
+    for mem in memories:
+        if mem["link"] not in sub.layers:
+            raise ValueError(
+                f"memory(name={mem['link']!r}) has no matching layer "
+                f"inside beam_search group {gname!r}")
+        bl = mem.pop("boot_layer")
+        if bl is not None:
+            ins_meta.append({"boundary": mem["boundary"], "kind": "boot"})
+            outer_in_names.append(bl.name)
+    ldef = LayerDef(
+        name=gname, type="beam_search_group",
+        inputs=[Input(n) for n in outer_in_names], bias=False,
+        attrs={"sub_model": sub, "ins": ins_meta, "memories": memories,
+               "outputs": [h.name for h in out_handles], "gen": gen_spec,
+               "beam_size": beam_size, "max_length": max_length,
+               "candidate_adjust": candidate_adjust,
+               "drop_callback": drop_callback,
+               "norm_or_drop": norm_or_drop,
+               "stop_beam_search": stop_beam_search,
+               "decode_chunk": decode_chunk, "full_scan": full_scan})
+    return _add(ldef)

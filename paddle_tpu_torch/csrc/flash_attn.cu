@@ -52,12 +52,26 @@
 // products are f32 FMA, not TF32 tensor cores (TF32 keeps 10 mantissa
 // bits and would break the 1e-4 parity with the f32 plain version).
 // Key positions at or past Tk (a tile's tail) are left out of the softmax
-// (never treated as masked), so a row with every key masked gets the
-// uniform mean over the Tk real keys, as blockwise_attention does while Tk
-// fits one of its blocks. With causal, a query block skips the kv blocks
-// that lie wholly above the diagonal of its last row (it always visits
-// the block that holds that diagonal, and at least one); the backward
-// skips the same pairs.
+// (never treated as masked). With causal, a query block skips the kv
+// blocks that lie wholly above the diagonal of its last row (it always
+// visits the block that holds that diagonal, and at least one); the
+// backward skips the same pairs.
+//
+// Rows that see no key (every score masked: an all-padding kv row, or with
+// causal and Tq > Tk the first Tq - Tk rows) follow a rule of their own.
+// JAX pads Tk to Tk_pad, a multiple of min(256, Tk), with masked zero keys
+// and visits every block, so on such a row every score is the -1e9 fill
+// and it gets o = sum_{j<Tk} v_j / Tk_pad, m = -1e9, l = Tk_pad. Here a row
+// sees no key iff its running max stays -1e9 (a visible score is above
+// the fill). Rows that see a key keep the skips above. The forward divides
+// such a row's sum by Tk_pad and saves (-1e9, log Tk_pad); a query block
+// that holds one adds the kv blocks its causal skip left out, with P = 1
+// on those rows and 0 on the others. The backward needs nothing new for
+// dq (dS is 0 on every masked score) or dk; dv_j takes P_ij dO_i =
+// dO_i / Tk_pad from each such row: flash_bwd_dkdv visits a skipped
+// (query block, kv block) pair when the query block holds such a row, and
+// there P = exp((-1e9 - m) - log l) is 1 / Tk_pad on those rows and 0 on
+// the others.
 //
 // Shared memory per block at D = 128: forward 3 tiles + P = 116 KB, dq 4
 // tiles + dS = 150 KB, dkdv 4 tiles + P + dS = 166 KB, above the default
@@ -89,6 +103,7 @@ constexpr int kThreads = kSub * kSub;   // 256
 constexpr int kPer = kBlock / kSub;     // rows (and keys) per thread: 4
 constexpr int kLdP = kBlock + 1;        // row stride of the P and dS tiles
 constexpr float kNeg = -1e9f;           // JAX's _NEG
+constexpr int kJaxBlockK = 256;         // JAX flash_attention's block_k
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int num_blocks(int t) {
@@ -97,6 +112,13 @@ __host__ __device__ __forceinline__ int num_blocks(int t) {
 
 // The kv blocks query block qb visits: all of them, or with causal those
 // up to the one holding its last real row's diagonal (at least one).
+// Tk rounded up to a multiple of JAX's kv block min(256, Tk): the l of a
+// row that sees no key.
+__device__ __forceinline__ float padded_keys(int Tk) {
+  const int bk = Tk < kJaxBlockK ? Tk : kJaxBlockK;
+  return static_cast<float>((Tk + bk - 1) / bk * bk);
+}
+
 __device__ __forceinline__ int kv_blocks(int qb, int nk, int Tq, int off,
                                          int causal) {
   if (!causal) return nk;
@@ -275,20 +297,46 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     tile_accumulate<D, false>(acc, p_s, v_s, ty, tx);
   }
+  // rows that see no key: acc holds the sum of v over the visited keys
+  bool nokey[kPer];
+  int any = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    nokey[i] = q0 + ty + kSub * i < Tq && m[i] == kNeg;
+    any |= nokey[i];
+  }
+  if (__syncthreads_or(any)) {
+    // the kv blocks the causal skip left out, for those rows alone
+    for (int kb = nkb; kb < num_blocks(Tk); ++kb) {
+      const int k0 = kb * kBlock;
+      __syncthreads();
+      load_tile<D>(v_s, vb_base, k0, Tk);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          p_s[(ty + kSub * i) * kLdP + tx + kSub * j] =
+              nokey[i] && k0 + tx + kSub * j < Tk ? 1.f : 0.f;
+      __syncthreads();
+      tile_accumulate<D, false>(acc, p_s, v_s, ty, tx);
+    }
+  }
+  const float tk_pad = padded_keys(Tk);
   // o = acc / l, as blockwise_attention divides
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int row = q0 + ty + kSub * i;
     if (row >= Tq) continue;
+    const float li = nokey[i] ? tk_pad : l[i];
     float* orow = o + (static_cast<size_t>(bn) * Tq + row) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + kSub * c;
-      if (col < D) orow[col] = acc[i][c] / l[i];
+      if (col < D) orow[col] = acc[i][c] / li;
     }
     if (tx == 0) {
       stats[static_cast<size_t>(bn) * Tq + row] = m[i];
-      stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(l[i]);
+      stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(li);
     }
   }
 }
@@ -455,12 +503,34 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
     for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   const int nq = num_blocks(Tq), nk = num_blocks(Tk);
   for (int qb = 0; qb < nq; ++qb) {
-    if (kb >= kv_blocks(qb, nk, Tq, off, causal)) continue;  // block-uniform
+    // block-uniform: a pair past the query block's diagonal (causal)
+    const bool skipped = kb >= kv_blocks(qb, nk, Tq, off, causal);
     const int q0 = qb * kBlock;
     __syncthreads();  // the previous query block's reads are done
+    load_row_stats(m_s, ll_s, delta_s, stats, delta, BN, bn, q0, Tq);
+    if (skipped) {
+      // only the block's rows that see no key (m = -1e9) add to dv here
+      const int nokey = threadIdx.x < kBlock && q0 + threadIdx.x < Tq &&
+                        m_s[threadIdx.x] == kNeg;
+      if (!__syncthreads_or(nokey)) continue;
+      load_tile<D>(do_s, dout + q_at, q0, Tq);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int r = ty + kSub * i;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int c = tx + kSub * j;
+          p_s[r * kLdP + c] = q0 + r < Tq && k0 + c < Tk
+                                  ? expf((kNeg - m_s[r]) - ll_s[r])
+                                  : 0.f;
+        }
+      }
+      __syncthreads();
+      tile_accumulate<D, true>(dv_acc, p_s, do_s, ty, tx);
+      continue;
+    }
     load_tile<D>(q_s, q + q_at, q0, Tq);
     load_tile<D>(do_s, dout + q_at, q0, Tq);
-    load_row_stats(m_s, ll_s, delta_s, stats, delta, BN, bn, q0, Tq);
     __syncthreads();
     float s[kPer][kPer], dp[kPer][kPer];
     tile_dot<D>(s, q_s, k_s, ty, tx);

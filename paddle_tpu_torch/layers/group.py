@@ -18,8 +18,13 @@ In-link kinds: ``seq`` (one frame per step), ``static`` (the whole
 Argument every step), ``boot`` (a memory's initial value) and ``auto``
 (resolved to ``seq`` or ``static`` from the fed Argument). Nested
 (``subseq``) in-links raise ``NotImplementedError``: two-level sequences
-are a later slice of the port, as are the generating groups
-(``beam_search``).
+are a later slice of the port.
+
+A memory may link to any layer of the step, a ``get_output`` layer
+included (an ``lstm_step``'s cell state): the step network's outputs
+cover every memory's link layer. The generating group
+(``beam_search_group``) is a config-time node that hoists its step
+network's parameters; ``core/generation.py:SequenceGenerator`` runs it.
 """
 
 from __future__ import annotations
@@ -109,8 +114,8 @@ class RecurrentLayerGroup(LayerImpl):
                 boot[m["boundary"]] = a.value
         if not xs:
             raise ValueError(
-                f"recurrent group {cfg.name!r} has no sequence input; "
-                "generation (beam_search) is not ported yet")
+                f"recurrent group {cfg.name!r} has no sequence input; a "
+                "generating group is a beam_search")
         lead = next(iter(xs.values()))
         T, B = lead.shape[0], lead.shape[1]
         if mask is None:
@@ -174,3 +179,24 @@ class GroupOutput(LayerImpl):
         a = ins[0]
         return Argument(value=a.state["group_outputs"][cfg.attrs["sub_name"]],
                         mask=a.mask)
+
+
+@register_layer("beam_search_group")
+class BeamSearchGroup(LayerImpl):
+    """Config-time node of a generating recurrent group (``beam_search``
+    in the DSL). The forward pass cannot run it: drive it with
+    ``paddle_tpu_torch.core.generation.SequenceGenerator``."""
+
+    def infer(self, cfg, in_infos):
+        _group_subnet(cfg)  # validate the step net early
+        return ShapeInfo(size=1, is_sequence=True)
+
+    def params(self, cfg, in_infos):
+        net = _group_subnet(cfg)
+        return {f"sub:{p}": dataclasses.replace(spec, absolute_name=p)
+                for p, spec in net.param_specs.items()}
+
+    def apply(self, cfg, params, ins, ctx):
+        raise RuntimeError(
+            f"beam_search group {cfg.name!r} cannot run in a training "
+            "forward pass; use SequenceGenerator.generate")

@@ -1,8 +1,9 @@
 """Recurrent layers: lstmemory (``LstmLayer.cpp``), gated_recurrent
-(``GruLayer.cpp``) and the single GRU step gru_step (``GruStepLayer.cpp``).
+(``GruLayer.cpp``) and the single steps gru_step (``GruStepLayer.cpp``) and
+lstm_step (``LstmStepLayer.cpp``).
 
 The port's counterpart of ``paddle_tpu/layers/recurrent.py``'s
-``LstmLayer``, ``GruLayer`` and ``GruStepLayer``.
+``LstmLayer``, ``GruLayer``, ``GruStepLayer`` and ``LstmStepLayer``.
 
 - LSTM: the incoming projection supplies 4 gate blocks in order [input,
   input_gate, forget_gate, output_gate]; the recurrent weight is [size,
@@ -13,9 +14,9 @@ The port's counterpart of ``paddle_tpu/layers/recurrent.py``'s
   weight (the last size columns); the bias is 3*size.
 
 Default activations take the fused recurrences (``ops/lstm.py``,
-``ops/gru.py``: the CUDA kernels on the card) and the fused GRU cell
-(``kernels/rnn_cells.py``); other activations take an inline step in plain
-torch. Padded steps hold the carried state.
+``ops/gru.py``: the CUDA kernels on the card) and the fused GRU and LSTM
+cells (``kernels/rnn_cells.py``); other activations take an inline step in
+plain torch. Padded steps hold the carried state.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import torch
 from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
                                             register_layer)
-from paddle_tpu_torch.layers.activations import apply_activation
 from paddle_tpu_torch.kernels.rnn_cells import (activation, gru_cell,
-                                                gru_cell_infer, gru_math)
+                                                gru_cell_infer, gru_math,
+                                                lstm_cell, lstm_cell_infer,
+                                                lstm_math)
 from paddle_tpu_torch.ops.gru import gru_sequence
 from paddle_tpu_torch.ops.lstm import lstm_sequence
 
@@ -83,19 +85,13 @@ class LstmLayer(LayerImpl):
             return Argument(value=ys.transpose(0, 1), mask=a.mask,
                             state=(hT, cT))
 
-        # inline step for non-default activations (plain torch; the cell
-        # kernels of paddle_tpu/kernels/rnn_cells.py are not ported yet)
+        # inline step for non-default activations (plain torch)
         h, c = h0, c0
         ys = [None] * xs.shape[0]
+        acts = [activation(a) for a in (act_in, act_gate, act_state)]
         for t in _steps(xs.shape[0], reverse):
-            gates = xs[t] + h @ w + gate_bias
-            g_in, g_ig, g_fg, g_og = gates.chunk(4, dim=-1)
-            g_in = apply_activation(act_in, g_in)
-            g_ig = apply_activation(act_gate, g_ig + c * check_i)
-            g_fg = apply_activation(act_gate, g_fg + c * check_f)
-            state = g_in * g_ig + c * g_fg
-            g_og = apply_activation(act_gate, g_og + state * check_o)
-            out = g_og * apply_activation(act_state, state)
+            out, state = lstm_math(xs[t] + h @ w + gate_bias, c, check_i,
+                                   check_f, check_o, *acts)
             m = mask[t].unsqueeze(-1)
             h = torch.where(m > 0, out, h)
             c = torch.where(m > 0, state, c)
@@ -185,3 +181,42 @@ class GruStepLayer(LayerImpl):
             x, h, params["w0"][:, :2 * size], params["w0"][:, 2 * size:],
             cfg.attrs.get("active_type", "tanh"),
             cfg.attrs.get("active_gate_type", "sigmoid")))
+
+
+@register_layer("lstm_step")
+class LstmStepLayer(LayerImpl):
+    """Single LSTM step for use inside recurrent groups: inputs = (the
+    combined gate input [B, 4*size], whose recurrent projection is an fc
+    over the output memory, and the previous cell state [B, size]).
+    Outputs the hidden value; the new cell state is ``state["state"]``,
+    read by ``get_output(arg_name="state")``. Training runs ``lstm_cell``
+    (differentiable), the no-grad forward ``lstm_cell_infer``."""
+
+    def infer(self, cfg, in_infos):
+        if in_infos[0].size % 4:
+            raise ValueError("lstm_step input must be 4*size")
+        return ShapeInfo(size=in_infos[0].size // 4)
+
+    def params(self, cfg, in_infos):
+        size = in_infos[0].size // 4
+        if cfg.bias:
+            # the reference lstm_step bias is ONLY the three peephole
+            # vectors (create_bias_parameter(bias, size * 3)); gate biases
+            # belong to the input projection layer
+            return {"wbias": ParamSpec(shape=(3 * size,), init="zeros",
+                                       is_bias=True)}
+        return {}
+
+    def apply(self, cfg, params, ins, ctx):
+        gates, c_prev = ins[0].value, ins[1].value
+        size = ctx.out_info.size
+        if "wbias" in params:
+            check_i, check_f, check_o = params["wbias"].split(size)
+        else:
+            check_i = check_f = check_o = gates.new_zeros(size)
+        cell = lstm_cell if ctx.train else lstm_cell_infer
+        out, state = cell(gates, c_prev, check_i, check_f, check_o,
+                          cfg.attrs.get("active_type", "tanh"),
+                          cfg.attrs.get("active_gate_type", "sigmoid"),
+                          cfg.attrs.get("active_state_type", "tanh"))
+        return Argument(value=out, state={"state": state})

@@ -1,15 +1,17 @@
-"""Seq2seq NMT with Bahdanau attention: the training graph of the
-reference's seqToseq demo (``simple_attention`` in
-``trainer_config_helpers/networks.py``): a bidirectional GRU encoder and a
-GRU decoder, driven each step by an additive-attention context, in a
-recurrent group. The same graph, with the same layer and parameter names,
-as ``paddle_tpu/models/seq2seq.py``, built with the port's DSL.
+"""Seq2seq NMT with Bahdanau attention: the reference's seqToseq demo
+(``simple_attention`` in ``trainer_config_helpers/networks.py``): a
+bidirectional GRU encoder and a GRU decoder, driven each step by an
+additive-attention context, in a recurrent group (training) or a beam
+search (generation, ``core/generation.py:SequenceGenerator``). The same
+graphs, with the same layer and parameter names, as
+``paddle_tpu/models/seq2seq.py``, built with the port's DSL; the
+generating graph's step parameters are the training decoder's, and the
+generated word's embedding is the training graph's ``_trg_emb.w0``.
 
 ``seq_parallel="ring"|"ulysses"`` adds the encoder self-attention block
 ``enc_self_att`` (``multi_head_attention``, ``num_heads`` heads over the
 embedding) as the JAX model does; the port has no sequence mesh, so the
-block runs dense through the flash-attention kernels. Generation (beam
-search) is a later slice of the port and raises ``NotImplementedError``.
+block runs dense through the flash-attention kernels.
 """
 
 from __future__ import annotations
@@ -36,14 +38,12 @@ def seq2seq_attention(*, src_vocab: int = 5000, trg_vocab: int = 5000,
                       beam_size: int = 4, max_length: int = 20,
                       generating: bool = False,
                       seq_parallel: str = None, num_heads: int = 4):
-    """Build the training graph: returns (cost, probs_seq, data_names).
+    """Build the training graph (``generating=False``: returns (cost,
+    probs_seq, data_names)) or the generation graph (``generating=True``:
+    returns (gen_layer, data_names); drive it with SequenceGenerator).
     The reference's published width is ``src_vocab = trg_vocab = 30000``,
     ``embed_dim = hidden = 512``; with ``seq_parallel`` and the default
     ``num_heads = 4`` the self-attention heads are 128 wide."""
-    if generating:
-        raise NotImplementedError(
-            "seq2seq_attention(generating=True) is not ported yet: beam "
-            "search comes with the seq2seq generation slice of the port")
     src = dsl.data(name="source_words", size=src_vocab, is_sequence=True)
     semb = dsl.embedding(input=src, size=embed_dim, name="src_emb")
     if seq_parallel:
@@ -71,6 +71,17 @@ def seq2seq_attention(*, src_vocab: int = 5000, trg_vocab: int = 5000,
                                  name="gru_decoder")
         return dsl.fc(input=gru, size=trg_vocab, act="softmax",
                       name="dec_out", bias_attr=False)
+
+    if generating:
+        gen = dsl.beam_search(
+            step,
+            [dsl.GeneratedInput(size=trg_vocab,
+                                embedding_name="_trg_emb.w0",
+                                embedding_size=embed_dim),
+             dsl.StaticInput(enc), dsl.StaticInput(enc_proj)],
+            bos_id=0, eos_id=1, beam_size=beam_size,
+            max_length=max_length, name="gen")
+        return gen, ["source_words"]
 
     trg = dsl.data(name="target_words", size=trg_vocab, is_sequence=True)
     trg_next = dsl.data(name="target_next", size=trg_vocab,

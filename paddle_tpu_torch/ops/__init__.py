@@ -7,7 +7,9 @@ _COUNTERS = ("launches", "step_launches")
 def _wrappers() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from paddle_tpu_torch.kernels.opt_update import adam, momentum
-    from paddle_tpu_torch.kernels.rnn_cells import gru_cell, gru_cell_infer
+    from paddle_tpu_torch.kernels.rnn_cells import (gru_cell, gru_cell_infer,
+                                                    lstm_cell,
+                                                    lstm_cell_infer)
     from paddle_tpu_torch.ops.attention import flash_bwd, flash_fwd
     from paddle_tpu_torch.ops.crf import crf_alpha_fwd, crf_bwd, crf_viterbi
     from paddle_tpu_torch.ops.gru import gru_bwd_step, gru_seq, \
@@ -17,8 +19,9 @@ def _wrappers() -> dict:
     return {"lstm_seq": lstm_seq, "lstm_seq_train": lstm_seq_train,
             "lstm_bwd_step": lstm_bwd_step, "gru_seq": gru_seq,
             "gru_seq_train": gru_seq_train, "gru_bwd_step": gru_bwd_step,
-            "gru_cell": gru_cell,
-            "gru_cell_infer": gru_cell_infer, "crf_alpha_fwd": crf_alpha_fwd,
+            "gru_cell": gru_cell, "gru_cell_infer": gru_cell_infer,
+            "lstm_cell": lstm_cell, "lstm_cell_infer": lstm_cell_infer,
+            "crf_alpha_fwd": crf_alpha_fwd,
             "crf_bwd": crf_bwd, "crf_viterbi": crf_viterbi,
             "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "momentum": momentum, "adam": adam}

@@ -26,12 +26,13 @@ tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
 wanted and otherwise ``FlashFunction``, whose backward is ``flash_bwd``.
 f32 on the card; the plain versions take any float type.
 
-Two edges of the kernels, both stated in the tests: a row whose every key
-is masked gets the uniform mean of v over the Tk real keys (the JAX CPU
-path gives the same while Tk <= 256, its block); and with ``causal`` the
-kernels skip the kv blocks wholly above a query block's diagonal, so for
-such a row that no key may see they average over the keys they visit.
-Rows with at least one visible key are exact either way.
+A query row that sees no key (an all-padding kv row, or with ``causal``
+and Tq > Tk the first Tq - Tk rows) gets JAX's result: JAX pads Tk to a
+multiple of ``min(256, Tk)`` with masked zero keys, so such a row's output
+is ``sum_{j<Tk} v_j / Tk_pad``, its dv share ``dO / Tk_pad`` and its dq 0.
+``blockwise_plain`` pads the same way; the kernels give such rows that
+rule of their own (``csrc/flash_attn.cu``) and keep the causal block skips
+for every row that sees a key.
 """
 
 from __future__ import annotations

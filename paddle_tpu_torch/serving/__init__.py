@@ -1,4 +1,5 @@
-"""Serving plane, score path: predictor, dynamic batcher, HTTP frontend."""
+"""Serving plane, score and generate paths: predictor, dynamic batcher,
+HTTP frontend."""
 
 from paddle_tpu_torch.serving.batcher import ServingEngine  # noqa: F401
 from paddle_tpu_torch.serving.errors import (BadRequest,  # noqa: F401

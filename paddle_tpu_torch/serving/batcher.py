@@ -1,10 +1,12 @@
 """Dynamic micro-batching engine: queue, coalesce, deadline, shed, drain.
 
-The lean score-path counterpart of ``paddle_tpu/serving/batcher.py``. One
-worker thread coalesces whatever is waiting, up to ``max_batch``, within a
+The lean counterpart of ``paddle_tpu/serving/batcher.py``. One worker
+thread coalesces whatever is waiting of the head request's kind
+(``score`` or ``generate``), up to ``max_batch``, within a
 ``batch_timeout`` window into the smallest admissible batch bucket, runs
-it, and fans the results back out. Behaviours, all typed
-(``serving/errors.py``):
+it (``predict_rows`` or ``generate_rows``), and fans the results back
+out; a generate answer is ``{"sequences": [{"tokens", "score"}, ...]}``,
+beams best first. Behaviours, all typed (``serving/errors.py``):
 
 - a bounded queue: past ``queue_depth`` a request is shed ``Overloaded``
   with a ``retry_after_ms`` drain estimate;
@@ -35,11 +37,12 @@ _CONVERSION_ERRORS = (BadRequest, ValueError, TypeError, KeyError,
 
 
 class _Request:
-    __slots__ = ("sample", "enqueue_t", "deadline", "event", "result",
-                 "error")
+    __slots__ = ("sample", "kind", "enqueue_t", "deadline", "event",
+                 "result", "error")
 
-    def __init__(self, sample, deadline: Optional[float]):
+    def __init__(self, sample, kind: str, deadline: Optional[float]):
         self.sample = sample
+        self.kind = kind
         self.enqueue_t = time.perf_counter()
         self.deadline = deadline  # absolute perf_counter time, or None
         self.event = threading.Event()
@@ -140,19 +143,25 @@ class ServingEngine:
         return max(self.batch_timeout_ms,
                    self._batch_ewma_ms * backlog_batches)
 
-    def submit(self, sample, *,
-               deadline_ms: Optional[float] = None) -> _Request:
-        """Admit one request; raises typed errors synchronously. Wait on
-        the returned request's ``.event``, then read ``.result`` or
-        ``.error``."""
+    def submit(self, sample, *, kind: str = "score",
+               deadline_ms: Optional[float] = None, beam_size=None,
+               max_length=None) -> _Request:
+        """Admit one request of ``kind`` (``score`` or ``generate``, whose
+        ``beam_size`` / ``max_length`` must be the warmed pair); raises
+        typed errors synchronously. Wait on the returned request's
+        ``.event``, then read ``.result`` or ``.error``."""
         if self.fatal is not None:
             raise ServingError(f"serving worker died: {self.fatal!r}")
+        if kind == "generate":
+            self.predictor.check_gen_opts(beam_size, max_length)
+        elif kind != "score":
+            raise BadRequest(f"unknown request kind {kind!r}")
         self.predictor.check_sample(sample)
         if deadline_ms is None:
             deadline_ms = self.default_deadline_ms
         deadline = (time.perf_counter() + float(deadline_ms) / 1e3
                     if deadline_ms else None)
-        req = _Request(tuple(sample), deadline)
+        req = _Request(tuple(sample), kind, deadline)
         with self._cond:
             if self.fatal is not None:
                 raise ServingError(f"serving worker died: {self.fatal!r}")
@@ -168,11 +177,13 @@ class ServingEngine:
             self._cond.notify_all()
         return req
 
-    def infer(self, sample, *, deadline_ms: Optional[float] = None,
-              wait_timeout: float = 120.0):
+    def infer(self, sample, *, kind: str = "score",
+              deadline_ms: Optional[float] = None,
+              wait_timeout: float = 120.0, **gen_opts):
         """Synchronous submit-and-wait; raises the request's typed error
         or returns its result."""
-        req = self.submit(sample, deadline_ms=deadline_ms)
+        req = self.submit(sample, kind=kind, deadline_ms=deadline_ms,
+                          **gen_opts)
         if not req.event.wait(wait_timeout):
             raise DeadlineExceeded(
                 f"no answer within wait_timeout={wait_timeout}s")
@@ -210,12 +221,14 @@ class ServingEngine:
             while True:
                 now = time.perf_counter()
                 self._expire_locked(now)
-                if (len(self._queue) >= self.max_batch or self._draining
+                batch = [r for r in self._queue
+                         if r.kind == head.kind][:self.max_batch]
+                if (len(batch) >= self.max_batch or self._draining
                         or now >= window_end):
                     break
                 self._cond.wait(window_end - now)
-            batch = self._queue[:self.max_batch]
-            del self._queue[:len(batch)]
+            taken = set(map(id, batch))
+            self._queue[:] = [r for r in self._queue if id(r) not in taken]
             # claimed before the lock drops: a drain poll must never see
             # an empty queue and no in-flight rows while a batch is pending
             self._inflight = len(batch)
@@ -249,11 +262,28 @@ class ServingEngine:
                         r.event.set()
                 raise
 
+    def _predict(self, kind: str, rows):
+        if kind == "generate":
+            return self.predictor.generate_rows(rows)
+        return self.predictor.predict_rows(rows)
+
+    @staticmethod
+    def _decode(kind: str, outs, lane: int):
+        if kind == "generate":
+            tokens, scores, lengths = outs
+            return {"sequences": [
+                {"tokens": tokens[lane, k, :int(lengths[lane, k])].tolist(),
+                 "score": float(scores[lane, k])}
+                for k in range(tokens.shape[1])]}
+        return {"outputs": {name: v[lane].tolist()
+                            for name, v in outs.items()}}
+
     def _run_batch(self, reqs: List[_Request]):
+        kind = reqs[0].kind
         rows = [r.sample for r in reqs]
         t0 = time.perf_counter()
         try:
-            outs, _info = self.predictor.predict_rows(rows)
+            outs, _info = self._predict(kind, rows)
         except _CONVERSION_ERRORS as batch_err:
             # probe per lane, answer the bad rows alone, and score the
             # rest with padding rows in the bad lanes
@@ -271,14 +301,13 @@ class ServingEngine:
                     clean[i] = self.predictor.padding_row()
                     reqs[i].error = (err if isinstance(err, BadRequest)
                                      else BadRequest(str(err)))
-            outs, _info = self.predictor.predict_rows(clean)
+            outs, _info = self._predict(kind, clean)
         wall_ms = 1e3 * (time.perf_counter() - t0)
         self._batch_ewma_ms += 0.25 * (wall_ms - self._batch_ewma_ms)
         now = time.perf_counter()
         for i, r in enumerate(reqs):
             if r.error is None:
-                r.result = {"outputs": {name: v[i].tolist()
-                                        for name, v in outs.items()}}
+                r.result = self._decode(kind, outs, i)
                 if r.expired(now):
                     r.error = DeadlineExceeded(
                         "computed, but past the deadline "

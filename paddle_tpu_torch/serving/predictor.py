@@ -1,5 +1,5 @@
-"""Bucketed predictor over a deploy model — the score path of
-``paddle_tpu/serving/predictor.py``.
+"""Bucketed predictor over a deploy model — the score and generate paths
+of ``paddle_tpu/serving/predictor.py``.
 
 The deploy artifact is the merged model (``trainer/merge_model.py``, a
 PTM1 file from either package), or any live (graph, params) pair. Batch
@@ -11,6 +11,13 @@ LSTM layers launch the hand-written recurrence kernel and a CRF decode
 its Viterbi kernel. Outputs come back as the layers give them: a decode's
 int32 ids [B, T, 1] over the padded batch and length bucket, as the JAX
 predictor returns them.
+
+A generating config (a ``beam_search`` group among the outputs) is served
+by ``generate_rows``: the encoder network over the bucketed batch, then
+``core/generation.py:SequenceGenerator`` (its step's GRU or LSTM cell
+launches its kernel on the card). Serving pins one (beam_size,
+max_length) pair, the config's unless the caller gives others; any other
+pair is a typed 400 that carries the menu (``allowed``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.compat.from_jax import params_from_numpy
+from paddle_tpu_torch.core.generation import (SequenceGenerator,
+                                              generation_params)
 from paddle_tpu_torch.core.network import Network
 from paddle_tpu_torch.data import types as T
 from paddle_tpu_torch.data.feeder import DataFeeder
@@ -45,7 +54,8 @@ def _synth_sample(itype, length: int):
 
 
 class ServingPredictor:
-    """Loads a model and scores bucketed batches."""
+    """Loads a model; scores bucketed batches and, for a generating
+    config, beam-searches them."""
 
     def __init__(self, graph, params: Dict[str, Any],
                  output_names: Sequence[str],
@@ -53,6 +63,7 @@ class ServingPredictor:
                  batch_buckets: Sequence[int],
                  length_buckets: Optional[Sequence[int]] = None,
                  model_hash: Optional[str] = None,
+                 gen_decode_chunk: Optional[int] = None,
                  device="cuda"):
         self.device = torch.device(device)
         self.graph = graph
@@ -84,8 +95,34 @@ class ServingPredictor:
             shared_length_bucket=True, device=self.device)
         self.output_names = [o.name if hasattr(o, "name") else o
                              for o in output_names]
-        self.network = Network(graph, outputs=self.output_names)
-        self.params = params_from_numpy(params, self.device, self.network)
+        # the generation group (if any) is served by the beam search, not
+        # the plain forward: the score outputs exclude it
+        self._gen_name = next(
+            (n for n, l in graph.layers.items()
+             if l.type == "beam_search_group"), None)
+        score_outputs = [n for n in self.output_names
+                         if n != self._gen_name]
+        # every parameter the served paths read must be in the table
+        needed = Network(graph, outputs=score_outputs + (
+            [self._gen_name] if self._gen_name else []))
+        self.params = params_from_numpy(params, self.device, needed)
+        self.network = (needed if self._gen_name is None
+                        else Network(graph, outputs=score_outputs)
+                        if score_outputs else None)
+        for name, shape in generation_params(graph).items():
+            if tuple(np.shape(params.get(name, ()))) != tuple(shape):
+                raise KeyError(f"generation parameter {name!r} missing or "
+                               f"not of shape {tuple(shape)}")
+        self.engine = None
+        if self._gen_name is not None:
+            self.engine = SequenceGenerator(graph, self._gen_name)
+            attrs = self.engine.cfg.attrs
+            self.gen_beam_size = int(attrs.get("beam_size", 1))
+            self.gen_max_length = int(attrs.get("max_length", 100))
+            # None = the config's pinned policy; the engine reads the rest
+            self.gen_decode_chunk = gen_decode_chunk
+            self.encoder = Network(
+                graph, outputs=self.engine.static_input_layers())
         self.warmed = False
 
     @classmethod
@@ -113,11 +150,18 @@ class ServingPredictor:
         t0 = time.perf_counter()
         runs = 0
         for b in self.batch_buckets:
-            for ln in (self.length_buckets or [1]):
+            lengths = self.length_buckets or [1]
+            for ln in lengths:
                 row = tuple(_synth_sample(self.feeding[n], ln)
                             for n in self.names)
-                self.predict_rows([row] * b)
-                runs += 1
+                if self.network is not None:
+                    self.predict_rows([row] * b)
+                    runs += 1
+                if self.engine is not None and ln == lengths[0]:
+                    # the pinned (beam_size, max_length), once per batch
+                    # bucket: the search's shapes follow the batch
+                    self.generate_rows([row] * b)
+                    runs += 1
         self.warmed = True
         if log:
             log(f"serving warmup: {runs} bucket variants ready in "
@@ -186,6 +230,9 @@ class ServingPredictor:
         output layer name -> np array over the PADDED batch (the caller
         slices real lanes); ``info`` carries ``{bucket, padded_rows,
         pad_ms, compute_ms}``."""
+        if self.network is None:
+            raise BadRequest("this model has no scoring outputs "
+                             "(generation-only config)")
         t0 = time.perf_counter()
         feed = self.feeder(list(rows))
         key, padded = self._bucket_key(feed)
@@ -198,3 +245,66 @@ class ServingPredictor:
         return out, {"bucket": key, "padded_rows": padded,
                      "pad_ms": (t1 - t0) * 1e3,
                      "compute_ms": (t2 - t1) * 1e3}
+
+    # --------------------------------------------------------- generation
+    def gen_allowed_menu(self) -> dict:
+        """The warmed generation options, carried in closed-menu 400s so
+        clients can correct themselves."""
+        return {"beam_size": [self.gen_beam_size],
+                "max_length": [self.gen_max_length]}
+
+    def check_gen_opts(self, beam_size=None, max_length=None):
+        """Serving pins one (beam_size, max_length) pair; any other is
+        inadmissible: the 400 names the rejected value and carries the
+        menu (``allowed``)."""
+        if self.engine is None:
+            raise BadRequest("this model has no generation group")
+        if beam_size is not None and int(beam_size) != self.gen_beam_size:
+            raise BadRequest(
+                f"beam_size={beam_size} is not the warmed value "
+                f"{self.gen_beam_size} (closed shape menu)",
+                allowed=self.gen_allowed_menu())
+        if (max_length is not None
+                and int(max_length) != self.gen_max_length):
+            raise BadRequest(
+                f"max_length={max_length} is not the warmed value "
+                f"{self.gen_max_length} (closed shape menu)",
+                allowed=self.gen_allowed_menu())
+
+    def encode_rows(self, rows: List[tuple]):
+        """The encoder alone over a bucketed batch: outer layer name ->
+        Argument over the padded batch."""
+        if self.engine is None:
+            raise BadRequest("this model has no generation group")
+        feed = self.feeder(list(rows))
+        with torch.inference_mode():
+            return self.encoder.apply(self.params, feed, train=False)
+
+    def generate_rows(self, rows: List[tuple]):
+        """Beam-search a bucketed batch of encoder inputs. Returns
+        ``((tokens, scores, lengths), info)``, each np [B, K, ...] over the
+        padded batch; config-pinned hooks apply. ``info`` carries
+        ``{bucket, padded_rows, pad_ms, compute_ms, decode_steps,
+        steps_saved}``."""
+        if self.engine is None:
+            raise BadRequest("this model has no generation group")
+        t0 = time.perf_counter()
+        feed = self.feeder(list(rows))
+        key, padded = self._bucket_key(feed)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            outer = self.encoder.apply(self.params, feed, train=False)
+            out = self.engine.generate(
+                self.params, outer, beam_size=self.gen_beam_size,
+                max_length=self.gen_max_length,
+                decode_chunk=self.gen_decode_chunk)
+            tokens, scores, lengths = (t.cpu().numpy() for t in out)
+        t2 = time.perf_counter()
+        info = self.engine.last_info
+        return (tokens, scores, lengths), {
+            "bucket": key + f"_k{self.gen_beam_size}",
+            "padded_rows": padded,
+            "pad_ms": (t1 - t0) * 1e3,
+            "compute_ms": (t2 - t1) * 1e3,
+            "decode_steps": info.get("decode_steps"),
+            "steps_saved": info.get("steps_saved")}

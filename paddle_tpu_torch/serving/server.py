@@ -1,12 +1,17 @@
 """Threaded HTTP/JSON frontend over the serving engine. Stdlib only.
 
-The score path of ``paddle_tpu/serving/server.py``, with the same wire:
+The score and generate paths of ``paddle_tpu/serving/server.py``, with the
+same wire:
 
 - ``POST /v1/score`` — ``{"sample": [...slot values...], "deadline_ms":
   50}`` answers ``{"outputs": {layer: row_values}}``; ``{"rows": [[...],
   ...]}`` makes each row one engine request (the batcher coalesces them)
   and answers ``{"results": [...]}``, 207 when any row failed (its slot
   carries the typed error body).
+- ``POST /v1/generate`` — the same bodies (plus optional ``beam_size`` /
+  ``max_length``, which must be the warmed pair) over a generating config;
+  each answer is ``{"sequences": [{"tokens": [...], "score": s}, ...]}``,
+  the beams best first.
 - ``GET /healthz`` — readiness: 200 only when warmed, not draining and the
   worker alive; the body is ``ServingEngine.health()``.
 - ``POST /admin/drain`` — admission closes, queued and in-flight work
@@ -94,21 +99,28 @@ class _Handler(BaseHTTPRequestHandler):
             engine.begin_drain()
             self._send(200, engine.health())
             return
-        if path != "/v1/score":
+        kind = {"/v1/score": "score", "/v1/generate": "generate"}.get(path)
+        if kind is None:
             self._not_found()
             return
         try:
             body = self._body()
             deadline_ms = body.get("deadline_ms")
+            gen_opts = {}
+            if kind == "generate":
+                gen_opts = {"beam_size": body.get("beam_size"),
+                            "max_length": body.get("max_length")}
             if "rows" in body:
                 if not isinstance(body["rows"], list) or not body["rows"]:
                     raise BadRequest("\"rows\" must be a non-empty list")
-                self._score_rows(engine, body["rows"], deadline_ms)
+                self._rows(engine, body["rows"], kind, deadline_ms,
+                           gen_opts)
                 return
             if "sample" not in body:
                 raise BadRequest("need \"sample\" (one request) or "
                                  "\"rows\" (a list)")
-            result = engine.infer(body["sample"], deadline_ms=deadline_ms)
+            result = engine.infer(body["sample"], kind=kind,
+                                  deadline_ms=deadline_ms, **gen_opts)
             self._send(200, result)
         except ServingError as e:
             self._send_error(e)
@@ -116,13 +128,15 @@ class _Handler(BaseHTTPRequestHandler):
             logger.error("unhandled serving error: %r", e)
             self._send_error(ServingError(repr(e)))
 
-    def _score_rows(self, engine, rows, deadline_ms):
+    def _rows(self, engine, rows, kind, deadline_ms, gen_opts):
         """One engine request per row; a row's admission failure is
         carried in its own slot and does not abort its siblings."""
         reqs = []
         for row in rows:
             try:
-                reqs.append(engine.submit(row, deadline_ms=deadline_ms))
+                reqs.append(engine.submit(row, kind=kind,
+                                          deadline_ms=deadline_ms,
+                                          **gen_opts))
             except ServingError as e:
                 reqs.append(e)
         results = []

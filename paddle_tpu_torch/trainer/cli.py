@@ -18,6 +18,17 @@ The config is a Python file that builds its graph with
 ``Momentum(learning_rate=0.01, momentum=0.9)``, as in the JAX package)
 and ``outputs`` (the layers to merge and serve).
 
+A generating config (``seq2seq_attention(generating=True)``, or any graph
+with a ``beam_search`` group) names the group in ``outputs`` and needs no
+``cost``: ``--job merge`` writes its graph and parameters (the step
+network's and the generated word's embedding, read from a training
+checkpoint under the names the training graph gave them), and ``--job
+serve`` answers ``POST /v1/generate`` with the config's (beam_size,
+max_length); ``--decode_chunk`` sets the early-exit chunk (0 = the full
+length-``max_length`` loop). Generation parameters missing from the table
+(a fresh initialisation) are filled with small random values and a
+warning, as the JAX package does.
+
 ``--job train`` prints ``Pass N: cost=...`` with the pass's evaluators
 (``classification_error`` for a classification cost, and the config's
 own, such as a tagger's ``error=... chunk_f1=...``) at each pass end,
@@ -54,7 +65,8 @@ def parse_args(argv=None):
                    choices=["train", "test", "merge", "serve"],
                    help="train: the training loop; test: the test reader's "
                         "cost and evaluators; merge: write a PTM1 model; "
-                        "serve: answer /v1/score over HTTP")
+                        "serve: answer /v1/score (and /v1/generate for a "
+                        "generating config) over HTTP")
     p.add_argument("--init_model_path", default=None,
                    help="merged model (.ptmodel) or checkpoint (.npz) to "
                         "start from; serve takes a .ptmodel")
@@ -84,6 +96,12 @@ def parse_args(argv=None):
                    help="closed menu of padded sequence lengths")
     p.add_argument("--serving_deadline_ms", type=float, default=0,
                    help="default per-request deadline (0 = none)")
+    p.add_argument("--decode_chunk", type=int, default=None,
+                   help="decoder steps per chunk of the early-exit beam "
+                        "search (core/generation.py): it stops at the first "
+                        "chunk boundary where every beam finished. 0 = the "
+                        "full length-max_length loop; unset = the config's "
+                        "pinned policy, else chunks of 8")
     return p.parse_args(argv)
 
 
@@ -120,8 +138,9 @@ def _serving_plan(ns, args):
         batch_buckets.append(min(batch_buckets[-1] * 2, max_batch))
     length_buckets = [int(x) for x in filter(
         None, str(args.serving_length_buckets).split(","))]
-    pred_kwargs = dict(batch_buckets=batch_buckets,
-                       length_buckets=length_buckets, device=args.device)
+    pred_kwargs = dict(
+        batch_buckets=batch_buckets, length_buckets=length_buckets,
+        gen_decode_chunk=args.decode_chunk, device=args.device)
     mp = args.init_model_path
     if mp:
         if not mp.endswith(".ptmodel"):
@@ -139,6 +158,7 @@ def _serving_plan(ns, args):
         gen = torch.Generator().manual_seed(args.seed)
         params = Network(graph, outputs=names).init_params(gen,
                                                            device="cpu")
+    _ensure_generation_params(graph, params)
     eng_kwargs = dict(max_batch=max_batch,
                       batch_timeout_ms=args.batch_timeout_ms,
                       queue_depth=args.queue_depth,
@@ -146,14 +166,46 @@ def _serving_plan(ns, args):
     return graph, params, names, feeding, pred_kwargs, eng_kwargs
 
 
+def _ensure_generation_params(graph, params):
+    """Fill the parameters a beam search reads that ``params`` lacks (its
+    hoisted step parameters, its generated word's embedding) with small
+    random values, with a warning: a trainer initialises only what its
+    graph reaches, and a generating config served or merged from a fresh
+    initialisation would otherwise miss them (JAX
+    ``_ensure_generation_params``). A trained model carries them."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.generation import generation_params
+    from paddle_tpu_torch.core.registry import get_layer_impl
+    rng = np.random.RandomState(0)
+    needed = dict(generation_params(graph))
+    for ldef in graph.layers.values():
+        if ldef.type == "beam_search_group":
+            for spec in get_layer_impl(ldef.type).params(ldef, []).values():
+                needed.setdefault(spec.absolute_name, spec.shape)
+    missing = [n for n in needed if n not in params]
+    for name in missing:
+        params[name] = torch.from_numpy(
+            rng.randn(*needed[name]).astype(np.float32) * 0.01)
+    if missing:
+        logging.getLogger("paddle_tpu_torch.cli").warning(
+            "generation parameters %s were not in the loaded or initialised "
+            "table; using fresh small random values: load a trained model "
+            "for real generation", missing)
+
+
 def _build_trainer(ns, args):
     from paddle_tpu_torch.optim import Momentum
     from paddle_tpu_torch.trainer.trainer import SGD, Topology
-    if "cost" not in ns:
+    # a generating config may name its beam search in `outputs` alone
+    src = ns.get("cost")
+    if src is None and args.job == "merge":
+        src = ns.get("outputs")
+    if src is None:
         raise SystemExit(f"--job={args.job} needs the config to define "
-                         "`cost`")
-    topo = (ns["cost"] if isinstance(ns["cost"], Topology)
-            else Topology(ns["cost"]))
+                         "`cost`" + (" or `outputs`" if args.job == "merge"
+                                     else ""))
+    topo = src if isinstance(src, Topology) else Topology(src)
     optimizer = ns.get("optimizer") or Momentum(learning_rate=0.01,
                                                 momentum=0.9)
     trainer = SGD(cost=topo, update_equation=optimizer, seed=args.seed,
@@ -165,17 +217,23 @@ def _build_trainer(ns, args):
 
 def _load_into(trainer, path):
     """A merged model's parameters, or a checkpoint's parameters and
-    optimizer state, into ``trainer``."""
+    optimizer state, into ``trainer``. A generating graph also takes the
+    file's embeddings of its generated words, which no layer of it owns."""
+    from paddle_tpu_torch.core.generation import generation_params
     if path.endswith(".ptmodel"):
         from paddle_tpu_torch.trainer.merge_model import load_merged_ex
         _, params, _, extras = load_merged_ex(path)
         if extras:
             raise SystemExit(f"{path}: quantized merged models are not "
                              "read by paddle_tpu_torch yet")
-        trainer.load_state(params)
+        state = (params,)
     else:
         from paddle_tpu_torch.trainer.checkpoint import load_params
-        trainer.load_state(*load_params(path))
+        state = load_params(path)
+    for name in generation_params(trainer.topology.graph):
+        if name in state[0] and name not in trainer.params:
+            trainer.params[name] = torch.as_tensor(state[0][name])
+    trainer.load_state(*state)
 
 
 def _restore(trainer, args):
@@ -280,6 +338,7 @@ def cmd_merge(ns, args) -> int:
     trainer = _build_trainer(ns, args)
     _restore(trainer, args)
     out_path = args.model_path or "model.ptmodel"
+    _ensure_generation_params(trainer.topology.graph, trainer.params)
     merge_model(out_path, trainer.topology.graph, trainer.params,
                 outputs=_output_names(ns))
     print(f"merged model written to {out_path}", flush=True)

@@ -74,12 +74,11 @@ def _port_flash(q, k, v, mask, causal, do):
 
 
 # (B, N, Tq, Tk, D, causal): self-attention over several 16-blocks;
-# cross with Tq < Tk and ragged tails; cross with Tq > Tk, non-causal only
-# (causal hides every key from its first Tq - Tk queries, and the op-level
-# contract is rows with at least one visible key)
+# cross with Tq < Tk and ragged tails; cross with Tq > Tk, where causal
+# hides every key from the first Tq - Tk queries
 CASES = [(2, 2, 40, 40, 8, False), (2, 2, 40, 40, 8, True),
          (3, 2, 17, 33, 16, False), (3, 2, 17, 33, 16, True),
-         (2, 1, 23, 9, 8, False)]
+         (2, 1, 23, 9, 8, False), (2, 1, 23, 9, 8, True)]
 
 
 @pytest.mark.parametrize("B,N,Tq,Tk,D,causal", CASES)
@@ -133,6 +132,57 @@ def test_all_padding_row_is_finite_with_zero_dq():
     np.testing.assert_allclose(t_out, j_out, **FWD_TOL)
     for g, w in zip((dq, dk, dv), j_grads):
         np.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+def _no_key_rows(mask, Tq, Tk, causal):
+    """[B, Tq] bool: the query rows that see no key."""
+    vis = np.broadcast_to(mask[:, None, :] > 0, (mask.shape[0], Tq, Tk))
+    if causal:
+        vis = vis & (np.arange(Tk)[None, :] <= np.arange(Tq)[:, None]
+                     + (Tk - Tq))
+    return ~vis.any(axis=-1)
+
+
+# rows that see no key, at JAX's default blocks (block_k = 256): (a) an
+# all-padding kv row with Tk > 256 and Tk % 256 != 0, (b) causal with
+# Tq > Tk
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal,all_padding", [
+    (2, 2, 16, 333, 8, False, True), (2, 1, 333, 200, 8, True, False)])
+def test_rows_without_a_key_match_jax(B, N, Tq, Tk, D, causal, all_padding):
+    """``blockwise_plain`` and ``flash_bwd_plain`` against JAX's
+    ``flash_attention`` (the Pallas kernel, interpreted, at its default
+    blocks) and ``jax.grad`` through it: JAX pads Tk to a multiple of
+    min(256, Tk) with masked zero keys, so a row that sees no key gets
+    sum_j v_j / Tk_pad, a dv share of dO / Tk_pad and a zero dq."""
+    q, k, v, mask, do = _inputs(B, N, Tq, Tk, D, seed=Tq + Tk,
+                                all_padding=all_padding)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(flash_attention(q_, k_, v_, jnp.asarray(mask),
+                                       causal=causal) * do)
+
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    with common.force_mode("interpret"):
+        j_out = np.asarray(flash_attention(*args, jnp.asarray(mask),
+                                           causal=causal))
+        j_grads = [np.asarray(g) for g in jax.grad(loss, (0, 1, 2))(*args)]
+    t_out, t_grads = _port_flash(q, k, v, mask, causal, do)
+    np.testing.assert_allclose(t_out, j_out, **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=name)
+    rows = _no_key_rows(mask, Tq, Tk, causal)
+    assert rows.any()
+    bk = min(256, Tk)
+    tk_pad = -(-Tk // bk) * bk
+    b, i = np.nonzero(rows)
+    np.testing.assert_allclose(
+        t_out[b, :, i], v[b].sum(axis=2) / tk_pad, **FWD_TOL)
+    assert np.abs(t_grads[0][b, :, i]).max() == 0.0
+    _, lse = tattn.blockwise_plain(*(torch.from_numpy(a) for a in
+                                     (q, k, v, mask)), causal)
+    lse = lse.reshape(2, B, N, Tq).numpy()
+    assert (lse[0][b, :, i] == -1e9).all()
+    np.testing.assert_allclose(lse[1][b, :, i], np.log(tk_pad), rtol=1e-6)
 
 
 def test_row_statistics_are_the_log_sum_exp():

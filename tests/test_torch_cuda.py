@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
-forms, the LSTM backward step, the GRU recurrence in its primal and
-residual forms, the GRU backward step, the GRU cell, the Momentum and
-Adam updates, the CRF forward, backward and Viterbi kernels, the
-flash-attention forward and backward kernels) against
+forms, the LSTM backward step, the LSTM cell, the GRU recurrence in its
+primal and residual forms, the GRU backward step, the GRU cell, the
+Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
+the flash-attention forward and backward kernels) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -255,6 +255,104 @@ def test_gru_cell_kernel_matches_plain_on_card(cuda_device, B, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(32, 512), (50, 512), (1, 512), (7, 40)])
+def test_lstm_cell_kernel_matches_plain_on_card(cuda_device, B, H):
+    """The LSTM cell kernel (training and inference entries) against
+    ``lstm_cell_plain`` with nonzero peepholes, h and c within rtol 1e-4 /
+    atol 1e-5; the recompute backward of ``LstmCellFunction`` against
+    autograd of the plain version; one launch counted per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + H)
+    gates = torch.randn(B, 4 * H, generator=g, device=cuda_device)
+    c_prev = torch.randn(B, H, generator=g, device=cuda_device)
+    checks = [0.5 * torch.randn(H, generator=g, device=cuda_device)
+              for _ in range(3)]
+    ins = [gates, c_prev, *checks]
+    before = (rnn_cells.lstm_cell.launches,
+              rnn_cells.lstm_cell_infer.launches)
+    with torch.no_grad():
+        h_i, c_i = rnn_cells.lstm_cell_infer(*ins)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    h, c = rnn_cells.lstm_cell(*leaves)
+    torch.cuda.synchronize()
+    assert (rnn_cells.lstm_cell.launches,
+            rnn_cells.lstm_cell_infer.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    plain = [t.detach().clone().requires_grad_(True) for t in ins]
+    w_h, w_c = rnn_cells.lstm_cell_plain(*plain)
+    for got, want in ((h_i, w_h), (c_i, w_c), (h, w_h), (c, w_c)):
+        torch.testing.assert_close(got, want.detach(), rtol=1e-4,
+                                   atol=1e-5)
+    dh, dc = torch.randn_like(h), torch.randn_like(c)
+    for got, want in zip(torch.autograd.grad((h, c), leaves, (dh, dc)),
+                         torch.autograd.grad((w_h, w_c), plain, (dh, dc))):
+        assert (got - want).abs().max().item() <= \
+            1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+def test_lstm_cell_kernel_rejects_bad_inputs(cuda_device):
+    """A CPU tensor beside CUDA ones, a wrong dtype and a peephole of
+    another width raise."""
+    gates = torch.randn(3, 16, device=cuda_device)
+    c_prev = torch.randn(3, 4, device=cuda_device)
+    p = torch.zeros(4, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        rnn_cells.lstm_cell_infer(gates, c_prev.cpu(), p, p, p)
+    with pytest.raises(ValueError, match="float32"):
+        rnn_cells.lstm_cell_infer(gates.double(), c_prev, p, p, p)
+    with pytest.raises(ValueError, match="shape"):
+        rnn_cells.lstm_cell_infer(gates, c_prev, p[:3], p, p)
+
+
+@pytest.mark.cuda
+def test_lstm_step_beam_search_runs_the_cell_kernel_on_card(cuda_device):
+    """An LSTM-step decoder's beam search on the card launches
+    ``lstm_cell_infer`` and answers the CPU plain path's beams (tokens
+    equal, scores within 1e-4 relative)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.generation import SequenceGenerator
+    from paddle_tpu_torch.core.network import Network
+    V, E, H = 50, 16, 32
+    dsl.reset()
+    src = dsl.data("src", size=H)
+    boot = dsl.fc(src, size=H, act="tanh", name="boot")
+
+    def step(prev_emb):
+        h = dsl.memory(name="h", size=H, boot_layer=boot)
+        c = dsl.memory(name="cst", size=H)
+        gates = dsl.fc([prev_emb, h], size=4 * H, act="linear",
+                       name="gates")
+        out = dsl.lstm_step_layer(gates, c, name="h")
+        dsl.get_output_layer(out, arg_name="state", size=H, name="cst")
+        return dsl.fc(out, size=V, act="softmax", name="prob")
+
+    dsl.beam_search(step, [dsl.GeneratedInput(
+        size=V, embedding_name="emb", embedding_size=E)], bos_id=0,
+        eos_id=1, beam_size=4, max_length=12, name="gen")
+    graph = dsl.current_graph()
+    rng = np.random.default_rng(0)
+    specs = Network(graph, outputs=["gen"]).param_specs
+    params = {k: (rng.normal(size=s.shape) * 0.5).astype(np.float32)
+              for k, s in specs.items()}
+    params["emb"] = rng.normal(size=(V, E)).astype(np.float32)
+    srcv = rng.normal(size=(5, H)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        outer = Network(graph, outputs=["boot"]).apply(
+            p, {"src": Argument(torch.from_numpy(srcv).to(dev))})
+        before = rnn_cells.lstm_cell_infer.launches
+        out[str(dev)] = [t.cpu() for t in SequenceGenerator(
+            graph, "gen").generate(p, outer)]
+        launched = rnn_cells.lstm_cell_infer.launches - before
+        assert (launched > 0) == (str(dev) != "cpu")
+    got, want = out[str(cuda_device)], out["cpu"]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_gru_kernels_reject_bad_weights(cuda_device):
     """A transposed weight (columns not contiguous) or a weight of another
     shape raises instead of reading the wrong numbers."""
@@ -401,6 +499,41 @@ def test_flash_kernels_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
     _assert_grads_close(grads, torch.autograd.grad((ref * do).sum(), leaves))
     if all_padding:
         assert grads[0][-1].abs().max().item() == 0.0
+    again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    for g1, g2 in zip(grads, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal,all_padding", [
+    (2, 4, 64, 333, 64, False, True),   # (a) all-padding kv row, Tk > 256
+    (2, 4, 333, 200, 64, True, False)])  # (b) causal, Tq > Tk
+def test_flash_kernels_match_plain_on_rows_without_a_key(
+        cuda_device, B, N, Tq, Tk, D, causal, all_padding):
+    """Query rows that see no key get JAX's result, which
+    ``blockwise_plain`` and ``flash_bwd_plain`` follow: sum_j v_j / Tk_pad
+    (Tk padded to a multiple of min(256, Tk)), the row statistics
+    (-1e9, log Tk_pad), a zero dq and a dv share of dO / Tk_pad; o, the
+    statistics and every gradient within the tolerances above; two
+    backward runs bit-equal."""
+    q, k, v, mask, do = _attn_inputs(B, N, Tq, Tk, D, Tq + Tk, cuda_device,
+                                     all_padding)
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal))
+    vis = (mask[:, None, :] > 0).expand(B, Tq, Tk)
+    if causal:
+        qi = torch.arange(Tq, device=cuda_device)[:, None] + (Tk - Tq)
+        vis = vis & (torch.arange(Tk, device=cuda_device)[None, :] <= qi)
+    b, i = torch.nonzero(~vis.any(dim=-1), as_tuple=True)
+    assert b.numel() > 0
+    assert grads[0][b, :, i].abs().max().item() == 0.0
+    assert (lse.reshape(2, B, N, Tq)[0][b, :, i] == -1e9).all()
     again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
     for g1, g2 in zip(grads, again):
         assert torch.equal(g1, g2)

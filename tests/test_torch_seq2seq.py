@@ -25,7 +25,11 @@ decoder's ``gru_step`` inside the group's ``lax.scan``) and, with
 - the CLI: ``--job train`` then ``--job test`` on ``--device cpu``;
 - the model with ``seq_parallel="ring"`` (the encoder self-attention
   block, 2 heads of 8; JAX's flash kernel interpreted too): graph and
-  parameter names, the loss and every gradient, and the CLI.
+  parameter names, the loss and every gradient, and the CLI;
+- generation: the generating graph and its parameter names (the training
+  graph's), beams equal to JAX's ``SequenceGenerator`` (chunked and full
+  scan), and ``--job merge`` of a generating config from a training save
+  dir, read back by both packages and served (``kind="generate"``).
 
 Tolerances: forward rtol/atol 1e-5; loss rtol 1e-5; gradients rtol 1e-4 /
 atol 1e-5 (f32 sums in other orders, through both recurrences);
@@ -530,9 +534,15 @@ def test_attention_cli_train_then_test_on_cpu(tmp_path, capsys):
 
 
 def test_unported_paths_raise_not_implemented():
-    tdsl.reset()
-    with pytest.raises(NotImplementedError, match="generation"):
-        t_seq2seq(**MODEL, generating=True)
+    # generation is ported: generating=True builds JAX's generating graph
+    layers = []
+    for dsl, build in ((jdsl, j_seq2seq), (tdsl, t_seq2seq)):
+        dsl.reset()
+        gen, names = build(**MODEL, generating=True)
+        assert (gen.name, names) == ("gen", ["source_words"])
+        layers.append([(n, l.type, l.size, l.input_names())
+                       for n, l in dsl.current_graph().layers.items()])
+    assert layers[0] == layers[1]
     # seq_parallel is ported: without a sequence mesh both kinds build the
     # same dense graph
     graphs = []
@@ -547,7 +557,186 @@ def test_unported_paths_raise_not_implemented():
     tdsl.reset()
     with pytest.raises(NotImplementedError, match="SubsequenceInput"):
         tdsl.SubsequenceInput(None)
-    with pytest.raises(NotImplementedError, match="beam_search"):
-        tdsl.beam_search(None, [])
+    # beam_search is ported: both DSLs refuse a group with no
+    # GeneratedInput the same way
+    for dsl in (jdsl, tdsl):
+        dsl.reset()
+        x = dsl.data(name="x", size=4)
+        with pytest.raises(ValueError, match="needs a GeneratedInput"):
+            dsl.beam_search(lambda s: dsl.fc(input=s, size=3, name="o"),
+                            [dsl.StaticInput(x)])
     with pytest.raises(RuntimeError, match="inside a recurrent_group"):
         tdsl.memory(name="h", size=4)
+
+
+# --------------------------------------------------------- generation
+GEN = dict(MODEL, beam_size=3, max_length=8)
+
+
+def _gen_graphs():
+    jdsl.reset()
+    j_seq2seq(**GEN, generating=True)
+    jg = jdsl.current_graph()
+    tdsl.reset()
+    t_seq2seq(**GEN, generating=True)
+    return jg, tdsl.current_graph()
+
+
+def test_generating_graph_and_parameter_names_match_jax(model):
+    """The generating graph through both DSLs: the same layers, the same
+    beam group (inputs, memories, GeneratedInput spec, beam size, max
+    length, decode policy, its step network), the same parameter names
+    and shapes; every one of them, and the generated word's embedding, a
+    parameter of the training graph, so JAX's training parameters map
+    onto the port's generating network by name."""
+    jg, tg = _gen_graphs()
+    assert list(tg.layers) == list(jg.layers)
+    for name, jl in jg.layers.items():
+        tl = tg.layers[name]
+        assert (tl.type, tl.size, tl.act, tl.input_names()) == (
+            jl.type, jl.size, jl.act, jl.input_names()), name
+    ja, ta = jg.layers["gen"].attrs, tg.layers["gen"].attrs
+    for key in ("ins", "memories", "outputs", "gen", "beam_size",
+                "max_length", "decode_chunk", "full_scan",
+                "candidate_adjust", "drop_callback", "norm_or_drop",
+                "stop_beam_search"):
+        assert ta[key] == ja[key], key
+    assert list(ta["sub_model"].layers) == list(ja["sub_model"].layers)
+    jspecs = JNetwork(jg, outputs=["gen"]).param_specs
+    tnet = TNetwork(tg, outputs=["gen"])
+    assert sorted(tnet.param_specs) == sorted(jspecs)
+    for k, spec in jspecs.items():
+        assert tuple(tnet.param_specs[k].shape) == tuple(spec.shape), k
+    _, _, train_params = model
+    assert set(tnet.param_specs) | {"_trg_emb.w0"} == set(train_params)
+    got = params_from_numpy(train_params, device="cpu", network=tnet)
+    for k in tnet.param_specs:
+        np.testing.assert_array_equal(got[k].numpy(), train_params[k])
+
+
+def _sources(seed, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, SV, size=int(rng.integers(1, T + 1))).tolist()
+            for _ in range(n)]
+
+
+def _beams(pkg, graph, params, samples, **kw):
+    """(tokens, scores, lengths) as numpy from ``pkg``'s encoder and
+    SequenceGenerator."""
+    if pkg == "jax":
+        from paddle_tpu.core.generation import SequenceGenerator
+        p = {k: jnp.asarray(v) for k, v in params.items()}
+        gen = SequenceGenerator(graph, "gen")
+        feed = JFeeder({"source_words": jtypes.integer_value_sequence(SV)},
+                       pad_multiple=T)([(s,) for s in samples])
+        outer = JNetwork(graph, outputs=gen.static_input_layers()).apply(
+            p, feed)
+        return [np.asarray(x) for x in gen.generate(p, outer, **kw)]
+    from paddle_tpu_torch.core.generation import SequenceGenerator
+    p = {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+    gen = SequenceGenerator(graph, "gen")
+    feed = TFeeder({"source_words": ttypes.integer_value_sequence(SV)},
+                   pad_multiple=T, device="cpu")([(s,) for s in samples])
+    outer = TNetwork(graph, outputs=gen.static_input_layers()).apply(
+        p, feed)
+    return [x.numpy() for x in gen.generate(p, outer, **kw)]
+
+
+def _assert_beams_equal(got, want):
+    np.testing.assert_array_equal(got[0], want[0], err_msg="tokens")
+    np.testing.assert_array_equal(got[2], want[2], err_msg="lengths")
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5,
+                               err_msg="scores")
+
+
+def test_generation_matches_jax(model):
+    """``seq2seq_attention(generating=True)`` at the small width, with the
+    training graph's parameters (random) and ragged sources: tokens and
+    lengths equal to JAX's ``SequenceGenerator`` (its GRU cell kernel
+    interpreted), scores within 1e-5, chunked (the default chunk of 8,
+    and 3) and full scan."""
+    jg, tg = _gen_graphs()
+    params = model[2]
+    samples = _sources(3)
+    want = _beams("jax", jg, params, samples, full_scan=True)
+    full = _beams("torch", tg, params, samples, full_scan=True)
+    _assert_beams_equal(full, want)
+    for chunk in (None, 3):
+        got = _beams("torch", tg, params, samples, decode_chunk=chunk)
+        _assert_beams_equal(got, _beams("jax", jg, params, samples,
+                                        decode_chunk=chunk))
+        for a, b in zip(got, full):
+            assert np.array_equal(a, b)
+
+
+_GEN_CONF = textwrap.dedent(f"""
+    from paddle_tpu_torch.data.types import integer_value_sequence
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    gen, _ = seq2seq_attention(src_vocab={SV}, trg_vocab={TV},
+                               embed_dim={E}, hidden={H}, beam_size=3,
+                               max_length=8, generating=True)
+    outputs = [gen]
+    feeding = {{"source_words": integer_value_sequence({SV})}}
+""")
+
+
+def test_cli_merge_and_serve_generating_config_on_cpu(tmp_path, capsys):
+    """--job train of the training config, --job merge of the generating
+    config from the same save dir (its embedding and step parameters read
+    from the training checkpoint by name), the merged file read back by
+    both packages, and --job serve's engine answering generate requests
+    with the beams of the port's and JAX's SequenceGenerator on the
+    checkpoint's parameters; an off-menu beam size is a typed 400."""
+    from paddle_tpu.trainer.merge_model import load_merged_ex as j_load
+    from paddle_tpu_torch.serving import BadRequest
+    from paddle_tpu_torch.trainer.merge_model import load_merged_ex
+    conf = tmp_path / "conf.py"
+    conf.write_text(_CONF)
+    gen_conf = tmp_path / "gen_conf.py"
+    gen_conf.write_text(_GEN_CONF)
+    save_dir, model_path = tmp_path / "ckpt", tmp_path / "gen.ptmodel"
+    assert cli.main(["--config", str(conf), "--job", "train", "--device",
+                     "cpu", "--num_passes", "1", "--save_dir",
+                     str(save_dir)]) == 0
+    assert cli.main(["--config", str(gen_conf), "--job", "merge",
+                     "--device", "cpu", "--save_dir", str(save_dir),
+                     "--model_path", str(model_path)]) == 0
+    capsys.readouterr()
+    from paddle_tpu_torch.trainer.checkpoint import latest_checkpoint
+    trained, _ = load_params(latest_checkpoint(str(save_dir)))
+    graph, params, outputs, extras = load_merged_ex(str(model_path))
+    assert outputs == ["gen"] and not extras
+    assert graph.layers["gen"].type == "beam_search_group"
+    assert set(params) == set(trained)
+    for k, v in params.items():
+        np.testing.assert_array_equal(v, np.asarray(trained[k]), err_msg=k)
+    jgraph, jparams, joutputs, _ = j_load(str(model_path))
+    assert joutputs == ["gen"] and sorted(jparams) == sorted(params)
+    assert list(jgraph.layers) == list(graph.layers)
+
+    args = cli.parse_args(["--config", str(gen_conf), "--job", "serve",
+                           "--device", "cpu", "--init_model_path",
+                           str(model_path), "--max_batch", "4",
+                           "--serving_length_buckets", str(T)])
+    eng = cli.build_serving_engine(cli.load_config(str(gen_conf)),
+                                   args).start()
+    try:
+        samples = _sources(8)
+        got = [eng.infer((s,), kind="generate") for s in samples[:2]]
+        reqs = [eng.submit((s,), kind="generate") for s in samples[2:]]
+        for r in reqs:
+            assert r.event.wait(60) and r.error is None
+            got.append(r.result)
+        with pytest.raises(BadRequest) as e:
+            eng.submit((samples[0],), kind="generate", beam_size=5)
+        assert e.value.allowed == {"beam_size": [3], "max_length": [8]}
+    finally:
+        eng.shutdown()
+    _, tg = _gen_graphs()
+    want = _beams("torch", tg, trained, samples)
+    _assert_beams_equal(want, _beams("jax", jgraph, jparams, samples))
+    for b, ans in enumerate(got):
+        assert len(ans["sequences"]) == 3
+        for k, seq in enumerate(ans["sequences"]):
+            assert seq["tokens"] == want[0][b, k, :want[2][b, k]].tolist()
+            assert abs(seq["score"] - float(want[1][b, k])) < 1e-5
