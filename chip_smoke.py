@@ -11,8 +11,9 @@ non-zero without the result line:
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
    csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``,
-   ``crf.cu``, ``flash_attn.cu``, ``lstm_cell.cu``; one nvcc per source,
-   started together) and prints the seconds and the register report.
+   ``crf.cu``, ``flash_attn.cu``, ``lstm_cell.cu``, ``ctc.cu``; one nvcc
+   per source, started together) and prints the seconds and the register
+   report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
@@ -30,7 +31,8 @@ non-zero without the result line:
    roundings). Kernel and plain times are CUDA events, median of 10 calls
    after warmup, beside the bound.
 5. GRU kernel check: at every GRU_SHAPES (batch, hidden, T) — the seq2seq
-   path's (50, 512, 50), (64, 256, 100) and (1, 512, 50) — with a ragged
+   path's (50, 512, 50), (64, 256, 100), (1, 512, 50) and the CTC
+   acoustic model's (16, 1024, 400) — with a ragged
    mask, nonzero h0 and the two non-contiguous column slices of one w0
    [H, 3H] as the weights: the primal kernel in both directions and the
    residual kernel (ys, hT; hs, gates) within rtol 1e-4 / atol 1e-5 of the
@@ -49,7 +51,10 @@ non-zero without the result line:
    plain time and bound.
 6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
    ragged lengths 1-80, an all-padding row, two forbidden transitions at
-   -1e4) and its serving shape (B=1): the forward kernel's alphas and
+   -1e4), its serving shape (B=1), and (16, 80, 128) and (16, 80, 256),
+   where the kernels keep their [C, C] matrices in global memory (the
+   backward above 97 classes, every kernel at 256): the forward kernel's
+   alphas and
    log Z within rtol 1e-4 / atol 1e-5 of the plain loop, the backward
    kernel's gradients per tensor within 1e-4 of the largest entry + 1e-5
    of the plain analytic backward (forbidden ones finite and below 1e-6,
@@ -57,13 +62,28 @@ non-zero without the result line:
    Each kernel's device time (``torch.profiler``, 20 calls), CUDA events
    around one wrapper call (median of 50) and the plain version's time
    (median of 10), beside the bound for this mask's live steps.
+6b. CTC kernel check: at CTC_SHAPES (B, T, L) — the acoustic model's (16,
+   400, 66: S = 133) with ragged frames and transcripts, an empty
+   transcript, an infeasible row, repeated labels and padded frame tails;
+   its batch 1; LibriSpeech-length utterances (16, 1600, 240: S = 481) —
+   the forward kernel's alphas and ll within rtol 1e-4 / atol 1e-5 of
+   ``ctc_forward_plain`` (NEG entries equal), the backward kernel's demit
+   within 1e-4 of its largest entry + 1e-5 of ``ctc_bwd_plain``, two
+   backward runs bit-equal, every output finite, and -ll on the feasible
+   rows within 1e-4 relative of ``torch.nn.functional.ctc_loss`` (which
+   returns inf where JAX returns about 1e30). Times as in phase 6, and
+   the library yardstick ``F.ctc_loss`` forward and backward with the
+   names of the kernels it ran.
 7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
    — the attention seq2seq path's (50, 4, 50, 50, 128) with kv lengths
    10-50 and one all-padding row, its batch 1, a causal cross-attention
    (2, 4, 200, 333, 64), a long self-attention (2, 4, 4096, 4096, 128)
    non-causal and causal, and query rows that see no key: an all-padding
    kv row at (2, 4, 64, 333, 64) and causal (2, 4, 333, 200, 64), where
-   JAX divides such a row by Tk padded to a multiple of min(256, Tk) —
+   JAX divides such a row by Tk padded to a multiple of min(256, Tk); and
+   head widths 32 (an instance) at (50, 4, 50, 50, 32) with an
+   all-padding row and 40 (padded with zero columns to 64) at causal (2,
+   4, 200, 333, 40) —
    the forward kernel's o and row statistics
    within rtol 1e-4 / atol 1e-5 of ``blockwise_plain``, the backward
    kernels' gradients per tensor within 1e-4 of the largest entry + 1e-5
@@ -152,15 +172,38 @@ non-zero without the result line:
    3 single sentences (lengths 1, 23, 78) and one call of 16 rows answer
    the Viterbi ids of the CPU plain path on the same file, exactly, and
    /healthz counts crf_viterbi launches.
+11c. CTC acoustic model: DeepSpeech2's width as PaddlePaddle released it
+   (161-dim spectrogram frames, 3 bidirectional GRU layers of 1024, fc of
+   29 = 28 characters + blank, ``warp_ctc_layer(blank=28,
+   norm_by_times=True)``, the ``ctc_edit_distance`` evaluator; DS2's conv
+   layers and batch norm left out; ~45 M parameters), trained by ``--job
+   train`` with ``Adam(learning_rate=2e-4)`` (at DS2's 5e-4 the cost of
+   the model without its batch norm rose) for 3 passes over 4 fixed
+   batches of 16 synthetic utterances (100-400 frames, T/10-T/6
+   characters, each frame its character's or the silence's fixed random
+   prototype plus noise): the cost must fall and the counts show the CTC
+   forward and backward kernels, the residual GRU kernel, its backward
+   step and Adam. Then the full-width gradients (4 rows, one with an
+   empty transcript) card against CPU as in phase 8, and ``--job test``
+   on 2 more batches (cost, ctc_edit_distance; the CTC forward and the
+   primal GRU kernel launched, the CTC backward not).
 12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 11b).
+   kernel, with the launches of the main paths (phases 8 to 11c).
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
+
+    python3 chip_smoke.py --ds2-rate-witness
+
+runs only the acoustic model's ``--job train`` at DeepSpeech2's own rate,
+``Adam(5e-4)``, on the card and on the CPU plain path (the same batches,
+seed and initial parameters; the CPU path launches no kernel) and prints
+both runs' pass costs (``ds2_rate_witness.json`` in ``OUT_DIR``).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import http.client
 import json
@@ -184,11 +227,12 @@ from paddle_tpu_torch.kernels import rnn_cells as C
 from paddle_tpu_torch.ops import attention as ATT
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops import crf as CRF
+from paddle_tpu_torch.ops import ctc as CTC
 from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
 SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf", "flash_attn",
-           "lstm_cell"]
+           "lstm_cell", "ctc"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -215,8 +259,9 @@ S2S = dict(src_vocab=30000, trg_vocab=30000, embed_dim=512, hidden=512)
 S2S_BATCH, S2S_BATCHES, S2S_PASSES, S2S_LEN = 50, 4, 3, 50
 S2S_MIN_LEN = 10
 S2S_GRAD_ROWS = 8
-# GRU kernel check shapes (B, H, T): the path's own, a longer one, batch 1
-GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50)]
+# GRU kernel check shapes (B, H, T): the seq2seq path's own, a longer one,
+# batch 1, and the CTC acoustic model's (batch 16, 1024 units, 400 frames)
+GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50), (16, 1024, 400)]
 GRU_CELL_SHAPES = [(50, 512), (1, 512)]
 # beam search of the seq2seq demo's width: beam 4 (the model's default) and
 # outputs of up to 50 words (the longest target trained); 8 sources decode
@@ -243,8 +288,11 @@ TAG_SERVE_LENGTHS = (1, 23, 78)  # the single sentences served
 # the shapes the tagger's serving path hands the LSTM kernel, (batch, T):
 # the single sentences in buckets 32 and 80, the call of 16 rows
 TAG_SERVE_SHAPES = [(1, 32), (1, 80), (16, 80)]
-# CRF kernel check shapes (B, T, C): the training path's, the serving one's
-CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23)]
+# CRF kernel check shapes (B, T, C): the training path's, the serving
+# one's, and class counts whose matrices stay in global memory (above 97
+# the backward's, at 256 every kernel's)
+CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23), (16, TAG_LEN, 128),
+              (16, TAG_LEN, 256)]
 # seq2seq_attention with its encoder self-attention block: 4 heads of 128
 # over the 512-wide embedding (the JAX model's num_heads default)
 S2S_ATT = dict(S2S, seq_parallel="ring", num_heads=4)
@@ -261,7 +309,40 @@ FLASH_SHAPES = [
     (2, 4, 4096, 4096, 128, False, 4096, False),
     (2, 4, 4096, 4096, 128, True, 4096, False),
     (2, 4, 64, 333, 64, False, 1, True),
-    (2, 4, 333, 200, 64, True, 1, False)]
+    (2, 4, 333, 200, 64, True, 1, False),
+    # head widths padded (40 -> 64) or at the new instance (32)
+    (50, 4, 50, 50, 32, False, S2S_MIN_LEN, True),
+    (2, 4, 200, 333, 40, True, 1, False)]
+# the CTC acoustic model at DeepSpeech2's width as PaddlePaddle released
+# it in 2017 (PaddlePaddle/models deep_speech_2): 161-dim linear
+# spectrogram frames (20 ms window, 10 ms stride), 3 bidirectional GRU
+# layers of 1024 (its --use_gru setting at the width of its Aishell
+# example), an fc of dict_size + 1 = 29 (LibriSpeech's 28 English
+# characters and the blank, id 28) and warp_ctc_layer(blank=28,
+# norm_by_times=True), trained with Adam. Its two conv layers and batch
+# norm are left out (the port has neither yet): the GRUs read the frames.
+# At DS2's learning rate of 5e-4 (DS2_SOURCE_LR) the cost of this cut
+# model (no batch norm) rose from pass 0 to pass 1 on the card, so the
+# path trains at 2e-4; ``--ds2-rate-witness`` runs 5e-4 on the card and
+# on the CPU plain path. Batches are synthetic: 16 utterances of 100-400
+# frames (1-4 s;
+# DS2 trains utterances up to 27 s, cut here because the GRU kernels
+# launch per step and their backward is a per-step host loop), T/10-T/6
+# characters each, so labels pad to 66 and S = 2 L + 1 <= 133
+DS2 = dict(features=161, hidden=1024, layers=3, chars=28)
+DS2_BATCH, DS2_BATCHES, DS2_PASSES = 16, 4, 3
+DS2_MIN_T, DS2_MAX_T = 100, 400
+DS2_LABEL_PAD = DS2_MAX_T // 6
+DS2_GRAD_ROWS = 4
+DS2_LR = 2e-4
+DS2_SOURCE_LR = 5e-4
+# CTC kernel check shapes (B, T, L): the acoustic model's (with an empty
+# transcript, an infeasible row, repeated labels, padded frame tails), its
+# batch 1, and utterances of LibriSpeech's length (16 s, up to 240
+# characters: S = 481)
+CTC_SHAPES = [(DS2_BATCH, DS2_MAX_T, DS2_LABEL_PAD), (1, DS2_MAX_T,
+                                                     DS2_LABEL_PAD),
+              (DS2_BATCH, 1600, 240)]
 
 
 def phase(title: str, **kv):
@@ -345,7 +426,8 @@ def _time_ms(fn, reps=10, warmup=2):
 
 def _device_ms(fn, kernel, calls=20):
     """Device time of one call of ``fn``: the CUDA kernels whose names
-    contain ``kernel`` (each launched once per call), from
+    contain ``kernel`` (or one of a tuple of names; each launched once per
+    call), from
     ``torch.profiler`` over ``calls`` calls after one warm call: for a
     kernel shorter than its wrapper's host work, where CUDA events around
     the call measure the host. Each kernel's time is its mean over the
@@ -364,9 +446,10 @@ def _device_ms(fn, kernel, calls=20):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        names = (kernel,) if isinstance(kernel, str) else kernel
         found = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.key]
+                 and any(n in e.key for n in names)]
         traces.append({e.key: e.count for e in found})
         if found and all(calls // 2 <= e.count <= calls for e in found):
             return 1e-3 * sum(e.self_device_time_total / e.count
@@ -883,7 +966,9 @@ def check_crf_shape(B, T, C, seed):
     tensors: alphas and log Z within rtol 1e-4 / atol 1e-5, every gradient
     per tensor within 1e-4 of its largest entry + 1e-5, the forbidden
     transitions' gradients finite and near 0, the Viterbi paths identical
-    (scores within 1e-5); two backward runs bit-equal; times and bounds."""
+    (scores within 1e-5); two backward runs bit-equal; where a forward or
+    backward keeps its matrices in shared memory, its global-memory path
+    bit-equal to it; times and bounds."""
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, seed)
     alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
     grads = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
@@ -918,10 +1003,15 @@ def check_crf_shape(B, T, C, seed):
                fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
                viterbi_score_err=(score - w_score).abs().max().item(),
                forbidden_grad=forbidden)
-    # ms: the kernel's device time (torch.profiler); call_ms: CUDA events
+    # ms: the kernels' device time (torch.profiler; the prep kernel counts
+    # where the global-memory path launches it); call_ms: CUDA events
     # around one wrapper call, median of 50 (the host work inside the
     # events counts: checks, allocations, the ctypes call, the backward's
-    # sums over the batch); plain_ms: the plain version, median of 10
+    # sums over the batch); plain_ms: the plain version, median of 10.
+    # Where a forward or backward keeps its matrices in shared memory, its
+    # global-memory path (the same bits) is timed beside it: global_ms,
+    # global_call_ms
+    prep = "crf_prep_kernel"
     for kind, kernel, plain, args in (
             ("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
              (x, mask, trans, a, b)),
@@ -929,10 +1019,23 @@ def check_crf_shape(B, T, C, seed):
              (x, mask, trans, b, alphas, log_z, g)),
             ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain,
              (x, mask, trans, a, b))):
+        names = (f"{kernel.__name__}_kernel", prep)
         row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
-            lambda: kernel(*args), f"{kernel.__name__}_kernel")
+            lambda: kernel(*args), names)
         row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
         row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
+        if kind == "viterbi" or CRF._work_floats(kind == "bwd", C):
+            continue
+        via_global = kernel(*args, in_global=True)
+        if not all(torch.equal(u, v) for u, v in
+                   zip(via_global, (alphas, log_z) if kind == "fwd"
+                       else grads)):
+            raise AssertionError(f"CRF B={B} T={T} C={C}: the {kind} "
+                                 "kernel's global-memory path differs")
+        row[f"{kind}_global_ms"], row[f"{kind}_global_trace"] = _device_ms(
+            lambda: kernel(*args, in_global=True), names)
+        row[f"{kind}_global_call_ms"] = _time_ms(
+            lambda: kernel(*args, in_global=True), reps=50)
     for kind, (bound_ms, bound_by) in _crf_bounds(B, T, C, mask).items():
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
     phase("crf_kernel_check", **row)
@@ -952,6 +1055,181 @@ def check_crf_kernels():
         train=check_train_shape(TAG_BATCH, TAGGER["hidden"], TAG_LEN,
                                 seed=TAG_LEN + 1))
     return rows, lstm
+
+
+# -------------------------------------------------- 6b. CTC kernel check
+def _ctc_inputs(B, T, L, seed):
+    """The CTC kernels' operands from random log-probs [B,T,C] (C = 29,
+    blank 28) and labels: frames uniform in T/4..T (row 0 full, the others
+    with a padded tail), transcripts of T/10..T/6 characters; with B > 1,
+    row 1 an empty transcript, row 2 letters in pairs (repeated labels
+    take no jump), row 3 infeasible (L characters in L/2 frames). Returns
+    (operands, g, log_probs, labels, lab_lens, in_lens)."""
+    from paddle_tpu_torch.layers.chain import extended_labels
+    C = DS2["chars"] + 1
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32))
+    log_probs = torch.log_softmax(logits.cuda(), dim=-1)
+    in_lens = rng.integers(T // 4, T + 1, size=B)
+    in_lens[0] = T
+    lab_lens = np.minimum(rng.integers(in_lens // 10, in_lens // 6 + 1), L)
+    labels = rng.integers(0, C - 1, size=(B, L))
+    if B > 1:
+        lab_lens[1] = 0
+        labels[2, 1::2] = labels[2, 0::2][:L // 2]
+        in_lens[2], lab_lens[2] = T, L
+        in_lens[3], lab_lens[3] = max(L // 2, 1), L
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).cuda()
+    label_mask = torch.from_numpy((np.arange(L)[None, :] < lab_lens[:, None])
+                                  .astype(np.float32)).cuda()
+    labels = torch.from_numpy(labels).cuda()
+    ext, ext_lens, valid_s, can_skip = extended_labels(labels, label_mask,
+                                                       C - 1)
+    emit = torch.gather(log_probs, 2, ext[:, None, :].expand(B, T, L * 2 + 1))
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    ops = (emit.contiguous(), in_mask, valid_s.float().contiguous(),
+           can_skip.float().contiguous(), ext_lens.contiguous())
+    return ops, g, log_probs, labels, lab_lens, in_lens
+
+
+def _ctc_bounds(B, T, S, in_lens, ext_lens):
+    """Least times of the two kernels for this run's data, bytes or
+    operations, whichever is larger. Only the valid states (s < ext_lens)
+    of the live frames are read: an alpha is frozen on a padded frame and
+    NEG past ext_lens whatever the emission, beta_t reads emit_{t+1} only
+    where frame t+1 is real, and demit_t is 0 where frame t is padding.
+    Bytes: the forward reads emit on frame 0's first two states and on
+    every later live frame, the masks and the lengths, and writes every
+    alpha and ll; the backward reads emit on the live frames after the
+    first, the alphas on every live frame, the masks, lengths, ll and g,
+    and writes every demit. Operations: ~15 per live frame and valid state
+    for the three-term log-sum-exp and the emission add, 5 more per (t, s)
+    for the posterior."""
+    rows = [(max(int(t), 1), int(e)) for t, e in zip(in_lens, ext_lens)]
+    live = float(sum((t - 1) * e for t, e in rows))
+    small = 4 * (B * T + 2 * B * S + B)
+    fwd_in = 4 * sum((t - 1) * e + min(e, 2) for t, e in rows)
+    bwd_in = 4 * sum((t - 1) * e + t * e for t, e in rows)
+    return {"fwd": _bound(15.0 * live,
+                          fwd_in + small + 4 * (B * T * S + B)),
+            "bwd": _bound(15.0 * live + 5.0 * B * T * S,
+                          bwd_in + small + 8 * B + 4 * B * T * S)}
+
+
+def _ctc_library(log_probs, labels, in_lens, lab_lens, C):
+    """The library yardstick: ``torch.nn.functional.ctc_loss`` on the same
+    log-probs [T,B,C] (never on the port's path), forward and backward
+    times and the CUDA kernels it ran (their names say which of its
+    implementations ran: cuDNN's takes blank 0 only); beside it the port's
+    own path over the same span, ``layers/chain.py:ctc_loss`` from the
+    log-probs [B,T,C]: the extended labels, the gather and ctc_alpha_fwd
+    forward, ctc_bwd and the gather's scatter-add backward. Both sides
+    take log-probs and give the loss per row and its gradient with
+    respect to the log-probs."""
+    from paddle_tpu_torch.layers.chain import ctc_loss
+    lp = log_probs.transpose(0, 1).detach().requires_grad_(True)
+    args = (labels, torch.from_numpy(in_lens), torch.from_numpy(lab_lens))
+    B, T, _ = log_probs.shape
+    L = labels.shape[1]
+    port_lp = log_probs.detach().requires_grad_(True)
+    masks = [torch.from_numpy((np.arange(n)[None, :] < lens[:, None])
+                              .astype(np.float32)).cuda()
+             for n, lens in ((T, in_lens), (L, lab_lens))]
+
+    def fwd():
+        return torch.nn.functional.ctc_loss(lp, *args, blank=C - 1,
+                                            reduction="none")
+
+    def port_fwd():
+        return ctc_loss(port_lp, labels, *masks, C - 1)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fwd()
+        torch.autograd.grad(out.sum(), lp)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "ctc" in e.key.lower()})
+    out, port_out = fwd(), port_fwd()
+    ones = torch.ones_like(out)
+    return dict(fwd_library_ms=_time_ms(fwd),
+                bwd_library_ms=_time_ms(lambda: torch.autograd.grad(
+                    out, lp, ones, retain_graph=True)),
+                fwd_port_path_ms=_time_ms(port_fwd),
+                bwd_port_path_ms=_time_ms(lambda: torch.autograd.grad(
+                    port_out, port_lp, ones, retain_graph=True)),
+                library_kernels=names), out.detach()
+
+
+def check_ctc_shape(B, T, L, seed):
+    """The CTC forward and backward kernels against ``ctc_forward_plain``
+    and ``ctc_bwd_plain`` on the same card tensors: alphas and ll within
+    rtol 1e-4 / atol 1e-5 (their NEG entries equal), demit within 1e-4 of
+    its largest entry + 1e-5, every output finite, two backward runs
+    bit-equal, and -ll on the feasible rows within 1e-4 relative of
+    ``torch.nn.functional.ctc_loss``; times and bounds."""
+    C = DS2["chars"] + 1
+    ops, g, log_probs, labels, lab_lens, in_lens = _ctc_inputs(B, T, L,
+                                                               seed)
+    S = 2 * L + 1
+    where = f"CTC B={B} T={T} S={S}"
+    alphas, ll = CTC.ctc_alpha_fwd(*ops)
+    demit = CTC.ctc_bwd(*ops, alphas, ll, g)
+    torch.cuda.synchronize()
+    w_alphas, w_ll = CTC.ctc_forward_plain(*ops)
+    fwd_err = 0.0
+    for name, got, want in (("alphas", alphas, w_alphas), ("ll", ll, w_ll)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{where}: {name} is not finite")
+        neg = want < -1e29
+        if not (torch.equal(got[neg], want[neg])
+                and (got[~neg] > -1e29).all()):
+            raise AssertionError(f"{where}: {name}'s NEG entries differ")
+        fwd_err = max(fwd_err, (got[~neg] - want[~neg]).abs().max().item())
+        torch.testing.assert_close(got[~neg], want[~neg], **TOL,
+                                   msg=lambda m: f"{where} {name}: {m}")
+    w_demit = CTC.ctc_bwd_plain(*ops, w_alphas, w_ll, g)
+    if not torch.isfinite(demit).all():
+        raise AssertionError(f"{where}: demit is not finite")
+    bwd_err = _check_grads(where, (demit,), (w_demit,), ("emit",))
+    if not torch.equal(demit, CTC.ctc_bwd(*ops, alphas, ll, g)):
+        raise AssertionError(f"{where}: two backward runs differ")
+    row = dict(B=B, T=T, L=L, S=S, frames=in_lens.tolist(),
+               characters=lab_lens.tolist(), fwd_max_abs_err=fwd_err,
+               bwd_max_abs_err=bwd_err, bwd_bit_equal=True)
+    labs = labels.cpu().numpy()
+    repeats = np.array([int((labs[b, 1:n] == labs[b, :n - 1]).sum())
+                        if n > 1 else 0 for b, n in enumerate(lab_lens)])
+    ok = torch.from_numpy(lab_lens + repeats <= in_lens).cuda()
+    lib, nll = _ctc_library(log_probs, labels, in_lens, lab_lens, C)
+    row.update(lib, feasible_rows=int(ok.sum()),
+               infeasible_ll=ll[~ok].tolist(),
+               library_max_rel_err=((-ll[ok] - nll[ok]).abs()
+                                    / nll[ok].abs()).max().item())
+    if not row["library_max_rel_err"] <= 1e-4:
+        raise AssertionError(f"{where}: ll against F.ctc_loss: {row}")
+    # ms: the kernel's device time (torch.profiler); call_ms: CUDA events
+    # around one wrapper call, median of 50; plain_ms: the plain version,
+    # median of 10
+    for kind, kernel, plain, args in (
+            ("fwd", CTC.ctc_alpha_fwd, CTC.ctc_forward_plain, ops),
+            ("bwd", CTC.ctc_bwd, CTC.ctc_bwd_plain, (*ops, alphas, ll, g))):
+        row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
+            lambda: kernel(*args), f"{kernel.__name__}_kernel")
+        row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
+        row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
+    for kind, (bound_ms, bound_by) in _ctc_bounds(
+            B, T, S, in_lens, ops[4].tolist()).items():
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
+    phase("ctc_kernel_check", **row)
+    return row
+
+
+def check_ctc_kernels():
+    return [check_ctc_shape(B, T, L, seed=B + T + L) for B, T, L in CTC_SHAPES]
 
 
 # ------------------------------------------ 7. flash-attention kernel check
@@ -1200,8 +1478,12 @@ def _grads_card_vs_cpu(build_model, save_dir, feed, optimizer):
         trainer = SGD(cost, parameters=params, device=device,
                       update_equation=optimizer)
         trainer.params = {k: v.to(dtype) for k, v in trainer.params.items()}
+        dev_feed = trainer._to_device(feed)
+        for arg in dev_feed.values():  # dense frames in the run's type
+            if arg.value.is_floating_point():
+                arg.value = arg.value.to(dtype)
         t0 = time.perf_counter()
-        _, loss, grads = trainer.loss_and_grads(trainer._to_device(feed))
+        _, loss, grads = trainer.loss_and_grads(dev_feed)
         runs[key] = (float(loss), {k: v.cpu().double() for k, v in
                                    grads.items()},
                      time.perf_counter() - t0)
@@ -2350,6 +2632,211 @@ def serve_tagger(tmp, serve_conf, model):
     return result
 
 
+# ------------------------------------------- 11c. CTC acoustic model path
+# the acoustic model, built from DSL calls both packages have: per layer
+# fc(3H, linear) -> grumemory forward and fc(3H, linear) -> grumemory
+# reverse, concatenated (2H wide); then fc(chars + 1, linear) ->
+# warp_ctc_layer(blank = chars, norm_by_times), and the CTC error of the
+# best-path decode of the scores
+_DS2_MODEL = """
+def acoustic_model(dsl):
+    audio = dsl.data(name="audio", size={F}, is_sequence=True)
+    text = dsl.data(name="text", size={V}, is_sequence=True)
+    x = audio
+    for _ in range({NL}):
+        fwd = dsl.grumemory(input=dsl.fc(input=x, size={G}, act="linear"))
+        bwd = dsl.grumemory(input=dsl.fc(input=x, size={G}, act="linear"),
+                            reverse=True)
+        x = dsl.concat([fwd, bwd])
+    scores = dsl.fc(input=x, size={V} + 1, act="linear")
+    cost = dsl.warp_ctc_layer(input=scores, label=text, size={V} + 1,
+                              blank={V}, norm_by_times=True)
+    dsl.evaluator("ctc_edit_distance", input=scores, label=text,
+                  name="ctc_edit_distance")
+    return cost, scores
+""".format(F=DS2["features"], V=DS2["chars"], NL=DS2["layers"],
+           G=3 * DS2["hidden"])
+
+_DS2_SAMPLES = """
+PROTOS = np.random.default_rng({seed}).normal(
+    size=({V} + 1, {F})).astype(np.float32)
+
+
+def utterances(rng, n):
+    # (frames [t, {F}], transcript): t uniform in {lo}-{hi}, t // 10 to
+    # t // 6 characters from 0-{last}; the frames are cut into one equal
+    # segment per character, which holds its character's prototype for
+    # its first 1 to m - 1 frames and the silence's (row {V}) after, with
+    # noise: the cost can fall
+    out = []
+    for t in rng.integers({lo}, {hi} + 1, size=n):
+        t = int(t)
+        chars = rng.integers(0, {V}, size=int(rng.integers(t // 10,
+                                                          t // 6 + 1)))
+        m = t // len(chars)
+        ids = np.full(t, {V})
+        for i, c in enumerate(chars):
+            ids[i * m:i * m + int(rng.integers(1, m))] = c
+        frames = PROTOS[ids] + 0.5 * rng.normal(size=(t, {F}))
+        out.append((frames.astype(np.float32), chars.tolist()))
+    return out
+""".format(seed=SEED + 17, V=DS2["chars"], F=DS2["features"],
+           lo=DS2_MIN_T, hi=DS2_MAX_T, last=DS2["chars"] - 1)
+
+
+def _ds2_ns():
+    from paddle_tpu_torch.config import dsl
+    ns = {"np": np}
+    exec(_DS2_MODEL + _DS2_SAMPLES, ns)
+    dsl.reset()
+    return ns, dsl
+
+
+def _ds2_feeder(device="cuda"):
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (dense_vector_sequence,
+                                             integer_value_sequence)
+    return DataFeeder({"audio": dense_vector_sequence(DS2["features"]),
+                       "text": integer_value_sequence(DS2["chars"])},
+                      length_buckets=[DS2_LABEL_PAD, DS2_MAX_T],
+                      device=device)
+
+
+def _write_ds2_config(path, lr=DS2_LR):
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import (
+                dense_vector_sequence, integer_value_sequence)
+            from paddle_tpu_torch.optim import Adam
+        """) + _DS2_MODEL + _DS2_SAMPLES + textwrap.dedent(f"""
+
+            cost, scores = acoustic_model(dsl)
+            optimizer = Adam(learning_rate={lr})
+            # audio pads to {DS2_MAX_T} frames, transcripts to
+            # {DS2_LABEL_PAD} characters
+            feeding = DataFeeder(
+                {{"audio": dense_vector_sequence({DS2['features']}),
+                  "text": integer_value_sequence({DS2['chars']})}},
+                length_buckets=[{DS2_LABEL_PAD}, {DS2_MAX_T}])
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({DS2_BATCHES}):
+                    yield utterances(rng, {DS2_BATCH})
+
+            def test_reader():
+                rng = np.random.default_rng({SEED + 2})
+                for _ in range(2):
+                    yield utterances(rng, {DS2_BATCH})
+        """))
+
+
+def train_acoustic(tmp):
+    """--job train of the CTC acoustic model at DeepSpeech2's width
+    (Adam(2e-4), 3 passes over 4 fixed batches of 16, --save_dir): the
+    cost falls and the counts show the CTC kernels, the residual GRU
+    kernel, its backward step and Adam; the full-width gradients (4 rows,
+    one with an empty transcript) card against CPU; --job test on 2 more
+    batches (cost, ctc_edit_distance; the CTC forward and the primal GRU
+    kernel launched, the CTC backward not)."""
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "acoustic_conf.py")
+    _write_ds2_config(conf)
+    save_dir = os.path.join(tmp, "acoustic_ckpt")
+    t0 = time.perf_counter()
+    out = _cli(["--config", conf, "--job", "train", "--num_passes",
+                str(DS2_PASSES), "--seed", str(SEED), "--save_dir", save_dir],
+               timeout=1200)
+    train_s = time.perf_counter() - t0
+    passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
+    costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
+    summary = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("train_summary "))[14:])
+    if len(costs) != DS2_PASSES or summary["steps"] != DS2_PASSES * \
+            DS2_BATCHES:
+        raise AssertionError(f"acoustic train printed {passes}, {summary}")
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"acoustic pass costs {costs} do not fall")
+    counts = summary["kernels"]
+    for name in ("ctc_alpha_fwd", "ctc_bwd", "gru_seq_train", "gru_bwd_step",
+                 "adam"):
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"acoustic --job train never launched "
+                                 f"{name}")
+    ns, dsl = _ds2_ns()
+    batch = ns["utterances"](np.random.default_rng(SEED + 1), DS2_GRAD_ROWS)
+    batch[1] = (batch[1][0], [])  # an empty transcript
+    feed = _ds2_feeder("cpu")(batch)
+    grads = dict(rows=DS2_GRAD_ROWS, frames=[len(f) for f, _ in batch],
+                 characters=[len(c) for _, c in batch],
+                 **_grads_card_vs_cpu(lambda: ns["acoustic_model"](dsl),
+                                      save_dir, feed,
+                                      Adam(learning_rate=DS2_LR)))
+    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
+               timeout=900)
+    line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test = {k: float(v) for k, v in (kv.split("=") for kv in
+                                     line[len("Test: "):].split())}
+    test_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("test_summary "))[13:])[
+        "kernels"]
+    if set(test) != {"cost", "ctc_edit_distance"} or not all(
+            np.isfinite(list(test.values()))):
+        raise AssertionError(f"acoustic --job test printed {line}")
+    for name in ("ctc_alpha_fwd", "gru_seq"):
+        if test_counts[name]["launches"] <= 0:
+            raise AssertionError(f"acoustic --job test never launched "
+                                 f"{name}")
+    if test_counts["ctc_bwd"]["launches"] != 0:
+        raise AssertionError("acoustic --job test launched ctc_bwd")
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    n_params = sum(int(np.asarray(v).size) for v in
+                   load_params(latest_checkpoint(save_dir))[0].values())
+    result = dict(parameters=n_params, pass_lines=passes, pass_costs=costs,
+                  steps=summary["steps"], train_seconds=train_s,
+                  median_step_ms=summary["median_step_ms"],
+                  step_ms=summary["step_ms"], kernels=counts,
+                  grad_check=grads, test=test, test_kernels=test_counts)
+    phase("acoustic_train", **result)
+    return result
+
+
+def ds2_rate_witness():
+    """--job train of the acoustic model at DS2's rate, DS2_SOURCE_LR, on
+    the card and on the CPU plain path from the same seed and batches:
+    each run's pass costs and seconds. The CPU run shares no kernel with
+    the card's, so a rise that both show is the model's at that rate."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs = {}
+    try:
+        conf = os.path.join(tmp, "acoustic_conf.py")
+        _write_ds2_config(conf, lr=DS2_SOURCE_LR)
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out = _cli(["--config", conf, "--job", "train", "--num_passes",
+                        str(DS2_PASSES), "--seed", str(SEED), "--device",
+                        device], timeout=2400)
+            passes = [ln for ln in out.splitlines()
+                      if ln.startswith("Pass ")]
+            costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
+            if len(costs) != DS2_PASSES or not all(np.isfinite(costs)):
+                raise AssertionError(f"witness on {device} printed {passes}")
+            runs[device] = dict(pass_lines=passes, pass_costs=costs,
+                                seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result = dict(learning_rate=DS2_SOURCE_LR, **runs)
+    phase("ds2_rate_witness", **result)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ds2_rate_witness.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
 def _entry(name, source, replaces, launches, err, row, prefix=""):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -2360,13 +2847,24 @@ def _entry(name, source, replaces, launches, err, row, prefix=""):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ds2-rate-witness", action="store_true",
+                        help="only train the acoustic model at DS2's rate "
+                        "on the card and on the CPU plain path")
+    args = parser.parse_args()
+    t_start = time.perf_counter()
     check_device()
+    if args.ds2_rate_witness:
+        build.build_all(["gru_seq", "opt_update", "ctc"])
+        ds2_rate_witness()
+        return 0
     build_kernels()
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
     gru_rows, cell_rows = check_gru_kernels()
     lstm_cell_rows = check_lstm_cells()
     crf_rows, tag_lstm_rows = check_crf_kernels()
+    ctc_rows = check_ctc_kernels()
     flash_rows = check_flash_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2380,6 +2878,7 @@ def main() -> int:
         lstm_dec = lstm_decoder_path(tmp)
         tagger, tag_conf, tag_model = train_tagger(tmp)
         tag_served = serve_tagger(tmp, tag_conf, tag_model)
+        acoustic = train_acoustic(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -2391,6 +2890,14 @@ def main() -> int:
                  if (r["B"], r["H"], r["T"]) == (S2S_BATCH, S2S["hidden"],
                                                  S2S_LEN))
     c_row = next(r for r in cell_rows if r["B"] == S2S_BATCH)
+    # the acoustic model's GRU shape: batch 16 at h=1024, T=400
+    a_row = next(r for r in gru_rows
+                 if (r["B"], r["H"], r["T"]) == (DS2_BATCH, DS2["hidden"],
+                                                 DS2_MAX_T))
+    ctc_row = ctc_rows[0]  # the acoustic model's shape
+    ctc_src = "paddle_tpu_torch/csrc/ctc.cu"
+    ac_counts, ac_test = acoustic["kernels"], acoustic["test_kernels"]
+    ctc_lib = ", ".join(ctc_row["library_kernels"])
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
     gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
@@ -2506,7 +3013,8 @@ def main() -> int:
                     + s2s_counts["adam"]["launches"]
                     + tag_counts["adam"]["launches"]
                     + att_counts["adam"]["launches"]
-                    + lstm_dec["kernels"]["adam"]["launches"],
+                    + lstm_dec["kernels"]["adam"]["launches"]
+                    + ac_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              shape={"n": opt_rows["adam"]["n"]}),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
@@ -2548,11 +3056,50 @@ def main() -> int:
              library=f"scaled_dot_product_attention backward "
                      f"({f_row['sdpa_backend']})",
              path="seq2seq_attention(seq_parallel) train"),
+        dict(_entry("gru_seq_h1024", gru_src, "paddle_tpu/ops/gru.py:57",
+                    ac_test["gru_seq"]["launches"], gru_fwd_err, a_row),
+             shape={k: a_row[k] for k in ("B", "H", "T")},
+             path="CTC acoustic model test"),
+        dict(_entry("gru_seq_train_h1024", gru_src,
+                    "paddle_tpu/ops/gru.py:57",
+                    ac_counts["gru_seq_train"]["launches"], gru_fwd_err,
+                    a_row, "train_"),
+             shape={k: a_row[k] for k in ("B", "H", "T")},
+             path="CTC acoustic model train"),
+        dict(_entry("gru_bwd_step_h1024", gru_src,
+                    "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
+                    ac_counts["gru_bwd_step"]["launches"],
+                    max(r["bwd_max_abs_err"] for r in gru_rows), a_row,
+                    "step_"),
+             shape={"B": a_row["B"], "H": a_row["H"], "T": 1},
+             path="CTC acoustic model train"),
+        dict(_entry("ctc_alpha_fwd", ctc_src, "paddle_tpu/ops/ctc.py:87",
+                    ac_counts["ctc_alpha_fwd"]["launches"]
+                    + ac_test["ctc_alpha_fwd"]["launches"],
+                    max(r["fwd_max_abs_err"] for r in ctc_rows), ctc_row,
+                    "fwd_"),
+             shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             call_ms=ctc_row["fwd_call_ms"],
+             port_path_ms=ctc_row["fwd_port_path_ms"],
+             library=f"torch.nn.functional.ctc_loss forward ({ctc_lib})",
+             path="CTC acoustic model train and test"),
+        dict(_entry("ctc_bwd", ctc_src,
+                    "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)",
+                    ac_counts["ctc_bwd"]["launches"],
+                    max(r["bwd_max_abs_err"] for r in ctc_rows), ctc_row,
+                    "bwd_"),
+             shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             call_ms=ctc_row["bwd_call_ms"],
+             port_path_ms=ctc_row["bwd_port_path_ms"],
+             library=f"torch.nn.functional.ctc_loss backward ({ctc_lib})",
+             path="CTC acoustic model train"),
     ]
     for e in entries:
         if e["launches"] <= 0:
             raise AssertionError(f"the main path never launched {e['name']}")
     kernels = {"kernels": entries}
+    elapsed = time.perf_counter() - t_start
+    phase("elapsed", seconds=elapsed)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"bench_shapes": rows, "serve_shapes": serve_rows,
@@ -2561,11 +3108,13 @@ def main() -> int:
                    "gru_cell_shapes": cell_rows,
                    "lstm_cell_shapes": lstm_cell_rows, "crf_shapes": crf_rows,
                    "tagger_lstm_shapes": tag_lstm_rows,
-                   "flash_shapes": flash_rows,
+                   "flash_shapes": flash_rows, "ctc_shapes": ctc_rows,
                    "train": trained, "serve": served, "seq2seq": s2s,
                    "seq2seq_generate_serve": gen_served,
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
-                   "tagger": tagger, "tagger_serve": tag_served, **kernels},
+                   "tagger": tagger, "tagger_serve": tag_served,
+                   "acoustic": acoustic, "elapsed_s": elapsed,
+                   **kernels},
                   f, indent=1)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

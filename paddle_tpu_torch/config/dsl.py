@@ -2,7 +2,7 @@
 ``lstm_text_classifier``, ``seq2seq_attention`` (its training graph, with
 its encoder self-attention block, and its generating graph),
 ``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators), an
-``lstm_step`` decoder and a serve config need.
+``lstm_step`` decoder, a CTC acoustic model and a serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
@@ -297,6 +297,34 @@ def crf_decoding_layer(input, *, size: int = None, label=None,
         ins.append(Input(_in(label)[0].name))
     ldef = LayerDef(name=name or _auto_name("crf_decoding"),
                     type="crf_decoding", inputs=ins, bias=False)
+    return _add(ldef)
+
+
+def ctc_layer(input, label, *, size: int = None, norm_by_times: bool = False,
+              blank: int = None, name: str = None) -> LayerOutput:
+    """CTC cost (``layers/chain.py``). No ``blank`` recorded means the
+    layer takes the last class, C - 1. ``size`` is accepted and ignored,
+    as in the JAX DSL."""
+    attrs = {"norm_by_times": norm_by_times}
+    if blank is not None:
+        attrs["blank"] = blank
+    ldef = LayerDef(name=name or _auto_name("ctc"), type="ctc",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(label)[0].name)],
+                    bias=False, attrs=attrs)
+    return _add(ldef)
+
+
+def warp_ctc_layer(input, label, *, size: int = None,
+                   norm_by_times: bool = False, blank: int = 0,
+                   name: str = None) -> LayerOutput:
+    """The same CTC cost under ``WarpCTCLayer``'s name and blank default,
+    class 0."""
+    ldef = LayerDef(name=name or _auto_name("warp_ctc"), type="warp_ctc",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(label)[0].name)],
+                    bias=False,
+                    attrs={"norm_by_times": norm_by_times, "blank": blank})
     return _add(ldef)
 
 

@@ -88,8 +88,9 @@
 // stays well short of the operations bound; register tiles fed by vector
 // loads, wgmma, TMA and lower precision are later work.
 //
-// Limits: D in {8, 16, 64, 128} (template instances; the wrapper refuses
-// other widths), B * N <= 65535 (the grid's y).
+// Limits: D in {8, 16, 32, 64, 128} (template instances; the wrapper pads
+// any other D <= 128 with zero columns up to the next instance and refuses
+// D > 128), B * N <= 65535 (the grid's y).
 
 #include <cuda_runtime.h>
 
@@ -627,6 +628,9 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
     case 16:
       return launch_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
                             scale, s);
+    case 32:
+      return launch_fwd<32>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                            scale, s);
     case 64:
       return launch_fwd<64>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
                             scale, s);
@@ -651,6 +655,9 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
                            B, N, Tq, Tk, causal, scale, s);
     case 16:
       return launch_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
+                            B, N, Tq, Tk, causal, scale, s);
+    case 32:
+      return launch_bwd<32>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
                             B, N, Tq, Tk, causal, scale, s);
     case 64:
       return launch_bwd<64>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,

@@ -12,6 +12,7 @@ def _wrappers() -> dict:
                                                     lstm_cell_infer)
     from paddle_tpu_torch.ops.attention import flash_bwd, flash_fwd
     from paddle_tpu_torch.ops.crf import crf_alpha_fwd, crf_bwd, crf_viterbi
+    from paddle_tpu_torch.ops.ctc import ctc_alpha_fwd, ctc_bwd
     from paddle_tpu_torch.ops.gru import gru_bwd_step, gru_seq, \
         gru_seq_train
     from paddle_tpu_torch.ops.lstm import lstm_bwd_step, lstm_seq, \
@@ -23,6 +24,7 @@ def _wrappers() -> dict:
             "lstm_cell": lstm_cell, "lstm_cell_infer": lstm_cell_infer,
             "crf_alpha_fwd": crf_alpha_fwd,
             "crf_bwd": crf_bwd, "crf_viterbi": crf_viterbi,
+            "ctc_alpha_fwd": ctc_alpha_fwd, "ctc_bwd": ctc_bwd,
             "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "momentum": momentum, "adam": adam}
 

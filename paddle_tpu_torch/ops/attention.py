@@ -21,6 +21,11 @@ tests hold against the JAX package.
 - ``flash_bwd``: (dq, dk, dv) from q, k, v, the mask, o, ``lse`` and dO;
   plain version ``flash_bwd_plain``.
 
+The kernels are instantiated for D in ``HEAD_DIMS``; on the card another
+D <= 128 is padded with zero columns up to the next instance and the
+results sliced back (``fwd_padded``, ``bwd_padded``), with the scale of
+the true D. D > 128 raises.
+
 ``mha_plain`` is the plain softmax attention, the ground truth of the
 tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
 wanted and otherwise ``FlashFunction``, whose backward is ``flash_bwd``.
@@ -50,8 +55,9 @@ _NEG = -1e9
 # the kv block of the plain online softmax: what JAX's flash_attention
 # passes to blockwise_attention on the CPU
 _PLAIN_BLOCK_K = 256
-# the head widths the kernels are instantiated for (csrc/flash_attn.cu)
-HEAD_DIMS = (8, 16, 64, 128)
+# the head widths the kernels are instantiated for (csrc/flash_attn.cu);
+# another D up to the last pads with zero columns to the next one
+HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_HEADS_TIMES_BATCH = 65535  # the kernels' grid y
 
 
@@ -147,6 +153,42 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
     return dq, dk, dv
 
 
+# ------------------------------------------------------ head-width padding
+def padded_width(D: int) -> int:
+    """The kernels' head width for D: the smallest instance >= D. Raises
+    for D above the widest instance."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head width D={D} is not supported: the flash kernels "
+                     f"take D <= {HEAD_DIMS[-1]}")
+
+
+def _pad_heads(width, *ts):
+    return tuple(F.pad(t, (0, width - t.shape[-1])) for t in ts)
+
+
+def fwd_padded(fwd, width, q, k, v, kv_mask, causal, scale):
+    """``fwd`` (a forward with ``flash_fwd``'s arguments and results) at
+    head width ``width`` >= D: zero columns of q and k leave every score
+    unchanged, zero columns of v give zero columns of o, which are sliced
+    away; the row statistics are the same. ``scale`` must be the true D's
+    (``D ** -0.5`` by default), passed explicitly."""
+    o, lse = fwd(*_pad_heads(width, q, k, v), kv_mask, causal, scale)
+    return o[..., :q.shape[-1]].contiguous(), lse
+
+
+def bwd_padded(bwd, width, q, k, v, kv_mask, o, lse, do, causal, scale):
+    """``bwd`` (a backward with ``flash_bwd``'s arguments and results) at
+    head width ``width``: o and dO padded with zero columns too (delta =
+    rowsum(dO o) is unchanged), dq, dk and dv sliced back to D."""
+    D = q.shape[-1]
+    grads = bwd(*_pad_heads(width, q, k, v), kv_mask,
+                *_pad_heads(width, o), lse, *_pad_heads(width, do), causal,
+                scale)
+    return tuple(t[..., :D].contiguous() for t in grads)
+
+
 # -------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
 def _lib():
@@ -169,8 +211,9 @@ def _check(kernel, q, k, v, kv_mask, **more):
     B, N, Tq, D = q.shape
     Tk = k.shape[2]
     if D not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head width D={D} is not supported: the "
-                         f"kernels are built for D in {HEAD_DIMS}")
+        raise ValueError(f"{kernel}: head width D={D} is not an instance of "
+                         f"the kernels ({HEAD_DIMS}); flash_fwd and "
+                         "flash_bwd pad it")
     if Tq < 1 or Tk < 1 or B * N > MAX_HEADS_TIMES_BATCH:
         raise ValueError(f"{kernel}: Tq={Tq}, Tk={Tk}, B*N={B * N}: the "
                          f"kernels take T >= 1 and B*N <= "
@@ -195,6 +238,9 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False, scale=None
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return blockwise_plain(q, k, v, kv_mask, causal, scale)
+    width = padded_width(q.shape[-1])
+    if width != q.shape[-1]:
+        return fwd_padded(flash_fwd, width, q, k, v, kv_mask, causal, scale)
     kv_mask = _card_mask(kv_mask, q, k.shape[2])
     dev, B, N, Tq, Tk, D = _check("flash_fwd", q, k, v, kv_mask)
     o = torch.empty_like(q)
@@ -220,6 +266,10 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, causal=False, scale=None):
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal, scale)
+    width = padded_width(q.shape[-1])
+    if width != q.shape[-1]:
+        return bwd_padded(flash_bwd, width, q, k, v, kv_mask, o, lse, do,
+                          causal, scale)
     kv_mask = _card_mask(kv_mask, q, k.shape[2])
     dev, B, N, Tq, Tk, D = _check("flash_bwd", q, k, v, kv_mask, o=o, do=do)
     build.check_tensors("flash_bwd", dev, lse=(lse, (2, B * N, Tq)))

@@ -28,15 +28,18 @@ otherwise ``CrfFunction``, whose backward is ``crf_bwd``. f32 only.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops import build
 
-# the kernels' largest class count (csrc/crf.cu: kMaxClasses; the
-# backward's shared memory at C = 96 is 226 KB of the 227 KB a block holds)
-MAX_CLASSES = 96
+# the kernels' largest class count (csrc/crf.cu: kMaxClasses, 8 classes
+# per lane; above C = 97 the backward's matrices, above C = 239 the
+# forward's and the Viterbi's, stay in global memory)
+MAX_CLASSES = 256
 
 
 # ---------------------------------------------------------------- plain
@@ -146,30 +149,55 @@ def _check(kernel, x, mask, trans, **vectors):
     if T < 1 or C < 1 or C > MAX_CLASSES:
         raise ValueError(
             f"{kernel}: T={T}, C={C}: the kernels take T >= 1 and "
-            f"1 <= C <= {MAX_CLASSES} classes (C is bound by the shared "
-            "memory of one block: exp(trans), trans and four [C, C] "
-            "accumulators)")
+            f"1 <= C <= {MAX_CLASSES} classes (a warp per sequence, at most "
+            "8 classes per lane)")
     build.check_tensors(kernel, dev, x=(x, (B, T, C)), mask=(mask, (B, T)),
                         trans=(trans, (C, C)),
                         **{k: (v, (C,)) for k, v in vectors.items()})
     return dev, B, T, C
 
 
-def crf_alpha_fwd(x, mask, trans, a, b):
+@functools.lru_cache(maxsize=None)
+def _work_floats(kernel: int, C: int) -> int:
+    """Floats of scratch the forward (``kernel`` 0) or the backward (1)
+    needs at C: 2 C^2 + 1 where its matrices outgrow shared memory, else 0
+    (``csrc/crf.cu:crf_work_floats``)."""
+    fn = build.load("crf").crf_work_floats
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(kernel, C)
+
+
+def _work(dev, kernel, C, in_global) -> Optional[torch.Tensor]:
+    """Scratch of the kernels' global-memory path (max(trans), exp(trans -
+    max) and its transpose), or None: the kernel then keeps its matrices
+    in shared memory. ``in_global`` takes the global path at any C."""
+    n = 2 * C * C + 1 if in_global else _work_floats(kernel, C)
+    return torch.empty((n,), dtype=torch.float32, device=dev) if n else None
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def crf_alpha_fwd(x, mask, trans, a, b, *, in_global=False):
     """The forward kernel's wrapper; same arguments and results as
     ``crf_forward_plain``. ``crf_alpha_fwd.launches`` counts the calls
-    that launched it."""
+    that launched it. ``in_global`` keeps the [C, C] matrices in global
+    memory even where they fit a block (the same bits; chip_smoke.py times
+    both paths)."""
     if x.device.type == "cpu":
         return crf_forward_plain(x, mask, trans, a, b)
     dev, B, T, C = _check("crf_alpha_fwd", x, mask, trans, a=a, b=b)
     alphas = torch.empty((B, T, C), dtype=torch.float32, device=dev)
     log_z = torch.empty((B,), dtype=torch.float32, device=dev)
+    work = _work(dev, 0, C, in_global)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("crf", "crf_alpha_fwd", 7, 3)(
+        err = build.bind("crf", "crf_alpha_fwd", 8, 3)(
             x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
-            b.data_ptr(), alphas.data_ptr(), log_z.data_ptr(), B, T, C,
-            stream)
+            b.data_ptr(), _ptr(work), alphas.data_ptr(),
+            log_z.data_ptr(), B, T, C, stream)
     build.raise_on(err, "crf_alpha_fwd")
     crf_alpha_fwd.launches += 1
     return alphas, log_z
@@ -178,11 +206,11 @@ def crf_alpha_fwd(x, mask, trans, a, b):
 crf_alpha_fwd.launches = 0
 
 
-def crf_bwd(x, mask, trans, b, alphas, log_z, g):
+def crf_bwd(x, mask, trans, b, alphas, log_z, g, *, in_global=False):
     """The backward kernel's wrapper; same arguments and results as
     ``crf_bwd_plain``. The kernel writes per-sequence partials of dtrans,
     da and db; their sum over the batch is a deterministic reduction after
-    it (no float atomics)."""
+    it (no float atomics). ``in_global`` as for ``crf_alpha_fwd``."""
     if x.device.type == "cpu":
         return crf_bwd_plain(x, mask, trans, b, alphas, log_z, g)
     dev, B, T, C = _check("crf_bwd", x, mask, trans, b=b)
@@ -192,12 +220,14 @@ def crf_bwd(x, mask, trans, b, alphas, log_z, g):
     dtrans = torch.empty((B, C, C), dtype=torch.float32, device=dev)
     da, db = (torch.empty((B, C), dtype=torch.float32, device=dev)
               for _ in range(2))
+    work = _work(dev, 1, C, in_global)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("crf", "crf_bwd", 11, 3)(
+        err = build.bind("crf", "crf_bwd", 12, 3)(
             x.data_ptr(), mask.data_ptr(), trans.data_ptr(), b.data_ptr(),
-            alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dtrans.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, C, stream)
+            alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(),
+            _ptr(work), dx.data_ptr(), dtrans.data_ptr(),
+            da.data_ptr(), db.data_ptr(), B, T, C, stream)
     build.raise_on(err, "crf_bwd")
     crf_bwd.launches += 1
     return dx, dtrans.sum(dim=0), da.sum(dim=0), db.sum(dim=0)

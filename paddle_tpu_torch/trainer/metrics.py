@@ -1,7 +1,8 @@
 """Config-declared metric evaluators: the port of
 ``paddle_tpu/trainer/metrics.py``'s registry with the two evaluators the
 sequence tagger declares, ``chunk`` (``ChunkEvaluator.cpp``: chunk F1) and
-``sum`` (``SumEvaluator``, ``Evaluator.cpp``).
+``sum`` (``SumEvaluator``, ``Evaluator.cpp``), and the CTC acoustic
+model's ``ctc_edit_distance`` (``CTCErrorEvaluator.cpp``).
 
 Each follows the reference's start / eval(batch) / finish protocol on the
 host, over numpy arrays the trainer fetched from the device. The other
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import inspect
 import logging
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -24,7 +25,7 @@ _EVALUATORS: Dict[str, type] = {}
 # the JAX package's evaluator types (and aliases) without a port yet
 NOT_PORTED = ("classification_error", "seq_classification_error", "rankauc",
               "auc", "last-column-auc", "precision_recall", "pnpair",
-              "ctc_edit_distance", "column_sum", "last-column-sum",
+              "column_sum", "last-column-sum",
               "value_printer", "gradient_printer", "max_id_printer",
               "maxid_printer", "max_frame_printer",
               "classification_error_printer", "seq_text_printer",
@@ -172,6 +173,73 @@ class ChunkEvaluator(EvaluatorBase):
         p = self.num_correct / max(self.num_output, 1e-12)
         r = self.num_correct / max(self.num_label, 1e-12)
         return 2 * p * r / max(p + r, 1e-12)
+
+
+def edit_distance(a: Sequence[int], b: Sequence[int]) -> int:
+    """Levenshtein distance (the core of ``CTCErrorEvaluator.cpp``)."""
+    la, lb = len(a), len(b)
+    prev = np.arange(lb + 1)
+    for i in range(1, la + 1):
+        cur = np.empty(lb + 1, np.int64)
+        cur[0] = i
+        for j in range(1, lb + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1,
+                         prev[j - 1] + (a[i - 1] != b[j - 1]))
+        prev = cur
+    return int(prev[lb])
+
+
+def ctc_best_path(log_probs: np.ndarray, blank: int) -> List[int]:
+    """Greedy best-path decoding: argmax per frame, collapse repeats,
+    drop blanks."""
+    out: List[int] = []
+    prev = -1
+    for t in np.argmax(log_probs, axis=-1).tolist():
+        if t != prev and t != blank:
+            out.append(t)
+        prev = t
+    return out
+
+
+@register_evaluator("ctc_edit_distance")
+class CTCErrorEvaluator(EvaluatorBase):
+    """``CTCErrorEvaluator.cpp``: the edit distance between the best-path
+    decode of the frame scores and the label sequence, over the summed
+    reference lengths. The trainer passes the output's frame mask and the
+    label, not the label's mask (as the JAX trainer wires it), so a padded
+    label row's tail counts as reference tokens; ``label_mask`` is read
+    where a caller gives it."""
+
+    def __init__(self, name=None, blank: Optional[int] = None):
+        self.blank = blank
+        super().__init__(name)
+
+    def start(self):
+        self.total_dist = 0.0
+        self.total_len = 0.0
+        self.seqs = 0
+
+    def eval_batch(self, output, label=None, weight=None, mask=None,
+                   label_mask=None):
+        """output: [B, T, C] frame scores; label: [B, L] int ids."""
+        out = np.asarray(output)
+        lab = np.asarray(label)
+        if out.ndim == 2:
+            out, lab = out[None], lab[None]
+        blank = self.blank if self.blank is not None else out.shape[-1] - 1
+        for b in range(out.shape[0]):
+            T = (int(np.asarray(mask)[b].sum()) if mask is not None
+                 else out.shape[1])
+            L = (int(np.asarray(label_mask)[b].sum())
+                 if label_mask is not None else lab.shape[1])
+            hyp = ctc_best_path(out[b, :T], blank)
+            ref = [int(x) for x in lab[b, :L]]
+            self.total_dist += edit_distance(hyp, ref)
+            self.total_len += max(len(ref), 1)
+            self.seqs += 1
+
+    def value(self):
+        return self.total_dist / max(self.total_len, 1e-12)
 
 
 @register_evaluator("sum")

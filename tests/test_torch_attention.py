@@ -286,3 +286,28 @@ def test_dsl_refuses_an_unknown_seq_parallel_as_jax_does():
         x = dsl.data(name="x", size=8, is_sequence=True)
         with pytest.raises(ValueError, match="ring/ulysses"):
             dsl.multi_head_attention(x, num_heads=2, seq_parallel="ring2")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_pad_and_slice_around_the_plain_versions_is_exact(causal):
+    """A head width that is no kernel instance (D = 40) runs padded with
+    zero columns to the next instance (64) and sliced back, with the scale
+    of the true D: around ``blockwise_plain`` and ``flash_bwd_plain`` the
+    helpers give exactly the unpadded results (o, the row statistics, dq,
+    dk, dv), an all-padding kv row included. D > 128 has no instance."""
+    q, k, v, mask, do = (torch.from_numpy(a) for a in _inputs(
+        3, 2, 20, 33, 40, 11, all_padding=True))
+    scale = 40 ** -0.5
+    assert tattn.padded_width(40) == 64 and tattn.padded_width(32) == 32
+    o, lse = tattn.blockwise_plain(q, k, v, mask, causal, scale)
+    p_o, p_lse = tattn.fwd_padded(tattn.blockwise_plain, 64, q, k, v, mask,
+                                  causal, scale)
+    assert p_o.shape == o.shape
+    assert torch.equal(p_o, o) and torch.equal(p_lse, lse)
+    want = tattn.flash_bwd_plain(q, k, v, mask, o, lse, do, causal, scale)
+    got = tattn.bwd_padded(tattn.flash_bwd_plain, 64, q, k, v, mask, o, lse,
+                           do, causal, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    with pytest.raises(ValueError, match="D <= 128"):
+        tattn.padded_width(129)

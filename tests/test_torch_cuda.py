@@ -2,7 +2,8 @@
 forms, the LSTM backward step, the LSTM cell, the GRU recurrence in its
 primal and residual forms, the GRU backward step, the GRU cell, the
 Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
-the flash-attention forward and backward kernels) against
+the flash-attention forward and backward kernels, the CTC alpha and beta
+kernels) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -24,6 +25,7 @@ import torch
 from paddle_tpu_torch.kernels import rnn_cells
 from paddle_tpu_torch.ops import attention as tattn
 from paddle_tpu_torch.ops import crf as tcrf
+from paddle_tpu_torch.ops import ctc as tctc
 from paddle_tpu_torch.ops import gru as tgru
 from paddle_tpu_torch.ops import lstm as tlstm
 
@@ -387,10 +389,13 @@ def _crf_inputs(B, T, C, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,C", [(64, 80, 23), (1, 80, 23), (5, 7, 9),
-                                   (6, 12, 33), (4, 5, 96)])
+                                   (6, 12, 33), (4, 5, 96), (8, 20, 97),
+                                   (8, 20, 128), (5, 12, 256)])
 def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
     """The tagger's shape (B=64, T=80, C=23), its serving shape (B=1), and
-    class counts below, across and at the top of the lanes a warp owns:
+    class counts below, across and at the top of the lanes a warp owns,
+    up to 256 (above 97 the backward's matrices, at 256 every kernel's,
+    stay in global memory):
     log Z and the alphas within rtol 1e-4 / atol 1e-5; every gradient per
     tensor within 1e-4 of its largest entry + 1e-5 (sums over steps and
     rows in another order), forbidden transitions finite and near 0;
@@ -422,6 +427,26 @@ def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
     again = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
     for g1, g2 in zip(got_b, again):
         assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C", [(64, 80, 23), (5, 12, 33), (8, 20, 97),
+                                   (8, 20, 128)])
+def test_crf_global_path_equals_shared_path(cuda_device, B, T, C):
+    """At a C where a kernel's matrices fit shared memory, its global-
+    memory path (``in_global``) gives the same bits: the forward below C =
+    240, the backward below C = 98."""
+    x, mask, trans, a, b, g = _crf_inputs(B, T, C, B + T + C, cuda_device)
+    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    g_alphas, g_log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b,
+                                           in_global=True)
+    assert torch.equal(alphas, g_alphas) and torch.equal(log_z, g_log_z)
+    if C <= 97:
+        got = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+        via_global = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g,
+                                  in_global=True)
+        for g1, g2 in zip(got, via_global):
+            assert torch.equal(g1, g2)
 
 
 @pytest.mark.cuda
@@ -471,7 +496,9 @@ def _assert_grads_close(got, want):
     (3, 2, 70, 133, 16, True, False),   # causal cross, Tq != Tk, ragged
     (4, 4, 50, 50, 128, False, True),   # the seq2seq path's head width
     (2, 2, 130, 130, 64, True, False),
-    (2, 3, 9, 5, 8, False, False)])
+    (2, 3, 9, 5, 8, False, False),
+    (3, 4, 50, 50, 32, False, True),    # D = 32, an instance
+    (2, 4, 200, 333, 40, True, False)])  # D = 40, padded to 64
 def test_flash_kernels_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
                                            causal, all_padding):
     """The forward kernel within rtol 1e-4 / atol 1e-5 of
@@ -578,11 +605,11 @@ def test_attention_layer_runs_the_kernels_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_bad_inputs(cuda_device):
-    """An unsupported head width, a non-contiguous input, a wrong dtype
-    and a CPU mask all raise with the reason."""
+    """A head width above 128, a non-contiguous input, a wrong dtype and
+    a CPU mask all raise with the reason."""
     q, k, v, mask, do = _attn_inputs(2, 2, 8, 8, 16, 0, cuda_device)
-    wide = torch.zeros(2, 2, 8, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="head width D=32"):
+    wide = torch.zeros(2, 2, 8, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="head width D=160"):
         tattn.flash_fwd(wide, wide, wide, mask)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_fwd(q.transpose(1, 2), k, v, mask)
@@ -593,3 +620,148 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
     o, lse = tattn.flash_fwd(q, k, v, mask)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_bwd(q, k, v, mask, o, lse, do.transpose(2, 3))
+
+
+def _ctc_inputs(B, T, C, L, seed, device):
+    """The CTC kernels' operands from random log-probs [B,T,C] (blank C-1)
+    and labels [B,L]: ragged frame counts (row 0 full, the rest padded at
+    the tail) and transcripts; with B >= 4, row 1 an empty transcript, row
+    2 repeated labels (no jump between equal ones) and row 3 infeasible
+    (fewer frames than its labels need). Returns (emit, in_mask, valid_s,
+    can_skip, ext_lens, g, log_probs [B,T,C], labels, lab_lens, in_lens)."""
+    from paddle_tpu_torch.layers.chain import extended_labels
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32))
+    log_probs = torch.log_softmax(logits, dim=-1).to(device)
+    labels = rng.integers(0, C - 1, size=(B, L))
+    in_lens = rng.integers(max(T // 4, 1), T + 1, size=B)
+    in_lens[0] = T
+    lab_lens = np.minimum(rng.integers(1, L + 1, size=B), in_lens // 3 + 1)
+    lab_lens[0] = L
+    if B >= 4:
+        lab_lens[1] = 0
+        labels[2, 1::2] = labels[2, ::2][:len(labels[2, 1::2])]
+        lab_lens[2] = L
+        in_lens[2] = T
+        lab_lens[3], in_lens[3] = L, max(L // 2, 1)
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).to(device)
+    label_mask = torch.from_numpy((np.arange(L)[None, :] < lab_lens[:, None])
+                                  .astype(np.float32)).to(device)
+    labels = torch.from_numpy(labels).to(device)
+    ext, ext_lens, valid_s, can_skip = extended_labels(labels, label_mask,
+                                                       C - 1)
+    S = ext.shape[1]
+    emit = torch.gather(log_probs, 2, ext[:, None, :].expand(B, T, S))
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).to(device)
+    return (emit.contiguous(), in_mask, valid_s.float().contiguous(),
+            can_skip.float().contiguous(), ext_lens.contiguous(), g,
+            log_probs, labels, lab_lens, in_lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,L", [
+    (16, 400, 29, 66),   # the acoustic model's shape, with the edge rows
+    (1, 400, 29, 66),    # batch 1
+    (5, 9, 6, 4),        # T = 2 L + 1 for the full rows
+    (4, 700, 29, 320),   # S = 641: two states per thread
+    (2, 4400, 29, 2150)])  # S = 4301: sixteen states per thread
+def test_ctc_kernels_match_plain_on_card(cuda_device, B, T, C, L):
+    """alphas and ll within rtol 1e-4 / atol 1e-5 of the plain versions
+    (their NEG entries equal: an unreachable state and the infeasible row's
+    ll are -1e30 in both), demit per tensor within 1e-4 of its largest
+    entry + 1e-5, every output finite, two backward runs bit-equal, and
+    -ll on the feasible rows within 1e-4 relative of
+    ``torch.nn.functional.ctc_loss``."""
+    (emit, in_mask, valid_s, can_skip, ext_lens, g, log_probs, labels,
+     lab_lens, in_lens) = _ctc_inputs(B, T, C, L, B * T + L, cuda_device)
+    args = (emit, in_mask, valid_s, can_skip, ext_lens)
+    before = (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches)
+    alphas, ll = tctc.ctc_alpha_fwd(*args)
+    demit = tctc.ctc_bwd(*args, alphas, ll, g)
+    torch.cuda.synchronize()
+    assert (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    w_alphas, w_ll = tctc.ctc_forward_plain(*args)
+    for name, got, want in (("alphas", alphas, w_alphas), ("ll", ll, w_ll)):
+        assert torch.isfinite(got).all(), name
+        neg = want < -1e29
+        assert torch.equal(got[neg], want[neg]), name
+        assert (got[~neg] > -1e29).all(), name
+        torch.testing.assert_close(got[~neg], want[~neg], rtol=1e-4,
+                                   atol=1e-5, msg=name)
+    want_d = tctc.ctc_bwd_plain(*args, w_alphas, w_ll, g)
+    assert torch.isfinite(demit).all()
+    err = (demit - want_d).abs().max().item()
+    assert err <= 1e-4 * want_d.abs().max().item() + 1e-5, err
+    assert torch.equal(demit, tctc.ctc_bwd(*args, alphas, ll, g))
+    # torch's CTC loss on the rows with enough frames for their labels
+    need = lab_lens + np.array([
+        int((labels[b, 1:lab_lens[b]] == labels[b, :lab_lens[b] - 1])
+            .sum().item()) if lab_lens[b] > 1 else 0 for b in range(B)])
+    ok = torch.from_numpy(need <= in_lens).to(cuda_device)
+    assert bool(ok.any())
+    nll = torch.nn.functional.ctc_loss(
+        log_probs.transpose(0, 1), labels, torch.from_numpy(in_lens),
+        torch.from_numpy(lab_lens), blank=C - 1, reduction="none")
+    torch.testing.assert_close(-ll[ok], nll[ok], rtol=1e-4, atol=0)
+    if B >= 4:
+        assert not bool(ok[3]) and ll[3].item() < -1e29  # infeasible
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_reject_bad_inputs(cuda_device):
+    """A CPU tensor into a CUDA path, a wrong dtype, int64 lengths and an
+    S beyond the kernels' limit all raise with the reason."""
+    emit, in_mask, valid_s, can_skip, ext_lens, g, *_ = _ctc_inputs(
+        2, 6, 5, 2, 0, cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        tctc.ctc_alpha_fwd(emit, in_mask.cpu(), valid_s, can_skip, ext_lens)
+    with pytest.raises(ValueError, match="float32"):
+        tctc.ctc_alpha_fwd(emit.double(), in_mask, valid_s, can_skip,
+                           ext_lens)
+    with pytest.raises(ValueError, match="int32"):
+        tctc.ctc_alpha_fwd(emit, in_mask, valid_s, can_skip, ext_lens.long())
+    S = tctc.MAX_STATES + 1
+    big = torch.zeros(1, 2, S, device=cuda_device)
+    with pytest.raises(ValueError, match="states"):
+        tctc.ctc_alpha_fwd(big, in_mask[:1, :2].contiguous(), big[:, 0],
+                           big[:, 0], ext_lens[:1])
+
+
+@pytest.mark.cuda
+def test_ctc_layer_runs_the_kernels_on_card(cuda_device):
+    """The ``warp_ctc`` layer's cost and its gradient into the pre-softmax
+    scores on the card (the CTC kernels, launched once each) against the
+    same layer on the CPU (the plain versions)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    dsl.reset()
+    x = dsl.data(name="x", size=7, is_sequence=True)
+    y = dsl.data(name="y", size=6, is_sequence=True)
+    cost = dsl.warp_ctc_layer(input=x, label=y, blank=6, norm_by_times=True)
+    net = Network(dsl.current_graph(), outputs=[cost.name])
+    rng = np.random.default_rng(4)
+    xv = torch.from_numpy(rng.normal(size=(3, 30, 7)).astype(np.float32))
+    xm = torch.from_numpy((np.arange(30)[None, :] < np.array(
+        [[30], [17], [9]])).astype(np.float32))
+    yv = torch.from_numpy(rng.integers(0, 6, size=(3, 5)).astype(np.int32))
+    ym = torch.from_numpy((np.arange(5)[None, :] < np.array(
+        [[5], [0], [3]])).astype(np.float32))
+    results = []
+    for dev in ("cpu", cuda_device):
+        leaf = xv.to(dev).requires_grad_(True)
+        before = (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches)
+        c = net.apply({}, {"x": Argument(leaf, xm.to(dev)),
+                           "y": Argument(yv.to(dev), ym.to(dev))})[
+            cost.name].value
+        gx, = torch.autograd.grad(c.sum(), leaf)
+        if dev != "cpu":
+            assert (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches) == (
+                before[0] + 1, before[1] + 1)
+        results.append((c.detach().cpu(), gx.cpu()))
+    (c_cpu, g_cpu), (c_gpu, g_gpu) = results
+    torch.testing.assert_close(c_gpu, c_cpu, rtol=1e-4, atol=1e-5)
+    assert (g_gpu - g_cpu).abs().max().item() <= 1e-4 * g_cpu.abs().max(
+    ).item() + 1e-5
