@@ -32,16 +32,25 @@ non-zero without the result line:
    after warmup, beside the bound.
 5. GRU kernel check: at every GRU_SHAPES (batch, hidden, T) — the seq2seq
    path's (50, 512, 50), (64, 256, 100), (1, 512, 50) and the CTC
-   acoustic model's (16, 1024, 400) — with a ragged
+   acoustic model's (16, 1024, 400) — and at GRU_ABOVE_LINE (16, 1536,
+   50), above the persistent route's line, with a ragged
    mask, nonzero h0 and the two non-contiguous column slices of one w0
-   [H, 3H] as the weights: the primal kernel in both directions and the
-   residual kernel (ys, hT; hs, gates) within rtol 1e-4 / atol 1e-5 of the
-   plain versions, and every gradient through ``GruFunction`` (both
-   directions; the backward step kernels) per tensor within 1e-4 of the
-   largest entry + 1e-5 of autograd through the plain loop, and of the
-   backward with the plain step. The GRU cell at (50, 512) and
-   (1, 512): both entries' forward against the plain math, the gradient
-   likewise. Times and bounds as in phase 4.
+   [H, 3H] as the weights, on each route the shape has (``gru_route``:
+   the persistent one, one cooperative launch per sequence or reverse
+   chain, and the two-launch one, forced with ``two_launch=True``): the
+   primal kernel in both directions and the residual kernel (ys, hT; hs,
+   gates) within rtol 1e-4 / atol 1e-5 of the plain versions, every
+   gradient through ``GruFunction`` (both directions) per tensor within
+   1e-4 of the largest entry + 1e-5 of autograd through the plain loop,
+   and the backward (the chain kernel, or the per-step kernels) likewise
+   against the backward with the plain step; two chain runs bit-equal.
+   Times of both routes: CUDA events around the primal and residual
+   forward, the whole backward, the chain alone and the two-launch
+   route's per-step loop alone; ``torch.profiler`` device time of the
+   residual forward, the chain kernel and every kernel of the backward;
+   the plain versions; the bounds (the chain's 6 B H^2 T operations).
+   The GRU cell at (50, 512) and (1, 512): both entries' forward against
+   the plain math, the gradient likewise.
 5b. LSTM cell kernel check: at the LSTM-step decoder's decode (32 rows:
    8 sources x beam 4), training (50) and one row, H = 512, nonzero
    peepholes: both entries' h and c within rtol 1e-4 / atol 1e-5 of
@@ -124,8 +133,8 @@ non-zero without the result line:
    50 (source lengths uniform in 10-50, padded to 50; ids from the seed;
    the target is the source reversed): the cost must be finite and fall
    from pass 0 to pass 2, and the fresh process's counts must show the
-   residual GRU kernel, the backward step kernels, the GRU cell and Adam
-   launched. Then the
+   residual GRU kernel, the GRU backward's reverse-chain kernel (and no
+   per-step backward), the GRU cell and Adam launched. Then the
    full-width gradients (8 rows) from the trained checkpoint, card
    against CPU as in phase 6, and ``--job test`` of the checkpoint on the
    card, whose counts must show the primal GRU kernel and the cell's
@@ -182,13 +191,19 @@ non-zero without the result line:
    batches of 16 synthetic utterances (100-400 frames, T/10-T/6
    characters, each frame its character's or the silence's fixed random
    prototype plus noise): the cost must fall and the counts show the CTC
-   forward and backward kernels, the residual GRU kernel, its backward
-   step and Adam. Then the full-width gradients (4 rows, one with an
-   empty transcript) card against CPU as in phase 8, and ``--job test``
+   forward and backward kernels, the residual GRU kernel, Adam and one
+   reverse-chain launch per GRU layer and step (72), with no per-step
+   GRU backward. Then the full-width gradients (4 rows, one with an
+   empty transcript) card against CPU as in phase 8, one step on the
+   card from the checkpoint timed and traced (``torch.profiler``: device
+   busy time, idle share, top kernels), and ``--job test``
    on 2 more batches (cost, ctc_edit_distance; the CTC forward and the
    primal GRU kernel launched, the CTC backward not).
 12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 11c).
+   kernel, with the launches of the main paths (phases 8 to 11c). The
+   two-launch route's backward step (``gru_bwd_step``) runs on no path
+   (every path's shape is on the persistent route): its entries say
+   ``on_path: false`` and must show 0 launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -262,6 +277,9 @@ S2S_GRAD_ROWS = 8
 # GRU kernel check shapes (B, H, T): the seq2seq path's own, a longer one,
 # batch 1, and the CTC acoustic model's (batch 16, 1024 units, 400 frames)
 GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50), (16, 1024, 400)]
+# above the persistent route's line (H = 1452 at batch 16 on 132 SMs):
+# the two-launch route's own check
+GRU_ABOVE_LINE = (16, 1536, 50)
 GRU_CELL_SHAPES = [(50, 512), (1, 512)]
 # beam search of the seq2seq demo's width: beam 4 (the model's default) and
 # outputs of up to 50 words (the longest target trained); 8 sources decode
@@ -326,8 +344,8 @@ FLASH_SHAPES = [
 # path trains at 2e-4; ``--ds2-rate-witness`` runs 5e-4 on the card and
 # on the CPU plain path. Batches are synthetic: 16 utterances of 100-400
 # frames (1-4 s;
-# DS2 trains utterances up to 27 s, cut here because the GRU kernels
-# launch per step and their backward is a per-step host loop), T/10-T/6
+# DS2 trains utterances up to 27 s, cut here to keep the three passes
+# and the CPU gradient reference within the script's time), T/10-T/6
 # characters each, so labels pad to 66 and S = 2 L + 1 <= 133
 DS2 = dict(features=161, hidden=1024, layers=3, chars=28)
 DS2_BATCH, DS2_BATCHES, DS2_PASSES = 16, 4, 3
@@ -424,37 +442,42 @@ def _time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel, calls=20):
+def _device_ms(fn, kernel, calls=20, per_call=1):
     """Device time of one call of ``fn``: the CUDA kernels whose names
-    contain ``kernel`` (or one of a tuple of names; each launched once per
-    call), from
+    contain ``kernel`` (or one of a tuple of names; each launched
+    ``per_call`` times per call), from
     ``torch.profiler`` over ``calls`` calls after one warm call: for a
     kernel shorter than its wrapper's host work, where CUDA events around
     the call measure the host. Each kernel's time is its mean over the
-    launches the trace holds; a trace that holds fewer than half of them
-    (the profiler here drops launches now and then) is taken again, up to
-    three times. Returns (ms, record): the record holds ``calls`` and
-    each trace's launches by kernel name, so that a trace with dropped
-    launches shows beside the time."""
+    launches the trace holds, times ``per_call``; a trace that holds fewer
+    than half of them (the profiler here drops launches now and then) is
+    taken again, up to three times. ``kernel=None``: every CUDA kernel of
+    the calls, summed and divided by ``calls``. Returns (ms, record): the
+    record holds ``calls`` and each trace's launches by kernel name, so
+    that a trace with dropped launches shows beside the time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    names = (kernel,) if isinstance(kernel, str) else kernel
     traces = []
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        names = (kernel,) if isinstance(kernel, str) else kernel
         found = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(n in e.key for n in names)]
+                 and (names is None or any(n in e.key for n in names))]
         traces.append({e.key: e.count for e in found})
-        if found and all(calls // 2 <= e.count <= calls for e in found):
-            return 1e-3 * sum(e.self_device_time_total / e.count
-                              for e in found), dict(calls=calls,
-                                                    traces=traces)
+        record = dict(calls=calls, traces=traces)
+        if found and names is None:
+            return 1e-3 * sum(e.self_device_time_total
+                              for e in found) / calls, record
+        if found and all(calls * per_call // 2 <= e.count
+                         <= calls * per_call for e in found):
+            return 1e-3 * per_call * sum(e.self_device_time_total / e.count
+                                         for e in found), record
     raise AssertionError(f"profiler found {traces} for {kernel} in three "
                          "traces")
 
@@ -722,19 +745,29 @@ def _gru_bound_ms(B, H, T, residuals=False):
                        + T * B * H + outs))
 
 
-def check_gru_shape(B, H, T, seed):
-    """Primal and residual forward against the plain versions (both
-    directions through ``gru_sequence``); every gradient through
-    ``GruFunction`` against autograd of the plain loop; times."""
-    a = _gru_inputs(B, H, T, seed)
-    if a["wg"].is_contiguous() or a["ws"].is_contiguous():
-        raise AssertionError("the GRU check must pass strided w0 slices")
+def _gru_chain_bound_ms(B, H, T):
+    """The backward's reverse chain: its three products, 6*B*H*H per
+    step; dys, mask, gates, h0, hs, W, dhT in; dxs, dh0 out."""
+    return _bound(6.0 * B * H * H * T,
+                  4 * (T * B * H + T * B + 3 * T * B * H + B * H + T * B * H
+                       + 3 * H * H + B * H + 3 * T * B * H + B * H))
+
+
+def _gru_route_check(a, B, H, T, seed, two_launch):
+    """One route at one shape: the primal forward in both directions
+    through ``gru_sequence`` and the residual forward against the plain
+    loops; every gradient through ``GruFunction`` (both directions)
+    against autograd of the plain loop; the backward against the plain
+    step loop; on the chain, two runs bit-equal. Returns (fwd_err,
+    bwd_err, res)."""
     fwd_err, bwd_err = 0.0, 0.0
     names = ("xs", "wg", "ws", "bias", "h0")
+    where = f"GRU B={B} H={H} T={T} two_launch={two_launch}"
     for reverse in (False, True):
         with torch.no_grad():
             got = G.gru_sequence(a["xs"], a["mask"], a["wg"], a["ws"],
-                                 a["bias"], a["h0"], reverse=reverse)
+                                 a["bias"], a["h0"], reverse=reverse,
+                                 two_launch=two_launch)
         leaves = {k: a[k].detach().clone().requires_grad_(True)
                   for k in names}
         xs_p, m_p = ((leaves["xs"].flip(0), a["mask"].flip(0)) if reverse
@@ -745,10 +778,10 @@ def check_gru_shape(B, H, T, seed):
         want = (ys_p.flip(0) if reverse else ys_p, hT_p)
         for name, g, w in zip(("ys", "hT"), got, want):
             if not torch.isfinite(g).all():
-                raise AssertionError(f"GRU B={B} H={H}: {name} not finite")
+                raise AssertionError(f"{where}: {name} not finite")
             fwd_err = max(fwd_err, (g - w).abs().max().item())
             torch.testing.assert_close(
-                g, w.detach(), **TOL, msg=lambda m: f"GRU B={B} H={H} T={T} "
+                g, w.detach(), **TOL, msg=lambda m: f"{where} "
                 f"reverse={reverse} {name}: {m}")
         gen = torch.Generator(device="cuda").manual_seed(seed + reverse)
         dys = torch.randn(want[0].shape, generator=gen, device="cuda")
@@ -758,59 +791,129 @@ def check_gru_shape(B, H, T, seed):
             [leaves[k] for k in names])
         kl = {k: a[k].detach().clone().requires_grad_(True) for k in names}
         ys, hT = G.gru_sequence(kl["xs"], a["mask"], kl["wg"], kl["ws"],
-                                kl["bias"], kl["h0"], reverse=reverse)
+                                kl["bias"], kl["h0"], reverse=reverse,
+                                two_launch=two_launch)
         got_g = torch.autograd.grad((ys * dys).sum() + (hT * dhT).sum(),
                                     [kl[k] for k in names])
         torch.cuda.synchronize()
-        bwd_err = max(bwd_err, _check_grads(
-            f"GRU B={B} H={H} T={T} reverse={reverse}", got_g, want_g,
-            names))
+        bwd_err = max(bwd_err, _check_grads(f"{where} reverse={reverse}",
+                                            got_g, want_g, names))
     xs_b = (a["xs"] + a["bias"]).contiguous()
     args = (xs_b, a["mask"], a["wg"], a["ws"], a["h0"])
-    res_got = G.gru_seq_train(*args)
+    res_got = G.gru_seq_train(*args, two_launch=two_launch)
     torch.cuda.synchronize()
     res_want = G.gru_sequence_residual_plain(*args)
     for name, g, w in zip(("ys", "hs", "gates"), res_got, res_want):
         fwd_err = max(fwd_err, (g - w).abs().max().item())
         torch.testing.assert_close(
-            g, w, **TOL, msg=lambda m: f"GRU residual B={B} H={H} T={T} "
-            f"{name}: {m}")
+            g, w, **TOL, msg=lambda m: f"{where} residual {name}: {m}")
     _, hs, gates = res_got
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     dys = torch.randn(T, B, H, generator=gen, device="cuda")
     dhT = torch.randn(B, H, generator=gen, device="cuda")
     res = (a["mask"], a["wg"], a["ws"], a["h0"], hs, gates, dys, dhT)
-    got_b = G.gru_backward(*res)
+    got_b = G.gru_backward(*res, two_launch=two_launch)
     torch.cuda.synchronize()
     bwd_err = max(bwd_err, _check_grads(
-        f"GRU backward step B={B} H={H} T={T}", got_b,
+        f"{where} backward", got_b,
         G.gru_backward(*res, step=G.gru_bwd_step_plain),
         ("xs", "wg", "ws", "h0")))
-    # one reverse step (the last), on copies of its in-place operands
-    h_pv = hs[-2] if T > 1 else a["h0"]
-    step = lambda fn: fn(dys[-1], a["mask"][-1], gates[-1], h_pv, a["wg"],
-                         a["ws"], dhT.clone(), torch.empty_like(dhT),
+    if not two_launch:
+        again = G.gru_backward(*res)
+        for name, g, g2 in zip(("dxs", "dWg", "dWs", "dh0"), got_b, again):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"{where}: two chain runs differ in "
+                                     f"{name}")
+    return fwd_err, bwd_err, res
+
+
+def check_gru_shape(B, H, T, seed):
+    """Both routes at one shape (the persistent one where ``gru_route``
+    takes it): correctness as ``_gru_route_check``; CUDA-event times of
+    the primal and residual forward and of the whole backward, the device
+    time (``torch.profiler``) of the residual forward and of the reverse
+    chain or per-step kernels; the plain versions' times; the bounds."""
+    a = _gru_inputs(B, H, T, seed)
+    if a["wg"].is_contiguous() or a["ws"].is_contiguous():
+        raise AssertionError("the GRU check must pass strided w0 slices")
+    route = G.gru_route(B, H, G.device_sms(a["xs"]))
+    routes = (False, True) if route == G.PERSISTENT else (True,)
+    row = dict(B=B, H=H, T=T, route=route, fwd_max_abs_err=0.0,
+               bwd_max_abs_err=0.0)
+    xs_b = (a["xs"] + a["bias"]).contiguous()
+    args = (xs_b, a["mask"], a["wg"], a["ws"], a["h0"])
+    reps = 5 if T * B * H > 50 * 50 * 512 else 10
+    calls = 3 if T > 100 else 10
+    for two_launch in routes:
+        fwd_err, bwd_err, res = _gru_route_check(a, B, H, T, seed,
+                                                 two_launch)
+        row["fwd_max_abs_err"] = max(row["fwd_max_abs_err"], fwd_err)
+        row["bwd_max_abs_err"] = max(row["bwd_max_abs_err"], bwd_err)
+        p = "two_launch_" if two_launch else ""
+        kw = dict(two_launch=two_launch)
+        row[p + "ms"] = _time_ms(lambda: G.gru_seq(*args, **kw), reps=reps)
+        row[p + "train_ms"] = _time_ms(lambda: G.gru_seq_train(*args, **kw),
+                                       reps=reps)
+        row[p + "bwd_ms"] = _time_ms(lambda: G.gru_backward(*res, **kw),
+                                     reps=reps)
+        fwd_names, per = ((("gru_gate_kernel", "gru_state_kernel"), T)
+                          if two_launch else (("gru_persistent_kernel",), 1))
+        row[p + "train_device_ms"] = _device_ms(
+            lambda: G.gru_seq_train(*args, **kw), fwd_names, calls, per)[0]
+        # every kernel of the backward: the chain or the per-step kernels
+        # and their cuBLAS products, and the two dW products
+        row[p + "bwd_device_ms"] = _device_ms(
+            lambda: G.gru_backward(*res, **kw), None, calls)[0]
+    mask, wg, ws, h0, hs, gates, dys, dhT = res
+    chain_args = (dys, mask, gates, h0, hs, wg, ws, dhT)
+    def step_loop():  # the two-launch route's reverse chain, no dW
+        dh, drh = dhT.clone(), torch.empty_like(dhT)
+        dxs = torch.empty_like(gates)
+        for t in range(T - 1, -1, -1):
+            G.gru_bwd_step(dys[t], mask[t], gates[t],
+                           hs[t - 1] if t else h0, wg, ws, dh, drh, dxs[t])
+
+    row["step_loop_ms"] = _time_ms(step_loop, reps=reps)
+    if route == G.PERSISTENT:
+        row["chain_ms"] = _time_ms(lambda: G.gru_bwd_chain(*chain_args),
+                                   reps=reps)
+        row["chain_device_ms"] = _device_ms(
+            lambda: G.gru_bwd_chain(*chain_args), "gru_bwd_chain_kernel",
+            calls)[0]
+        row["chain_plain_ms"] = _time_ms(
+            lambda: G.gru_bwd_chain_plain(*chain_args), reps=reps)
+    row["plain_ms"] = _time_ms(lambda: G.gru_sequence_plain(*args),
+                               reps=reps)
+    row["train_plain_ms"] = _time_ms(
+        lambda: G.gru_sequence_residual_plain(*args), reps=reps)
+    row["bwd_plain_ms"] = _time_ms(lambda: G.gru_backward(
+        *res, step=G.gru_bwd_step_plain), reps=reps)
+    # one reverse step (the last) of the two-launch route, on copies of
+    # its in-place operands
+    h_pv = hs[-2] if T > 1 else h0
+    step = lambda fn: fn(dys[-1], mask[-1], gates[-1], h_pv, wg, ws,
+                         dhT.clone(), torch.empty_like(dhT),
                          torch.empty_like(gates[-1]))
-    row = dict(
-        B=B, H=H, T=T, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
-        ms=_time_ms(lambda: G.gru_seq(*args)),
-        plain_ms=_time_ms(lambda: G.gru_sequence_plain(*args)),
-        train_ms=_time_ms(lambda: G.gru_seq_train(*args)),
-        train_plain_ms=_time_ms(lambda: G.gru_sequence_residual_plain(*args)),
-        bwd_ms=_time_ms(lambda: G.gru_backward(*res)),
-        bwd_plain_ms=_time_ms(lambda: G.gru_backward(
-            *res, step=G.gru_bwd_step_plain)),
-        step_ms=_time_ms(lambda: step(G.gru_bwd_step), reps=50),
-        step_plain_ms=_time_ms(lambda: step(G.gru_bwd_step_plain), reps=50))
+    row["step_ms"] = _time_ms(lambda: step(G.gru_bwd_step), reps=50)
+    row["step_plain_ms"] = _time_ms(lambda: step(G.gru_bwd_step_plain),
+                                    reps=50)
     row["bound_ms"], row["bound_by"] = _gru_bound_ms(B, H, T)
     row["train_bound_ms"], row["train_bound_by"] = _gru_bound_ms(B, H, T,
                                                                  True)
+    row["chain_bound_ms"], row["chain_bound_by"] = _gru_chain_bound_ms(
+        B, H, T)
     # one backward step: dy, mask, gates, h_prev, dh, Wg, Ws in; dh, dxs,
     # drh out; the products 2*B*H*H and 2*B*2H*H plus ~25 operations per
     # element
     row["step_bound_ms"], row["step_bound_by"] = _bound(
         6.0 * B * H * H + 25.0 * B * H,
         4 * (B + 6 * B * H + 3 * H * H + 5 * B * H))
+    if route == G.PERSISTENT:
+        for key in ("ms", "train_ms", "bwd_ms", "train_device_ms",
+                    "bwd_device_ms"):
+            row["speedup_" + key] = row["two_launch_" + key] / row[key]
+        row["speedup_chain_vs_step_loop"] = row["step_loop_ms"] / \
+            row["chain_ms"]
     phase("gru_kernel_check", **row)
     return row
 
@@ -856,7 +959,7 @@ def check_gru_cell(B, H, seed):
 
 def check_gru_kernels():
     rows = [check_gru_shape(B, H, T, seed=3 * B + H + T)
-            for B, H, T in GRU_SHAPES]
+            for B, H, T in GRU_SHAPES + [GRU_ABOVE_LINE]]
     cells = [check_gru_cell(B, H, seed=B + 11 * H) for B, H in GRU_CELL_SHAPES]
     return rows, cells
 
@@ -1711,11 +1814,14 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"{title} pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("gru_seq_train", "gru_bwd_step", "gru_cell", "adam",
+    for name in ("gru_seq_train", "gru_bwd_chain", "gru_cell", "adam",
                  *train_kernels):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"{title} --job train never launched "
                                  f"{name}")
+    if counts["gru_bwd_step"]["launches"] != 0:
+        raise AssertionError(f"{title}: the per-step GRU backward ran on "
+                             "the persistent route's shape")
     feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
         _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
     grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
@@ -2734,6 +2840,50 @@ def _write_ds2_config(path, lr=DS2_LR):
         """))
 
 
+def _acoustic_step_trace(build_model, save_dir, utterances):
+    """One training step of the acoustic model on the card from the
+    trained checkpoint (a batch of DS2_BATCH utterances, ``train_step``:
+    forward, backward, Adam): the host-clock median of 3 after one warm
+    step, each ending in a synchronise; and from one step under
+    ``torch.profiler`` the device's busy time (every kernel's device time
+    summed), its idle share and the five kernels that take most."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = build_model()[0]
+    params, _ = load_params(latest_checkpoint(save_dir))
+    tr = SGD(cost, parameters=params, device="cuda",
+             update_equation=Adam(learning_rate=DS2_LR))
+    feed = tr._to_device(_ds2_feeder("cpu")(
+        utterances(np.random.default_rng(SEED), DS2_BATCH)))
+
+    def step():
+        t0 = time.perf_counter()
+        tr.train_step(feed)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    step()
+    step_ms = statistics.median(step() for _ in range(3))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall_ms = step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(
+        step_ms=step_ms, profiled_step_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+        top_kernels=[dict(name=e.key[:80], ms=1e-3 * e.self_device_time_total,
+                          count=e.count) for e in top])
+
+
 def train_acoustic(tmp):
     """--job train of the CTC acoustic model at DeepSpeech2's width
     (Adam(2e-4), 3 passes over 4 fixed batches of 16, --save_dir): the
@@ -2761,11 +2911,19 @@ def train_acoustic(tmp):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"acoustic pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("ctc_alpha_fwd", "ctc_bwd", "gru_seq_train", "gru_bwd_step",
-                 "adam"):
+    for name in ("ctc_alpha_fwd", "ctc_bwd", "gru_seq_train",
+                 "gru_bwd_chain", "adam"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"acoustic --job train never launched "
                                  f"{name}")
+    # the persistent route: one chain a GRU layer and step (6 x 12), no
+    # per-step backward
+    chains = DS2["layers"] * 2 * DS2_PASSES * DS2_BATCHES
+    if (counts["gru_bwd_chain"]["launches"], counts["gru_bwd_step"][
+            "launches"]) != (chains, 0):
+        raise AssertionError(f"acoustic --job train: {counts['gru_bwd_chain']}"
+                             f" chains (expected {chains}), "
+                             f"{counts['gru_bwd_step']} backward steps")
     ns, dsl = _ds2_ns()
     batch = ns["utterances"](np.random.default_rng(SEED + 1), DS2_GRAD_ROWS)
     batch[1] = (batch[1][0], [])  # an empty transcript
@@ -2775,6 +2933,8 @@ def train_acoustic(tmp):
                  **_grads_card_vs_cpu(lambda: ns["acoustic_model"](dsl),
                                       save_dir, feed,
                                       Adam(learning_rate=DS2_LR)))
+    trace = _acoustic_step_trace(lambda: ns["acoustic_model"](dsl),
+                                 save_dir, ns["utterances"])
     out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
                timeout=900)
     line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
@@ -2800,7 +2960,8 @@ def train_acoustic(tmp):
                   steps=summary["steps"], train_seconds=train_s,
                   median_step_ms=summary["median_step_ms"],
                   step_ms=summary["step_ms"], kernels=counts,
-                  grad_check=grads, test=test, test_kernels=test_counts)
+                  grad_check=grads, step_trace=trace, test=test,
+                  test_kernels=test_counts)
     phase("acoustic_train", **result)
     return result
 
@@ -2918,6 +3079,7 @@ def main() -> int:
     crf_err = {k: max(r[f"{k}_max_abs_err"] for r in crf_rows)
                for k in ("fwd", "bwd")}
     gru_fwd_err = max(r["fwd_max_abs_err"] for r in gru_rows)
+    gru_bwd_err = max(r["bwd_max_abs_err"] for r in gru_rows)
     cell_err = max(r["max_abs_err"] for r in cell_rows)
     # the tagger's LSTM runs at H=128, where the JAX package takes the
     # resident-weight _lstm_kernel: its own entries, with the tagger's
@@ -2965,17 +3127,34 @@ def main() -> int:
              path="bilstm_crf_tagger train"),
         dict(_entry("gru_seq", gru_src, "paddle_tpu/ops/gru.py:57",
                     s2s_test["gru_seq"]["launches"], gru_fwd_err, g_row),
-             shape={k: g_row[k] for k in ("B", "H", "T")}),
+             shape={k: g_row[k] for k in ("B", "H", "T")},
+             two_launch_ms=g_row["two_launch_ms"], kernel_route="persistent"),
         dict(_entry("gru_seq_train", gru_src, "paddle_tpu/ops/gru.py:57",
                     s2s_counts["gru_seq_train"]["launches"], gru_fwd_err,
                     g_row, "train_"),
-             shape={k: g_row[k] for k in ("B", "H", "T")}),
+             shape={k: g_row[k] for k in ("B", "H", "T")},
+             device_ms=g_row["train_device_ms"],
+             two_launch_ms=g_row["two_launch_train_ms"],
+             two_launch_device_ms=g_row["two_launch_train_device_ms"],
+             kernel_route="persistent"),
+        dict(_entry("gru_bwd_chain", gru_src,
+                    "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
+                    s2s_counts["gru_bwd_chain"]["launches"], gru_bwd_err,
+                    g_row, "chain_"),
+             shape={k: g_row[k] for k in ("B", "H", "T")},
+             device_ms=g_row["chain_device_ms"],
+             step_loop_ms=g_row["step_loop_ms"],
+             backward_ms=g_row["bwd_ms"],
+             two_launch_backward_ms=g_row["two_launch_bwd_ms"],
+             kernel_route="persistent"),
         dict(_entry("gru_bwd_step", gru_src,
                     "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
-                    s2s_counts["gru_bwd_step"]["launches"],
-                    max(r["bwd_max_abs_err"] for r in gru_rows), g_row,
-                    "step_"),
-             shape={"B": g_row["B"], "H": g_row["H"], "T": 1}),
+                    s2s_counts["gru_bwd_step"]["launches"], gru_bwd_err,
+                    g_row, "step_"),
+             shape={"B": g_row["B"], "H": g_row["H"], "T": 1},
+             on_path=False, kernel_route="two-launch",
+             path="none: the two-launch route's backward (H above the "
+                  "route line); timed here at the seq2seq shape"),
         dict(_entry("gru_cell", gru_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
                     s2s_counts["gru_cell"]["launches"], cell_err, c_row),
@@ -3059,20 +3238,35 @@ def main() -> int:
         dict(_entry("gru_seq_h1024", gru_src, "paddle_tpu/ops/gru.py:57",
                     ac_test["gru_seq"]["launches"], gru_fwd_err, a_row),
              shape={k: a_row[k] for k in ("B", "H", "T")},
+             two_launch_ms=a_row["two_launch_ms"], kernel_route="persistent",
              path="CTC acoustic model test"),
         dict(_entry("gru_seq_train_h1024", gru_src,
                     "paddle_tpu/ops/gru.py:57",
                     ac_counts["gru_seq_train"]["launches"], gru_fwd_err,
                     a_row, "train_"),
              shape={k: a_row[k] for k in ("B", "H", "T")},
-             path="CTC acoustic model train"),
+             device_ms=a_row["train_device_ms"],
+             two_launch_ms=a_row["two_launch_train_ms"],
+             two_launch_device_ms=a_row["two_launch_train_device_ms"],
+             kernel_route="persistent", path="CTC acoustic model train"),
+        dict(_entry("gru_bwd_chain_h1024", gru_src,
+                    "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
+                    ac_counts["gru_bwd_chain"]["launches"], gru_bwd_err,
+                    a_row, "chain_"),
+             shape={k: a_row[k] for k in ("B", "H", "T")},
+             device_ms=a_row["chain_device_ms"],
+             step_loop_ms=a_row["step_loop_ms"],
+             backward_ms=a_row["bwd_ms"],
+             two_launch_backward_ms=a_row["two_launch_bwd_ms"],
+             kernel_route="persistent", path="CTC acoustic model train"),
         dict(_entry("gru_bwd_step_h1024", gru_src,
                     "JAX lax.scan paddle_tpu/ops/gru.py:135 (_bwd_rule)",
-                    ac_counts["gru_bwd_step"]["launches"],
-                    max(r["bwd_max_abs_err"] for r in gru_rows), a_row,
-                    "step_"),
+                    ac_counts["gru_bwd_step"]["launches"], gru_bwd_err,
+                    a_row, "step_"),
              shape={"B": a_row["B"], "H": a_row["H"], "T": 1},
-             path="CTC acoustic model train"),
+             on_path=False, kernel_route="two-launch",
+             path="none: the two-launch route's backward (H above the "
+                  "route line); timed here at the acoustic model's shape"),
         dict(_entry("ctc_alpha_fwd", ctc_src, "paddle_tpu/ops/ctc.py:87",
                     ac_counts["ctc_alpha_fwd"]["launches"]
                     + ac_test["ctc_alpha_fwd"]["launches"],
@@ -3095,8 +3289,11 @@ def main() -> int:
              path="CTC acoustic model train"),
     ]
     for e in entries:
-        if e["launches"] <= 0:
+        if e.get("on_path", True) and e["launches"] <= 0:
             raise AssertionError(f"the main path never launched {e['name']}")
+        if not e.get("on_path", True) and e["launches"] != 0:
+            raise AssertionError(f"{e['name']} is off the route of every "
+                                 f"path, yet launched {e['launches']}")
     kernels = {"kernels": entries}
     elapsed = time.perf_counter() - t_start
     phase("elapsed", seconds=elapsed)

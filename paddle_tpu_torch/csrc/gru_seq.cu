@@ -1,12 +1,14 @@
 // Masked GRU sequence recurrence and the single GRU step, f32, for Hopper
 // (sm_90a): the sequence forward in its primal and its residual (training)
-// form, the one-step cell forward, and the backward's per-step chain.
+// form, the one-step cell forward, and the backward's reverse chain.
 //
 // Replaces the TPU kernels paddle_tpu/ops/gru.py:_gru_kernel (both forms;
 // Wg [H, 2H] and Ws [H, H] resident in VMEM across the time grid) and
 // paddle_tpu/kernels/rnn_cells.py:_gru_cell_kernel (one step, both
-// recurrent products inside the kernel). Both compute, with the gate bias
-// already folded into x (gate order [update z, reset r, candidate c]):
+// recurrent products inside the kernel), and gives the JAX backward
+// (_bwd_rule, ops/gru.py:135-166, a reverse lax.scan left to XLA) kernels
+// of its own. All compute, with the gate bias already folded into x (gate
+// order [update z, reset r, candidate c]):
 //
 //   z = sigmoid(x_z + h_{t-1} @ Wg[:, :H])
 //   r = sigmoid(x_r + h_{t-1} @ Wg[:, H:])
@@ -14,29 +16,74 @@
 //   h_new = h_{t-1} - z * h_{t-1} + z * c   (JAX's spelling, not (1-z)h + zc)
 //   sequence only: mask == 0 holds h (h_t = h_{t-1}), ys[t] = h_new * mask
 //
-// The primal form (gru_seq_forward) writes ys and the final h. The residual
-// form (gru_seq_forward_train) also writes, per step, the guarded hs[t] and
-// gates[t] = [z | r | c] (each block H wide), the residuals of _fwd_rule
-// (ops/gru.py:129-132); hs doubles as the h buffer (h_{t-1} is hs[t-1], h0
-// at t = 0). The cell (gru_cell_forward) is one unmasked step: out = h_new.
+// The primal form writes ys and the final h. The residual form also
+// writes, per step, the guarded hs[t] and gates[t] = [z | r | c] (each
+// block H wide), the residuals of _fwd_rule (ops/gru.py:129-132). The cell
+// (gru_cell_forward) is one unmasked step: out = h_new.
 //
-// Design. The candidate product (r * h) @ Ws needs the reset gate of EVERY
-// unit, and r comes from h @ Wg: a step is two dependent products. At
-// H = 512, Wg and Ws together are 3 MB, far beyond one SM's 228 KB, so no
-// block can hold the weights and run a step alone. Each step is therefore
-// two launches on the caller's stream, the launch being the barrier
-// between them (no cooperative grid sync):
+// Two routes, chosen by shape (ops/gru.py:gru_route mirrors the arithmetic
+// of persistent_smem below):
+//
+// 1. Persistent (gru_seq_forward_persistent, gru_bwd_chain_launch): one
+//    cooperative launch per sequence and one per reverse chain. The card
+//    has 132 SMs x 227 KB = 30 MB of shared memory; split by hidden units
+//    across a grid of at most one block per SM, the weights fit: block p
+//    owns the U = ceil(H / SMs) units [p U, p U + U) and holds, for the
+//    whole launch, 3 U H floats of them in shared memory (the forward the
+//    z, r columns of Wg and the c columns of Ws, transposed; the backward
+//    the rows of Wg and Ws, which the transposed products read). H = 1024:
+//    U = 8, 96 KB a block; H = 512: U = 4, 24 KB. A forward step is
+//      A. stage h_{t-1} [B, H] (cp.async.cg; all of it at once where it
+//         fits beside the weights, else in double-buffered chunks), z
+//         and r of the block's units on all rows, r * h_{t-1} into a
+//         [B, H] scratch (rh); grid barrier;
+//      B. stage rh, c and h_new, the mask guard, ys and the state;
+//         grid barrier.
+//    A reverse step is: 1. elementwise on the block's units (dh_new, dz,
+//    da_c, da_z and the first two terms of dh_prev; da_z, da_c into dxs);
+//    barrier; 2. stage da_c, drh = da_c @ Ws^T for the block's units, dr,
+//    da_r into dxs, + drh * r; arrive at the next barrier; 3a. stage da_z
+//    (out since the first barrier), + da_z @ Wg[:, :H]^T while the others
+//    arrive; wait; 3b. stage da_r, + da_r @ Wg[:, H:]^T. Step t-1's phase
+//    1 reads only the block's own dh carry, so two barriers a step
+//    suffice. Every product is over K = H columns. Each thread sums a
+//    4-row x 4-column tile over an interleaved slice of K (float4 reads
+//    of the staged rows and the resident weights); a tile's slices are
+//    neighbouring lanes of a warp, added by a butterfly of shuffles: f32
+//    FMAs in a fixed order, no atomics, two runs give the same bits. The
+//    grid barrier is an arrival counter (zeroed before each launch):
+//    __threadfence, atomicAdd, spin on an acquire load until it reaches
+//    (barrier number) x (blocks). Each block's own inputs (x and the mask
+//    forward; gates, h_prev, dy and the mask backward) are copied into
+//    shared memory a step ahead.
+//    Cross-block data (h, rh, dxs) is read only through L2 (cp.async.cg),
+//    never through the non-coherent L1.
+//    The launcher checks cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+//    SMs against the grid and returns -2 where the grid would not be
+//    co-resident (-1: the shared memory exceeds the opt-in limit; -3: no
+//    cooperative launch); the wrapper raises with the reason.
+//    The route line: a block's shared memory is 3 U H weights + the
+//    staging (B x H, or two buffers of B x kc floats, 32 <= kc < H) + what
+//    it keeps of its own units (the carries, and their inputs a step
+//    ahead: 8 B U + 2 B floats forward, 11 B U + 2 B backward), within
+//    232,448 bytes; H % 4 == 0 (16-byte copies) and ceil(B/4) ceil(2U/4)
+//    <= 256 tiles. On 132 SMs the largest H on the route is 1524 at
+//    B = 16, 1452 at B = 50, 1396 at B = 64 and 1584 at B = 1; above it
+//    the two-launch route runs.
+//
+// 2. Two launches a step (gru_seq_forward, gru_seq_forward_train; the
+//    cell always): the launch is the barrier between the phases.
 //   A. gru_gate_kernel: blocks own a tile of kRows batch rows by kUnits
 //      units and sum h_{t-1} @ Wg for the z and r columns of their units;
-//      they write z and r into gates_t and r * h_{t-1} into a [B, H]
-//      scratch (rh).
+//      they write z and r into gates_t and r * h_{t-1} into rh.
 //   B. gru_state_kernel: the same tiling over rh @ Ws; each thread then has
 //      everything its unit needs: c, h_new, the mask guard, ys and the
 //      residual c.
-// The tile product streams the rows of h (or rh) and the block's weight
-// columns through shared memory in chunks of kK and sums in f32
-// registers (each thread: kRowsPerThread rows of one unit, every gate
-// column the phase needs), as csrc/lstm_seq.cu does.
+//   The tile product streams the rows of h (or rh) and the block's weight
+//   columns through shared memory in chunks of kK and sums in f32
+//   registers, as csrc/lstm_seq.cu does. Its backward is the per-step
+//   pair gru_bwd_gate_kernel / gru_bwd_reset_kernel below, with a cuBLAS
+//   product after each, issued by the wrapper.
 //
 // Strided weights. The layers slice one parameter w0 [H, 3H] into
 // Wg = w0[:, :2H] and Ws = w0[:, 2H:]: views whose rows lie 3H apart. The
@@ -46,20 +93,18 @@
 //
 // Bound on the H100 (SXM, 700 W): the two products are 2 * B * H * 3H
 // operations per step at the f32 rate outside the tensor cores
-// (67 TFLOP/s); the bytes are xs, ys (and the residuals) once, plus W once
-// per step, which stays in the 50 MB L2 between steps. At B = 50,
-// H = 512 a step is 79 MFLOP, about 1.2 us at that rate, against the two
-// launches' own latency of a few microseconds: this shape is bound by the
-// launches and by how few blocks one tile grid makes (16 x 4 = 64 of 132
-// SMs), not by the operations. Not yet done: one persistent cooperative
-// kernel per sequence holding W slices in shared memory across steps,
-// wgmma on TF32/bf16 tiles, TMA loads.
-
-// Backward step. The JAX backward (_bwd_rule, ops/gru.py:135-166) is a
-// reverse-time lax.scan, not a Pallas kernel. Its per-step chain has two
+// (67 TFLOP/s), the backward chain's three 6 B H^2; the bytes are xs, ys
+// (and the residuals) once, plus W once. At B = 16, H = 1024, T = 400 that
+// is 0.601 ms of operations for the sequence and for the chain; at
+// B = 50, H = 512, T = 50, 0.0587 ms. The persistent route pays per step
+// two grid barriers, the L2 reads of h (every block stages all of it) and
+// the products at the FMA rate of the tiles; the two-launch route pays two
+// launches and 2 x H/32 dependent L2 round trips per step, with W read
+// from L2 each time.
+//
+// Backward step of the two-launch route. Its per-step chain has two
 // products in the middle (drh = da_c @ Ws^T, needed by da_r, and
-// da_zr @ Wg^T, the last term of dh_prev), so it is two elementwise
-// kernels with a cuBLAS product after each, issued by the wrapper:
+// da_zr @ Wg^T, the last term of dh_prev):
 //   gru_bwd_gate_kernel:  da_z, da_c and the first two terms of dh_prev;
 //   (drh = da_c @ Ws^T)
 //   gru_bwd_reset_kernel: da_r and the third term (drh * r);
@@ -380,4 +425,585 @@ extern "C" int gru_bwd_reset(const float* drh, const float* gates_t,
                          static_cast<cudaStream_t>(stream)>>>(
       drh, gates_t, h_pv, dh, dxs_t, B, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// The persistent route: one cooperative launch per sequence or chain.
+
+namespace {
+
+constexpr int kPThreads = 256;    // threads of a persistent block
+constexpr int kTileRows = 4;      // rows of a thread's product tile
+constexpr int kTileCols = 4;      // columns (gate columns of units)
+constexpr int kMaxSlices = 32;    // K slices of one tile
+constexpr int kSmemLimit = 232448;
+
+// The K slices each product tile is split into: the threads left over by
+// the tiles, rounded down to a power of two (a tile's slices are
+// neighbouring lanes of one warp), at most kMaxSlices; 0 if the tiles
+// outnumber the threads.
+__host__ __device__ inline int slices_of(int B, int nc) {
+  const int tiles = ((B + kTileRows - 1) / kTileRows) *
+                    ((nc + kTileCols - 1) / kTileCols);
+  if (tiles > kPThreads) return 0;
+  int s = 1;
+  while (2 * s <= kMaxSlices && 2 * s * tiles <= kPThreads) s *= 2;
+  return s;
+}
+
+// Floats of what a block keeps of its own units: the forward's z and h
+// carries and, double-buffered a step ahead, its x columns and the mask;
+// the backward's dh carry and, likewise, its gate, h_prev and dy columns
+// and the mask.
+__host__ __device__ inline int own_floats(int B, int U, bool backward) {
+  return backward ? B * U + 2 * (5 * B * U + B)
+                  : 2 * B * U + 2 * (3 * B * U + B);
+}
+
+// Floats of the staging area for products over up to K columns in
+// chunks of kc: one buffer of the whole width where kc covers it (every
+// copy in flight at once), else two of kc (double-buffered).
+__host__ __device__ inline long long stage_floats(int B, int K, int kc) {
+  return kc >= K ? 1LL * B * K : 2LL * B * kc;
+}
+
+// Shared-memory bytes of a persistent block: resident weights, the
+// staging area and what it keeps of its own units.
+__host__ __device__ inline long long persistent_smem(int B, int H, int U,
+                                                     int kc, bool backward) {
+  return 4LL * (3LL * U * H + stage_floats(B, H, kc) +
+                own_floats(B, U, backward));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The grid barrier, in two halves so that a block may work between them
+// on what needs nobody else's output. grid_arrive counts the block in:
+// the fence publishes its writes (ordered before thread 0 by the
+// __syncthreads). grid_wait returns once `target` arrivals (this
+// barrier's number times the grid) have been counted: the acquire load,
+// the fence and the __syncthreads order the block's later reads after the
+// others' writes. The counter only grows, so a block that is a barrier
+// ahead cannot release one that is behind.
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* count,
+                                          unsigned target) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(count) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  grid_arrive(count);
+  grid_wait(count, target);
+}
+
+// Columns [k0, k0 + w) of rows b < B of a (row stride lda) into
+// buf[b * ld + k - k0], 16 bytes a copy through L2.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ a,
+                                            size_t lda, int k0, int w,
+                                            int B, int ld, float* buf) {
+  // thread i copies float4 i, i + kPThreads, ... of the B x w/4 grid; its
+  // (row, column) advances by (step_b, step_q) with one carry, so the
+  // loop divides only once
+  const int q4 = w / 4;
+  const int step_b = kPThreads / q4, step_q = kPThreads % q4;
+  int b = threadIdx.x / q4, q = threadIdx.x % q4;
+  while (b < B) {
+    cp_async16(buf + b * ld + 4 * q,
+               a + static_cast<size_t>(b) * lda + k0 + 4 * q);
+    b += step_b;
+    q += step_q;
+    if (q >= q4) {
+      q -= q4;
+      ++b;
+    }
+  }
+}
+
+// acc(b, c) = sum_{k < K} a[b * lda + k] * w[c * ldw + k] for b < B and
+// c < nc, with a in global memory and w resident in shared memory;
+// epi(b, c, acc) once for each (b, c), by one thread. Where kc >= K the
+// whole width is staged at once (one copy group; splitting it into groups
+// summed as they land measured slower on the H100), else in
+// double-buffered chunks of equal width <= kc. Each thread sums a
+// kTileRows x kTileCols tile over the float4 groups q = s, s + ks, ... of
+// its slice s of each chunk; the slices' partials are added by
+// a butterfly across the tile's lanes. Every thread of the block calls
+// it; it ends with the block synchronised.
+template <class Epi>
+__device__ __forceinline__ void block_product(
+    const float* __restrict__ a, size_t lda, int K,
+    const float* __restrict__ w, int ldw, int nc, int B, int kc,
+    float* stage, Epi epi) {
+  const int nrt = (B + kTileRows - 1) / kTileRows;
+  const int ks = slices_of(B, nc);
+  const int items = nrt * ((nc + kTileCols - 1) / kTileCols) * ks;
+  const int s = threadIdx.x % ks;
+  const int tile = threadIdx.x / ks;
+  const int rt = tile % nrt, ct = tile / nrt;
+  const bool active = static_cast<int>(threadIdx.x) < items;
+  int rows[kTileRows], cols[kTileCols];
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) rows[r] = min(rt * kTileRows + r, B - 1);
+#pragma unroll
+  for (int c = 0; c < kTileCols; ++c)
+    cols[c] = min(ct * kTileCols + c, nc - 1);
+  float acc[kTileRows][kTileCols];
+#pragma unroll
+  for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kTileCols; ++c) acc[r][c] = 0.0f;
+  }
+  // columns [k0, k0 + wk) of a, staged at buf[b * ld + k - k0]
+  auto sum_tile = [&](const float* buf, int ld, int k0, int wk) {
+    for (int q = s; q < wk / 4; q += ks) {
+      float4 hv[kTileRows], wv[kTileCols];
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r)
+        hv[r] = *reinterpret_cast<const float4*>(buf + rows[r] * ld + 4 * q);
+#pragma unroll
+      for (int c = 0; c < kTileCols; ++c)
+        wv[c] = *reinterpret_cast<const float4*>(
+            w + static_cast<size_t>(cols[c]) * ldw + k0 + 4 * q);
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+        for (int c = 0; c < kTileCols; ++c) {
+          float v = acc[r][c];
+          v = fmaf(hv[r].x, wv[c].x, v);
+          v = fmaf(hv[r].y, wv[c].y, v);
+          v = fmaf(hv[r].z, wv[c].z, v);
+          v = fmaf(hv[r].w, wv[c].w, v);
+          acc[r][c] = v;
+        }
+      }
+    }
+  };
+  if (K <= kc) {
+    stage_chunk(a, lda, 0, K, B, K, stage);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) sum_tile(stage, K, 0, K);
+  } else {
+    // nch chunks of (nearly) equal width cw <= kc
+    const int nch = (K + kc - 1) / kc;
+    const int cw = 4 * ((K / 4 + nch - 1) / nch);
+    stage_chunk(a, lda, 0, cw, B, cw, stage);
+    cp_async_commit();
+    for (int ch = 0; ch < nch; ++ch) {
+      const int k0 = ch * cw;
+      if (ch + 1 < nch) {
+        stage_chunk(a, lda, k0 + cw, min(cw, K - k0 - cw), B, cw,
+                    stage + ((ch + 1) & 1) * B * cw);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) sum_tile(stage + (ch & 1) * B * cw, cw, k0, min(cw, K - k0));
+      __syncthreads();
+    }
+  }
+  // the slices of a tile are ks neighbouring lanes: a butterfly leaves
+  // every one of them the same sum (each addition is a + b on both
+  // sides), in an order fixed by ks; lane s then finishes the tile's
+  // outputs r * kTileCols + c = s (mod ks)
+  // (each level's 16 shuffles are independent: they pipeline)
+  for (int off = ks / 2; off > 0; off /= 2) {
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < kTileCols; ++c)
+        acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+    }
+  }
+  // one call site of epi (inlined once, not per tile entry)
+#pragma unroll 1
+  for (int idx = s; idx < kTileRows * kTileCols; idx += ks) {
+    float v = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) {
+#pragma unroll
+      for (int c = 0; c < kTileCols; ++c) {
+        if (r * kTileCols + c == idx) v = acc[r][c];
+      }
+    }
+    const int b = rt * kTileRows + idx / kTileCols;
+    const int cc = ct * kTileCols + idx % kTileCols;
+    if (active && b < B && cc < nc) epi(b, cc, v);
+  }
+  __syncthreads();
+}
+
+// The forward sequence, one launch. kResidual: writes hs and gates (h
+// unused); otherwise the state ping-pongs in h [2, B, H] (h[0] = h0 on
+// entry, h[T % 2] = hT on return; hs, gates unused).
+template <bool kResidual>
+__global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
+    const float* __restrict__ xs,    // [T, B, 3H], bias folded
+    const float* __restrict__ mask,  // [T, B]
+    const float* __restrict__ wg,    // [H, 2H], leading dim ldg
+    const float* __restrict__ w_s,   // [H, H], leading dim lds
+    const float* __restrict__ h0,    // [B, H]
+    float* h, float* __restrict__ ys, float* hs, float* __restrict__ gates,
+    float* rh, unsigned* count, int ldg, int lds, int T, int B, int H, int U,
+    int kc) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const int u0 = blockIdx.x * U;
+  const int up = min(U, H - u0);
+  float* const wa = sm;                      // [2 up][H]: z, r columns
+  float* const wb = wa + 2 * U * H;          // [up][H]: c columns
+  float* const stage = wb + U * H;           // [B][H] or [2][B][kc]
+  float* const z_own = stage + stage_floats(B, H, kc);  // [B][U]
+  float* const h_own = z_own + B * U;           // [B][U]
+  float* const x_own = h_own + B * U;  // [2][B][3U]: x of the units
+  float* const m_own = x_own + 6 * B * U;       // [2][B]
+  const size_t bh = static_cast<size_t>(B) * H;
+  const size_t H3 = 3 * static_cast<size_t>(H);
+  // the x columns of the block's units and the mask of step t, into
+  // buffer t & 1 (read-only inputs: a step ahead, through L1)
+  auto prefetch = [&](int t) {
+    const float* x_t = xs + static_cast<size_t>(t) * B * H3;
+    float* xb = x_own + (t & 1) * 3 * B * U;
+    for (int i = threadIdx.x; i < 3 * B * up; i += kPThreads) {
+      const int b = i / (3 * up), cu = i % (3 * up);
+      const int g = cu / up, u = cu % up;
+      cp_async4(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
+    }
+    for (int b = threadIdx.x; b < B; b += kPThreads)
+      cp_async4(m_own + (t & 1) * B + b,
+                mask + static_cast<size_t>(t) * B + b);
+  };
+
+  for (int i = threadIdx.x; i < 2 * up * H; i += kPThreads) {
+    const int k = i / (2 * up), cu = i % (2 * up);
+    const int g = cu / up, u = cu % up;
+    cp_async4(wa + cu * H + k,
+              wg + static_cast<size_t>(k) * ldg + g * H + u0 + u);
+  }
+  for (int i = threadIdx.x; i < up * H; i += kPThreads) {
+    const int k = i / up, u = i % up;
+    cp_async4(wb + u * H + k, w_s + static_cast<size_t>(k) * lds + u0 + u);
+  }
+  prefetch(0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    h_own[b * U + u] = h0[b * H + u0 + u];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned arrivals = 0;
+  for (int t = 0; t < T; ++t) {
+    const float* h_prev =
+        kResidual ? (t ? hs + (t - 1) * bh : h0) : h + (t & 1) * bh;
+    const float* xb = x_own + (t & 1) * 3 * B * U;
+    const float* mb = m_own + (t & 1) * B;
+    float* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3
+                           : nullptr;
+    if (t + 1 < T) {
+      prefetch(t + 1);
+      cp_async_commit();
+    }
+    block_product(h_prev, H, H, wa, H, 2 * up, B, kc, stage,
+                  [&](int b, int c, float acc) {
+                    const int g = c >= up, u = c - g * up, j = u0 + u;
+                    const float v =
+                        sigmoid_f(xb[b * 3 * U + g * U + u] + acc);
+                    if (g == 0) {
+                      z_own[b * U + u] = v;
+                    } else {
+                      rh[b * H + j] = v * h_own[b * U + u];
+                    }
+                    if (kResidual) g_t[b * H3 + g * H + j] = v;
+                  });
+    arrivals += gridDim.x;
+    grid_barrier(count, arrivals);
+    block_product(rh, H, H, wb, H, up, B, kc, stage,
+                  [&](int b, int u, float acc) {
+                    const int j = u0 + u;
+                    const float c = tanhf(xb[b * 3 * U + 2 * U + u] + acc);
+                    const float hp = h_own[b * U + u];
+                    const float z = z_own[b * U + u];
+                    const float h_new = (hp - z * hp) + z * c;
+                    const float m = mb[b];
+                    const float hn = m > 0.0f ? h_new : hp;
+                    h_own[b * U + u] = hn;
+                    const size_t o = static_cast<size_t>(t) * bh +
+                                     static_cast<size_t>(b) * H + j;
+                    ys[o] = h_new * m;
+                    if (kResidual) {
+                      hs[o] = hn;
+                      g_t[b * H3 + 2 * H + j] = c;
+                    } else {
+                      h[((t + 1) & 1) * bh + b * H + j] = hn;
+                    }
+                  });
+    if (t + 1 < T) {
+      arrivals += gridDim.x;
+      grid_barrier(count, arrivals);
+    }
+  }
+}
+
+// The backward's reverse chain, one launch: dxs [T, B, 3H] and dh0 from
+// the residuals (hs, gates), the cotangents dys and dhT. Block p holds the
+// rows of Wg (2H) and Ws (H) of its units and their dh carry.
+__global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
+    const float* __restrict__ dys,    // [T, B, H]
+    const float* __restrict__ mask,   // [T, B]
+    const float* __restrict__ gates,  // [T, B, 3H]: z, r, c
+    const float* __restrict__ h0,     // [B, H]
+    const float* __restrict__ hs,     // [T, B, H]
+    const float* __restrict__ wg,     // [H, 2H], leading dim ldg
+    const float* __restrict__ w_s,    // [H, H], leading dim lds
+    const float* __restrict__ dhT,    // [B, H]
+    float* dxs, float* __restrict__ dh0, unsigned* count, int ldg, int lds,
+    int T, int B, int H, int U, int kc) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const int u0 = blockIdx.x * U;
+  const int up = min(U, H - u0);
+  float* const w2 = sm;                    // [up][H]: rows of Ws
+  float* const w3 = w2 + U * H;            // [up][2H]: rows of Wg
+  float* const stage = w3 + 2 * U * H;     // [B][H] or [2][B][kc]
+  float* const dh = stage + stage_floats(B, H, kc);  // [B][U]
+  // [2][B][5U]: z, r, c, h_prev and dy of the block's units
+  float* const in_own = dh + B * U;
+  float* const m_own = in_own + 10 * B * U;  // [2][B]
+  const size_t bh = static_cast<size_t>(B) * H;
+  const size_t H3 = 3 * static_cast<size_t>(H);
+  // the inputs of reverse step t for the block's units, into buffer t & 1
+  // (read-only: a step ahead, through L1)
+  auto prefetch = [&](int t) {
+    const float* g_t = gates + static_cast<size_t>(t) * B * H3;
+    const float* h_pv = t ? hs + (t - 1) * bh : h0;
+    const float* dy = dys + static_cast<size_t>(t) * bh;
+    float* ib = in_own + (t & 1) * 5 * B * U;
+    for (int i = threadIdx.x; i < 5 * B * up; i += kPThreads) {
+      const int b = i / (5 * up), cu = i % (5 * up);
+      const int g = cu / up, u = cu % up, j = u0 + u;
+      const float* src = g < 3 ? g_t + b * H3 + g * H + j
+                               : (g == 3 ? h_pv : dy) + b * H + j;
+      cp_async4(ib + b * 5 * U + g * U + u, src);
+    }
+    for (int b = threadIdx.x; b < B; b += kPThreads)
+      cp_async4(m_own + (t & 1) * B + b,
+                mask + static_cast<size_t>(t) * B + b);
+  };
+
+  for (int i = threadIdx.x; i < up * H; i += kPThreads) {
+    const int u = i / H, k = i % H;
+    cp_async4(w2 + i, w_s + static_cast<size_t>(u0 + u) * lds + k);
+  }
+  for (int i = threadIdx.x; i < up * 2 * H; i += kPThreads) {
+    const int u = i / (2 * H), k = i % (2 * H);
+    cp_async4(w3 + i, wg + static_cast<size_t>(u0 + u) * ldg + k);
+  }
+  prefetch(T - 1);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    dh[b * U + u] = dhT[b * H + u0 + u];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned arrivals = 0;
+  for (int t = T - 1; t >= 0; --t) {
+    const float* ib = in_own + (t & 1) * 5 * B * U;
+    const float* mb = m_own + (t & 1) * B;
+    float* dx_t = dxs + static_cast<size_t>(t) * B * H3;
+    if (t > 0) {
+      prefetch(t - 1);
+      cp_async_commit();
+    }
+    // 1. the block's units, elementwise
+    for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+      const int b = i / up, u = i % up, j = u0 + u;
+      const float* in = ib + b * 5 * U;
+      const float m = mb[b];
+      const float z = in[u];
+      const float c = in[2 * U + u];
+      const float hp = in[3 * U + u];
+      const float d = dh[b * U + u];
+      const float dh_new = m * (d + in[4 * U + u]);
+      const float dz = dh_new * (c - hp);
+      dx_t[b * H3 + 2 * H + j] = (dh_new * z) * (1.0f - c * c);
+      dx_t[b * H3 + j] = (dz * z) * (1.0f - z);
+      dh[b * U + u] = (1.0f - m) * d + dh_new * (1.0f - z);
+    }
+    arrivals += gridDim.x;
+    grid_barrier(count, arrivals);
+    // 2. drh = da_c @ Ws^T for the block's units; da_r; + drh * r
+    block_product(dx_t + 2 * H, H3, H, w2, H, up, B, kc, stage,
+                  [&](int b, int u, float drh) {
+                    const int j = u0 + u;
+                    const float* in = ib + b * 5 * U;
+                    const float r = in[U + u];
+                    const float dr = drh * in[3 * U + u];
+                    dx_t[b * H3 + H + j] = (dr * r) * (1.0f - r);
+                    dh[b * U + u] = dh[b * U + u] + drh * r;
+                  });
+    // 3. + da_z @ Wg[:, :H]^T (every da_z is out since the barrier
+    // above), then, once every block has written its da_r,
+    // + da_r @ Wg[:, H:]^T
+    arrivals += gridDim.x;
+    grid_arrive(count);
+    block_product(dx_t, H3, H, w3, 2 * H, up, B, kc, stage,
+                  [&](int b, int u, float p) {
+                    dh[b * U + u] = dh[b * U + u] + p;
+                  });
+    grid_wait(count, arrivals);
+    block_product(dx_t + H, H3, H, w3 + H, 2 * H, up, B, kc, stage,
+                  [&](int b, int u, float p) {
+                    dh[b * U + u] = dh[b * U + u] + p;
+                  });
+  }
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    dh0[b * H + u0 + u] = dh[b * U + u];
+  }
+}
+
+// Checks that `kernel` with `smem` bytes fits the card as a cooperative
+// grid of `grid` blocks, then launches it. Returns 0, a CUDA error, or
+// -1 (shared memory above the card's opt-in limit), -2 (the grid does not
+// fit on the card at once), -3 (no cooperative launch on this device).
+int launch_cooperative(const void* kernel, int grid, long long smem,
+                       void** args, cudaStream_t s) {
+  int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return -3;
+  if (smem > optin || smem > kSmemLimit) return -1;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kPThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * sms < grid) return -2;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kPThreads),
+                                    args, static_cast<size_t>(smem), s);
+  return static_cast<int>(err);
+}
+
+bool bad_plan(int B, int H, int U, int kc) {
+  return B < 1 || H < 4 || H % 4 != 0 || U < 1 || kc < 4 || kc % 4 != 0 ||
+         slices_of(B, 2 * U) == 0;
+}
+
+}  // namespace
+
+// Shared-memory bytes of a persistent block (backward != 0: the chain's),
+// as the launchers compute them; the wrapper's route mirrors it.
+extern "C" long long gru_persistent_smem(int B, int H, int U, int kc,
+                                         int backward) {
+  return persistent_smem(B, H, U, kc, backward != 0);
+}
+
+// The forward sequence on the persistent route: one cooperative launch of
+// ceil(H / U) blocks, U units each, staging chunks of kc floats (a
+// multiple of 4; H % 4 == 0). residual != 0: the residual form (ys, hs,
+// gates from h0; h unused), else the primal form (h [2, B, H] with
+// h[0] = h0; hT in h[T % 2]). rh ([B, H]) and count (one unsigned, zeroed
+// here on the stream) are scratch. Returns 0, a CUDA error, -1/-2/-3 (see
+// launch_cooperative) or -4 (a plan the kernel does not take).
+extern "C" int gru_seq_forward_persistent(
+    const float* xs, const float* mask, const float* wg, const float* w_s,
+    const float* h0, float* h, float* ys, float* hs, float* gates, float* rh,
+    unsigned* count, int residual, int ldg, int lds, int T, int B, int H,
+    int U, int kc, void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs, &mask, &wg, &w_s, &h0, &h, &ys, &hs, &gates, &rh,
+                  &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  const int grid = (H + U - 1) / U;
+  const long long smem = persistent_smem(B, H, U, kc, false);
+  return residual
+             ? launch_cooperative(
+                   (const void*)gru_persistent_kernel<true>,
+                   grid, smem, args, s)
+             : launch_cooperative(
+                   (const void*)gru_persistent_kernel<false>,
+                   grid, smem, args, s);
+}
+
+// The backward's reverse chain on the persistent route: dxs ([T, B, 3H])
+// and dh0 ([B, H]) from the residuals of the forward. Same plan, scratch
+// and error contract as gru_seq_forward_persistent.
+extern "C" int gru_bwd_chain_launch(const float* dys, const float* mask,
+                                    const float* gates, const float* h0,
+                                    const float* hs, const float* wg,
+                                    const float* w_s, const float* dhT,
+                                    float* dxs, float* dh0, unsigned* count,
+                                    int ldg, int lds, int T, int B, int H,
+                                    int U, int kc, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    return static_cast<int>(cudaMemcpyAsync(
+        dh0, dhT, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &h0,  &hs,  &wg, &w_s, &dhT, &dxs,
+                  &dh0, &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  return launch_cooperative(
+      (const void*)gru_bwd_chain_kernel,
+      (H + U - 1) / U, persistent_smem(B, H, U, kc, true), args, s);
 }

@@ -3,25 +3,38 @@
 The port's counterpart of ``paddle_tpu/ops/gru.py``. On the TPU the whole
 masked recurrence is one Pallas kernel (``_gru_kernel``) in a primal form
 for inference and a residual form for training; the backward
-(``_bwd_rule``) is a reverse-time ``lax.scan``. Here the forward is the
-hand-written CUDA kernel pair of ``csrc/gru_seq.cu`` (two launches per
-step: the reset gate of every unit must exist before the candidate
-product), whose source note gives the design and the bound on the H100.
-The input projection ``x @ W_in`` stays outside, in the ``fc`` layer.
+(``_bwd_rule``) is a reverse-time ``lax.scan``. Here both are the
+hand-written CUDA kernels of ``csrc/gru_seq.cu``, whose source note gives
+the design and the bound on the H100. The input projection ``x @ W_in``
+stays outside, in the ``fc`` layer.
 
-Three kernel wrappers, each counting the calls that launched its kernels
-(``.launches``) and the device launches (``.step_launches``, two per
-step), and choosing by device: on a CUDA tensor it launches the kernel
-(or raises), on a CPU tensor it runs its plain PyTorch version, which the
-CPU tests hold against the JAX package.
+Two routes, chosen by shape (``gru_route``), never by failure:
 
-- ``gru_seq``: the primal forward (ys, hT); plain version
-  ``gru_sequence_plain``.
-- ``gru_seq_train``: the residual forward (ys, hs, gates); plain version
+- persistent: one cooperative launch per sequence and one per reverse
+  chain, each block holding the weights of its slice of hidden units in
+  shared memory (``gru_plan`` gives the slice, the grid and the staging
+  chunk, and the shared-memory bytes the kernels will ask for);
+- two-launch: two launches per step forward and, backward, one
+  ``gru_bwd_step`` call per step, for shapes whose weight slice and
+  staging do not fit one SM (H above 1524 at B = 16, 1452 at B = 50)
+  or H % 4 != 0.
+
+``two_launch=True`` forces the second route (to time both at one shape).
+A CUDA tensor launches a kernel or raises; a CPU tensor runs the plain
+PyTorch version of the route the card would take, which the CPU tests
+hold against the JAX package.
+
+Kernel wrappers, each counting the calls that launched its kernels
+(``.launches``) and the device launches (``.step_launches``: 1 per call
+on the persistent route, two per step on the other):
+
+- ``gru_seq``: the primal forward (ys, hT); plain ``gru_sequence_plain``.
+- ``gru_seq_train``: the residual forward (ys, hs, gates); plain
   ``gru_sequence_residual_plain``.
-- ``gru_bwd_step``: one reverse step of the backward's chain (two
-  elementwise kernels, a product after each); plain version
-  ``gru_bwd_step_plain``.
+- ``gru_bwd_chain``: the whole reverse chain (dxs, dh0); plain
+  ``gru_bwd_chain_plain``, the kernel's three phases block by block.
+- ``gru_bwd_step``: one reverse step (two elementwise kernels, a product
+  after each), the two-launch route's; plain ``gru_bwd_step_plain``.
 
 The recurrent weights are ``w_gate`` [H, 2H] and ``w_state`` [H, H]. The
 layers pass the two column slices of one [H, 3H] parameter, which are not
@@ -30,19 +43,150 @@ refuse a weight whose columns are not contiguous.
 
 ``gru_sequence`` takes the primal kernel when no gradient is wanted and
 otherwise ``GruFunction``, whose backward (``gru_backward``) transcribes
-``_bwd_rule``: one ``gru_bwd_step`` per reverse step, and ``dWg`` and
-``dWs`` as one product each over T*B rows after the loop. f32 only.
+``_bwd_rule``: the chain, then ``dWg`` and ``dWs`` as one product each
+over T*B rows. f32 only.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import List, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops import build
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+
+# the persistent kernels' constants (csrc/gru_seq.cu: kPThreads, kTileRows,
+# kTileCols, kMaxSlices, kSmemLimit); MIN_CHUNK is the route's own rule
+THREADS = 256
+TILE_ROWS = TILE_COLS = 4
+MAX_SLICES = 32
+MIN_CHUNK = 32
+SMEM_BYTES = 232448  # shared memory a block may opt into on Hopper
+H100_SMS = 132
+PERSISTENT, TWO_LAUNCH = "persistent", "two_launch"
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def gru_units(H, sms=H100_SMS) -> int:
+    """Hidden units a persistent block owns: ceil(H / SMs), so that the
+    grid, ceil(H / units) blocks, has at most one block per SM."""
+    return _cdiv(H, sms)
+
+
+def gru_partition(H, units) -> List[Tuple[int, int]]:
+    """The blocks' unit slices [u0, u1): block p owns
+    [p * units, min((p + 1) * units, H))."""
+    return [(u0, min(u0 + units, H)) for u0 in range(0, H, units)]
+
+
+def _slices(B, nc):
+    """K slices per product tile (``slices_of`` in the kernel): the
+    threads the tiles leave, rounded down to a power of two, at most
+    MAX_SLICES; 0 where the tiles outnumber the threads."""
+    tiles = _cdiv(B, TILE_ROWS) * _cdiv(nc, TILE_COLS)
+    if tiles > THREADS:
+        return 0
+    s = 1
+    while 2 * s <= MAX_SLICES and 2 * s * tiles <= THREADS:
+        s *= 2
+    return s
+
+
+def _stage_floats(B, K, chunk):
+    return B * K if chunk >= K else 2 * B * chunk
+
+
+def persistent_smem(B, H, units, chunk, backward) -> int:
+    """Shared-memory bytes of a persistent block (``persistent_smem`` in
+    the kernel): 3 * units * H resident weights, the staging (B x H where
+    ``chunk`` covers H; else two buffers of B x chunk) and what the block
+    keeps of its own units: the carries (forward z and h, backward dh)
+    and, double-buffered a step ahead, their inputs (forward x and mask;
+    backward z, r, c, h_prev, dy and mask)."""
+    own = (B * units + 2 * (5 * B * units + B) if backward
+           else 2 * B * units + 2 * (3 * B * units + B))
+    return 4 * (3 * units * H + _stage_floats(B, H, chunk) + own)
+
+
+def _chunk(B, H, units, backward):
+    """Staging chunk (floats) of the products (each over K = H): all of
+    it where it fits beside the weights (every copy in flight at once),
+    else the widest two buffers that fit; 0 where fewer than MIN_CHUNK
+    columns fit."""
+    left = SMEM_BYTES - persistent_smem(B, H, units, 0, backward)
+    if left >= 4 * B * H:
+        return H
+    chunk = left // (8 * B) // 4 * 4
+    return chunk if chunk >= MIN_CHUNK else 0
+
+
+def gru_plan(B, H, sms=H100_SMS) -> dict:
+    """The persistent route's plan for a [B, H] recurrence on a card of
+    ``sms`` SMs: ``route`` (PERSISTENT where H % 4 == 0, the product tiles
+    fit the block and both the forward's and the backward's staging fit
+    beside the weights; else TWO_LAUNCH), ``units``, ``grid``, the staging
+    ``chunk`` and ``smem`` bytes of the forward and of the backward."""
+    units = gru_units(H, sms)
+    plan = dict(units=units, grid=_cdiv(H, units) if H else 0)
+    for kind, backward in (("fwd", False), ("bwd", True)):
+        chunk = _chunk(B, H, units, backward) if H else 0
+        plan[f"chunk_{kind}"] = chunk
+        plan[f"smem_{kind}"] = persistent_smem(B, H, units, chunk, backward)
+    ok = (B >= 1 and H >= 4 and H % 4 == 0 and _slices(B, 2 * units) > 0
+          and plan["chunk_fwd"] > 0 and plan["chunk_bwd"] > 0)
+    plan["route"] = PERSISTENT if ok else TWO_LAUNCH
+    return plan
+
+
+def gru_route(B, H, sms=H100_SMS) -> str:
+    """PERSISTENT or TWO_LAUNCH for a [B, H] recurrence (``gru_plan``)."""
+    return gru_plan(B, H, sms)["route"]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(t) -> int:
+    """SMs of the card ``t`` lies on; H100_SMS for a CPU tensor, whose
+    plain versions follow the route the H100 would take."""
+    return _sms_of(t.device.index if t.device.index is not None
+                   else torch.cuda.current_device()) if t.is_cuda \
+        else H100_SMS
+
+
+_COOP_ERRORS = {
+    -1: "the block's shared memory exceeds the card's opt-in limit",
+    -2: "the cooperative grid does not fit on the card at once "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs < blocks)",
+    -3: "the device does not support cooperative launches",
+    -4: "the kernel does not take this plan (H % 4, tiles or chunk)",
+}
+
+
+def _raise_coop(err, kernel, plan):
+    if err in _COOP_ERRORS:
+        raise RuntimeError(f"{kernel}: persistent launch refused: "
+                           f"{_COOP_ERRORS[err]} (plan {plan})")
+    build.raise_on(err, kernel)
+
+
+def persistent_smem_of_kernel(B, H, units, chunk, backward) -> int:
+    """The kernel's own count of a persistent block's shared-memory bytes
+    (card only: it loads the library), to hold ``persistent_smem``
+    against."""
+    fn = build.load("gru_seq").gru_persistent_smem
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn(B, H, units, chunk, int(backward))
 
 
 def gru_step(x_t, h, w_gate, w_state):
@@ -122,29 +266,70 @@ def _seq_args(kernel, xs_b, mask, w_gate, w_state, h0):
     return dev, T, B, H, ldg, lds
 
 
-def gru_seq(xs_b, mask, w_gate, w_state, h0) -> Pair:
+def _persistent_plan(t, B, H, two_launch):
+    """The persistent route's plan for the card ``t`` lies on, or None for
+    the two-launch route (forced, or the shape's)."""
+    if two_launch:
+        return None
+    plan = gru_plan(B, H, device_sms(t))
+    return plan if plan["route"] == PERSISTENT else None
+
+
+def _aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary (the persistent
+    kernels stage it with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward_persistent(kernel, plan, xs_b, mask, w_gate, w_state, h0, ldg,
+                        lds, h, ys, hs, gates):
+    T, B, _ = xs_b.shape
+    H = h0.shape[1]
+    dev = xs_b.device
+    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("gru_seq", "gru_seq_forward_persistent", 11, 8)(
+            xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+            w_state.data_ptr(), h0.data_ptr(), ptr(h), ys.data_ptr(),
+            ptr(hs), ptr(gates), rh.data_ptr(), count.data_ptr(),
+            int(hs is not None), ldg, lds, T, B, H, plan["units"],
+            plan["chunk_fwd"], stream)
+    _raise_coop(err, kernel, plan)
+
+
+def gru_seq(xs_b, mask, w_gate, w_state, h0, two_launch=False) -> Pair:
     """The primal kernel's wrapper; same arguments and results as
-    ``gru_sequence_plain``. ``gru_seq.launches`` counts the calls that
-    launched the kernels; each call issues two device launches per
-    timestep (``gru_seq.step_launches``)."""
+    ``gru_sequence_plain``. ``two_launch=True`` forces the two-launch
+    route. ``gru_seq.launches`` counts the calls that launched a kernel,
+    ``gru_seq.step_launches`` the device launches (1 a call on the
+    persistent route, two per timestep on the other)."""
     args = (xs_b, mask, w_gate, w_state, h0)
     if xs_b.device.type == "cpu":
         return gru_sequence_plain(*args)
     dev, T, B, H, ldg, lds = _seq_args("gru_seq", *args)
     h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
     h[0].copy_(h0)
-    gates = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
-    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_seq_forward", 8, 5)(
-            xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), h.data_ptr(), gates.data_ptr(),
-            rh.data_ptr(), ys.data_ptr(), ldg, lds, T, B, H, stream)
-    build.raise_on(err, "gru_seq")
+    plan = _persistent_plan(xs_b, B, H, two_launch)
+    if plan is not None:
+        _forward_persistent("gru_seq", plan, xs_b, mask, w_gate, w_state, h0,
+                            ldg, lds, h, ys, None, None)
+        gru_seq.step_launches += 1 if T else 0
+    else:
+        gates = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
+        rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = build.bind("gru_seq", "gru_seq_forward", 8, 5)(
+                xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+                w_state.data_ptr(), h.data_ptr(), gates.data_ptr(),
+                rh.data_ptr(), ys.data_ptr(), ldg, lds, T, B, H, stream)
+        build.raise_on(err, "gru_seq")
+        gru_seq.step_launches += 2 * T
     gru_seq.launches += 1
-    gru_seq.step_launches += 2 * T
     return ys, h[T % 2]
 
 
@@ -152,9 +337,9 @@ gru_seq.launches = 0
 gru_seq.step_launches = 0
 
 
-def gru_seq_train(xs_b, mask, w_gate, w_state, h0):
+def gru_seq_train(xs_b, mask, w_gate, w_state, h0, two_launch=False):
     """The residual kernel's wrapper; same arguments and results as
-    ``gru_sequence_residual_plain``. Counts as ``gru_seq``."""
+    ``gru_sequence_residual_plain``. Routes and counts as ``gru_seq``."""
     args = (xs_b, mask, w_gate, w_state, h0)
     if xs_b.device.type == "cpu":
         return gru_sequence_residual_plain(*args)
@@ -162,16 +347,24 @@ def gru_seq_train(xs_b, mask, w_gate, w_state, h0):
     ys, hs = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
               for _ in range(2))
     gates = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_seq_forward_train", 9, 5)(
-            xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), h0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
-            gates.data_ptr(), rh.data_ptr(), ldg, lds, T, B, H, stream)
-    build.raise_on(err, "gru_seq_train")
+    plan = _persistent_plan(xs_b, B, H, two_launch)
+    if plan is not None:
+        _forward_persistent("gru_seq_train", plan, xs_b, mask, w_gate,
+                            w_state, _aligned(h0), ldg, lds, None, ys, hs,
+                            gates)
+        gru_seq_train.step_launches += 1 if T else 0
+    else:
+        rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = build.bind("gru_seq", "gru_seq_forward_train", 9, 5)(
+                xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+                w_state.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+                hs.data_ptr(), gates.data_ptr(), rh.data_ptr(), ldg, lds, T,
+                B, H, stream)
+        build.raise_on(err, "gru_seq_train")
+        gru_seq_train.step_launches += 2 * T
     gru_seq_train.launches += 1
-    gru_seq_train.step_launches += 2 * T
     return ys, hs, gates
 
 
@@ -237,24 +430,119 @@ gru_bwd_step.launches = 0
 gru_bwd_step.step_launches = 0
 
 
-def gru_backward(mask, w_gate, w_state, h0, hs, gates, dys, dhT, step=None):
+def gru_bwd_chain_plain(dys, mask, gates, h0, hs, w_gate, w_state, dhT,
+                        units=None):
+    """The reverse chain of ``_bwd_rule`` (``paddle_tpu/ops/gru.py:
+    141-161``) as the persistent kernel runs it, in plain PyTorch: per
+    reverse step, phase 1 (dh_new, dz, da_c, da_z and the first two terms
+    of dh_prev, elementwise), phase 2 (drh = da_c @ Ws^T, dr, da_r,
+    + drh * r), phase 3 (+ da_z @ Wg[:, :H]^T, then + da_r @ Wg[:, H:]^T:
+    the kernel sums the first while the grid barrier for da_r is still
+    open), each phase over the
+    blocks' unit slices in order (``units`` units a block as
+    ``gru_partition``; None: one slice of all H). Returns (dxs [T, B, 3H],
+    dh0)."""
+    T, B, H = hs.shape
+    parts = gru_partition(H, units or max(H, 1))
+    dxs = torch.empty((T, B, 3 * H), dtype=hs.dtype, device=hs.device)
+    dh = dhT.clone()
+    for t in range(T - 1, -1, -1):
+        m = mask[t].unsqueeze(-1)
+        z, r, c = gates[t].split(H, dim=-1)
+        h_pv = hs[t - 1] if t else h0
+        dx = dxs[t]
+        for u0, u1 in parts:  # 1. each block's units, elementwise
+            sl = slice(u0, u1)
+            d = dh[:, sl]
+            dh_new = m * (d + dys[t][:, sl])
+            dz = dh_new * (c[:, sl] - h_pv[:, sl])
+            dx[:, 2 * H + u0:2 * H + u1] = (dh_new * z[:, sl]) * (
+                1 - c[:, sl] * c[:, sl])
+            dx[:, u0:u1] = (dz * z[:, sl]) * (1 - z[:, sl])
+            dh[:, sl] = (1 - m) * d + dh_new * (1 - z[:, sl])
+        for u0, u1 in parts:  # 2. drh of the block's units from all da_c
+            sl = slice(u0, u1)
+            drh = dx[:, 2 * H:] @ w_state[sl].t()
+            dr = drh * h_pv[:, sl]
+            dx[:, H + u0:H + u1] = (dr * r[:, sl]) * (1 - r[:, sl])
+            dh[:, sl] = dh[:, sl] + drh * r[:, sl]
+        for u0, u1 in parts:  # 3a. + da_z @ Wg[:, :H]^T
+            sl = slice(u0, u1)
+            dh[:, sl] = dh[:, sl] + dx[:, :H] @ w_gate[sl, :H].t()
+        for u0, u1 in parts:  # 3b. + da_r @ Wg[:, H:]^T
+            sl = slice(u0, u1)
+            dh[:, sl] = dh[:, sl] + dx[:, H:2 * H] @ w_gate[sl, H:].t()
+    return dxs, dh
+
+
+def gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state, dhT):
+    """The reverse chain kernel's wrapper (the persistent route); the
+    arguments and results of ``gru_bwd_chain_plain``. One cooperative
+    launch per call; raises where the shape is not on the route or the
+    launch is refused. ``.launches`` counts calls, ``.step_launches``
+    device launches."""
+    args = (dys, mask, gates, h0, hs, w_gate, w_state, dhT)
+    if hs.device.type == "cpu":
+        return gru_bwd_chain_plain(*args)
+    dev = build.cuda_device("gru_bwd_chain", hs)
+    T, B, H = hs.shape
+    bh = (B, H)
+    build.check_tensors("gru_bwd_chain", dev, dys=(dys, (T, B, H)),
+                        mask=(mask, (T, B)), gates=(gates, (T, B, 3 * H)),
+                        h0=(h0, bh), hs=(hs, (T, B, H)), dhT=(dhT, bh))
+    ldg = check_weight("gru_bwd_chain", dev, "w_gate", w_gate, (H, 2 * H))
+    lds = check_weight("gru_bwd_chain", dev, "w_state", w_state, (H, H))
+    plan = _persistent_plan(hs, B, H, False)
+    if plan is None:
+        raise ValueError(f"gru_bwd_chain: B={B} H={H} is not on the "
+                         "persistent route (gru_route); the per-step "
+                         "backward (gru_bwd_step) takes it")
+    dxs = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty(bh, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("gru_seq", "gru_bwd_chain_launch", 11, 7)(
+            dys.data_ptr(), mask.data_ptr(), gates.data_ptr(),
+            h0.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
+            w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
+            dh0.data_ptr(), count.data_ptr(), ldg, lds, T, B, H,
+            plan["units"], plan["chunk_bwd"], stream)
+    _raise_coop(err, "gru_bwd_chain", plan)
+    gru_bwd_chain.launches += 1
+    gru_bwd_chain.step_launches += 1 if T else 0
+    return dxs, dh0
+
+
+gru_bwd_chain.launches = 0
+gru_bwd_chain.step_launches = 0
+
+
+def gru_backward(mask, w_gate, w_state, h0, hs, gates, dys, dhT, step=None,
+                 two_launch=False):
     """``_bwd_rule`` (``paddle_tpu/ops/gru.py:135-166``) over the residuals
-    of ``gru_seq_train``: returns (dxs, dWg, dWs, dh0). The per-step chain
-    goes through ``step``, by default ``gru_bwd_step`` (the kernels on the
-    card, the plain version on the CPU; the card checks pass
-    ``gru_bwd_step_plain`` for the plain backward); the weight gradients
-    are one product each over T*B rows after the loop, where JAX sums
-    them per step."""
-    step = step or gru_bwd_step
+    of ``gru_seq_train``: returns (dxs, dWg, dWs, dh0). The reverse chain
+    is ``gru_bwd_chain`` on the persistent route; on the two-launch route
+    (the shape's, or ``two_launch=True``), or where a ``step`` is given,
+    one ``step`` per reverse step, by default ``gru_bwd_step`` (the card
+    checks pass ``gru_bwd_step_plain`` for the plain backward). The
+    weight gradients are one product each over T*B rows after the chain,
+    where JAX sums them per step."""
     T, B, H = hs.shape
     dys = dys.contiguous()
-    dxs = torch.empty((T, B, 3 * H), dtype=hs.dtype, device=hs.device)
-    dh = dhT.contiguous().clone()
-    drh = torch.empty_like(dh)
     h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
-    for t in range(T - 1, -1, -1):
-        step(dys[t], mask[t], gates[t], h_prev[t], w_gate, w_state, dh, drh,
-             dxs[t])
+    if step is None and not two_launch and gru_route(
+            B, H, device_sms(hs)) == PERSISTENT:
+        dxs, dh = gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state,
+                                dhT.contiguous())
+    else:
+        step = step or gru_bwd_step
+        dxs = torch.empty((T, B, 3 * H), dtype=hs.dtype, device=hs.device)
+        dh = dhT.contiguous().clone()
+        drh = torch.empty_like(dh)
+        for t in range(T - 1, -1, -1):
+            step(dys[t], mask[t], gates[t], h_prev[t], w_gate, w_state, dh,
+                 drh, dxs[t])
     rows = T * B
     dWg = h_prev.reshape(rows, H).t() @ dxs[..., :2 * H].reshape(rows, 2 * H)
     r_h = gates[..., H:2 * H] * h_prev
@@ -265,36 +553,41 @@ def gru_backward(mask, w_gate, w_state, h0, hs, gates, dys, dhT, step=None):
 class GruFunction(torch.autograd.Function):
     """The custom gradient of the fused recurrence (JAX ``_gru_core`` with
     ``_fwd_rule`` / ``_bwd_rule``): the residual forward kernel saves
-    (hs, gates), the backward replays them in reverse time."""
+    (hs, gates), the backward replays them in reverse time, on the route
+    the forward took."""
 
     @staticmethod
-    def forward(ctx, xs_b, mask, w_gate, w_state, h0):
-        ys, hs, gates = gru_seq_train(xs_b, mask, w_gate, w_state, h0)
+    def forward(ctx, xs_b, mask, w_gate, w_state, h0, two_launch):
+        ys, hs, gates = gru_seq_train(xs_b, mask, w_gate, w_state, h0,
+                                      two_launch=two_launch)
         ctx.save_for_backward(mask, w_gate, w_state, h0, hs, gates)
+        ctx.two_launch = two_launch
         return ys, hs[-1].clone()
 
     @staticmethod
     def backward(ctx, dys, dhT):
-        dxs, dWg, dWs, dh0 = gru_backward(*ctx.saved_tensors, dys, dhT)
-        return dxs, None, dWg, dWs, dh0
+        dxs, dWg, dWs, dh0 = gru_backward(*ctx.saved_tensors, dys, dhT,
+                                          two_launch=ctx.two_launch)
+        return dxs, None, dWg, dWs, dh0, None
 
 
-def gru_sequence(xs, mask, w_gate, w_state, bias, h0, reverse=False) -> Pair:
+def gru_sequence(xs, mask, w_gate, w_state, bias, h0, reverse=False,
+                 two_launch=False) -> Pair:
     """Fused GRU over a padded [T,B,3H] gate-projection sequence, the
     counterpart of ``paddle_tpu/ops/gru.py:gru_sequence``. ``reverse=True``
     runs back to front (flip in, flip out: outputs stay in input time
     order and hT is the state after time 0). Differentiable: with grad
     enabled and an input that requires it, the residual kernel and
-    ``GruFunction``'s backward; otherwise the lean primal kernel. The
-    weights may be column slices of one [H, 3H] matrix. Returns
-    (ys [T,B,H], hT)."""
+    ``GruFunction``'s backward; otherwise the lean primal kernel.
+    ``two_launch=True`` forces the two-launch route. The weights may be
+    column slices of one [H, 3H] matrix. Returns (ys [T,B,H], hT)."""
     if reverse:
         ys, hT = gru_sequence(xs.flip(0), mask.flip(0), w_gate, w_state, bias,
-                              h0)
+                              h0, two_launch=two_launch)
         return ys.flip(0), hT
     xs_b = (xs + bias).contiguous()  # fold the bias in once
     args = (xs_b, mask.contiguous(), w_gate, w_state, h0.contiguous())
     if xs.shape[0] and torch.is_grad_enabled() and any(
             a.requires_grad for a in args):
-        return GruFunction.apply(*args)
-    return gru_seq(*args)
+        return GruFunction.apply(*args, two_launch)
+    return gru_seq(*args, two_launch=two_launch)

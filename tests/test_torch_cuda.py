@@ -1,6 +1,8 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
 forms, the LSTM backward step, the LSTM cell, the GRU recurrence in its
-primal and residual forms, the GRU backward step, the GRU cell, the
+primal and residual forms and its backward on both routes (one
+cooperative launch per sequence or reverse chain; two launches a step
+and a per-step backward above the route line), the GRU cell, the
 Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
 the flash-attention forward and backward kernels, the CTC alpha and beta
 kernels) against
@@ -199,10 +201,12 @@ def test_gru_kernels_match_plain_on_card(cuda_device, T, B, H):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
     _, hs, gates = got_r
     dys, dhT = torch.randn_like(hs), torch.randn_like(h0)
-    before_b = tgru.gru_bwd_step.launches
+    # these shapes take the persistent route: one chain launch, no step
+    before_b = (tgru.gru_bwd_step.launches, tgru.gru_bwd_chain.launches)
     got_b = tgru.gru_backward(mask, wg, ws, h0, hs, gates, dys, dhT)
     torch.cuda.synchronize()
-    assert tgru.gru_bwd_step.launches == before_b + T
+    assert (tgru.gru_bwd_step.launches,
+            tgru.gru_bwd_chain.launches) == (before_b[0], before_b[1] + 1)
     want_b = tgru.gru_backward(mask, wg, ws, h0, hs, gates, dys, dhT,
                                step=tgru.gru_bwd_step_plain)
     for name, g, w in zip(("dxs", "dWg", "dWs", "dh0"), got_b, want_b):
@@ -367,6 +371,131 @@ def test_gru_kernels_reject_bad_weights(cuda_device):
         rnn_cells.gru_cell_infer(xs[0], h0, wg, ws.t())
     with pytest.raises(ValueError, match="float32"):
         tgru.gru_seq(xs.double(), mask, wg, ws, h0)
+    for two_launch in (False, True):
+        with pytest.raises(ValueError, match="contiguous columns"):
+            tgru.gru_seq_train(xs, mask, wg, ws.t(), h0,
+                               two_launch=two_launch)
+    _, hs, gates = tgru.gru_seq_train(xs, mask, wg, ws, h0)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        tgru.gru_bwd_chain(torch.zeros_like(hs), mask, gates, h0, hs,
+                           wg.t().contiguous().t(), ws, h0)
+    with pytest.raises(ValueError, match="shape"):
+        tgru.gru_bwd_chain(torch.zeros_like(hs), mask, gates, h0, hs, wg,
+                           ws[:, :4], h0)
+
+
+# (T, B, H): the seq2seq path's, the acoustic model's, batch 1, one step
+# of one row, and an H above the route line (two-launch only)
+GRU_ROUTE_SHAPES = [(50, 50, 512), (400, 16, 1024), (50, 1, 512),
+                    (1, 1, 512), (3, 2, 1600)]
+
+
+def _max_err_ok(got, want):
+    return (got - want).abs().max().item() <= \
+        1e-4 * want.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", GRU_ROUTE_SHAPES)
+def test_gru_routes_match_plain_on_card(cuda_device, T, B, H):
+    """Both routes at the paths' shapes: the primal and residual forward
+    against the plain loops, the backward (the chain on the persistent
+    route, the per-step kernels on the other) against the plain step
+    loop, two backward runs bit-equal, the launch counters, and every
+    gradient through ``gru_sequence`` in both directions against autograd
+    of the plain loop."""
+    xs, mask, wg, ws, h0 = _gru_inputs(T, B, H, 5 * B + H + T, cuda_device)
+    persistent = tgru.gru_route(B, H, tgru.device_sms(xs)) == \
+        tgru.PERSISTENT
+    assert persistent == (H != 1600)
+    want = tgru.gru_sequence_plain(xs, mask, wg, ws, h0)
+    want_r = tgru.gru_sequence_residual_plain(xs, mask, wg, ws, h0)
+    rng = np.random.default_rng(T + B)
+    dys = torch.from_numpy(rng.normal(size=(T, B, H)).astype(
+        np.float32)).to(cuda_device)
+    dhT = torch.from_numpy(rng.normal(size=(B, H)).astype(
+        np.float32)).to(cuda_device)
+    for two_launch in (False, True):
+        c0 = {f"{k}.{a}": getattr(f, a) for k, f in (
+            ("seq", tgru.gru_seq), ("train", tgru.gru_seq_train),
+            ("chain", tgru.gru_bwd_chain), ("step", tgru.gru_bwd_step))
+            for a in ("launches", "step_launches")}
+        got = tgru.gru_seq(xs, mask, wg, ws, h0, two_launch=two_launch)
+        got_r = tgru.gru_seq_train(xs, mask, wg, ws, h0,
+                                   two_launch=two_launch)
+        _, hs, gates = got_r
+        res = (mask, wg, ws, h0, hs, gates, dys, dhT)
+        got_b = tgru.gru_backward(*res, two_launch=two_launch)
+        again = tgru.gru_backward(*res, two_launch=two_launch)
+        torch.cuda.synchronize()
+        on_chain = persistent and not two_launch
+        launches = 1 if on_chain else 2 * T
+        assert tgru.gru_seq.launches == c0["seq.launches"] + 1
+        assert tgru.gru_seq.step_launches == c0["seq.step_launches"] \
+            + launches
+        assert tgru.gru_seq_train.step_launches == \
+            c0["train.step_launches"] + launches
+        assert tgru.gru_bwd_chain.launches == c0["chain.launches"] + (
+            2 if on_chain else 0)
+        assert tgru.gru_bwd_step.launches == c0["step.launches"] + (
+            0 if on_chain else 2 * T)
+        for g, w in zip(list(got) + list(got_r), list(want) + list(want_r)):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        want_b = tgru.gru_backward(*res, step=tgru.gru_bwd_step_plain)
+        for name, g, g2, w in zip(("dxs", "dWg", "dWs", "dh0"), got_b,
+                                  again, want_b):
+            if on_chain:  # one launch, fixed sums, no atomics
+                assert torch.equal(g, g2), name
+            assert _max_err_ok(g, w), (name, two_launch)
+    if T * B * H > 50 * 50 * 512:
+        return  # the autograd reference below is a host loop of T steps
+    bias = torch.zeros(3 * H, device=cuda_device)
+    for reverse in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xs, wg, ws, h0)]
+        ys, hT = tgru.gru_sequence(leaves[0], mask, leaves[1], leaves[2],
+                                   bias, leaves[3], reverse=reverse)
+        got_g = torch.autograd.grad((ys * dys).sum() + (hT * dhT).sum(),
+                                    leaves)
+        plain = [t.detach().clone().requires_grad_(True)
+                 for t in (xs, wg, ws, h0)]
+        xs_p, m_p = ((plain[0].flip(0), mask.flip(0)) if reverse
+                     else (plain[0], mask))
+        ys_p, hT_p = tgru.gru_sequence_plain(xs_p, m_p, plain[1], plain[2],
+                                             plain[3])
+        ys_p = ys_p.flip(0) if reverse else ys_p
+        torch.testing.assert_close(ys, ys_p, rtol=1e-4, atol=1e-5)
+        want_g = torch.autograd.grad((ys_p * dys).sum()
+                                     + (hT_p * dhT).sum(), plain)
+        for name, g, w in zip(("dxs", "dWg", "dWs", "dh0"), got_g, want_g):
+            assert _max_err_ok(g, w), (name, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(50, 512), (16, 1024), (1, 512), (64, 256),
+                                 (16, 1452), (5, 40)])
+def test_gru_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
+    """The route's shared-memory arithmetic equals the kernel's own."""
+    plan = tgru.gru_plan(B, H)
+    for kind, backward in (("fwd", False), ("bwd", True)):
+        assert tgru.persistent_smem_of_kernel(
+            B, H, plan["units"], plan[f"chunk_{kind}"], backward) == \
+            plan[f"smem_{kind}"] <= tgru.SMEM_BYTES
+
+
+@pytest.mark.cuda
+def test_gru_persistent_launch_that_does_not_fit_raises(cuda_device):
+    """A plan whose grid cannot be co-resident (one unit a block at
+    H = 4096) is refused with the reason, not run."""
+    T, B, H = 2, 2, 4096
+    xs, mask, wg, ws, h0 = _gru_inputs(T, B, H, 1, cuda_device)
+    ys = torch.empty(T, B, H, device=cuda_device)
+    h = torch.empty(2, B, H, device=cuda_device)
+    plan = dict(units=1, chunk_fwd=64)
+    with pytest.raises(RuntimeError, match="does not fit on the card"):
+        tgru._forward_persistent("gru_seq", plan, xs, mask, wg, ws, h0,
+                                 wg.stride(0), ws.stride(0), h, ys, None,
+                                 None)
 
 
 def _crf_inputs(B, T, C, seed, device):
