@@ -17,19 +17,29 @@ non-zero without the result line:
 3. kernel check: the primal LSTM recurrence kernel against its plain
    PyTorch version on the card, at T=100 with a ragged mask and nonzero
    h0/c0, in both time directions, for every BENCH_SHAPES (batch, hidden)
-   pair and at the serving path's own shapes; ys, hT and cT within rtol
-   1e-4 / atol 1e-5 (summation order over K=H and 100 steps).
+   pair and at the serving path's own shapes, on each route the shape has
+   (``lstm_route``: the persistent one, one cooperative launch per
+   sequence, and the per-step one, forced with ``per_step=True``; (128,
+   1280), (256, 1280) and (512, 512) are above the line, per-step only);
+   ys, hT and cT within rtol 1e-4 / atol 1e-5 (summation order over K=H
+   and 100 steps). Times of both routes: CUDA events (median of 10) and
+   ``torch.profiler`` device time, ``speedup_*`` in each row.
 4. train kernel check: at every BENCH_SHAPES pair (T=100, ragged mask,
-   nonzero h0/c0) the residual forward kernel (ys, hs, cs, gates; rtol
-   1e-4 / atol 1e-5) and the backward through the step kernel (every
-   gradient, per tensor within 1e-4 of the tensor's largest entry + 1e-5:
-   sums over T*B rows) against their plain versions; reverse through
-   ``LstmFunction`` at (64, 1280); the Momentum and Adam kernels against
-   ``_apply_one`` at every parameter size of both trained models (the
-   h=1280 classifier, the full-width seq2seq) and at 1, 7 and 1025
-   elements (rtol 1e-6 / atol 1e-7: the kernels take the plain chain's
-   roundings). Kernel and plain times are CUDA events, median of 10 calls
-   after warmup, beside the bound.
+   nonzero h0/c0), on each route: the residual forward kernel (ys, hs,
+   cs, gates; rtol 1e-4 / atol 1e-5) and the whole backward (the
+   reverse-chain kernel on the persistent route, two runs bit-equal; the
+   step kernel and a product per step on the other; every gradient, per
+   tensor within 1e-4 of the tensor's largest entry + 1e-5: sums over T*B
+   rows) against the backward with the plain step; on the persistent
+   route the chain alone beside the per-step route's loop alone;
+   reverse through ``LstmFunction`` at (64, 1280); the Momentum and Adam
+   kernels against ``_apply_one`` at every parameter size of both trained
+   models (the h=1280 classifier, the full-width seq2seq) and at 1, 7 and
+   1025 elements (rtol 1e-6 / atol 1e-7: the kernels take the plain
+   chain's roundings). Times: CUDA events, median of 10 calls after
+   warmup, and ``torch.profiler`` device time of the forward's kernel and
+   of every kernel of the backward, beside the bounds (the chain's 2 B 4H
+   H operations a step).
 5. GRU kernel check: at every GRU_SHAPES (batch, hidden, T) — the seq2seq
    path's (50, 512, 50), (64, 256, 100), (1, 512, 50) and the CTC
    acoustic model's (16, 1024, 400) — and at GRU_ABOVE_LINE (16, 1536,
@@ -111,22 +121,27 @@ non-zero without the result line:
    (lengths 1-100, padded to 100; ids from the seed, labels from a rule
    on the ids), saving into ``--save_dir``: the cost must be finite and
    fall from pass 0 to pass 2, and the CLI's kernel counts (a fresh
-   process: they start at 0) must show the residual forward, the backward
-   step and Adam launched. One pass with the CLI's default optimizer,
-   Momentum, drives the Momentum kernel the same way. Then one batch's
+   process: they start at 0) must show the residual forward and Adam
+   launched, the LSTM on the persistent route (one reverse-chain launch
+   per layer and step, 0 ``lstm_bwd_step``, one device launch per forward
+   call). One pass with the CLI's default optimizer, Momentum, drives the
+   Momentum kernel the same way (and the same route checks). Then one batch's
    loss and every parameter gradient at full width (16 rows, lengths
    1-100) from the trained checkpoint, on the card against the plain path
    on the CPU, per tensor within 1e-3 of the CPU tensor's largest entry
    + 1e-6 (float32 through 100 recurrent steps each way; the plain path
-   in float64 is reported beside both as the exact reference); then
-   ``--job merge`` of the save dir.
+   in float64 is reported beside both as the exact reference); one step
+   on the card from the checkpoint timed and traced (``torch.profiler``:
+   device busy time, idle share, top kernels); then ``--job merge`` of
+   the save dir.
 9. serve: the merged trained model served by ``--job serve`` (max_batch
    64, length buckets 32,64,128). Single samples and a rows batch of
    lengths 1-100 must answer softmax rows that sum to 1, repeat
    identically, match the port's plain path run on the CPU from the same
-   file, and go through the kernel (its launch count, read from the
-   server's /healthz before and after the requests, grows). SIGTERM must
-   drain the server to exit 0.
+   file, and go through the kernel on the persistent route (its launch
+   count, read from the server's /healthz before and after the requests,
+   grows by as many device launches as calls). SIGTERM must drain the
+   server to exit 0.
 10. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
    width (dicts 30000, embed 512, hidden 512) trained by ``--job train``
    with ``Adam(learning_rate=5e-4)`` for 3 passes over 4 fixed batches of
@@ -173,10 +188,11 @@ non-zero without the result line:
    passes over 4 fixed batches of 64 synthetic sentences (lengths 5-78,
    padded to 80; tags from a rule on the words): the cost must fall and
    the counts show the CRF forward, backward and Viterbi kernels, the
-   residual LSTM kernel, its backward step and Adam launched. Then the
+   residual LSTM kernel and Adam launched, and the LSTM on the persistent
+   route (one reverse chain per direction and step, 0 ``lstm_bwd_step``). Then the
    full-width gradients (8 rows) card against CPU as in phase 7, ``--job
    test`` on 2 more batches (cost, error, chunk_f1; the CRF forward, the
-   Viterbi and the primal LSTM kernels launched), ``--job merge`` with
+   Viterbi and the primal LSTM kernels launched, the LSTM persistent), ``--job merge`` with
    outputs = the decode, and ``--job serve`` of it (length buckets 32,80):
    3 single sentences (lengths 1, 23, 78) and one call of 16 rows answer
    the Viterbi ids of the CPU plain path on the same file, exactly, and
@@ -201,12 +217,19 @@ non-zero without the result line:
    primal GRU kernel launched, the CTC backward not).
 12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
    kernel, with the launches of the main paths (phases 8 to 11c). The
-   two-launch route's backward step (``gru_bwd_step``) runs on no path
-   (every path's shape is on the persistent route): its entries say
-   ``on_path: false`` and must show 0 launches.
+   backward steps of the per-step routes (``gru_bwd_step``,
+   ``lstm_bwd_step``) run on no path (every path's shape is on the
+   persistent route): their entries say ``on_path: false`` and must show
+   0 launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
+
+    python3 chip_smoke.py --lstm-kernels
+
+runs only phases 3 and 4 for the LSTM at the paths' shapes (the
+classifier's (64, 1280, 128) and (64, 1280, 100) and (16, 1280, 100), the
+tagger's (64, 128, 80)), both routes, into ``lstm_kernels.json``.
 
     python3 chip_smoke.py --ds2-rate-witness
 
@@ -502,31 +525,61 @@ def _bound_ms(B, H, T, residuals=False):
                        + 2 * B * H + outs))
 
 
+def _lstm_routes(B, H, x):
+    """The routes a shape has: the persistent one where ``lstm_route``
+    takes it (and the per-step one, forced, beside it), else the per-step
+    one alone; as ``per_step`` flags."""
+    route = L.lstm_route(B, H, L.device_sms(x))
+    return route, ((False, True) if route == L.PERSISTENT else (True,))
+
+
+def _fwd_kernel(per_step, T):
+    """The forward's kernel name and its launches per call on a route."""
+    return (("lstm_step_kernel",), T) if per_step else \
+        (("lstm_persistent_kernel",), 1)
+
+
 def check_shape(B, H, T, senses, seed):
+    """The primal kernel at one shape on each route the shape has: ys,
+    hT, cT in both directions against the plain loop; CUDA-event and
+    ``torch.profiler`` device times of each route (the forced per-step
+    route's keys prefixed ``per_step_`` where the shape is persistent),
+    the plain loop's time and the bound."""
     a = _inputs(B, H, T, seed)
-    err = 0.0
-    for reverse in senses:
-        got = L.lstm_sequence(a["xs"], a["mask"], a["w"], a["bias"],
-                              a["pI"], a["pF"], a["pO"], a["h0"], a["c0"],
-                              reverse=reverse)
-        torch.cuda.synchronize()
-        want = _plain(a, reverse)
-        for name, g, w in zip(("ys", "hT", "cT"), got, want):
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"B={B} H={H} reverse={reverse}: "
-                                     f"{name} is not finite")
-            err = max(err, (g - w).abs().max().item())
-            torch.testing.assert_close(
-                g, w, **TOL, msg=lambda m: f"B={B} H={H} T={T} reverse="
-                f"{reverse} {name}: {m}")
+    route, routes = _lstm_routes(B, H, a["xs"])
     xs_b = (a["xs"] + a["bias"]).contiguous()
     args = (xs_b, a["mask"], a["w"], a["pI"], a["pF"], a["pO"], a["h0"],
             a["c0"])
-    ms = _time_ms(lambda: L.lstm_seq(*args))
-    plain_ms = _time_ms(lambda: L.lstm_sequence_plain(*args))
-    bound_ms, bound_by = _bound_ms(B, H, T)
-    row = dict(B=B, H=H, T=T, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+    row = dict(B=B, H=H, T=T, route=route)
+    err = 0.0
+    calls = 10 if T >= 80 else 20
+    for per_step in routes:
+        for reverse in senses:
+            got = L.lstm_sequence(a["xs"], a["mask"], a["w"], a["bias"],
+                                  a["pI"], a["pF"], a["pO"], a["h0"],
+                                  a["c0"], reverse=reverse,
+                                  per_step=per_step)
+            torch.cuda.synchronize()
+            want = _plain(a, reverse)
+            for name, g, w in zip(("ys", "hT", "cT"), got, want):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"B={B} H={H} reverse={reverse}: "
+                                         f"{name} is not finite")
+                err = max(err, (g - w).abs().max().item())
+                torch.testing.assert_close(
+                    g, w, **TOL, msg=lambda m: f"B={B} H={H} T={T} reverse="
+                    f"{reverse} per_step={per_step} {name}: {m}")
+        p = "per_step_" if per_step and route == L.PERSISTENT else ""
+        run = lambda: L.lstm_seq(*args, per_step=per_step)
+        row[p + "ms"] = _time_ms(run)
+        kernel, per = _fwd_kernel(per_step, T)
+        row[p + "device_ms"] = _device_ms(run, kernel, calls, per)[0]
+    row["max_abs_err"] = err
+    row["plain_ms"] = _time_ms(lambda: L.lstm_sequence_plain(*args))
+    row["bound_ms"], row["bound_by"] = _bound_ms(B, H, T)
+    if route == L.PERSISTENT:
+        for key in ("ms", "device_ms"):
+            row["speedup_" + key] = row["per_step_" + key] / row[key]
     phase("kernel_check", **row)
     return row
 
@@ -577,39 +630,102 @@ def _bwd_step_args(res, cot):
             torch.empty_like(gates[-1]))
 
 
+def _chain_bound_ms(B, H, T):
+    """The backward's reverse chain: its product 2*B*4H*H per step; dys,
+    mask, gates, cs, c0, W, the peepholes, dhT, dcT in; dxs, dh0, dc0
+    out."""
+    return _bound(2.0 * B * 4 * H * H * T,
+                  4 * (T * B * H + T * B + 4 * T * B * H + T * B * H + B * H
+                       + 4 * H * H + 3 * H + 2 * B * H + 4 * T * B * H
+                       + 2 * B * H))
+
+
 def check_train_shape(B, H, T, seed):
+    """The residual forward and the whole backward at one shape on each
+    route it has (as ``check_shape``): against the plain residual loop and
+    the backward with the plain step (two chain runs bit-equal); times of
+    each route (CUDA events; ``torch.profiler`` device time of the
+    forward's kernel and of every kernel of the backward); on the
+    persistent route the chain alone beside the per-step route's loop
+    alone; one backward step; the plain versions; the bounds."""
     a = _inputs(B, H, T, seed)
     args = _residual_args(a)
-    got = L.lstm_seq_train(*args)
-    torch.cuda.synchronize()
+    route, routes = _lstm_routes(B, H, a["xs"])
     want = L.lstm_sequence_residual_plain(*args)
-    fwd_err = 0.0
-    for name, g, w in zip(("ys", "hs", "cs", "gates"), got, want):
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"B={B} H={H}: {name} is not finite")
-        fwd_err = max(fwd_err, (g - w).abs().max().item())
-        torch.testing.assert_close(
-            g, w, **TOL, msg=lambda m: f"B={B} H={H} T={T} {name}: {m}")
-    res = (a["mask"], a["w"], a["pI"], a["pF"], a["pO"], a["h0"], a["c0"],
-           *got[1:])
     cot = _cotangents(B, H, T, seed + 1)
-    got_b = L.lstm_backward(*res, *cot)
-    torch.cuda.synchronize()
-    want_b = L.lstm_backward(*res, *cot, step=L.lstm_bwd_step_plain)
-    bwd_err = _check_grads(f"B={B} H={H} T={T} backward", got_b, want_b,
-                           ("xs", "W", "pI", "pF", "pO", "h0", "c0"))
+    row = dict(B=B, H=H, T=T, route=route, fwd_max_abs_err=0.0,
+               bwd_max_abs_err=0.0)
+    calls = 10 if T >= 80 else 20
+    names = ("xs", "W", "pI", "pF", "pO", "h0", "c0")
+    for per_step in routes:
+        where = f"B={B} H={H} T={T} per_step={per_step}"
+        got = L.lstm_seq_train(*args, per_step=per_step)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("ys", "hs", "cs", "gates"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{where}: {name} is not finite")
+            row["fwd_max_abs_err"] = max(row["fwd_max_abs_err"],
+                                         (g - w).abs().max().item())
+            torch.testing.assert_close(
+                g, w, **TOL, msg=lambda m: f"{where} {name}: {m}")
+        res = (a["mask"], a["w"], a["pI"], a["pF"], a["pO"], a["h0"],
+               a["c0"], *got[1:])
+        got_b = L.lstm_backward(*res, *cot, per_step=per_step)
+        torch.cuda.synchronize()
+        want_b = L.lstm_backward(*res, *cot, step=L.lstm_bwd_step_plain)
+        row["bwd_max_abs_err"] = max(row["bwd_max_abs_err"], _check_grads(
+            f"{where} backward", got_b, want_b, names))
+        if not per_step:
+            for name, g, g2 in zip(names, got_b,
+                                   L.lstm_backward(*res, *cot)):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{where}: two chain runs differ "
+                                         f"in d{name}")
+        p = "per_step_" if per_step and route == L.PERSISTENT else ""
+        fwd = lambda: L.lstm_seq_train(*args, per_step=per_step)
+        bwd = lambda: L.lstm_backward(*res, *cot, per_step=per_step)
+        row[p + "fwd_ms"] = _time_ms(fwd)
+        kernel, per = _fwd_kernel(per_step, T)
+        row[p + "fwd_device_ms"] = _device_ms(fwd, kernel, calls, per)[0]
+        row[p + "bwd_ms"] = _time_ms(bwd)
+        # every kernel of the backward: the chain or the per-step kernels
+        # and their cuBLAS products, then dW and the peephole sums
+        row[p + "bwd_device_ms"] = _device_ms(bwd, None, calls)[0]
+    mask, w, pI, pF, pO, h0, c0, hs, cs, gates = res
+    dys, dhT, dcT = cot
+    chain_args = (dys, mask, gates, cs, c0, w, pI, pF, pO, dhT, dcT)
+
+    def step_loop():  # the per-step route's reverse chain, no dW
+        dh, dc, dhw = dhT.clone(), dcT.clone(), torch.zeros_like(dhT)
+        dxs = torch.empty_like(gates)
+        for t in range(T - 1, -1, -1):
+            L.lstm_bwd_step(dys[t], mask[t], gates[t], cs[t],
+                            cs[t - 1] if t else c0, pI, pF, pO, dhw, dh, dc,
+                            dxs[t])
+            torch.matmul(dxs[t], w.t(), out=dhw)
+
+    row["step_loop_ms"] = _time_ms(step_loop)
+    if route == L.PERSISTENT:
+        chain = lambda: L.lstm_bwd_chain(*chain_args)
+        row["chain_ms"] = _time_ms(chain)
+        row["chain_device_ms"] = _device_ms(chain, "lstm_bwd_chain_kernel",
+                                            calls)[0]
+        row["chain_plain_ms"] = _time_ms(
+            lambda: L.lstm_bwd_chain_plain(*chain_args))
+        row["speedup_chain_vs_step_loop"] = row["step_loop_ms"] / \
+            row["chain_ms"]
+        for key in ("fwd_ms", "fwd_device_ms", "bwd_ms", "bwd_device_ms"):
+            row["speedup_" + key] = row["per_step_" + key] / row[key]
     step = _bwd_step_args(res, cot)
-    row = dict(
-        B=B, H=H, T=T, fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
-        fwd_ms=_time_ms(lambda: L.lstm_seq_train(*args)),
+    row.update(
         fwd_plain_ms=_time_ms(lambda: L.lstm_sequence_residual_plain(*args)),
-        bwd_ms=_time_ms(lambda: L.lstm_backward(*res, *cot)),
         bwd_plain_ms=_time_ms(lambda: L.lstm_backward(
             *res, *cot, step=L.lstm_bwd_step_plain)),
         step_ms=_time_ms(lambda: L.lstm_bwd_step(*step), reps=50),
         step_plain_ms=_time_ms(lambda: L.lstm_bwd_step_plain(*step),
                                reps=50))
     row["fwd_bound_ms"], row["fwd_bound_by"] = _bound_ms(B, H, T, True)
+    row["chain_bound_ms"], row["chain_bound_by"] = _chain_bound_ms(B, H, T)
     # one backward step: dy, mask, gates, c_new, c_prev, peepholes, dhw,
     # dh, dc in; dh, dc, dgates out; ~37 operations per element
     row["step_bound_ms"], row["step_bound_by"] = _bound(
@@ -1631,9 +1747,42 @@ def check_full_width_grads(save_dir):
         Adam(learning_rate=2e-3)))
 
 
+def _check_lstm_chains(where, counts, chains):
+    """The LSTM on a path's persistent route: one reverse-chain launch per
+    layer, direction and step (``chains``), no per-step backward, and one
+    device launch per forward call."""
+    got = (counts["lstm_bwd_chain"]["launches"],
+           counts["lstm_bwd_step"]["launches"])
+    if got != (chains, 0):
+        raise AssertionError(f"{where}: {got[0]} LSTM chains (expected "
+                             f"{chains}), {got[1]} backward steps")
+    for name in ("lstm_seq", "lstm_seq_train"):
+        if counts[name]["step_launches"] != counts[name]["launches"]:
+            raise AssertionError(f"{where}: {name} took the per-step route "
+                                 f"({counts[name]})")
+
+
+def _classifier_batch():
+    """One CPU-fed batch of TRAIN_BATCH rows (lengths 1-SEQLEN) for the
+    classifier's step trace."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    rng = np.random.default_rng(SEED + 2)
+    batch = [(rng.integers(0, MODEL["vocab_size"], size=int(n)).tolist(),
+              int(rng.integers(0, MODEL["classes"])))
+             for n in rng.integers(1, SEQLEN + 1, size=TRAIN_BATCH)]
+    return DataFeeder({"words": integer_value_sequence(MODEL["vocab_size"]),
+                       "label": integer_value(MODEL["classes"])},
+                      pad_multiple=SEQLEN, device="cpu")(batch)
+
+
 def train(tmp):
     """--job train (Adam, 3 passes, --save_dir), one Momentum pass, the
-    full-width gradient check, --job merge. Returns (result, conf, model)."""
+    full-width gradient check, one traced step, --job merge. Returns
+    (result, conf, model)."""
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.optim import Adam
     conf = os.path.join(tmp, "train_conf.py")
     _write_config(conf, "optimizer = Adam(learning_rate=2e-3)")
     save_dir = os.path.join(tmp, "ckpt")
@@ -1641,15 +1790,21 @@ def train(tmp):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("lstm_seq_train", "lstm_bwd_step", "adam"):
+    for name in ("lstm_seq_train", "adam"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"--job train never launched {name}")
+    _check_lstm_chains("--job train", counts,
+                       MODEL["num_layers"] * summary["steps"])
     mom_conf = os.path.join(tmp, "momentum_conf.py")
     _write_config(mom_conf, "# no optimizer: the CLI's default Momentum")
     mom_costs, mom_summary = _train_run(mom_conf, 1)
     if mom_summary["kernels"]["momentum"]["launches"] <= 0:
         raise AssertionError("--job train never launched momentum")
+    _check_lstm_chains("the Momentum pass", mom_summary["kernels"],
+                       MODEL["num_layers"] * mom_summary["steps"])
     grads = check_full_width_grads(save_dir)
+    trace = _step_trace(lambda: lstm_text_classifier(**MODEL), save_dir,
+                        Adam(learning_rate=2e-3), _classifier_batch())
     model = os.path.join(tmp, "lstm_text_h1280.ptmodel")
     _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
           "--model_path", model], timeout=600)
@@ -1658,7 +1813,8 @@ def train(tmp):
                   step_ms=summary["step_ms"], kernels=counts,
                   momentum_pass_costs=mom_costs,
                   momentum_median_step_ms=mom_summary["median_step_ms"],
-                  momentum_kernels=mom_summary["kernels"], grad_check=grads)
+                  momentum_kernels=mom_summary["kernels"], grad_check=grads,
+                  step_trace=trace)
     phase("train", **result)
     return result, conf, model
 
@@ -1984,6 +2140,9 @@ def serve(tmp, conf, model):
     steps = after["step_launches"] - before["step_launches"]
     if launches <= 0:
         raise AssertionError("the serving path never launched lstm_seq")
+    if steps != launches:
+        raise AssertionError(f"the served lstm_seq calls took the per-step "
+                             f"route ({launches} calls, {steps} launches)")
     result = dict(ready_s=ready_s, single_ms=times_ms, rows=len(rows),
                   rows_ms=rows_ms, requests=len(singles) + 1 + len(rows),
                   launches=launches, step_launches=steps,
@@ -2645,9 +2804,10 @@ def train_tagger(tmp):
         raise AssertionError(f"tagger pass costs {costs} do not fall")
     counts = summary["kernels"]
     for name in ("crf_alpha_fwd", "crf_bwd", "crf_viterbi", "lstm_seq_train",
-                 "lstm_bwd_step", "adam"):
+                 "adam"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"tagger --job train never launched {name}")
+    _check_lstm_chains("tagger --job train", counts, 2 * summary["steps"])
     samples, batch = _tag_samples()
     rng = np.random.default_rng(SEED + 1)
     feed = DataFeeder(_tag_feeding(), pad_multiple=TAG_LEN, device="cpu")(
@@ -2670,6 +2830,7 @@ def train_tagger(tmp):
     for name in ("crf_alpha_fwd", "crf_viterbi", "lstm_seq"):
         if test_counts[name]["launches"] <= 0:
             raise AssertionError(f"tagger --job test never launched {name}")
+    _check_lstm_chains("tagger --job test", test_counts, 0)
     model = os.path.join(tmp, "tagger.ptmodel")
     _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
           "--model_path", model], timeout=600)
@@ -2728,6 +2889,12 @@ def serve_tagger(tmp, serve_conf, model):
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the serving path never launched {k}")
+    steps = after["lstm_seq"]["step_launches"] - \
+        before["lstm_seq"]["step_launches"]
+    if steps != launches["lstm_seq"]:
+        raise AssertionError(f"the served lstm_seq calls took the per-step "
+                             f"route ({launches['lstm_seq']} calls, {steps} "
+                             "launches)")
     result = dict(ready_s=ready_s, single_lengths=lengths[:3],
                   single_ms=times_ms, rows=len(rows), rows_ms=rows_ms,
                   requests=len(answers), launches=launches["crf_viterbi"],
@@ -2840,15 +3007,30 @@ def _write_ds2_config(path, lr=DS2_LR):
         """))
 
 
-def _acoustic_step_trace(build_model, save_dir, utterances):
-    """One training step of the acoustic model on the card from the
-    trained checkpoint (a batch of DS2_BATCH utterances, ``train_step``:
-    forward, backward, Adam): the host-clock median of 3 after one warm
-    step, each ending in a synchronise; and from one step under
+# the CUDA kernel each wrapper on a traced train step launches (one a
+# device launch its counters count)
+_TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
+           "lstm_bwd_chain": "lstm_bwd_chain_kernel",
+           "gru_seq_train": "gru_persistent_kernel",
+           "gru_bwd_chain": "gru_bwd_chain_kernel",
+           "ctc_alpha_fwd": "ctc_alpha_fwd_kernel",
+           "ctc_bwd": "ctc_bwd_kernel", "adam": "adam_kernel"}
+
+
+def _step_trace(build_model, save_dir, optimizer, feed):
+    """One training step on the card from the newest checkpoint of
+    ``save_dir`` (``train_step`` on the CPU-fed batch ``feed``: forward,
+    backward, update): the host-clock median of 3 after one warm step,
+    each ending in a synchronise; and from one step under
     ``torch.profiler`` the device's busy time (every kernel's device time
-    summed), its idle share and the five kernels that take most."""
+    summed), its idle share and the five kernels that take most. The
+    trace's launches by kernel stand beside the device launches the port's
+    wrappers counted in that step (``expected``); ``complete`` says
+    whether every one of the wrappers' launches is in the trace (where
+    some are not, the busy time is low and the idle share an upper
+    bound)."""
+    from paddle_tpu_torch import ops
     from paddle_tpu_torch.config import dsl
-    from paddle_tpu_torch.optim import Adam
     from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
                                                      load_params)
     from paddle_tpu_torch.trainer.trainer import SGD
@@ -2856,9 +3038,8 @@ def _acoustic_step_trace(build_model, save_dir, utterances):
     cost = build_model()[0]
     params, _ = load_params(latest_checkpoint(save_dir))
     tr = SGD(cost, parameters=params, device="cuda",
-             update_equation=Adam(learning_rate=DS2_LR))
-    feed = tr._to_device(_ds2_feeder("cpu")(
-        utterances(np.random.default_rng(SEED), DS2_BATCH)))
+             update_equation=optimizer)
+    feed = tr._to_device(feed)
 
     def step():
         t0 = time.perf_counter()
@@ -2866,22 +3047,35 @@ def _acoustic_step_trace(build_model, save_dir, utterances):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
+    def device_launches():
+        return {name: c.get("step_launches", c["launches"])
+                for name, c in ops.kernel_counts().items()
+                if name in _TRACED}
+
     step()
     step_ms = statistics.median(step() for _ in range(3))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = device_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_ms = step()
+    expected = {_TRACED[k]: n - before[k]
+                for k, n in device_launches().items() if n > before[k]}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
+    launches = {e.key[:80]: e.count for e in kernels}
+    traced = {name: sum(n for k, n in launches.items() if name in k)
+              for name in expected}
     busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return dict(
         step_ms=step_ms, profiled_step_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
         top_kernels=[dict(name=e.key[:80], ms=1e-3 * e.self_device_time_total,
-                          count=e.count) for e in top])
+                          count=e.count) for e in top],
+        launches=launches, expected=expected, traced=traced,
+        complete=traced == expected)
 
 
 def train_acoustic(tmp):
@@ -2933,8 +3127,10 @@ def train_acoustic(tmp):
                  **_grads_card_vs_cpu(lambda: ns["acoustic_model"](dsl),
                                       save_dir, feed,
                                       Adam(learning_rate=DS2_LR)))
-    trace = _acoustic_step_trace(lambda: ns["acoustic_model"](dsl),
-                                 save_dir, ns["utterances"])
+    trace = _step_trace(lambda: ns["acoustic_model"](dsl), save_dir,
+                        Adam(learning_rate=DS2_LR), _ds2_feeder("cpu")(
+                            ns["utterances"](np.random.default_rng(SEED),
+                                             DS2_BATCH)))
     out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
                timeout=900)
     line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
@@ -2998,6 +3194,42 @@ def ds2_rate_witness():
     return result
 
 
+def lstm_kernels():
+    """``--lstm-kernels``: phases 3 and 4 at the LSTM shapes of the paths
+    (the classifier's serve (64, 1280, 128) and train (64, 1280, 100) and
+    gradient check (16, 1280, 100), the tagger's (64, 128, 80)); rows in
+    ``lstm_kernels.json`` in ``OUT_DIR``."""
+    build.build_all(["lstm_seq"])
+    H = MODEL["hidden"]
+    out = dict(
+        primal=[check_shape(B, h, T, (False,), seed=B + T)
+                for B, h, T in [(MAX_BATCH, H, LENGTH_BUCKETS[-1]),
+                                (TAG_BATCH, TAGGER["hidden"], TAG_LEN)]],
+        train=[check_train_shape(B, h, T, seed=B * 11 + h)
+               for B, h, T in [(TRAIN_BATCH, H, SEQLEN),
+                               (GRAD_CHECK_ROWS, H, SEQLEN),
+                               (TAG_BATCH, TAGGER["hidden"], TAG_LEN)]])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "lstm_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
+def _lstm_route_keys(row, prefix):
+    """The LSTM forward's route and both routes' times for its entry."""
+    return dict(kernel_route="persistent",
+                device_ms=row[prefix + "device_ms"],
+                per_step_ms=row["per_step_" + prefix + "ms"],
+                per_step_device_ms=row["per_step_" + prefix + "device_ms"])
+
+
+def _lstm_chain_keys(row):
+    """The LSTM chain's device time, the per-step loop's and both routes'
+    whole backward for its entry."""
+    return dict(kernel_route="persistent", device_ms=row["chain_device_ms"],
+                step_loop_ms=row["step_loop_ms"], backward_ms=row["bwd_ms"],
+                per_step_backward_ms=row["per_step_bwd_ms"])
+
+
 def _entry(name, source, replaces, launches, err, row, prefix=""):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3012,12 +3244,18 @@ def main() -> int:
     parser.add_argument("--ds2-rate-witness", action="store_true",
                         help="only train the acoustic model at DS2's rate "
                         "on the card and on the CPU plain path")
+    parser.add_argument("--lstm-kernels", action="store_true",
+                        help="only phases 3 and 4 for the LSTM at the "
+                        "classifier's and the tagger's shapes")
     args = parser.parse_args()
     t_start = time.perf_counter()
     check_device()
     if args.ds2_rate_witness:
         build.build_all(["gru_seq", "opt_update", "ctc"])
         ds2_rate_witness()
+        return 0
+    if args.lstm_kernels:
+        lstm_kernels()
         return 0
     build_kernels()
     rows, serve_rows = check_kernels()
@@ -3092,39 +3330,60 @@ def main() -> int:
                     max(r["max_abs_err"] for r in rows + serve_rows),
                     main_row),
              shape={k: main_row[k] for k in ("B", "H", "T")},
+             **_lstm_route_keys(main_row, ""),
              path="lstm_text_classifier serve"),
         dict(_entry("lstm_seq_train", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     counts["lstm_seq_train"]["launches"],
                     max(r["fwd_max_abs_err"] for r in train_rows), t_row,
                     "fwd_"),
              shape={k: t_row[k] for k in ("B", "H", "T")},
+             **_lstm_route_keys(t_row, "fwd_"),
              path="lstm_text_classifier train"),
+        dict(_entry("lstm_bwd_chain", lstm_src,
+                    "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
+                    counts["lstm_bwd_chain"]["launches"],
+                    max([r["bwd_max_abs_err"] for r in train_rows]
+                        + [reverse_err]), t_row, "chain_"),
+             shape={k: t_row[k] for k in ("B", "H", "T")},
+             **_lstm_chain_keys(t_row), path="lstm_text_classifier train"),
         dict(_entry("lstm_bwd_step", lstm_src,
                     "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
                     counts["lstm_bwd_step"]["launches"],
                     max([r["bwd_max_abs_err"] for r in train_rows]
                         + [reverse_err]), t_row, "step_"),
              shape={"B": t_row["B"], "H": t_row["H"], "T": 1},
-             path="lstm_text_classifier train"),
+             on_path=False, kernel_route="per-step",
+             path="none: the per-step route's backward (H above the route "
+                  "line); timed here at the classifier's shape"),
         dict(_entry("lstm_seq_h128", lstm_src, "paddle_tpu/ops/lstm.py:73",
                     tag_test["lstm_seq"]["launches"]
                     + tag_served["lstm_seq_launches"],
                     max(r["max_abs_err"] for r in tag_lstm_rows["primal"]),
                     tag_p_row),
              shape={k: tag_p_row[k] for k in ("B", "H", "T")},
+             **_lstm_route_keys(tag_p_row, ""),
              path="bilstm_crf_tagger test and serve"),
         dict(_entry("lstm_seq_train_h128", lstm_src,
                     "paddle_tpu/ops/lstm.py:73",
                     tag_counts["lstm_seq_train"]["launches"],
                     tag_t_row["fwd_max_abs_err"], tag_t_row, "fwd_"),
              shape={k: tag_t_row[k] for k in ("B", "H", "T")},
+             **_lstm_route_keys(tag_t_row, "fwd_"),
              path="bilstm_crf_tagger train"),
+        dict(_entry("lstm_bwd_chain_h128", lstm_src,
+                    "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
+                    tag_counts["lstm_bwd_chain"]["launches"],
+                    tag_t_row["bwd_max_abs_err"], tag_t_row, "chain_"),
+             shape={k: tag_t_row[k] for k in ("B", "H", "T")},
+             **_lstm_chain_keys(tag_t_row), path="bilstm_crf_tagger train"),
         dict(_entry("lstm_bwd_step_h128", lstm_src,
                     "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
                     tag_counts["lstm_bwd_step"]["launches"],
                     tag_t_row["bwd_max_abs_err"], tag_t_row, "step_"),
              shape={"B": tag_t_row["B"], "H": tag_t_row["H"], "T": 1},
-             path="bilstm_crf_tagger train"),
+             on_path=False, kernel_route="per-step",
+             path="none: the per-step route's backward (H above the route "
+                  "line); timed here at the tagger's shape"),
         dict(_entry("gru_seq", gru_src, "paddle_tpu/ops/gru.py:57",
                     s2s_test["gru_seq"]["launches"], gru_fwd_err, g_row),
              shape={k: g_row[k] for k in ("B", "H", "T")},

@@ -1,0 +1,133 @@
+// What the persistent (one cooperative launch per sequence) kernels of
+// gru_seq.cu and lstm_seq.cu share: the copies into shared memory
+// (cp.async), the grid barrier, the staging of a row block through L2 and
+// the checked cooperative launch.
+//
+// Cross-block data (a state another block wrote during the launch) is
+// read only through L2 (cp.async.cg, ld.global.cg), never through the
+// non-coherent L1.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kPThreads = 256;    // threads of a persistent block
+constexpr int kSmemLimit = 232448;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The grid barrier, in two halves so that a block may work between them
+// on what needs nobody else's output. grid_arrive counts the block in:
+// the fence publishes its writes (ordered before thread 0 by the
+// __syncthreads). grid_wait returns once `target` arrivals (this
+// barrier's number times the grid) have been counted: the acquire load,
+// the fence and the __syncthreads order the block's later reads after the
+// others' writes. The counter only grows, so a block that is a barrier
+// ahead cannot release one that is behind.
+__device__ __forceinline__ void grid_arrive(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* count,
+                                          unsigned target) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(count) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void grid_barrier(unsigned* count,
+                                             unsigned target) {
+  grid_arrive(count);
+  grid_wait(count, target);
+}
+
+// Columns [k0, k0 + w) of rows b < B of a (row stride lda) into
+// buf[b * ld + k - k0], 16 bytes a copy through L2.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ a,
+                                            size_t lda, int k0, int w,
+                                            int B, int ld, float* buf) {
+  // thread i copies float4 i, i + kPThreads, ... of the B x w/4 grid; its
+  // (row, column) advances by (step_b, step_q) with one carry, so the
+  // loop divides only once
+  const int q4 = w / 4;
+  const int step_b = kPThreads / q4, step_q = kPThreads % q4;
+  int b = threadIdx.x / q4, q = threadIdx.x % q4;
+  while (b < B) {
+    cp_async16(buf + b * ld + 4 * q,
+               a + static_cast<size_t>(b) * lda + k0 + 4 * q);
+    b += step_b;
+    q += step_q;
+    if (q >= q4) {
+      q -= q4;
+      ++b;
+    }
+  }
+}
+
+// Checks that `kernel` with `smem` bytes fits the card as a cooperative
+// grid of `grid` blocks, then launches it. Returns 0, a CUDA error, or
+// -1 (shared memory above the card's opt-in limit), -2 (the grid does not
+// fit on the card at once), -3 (no cooperative launch on this device).
+int launch_cooperative(const void* kernel, int grid, long long smem,
+                       void** args, cudaStream_t s) {
+  int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return -3;
+  if (smem > optin || smem > kSmemLimit) return -1;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kPThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * sms < grid) return -2;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kPThreads),
+                                    args, static_cast<size_t>(smem), s);
+  return static_cast<int>(err);
+}
+
+}  // namespace

@@ -40,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.ops import build
-from paddle_tpu_torch.ops.gru import check_weight, gru_step
+from paddle_tpu_torch.ops.build import check_weight
+from paddle_tpu_torch.ops.gru import gru_step
 
 _DEFAULT_IN = ("tanh", "", None)
 _DEFAULT_GATE = ("sigmoid", "", None)

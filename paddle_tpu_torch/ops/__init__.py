@@ -15,9 +15,10 @@ def _wrappers() -> dict:
     from paddle_tpu_torch.ops.ctc import ctc_alpha_fwd, ctc_bwd
     from paddle_tpu_torch.ops.gru import gru_bwd_chain, gru_bwd_step, \
         gru_seq, gru_seq_train
-    from paddle_tpu_torch.ops.lstm import lstm_bwd_step, lstm_seq, \
-        lstm_seq_train
+    from paddle_tpu_torch.ops.lstm import lstm_bwd_chain, lstm_bwd_step, \
+        lstm_seq, lstm_seq_train
     return {"lstm_seq": lstm_seq, "lstm_seq_train": lstm_seq_train,
+            "lstm_bwd_chain": lstm_bwd_chain,
             "lstm_bwd_step": lstm_bwd_step, "gru_seq": gru_seq,
             "gru_seq_train": gru_seq_train, "gru_bwd_chain": gru_bwd_chain,
             "gru_bwd_step": gru_bwd_step,

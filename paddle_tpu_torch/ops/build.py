@@ -1,13 +1,15 @@
 """Builds the port's CUDA sources (``paddle_tpu_torch/csrc/*.cu``) into
 shared libraries with a plain C interface and loads them with ctypes; and
 the helpers every kernel wrapper shares (``bind``, ``cuda_device``,
-``check_tensors``, ``raise_on``).
+``check_tensors``, ``check_weight``, ``raise_on``) and those of the
+persistent (cooperative) kernels (``device_sms``, ``raise_coop``,
+``aligned``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` at its first use, into
 ``build/paddle_tpu_torch/`` under the checkout (listed in ``.gitignore``).
-A library's file name carries a hash of its source and flags, so an edit
-rebuilds and a second process of the same checkout reuses the first one's
-build. ``build_all`` starts one ``nvcc`` per source, all at once.
+A library's file name carries a hash of its source, the headers it
+includes and the flags, so an edit rebuilds and a second process of the
+same checkout reuses the first one's build. ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +51,18 @@ def nvcc() -> str:
                        "toolkit")
 
 
-def library_path(name: str) -> Path:
+def _sources(name: str) -> bytes:
+    """``csrc/<name>.cu`` and the headers of ``csrc`` it includes."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    heads = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
+    return src + b"".join((CSRC / h.decode()).read_bytes() for h in heads)
+
+
+def library_path(name: str) -> Path:
+    """The build of ``csrc/<name>.cu``: its file name carries a hash of the
+    source, the headers it includes and the flags."""
+    key = hashlib.sha1(_sources(name) + " ".join(NVCC_FLAGS).encode()
+                       ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -134,3 +146,66 @@ def raise_on(err: int, kernel: str):
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with CUDA "
                            f"error {err}")
+
+
+# shared memory a block may opt into on Hopper (csrc/persistent.cuh:
+# kSmemLimit) and the H100's SMs
+SMEM_BYTES = 232448
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(t) -> int:
+    """SMs of the card ``t`` lies on; H100_SMS for a CPU tensor, whose
+    plain versions follow the route the H100 would take."""
+    return _sms_of(t.device.index if t.device.index is not None
+                   else torch.cuda.current_device()) if t.is_cuda \
+        else H100_SMS
+
+
+_COOP_ERRORS = {
+    -1: "the block's shared memory exceeds the card's opt-in limit",
+    -2: "the cooperative grid does not fit on the card at once "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs < blocks)",
+    -3: "the device does not support cooperative launches",
+    -4: "the kernel does not take this plan (H % 4, tiles or chunk)",
+}
+
+
+def raise_coop(err, kernel, plan):
+    """Raises for a persistent launch's error code (csrc/persistent.cuh:
+    launch_cooperative), naming the reason and the plan."""
+    if err in _COOP_ERRORS:
+        raise RuntimeError(f"{kernel}: persistent launch refused: "
+                           f"{_COOP_ERRORS[err]} (plan {plan})")
+    raise_on(err, kernel)
+
+
+def aligned(t):
+    """``t``, or a copy of it on a 16-byte boundary (the persistent
+    kernels stage it with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_weight(kernel, device, name, w, shape):
+    """A float32 CUDA matrix on ``device`` of ``shape`` whose columns are
+    contiguous (a column slice of a wider matrix is fine: the kernels take
+    its row stride). Returns that row stride."""
+    if w.dtype != torch.float32 or not w.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a float32 CUDA tensor, "
+                         f"got {w.dtype} on {w.device}")
+    if tuple(w.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(w.shape)}, "
+                         f"expected {tuple(shape)}")
+    if w.device != device:
+        raise ValueError(f"{kernel}: {name} is on {w.device}, expected "
+                         f"{device}")
+    if w.stride(1) != 1 or w.stride(0) < w.shape[1]:
+        raise ValueError(f"{kernel}: {name} must have contiguous columns "
+                         f"(strides {tuple(w.stride())}); a column slice of "
+                         "a row-major matrix is fine, a transpose is not")
+    return w.stride(0)

@@ -50,23 +50,22 @@ over T*B rows. f32 only.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops import build
+from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
+                                        check_weight, device_sms)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # the persistent kernels' constants (csrc/gru_seq.cu: kPThreads, kTileRows,
-# kTileCols, kMaxSlices, kSmemLimit); MIN_CHUNK is the route's own rule
+# kTileCols, kMaxSlices); MIN_CHUNK is the route's own rule
 THREADS = 256
 TILE_ROWS = TILE_COLS = 4
 MAX_SLICES = 32
 MIN_CHUNK = 32
-SMEM_BYTES = 232448  # shared memory a block may opt into on Hopper
-H100_SMS = 132
 PERSISTENT, TWO_LAUNCH = "persistent", "two_launch"
 
 
@@ -150,35 +149,6 @@ def gru_route(B, H, sms=H100_SMS) -> str:
     return gru_plan(B, H, sms)["route"]
 
 
-@functools.lru_cache(maxsize=None)
-def _sms_of(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def device_sms(t) -> int:
-    """SMs of the card ``t`` lies on; H100_SMS for a CPU tensor, whose
-    plain versions follow the route the H100 would take."""
-    return _sms_of(t.device.index if t.device.index is not None
-                   else torch.cuda.current_device()) if t.is_cuda \
-        else H100_SMS
-
-
-_COOP_ERRORS = {
-    -1: "the block's shared memory exceeds the card's opt-in limit",
-    -2: "the cooperative grid does not fit on the card at once "
-        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs < blocks)",
-    -3: "the device does not support cooperative launches",
-    -4: "the kernel does not take this plan (H % 4, tiles or chunk)",
-}
-
-
-def _raise_coop(err, kernel, plan):
-    if err in _COOP_ERRORS:
-        raise RuntimeError(f"{kernel}: persistent launch refused: "
-                           f"{_COOP_ERRORS[err]} (plan {plan})")
-    build.raise_on(err, kernel)
-
-
 def persistent_smem_of_kernel(B, H, units, chunk, backward) -> int:
     """The kernel's own count of a persistent block's shared-memory bytes
     (card only: it loads the library), to hold ``persistent_smem``
@@ -234,26 +204,6 @@ def gru_sequence_residual_plain(xs_b, mask, w_gate, w_state, h0):
     return torch.stack(ys), torch.stack(hs), torch.stack(gates)
 
 
-def check_weight(kernel, device, name, w, shape):
-    """A float32 CUDA matrix on ``device`` of ``shape`` whose columns are
-    contiguous (a column slice of a wider matrix is fine: the kernels take
-    its row stride). Returns that row stride."""
-    if w.dtype != torch.float32 or not w.is_cuda:
-        raise ValueError(f"{kernel}: {name} must be a float32 CUDA tensor, "
-                         f"got {w.dtype} on {w.device}")
-    if tuple(w.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {name} has shape {tuple(w.shape)}, "
-                         f"expected {tuple(shape)}")
-    if w.device != device:
-        raise ValueError(f"{kernel}: {name} is on {w.device}, expected "
-                         f"{device}")
-    if w.stride(1) != 1 or w.stride(0) < w.shape[1]:
-        raise ValueError(f"{kernel}: {name} must have contiguous columns "
-                         f"(strides {tuple(w.stride())}); a column slice of "
-                         "a row-major matrix is fine, a transpose is not")
-    return w.stride(0)
-
-
 def _seq_args(kernel, xs_b, mask, w_gate, w_state, h0):
     """Checks the sequence operands; returns (device, T, B, H, ldg, lds)."""
     dev = build.cuda_device(kernel, xs_b)
@@ -275,12 +225,6 @@ def _persistent_plan(t, B, H, two_launch):
     return plan if plan["route"] == PERSISTENT else None
 
 
-def _aligned(t):
-    """``t``, or a copy of it on a 16-byte boundary (the persistent
-    kernels stage it with 16-byte copies)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _forward_persistent(kernel, plan, xs_b, mask, w_gate, w_state, h0, ldg,
                         lds, h, ys, hs, gates):
     T, B, _ = xs_b.shape
@@ -297,7 +241,7 @@ def _forward_persistent(kernel, plan, xs_b, mask, w_gate, w_state, h0, ldg,
             ptr(hs), ptr(gates), rh.data_ptr(), count.data_ptr(),
             int(hs is not None), ldg, lds, T, B, H, plan["units"],
             plan["chunk_fwd"], stream)
-    _raise_coop(err, kernel, plan)
+    build.raise_coop(err, kernel, plan)
 
 
 def gru_seq(xs_b, mask, w_gate, w_state, h0, two_launch=False) -> Pair:
@@ -350,7 +294,7 @@ def gru_seq_train(xs_b, mask, w_gate, w_state, h0, two_launch=False):
     plan = _persistent_plan(xs_b, B, H, two_launch)
     if plan is not None:
         _forward_persistent("gru_seq_train", plan, xs_b, mask, w_gate,
-                            w_state, _aligned(h0), ldg, lds, None, ys, hs,
+                            w_state, aligned(h0), ldg, lds, None, ys, hs,
                             gates)
         gru_seq_train.step_launches += 1 if T else 0
     else:
@@ -508,7 +452,7 @@ def gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state, dhT):
             w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
             dh0.data_ptr(), count.data_ptr(), ldg, lds, T, B, H,
             plan["units"], plan["chunk_bwd"], stream)
-    _raise_coop(err, "gru_bwd_chain", plan)
+    build.raise_coop(err, "gru_bwd_chain", plan)
     gru_bwd_chain.launches += 1
     gru_bwd_chain.step_launches += 1 if T else 0
     return dxs, dh0

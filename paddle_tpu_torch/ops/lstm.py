@@ -9,33 +9,53 @@ kernels of ``csrc/lstm_seq.cu``, whose source note gives their design and
 their bound on the H100. The input projection ``x @ W_in`` stays outside,
 in the ``fc`` layer, exactly as in the JAX package.
 
-Three kernel wrappers, each counting the calls that launched its kernel
-(``.launches``) and choosing by device: on a CUDA tensor it launches the
-kernel (or raises), on a CPU tensor it runs its plain PyTorch version,
-which the CPU tests hold against the JAX package.
+Two routes, chosen by shape (``lstm_route``), never by failure:
 
-- ``lstm_seq``: the primal forward (ys, hT, cT); plain version
+- persistent: one cooperative launch per sequence and one per reverse
+  chain, each block holding its slice of W in shared memory
+  (``lstm_plan`` gives the slice, the grids and the
+  shared-memory bytes the kernels will ask for);
+- per-step: one launch per timestep forward and, backward, one
+  ``lstm_bwd_step`` call and one product per step, for shapes whose
+  weight slice and staging do not fit one SM (H above 1280 at B = 1, 16
+  and 64), with more than 64 rows, or H % 4 != 0.
+
+``per_step=True`` forces the second route (to time both at one shape). A
+CUDA tensor launches a kernel or raises; a CPU tensor runs the plain
+PyTorch version of the route the card would take, which the CPU tests
+hold against the JAX package.
+
+Kernel wrappers, each counting the calls that launched its kernel
+(``.launches``) and, where a call may launch more than once, the device
+launches (``.step_launches``: 1 a call on the persistent route, T on the
+per-step one):
+
+- ``lstm_seq``: the primal forward (ys, hT, cT); plain
   ``lstm_sequence_plain``.
 - ``lstm_seq_train``: the residual forward (ys, hs, cs, gates); plain
-  version ``lstm_sequence_residual_plain``.
+  ``lstm_sequence_residual_plain``.
+- ``lstm_bwd_chain``: the whole reverse chain (dxs, dh0, dc0); plain
+  ``lstm_bwd_chain_plain``, arranged as the kernel's blocks.
 - ``lstm_bwd_step``: one reverse step of the backward's elementwise
-  chain; plain version ``lstm_bwd_step_plain``.
+  chain, the per-step route's; plain ``lstm_bwd_step_plain``.
 
 ``lstm_sequence`` takes the primal kernel when no gradient is wanted and
 otherwise ``LstmFunction``, whose backward (``lstm_backward``) is a
-transcription of ``_bwd_rule``: one ``lstm_bwd_step`` per step, the
-recurrent product ``dgates_t @ W^T`` between steps, and ``dW`` and the
-peephole gradients as one product and three sums after the loop. f32
-only; bf16 is later work.
+transcription of ``_bwd_rule``: the chain (or the per-step loop), then
+``dW`` and the peephole gradients as one product and three sums, where
+JAX sums them per step. f32 only; bf16 is later work.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Tuple
 
 import torch
 
 from paddle_tpu_torch.ops import build
+from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
+                                        check_weight, device_sms)
 
 Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -43,6 +63,137 @@ Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # paddle_tpu/ops/lstm.py:BENCH_SHAPES
 BENCH_SHAPES = [(64, 256), (64, 512), (64, 1280), (128, 256), (128, 1280),
                 (256, 256), (256, 1280), (512, 512)]
+
+# the persistent kernels' constants (csrc/lstm_seq.cu): the units a block
+# may own (the instantiated kernels), the blocks of a chain row group
+# (kGroupCols), the most rows
+UNITS = (1, 2, 4, 10)
+GROUP_COLS = 16
+MAX_ROWS = 64
+PERSISTENT, PER_STEP = "persistent", "per_step"
+# the shared-memory kinds of csrc/lstm_seq.cu:lstm_smem
+_KINDS = {"fwd": 0, "bwd": 1}
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def lstm_units(H, sms=H100_SMS) -> int:
+    """Hidden units a persistent block owns: the fewest of ``UNITS`` whose
+    chain grid (the ceil(H / units) slices in whole row groups of
+    ``GROUP_COLS`` blocks, ``lstm_chain_grid``) has at most one block per
+    SM; where none does, ceil(H / SMs) (a shape off the route)."""
+    cap = sms // GROUP_COLS * GROUP_COLS
+    return next((u for u in UNITS if _cdiv(H, u) <= cap), _cdiv(H, sms))
+
+
+def lstm_partition(H, units) -> List[Tuple[int, int]]:
+    """The blocks' unit slices [u0, u1): block p owns
+    [p * units, min((p + 1) * units, H))."""
+    return [(u0, min(u0 + units, H)) for u0 in range(0, H, units)]
+
+
+def lstm_chain_grid(H, units) -> int:
+    """The chain's blocks (``chain_grid``): the unit slices rounded up to
+    whole row groups of ``GROUP_COLS``; the last blocks may own no unit."""
+    return _cdiv(_cdiv(H, units), GROUP_COLS) * GROUP_COLS
+
+
+def _lane_rows(B):
+    """Rows a lane holds in the chain's product (``lane_rows``): one warp
+    covers all B rows, padded to 8 x this."""
+    return 1 if B <= 8 else 2 if B <= 16 else 4 if B <= 32 else 8
+
+
+def _fwd_rows(B):
+    """(rows a lane, row warps) of the forward's product (``fwd_rows``);
+    the other 8 / row warps split K."""
+    return (1, 1) if B <= 8 else (2, 1) if B <= 16 else (4, 1) if B <= 32 \
+        else (4, 2)
+
+
+def _half_rows(rpl):
+    """A lane's rows handed over in one round (``half_rows``)."""
+    return rpl // 2 if rpl > 1 else 1
+
+
+def _padded_ld(K):
+    """Row stride of a shared-memory matrix (``padded_ld``): an odd number
+    of float4s."""
+    return 4 * ((K // 4) | 1)
+
+
+def _chain_bufs(B, H, units):
+    """The chain's staging buffers (``chain_bufs``): all R chunks of the
+    column group's dgates where they fit beside the weights, else two."""
+    R = lstm_chain_grid(H, units) // GROUP_COLS
+    weights = GROUP_COLS * units * _padded_ld(4 * units * R)
+    chunk = 8 * _lane_rows(B) * _padded_ld(4 * units)
+    return R if 4 * (weights + R * chunk) <= SMEM_BYTES else 2
+
+
+# the forward's staging: each of the 8 warps of a block a ring of SLOTS
+# slots of 2 float4s of h for each of its rows (``kSlots``)
+WARPS = 8
+SLOTS = 3
+
+
+def lstm_smem(B, H, units, kind) -> int:
+    """Shared-memory bytes of a persistent block (``lstm_smem`` in the
+    kernel). Forward (``kind="fwd"``): the 4 * units resident weight rows
+    (H wide, padded to an odd number of float4s) and the 8 warps' staging
+    rings of h ([SLOTS][rows][8]), which then hold the K slices' sums on
+    their way to warp 0 and the cells' sums. Chain (``"bwd"``): the row
+    group's 16 * units weight rows over the column group's 4 * units * R
+    columns and the staging of its dgates, which then hold the K halves'
+    sums and pass the partial out half the rows at a time. The carries and
+    the own inputs live in registers."""
+    if kind == "fwd":
+        rpl, mw = _fwd_rows(B)
+        stage = WARPS * SLOTS * 8 * rpl * 8
+        sums = max(128 * rpl * units, 32 * rpl * mw * units)
+        return 4 * (4 * units * _padded_ld(H) + max(stage, sums))
+    rpl = _lane_rows(B)
+    R = lstm_chain_grid(H, units) // GROUP_COLS
+    return 4 * (GROUP_COLS * units * _padded_ld(4 * units * R)
+                + max(_chain_bufs(B, H, units) * 8 * rpl
+                      * _padded_ld(4 * units),
+                      4 * 32 * _half_rows(rpl) * units,
+                      8 * _half_rows(rpl) * (GROUP_COLS * units + 4)))
+
+
+def lstm_plan(B, H, sms=H100_SMS) -> dict:
+    """The persistent route's plan for a [B, H] recurrence on a card of
+    ``sms`` SMs: ``units``, the forward's ``grid`` and the chain's
+    ``grid_bwd``, and the bytes ``smem_fwd`` / ``smem_bwd`` of the forward
+    and of the chain; ``route``: PERSISTENT where 1 <= B <= 64,
+    H % 4 == 0, the units are one of ``UNITS`` with the chain grid within
+    the card's SMs and both blocks fit the card's limit; else PER_STEP."""
+    units = lstm_units(H, sms)
+    ok = 1 <= B <= MAX_ROWS and H >= 4 and H % 4 == 0 and units in UNITS
+    plan = dict(units=units, grid=_cdiv(H, units) if H else 0,
+                grid_bwd=lstm_chain_grid(H, units) if H else 0,
+                smem_fwd=lstm_smem(B, H, units, "fwd") if ok else 0,
+                smem_bwd=lstm_smem(B, H, units, "bwd") if ok else 0)
+    ok = ok and plan["grid_bwd"] <= sms and max(
+        plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_BYTES
+    plan["route"] = PERSISTENT if ok else PER_STEP
+    return plan
+
+
+def lstm_route(B, H, sms=H100_SMS) -> str:
+    """PERSISTENT or PER_STEP for a [B, H] recurrence (``lstm_plan``)."""
+    return lstm_plan(B, H, sms)["route"]
+
+
+def persistent_smem_of_kernel(B, H, units, kind) -> int:
+    """The kernel's own count of a persistent block's shared-memory bytes
+    (card only: it loads the library), to hold ``lstm_smem`` against."""
+    fn = build.load("lstm_seq").lstm_persistent_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(B, H, units, _KINDS[kind])
 
 
 def _cell(x_t, h, c, w, check_i, check_f, check_o):
@@ -96,54 +247,119 @@ def lstm_sequence_residual_plain(xs_b, mask, w, check_i, check_f, check_o,
             torch.stack(gates))
 
 
-def lstm_bwd_step_plain(dy_t, m_t, gates_t, c_new, c_prev, check_i,
-                        check_f, check_o, dhw, dh, dc, dgates_t):
-    """One reverse step of ``_bwd_rule`` (``paddle_tpu/ops/lstm.py:366-389``)
-    in plain PyTorch, with the arguments and in-place contract of
-    ``lstm_bwd_step``: dh holds (1 - m_{t+1}) dh_{t+1} and dhw holds
-    dgates_{t+1} @ W^T on entry; dh, dc and dgates_t are written."""
-    H = dh.shape[-1]
-    m = m_t.unsqueeze(-1)
-    i, ig, fg, og = (gates_t[:, k * H:(k + 1) * H] for k in range(4))
-    dh_in = dh + dhw
+def _cell_grads(dh_in, dc_in, dy_t, m, gates_t, c_new, c_prev, check_i,
+                check_f, check_o):
+    """The elementwise chain of one reverse step of ``_bwd_rule``
+    (``paddle_tpu/ops/lstm.py:366-389``, the kernels' order of terms) on
+    the carries dh_in (the product of the step after already added) and
+    dc_in: (dgates_t [.., 4H], dc_prev, (1 - m) * dh_in)."""
+    H = dh_in.shape[-1]
+    i, ig, fg, og = (gates_t[..., k * H:(k + 1) * H] for k in range(4))
     dh_new = m * (dh_in + dy_t)
-    dc_new = m * dc
+    dc_new = m * dc_in
     tc = torch.tanh(c_new)
     da_og = (dh_new * tc) * og * (1 - og)
     dc_tot = dc_new + dh_new * og * (1 - tc * tc) + da_og * check_o
     da_i = dc_tot * ig * (1 - i * i)
     da_ig = (dc_tot * i) * ig * (1 - ig)
     da_fg = (dc_tot * c_prev) * fg * (1 - fg)
-    dc.copy_((1 - m) * dc + dc_tot * fg + da_ig * check_i + da_fg * check_f)
-    dh.copy_((1 - m) * dh_in)
-    dgates_t.copy_(torch.cat([da_i, da_ig, da_fg, da_og], dim=-1))
+    dc_prev = (1 - m) * dc_in + dc_tot * fg + da_ig * check_i \
+        + da_fg * check_f
+    return (torch.cat([da_i, da_ig, da_fg, da_og], dim=-1), dc_prev,
+            (1 - m) * dh_in)
 
 
-def _seq_shapes(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
+def lstm_bwd_step_plain(dy_t, m_t, gates_t, c_new, c_prev, check_i,
+                        check_f, check_o, dhw, dh, dc, dgates_t):
+    """One reverse step of ``_bwd_rule`` (``paddle_tpu/ops/lstm.py:366-389``)
+    in plain PyTorch, with the arguments and in-place contract of
+    ``lstm_bwd_step``: dh holds (1 - m_{t+1}) dh_{t+1} and dhw holds
+    dgates_{t+1} @ W^T on entry; dh, dc and dgates_t are written."""
+    dg, dc_prev, dh_prev = _cell_grads(dh + dhw, dc, dy_t,
+                                       m_t.unsqueeze(-1), gates_t, c_new,
+                                       c_prev, check_i, check_f, check_o)
+    dc.copy_(dc_prev)
+    dh.copy_(dh_prev)
+    dgates_t.copy_(dg)
+
+
+def _seq_args(kernel, xs_b, mask, w, check_i, check_f, check_o, h0, c0,
+              strided):
+    """Checks the sequence operands; returns (device, T, B, H, ldw). The
+    per-step kernels take a contiguous w; the persistent ones any row
+    stride (``strided``)."""
+    dev = build.cuda_device(kernel, xs_b)
     T, B, H4 = xs_b.shape
     H = H4 // 4
-    return dict(xs=(xs_b, (T, B, 4 * H)), mask=(mask, (T, B)),
-                w=(w, (H, 4 * H)), check_i=(check_i, (H,)),
-                check_f=(check_f, (H,)), check_o=(check_o, (H,)),
-                h0=(h0, (B, H)), c0=(c0, (B, H)))
+    bh = (B, H)
+    build.check_tensors(kernel, dev, xs=(xs_b, (T, B, 4 * H)),
+                        mask=(mask, (T, B)), check_i=(check_i, (H,)),
+                        check_f=(check_f, (H,)), check_o=(check_o, (H,)),
+                        h0=(h0, bh), c0=(c0, bh))
+    if strided:
+        ldw = check_weight(kernel, dev, "w", w, (H, 4 * H))
+    else:
+        build.check_tensors(kernel, dev, w=(w, (H, 4 * H)))
+        ldw = 4 * H
+    return dev, T, B, H, ldw
 
 
-def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0) -> Tensors:
+def _persistent_plan(t, B, H, per_step):
+    """The persistent route's plan for the card ``t`` lies on, or None for
+    the per-step route (forced, or the shape's)."""
+    if per_step:
+        return None
+    plan = lstm_plan(B, H, device_sms(t))
+    return plan if plan["route"] == PERSISTENT else None
+
+
+def _forward_persistent(kernel, plan, xs_b, mask, w, check_i, check_f,
+                        check_o, h0, c0, ldw, hs, c, ys, cs, gates):
+    """One persistent forward launch: h_t of every step into ``hs``; the
+    residual form (``cs`` given) also cs and gates, the primal form cT into
+    ``c``."""
+    T, B, _ = xs_b.shape
+    H = h0.shape[1]
+    count = torch.empty(1, dtype=torch.int32, device=xs_b.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(xs_b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("lstm_seq", "lstm_seq_forward_persistent", 14, 6)(
+            xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), ptr(c),
+            ys.data_ptr(), ptr(cs), ptr(gates), count.data_ptr(),
+            int(cs is not None), ldw, T, B, H, plan["units"], stream)
+    build.raise_coop(err, kernel, plan)
+
+
+def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
+             per_step=False) -> Tensors:
     """The primal kernel's wrapper; same arguments and results as
-    ``lstm_sequence_plain``. ``lstm_seq.launches`` counts the calls that
-    launched the kernel; each call issues one device launch per timestep
-    (``lstm_seq.step_launches``)."""
+    ``lstm_sequence_plain``. ``per_step=True`` forces the per-step route.
+    ``lstm_seq.launches`` counts the calls that launched a kernel,
+    ``lstm_seq.step_launches`` the device launches (1 a call on the
+    persistent route, one per timestep on the other)."""
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
         return lstm_sequence_plain(*args)
-    dev = build.cuda_device("lstm_seq", xs_b)
-    build.check_tensors("lstm_seq", dev, **_seq_shapes(*args))
-    T, B, H4 = xs_b.shape
-    H = H4 // 4
-    h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    h[0].copy_(h0)
+    plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 4,
+                            per_step)
+    dev, T, B, H, ldw = _seq_args("lstm_seq", *args, plan is not None)
     c = c0.clone()
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    if plan is not None:
+        # h_t of every step (the kernel reads h_{t-1} where no SM read
+        # before, see lstm_persistent_kernel)
+        hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+        _forward_persistent("lstm_seq", plan, xs_b, mask, w, check_i,
+                            check_f, check_o, aligned(h0), c0, ldw, hs, c,
+                            ys, None, None)
+        lstm_seq.step_launches += 1 if T else 0
+        lstm_seq.launches += 1
+        return ys, hs[-1] if T else h0, c
+    h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    h[0].copy_(h0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = build.bind("lstm_seq", "lstm_seq_forward", 9, 3)(
@@ -151,8 +367,8 @@ def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0) -> Tensors:
             check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
             h.data_ptr(), c.data_ptr(), ys.data_ptr(), T, B, H, stream)
     build.raise_on(err, "lstm_seq")
-    lstm_seq.launches += 1
     lstm_seq.step_launches += T
+    lstm_seq.launches += 1
     return ys, h[T % 2], c
 
 
@@ -160,30 +376,35 @@ lstm_seq.launches = 0
 lstm_seq.step_launches = 0
 
 
-def lstm_seq_train(xs_b, mask, w, check_i, check_f, check_o, h0, c0):
+def lstm_seq_train(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
+                   per_step=False):
     """The residual kernel's wrapper; same arguments and results as
-    ``lstm_sequence_residual_plain``. Counts as ``lstm_seq``: one launch
-    per timestep (``step_launches``)."""
+    ``lstm_sequence_residual_plain``. Routes and counts as ``lstm_seq``."""
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
         return lstm_sequence_residual_plain(*args)
-    dev = build.cuda_device("lstm_seq_train", xs_b)
-    build.check_tensors("lstm_seq_train", dev, **_seq_shapes(*args))
-    T, B, H4 = xs_b.shape
-    H = H4 // 4
+    plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 4,
+                            per_step)
+    dev, T, B, H, ldw = _seq_args("lstm_seq_train", *args, plan is not None)
     ys, hs, cs = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
                   for _ in range(3))
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_seq", "lstm_seq_forward_train", 12, 3)(
-            xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
-            check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), gates.data_ptr(), T, B, H, stream)
-    build.raise_on(err, "lstm_seq_train")
+    if plan is not None:
+        _forward_persistent("lstm_seq_train", plan, xs_b, mask, w, check_i,
+                            check_f, check_o, aligned(h0), c0, ldw, hs,
+                            None, ys, cs, gates)
+        lstm_seq_train.step_launches += 1 if T else 0
+    else:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = build.bind("lstm_seq", "lstm_seq_forward_train", 12, 3)(
+                xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
+                h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
+                cs.data_ptr(), gates.data_ptr(), T, B, H, stream)
+        build.raise_on(err, "lstm_seq_train")
+        lstm_seq_train.step_launches += T
     lstm_seq_train.launches += 1
-    lstm_seq_train.step_launches += T
     return ys, hs, cs, gates
 
 
@@ -193,9 +414,9 @@ lstm_seq_train.step_launches = 0
 
 def lstm_bwd_step(dy_t, m_t, gates_t, c_new, c_prev, check_i, check_f,
                   check_o, dhw, dh, dc, dgates_t):
-    """The backward step kernel's wrapper; the arguments and the in-place
-    contract of ``lstm_bwd_step_plain`` (dh, dc and dgates_t are written).
-    One device launch per call."""
+    """The backward step kernel's wrapper (the per-step route); the
+    arguments and the in-place contract of ``lstm_bwd_step_plain`` (dh, dc
+    and dgates_t are written). One device launch per call."""
     args = (dy_t, m_t, gates_t, c_new, c_prev, check_i, check_f, check_o,
             dhw, dh, dc, dgates_t)
     if dh.device.type == "cpu":
@@ -220,27 +441,140 @@ def lstm_bwd_step(dy_t, m_t, gates_t, c_new, c_prev, check_i, check_f,
 lstm_bwd_step.launches = 0
 
 
+def lstm_bwd_chain_plain(dys, mask, gates, cs, c0, w, check_i, check_f,
+                         check_o, dhT, dcT, units=None):
+    """The reverse chain of ``_bwd_rule`` (``paddle_tpu/ops/lstm.py:
+    366-389``) in plain PyTorch, arranged as the persistent kernel
+    arranges it over blocks of ``units`` units (``lstm_partition``; None:
+    one block of all H): block p = 16 r + c of ``lstm_chain_grid`` blocks
+    in row groups r of 16. Per reverse step t (t < T - 1): 1, for every
+    row group r and column group c, the partial dgates_{t+1}[:, the gate
+    columns of the units of blocks c, c + 16, ...] @ W[the units of row
+    group r, those columns]^T (one product here; the kernel sums it float4
+    by float4); 2, each unit's dh_in = its carry + the 16 partials of its
+    row group added in c order, as the kernel adds them; then, every t,
+    the elementwise chain of each block's units (dgates_t, the carries).
+    After t = 0, 1-2 once more give dh0. The products' inner order
+    differs from the kernel's, so the two agree within rounding, not bit
+    for bit. Returns (dxs [T, B, 4H], dh0, dc0)."""
+    T, B, H = cs.shape
+    U = units or max(H, 1)
+    blocks = lstm_partition(H, U)
+    col_groups = [torch.cat([torch.arange(g * H + u0, g * H + u1)
+                             for u0, u1 in blocks[c::GROUP_COLS]
+                             for g in range(4)])
+                  for c in range(min(GROUP_COLS, len(blocks)))]
+    rows = GROUP_COLS * U
+    row_groups = [(j0, min(j0 + rows, H)) for j0 in range(0, H, rows)]
+    dxs = torch.empty((T, B, 4 * H), dtype=cs.dtype, device=cs.device)
+    dh, dc = dhT.clone(), dcT.clone()
+
+    def reduce(dg):  # 1-2: the row groups' partials, added in c order
+        for j0, j1 in row_groups:
+            total = dg[:, col_groups[0]] @ w[j0:j1, col_groups[0]].t()
+            for cols in col_groups[1:]:
+                total = total + dg[:, cols] @ w[j0:j1, cols].t()
+            dh[:, j0:j1] += total
+
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            reduce(dxs[t + 1])
+        m = mask[t].unsqueeze(-1)
+        c_prev = cs[t - 1] if t else c0
+        for u0, u1 in blocks:  # the elementwise chain of each block's units
+            sl = slice(u0, u1)
+            c = torch.cat([torch.arange(g * H + u0, g * H + u1)
+                           for g in range(4)])
+            dg, dc[:, sl], dh[:, sl] = _cell_grads(
+                dh[:, sl], dc[:, sl], dys[t][:, sl], m, gates[t][:, c],
+                cs[t][:, sl], c_prev[:, sl], check_i[sl], check_f[sl],
+                check_o[sl])
+            dxs[t][:, c] = dg
+    if T:
+        reduce(dxs[0])
+    return dxs, dh, dc
+
+
+def lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i, check_f, check_o,
+                   dhT, dcT):
+    """The reverse chain kernel's wrapper (the persistent route); the
+    arguments and results of ``lstm_bwd_chain_plain`` (on the CPU, that
+    function over one block: the partitions agree within rounding, which
+    the CPU tests hold). One cooperative launch per call; raises where the
+    shape is not on the route or the launch is refused. ``.launches``
+    counts calls, ``.step_launches`` device launches."""
+    args = (dys, mask, gates, cs, c0, w, check_i, check_f, check_o, dhT,
+            dcT)
+    if cs.device.type == "cpu":
+        return lstm_bwd_chain_plain(*args)
+    dev = build.cuda_device("lstm_bwd_chain", cs)
+    T, B, H = cs.shape
+    bh = (B, H)
+    build.check_tensors(
+        "lstm_bwd_chain", dev, dys=(dys, (T, B, H)), mask=(mask, (T, B)),
+        gates=(gates, (T, B, 4 * H)), cs=(cs, (T, B, H)), c0=(c0, bh),
+        check_i=(check_i, (H,)), check_f=(check_f, (H,)),
+        check_o=(check_o, (H,)), dhT=(dhT, bh), dcT=(dcT, bh))
+    ldw = check_weight("lstm_bwd_chain", dev, "w", w, (H, 4 * H))
+    plan = _persistent_plan(cs, B, H, False)
+    if plan is None:
+        raise ValueError(f"lstm_bwd_chain: B={B} H={H} is not on the "
+                         "persistent route (lstm_route); the per-step "
+                         "backward (lstm_bwd_step) takes it")
+    U, G = plan["units"], plan["grid_bwd"]
+    dxs = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dgs = torch.empty((2, G, B, 4 * U), dtype=torch.float32, device=dev)
+    part = torch.empty((2, G, B, GROUP_COLS * U), dtype=torch.float32,
+                       device=dev)
+    dh0, dc0 = (torch.empty(bh, dtype=torch.float32, device=dev)
+                for _ in range(2))
+    count = torch.empty(G // GROUP_COLS + GROUP_COLS, dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("lstm_seq", "lstm_bwd_chain_launch", 17, 5)(
+            *(a.data_ptr() for a in args), dxs.data_ptr(), dgs.data_ptr(),
+            part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            count.data_ptr(), ldw, T, B, H, U, stream)
+    build.raise_coop(err, "lstm_bwd_chain", plan)
+    lstm_bwd_chain.launches += 1
+    lstm_bwd_chain.step_launches += 1 if T else 0
+    return dxs, dh0, dc0
+
+
+lstm_bwd_chain.launches = 0
+lstm_bwd_chain.step_launches = 0
+
+
 def lstm_backward(mask, w, check_i, check_f, check_o, h0, c0, hs, cs, gates,
-                  dys, dhT, dcT, step=None):
+                  dys, dhT, dcT, step=None, per_step=False):
     """``_bwd_rule`` (``paddle_tpu/ops/lstm.py:358-396``) over the
     residuals of ``lstm_seq_train``: returns (dxs, dW, dpI, dpF, dpO, dh0,
-    dc0). The per-step chain goes through ``step``, by default
-    ``lstm_bwd_step`` (the kernel on the card, its plain version on the
-    CPU; the card checks pass ``lstm_bwd_step_plain`` for the plain
-    backward); the products and sums around it are PyTorch's, as JAX
-    leaves them to XLA."""
-    step = step or lstm_bwd_step
+    dc0). The reverse chain is ``lstm_bwd_chain`` on the persistent route;
+    on the per-step route (the shape's, or ``per_step=True``), or where a
+    ``step`` is given, one ``step`` per reverse step, by default
+    ``lstm_bwd_step`` (the card checks pass ``lstm_bwd_step_plain`` for
+    the plain backward), with the recurrent product ``dgates_t @ W^T``
+    between steps. The products and sums after the chain are PyTorch's,
+    as JAX leaves them to XLA."""
     T, B, H = hs.shape
     dys = dys.contiguous()
-    dxs = torch.empty((T, B, 4 * H), dtype=hs.dtype, device=hs.device)
-    dh, dc = dhT.contiguous().clone(), dcT.contiguous().clone()
-    dhw = torch.zeros_like(dh)
-    w_t = w.t()
-    for t in range(T - 1, -1, -1):
-        step(dys[t], mask[t], gates[t], cs[t], cs[t - 1] if t > 0 else c0,
-             check_i, check_f, check_o, dhw, dh, dc, dxs[t])
-        torch.matmul(dxs[t], w_t, out=dhw)
-    dh0 = dh + dhw
+    if step is None and not per_step and lstm_route(
+            B, H, device_sms(hs)) == PERSISTENT:
+        dxs, dh0, dc = lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i,
+                                      check_f, check_o, dhT.contiguous(),
+                                      dcT.contiguous())
+    else:
+        step = step or lstm_bwd_step
+        dxs = torch.empty((T, B, 4 * H), dtype=hs.dtype, device=hs.device)
+        dh, dc = dhT.contiguous().clone(), dcT.contiguous().clone()
+        dhw = torch.zeros_like(dh)
+        w_t = w.t()
+        for t in range(T - 1, -1, -1):
+            step(dys[t], mask[t], gates[t], cs[t], cs[t - 1] if t > 0 else c0,
+                 check_i, check_f, check_o, dhw, dh, dc, dxs[t])
+            torch.matmul(dxs[t], w_t, out=dhw)
+        dh0 = dh + dhw
     h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
     c_prev = torch.cat([c0[None], cs[:-1]], dim=0)
     dW = h_prev.reshape(T * B, H).t() @ dxs.reshape(T * B, 4 * H)
@@ -253,34 +587,40 @@ def lstm_backward(mask, w, check_i, check_f, check_o, h0, c0, hs, cs, gates,
 class LstmFunction(torch.autograd.Function):
     """The custom gradient of the fused recurrence (JAX ``_lstm_core`` with
     ``_fwd_rule`` / ``_bwd_rule``): the residual forward kernel saves
-    (hs, cs, gates), the backward replays them in reverse time."""
+    (hs, cs, gates), the backward replays them in reverse time, on the
+    route the forward took."""
 
     @staticmethod
-    def forward(ctx, xs_b, mask, w, check_i, check_f, check_o, h0, c0):
+    def forward(ctx, xs_b, mask, w, check_i, check_f, check_o, h0, c0,
+                per_step):
         ys, hs, cs, gates = lstm_seq_train(xs_b, mask, w, check_i, check_f,
-                                           check_o, h0, c0)
+                                           check_o, h0, c0,
+                                           per_step=per_step)
         ctx.save_for_backward(mask, w, check_i, check_f, check_o, h0, c0,
                               hs, cs, gates)
+        ctx.per_step = per_step
         return ys, hs[-1].clone(), cs[-1].clone()
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
         dxs, dW, dpI, dpF, dpO, dh0, dc0 = lstm_backward(
-            *ctx.saved_tensors, dys, dhT, dcT)
-        return dxs, None, dW, dpI, dpF, dpO, dh0, dc0
+            *ctx.saved_tensors, dys, dhT, dcT, per_step=ctx.per_step)
+        return dxs, None, dW, dpI, dpF, dpO, dh0, dc0, None
 
 
 def lstm_sequence(xs, mask, w, gate_bias, check_i, check_f, check_o, h0, c0,
-                  reverse=False) -> Tensors:
+                  reverse=False, per_step=False) -> Tensors:
     """Fused LSTM over a padded [T,B,4H] gate-projection sequence, the
     counterpart of ``paddle_tpu/ops/lstm.py:lstm_sequence``.
     ``reverse=True`` runs back to front (flip in, flip out; outputs stay
     in input time order). Differentiable: with grad enabled and an input
     that requires it, the residual kernel and ``LstmFunction``'s backward;
-    otherwise the lean primal kernel. Returns (ys [T,B,H], hT, cT)."""
+    otherwise the lean primal kernel. ``per_step=True`` forces the
+    per-step route. Returns (ys [T,B,H], hT, cT)."""
     if reverse:
         ys, hT, cT = lstm_sequence(xs.flip(0), mask.flip(0), w, gate_bias,
-                                   check_i, check_f, check_o, h0, c0)
+                                   check_i, check_f, check_o, h0, c0,
+                                   per_step=per_step)
         return ys.flip(0), hT, cT
     xs_b = (xs + gate_bias).contiguous()  # fold the bias in once
     args = (xs_b, mask.contiguous(), w.contiguous(), check_i.contiguous(),
@@ -288,5 +628,5 @@ def lstm_sequence(xs, mask, w, gate_bias, check_i, check_f, check_o, h0, c0,
             c0.contiguous())
     if xs.shape[0] and torch.is_grad_enabled() and any(
             a.requires_grad for a in args):
-        return LstmFunction.apply(*args)
-    return lstm_seq(*args)
+        return LstmFunction.apply(*args, per_step)
+    return lstm_seq(*args, per_step=per_step)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (the LSTM recurrence in its primal and residual
-forms, the LSTM backward step, the LSTM cell, the GRU recurrence in its
+forms and its backward on both routes (one cooperative launch per
+sequence or reverse chain; a launch a step and a per-step backward above
+the route line), the LSTM cell, the GRU recurrence in its
 primal and residual forms and its backward on both routes (one
 cooperative launch per sequence or reverse chain; two launches a step
 and a per-step backward above the route line), the GRU cell, the
@@ -77,17 +79,20 @@ def test_lstm_kernel_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_step", [True, False])
 @pytest.mark.parametrize("T,B,H", [(20, 33, 40), (6, 5, 96)])
 def test_lstm_residual_forward_and_backward_match_plain_on_card(
-        cuda_device, T, B, H):
-    """The residual forward kernel and the backward step kernel, through
-    ``LstmFunction``, against their plain versions on the card, at widths
-    that do not fill a tile."""
+        cuda_device, T, B, H, per_step):
+    """The residual forward kernel and the backward (the per-step kernel,
+    T launches, with ``per_step=True``; else the reverse-chain kernel, one
+    launch and no step) against their plain versions on the card, at
+    widths that do not fill a tile."""
     ins = [torch.from_numpy(a).to(cuda_device)
            for a in _inputs(T, B, H, seed=3 * B + H)]
     xs, mask, w, pI, pF, pO, h0, c0 = ins
-    before = (tlstm.lstm_seq_train.launches, tlstm.lstm_bwd_step.launches)
-    got = tlstm.lstm_seq_train(*ins)
+    before = (tlstm.lstm_seq_train.launches, tlstm.lstm_bwd_step.launches,
+              tlstm.lstm_bwd_chain.launches)
+    got = tlstm.lstm_seq_train(*ins, per_step=per_step)
     torch.cuda.synchronize()
     want = tlstm.lstm_sequence_residual_plain(*ins)
     for g, w_ in zip(got, want):
@@ -97,10 +102,15 @@ def test_lstm_residual_forward_and_backward_match_plain_on_card(
                      .to(cuda_device) for s in ((T, B, H), (B, H), (B, H)))
     _, hs, cs, gates = got
     res = (mask, w, pI, pF, pO, h0, c0, hs, cs, gates)
-    got_b = tlstm.lstm_backward(*res, dys, dhT, dcT)
+    got_b = tlstm.lstm_backward(*res, dys, dhT, dcT, per_step=per_step)
     torch.cuda.synchronize()
     assert tlstm.lstm_seq_train.launches == before[0] + 1
-    assert tlstm.lstm_bwd_step.launches == before[1] + T
+    if per_step:
+        assert tlstm.lstm_bwd_step.launches == before[1] + T
+        assert tlstm.lstm_bwd_chain.launches == before[2]
+    else:
+        assert tlstm.lstm_bwd_step.launches == before[1]
+        assert tlstm.lstm_bwd_chain.launches == before[2] + 1
     want_b = tlstm.lstm_backward(*res, dys, dhT, dcT,
                                  step=tlstm.lstm_bwd_step_plain)
     for name, g, w_ in zip(("dxs", "dW", "dpI", "dpF", "dpO", "dh0", "dc0"),
@@ -496,6 +506,113 @@ def test_gru_persistent_launch_that_does_not_fit_raises(cuda_device):
         tgru._forward_persistent("gru_seq", plan, xs, mask, wg, ws, h0,
                                  wg.stride(0), ws.stride(0), h, ys, None,
                                  None)
+
+
+# (T, B, H): the tagger's width, the classifier's at 8 steps, batch 1,
+# one step, and an H above the route line (per-step only)
+LSTM_ROUTE_SHAPES = [(12, 5, 40), (10, 64, 128), (8, 64, 1280),
+                     (6, 1, 1280), (1, 3, 96), (3, 2, 1400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", LSTM_ROUTE_SHAPES)
+def test_lstm_routes_match_plain_on_card(cuda_device, T, B, H):
+    """Both routes at one shape: the primal and residual forward against
+    the plain loops, the backward (the chain on the persistent route, the
+    per-step kernel on the other) against the plain step loop, two chain
+    runs bit-equal, the launch counters, and every gradient through
+    ``lstm_sequence`` in both directions against autograd of the plain
+    loop."""
+    ins = [torch.from_numpy(a).to(cuda_device)
+           for a in _inputs(T, B, H, seed=5 * B + H + T)]
+    xs, mask, w, pI, pF, pO, h0, c0 = ins
+    persistent = tlstm.lstm_route(B, H, tlstm.device_sms(xs)) == \
+        tlstm.PERSISTENT
+    assert persistent == (H != 1400)
+    want = tlstm.lstm_sequence_plain(*ins)
+    want_r = tlstm.lstm_sequence_residual_plain(*ins)
+    rng = np.random.default_rng(T + B)
+    dys, dhT, dcT = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(cuda_device) for s in ((T, B, H), (B, H), (B, H)))
+    for per_step in (False, True):
+        c0_ = {f"{k}.{a}": getattr(f, a, 0) for k, f in (
+            ("seq", tlstm.lstm_seq), ("train", tlstm.lstm_seq_train),
+            ("chain", tlstm.lstm_bwd_chain), ("step", tlstm.lstm_bwd_step))
+            for a in ("launches", "step_launches")}
+        got = tlstm.lstm_seq(*ins, per_step=per_step)
+        got_r = tlstm.lstm_seq_train(*ins, per_step=per_step)
+        _, hs, cs, gates = got_r
+        res = (mask, w, pI, pF, pO, h0, c0, hs, cs, gates, dys, dhT, dcT)
+        got_b = tlstm.lstm_backward(*res, per_step=per_step)
+        again = tlstm.lstm_backward(*res, per_step=per_step)
+        torch.cuda.synchronize()
+        on_chain = persistent and not per_step
+        launches = 1 if on_chain else T
+        assert tlstm.lstm_seq.launches == c0_["seq.launches"] + 1
+        assert tlstm.lstm_seq.step_launches == c0_["seq.step_launches"] \
+            + launches
+        assert tlstm.lstm_seq_train.step_launches == \
+            c0_["train.step_launches"] + launches
+        assert tlstm.lstm_bwd_chain.launches == c0_["chain.launches"] + (
+            2 if on_chain else 0)
+        assert tlstm.lstm_bwd_step.launches == c0_["step.launches"] + (
+            0 if on_chain else 2 * T)
+        for g, w_ in zip(list(got) + list(got_r), list(want) + list(want_r)):
+            torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-5)
+        want_b = tlstm.lstm_backward(*res, step=tlstm.lstm_bwd_step_plain)
+        for name, g, g2, w_ in zip(("dxs", "dW", "dpI", "dpF", "dpO", "dh0",
+                                    "dc0"), got_b, again, want_b):
+            if on_chain:  # one launch, fixed sums, no atomics
+                assert torch.equal(g, g2), name
+            assert _max_err_ok(g, w_), (name, per_step)
+    names = ("xs", "w", "pI", "pF", "pO", "h0", "c0")
+    bias = torch.zeros(4 * H, device=cuda_device)
+    for reverse in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xs, w, pI, pF, pO, h0, c0)]
+        ys, hT, cT = tlstm.lstm_sequence(leaves[0], mask, leaves[1], bias,
+                                         *leaves[2:], reverse=reverse)
+        got_g = torch.autograd.grad((ys * dys).sum() + (hT * dhT).sum()
+                                    + (cT * dcT).sum(), leaves)
+        plain = [t.detach().clone().requires_grad_(True)
+                 for t in (xs, w, pI, pF, pO, h0, c0)]
+        xs_p, m_p = ((plain[0].flip(0), mask.flip(0)) if reverse
+                     else (plain[0], mask))
+        ys_p, hT_p, cT_p = tlstm.lstm_sequence_plain(xs_p, m_p, plain[1],
+                                                     *plain[2:])
+        ys_p = ys_p.flip(0) if reverse else ys_p
+        torch.testing.assert_close(ys, ys_p, rtol=1e-4, atol=1e-5)
+        want_g = torch.autograd.grad((ys_p * dys).sum() + (hT_p * dhT).sum()
+                                     + (cT_p * dcT).sum(), plain)
+        for name, g, w_ in zip(names, got_g, want_g):
+            assert _max_err_ok(g, w_), (name, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(64, 1280), (16, 1280), (1, 1280),
+                                 (64, 128), (64, 512), (32, 1280), (5, 40)])
+def test_lstm_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
+    """The route's shared-memory arithmetic equals the kernel's own."""
+    plan = tlstm.lstm_plan(B, H)
+    assert tlstm.persistent_smem_of_kernel(
+        B, H, plan["units"], "fwd") == plan["smem_fwd"] <= tlstm.SMEM_BYTES
+    assert tlstm.persistent_smem_of_kernel(
+        B, H, plan["units"], "bwd") == plan["smem_bwd"] <= tlstm.SMEM_BYTES
+
+
+@pytest.mark.cuda
+def test_lstm_persistent_launch_that_does_not_fit_raises(cuda_device):
+    """A plan whose grid cannot be co-resident (one unit a block at
+    H = 4096) is refused with the reason, not run."""
+    T, B, H = 2, 2, 4096
+    ins = [torch.from_numpy(a).to(cuda_device)
+           for a in _inputs(T, B, H, seed=1)]
+    ys = torch.empty(T, B, H, device=cuda_device)
+    hs = torch.empty(T, B, H, device=cuda_device)
+    plan = dict(units=1)
+    with pytest.raises(RuntimeError, match="does not fit on the card"):
+        tlstm._forward_persistent("lstm_seq", plan, *ins, 4 * H, hs,
+                                  ins[7].clone(), ys, None, None)
 
 
 def _crf_inputs(B, T, C, seed, device):
