@@ -11,7 +11,8 @@ non-zero without the result line:
    ``nvidia-smi --query-gpu=name,power.limit`` and turns TF32 off.
 2. build: compiles every CUDA source of the port (``paddle_tpu_torch/
    csrc``: ``lstm_seq.cu``, ``gru_seq.cu``, ``opt_update.cu``,
-   ``crf.cu``, ``flash_attn.cu``, ``lstm_cell.cu``, ``ctc.cu``; one nvcc
+   ``crf.cu``, ``flash_attn.cu``, ``lstm_cell.cu``, ``ctc.cu``,
+   ``gru_cell.cu``; one nvcc
    per source, started together) and prints the seconds and the register
    report.
 3. kernel check: the primal LSTM recurrence kernel against its plain
@@ -59,15 +60,26 @@ non-zero without the result line:
    route's per-step loop alone; ``torch.profiler`` device time of the
    residual forward, the chain kernel and every kernel of the backward;
    the plain versions; the bounds (the chain's 6 B H^2 T operations).
-   The GRU cell at (50, 512) and (1, 512): both entries' forward against
-   the plain math, the gradient likewise.
+   The GRU cell at GRU_CELL_SHAPES (seq2seq's batch 50, the beam
+   search's 32 and 4 rows, batch 1; H = 512) on both routes (the cluster
+   route, one launch a call, and the two-launch route forced with
+   ``two_launch=True``): both entries' forward against the plain math
+   (rtol 1e-4 / atol 1e-5), two runs bit-equal, the recompute backward,
+   one device launch a call (two forced); CUDA-event ms (median of 50),
+   profiler device ms, ``speedup_*``; at (50, 512) the host split of the
+   launch path in us (checks, allocation, device guard and stream,
+   data_ptr, the ctypes call, the whole path, the entries and their
+   autograd share), the baseline spelling (per-tensor checks, a device
+   guard, ``current_stream()``, the two-launch entry) replayed beside
+   today's, interleaved in 5 rounds; the cluster kernel at cluster sizes
+   16 and 8 where both plans fit (CLUSTER_SHAPES).
 5b. LSTM cell kernel check: at the LSTM-step decoder's decode (32 rows:
    8 sources x beam 4), training (50) and one row, H = 512, nonzero
    peepholes: both entries' h and c within rtol 1e-4 / atol 1e-5 of
    ``lstm_cell_plain``, the gradient through ``LstmCellFunction`` per
    tensor within 1e-4 of the largest entry + 1e-5 of autograd through the
    plain version; CUDA-event time, device time (``torch.profiler``),
-   plain time and bound.
+   plain time and bound; at 32 rows the host split as for the GRU cell.
 6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
    ragged lengths 1-80, an all-padding row, two forbidden transitions at
    -1e4), its serving shape (B=1), and (16, 80, 128) and (16, 80, 256),
@@ -149,11 +161,12 @@ non-zero without the result line:
    the target is the source reversed): the cost must be finite and fall
    from pass 0 to pass 2, and the fresh process's counts must show the
    residual GRU kernel, the GRU backward's reverse-chain kernel (and no
-   per-step backward), the GRU cell and Adam launched. Then the
+   per-step backward), the GRU cell (one device launch a call: the
+   cluster route) and Adam launched. Then the
    full-width gradients (8 rows) from the trained checkpoint, card
    against CPU as in phase 6, and ``--job test`` of the checkpoint on the
    card, whose counts must show the primal GRU kernel and the cell's
-   inference entry launched. Then the same for the model with its encoder
+   inference entry launched (one device launch a call). Then the same for the model with its encoder
    self-attention block (``seq_parallel="ring"``, 4 heads of 128; no
    sequence mesh, so dense): its counts must also show the flash forward
    and backward kernels in training and the forward in ``--job test``.
@@ -169,7 +182,8 @@ non-zero without the result line:
    the CPU's teacher-forced scores of the card's beams must equal the
    card's within 1e-5 relative (``_compare_beams``); the repeat answers
    the same; an off-menu beam size is the typed 400 with the menu; /healthz
-   shows gru_cell_infer launches growing; SIGTERM drains to exit 0.
+   shows gru_cell_infer launches growing, one device launch each (the
+   cluster route at 4 and 32 rows); SIGTERM drains to exit 0.
 11b. LSTM-step decoder (path B): the lstmemory_group form of the
    seqToseq decoder at 30000/512/512 (``lstm_step`` over fc([word, h])
    with its peepholes, the cell state carried through ``get_output``,
@@ -231,6 +245,12 @@ runs only phases 3 and 4 for the LSTM at the paths' shapes (the
 classifier's (64, 1280, 128) and (64, 1280, 100) and (16, 1280, 100), the
 tagger's (64, 128, 80)), both routes, into ``lstm_kernels.json``.
 
+    python3 chip_smoke.py --cell-kernels
+
+runs only phases 5's GRU-cell part and 5b (both cells, both GRU-cell
+routes, the host splits, the cluster sizes), ~30 s, into
+``cell_kernels.json``.
+
     python3 chip_smoke.py --ds2-rate-witness
 
 runs only the acoustic model's ``--job train`` at DeepSpeech2's own rate,
@@ -270,7 +290,7 @@ from paddle_tpu_torch.ops import gru as G
 from paddle_tpu_torch.ops import lstm as L
 
 SOURCES = ["lstm_seq", "gru_seq", "opt_update", "crf", "flash_attn",
-           "lstm_cell", "ctc"]
+           "lstm_cell", "ctc", "gru_cell"]
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -303,7 +323,12 @@ GRU_SHAPES = [(50, 512, 50), (64, 256, 100), (1, 512, 50), (16, 1024, 400)]
 # above the persistent route's line (H = 1452 at batch 16 on 132 SMs):
 # the two-launch route's own check
 GRU_ABOVE_LINE = (16, 1536, 50)
-GRU_CELL_SHAPES = [(50, 512), (1, 512)]
+# GRU cell check shapes (B, H): seq2seq's training and test batch, its beam
+# search's 8 sources x beam 4 and one source x beam 4, batch 1
+GRU_CELL_SHAPES = [(50, 512), (32, 512), (4, 512), (1, 512)]
+# the cluster kernel at cluster sizes 16 and 8: at H = 512 only 16 fits
+# (8 blocks would hold 384 KB of weights each), at 256 both
+CLUSTER_SHAPES = [(50, 512), (50, 256)]
 # beam search of the seq2seq demo's width: beam 4 (the model's default) and
 # outputs of up to 50 words (the longest target trained); 8 sources decode
 # as B*K = 32 rows of the step network
@@ -1034,41 +1059,254 @@ def check_gru_shape(B, H, T, seed):
     return row
 
 
-def check_gru_cell(B, H, seed):
-    """The cell's kernel (training and inference entries) against the
-    plain math on strided w0 slices; its recompute backward against
-    autograd of the plain math; times of one step."""
+def _host_us(fn, calls=400, sync_every=50):
+    """Host time of one call of ``fn``, us: the median of ``calls`` calls,
+    each timed alone by ``time.perf_counter_ns``, with the device drained
+    (untimed) every ``sync_every`` calls so that a full launch queue never
+    holds the host."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+        if i % sync_every == sync_every - 1:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return 1e-3 * statistics.median(times)
+
+
+def _split_us(groups, rounds=5, calls=400):
+    """{group: {piece: host us}} of named zero-argument callables, each
+    group run with autograd on or off ({group: (grad, pieces)}): the
+    median over ``rounds`` rounds, each timing every piece of every group
+    in turn (``_host_us`` over ``calls`` calls), so that a drift of the
+    host's speed during the run reaches every piece alike."""
+    got = {g: {name: [] for name in pieces}
+           for g, (_, pieces) in groups.items()}
+    for _ in range(rounds):
+        for g, (grad, pieces) in groups.items():
+            with torch.set_grad_enabled(grad):
+                for name, fn in pieces.items():
+                    got[g][name].append(_host_us(fn, calls))
+    return {g: {name: statistics.median(v) for name, v in d.items()}
+            for g, d in got.items()}
+
+
+def _baseline_gru_cell_pieces(x, h, wg, ws):
+    """The GRU cell's host path in its baseline spelling (per-tensor
+    checks: ``cuda_device``, ``check_tensors`` and two
+    ``check_weight``, three ``torch.empty``, a ``torch.cuda.device`` guard
+    and ``current_stream()``, seven ``data_ptr()``, the two-launch entry),
+    piece by piece and whole: the "before" of the host split."""
+    k = "gru_cell_infer"
+    B, H = h.shape
+    dev = h.device
+    fn = build.bind("gru_seq", "gru_cell_forward", 7, 4)
+    bufs = [torch.empty((B, 3 * H), device=dev),
+            torch.empty((B, H), device=dev), torch.empty((B, H), device=dev)]
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), h.data_ptr(), wg.data_ptr(), ws.data_ptr(),
+            *(b.data_ptr() for b in bufs), wg.stride(0), ws.stride(0), B, H,
+            stream)
+
+    def checks():
+        d = build.cuda_device(k, x)
+        build.check_tensors(k, d, x=(x, (B, 3 * H)), h=(h, (B, H)))
+        build.check_weight(k, d, "w_gate", wg, (H, 2 * H))
+        build.check_weight(k, d, "w_state", ws, (H, H))
+
+    def alloc():
+        for shape in ((B, 3 * H), (B, H), (B, H)):
+            torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def guard_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    def whole():
+        checks()
+        alloc()
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream().cuda_stream
+            build.raise_on(fn(*args[:-1], st), k)
+
+    return dict(checks=checks, alloc=alloc, guard_stream=guard_stream,
+                data_ptr=lambda: [t.data_ptr() for t in (x, h, wg, ws,
+                                                         *bufs)],
+                ctypes_call=lambda: fn(*args), whole=whole)
+
+
+def _gru_cell_pieces(x, h, wg, ws):
+    """The same pieces of the cluster route's path (``_gru_launch``)."""
+    k = "gru_cell_infer"
+    B, H = h.shape
+    idx = h.get_device()
+    plan = C._card_plan(B, H, idx)
+    out = torch.empty_like(h)
+    fn = build.bind("gru_cell", "gru_cell_cluster_forward", 5, 6)
+    args = (x.data_ptr(), h.data_ptr(), wg.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), wg.stride(0), ws.stride(0), B, H,
+            plan["cluster"], plan["rows"],
+            torch.cuda.current_stream().cuda_stream)
+    return dict(
+        checks=lambda: build.check_cell(
+            k, (("x", x, (B, 3 * H)), ("h", h, (B, H))),
+            (("w_gate", wg, (H, 2 * H)), ("w_state", ws, (H, H)))),
+        alloc=lambda: torch.empty_like(h),
+        guard_stream=lambda: (torch.cuda.current_device() == idx,
+                              torch._C._cuda_getCurrentRawStream(idx)),
+        plan=lambda: C._card_plan(B, H, idx),
+        data_ptr=lambda: [t.data_ptr() for t in (x, h, wg, ws, out)],
+        ctypes_call=lambda: fn(*args),
+        whole=lambda: C._gru_launch(k, x, h, wg, ws))
+
+
+def _entry_pieces(infer, train, ins):
+    """The whole no-grad entry and the training entry on leaves that want
+    a gradient (its autograd.Function, save_for_backward and the graph's
+    node): (infer group, train group) for ``_split_us``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    return ((False, dict(infer_entry=lambda: infer(*ins))),
+            (True, dict(train_entry=lambda: train(*leaves))))
+
+
+def _host_split(baseline, now, infer, train, ins, **more):
+    """The host split of a cell's launch path, the baseline spelling and
+    today's, and of its entries (``autograd``: train minus infer entry),
+    all interleaved in one ``_split_us``; ``more``: other entries'
+    (infer, train) pairs, named."""
+    groups = dict(baseline=(False, baseline), now=(False, now))
+    pairs = dict(entry=(infer, train), **more)
+    for name, (inf, tr) in pairs.items():
+        groups[name + "_infer"], groups[name + "_train"] = _entry_pieces(
+            inf, tr, ins)
+    got = _split_us(groups)
+    out = dict(host_us_baseline=got["baseline"], host_us=got["now"])
+    for name in pairs:
+        t_inf = got[name + "_infer"]["infer_entry"]
+        t_tr = got[name + "_train"]["train_entry"]
+        d = dict(infer_entry=t_inf, train_entry=t_tr, autograd=t_tr - t_inf)
+        if name == "entry":
+            out["host_us"].update(d)
+        else:
+            out["host_us_" + name] = d
+    return out
+
+
+def _cluster_sizes(B, H, seed):
+    """The cluster kernel at cluster sizes 16 and 8 where both plans fit,
+    launched directly with each plan: device ms and the clusters the card
+    places at once."""
+    a = _gru_inputs(B, H, 1, seed)
+    x, h, wg, ws = a["xs"][0].contiguous(), a["h0"], a["wg"], a["ws"]
+    fn = build.bind("gru_cell", "gru_cell_cluster_forward", 5, 6)
+    out = {}
+    for size in (16, 8):
+        plan = C.gru_cell_plan(B, H, build.device_sms(h), cluster=size)
+        if plan["route"] != C.CLUSTER:
+            out[size] = dict(plan=plan)
+            continue
+        slots = C.gru_cell_max_clusters(H, plan["cluster"], 1)
+        plan = C.gru_cell_plan(B, H, build.device_sms(h), slots,
+                               cluster=size)
+        y = torch.empty_like(h)
+
+        def launch():
+            C._raise_cluster(fn(
+                x.data_ptr(), h.data_ptr(), wg.data_ptr(), ws.data_ptr(),
+                y.data_ptr(), wg.stride(0), ws.stride(0), B, H,
+                plan["cluster"], plan["rows"],
+                torch.cuda.current_stream().cuda_stream), "gru_cell", plan)
+
+        launch()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, C.gru_cell_plain(x, h, wg, ws), **TOL)
+        ms, trace = _device_ms(launch, "gru_cell_cluster_kernel")
+        out[size] = dict(plan=plan, device_ms=ms, device_trace=trace)
+    return dict(B=B, H=H, sizes=out)
+
+
+def check_gru_cell(B, H, seed, split=False):
+    """The cell's kernel on both routes (the cluster route, one launch a
+    call, and the two-launch route, forced with ``two_launch=True``):
+    both entries' forward against the plain math on strided w0 slices,
+    two cluster runs bit-equal, the recompute backward against autograd
+    of the plain math, the launch counts; CUDA-event and profiler device
+    times of both routes, ``speedup_*``; with ``split``, the host split of
+    the cluster route's path beside the baseline spelling's."""
     a = _gru_inputs(B, H, 1, seed)
     x = a["xs"][0].contiguous()
     names = ("x", "h", "wg", "ws")
     base = dict(x=x, h=a["h0"], wg=a["wg"], ws=a["ws"])
-    plain = {k: v.detach().clone().requires_grad_(True)
-             for k, v in base.items()}
-    kern = {k: v.detach().clone().requires_grad_(True)
-            for k, v in base.items()}
-    want = C.gru_cell_plain(*(plain[k] for k in names))
-    got = C.gru_cell(*(kern[k] for k in names))
-    with torch.no_grad():
-        got_i = C.gru_cell_infer(x, a["h0"], a["wg"], a["ws"])
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, g in (("gru_cell", got), ("gru_cell_infer", got_i)):
-        err = max(err, (g - want).abs().max().item())
-        torch.testing.assert_close(g.detach(), want.detach(), **TOL,
-                                   msg=lambda m: f"{name} B={B} H={H}: {m}")
-    dout = torch.randn_like(want)
-    bwd_err = _check_grads(
-        f"gru_cell B={B} H={H}",
-        torch.autograd.grad(got, [kern[k] for k in names], dout),
-        torch.autograd.grad(want, [plain[k] for k in names], dout), names)
     args = (x, a["h0"], a["wg"], a["ws"])
+    plan = C._card_plan(B, H, x.get_device())
+    if plan["route"] != C.CLUSTER:
+        raise AssertionError(f"gru_cell B={B} H={H} is off the cluster "
+                             f"route: {plan}")
+    want = C.gru_cell_plain(*args)
+    row = dict(B=B, H=H, plan=plan)
+    err = bwd_err = 0.0
+    for two_launch in (False, True):
+        key = "two_launch_" if two_launch else ""
+        plain = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in base.items()}
+        kern = {k: v.detach().clone().requires_grad_(True)
+                for k, v in base.items()}
+        want_g = C.gru_cell_plain(*(plain[k] for k in names))
+        before = {n: (getattr(C, n).launches, getattr(C, n).step_launches)
+                  for n in ("gru_cell", "gru_cell_infer")}
+        got = C.gru_cell(*(kern[k] for k in names), two_launch=two_launch)
+        with torch.no_grad():
+            got_i = C.gru_cell_infer(*args, two_launch=two_launch)
+            got_i2 = C.gru_cell_infer(*args, two_launch=two_launch)
+        torch.cuda.synchronize()
+        steps = 2 if two_launch else 1
+        for n, calls in (("gru_cell", 1), ("gru_cell_infer", 2)):
+            fn = getattr(C, n)
+            if (fn.launches - before[n][0], fn.step_launches
+                    - before[n][1]) != (calls, steps * calls):
+                raise AssertionError(f"{n} B={B} H={H} two_launch="
+                                     f"{two_launch}: counts {before[n]} -> "
+                                     f"{(fn.launches, fn.step_launches)}")
+        if not torch.equal(got_i, got_i2):
+            raise AssertionError(f"gru_cell_infer B={B} H={H}: two runs "
+                                 "differ")
+        for name, g in (("gru_cell", got), ("gru_cell_infer", got_i)):
+            err = max(err, (g - want).abs().max().item())
+            torch.testing.assert_close(
+                g.detach(), want, **TOL,
+                msg=lambda m: f"{name} B={B} H={H} {key}: {m}")
+        dout = torch.randn_like(want)
+        bwd_err = max(bwd_err, _check_grads(
+            f"gru_cell B={B} H={H} {key}",
+            torch.autograd.grad(got, [kern[k] for k in names], dout),
+            torch.autograd.grad(want_g, [plain[k] for k in names], dout),
+            names))
+        kernels = (("gru_gate_kernel", "gru_state_kernel") if two_launch
+                   else "gru_cell_cluster_kernel")
+        with torch.no_grad():
+            call = lambda: C.gru_cell_infer(*args, two_launch=two_launch)
+            row[key + "ms"] = _time_ms(call, reps=50)
+            row[key + "device_ms"], row[key + "device_trace"] = \
+                _device_ms(call, kernels)
+    row["speedup_ms"] = row["two_launch_ms"] / row["ms"]
+    row["speedup_device_ms"] = row["two_launch_device_ms"] / \
+        row["device_ms"]
+    row.update(max_abs_err=err, bwd_max_abs_err=bwd_err)
     with torch.no_grad():
-        row = dict(B=B, H=H, max_abs_err=err, bwd_max_abs_err=bwd_err,
-                   ms=_time_ms(lambda: C.gru_cell_infer(*args)),
-                   plain_ms=_time_ms(lambda: C.gru_cell_plain(*args)))
+        row["plain_ms"] = _time_ms(lambda: C.gru_cell_plain(*args))
     # x, h, W in; h_new out; the two products 2*B*H*3H
     row["bound_ms"], row["bound_by"] = _bound(
         2.0 * B * H * 3 * H, 4 * (B * 3 * H + 2 * B * H + 3 * H * H))
+    if split:
+        row.update(_host_split(
+            _baseline_gru_cell_pieces(*args), _gru_cell_pieces(*args),
+            C.gru_cell_infer, C.gru_cell, args,
+            two_launch=(lambda *t: C.gru_cell_infer(*t, two_launch=True),
+                        lambda *t: C.gru_cell(*t, two_launch=True))))
     phase("gru_cell_check", **row)
     return row
 
@@ -1076,12 +1314,78 @@ def check_gru_cell(B, H, seed):
 def check_gru_kernels():
     rows = [check_gru_shape(B, H, T, seed=3 * B + H + T)
             for B, H, T in GRU_SHAPES + [GRU_ABOVE_LINE]]
-    cells = [check_gru_cell(B, H, seed=B + 11 * H) for B, H in GRU_CELL_SHAPES]
-    return rows, cells
+    return rows, check_gru_cells()
+
+
+def check_gru_cells():
+    """The GRU cell at every GRU_CELL_SHAPES (the host split at the first)
+    and the cluster sizes side by side."""
+    cells = [check_gru_cell(B, H, seed=B + 11 * H, split=i == 0)
+             for i, (B, H) in enumerate(GRU_CELL_SHAPES)]
+    sizes = [_cluster_sizes(B, H, seed=B + H) for B, H in CLUSTER_SHAPES]
+    phase("gru_cell_cluster_sizes", rows=sizes)
+    cells[0]["cluster_sizes"] = sizes
+    return cells
 
 
 # --------------------------------------------- 5b. LSTM cell kernel check
-def check_lstm_cell(B, H, seed):
+def _lstm_cell_pieces(ins, baseline):
+    """The LSTM cell's host path, piece by piece and whole: ``baseline``,
+    in its baseline spelling (``cuda_device`` and
+    ``check_tensors`` over 5 tensors, two ``torch.empty``, a
+    ``torch.cuda.device`` guard and ``current_stream()``), else as the
+    wrapper spells it now (``check_cell``, two ``empty_like``,
+    ``build.call``)."""
+    k = "lstm_cell_infer"
+    gates, c_prev, ci, cf, co = ins
+    B, H = c_prev.shape
+    dev, idx = c_prev.device, c_prev.get_device()
+    fn = build.bind("lstm_cell", "lstm_cell_forward", 7, 2)
+    h, c = torch.empty_like(c_prev), torch.empty_like(c_prev)
+    args = (*(t.data_ptr() for t in (*ins, h, c)), B, H,
+            torch.cuda.current_stream().cuda_stream)
+    pieces = dict(data_ptr=lambda: [t.data_ptr() for t in (*ins, h, c)],
+                  ctypes_call=lambda: fn(*args))
+    if not baseline:
+        pieces.update(
+            checks=lambda: build.check_cell(k, (
+                ("gates", gates, (B, 4 * H)), ("c_prev", c_prev, (B, H)),
+                ("check_i", ci, (H,)), ("check_f", cf, (H,)),
+                ("check_o", co, (H,)))),
+            alloc=lambda: (torch.empty_like(c_prev),
+                           torch.empty_like(c_prev)),
+            guard_stream=lambda: (torch.cuda.current_device() == idx,
+                                  torch._C._cuda_getCurrentRawStream(idx)),
+            whole=lambda: C._lstm_launch(k, *ins))
+        return pieces
+
+    def checks():
+        d = build.cuda_device(k, gates)
+        build.check_tensors(k, d, gates=(gates, (B, 4 * H)),
+                            c_prev=(c_prev, (B, H)), check_i=(ci, (H,)),
+                            check_f=(cf, (H,)), check_o=(co, (H,)))
+
+    def alloc():
+        return (torch.empty((B, H), dtype=torch.float32, device=dev),
+                torch.empty((B, H), dtype=torch.float32, device=dev))
+
+    def guard_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    def whole():
+        checks()
+        alloc()
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream().cuda_stream
+            build.raise_on(fn(*args[:-1], st), k)
+
+    pieces.update(checks=checks, alloc=alloc, guard_stream=guard_stream,
+                  whole=whole)
+    return pieces
+
+
+def check_lstm_cell(B, H, seed, split=False):
     """The LSTM cell kernel (training and inference entries) against
     ``lstm_cell_plain`` with nonzero peepholes, h and c within rtol 1e-4 /
     atol 1e-5; the gradient through ``LstmCellFunction`` against autograd
@@ -1117,19 +1421,37 @@ def check_lstm_cell(B, H, seed):
         dev_ms, dev_trace = _device_ms(lambda: C.lstm_cell_infer(*ins),
                                        "lstm_cell_kernel")
         row = dict(B=B, H=H, max_abs_err=err, bwd_max_abs_err=bwd_err,
-                   ms=_time_ms(lambda: C.lstm_cell_infer(*ins)),
+                   ms=_time_ms(lambda: C.lstm_cell_infer(*ins), reps=50),
                    device_ms=dev_ms, device_trace=dev_trace,
                    plain_ms=_time_ms(lambda: C.lstm_cell_plain(*ins)))
     # gates, c_prev, the peepholes in; h, c out; ~30 operations an element
     row["bound_ms"], row["bound_by"] = _bound(
         30.0 * B * H, 4 * (4 * B * H + B * H + 3 * H + 2 * B * H))
+    if split:
+        row.update(_host_split(
+            _lstm_cell_pieces(ins, True), _lstm_cell_pieces(ins, False),
+            C.lstm_cell_infer, C.lstm_cell, ins))
     phase("lstm_cell_check", **row)
     return row
 
 
 def check_lstm_cells():
-    return [check_lstm_cell(B, H, seed=B + 7 * H)
-            for B, H in LSTM_CELL_SHAPES]
+    """The LSTM cell at every LSTM_CELL_SHAPES, the host split at the
+    first (the decode's 32 rows)."""
+    return [check_lstm_cell(B, H, seed=B + 7 * H, split=i == 0)
+            for i, (B, H) in enumerate(LSTM_CELL_SHAPES)]
+
+
+def cell_kernels():
+    """``--cell-kernels``: phases 5 and 5b for the two recurrent-step
+    cells alone (both GRU-cell routes at GRU_CELL_SHAPES, the cluster
+    sizes, the LSTM cell at LSTM_CELL_SHAPES, the host splits); rows in
+    ``cell_kernels.json`` in ``OUT_DIR``."""
+    build.build_all(["gru_seq", "gru_cell", "lstm_cell"])
+    out = dict(gru_cell=check_gru_cells(), lstm_cell=check_lstm_cells())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "cell_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 # --------------------------------------------------- 6. CRF kernel check
@@ -1953,6 +2275,15 @@ def _s2s_step_split(save_dir, model):
     return split
 
 
+def _check_cell_route(where, counts, name):
+    """Every GRU-cell call of a path ran on the cluster route: one device
+    launch a call (its shapes, 50 x 512 and 32 or 4 x 512, are on it)."""
+    if counts["step_launches"] != counts["launches"]:
+        raise AssertionError(f"{where}: {name} made {counts['step_launches']}"
+                             f" device launches in {counts['launches']} "
+                             "calls, not one a call")
+
+
 def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
     """--job train of the full-width seq2seq ``model`` (Adam(5e-4), 3
     passes, --save_dir), the full-width gradient check card vs CPU, the
@@ -1978,6 +2309,7 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
     if counts["gru_bwd_step"]["launches"] != 0:
         raise AssertionError(f"{title}: the per-step GRU backward ran on "
                              "the persistent route's shape")
+    _check_cell_route(title, counts["gru_cell"], "gru_cell")
     feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
         _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
     grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
@@ -1995,6 +2327,7 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
     for name in ("gru_seq", "gru_cell_infer", *test_kernels):
         if test_counts[name]["launches"] <= 0:
             raise AssertionError(f"{title} --job test never launched {name}")
+    _check_cell_route(title, test_counts["gru_cell_infer"], "gru_cell_infer")
     result = dict(pass_costs=costs, steps=summary["steps"],
                   median_step_ms=summary["median_step_ms"],
                   step_ms=summary["step_ms"], kernels=counts,
@@ -2481,6 +2814,9 @@ def serve_generation(tmp, save_dir):
     if launches <= 0:
         raise AssertionError("the generate path never launched "
                              "gru_cell_infer")
+    _check_cell_route("/v1/generate", {
+        k: after[k] - before[k] for k in ("launches", "step_launches")},
+        "gru_cell_infer")
     result = dict(merge_s=merge_s, ready_s=ready_s,
                   single_lengths=list(GEN_SERVE_LENGTHS), single_ms=times_ms,
                   rows=len(rows), rows_ms=rows_ms, requests=len(answers),
@@ -3230,6 +3566,14 @@ def _lstm_chain_keys(row):
                 per_step_backward_ms=row["per_step_bwd_ms"])
 
 
+def _cell_route_keys(row):
+    """The GRU cell's route and both routes' times for its entry."""
+    return dict(kernel_route="cluster", device_ms=row["device_ms"],
+                two_launch_ms=row["two_launch_ms"],
+                two_launch_device_ms=row["two_launch_device_ms"],
+                plan=row["plan"])
+
+
 def _entry(name, source, replaces, launches, err, row, prefix=""):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -3247,6 +3591,9 @@ def main() -> int:
     parser.add_argument("--lstm-kernels", action="store_true",
                         help="only phases 3 and 4 for the LSTM at the "
                         "classifier's and the tagger's shapes")
+    parser.add_argument("--cell-kernels", action="store_true",
+                        help="only phases 5 and 5b for the GRU and LSTM "
+                        "cells (both GRU-cell routes, the host splits)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     check_device()
@@ -3256,6 +3603,9 @@ def main() -> int:
         return 0
     if args.lstm_kernels:
         lstm_kernels()
+        return 0
+    if args.cell_kernels:
+        cell_kernels()
         return 0
     build_kernels()
     rows, serve_rows = check_kernels()
@@ -3289,6 +3639,9 @@ def main() -> int:
                  if (r["B"], r["H"], r["T"]) == (S2S_BATCH, S2S["hidden"],
                                                  S2S_LEN))
     c_row = next(r for r in cell_rows if r["B"] == S2S_BATCH)
+    # the beam search's rows: 8 sources x beam 4
+    gen_row = next(r for r in cell_rows
+                   if r["B"] == GEN_SOURCES * GEN_BEAM)
     # the acoustic model's GRU shape: batch 16 at h=1024, T=400
     a_row = next(r for r in gru_rows
                  if (r["B"], r["H"], r["T"]) == (DS2_BATCH, DS2["hidden"],
@@ -3299,6 +3652,7 @@ def main() -> int:
     ctc_lib = ", ".join(ctc_row["library_kernels"])
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
     gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
+    gru_cell_src = "paddle_tpu_torch/csrc/gru_cell.cu"
     opt_src = "paddle_tpu_torch/csrc/opt_update.cu"
     crf_src = "paddle_tpu_torch/csrc/crf.cu"
     flash_src = "paddle_tpu_torch/csrc/flash_attn.cu"
@@ -3414,15 +3768,17 @@ def main() -> int:
              on_path=False, kernel_route="two-launch",
              path="none: the two-launch route's backward (H above the "
                   "route line); timed here at the seq2seq shape"),
-        dict(_entry("gru_cell", gru_src,
+        dict(_entry("gru_cell", gru_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
                     s2s_counts["gru_cell"]["launches"], cell_err, c_row),
-             shape={"B": c_row["B"], "H": c_row["H"]}),
-        dict(_entry("gru_cell_infer", gru_src,
+             shape={"B": c_row["B"], "H": c_row["H"]},
+             **_cell_route_keys(c_row), path="seq2seq_attention train"),
+        dict(_entry("gru_cell_infer", gru_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
                     s2s_test["gru_cell_infer"]["launches"]
-                    + gen_served["launches"], cell_err, c_row),
-             shape={"B": c_row["B"], "H": c_row["H"]},
+                    + gen_served["launches"], cell_err, gen_row),
+             shape={"B": gen_row["B"], "H": gen_row["H"]},
+             **_cell_route_keys(gen_row),
              path="seq2seq_attention test and /v1/generate"),
         dict(_entry("lstm_cell", lstm_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:78",

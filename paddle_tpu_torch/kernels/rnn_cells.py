@@ -12,9 +12,14 @@ The port's counterpart of ``paddle_tpu/kernels/rnn_cells.py``.
 - GRU: ``_gru_cell_kernel`` via ``_gru_pallas``, the training entry
   ``gru_cell`` whose backward is the vjp of the plain math, and the no-grad
   entry ``gru_cell_infer``. The step layer ``gru_step`` of a recurrent
-  group is its caller. The kernel is ``gru_cell_forward`` of
-  ``csrc/gru_seq.cu``: the sequence kernel's two phases with T = 1 and no
-  mask (two launches per step).
+  group is its caller. Two routes, by shape (``gru_cell_plan``), never by
+  failure: the cluster route, one launch a step of
+  ``gru_cell_cluster_forward`` (``csrc/gru_cell.cu``: clusters of blocks
+  that exchange r * h through distributed shared memory), and the
+  two-launch route, ``gru_cell_forward`` of ``csrc/gru_seq.cu`` (the
+  sequence kernel's two phases with T = 1 and no mask), where H % 4 != 0,
+  the block's shared memory would not fit, or the weights or h do not
+  lie on 16 bytes. ``two_launch=True`` forces the second.
 
 Routing. In the JAX package the Pallas cell runs only under
 ``PADDLE_TPU_FUSED_RNN`` (off by default); its contract
@@ -32,15 +37,25 @@ the plain math under autograd from the saved inputs, as
 recompute; JAX has no backward kernel here, so the port adds none).
 ``lstm_cell_infer`` and ``gru_cell_infer`` launch the kernel with no
 autograd node. Each entry's ``.launches`` counts the calls that launched
-its kernel; the GRU entries' ``.step_launches`` count device launches.
+its kernel; the GRU entries' ``.step_launches`` count device launches (1 a
+call on the cluster route, 2 on the other).
+
+The launch path runs once per decoder step from a Python loop, so it is
+lean (``build.check_cell``: every check in one pass, the messages of the
+per-tensor checks on failure; ``build.call``: PyTorch's current stream,
+a device guard only off the current device) and the cluster route
+allocates only its output.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from paddle_tpu_torch.ops import build
-from paddle_tpu_torch.ops.build import check_weight
+from paddle_tpu_torch.ops.build import H100_SMS, SMEM_BYTES
 from paddle_tpu_torch.ops.gru import gru_step
 
 _DEFAULT_IN = ("tanh", "", None)
@@ -80,19 +95,17 @@ def lstm_cell_plain(gates, c_prev, check_i, check_f, check_o):
 
 def _lstm_launch(kernel, gates, c_prev, check_i, check_f, check_o):
     """One kernel step: (h, c), both [B, H]."""
-    dev = build.cuda_device(kernel, gates)
     B, H = c_prev.shape
-    build.check_tensors(kernel, dev, gates=(gates, (B, 4 * H)),
-                        c_prev=(c_prev, (B, H)), check_i=(check_i, (H,)),
-                        check_f=(check_f, (H,)), check_o=(check_o, (H,)))
-    h = torch.empty((B, H), dtype=torch.float32, device=dev)
-    c = torch.empty((B, H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_cell", "lstm_cell_forward", 7, 2)(
-            gates.data_ptr(), c_prev.data_ptr(), check_i.data_ptr(),
-            check_f.data_ptr(), check_o.data_ptr(), h.data_ptr(),
-            c.data_ptr(), B, H, stream)
+    idx, _ = build.check_cell(kernel, (
+        ("gates", gates, (B, 4 * H)), ("c_prev", c_prev, (B, H)),
+        ("check_i", check_i, (H,)), ("check_f", check_f, (H,)),
+        ("check_o", check_o, (H,))))
+    h = torch.empty_like(c_prev)
+    c = torch.empty_like(c_prev)
+    err = build.call(build.bind("lstm_cell", "lstm_cell_forward", 7, 2), idx,
+                     gates.data_ptr(), c_prev.data_ptr(), check_i.data_ptr(),
+                     check_f.data_ptr(), check_o.data_ptr(), h.data_ptr(),
+                     c.data_ptr(), B, H)
     build.raise_on(err, kernel)
     return h, c
 
@@ -184,24 +197,147 @@ def gru_cell_plain(x, h, w_gate, w_state):
     return gru_step(x, h, w_gate, w_state)[3]
 
 
-def _launch(kernel, x, h, w_gate, w_state):
-    """One kernel step: the new hidden state [B, H]."""
-    dev = build.cuda_device(kernel, x)
-    B, H = h.shape
-    build.check_tensors(kernel, dev, x=(x, (B, 3 * H)), h=(h, (B, H)))
-    ldg = check_weight(kernel, dev, "w_gate", w_gate, (H, 2 * H))
-    lds = check_weight(kernel, dev, "w_state", w_state, (H, H))
-    gates = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
-    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
-    out = torch.empty((B, H), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_cell_forward", 7, 4)(
-            x.data_ptr(), h.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), gates.data_ptr(), rh.data_ptr(),
-            out.data_ptr(), ldg, lds, B, H, stream)
+# the cluster route's constants (csrc/gru_cell.cu: kThreads, kMaxRows) and
+# the cluster size the plan takes (16, non-portable, or 8)
+CELL_THREADS = 256
+CELL_MAX_ROWS = 16
+CELL_CLUSTER = 16
+CLUSTER, TWO_LAUNCH = "cluster", "two_launch"
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _cell_slices(nc, K):
+    """K slices of a product over nc columns (``cell_slices``)."""
+    return min(CELL_THREADS // (nc // 4), K // 4)
+
+
+def cell_smem(H, units, rows) -> int:
+    """Shared-memory bytes of a cluster block (``cell_smem_floats`` in the
+    kernel): the Wg slice (2 units H floats; the products' K-slice
+    partials reuse it), the Ws slice, the tile of h (then of r * h) and
+    z, h, r * h of the block's own units."""
+    region = max(2 * units * H,
+                 _cell_slices(2 * units, H) * rows * 2 * units,
+                 _cell_slices(units, H) * rows * units)
+    return 4 * (region + units * H + rows * H + 3 * rows * units)
+
+
+def gru_cell_plan(B, H, sms=H100_SMS, slots=None, cluster=CELL_CLUSTER):
+    """The cluster route's plan for a [B, H] cell on a card of ``sms`` SMs
+    that places ``slots`` clusters at once (cudaOccupancyMaxActiveClusters,
+    which the H100 gives as 7 for 16 blocks of this kernel; sms // cluster
+    where not given). ``route`` is CLUSTER where H % 4 == 0 and a block of
+    one row fits 232,448 bytes (so H <= 528 at cluster 16), else
+    TWO_LAUNCH; ``cluster`` blocks (at most the ``cluster`` asked) of
+    ``units`` = 4 ceil(H / 4 cluster) units (the last slice may be
+    shorter), ``rows`` a tile: ceil(B / slots), so that the ``clusters`` =
+    ceil(B / rows) fill the card without exceeding it, at most
+    CELL_MAX_ROWS and what fits; ``blocks`` and ``smem`` bytes. At the
+    paths' H = 512 only cluster 16 fits; where 8 fits too (H = 256) the
+    two measured within 2 % of each other on the H100 (PERF.md)."""
+    plan = dict(route=TWO_LAUNCH)
+    if B < 1 or H < 4 or H % 4:
+        return plan
+    units = 4 * _cdiv(H, 4 * cluster)
+    size = _cdiv(H, units)  # every block holds at least one unit
+    fits = [r for r in range(1, CELL_MAX_ROWS + 1)
+            if cell_smem(H, units, r) <= SMEM_BYTES]
+    if not fits:
+        return plan
+    slots = max(1, sms // size if slots is None else slots)
+    rows = min(_cdiv(B, slots), fits[-1])
+    clusters = _cdiv(B, rows)
+    return dict(route=CLUSTER, cluster=size, units=units, rows=rows,
+                clusters=clusters, blocks=size * clusters,
+                smem=cell_smem(H, units, rows), slots=slots)
+
+
+def gru_cell_route(B, H, sms=H100_SMS) -> str:
+    """CLUSTER or TWO_LAUNCH for a [B, H] cell (``gru_cell_plan``)."""
+    return gru_cell_plan(B, H, sms)["route"]
+
+
+def _cell_lib_fn(entry, restype, n_int):
+    fn = getattr(build.load("gru_cell"), entry)
+    fn.argtypes = [ctypes.c_int] * n_int
+    fn.restype = restype
+    return fn
+
+
+def gru_cell_smem_of_kernel(H, cluster, rows) -> int:
+    """The kernel's own count of a cluster block's shared-memory bytes
+    (card only: it loads the library), to hold ``cell_smem`` against."""
+    return _cell_lib_fn("gru_cell_smem", ctypes.c_longlong, 3)(
+        H, cluster, rows)
+
+
+def gru_cell_max_clusters(H, cluster, rows) -> int:
+    """cudaOccupancyMaxActiveClusters of the cell kernel at this plan on
+    the current card (negative: a CUDA error, or -4 for a plan the kernel
+    does not take)."""
+    return _cell_lib_fn("gru_cell_max_clusters", ctypes.c_int, 3)(
+        H, cluster, rows)
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_plan(B, H, idx):
+    """``gru_cell_plan`` for card ``idx``: its SMs and the clusters it
+    places at once (asked once per shape and card)."""
+    plan = gru_cell_plan(B, H, build._sms_of(idx))
+    if plan["route"] == CLUSTER:
+        with torch.cuda.device(idx):
+            slots = gru_cell_max_clusters(H, plan["cluster"], 1)
+        if slots > 0:
+            plan = gru_cell_plan(B, H, build._sms_of(idx), slots)
+    return plan
+
+
+_CLUSTER_ERRORS = {
+    -1: "the block's shared memory exceeds the card's opt-in limit",
+    -2: "the card cannot place one cluster of these blocks "
+        "(cudaOccupancyMaxActiveClusters is 0)",
+    -4: "the kernel does not take this plan (H, strides % 4, cluster "
+        "size or rows)",
+}
+
+
+def _raise_cluster(err, kernel, plan):
+    if err in _CLUSTER_ERRORS:
+        raise RuntimeError(f"{kernel}: cluster launch refused: "
+                           f"{_CLUSTER_ERRORS[err]} (plan {plan})")
     build.raise_on(err, kernel)
-    return out
+
+
+def _gru_launch(kernel, x, h, w_gate, w_state, two_launch=False):
+    """One kernel step: (the new hidden state [B, H], device launches).
+    The cluster route where the plan has it and h and the weights lie on
+    16 bytes with row strides % 4 == 0 (the kernel's 16-byte copies)."""
+    B, H = h.shape
+    idx, (ldg, lds) = build.check_cell(
+        kernel, (("x", x, (B, 3 * H)), ("h", h, (B, H))),
+        (("w_gate", w_gate, (H, 2 * H)), ("w_state", w_state, (H, H))))
+    out = torch.empty_like(h)
+    ptrs = (x.data_ptr(), h.data_ptr(), w_gate.data_ptr(),
+            w_state.data_ptr(), out.data_ptr())
+    plan = None if two_launch else _card_plan(B, H, idx)
+    if (plan is not None and plan["route"] == CLUSTER
+            and not (ptrs[1] | ptrs[2] | ptrs[3]) & 15
+            and not (ldg | lds) & 3):
+        err = build.call(
+            build.bind("gru_cell", "gru_cell_cluster_forward", 5, 6), idx,
+            *ptrs, ldg, lds, B, H, plan["cluster"], plan["rows"])
+        _raise_cluster(err, kernel, plan)
+        return out, 1
+    gates = torch.empty((B, 3 * H), dtype=torch.float32, device=x.device)
+    rh = torch.empty_like(h)
+    err = build.call(build.bind("gru_seq", "gru_cell_forward", 7, 4), idx,
+                     *ptrs[:4], gates.data_ptr(), rh.data_ptr(), ptrs[4],
+                     ldg, lds, B, H)
+    build.raise_on(err, kernel)
+    return out, 2
 
 
 class GruCellFunction(torch.autograd.Function):
@@ -209,10 +345,11 @@ class GruCellFunction(torch.autograd.Function):
     the plain math at the saved inputs."""
 
     @staticmethod
-    def forward(ctx, x, h, w_gate, w_state):
-        out = _launch("gru_cell", x, h, w_gate, w_state)
+    def forward(ctx, x, h, w_gate, w_state, two_launch):
+        out, steps = _gru_launch("gru_cell", x, h, w_gate, w_state,
+                                 two_launch)
         gru_cell.launches += 1
-        gru_cell.step_launches += 2
+        gru_cell.step_launches += steps
         ctx.save_for_backward(x, h, w_gate, w_state)
         return out
 
@@ -222,24 +359,26 @@ class GruCellFunction(torch.autograd.Function):
             leaves = [t.detach().requires_grad_(True)
                       for t in ctx.saved_tensors]
             out = gru_cell_plain(*leaves)
-            return torch.autograd.grad(out, leaves, dout)
+            return (*torch.autograd.grad(out, leaves, dout), None)
 
 
 def _default(act_input, act_gate):
     return act_input in _DEFAULT_IN and act_gate in _DEFAULT_GATE
 
 
-def gru_cell(x, h, w_gate, w_state, act_input="tanh", act_gate="sigmoid"):
+def gru_cell(x, h, w_gate, w_state, act_input="tanh", act_gate="sigmoid",
+             two_launch=False):
     """One GRU step: ``x`` [B, 3H] (projection + bias pre-added), ``h``
     [B, H], ``w_gate`` [H, 2H], ``w_state`` [H, H] (column slices of one
-    matrix are fine); returns the new hidden [B, H]. Differentiable."""
+    matrix are fine); returns the new hidden [B, H]. Differentiable.
+    ``two_launch=True`` forces the two-launch route on the card."""
     if not _default(act_input, act_gate):
         return gru_math(x, h, w_gate, w_state, activation(act_input),
                         activation(act_gate))
     if x.device.type == "cpu":
         return gru_cell_plain(x, h, w_gate, w_state)
     return GruCellFunction.apply(x.contiguous(), h.contiguous(), w_gate,
-                                 w_state)
+                                 w_state, two_launch)
 
 
 gru_cell.launches = 0
@@ -247,7 +386,7 @@ gru_cell.step_launches = 0
 
 
 def gru_cell_infer(x, h, w_gate, w_state, act_input="tanh",
-                   act_gate="sigmoid"):
+                   act_gate="sigmoid", two_launch=False):
     """``gru_cell`` for the no-grad path (``train=False``): the kernel's
     primal alone, with no autograd node (JAX ``gru_cell_infer``)."""
     if not _default(act_input, act_gate):
@@ -255,10 +394,10 @@ def gru_cell_infer(x, h, w_gate, w_state, act_input="tanh",
                         activation(act_gate))
     if x.device.type == "cpu":
         return gru_cell_plain(x, h, w_gate, w_state)
-    out = _launch("gru_cell_infer", x.contiguous(), h.contiguous(), w_gate,
-                  w_state)
+    out, steps = _gru_launch("gru_cell_infer", x.contiguous(),
+                             h.contiguous(), w_gate, w_state, two_launch)
     gru_cell_infer.launches += 1
-    gru_cell_infer.step_launches += 2
+    gru_cell_infer.step_launches += steps
     return out
 
 

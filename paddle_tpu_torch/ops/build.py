@@ -1,7 +1,10 @@
 """Builds the port's CUDA sources (``paddle_tpu_torch/csrc/*.cu``) into
 shared libraries with a plain C interface and loads them with ctypes; and
 the helpers every kernel wrapper shares (``bind``, ``cuda_device``,
-``check_tensors``, ``check_weight``, ``raise_on``) and those of the
+``check_tensors``, ``check_weight``, ``raise_on``), those of the
+recurrent-step cells, which launch once per step from a Python loop
+(``check_cell``: every check in one pass; ``call``: the current stream,
+with a device guard only off the current device), and those of the
 persistent (cooperative) kernels (``device_sms``, ``raise_coop``,
 ``aligned``).
 
@@ -140,6 +143,44 @@ def check_tensors(kernel: str, device, **tensors):
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
                              f"{device}")
+
+
+def check_cell(kernel, tensors, weights=()):
+    """The checks of ``check_tensors`` and ``check_weight`` in one pass,
+    for a wrapper called once per step: ``tensors`` are (name, tensor,
+    shape) that must be contiguous float32 on one card, ``weights`` (name,
+    matrix, shape) float32 matrices on that card with contiguous columns.
+    Returns (the card's index, the weights' row strides). Where any check
+    fails, those functions raise with their message."""
+    idx = tensors[0][1].get_device()  # -1 on the CPU
+    f32 = torch.float32
+    ok = idx >= 0
+    for _, t, shape in tensors:
+        ok = (ok and t.dtype is f32 and t.get_device() == idx
+              and t.shape == shape and t.is_contiguous())
+    lds = []
+    for _, w, shape in weights:
+        st = w.stride()
+        ok = (ok and w.dtype is f32 and w.get_device() == idx
+              and w.shape == shape and st[1] == 1 and st[0] >= shape[1])
+        lds.append(st[0])
+    if not ok:
+        dev = cuda_device(kernel, tensors[0][1])
+        check_tensors(kernel, dev, **{n: (t, s) for n, t, s in tensors})
+        for name, w, shape in weights:
+            check_weight(kernel, dev, name, w, shape)
+    return idx, lds
+
+
+def call(fn, idx, *args):
+    """``fn(*args, stream)``: a bound C entry on the current (PyTorch's)
+    stream of card ``idx``, under a device guard only where ``idx`` is not
+    the current device. Nothing is cached: the stream is read at each
+    call."""
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def raise_on(err: int, kernel: str):

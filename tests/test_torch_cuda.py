@@ -4,7 +4,8 @@ sequence or reverse chain; a launch a step and a per-step backward above
 the route line), the LSTM cell, the GRU recurrence in its
 primal and residual forms and its backward on both routes (one
 cooperative launch per sequence or reverse chain; two launches a step
-and a per-step backward above the route line), the GRU cell, the
+and a per-step backward above the route line), the GRU cell on both
+routes (one launch a step on thread block clusters; two launches), the
 Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
 the flash-attention forward and backward kernels, the CTC alpha and beta
 kernels) against
@@ -268,6 +269,85 @@ def test_gru_cell_kernel_matches_plain_on_card(cuda_device, B, H):
                     torch.autograd.grad(want, plain, dout)):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() \
             + 1e-5
+
+
+# (B, H): the paths' cells (seq2seq's batch, the beam search's 32 and 4
+# rows, batch 1), ragged units and rows, the largest tile, and shapes off
+# the cluster route (H % 4 != 0; a block of one row above the shared
+# memory)
+GRU_CELL_SHAPES = [(50, 512), (32, 512), (4, 512), (1, 512), (7, 40),
+                   (50, 96), (200, 512), (5, 130), (2, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_launch", [False, True])
+@pytest.mark.parametrize("B,H", GRU_CELL_SHAPES)
+def test_gru_cell_routes_match_plain_on_card(cuda_device, B, H, two_launch):
+    """Each route at each shape (the cluster route where ``gru_cell_plan``
+    puts the shape, two launches where forced or off the route): both
+    entries against the plain math through non-contiguous w0 slices, one
+    device launch a call on the cluster route and two on the other, two
+    runs bit-equal, the recompute backward against autograd of the plain
+    math."""
+    _, _, wg, ws, h = _gru_inputs(1, B, H, 3 * B + H, cuda_device)
+    x = torch.randn(B, 3 * H, device=cuda_device)
+    steps = 2 if two_launch or rnn_cells.gru_cell_route(B, H) == \
+        rnn_cells.TWO_LAUNCH else 1
+    before = [(f.launches, f.step_launches)
+              for f in (rnn_cells.gru_cell, rnn_cells.gru_cell_infer)]
+    with torch.no_grad():
+        out_i = rnn_cells.gru_cell_infer(x, h, wg, ws, two_launch=two_launch)
+        out_2 = rnn_cells.gru_cell_infer(x, h, wg, ws, two_launch=two_launch)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, h, wg, ws)]
+    out = rnn_cells.gru_cell(*leaves, two_launch=two_launch)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.step_launches)
+             for f in (rnn_cells.gru_cell, rnn_cells.gru_cell_infer)]
+    assert after == [(before[0][0] + 1, before[0][1] + steps),
+                     (before[1][0] + 2, before[1][1] + 2 * steps)]
+    assert torch.equal(out_i, out_2)
+    plain = [t.detach().clone().requires_grad_(True) for t in (x, h, wg, ws)]
+    want = rnn_cells.gru_cell_plain(*plain)
+    torch.testing.assert_close(out_i, want.detach(), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out.detach(), want.detach(), rtol=1e-4,
+                               atol=1e-5)
+    dout = torch.randn_like(out)
+    for g, w in zip(torch.autograd.grad(out, leaves, dout),
+                    torch.autograd.grad(want, plain, dout)):
+        assert _max_err_ok(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(50, 512), (32, 512), (4, 512), (1, 512),
+                                 (7, 40), (50, 96), (200, 512), (1, 528)])
+def test_gru_cell_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
+    """The plan's shared-memory arithmetic equals the kernel's own, and
+    the card places at least one cluster of it."""
+    plan = rnn_cells._card_plan(B, H, torch.cuda.current_device())
+    assert plan["route"] == rnn_cells.CLUSTER
+    assert rnn_cells.gru_cell_smem_of_kernel(
+        H, plan["cluster"], plan["rows"]) == plan["smem"] <= \
+        rnn_cells.SMEM_BYTES
+    assert rnn_cells.gru_cell_max_clusters(
+        H, plan["cluster"], plan["rows"]) >= 1
+
+
+@pytest.mark.cuda
+def test_gru_cell_kernel_rejects_bad_inputs(cuda_device):
+    """A CPU tensor beside CUDA ones, a wrong dtype, a wrong shape and a
+    transposed weight raise on both entries and both routes."""
+    _, _, wg, ws, h = _gru_inputs(1, 3, 8, 0, cuda_device)
+    x = torch.randn(3, 24, device=cuda_device)
+    for entry in (rnn_cells.gru_cell, rnn_cells.gru_cell_infer):
+        for two_launch in (False, True):
+            with pytest.raises(ValueError, match="CUDA"):
+                entry(x, h.cpu(), wg, ws, two_launch=two_launch)
+            with pytest.raises(ValueError, match="float32"):
+                entry(x.double(), h, wg, ws, two_launch=two_launch)
+            with pytest.raises(ValueError, match="shape"):
+                entry(x[:, :21], h, wg, ws, two_launch=two_launch)
+            with pytest.raises(ValueError, match="contiguous columns"):
+                entry(x, h, wg, ws.t(), two_launch=two_launch)
 
 
 @pytest.mark.cuda
