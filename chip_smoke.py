@@ -122,10 +122,21 @@ non-zero without the result line:
    autograd through ``mha_plain``, two
    backward runs bit-equal, every output finite. Times: CUDA events
    around each wrapper call (median of 10), the kernels' device time
-   (``torch.profiler``), the plain versions, and the library yardstick
+   (``torch.profiler``; each kernel's mean in the trace record), the
+   plain versions, and the library yardstick
    ``scaled_dot_product_attention`` (the same additive -1e9 mask, TF32
-   off; forward, backward, both; the backend that ran), beside the bounds
-   by the visible (query, key) pairs.
+   off; forward, backward, both, by CUDA events and the forward and the
+   backward by device time; the backend that ran; where the mask is all
+   ones also without the bias, ``is_causal=True`` for a square causal,
+   and the kernels ranked against the faster device reading), beside
+   the bounds by the visible (query, key) pairs at the f32 rate and in
+   split TF32 (three passes at the dense TF32 rate). At the attention
+   seq2seq path's shape, the host split of both wrappers' launch paths
+   (checks, alignment, allocation, device guard and stream, data_ptr,
+   the ctypes call, the whole path, the entries and their autograd
+   share), the baseline spelling (per-tensor checks, a device guard,
+   ``current_stream()``) replayed beside today's, interleaved in 5
+   rounds.
 8. train: ``lstm_text_classifier`` at its widest published width (vocab
    30000, embed 128, hidden 1280, 2 LSTM layers, 2 classes) trained by
    ``python -m paddle_tpu_torch.trainer.cli --job train`` with
@@ -251,6 +262,12 @@ runs only phases 5's GRU-cell part and 5b (both cells, both GRU-cell
 routes, the host splits, the cluster sizes), ~30 s, into
 ``cell_kernels.json``.
 
+    python3 chip_smoke.py --flash-kernels
+
+runs only phase 7 (the flash kernels at every FLASH_SHAPES row with the
+SDPA yardstick, the wrappers' host split), ~1.5 min, into
+``flash_kernels.json``.
+
     python3 chip_smoke.py --ds2-rate-witness
 
 runs only the acoustic model's ``--job train`` at DeepSpeech2's own rate,
@@ -297,6 +314,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # published H100 SXM peaks at 700 W (NVIDIA data sheet)
 F32_FLOPS = 67e12      # f32 outside the tensor cores
+TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-5)
 OPT_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -501,8 +519,9 @@ def _device_ms(fn, kernel, calls=20, per_call=1):
     than half of them (the profiler here drops launches now and then) is
     taken again, up to three times. ``kernel=None``: every CUDA kernel of
     the calls, summed and divided by ``calls``. Returns (ms, record): the
-    record holds ``calls`` and each trace's launches by kernel name, so
-    that a trace with dropped launches shows beside the time."""
+    record holds ``calls`` and each trace's [launches, mean ms a launch]
+    by kernel name, so that a trace with dropped launches shows beside the
+    time."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -517,7 +536,8 @@ def _device_ms(fn, kernel, calls=20, per_call=1):
         found = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and (names is None or any(n in e.key for n in names))]
-        traces.append({e.key: e.count for e in found})
+        traces.append({e.key: [e.count, 1e-3 * e.self_device_time_total
+                               / max(e.count, 1)] for e in found})
         record = dict(calls=calls, traces=traces)
         if found and names is None:
             return 1e-3 * sum(e.self_device_time_total
@@ -1808,29 +1828,34 @@ def _flash_bounds(B, N, Tq, Tk, D, visible):
     needs only v's mean): 4 D operations per pair forward (two products),
     10 D backward (five). Bytes: q, k, v, mask in, o and the row
     statistics out; the backward's q, k, v, mask, o, dO and statistics
-    in, dq, dk, dv out."""
+    in, dq, dk, dv out. Returns {kind: ((ms, by) at the f32 rate, ms of
+    the same work in split TF32: three passes of the operations at the
+    dense TF32 rate, or the bytes)}."""
     pairs = N * float(visible.sum())
     q_el, kv_el = B * N * Tq * D, B * N * Tk * D
-    return {"fwd": _bound(4.0 * D * pairs,
-                          4 * (q_el + 2 * kv_el + B * Tk + q_el
-                               + 2 * B * N * Tq)),
-            "bwd": _bound(10.0 * D * pairs,
-                          4 * (3 * q_el + 2 * kv_el + B * Tk + 2 * B * N * Tq
-                               + q_el + 2 * kv_el))}
+    work = {"fwd": (4.0 * D * pairs,
+                    4 * (q_el + 2 * kv_el + B * Tk + q_el + 2 * B * N * Tq)),
+            "bwd": (10.0 * D * pairs,
+                    4 * (3 * q_el + 2 * kv_el + B * Tk + 2 * B * N * Tq
+                         + q_el + 2 * kv_el))}
+    return {kind: (_bound(ops, nbytes),
+                   1e3 * max(3 * ops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S))
+            for kind, (ops, nbytes) in work.items()}
 
 
-def _sdpa(q, k, v, do, bias, scale):
+def _sdpa(q, k, v, do, scale, **mask):
     """The library yardstick: one ``scaled_dot_product_attention`` call
-    with the additive -1e9 bias [B, 1, Tq, Tk] (never on the port's path).
-    The first backend, of the fused ones then the math one, that takes
-    these inputs forward and backward; returns (call, backend name)."""
+    (never on the port's path) with ``mask``: the additive -1e9 bias
+    [B, 1, Tq, Tk] (``attn_mask=``), ``is_causal=True``, or nothing. The
+    first backend, of the fused ones then the math one, that takes these
+    inputs forward and backward; returns (call, backend name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         def call(q, k, v, backend=backend):
             with sdpa_kernel(backend):
-                return sdpa(q, k, v, attn_mask=bias, scale=scale)
+                return sdpa(q, k, v, scale=scale, **mask)
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         try:
             with warnings.catch_warnings():
@@ -1841,6 +1866,37 @@ def _sdpa(q, k, v, do, bias, scale):
             continue
         return call, backend.name
     raise AssertionError("no scaled_dot_product_attention backend ran")
+
+
+def _library_times(q, k, v, do, w_o, scale, name, **mask):
+    """SDPA with ``mask`` (``_sdpa``) at these inputs: its backend, its
+    largest error against ``blockwise_plain``'s o, and its forward,
+    backward and both by CUDA events (median of 10), the forward and the
+    backward also by device time (every CUDA kernel of the call,
+    ``torch.profiler``). Keys ``<kind>_<name>_ms``, ``<kind>_<name>
+    _device_ms``."""
+    call, backend = _sdpa(q, k, v, do, scale, **mask)
+    with torch.no_grad():
+        row = {f"{name}_backend": backend,
+               f"{name}_max_abs_err": (call(q, k, v) - w_o).abs().max()
+               .item()}
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd():
+        torch.autograd.grad(call(*leaves), leaves, do)
+
+    out = call(*leaves)
+
+    def bwd():
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    row[f"fwd_{name}_ms"] = _time_ms(lambda: call(q, k, v))
+    row[f"fwd_{name}_device_ms"] = _device_ms(lambda: call(q, k, v), None,
+                                              calls=10)[0]
+    row[f"fwd_bwd_{name}_ms"] = _time_ms(fwd_bwd)
+    row[f"bwd_{name}_ms"] = _time_ms(bwd)
+    row[f"bwd_{name}_device_ms"] = _device_ms(bwd, None, calls=10)[0]
+    return row
 
 
 def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
@@ -1909,23 +1965,26 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
                    q, k, v, mask, w_o, w_lse, do, causal)))
     bias = torch.zeros((B, 1, Tq, Tk), device="cuda").masked_fill(
         ~visible[:, None], -1e9)
-    call, row["sdpa_backend"] = _sdpa(q, k, v, do, bias, scale)
-    with torch.no_grad():
-        row["sdpa_max_abs_err"] = (call(q, k, v) - w_o).abs().max().item()
-    s_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(call(*s_leaves), s_leaves, do)
-
-    row["fwd_library_ms"] = _time_ms(lambda: call(q, k, v))
-    row["fwd_bwd_library_ms"] = _time_ms(sdpa_fwd_bwd)
-    s_out = call(*s_leaves)
-    row["bwd_library_ms"] = _time_ms(lambda: torch.autograd.grad(
-        s_out, s_leaves, do, retain_graph=True))
-    del s_out, s_leaves, bias
-    for kind, (bound_ms, bound_by) in _flash_bounds(B, N, Tq, Tk, D,
-                                                    visible).items():
+    lib = _library_times(q, k, v, do, w_o, scale, "library", attn_mask=bias)
+    row.update(lib, sdpa_backend=lib["library_backend"],
+               sdpa_max_abs_err=lib["library_max_abs_err"])
+    del bias
+    if bool((mask > 0).all()) and (not causal or Tq == Tk):
+        # the same function without the bias tensor: SDPA's own causal
+        # rule (top-left) is ours only for a square causal
+        row.update(_library_times(q, k, v, do, w_o, scale, "library_nobias",
+                                  **({"is_causal": True} if causal else {})))
+    for kind in ("fwd", "bwd"):
+        dev = [row[k] for k in (f"{kind}_library_device_ms",
+                                f"{kind}_library_nobias_device_ms")
+               if k in row]
+        row[f"{kind}_library_fastest_device_ms"] = min(dev)
+        row[f"{kind}_vs_library_device"] = (
+            row[f"{kind}_device_ms"] / min(dev))
+    for kind, ((bound_ms, bound_by), tf32) in _flash_bounds(
+            B, N, Tq, Tk, D, visible).items():
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
+        row[f"{kind}_bound_tf32x3_ms"] = tf32
     phase("flash_kernel_check", **row)
     return row
 
@@ -1933,6 +1992,170 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
 def check_flash_kernels():
     return [check_flash_shape(*shape, seed=sum(shape[:5]))
             for shape in FLASH_SHAPES]
+
+
+def _baseline_flash_pieces(q, k, v, mask, o, lse, do):
+    """Both flash wrappers' host paths in their baseline spelling
+    (``_check``: ``cuda_device``, the shape and instance checks, a
+    ``check_tensors`` per call (two in the backward); ``torch.empty`` of
+    every output; a ``torch.cuda.device`` guard and ``current_stream()``;
+    ``data_ptr()`` of every operand; the entry), piece by piece and whole:
+    the "before" of the host split. Returns (forward, backward) pieces."""
+    B, N, Tq, D = q.shape
+    Tk = k.shape[2]
+    dev = q.device
+    scale = D ** -0.5
+    fwd = build.bind("flash_attn", "flash_fwd", 6, 6, 1)
+    bwd = build.bind("flash_attn", "flash_bwd", 11, 6, 1)
+    delta = torch.empty((B * N, Tq), device=dev)
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    stream = torch.cuda.current_stream().cuda_stream
+    f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, scale)
+    b_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, scale)
+
+    def check(kernel, **more):
+        d = build.cuda_device(kernel, q)
+        if q.dim() != 4 or k.dim() != 4:
+            raise ValueError(kernel)
+        if D not in ATT.HEAD_DIMS:
+            raise ValueError(kernel)
+        if Tq < 1 or Tk < 1 or B * N > 65535:
+            raise ValueError(kernel)
+        build.check_tensors(kernel, d, q=(q, (B, N, Tq, D)),
+                            k=(k, (B, N, Tk, D)), v=(v, (B, N, Tk, D)),
+                            kv_mask=(mask, (B, Tk)),
+                            **{n: (t, (B, N, Tq, D)) for n, t in more.items()})
+        return d
+
+    def f_checks():
+        return check("flash_fwd")
+
+    def b_checks():
+        d = check("flash_bwd", o=o, do=do)
+        build.check_tensors("flash_bwd", d, lse=(lse, (2, B * N, Tq)))
+        return d
+
+    def f_alloc():
+        return (torch.empty_like(q),
+                torch.empty((2, B * N, Tq), dtype=torch.float32, device=dev))
+
+    def b_alloc():
+        return (torch.empty((B * N, Tq), dtype=torch.float32, device=dev),
+                *(torch.empty_like(t) for t in (q, k, v)))
+
+    def guard_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    def whole(checks, alloc, fn, args):
+        def run():
+            d = checks()
+            alloc()
+            with torch.cuda.device(d):
+                st = torch.cuda.current_stream().cuda_stream
+                build.raise_on(fn(*args, st), "flash")
+        return run
+
+    pieces = []
+    for checks, alloc, fn, args, ptrs in (
+            (f_checks, f_alloc, fwd, f_args, (q, k, v, mask, o, lse)),
+            (b_checks, b_alloc, bwd, b_args,
+             (q, k, v, mask, o, do, lse, delta, *outs))):
+        pieces.append(dict(
+            checks=checks, alloc=alloc, guard_stream=guard_stream,
+            data_ptr=lambda ptrs=ptrs: [t.data_ptr() for t in ptrs],
+            ctypes_call=lambda fn=fn, args=args: fn(*args, stream),
+            whole=whole(checks, alloc, fn, args)))
+    return pieces
+
+
+def _flash_pieces(q, k, v, mask, o, lse, do):
+    """The same pieces of today's wrappers (``ATT.flash_fwd``,
+    ``ATT.flash_bwd``), with the 16-byte alignment check they add."""
+    B, N, Tq, D = q.shape
+    Tk = k.shape[2]
+    idx = q.get_device()
+    scale = D ** -0.5
+    fwd = build.bind("flash_attn", "flash_fwd", 6, 6, 1)
+    bwd = build.bind("flash_attn", "flash_bwd", 11, 6, 1)
+    delta = q.new_empty((B * N, Tq))
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, scale,
+              torch._C._cuda_getCurrentRawStream(idx))
+    b_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+              o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, scale,
+              torch._C._cuda_getCurrentRawStream(idx))
+    guard = lambda: (torch.cuda.current_device() == idx,
+                     torch._C._cuda_getCurrentRawStream(idx))
+    return [
+        dict(checks=lambda: ATT._check("flash_fwd", q, k, v, mask),
+             align=lambda: [build.aligned(t) for t in (q, k, v)],
+             alloc=lambda: (torch.empty_like(q), q.new_empty((2, B * N, Tq))),
+             guard_stream=guard,
+             data_ptr=lambda: [t.data_ptr() for t in (q, k, v, mask, o,
+                                                      lse)],
+             ctypes_call=lambda: fwd(*f_args),
+             whole=lambda: ATT.flash_fwd(q, k, v, mask, False)),
+        dict(checks=lambda: ATT._check("flash_bwd", q, k, v, mask, o, lse,
+                                       do),
+             align=lambda: [build.aligned(t) for t in (q, k, v, o, do)],
+             alloc=lambda: (q.new_empty((B * N, Tq)), torch.empty_like(q),
+                            torch.empty_like(k), torch.empty_like(v)),
+             guard_stream=guard,
+             data_ptr=lambda: [t.data_ptr() for t in (q, k, v, mask, o, do,
+                                                      lse, delta, *outs)],
+             ctypes_call=lambda: bwd(*b_args),
+             whole=lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, False))]
+
+
+def check_flash_host_split():
+    """The host split (``_split_us``: median of 5 interleaved rounds of 400
+    calls) of both wrappers' launch paths at the attention seq2seq path's
+    shape (FLASH_SHAPES[0]), the baseline spelling replayed beside
+    today's, and of ``flash_attention``'s entries (no grad: the forward
+    wrapper; training: ``FlashFunction``, its autograd share)."""
+    B, N, Tq, Tk, D, causal, min_len, pad_row = FLASH_SHAPES[0]
+    q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, 7, min_len, pad_row)
+    o, lse = ATT.flash_fwd(q, k, v, mask, causal)
+    base_f, base_b = _baseline_flash_pieces(q, k, v, mask, o, lse, do)
+    now_f, now_b = _flash_pieces(q, k, v, mask, o, lse, do)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    got = _split_us(dict(
+        fwd_baseline=(False, base_f), fwd_now=(False, now_f),
+        bwd_baseline=(False, base_b), bwd_now=(False, now_b),
+        infer=(False, dict(infer_entry=lambda: ATT.flash_attention(
+            q, k, v, mask))),
+        train=(True, dict(train_entry=lambda: ATT.flash_attention(
+            *leaves, mask)))))
+    row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D,
+               host_us_fwd_baseline=got["fwd_baseline"],
+               host_us_fwd=got["fwd_now"],
+               host_us_bwd_baseline=got["bwd_baseline"],
+               host_us_bwd=got["bwd_now"],
+               host_us_entry=dict(
+                   infer_entry=got["infer"]["infer_entry"],
+                   train_entry=got["train"]["train_entry"],
+                   autograd=got["train"]["train_entry"]
+                   - got["infer"]["infer_entry"]))
+    phase("flash_host_split", **row)
+    return row
+
+
+def flash_kernels():
+    """``--flash-kernels``: phase 7 alone (every FLASH_SHAPES row with the
+    SDPA yardstick, the host split of both wrappers); rows in
+    ``flash_kernels.json`` in ``OUT_DIR``."""
+    build.build_all(["flash_attn"])
+    out = dict(flash_shapes=check_flash_kernels(),
+               flash_host_split=check_flash_host_split())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "flash_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 # ------------------------------------------------------------- 8. train
@@ -3594,6 +3817,9 @@ def main() -> int:
     parser.add_argument("--cell-kernels", action="store_true",
                         help="only phases 5 and 5b for the GRU and LSTM "
                         "cells (both GRU-cell routes, the host splits)")
+    parser.add_argument("--flash-kernels", action="store_true",
+                        help="only phase 7 for the flash-attention kernels "
+                        "(every FLASH_SHAPES row, SDPA beside them)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     check_device()
@@ -3607,6 +3833,9 @@ def main() -> int:
     if args.cell_kernels:
         cell_kernels()
         return 0
+    if args.flash_kernels:
+        flash_kernels()
+        return 0
     build_kernels()
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
@@ -3615,6 +3844,7 @@ def main() -> int:
     crf_rows, tag_lstm_rows = check_crf_kernels()
     ctc_rows = check_ctc_kernels()
     flash_rows = check_flash_kernels()
+    flash_split = check_flash_host_split()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         trained, conf, model = train(tmp)
@@ -3837,6 +4067,8 @@ def main() -> int:
                     "fwd_"),
              shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
              device_ms=f_row["fwd_device_ms"],
+             library_device_ms=f_row["fwd_library_device_ms"],
+             bound_tf32x3_ms=f_row["fwd_bound_tf32x3_ms"],
              library=f"scaled_dot_product_attention ({f_row['sdpa_backend']})",
              path="seq2seq_attention(seq_parallel) train and test"),
         dict(_entry("flash_bwd", flash_src,
@@ -3847,6 +4079,8 @@ def main() -> int:
                     "bwd_"),
              shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
              device_ms=f_row["bwd_device_ms"],
+             library_device_ms=f_row["bwd_library_device_ms"],
+             bound_tf32x3_ms=f_row["bwd_bound_tf32x3_ms"],
              library=f"scaled_dot_product_attention backward "
                      f"({f_row['sdpa_backend']})",
              path="seq2seq_attention(seq_parallel) train"),
@@ -3920,7 +4154,8 @@ def main() -> int:
                    "gru_cell_shapes": cell_rows,
                    "lstm_cell_shapes": lstm_cell_rows, "crf_shapes": crf_rows,
                    "tagger_lstm_shapes": tag_lstm_rows,
-                   "flash_shapes": flash_rows, "ctc_shapes": ctc_rows,
+                   "flash_shapes": flash_rows,
+                   "flash_host_split": flash_split, "ctc_shapes": ctc_rows,
                    "train": trained, "serve": served, "seq2seq": s2s,
                    "seq2seq_generate_serve": gen_served,
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,

@@ -1,5 +1,5 @@
-// Flash attention for Hopper (sm_90a), f32: the forward and the analytic
-// backward (two kernels).
+// Flash attention for Hopper (sm_90a), f32 in and out, the products on the
+// tensor cores: the forward and the analytic backward (two kernels).
 //
 // Replaces
 // - flash_fwd: the TPU kernel paddle_tpu/ops/attention.py:_flash_kernel
@@ -9,9 +9,10 @@
 //   is jax.vjp of blockwise_attention in JAX (a recompute through a
 //   lax.scan); here it is the FA2-style analytic backward.
 //
-// Shapes: q [B, N, Tq, D], k and v [B, N, Tk, D], all contiguous; mask
-// [B, Tk] (> 0 = a real key, indexed by batch, not by head); o [B, N, Tq,
-// D]. The forward computes, per row i of q,
+// Shapes: q [B, N, Tq, D], k and v [B, N, Tk, D], all contiguous and on
+// 16 bytes; mask [B, Tk] (> 0 = a real key, indexed by batch, not by
+// head), or null for every key real; o [B, N, Tq, D]. The forward
+// computes, per row i of q,
 //
 //   s_ij = (q_i . k_j) * scale, replaced by -1e9 where mask_j <= 0 or,
 //          with causal, where j > i + (Tk - Tq)
@@ -19,7 +20,7 @@
 //          l_i = sum_j exp(s_ij - m_i)
 //
 // by the online softmax of blockwise_attention (running m and l, the
-// accumulator rescaled by exp(m_old - m_new) at each kv block), and writes
+// accumulator rescaled by exp(m_old - m_new) at each kv tile), and writes
 // stats [2, B*N, Tq]: stats[0] = m, stats[1] = log l. Together they are
 // the row log-sum-exp m + log l; they are kept apart because a row whose
 // every key is masked has m = -1e9, where m + log l rounds to -1e9 in f32
@@ -35,354 +36,566 @@
 //             (jnp.where gives a replaced score no gradient)
 //   dQ_i    = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i
 //
-// flash_bwd_dq runs first: one block per (b*n, query block) computes
-// delta for its rows (and writes it), then loops over the kv blocks and
-// accumulates dQ. flash_bwd_dkdv follows: one block per (b*n, kv block)
-// loops over the query blocks and accumulates dK and dV. Every output
-// element is summed by one thread in a fixed order: no float atomics, so
-// two runs give the same bits.
+// flash_bwd_dq runs first: one block per (b*n, query block) computes delta
+// for its rows (and writes it), then sweeps the kv tiles and accumulates
+// dQ. flash_bwd_dkdv follows: one block per (b*n, kv block) sweeps the
+// query tiles and accumulates dK and dV. Every output element is summed
+// by one thread in a fixed order: no float atomics, so two runs give the
+// same bits.
 //
-// Design. Tiles of 64 query rows by 64 keys, 256 threads as 16 x 16; a
-// thread owns the 4 x 4 scores (ty + 16 i, tx + 16 j) and, of a [64, D]
-// accumulator, rows ty + 16 i and columns tx + 16 c. The q, k, v, dO tiles
-// sit in shared memory with an odd row stride (D + 1), so the 16 threads
-// of a row group reading 16 rows at one column hit 16 banks; the P and dS
-// tiles likewise ([64, 65]). A score row's max and sum are xor shuffles
-// over the 16 lanes of its row group (every lane gets the same bits). The
-// products are f32 FMA, not TF32 tensor cores (TF32 keeps 10 mantissa
-// bits and would break the 1e-4 parity with the f32 plain version).
+// What bounds it on the H100 (SXM, 700 W), and the design. The forward
+// does 4 D operations per visible (query, key) pair (two products), the
+// backward 10 D (five). At the seq2seq path's [50, 4, 50, 50, 128] the
+// bytes bound both (the forward moves 20.5 MB); at T = 4096 the products
+// do: 68.7 GFLOP forward, 1.03 ms at the f32 rate outside the tensor
+// cores. So every product runs on the tensor cores, in split TF32 (the
+// arithmetic of SDPA's own f32 kernel, CUTLASS's OpMultiplyAddFastF32):
+// each f32 operand x is split into big = TF32(x) and small = TF32(x -
+// big), both rounded to nearest with ties away (the bits of
+// cvt.rna.tf32.f32, made by an integer add and a mask: with cvt the
+// forward took 2.46 ms at T = 4096 on the H100, with the mask 2.17),
+// and each mma.sync m16n8k8 tile product sums small.big' + big.small' +
+// big.big' (the small.small' term, 2^-22 of the product, is dropped).
+// Three passes at 494.7 TFLOP/s dense TF32 bound the forward at T = 4096
+// by 0.417 ms.
+//
+// - The tensor cores round their sums toward zero, so a long sum kept in
+//   one accumulator drifts by an ulp of its size at each mma (9e-6 on o at
+//   T = 4096 on the H100, near the 1e-5 tolerance) and is one chain of
+//   dependent mma. Every 4 k steps of the forward's score product (8 in
+//   the backward), and each tile of the products summed across tiles (o,
+//   dq, dk, dv), go to a fresh accumulator that is added in f32, as SDPA's
+//   tf32x3 kernels stage theirs.
+// - A block owns 64 rows (query rows in the forward and dq, keys in dkdv)
+//   over 4 warps of 16 (FA2's split). The block's own rows stay in shared
+//   memory for the whole sweep: q (forward), q and dO (dq), k and v
+//   (dkdv); a warp reads its A fragments from there and splits them at
+//   each use.
+// - The streamed operand (k, v and the mask by kv tiles; q, dO and the
+//   rows' m, log l, delta by query tiles in dkdv) comes by 16-byte
+//   cp.async, zero-filled past the end, into a two-stage ring: tile t + 1
+//   lands while tile t is computed. Rows have a stride of D + 4 floats:
+//   16-byte aligned, and the fragment loads of every product hit 32
+//   distinct banks.
+// - The score tile's accumulator fragment is not the A fragment of the
+//   next product (tf32 m16n8k8 holds columns 2t, 2t + 1 where A wants t,
+//   t + 4), so that product takes its k index in the order (0, 2, 4, 6,
+//   1, 3, 5, 7): the accumulator then is the A fragment, and the B rows
+//   (v, k, dO or q) are read in the same order. No shuffle or staging.
+// - A row's max and sum reduce over the 4 lanes that hold it (two xor
+//   shuffles; every lane gets the same bits).
+// - dkdv computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, so
+//   that P^T and dS^T are again A fragments for dV += P^T dO and dK +=
+//   dS^T Q.
+//
+// Tiles and shared memory (one formula, flash_smem below and flash_plan in
+// ops/attention.py, held equal by a card test). Stages: the forward's kv
+// tiles are 64 keys (32 at D = 128), dq's 64 (16 at D = 128), dkdv's
+// query tiles 32 rows (16 at D = 128). At D = 128 the forward takes q
+// (64 x 132 floats) and 2 stages of k, v (32 x 132) and the mask, 101,632
+// bytes; dq 101,760 (q, dO; stages of 16 keys); dkdv 101,776 (k, v;
+// stages of 16 queries and their m, log l, delta): at most 113 KB, so two
+// 4-warp blocks fit an SM (8 warps), and with 128-255 registers a thread
+// the register file takes no more. What holds them back at T = 4096:
+// every warp splits its own copy of each shared tile's fragments (5
+// integer or f32 instructions an element, more than the mma that use
+// it), and 2 warps a scheduler hide little of the latency of the lds ->
+// split -> mma chain; wgmma reading tiles split once into shared memory
+// is the next step.
+//
 // Key positions at or past Tk (a tile's tail) are left out of the softmax
-// (never treated as masked). With causal, a query block skips the kv
-// blocks that lie wholly above the diagonal of its last row (it always
-// visits the block that holds that diagonal, and at least one); the
-// backward skips the same pairs.
+// (-inf, never treated as masked). With causal, a query block sweeps the
+// kv tiles up to the one holding its last row's diagonal (at least one),
+// heaviest blocks first, and a warp skips the products of a tile wholly
+// above its own rows' diagonals; dkdv visits the same pairs from the key
+// side.
 //
 // Rows that see no key (every score masked: an all-padding kv row, or with
-// causal and Tq > Tk the first Tq - Tk rows) follow a rule of their own.
-// JAX pads Tk to Tk_pad, a multiple of min(256, Tk), with masked zero keys
-// and visits every block, so on such a row every score is the -1e9 fill
-// and it gets o = sum_{j<Tk} v_j / Tk_pad, m = -1e9, l = Tk_pad. Here a row
-// sees no key iff its running max stays -1e9 (a visible score is above
-// the fill). Rows that see a key keep the skips above. The forward divides
-// such a row's sum by Tk_pad and saves (-1e9, log Tk_pad); a query block
-// that holds one adds the kv blocks its causal skip left out, with P = 1
-// on those rows and 0 on the others. The backward needs nothing new for
-// dq (dS is 0 on every masked score) or dk; dv_j takes P_ij dO_i =
-// dO_i / Tk_pad from each such row: flash_bwd_dkdv visits a skipped
-// (query block, kv block) pair when the query block holds such a row, and
-// there P = exp((-1e9 - m) - log l) is 1 / Tk_pad on those rows and 0 on
-// the others.
-//
-// Shared memory per block at D = 128: forward 3 tiles + P = 116 KB, dq 4
-// tiles + dS = 150 KB, dkdv 4 tiles + P + dS = 166 KB, above the default
-// 48 KB: each launcher raises cudaFuncAttributeMaxDynamicSharedMemorySize.
-//
-// Bound on the H100 (SXM, 700 W): the forward does 4 D operations per
-// visible (query, key) pair (two products), the backward 10 D (five); at
-// the seq2seq path's [50, 4, 50, 128] the forward moves 20.5 MB for at
-// most 0.2 GFLOP, so it is bound by bytes (~6 us); at T = 4096 by
-// operations (68.7 GFLOP, ~1 ms at the f32 rate). This simple kernel
-// makes one shared-memory load per two FMAs in its inner loops (an SM
-// serves one warp-wide load per clock against four FMA instructions), and
-// its 116-166 KB of shared memory leave one 256-thread block per SM, so it
-// stays well short of the operations bound; register tiles fed by vector
-// loads, wgmma, TMA and lower precision are later work.
+// causal and Tq > Tk the first Tq - Tk rows) follow JAX's rule. JAX pads
+// Tk to Tk_pad, a multiple of min(256, Tk), with masked zero keys and
+// visits every block, so such a row's scores are all the -1e9 fill and it
+// gets o = sum_{j<Tk} v_j / Tk_pad, m = -1e9, l = Tk_pad. Here a row sees
+// no key iff its running max stays -1e9 (a visible score is above the
+// fill): after the sweep, a block that holds such a row sums v over every
+// kv tile for those rows alone (P = 1 on them, 0 on the others) and saves
+// (-1e9, log Tk_pad). dq needs nothing new (dS is 0 on every masked
+// score); dv_j takes P_ij dO_i = dO_i / Tk_pad from each such row, so
+// dkdv also visits the query tiles that hold one: with causal those rows
+// are a prefix of the head, the first (first real key) - (Tk - Tq) rows
+// (the first real key from the mask).
 //
 // Limits: D in {8, 16, 32, 64, 128} (template instances; the wrapper pads
-// any other D <= 128 with zero columns up to the next instance and refuses
-// D > 128), B * N <= 65535 (the grid's y).
+// any other D <= 128 with zero columns up to the next instance and
+// refuses D > 128); B * N on the grid's x (up to 2^31 - 1), the query (or
+// kv) blocks on its y (up to 65535 x 64 rows).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace {
 
-constexpr int kBlock = 64;              // query rows and keys per tile
-constexpr int kSub = 16;                // threads per row group
-constexpr int kThreads = kSub * kSub;   // 256
-constexpr int kPer = kBlock / kSub;     // rows (and keys) per thread: 4
-constexpr int kLdP = kBlock + 1;        // row stride of the P and dS tiles
-constexpr float kNeg = -1e9f;           // JAX's _NEG
-constexpr int kJaxBlockK = 256;         // JAX flash_attention's block_k
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;  // 128
+constexpr int kRows = 16 * kWarps;     // rows (or keys) a block owns: 64
+constexpr float kNeg = -1e9f;          // JAX's _NEG
+constexpr int kJaxBlockK = 256;        // JAX flash_attention's block_k
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
+// k steps (of 8) a fresh accumulator of the score products sums: longer
+// runs fewer adds and chains the mma better but drifts further; the
+// forward's o is held to 1e-5, the backward's gradients only to 1e-4 of
+// their largest entry
+constexpr int kFwdSteps = 4;
+constexpr int kBwdSteps = 8;
 
-__host__ __device__ __forceinline__ int num_blocks(int t) {
-  return (t + kBlock - 1) / kBlock;
+// keys a kv tile of the forward and of dq, queries a query tile of dkdv
+__host__ __device__ constexpr int kv_cols(int D) { return D == 128 ? 32 : 64; }
+__host__ __device__ constexpr int dq_cols(int D) { return D == 128 ? 16 : 64; }
+__host__ __device__ constexpr int q_cols(int D) { return D == 128 ? 16 : 32; }
+// row stride of every tile in shared memory, floats
+__host__ __device__ constexpr int row_ld(int D) { return D + 4; }
+// floats of one ring stage: k, v, mask of `cols` keys (forward, dq); q,
+// dO, m, log l, delta (dkdv)
+__host__ __device__ constexpr int kv_stage(int D, int cols) {
+  return 2 * cols * row_ld(D) + cols;
+}
+__host__ __device__ constexpr int q_stage(int D) {
+  return 2 * q_cols(D) * row_ld(D) + 3 * q_cols(D);
+}
+// dynamic shared memory of each kernel, bytes
+__host__ __device__ constexpr size_t fwd_smem(int D) {
+  return sizeof(float) * (kRows * row_ld(D) + 2 * kv_stage(D, kv_cols(D)));
+}
+__host__ __device__ constexpr size_t dq_smem(int D) {
+  return sizeof(float) *
+         (2 * kRows * row_ld(D) + 2 * kv_stage(D, dq_cols(D)) + kRows);
+}
+__host__ __device__ constexpr size_t dkdv_smem(int D) {
+  return sizeof(float) * (2 * kRows * row_ld(D) + 2 * q_stage(D)) +
+         sizeof(int) * kWarps;
 }
 
-// The kv blocks query block qb visits: all of them, or with causal those
-// up to the one holding its last real row's diagonal (at least one).
+// ------------------------------------------------------------- copies
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src into shared dst, or 16 zero bytes where !valid
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + R) of a [rows, D] matrix into dst (row stride D + 4),
+// zeros past its last row; every thread of the block takes part
+template <int D, int R>
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int rows) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 4;
+    const int row = row0 + r;
+    const bool valid = row < rows;
+    cp16(dst + r * row_ld(D) + c,
+         src + (valid ? static_cast<size_t>(row) * D + c : 0), valid);
+  }
+}
+
+// src[at + i] for i < n into dst, 0 at and past `end`
+__device__ __forceinline__ void copy_vec(float* dst,
+                                         const float* __restrict__ src,
+                                         int at, int n, int end) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool valid = at + i < end;
+    cp4(dst + i, src + (valid ? at + i : 0), valid);
+  }
+}
+
+// the mask of keys [k0, k0 + n) into dst: a null mask is every key real
+__device__ __forceinline__ void copy_mask(float* dst,
+                                          const float* __restrict__ mrow,
+                                          int k0, int n, int Tk) {
+  if (mrow != nullptr) {
+    copy_vec(dst, mrow, k0, n, Tk);
+    return;
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    dst[i] = k0 + i < Tk ? 1.f : 0.f;
+}
+
+// ------------------------------------------------- split-TF32 products
+struct FragA {  // a 16 x 8 A operand, split
+  unsigned big[4], small[4];
+};
+struct FragB {  // an 8 x 8 B operand, split
+  unsigned big[2], small[2];
+};
+
+// x rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for a finite x, by an integer add and a mask (the
+// integer pipe takes them at a higher rate than the conversion unit)
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, each rounded to TF32
+__device__ __forceinline__ void split(float x, unsigned& big,
+                                      unsigned& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in split TF32: the small terms first, then big . big
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// Fragments of lane (g = lane / 4, t = lane % 4). An accumulator c of a
+// 16 x 8 tile holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// A = rows [r0, r0 + 16) x columns [k0, k0 + 8) of a tile (row stride ld)
+__device__ __forceinline__ void load_a(FragA& f, const float* s, int ld,
+                                       int r0, int k0, int g, int t) {
+  const float* p = s + (r0 + g) * ld + k0 + t;
+  split(p[0], f.big[0], f.small[0]);
+  split(p[8 * ld], f.big[1], f.small[1]);
+  split(p[4], f.big[2], f.small[2]);
+  split(p[8 * ld + 4], f.big[3], f.small[3]);
+}
+
+// B[k][n] = s[n0 + n][k0 + k]: rows of a tile as the columns of B (the
+// k^T of q k^T)
+__device__ __forceinline__ void load_bt(FragB& f, const float* s, int ld,
+                                        int n0, int k0, int g, int t) {
+  const float* p = s + (n0 + g) * ld + k0 + t;
+  split(p[0], f.big[0], f.small[0]);
+  split(p[4], f.big[1], f.small[1]);
+}
+
+// B[k][n] = s[k0 + perm(k)][n0 + n], perm = (0, 2, 4, 6, 1, 3, 5, 7): the
+// rows in the k order of an accumulator taken as A (acc_to_a)
+__device__ __forceinline__ void load_b_perm(FragB& f, const float* s,
+                                            int ld, int k0, int n0, int g,
+                                            int t) {
+  const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+  split(p[0], f.big[0], f.small[0]);
+  split(p[ld], f.big[1], f.small[1]);
+}
+
+// The accumulator c of a 16 x 8 tile as the A fragment of a product over
+// its 8 columns, taken in the order perm: A[m][k] = C[m][perm(k)]
+__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
+  split(c[0], f.big[0], f.small[0]);
+  split(c[2], f.big[1], f.small[1]);
+  split(c[1], f.big[2], f.small[2]);
+  split(c[3], f.big[3], f.small[3]);
+}
+
+// c[j] (16 rows x kNt tiles of 8) += A B^T over D, A rows [r0, r0 + 16)
+// of tile as, B^T the first kNt * 8 rows of tile bs. The tensor cores
+// round their sums toward zero: a long sum kept in one accumulator drifts
+// by an ulp of its size at each mma. So every kSteps k steps (at most)
+// go to a fresh accumulator, added to c in f32.
+template <int D, int kNt, int kSteps>
+__device__ __forceinline__ void product_smem(float (&c)[kNt][4],
+                                             const float* as, int r0,
+                                             const float* bs, int g, int t) {
+  constexpr int kStep = D / 8 < kSteps ? D / 8 : kSteps;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; kk += kStep) {
+    FragA fa[kStep];
+#pragma unroll
+    for (int h = 0; h < kStep; ++h)
+      load_a(fa[h], as, row_ld(D), r0, 8 * (kk + h), g, t);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < kStep; ++h) {
+        FragB fb;
+        load_bt(fb, bs, row_ld(D), 8 * j, 8 * (kk + h), g, t);
+        mma3(u, fa[h], fb);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][i] += u[i];
+    }
+  }
+}
+
+// acc (16 rows x D) += p (16 x kNt * 8, accumulators) times the rows of
+// tile xs in the same order; the tile's sum in a fresh accumulator for
+// each 8 columns of acc
+template <int D, int kNt>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&p)[kNt][4],
+                                           const float* xs, int g, int t) {
+  FragA fa[kNt];
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) acc_to_a(fa[j], p[j]);
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    float u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      FragB fb;
+      load_b_perm(fb, xs, row_ld(D), 8 * j, 8 * dn, g, t);
+      mma3(u, fa[j], fb);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dn][i] += u[i];
+  }
+}
+
+template <int N, int M>
+__device__ __forceinline__ void zero(float (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) x[i][j] = 0.f;
+}
+
+// rows [r0 + g, r0 + g + 8] of a [rows, D] output from acc * mul_a, mul_b
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[D / 8][4],
+                                           float mul_a, float mul_b, int r0,
+                                           int rows, int g, int t) {
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (ra < rows)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(ra) * D + c) =
+          make_float2(acc[dn][0] * mul_a, acc[dn][1] * mul_a);
+    if (rb < rows)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(rb) * D + c) =
+          make_float2(acc[dn][2] * mul_b, acc[dn][3] * mul_b);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
 // Tk rounded up to a multiple of JAX's kv block min(256, Tk): the l of a
-// row that sees no key.
+// row that sees no key
 __device__ __forceinline__ float padded_keys(int Tk) {
   const int bk = Tk < kJaxBlockK ? Tk : kJaxBlockK;
   return static_cast<float>((Tk + bk - 1) / bk * bk);
 }
 
-__device__ __forceinline__ int kv_blocks(int qb, int nk, int Tq, int off,
-                                         int causal) {
+// The kv tiles of kC keys query block q0 sweeps: all of them, or with
+// causal those up to the one holding its last row's diagonal (at least
+// one).
+__device__ __forceinline__ int kv_tiles(int q0, int kC, int Tq, int Tk,
+                                        int causal) {
+  const int nk = (Tk + kC - 1) / kC;
   if (!causal) return nk;
-  const int end = qb * kBlock + kBlock;
-  const int diag = (end < Tq ? end : Tq) - 1 + off;
-  const int n = diag < 0 ? 1 : diag / kBlock + 1;
+  const int end = q0 + kRows < Tq ? q0 + kRows : Tq;
+  const int diag = end - 1 + (Tk - Tq);
+  const int n = diag < 0 ? 1 : diag / kC + 1;
   return n < nk ? n : nk;
 }
 
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = kSub / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kSub / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// dst[r, c] (row stride D + 1) = src[row0 + r, c] of a [rows, D] matrix, 0
-// past its last row. Every thread of the block takes part.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int rows) {
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + c] =
-        row < rows ? src[static_cast<size_t>(row) * D + c] : 0.f;
-  }
-}
-
-// s[i][j] = a[ty + 16 i, :] . b[tx + 16 j, :] over D, in order of d.
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[kPer][kPer],
-                                         const float* a, const float* b,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[kPer], bv[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) av[i] = a[(ty + kSub * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) bv[j] = b[(tx + kSub * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][c] += sum_r w(i, r) * x[r, tx + 16 c] over the 64 rows r of x
-// (row stride D + 1), where w(i, r) is w[ty + 16 i, r] of a [64, 65] tile,
-// or w[r, ty + 16 i] with kTransposed.
-template <int D, bool kTransposed>
-__device__ __forceinline__ void tile_accumulate(
-    float (&acc)[kPer][(D + kSub - 1) / kSub], const float* w,
-    const float* x, int ty, int tx) {
-  constexpr int kCols = (D + kSub - 1) / kSub;
-#pragma unroll 4
-  for (int r = 0; r < kBlock; ++r) {
-    float wv[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      wv[i] = kTransposed ? w[r * kLdP + ty + kSub * i]
-                          : w[(ty + kSub * i) * kLdP + r];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + kSub * c;
-      if (col < D) {
-        const float xv = x[r * (D + 1) + col];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[i][c] = fmaf(wv[i], xv, acc[i][c]);
-      }
-    }
-  }
-}
-
-// Writes rows [row0, row0 + 64) of a [rows, D] output from acc * mul.
-template <int D>
-__device__ __forceinline__ void store_rows(
-    float* __restrict__ dst, float (&acc)[kPer][(D + kSub - 1) / kSub],
-    float mul, int row0, int rows, int ty, int tx) {
-  constexpr int kCols = (D + kSub - 1) / kSub;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = row0 + ty + kSub * i;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + kSub * c;
-      if (col < D) dst[static_cast<size_t>(row) * D + col] = acc[i][c] * mul;
-    }
-  }
-}
-
+// ------------------------------------------------------------ forward
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
                  float* __restrict__ o, float* __restrict__ stats, int BN,
                  int N, int Tq, int Tk, int causal, float scale) {
-  constexpr int kCols = (D + kSub - 1) / kSub;
-  extern __shared__ float smem[];
-  float* q_s = smem;                          // [64, D + 1]
-  float* k_s = q_s + kBlock * (D + 1);        // [64, D + 1]
-  float* v_s = k_s + kBlock * (D + 1);        // [64, D + 1]
-  float* p_s = v_s + kBlock * (D + 1);        // [64, 65]
-  float* m_s = p_s + kBlock * kLdP;           // [64] this kv block's mask
-  const int qb = blockIdx.x, bn = blockIdx.y, b = bn / N;
-  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
-  const int q0 = qb * kBlock, off = Tk - Tq;
-  const float* kb_base = k + static_cast<size_t>(bn) * Tk * D;
-  const float* vb_base = v + static_cast<size_t>(bn) * Tk * D;
-  load_tile<D>(q_s, q + static_cast<size_t>(bn) * Tq * D, q0, Tq);
-  float m[kPer], l[kPer], acc[kPer][kCols];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-  const int nkb = kv_blocks(qb, num_blocks(Tk), Tq, off, causal);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kBlock;
-    __syncthreads();  // the previous block's reads of k_s, v_s, p_s are done
-    load_tile<D>(k_s, kb_base, k0, Tk);
-    load_tile<D>(v_s, vb_base, k0, Tk);
-    if (threadIdx.x < kBlock) {
-      const int kj = k0 + threadIdx.x;
-      m_s[threadIdx.x] = kj < Tk ? mask[static_cast<size_t>(b) * Tk + kj] : 0.f;
-    }
+  constexpr int kC = kv_cols(D), kLd = row_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                  // [64, D + 4] this block's q
+  float* ring = q_s + kRows * kLd;    // 2 stages of k, v, mask
+  const int bn = blockIdx.x, b = bn / N;
+  // with causal the last query blocks sweep the most tiles: first
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  const int nk = (Tk + kC - 1) / kC;
+  const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
+
+  auto load_stage = [&](int kt) {
+    float* st = ring + (kt & 1) * kv_stage(D, kC);
+    copy_tile<D, kC>(st, kbase, kt * kC, Tk);
+    copy_tile<D, kC>(st + kC * kLd, vbase, kt * kC, Tk);
+    copy_mask(st + 2 * kC * kLd, mrow, kt * kC, kC, Tk);
+  };
+
+  copy_tile<D, kRows>(q_s, q + static_cast<size_t>(bn) * Tq * D, q0, Tq);
+  load_stage(0);
+  cp_commit();
+  float acc[kDt][4];
+  zero(acc);
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) load_stage(kt + 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    float s[kPer][kPer];
-    tile_dot<D>(s, q_s, k_s, ty, tx);
+    const float* ks = ring + (kt & 1) * kv_stage(D, kC);
+    const float* vs = ks + kC * kLd;
+    const float* ms = vs + kC * kLd;
+    const int k0 = kt * kC;
+    // warp-uniform: rows past Tq, or every key of the tile above the
+    // diagonals of this warp's rows
+    if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
+      float s[kNt][4];
+      zero(s);
+      product_smem<D, kNt, kFwdSteps>(s, q_s, warp * 16, ks, g, t);
+      float mx_a = kNeg, mx_b = kNeg;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int diag = q0 + ty + kSub * i + off;
-      float row_max = kNeg;
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int c = tx + kSub * j, kj = k0 + c;
-        float x;
-        if (kj >= Tk) {
-          x = -INFINITY;  // the tile's tail: left out
-        } else {
-          x = s[i][j] * scale;
-          if (!(m_s[c] > 0.f) || (causal && kj > diag)) x = kNeg;
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), kj = k0 + col;
+          const int row = e < 2 ? ra : rb;
+          float x;
+          if (kj >= Tk) {
+            x = -INFINITY;  // the tile's tail: left out
+          } else {
+            x = s[j][e] * scale;
+            if (!(ms[col] > 0.f) || (causal && kj > row + off)) x = kNeg;
+          }
+          s[j][e] = x;
+          if (e < 2)
+            mx_a = fmaxf(mx_a, x);
+          else
+            mx_b = fmaxf(mx_b, x);
         }
-        s[i][j] = x;
-        row_max = fmaxf(row_max, x);
-      }
-      const float m_new = fmaxf(m[i], group_max(row_max));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+      float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        p_s[(ty + kSub * i) * kLdP + tx + kSub * j] = p;
-        sum += p;
+      for (int j = 0; j < kNt; ++j) {
+        s[j][0] = expf(s[j][0] - mn_a);
+        s[j][1] = expf(s[j][1] - mn_a);
+        s[j][2] = expf(s[j][2] - mn_b);
+        s[j][3] = expf(s[j][3] - mn_b);
+        sum_a += s[j][0] + s[j][1];
+        sum_b += s[j][2] + s[j][3];
       }
-      l[i] = l[i] * alpha + group_sum(sum);
-      m[i] = m_new;
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      for (int dn = 0; dn < kDt; ++dn) {
+        acc[dn][0] *= al_a;
+        acc[dn][1] *= al_a;
+        acc[dn][2] *= al_b;
+        acc[dn][3] *= al_b;
+      }
+      accumulate<D, kNt>(acc, s, vs, g, t);
     }
-    __syncthreads();
-    tile_accumulate<D, false>(acc, p_s, v_s, ty, tx);
+    __syncthreads();  // the tile's reads are done before it is refilled
   }
-  // rows that see no key: acc holds the sum of v over the visited keys
-  bool nokey[kPer];
-  int any = 0;
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  // rows that see no key: the sum of v over every key, for them alone
+  const bool nk_a = ra < Tq && m_a == kNeg, nk_b = rb < Tq && m_b == kNeg;
+  if (__syncthreads_or(nk_a || nk_b)) {
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    nokey[i] = q0 + ty + kSub * i < Tq && m[i] == kNeg;
-    any |= nokey[i];
-  }
-  if (__syncthreads_or(any)) {
-    // the kv blocks the causal skip left out, for those rows alone
-    for (int kb = nkb; kb < num_blocks(Tk); ++kb) {
-      const int k0 = kb * kBlock;
+    for (int dn = 0; dn < kDt; ++dn) {
+      if (nk_a) acc[dn][0] = acc[dn][1] = 0.f;
+      if (nk_b) acc[dn][2] = acc[dn][3] = 0.f;
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * kC;
+      copy_tile<D, kC>(ring, vbase, k0, Tk);
+      cp_commit();
+      cp_wait<0>();
       __syncthreads();
-      load_tile<D>(v_s, vb_base, k0, Tk);
+      float p[kNt][4];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i)
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          p_s[(ty + kSub * i) * kLdP + tx + kSub * j] =
-              nokey[i] && k0 + tx + kSub * j < Tk ? 1.f : 0.f;
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = (e < 2 ? nk_a : nk_b) && k0 + 8 * j + 2 * t + (e & 1) < Tk
+                        ? 1.f
+                        : 0.f;
+      accumulate<D, kNt>(acc, p, ring, g, t);
       __syncthreads();
-      tile_accumulate<D, false>(acc, p_s, v_s, ty, tx);
     }
   }
   const float tk_pad = padded_keys(Tk);
+  const float li_a = nk_a ? tk_pad : l_a, li_b = nk_b ? tk_pad : l_b;
   // o = acc / l, as blockwise_attention divides
+  float* obase = o + static_cast<size_t>(bn) * Tq * D;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = q0 + ty + kSub * i;
-    if (row >= Tq) continue;
-    const float li = nokey[i] ? tk_pad : l[i];
-    float* orow = o + (static_cast<size_t>(bn) * Tq + row) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + kSub * c;
-      if (col < D) orow[col] = acc[i][c] / li;
-    }
-    if (tx == 0) {
-      stats[static_cast<size_t>(bn) * Tq + row] = m[i];
-      stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(li);
-    }
+  for (int dn = 0; dn < kDt; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (ra < Tq)
+      *reinterpret_cast<float2*>(obase + static_cast<size_t>(ra) * D + c) =
+          make_float2(acc[dn][0] / li_a, acc[dn][1] / li_a);
+    if (rb < Tq)
+      *reinterpret_cast<float2*>(obase + static_cast<size_t>(rb) * D + c) =
+          make_float2(acc[dn][2] / li_b, acc[dn][3] / li_b);
   }
-}
-
-// P_ij and dS_ij of one tile, from the scores s (unscaled), dp = dO_i . v_j
-// and the rows' m, log l, delta; replaced scores get P from -1e9 and dS 0;
-// rows at or past Tq and keys at or past Tk get 0.
-__device__ __forceinline__ void probs_and_dscores(
-    float (&s)[kPer][kPer], float (&dp)[kPer][kPer], const float* m_s,
-    const float* ll_s, const float* delta_s, const float* mask_s, int q0,
-    int k0, int Tq, int Tk, int off, int causal, float scale, int ty,
-    int tx) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = ty + kSub * i, row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int c = tx + kSub * j, kj = k0 + c;
-      float p = 0.f, ds = 0.f;
-      if (row < Tq && kj < Tk) {
-        const bool live = mask_s[c] > 0.f && !(causal && kj > row + off);
-        p = expf(((live ? s[i][j] * scale : kNeg) - m_s[r]) - ll_s[r]);
-        if (live) ds = p * (dp[i][j] - delta_s[r]);
-      }
-      s[i][j] = p;
-      dp[i][j] = ds;
+  if (t == 0) {
+    const size_t at = static_cast<size_t>(bn) * Tq;
+    const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+    if (ra < Tq) {
+      stats[at + ra] = m_a;
+      stats[at_l + ra] = logf(li_a);
+    }
+    if (rb < Tq) {
+      stats[at + rb] = m_b;
+      stats[at_l + rb] = logf(li_b);
     }
   }
 }
 
-// The rows' m, log l and delta of query block q0 into shared memory (0 past
-// Tq); threads 0..63.
-__device__ __forceinline__ void load_row_stats(
-    float* m_s, float* ll_s, float* delta_s, const float* __restrict__ stats,
-    const float* __restrict__ delta, int BN, int bn, int q0, int Tq) {
-  if (threadIdx.x < kBlock) {
-    const int row = q0 + threadIdx.x;
-    const bool in = row < Tq;
-    const size_t at = static_cast<size_t>(bn) * Tq + row;
-    m_s[threadIdx.x] = in ? stats[at] : 0.f;
-    ll_s[threadIdx.x] = in ? stats[static_cast<size_t>(BN) * Tq + at] : 0.f;
-    if (delta != nullptr) delta_s[threadIdx.x] = in ? delta[at] : 0.f;
-  }
-}
-
+// ------------------------------------------------------------ backward
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -393,73 +606,132 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ stats,
                     float* __restrict__ delta, float* __restrict__ dq,
                     int BN, int N, int Tq, int Tk, int causal, float scale) {
-  constexpr int kCols = (D + kSub - 1) / kSub;
-  extern __shared__ float smem[];
-  float* q_s = smem;                          // [64, D + 1]
-  float* do_s = q_s + kBlock * (D + 1);       // [64, D + 1]
-  float* k_s = do_s + kBlock * (D + 1);       // [64, D + 1]
-  float* v_s = k_s + kBlock * (D + 1);        // [64, D + 1]
-  float* ds_s = v_s + kBlock * (D + 1);       // [64, 65]
-  float* mask_s = ds_s + kBlock * kLdP;       // [64]
-  float* m_s = mask_s + kBlock;               // [64]
-  float* ll_s = m_s + kBlock;                 // [64]
-  float* delta_s = ll_s + kBlock;             // [64]
-  const int qb = blockIdx.x, bn = blockIdx.y, b = bn / N;
-  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
-  const int q0 = qb * kBlock, off = Tk - Tq;
+  constexpr int kC = dq_cols(D), kLd = row_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                        // [64, D + 4] this block's q
+  float* do_s = q_s + kRows * kLd;          // [64, D + 4] and its dO
+  float* ring = do_s + kRows * kLd;         // 2 stages of k, v, mask
+  float* dl_s = ring + 2 * kv_stage(D, kC); // [64] this block's delta
+  const int bn = blockIdx.x, b = bn / N;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
+  const int ra = r0 + g, rb = ra + 8;
   const size_t q_at = static_cast<size_t>(bn) * Tq * D;
-  const float* kb_base = k + static_cast<size_t>(bn) * Tk * D;
-  const float* vb_base = v + static_cast<size_t>(bn) * Tk * D;
-  load_tile<D>(q_s, q + q_at, q0, Tq);
-  load_tile<D>(do_s, dout + q_at, q0, Tq);
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
+
+  auto load_stage = [&](int kt) {
+    float* st = ring + (kt & 1) * kv_stage(D, kC);
+    copy_tile<D, kC>(st, kbase, kt * kC, Tk);
+    copy_tile<D, kC>(st + kC * kLd, vbase, kt * kC, Tk);
+    copy_mask(st + 2 * kC * kLd, mrow, kt * kC, kC, Tk);
+  };
+
+  copy_tile<D, kRows>(q_s, q + q_at, q0, Tq);
+  copy_tile<D, kRows>(do_s, dout + q_at, q0, Tq);
+  load_stage(0);
+  cp_commit();
   {
-    // delta = rowsum(dO o): four threads per row, then two shuffles
-    const int r = threadIdx.x / 4, part = threadIdx.x % 4, row = q0 + r;
-    float sum = 0.f;
-    if (row < Tq) {
-      const float* orow = o + q_at + static_cast<size_t>(row) * D;
-      const float* drow = dout + q_at + static_cast<size_t>(row) * D;
-      for (int d = part; d < D; d += 4) sum = fmaf(drow[d], orow[d], sum);
+    // delta = rowsum(dO o) of this warp's 16 rows: 16-byte loads, a row
+    // over kLpr lanes, then xor shuffles within them
+    constexpr int kLpr = D / 4 < 32 ? D / 4 : 32, kRpp = 32 / kLpr;
+#pragma unroll
+    for (int pass = 0; pass < 16 / kRpp; ++pass) {
+      const int r = pass * kRpp + lane / kLpr, row = r0 + r;
+      float sum = 0.f;
+      if (row < Tq) {
+        const float4* orow = reinterpret_cast<const float4*>(
+            o + q_at + static_cast<size_t>(row) * D);
+        const float4* drow = reinterpret_cast<const float4*>(
+            dout + q_at + static_cast<size_t>(row) * D);
+        for (int c = lane % kLpr; c < D / 4; c += kLpr) {
+          const float4 x = orow[c], y = drow[c];
+          sum = fmaf(y.x, x.x, sum);
+          sum = fmaf(y.y, x.y, sum);
+          sum = fmaf(y.z, x.z, sum);
+          sum = fmaf(y.w, x.w, sum);
+        }
+      }
+#pragma unroll
+      for (int s = kLpr / 2; s > 0; s >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, s);
+      if (lane % kLpr == 0) {
+        dl_s[warp * 16 + r] = sum;
+        if (row < Tq) delta[static_cast<size_t>(bn) * Tq + row] = sum;
+      }
     }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    sum += __shfl_xor_sync(kFull, sum, 2);
-    if (part == 0) {
-      delta_s[r] = sum;
-      if (row < Tq) delta[static_cast<size_t>(bn) * Tq + row] = sum;
+    __syncwarp();
+  }
+  const float dl_a = dl_s[warp * 16 + g], dl_b = dl_s[warp * 16 + g + 8];
+  const size_t at = static_cast<size_t>(bn) * Tq;
+  const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+  const float m_a = ra < Tq ? stats[at + ra] : 0.f;
+  const float m_b = rb < Tq ? stats[at + rb] : 0.f;
+  const float ll_a = ra < Tq ? stats[at_l + ra] : 0.f;
+  const float ll_b = rb < Tq ? stats[at_l + rb] : 0.f;
+  float acc[kDt][4];
+  zero(acc);
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) load_stage(kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* ks = ring + (kt & 1) * kv_stage(D, kC);
+    const float* vs = ks + kC * kLd;
+    const float* ms = vs + kC * kLd;
+    const int k0 = kt * kC;
+    if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
+      float s[kNt][4], dp[kNt][4];
+      zero(s);
+      zero(dp);
+      product_smem<D, kNt, kBwdSteps>(s, q_s, warp * 16, ks, g, t);
+      product_smem<D, kNt, kBwdSteps>(dp, do_s, warp * 16, vs, g, t);
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), kj = k0 + col;
+          const int row = e < 2 ? ra : rb;
+          const bool live = kj < Tk && row < Tq && ms[col] > 0.f &&
+                            !(causal && kj > row + off);
+          s[j][e] = live ? expf((s[j][e] * scale - (e < 2 ? m_a : m_b)) -
+                                (e < 2 ? ll_a : ll_b)) *
+                               (dp[j][e] - (e < 2 ? dl_a : dl_b))
+                         : 0.f;
+        }
+      accumulate<D, kNt>(acc, s, ks, g, t);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(dq + q_at, acc, scale, scale, r0, Tq, g, t);
+}
+
+// The first key of a mask row with mask > 0 (Tk if none; 0 for a null
+// mask); every thread of the block takes part. red: kWarps ints.
+__device__ __forceinline__ int first_key(const float* __restrict__ mrow,
+                                         int Tk, int* red) {
+  if (mrow == nullptr) return 0;
+  for (int base = 0; base < Tk; base += kThreads) {
+    const int j = base + threadIdx.x;
+    const bool hit = j < Tk && mrow[j] > 0.f;
+    if (__syncthreads_or(hit)) {
+      const unsigned bal = __ballot_sync(kFull, hit);
+      if ((threadIdx.x & 31) == 0)
+        red[threadIdx.x >> 5] =
+            bal ? base + (threadIdx.x & ~31) + __ffs(bal) - 1 : INT_MAX;
+      __syncthreads();
+      int fk = red[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) fk = red[w] < fk ? red[w] : fk;
+      return fk;
     }
   }
-  load_row_stats(m_s, ll_s, nullptr, stats, nullptr, BN, bn, q0, Tq);
-  float acc[kPer][kCols];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  const int nkb = kv_blocks(qb, num_blocks(Tk), Tq, off, causal);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kBlock;
-    __syncthreads();
-    load_tile<D>(k_s, kb_base, k0, Tk);
-    load_tile<D>(v_s, vb_base, k0, Tk);
-    if (threadIdx.x < kBlock) {
-      const int kj = k0 + threadIdx.x;
-      mask_s[threadIdx.x] =
-          kj < Tk ? mask[static_cast<size_t>(b) * Tk + kj] : 0.f;
-    }
-    __syncthreads();
-    float s[kPer][kPer], dp[kPer][kPer];
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
-    probs_and_dscores(s, dp, m_s, ll_s, delta_s, mask_s, q0, k0, Tq, Tk, off,
-                      causal, scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        ds_s[(ty + kSub * i) * kLdP + tx + kSub * j] = dp[i][j];
-    __syncthreads();
-    tile_accumulate<D, false>(acc, ds_s, k_s, ty, tx);
-  }
-  store_rows<D>(dq + q_at, acc, scale, q0, Tq, ty, tx);
+  return Tk;
 }
 
 template <int D>
@@ -473,120 +745,136 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ delta,
                       float* __restrict__ dk, float* __restrict__ dv, int BN,
                       int N, int Tq, int Tk, int causal, float scale) {
-  constexpr int kCols = (D + kSub - 1) / kSub;
-  extern __shared__ float smem[];
-  float* k_s = smem;                          // [64, D + 1]
-  float* v_s = k_s + kBlock * (D + 1);        // [64, D + 1]
-  float* q_s = v_s + kBlock * (D + 1);        // [64, D + 1]
-  float* do_s = q_s + kBlock * (D + 1);       // [64, D + 1]
-  float* p_s = do_s + kBlock * (D + 1);       // [64 query, 65]
-  float* ds_s = p_s + kBlock * kLdP;          // [64 query, 65]
-  float* mask_s = ds_s + kBlock * kLdP;       // [64]
-  float* m_s = mask_s + kBlock;               // [64]
-  float* ll_s = m_s + kBlock;                 // [64]
-  float* delta_s = ll_s + kBlock;             // [64]
-  const int kb = blockIdx.x, bn = blockIdx.y, b = bn / N;
-  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
-  const int k0 = kb * kBlock, off = Tk - Tq;
+  constexpr int kC = q_cols(D), kLd = row_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                    // [64, D + 4] this block's keys
+  float* v_s = k_s + kRows * kLd;       // [64, D + 4]
+  float* ring = v_s + kRows * kLd;      // 2 stages of q, dO, m, log l, delta
+  int* red = reinterpret_cast<int*>(ring + 2 * q_stage(D));
+  const int bn = blockIdx.x, b = bn / N, kb = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kb * kRows, kw0 = k0 + warp * 16, off = Tk - Tq;
+  const int ka = kw0 + g, kbk = ka + 8;
   const size_t k_at = static_cast<size_t>(bn) * Tk * D;
   const size_t q_at = static_cast<size_t>(bn) * Tq * D;
-  load_tile<D>(k_s, k + k_at, k0, Tk);
-  load_tile<D>(v_s, v + k_at, k0, Tk);
-  if (threadIdx.x < kBlock) {
-    const int kj = k0 + threadIdx.x;
-    mask_s[threadIdx.x] =
-        kj < Tk ? mask[static_cast<size_t>(b) * Tk + kj] : 0.f;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  copy_tile<D, kRows>(k_s, k + k_at, k0, Tk);
+  copy_tile<D, kRows>(v_s, v + k_at, k0, Tk);
+  cp_commit();
+  // the query tiles to visit: with causal, those holding a row that sees
+  // one of this block's keys, and those holding a row that sees no key
+  const int nq = (Tq + kC - 1) / kC;
+  int nokey_rows = 0, nokey_qt = 0, first_qt = 0;
+  if (causal) {
+    const int fk = first_key(mrow, Tk, red);
+    nokey_rows = fk - off < 0 ? 0 : (fk - off < Tq ? fk - off : Tq);
+    nokey_qt = (nokey_rows + kC - 1) / kC;
+    first_qt = (k0 - off > 0 ? k0 - off : 0) / kC;
   }
-  float dk_acc[kPer][kCols], dv_acc[kPer][kCols];
+  const int from = nokey_qt > first_qt ? nokey_qt : first_qt;
+  const int nvis = nokey_qt + (nq > from ? nq - from : 0);
+  auto tile_of = [&](int i) { return i < nokey_qt ? i : from + i - nokey_qt; };
+  auto load_stage = [&](int i) {
+    const int qt0 = tile_of(i) * kC;
+    float* st = ring + (i & 1) * q_stage(D);
+    copy_tile<D, kC>(st, q + q_at, qt0, Tq);
+    copy_tile<D, kC>(st + kC * kLd, dout + q_at, qt0, Tq);
+    float* vec = st + 2 * kC * kLd;
+    copy_vec(vec, stats + static_cast<size_t>(bn) * Tq, qt0, kC, Tq);
+    copy_vec(vec + kC, stats + (static_cast<size_t>(BN) + bn) * Tq, qt0, kC,
+             Tq);
+    copy_vec(vec + 2 * kC, delta + static_cast<size_t>(bn) * Tq, qt0, kC, Tq);
+  };
+  const bool mk_a = ka < Tk && (mrow == nullptr || mrow[ka] > 0.f);
+  const bool mk_b = kbk < Tk && (mrow == nullptr || mrow[kbk] > 0.f);
+  float dk_acc[kDt][4], dv_acc[kDt][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (nvis > 0) load_stage(0);
+  cp_commit();
+  for (int i = 0; i < nvis; ++i) {
+    if (i + 1 < nvis) load_stage(i + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* qs = ring + (i & 1) * q_stage(D);
+    const float* dos = qs + kC * kLd;
+    const float* m_s = dos + kC * kLd;
+    const float* ll_s = m_s + kC;
+    const float* dl_s = ll_s + kC;
+    const int qt0 = tile_of(i) * kC;
+    // warp-uniform: keys past Tk, or (causal) every pair of the tile
+    // hidden and no row of it without a key
+    if (kw0 < Tk &&
+        !(causal && qt0 + kC - 1 + off < kw0 && qt0 >= nokey_rows)) {
+      float s[kNt][4], dp[kNt][4];  // S^T, dP^T: [this warp's keys, queries]
+      zero(s);
+      zero(dp);
+      product_smem<D, kNt, kBwdSteps>(s, k_s, warp * 16, qs, g, t);
+      product_smem<D, kNt, kBwdSteps>(dp, v_s, warp * 16, dos, g, t);
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int nq = num_blocks(Tq), nk = num_blocks(Tk);
-  for (int qb = 0; qb < nq; ++qb) {
-    // block-uniform: a pair past the query block's diagonal (causal)
-    const bool skipped = kb >= kv_blocks(qb, nk, Tq, off, causal);
-    const int q0 = qb * kBlock;
-    __syncthreads();  // the previous query block's reads are done
-    load_row_stats(m_s, ll_s, delta_s, stats, delta, BN, bn, q0, Tq);
-    if (skipped) {
-      // only the block's rows that see no key (m = -1e9) add to dv here
-      const int nokey = threadIdx.x < kBlock && q0 + threadIdx.x < Tq &&
-                        m_s[threadIdx.x] == kNeg;
-      if (!__syncthreads_or(nokey)) continue;
-      load_tile<D>(do_s, dout + q_at, q0, Tq);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int r = ty + kSub * i;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int c = tx + kSub * j;
-          p_s[r * kLdP + c] = q0 + r < Tq && k0 + c < Tk
-                                  ? expf((kNeg - m_s[r]) - ll_s[r])
-                                  : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), qi = qt0 + c;
+          const int key = e < 2 ? ka : kbk;
+          const bool valid = key < Tk && qi < Tq;
+          const bool live =
+              valid && (e < 2 ? mk_a : mk_b) && !(causal && key > qi + off);
+          const float p =
+              valid ? expf(((live ? s[j][e] * scale : kNeg) - m_s[c]) - ll_s[c])
+                    : 0.f;
+          dp[j][e] = live ? p * (dp[j][e] - dl_s[c]) : 0.f;
+          s[j][e] = p;
         }
-      }
-      __syncthreads();
-      tile_accumulate<D, true>(dv_acc, p_s, do_s, ty, tx);
-      continue;
+      accumulate<D, kNt>(dv_acc, s, dos, g, t);
+      accumulate<D, kNt>(dk_acc, dp, qs, g, t);
     }
-    load_tile<D>(q_s, q + q_at, q0, Tq);
-    load_tile<D>(do_s, dout + q_at, q0, Tq);
     __syncthreads();
-    float s[kPer][kPer], dp[kPer][kPer];
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
-    probs_and_dscores(s, dp, m_s, ll_s, delta_s, mask_s, q0, k0, Tq, Tk, off,
-                      causal, scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int at = (ty + kSub * i) * kLdP + tx + kSub * j;
-        p_s[at] = s[i][j];
-        ds_s[at] = dp[i][j];
-      }
-    __syncthreads();
-    // this thread's keys are ty + 16 i: the P and dS tiles read transposed
-    tile_accumulate<D, true>(dv_acc, p_s, do_s, ty, tx);
-    tile_accumulate<D, true>(dk_acc, ds_s, q_s, ty, tx);
   }
-  store_rows<D>(dv + k_at, dv_acc, 1.f, k0, Tk, ty, tx);
-  store_rows<D>(dk + k_at, dk_acc, scale, k0, Tk, ty, tx);
+  cp_wait<0>();
+  store_rows<D>(dv + k_at, dv_acc, 1.f, 1.f, kw0, Tk, g, t);
+  store_rows<D>(dk + k_at, dk_acc, scale, scale, kw0, Tk, g, t);
 }
 
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (3 * kBlock * (D + 1) + kBlock * kLdP + kBlock);
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + kBlock * kLdP + 4 * kBlock);
-}
-
-template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) *
-         (4 * kBlock * (D + 1) + 2 * kBlock * kLdP + 4 * kBlock);
-}
+// ------------------------------------------------------------- launch
+// each (kernel, D) instance's shared-memory limit, raised once a device
+unsigned g_ready[kMaxDevices];
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t ready(Kernel kernel, size_t bytes, int bit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && (g_ready[dev] >> bit & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) g_ready[dev] |= 1u << bit;
+  return err;
+}
+
+constexpr int instance_bit(int D) {
+  return D == 8 ? 0 : D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4;
+}
+
+__host__ __device__ constexpr int row_blocks(int t) {
+  return (t + kRows - 1) / kRows;
 }
 
 template <int D>
 int launch_fwd(const float* q, const float* k, const float* v,
                const float* mask, float* o, float* stats, int B, int N,
                int Tq, int Tk, int causal, float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
+  if (row_blocks(Tq) > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      ready(flash_fwd_kernel<D>, fwd_smem(D), instance_bit(D));
   if (err != cudaSuccess) return err;
-  const dim3 grid(num_blocks(Tq), B * N);
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), s>>>(
-      q, k, v, mask, o, stats, B * N, N, Tq, Tk, causal, scale);
+  flash_fwd_kernel<D><<<dim3(B * N, row_blocks(Tq)), kThreads, fwd_smem(D),
+                        s>>>(q, k, v, mask, o, stats, B * N, N, Tq, Tk,
+                             causal, scale);
   return cudaGetLastError();
 }
 
@@ -596,19 +884,22 @@ int launch_bwd(const float* q, const float* k, const float* v,
                const float* stats, float* delta, float* dq, float* dk,
                float* dv, int B, int N, int Tq, int Tk, int causal,
                float scale, cudaStream_t s) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>());
+  if (row_blocks(Tq) > 65535 || row_blocks(Tk) > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      ready(flash_bwd_dq_kernel<D>, dq_smem(D), 5 + instance_bit(D));
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>());
+  err = ready(flash_bwd_dkdv_kernel<D>, dkdv_smem(D), 10 + instance_bit(D));
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<D>
-      <<<dim3(num_blocks(Tq), B * N), kThreads, dq_smem<D>(), s>>>(
+      <<<dim3(B * N, row_blocks(Tq)), kThreads, dq_smem(D), s>>>(
           q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, causal,
           scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: delta is written before this kernel starts
   flash_bwd_dkdv_kernel<D>
-      <<<dim3(num_blocks(Tk), B * N), kThreads, dkdv_smem<D>(), s>>>(
+      <<<dim3(B * N, row_blocks(Tk)), kThreads, dkdv_smem(D), s>>>(
           q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk,
           causal, scale);
   return cudaGetLastError();
@@ -667,5 +958,21 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
                              dv, B, N, Tq, Tk, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory, bytes, that kernel `which` (0 forward, 1 dq,
+// 2 dkdv) requests at head width D; -1 for a D with no instance.
+extern "C" long long flash_smem(int which, int D) {
+  if (D != 8 && D != 16 && D != 32 && D != 64 && D != 128) return -1;
+  switch (which) {
+    case 0:
+      return static_cast<long long>(fwd_smem(D));
+    case 1:
+      return static_cast<long long>(dq_smem(D));
+    case 2:
+      return static_cast<long long>(dkdv_smem(D));
+    default:
+      return -1;
   }
 }

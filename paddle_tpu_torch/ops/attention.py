@@ -7,7 +7,9 @@ backward is ``jax.vjp`` of ``blockwise_attention``, a recompute through a
 ``lax.scan``. Here both are hand-written CUDA kernels of
 ``csrc/flash_attn.cu`` (its source note gives the design and the bound on
 the H100): the forward, and the FA2-style analytic backward from the
-saved row statistics.
+saved row statistics, every product on the tensor cores in split TF32
+(``split_tf32_einsum`` is that arithmetic in plain PyTorch; ``flash_plan``
+gives the kernels' tiles and shared memory).
 
 Two kernel wrappers, each counting the calls that launched its kernels
 (``.launches``) and choosing by device: on a CUDA tensor it launches (or
@@ -20,6 +22,11 @@ tests hold against the JAX package.
   m = -1e9, keeps log l); plain version ``blockwise_plain``.
 - ``flash_bwd``: (dq, dk, dv) from q, k, v, the mask, o, ``lse`` and dO;
   plain version ``flash_bwd_plain``.
+
+Their launch path is the recurrent cells' (``build.check_cell``: every
+check in one pass; ``build.call``: PyTorch's current stream, a device
+guard only off the current device); without a mask the kernels take a
+null pointer (every key real).
 
 The kernels are instantiated for D in ``HEAD_DIMS``; on the card another
 D <= 128 is padded with zero columns up to the next instance and the
@@ -43,7 +50,6 @@ for every row that sees a key.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -58,7 +64,6 @@ _PLAIN_BLOCK_K = 256
 # the head widths the kernels are instantiated for (csrc/flash_attn.cu);
 # another D up to the last pads with zero columns to the next one
 HEAD_DIMS = (8, 16, 32, 64, 128)
-MAX_HEADS_TIMES_BATCH = 65535  # the kernels' grid y
 
 
 def _default_scale(q, scale):
@@ -74,6 +79,26 @@ def _causal_visible(Tq, Tk, k0, width, device):
 
 
 # ---------------------------------------------------------------- plain
+def _round_tf32(x):
+    """float32 x rounded to TF32, 10 mantissa bits, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``; finite x)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32_einsum(eq, a, b):
+    """The kernels' product in plain PyTorch: ``torch.einsum(eq, a, b)``
+    of float32 operands, each split into big = TF32(x) and small =
+    TF32(x - big), summed as small·big' + big·small' + big·big' (the
+    term small·small' dropped), as the kernels' ``mma.sync`` tiles sum
+    them."""
+    a_big, b_big = _round_tf32(a), _round_tf32(b)
+    a_small, b_small = _round_tf32(a - a_big), _round_tf32(b - b_big)
+    return (torch.einsum(eq, a_small, b_big)
+            + torch.einsum(eq, a_big, b_small)) \
+        + torch.einsum(eq, a_big, b_big)
+
+
 def mha_plain(q, k, v, kv_mask=None, causal=False, scale=None):
     """Plain softmax attention, spelled as ``paddle_tpu/ops/attention.py:
     mha_reference``. q [B,N,Tq,D], k/v [B,N,Tk,D], kv_mask [B,Tk]."""
@@ -88,11 +113,14 @@ def mha_plain(q, k, v, kv_mask=None, causal=False, scale=None):
     return torch.einsum("bnqk,bnkd->bnqd", p, v)
 
 
-def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None):
+def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None,
+                    einsum=torch.einsum):
     """The online softmax over kv blocks of ``blockwise_attention``
     (``paddle_tpu/ops/attention.py:54-102``, ``block_k = min(256, Tk)``), a
     Python loop for its ``lax.scan``. Returns o [B,N,Tq,D] and the row
-    statistics [2, B·N, Tq] (m, log l) the backward takes."""
+    statistics [2, B·N, Tq] (m, log l) the backward takes. ``einsum``
+    computes its two products (``split_tf32_einsum``: the kernel's
+    arithmetic)."""
     B, N, Tq, D = q.shape
     Tk = k.shape[2]
     scale = _default_scale(q, scale)
@@ -107,8 +135,7 @@ def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None):
     m_run = q.new_full((B, N, Tq), _NEG)
     l_run = q.new_zeros((B, N, Tq))
     for k0 in range(0, k.shape[2], block_k):
-        s = torch.einsum("bnqd,bnkd->bnqk", q, k[:, :, k0:k0 + block_k]) \
-            * scale
+        s = einsum("bnqd,bnkd->bnqk", q, k[:, :, k0:k0 + block_k]) * scale
         if kv_mask is not None:
             s = s.masked_fill(
                 ~(kv_mask[:, None, None, k0:k0 + block_k] > 0), _NEG)
@@ -119,7 +146,7 @@ def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None):
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_run - m_new)
         l_run = l_run * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + einsum(
             "bnqk,bnkd->bnqd", p, v[:, :, k0:k0 + block_k])
         m_run = m_new
     lse = torch.stack([m_run, torch.log(l_run)]).reshape(2, B * N, Tq)
@@ -127,16 +154,17 @@ def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None):
 
 
 def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
-                    scale=None):
+                    scale=None, einsum=torch.einsum):
     """The analytic backward in plain PyTorch: P recomputed from the row
     statistics, ``delta = rowsum(dO o)``, ``dV = Pᵀ dO``, ``dS = P (dO Vᵀ -
     delta)`` zeroed where a score was masked or causally hidden (as
     ``jnp.where`` gives them no gradient), ``dQ = dS K scale``, ``dK = dSᵀ
-    Q scale``. Returns (dq, dk, dv)."""
+    Q scale``. Returns (dq, dk, dv). ``einsum`` computes the five
+    products."""
     B, N, Tq, _ = q.shape
     Tk = k.shape[2]
     scale = _default_scale(q, scale)
-    s = torch.einsum("bnqd,bnkd->bnqk", q, k) * scale
+    s = einsum("bnqd,bnkd->bnqk", q, k) * scale
     live = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device=q.device)
     if kv_mask is not None:
         live = live & (kv_mask[:, None, None, :] > 0)
@@ -145,11 +173,11 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
     m, log_l = (t.reshape(B, N, Tq, 1) for t in lse)
     p = torch.exp((s.masked_fill(~live, _NEG) - m) - log_l)
     delta = (do * o).sum(dim=-1, keepdim=True)
-    dv = torch.einsum("bnqk,bnqd->bnkd", p, do)
-    dp = torch.einsum("bnqd,bnkd->bnqk", do, v)
+    dv = einsum("bnqk,bnqd->bnkd", p, do)
+    dp = einsum("bnqd,bnkd->bnqk", do, v)
     ds = (p * (dp - delta)).masked_fill(~live, 0.0)
-    dq = torch.einsum("bnqk,bnkd->bnqd", ds, k) * scale
-    dk = torch.einsum("bnqk,bnqd->bnkd", ds, q) * scale
+    dq = einsum("bnqk,bnkd->bnqd", ds, k) * scale
+    dk = einsum("bnqk,bnqd->bnkd", ds, q) * scale
     return dq, dk, dv
 
 
@@ -190,67 +218,100 @@ def bwd_padded(bwd, width, q, k, v, kv_mask, o, lse, do, causal, scale):
 
 
 # -------------------------------------------------------------- kernels
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = build.load("flash_attn")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_fwd.argtypes = [p] * 6 + [i] * 6 + [ctypes.c_float, p]
-    lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_bwd.argtypes = [p] * 11 + [i] * 6 + [ctypes.c_float, p]
-    lib.flash_bwd.restype = ctypes.c_int
-    return lib
+# a block of every kernel owns 64 rows (query rows in the forward and dq,
+# keys in dkdv) over 4 warps of 16 (csrc/flash_attn.cu)
+FLASH_ROWS = 64
+# an H100 SM's shared memory (228 KB) and what the runtime keeps of it for
+# each resident block; a block may take at most build.SMEM_BYTES
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
 
 
-def _check(kernel, q, k, v, kv_mask, **more):
-    """The operands' device, types and shapes; returns (device, B, N, Tq,
-    Tk, D)."""
-    dev = build.cuda_device(kernel, q)
+def flash_plan(D: int) -> dict:
+    """The kernels' tiles and dynamic shared memory at head width ``D``
+    (an instance, ``HEAD_DIMS``), by the formula of ``csrc/flash_attn.cu``
+    (``flash_smem``; a card test holds the two equal): ``rows`` a block
+    owns, ``kv_cols`` keys a ring stage of the forward, ``dq_cols`` of
+    dq, ``q_cols`` queries a stage of dkdv, ``smem_<kernel>`` bytes and
+    ``blocks_per_sm_<kernel>`` by shared memory, for ``fwd``, ``dq`` and
+    ``dkdv``."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_plan: D={D} is not an instance "
+                         f"({HEAD_DIMS})")
+    ld = D + 4  # row stride of every tile, floats
+    kv = 32 if D == 128 else 64  # keys a stage, forward
+    kv_dq = 16 if D == 128 else 64  # keys a stage, dq
+    qc = 16 if D == 128 else 32  # queries a stage, dkdv
+    rows = FLASH_ROWS * ld  # a resident tile: q, dO, k or v
+    smem = dict(fwd=4 * (rows + 2 * (2 * kv * ld + kv)),
+                dq=4 * (2 * rows + 2 * (2 * kv_dq * ld + kv_dq)
+                        + FLASH_ROWS),
+                dkdv=4 * (2 * rows + 2 * (2 * qc * ld + 3 * qc)) + 4 * 4)
+    plan = dict(rows=FLASH_ROWS, kv_cols=kv, dq_cols=kv_dq, q_cols=qc)
+    for name, nbytes in smem.items():
+        plan["smem_" + name] = nbytes
+        plan["blocks_per_sm_" + name] = SM_SMEM_BYTES // (
+            nbytes + BLOCK_RESERVED_BYTES)
+    return plan
+
+
+def flash_smem_of_kernel(which: str, D: int) -> int:
+    """The dynamic shared memory the kernel ``which`` (``fwd``, ``dq``,
+    ``dkdv``) requests at head width D, by its own count (card only: it
+    loads the library), to hold ``flash_plan`` against."""
+    fn = build.load("flash_attn").flash_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn(("fwd", "dq", "dkdv").index(which), D)
+
+
+def _check(kernel, q, k, v, kv_mask, o=None, lse=None, do=None):
+    """Every check of the kernels' operands in one pass (``build.
+    check_cell``; the per-tensor messages on failure): q [B,N,Tq,D], k and
+    v [B,N,Tk,D], the mask [B,Tk] when given and, for the backward, o and
+    dO [B,N,Tq,D] and lse [2, B·N, Tq]; contiguous float32 on one card.
+    Returns (the card's index, (B, N, Tq, Tk, D))."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{kernel}: q and k must be [B, N, T, D], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     B, N, Tq, D = q.shape
     Tk = k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head width D={D} is not an instance of "
-                         f"the kernels ({HEAD_DIMS}); flash_fwd and "
-                         "flash_bwd pad it")
-    if Tq < 1 or Tk < 1 or B * N > MAX_HEADS_TIMES_BATCH:
-        raise ValueError(f"{kernel}: Tq={Tq}, Tk={Tk}, B*N={B * N}: the "
-                         f"kernels take T >= 1 and B*N <= "
-                         f"{MAX_HEADS_TIMES_BATCH}")
-    build.check_tensors(kernel, dev, q=(q, (B, N, Tq, D)),
-                        k=(k, (B, N, Tk, D)), v=(v, (B, N, Tk, D)),
-                        kv_mask=(kv_mask, (B, Tk)),
-                        **{name: (t, (B, N, Tq, D))
-                           for name, t in more.items()})
-    return dev, B, N, Tq, Tk, D
-
-
-def _card_mask(kv_mask, q, Tk):
-    return kv_mask if kv_mask is not None else q.new_ones((q.shape[0], Tk))
+    if Tq < 1 or Tk < 1:
+        raise ValueError(f"{kernel}: Tq={Tq}, Tk={Tk}: the kernels take "
+                         "T >= 1")
+    kv = (B, N, Tk, D)
+    tensors = [("q", q, q.shape), ("k", k, kv), ("v", v, kv)]
+    if o is not None:
+        tensors += [("o", o, q.shape), ("do", do, q.shape),
+                    ("lse", lse, (2, B * N, Tq))]
+    if kv_mask is not None:
+        tensors.append(("kv_mask", kv_mask, (B, Tk)))
+    idx, _ = build.check_cell(kernel, tensors)
+    return idx, (B, N, Tq, Tk, D)
 
 
 def flash_fwd(q, k, v, kv_mask=None, causal=False, scale=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's wrapper: (o [B,N,Tq,D], lse [2, B·N, Tq]),
-    the results of ``blockwise_plain``.
-    ``flash_fwd.launches`` counts the calls that launched it."""
+    the results of ``blockwise_plain``. No mask: every key real (the
+    kernel takes a null mask). ``flash_fwd.launches`` counts the calls
+    that launched it."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return blockwise_plain(q, k, v, kv_mask, causal, scale)
     width = padded_width(q.shape[-1])
     if width != q.shape[-1]:
         return fwd_padded(flash_fwd, width, q, k, v, kv_mask, causal, scale)
-    kv_mask = _card_mask(kv_mask, q, k.shape[2])
-    dev, B, N, Tq, Tk, D = _check("flash_fwd", q, k, v, kv_mask)
+    idx, (B, N, Tq, Tk, D) = _check("flash_fwd", q, k, v, kv_mask)
+    # the kernels read q, k, v by 16-byte copies
+    q, k, v = (build.aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
-    lse = torch.empty((2, B * N, Tq), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, int(causal),
-            float(scale), stream)
+    lse = q.new_empty((2, B * N, Tq))
+    err = build.call(
+        build.bind("flash_attn", "flash_fwd", 6, 6, 1), idx, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(),
+        None if kv_mask is None else kv_mask.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, N, Tq, Tk, D, int(causal), float(scale))
     build.raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -270,18 +331,19 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, causal=False, scale=None):
     if width != q.shape[-1]:
         return bwd_padded(flash_bwd, width, q, k, v, kv_mask, o, lse, do,
                           causal, scale)
-    kv_mask = _card_mask(kv_mask, q, k.shape[2])
-    dev, B, N, Tq, Tk, D = _check("flash_bwd", q, k, v, kv_mask, o=o, do=do)
-    build.check_tensors("flash_bwd", dev, lse=(lse, (2, B * N, Tq)))
-    delta = torch.empty((B * N, Tq), dtype=torch.float32, device=dev)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, Tq, Tk, D,
-            int(causal), float(scale), stream)
+    idx, (B, N, Tq, Tk, D) = _check("flash_bwd", q, k, v, kv_mask, o, lse,
+                                    do)
+    q, k, v, o, do = (build.aligned(t) for t in (q, k, v, o, do))
+    delta = q.new_empty((B * N, Tq))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    err = build.call(
+        build.bind("flash_attn", "flash_bwd", 11, 6, 1), idx, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(),
+        None if kv_mask is None else kv_mask.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, N, Tq, Tk, D, int(causal),
+        float(scale))
     build.raise_on(err, "flash_bwd")
     flash_bwd.launches += 1
     return dq, dk, dv

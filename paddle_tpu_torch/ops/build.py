@@ -112,14 +112,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def bind(name: str, entry: str, n_ptr: int, n_int: int):
+def bind(name: str, entry: str, n_ptr: int, n_int: int, n_float: int = 0):
     """The C function ``entry`` of ``csrc/<name>.cu`` taking ``n_ptr``
-    pointers, ``n_int`` ints and the stream, returning an int error."""
+    pointers, ``n_int`` ints, ``n_float`` floats and the stream, returning
+    an int error."""
     fn = getattr(load(name), entry)
     # every pointer as c_void_p: an undeclared argument would pass as a
     # 32-bit int and cut the pointer
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float] * n_float + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -930,6 +930,82 @@ def test_attention_layer_runs_the_kernels_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal", [
+    (16384, 4, 1, 1, 8, False),   # B * N = 65536, past a grid y of 65535
+    (16384, 4, 3, 5, 8, True)])
+def test_flash_kernels_take_more_than_65535_heads(cuda_device, B, N, Tq,
+                                                  Tk, D, causal):
+    """B * N lies on the grid's x: 65,536 heads give the plain results
+    (o and the row statistics within rtol 1e-4 / atol 1e-5, every
+    gradient within 1e-4 of its largest entry + 1e-5)."""
+    q, k, v, mask, do = _attn_inputs(B, N, Tq, Tk, D, 5, cuda_device)
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_without_a_mask_match_plain_on_card(cuda_device,
+                                                          causal):
+    """No mask: the kernels take a null pointer (every key real) and give
+    the plain versions' results without a mask; causal with Tq > Tk has
+    rows that see no key."""
+    q, k, v, _, do = _attn_inputs(2, 3, 150, 97, 64, 9, cuda_device)
+    o, lse = tattn.flash_fwd(q, k, v, None, causal)
+    grads = tattn.flash_bwd(q, k, v, None, o, lse, do, causal)
+    torch.cuda.synchronize()
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, None, causal)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, None, w_o, w_lse, do, causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk", [(40, 70), (90, 37)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_with_leading_padding_match_plain_on_card(
+        cuda_device, Tq, Tk, causal):
+    """Masks whose first keys are padding (rows real from key 0, 9, and
+    none): with causal the rows before a row's first real key see no key,
+    a prefix the backward finds from the mask; o, the statistics and
+    every gradient against the plain versions, two backward runs
+    bit-equal."""
+    q, k, v, _, do = _attn_inputs(3, 2, Tq, Tk, 32, Tq * Tk, cuda_device)
+    first = torch.tensor([0, 9, Tk], device=cuda_device)
+    mask = (torch.arange(Tk, device=cuda_device)[None, :]
+            >= first[:, None]).float()
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal))
+    again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    for g1, g2 in zip(grads, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", tattn.HEAD_DIMS)
+def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
+    """``flash_plan``'s shared-memory bytes are what each kernel requests
+    (its own count, ``flash_smem``), within a block's limit."""
+    plan = tattn.flash_plan(D)
+    for kernel in ("fwd", "dq", "dkdv"):
+        assert tattn.flash_smem_of_kernel(kernel, D) == \
+            plan["smem_" + kernel] <= tattn.build.SMEM_BYTES
+
+
+@pytest.mark.cuda
 def test_flash_kernels_reject_bad_inputs(cuda_device):
     """A head width above 128, a non-contiguous input, a wrong dtype and
     a CPU mask all raise with the reason."""
