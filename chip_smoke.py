@@ -97,14 +97,29 @@ non-zero without the result line:
    400, 66: S = 133) with ragged frames and transcripts, an empty
    transcript, an infeasible row, repeated labels and padded frame tails;
    its batch 1; LibriSpeech-length utterances (16, 1600, 240: S = 481) —
-   the forward kernel's alphas and ll within rtol 1e-4 / atol 1e-5 of
+   both operand forms of the kernels. Gathered (JAX's operands): the
+   forward kernel's alphas and ll within rtol 1e-4 / atol 1e-5 of
    ``ctc_forward_plain`` (NEG entries equal), the backward kernel's demit
-   within 1e-4 of its largest entry + 1e-5 of ``ctc_bwd_plain``, two
-   backward runs bit-equal, every output finite, and -ll on the feasible
-   rows within 1e-4 relative of ``torch.nn.functional.ctc_loss`` (which
-   returns inf where JAX returns about 1e30). Times as in phase 6, and
-   the library yardstick ``F.ctc_loss`` forward and backward with the
-   names of the kernels it ran.
+   within 1e-4 of its largest entry + 1e-5 of ``ctc_bwd_plain``. Fused
+   (the log-probs and labels): the forward (both chains in one launch)
+   against ``ctc_fused_forward_plain`` (alphas, betas, ll), the posterior
+   pass's d log_probs against ``ctc_fused_bwd_plain``, the no-grad
+   forward's ll the same bits. Two backward runs bit-equal, every output
+   finite, -ll on the feasible rows within 1e-4 relative of
+   ``torch.nn.functional.ctc_loss`` (which returns inf where JAX returns
+   about 1e30). Times as in phase 6 for each kernel (the fused forward
+   with and without the beta chains), the library yardstick
+   ``F.ctc_loss`` forward and backward with the names of the kernels it
+   ran, the port's path (``layers/chain.py:ctc_loss`` from the log-probs)
+   beside the spelling before the fused kernels, and the CUDA kernels of
+   one forward and backward of the path (the fused pair alone: no gather,
+   no scatter); the bounds, and the chain bound: the most live frames of
+   any row times a frame's floor, measured by ``ctc_chain_floor`` (one
+   warp, T = 100,000 frames of the chain's step at the shape's states a
+   lane). At the acoustic model's shape, the host split of both fused
+   wrappers' launch paths beside ``ctc_loss``'s spelling before them,
+   interleaved in 5 rounds. ``python3 chip_smoke.py --ctc-kernels`` runs
+   this phase alone, into ``chiprun_out/ctc_kernels.json``.
 7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
    — the attention seq2seq path's (50, 4, 50, 50, 128) with kv lengths
    10-50 and one all-padding row, its batch 1, a causal cross-attention
@@ -231,21 +246,22 @@ non-zero without the result line:
    the model without its batch norm rose) for 3 passes over 4 fixed
    batches of 16 synthetic utterances (100-400 frames, T/10-T/6
    characters, each frame its character's or the silence's fixed random
-   prototype plus noise): the cost must fall and the counts show the CTC
-   forward and backward kernels, the residual GRU kernel, Adam and one
-   reverse-chain launch per GRU layer and step (72), with no per-step
-   GRU backward. Then the full-width gradients (4 rows, one with an
+   prototype plus noise): the cost must fall and the counts show the fused
+   CTC forward and posterior pass once a step (no gathered CTC kernel),
+   the residual GRU kernel, Adam and one reverse-chain launch per GRU
+   layer and step (72), with no per-step GRU backward. Then the full-width gradients (4 rows, one with an
    empty transcript) card against CPU as in phase 8, one step on the
    card from the checkpoint timed and traced (``torch.profiler``: device
    busy time, idle share, top kernels), and ``--job test``
-   on 2 more batches (cost, ctc_edit_distance; the CTC forward and the
-   primal GRU kernel launched, the CTC backward not).
+   on 2 more batches (cost, ctc_edit_distance; the fused CTC forward and
+   the primal GRU kernel launched, the posterior pass not).
 12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
    kernel, with the launches of the main paths (phases 8 to 11c). The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
-   persistent route): their entries say ``on_path: false`` and must show
-   0 launches.
+   persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
+   ``ctc_bwd``: the layer takes the fused ones): their entries say
+   ``on_path: false`` and must show 0 launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -1625,7 +1641,8 @@ def _ctc_inputs(B, T, L, seed):
     with a padded tail), transcripts of T/10..T/6 characters; with B > 1,
     row 1 an empty transcript, row 2 letters in pairs (repeated labels
     take no jump), row 3 infeasible (L characters in L/2 frames). Returns
-    (operands, g, log_probs, labels, lab_lens, in_lens)."""
+    (gathered operands, g, log_probs, labels (int64; the padded slots
+    random ids), label_mask, lab_lens, in_lens)."""
     from paddle_tpu_torch.layers.chain import extended_labels
     C = DS2["chars"] + 1
     rng = np.random.default_rng(seed)
@@ -1651,52 +1668,78 @@ def _ctc_inputs(B, T, L, seed):
     g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
     ops = (emit.contiguous(), in_mask, valid_s.float().contiguous(),
            can_skip.float().contiguous(), ext_lens.contiguous())
-    return ops, g, log_probs, labels, lab_lens, in_lens
+    return ops, g, log_probs, labels, label_mask, lab_lens, in_lens
 
 
-def _ctc_bounds(B, T, S, in_lens, ext_lens):
-    """Least times of the two kernels for this run's data, bytes or
+def _ctc_bounds(B, T, S, C, in_lens, ext_lens):
+    """Least times of the kernels for this run's data, bytes or
     operations, whichever is larger. Only the valid states (s < ext_lens)
     of the live frames are read: an alpha is frozen on a padded frame and
     NEG past ext_lens whatever the emission, beta_t reads emit_{t+1} only
     where frame t+1 is real, and demit_t is 0 where frame t is padding.
-    Bytes: the forward reads emit on frame 0's first two states and on
-    every later live frame, the masks and the lengths, and writes every
-    alpha and ll; the backward reads emit on the live frames after the
-    first, the alphas on every live frame, the masks, lengths, ll and g,
-    and writes every demit. Operations: ~15 per live frame and valid state
-    for the three-term log-sum-exp and the emission add, 5 more per (t, s)
-    for the posterior."""
+    Bytes: the gathered forward reads emit on frame 0's first two states
+    and on every later live frame, the masks and the lengths, and writes
+    every alpha and ll; its backward reads emit on the live frames after
+    the first, the alphas on every live frame, the masks, lengths, ll and
+    g, and writes every demit. The fused forward reads the same emissions
+    from the log-probs (twice in training: both chains), the labels
+    (8 bytes) and both masks, and writes ll (and in training every alpha
+    and beta); the posterior pass reads the alphas and betas of the live
+    frames' valid states, the labels, masks, ll and g, and writes every
+    d log_probs. Operations: ~15 per live frame and valid state for a
+    chain's three-term log-sum-exp and the emission add, 5 more per
+    state and frame for the posterior, 1 for its class sum."""
     rows = [(max(int(t), 1), int(e)) for t, e in zip(in_lens, ext_lens)]
     live = float(sum((t - 1) * e for t, e in rows))
+    post = float(sum(t * e for t, e in rows))
     small = 4 * (B * T + 2 * B * S + B)
     fwd_in = 4 * sum((t - 1) * e + min(e, 2) for t, e in rows)
     bwd_in = 4 * sum((t - 1) * e + t * e for t, e in rows)
-    return {"fwd": _bound(15.0 * live,
-                          fwd_in + small + 4 * (B * T * S + B)),
-            "bwd": _bound(15.0 * live + 5.0 * B * T * S,
-                          bwd_in + small + 8 * B + 4 * B * T * S)}
+    L = (S - 1) // 2
+    fused_small = 4 * B * T + 12 * B * L
+    return {
+        "fwd": _bound(15.0 * live, fwd_in + small + 4 * (B * T * S + B)),
+        "bwd": _bound(15.0 * live + 5.0 * B * T * S,
+                      bwd_in + small + 8 * B + 4 * B * T * S),
+        "fused_fwd": _bound(30.0 * live, 2 * fwd_in + fused_small
+                            + 4 * B + 8 * B * T * S),
+        "fused_fwd_nograd": _bound(15.0 * live,
+                                   fwd_in + fused_small + 4 * B),
+        "fused_bwd": _bound(6.0 * post, 8 * post + fused_small + 8 * B
+                            + 4 * B * T * C)}
 
 
-def _ctc_library(log_probs, labels, in_lens, lab_lens, C):
+def _chain_floor_us(P, beta, frames=100000):
+    """The chain's least time a frame, us: CUDA events around one launch
+    of ``ctc_chain_floor`` (one warp, P states a lane, ``frames`` frames
+    of the step and the lane exchange, no global memory), median of 5,
+    over ``frames``."""
+    return 1e3 * _time_ms(lambda: CTC.ctc_chain_floor(frames, P, beta),
+                          reps=5, warmup=1) / frames
+
+
+def _ctc_library(log_probs, labels, label_mask, in_lens, lab_lens, C):
     """The library yardstick: ``torch.nn.functional.ctc_loss`` on the same
     log-probs [T,B,C] (never on the port's path), forward and backward
     times and the CUDA kernels it ran (their names say which of its
     implementations ran: cuDNN's takes blank 0 only); beside it the port's
     own path over the same span, ``layers/chain.py:ctc_loss`` from the
-    log-probs [B,T,C]: the extended labels, the gather and ctc_alpha_fwd
-    forward, ctc_bwd and the gather's scatter-add backward. Both sides
-    take log-probs and give the loss per row and its gradient with
-    respect to the log-probs."""
+    log-probs [B,T,C] (the fused kernels: both chains forward, the
+    posterior pass backward), and the spelling of ``ctc_loss`` before
+    them (``_baseline_ctc_loss``: the extended labels, the gather and the
+    gathered kernels, the gather's scatter-add backward), the CUDA kernels
+    of the port's path (forward and backward, 5 calls), and the no-grad
+    forward. Each side takes log-probs and gives the loss per row and its
+    gradient with respect to the log-probs."""
     from paddle_tpu_torch.layers.chain import ctc_loss
     lp = log_probs.transpose(0, 1).detach().requires_grad_(True)
     args = (labels, torch.from_numpy(in_lens), torch.from_numpy(lab_lens))
-    B, T, _ = log_probs.shape
-    L = labels.shape[1]
+    T = log_probs.shape[1]
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).cuda()
     port_lp = log_probs.detach().requires_grad_(True)
-    masks = [torch.from_numpy((np.arange(n)[None, :] < lens[:, None])
-                              .astype(np.float32)).cuda()
-             for n, lens in ((T, in_lens), (L, lab_lens))]
+    base_lp = log_probs.detach().requires_grad_(True)
+    masks = (in_mask, label_mask)
 
     def fwd():
         return torch.nn.functional.ctc_loss(lp, *args, blank=C - 1,
@@ -1705,92 +1748,378 @@ def _ctc_library(log_probs, labels, in_lens, lab_lens, C):
     def port_fwd():
         return ctc_loss(port_lp, labels, *masks, C - 1)
 
+    def base_fwd():
+        return _baseline_ctc_loss(base_lp, labels, *masks, C - 1)
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        out = fwd()
-        torch.autograd.grad(out.sum(), lp)
+    cuda_keys = []
+    for run, leaf, must in ((fwd, lp, ()),
+                            (port_fwd, port_lp, ("ctc_fused_fwd_kernel",
+                                                 "ctc_fused_bwd_kernel"))):
+        run()
         torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and "ctc" in e.key.lower()})
-    out, port_out = fwd(), port_fwd()
+        # the CUDA kernels of 5 forward and backward calls, the union of up
+        # to three traces (the profiler drops a launch now and then)
+        keys = set()
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(5):
+                    torch.autograd.grad(run().sum(), leaf)
+                torch.cuda.synchronize()
+            keys |= {e.key for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+            if all(any(m in k for k in keys) for m in must):
+                break
+        cuda_keys.append(sorted(keys))
+    names = [k for k in cuda_keys[0] if "ctc" in k.lower()]
+    out, port_out, base_out = fwd(), port_fwd(), base_fwd()
     ones = torch.ones_like(out)
-    return dict(fwd_library_ms=_time_ms(fwd),
-                bwd_library_ms=_time_ms(lambda: torch.autograd.grad(
-                    out, lp, ones, retain_graph=True)),
-                fwd_port_path_ms=_time_ms(port_fwd),
-                bwd_port_path_ms=_time_ms(lambda: torch.autograd.grad(
-                    port_out, port_lp, ones, retain_graph=True)),
-                library_kernels=names), out.detach()
+    row = dict(library_kernels=names, path_kernels=cuda_keys[1])
+    with torch.no_grad():
+        row["fwd_nograd_port_path_ms"] = _time_ms(port_fwd)
+    for name, f, o, leaf in (("library", fwd, out, lp),
+                             ("port_path", port_fwd, port_out, port_lp),
+                             ("baseline_path", base_fwd, base_out, base_lp)):
+        row[f"fwd_{name}_ms"] = _time_ms(f)
+        row[f"bwd_{name}_ms"] = _time_ms(lambda: torch.autograd.grad(
+            o, leaf, ones, retain_graph=True))
+    return row, out.detach()
 
 
-def check_ctc_shape(B, T, L, seed):
-    """The CTC forward and backward kernels against ``ctc_forward_plain``
-    and ``ctc_bwd_plain`` on the same card tensors: alphas and ll within
-    rtol 1e-4 / atol 1e-5 (their NEG entries equal), demit within 1e-4 of
-    its largest entry + 1e-5, every output finite, two backward runs
-    bit-equal, and -ll on the feasible rows within 1e-4 relative of
-    ``torch.nn.functional.ctc_loss``; times and bounds."""
+def _baseline_ctc_loss(log_probs, labels, in_mask, label_mask, blank):
+    """``layers/chain.py:ctc_loss`` as it was spelt before the fused
+    kernels, replayed for the comparison: the extended labels, the
+    [B,T,S] gather, the casts and ``ctc_ll`` (the gathered kernels)."""
+    from paddle_tpu_torch.layers.chain import extended_labels
+    B, T, _ = log_probs.shape
+    ext, ext_lens, valid_s, can_skip = extended_labels(labels, label_mask,
+                                                       blank)
+    emit = torch.gather(log_probs, 2,
+                        ext[:, None, :].expand(B, T, ext.shape[1]))
+    dt = log_probs.dtype
+    return -CTC.ctc_ll(emit, in_mask.to(dt), valid_s.to(dt), can_skip.to(dt),
+                       ext_lens)
+
+
+def _ctc_check(where, name, got, want):
+    """got within rtol 1e-4 / atol 1e-5 of want, their NEG entries equal
+    and every entry finite; returns the max abs error."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{where}: {name} is not finite")
+    neg = want < -1e29
+    if not (torch.equal(got[neg], want[neg]) and (got[~neg] > -1e29).all()):
+        raise AssertionError(f"{where}: {name}'s NEG entries differ")
+    torch.testing.assert_close(got[~neg], want[~neg], **TOL,
+                               msg=lambda m: f"{where} {name}: {m}")
+    return (got[~neg] - want[~neg]).abs().max().item() if (~neg).any() \
+        else 0.0
+
+
+def check_ctc_shape(B, T, L, seed, floors):
+    """Both operand forms of the CTC kernels against their plain versions
+    on the same card tensors. Gathered: ``ctc_alpha_fwd`` and ``ctc_bwd``
+    against ``ctc_forward_plain`` and ``ctc_bwd_plain``. Fused:
+    ``ctc_fused_fwd`` (both chains) and ``ctc_fused_bwd`` against
+    ``ctc_fused_forward_plain`` and ``ctc_fused_bwd_plain``. Alphas,
+    betas and ll within rtol 1e-4 / atol 1e-5 (their NEG entries equal),
+    the gradients within 1e-4 of their largest entry + 1e-5, every output
+    finite, two backward runs bit-equal, the no-grad forward's ll the
+    same bits, -ll on the feasible rows within 1e-4 relative of
+    ``torch.nn.functional.ctc_loss``; times (device, events, plain), the
+    bounds and the chain bound (``floors``: us a frame by (P, beta))."""
     C = DS2["chars"] + 1
-    ops, g, log_probs, labels, lab_lens, in_lens = _ctc_inputs(B, T, L,
-                                                               seed)
+    ops, g, log_probs, labels, label_mask, lab_lens, in_lens = _ctc_inputs(
+        B, T, L, seed)
     S = 2 * L + 1
     where = f"CTC B={B} T={T} S={S}"
     alphas, ll = CTC.ctc_alpha_fwd(*ops)
     demit = CTC.ctc_bwd(*ops, alphas, ll, g)
+    f_ll, f_alphas, f_betas = CTC.ctc_fused_fwd(log_probs, labels, ops[1],
+                                                label_mask, C - 1, grad=True)
+    fused_bwd_args = (labels, ops[1], label_mask, C - 1, C, f_alphas,
+                      f_betas, f_ll, g)
+    dlp = CTC.ctc_fused_bwd(*fused_bwd_args)
     torch.cuda.synchronize()
     w_alphas, w_ll = CTC.ctc_forward_plain(*ops)
-    fwd_err = 0.0
-    for name, got, want in (("alphas", alphas, w_alphas), ("ll", ll, w_ll)):
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{where}: {name} is not finite")
-        neg = want < -1e29
-        if not (torch.equal(got[neg], want[neg])
-                and (got[~neg] > -1e29).all()):
-            raise AssertionError(f"{where}: {name}'s NEG entries differ")
-        fwd_err = max(fwd_err, (got[~neg] - want[~neg]).abs().max().item())
-        torch.testing.assert_close(got[~neg], want[~neg], **TOL,
-                                   msg=lambda m: f"{where} {name}: {m}")
+    fwd_err = max(_ctc_check(where, n, got, want) for n, got, want in (
+        ("alphas", alphas, w_alphas), ("ll", ll, w_ll)))
     w_demit = CTC.ctc_bwd_plain(*ops, w_alphas, w_ll, g)
     if not torch.isfinite(demit).all():
         raise AssertionError(f"{where}: demit is not finite")
     bwd_err = _check_grads(where, (demit,), (w_demit,), ("emit",))
     if not torch.equal(demit, CTC.ctc_bwd(*ops, alphas, ll, g)):
         raise AssertionError(f"{where}: two backward runs differ")
+    fw_alphas, fw_betas, fw_ll = CTC.ctc_fused_forward_plain(
+        log_probs, labels, ops[1], label_mask, C - 1)
+    fused_fwd_err = max(_ctc_check(where, "fused " + n, got, want)
+                        for n, got, want in (
+                            ("alphas", f_alphas, fw_alphas),
+                            ("betas", f_betas, fw_betas), ("ll", f_ll, fw_ll)))
+    w_dlp = CTC.ctc_fused_bwd_plain(labels, ops[1], label_mask, C - 1, C,
+                                    fw_alphas, fw_betas, fw_ll, g)
+    if not torch.isfinite(dlp).all():
+        raise AssertionError(f"{where}: d log_probs is not finite")
+    fused_bwd_err = _check_grads(where, (dlp,), (w_dlp,), ("log_probs",))
+    if not torch.equal(dlp, CTC.ctc_fused_bwd(*fused_bwd_args)):
+        raise AssertionError(f"{where}: two fused backward runs differ")
+    nograd = lambda: CTC.ctc_fused_fwd(log_probs, labels, ops[1],  # noqa
+                                       label_mask, C - 1)
+    if not torch.equal(nograd(), f_ll):
+        raise AssertionError(f"{where}: the no-grad fused ll differs")
     row = dict(B=B, T=T, L=L, S=S, frames=in_lens.tolist(),
                characters=lab_lens.tolist(), fwd_max_abs_err=fwd_err,
-               bwd_max_abs_err=bwd_err, bwd_bit_equal=True)
+               bwd_max_abs_err=bwd_err, fused_fwd_max_abs_err=fused_fwd_err,
+               fused_bwd_max_abs_err=fused_bwd_err, bwd_bit_equal=True,
+               plan=CTC.ctc_plan(S, C))
     labs = labels.cpu().numpy()
     repeats = np.array([int((labs[b, 1:n] == labs[b, :n - 1]).sum())
                         if n > 1 else 0 for b, n in enumerate(lab_lens)])
     ok = torch.from_numpy(lab_lens + repeats <= in_lens).cuda()
-    lib, nll = _ctc_library(log_probs, labels, in_lens, lab_lens, C)
+    lib, nll = _ctc_library(log_probs, labels, label_mask, in_lens,
+                            lab_lens, C)
     row.update(lib, feasible_rows=int(ok.sum()),
                infeasible_ll=ll[~ok].tolist(),
-               library_max_rel_err=((-ll[ok] - nll[ok]).abs()
-                                    / nll[ok].abs()).max().item())
+               library_max_rel_err=max(
+                   ((-x[ok] - nll[ok]).abs() / nll[ok].abs()).max().item()
+                   for x in (ll, f_ll)))
     if not row["library_max_rel_err"] <= 1e-4:
         raise AssertionError(f"{where}: ll against F.ctc_loss: {row}")
+    # the port's path from the log-probs runs the fused kernels alone: no
+    # gather, no scatter, no gathered kernel
+    path = " ".join(row["path_kernels"])
+    if "ctc_fused_fwd_kernel" not in path \
+            or "ctc_fused_bwd_kernel" not in path \
+            or any(k in path.lower() for k in ("gather", "scatter",
+                                               "ctc_alpha_fwd_kernel",
+                                               "ctc_bwd_kernel")):
+        raise AssertionError(f"{where}: the path ran {row['path_kernels']}")
     # ms: the kernel's device time (torch.profiler); call_ms: CUDA events
     # around one wrapper call, median of 50; plain_ms: the plain version,
     # median of 10
-    for kind, kernel, plain, args in (
-            ("fwd", CTC.ctc_alpha_fwd, CTC.ctc_forward_plain, ops),
-            ("bwd", CTC.ctc_bwd, CTC.ctc_bwd_plain, (*ops, alphas, ll, g))):
-        row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
-            lambda: kernel(*args), f"{kernel.__name__}_kernel")
-        row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
-        row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
+    fused = (log_probs, labels, ops[1], label_mask, C - 1)
+    for kind, kernel, name, call, plain in (
+            ("fwd", CTC.ctc_alpha_fwd, "ctc_alpha_fwd_kernel",
+             lambda: CTC.ctc_alpha_fwd(*ops),
+             lambda: CTC.ctc_forward_plain(*ops)),
+            ("bwd", CTC.ctc_bwd, "ctc_bwd_kernel",
+             lambda: CTC.ctc_bwd(*ops, alphas, ll, g),
+             lambda: CTC.ctc_bwd_plain(*ops, alphas, ll, g)),
+            ("fused_fwd", CTC.ctc_fused_fwd, "ctc_fused_fwd_kernel",
+             lambda: CTC.ctc_fused_fwd(*fused, grad=True),
+             lambda: CTC.ctc_fused_forward_plain(*fused)),
+            ("fused_fwd_nograd", CTC.ctc_fused_fwd, "ctc_fused_fwd_kernel",
+             nograd, None),
+            ("fused_bwd", CTC.ctc_fused_bwd, "ctc_fused_bwd_kernel",
+             lambda: CTC.ctc_fused_bwd(*fused_bwd_args),
+             lambda: CTC.ctc_fused_bwd_plain(*fused_bwd_args))):
+        row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(call, name)
+        row[f"{kind}_call_ms"] = _time_ms(call, reps=50)
+        if plain is not None:
+            row[f"{kind}_plain_ms"] = _time_ms(plain, reps=3, warmup=1)
+    row["fused_bwd_library_ms"] = row["bwd_library_ms"]
+    row["fused_fwd_library_ms"] = row["fwd_library_ms"]
     for kind, (bound_ms, bound_by) in _ctc_bounds(
-            B, T, S, in_lens, ops[4].tolist()).items():
+            B, T, S, C, in_lens, ops[4].tolist()).items():
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
-    phase("ctc_kernel_check", **row)
+    # the chain bound: the most live frames of any row (the alpha chain's
+    # frames 1.. with a real frame, the beta chain's the same in reverse)
+    # times the floor of a frame at this S's states a lane
+    P = row["plan"]["per_lane"]
+    live = int(max(int(n) - 1 for n in in_lens))
+    row.update(chain_live_frames=live,
+               chain_floor_us_alpha=floors[P, False],
+               chain_floor_us_beta=floors[P, True])
+    row["fwd_chain_bound_ms"] = 1e-3 * live * floors[P, False]
+    row["bwd_chain_bound_ms"] = 1e-3 * live * floors[P, True]
+    row["fused_fwd_nograd_chain_bound_ms"] = row["fwd_chain_bound_ms"]
+    row["fused_fwd_chain_bound_ms"] = max(row["fwd_chain_bound_ms"],
+                                          row["bwd_chain_bound_ms"])
+    phase("ctc_kernel_check", **{k: v for k, v in row.items()
+                                 if not k.endswith("_trace")})
     return row
 
 
 def check_ctc_kernels():
-    return [check_ctc_shape(B, T, L, seed=B + T + L) for B, T, L in CTC_SHAPES]
+    # the floor at 1, 2 and 4 states a lane (the shapes here take 1): what a
+    # lane's further states cost on the chain
+    floors = {(P, beta): _chain_floor_us(P, beta)
+              for P in (1, 2, 4) for beta in (False, True)}
+    phase("ctc_chain_floor", us_a_frame={f"P{P}_{'beta' if b else 'alpha'}":
+                                         v for (P, b), v in floors.items()})
+    return [check_ctc_shape(B, T, L, B + T + L, floors)
+            for B, T, L in CTC_SHAPES]
+
+
+def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
+    """The host split of the fused wrappers' launch paths, piece by piece
+    and whole (today's), and of ``ctc_loss``'s spelling before them (the
+    baseline: the extended labels, the gather, the casts, per-tensor
+    checks, a device guard and ``current_stream()``, the gathered kernel;
+    backward: the gathered kernel and the gather's scatter-add):
+    (fwd baseline, fwd now, bwd baseline, bwd now) groups for
+    ``_split_us``."""
+    from paddle_tpu_torch.layers.chain import extended_labels
+    B, T, C = log_probs.shape
+    L = labels.shape[1]
+    S = 2 * L + 1
+    dev = log_probs.device
+    idx = log_probs.get_device()
+    ll, alphas, betas = CTC.ctc_fused_fwd(log_probs, labels, in_mask,
+                                          label_mask, blank, grad=True)
+    ext, ext_lens, valid_s, can_skip = extended_labels(labels, label_mask,
+                                                       blank)
+    emit = torch.gather(log_probs, 2, ext[:, None, :].expand(B, T, S))
+    g_ops = (emit, in_mask, valid_s.float(), can_skip.float(), ext_lens)
+    g_alphas, g_ll = CTC.ctc_alpha_fwd(*g_ops)
+    f_fwd = build.bind("ctc", "ctc_fused_fwd", 7, 7)
+    f_bwd = build.bind("ctc", "ctc_fused_bwd", 8, 8)
+    a_fwd = build.bind("ctc", "ctc_alpha_fwd", 7, 3)
+    a_bwd = build.bind("ctc", "ctc_bwd", 9, 3)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(B, device=dev)
+    dlp = torch.empty(B, T, C, device=dev)
+    demit = torch.empty(B, T, S, device=dev)
+    fwd_args = (log_probs.data_ptr(), labels.data_ptr(), in_mask.data_ptr(),
+                label_mask.data_ptr(), None, None, out.data_ptr(), B, T, L,
+                C, blank, 1, 1, stream)
+    bwd_args = (labels.data_ptr(), in_mask.data_ptr(),
+                label_mask.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
+                ll.data_ptr(), g.data_ptr(), dlp.data_ptr(), B, T, L, C,
+                blank, 1, 1, 1, stream)
+    gf_args = tuple(t.data_ptr() for t in g_ops) + (
+        g_alphas.data_ptr(), out.data_ptr(), B, T, S, stream)
+    gb_args = tuple(t.data_ptr() for t in g_ops) + (
+        g_alphas.data_ptr(), g_ll.data_ptr(), g.data_ptr(),
+        demit.data_ptr(), B, T, S, stream)
+
+    def base_checks(kernel, **more):
+        d = build.cuda_device(kernel, emit)
+        build.check_tensors(kernel, d, emit=(emit, (B, T, S)),
+                            in_mask=(in_mask, (B, T)),
+                            valid_s=(g_ops[2], (B, S)),
+                            can_skip=(g_ops[3], (B, S)), **more)
+        if ext_lens.dtype != torch.int32 or ext_lens.device != d:
+            raise ValueError(kernel)
+
+    def guard_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    def base_fwd():
+        ext, ext_lens, valid_s, can_skip = extended_labels(labels,
+                                                           label_mask, blank)
+        e = torch.gather(log_probs, 2,
+                         ext[:, None, :].expand(B, T, S)).contiguous()
+        ops = (e, in_mask.contiguous(), valid_s.float().contiguous(),
+               can_skip.float().contiguous(),
+               ext_lens.to(torch.int32).contiguous())
+        base_checks("ctc_alpha_fwd")
+        a, o = torch.empty((B, T, S), device=dev), torch.empty(B, device=dev)
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream().cuda_stream
+            build.raise_on(a_fwd(*(t.data_ptr() for t in ops), a.data_ptr(),
+                                 o.data_ptr(), B, T, S, st), "ctc_alpha_fwd")
+
+    def scatter():
+        return torch.zeros_like(log_probs).scatter_add_(
+            2, ext[:, None, :].expand(B, T, S), demit)
+
+    def base_bwd():
+        base_checks("ctc_bwd", alphas=(g_alphas, (B, T, S)), ll=(g_ll, (B,)),
+                    g=(g, (B,)))
+        d = torch.empty((B, T, S), device=dev)
+        with torch.cuda.device(dev):
+            st = torch.cuda.current_stream().cuda_stream
+            build.raise_on(a_bwd(*gb_args[:8], d.data_ptr(), B, T, S, st),
+                           "ctc_bwd")
+        scatter()
+
+    fused = (labels, in_mask, label_mask, blank, C)
+    return (
+        dict(ext=lambda: extended_labels(labels, label_mask, blank),
+             gather=lambda: torch.gather(log_probs, 2,
+                                         ext[:, None, :].expand(B, T, S)),
+             casts=lambda: (in_mask.to(torch.float32), valid_s.float(),
+                            can_skip.float(), ext_lens.to(torch.int32)),
+             checks=lambda: base_checks("ctc_alpha_fwd"),
+             alloc=lambda: (torch.empty((B, T, S), device=dev),
+                            torch.empty(B, device=dev)),
+             guard_stream=guard_stream,
+             ctypes_call=lambda: a_fwd(*gf_args), whole=base_fwd),
+        dict(checks=lambda: CTC._check_fused(
+                 "ctc_fused_fwd", labels, in_mask, label_mask, blank, C,
+                 (("log_probs", log_probs, (B, T, C)),)),
+             alloc=lambda: log_probs.new_empty((B,)),
+             guard_stream=lambda: (torch.cuda.current_device() == idx,
+                                   torch._C._cuda_getCurrentRawStream(idx)),
+             ctypes_call=lambda: f_fwd(*fwd_args),
+             whole=lambda: CTC.ctc_fused_fwd(log_probs, labels, in_mask,
+                                             label_mask, blank)),
+        dict(checks=lambda: base_checks("ctc_bwd",
+                                        alphas=(g_alphas, (B, T, S)),
+                                        ll=(g_ll, (B,)), g=(g, (B,))),
+             alloc=lambda: torch.empty((B, T, S), device=dev),
+             guard_stream=guard_stream,
+             ctypes_call=lambda: a_bwd(*gb_args), scatter=scatter,
+             whole=base_bwd),
+        dict(checks=lambda: CTC._check_fused(
+                 "ctc_fused_bwd", labels, in_mask, label_mask, blank, C,
+                 (("alphas", alphas, (B, T, S)), ("betas", betas, (B, T, S)),
+                  ("ll", ll, (B,)), ("g", g, (B,)))),
+             alloc=lambda: alphas.new_empty((B, T, C)),
+             guard_stream=lambda: (torch.cuda.current_device() == idx,
+                                   torch._C._cuda_getCurrentRawStream(idx)),
+             ctypes_call=lambda: f_bwd(*bwd_args),
+             whole=lambda: CTC.ctc_fused_bwd(*fused, alphas, betas, ll, g)))
+
+
+def check_ctc_host_split():
+    """The host split (``_split_us``: median of 5 interleaved rounds of 400
+    calls) of both fused wrappers' launch paths at the acoustic model's
+    shape (CTC_SHAPES[0]), ``ctc_loss``'s spelling before them replayed
+    beside today's, and of ``ctc_loss``'s entries (no grad: the alpha
+    chains; training: ``CtcFusedFunction``, its autograd share)."""
+    from paddle_tpu_torch.layers.chain import ctc_loss
+    B, T, L = CTC_SHAPES[0]
+    C = DS2["chars"] + 1
+    _, g, log_probs, labels, label_mask, _, in_lens = _ctc_inputs(B, T, L, 5)
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).cuda()
+    base_f, now_f, base_b, now_b = _ctc_pieces(log_probs, labels, in_mask,
+                                               label_mask, C - 1, g)
+    leaf = log_probs.detach().clone().requires_grad_(True)
+    got = _split_us(dict(
+        fwd_baseline=(False, base_f), fwd_now=(False, now_f),
+        bwd_baseline=(False, base_b), bwd_now=(False, now_b),
+        infer=(False, dict(infer_entry=lambda: ctc_loss(
+            log_probs, labels, in_mask, label_mask, C - 1))),
+        train=(True, dict(train_entry=lambda: ctc_loss(
+            leaf, labels, in_mask, label_mask, C - 1)))))
+    row = dict(B=B, T=T, L=L, host_us_fwd_baseline=got["fwd_baseline"],
+               host_us_fwd=got["fwd_now"],
+               host_us_bwd_baseline=got["bwd_baseline"],
+               host_us_bwd=got["bwd_now"],
+               host_us_entry=dict(
+                   infer_entry=got["infer"]["infer_entry"],
+                   train_entry=got["train"]["train_entry"],
+                   autograd=got["train"]["train_entry"]
+                   - got["infer"]["infer_entry"]))
+    phase("ctc_host_split", **row)
+    return row
+
+
+def ctc_kernels():
+    """``--ctc-kernels``: phase 6b alone (both operand forms at every
+    CTC_SHAPES row with ``F.ctc_loss`` beside them, the chain floor, the
+    host split of the fused wrappers); rows in ``ctc_kernels.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["ctc"])
+    out = dict(ctc_shapes=check_ctc_kernels(),
+               ctc_host_split=check_ctc_host_split())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ctc_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 # ------------------------------------------ 7. flash-attention kernel check
@@ -3572,8 +3901,8 @@ _TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
            "lstm_bwd_chain": "lstm_bwd_chain_kernel",
            "gru_seq_train": "gru_persistent_kernel",
            "gru_bwd_chain": "gru_bwd_chain_kernel",
-           "ctc_alpha_fwd": "ctc_alpha_fwd_kernel",
-           "ctc_bwd": "ctc_bwd_kernel", "adam": "adam_kernel"}
+           "ctc_fused_fwd": "ctc_fused_fwd_kernel",
+           "ctc_fused_bwd": "ctc_fused_bwd_kernel", "adam": "adam_kernel"}
 
 
 def _step_trace(build_model, save_dir, optimizer, feed):
@@ -3640,11 +3969,12 @@ def _step_trace(build_model, save_dir, optimizer, feed):
 def train_acoustic(tmp):
     """--job train of the CTC acoustic model at DeepSpeech2's width
     (Adam(2e-4), 3 passes over 4 fixed batches of 16, --save_dir): the
-    cost falls and the counts show the CTC kernels, the residual GRU
-    kernel, its backward step and Adam; the full-width gradients (4 rows,
-    one with an empty transcript) card against CPU; --job test on 2 more
-    batches (cost, ctc_edit_distance; the CTC forward and the primal GRU
-    kernel launched, the CTC backward not)."""
+    cost falls and the counts show the fused CTC kernels (once each a
+    step), the residual GRU kernel, its backward chain and Adam; the
+    full-width gradients (4 rows, one with an empty transcript) card
+    against CPU; --job test on 2 more batches (cost, ctc_edit_distance;
+    the fused CTC forward and the primal GRU kernel launched, the
+    posterior pass not)."""
     from paddle_tpu_torch.optim import Adam
     conf = os.path.join(tmp, "acoustic_conf.py")
     _write_ds2_config(conf)
@@ -3664,11 +3994,18 @@ def train_acoustic(tmp):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"acoustic pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("ctc_alpha_fwd", "ctc_bwd", "gru_seq_train",
+    for name in ("ctc_fused_fwd", "ctc_fused_bwd", "gru_seq_train",
                  "gru_bwd_chain", "adam"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"acoustic --job train never launched "
                                  f"{name}")
+    # the layer takes the fused kernels: one forward (both chains) and one
+    # posterior pass a step, no gathered kernel
+    if (counts["ctc_fused_fwd"]["launches"], counts["ctc_fused_bwd"][
+            "launches"], counts["ctc_alpha_fwd"]["launches"], counts[
+            "ctc_bwd"]["launches"]) != (summary["steps"], summary["steps"],
+                                        0, 0):
+        raise AssertionError(f"acoustic --job train CTC launches {counts}")
     # the persistent route: one chain a GRU layer and step (6 x 12), no
     # per-step backward
     chains = DS2["layers"] * 2 * DS2_PASSES * DS2_BATCHES
@@ -3701,12 +4038,12 @@ def train_acoustic(tmp):
     if set(test) != {"cost", "ctc_edit_distance"} or not all(
             np.isfinite(list(test.values()))):
         raise AssertionError(f"acoustic --job test printed {line}")
-    for name in ("ctc_alpha_fwd", "gru_seq"):
+    for name in ("ctc_fused_fwd", "gru_seq"):
         if test_counts[name]["launches"] <= 0:
             raise AssertionError(f"acoustic --job test never launched "
                                  f"{name}")
-    if test_counts["ctc_bwd"]["launches"] != 0:
-        raise AssertionError("acoustic --job test launched ctc_bwd")
+    if test_counts["ctc_fused_bwd"]["launches"] != 0:
+        raise AssertionError("acoustic --job test launched ctc_fused_bwd")
     from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
                                                      load_params)
     n_params = sum(int(np.asarray(v).size) for v in
@@ -3820,6 +4157,10 @@ def main() -> int:
     parser.add_argument("--flash-kernels", action="store_true",
                         help="only phase 7 for the flash-attention kernels "
                         "(every FLASH_SHAPES row, SDPA beside them)")
+    parser.add_argument("--ctc-kernels", action="store_true",
+                        help="only phase 6b for the CTC kernels (both "
+                        "operand forms at every CTC_SHAPES row, F.ctc_loss "
+                        "beside them, the chain floor, the host split)")
     args = parser.parse_args()
     t_start = time.perf_counter()
     check_device()
@@ -3836,6 +4177,9 @@ def main() -> int:
     if args.flash_kernels:
         flash_kernels()
         return 0
+    if args.ctc_kernels:
+        ctc_kernels()
+        return 0
     build_kernels()
     rows, serve_rows = check_kernels()
     train_rows, reverse_err, opt_rows = check_train_kernels()
@@ -3843,6 +4187,7 @@ def main() -> int:
     lstm_cell_rows = check_lstm_cells()
     crf_rows, tag_lstm_rows = check_crf_kernels()
     ctc_rows = check_ctc_kernels()
+    ctc_split = check_ctc_host_split()
     flash_rows = check_flash_kernels()
     flash_split = check_flash_host_split()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4116,6 +4461,32 @@ def main() -> int:
              on_path=False, kernel_route="two-launch",
              path="none: the two-launch route's backward (H above the "
                   "route line); timed here at the acoustic model's shape"),
+        dict(_entry("ctc_fused_fwd", ctc_src, "paddle_tpu/ops/ctc.py:87",
+                    ac_counts["ctc_fused_fwd"]["launches"]
+                    + ac_test["ctc_fused_fwd"]["launches"],
+                    max(r["fused_fwd_max_abs_err"] for r in ctc_rows),
+                    ctc_row, "fused_fwd_"),
+             shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             call_ms=ctc_row["fused_fwd_call_ms"],
+             nograd_ms=ctc_row["fused_fwd_nograd_ms"],
+             nograd_call_ms=ctc_row["fused_fwd_nograd_call_ms"],
+             chain_bound_ms=ctc_row["fused_fwd_chain_bound_ms"],
+             port_path_ms=ctc_row["fwd_port_path_ms"],
+             baseline_path_ms=ctc_row["fwd_baseline_path_ms"],
+             library=f"torch.nn.functional.ctc_loss forward ({ctc_lib})",
+             path="CTC acoustic model train (alpha and beta chains) and "
+                  "test (alpha chains)"),
+        dict(_entry("ctc_fused_bwd", ctc_src,
+                    "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)",
+                    ac_counts["ctc_fused_bwd"]["launches"],
+                    max(r["fused_bwd_max_abs_err"] for r in ctc_rows),
+                    ctc_row, "fused_bwd_"),
+             shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             call_ms=ctc_row["fused_bwd_call_ms"],
+             port_path_ms=ctc_row["bwd_port_path_ms"],
+             baseline_path_ms=ctc_row["bwd_baseline_path_ms"],
+             library=f"torch.nn.functional.ctc_loss backward ({ctc_lib})",
+             path="CTC acoustic model train (the posterior pass)"),
         dict(_entry("ctc_alpha_fwd", ctc_src, "paddle_tpu/ops/ctc.py:87",
                     ac_counts["ctc_alpha_fwd"]["launches"]
                     + ac_test["ctc_alpha_fwd"]["launches"],
@@ -4123,9 +4494,11 @@ def main() -> int:
                     "fwd_"),
              shape={k: ctc_row[k] for k in ("B", "T", "S")},
              call_ms=ctc_row["fwd_call_ms"],
-             port_path_ms=ctc_row["fwd_port_path_ms"],
+             chain_bound_ms=ctc_row["fwd_chain_bound_ms"],
              library=f"torch.nn.functional.ctc_loss forward ({ctc_lib})",
-             path="CTC acoustic model train and test"),
+             on_path=False,
+             path="none: the gathered form (ops/ctc.py:ctc_ll, JAX's "
+                  "operands); timed here at the acoustic model's shape"),
         dict(_entry("ctc_bwd", ctc_src,
                     "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)",
                     ac_counts["ctc_bwd"]["launches"],
@@ -4133,9 +4506,11 @@ def main() -> int:
                     "bwd_"),
              shape={k: ctc_row[k] for k in ("B", "T", "S")},
              call_ms=ctc_row["bwd_call_ms"],
-             port_path_ms=ctc_row["bwd_port_path_ms"],
+             chain_bound_ms=ctc_row["bwd_chain_bound_ms"],
              library=f"torch.nn.functional.ctc_loss backward ({ctc_lib})",
-             path="CTC acoustic model train"),
+             on_path=False,
+             path="none: the gathered form's beta chain; timed here at the "
+                  "acoustic model's shape"),
     ]
     for e in entries:
         if e.get("on_path", True) and e["launches"] <= 0:
@@ -4156,6 +4531,7 @@ def main() -> int:
                    "tagger_lstm_shapes": tag_lstm_rows,
                    "flash_shapes": flash_rows,
                    "flash_host_split": flash_split, "ctc_shapes": ctc_rows,
+                   "ctc_host_split": ctc_split,
                    "train": trained, "serve": served, "seq2seq": s2s,
                    "seq2seq_generate_serve": gen_served,
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,

@@ -9,10 +9,14 @@ potential b, rows 2.. the transitions w[prev, next]. The likelihood's log Z
 and the Viterbi decode run through ``ops/crf.py`` (the CUDA kernels on the
 card); the gold-path score is gathered in plain torch under autograd.
 
-CTC builds the blank-interleaved extended labels and gathers the
-emissions in plain torch (autograd's scatter-add is the gather's
-transpose), and runs the alpha and beta recursions through ``ops/ctc.py``
-(the CUDA kernels on the card).
+CTC hands the log-probs and the labels to ``ops/ctc.py:
+ctc_ll_from_log_probs``: on the card the fused kernels derive the
+blank-interleaved extended labels themselves, read the log-probs at them
+and write the gradient into the log-probs; on the CPU the plain
+composition builds the extended labels, gathers the emissions (autograd's
+scatter-add is the gather's transpose) and runs the recursions' plain
+versions. ``extended_labels`` lives in ``ops/ctc.py`` and is re-exported
+here.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
                                             register_layer)
 from paddle_tpu_torch.ops.crf import crf_log_z, crf_viterbi
-from paddle_tpu_torch.ops.ctc import ctc_ll
+from paddle_tpu_torch.ops.ctc import (  # noqa: F401 (re-export)
+    ctc_ll_from_log_probs, extended_labels)
 
 
 def crf_log_likelihood(x, labels, mask, w):
@@ -110,42 +115,14 @@ class CRFDecodingLayer(LayerImpl):
 
 
 # --------------------------------------------------------------------- CTC
-def extended_labels(labels, label_mask, blank):
-    """The blank-interleaved extended labels of ``paddle_tpu/layers/
-    chain.py:ctc_loss``: ext [B, S] = [blank, l1, blank, l2, ..., blank]
-    (S = 2 L + 1, long), ext_lens [B] = 2 L_b + 1 (int32, L_b the sum of
-    ``label_mask``), valid_s [B, S] (s < ext_lens) and can_skip [B, S] (the
-    jump from s-2 to s: ext[s] is no blank and differs from ext[s-2]),
-    both bool."""
-    B, S = labels.shape[0], 2 * labels.shape[1] + 1
-    dev = labels.device
-    ext = torch.full((B, S), int(blank), dtype=torch.long, device=dev)
-    ext[:, 1::2] = labels.long()
-    ext_lens = 2 * label_mask.sum(dim=1).to(torch.int32) + 1
-    valid_s = torch.arange(S, device=dev)[None, :] < ext_lens[:, None]
-    ext_m2 = torch.cat([torch.full((B, 2), -1, dtype=torch.long,
-                                   device=dev), ext], dim=1)[:, :S]
-    can_skip = (ext != blank) & (ext != ext_m2)
-    return ext, ext_lens, valid_s, can_skip
-
-
 def ctc_loss(log_probs, labels, in_mask, label_mask, blank):
-    """Per-sequence CTC negative log-likelihood [B], spelled as
+    """Per-sequence CTC negative log-likelihood [B], the function of
     ``paddle_tpu/layers/chain.py:ctc_loss``. log_probs [B,T,C] log softmax
     outputs; labels [B,L] ints (no blanks); in_mask [B,T]; label_mask
     [B,L]; blank a class id. Empty transcripts (``ext_lens`` = 1) count
     the blank path only."""
-    B, T, _ = log_probs.shape
-    ext, ext_lens, valid_s, can_skip = extended_labels(labels, label_mask,
-                                                       blank)
-    # the emissions of every (t, extended state), gathered once (autograd's
-    # scatter-add is the gather's transpose); the recursions run in
-    # ops/ctc.py
-    emit = torch.gather(log_probs, 2,
-                        ext[:, None, :].expand(B, T, ext.shape[1]))
-    dt = log_probs.dtype
-    return -ctc_ll(emit, in_mask.to(dt), valid_s.to(dt), can_skip.to(dt),
-                   ext_lens)
+    return ctc_ll_from_log_probs(log_probs, labels, in_mask, label_mask,
+                                 blank, negate=True)
 
 
 @register_layer("ctc", "warp_ctc")

@@ -12,7 +12,8 @@ def _wrappers() -> dict:
                                                     lstm_cell_infer)
     from paddle_tpu_torch.ops.attention import flash_bwd, flash_fwd
     from paddle_tpu_torch.ops.crf import crf_alpha_fwd, crf_bwd, crf_viterbi
-    from paddle_tpu_torch.ops.ctc import ctc_alpha_fwd, ctc_bwd
+    from paddle_tpu_torch.ops.ctc import (ctc_alpha_fwd, ctc_bwd,
+                                          ctc_fused_bwd, ctc_fused_fwd)
     from paddle_tpu_torch.ops.gru import gru_bwd_chain, gru_bwd_step, \
         gru_seq, gru_seq_train
     from paddle_tpu_torch.ops.lstm import lstm_bwd_chain, lstm_bwd_step, \
@@ -27,6 +28,7 @@ def _wrappers() -> dict:
             "crf_alpha_fwd": crf_alpha_fwd,
             "crf_bwd": crf_bwd, "crf_viterbi": crf_viterbi,
             "ctc_alpha_fwd": ctc_alpha_fwd, "ctc_bwd": ctc_bwd,
+            "ctc_fused_fwd": ctc_fused_fwd, "ctc_fused_bwd": ctc_fused_bwd,
             "flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "momentum": momentum, "adam": adam}
 

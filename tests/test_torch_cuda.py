@@ -8,7 +8,7 @@ and a per-step backward above the route line), the GRU cell on both
 routes (one launch a step on thread block clusters; two launches), the
 Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
 the flash-attention forward and backward kernels, the CTC alpha and beta
-kernels) against
+chains in both operand forms and the fused posterior pass) against
 their plain PyTorch versions, on the card. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
@@ -1066,8 +1066,9 @@ def _ctc_inputs(B, T, C, L, seed, device):
     (16, 400, 29, 66),   # the acoustic model's shape, with the edge rows
     (1, 400, 29, 66),    # batch 1
     (5, 9, 6, 4),        # T = 2 L + 1 for the full rows
-    (4, 700, 29, 320),   # S = 641: two states per thread
-    (2, 4400, 29, 2150)])  # S = 4301: sixteen states per thread
+    (4, 700, 29, 320),   # S = 641: eight states a lane, 3 warps
+    (2, 4400, 29, 2150),  # S = 4301: sixteen states a lane, 9 warps
+    (2, 12500, 29, 6000)])  # S = 12,001, above the former limit of 8192
 def test_ctc_kernels_match_plain_on_card(cuda_device, B, T, C, L):
     """alphas and ll within rtol 1e-4 / atol 1e-5 of the plain versions
     (their NEG entries equal: an unreachable state and the infeasible row's
@@ -1114,9 +1115,11 @@ def test_ctc_kernels_match_plain_on_card(cuda_device, B, T, C, L):
 @pytest.mark.cuda
 def test_ctc_kernels_reject_bad_inputs(cuda_device):
     """A CPU tensor into a CUDA path, a wrong dtype, int64 lengths and an
-    S beyond the kernels' limit all raise with the reason."""
-    emit, in_mask, valid_s, can_skip, ext_lens, g, *_ = _ctc_inputs(
-        2, 6, 5, 2, 0, cuda_device)
+    S just above the kernels' limit (``max_states``: 16 states a lane over
+    32 warps, S = 16,385) all raise with the reason; so do the fused
+    wrappers' float labels, a blank outside [0, C) and S above the limit."""
+    emit, in_mask, valid_s, can_skip, ext_lens, g, log_probs, labels, \
+        lab_lens, _ = _ctc_inputs(2, 6, 5, 2, 0, cuda_device)
     with pytest.raises(ValueError, match="CUDA"):
         tctc.ctc_alpha_fwd(emit, in_mask.cpu(), valid_s, can_skip, ext_lens)
     with pytest.raises(ValueError, match="float32"):
@@ -1124,18 +1127,152 @@ def test_ctc_kernels_reject_bad_inputs(cuda_device):
                            ext_lens)
     with pytest.raises(ValueError, match="int32"):
         tctc.ctc_alpha_fwd(emit, in_mask, valid_s, can_skip, ext_lens.long())
-    S = tctc.MAX_STATES + 1
+    S = tctc.max_states() + 1
+    assert S == 16385
     big = torch.zeros(1, 2, S, device=cuda_device)
     with pytest.raises(ValueError, match="states"):
         tctc.ctc_alpha_fwd(big, in_mask[:1, :2].contiguous(), big[:, 0],
                            big[:, 0], ext_lens[:1])
+    lm = (torch.arange(2, device=cuda_device)[None, :]
+          < torch.from_numpy(lab_lens).to(cuda_device)[:, None]).float()
+    with pytest.raises(ValueError, match="int32 or int64"):
+        tctc.ctc_fused_fwd(log_probs, labels.float(), in_mask, lm, 4)
+    with pytest.raises(ValueError, match="blank"):
+        tctc.ctc_fused_fwd(log_probs, labels, in_mask, lm, 5)
+    wide = torch.zeros(1, (S - 1) // 2, dtype=torch.int32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="states"):
+        tctc.ctc_fused_fwd(log_probs[:1], wide, in_mask[:1], wide.float(), 4)
+
+
+def _fused_run(log_probs, labels, in_mask, label_mask, blank, g):
+    """(ll, alphas, betas, d log_probs) of the fused kernels."""
+    C = log_probs.shape[2]
+    ll, alphas, betas = tctc.ctc_fused_fwd(log_probs, labels, in_mask,
+                                           label_mask, blank, grad=True)
+    dlp = tctc.ctc_fused_bwd(labels, in_mask, label_mask, blank, C, alphas,
+                             betas, ll, g)
+    return ll, alphas, betas, dlp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C,L", [
+    (16, 400, 29, 66),   # the acoustic model's shape, with the edge rows
+    (1, 400, 29, 66),    # batch 1
+    (5, 9, 6, 4),        # T = 2 L + 1 for the full rows
+    (4, 700, 29, 320),   # S = 641
+    (2, 4400, 29, 2150),  # S = 4301
+    (2, 12500, 29, 6000)])  # S = 12,001, above the former limit of 8192
+def test_ctc_fused_kernels_match_plain_on_card(cuda_device, B, T, C, L):
+    """The fused forward (both chains in one launch) and the posterior
+    pass from the log-probs, int64 and int32 labels: alphas, betas and ll
+    within rtol 1e-4 / atol 1e-5 of ``ctc_fused_forward_plain`` (NEG
+    entries equal), d log_probs within 1e-4 of its largest entry + 1e-5 of
+    ``ctc_fused_bwd_plain`` and of the plain composition (the gather,
+    ``ctc_bwd_plain``, autograd's scatter), two backward runs bit-equal,
+    the no-grad forward's ll the same bits, the loss (``negate``) and its
+    gradient through an expanded cotangent the same bits as the kernels'
+    with the sign taken outside, -ll on the feasible rows within
+    1e-4 relative of ``torch.nn.functional.ctc_loss``, and ids >= C in the
+    padded label slots giving the result of zeros there."""
+    (_, in_mask, _, _, _, g, log_probs, labels, lab_lens,
+     in_lens) = _ctc_inputs(B, T, C, L, B * T + L + 1, cuda_device)
+    blank = C - 1
+    lm = torch.from_numpy((np.arange(L)[None, :] < lab_lens[:, None])
+                          .astype(np.float32)).to(cuda_device)
+    before = (tctc.ctc_fused_fwd.launches, tctc.ctc_fused_bwd.launches)
+    ll, alphas, betas, dlp = _fused_run(log_probs, labels, in_mask, lm,
+                                        blank, g)
+    torch.cuda.synchronize()
+    assert (tctc.ctc_fused_fwd.launches, tctc.ctc_fused_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    w_alphas, w_betas, w_ll = tctc.ctc_fused_forward_plain(
+        log_probs, labels, in_mask, lm, blank)
+    for name, got, want in (("alphas", alphas, w_alphas),
+                            ("betas", betas, w_betas), ("ll", ll, w_ll)):
+        assert torch.isfinite(got).all(), name
+        neg = want < -1e29
+        assert torch.equal(got[neg], want[neg]), name
+        assert (got[~neg] > -1e29).all(), name
+        torch.testing.assert_close(got[~neg], want[~neg], rtol=1e-4,
+                                   atol=1e-5, msg=name)
+    want = tctc.ctc_fused_bwd_plain(labels, in_mask, lm, blank, C, w_alphas,
+                                    w_betas, w_ll, g)
+    # the plain composition: the gather's transpose of ctc_bwd_plain
+    emit, valid_s, can_skip, ext_lens, _ = tctc._fused_operands(
+        log_probs, labels, lm, blank)
+    leaf = log_probs.detach().clone().requires_grad_(True)
+    gathered = tctc._fused_operands(leaf, labels, lm, blank)[0]
+    composed, = torch.autograd.grad(gathered, leaf, tctc.ctc_bwd_plain(
+        emit, in_mask, valid_s, can_skip, ext_lens, w_alphas, w_ll, g))
+    assert torch.isfinite(dlp).all()
+    for ref in (want, composed):
+        err = (dlp - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item() + 1e-5, err
+    assert torch.equal(dlp, tctc.ctc_fused_bwd(labels, in_mask, lm, blank, C,
+                                               alphas, betas, ll, g))
+    assert torch.equal(ll, tctc.ctc_fused_fwd(log_probs, labels, in_mask, lm,
+                                              blank))
+    # the loss (-ll) with its sign taken in the kernels, and the cotangent
+    # autograd's sum expands (stride 0)
+    leaf = log_probs.detach().clone().requires_grad_(True)
+    loss = tctc.ctc_ll_from_log_probs(leaf, labels, in_mask, lm, blank,
+                                      negate=True)
+    assert torch.equal(loss, -ll)
+    assert torch.equal(torch.autograd.grad(loss.sum(), leaf)[0], _fused_run(
+        log_probs, labels, in_mask, lm, blank, -torch.ones_like(g))[3])
+    i32 = _fused_run(log_probs, labels.int(), in_mask, lm, blank, g)
+    assert all(torch.equal(a, b) for a, b in zip(i32, (ll, alphas, betas,
+                                                       dlp)))
+    zeros, wild = labels.clone(), labels.clone()
+    zeros[lm == 0], wild[lm == 0] = 0, C + 7
+    z = _fused_run(log_probs, zeros, in_mask, lm, blank, g)
+    w = _fused_run(log_probs, wild, in_mask, lm, blank, g)
+    assert all(torch.equal(a, b) for a, b in zip(z, w))
+    need = lab_lens + np.array([
+        int((labels[b, 1:lab_lens[b]] == labels[b, :lab_lens[b] - 1])
+            .sum().item()) if lab_lens[b] > 1 else 0 for b in range(B)])
+    ok = torch.from_numpy(need <= in_lens).to(cuda_device)
+    nll = torch.nn.functional.ctc_loss(
+        log_probs.transpose(0, 1), labels, torch.from_numpy(in_lens),
+        torch.from_numpy(lab_lens), blank=blank, reduction="none")
+    torch.testing.assert_close(-ll[ok], nll[ok], rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [0, 29, 40000])
+def test_ctc_plan_matches_the_kernel_smem_on_card(cuda_device, C):
+    """``ctc_plan``'s shared-memory bytes are what the chains and the
+    posterior pass request (their own count, ``ctc_smem``), and
+    ``max_states`` is the kernels' limit, at S from 1 to the limit."""
+    limit = tctc.max_states(C)
+    assert tctc.max_states_of_kernel(C) == limit
+    for S in [S for S in (1, 133, 481, 1025, 4301, 12001, limit)
+              if S <= limit]:
+        plan = tctc.ctc_plan(S, C)
+        assert tctc.ctc_smem_of_kernel("chain", S, C) == plan["smem_chain"]
+        assert tctc.ctc_smem_of_kernel("grad", S, C) == plan["smem_grad"]
+    assert tctc.ctc_smem_of_kernel("chain", limit + 1, C) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("beta", [False, True])
+def test_ctc_chain_floor_matches_plain_on_card(cuda_device, P, beta):
+    """The chain-floor microkernel (the chain's step and lane exchange in
+    one warp) against ``chain_floor_plain`` over 50 frames: rtol 1e-5
+    (the lanes' sums add in another order)."""
+    got = tctc.ctc_chain_floor(50, P, beta)
+    torch.testing.assert_close(got.cpu(), tctc.chain_floor_plain(50, P, beta),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
 def test_ctc_layer_runs_the_kernels_on_card(cuda_device):
     """The ``warp_ctc`` layer's cost and its gradient into the pre-softmax
-    scores on the card (the CTC kernels, launched once each) against the
-    same layer on the CPU (the plain versions)."""
+    scores on the card (the fused CTC kernels, launched once each; the
+    gathered ones not at all) against the same layer on the CPU (the plain
+    versions)."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.argument import Argument
     from paddle_tpu_torch.core.network import Network
@@ -1154,14 +1291,16 @@ def test_ctc_layer_runs_the_kernels_on_card(cuda_device):
     results = []
     for dev in ("cpu", cuda_device):
         leaf = xv.to(dev).requires_grad_(True)
-        before = (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches)
+        kernels = (tctc.ctc_fused_fwd, tctc.ctc_fused_bwd,
+                   tctc.ctc_alpha_fwd, tctc.ctc_bwd)
+        before = [k.launches for k in kernels]
         c = net.apply({}, {"x": Argument(leaf, xm.to(dev)),
                            "y": Argument(yv.to(dev), ym.to(dev))})[
             cost.name].value
         gx, = torch.autograd.grad(c.sum(), leaf)
         if dev != "cpu":
-            assert (tctc.ctc_alpha_fwd.launches, tctc.ctc_bwd.launches) == (
-                before[0] + 1, before[1] + 1)
+            assert [k.launches - n for k, n in zip(kernels, before)] == [
+                1, 1, 0, 0]
         results.append((c.detach().cpu(), gx.cpu()))
     (c_cpu, g_cpu), (c_gpu, g_gpu) = results
     torch.testing.assert_close(c_gpu, c_cpu, rtol=1e-4, atol=1e-5)
