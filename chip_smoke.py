@@ -33,14 +33,38 @@ non-zero without the result line:
    tensor within 1e-4 of the tensor's largest entry + 1e-5: sums over T*B
    rows) against the backward with the plain step; on the persistent
    route the chain alone beside the per-step route's loop alone;
-   reverse through ``LstmFunction`` at (64, 1280); the Momentum and Adam
-   kernels against ``_apply_one`` at every parameter size of both trained
-   models (the h=1280 classifier, the full-width seq2seq) and at 1, 7 and
-   1025 elements (rtol 1e-6 / atol 1e-7: the kernels take the plain
-   chain's roundings). Times: CUDA events, median of 10 calls after
-   warmup, and ``torch.profiler`` device time of the forward's kernel and
-   of every kernel of the backward, beside the bounds (the chain's 2 B 4H
-   H operations a step).
+   reverse through ``LstmFunction`` at (64, 1280). Times: CUDA events,
+   median of 10 calls after warmup, and ``torch.profiler`` device time of
+   the forward's kernel and of every kernel of the backward, beside the
+   bounds (the chain's 2 B 4H H operations a step). Then the optimizer
+   kernels (one multi-tensor launch a step, ``adam_multi_kernel`` and
+   ``momentum_multi_kernel``): the grouped update against ``_apply_one``
+   per tensor at the parameter list of every path that trains on the
+   card (the h=1280 classifier, the full-width seq2seq with and without
+   its self-attention block, the tagger, the acoustic model, the
+   ``lstm_step`` decoder) with per-tensor lr and decay (Adam at t = 3),
+   at a list of views at storage offset 1 (scalar moves) and at a list
+   of 1000 tensors (three tables): max abs error 0 (the kernels take the
+   plain chain's roundings), the inputs unchanged, one launch per table
+   (``opt_update.table_capacity()`` tensors). The per-tensor kernels
+   (one launch a tensor), the "before" of the grouped ones, at every
+   size of those lists and at 1, 7 and 1025, aligned and at storage
+   offset 1: bit-equal to ``_apply_one``, timed by CUDA events and
+   device time. Each path's
+   whole step update timed four ways: the per-tensor loop, the grouped
+   launch, ``torch._fused_adam_`` over the same list (Adam; eps /
+   sqrt(1 - beta2^t) gives Paddle's update) and the bytes bound (28 B an
+   element for Adam, 20 for Momentum), by CUDA events around one call,
+   by CUDA events over 100 calls back to back (the device's time a call
+   where the host path is the shorter) and, for the port's kernels, by
+   device time (``torch.profiler`` at the known launches a call); a
+   device reading below the bytes bound of a list larger than the L2 is
+   refused (null: a trace that lost launches). The host split of the
+   grouped call (routing, allocation, launch, whole; median of 5
+   interleaved rounds of 400 calls) at the tagger's and the acoustic
+   model's lists.
+   ``python3 chip_smoke.py --opt-kernels`` runs only this, ~1 min, into
+   ``chiprun_out/opt_kernels.json``.
 5. GRU kernel check: at every GRU_SHAPES (batch, hidden, T) — the seq2seq
    path's (50, 512, 50), (64, 256, 100), (1, 512, 50) and the CTC
    acoustic model's (16, 1024, 400) — and at GRU_ABOVE_LINE (16, 1536,
@@ -159,11 +183,13 @@ non-zero without the result line:
    (lengths 1-100, padded to 100; ids from the seed, labels from a rule
    on the ids), saving into ``--save_dir``: the cost must be finite and
    fall from pass 0 to pass 2, and the CLI's kernel counts (a fresh
-   process: they start at 0) must show the residual forward and Adam
-   launched, the LSTM on the persistent route (one reverse-chain launch
+   process: they start at 0) must show the residual forward launched and
+   one Adam launch a step (the grouped kernel), the LSTM on the persistent
+   route (one reverse-chain launch
    per layer and step, 0 ``lstm_bwd_step``, one device launch per forward
    call). One pass with the CLI's default optimizer, Momentum, drives the
-   Momentum kernel the same way (and the same route checks). Then one batch's
+   Momentum kernel the same way (one launch a step; the same route
+   checks). Then one batch's
    loss and every parameter gradient at full width (16 rows, lengths
    1-100) from the trained checkpoint, on the card against the plain path
    on the CPU, per tensor within 1e-3 of the CPU tensor's largest entry
@@ -188,7 +214,7 @@ non-zero without the result line:
    from pass 0 to pass 2, and the fresh process's counts must show the
    residual GRU kernel, the GRU backward's reverse-chain kernel (and no
    per-step backward), the GRU cell (one device launch a call: the
-   cluster route) and Adam launched. Then the
+   cluster route) launched and one Adam launch a step. Then the
    full-width gradients (8 rows) from the trained checkpoint, card
    against CPU as in phase 6, and ``--job test`` of the checkpoint on the
    card, whose counts must show the primal GRU kernel and the cell's
@@ -215,7 +241,8 @@ non-zero without the result line:
    with its peepholes, the cell state carried through ``get_output``,
    booted from the average source embedding), trained by ``--job train``
    (Adam(5e-4), 3 passes over phase 10's batches: the cost falls, the
-   counts show lstm_cell and Adam launched), its full-width gradients (8
+   counts show lstm_cell launched and one Adam launch a step), its
+   full-width gradients (8
    rows) card against CPU, then the same step in a beam search (beam 4,
    up to 50 words) of 8 sources from the trained checkpoint on the card
    (counts reset just before, read just after: lstm_cell_infer launched)
@@ -228,7 +255,8 @@ non-zero without the result line:
    passes over 4 fixed batches of 64 synthetic sentences (lengths 5-78,
    padded to 80; tags from a rule on the words): the cost must fall and
    the counts show the CRF forward, backward and Viterbi kernels, the
-   residual LSTM kernel and Adam launched, and the LSTM on the persistent
+   residual LSTM kernel launched, one Adam launch a step, and the LSTM on
+   the persistent
    route (one reverse chain per direction and step, 0 ``lstm_bwd_step``). Then the
    full-width gradients (8 rows) card against CPU as in phase 7, ``--job
    test`` on 2 more batches (cost, error, chunk_f1; the CRF forward, the
@@ -248,7 +276,8 @@ non-zero without the result line:
    characters, each frame its character's or the silence's fixed random
    prototype plus noise): the cost must fall and the counts show the fused
    CTC forward and posterior pass once a step (no gathered CTC kernel),
-   the residual GRU kernel, Adam and one reverse-chain launch per GRU
+   the residual GRU kernel, one Adam launch a step and one reverse-chain
+   launch per GRU
    layer and step (72), with no per-step GRU backward. Then the full-width gradients (4 rows, one with an
    empty transcript) card against CPU as in phase 8, one step on the
    card from the checkpoint timed and traced (``torch.profiler``: device
@@ -284,6 +313,12 @@ runs only phase 7 (the flash kernels at every FLASH_SHAPES row with the
 SDPA yardstick, the wrappers' host split), ~1.5 min, into
 ``flash_kernels.json``.
 
+    python3 chip_smoke.py --opt-kernels
+
+runs only phase 4's optimizer part (the grouped kernels' checks at every
+path's list, the per-tensor kernels at each size, each path's step update
+four ways, the host split), ~1 min, into ``opt_kernels.json``.
+
     python3 chip_smoke.py --ds2-rate-witness
 
 runs only the acoustic model's ``--job train`` at DeepSpeech2's own rate,
@@ -296,7 +331,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import http.client
+import itertools
 import json
 import os
 import queue
@@ -333,7 +370,6 @@ F32_FLOPS = 67e12      # f32 outside the tensor cores
 TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-5)
-OPT_TOL = dict(rtol=1e-6, atol=1e-7)
 T_CHECK = 100
 MODEL = dict(vocab_size=30000, embed_dim=128, hidden=1280, num_layers=2,
              classes=2)
@@ -822,70 +858,393 @@ def check_reverse(B, H, T, seed):
     return err
 
 
-def _model_param_sizes():
-    """Every parameter size of the h=1280 LSTM classifier, the full-width
-    seq2seq model with and without its self-attention block and the
-    CoNLL-2000-width tagger."""
+def path_param_shapes():
+    """{path: [shape of each parameter it trains]} of every path that
+    trains with an optimizer on the card: the h=1280 LSTM classifier, the
+    full-width seq2seq model with and without its self-attention block, the
+    CoNLL-2000-width tagger, the DeepSpeech2-width acoustic model and the
+    ``lstm_step`` decoder (static parameters, which take no update, left
+    out)."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.network import Network
     from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
     from paddle_tpu_torch.models.seq2seq import seq2seq_attention
     from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
-    sizes = set()
-    for build_model in (lambda: lstm_text_classifier(**MODEL),
-                        lambda: seq2seq_attention(**S2S),
-                        lambda: seq2seq_attention(**S2S_ATT),
-                        lambda: bilstm_crf_tagger(**TAGGER)):
+
+    def acoustic():
+        ns, d = _ds2_ns()
+        return ns["acoustic_model"](d)
+
+    out = {}
+    for path, build_model in (
+            ("classifier", lambda: lstm_text_classifier(**MODEL)),
+            ("seq2seq", lambda: seq2seq_attention(**S2S)),
+            ("seq2seq_attention", lambda: seq2seq_attention(**S2S_ATT)),
+            ("tagger", lambda: bilstm_crf_tagger(**TAGGER)),
+            ("acoustic", acoustic),
+            ("lstm_decoder", lambda: (_lstm_decoder(),))):
         dsl.reset()
         cost = build_model()[0]
         specs = Network(dsl.current_graph(), outputs=[cost.name]).param_specs
-        sizes |= {int(np.prod(s.shape)) for s in specs.values()}
-    return sizes
+        out[path] = [tuple(s.shape) for s in specs.values()
+                     if not s.is_static]
+    return out
+
+
+# Adam's step in the optimizer checks; bytes an element moves (p, g and
+# the slots read, p and the slots written)
+OPT_T = 3
+OPT_BYTES = {"adam": 28, "momentum": 20}
+
+
+def _opt_list(shapes, seed, offset=0, varied=True):
+    """A list of updates for ``apply_group`` on the card, (p, g, {"mom",
+    "v"}, lr, decay) a parameter: random values, v >= 0; with ``varied``
+    each tensor's own lr and decay (the per-parameter rates and l2
+    overrides the table carries), else 2e-3 and 1e-3 throughout; with
+    ``offset`` every tensor a view at that storage offset."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shape):
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, generator=g, device="cuda")[
+            offset:].view(shape)
+
+    out = []
+    for i, shape in enumerate(shapes):
+        p, grad, m, v = (make(shape) for _ in range(4))
+        lr, decay = ((2e-3 * (1 + i % 3), 1e-3 * (i % 2)) if varied
+                     else (2e-3, 1e-3))
+        out.append((p, grad, {"mom": m, "v": v.abs_()}, lr, decay))
+    return out
+
+
+def _as_kind(entries, kind):
+    """The list for ``kind``: Momentum's updates carry {"mom"} only."""
+    if kind == "adam":
+        return entries
+    return [(p, g, {"mom": s["mom"]}, lr, d) for p, g, s, lr, d in entries]
+
+
+@functools.lru_cache(maxsize=None)
+def _opt(kind):
+    """The optimizer of the checks: Adam(2e-3) or Momentum(0.9)."""
+    from paddle_tpu_torch.optim import Adam, Momentum
+    return (Adam(learning_rate=2e-3) if kind == "adam"
+            else Momentum(momentum=0.9))
+
+
+def _group_check(kind, entries, where):
+    """``apply_group`` against ``_apply_one`` per tensor on the same card
+    tensors: every output bit-equal (max abs error 0), the inputs
+    unchanged, one launch per table. Returns the max abs error."""
+    from paddle_tpu_torch.kernels import opt_update
+    opt = _opt(kind)
+    counter = getattr(opt_update, kind)
+    before = [(p.clone(), g.clone(), {k: v.clone() for k, v in s.items()})
+              for p, g, s, _, _ in entries]
+    n0 = counter.launches
+    got = opt_update.apply_group(opt, entries, OPT_T)
+    launches = counter.launches - n0
+    tables = -(-len(entries) // opt_update.table_capacity())
+    if launches != tables:
+        raise AssertionError(f"{kind} {where}: {launches} launches for "
+                             f"{len(entries)} tensors ({tables} tables)")
+    err = 0.0
+    for i, ((p, g, s, lr, d), (p2, s2)) in enumerate(zip(entries, got)):
+        want_p, want_s = opt._apply_one(p, g, s, lr, d, OPT_T)
+        for name, a, b in [("p", p2, want_p)] + [(k, s2[k], want_s[k])
+                                                 for k in want_s]:
+            err = max(err, (a - b).abs().max().item())
+            if not torch.equal(a, b):
+                raise AssertionError(f"{kind} {where}: tensor {i} {name} "
+                                     "differs from _apply_one")
+    for i, ((p, g, s, _, _), (p0, g0, s0)) in enumerate(zip(entries,
+                                                           before)):
+        if not (torch.equal(p, p0) and torch.equal(g, g0) and all(
+                torch.equal(s[k], s0[k]) for k in s)):
+            raise AssertionError(f"{kind} {where}: input {i} changed")
+    return err
+
+
+@functools.lru_cache(maxsize=None)
+def _per_tensor_entry(kind):
+    """The per-tensor C entry (``momentum_update``,
+    ``adam_update``), which no path calls since the grouped kernels."""
+    import ctypes
+    fn = getattr(build.load("opt_update"), f"{kind}_update")
+    n_ptr, n_f = (7, 7) if kind == "adam" else (5, 3)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float] * n_f
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _per_tensor_update(kind, p, g, slots, lr, decay):
+    """One tensor's update through the per-tensor wrapper spelling (the
+    checks, three ``empty_like``, a ``torch.cuda.device`` guard,
+    ``current_stream``, ``data_ptr`` and the per-tensor entry): the
+    "before" of the grouped launch, uncounted."""
+    from paddle_tpu_torch.kernels import opt_update
+    opt = _opt(kind)
+    ins = [p, g, slots["mom"]] + ([slots["v"]] if kind == "adam" else [])
+    opt_update._check(kind, ins)
+    outs = [torch.empty_like(p) for _ in range(len(ins) - 1)]
+    scalars = ((opt.alpha(lr, OPT_T), decay, opt.beta1, 1 - opt.beta1,
+                opt.beta2, 1 - opt.beta2, opt.epsilon) if kind == "adam"
+               else (lr, decay, opt.momentum))
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _per_tensor_entry(kind)(
+            *(t.data_ptr() for t in ins + outs), *scalars, p.numel(), stream)
+    build.raise_on(err, kind)
+    return outs
+
+
+def _per_tensor_check(kind, p, g, slots, lr, decay, where):
+    """The per-tensor kernel against ``_apply_one`` on the same card
+    tensors: every output bit-equal. Returns the max abs error."""
+    got = _per_tensor_update(kind, p, g, slots, lr, decay)
+    want_p, want_s = _opt(kind)._apply_one(p, g, slots, lr, decay, OPT_T)
+    err = 0.0
+    for name, a, b in zip(("p", *want_s), got, (want_p, *want_s.values())):
+        err = max(err, (a - b).abs().max().item())
+        if not torch.equal(a, b):
+            raise AssertionError(f"per-tensor {kind} {where}: {name} "
+                                 "differs from _apply_one")
+    return err
+
+
+def _per_size_rows(sizes):
+    """The per-tensor kernels at each size: bit-equal to ``_apply_one``
+    (aligned; and at storage offset 1, scalar moves, at 1, 7 and 1025
+    and the largest size), CUDA events around the wrapper call (median
+    of 10) and device time (``torch.profiler``) of both, beside their
+    bytes bounds. Returns (rows, max abs error by kind)."""
+    rows, err = [], {"adam": 0.0, "momentum": 0.0}
+    for n in sorted(set(sizes) | {1, 7, 1025}):
+        (p, g, s, lr, d), = _opt_list([(n,)], n, varied=False)
+        views = [(p, g, s, lr, d)]
+        if n in (1, 7, 1025, max(sizes)):
+            views += _opt_list([(n,)], n + 1, offset=1)
+        row = dict(n=n)
+        for kind in ("adam", "momentum"):
+            for e in _as_kind(views, kind):
+                err[kind] = max(err[kind], _per_tensor_check(
+                    kind, *e, f"n={n} offset={e[0].storage_offset()}"))
+            sl = s if kind == "adam" else {"mom": s["mom"]}
+            run = functools.partial(_per_tensor_update, kind, p, g, sl, lr, d)
+            row[f"{kind}_ms"] = _time_ms(run)
+            row[f"{kind}_bound_ms"] = 1e3 * OPT_BYTES[kind] * n / \
+                HBM_BYTES_PER_S
+            row[f"{kind}_device_ms"] = _device_reading(
+                row, f"{kind}_device_ms", _device_ms(
+                    run, f"{kind}_kernel", calls=10)[0],
+                row[f"{kind}_bound_ms"], OPT_BYTES[kind] * n)
+        rows.append(row)
+        phase("optimizer_per_size", **row)
+    phase("optimizer_per_tensor_check", max_abs_err=err)
+    return rows, err
+
+
+# the H100's L2: a list whose bytes exceed it streams from HBM every call
+L2_BYTES = 50 * 2 ** 20
+
+
+def _device_reading(row, key, ms, bound_ms, nbytes):
+    """``ms``, or None where it lies below the bytes bound of work larger
+    than the L2 (no card does that: a trace that lost launches), the
+    refused reading then kept in ``row`` under ``key + "_refused"``."""
+    if nbytes > L2_BYTES and ms < bound_ms:
+        row[key + "_refused"] = ms
+        return None
+    return ms
+
+
+def _back_to_back_ms(fn, calls=100):
+    """CUDA events around ``calls`` calls of ``fn`` back to back, over
+    ``calls``: the device's time a call wherever the call's host path is
+    shorter than its device work (the queue never drains), else the
+    host's."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _fused_adam_args(entries):
+    """``torch._fused_adam_`` over clones of the list, with Paddle's
+    update: eps / sqrt(1 - b2^t) (torch divides sqrt(v) by sqrt(1 - b2^t)
+    before it adds eps), the steps at t already taken. The list's lr and
+    decay are one each."""
+    opt = _opt("adam")
+    lr, decay = entries[0][3], entries[0][4]
+    ps = [e[0].clone() for e in entries]
+    gs = [e[1] for e in entries]
+    ms = [e[2]["mom"].clone() for e in entries]
+    vs = [e[2]["v"].clone() for e in entries]
+    steps = [torch.full((), float(OPT_T), device="cuda") for _ in entries]
+    eps = opt.epsilon / float(np.sqrt(1 - opt.beta2 ** OPT_T))
+    return (ps, gs, ms, vs, [], steps), dict(
+        lr=lr, beta1=opt.beta1, beta2=opt.beta2, weight_decay=decay,
+        eps=eps, amsgrad=False, maximize=False)
+
+
+def _path_step_row(path, shapes, seed):
+    """One path's whole step update at its parameter list: the
+    per-tensor loop, the grouped launch, the plain ``_apply_one`` loop
+    and (Adam) ``torch._fused_adam_``, by CUDA events around one call
+    (median of 10) and over 100 calls back to back
+    (``_back_to_back_ms``), and the port's two by device time
+    (``torch.profiler`` at their known launches a call), beside the bytes
+    bound."""
+    from paddle_tpu_torch.kernels import opt_update
+    entries = _opt_list(shapes, seed, varied=False)
+    n = sum(int(np.prod(sh)) for sh in shapes)
+    row = dict(path=path, tensors=len(shapes), elements=n)
+    for kind in ("adam", "momentum"):
+        opt, lst = _opt(kind), _as_kind(entries, kind)
+        ways = dict(
+            per_tensor=lambda: [_per_tensor_update(kind, *e) for e in lst],
+            grouped=lambda: opt_update.apply_group(opt, lst, OPT_T),
+            plain=lambda: [opt._apply_one(*e, OPT_T) for e in lst])
+        tables = -(-len(lst) // opt_update.table_capacity())
+        counts = dict(per_tensor=(f"{kind}_kernel<", len(lst)),
+                      grouped=(f"{kind}_multi_kernel", tables))
+        bound = row[f"{kind}_bound_ms"] = 1e3 * OPT_BYTES[kind] * n / \
+            HBM_BYTES_PER_S
+        if kind == "adam":
+            args, kw = _fused_adam_args(lst)
+            ways["library"] = lambda: torch._fused_adam_(*args, **kw)
+            torch._fused_adam_(*args, **kw)
+            got = opt_update.apply_group(opt, lst, OPT_T)
+            row["library_max_abs_diff"] = max(
+                (a - b[0]).abs().max().item() for a, b in zip(args[0], got))
+        for way, fn in ways.items():
+            key = f"{kind}_{way}"
+            row[f"{key}_ms"] = _time_ms(fn)
+            if way == "plain":
+                continue
+            row[f"{key}_b2b_ms"] = _device_reading(
+                row, f"{key}_b2b_ms", _back_to_back_ms(fn), bound,
+                OPT_BYTES[kind] * n)
+            if way in counts:
+                frag, per_call = counts[way]
+                row[f"{key}_device_ms"] = _device_reading(
+                    row, f"{key}_device_ms", _device_ms(
+                        fn, frag, calls=10, per_call=per_call)[0], bound,
+                    OPT_BYTES[kind] * n)
+    phase("optimizer_path_step", **row)
+    return row
+
+
+def _opt_host_split(path, shapes, seed):
+    """The host split (``_split_us``: median of 5 interleaved rounds of
+    400 calls) of the grouped Adam call at one path's list: the routing
+    and checks, the allocation of the outputs (three ``empty_like`` a
+    tensor), the launch (the pointers, the arrays, the C entry's tables
+    and launch), all after the routing, the whole call; beside the
+    per-tensor loop and ``torch._fused_adam_`` (in place: no
+    allocation)."""
+    from paddle_tpu_torch.kernels import opt_update
+    opt = _opt("adam")
+    entries = _opt_list(shapes, seed, varied=False)
+    ins = opt_update.route(opt, entries)[2]
+    lrs, decays = [e[3] for e in entries], [e[4] for e in entries]
+    rates = [opt.alpha(lr, OPT_T) for lr in lrs]
+    outs = opt_update.group_outputs(ins)
+    args, kw = _fused_adam_args(entries)
+    got = _split_us(dict(grouped=(False, dict(
+        route=lambda: opt_update.route(opt, entries),
+        alloc=lambda: opt_update.group_outputs(ins),
+        launch=lambda: opt_update.launch(opt, "adam", ins, outs, rates,
+                                         decays),
+        launch_group=lambda: opt_update._launch_group(
+            opt, "adam", ins, lrs, decays, OPT_T),
+        whole=lambda: opt_update.apply_group(opt, entries, OPT_T))),
+        per_tensor=(False, dict(whole=lambda: [
+            _per_tensor_update("adam", *e) for e in entries])),
+        library=(False, dict(whole=functools.partial(
+            torch._fused_adam_, *args, **kw)))))
+    row = dict(path=path, tensors=len(shapes),
+               host_us=got["grouped"],
+               host_us_per_tensor_loop=got["per_tensor"]["whole"],
+               host_us_library=got["library"]["whole"])
+    phase("optimizer_host_split", **row)
+    return row
 
 
 def check_optimizer_kernels():
-    """Momentum and Adam against ``_apply_one`` on the same card tensors,
-    at every parameter size of both trained models and at 1, 7 and 1025;
-    timed at the largest size."""
+    """Phase 4's optimizer part. The grouped Momentum and Adam kernels
+    against ``_apply_one`` per tensor on the same card tensors (max abs
+    error 0, the inputs unchanged, one launch per table) at every path's
+    parameter list with per-tensor lr and decay (Adam at t = 3), at a list
+    of misaligned views (storage offset 1: scalar moves) and at a list of
+    1000 tensors (three tables); the table's capacity as the kernel
+    counts it. The per-tensor kernels timed at every size of those
+    lists; each path's whole step update timed four ways (per-tensor,
+    grouped, ``torch._fused_adam_`` for Adam, the bytes bound); the host
+    split of the grouped call at the tagger's and the acoustic model's
+    lists."""
     from paddle_tpu_torch.kernels import opt_update
-    from paddle_tpu_torch.optim import Adam, Momentum
-    sizes = sorted(_model_param_sizes() | {1, 7, 1025})
-    mo, ad = Momentum(momentum=0.9), Adam(learning_rate=2e-3)
-    lr, decay, t = 2e-3, 1e-3, 3
+    cap = opt_update.table_capacity()
+    lists = path_param_shapes()
+    err = {"adam": 0.0, "momentum": 0.0}
+    rng = np.random.default_rng(SEED)
+    checks = dict(lists, misaligned=lists["tagger"] + [(7,), (1,), (1025,)],
+                  overflow=[(int(n),) for n in rng.integers(1, 5000,
+                                                            size=1000)])
+    for i, (where, shapes) in enumerate(checks.items()):
+        entries = _opt_list(shapes, SEED + i,
+                            offset=1 if where == "misaligned" else 0)
+        for kind in err:
+            err[kind] = max(err[kind], _group_check(
+                kind, _as_kind(entries, kind), where))
+        del entries
+        phase("optimizer_group_check", list=where, tensors=len(shapes),
+              elements=sum(int(np.prod(sh)) for sh in shapes),
+              max_abs_err=err)
+    sizes = sorted({int(np.prod(sh)) for sh in itertools.chain(
+        *lists.values())})
+    per_size, per_tensor_err = _per_size_rows(sizes)
+    paths = [_path_step_row(path, shapes, SEED + 50 + i)
+             for i, (path, shapes) in enumerate(lists.items())]
+    split = [_opt_host_split(path, lists[path], SEED + 70)
+             for path in ("tagger", "acoustic")]
     rows = {}
-    for kind in ("momentum", "adam"):
-        err = 0.0
-        for n in sizes:
-            g = torch.Generator(device="cuda").manual_seed(n)
-            p, grad, m, v = (torch.randn(n, generator=g, device="cuda")
-                             for _ in range(4))
-            slots = {"mom": m} if kind == "momentum" else {"mom": m,
-                                                           "v": v.abs()}
-            if kind == "momentum":
-                run = lambda: opt_update.momentum(mo, p, grad, slots, lr,
-                                                  decay)
-                plain = lambda: mo._apply_one(p, grad, slots, lr, decay, t)
-            else:
-                run = lambda: opt_update.adam(ad, p, grad, slots, lr, decay,
-                                              t)
-                plain = lambda: ad._apply_one(p, grad, slots, lr, decay, t)
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            for gt, wt in zip((got[0], *got[1].values()),
-                              (want[0], *want[1].values())):
-                err = max(err, (gt - wt).abs().max().item())
-                torch.testing.assert_close(
-                    gt, wt, **OPT_TOL, msg=lambda m: f"{kind} n={n}: {m}")
-        # p, g and the slots in, p and the slots out, once each
-        n_slots = 1 if kind == "momentum" else 2
-        bound_ms, bound_by = _bound(
-            (6.0 if kind == "momentum" else 14.0) * n,
-            4 * n * (2 + n_slots + 1 + n_slots))
-        rows[kind] = dict(n=n, sizes=sizes, max_abs_err=err,
-                          ms=_time_ms(run), plain_ms=_time_ms(plain),
-                          bound_ms=bound_ms, bound_by=bound_by)
+    for kind, path in (("adam", "acoustic"), ("momentum", "classifier")):
+        r = next(x for x in paths if x["path"] == path)
+        rows[kind] = dict(
+            path=path, tensors=r["tensors"], elements=r["elements"],
+            max_abs_err=err[kind], table_capacity=cap,
+            ms=r[f"{kind}_grouped_ms"],
+            device_ms=r[f"{kind}_grouped_device_ms"],
+            b2b_ms=r[f"{kind}_grouped_b2b_ms"],
+            per_tensor_ms=r[f"{kind}_per_tensor_ms"],
+            per_tensor_device_ms=r[f"{kind}_per_tensor_device_ms"],
+            per_tensor_max_abs_err=per_tensor_err[kind],
+            plain_ms=r[f"{kind}_plain_ms"], bound_ms=r[f"{kind}_bound_ms"],
+            bound_by="bytes", library_ms=r.get(f"{kind}_library_ms"),
+            library_b2b_ms=r.get(f"{kind}_library_b2b_ms"))
         phase("optimizer_kernel_check", kind=kind, **rows[kind])
-    return rows
+    return dict(rows, per_size=per_size, paths=paths, host_split=split,
+                sizes=sizes)
+
+
+def opt_kernels():
+    """``--opt-kernels``: phase 4's optimizer part alone; rows in
+    ``opt_kernels.json`` in ``OUT_DIR``."""
+    build.build_all(["opt_update"])
+    out = check_optimizer_kernels()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "opt_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 def check_train_kernels():
@@ -2621,6 +2980,15 @@ def check_full_width_grads(save_dir):
         Adam(learning_rate=2e-3)))
 
 
+def _check_opt_launches(where, counts, steps, kind="adam"):
+    """One grouped optimizer launch a step: every path's list fits one
+    table of the multi-tensor kernel."""
+    if counts[kind]["launches"] != steps:
+        raise AssertionError(f"{where}: {counts[kind]['launches']} {kind} "
+                             f"launches in {steps} steps, one a step "
+                             "expected")
+
+
 def _check_lstm_chains(where, counts, chains):
     """The LSTM on a path's persistent route: one reverse-chain launch per
     layer, direction and step (``chains``), no per-step backward, and one
@@ -2664,16 +3032,16 @@ def train(tmp):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("lstm_seq_train", "adam"):
-        if counts[name]["launches"] <= 0:
-            raise AssertionError(f"--job train never launched {name}")
+    if counts["lstm_seq_train"]["launches"] <= 0:
+        raise AssertionError("--job train never launched lstm_seq_train")
+    _check_opt_launches("--job train", counts, summary["steps"])
     _check_lstm_chains("--job train", counts,
                        MODEL["num_layers"] * summary["steps"])
     mom_conf = os.path.join(tmp, "momentum_conf.py")
     _write_config(mom_conf, "# no optimizer: the CLI's default Momentum")
     mom_costs, mom_summary = _train_run(mom_conf, 1)
-    if mom_summary["kernels"]["momentum"]["launches"] <= 0:
-        raise AssertionError("--job train never launched momentum")
+    _check_opt_launches("the Momentum pass", mom_summary["kernels"],
+                        mom_summary["steps"], "momentum")
     _check_lstm_chains("the Momentum pass", mom_summary["kernels"],
                        MODEL["num_layers"] * mom_summary["steps"])
     grads = check_full_width_grads(save_dir)
@@ -2853,11 +3221,12 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"{title} pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("gru_seq_train", "gru_bwd_chain", "gru_cell", "adam",
+    for name in ("gru_seq_train", "gru_bwd_chain", "gru_cell",
                  *train_kernels):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"{title} --job train never launched "
                                  f"{name}")
+    _check_opt_launches(f"{title} --job train", counts, summary["steps"])
     if counts["gru_bwd_step"]["launches"] != 0:
         raise AssertionError(f"{title}: the per-step GRU backward ran on "
                              "the persistent route's shape")
@@ -3554,10 +3923,11 @@ def lstm_decoder_path(tmp):
         raise AssertionError(f"lstm_step decoder pass costs {costs} do not "
                              "fall")
     counts = summary["kernels"]
-    for name in ("lstm_cell", "adam"):
-        if counts[name]["launches"] <= 0:
-            raise AssertionError(f"lstm_step decoder --job train never "
-                                 f"launched {name}")
+    if counts["lstm_cell"]["launches"] <= 0:
+        raise AssertionError("lstm_step decoder --job train never "
+                             "launched lstm_cell")
+    _check_opt_launches("lstm_step decoder --job train", counts,
+                        summary["steps"])
     feed = DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
         _s2s_samples(np.random.default_rng(SEED + 1), S2S_GRAD_ROWS))
     grads = dict(rows=S2S_GRAD_ROWS, **_grads_card_vs_cpu(
@@ -3691,10 +4061,11 @@ def train_tagger(tmp):
     if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
         raise AssertionError(f"tagger pass costs {costs} do not fall")
     counts = summary["kernels"]
-    for name in ("crf_alpha_fwd", "crf_bwd", "crf_viterbi", "lstm_seq_train",
-                 "adam"):
+    for name in ("crf_alpha_fwd", "crf_bwd", "crf_viterbi",
+                 "lstm_seq_train"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"tagger --job train never launched {name}")
+    _check_opt_launches("tagger --job train", counts, summary["steps"])
     _check_lstm_chains("tagger --job train", counts, 2 * summary["steps"])
     samples, batch = _tag_samples()
     rng = np.random.default_rng(SEED + 1)
@@ -3902,7 +4273,8 @@ _TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
            "gru_seq_train": "gru_persistent_kernel",
            "gru_bwd_chain": "gru_bwd_chain_kernel",
            "ctc_fused_fwd": "ctc_fused_fwd_kernel",
-           "ctc_fused_bwd": "ctc_fused_bwd_kernel", "adam": "adam_kernel"}
+           "ctc_fused_bwd": "ctc_fused_bwd_kernel",
+           "adam": "adam_multi_kernel"}
 
 
 def _step_trace(build_model, save_dir, optimizer, feed):
@@ -3995,10 +4367,11 @@ def train_acoustic(tmp):
         raise AssertionError(f"acoustic pass costs {costs} do not fall")
     counts = summary["kernels"]
     for name in ("ctc_fused_fwd", "ctc_fused_bwd", "gru_seq_train",
-                 "gru_bwd_chain", "adam"):
+                 "gru_bwd_chain"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"acoustic --job train never launched "
                                  f"{name}")
+    _check_opt_launches("acoustic --job train", counts, summary["steps"])
     # the layer takes the fused kernels: one forward (both chains) and one
     # posterior pass a step, no gathered kernel
     if (counts["ctc_fused_fwd"]["launches"], counts["ctc_fused_bwd"][
@@ -4134,6 +4507,21 @@ def _cell_route_keys(row):
                 plan=row["plan"])
 
 
+def _opt_keys(row):
+    """The grouped optimizer kernel's list and its other times for its
+    entry."""
+    return dict(shape={"tensors": row["tensors"],
+                       "elements": row["elements"]},
+                path=f"{row['path']} step update (one launch a step)",
+                kernel_route="multi-tensor",
+                table_capacity=row["table_capacity"],
+                device_ms=row["device_ms"],
+                per_tensor_ms=row["per_tensor_ms"],
+                per_tensor_device_ms=row["per_tensor_device_ms"],
+                per_tensor_max_abs_err=row["per_tensor_max_abs_err"],
+                b2b_ms=row["b2b_ms"], library_b2b_ms=row["library_b2b_ms"])
+
+
 def _entry(name, source, replaces, launches, err, row, prefix=""):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4157,6 +4545,10 @@ def main() -> int:
     parser.add_argument("--flash-kernels", action="store_true",
                         help="only phase 7 for the flash-attention kernels "
                         "(every FLASH_SHAPES row, SDPA beside them)")
+    parser.add_argument("--opt-kernels", action="store_true",
+                        help="only phase 4's optimizer part (the grouped "
+                        "Momentum and Adam kernels at every path's list, "
+                        "torch._fused_adam_ beside them, the host split)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -4179,6 +4571,9 @@ def main() -> int:
         return 0
     if args.ctc_kernels:
         ctc_kernels()
+        return 0
+    if args.opt_kernels:
+        opt_kernels()
         return 0
     build_kernels()
     rows, serve_rows = check_kernels()
@@ -4376,7 +4771,10 @@ def main() -> int:
                     "paddle_tpu/kernels/opt_update.py:83",
                     trained["momentum_kernels"]["momentum"]["launches"],
                     opt_rows["momentum"]["max_abs_err"], opt_rows["momentum"]),
-             shape={"n": opt_rows["momentum"]["n"]}),
+             **_opt_keys(opt_rows["momentum"]),
+             library="none: torch._fused_sgd_ keeps its buffer in gradient "
+                     "units (buf = -mom / lr); Paddle's step needs a "
+                     "rescaling pass around it"),
         dict(_entry("adam", opt_src, "paddle_tpu/kernels/opt_update.py:110",
                     counts["adam"]["launches"]
                     + s2s_counts["adam"]["launches"]
@@ -4385,7 +4783,8 @@ def main() -> int:
                     + lstm_dec["kernels"]["adam"]["launches"]
                     + ac_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
-             shape={"n": opt_rows["adam"]["n"]}),
+             **_opt_keys(opt_rows["adam"]),
+             library="torch._fused_adam_ (eps / sqrt(1 - beta2^t))"),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
                     tag_counts["crf_alpha_fwd"]["launches"]
                     + tag_test["crf_alpha_fwd"]["launches"], crf_err["fwd"],

@@ -15,9 +15,9 @@ float}`` (plus ``"avg"`` under model averaging), the JAX package's tree
 with host scalars. The learning rate and every scalar derived from it are
 computed in float32 on the host (``np.float32``) and enter the tensor
 arithmetic as exact float32 values, so each update takes the same
-roundings as the JAX package's. The dense elementwise chain routes
-through ``kernels/opt_update.py:apply_one`` (the CUDA kernels on the
-card for Momentum and Adam).
+roundings as the JAX package's. A step's dense elementwise chains route
+through ``kernels/opt_update.py:apply_group`` (one launch of the CUDA
+kernels on the card for Momentum and Adam).
 """
 
 from __future__ import annotations
@@ -127,37 +127,19 @@ class Optimizer:
                             if n in slots}
         return state
 
-    def _update_param(self, g, p, slots, spec, lr_t, t):
-        """One parameter's update: clipping, l1/l2 resolution, the dense or
-        sparse apply, and the prune mask (``paddle_tpu`` ``:111-151``)."""
-        lr_mult, l2, l1 = self._rates(spec)
-        lr = float(_F(lr_t) * _F(lr_mult))
-        if self.gradient_clipping_threshold > 0:
-            th = self.gradient_clipping_threshold
-            g = torch.clamp(g, -th, th)
-        mask = slots.get("prune_mask")
-        if self._is_sparse(spec):
-            # touched-rows-only update with momentum/decay catch-up;
-            # l1/l2 handled inside (deferred per-row)
-            p_new, slots_new = self._apply_sparse(p, g, slots, lr, l1, l2,
-                                                  t)
-        else:
-            from paddle_tpu_torch.kernels import opt_update
-            p_new, slots_new = opt_update.apply_one(self, p, g, slots, lr,
-                                                    l2, t)
-            if l1 > 0:
-                p_new = _shrink(p_new, float(_F(l1) * _F(lr_t) * _F(lr_mult)))
-        if mask is not None:
-            p_new = p_new * mask          # pruned weights stay zero
-            slots_new["prune_mask"] = mask
-        return p_new, slots_new
-
     def update(self, grads, state, params,
                meta: Optional[Dict[str, ParamSpec]] = None,
                batch_size=1, num_passes=0):
         """(grads, state, params) -> (new_params, new_state). meta carries
         per-param lr multipliers / static flags / l1-l2 overrides;
-        ``num_passes`` (current pass id) drives the pass_manual schedule."""
+        ``num_passes`` (current pass id) drives the pass_manual schedule.
+
+        Per parameter as ``paddle_tpu``'s ``_update_param`` (``:111-151``):
+        clipping, the l1/l2 resolution, the dense or sparse apply, the l1
+        shrink and the prune mask. The step's dense applies go to
+        ``kernels/opt_update.py:apply_group`` together (one kernel launch
+        on the card); the numbers are those of the per-parameter loop."""
+        from paddle_tpu_torch.kernels import opt_update
         t = state["t"] + 1
         num_samples = float(_F(state["num_samples"]) + _F(batch_size))
         lr_t = self._rate(num_samples, num_passes)
@@ -169,13 +151,37 @@ class Optimizer:
         if self.sum_gradients:
             bsz = float(_F(batch_size))
             grads = {n: g * bsz for n, g in grads.items()}
+        done, dense, finish = {}, [], []
         for name, g in grads.items():
             if name not in state["slots"]:
                 new_params[name] = params[name]
                 continue
             spec = meta.get(name) if meta else None
-            p_new, slots_new = self._update_param(
-                g, params[name], state["slots"][name], spec, lr_t, t)
+            lr_mult, l2, l1 = self._rates(spec)
+            lr = float(_F(lr_t) * _F(lr_mult))
+            if self.gradient_clipping_threshold > 0:
+                th = self.gradient_clipping_threshold
+                g = torch.clamp(g, -th, th)
+            slots = state["slots"][name]
+            if self._is_sparse(spec):
+                # touched-rows-only update with momentum/decay catch-up;
+                # l1/l2 handled inside (deferred per-row)
+                done[name] = self._apply_sparse(params[name], g, slots, lr,
+                                                l1, l2, t)
+                shrink = None
+            else:
+                dense.append((params[name], g, slots, lr, l2))
+                shrink = (float(_F(l1) * _F(lr_t) * _F(lr_mult)) if l1 > 0
+                          else None)
+            finish.append((name, shrink, slots.get("prune_mask")))
+        applied = iter(opt_update.apply_group(self, dense, t))
+        for name, shrink, mask in finish:
+            p_new, slots_new = done[name] if name in done else next(applied)
+            if shrink is not None:
+                p_new = _shrink(p_new, shrink)
+            if mask is not None:
+                p_new = p_new * mask          # pruned weights stay zero
+                slots_new["prune_mask"] = mask
             new_params[name] = p_new
             new_slots[name] = slots_new
 

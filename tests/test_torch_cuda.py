@@ -6,7 +6,8 @@ primal and residual forms and its backward on both routes (one
 cooperative launch per sequence or reverse chain; two launches a step
 and a per-step backward above the route line), the GRU cell on both
 routes (one launch a step on thread block clusters; two launches), the
-Momentum and Adam updates, the CRF forward, backward and Viterbi kernels,
+Momentum and Adam updates (one kernel launch for a step's list of
+parameters), the CRF forward, backward and Viterbi kernels,
 the flash-attention forward and backward kernels, the CTC alpha and beta
 chains in both operand forms and the fused posterior pass) against
 their plain PyTorch versions, on the card. Every test here is marked
@@ -173,6 +174,176 @@ def test_training_kernels_reject_bad_inputs(cuda_device):
         opt_update.adam(Adam(), p.double(), p.double(), slots, 0.1, 0.0, 1)
     with pytest.raises(ValueError, match="contiguous"):
         opt_update.adam(Adam(), p.t(), p.t(), slots, 0.1, 0.0, 1)
+
+
+def _opt_group(shapes, seed, device, offset=0):
+    """Updates for ``apply_group``: (p, g, {"mom", "v"}, lr, decay) a
+    tensor, each with its own lr and decay; with ``offset`` every tensor
+    a view at that storage offset (off the 16-byte grid)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for i, shape in enumerate(shapes):
+        n = int(np.prod(shape))
+        p, gr, m, v = (torch.randn(n + offset, generator=g, device=device)[
+            offset:].view(shape) for _ in range(4))
+        out.append((p, gr, {"mom": m, "v": v.abs()}, 2e-3 * (1 + i % 3),
+                    1e-3 * (i % 2)))
+    return out
+
+
+def _for_kind(entries, kind):
+    if kind == "adam":
+        return entries
+    return [(p, g, {"mom": s["mom"]}, lr, d) for p, g, s, lr, d in entries]
+
+
+def _opt_of(kind):
+    from paddle_tpu_torch.optim import Adam, Momentum
+    return Adam() if kind == "adam" else Momentum(momentum=0.9)
+
+
+def _path_lists():
+    """{path: [parameter shapes]} of every path that trains on the card
+    (``chip_smoke.path_param_shapes``, run from the repository's root)."""
+    import chip_smoke
+    return chip_smoke.path_param_shapes()
+
+
+def _opt_group_cases():
+    rng = np.random.default_rng(1)
+    return dict(misaligned=([(7,), (1,), (1025,), (6778, 128)], 1),
+                overflow=([(int(n),) for n in rng.integers(1, 5000,
+                                                           size=1000)], 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adam", "momentum"])
+@pytest.mark.parametrize("where", [
+    "classifier", "seq2seq", "seq2seq_attention", "tagger", "acoustic",
+    "lstm_decoder", "misaligned", "overflow"])
+def test_grouped_optimizer_kernels_equal_apply_one_on_card(cuda_device,
+                                                           kind, where):
+    """One grouped update at each path's parameter list, a list of views
+    at storage offset 1 and a list of 1000 tensors (three tables): every
+    output bit-equal to ``_apply_one`` per tensor (the kernels take its
+    roundings), two runs bit-equal, the inputs unchanged, one launch per
+    table, and ``_apply_one`` never called for the list."""
+    from paddle_tpu_torch.kernels import opt_update
+    if where in ("misaligned", "overflow"):
+        shapes, offset = _opt_group_cases()[where]
+    else:
+        shapes, offset = _path_lists()[where], 0
+    opt = _opt_of(kind)
+    entries = _for_kind(_opt_group(shapes, len(shapes), cuda_device, offset),
+                        kind)
+    want = [opt._apply_one(p, g, s, lr, d, 3) for p, g, s, lr, d in entries]
+    before = [[t.clone() for t in (p, g, *s.values())]
+              for p, g, s, _, _ in entries]
+
+    def refuse(*args):
+        raise AssertionError("_apply_one ran for an eligible CUDA list")
+
+    counter = getattr(opt_update, kind)
+    n0 = counter.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(opt), "_apply_one", refuse)
+        got = opt_update.apply_group(opt, entries, 3)
+        again = opt_update.apply_group(opt, entries, 3)
+    torch.cuda.synchronize()
+    tables = -(-len(entries) // opt_update.table_capacity())
+    assert counter.launches - n0 == 2 * tables
+    for (p2, s2), (p3, s3), (wp, ws) in zip(got, again, want):
+        assert torch.equal(p2, wp) and torch.equal(p2, p3)
+        assert p2.is_contiguous() and p2.shape == wp.shape
+        for k in ws:
+            assert torch.equal(s2[k], ws[k]) and torch.equal(s2[k], s3[k])
+    for (p, g, s, _, _), b in zip(entries, before):
+        for t, t0 in zip((p, g, *s.values()), b):
+            assert torch.equal(t, t0)
+
+
+def _table_case(case, cap):
+    """(shapes, storage offset) of a coverage case: one size; views at
+    offset 1 (scalar moves); 1000 tensors (three tables); a first table
+    of empty tensors (no launch) before a second that holds elements."""
+    if case == "offset":
+        return [(7,), (1025,), (4097,), (1,)], 1
+    if case == "overflow":
+        rng = np.random.default_rng(3)
+        return [(int(n),) for n in rng.integers(1, 5000, size=1000)], 0
+    if case == "empty_table":
+        return [(0,)] * cap + [(5,), (4096,)], 0
+    return [(int(case),)], 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adam", "momentum"])
+@pytest.mark.parametrize("case", ["1", "7", "1025", "4096", "4097",
+                                  "15360000", "offset", "overflow",
+                                  "empty_table"])
+def test_grouped_optimizer_kernels_write_every_element_on_card(
+        cuda_device, kind, case):
+    """The C entry's tables and the kernel's chunk walk: ``launch`` into
+    outputs filled with NaN writes every element of every output, each
+    bit-equal to ``_apply_one``, with one launch per table of
+    ``table_capacity()`` tensors that holds elements."""
+    from paddle_tpu_torch.kernels import opt_update
+    cap = opt_update.table_capacity()
+    shapes, offset = _table_case(case, cap)
+    opt = _opt_of(kind)
+    entries = _for_kind(_opt_group(shapes, 7, cuda_device, offset), kind)
+    ins = [[p, g, *s.values()] for p, g, s, _, _ in entries]
+    outs = [[torch.full_like(row[0], float("nan")) for _ in row[1:]]
+            for row in ins]
+    rates = [opt.alpha(lr, 3) if kind == "adam" else lr
+             for _, _, _, lr, _ in entries]
+    counter = getattr(opt_update, kind)
+    n0 = counter.launches
+    opt_update.launch(opt, kind, ins, outs, rates, [e[4] for e in entries])
+    torch.cuda.synchronize()
+    tables = sum(any(int(np.prod(sh)) for sh in shapes[lo:lo + cap])
+                 for lo in range(0, len(shapes), cap))
+    assert counter.launches - n0 == tables
+    for (p, g, s, lr, d), o in zip(entries, outs):
+        want_p, want_s = opt._apply_one(p, g, s, lr, d, 3)
+        for got, want in zip(o, (want_p, *want_s.values())):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_optimizer_update_is_one_launch_a_step_on_card(cuda_device):
+    """``Optimizer.update`` on the card: one Adam launch a step for every
+    parameter (per-parameter lr, an l1 override, a prune mask), the same
+    numbers as the update on the CPU (rtol 1e-6 / atol 1e-7: CPU torch's
+    vectorised sqrt and division may round otherwise)."""
+    from paddle_tpu_torch.core.registry import ParamSpec
+    from paddle_tpu_torch.kernels import opt_update
+    from paddle_tpu_torch.optim import Adam
+    rng = np.random.default_rng(2)
+    shapes = {"w": (64, 33), "b": (33,), "emb": (100, 16)}
+    meta = {"w": ParamSpec(shape=(64, 33), learning_rate=0.5),
+            "b": ParamSpec(shape=(33,), l1_rate=1e-3),
+            "emb": ParamSpec(shape=(100, 16), sparsity_ratio=0.5)}
+    start = {n: rng.normal(size=s).astype(np.float32)
+             for n, s in shapes.items()}
+    steps = [{n: rng.normal(size=s).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(3)]
+    results = []
+    for dev in ("cpu", cuda_device):
+        opt = Adam(learning_rate=0.01, l2_rate=1e-3)
+        params = {n: torch.from_numpy(v).to(dev) for n, v in start.items()}
+        state = opt.init(params, meta)
+        params = opt.prune_params(params, state)
+        n0 = opt_update.adam.launches
+        for step in steps:
+            grads = {n: torch.from_numpy(g).to(dev) for n, g in step.items()}
+            params, state = opt.update(grads, state, params, meta)
+        if dev != "cpu":
+            assert opt_update.adam.launches - n0 == 3
+        results.append({n: p.cpu() for n, p in params.items()})
+    for n in shapes:
+        torch.testing.assert_close(results[1][n], results[0][n], rtol=1e-6,
+                                   atol=1e-7)
 
 
 def _gru_inputs(T, B, H, seed, device):
