@@ -106,17 +106,32 @@ non-zero without the result line:
    plain time and bound; at 32 rows the host split as for the GRU cell.
 6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
    ragged lengths 1-80, an all-padding row, two forbidden transitions at
-   -1e4), its serving shape (B=1), and (16, 80, 128) and (16, 80, 256),
-   where the kernels keep their [C, C] matrices in global memory (the
-   backward above 97 classes, every kernel at 256): the forward kernel's
-   alphas and
-   log Z within rtol 1e-4 / atol 1e-5 of the plain loop, the backward
-   kernel's gradients per tensor within 1e-4 of the largest entry + 1e-5
-   of the plain analytic backward (forbidden ones finite and below 1e-6,
-   two runs bit-equal), the Viterbi paths identical to the plain decode's.
-   Each kernel's device time (``torch.profiler``, 20 calls), CUDA events
-   around one wrapper call (median of 50) and the plain version's time
-   (median of 10), beside the bound for this mask's live steps.
+   -1e4), its serving shape (B=1), (16, 80, 128) and (16, 80, 256) (the
+   forward's matrix from global memory at 256), and at CRF_BIG_SHAPES
+   (4, 40, 257) and (2, 20, 1000), above the forward's 256 classes, where
+   the backward (fed the plain alphas) and the Viterbi run alone: the
+   forward kernel's alphas and log Z within rtol 1e-4 / atol 1e-5 of the
+   plain loop (and its global-memory path bit-equal where the matrix
+   fits), the backward's gradients per tensor within 1e-4 of the largest
+   entry + 1e-5 of the plain analytic backward (forbidden ones finite and
+   below 1e-6, two runs bit-equal), the Viterbi paths identical to the
+   plain decode's (scores within 1e-5); the CUDA kernels of 20 calls of
+   each wrapper (the backward's two kernels, at most two launches a call
+   and nothing else: C <= 32 the one-launch backward and the sum over the
+   batch, above the beta chain and the marginal pass; the Viterbi's one).
+   Each kernel's device time (``torch.profiler``, 20
+   calls), CUDA events around one wrapper call (median of 50) and the
+   plain version's time (median of 10), beside the bounds for this mask's
+   live steps: bytes or operations, and the chain bound, the most live
+   steps of any row times a step's floor (``crf_chain_floor``: the
+   chains' own step functions, one warp at C <= 32, 20,000 steps, no
+   global memory). At C <= 256 the earlier backward and Viterbi kernels
+   (``crf_bwd_inline``, ``crf_viterbi_scratch``, in their wrappers'
+   earlier spelling) are checked and timed beside them; at the tagger's
+   shapes, the host split of both wrappers' launch paths beside that
+   spelling, interleaved in 5 rounds. ``python3 chip_smoke.py
+   --crf-kernels`` runs this phase alone, into
+   ``chiprun_out/crf_kernels.json``.
 6b. CTC kernel check: at CTC_SHAPES (B, T, L) — the acoustic model's (16,
    400, 66: S = 133) with ragged frames and transcripts, an empty
    transcript, an infeasible row, repeated labels and padded frame tails;
@@ -425,10 +440,13 @@ TAG_SERVE_LENGTHS = (1, 23, 78)  # the single sentences served
 # the single sentences in buckets 32 and 80, the call of 16 rows
 TAG_SERVE_SHAPES = [(1, 32), (1, 80), (16, 80)]
 # CRF kernel check shapes (B, T, C): the training path's, the serving
-# one's, and class counts whose matrices stay in global memory (above 97
-# the backward's, at 256 every kernel's)
+# one's, a block a sequence (C > 32), and the forward's matrix in global
+# memory (C = 256)
 CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23), (16, TAG_LEN, 128),
               (16, TAG_LEN, 256)]
+# above the forward kernel's 256 classes: the backward and the Viterbi
+CRF_BIG_SHAPES = [(4, 40, 257), (2, 20, 1000)]
+CRF_FLOOR_STEPS = 20000
 # seq2seq_attention with its encoder self-attention block: 4 heads of 128
 # over the 512-wide embedding (the JAX model's num_heads default)
 S2S_ATT = dict(S2S, seq_parallel="ring", num_heads=4)
@@ -1897,100 +1915,362 @@ def _crf_bounds(B, T, C, mask):
     }
 
 
-def check_crf_shape(B, T, C, seed):
-    """The three CRF kernels against their plain versions on the same card
-    tensors: alphas and log Z within rtol 1e-4 / atol 1e-5, every gradient
-    per tensor within 1e-4 of its largest entry + 1e-5, the forbidden
-    transitions' gradients finite and near 0, the Viterbi paths identical
-    (scores within 1e-5); two backward runs bit-equal; where a forward or
-    backward keeps its matrices in shared memory, its global-memory path
-    bit-equal to it; times and bounds."""
+def _crf_floor_us(C, viterbi):
+    """A chain step's least time at C classes, us: CUDA events around one
+    launch of ``crf_chain_floor`` (the chains' own step function, one
+    block, CRF_FLOOR_STEPS steps, no global memory), median of 5, over
+    the steps."""
+    return 1e3 * _time_ms(lambda: CRF.crf_chain_floor(
+        CRF_FLOOR_STEPS, C, viterbi), reps=5, warmup=1) / CRF_FLOOR_STEPS
+
+
+def _crf_bwd_inline(x, mask, trans, b, alphas, log_z, g):
+    """The backward's earlier spelling, replayed for the comparison: the
+    per-tensor checks, per-sequence partials [B,C,C] and [B,C], the
+    scratch of the global-memory path, a device guard and
+    ``current_stream()``, the inline kernel (``crf_bwd_inline``: the
+    pairwise marginals inside the chain), then three torch sums over the
+    batch. Uncounted."""
+    dev = build.cuda_device("crf_bwd", x)
+    B, T, C = x.shape
+    build.check_tensors("crf_bwd", dev, x=(x, (B, T, C)), mask=(mask, (B, T)),
+                        trans=(trans, (C, C)), b=(b, (C,)),
+                        alphas=(alphas, (B, T, C)), log_z=(log_z, (B,)),
+                        g=(g, (B,)))
+    dx = torch.empty((B, T, C), device=dev)
+    dtrans = torch.empty((B, C, C), device=dev)
+    da, db = (torch.empty((B, C), device=dev) for _ in range(2))
+    n = CRF._work_floats(1, C)
+    work = torch.empty((n,), device=dev) if n else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("crf", "crf_bwd_inline", 12, 3)(
+            x.data_ptr(), mask.data_ptr(), trans.data_ptr(), b.data_ptr(),
+            alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(),
+            CRF._ptr(work), dx.data_ptr(), dtrans.data_ptr(), da.data_ptr(),
+            db.data_ptr(), B, T, C, stream)
+    build.raise_on(err, "crf_bwd_inline")
+    return dx, dtrans.sum(dim=0), da.sum(dim=0), db.sum(dim=0)
+
+
+def _crf_viterbi_scratch(x, mask, trans, a, b):
+    """The Viterbi's earlier spelling: per-tensor checks, an int32
+    back-pointer scratch [B,T,C] a call, a device guard and
+    ``current_stream()``, ``crf_viterbi_scratch``. Uncounted."""
+    dev = build.cuda_device("crf_viterbi", x)
+    B, T, C = x.shape
+    build.check_tensors("crf_viterbi", dev, x=(x, (B, T, C)),
+                        mask=(mask, (B, T)), trans=(trans, (C, C)),
+                        a=(a, (C,)), b=(b, (C,)))
+    ptr = torch.empty((B, T, C), dtype=torch.int32, device=dev)
+    path = torch.empty((B, T), dtype=torch.int32, device=dev)
+    score = torch.empty((B,), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("crf", "crf_viterbi_scratch", 8, 3)(
+            x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
+            b.data_ptr(), ptr.data_ptr(), path.data_ptr(), score.data_ptr(),
+            B, T, C, stream)
+    build.raise_on(err, "crf_viterbi_scratch")
+    return path, score
+
+
+_CRF_KERNELS = dict(bwd=("crf_bwd_fused_kernel", "crf_sum_kernel",
+                         "crf_beta_block_kernel", "crf_marginal_kernel"),
+                    viterbi=("crf_decode_",), fwd=("crf_alpha_fwd_kernel",
+                                                   "crf_prep_kernel"),
+                    bwd_before=("crf_bwd_kernel", "crf_prep_kernel"),
+                    viterbi_before=("crf_viterbi_kernel",))
+
+
+def _crf_launches(kind, fn, calls=20):
+    """The CUDA kernels of ``calls`` calls of a wrapper (union of the
+    profiler's traces): every one must be the wrapper's own, at most one a
+    call each, two kernels for the backward (C <= 32 the one-launch
+    backward and the sum over the batch, above the beta chain and the
+    marginal pass), one for the Viterbi. Returns {kernel: launches}."""
+    _, record = _device_ms(fn, None, calls)
+    seen = {}
+    for tr in record["traces"]:
+        for k, (n, _) in tr.items():
+            seen[k] = max(seen.get(k, 0), n)
+    names = _CRF_KERNELS[kind]
+    if not seen or any(not any(n in k for n in names) or v > calls
+                       for k, v in seen.items()):
+        raise AssertionError(f"crf {kind}: {calls} calls ran {seen}")
+    if len(seen) != (2 if kind == "bwd" else 1):
+        raise AssertionError(f"crf {kind}: {calls} calls ran {seen}")
+    return seen
+
+
+def check_crf_shape(B, T, C, seed, floors):
+    """The CRF kernels against their plain versions on the same card
+    tensors: alphas and log Z within rtol 1e-4 / atol 1e-5 (C <= 256),
+    every gradient per tensor within 1e-4 of its largest entry + 1e-5, the
+    forbidden transitions' gradients finite and near 0, the Viterbi paths
+    identical (scores within 1e-5); two backward runs bit-equal; where the
+    forward keeps its matrix in shared memory, its global-memory path
+    bit-equal to it; the CUDA kernels each wrapper runs; at C <= 256 the
+    earlier backward and Viterbi held to the same checks; times, the
+    bounds and the chain bounds (``floors``: us a step by (C, viterbi))."""
+    where = f"CRF B={B} T={T} C={C}"
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, seed)
-    alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
-    grads = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
-    path, score = CRF.crf_viterbi(x, mask, trans, a, b)
-    torch.cuda.synchronize()
     w_alphas, w_log_z = CRF.crf_forward_plain(x, mask, trans, a, b)
-    fwd_err = 0.0
-    for name, got, want in (("alphas", alphas, w_alphas),
-                            ("log_z", log_z, w_log_z)):
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"CRF B={B}: {name} is not finite")
-        fwd_err = max(fwd_err, (got - want).abs().max().item())
-        torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
-            f"CRF B={B} T={T} C={C} {name}: {m}"))
-    w_grads = CRF.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
-    if not all(torch.isfinite(t).all() for t in grads):
-        raise AssertionError(f"CRF B={B}: a gradient is not finite")
-    bwd_err = _check_grads(f"CRF B={B} T={T} C={C}", grads, w_grads,
-                           ("x", "trans", "a", "b"))
-    forbidden = max(abs(grads[1][0, 1].item()), abs(grads[1][2, 3].item()))
-    if forbidden > 1e-6:
-        raise AssertionError(f"forbidden transitions' gradient {forbidden}")
-    again = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
-    if not all(torch.equal(u, v) for u, v in zip(grads, again)):
-        raise AssertionError("two CRF backward runs differ")
-    w_path, w_score = CRF.crf_viterbi_plain(x, mask, trans, a, b)
-    if not torch.equal(path, w_path):
-        raise AssertionError(f"Viterbi paths differ at "
-                             f"{int((path != w_path).sum())} steps")
-    torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+    fwd = C <= CRF.MAX_CLASSES
     row = dict(B=B, T=T, C=C, live_steps=float(mask[:, 1:].sum()),
-               fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
-               viterbi_score_err=(score - w_score).abs().max().item(),
-               forbidden_grad=forbidden)
-    # ms: the kernels' device time (torch.profiler; the prep kernel counts
-    # where the global-memory path launches it); call_ms: CUDA events
-    # around one wrapper call, median of 50 (the host work inside the
-    # events counts: checks, allocations, the ctypes call, the backward's
-    # sums over the batch); plain_ms: the plain version, median of 10.
-    # Where a forward or backward keeps its matrices in shared memory, its
-    # global-memory path (the same bits) is timed beside it: global_ms,
-    # global_call_ms
-    prep = "crf_prep_kernel"
-    for kind, kernel, plain, args in (
-            ("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
-             (x, mask, trans, a, b)),
-            ("bwd", CRF.crf_bwd, CRF.crf_bwd_plain,
-             (x, mask, trans, b, alphas, log_z, g)),
-            ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain,
-             (x, mask, trans, a, b))):
-        names = (f"{kernel.__name__}_kernel", prep)
+               plan=CRF.crf_plan(T, C),
+               marginal_plan=CRF.crf_marginal_plan(B, T, C))
+    if fwd:
+        alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
+        torch.cuda.synchronize()
+        fwd_err = 0.0
+        for name, got, want in (("alphas", alphas, w_alphas),
+                                ("log_z", log_z, w_log_z)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{where}: {name} is not finite")
+            fwd_err = max(fwd_err, (got - want).abs().max().item())
+            torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
+                f"{where} {name}: {m}"))
+        row["fwd_max_abs_err"] = fwd_err
+    else:  # the backward is fed the plain alphas
+        alphas, log_z = w_alphas, w_log_z
+    w_grads = CRF.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
+    w_path, w_score = CRF.crf_viterbi_plain(x, mask, trans, a, b)
+    bwd_args = (x, mask, trans, b, alphas, log_z, g)
+    vit_args = (x, mask, trans, a, b)
+    kinds = [("bwd", CRF.crf_bwd, CRF.crf_bwd_plain, bwd_args),
+             ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain, vit_args)]
+    if fwd:
+        kinds += [("bwd_before", _crf_bwd_inline, None, bwd_args),
+                  ("viterbi_before", _crf_viterbi_scratch, None, vit_args)]
+    for kind, fn, _, args in kinds:
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if kind.startswith("bwd"):
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"{where}: a {kind} gradient is not "
+                                     "finite")
+            row[f"{kind}_max_abs_err"] = _check_grads(
+                f"{where} {kind}", got, w_grads, ("x", "trans", "a", "b"))
+            forbidden = max(abs(got[1][0, 1].item()),
+                            abs(got[1][2, 3].item()))
+            if forbidden > 1e-6:
+                raise AssertionError(f"{where} {kind}: forbidden "
+                                     f"transitions' gradient {forbidden}")
+            row[f"{kind}_forbidden_grad"] = forbidden
+            if not all(torch.equal(u, v) for u, v in zip(got, fn(*args))):
+                raise AssertionError(f"{where}: two {kind} runs differ")
+        else:
+            path, score = got
+            if not torch.equal(path, w_path):
+                raise AssertionError(
+                    f"{where} {kind}: paths differ at "
+                    f"{int((path != w_path).sum())} steps")
+            torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+            row[f"{kind}_score_err"] = (score - w_score).abs().max().item()
+    row["launches_of_20_calls"] = {
+        kind: _crf_launches(kind, lambda: fn(*args))
+        for kind, fn, _, args in kinds[:2]}
+    # ms: the kernels' device time (torch.profiler; each kernel's mean a
+    # launch, summed: the backward's chain and marginal pass, the earlier
+    # kernels' prep where they launch it); call_ms: CUDA events around one
+    # wrapper call, median of 50 (the host work inside counts: checks,
+    # allocations, the ctypes call; the earlier backward's three sums);
+    # plain_ms: the plain version, median of 10. The forward's
+    # global-memory path (the same bits) is timed beside it where its
+    # matrix fits shared memory: global_ms, global_call_ms
+    if fwd:
+        kinds.append(("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
+                      vit_args))
+    for kind, fn, plain, args in kinds:
         row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
-            lambda: kernel(*args), names)
-        row[f"{kind}_call_ms"] = _time_ms(lambda: kernel(*args), reps=50)
-        row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
-        if kind == "viterbi" or CRF._work_floats(kind == "bwd", C):
-            continue
-        via_global = kernel(*args, in_global=True)
-        if not all(torch.equal(u, v) for u, v in
-                   zip(via_global, (alphas, log_z) if kind == "fwd"
-                       else grads)):
-            raise AssertionError(f"CRF B={B} T={T} C={C}: the {kind} "
-                                 "kernel's global-memory path differs")
-        row[f"{kind}_global_ms"], row[f"{kind}_global_trace"] = _device_ms(
-            lambda: kernel(*args, in_global=True), names)
-        row[f"{kind}_global_call_ms"] = _time_ms(
-            lambda: kernel(*args, in_global=True), reps=50)
+            lambda: fn(*args), _CRF_KERNELS[kind])
+        row[f"{kind}_call_ms"] = _time_ms(lambda: fn(*args), reps=50)
+        if plain is not None:
+            row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
+    if fwd and not CRF._work_floats(0, C):
+        via_global = CRF.crf_alpha_fwd(*vit_args, in_global=True)
+        if not all(torch.equal(u, v) for u, v in zip(via_global,
+                                                      (alphas, log_z))):
+            raise AssertionError(f"{where}: the forward kernel's "
+                                 "global-memory path differs")
+        row["fwd_global_ms"], row["fwd_global_trace"] = _device_ms(
+            lambda: CRF.crf_alpha_fwd(*vit_args, in_global=True),
+            _CRF_KERNELS["fwd"])
+        row["fwd_global_call_ms"] = _time_ms(
+            lambda: CRF.crf_alpha_fwd(*vit_args, in_global=True), reps=50)
     for kind, (bound_ms, bound_by) in _crf_bounds(B, T, C, mask).items():
+        if kind == "fwd" and not fwd:
+            continue
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
-    phase("crf_kernel_check", **row)
+    # the chain bound: the most live steps of any row (each chain's steps
+    # t >= 1 with mask 1) times a step's floor at this C
+    steps = int(mask[:, 1:].sum(dim=1).max().item()) if B else 0
+    row["chain_live_steps"] = steps
+    for kind, viterbi in (("bwd", False), ("viterbi", True)):
+        row[f"{kind}_floor_us"] = floors[C, viterbi]
+        row[f"{kind}_chain_bound_ms"] = 1e-3 * steps * floors[C, viterbi]
+        row[f"{kind}_over_chain_bound"] = (row[f"{kind}_ms"]
+                                           / row[f"{kind}_chain_bound_ms"])
+        if fwd:
+            row[f"{kind}_before_over_now"] = (row[f"{kind}_before_ms"]
+                                              / row[f"{kind}_ms"])
+    phase("crf_kernel_check", **{k: v for k, v in row.items()
+                                 if not k.endswith("_trace")})
     return row
 
 
+def _crf_pieces(x, mask, trans, a, b, alphas, log_z, g):
+    """The host split of both wrappers' launch paths, piece by piece and
+    whole, today's and the earlier spelling's (per-tensor checks, a device
+    guard and ``current_stream()``, the backward's per-sequence partials
+    and sums, the Viterbi's back-pointer scratch): (bwd baseline, bwd now,
+    viterbi baseline, viterbi now) groups for ``_split_us``."""
+    B, T, C = x.shape
+    dev = x.device
+    idx = x.get_device()
+    vec = lambda B, T, C: (C,)  # noqa: E731
+    bwd_more = (("b", b, vec), ("alphas", alphas, lambda B, T, C: (B, T, C)),
+                ("log_z", log_z, lambda B, T, C: (B,)),
+                ("g", g, lambda B, T, C: (B,)))
+    outs = [torch.empty((B, T, C), device=dev), torch.empty((C, C), device=dev),
+            torch.empty((C,), device=dev), torch.empty((C,), device=dev)]
+    work = torch.empty((CRF.bwd_work_floats(B, T, C),), device=dev)
+    path = torch.empty((B, T), dtype=torch.int32, device=dev)
+    score = torch.empty((B,), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    f_bwd = build.bind("crf", "crf_bwd", 12, 3)
+    f_vit = build.bind("crf", "crf_viterbi", 8, 3)
+    bwd_args = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), b.data_ptr(),
+                alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(),
+                work.data_ptr(), *(t.data_ptr() for t in outs), B, T, C,
+                stream)
+    vit_args = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
+                b.data_ptr(), None, path.data_ptr(), score.data_ptr(), B, T,
+                C, stream)
+    o_bwd = build.bind("crf", "crf_bwd_inline", 12, 3)
+    o_vit = build.bind("crf", "crf_viterbi_scratch", 8, 3)
+    parts = [torch.empty((B, T, C), device=dev),
+             torch.empty((B, C, C), device=dev),
+             torch.empty((B, C), device=dev), torch.empty((B, C), device=dev)]
+    ptr = torch.empty((B, T, C), dtype=torch.int32, device=dev)
+    ob_args = bwd_args[:7] + (None, *(t.data_ptr() for t in parts), B, T, C,
+                              stream)
+    ov_args = vit_args[:5] + (ptr.data_ptr(), path.data_ptr(),
+                              score.data_ptr(), B, T, C, stream)
+
+    def base_checks(kernel, **more):
+        d = build.cuda_device(kernel, x)
+        build.check_tensors(kernel, d, x=(x, (B, T, C)), mask=(mask, (B, T)),
+                            trans=(trans, (C, C)), **more)
+
+    def guard_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    now_stream = lambda: (torch.cuda.current_device() == idx,  # noqa: E731
+                          torch._C._cuda_getCurrentRawStream(idx))
+    return (
+        dict(checks=lambda: base_checks(
+                 "crf_bwd", b=(b, (C,)), alphas=(alphas, (B, T, C)),
+                 log_z=(log_z, (B,)), g=(g, (B,))),
+             alloc=lambda: (torch.empty((B, T, C), device=dev),
+                            torch.empty((B, C, C), device=dev),
+                            torch.empty((B, C), device=dev),
+                            torch.empty((B, C), device=dev)),
+             guard_stream=guard_stream,
+             # the defaults keep alive the tensors whose pointers the
+             # bound arguments hold
+             ctypes_call=lambda keep=parts: o_bwd(*ob_args),
+             sums=lambda: (parts[1].sum(dim=0), parts[2].sum(dim=0),
+                           parts[3].sum(dim=0)),
+             whole=lambda: _crf_bwd_inline(x, mask, trans, b, alphas, log_z,
+                                           g)),
+        dict(checks=lambda: CRF._check("crf_bwd", x, mask, trans, bwd_more),
+             alloc=lambda: (torch.empty((B, T, C), device=dev),
+                            torch.empty((C, C), device=dev),
+                            torch.empty((C,), device=dev),
+                            torch.empty((C,), device=dev),
+                            torch.empty((CRF.bwd_work_floats(B, T, C),),
+                                        device=dev)),
+             guard_stream=now_stream,
+             ctypes_call=lambda keep=(work, *outs): f_bwd(*bwd_args),
+             whole=lambda: CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)),
+        dict(checks=lambda: base_checks("crf_viterbi", a=(a, (C,)),
+                                        b=(b, (C,))),
+             alloc=lambda: (torch.empty((B, T, C), dtype=torch.int32,
+                                        device=dev),
+                            torch.empty((B, T), dtype=torch.int32,
+                                        device=dev),
+                            torch.empty((B,), device=dev)),
+             guard_stream=guard_stream,
+             ctypes_call=lambda keep=(ptr, path, score): o_vit(*ov_args),
+             whole=lambda: _crf_viterbi_scratch(x, mask, trans, a, b)),
+        dict(checks=lambda: CRF._check("crf_viterbi", x, mask, trans,
+                                       (("a", a, vec), ("b", b, vec))),
+             alloc=lambda: (torch.empty((B, T), dtype=torch.int32,
+                                        device=dev),
+                            torch.empty((B,), device=dev)),
+             guard_stream=now_stream,
+             ctypes_call=lambda keep=(path, score): f_vit(*vit_args),
+             whole=lambda: CRF.crf_viterbi(x, mask, trans, a, b)))
+
+
+def check_crf_host_split():
+    """The host split (``_split_us``: median of 5 interleaved rounds of 400
+    calls) of both wrappers' launch paths at the tagger's training and
+    serving shapes, the earlier spelling replayed beside today's."""
+    rows = []
+    for B, T, C in CRF_SHAPES[:2]:
+        x, mask, trans, a, b, g = _crf_inputs(B, T, C, 7)
+        alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
+        base_b, now_b, base_v, now_v = _crf_pieces(x, mask, trans, a, b,
+                                                   alphas, log_z, g)
+        got = _split_us(dict(bwd_baseline=(False, base_b),
+                             bwd_now=(False, now_b),
+                             viterbi_baseline=(False, base_v),
+                             viterbi_now=(False, now_v)))
+        row = dict(B=B, T=T, C=C, **{f"host_us_{k}": v
+                                     for k, v in got.items()})
+        phase("crf_host_split", **row)
+        rows.append(row)
+    return rows
+
+
 def check_crf_kernels():
-    """The CRF kernels at CRF_SHAPES, and the LSTM kernels at the tagger's
-    shapes (H=128: the JAX package's resident-weight ``_lstm_kernel`` at
-    this width): primal in both directions at the test pass's (64, 80) and
-    at TAG_SERVE_SHAPES, the residual forward with the backward step at
-    (64, 80)."""
-    rows = [check_crf_shape(B, T, C, seed=B + T + C) for B, T, C in CRF_SHAPES]
-    lstm = dict(
+    """The CRF kernels at CRF_SHAPES and CRF_BIG_SHAPES, after the chain
+    floor at each of their class counts."""
+    Cs = sorted({C for _, _, C in CRF_SHAPES + CRF_BIG_SHAPES})
+    floors = {(C, v): _crf_floor_us(C, v) for C in Cs for v in (False, True)}
+    phase("crf_chain_floor", steps=CRF_FLOOR_STEPS, us_a_step={
+        f"C{C}_{'viterbi' if v else 'beta'}": us
+        for (C, v), us in floors.items()})
+    return [check_crf_shape(B, T, C, B + T + C, floors)
+            for B, T, C in CRF_SHAPES + CRF_BIG_SHAPES]
+
+
+def check_tagger_lstm_kernels():
+    """The LSTM kernels at the tagger's shapes (H=128: the JAX package's
+    resident-weight ``_lstm_kernel`` at this width): primal in both
+    directions at the test pass's (64, 80) and at TAG_SERVE_SHAPES, the
+    residual forward with the backward step at (64, 80)."""
+    return dict(
         primal=[check_shape(B, TAGGER["hidden"], T, (False, True), seed=B + T)
                 for B, T in [(TAG_BATCH, TAG_LEN), *TAG_SERVE_SHAPES]],
         train=check_train_shape(TAG_BATCH, TAGGER["hidden"], TAG_LEN,
                                 seed=TAG_LEN + 1))
-    return rows, lstm
+
+
+def crf_kernels():
+    """``--crf-kernels``: phase 6's CRF part alone (every CRF_SHAPES and
+    CRF_BIG_SHAPES row, the chain floor, the earlier kernels, the host
+    split); rows in ``crf_kernels.json`` in ``OUT_DIR``."""
+    build.build_all(["crf"])
+    out = dict(crf_shapes=check_crf_kernels(),
+               crf_host_split=check_crf_host_split())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "crf_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 # -------------------------------------------------- 6b. CTC kernel check
@@ -4522,6 +4802,19 @@ def _opt_keys(row):
                 b2b_ms=row["b2b_ms"], library_b2b_ms=row["library_b2b_ms"])
 
 
+def _crf_keys(row, split, kind):
+    """The CRF backward's or Viterbi's further keys in the kernels line:
+    the shape, CUDA events around a call, the chain bound, the earlier
+    kernel's device and event times, the host path today and before."""
+    return dict(shape={k: row[k] for k in ("B", "T", "C")},
+                call_ms=row[f"{kind}_call_ms"],
+                chain_bound_ms=row[f"{kind}_chain_bound_ms"],
+                before_ms=row[f"{kind}_before_ms"],
+                before_call_ms=row[f"{kind}_before_call_ms"],
+                host_us=split[f"host_us_{kind}_now"]["whole"],
+                host_us_before=split[f"host_us_{kind}_baseline"]["whole"])
+
+
 def _entry(name, source, replaces, launches, err, row, prefix=""):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -4549,6 +4842,10 @@ def main() -> int:
                         help="only phase 4's optimizer part (the grouped "
                         "Momentum and Adam kernels at every path's list, "
                         "torch._fused_adam_ beside them, the host split)")
+    parser.add_argument("--crf-kernels", action="store_true",
+                        help="only phase 6's CRF part (every CRF_SHAPES and "
+                        "CRF_BIG_SHAPES row, the chain floor, the earlier "
+                        "kernels beside the new, the host split)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -4569,6 +4866,9 @@ def main() -> int:
     if args.flash_kernels:
         flash_kernels()
         return 0
+    if args.crf_kernels:
+        crf_kernels()
+        return 0
     if args.ctc_kernels:
         ctc_kernels()
         return 0
@@ -4580,7 +4880,9 @@ def main() -> int:
     train_rows, reverse_err, opt_rows = check_train_kernels()
     gru_rows, cell_rows = check_gru_kernels()
     lstm_cell_rows = check_lstm_cells()
-    crf_rows, tag_lstm_rows = check_crf_kernels()
+    crf_rows = check_crf_kernels()
+    crf_split = check_crf_host_split()
+    tag_lstm_rows = check_tagger_lstm_kernels()
     ctc_rows = check_ctc_kernels()
     ctc_split = check_ctc_host_split()
     flash_rows = check_flash_kernels()
@@ -4638,8 +4940,8 @@ def main() -> int:
     s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
     tag_counts, tag_test = tagger["kernels"], tagger["test_kernels"]
     crf_row = crf_rows[0]  # the training path's shape
-    crf_err = {k: max(r[f"{k}_max_abs_err"] for r in crf_rows)
-               for k in ("fwd", "bwd")}
+    crf_err = {k: max(r[f"{k}_max_abs_err"] for r in crf_rows
+                      if f"{k}_max_abs_err" in r) for k in ("fwd", "bwd")}
     gru_fwd_err = max(r["fwd_max_abs_err"] for r in gru_rows)
     gru_bwd_err = max(r["bwd_max_abs_err"] for r in gru_rows)
     cell_err = max(r["max_abs_err"] for r in cell_rows)
@@ -4794,7 +5096,7 @@ def main() -> int:
                     "JAX lax.scan paddle_tpu/ops/crf.py:158 (_crf_bwd)",
                     tag_counts["crf_bwd"]["launches"], crf_err["bwd"],
                     crf_row, "bwd_"),
-             shape={k: crf_row[k] for k in ("B", "T", "C")}),
+             **_crf_keys(crf_row, crf_split[0], "bwd")),
         dict(_entry("crf_viterbi", crf_src,
                     "JAX lax.scan paddle_tpu/layers/chain.py:65 (crf_decode)",
                     tag_counts["crf_viterbi"]["launches"]
@@ -4802,7 +5104,7 @@ def main() -> int:
                     + tag_served["launches"],
                     max(r["viterbi_score_err"] for r in crf_rows), crf_row,
                     "viterbi_"),
-             shape={k: crf_row[k] for k in ("B", "T", "C")}),
+             **_crf_keys(crf_row, crf_split[0], "viterbi")),
         dict(_entry("flash_fwd", flash_src,
                     "paddle_tpu/ops/attention.py:107",
                     att_counts["flash_fwd"]["launches"]
@@ -4927,6 +5229,7 @@ def main() -> int:
                    "optimizer": opt_rows, "gru_shapes": gru_rows,
                    "gru_cell_shapes": cell_rows,
                    "lstm_cell_shapes": lstm_cell_rows, "crf_shapes": crf_rows,
+                   "crf_host_split": crf_split,
                    "tagger_lstm_shapes": tag_lstm_rows,
                    "flash_shapes": flash_rows,
                    "flash_host_split": flash_split, "ctc_shapes": ctc_rows,

@@ -4,26 +4,34 @@ The port's counterpart of ``paddle_tpu/ops/crf.py``. On the TPU the alpha
 recursion is one Pallas kernel (``_crf_kernel``) over the class axis padded
 to 128 lanes, and the backward (``_crf_bwd``) and the Viterbi decode
 (``paddle_tpu/layers/chain.py:crf_decode``) are ``lax.scan``s. Here all
-three are hand-written CUDA kernels of ``csrc/crf.cu``, one launch each
-for the whole time loop (its source note gives the design and the bound
-on the H100). The class axis is not padded: the TPU's padded classes are
-exact zeros of the exp-space product, so leaving them out gives the same
-numbers.
+three are hand-written CUDA kernels of ``csrc/crf.cu`` (its source note
+gives the design and the bound on the H100). The class axis is not padded:
+the TPU's padded classes are exact zeros of the exp-space product, so
+leaving them out gives the same numbers.
 
-Three kernel wrappers, each counting the calls that launched its kernel
+Three kernel wrappers, each counting the calls that launched its kernels
 (``.launches``) and choosing by device: on a CUDA tensor it launches the
-kernel (or raises), on a CPU tensor it runs its plain PyTorch version,
+kernels (or raises), on a CPU tensor it runs its plain PyTorch version,
 which the CPU tests hold against the JAX package.
 
-- ``crf_alpha_fwd``: every alpha [B,T,C] and log Z [B]; plain version
-  ``crf_forward_plain``.
-- ``crf_bwd``: the analytic backward (dx, dtrans, da, db); plain version
+- ``crf_alpha_fwd``: every alpha [B,T,C] and log Z [B], one launch (two
+  where its matrix stays in global memory), C <= ``MAX_CLASSES``; plain
+  version ``crf_forward_plain``.
+- ``crf_bwd``: the analytic backward (dx, dtrans, da, db), any C, two
+  launches: up to 32 classes one block a sequence (a chain warp hands each
+  step's betas to worker warps that sum the pairwise marginals) and the
+  fixed-order sum over the batch; above, the beta chain and then the
+  parallel marginal pass, which also sums over the batch; plain version
   ``crf_bwd_plain``.
-- ``crf_viterbi``: the best path [B,T] (int32) and its score [B]; plain
-  version ``crf_viterbi_plain``.
+- ``crf_viterbi``: the best path [B,T] (int32) and its score [B], any C,
+  one launch, its back-pointers in shared memory; plain version
+  ``crf_viterbi_plain``.
 
-``crf_log_z`` takes ``crf_alpha_fwd`` alone when no gradient is wanted and
-otherwise ``CrfFunction``, whose backward is ``crf_bwd``. f32 only.
+``crf_plan`` gives each kernel's variant and shared memory at (T, C) by the
+formulas of ``csrc/crf.cu`` (held equal on the card through
+``plan_of_kernel``). ``crf_log_z`` takes ``crf_alpha_fwd`` alone when no
+gradient is wanted and otherwise ``CrfFunction``, whose backward is
+``crf_bwd``. f32 only.
 """
 
 from __future__ import annotations
@@ -36,10 +44,159 @@ import torch
 
 from paddle_tpu_torch.ops import build
 
-# the kernels' largest class count (csrc/crf.cu: kMaxClasses, 8 classes
-# per lane; above C = 97 the backward's matrices, above C = 239 the
-# forward's and the Viterbi's, stay in global memory)
+# the forward kernel's largest class count (csrc/crf.cu: kMaxClasses, 8
+# classes per lane of a warp; above C = 239 its matrix stays in global
+# memory). The backward and the Viterbi take any C.
 MAX_CLASSES = 256
+
+# csrc/crf.cu's plan constants
+WARPS = 4               # sequences a warp-variant block (C <= 32)
+BLOCK_THREADS = 1024    # a block variant's most threads
+TILE_BYTES = 4 * 8 * 32 * 33   # the transpose tiles of 8 warps
+MARG_THREADS = 256      # the marginal pass: a tile's dtrans entries
+MARG_SMEM = 16 * 256    # its list of 256 pairs (offset, weight, log Z)
+TARGET_BLOCKS = 264     # marginal blocks wanted: two an SM
+MIN_PAIRS = 32          # pairs a chunk at least
+RING = 32               # betas in flight from the chain warp to the workers
+
+
+# ----------------------------------------------------------------- plan
+def _block_parts(C: int) -> int:
+    """Lanes a row (the beta chain) or column (the Viterbi) of a block
+    variant: 2 up to C = 512, 1 above."""
+    return 2 if C <= 512 else 1
+
+
+def _block_threads(C: int, K: int) -> int:
+    return 32 * -(-min(C * K, BLOCK_THREADS) // 32)
+
+
+def _e_stride(C: int, K: int) -> int:
+    """exp(trans - max)'s row stride in shared memory: = K mod 32, so that
+    the K parts of 32 / K rows fall in 32 banks."""
+    return C + (K - C) % 32
+
+
+def _t_stride(C: int, K: int) -> int:
+    """trans's row stride in shared memory: = 32 / K mod 32 (the K parts of
+    32 / K columns in 32 banks)."""
+    return C + (32 // K - C) % 32
+
+
+def _beta_plan(C: int) -> dict:
+    if C <= 32:  # the one-launch kernel: E, the ring of betas, progress
+        return dict(variant="warp", threads=256, parts=1, ld=C | 1,
+                    matrix_in_smem=True, giant=False,
+                    smem=4 * (C * (C | 1) + 2 * RING * 32 + 64 + 8))
+    K = _block_parts(C)
+    red, vec, mat = 4 * 32, 16 * C, 4 * C * _e_stride(C, K)
+    if red + vec + mat <= build.SMEM_BYTES:
+        return dict(variant="block", threads=_block_threads(C, K), parts=K,
+                    ld=_e_stride(C, K), matrix_in_smem=True, giant=False,
+                    smem=red + vec + mat)
+    # E read from L2: 4 lanes a row up to C = 256, more loads in flight
+    K = 4 if C <= 256 else K
+    giant = red + vec + TILE_BYTES > build.SMEM_BYTES
+    return dict(variant="block", threads=_block_threads(C, K), parts=K, ld=0,
+                matrix_in_smem=False, giant=giant,
+                smem=red + (0 if giant else vec) + TILE_BYTES)
+
+
+def _viterbi_plan(T: int, C: int) -> dict:
+    bp_bytes = 1 if C <= 256 else (2 if C <= 65536 else 4)
+    bp = T * C * bp_bytes  # a sequence's back-pointers
+    if C <= 32:  # trans's columns in registers
+        base = 4 * WARPS * 64
+        in_smem = base + WARPS * bp <= build.SMEM_BYTES
+        plan = dict(variant="warp", threads=32 * WARPS, parts=1, ld=C,
+                    matrix_in_smem=True, bp_in_smem=in_smem, giant=False,
+                    smem=base + (WARPS * bp if in_smem else 0))
+    else:
+        K = _block_parts(C)
+        red, vec, mat = 4 * 64, 16 * C, 4 * C * _t_stride(C, K)
+        giant = red + vec > build.SMEM_BYTES
+        used = red + (0 if giant else vec)
+        mat_in = used + mat <= build.SMEM_BYTES
+        used += mat if mat_in else 0
+        bp_in = used + bp <= build.SMEM_BYTES
+        used += bp if bp_in else 0
+        plan = dict(variant="block", threads=_block_threads(C, K), parts=K,
+                    ld=_t_stride(C, K) if mat_in else 0,
+                    matrix_in_smem=mat_in, bp_in_smem=bp_in, giant=giant,
+                    smem=used)
+    stride = (8 * C if plan["giant"] else 0) + (0 if plan["bp_in_smem"]
+                                                else bp)
+    return dict(plan, bp_bytes=bp_bytes, scratch_per_row=-(-stride // 16) * 16)
+
+
+def crf_plan(T: int, C: int) -> dict:
+    """The kernels' layout at T steps and C classes, by the formulas of
+    ``csrc/crf.cu`` (``beta_plan``, ``viterbi_plan``): for the backward's
+    beta chain (``bwd``) and the Viterbi (``viterbi``), the ``variant``
+    (``warp``: C <= 32, a warp a sequence, ``WARPS`` a block; ``block``: a
+    block a sequence, ``parts`` lanes a row or column), its ``threads``,
+    whether its [C, C] matrix sits in shared memory (``matrix_in_smem``, at
+    row stride ``ld``; else global: the backward a
+    transposed copy a sequence, the Viterbi trans itself), whether its
+    per-class vectors outgrow shared memory (``giant``) and its dynamic
+    shared memory ``smem``. The Viterbi adds ``bp_in_smem`` (its T x C
+    back-pointers; else spilled to scratch), ``bp_bytes`` and
+    ``scratch_per_row`` (bytes of scratch a sequence). ``floor``: the
+    chain floors' threads (each runs its chain's block) and shared
+    memory."""
+    if T < 1 or C < 1:
+        raise ValueError(f"crf_plan: T={T}, C={C}: the kernels take T >= 1 "
+                         "and C >= 1")
+    Cw = max(C, 32)
+    bwd, vit = _beta_plan(C), _viterbi_plan(T, C)
+    return dict(bwd=bwd, viterbi=vit, floor=dict(
+        beta_threads=32 if C <= 32 else bwd["threads"],
+        viterbi_threads=32 if C <= 32 else vit["threads"],
+        smem=4 * (32 + 2 * C + 2 * Cw) + 2 * 16 * C))
+
+
+def crf_marginal_plan(B: int, T: int, C: int) -> dict:
+    """The marginal pass's grid: tiles of ``ti`` x ``tj`` dtrans entries
+    (``tj`` = min(C, 32), ``MARG_THREADS`` threads, one an entry),
+    ``chunks`` of ``chunk_len``
+    consecutive (b, t) pairs (b-major, t < T - 1): enough blocks to fill the
+    card (``TARGET_BLOCKS``) with at least ``MIN_PAIRS`` pairs a chunk."""
+    tj = min(C, 32)
+    ti = MARG_THREADS // tj
+    tiles_i, tiles_j = -(-C // ti), -(-C // tj)
+    pairs = B * (T - 1)
+    chunks = max(1, min(-(-pairs // MIN_PAIRS),
+                        -(-TARGET_BLOCKS // (tiles_i * tiles_j))))
+    return dict(ti=ti, tj=tj, tiles=tiles_i * tiles_j, tiles_j=tiles_j,
+                chunks=chunks, chunk_len=-(-pairs // chunks))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_work_floats(B: int, T: int, C: int) -> int:
+    """Floats of ``crf_bwd``'s scratch. C <= 32: each sequence's partial
+    dtrans [B,C,C] and end terms [B,2,C]. Above: the betas [B,T,C], the end
+    terms [B,2,C] (each sequence's da and db), each sequence's transposed
+    exp(trans - max) [C,C] where it outgrows shared memory, each sequence's
+    vectors [2,C] (``giant``), the chunks' partial dtrans [chunks,C,C] and a
+    counter a tile."""
+    plan = _beta_plan(C)
+    if plan["variant"] == "warp":  # each sequence's partial and end terms
+        return B * C * C + B * 2 * C
+    m = crf_marginal_plan(B, T, C)
+    return (B * T * C + B * 2 * C
+            + (B * C * C if not plan["matrix_in_smem"] else 0)
+            + (B * 2 * C if plan["giant"] else 0)
+            + m["chunks"] * C * C + m["tiles"])
+
+
+def plan_of_kernel(kernel: int, B: int, T: int, C: int, field: int) -> int:
+    """``csrc/crf.cu:crf_plan_query`` (card only: it loads the library), to
+    hold ``crf_plan``, ``crf_marginal_plan`` and the scratch sizes
+    against."""
+    fn = build.load("crf").crf_plan_query
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn(kernel, B, T, C, field)
 
 
 # ---------------------------------------------------------------- plain
@@ -77,15 +234,14 @@ def crf_log_z_plain(x, mask, trans, a, b) -> torch.Tensor:
     return crf_forward_plain(x, mask, trans, a, b)[1]
 
 
-def crf_bwd_plain(x, mask, trans, b, alphas, log_z, g):
-    """The analytic backward of ``paddle_tpu/ops/crf.py:_crf_bwd`` in plain
-    PyTorch: the marginals of log Z weighted by ``g`` [B] (d loss / d log
-    Z). Returns (dx [B,T,C], dtrans [C,C], da [C], db [C])."""
+def crf_betas_plain(x, mask, trans, b) -> torch.Tensor:
+    """The beta recursion of ``paddle_tpu/ops/crf.py:_crf_bwd``, what the
+    backward's chain kernel computes: betas [B,T,C] with beta_{T-1} = b and
+    beta_{t-1}[i] = logsumexp_j(trans[i,j] + x_t[j] + beta_t[j]), max-shifted
+    in exp space, frozen where step t is padding."""
     B, T, C = x.shape
     tm = trans.max()
     trans_shift = torch.exp(trans - tm)  # [prev, next]
-    # beta_{T-1} = b; beta_{t-1}[i] = logsumexp_j(trans[i,j] + x_t[j] +
-    # beta_t[j]), frozen where step t is padding
     beta = b[None, :].expand(B, C)
     betas = [beta]
     for t in range(T - 1, 0, -1):
@@ -95,7 +251,15 @@ def crf_bwd_plain(x, mask, trans, b, alphas, log_z, g):
             torch.exp(y - m) @ trans_shift.T, 1e-37)) + m + tm
         beta = torch.where(mask[:, t, None] > 0, prev, beta)
         betas.append(beta)
-    betas = torch.stack(betas[::-1], dim=1)  # [B,T,C], betas[:, t]
+    return torch.stack(betas[::-1], dim=1)  # [B,T,C], betas[:, t]
+
+
+def crf_bwd_plain(x, mask, trans, b, alphas, log_z, g):
+    """The analytic backward of ``paddle_tpu/ops/crf.py:_crf_bwd`` in plain
+    PyTorch: the marginals of log Z weighted by ``g`` [B] (d loss / d log
+    Z). Returns (dx [B,T,C], dtrans [C,C], da [C], db [C])."""
+    T = x.shape[1]
+    betas = crf_betas_plain(x, mask, trans, b)
     q = torch.exp(alphas + betas - log_z[:, None, None])
     q = q * mask[:, :, None]
     dx = g[:, None, None] * q
@@ -141,39 +305,67 @@ def crf_viterbi_plain(x, mask, trans, a, b):
     return torch.stack(path[::-1], dim=1).to(torch.int32), score
 
 
+def _floor_inputs(C: int):
+    """The chain floor's fixed inputs: r_j = -(j mod 7) / 4 (every row of
+    its matrix), x_j = -1/2 - (j mod 5) / 8, the start -(j mod 3) / 2."""
+    j = torch.arange(C)
+    return (-0.25 * (j % 7)).float(), (-0.5 - 0.125 * (j % 5)).float(), \
+        (-0.5 * (j % 3)).float()
+
+
+def chain_floor_plain(T: int, C: int, viterbi: bool = False) -> torch.Tensor:
+    """What ``crf_chain_floor`` computes: T steps of the beta recursion
+    (``crf_betas_plain`` with trans[i, j] = r_j, x_t = x, mask 1, b = the
+    start) or of the Viterbi's (``crf_viterbi_plain``'s step) from the
+    start, at C classes. Returns [C] the last vector; the Viterbi adds [C]
+    the last step's first-index argmax, as floats."""
+    r, x, start = _floor_inputs(C)
+    trans = r[None, :].expand(C, C)
+    if not viterbi:
+        xs = x[None, None, :].expand(1, T + 1, C)
+        return crf_betas_plain(xs, torch.ones(1, T + 1), trans, start)[0, 0]
+    alpha = start[None, :]
+    for _ in range(T):
+        scores = alpha[:, :, None] + trans[None]
+        arg = scores.argmax(dim=1)
+        alpha = scores.max(dim=1).values + x[None, :]
+    return torch.cat([alpha[0], arg[0].float()])
+
+
 # -------------------------------------------------------------- kernels
-def _check(kernel, x, mask, trans, **vectors):
-    """The operands' device, types and shapes; returns (device, B, T, C)."""
-    dev = build.cuda_device(kernel, x)
+def _check(kernel, x, mask, trans, more, max_classes=None):
+    """The operands' device, types and shapes in one pass
+    (``build.check_cell``; the per-tensor messages on failure), and the
+    class count the kernel takes. ``more``: (name, tensor, shape by (B, T,
+    C)). Returns (the card's index, B, T, C)."""
+    if x.dim() != 3:
+        raise ValueError(f"{kernel}: x must be [B, T, C], got "
+                         f"{tuple(x.shape)}")
     B, T, C = x.shape
-    if T < 1 or C < 1 or C > MAX_CLASSES:
-        raise ValueError(
-            f"{kernel}: T={T}, C={C}: the kernels take T >= 1 and "
-            f"1 <= C <= {MAX_CLASSES} classes (a warp per sequence, at most "
-            "8 classes per lane)")
-    build.check_tensors(kernel, dev, x=(x, (B, T, C)), mask=(mask, (B, T)),
-                        trans=(trans, (C, C)),
-                        **{k: (v, (C,)) for k, v in vectors.items()})
-    return dev, B, T, C
+    if T < 1 or C < 1 or (max_classes is not None and C > max_classes):
+        limit = "" if max_classes is None else (
+            f" and C <= {max_classes} (a warp per sequence, at most 8 "
+            "classes per lane)")
+        raise ValueError(f"{kernel}: T={T}, C={C} classes: the kernel takes "
+                         f"T >= 1, C >= 1{limit}")
+    idx, _ = build.check_cell(kernel, (
+        ("x", x, (B, T, C)), ("mask", mask, (B, T)), ("trans", trans, (C, C)),
+        *((name, t, shape(B, T, C)) for name, t, shape in more)))
+    return idx, B, T, C
+
+
+_VEC = lambda B, T, C: (C,)  # noqa: E731
 
 
 @functools.lru_cache(maxsize=None)
 def _work_floats(kernel: int, C: int) -> int:
-    """Floats of scratch the forward (``kernel`` 0) or the backward (1)
-    needs at C: 2 C^2 + 1 where its matrices outgrow shared memory, else 0
-    (``csrc/crf.cu:crf_work_floats``)."""
+    """Floats of scratch the forward (``kernel`` 0) or the inline backward
+    (1) needs at C: 2 C^2 + 1 where its matrices outgrow shared memory,
+    else 0 (``csrc/crf.cu:crf_work_floats``)."""
     fn = build.load("crf").crf_work_floats
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(kernel, C)
-
-
-def _work(dev, kernel, C, in_global) -> Optional[torch.Tensor]:
-    """Scratch of the kernels' global-memory path (max(trans), exp(trans -
-    max) and its transpose), or None: the kernel then keeps its matrices
-    in shared memory. ``in_global`` takes the global path at any C."""
-    n = 2 * C * C + 1 if in_global else _work_floats(kernel, C)
-    return torch.empty((n,), dtype=torch.float32, device=dev) if n else None
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -182,22 +374,23 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def crf_alpha_fwd(x, mask, trans, a, b, *, in_global=False):
     """The forward kernel's wrapper; same arguments and results as
-    ``crf_forward_plain``. ``crf_alpha_fwd.launches`` counts the calls
-    that launched it. ``in_global`` keeps the [C, C] matrices in global
-    memory even where they fit a block (the same bits; chip_smoke.py times
-    both paths)."""
+    ``crf_forward_plain``; C <= ``MAX_CLASSES``. ``crf_alpha_fwd.launches``
+    counts the calls that launched it. ``in_global`` keeps the [C, C]
+    matrix in global memory even where it fits a block (the same bits;
+    chip_smoke.py times both paths)."""
     if x.device.type == "cpu":
         return crf_forward_plain(x, mask, trans, a, b)
-    dev, B, T, C = _check("crf_alpha_fwd", x, mask, trans, a=a, b=b)
-    alphas = torch.empty((B, T, C), dtype=torch.float32, device=dev)
-    log_z = torch.empty((B,), dtype=torch.float32, device=dev)
-    work = _work(dev, 0, C, in_global)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("crf", "crf_alpha_fwd", 8, 3)(
-            x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
-            b.data_ptr(), _ptr(work), alphas.data_ptr(),
-            log_z.data_ptr(), B, T, C, stream)
+    idx, B, T, C = _check("crf_alpha_fwd", x, mask, trans,
+                          (("a", a, _VEC), ("b", b, _VEC)), MAX_CLASSES)
+    alphas = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
+    log_z = torch.empty((B,), dtype=torch.float32, device=x.device)
+    n = 2 * C * C + 1 if in_global else _work_floats(0, C)
+    work = torch.empty((n,), dtype=torch.float32, device=x.device) \
+        if n else None
+    err = build.call(build.bind("crf", "crf_alpha_fwd", 8, 3), idx,
+                     x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
+                     a.data_ptr(), b.data_ptr(), _ptr(work),
+                     alphas.data_ptr(), log_z.data_ptr(), B, T, C)
     build.raise_on(err, "crf_alpha_fwd")
     crf_alpha_fwd.launches += 1
     return alphas, log_z
@@ -206,51 +399,63 @@ def crf_alpha_fwd(x, mask, trans, a, b, *, in_global=False):
 crf_alpha_fwd.launches = 0
 
 
-def crf_bwd(x, mask, trans, b, alphas, log_z, g, *, in_global=False):
-    """The backward kernel's wrapper; same arguments and results as
-    ``crf_bwd_plain``. The kernel writes per-sequence partials of dtrans,
-    da and db; their sum over the batch is a deterministic reduction after
-    it (no float atomics). ``in_global`` as for ``crf_alpha_fwd``."""
+def crf_bwd(x, mask, trans, b, alphas, log_z, g):
+    """The backward kernels' wrapper; same arguments and results as
+    ``crf_bwd_plain``, any C. Two launches (``csrc/crf.cu:crf_bwd``): up to
+    32 classes each sequence's whole backward in one block, then the sum of
+    the sequences' partials; above, the beta chain (betas into scratch),
+    then the marginal pass. dtrans, da and db are summed over the batch in
+    a fixed order (no float atomics: two runs give the same bits)."""
     if x.device.type == "cpu":
         return crf_bwd_plain(x, mask, trans, b, alphas, log_z, g)
-    dev, B, T, C = _check("crf_bwd", x, mask, trans, b=b)
-    build.check_tensors("crf_bwd", dev, alphas=(alphas, (B, T, C)),
-                        log_z=(log_z, (B,)), g=(g, (B,)))
+    idx, B, T, C = _check("crf_bwd", x, mask, trans, (
+        ("b", b, _VEC), ("alphas", alphas, lambda B, T, C: (B, T, C)),
+        ("log_z", log_z, lambda B, T, C: (B,)),
+        ("g", g, lambda B, T, C: (B,))))
+    dev = x.device
     dx = torch.empty((B, T, C), dtype=torch.float32, device=dev)
-    dtrans = torch.empty((B, C, C), dtype=torch.float32, device=dev)
-    da, db = (torch.empty((B, C), dtype=torch.float32, device=dev)
-              for _ in range(2))
-    work = _work(dev, 1, C, in_global)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("crf", "crf_bwd", 12, 3)(
-            x.data_ptr(), mask.data_ptr(), trans.data_ptr(), b.data_ptr(),
-            alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(),
-            _ptr(work), dx.data_ptr(), dtrans.data_ptr(),
-            da.data_ptr(), db.data_ptr(), B, T, C, stream)
+    dtrans = torch.empty((C, C), dtype=torch.float32, device=dev)
+    da = torch.empty((C,), dtype=torch.float32, device=dev)
+    db = torch.empty((C,), dtype=torch.float32, device=dev)
+    work = torch.empty((bwd_work_floats(B, T, C),), dtype=torch.float32,
+                       device=dev)
+    err = build.call(build.bind("crf", "crf_bwd", 12, 3), idx,
+                     x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
+                     b.data_ptr(), alphas.data_ptr(), log_z.data_ptr(),
+                     g.data_ptr(), work.data_ptr(), dx.data_ptr(),
+                     dtrans.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, C)
     build.raise_on(err, "crf_bwd")
     crf_bwd.launches += 1
-    return dx, dtrans.sum(dim=0), da.sum(dim=0), db.sum(dim=0)
+    return dx, dtrans, da, db
 
 
 crf_bwd.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _viterbi_scratch(T: int, C: int) -> int:
+    return _viterbi_plan(T, C)["scratch_per_row"]
+
+
 def crf_viterbi(x, mask, trans, a, b):
     """The Viterbi kernel's wrapper; same arguments and results as
-    ``crf_viterbi_plain``: the path is identical, not merely close."""
+    ``crf_viterbi_plain``: the path is identical, not merely close. Any C;
+    one launch, with no scratch where the back-pointers fit shared memory
+    (``crf_plan``)."""
     if x.device.type == "cpu":
         return crf_viterbi_plain(x, mask, trans, a, b)
-    dev, B, T, C = _check("crf_viterbi", x, mask, trans, a=a, b=b)
-    ptr = torch.empty((B, T, C), dtype=torch.int32, device=dev)
+    idx, B, T, C = _check("crf_viterbi", x, mask, trans,
+                          (("a", a, _VEC), ("b", b, _VEC)))
+    dev = x.device
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("crf", "crf_viterbi", 8, 3)(
-            x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
-            b.data_ptr(), ptr.data_ptr(), path.data_ptr(), score.data_ptr(),
-            B, T, C, stream)
+    per_row = _viterbi_scratch(T, C)
+    scratch = torch.empty((B * per_row,), dtype=torch.uint8, device=dev) \
+        if per_row else None
+    err = build.call(build.bind("crf", "crf_viterbi", 8, 3), idx,
+                     x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
+                     a.data_ptr(), b.data_ptr(), _ptr(scratch),
+                     path.data_ptr(), score.data_ptr(), B, T, C)
     build.raise_on(err, "crf_viterbi")
     crf_viterbi.launches += 1
     return path, score
@@ -259,11 +464,24 @@ def crf_viterbi(x, mask, trans, a, b):
 crf_viterbi.launches = 0
 
 
+def crf_chain_floor(T: int, C: int, viterbi: bool = False,
+                    device: Optional[torch.device] = None) -> torch.Tensor:
+    """The chain-floor microkernel (card only): one block (a warp at C <=
+    32) runs T steps of the backward's beta step or of the Viterbi's step
+    with no global memory: its time over T is a step's least latency, the
+    unit of the chain bound. Returns what ``chain_floor_plain`` does."""
+    out = torch.empty((2 * C if viterbi else C,), device=device or "cuda")
+    err = build.call(build.bind("crf", "crf_chain_floor", 1, 3),
+                     out.get_device(), out.data_ptr(), T, C, int(viterbi))
+    build.raise_on(err, "crf_chain_floor")
+    return out
+
+
 # ------------------------------------------------------------- autograd
 class CrfFunction(torch.autograd.Function):
     """The custom gradient of log Z (JAX ``_crf_core`` with ``_crf_fwd`` /
     ``_crf_bwd``): the forward kernel saves the alphas and log Z, the
-    backward kernel computes the marginals from them. mask gets no
+    backward kernels compute the marginals from them. mask gets no
     gradient."""
 
     @staticmethod

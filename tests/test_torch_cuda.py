@@ -887,26 +887,32 @@ def _crf_inputs(B, T, C, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,C", [(64, 80, 23), (1, 80, 23), (5, 7, 9),
                                    (6, 12, 33), (4, 5, 96), (8, 20, 97),
-                                   (8, 20, 128), (5, 12, 256)])
+                                   (8, 20, 128), (5, 12, 256), (4, 40, 257),
+                                   (2, 20, 1000)])
 def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
     """The tagger's shape (B=64, T=80, C=23), its serving shape (B=1), and
-    class counts below, across and at the top of the lanes a warp owns,
-    up to 256 (above 97 the backward's matrices, at 256 every kernel's,
-    stay in global memory):
+    class counts below and across a warp's 32, up to 256 (the forward's
+    limit; above 239 every matrix stays in global memory) and beyond, where
+    the backward (fed the plain alphas) and the Viterbi run alone:
     log Z and the alphas within rtol 1e-4 / atol 1e-5; every gradient per
     tensor within 1e-4 of its largest entry + 1e-5 (sums over steps and
     rows in another order), forbidden transitions finite and near 0;
     the Viterbi paths identical and their scores within 1e-5."""
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, B * T + C, cuda_device)
+    fwd = C <= tcrf.MAX_CLASSES
     before = (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
               tcrf.crf_viterbi.launches)
-    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    if fwd:
+        alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    else:
+        alphas, log_z = w_alphas, w_log_z
     got_b = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
     path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
     torch.cuda.synchronize()
     assert (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
-            tcrf.crf_viterbi.launches) == tuple(n + 1 for n in before)
-    w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+            tcrf.crf_viterbi.launches) == (before[0] + fwd, before[1] + 1,
+                                           before[2] + 1)
     torch.testing.assert_close(alphas, w_alphas, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(log_z, w_log_z, rtol=1e-4, atol=1e-5)
     want_b = tcrf.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
@@ -930,26 +936,20 @@ def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
 @pytest.mark.parametrize("B,T,C", [(64, 80, 23), (5, 12, 33), (8, 20, 97),
                                    (8, 20, 128)])
 def test_crf_global_path_equals_shared_path(cuda_device, B, T, C):
-    """At a C where a kernel's matrices fit shared memory, its global-
-    memory path (``in_global``) gives the same bits: the forward below C =
-    240, the backward below C = 98."""
+    """At a C where the forward's matrix fits shared memory (below C =
+    240), its global-memory path (``in_global``) gives the same bits."""
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, B + T + C, cuda_device)
     alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
     g_alphas, g_log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b,
                                            in_global=True)
     assert torch.equal(alphas, g_alphas) and torch.equal(log_z, g_log_z)
-    if C <= 97:
-        got = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
-        via_global = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g,
-                                  in_global=True)
-        for g1, g2 in zip(got, via_global):
-            assert torch.equal(g1, g2)
 
 
 @pytest.mark.cuda
 def test_crf_kernels_reject_bad_inputs(cuda_device):
-    """A CPU tensor into a CUDA path, a wrong dtype, and a class count
-    beyond the kernels' shared memory all raise."""
+    """A CPU tensor into a CUDA path and a wrong dtype raise; a class
+    count beyond 256 raises from the forward alone, with its limit named,
+    while the backward and the Viterbi take it."""
     x, mask, trans, a, b, g = _crf_inputs(3, 4, 5, 0, cuda_device)
     with pytest.raises(ValueError, match="CUDA"):
         tcrf.crf_alpha_fwd(x, mask.cpu(), trans, a, b)
@@ -957,12 +957,101 @@ def test_crf_kernels_reject_bad_inputs(cuda_device):
         tcrf.crf_viterbi(x.double(), mask, trans, a, b)
     with pytest.raises(ValueError, match="float32"):
         tcrf.crf_bwd(x, mask, trans, b, x, g.double(), g)
-    big = torch.zeros(2, 3, tcrf.MAX_CLASSES + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="classes"):
-        tcrf.crf_alpha_fwd(big, mask[:2, :3].contiguous(),
-                           torch.zeros(big.shape[-1], big.shape[-1],
-                                       device=cuda_device),
-                           big[0, 0], big[0, 0])
+    C = tcrf.MAX_CLASSES + 1
+    x, mask, trans, a, b, g = _crf_inputs(2, 3, C, 1, cuda_device)
+    with pytest.raises(ValueError, match=f"C <= {tcrf.MAX_CLASSES}"):
+        tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    alphas, log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    tcrf.crf_viterbi(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C", [(64, 80, 23), (1, 80, 23), (3, 7, 1),
+                                   (4, 9, 32), (4, 9, 33), (16, 80, 239),
+                                   (16, 80, 256), (4, 40, 257),
+                                   (2, 20, 1000), (2, 3000, 23),
+                                   (1, 400, 300), (1, 3, 12500),
+                                   (1, 3, 14600), (2, 5, 70000)])
+def test_crf_plan_matches_the_kernels_on_card(cuda_device, B, T, C):
+    """``crf_plan``, ``crf_marginal_plan`` and the scratch sizes the
+    wrappers allocate equal ``csrc/crf.cu``'s own (``crf_plan_query``):
+    the variant flags, threads, parts a row, matrix stride and shared
+    memory of the beta chain and the Viterbi, the floor's, and the marginal
+    pass's grid."""
+    plan = tcrf.crf_plan(T, C)
+    for k, name in ((0, "bwd"), (1, "viterbi")):
+        p = plan[name]
+        flags = ((p["variant"] == "block") | 2 * p["matrix_in_smem"]
+                 | 4 * p.get("bp_in_smem", False) | 8 * p["giant"])
+        assert [tcrf.plan_of_kernel(k, B, T, C, f)
+                for f in (0, 1, 2, 4, 5)] == [
+            p["smem"], flags, p["threads"], p["parts"], p["ld"]], name
+    assert tcrf.plan_of_kernel(0, B, T, C, 3) == tcrf.bwd_work_floats(B, T, C)
+    assert tcrf.plan_of_kernel(1, B, T, C, 3) == \
+        B * plan["viterbi"]["scratch_per_row"]
+    m = tcrf.crf_marginal_plan(B, T, C)
+    assert [tcrf.plan_of_kernel(4, B, T, C, f) for f in (0, 1, 2, 3)] == [
+        tcrf.MARG_SMEM, m["tiles"], m["chunks"], m["tj"]]
+    for k, kind in ((2, "beta"), (3, "viterbi")):
+        assert [tcrf.plan_of_kernel(k, B, T, C, f) for f in (0, 2)] == [
+            plan["floor"]["smem"], plan["floor"][f"{kind}_threads"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C", [(2, 3000, 23), (1, 400, 300)])
+def test_crf_viterbi_spills_its_back_pointers_on_card(cuda_device, B, T, C):
+    """Where the T x C back-pointers outgrow the block (a warp's four
+    sequences at C = 23, T = 3000; two bytes each at C = 300, T = 400) they
+    go to scratch: the paths stay identical to the plain decode's."""
+    assert not tcrf.crf_plan(T, C)["viterbi"]["bp_in_smem"]
+    x, mask, trans, a, b, _ = _crf_inputs(B, T, C, T + C, cuda_device)
+    path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
+    w_path, w_score = tcrf.crf_viterbi_plain(x, mask, trans, a, b)
+    assert torch.equal(path, w_path)
+    torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_crf_kernels_take_classes_beyond_shared_memory(cuda_device):
+    """Above C ~ 12,400 (the backward) and ~ 14,500 (the Viterbi) the
+    per-class vectors move to global scratch: both still hold the plain
+    versions (B = 1, T = 3)."""
+    for C, kind in ((12500, "bwd"), (14600, "viterbi")):
+        assert tcrf.crf_plan(3, C)[kind]["giant"]
+        x, mask, trans, a, b, g = _crf_inputs(1, 3, C, C, cuda_device)
+        mask = torch.ones_like(mask)
+        if kind == "bwd":
+            alphas, log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+            got = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+            want = tcrf.crf_bwd_plain(x, mask, trans, b, alphas, log_z, g)
+            for name, gk, gp in zip(("dx", "dtrans", "da", "db"), got, want):
+                err = (gk - gp).abs().max().item()
+                assert err <= 1e-4 * gp.abs().max().item() + 1e-5, (name, err)
+        else:
+            path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
+            w_path, w_score = tcrf.crf_viterbi_plain(x, mask, trans, a, b)
+            assert torch.equal(path, w_path)
+            torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
+        del x, trans
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 23, 40, 257])
+@pytest.mark.parametrize("viterbi", [False, True])
+def test_crf_chain_floor_matches_plain_on_card(cuda_device, C, viterbi):
+    """The chain-floor microkernel (the chains' own step functions, one
+    block, no global memory) against ``chain_floor_plain`` over 50 steps:
+    the Viterbi's values and back-pointers exactly, the betas within rtol
+    1e-5 (the plain dot is a matmul)."""
+    got = tcrf.crf_chain_floor(50, C, viterbi).cpu()
+    want = tcrf.chain_floor_plain(50, C, viterbi)
+    if viterbi:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def _attn_inputs(B, N, Tq, Tk, D, seed, device, all_padding=False):
