@@ -107,28 +107,29 @@ non-zero without the result line:
 6. CRF kernel check: at the tagger's training shape (B=64, T=80, C=23;
    ragged lengths 1-80, an all-padding row, two forbidden transitions at
    -1e4), its serving shape (B=1), (16, 80, 128) and (16, 80, 256) (the
-   forward's matrix from global memory at 256), and at CRF_BIG_SHAPES
-   (4, 40, 257) and (2, 20, 1000), above the forward's 256 classes, where
-   the backward (fed the plain alphas) and the Viterbi run alone: the
+   forward's E read from L2 at 256), and at CRF_BIG_SHAPES (4, 40, 257)
+   and (2, 20, 1000), above the earlier kernels' 256 classes: the
    forward kernel's alphas and log Z within rtol 1e-4 / atol 1e-5 of the
-   plain loop (and its global-memory path bit-equal where the matrix
-   fits), the backward's gradients per tensor within 1e-4 of the largest
+   plain loop (and its global-memory path bit-equal where E fits shared
+   memory), the backward's gradients per tensor within 1e-4 of the largest
    entry + 1e-5 of the plain analytic backward (forbidden ones finite and
    below 1e-6, two runs bit-equal), the Viterbi paths identical to the
    plain decode's (scores within 1e-5); the CUDA kernels of 20 calls of
    each wrapper (the backward's two kernels, at most two launches a call
    and nothing else: C <= 32 the one-launch backward and the sum over the
-   batch, above the beta chain and the marginal pass; the Viterbi's one).
+   batch, above the beta chain and the marginal pass; the forward's and
+   the Viterbi's one).
    Each kernel's device time (``torch.profiler``, 20
    calls), CUDA events around one wrapper call (median of 50) and the
    plain version's time (median of 10), beside the bounds for this mask's
    live steps: bytes or operations, and the chain bound, the most live
    steps of any row times a step's floor (``crf_chain_floor``: the
-   chains' own step functions, one warp at C <= 32, 20,000 steps, no
-   global memory). At C <= 256 the earlier backward and Viterbi kernels
-   (``crf_bwd_inline``, ``crf_viterbi_scratch``, in their wrappers'
+   chains' own step functions, the alpha, beta and Viterbi variants, one
+   warp at C <= 32, 20,000 steps, no global memory). At C <= 256 the
+   earlier forward, backward and Viterbi kernels (``crf_alpha_fwd_lanes``,
+   ``crf_bwd_inline``, ``crf_viterbi_scratch``, in their wrappers'
    earlier spelling) are checked and timed beside them; at the tagger's
-   shapes, the host split of both wrappers' launch paths beside that
+   shapes, the host split of the three wrappers' launch paths beside that
    spelling, interleaved in 5 rounds. ``python3 chip_smoke.py
    --crf-kernels`` runs this phase alone, into
    ``chiprun_out/crf_kernels.json``.
@@ -168,7 +169,10 @@ non-zero without the result line:
    JAX divides such a row by Tk padded to a multiple of min(256, Tk); and
    head widths 32 (an instance) at (50, 4, 50, 50, 32) with an
    all-padding row and 40 (padded with zero columns to 64) at causal (2,
-   4, 200, 333, 40) —
+   4, 200, 333, 40) — and at every FLASH_WIDE_SHAPES row on the
+   wide-head path (128 < D <= 1024: (2, 4, 300, 300, 256) both ways with
+   an all-padding kv row, causal (2, 4, 333, 200, 256), causal (2, 4,
+   200, 333, 160), (2, 2, 64, 64, 1024)) —
    the forward kernel's o and row statistics
    within rtol 1e-4 / atol 1e-5 of ``blockwise_plain``, the backward
    kernels' gradients per tensor within 1e-4 of the largest entry + 1e-5
@@ -190,7 +194,11 @@ non-zero without the result line:
    the ctypes call, the whole path, the entries and their autograd
    share), the baseline spelling (per-tensor checks, a device guard,
    ``current_stream()``) replayed beside today's, interleaved in 5
-   rounds.
+   rounds. The layer check of the wide-head path:
+   ``multi_head_attention(size=512, num_heads=2)`` (D = 256) forward and
+   backward on the card against the same layer on the CPU plain path
+   (y within rtol 1e-4 / atol 1e-5, every parameter gradient per tensor
+   within 1e-4 of its largest entry + 1e-5; one launch of each wrapper).
 8. train: ``lstm_text_classifier`` at its widest published width (vocab
    30000, embed 128, hidden 1280, 2 LSTM layers, 2 classes) trained by
    ``python -m paddle_tpu_torch.trainer.cli --job train`` with
@@ -269,13 +277,15 @@ non-zero without the result line:
    trained by ``--job train`` with ``Adam(learning_rate=5e-3)`` for 3
    passes over 4 fixed batches of 64 synthetic sentences (lengths 5-78,
    padded to 80; tags from a rule on the words): the cost must fall and
-   the counts show the CRF forward, backward and Viterbi kernels, the
+   the counts show the CRF forward, backward and Viterbi kernels (the
+   forward and the backward exactly once a step), the
    residual LSTM kernel launched, one Adam launch a step, and the LSTM on
    the persistent
    route (one reverse chain per direction and step, 0 ``lstm_bwd_step``). Then the
    full-width gradients (8 rows) card against CPU as in phase 7, ``--job
-   test`` on 2 more batches (cost, error, chunk_f1; the CRF forward, the
-   Viterbi and the primal LSTM kernels launched, the LSTM persistent), ``--job merge`` with
+   test`` on 2 more batches (cost, error, chunk_f1; the CRF forward once
+   a batch, the Viterbi and the primal LSTM kernels launched, the LSTM
+   persistent), ``--job merge`` with
    outputs = the decode, and ``--job serve`` of it (length buckets 32,80):
    3 single sentences (lengths 1, 23, 78) and one call of 16 rows answer
    the Viterbi ids of the CPU plain path on the same file, exactly, and
@@ -324,9 +334,9 @@ routes, the host splits, the cluster sizes), ~30 s, into
 
     python3 chip_smoke.py --flash-kernels
 
-runs only phase 7 (the flash kernels at every FLASH_SHAPES row with the
-SDPA yardstick, the wrappers' host split), ~1.5 min, into
-``flash_kernels.json``.
+runs only phase 7 (the flash kernels at every FLASH_SHAPES and
+FLASH_WIDE_SHAPES row with the SDPA yardstick, the wide-head layer check,
+the wrappers' host split), ~1.5 min, into ``flash_kernels.json``.
 
     python3 chip_smoke.py --opt-kernels
 
@@ -432,6 +442,7 @@ LSTM_CELL_SHAPES = [(GEN_SOURCES * GEN_BEAM, 512), (S2S_BATCH, 512),
 # tagging test trains it, Adam(5e-3)
 TAGGER = dict(vocab_size=6778, embed_dim=128, hidden=128, num_labels=23)
 TAG_BATCH, TAG_BATCHES, TAG_PASSES, TAG_LEN = 64, 4, 3, 80
+TAG_TEST_BATCHES = 2
 TAG_MIN_LEN, TAG_MAX_LEN = 5, 78
 TAG_GRAD_ROWS = 8
 TAG_LENGTH_BUCKETS = [32, 80]
@@ -440,12 +451,14 @@ TAG_SERVE_LENGTHS = (1, 23, 78)  # the single sentences served
 # the single sentences in buckets 32 and 80, the call of 16 rows
 TAG_SERVE_SHAPES = [(1, 32), (1, 80), (16, 80)]
 # CRF kernel check shapes (B, T, C): the training path's, the serving
-# one's, a block a sequence (C > 32), and the forward's matrix in global
-# memory (C = 256)
+# one's, a block a sequence (C > 32), and the forward's E read from L2 (C
+# = 256)
 CRF_SHAPES = [(TAG_BATCH, TAG_LEN, 23), (1, TAG_LEN, 23), (16, TAG_LEN, 128),
               (16, TAG_LEN, 256)]
-# above the forward kernel's 256 classes: the backward and the Viterbi
+# above the earlier kernels' 256 classes (8 a lane of a warp), which
+# crf_alpha_fwd_lanes, crf_bwd_inline and crf_viterbi_scratch refuse
 CRF_BIG_SHAPES = [(4, 40, 257), (2, 20, 1000)]
+CRF_EARLIER_MAX_C = 256
 CRF_FLOOR_STEPS = 20000
 # seq2seq_attention with its encoder self-attention block: 4 heads of 128
 # over the 512-wide embedding (the JAX model's num_heads default)
@@ -467,6 +480,19 @@ FLASH_SHAPES = [
     # head widths padded (40 -> 64) or at the new instance (32)
     (50, 4, 50, 50, 32, False, S2S_MIN_LEN, True),
     (2, 4, 200, 333, 40, True, 1, False)]
+# the wide-head path (128 < D <= 1024, f32 on the CUDA cores): the head
+# width of multi_head_attention(size=512, num_heads=2), 256, over 300
+# steps both ways with an all-padding kv row (Tk > 256, Tk % 256 != 0),
+# causal with Tq > Tk, D = 160 (no padding), and the widest head, small
+FLASH_WIDE_SHAPES = [
+    (2, 4, 300, 300, 256, False, 1, True),
+    (2, 4, 300, 300, 256, True, 1, True),
+    (2, 4, 333, 200, 256, True, 1, False),
+    (2, 4, 200, 333, 160, True, 1, False),
+    (2, 2, 64, 64, 1024, False, 1, False)]
+# the layer check of the wide path: multi_head_attention at size 512 with
+# 2 heads (D = 256), batch 4 of 50 steps
+WIDE_LAYER = dict(size=512, num_heads=2, batch=4, steps=50)
 # the CTC acoustic model at DeepSpeech2's width as PaddlePaddle released
 # it in 2017 (PaddlePaddle/models deep_speech_2): 161-dim linear
 # spectrogram frames (20 ms window, 10 ms stride), 3 bidirectional GRU
@@ -1915,13 +1941,35 @@ def _crf_bounds(B, T, C, mask):
     }
 
 
-def _crf_floor_us(C, viterbi):
+def _crf_floor_us(C, variant):
     """A chain step's least time at C classes, us: CUDA events around one
-    launch of ``crf_chain_floor`` (the chains' own step function, one
-    block, CRF_FLOOR_STEPS steps, no global memory), median of 5, over
-    the steps."""
+    launch of ``crf_chain_floor`` (the chain's own step function, the
+    beta, Viterbi or alpha ``variant``, one block, CRF_FLOOR_STEPS steps,
+    no global memory), median of 5, over the steps."""
     return 1e3 * _time_ms(lambda: CRF.crf_chain_floor(
-        CRF_FLOOR_STEPS, C, viterbi), reps=5, warmup=1) / CRF_FLOOR_STEPS
+        CRF_FLOOR_STEPS, C, variant), reps=5, warmup=1) / CRF_FLOOR_STEPS
+
+
+def _crf_alpha_fwd_lanes(x, mask, trans, a, b):
+    """The forward's earlier spelling, replayed for the comparison: the
+    wrapper's checks, the outputs and the scratch of the global-memory
+    path, the earlier kernel (``crf_alpha_fwd_lanes``: a warp a sequence,
+    8 classes a lane, C <= 256; above C = 239 ``crf_prep_kernel`` first).
+    Uncounted."""
+    vec = CRF._VEC
+    idx, B, T, C = CRF._check("crf_alpha_fwd", x, mask, trans,
+                              (("a", a, vec), ("b", b, vec)))
+    alphas = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
+    log_z = torch.empty((B,), dtype=torch.float32, device=x.device)
+    n = CRF._work_floats(0, C)
+    work = torch.empty((n,), dtype=torch.float32, device=x.device) \
+        if n else None
+    err = build.call(build.bind("crf", "crf_alpha_fwd_lanes", 8, 3), idx,
+                     x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
+                     a.data_ptr(), b.data_ptr(), CRF._ptr(work),
+                     alphas.data_ptr(), log_z.data_ptr(), B, T, C)
+    build.raise_on(err, "crf_alpha_fwd_lanes")
+    return alphas, log_z
 
 
 def _crf_bwd_inline(x, mask, trans, b, alphas, log_z, g):
@@ -1977,8 +2025,9 @@ def _crf_viterbi_scratch(x, mask, trans, a, b):
 
 _CRF_KERNELS = dict(bwd=("crf_bwd_fused_kernel", "crf_sum_kernel",
                          "crf_beta_block_kernel", "crf_marginal_kernel"),
-                    viterbi=("crf_decode_",), fwd=("crf_alpha_fwd_kernel",
-                                                   "crf_prep_kernel"),
+                    viterbi=("crf_decode_",),
+                    fwd=("crf_alpha_warp_kernel", "crf_alpha_block_kernel"),
+                    fwd_before=("crf_alpha_fwd_kernel", "crf_prep_kernel"),
                     bwd_before=("crf_bwd_kernel", "crf_prep_kernel"),
                     viterbi_before=("crf_viterbi_kernel",))
 
@@ -1988,7 +2037,8 @@ def _crf_launches(kind, fn, calls=20):
     profiler's traces): every one must be the wrapper's own, at most one a
     call each, two kernels for the backward (C <= 32 the one-launch
     backward and the sum over the batch, above the beta chain and the
-    marginal pass), one for the Viterbi. Returns {kernel: launches}."""
+    marginal pass), one for the forward and for the Viterbi. Returns
+    {kernel: launches}."""
     _, record = _device_ms(fn, None, calls)
     seen = {}
     for tr in record["traces"]:
@@ -2003,46 +2053,52 @@ def _crf_launches(kind, fn, calls=20):
     return seen
 
 
+def _crf_fwd_err(where, got, want):
+    """alphas and log Z within rtol 1e-4 / atol 1e-5 of the plain
+    forward's, finite; returns the largest error."""
+    err = 0.0
+    for name, g, w in zip(("alphas", "log_z"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{where}: {name} is not finite")
+        err = max(err, (g - w).abs().max().item())
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m: (
+            f"{where} {name}: {m}"))
+    return err
+
+
 def check_crf_shape(B, T, C, seed, floors):
     """The CRF kernels against their plain versions on the same card
-    tensors: alphas and log Z within rtol 1e-4 / atol 1e-5 (C <= 256),
-    every gradient per tensor within 1e-4 of its largest entry + 1e-5, the
-    forbidden transitions' gradients finite and near 0, the Viterbi paths
-    identical (scores within 1e-5); two backward runs bit-equal; where the
-    forward keeps its matrix in shared memory, its global-memory path
-    bit-equal to it; the CUDA kernels each wrapper runs; at C <= 256 the
-    earlier backward and Viterbi held to the same checks; times, the
-    bounds and the chain bounds (``floors``: us a step by (C, viterbi))."""
+    tensors: alphas and log Z within rtol 1e-4 / atol 1e-5, every gradient
+    per tensor within 1e-4 of its largest entry + 1e-5, the forbidden
+    transitions' gradients finite and near 0, the Viterbi paths identical
+    (scores within 1e-5); two backward runs bit-equal; where the forward
+    keeps E in shared memory, its global-memory path bit-equal to it; the
+    CUDA kernels each wrapper runs; at C <= 256 the earlier forward,
+    backward and Viterbi held to the same checks; times, the bounds and
+    the chain bounds (``floors``: us a step by (C, variant))."""
     where = f"CRF B={B} T={T} C={C}"
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, seed)
     w_alphas, w_log_z = CRF.crf_forward_plain(x, mask, trans, a, b)
-    fwd = C <= CRF.MAX_CLASSES
+    earlier = C <= CRF_EARLIER_MAX_C
     row = dict(B=B, T=T, C=C, live_steps=float(mask[:, 1:].sum()),
                plan=CRF.crf_plan(T, C),
                marginal_plan=CRF.crf_marginal_plan(B, T, C))
-    if fwd:
-        alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
-        torch.cuda.synchronize()
-        fwd_err = 0.0
-        for name, got, want in (("alphas", alphas, w_alphas),
-                                ("log_z", log_z, w_log_z)):
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{where}: {name} is not finite")
-            fwd_err = max(fwd_err, (got - want).abs().max().item())
-            torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
-                f"{where} {name}: {m}"))
-        row["fwd_max_abs_err"] = fwd_err
-    else:  # the backward is fed the plain alphas
-        alphas, log_z = w_alphas, w_log_z
+    alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+    row["fwd_max_abs_err"] = _crf_fwd_err(where, (alphas, log_z),
+                                          (w_alphas, w_log_z))
     w_grads = CRF.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, g)
     w_path, w_score = CRF.crf_viterbi_plain(x, mask, trans, a, b)
     bwd_args = (x, mask, trans, b, alphas, log_z, g)
     vit_args = (x, mask, trans, a, b)
     kinds = [("bwd", CRF.crf_bwd, CRF.crf_bwd_plain, bwd_args),
              ("viterbi", CRF.crf_viterbi, CRF.crf_viterbi_plain, vit_args)]
-    if fwd:
+    if earlier:
         kinds += [("bwd_before", _crf_bwd_inline, None, bwd_args),
                   ("viterbi_before", _crf_viterbi_scratch, None, vit_args)]
+        row["fwd_before_max_abs_err"] = _crf_fwd_err(
+            f"{where} fwd_before", _crf_alpha_fwd_lanes(*vit_args),
+            (w_alphas, w_log_z))
     for kind, fn, _, args in kinds:
         got = fn(*args)
         torch.cuda.synchronize()
@@ -2068,27 +2124,28 @@ def check_crf_shape(B, T, C, seed, floors):
                     f"{int((path != w_path).sum())} steps")
             torch.testing.assert_close(score, w_score, rtol=0, atol=1e-5)
             row[f"{kind}_score_err"] = (score - w_score).abs().max().item()
+    kinds.insert(0, ("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
+                     vit_args))
     row["launches_of_20_calls"] = {
         kind: _crf_launches(kind, lambda: fn(*args))
-        for kind, fn, _, args in kinds[:2]}
+        for kind, fn, _, args in kinds[:3]}
     # ms: the kernels' device time (torch.profiler; each kernel's mean a
     # launch, summed: the backward's chain and marginal pass, the earlier
     # kernels' prep where they launch it); call_ms: CUDA events around one
     # wrapper call, median of 50 (the host work inside counts: checks,
     # allocations, the ctypes call; the earlier backward's three sums);
     # plain_ms: the plain version, median of 10. The forward's
-    # global-memory path (the same bits) is timed beside it where its
-    # matrix fits shared memory: global_ms, global_call_ms
-    if fwd:
-        kinds.append(("fwd", CRF.crf_alpha_fwd, CRF.crf_forward_plain,
-                      vit_args))
+    # global-memory path (the same bits) is timed beside it where E fits
+    # shared memory: global_ms, global_call_ms
+    if earlier:
+        kinds.append(("fwd_before", _crf_alpha_fwd_lanes, None, vit_args))
     for kind, fn, plain, args in kinds:
         row[f"{kind}_ms"], row[f"{kind}_trace"] = _device_ms(
             lambda: fn(*args), _CRF_KERNELS[kind])
         row[f"{kind}_call_ms"] = _time_ms(lambda: fn(*args), reps=50)
         if plain is not None:
             row[f"{kind}_plain_ms"] = _time_ms(lambda: plain(*args))
-    if fwd and not CRF._work_floats(0, C):
+    if row["plan"]["fwd"]["matrix_in_smem"]:
         via_global = CRF.crf_alpha_fwd(*vit_args, in_global=True)
         if not all(torch.equal(u, v) for u, v in zip(via_global,
                                                       (alphas, log_z))):
@@ -2100,24 +2157,71 @@ def check_crf_shape(B, T, C, seed, floors):
         row["fwd_global_call_ms"] = _time_ms(
             lambda: CRF.crf_alpha_fwd(*vit_args, in_global=True), reps=50)
     for kind, (bound_ms, bound_by) in _crf_bounds(B, T, C, mask).items():
-        if kind == "fwd" and not fwd:
-            continue
         row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound_ms, bound_by
     # the chain bound: the most live steps of any row (each chain's steps
     # t >= 1 with mask 1) times a step's floor at this C
     steps = int(mask[:, 1:].sum(dim=1).max().item()) if B else 0
     row["chain_live_steps"] = steps
-    for kind, viterbi in (("bwd", False), ("viterbi", True)):
-        row[f"{kind}_floor_us"] = floors[C, viterbi]
-        row[f"{kind}_chain_bound_ms"] = 1e-3 * steps * floors[C, viterbi]
+    for kind, variant in (("fwd", "alpha"), ("bwd", "beta"),
+                          ("viterbi", "viterbi")):
+        row[f"{kind}_floor_us"] = floors[C, variant]
+        row[f"{kind}_chain_bound_ms"] = 1e-3 * steps * floors[C, variant]
         row[f"{kind}_over_chain_bound"] = (row[f"{kind}_ms"]
                                            / row[f"{kind}_chain_bound_ms"])
-        if fwd:
+        if earlier:
             row[f"{kind}_before_over_now"] = (row[f"{kind}_before_ms"]
                                               / row[f"{kind}_ms"])
     phase("crf_kernel_check", **{k: v for k, v in row.items()
                                  if not k.endswith("_trace")})
     return row
+
+
+def _crf_fwd_pieces(x, mask, trans, a, b):
+    """The host split of the forward wrapper's launch path, piece by piece
+    and whole, the earlier spelling's (``_crf_alpha_fwd_lanes``: the
+    scratch size asked of the library, the earlier kernel) and today's:
+    (baseline, now) groups for ``_split_us``."""
+    B, T, C = x.shape
+    dev = x.device
+    idx = x.get_device()
+    vec = CRF._VEC
+    alphas = torch.empty((B, T, C), device=dev)
+    log_z = torch.empty((B,), device=dev)
+    n_old, n_now = CRF._work_floats(0, C), CRF.fwd_work_floats(B, C)
+    work_old = torch.empty((n_old,), device=dev) if n_old else None
+    work = torch.empty((n_now,), device=dev) if n_now else None
+    stream = torch.cuda.current_stream().cuda_stream
+    f_old = build.bind("crf", "crf_alpha_fwd_lanes", 8, 3)
+    f_now = build.bind("crf", "crf_alpha_fwd", 8, 4)
+    ins = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
+           b.data_ptr())
+    outs = (alphas.data_ptr(), log_z.data_ptr(), B, T, C)
+    now_stream = lambda: (torch.cuda.current_device() == idx,  # noqa: E731
+                          torch._C._cuda_getCurrentRawStream(idx))
+
+    def checks():
+        return CRF._check("crf_alpha_fwd", x, mask, trans,
+                          (("a", a, vec), ("b", b, vec)))
+
+    def alloc(n):
+        return (torch.empty((B, T, C), dtype=torch.float32, device=dev),
+                torch.empty((B,), dtype=torch.float32, device=dev),
+                torch.empty((n,), dtype=torch.float32, device=dev)
+                if n else None)
+
+    return (
+        dict(checks=checks,
+             alloc=lambda: alloc(CRF._work_floats(0, C)),
+             guard_stream=now_stream,
+             ctypes_call=lambda keep=(alphas, log_z, work_old): f_old(
+                 *ins, CRF._ptr(work_old), *outs, stream),
+             whole=lambda: _crf_alpha_fwd_lanes(x, mask, trans, a, b)),
+        dict(checks=checks,
+             alloc=lambda: alloc(CRF.fwd_work_floats(B, C)),
+             guard_stream=now_stream,
+             ctypes_call=lambda keep=(alphas, log_z, work): f_now(
+                 *ins, CRF._ptr(work), *outs, 0, stream),
+             whole=lambda: CRF.crf_alpha_fwd(x, mask, trans, a, b)))
 
 
 def _crf_pieces(x, mask, trans, a, b, alphas, log_z, g):
@@ -2218,15 +2322,18 @@ def _crf_pieces(x, mask, trans, a, b, alphas, log_z, g):
 
 def check_crf_host_split():
     """The host split (``_split_us``: median of 5 interleaved rounds of 400
-    calls) of both wrappers' launch paths at the tagger's training and
-    serving shapes, the earlier spelling replayed beside today's."""
+    calls) of the three wrappers' launch paths at the tagger's training
+    and serving shapes, the earlier spelling replayed beside today's."""
     rows = []
     for B, T, C in CRF_SHAPES[:2]:
         x, mask, trans, a, b, g = _crf_inputs(B, T, C, 7)
         alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
         base_b, now_b, base_v, now_v = _crf_pieces(x, mask, trans, a, b,
                                                    alphas, log_z, g)
-        got = _split_us(dict(bwd_baseline=(False, base_b),
+        base_f, now_f = _crf_fwd_pieces(x, mask, trans, a, b)
+        got = _split_us(dict(fwd_baseline=(False, base_f),
+                             fwd_now=(False, now_f),
+                             bwd_baseline=(False, base_b),
                              bwd_now=(False, now_b),
                              viterbi_baseline=(False, base_v),
                              viterbi_now=(False, now_v)))
@@ -2241,10 +2348,10 @@ def check_crf_kernels():
     """The CRF kernels at CRF_SHAPES and CRF_BIG_SHAPES, after the chain
     floor at each of their class counts."""
     Cs = sorted({C for _, _, C in CRF_SHAPES + CRF_BIG_SHAPES})
-    floors = {(C, v): _crf_floor_us(C, v) for C in Cs for v in (False, True)}
+    floors = {(C, v): _crf_floor_us(C, v) for C in Cs
+              for v in CRF.FLOOR_VARIANTS}
     phase("crf_chain_floor", steps=CRF_FLOOR_STEPS, us_a_step={
-        f"C{C}_{'viterbi' if v else 'beta'}": us
-        for (C, v), us in floors.items()})
+        f"C{C}_{v}": us for (C, v), us in floors.items()})
     return [check_crf_shape(B, T, C, B + T + C, floors)
             for B, T, C in CRF_SHAPES + CRF_BIG_SHAPES]
 
@@ -2263,8 +2370,9 @@ def check_tagger_lstm_kernels():
 
 def crf_kernels():
     """``--crf-kernels``: phase 6's CRF part alone (every CRF_SHAPES and
-    CRF_BIG_SHAPES row, the chain floor, the earlier kernels, the host
-    split); rows in ``crf_kernels.json`` in ``OUT_DIR``."""
+    CRF_BIG_SHAPES row, the chain floors of the three variants, the
+    earlier kernels, the host split of the three wrappers); rows in
+    ``crf_kernels.json`` in ``OUT_DIR``."""
     build.build_all(["crf"])
     out = dict(crf_shapes=check_crf_kernels(),
                crf_host_split=check_crf_host_split())
@@ -2878,7 +2986,8 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
     Tk); two backward runs bit-equal; every output finite (an all-padding
     row included). Times: each wrapper call by CUDA events (median of 10)
     and its kernels' device time (``torch.profiler``), the plain
-    versions, and SDPA forward, backward and both, beside the bounds."""
+    versions, and SDPA forward, backward and both, beside the bounds. D >
+    128 runs the wide-head kernels (their own profiler filters)."""
     q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, seed, min_len,
                                       pad_row)
     o, lse = ATT.flash_fwd(q, k, v, mask, causal)
@@ -2911,12 +3020,14 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
     if not all(torch.equal(u, w) for u, w in zip(grads, again)):
         raise AssertionError(f"{where}: two backward runs differ")
     scale = D ** -0.5
+    wide = D > ATT.HEAD_DIMS[-1]
     fwd_dev = _device_ms(lambda: ATT.flash_fwd(q, k, v, mask, causal),
-                         "flash_fwd_kernel", calls=10)
+                         _FLASH_KERNELS[wide][0], calls=10)
     bwd_dev = _device_ms(
         lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
-        "flash_bwd_", calls=10)
+        _FLASH_KERNELS[wide][1], calls=10)
     row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal,
+               path="wide" if wide else "tensor_cores",
                all_padding_rows=int((mask.sum(dim=1) == 0).sum()),
                no_key_rows=no_key_rows,
                visible_pairs=N * float(visible.sum()),
@@ -2957,9 +3068,70 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
     return row
 
 
+# the profiler's filters of each path's kernels: (forward, backward) by
+# D > 128
+_FLASH_KERNELS = {False: ("flash_fwd_kernel", "flash_bwd_"),
+                  True: ("flash_wide_fwd_kernel", "flash_wide_d")}
+
+
 def check_flash_kernels():
+    """Every FLASH_SHAPES row on the tensor-core kernels, then every
+    FLASH_WIDE_SHAPES row on the wide-head path."""
     return [check_flash_shape(*shape, seed=sum(shape[:5]))
-            for shape in FLASH_SHAPES]
+            for shape in FLASH_SHAPES + FLASH_WIDE_SHAPES]
+
+
+def check_wide_attention_layer():
+    """``multi_head_attention`` at WIDE_LAYER (size 512, 2 heads: D = 256,
+    the wide-head path) forward and backward on the card against the same
+    layer on the CPU (its plain versions), from the same random weights
+    and inputs (lengths 50, 31, 7 and an all-padding row): y within rtol
+    1e-4 / atol 1e-5, every parameter gradient per tensor within 1e-4 of
+    its largest entry + 1e-5; one launch of each flash wrapper."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    size, heads = WIDE_LAYER["size"], WIDE_LAYER["num_heads"]
+    B, T = WIDE_LAYER["batch"], WIDE_LAYER["steps"]
+    dsl.reset()
+    x = dsl.data(name="x", size=size, is_sequence=True)
+    out = dsl.multi_head_attention(x, size=size, num_heads=heads,
+                                   name="att_wide")
+    net = Network(dsl.current_graph(), outputs=[out.name])
+    rng = np.random.default_rng(SEED)
+    params = {k: rng.normal(size=s.shape).astype(np.float32) * size ** -0.5
+              for k, s in net.param_specs.items()}
+    lens = np.array([T, 31, 7, 0])[:B]
+    mask = torch.from_numpy((np.arange(T)[None, :] < lens[:, None])
+                            .astype(np.float32))
+    xv = torch.from_numpy(rng.normal(size=(B, T, size)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(B, T, size)).astype(np.float32))
+    results, launches = [], None
+    for dev in ("cpu", "cuda"):
+        p = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+             for k, v in params.items()}
+        before = (ATT.flash_fwd.launches, ATT.flash_bwd.launches)
+        y = net.apply(p, {"x": Argument(xv.to(dev), mask.to(dev))})[
+            out.name].value
+        gs = torch.autograd.grad((y * ct.to(dev)).sum(), list(p.values()))
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launches = (ATT.flash_fwd.launches - before[0],
+                        ATT.flash_bwd.launches - before[1])
+        results.append((y.detach().cpu(), [g.cpu() for g in gs]))
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = results
+    where = f"multi_head_attention size={size} heads={heads}"
+    torch.testing.assert_close(y_gpu, y_cpu, **TOL,
+                               msg=lambda m: f"{where} y: {m}")
+    if launches != (1, 1):
+        raise AssertionError(f"{where}: flash launches {launches}")
+    row = dict(size=size, num_heads=heads, head_width=size // heads, B=B,
+               T=T, y_max_abs_err=(y_gpu - y_cpu).abs().max().item(),
+               grad_max_abs_err=_check_grads(where, g_gpu, g_cpu,
+                                             list(params)),
+               flash_launches=launches)
+    phase("flash_wide_layer_check", **row)
+    return row
 
 
 def _baseline_flash_pieces(q, k, v, mask, o, lse, do):
@@ -3115,11 +3287,13 @@ def check_flash_host_split():
 
 
 def flash_kernels():
-    """``--flash-kernels``: phase 7 alone (every FLASH_SHAPES row with the
-    SDPA yardstick, the host split of both wrappers); rows in
+    """``--flash-kernels``: phase 7 alone (every FLASH_SHAPES and
+    FLASH_WIDE_SHAPES row with the SDPA yardstick, the wide-head layer
+    check, the host split of both wrappers); rows in
     ``flash_kernels.json`` in ``OUT_DIR``."""
     build.build_all(["flash_attn"])
     out = dict(flash_shapes=check_flash_kernels(),
+               flash_wide_layer=check_wide_attention_layer(),
                flash_host_split=check_flash_host_split())
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "flash_kernels.json"), "w") as f:
@@ -4302,7 +4476,7 @@ def _write_tagger_configs(tmp):
 
             def test_reader():
                 rng = np.random.default_rng({SEED + 2})
-                for _ in range(2):
+                for _ in range({TAG_TEST_BATCHES}):
                     yield batch(rng)
         """))
     serve_conf = os.path.join(tmp, "tagger_serve_conf.py")
@@ -4320,9 +4494,10 @@ def _write_tagger_configs(tmp):
 
 def train_tagger(tmp):
     """--job train of the tagger at CoNLL-2000 width (Adam(5e-3), 3 passes
-    over 4 fixed batches, --save_dir), the full-width gradient check card
-    vs CPU (8 rows), --job test of the checkpoint on 2 more batches, and
-    --job merge with outputs = the decode."""
+    over 4 fixed batches, --save_dir; one CRF forward and one backward
+    launch a step), the full-width gradient check card vs CPU (8 rows),
+    --job test of the checkpoint on 2 more batches (one forward launch
+    each), and --job merge with outputs = the decode."""
     from paddle_tpu_torch.data.feeder import DataFeeder
     from paddle_tpu_torch.models.tagging import bilstm_crf_tagger
     from paddle_tpu_torch.optim import Adam
@@ -4345,6 +4520,11 @@ def train_tagger(tmp):
                  "lstm_seq_train"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"tagger --job train never launched {name}")
+    for name in ("crf_alpha_fwd", "crf_bwd"):  # one call each a step
+        if counts[name]["launches"] != summary["steps"]:
+            raise AssertionError(f"tagger --job train: {name} launched "
+                                 f"{counts[name]['launches']} times in "
+                                 f"{summary['steps']} steps")
     _check_opt_launches("tagger --job train", counts, summary["steps"])
     _check_lstm_chains("tagger --job train", counts, 2 * summary["steps"])
     samples, batch = _tag_samples()
@@ -4369,6 +4549,10 @@ def train_tagger(tmp):
     for name in ("crf_alpha_fwd", "crf_viterbi", "lstm_seq"):
         if test_counts[name]["launches"] <= 0:
             raise AssertionError(f"tagger --job test never launched {name}")
+    if test_counts["crf_alpha_fwd"]["launches"] != TAG_TEST_BATCHES:
+        raise AssertionError(f"tagger --job test: crf_alpha_fwd launched "
+                             f"{test_counts['crf_alpha_fwd']['launches']} "
+                             f"times in {TAG_TEST_BATCHES} batches")
     _check_lstm_chains("tagger --job test", test_counts, 0)
     model = os.path.join(tmp, "tagger.ptmodel")
     _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
@@ -4886,6 +5070,7 @@ def main() -> int:
     ctc_rows = check_ctc_kernels()
     ctc_split = check_ctc_host_split()
     flash_rows = check_flash_kernels()
+    wide_layer = check_wide_attention_layer()
     flash_split = check_flash_host_split()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4936,6 +5121,9 @@ def main() -> int:
     lc_err = max(r["max_abs_err"] for r in lstm_cell_rows)
     att_counts, att_test = s2s_att["kernels"], s2s_att["test_kernels"]
     f_row = flash_rows[0]  # the attention seq2seq path's shape
+    tc_rows = [r for r in flash_rows if r["path"] == "tensor_cores"]
+    wide_rows = [r for r in flash_rows if r["path"] == "wide"]
+    w_row = wide_rows[0]  # D = 256, the wide layer's head width
     counts = trained["kernels"]
     s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
     tag_counts, tag_test = tagger["kernels"], tagger["test_kernels"]
@@ -5091,7 +5279,7 @@ def main() -> int:
                     tag_counts["crf_alpha_fwd"]["launches"]
                     + tag_test["crf_alpha_fwd"]["launches"], crf_err["fwd"],
                     crf_row, "fwd_"),
-             shape={k: crf_row[k] for k in ("B", "T", "C")}),
+             **_crf_keys(crf_row, crf_split[0], "fwd")),
         dict(_entry("crf_bwd", crf_src,
                     "JAX lax.scan paddle_tpu/ops/crf.py:158 (_crf_bwd)",
                     tag_counts["crf_bwd"]["launches"], crf_err["bwd"],
@@ -5109,7 +5297,7 @@ def main() -> int:
                     "paddle_tpu/ops/attention.py:107",
                     att_counts["flash_fwd"]["launches"]
                     + att_test["flash_fwd"]["launches"],
-                    max(r["fwd_max_abs_err"] for r in flash_rows), f_row,
+                    max(r["fwd_max_abs_err"] for r in tc_rows), f_row,
                     "fwd_"),
              shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
              device_ms=f_row["fwd_device_ms"],
@@ -5121,7 +5309,7 @@ def main() -> int:
                     "jax.vjp of blockwise_attention, paddle_tpu/ops/"
                     "attention.py:206 (_flash_bwd)",
                     att_counts["flash_bwd"]["launches"],
-                    max(r["bwd_max_abs_err"] for r in flash_rows), f_row,
+                    max(r["bwd_max_abs_err"] for r in tc_rows), f_row,
                     "bwd_"),
              shape={k: f_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
              device_ms=f_row["bwd_device_ms"],
@@ -5130,6 +5318,34 @@ def main() -> int:
              library=f"scaled_dot_product_attention backward "
                      f"({f_row['sdpa_backend']})",
              path="seq2seq_attention(seq_parallel) train"),
+        # the wide-head path (D > 128): on no path's shapes; the layer
+        # check's multi_head_attention(size=512, num_heads=2) ran it
+        dict(_entry("flash_fwd_wide", flash_src,
+                    "paddle_tpu/ops/attention.py:107", 0,
+                    max(r["fwd_max_abs_err"] for r in wide_rows), w_row,
+                    "fwd_"),
+             shape={k: w_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=w_row["fwd_device_ms"],
+             library_device_ms=w_row["fwd_library_device_ms"],
+             library=f"scaled_dot_product_attention ({w_row['sdpa_backend']})",
+             on_path=False, kernel_route="wide",
+             layer_check_launches=wide_layer["flash_launches"][0],
+             path="none: no path has a head wider than 128; "
+                  "multi_head_attention(size=512, num_heads=2) checked"),
+        dict(_entry("flash_bwd_wide", flash_src,
+                    "jax.vjp of blockwise_attention, paddle_tpu/ops/"
+                    "attention.py:206 (_flash_bwd)", 0,
+                    max(r["bwd_max_abs_err"] for r in wide_rows), w_row,
+                    "bwd_"),
+             shape={k: w_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=w_row["bwd_device_ms"],
+             library_device_ms=w_row["bwd_library_device_ms"],
+             library=f"scaled_dot_product_attention backward "
+                     f"({w_row['sdpa_backend']})",
+             on_path=False, kernel_route="wide",
+             layer_check_launches=wide_layer["flash_launches"][1],
+             path="none: no path has a head wider than 128; "
+                  "multi_head_attention(size=512, num_heads=2) checked"),
         dict(_entry("gru_seq_h1024", gru_src, "paddle_tpu/ops/gru.py:57",
                     ac_test["gru_seq"]["launches"], gru_fwd_err, a_row),
              shape={k: a_row[k] for k in ("B", "H", "T")},
@@ -5232,6 +5448,7 @@ def main() -> int:
                    "crf_host_split": crf_split,
                    "tagger_lstm_shapes": tag_lstm_rows,
                    "flash_shapes": flash_rows,
+                   "flash_wide_layer": wide_layer,
                    "flash_host_split": flash_split, "ctc_shapes": ctc_rows,
                    "ctc_host_split": ctc_split,
                    "train": trained, "serve": served, "seq2seq": s2s,

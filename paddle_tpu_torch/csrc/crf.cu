@@ -3,7 +3,8 @@
 //
 // Replaces
 // - crf_alpha_fwd: the TPU kernel paddle_tpu/ops/crf.py:_crf_kernel (its
-//   pallas_call in _crf_alphas_pallas) with the log Z epilogue of _crf_fwd;
+//   pallas_call in _crf_alphas_pallas) with the log Z epilogue of _crf_fwd,
+//   any C (the TPU pads C to 128 lanes and takes any C);
 // - crf_bwd: the backward paddle_tpu/ops/crf.py:_crf_bwd, a lax.scan over
 //   the saved alphas in JAX (beta recursion, unary and pairwise
 //   marginals);
@@ -94,15 +95,39 @@
 // step times the most live steps of any row is the chain bound
 // chip_smoke.py ranks the kernels against (PERF.md).
 //
-// The forward (crf_alpha_fwd_kernel) keeps the earlier design: a warp a
-// sequence, 8 classes a lane at most, so C <= kMaxClasses (256); its [C,
-// C] matrix in shared memory up to C = 239 and from global memory above
-// (crf_prep_kernel writes it, launched just before). The earlier backward
+// The forward: one launch, any C. Its alpha step is the beta step on the
+// transposed matrix (s_j = sum_i p_i E[i, j] with p = exp(alpha - m), and
+// x_t added after the log), so both chains run one step function each
+// (warp_chain_step, block_chain_step; kAlpha picks the side) and the floor
+// times the very code the kernels run. C <= 32 (crf_alpha_warp_kernel): a
+// warp a sequence, four a block; the block computes E once into shared
+// memory, lane j keeps column j in registers (C rounded up to 8, the
+// padded terms +0), exp(alpha - m) is shared through a 16-byte aligned
+// row read as float4, the max is one redux.sync, masks are ballot bits 32
+// steps ahead, emissions kAhead steps ahead, and the alpha rows are
+// stored each step with nothing waiting on them. Above
+// (crf_alpha_block_kernel): a block a sequence, K lanes a column summing
+// alternate terms in order and combining in a fixed butterfly, two
+// barriers a step, an owner's x_t read from global memory under the dot;
+// E in shared memory at a column stride = 32 / K mod 32 (the K parts of 32
+// / K columns in 32 banks) while it fits beside alpha and p (K = 4 up to
+// C = 232, 2 up to 240), else each block writes its own copy of E in its
+// natural layout to scratch and reads its columns from L2 (a warp's slots
+// read neighbouring columns: coalesced), 4 lanes a column up to C = 256,
+// 16 loads in flight. in_global forces that copy at the shared path's K:
+// the same partition of every sum, the same bits. Above C ~ 29,000 the
+// vectors (alpha, p) move to scratch too.
+//
+// The earlier forward (crf_alpha_fwd_kernel: a warp a sequence, 8 classes
+// a lane at most, so C <= kEarlierClasses (256); its [C, C] matrix in
+// shared memory up to C = 239 and from global memory above, written by
+// crf_prep_kernel, launched just before), the earlier backward
 // (crf_bwd_kernel: the pairwise marginals inside the chain, per-sequence
 // partials summed by the caller) and Viterbi (crf_viterbi_kernel:
 // back-pointers in a global scratch) stay built under the entries
-// crf_bwd_inline and crf_viterbi_scratch, which no path calls, so that
-// chip_smoke.py times them beside the new ones in one run.
+// crf_alpha_fwd_lanes, crf_bwd_inline and crf_viterbi_scratch, which no
+// path calls, so that chip_smoke.py times them beside the new ones in one
+// run.
 
 #include <cuda_runtime.h>
 
@@ -113,8 +138,8 @@ namespace {
 
 constexpr int kWarps = 4;                 // sequences per warp-variant block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxPerLane = 8;            // the forward's classes per lane
-constexpr int kMaxClasses = 32 * kMaxPerLane;
+constexpr int kMaxPerLane = 8;            // the earlier kernels' classes a lane
+constexpr int kEarlierClasses = 32 * kMaxPerLane;
 constexpr size_t kMaxSmem = 232448;       // a block's 227 KB
 constexpr int kPrepThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
@@ -126,6 +151,7 @@ constexpr int kStagePairs = kMargThreads; // pairs a marginal block lists
 constexpr int kTargetBlocks = 264;        // two marginal blocks an SM
 constexpr int kMinPairs = 32;             // pairs a chunk at least
 constexpr int kAhead = 4;                 // steps a warp loads x ahead
+constexpr int kSetupLoads = 16;           // the forward's setup loads a pass
 constexpr int kFusedWarps = 8;            // the one-launch backward's block
 constexpr int kIdleWarp = 4;              // the chain's scheduler mate
 constexpr int kWorkers = 32 * (kFusedWarps - 2);  // its marginal threads
@@ -220,25 +246,38 @@ __device__ __forceinline__ unsigned live_bits(float m) {
 // Shared by the kernels and crf_chain_floor_kernel, so that the floor
 // times the kernels' own steps.
 
-// A live beta step in a warp, kC >= C classes (a multiple of 8): lane i
-// (own: i < C) returns beta_{t-1}[i] from beta = beta_t[i] and x_t =
-// x_t[i]; erow = E[i, 0 .. kC) in registers (0 past C; the floor gives
-// every lane one row), p the warp's [32] row in shared memory (0 past C).
-// The dot adds j = 0 .. kC-1 in order: the padded terms add +0.
-template <int kC>
-__device__ __forceinline__ float warp_beta_step(float beta, float x_t,
-                                                bool own, int lane, float* p,
-                                                const float (&erow)[kC],
-                                                float tm) {
-  const float y = own ? x_t + beta : -INFINITY;
+// A live chain step in a warp, kC >= C classes (a multiple of 8). The
+// beta step (kAlpha false): lane i (own: i < C) returns beta_{t-1}[i] from
+// v = beta_t[i] and x_t = x_t[i], mat = E[i, 0 .. kC) its row. The alpha
+// step (kAlpha): lane j returns alpha_t[j] from v = alpha_{t-1}[j] and x_t
+// = x_t[j], mat = E[0 .. kC), j] its column; x_t is added after the log.
+// mat sits in registers (0 past C; the floor gives every lane one row); p
+// is the warp's [32] row in shared memory, 16-byte aligned, 0 past C,
+// read as float4. The dot adds the terms 0 .. kC-1 in order: the padded
+// terms add +0.
+template <int kC, bool kAlpha>
+__device__ __forceinline__ float warp_chain_step(float v, float x_t,
+                                                 bool own, int lane, float* p,
+                                                 const float (&mat)[kC],
+                                                 float tm) {
+  const float y = own ? (kAlpha ? v : x_t + v) : -INFINITY;
   const float m = warp_max_key(y);
   if (own) p[lane] = expf(y - m);
   __syncwarp();
   float s = 0.f;
+  const float4* p4 = reinterpret_cast<const float4*>(p);
 #pragma unroll
-  for (int j = 0; j < kC; ++j) s += p[j] * erow[j];
+  for (int q = 0; q < kC / 4; ++q) {
+    const float4 f = p4[q];
+    s += f.x * mat[4 * q];
+    s += f.y * mat[4 * q + 1];
+    s += f.z * mat[4 * q + 2];
+    s += f.w * mat[4 * q + 3];
+  }
   __syncwarp();  // p is rewritten next step
-  return own ? logf(fmaxf(s, 1e-37f)) + m + tm : beta;
+  if (!own) return v;
+  const float r = logf(fmaxf(s, 1e-37f)) + m + tm;
+  return kAlpha ? r + x_t : r;
 }
 
 // The block variants split each row's (or column's) sum or max over K
@@ -248,34 +287,58 @@ __device__ __forceinline__ float warp_beta_step(float beta, float x_t,
 // the terms j = k, k + K, ... in order, and the K partials combine in a
 // fixed butterfly (the same bits in every lane). Owners are part 0.
 
-// A live beta step in a block (two barriers): beta [C] (the owners'), p
-// [C] shared, xt [C] the step's emissions (owners read their own),
-// E[i, j] = e[i * si + j * sj]; red [32] shared.
-__device__ __forceinline__ void block_beta_step(float* beta, float* p,
-                                                const float* xt,
-                                                const float* e, size_t si,
-                                                size_t sj, int C, float tm,
-                                                float* red, int K) {
+// A live chain step in a block (two barriers): v [C] the owners' (beta_t
+// or alpha_{t-1}, replaced in place), p [C] shared, xt [C] the step's
+// emissions (owners read their own; the alpha step's first column is
+// loaded before the barriers, so that a global x_t arrives under them);
+// owner o sums the terms e[o * so + j * ss], j = 0 .. C-1: the beta step's
+// row i of E (so, ss = E's row and column strides), the alpha step's
+// column j (the other way round), 16 terms' loads issued before their sums
+// (E may come from L2; left to the compiler's unrolling, the schedule of
+// these loads moved with unrelated edits and the L2 path ran half again
+// slower on the H100); red [32] shared.
+template <bool kAlpha>
+__device__ __forceinline__ void block_chain_step(float* v, float* p,
+                                                 const float* xt,
+                                                 const float* e, size_t so,
+                                                 size_t ss, int C, float tm,
+                                                 float* red, int K) {
   const int slots = blockDim.x / K, slot = threadIdx.x / K;
   const int part = threadIdx.x - slot * K;
+  const float x0 = kAlpha && part == 0 && slot < C ? xt[slot] : 0.f;
   float lm = -INFINITY;
   if (part == 0)
-    for (int i = slot; i < C; i += slots) lm = fmaxf(lm, xt[i] + beta[i]);
+    for (int o = slot; o < C; o += slots)
+      lm = fmaxf(lm, kAlpha ? v[o] : xt[o] + v[o]);
   const float m = block_max(lm, red);
   if (part == 0)
-    for (int i = slot; i < C; i += slots) p[i] = expf((xt[i] + beta[i]) - m);
+    for (int o = slot; o < C; o += slots)
+      p[o] = expf((kAlpha ? v[o] : xt[o] + v[o]) - m);
   __syncthreads();
   for (int base = 0; base < C; base += slots) {  // block-uniform trips
-    const int i = base + slot;
+    const int o = base + slot;
     float s = 0.f;
-    if (i < C) {
-      const float* ei = e + i * si + part * sj;
-      const size_t step = K * sj;
-#pragma unroll 16  // loads in flight: E may come from L2
-      for (int j = part; j < C; j += K, ei += step) s += p[j] * *ei;
+    if (o < C) {
+      const float* eo = e + o * so + part * ss;
+      const size_t step = K * ss;
+      int j = part;
+      for (; j + 15 * K < C; j += 16 * K, eo += 16 * step) {
+        float ev[16], pv[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          ev[u] = eo[u * step];
+          pv[u] = p[j + u * K];
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) s += pv[u] * ev[u];  // in order
+      }
+      for (; j < C; j += K, eo += step) s += p[j] * *eo;
     }
-    for (int o = 1; o < K; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
-    if (i < C && part == 0) beta[i] = logf(fmaxf(s, 1e-37f)) + m + tm;
+    for (int q = 1; q < K; q <<= 1) s += __shfl_xor_sync(kFull, s, q);
+    if (o < C && part == 0) {
+      const float r = logf(fmaxf(s, 1e-37f)) + m + tm;
+      v[o] = kAlpha ? r + (base == 0 ? x0 : xt[o]) : r;
+    }
   }
 }
 
@@ -413,7 +476,7 @@ __device__ __forceinline__ void block_viterbi_step(const float* v, float* vn,
   __syncthreads();
 }
 
-// ------------------------------- the forward, and the earlier kernels
+// ------------------------------------------------- the earlier kernels
 // Block-wide: tm = max(trans); e_s = exp(trans - tm) and, if tr_s is
 // given, tr_s = trans, both [C, ld] in shared memory. Every thread of the
 // block must call it (it holds two barriers).
@@ -864,6 +927,195 @@ crf_viterbi_kernel(const float* __restrict__ x,      // [B, T, C]
   }
 }
 
+// ------------------------------------------------------ the alpha chains
+// C <= kC <= 32: a warp a sequence, kWarps a block. The block computes tm
+// and E = exp(trans - tm) [C, C] once, into shared memory (or, ework
+// given, into its own copy at ework + blockIdx.x C^2: the same bits from
+// global memory); lane j keeps column j in registers. Shared memory: the
+// warps' [32] rows of exp(alpha - m), red [32], then E.
+template <int kC>
+__global__ void __launch_bounds__(kThreads)
+crf_alpha_warp_kernel(const float* __restrict__ x,      // [B, T, C]
+                      const float* __restrict__ mask,   // [B, T]
+                      const float* __restrict__ trans,  // [C, C]
+                      const float* __restrict__ a,      // [C]
+                      const float* __restrict__ bend,   // [C]
+                      float* ework,                     // or null
+                      float* __restrict__ alphas,       // [B, T, C]
+                      float* __restrict__ log_z,        // [B]
+                      int B, int T, int C) {
+  extern __shared__ float smem[];
+  float* p_s = smem;             // [kWarps][32], 16-byte aligned
+  float* red = p_s + kThreads;   // [32]
+  float* e = ework != nullptr
+                 ? ework + static_cast<size_t>(blockIdx.x) * C * C
+                 : red + 32;     // [C, C]
+  float mx = -INFINITY;
+  for (int k = threadIdx.x; k < C * C; k += kThreads) mx = fmaxf(mx, trans[k]);
+  const float tm = block_max(mx, red);
+  for (int k = threadIdx.x; k < C * C; k += kThreads)
+    e[k] = expf(trans[k] - tm);
+  p_s[threadIdx.x] = 0.f;  // the padded classes' exp(alpha - m) stay 0
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= B) return;  // no barrier follows
+  const bool own = lane < C;
+  float col[kC];
+#pragma unroll
+  for (int i = 0; i < kC; ++i) col[i] = own && i < C ? e[i * C + lane] : 0.f;
+  float* p = p_s + warp * 32;
+  const size_t tc = static_cast<size_t>(T) * C;
+  const float* xb = x + b * tc;
+  const float* mb = mask + static_cast<size_t>(b) * T;
+  float* ab = alphas + b * tc;
+  float alpha = own ? a[lane] + xb[lane] : 0.f;
+  if (own) ab[lane] = alpha;
+  // emissions kAhead steps ahead, masks a chunk of 32 steps ahead
+  float xq[kAhead];
+#pragma unroll
+  for (int d = 0; d < kAhead; ++d)
+    xq[d] = own && 1 + d < T ? xb[static_cast<size_t>(1 + d) * C + lane] : 0.f;
+  float m_n = mask_of(mb, 1, 1, 1, T - 1);
+  unsigned live = 0;
+  for (int t = 1; t < T; ++t) {
+    const int k = (t - 1) & 31;
+    if (k == 0) {
+      live = live_bits(m_n);
+      m_n = mask_of(mb, t + 32, 1, 1, T - 1);
+    }
+    const float x_t = xq[0];
+#pragma unroll
+    for (int d = 0; d + 1 < kAhead; ++d) xq[d] = xq[d + 1];
+    const int tn = t + kAhead;
+    xq[kAhead - 1] = own && tn < T ? xb[static_cast<size_t>(tn) * C + lane]
+                                   : 0.f;
+    if ((live >> k) & 1u)  // warp-uniform
+      alpha = warp_chain_step<kC, true>(alpha, x_t, own, lane, p, col, tm);
+    if (own) ab[static_cast<size_t>(t) * C + lane] = alpha;  // not waited on
+  }
+  // log Z = m + log(sum_j exp(alpha_j + b_j - m))
+  const float v = own ? alpha + bend[lane] : -INFINITY;
+  const float m = warp_max_key(v);
+  const float s = warp_sum(own ? expf(v - m) : 0.f);
+  if (lane == 0) log_z[b] = m + logf(s);
+}
+
+// C > 32: a block a sequence (K parts a column, block_threads(C, K)).
+// Shared memory: red [32], then (unless the vectors are global: vwork
+// non-null) alpha [C] and p [C], then E [C, ld] (ld > 0: ld = t_stride(C,
+// K), so that the K parts of 32 / K columns hit 32 banks). With ld = 0,
+// the block writes its own copy of E [C, C] at ework + b C^2 and reads its
+// columns from L2. An owner reads its x_t straight from global memory,
+// issued before the step's barriers and needed only after its dot (a
+// cp.async ring for x, as the beta chain keeps, ran slower on the H100 at
+// every C, most where E comes from L2).
+__global__ void __launch_bounds__(kBlockThreads)
+crf_alpha_block_kernel(const float* __restrict__ x,      // [B, T, C]
+                       const float* __restrict__ mask,   // [B, T]
+                       const float* __restrict__ trans,  // [C, C]
+                       const float* __restrict__ a,      // [C]
+                       const float* __restrict__ bend,   // [C]
+                       float* __restrict__ alphas,       // [B, T, C]
+                       float* __restrict__ log_z,        // [B]
+                       float* ework,                     // [B, C, C] or null
+                       float* vwork,                     // [B, 2, C] or null
+                       int T, int C, int K, int ld) {
+  extern __shared__ float smem[];
+  const bool giant = vwork != nullptr;
+  const size_t Cs = static_cast<size_t>(C);
+  const int b = blockIdx.x;
+  float* red = smem;
+  float* vec = giant ? vwork + b * 2 * Cs : smem + 32;
+  float* alpha = vec;              // [C]
+  float* p = vec + Cs;             // [C]
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int slots = nt / K, slot = tid / K;
+  const bool owner = tid - slot * K == 0;
+  // trans read twice, 16 loads a thread in flight
+  const size_t CC = Cs * Cs, stride = static_cast<size_t>(nt);
+  float mx = -INFINITY;
+  for (size_t k0 = tid; k0 < CC; k0 += kSetupLoads * stride) {
+    float tv[kSetupLoads];
+#pragma unroll
+    for (int r = 0; r < kSetupLoads; ++r) {
+      const size_t k = k0 + r * stride;
+      tv[r] = k < CC ? trans[k] : -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < kSetupLoads; ++r) mx = fmaxf(mx, tv[r]);
+  }
+  const float tm = block_max(mx, red);
+  // E[i, j] at e[i * ss + j]: shared memory, or this block's copy in L2
+  float* e = ld > 0 ? smem + 32 + (giant ? 0 : 2 * Cs) : ework + b * CC;
+  const size_t ss = ld > 0 ? static_cast<size_t>(ld) : Cs;
+  {  // entry k = i C + j of trans, the thread's (i, j) stepped on: no
+     // division in the loop
+    int i = tid / C, j = tid - (tid / C) * C;
+    const int di = nt / C, dj = nt - di * C;
+    for (size_t k0 = tid; k0 < CC; k0 += kSetupLoads * stride) {
+      float tv[kSetupLoads];
+#pragma unroll
+      for (int r = 0; r < kSetupLoads; ++r) {
+        const size_t k = k0 + r * stride;
+        tv[r] = k < CC ? trans[k] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kSetupLoads; ++r) {
+        if (k0 + r * stride < CC) e[i * ss + j] = expf(tv[r] - tm);
+        i += di;
+        j += dj;
+        if (j >= C) {
+          j -= C;
+          ++i;
+        }
+      }
+    }
+  }
+  const size_t tc = static_cast<size_t>(T) * C;
+  const float* xb = x + b * tc;
+  const float* mb = mask + static_cast<size_t>(b) * T;
+  float* ab = alphas + b * tc;
+  if (owner) {
+    for (int j = slot; j < C; j += slots) {
+      alpha[j] = a[j] + xb[j];
+      ab[j] = alpha[j];
+    }
+  }
+  __syncthreads();  // E (shared or global), and the reads of red for tm
+  float m_n = mask_of(mb, 1, 1, 1, T - 1);  // as the warp variant
+  unsigned live = 0;
+  for (int t = 1; t < T; ++t) {
+    const int k = (t - 1) & 31;
+    if (k == 0) {
+      live = live_bits(m_n);
+      m_n = mask_of(mb, t + 32, 1, 1, T - 1);
+    }
+    if ((live >> k) & 1u)  // block-uniform
+      block_chain_step<true>(alpha, p, xb + t * Cs, e, 1, ss, C, tm, red, K);
+    if (owner)
+      for (int j = slot; j < C; j += slots) ab[t * Cs + j] = alpha[j];
+  }
+  // log Z: the block's max, then its sum (each owner's terms in order, the
+  // warps' butterflies, the warps in order)
+  float lm = -INFINITY;
+  if (owner)
+    for (int j = slot; j < C; j += slots) lm = fmaxf(lm, alpha[j] + bend[j]);
+  const float m = block_max(lm, red);
+  float s = 0.f;
+  if (owner)
+    for (int j = slot; j < C; j += slots) s += expf((alpha[j] + bend[j]) - m);
+  s = warp_sum(s);
+  __syncthreads();  // every warp has read red for m
+  if ((tid & 31) == 0) red[tid >> 5] = s;
+  __syncthreads();
+  if (tid == 0) {
+    float z = 0.f;
+    for (int w = 0; w < nt / 32; ++w) z += red[w];
+    log_z[b] = m + logf(z);
+  }
+}
+
 // ------------------------------------------------------ the beta chains
 // A ring word of the one-launch backward: the beta's bits and its tag.
 __device__ __forceinline__ unsigned long long tagged(float v, int tag) {
@@ -988,7 +1240,8 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
       xq[kAhead - 1] = own && tn >= 1 ? xb[static_cast<size_t>(tn) * C + lane]
                                       : 0.f;
       if ((live >> k) & 1u)
-        beta = warp_beta_step<kC>(beta, x_t, own, lane, p, erow, tm);
+        beta = warp_chain_step<kC, false>(beta, x_t, own, lane, p, erow,
+                                          tm);
       // beta_{t-1} goes where beta_{t-1+kRing} was: the workers must have
       // done its last pair, t - 2 + kRing (seen: the least progress read
       // last time, so the counters are read only when that falls short)
@@ -1240,7 +1493,7 @@ crf_beta_block_kernel(const float* __restrict__ x,       // [B, T, C]
       xt = xs + (t & 1) * Cs;
     }
     if ((live >> k) & 1u)  // block-uniform
-      block_beta_step(beta, p, xt, e, si, sj, C, tm, red, K);
+      block_chain_step<false>(beta, p, xt, e, si, sj, C, tm, red, K);
     if (owner)
       for (int i = slot; i < C; i += slots) bb[(t - 1) * Cs + i] = beta[i];
   }
@@ -1569,15 +1822,19 @@ crf_decode_block_kernel(const float* __restrict__ x,      // [B, T, C]
 }
 
 // -------------------------------------------------------------- the floor
-// T dependent steps of a chain's own step function (kViterbi: the
-// Viterbi's, else the beta recursion's) with no global memory but the
-// last write: the chain bound's unit. The matrix is one row (every row
-// reads it), r_j = -(j mod 7) / 4, and E_j = exp(r_j - max r); x_j = -1/2
+// T dependent steps of a chain's own step function (kVariant: kBeta, the
+// beta recursion's; kViterbi, the Viterbi's; kAlpha, the forward's) with
+// no global memory but the last write: the chain bound's unit. The matrix
+// is one row r that every row (the beta, the Viterbi) or column (the
+// alpha) reads: trans[i, j] = r_j for the beta and the Viterbi, r_i for
+// the alpha, r_k = -(k mod 7) / 4, and E = exp(trans - max r); x_j = -1/2
 // - (j mod 5) / 8, the start -(j mod 3) / 2, mask 1. out [C] the last
 // vector; the Viterbi adds [C] the last back-pointers.
 // ops/crf.py:chain_floor_plain computes the same. Shared memory: [32],
 // the row [C], x [C], the vectors [2][max(C, 32)] (the warp kernel puts
 // them first), the back-pointers of the last 16 steps.
+constexpr int kBeta = 0, kViterbi = 1, kAlpha = 2;
+
 __device__ __forceinline__ void floor_inputs(float* row, float* xs,
                                              float* v, int C, bool viterbi) {
   for (int j = threadIdx.x; j < C; j += blockDim.x) {
@@ -1589,9 +1846,10 @@ __device__ __forceinline__ void floor_inputs(float* row, float* xs,
 }
 
 // C <= kC <= 32: one warp, the warp step.
-template <bool kViterbi, int kC>
+template <int kVariant, int kC>
 __global__ void __launch_bounds__(32)
 crf_floor_warp_kernel(float* __restrict__ out, int T, int C) {
+  constexpr bool kVit = kVariant == kViterbi;
   extern __shared__ float smem[];
   float* v = smem;  // [2][32], 16-byte aligned as the kernels'
   float* row = v + 64 + 32;
@@ -1599,41 +1857,45 @@ crf_floor_warp_kernel(float* __restrict__ out, int T, int C) {
   unsigned short* bp = reinterpret_cast<unsigned short*>(xs + C);
   const int lane = threadIdx.x;
   const bool own = lane < C;
-  v[lane] = v[32 + lane] = kViterbi ? -INFINITY : 0.f;
+  v[lane] = v[32 + lane] = kVit ? -INFINITY : 0.f;
   __syncwarp();
-  floor_inputs(row, xs, v, C, kViterbi);
+  floor_inputs(row, xs, v, C, kVit);
   __syncwarp();
   float val = own ? v[lane] : 0.f;
   const float x_j = own ? xs[lane] : 0.f;
-  float mat[kC];  // E_j (the beta), or r_{lane} for every i (the Viterbi)
+  // the beta's row E_j and the alpha's column E_i = exp(r_i) are the same
+  // registers; the Viterbi's column r_{lane} for every i
+  float mat[kC];
 #pragma unroll
   for (int j = 0; j < kC; ++j)
-    mat[j] = !own || j >= C ? 0.f : (kViterbi ? row[lane] : row[j]);
-  if (!kViterbi) {
+    mat[j] = !own || j >= C ? 0.f : (kVit ? row[lane] : row[j]);
+  if (!kVit) {
     v[lane] = 0.f;  // p
     __syncwarp();
   }
   for (int t = 0; t < T; ++t) {
-    if (kViterbi) {
+    if (kVit) {
       int arg = 0;
       val = warp_viterbi_step<kC>(val, x_j, own, lane, v + (t & 1) * 32, mat,
-                                    arg);
+                                  arg);
       if (own) bp[(t & 15) * C + lane] = static_cast<unsigned short>(arg);
     } else {
-      val = warp_beta_step<kC>(val, x_j, own, lane, v, mat, 0.f);
+      val = warp_chain_step<kC, kVariant == kAlpha>(val, x_j, own, lane, v,
+                                                    mat, 0.f);
     }
   }
   __syncwarp();
   if (own) {
     out[lane] = val;
-    if (kViterbi) out[C + lane] = bp[((T - 1) & 15) * C + lane];
+    if (kVit) out[C + lane] = bp[((T - 1) & 15) * C + lane];
   }
 }
 
 // C > 32: a block of the chain's own threads and parts, the block step.
-template <bool kViterbi>
+template <int kVariant>
 __global__ void __launch_bounds__(kBlockThreads)
 crf_floor_block_kernel(float* __restrict__ out, int T, int C, int K) {
+  constexpr bool kVit = kVariant == kViterbi;
   extern __shared__ float smem[];
   const size_t Cs = static_cast<size_t>(C);
   float* red = smem;
@@ -1641,22 +1903,23 @@ crf_floor_block_kernel(float* __restrict__ out, int T, int C, int K) {
   float* xs = row + C;
   float* v = xs + C;  // [2][C]
   unsigned short* bp = reinterpret_cast<unsigned short*>(v + 2 * Cs);
-  floor_inputs(row, xs, v, C, kViterbi);
+  floor_inputs(row, xs, v, C, kVit);
   __syncthreads();
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    if (kViterbi) {
+    if (kVit) {
       block_viterbi_step(v + cur * Cs, v + (cur ^ 1) * Cs, xs, row, 0, C,
                          bp + (t & 15) * Cs, K);
       cur ^= 1;
-    } else {
-      block_beta_step(v, v + Cs, xs, row, 0, 1, C, 0.f, red, K);
+    } else {  // owner o reads row[j], j = 0 .. C-1, either way
+      block_chain_step<kVariant == kAlpha>(v, v + Cs, xs, row, 0, 1, C, 0.f,
+                                           red, K);
     }
   }
   __syncthreads();
   for (int j = threadIdx.x; j < C; j += blockDim.x) {
-    out[j] = v[(kViterbi ? cur : 0) * Cs + j];
-    if (kViterbi) out[C + j] = bp[((T - 1) & 15) * Cs + j];
+    out[j] = v[(kVit ? cur : 0) * Cs + j];
+    if (kVit) out[C + j] = bp[((T - 1) & 15) * Cs + j];
   }
 }
 
@@ -1768,6 +2031,53 @@ ChainPlan viterbi_plan(int T, int C) {
   return p;
 }
 
+// The forward: C <= 32 a warp a sequence, E in shared memory at row
+// stride C (in_global: each block's copy in scratch); above, a block a
+// sequence, K parts a column, E in shared memory at t_stride(C, K) where
+// it fits with the vectors: K = 4 where that fits (C <= 232), else
+// block_parts(C) (C <= 239); else each block's copy in scratch, read from
+// L2 with beta_parts_global(C) parts (4 up to C = 256). On the H100 at C
+// = 128 and 200 4 parts beat 2 and 8. in_global forces the copy at the
+// shared path's K: the same partition, the same bits.
+ChainPlan alpha_plan(int C, bool in_global) {
+  ChainPlan p;
+  const size_t Cs = static_cast<size_t>(C);
+  if (C <= 32) {  // the warps' p rows, red, then E
+    p.threads = kThreads;
+    p.mat_smem = !in_global;
+    p.ld = in_global ? 0 : C;
+    p.smem = sizeof(float) * (kThreads + 32 + (in_global ? 0 : Cs * Cs));
+    return p;
+  }
+  p.block = true;
+  const size_t red = sizeof(float) * 32;
+  const size_t vec = sizeof(float) * 2 * Cs;  // alpha, p
+  const auto mat = [&](int K) { return sizeof(float) * Cs * t_stride(C, K); };
+  p.parts = C <= 256 && red + vec + mat(4) <= kMaxSmem ? 4 : block_parts(C);
+  if (red + vec + mat(p.parts) <= kMaxSmem) {  // E fits beside the vectors
+    p.threads = block_threads(C, p.parts);
+    p.mat_smem = !in_global;
+    p.ld = in_global ? 0 : t_stride(C, p.parts);
+    p.smem = red + vec + (in_global ? 0 : mat(p.parts));
+    return p;
+  }
+  p.parts = beta_parts_global(C);
+  p.threads = block_threads(C, p.parts);
+  p.giant = red + vec > kMaxSmem;
+  p.smem = red + (p.giant ? 0 : vec);
+  return p;
+}
+
+// Floats of the forward's scratch at B: each block's copy of E where it is
+// not in shared memory (ceil(B / kWarps) blocks at C <= 32, B above), then
+// each sequence's alpha and p [2, C] where giant.
+size_t fwd_work_floats(int B, int C, bool in_global) {
+  const ChainPlan p = alpha_plan(C, in_global);
+  const size_t Bs = static_cast<size_t>(B), Cs = static_cast<size_t>(C);
+  const size_t blocks = p.block ? Bs : (Bs + kWarps - 1) / kWarps;
+  return (p.mat_smem ? 0 : blocks * Cs * Cs) + (p.giant ? Bs * 2 * Cs : 0);
+}
+
 // A sequence's Viterbi scratch in bytes (16-byte multiple): its alphas of
 // two steps where giant, then its back-pointers where not in shared memory.
 size_t viterbi_stride(const ChainPlan& p, int T, int C) {
@@ -1873,7 +2183,7 @@ size_t viterbi_smem(int C, bool in_smem) {
 }
 
 bool bad_shape(int B, int T, int C) {
-  return B < 0 || T < 1 || C < 1 || C > kMaxClasses;
+  return B < 0 || T < 1 || C < 1 || C > kEarlierClasses;
 }
 
 // Classes per lane: ceil(C / 32) rounded up to an instantiated count.
@@ -1992,13 +2302,14 @@ int viterbi_p(const float* x, const float* mask, const float* trans,
 
 // ------------------------------------------------------------- the plan
 // kernel 0: the beta chain, 1: the Viterbi, 2: the beta floor, 3: the
-// Viterbi floor, 4: the marginal pass (at B). field 0: dynamic shared
-// memory bytes; 1: flags (1 a block a sequence, 2 the matrix in shared
-// memory, 4 the back-pointers in shared memory, 8 the vectors in global
-// memory); 2: threads a block; 3: the backward's scratch floats (kernel
-// 0) or the Viterbi's scratch bytes (1), at B; 4: parts a row or column;
-// 5: the matrix's row stride in shared memory (0: global); for kernel 4,
-// 1: tiles, 2: chunks, 3: a tile's columns. -1 for an unknown query.
+// Viterbi floor, 4: the marginal pass (at B), 5: the forward, 6: the
+// alpha floor. field 0: dynamic shared memory bytes; 1: flags (1 a block a
+// sequence, 2 the matrix in shared memory, 4 the back-pointers in shared
+// memory, 8 the vectors in global memory); 2: threads a block; 3: the
+// backward's scratch floats (kernel 0), the Viterbi's scratch bytes (1)
+// or the forward's scratch floats (5), at B; 4: parts a row or column; 5:
+// the matrix's row stride in shared memory (0: global); for kernel 4, 1:
+// tiles, 2: chunks, 3: a tile's columns. -1 for an unknown query.
 extern "C" long long crf_plan_query(int kernel, int B, int T, int C,
                                     int field) {
   if (kernel == 4) {
@@ -2013,15 +2324,20 @@ extern "C" long long crf_plan_query(int kernel, int B, int T, int C,
       default: return -1;
     }
   }
-  if (kernel == 2 || kernel == 3) {
+  if (kernel == 2 || kernel == 3 || kernel == 6) {
     if (field == 0) return static_cast<long long>(floor_smem(C));
     if (field == 2)
-      return C <= 32 ? 32 : (kernel == 2 ? beta_plan(C) : viterbi_plan(1, C))
-                                .threads;
+      return C <= 32 ? 32
+                     : (kernel == 2   ? beta_plan(C)
+                        : kernel == 3 ? viterbi_plan(1, C)
+                                      : alpha_plan(C, false))
+                           .threads;
     return -1;
   }
-  if (kernel != 0 && kernel != 1) return -1;
-  const ChainPlan p = kernel == 0 ? beta_plan(C) : viterbi_plan(T, C);
+  if (kernel != 0 && kernel != 1 && kernel != 5) return -1;
+  const ChainPlan p = kernel == 0   ? beta_plan(C)
+                      : kernel == 1 ? viterbi_plan(T, C)
+                                    : alpha_plan(C, false);
   switch (field) {
     case 0: return static_cast<long long>(p.smem);
     case 1: return (p.block ? 1 : 0) | (p.mat_smem ? 2 : 0)
@@ -2029,18 +2345,19 @@ extern "C" long long crf_plan_query(int kernel, int B, int T, int C,
     case 2: return p.threads;
     case 3: return kernel == 0
         ? static_cast<long long>(bwd_work_floats(B, T, C))
-        : static_cast<long long>(B) * viterbi_stride(p, T, C);
+        : kernel == 1 ? static_cast<long long>(B) * viterbi_stride(p, T, C)
+                      : static_cast<long long>(fwd_work_floats(B, C, false));
     case 4: return p.parts;
     case 5: return p.ld;
     default: return -1;
   }
 }
 
-// The earlier kernels' scratch: floats of `work` that the forward (kernel
-// 0) or the inline backward (1) needs at C: 2 C^2 + 1 where its matrices
-// outgrow a block's shared memory, else 0 (pass a null pointer).
+// The earlier kernels' scratch: floats of `work` that the earlier forward
+// (kernel 0) or the inline backward (1) needs at C: 2 C^2 + 1 where its
+// matrices outgrow a block's shared memory, else 0 (pass a null pointer).
 extern "C" int crf_work_floats(int kernel, int C) {
-  if (C < 1 || C > kMaxClasses) return 0;
+  if (C < 1 || C > kEarlierClasses) return 0;
   const size_t need = kernel == 0 ? fwd_smem(C, true) : bwd_smem(C, true);
   return need > kMaxSmem ? 2 * C * C + 1 : 0;
 }
@@ -2055,17 +2372,44 @@ extern "C" int crf_work_floats(int kernel, int C) {
     default: return fn<8>(__VA_ARGS__);              \
   }
 
-// alphas [B, T, C] (alpha_0 at t = 0) and log_z [B]; C <= 256. `work` is
-// scratch of crf_work_floats(0, C) floats, or null (see fwd_p).
+// alphas [B, T, C] (alpha_0 at t = 0) and log_z [B], any C >= 1, one
+// launch. `work` is scratch of fwd_work_floats(B, C, in_global) floats
+// (crf_plan_query(5, B, T, C, 3) without in_global), or null where that is
+// 0 (E in shared memory). in_global: E read from each block's copy in
+// scratch even where it fits shared memory (the same bits).
 extern "C" int crf_alpha_fwd(const float* x, const float* mask,
                              const float* trans, const float* a,
                              const float* b, float* work, float* alphas,
-                             float* log_z, int B, int T, int C,
+                             float* log_z, int B, int T, int C, int in_global,
                              void* stream) {
-  if (bad_shape(B, T, C)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 0 || T < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
+  const bool forced = in_global != 0;
+  if (work == nullptr && fwd_work_floats(B, C, forced) > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CRF_DISPATCH(fwd_p, x, mask, trans, a, b, work, alphas, log_z, B, T, C, s)
+  const ChainPlan p = alpha_plan(C, forced);
+  float* ework = p.mat_smem ? nullptr : work;
+  float* vwork = p.giant ? work + static_cast<size_t>(B) * C * C : nullptr;
+  cudaError_t err;
+  if (!p.block) {
+    const dim3 grid((B + kWarps - 1) / kWarps);
+#define CRF_ALPHA(KC)                                                        \
+  launch(crf_alpha_warp_kernel<KC>, grid, kThreads, p.smem, s, x, mask,      \
+         trans, a, b, ework, alphas, log_z, B, T, C)
+    switch (warp_classes(C)) {
+      case 8: err = CRF_ALPHA(8); break;
+      case 16: err = CRF_ALPHA(16); break;
+      case 24: err = CRF_ALPHA(24); break;
+      default: err = CRF_ALPHA(32); break;
+    }
+#undef CRF_ALPHA
+  } else {
+    err = launch(crf_alpha_block_kernel, dim3(B), p.threads, p.smem, s, x,
+                 mask, trans, a, b, alphas, log_z, ework, vwork, T, C,
+                 p.parts, p.mat_smem ? p.ld : 0);
+  }
+  return static_cast<int>(err);
 }
 
 // d(sum_b g_b log Z_b): dx [B, T, C], dtrans [C, C], da [C], db [C], any
@@ -2181,29 +2525,46 @@ extern "C" int crf_viterbi(const float* x, const float* mask,
   return static_cast<int>(err);
 }
 
-// The chain floor: one block runs T steps of the beta step (viterbi 0) or
-// the Viterbi step (1) at C classes with no global memory; out [C] (the
-// Viterbi: [2 C]), what ops/crf.py:chain_floor_plain computes.
-extern "C" int crf_chain_floor(float* out, int T, int C, int viterbi,
+// The chain floor: one block runs T steps of the beta step (variant 0),
+// the Viterbi step (1) or the alpha step (2) at C classes with no global
+// memory; out [C] (the Viterbi: [2 C]), what ops/crf.py:chain_floor_plain
+// computes.
+extern "C" int crf_chain_floor(float* out, int T, int C, int variant,
                                void* stream) {
   const size_t smem = floor_smem(C);
-  if (T < 1 || C < 1 || smem > kMaxSmem)
+  if (T < 1 || C < 1 || smem > kMaxSmem || variant < 0 || variant > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (C > 32) {
-    const ChainPlan p = viterbi ? viterbi_plan(1, C) : beta_plan(C);
+    const ChainPlan p = variant == kViterbi ? viterbi_plan(1, C)
+                        : variant == kAlpha ? alpha_plan(C, false)
+                                            : beta_plan(C);
     const int nt = p.threads, K = p.parts;
-    err = viterbi ? launch(crf_floor_block_kernel<true>, dim3(1), nt, smem, s,
-                           out, T, C, K)
-                  : launch(crf_floor_block_kernel<false>, dim3(1), nt, smem,
-                           s, out, T, C, K);
+    switch (variant) {
+      case kBeta:
+        err = launch(crf_floor_block_kernel<kBeta>, dim3(1), nt, smem, s, out,
+                     T, C, K);
+        break;
+      case kViterbi:
+        err = launch(crf_floor_block_kernel<kViterbi>, dim3(1), nt, smem, s,
+                     out, T, C, K);
+        break;
+      default:
+        err = launch(crf_floor_block_kernel<kAlpha>, dim3(1), nt, smem, s,
+                     out, T, C, K);
+        break;
+    }
   } else {
 #define CRF_FLOOR(KC)                                                        \
-  (viterbi ? launch(crf_floor_warp_kernel<true, KC>, dim3(1), 32, smem, s,   \
-                    out, T, C)                                               \
-           : launch(crf_floor_warp_kernel<false, KC>, dim3(1), 32, smem, s,  \
-                    out, T, C))
+  (variant == kViterbi                                                       \
+       ? launch(crf_floor_warp_kernel<kViterbi, KC>, dim3(1), 32, smem, s,   \
+                out, T, C)                                                   \
+   : variant == kAlpha                                                       \
+       ? launch(crf_floor_warp_kernel<kAlpha, KC>, dim3(1), 32, smem, s,     \
+                out, T, C)                                                   \
+       : launch(crf_floor_warp_kernel<kBeta, KC>, dim3(1), 32, smem, s, out, \
+                T, C))
     switch (warp_classes(C)) {
       case 8: err = CRF_FLOOR(8); break;
       case 16: err = CRF_FLOOR(16); break;
@@ -2218,9 +2579,23 @@ extern "C" int crf_chain_floor(float* out, int T, int C, int viterbi,
 // ------------------------------------------------- the earlier kernels
 // No path calls these; chip_smoke.py times them beside the kernels above.
 
+// The forward a warp a sequence, 8 classes a lane at most: alphas [B, T,
+// C] and log_z [B]; C <= 256. `work` is scratch of crf_work_floats(0, C)
+// floats, or null (see fwd_p).
+extern "C" int crf_alpha_fwd_lanes(const float* x, const float* mask,
+                                   const float* trans, const float* a,
+                                   const float* b, float* work,
+                                   float* alphas, float* log_z, int B, int T,
+                                   int C, void* stream) {
+  if (bad_shape(B, T, C)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CRF_DISPATCH(fwd_p, x, mask, trans, a, b, work, alphas, log_z, B, T, C, s)
+}
+
 // The backward with the pairwise marginals inside the chain: dx [B, T, C]
 // and the per-sequence partials dtrans_part [B, C, C], da_part [B, C],
-// db_part [B, C]; C <= 256, `work` as for crf_alpha_fwd (kernel 1).
+// db_part [B, C]; C <= 256, `work` as for crf_alpha_fwd_lanes (kernel 1).
 extern "C" int crf_bwd_inline(const float* x, const float* mask,
                               const float* trans, const float* b,
                               const float* alphas, const float* log_z,

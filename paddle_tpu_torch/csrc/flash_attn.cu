@@ -124,10 +124,12 @@
 // are a prefix of the head, the first (first real key) - (Tk - Tq) rows
 // (the first real key from the mask).
 //
-// Limits: D in {8, 16, 32, 64, 128} (template instances; the wrapper pads
-// any other D <= 128 with zero columns up to the next instance and
-// refuses D > 128); B * N on the grid's x (up to 2^31 - 1), the query (or
-// kv) blocks on its y (up to 65535 x 64 rows).
+// Limits: D in {8, 16, 32, 64, 128} on the tensor cores (template
+// instances; the wrapper pads any other D <= 128 with zero columns up to
+// the next instance); 128 < D <= 1024 on the wide-head path below (f32 on
+// the CUDA cores, a warp a row; the wrapper refuses D > 1024); B * N on
+// the grid's x (up to 2^31 - 1), the query (or kv) blocks on its y (up to
+// 65535 x 64 rows; the wide path's 65535 x 8).
 
 #include <cuda_runtime.h>
 
@@ -224,25 +226,28 @@ __device__ __forceinline__ void copy_tile(float* dst,
   }
 }
 
-// src[at + i] for i < n into dst, 0 at and past `end`
+// src[at + i] for i < n into dst, 0 at and past `end`, by a block of NT
+// threads
+template <int NT = kThreads>
 __device__ __forceinline__ void copy_vec(float* dst,
                                          const float* __restrict__ src,
                                          int at, int n, int end) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+  for (int i = threadIdx.x; i < n; i += NT) {
     const bool valid = at + i < end;
     cp4(dst + i, src + (valid ? at + i : 0), valid);
   }
 }
 
 // the mask of keys [k0, k0 + n) into dst: a null mask is every key real
+template <int NT = kThreads>
 __device__ __forceinline__ void copy_mask(float* dst,
                                           const float* __restrict__ mrow,
                                           int k0, int n, int Tk) {
   if (mrow != nullptr) {
-    copy_vec(dst, mrow, k0, n, Tk);
+    copy_vec<NT>(dst, mrow, k0, n, Tk);
     return;
   }
-  for (int i = threadIdx.x; i < n; i += kThreads)
+  for (int i = threadIdx.x; i < n; i += NT)
     dst[i] = k0 + i < Tk ? 1.f : 0.f;
 }
 
@@ -839,6 +844,398 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
   store_rows<D>(dk + k_at, dk_acc, scale, scale, kw0, Tk, g, t);
 }
 
+// ------------------------------------------------------- wide heads
+// D > 128, up to kWideMaxD: f32 on the CUDA cores, no tensor cores (speed
+// recorded, not targeted; PERF.md). A block of kWideWarps warps owns
+// kWideWarps rows, a warp each: query rows in the forward and dq, keys in
+// dkdv. A lane holds the elements d = lane + 32 u (u < DL, D <= 32 DL) of
+// its warp's row in registers across the sweep (q and the o accumulator;
+// q, dO and dq; k, v, dk and dv). The streamed rows (k and v, or q and dO
+// with the rows' m, log l and delta) come by 4-byte cp.async, zero-filled
+// past D and past the end, into a two-stage ring of kWideStage floats a
+// tile, shared by the block's warps. A dot product is each lane's terms in
+// order, then a xor butterfly (the same bits on every lane); the online
+// softmax, masks, causal offset, key tails and rows that see no key
+// follow the tensor-core kernels' rules above: a row sees no key iff its
+// running max stays -1e9, and then o = sum_{j<Tk} v_j / Tk_pad (a second
+// pass over v), m = -1e9, log l = log Tk_pad; dq's sum takes no masked
+// score, and dkdv's P of a masked score is exp((-1e9 - m) - log l), 0 but
+// for such rows (dO / Tk_pad). Every output element is summed by one lane
+// in a fixed order: no atomics, two runs give the same bits.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideMaxD = 1024;
+constexpr int kWideStage = 4096;  // floats of one staged tile
+
+// a lane's elements of a row: D <= 32 DL
+__host__ __device__ constexpr int wide_lanes(int D) {
+  return D <= 256 ? 8 : (D <= 512 ? 16 : 32);
+}
+// rows (keys, or queries in dkdv) a ring stage holds: 16, 8, 4
+__host__ __device__ constexpr int wide_rows(int DL) {
+  return kWideStage / (32 * DL);
+}
+// floats of a ring stage: two tiles and `vecs` vectors of its rows (the
+// mask; or m, log l, delta)
+__host__ __device__ constexpr int wide_stage(int DL, int vecs) {
+  return 2 * kWideStage + vecs * wide_rows(DL);
+}
+// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dkdv)
+__host__ __device__ constexpr size_t wide_smem(int which, int DL) {
+  return sizeof(float) * 2 * wide_stage(DL, which == 2 ? 3 : 1);
+}
+
+__device__ __forceinline__ float wide_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// rows [row0, row0 + R) of a [rows, D] matrix into dst [R][32 DL], zeros
+// past D and past its last row; every thread of the block takes part
+template <int DL>
+__device__ __forceinline__ void wide_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int rows, int D) {
+  constexpr int W = 32 * DL, R = wide_rows(DL);
+  for (int i = threadIdx.x; i < R * W; i += kWideThreads) {
+    const int r = i / W, d = i - r * W;
+    const int row = row0 + r;
+    const bool valid = row < rows && d < D;
+    cp4(dst + i, src + (valid ? static_cast<size_t>(row) * D + d : 0),
+        valid);
+  }
+}
+
+// a row's elements of this lane into r (0 past D, or everywhere if !valid)
+template <int DL>
+__device__ __forceinline__ void wide_row(float (&r)[DL],
+                                         const float* __restrict__ src,
+                                         bool valid, int lane, int D) {
+#pragma unroll
+  for (int u = 0; u < DL; ++u) {
+    const int d = lane + 32 * u;
+    r[u] = valid && d < D ? src[d] : 0.f;
+  }
+}
+
+// the lane's terms of row r of a staged tile against a, in order, then
+// the butterfly
+template <int DL>
+__device__ __forceinline__ float wide_dot(const float (&a)[DL],
+                                          const float* tile, int r,
+                                          int lane) {
+  const float* row = tile + r * 32 * DL + lane;
+  float part = 0.f;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) part += a[u] * row[32 * u];
+  return wide_sum(part);
+}
+
+// acc += w * row r of a staged tile
+template <int DL>
+__device__ __forceinline__ void wide_axpy(float (&acc)[DL], float w,
+                                          const float* tile, int r,
+                                          int lane) {
+  const float* row = tile + r * 32 * DL + lane;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) acc[u] += w * row[32 * u];
+}
+
+// the key rows a query block of kWideWarps rows from q0 sweeps: all, or
+// with causal up to its last row's diagonal
+__device__ __forceinline__ int wide_keys(int q0, int Tq, int Tk,
+                                         int causal) {
+  if (!causal) return Tk;
+  const int last = (q0 + kWideWarps < Tq ? q0 + kWideWarps : Tq) - 1;
+  const int n = last + (Tk - Tq) + 1;
+  return n < 0 ? 0 : (n < Tk ? n : Tk);
+}
+
+template <int DL>
+__global__ void __launch_bounds__(kWideThreads)
+flash_wide_fwd_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask, float* __restrict__ o,
+                      float* __restrict__ stats, int BN, int N, int Tq,
+                      int Tk, int D, int causal, float scale) {
+  constexpr int R = wide_rows(DL), W = 32 * DL;
+  constexpr int kStage = wide_stage(DL, 1);
+  extern __shared__ __align__(16) float smem[];
+  const int bn = blockIdx.x, b = bn / N;
+  // with causal the last query blocks sweep the most keys: first
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qb * kWideWarps, row = q0 + warp, off = Tk - Tq;
+  const bool live_row = row < Tq;
+  const size_t kv_at = static_cast<size_t>(bn) * Tk * D;
+  const size_t q_at = (static_cast<size_t>(bn) * Tq + row) * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  float qr[DL], acc[DL];
+  wide_row<DL>(qr, q + (live_row ? q_at : 0), live_row, lane, D);
+#pragma unroll
+  for (int u = 0; u < DL; ++u) acc[u] = 0.f;
+  const int ntiles = (wide_keys(q0, Tq, Tk, causal) + R - 1) / R;
+  auto load_stage = [&](int it) {
+    float* st = smem + (it & 1) * kStage;
+    wide_tile<DL>(st, k + kv_at, it * R, Tk, D);
+    wide_tile<DL>(st + R * W, v + kv_at, it * R, Tk, D);
+    copy_mask<kWideThreads>(st + 2 * R * W, mrow, it * R, R, Tk);
+  };
+  if (ntiles > 0) load_stage(0);
+  cp_commit();
+  float m = kNeg, l = 0.f;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_stage(it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* ks = smem + (it & 1) * kStage;
+    const float* vs = ks + R * W;
+    const float* ms = vs + R * W;
+    const int k0 = it * R;
+    // warp-uniform: a row past Tq, or every key of the tile above its
+    // diagonal (exp(-1e9 - m) = 0 once a key is seen; a row that sees no
+    // key takes the second pass below)
+    if (live_row && !(causal && k0 > row + off)) {
+      float s[R];
+      float mx = kNeg;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dot = wide_dot<DL>(qr, ks, r, lane);
+        const int kj = k0 + r;
+        float x;
+        if (kj >= Tk) {
+          x = -INFINITY;  // the tile's tail: left out
+        } else {
+          x = dot * scale;
+          if (!(ms[r] > 0.f) || (causal && kj > row + off)) x = kNeg;
+        }
+        s[r] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float mn = fmaxf(m, mx);
+      const float al = expf(m - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r] = expf(s[r] - mn);
+        sum += s[r];
+      }
+      l = l * al + sum;
+      m = mn;
+#pragma unroll
+      for (int u = 0; u < DL; ++u) acc[u] *= al;
+#pragma unroll
+      for (int r = 0; r < R; ++r) wide_axpy<DL>(acc, s[r], vs, r, lane);
+    }
+    __syncthreads();  // the stage's reads are done before it is refilled
+  }
+  cp_wait<0>();
+  if (!live_row) return;  // no barrier follows
+  if (m == kNeg) {  // the row sees no key: JAX's padded mean of v
+    const float* vb = v + kv_at;
+#pragma unroll
+    for (int u = 0; u < DL; ++u) acc[u] = 0.f;
+    for (int j = 0; j < Tk; ++j) {
+#pragma unroll
+      for (int u = 0; u < DL; ++u) {
+        const int d = lane + 32 * u;
+        if (d < D) acc[u] += vb[static_cast<size_t>(j) * D + d];
+      }
+    }
+    l = padded_keys(Tk);
+  }
+  float* orow = o + q_at;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) {
+    const int d = lane + 32 * u;
+    if (d < D) orow[d] = acc[u] / l;  // as blockwise_attention divides
+  }
+  if (lane == 0) {
+    stats[static_cast<size_t>(bn) * Tq + row] = m;
+    stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(l);
+  }
+}
+
+// dq and delta: a warp a query row, sweeping the key tiles (as the
+// forward) with the row's m, log l and delta = rowsum(dO o) in registers
+template <int DL>
+__global__ void __launch_bounds__(kWideThreads)
+flash_wide_dq_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ o,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ stats,
+                     float* __restrict__ delta, float* __restrict__ dq,
+                     int BN, int N, int Tq, int Tk, int D, int causal,
+                     float scale) {
+  constexpr int R = wide_rows(DL), W = 32 * DL;
+  constexpr int kStage = wide_stage(DL, 1);
+  extern __shared__ __align__(16) float smem[];
+  const int bn = blockIdx.x, b = bn / N;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = qb * kWideWarps, row = q0 + warp, off = Tk - Tq;
+  const bool live_row = row < Tq;
+  const size_t kv_at = static_cast<size_t>(bn) * Tk * D;
+  const size_t q_at = (static_cast<size_t>(bn) * Tq + row) * D;
+  const size_t r_at = static_cast<size_t>(bn) * Tq + row;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  float qr[DL], dor[DL], acc[DL];
+  wide_row<DL>(qr, q + (live_row ? q_at : 0), live_row, lane, D);
+  wide_row<DL>(dor, dout + (live_row ? q_at : 0), live_row, lane, D);
+  wide_row<DL>(acc, o + (live_row ? q_at : 0), live_row, lane, D);
+  float dl = 0.f;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) {
+    dl += dor[u] * acc[u];
+    acc[u] = 0.f;
+  }
+  dl = wide_sum(dl);
+  float m_i = 0.f, ll_i = 0.f;
+  if (live_row) {
+    if (lane == 0) delta[r_at] = dl;
+    m_i = stats[r_at];
+    ll_i = stats[static_cast<size_t>(BN) * Tq + r_at];
+  }
+  const int ntiles = (wide_keys(q0, Tq, Tk, causal) + R - 1) / R;
+  auto load_stage = [&](int it) {
+    float* st = smem + (it & 1) * kStage;
+    wide_tile<DL>(st, k + kv_at, it * R, Tk, D);
+    wide_tile<DL>(st + R * W, v + kv_at, it * R, Tk, D);
+    copy_mask<kWideThreads>(st + 2 * R * W, mrow, it * R, R, Tk);
+  };
+  if (ntiles > 0) load_stage(0);
+  cp_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_stage(it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* ks = smem + (it & 1) * kStage;
+    const float* vs = ks + R * W;
+    const float* ms = vs + R * W;
+    const int k0 = it * R;
+    if (live_row && !(causal && k0 > row + off)) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int kj = k0 + r;
+        // warp-uniform: a masked score takes no gradient
+        if (kj < Tk && ms[r] > 0.f && !(causal && kj > row + off)) {
+          const float s = wide_dot<DL>(qr, ks, r, lane);
+          const float dp = wide_dot<DL>(dor, vs, r, lane);
+          const float ds = expf((s * scale - m_i) - ll_i) * (dp - dl);
+          wide_axpy<DL>(acc, ds, ks, r, lane);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  if (!live_row) return;
+  float* dqrow = dq + q_at;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) {
+    const int d = lane + 32 * u;
+    if (d < D) dqrow[d] = acc[u] * scale;
+  }
+}
+
+// dk and dv: a warp a key row, sweeping every query tile (q, dO and the
+// rows' m, log l, delta staged)
+template <int DL>
+__global__ void __launch_bounds__(kWideThreads)
+flash_wide_dkdv_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int BN, int N, int Tq, int Tk, int D, int causal,
+                       float scale) {
+  constexpr int R = wide_rows(DL), W = 32 * DL;
+  constexpr int kStage = wide_stage(DL, 3);
+  extern __shared__ __align__(16) float smem[];
+  const int bn = blockIdx.x, b = bn / N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key = blockIdx.y * kWideWarps + warp, off = Tk - Tq;
+  const bool live_key = key < Tk;
+  const size_t q_at = static_cast<size_t>(bn) * Tq * D;
+  const size_t k_at = (static_cast<size_t>(bn) * Tk + key) * D;
+  const bool mk =
+      live_key &&
+      (mask == nullptr || mask[static_cast<size_t>(b) * Tk + key] > 0.f);
+  float kr[DL], vr[DL], dkr[DL], dvr[DL];
+  wide_row<DL>(kr, k + (live_key ? k_at : 0), live_key, lane, D);
+  wide_row<DL>(vr, v + (live_key ? k_at : 0), live_key, lane, D);
+#pragma unroll
+  for (int u = 0; u < DL; ++u) dkr[u] = dvr[u] = 0.f;
+  const int ntiles = (Tq + R - 1) / R;
+  auto load_stage = [&](int it) {
+    float* st = smem + (it & 1) * kStage;
+    float* vec = st + 2 * R * W;
+    wide_tile<DL>(st, q + q_at, it * R, Tq, D);
+    wide_tile<DL>(st + R * W, dout + q_at, it * R, Tq, D);
+    copy_vec<kWideThreads>(vec, stats + static_cast<size_t>(bn) * Tq,
+                           it * R, R, Tq);
+    copy_vec<kWideThreads>(vec + R,
+                           stats + (static_cast<size_t>(BN) + bn) * Tq,
+                           it * R, R, Tq);
+    copy_vec<kWideThreads>(vec + 2 * R, delta + static_cast<size_t>(bn) * Tq,
+                           it * R, R, Tq);
+  };
+  load_stage(0);
+  cp_commit();
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) load_stage(it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const float* qs = smem + (it & 1) * kStage;
+    const float* dos = qs + R * W;
+    const float* m_s = dos + R * W;
+    const float* ll_s = m_s + R;
+    const float* dl_s = ll_s + R;
+    const int q0 = it * R;
+    if (live_key) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int qi = q0 + r;
+        // warp-uniform: the pair's score is live, or (masked) its P is 0
+        // but for a row that sees no key
+        const bool live = mk && !(causal && key > qi + off);
+        if (qi < Tq && (live || m_s[r] == kNeg)) {
+          float s = kNeg, dp = 0.f;
+          if (live) {
+            s = wide_dot<DL>(kr, qs, r, lane) * scale;
+            dp = wide_dot<DL>(vr, dos, r, lane);
+          }
+          const float p = expf((s - m_s[r]) - ll_s[r]);
+          wide_axpy<DL>(dvr, p, dos, r, lane);
+          if (live) wide_axpy<DL>(dkr, p * (dp - dl_s[r]), qs, r, lane);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  if (!live_key) return;
+#pragma unroll
+  for (int u = 0; u < DL; ++u) {
+    const int d = lane + 32 * u;
+    if (d < D) {
+      dv[k_at + d] = dvr[u];
+      dk[k_at + d] = dkr[u] * scale;
+    }
+  }
+}
+
 // ------------------------------------------------------------- launch
 // each (kernel, D) instance's shared-memory limit, raised once a device
 unsigned g_ready[kMaxDevices];
@@ -905,6 +1302,55 @@ int launch_bwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// the wide path's instances: bits 15 + 3 (index of DL) + kernel
+constexpr int wide_bit(int DL, int which) {
+  return 15 + 3 * (DL == 8 ? 0 : DL == 16 ? 1 : 2) + which;
+}
+
+template <int DL>
+int launch_wide_fwd(const float* q, const float* k, const float* v,
+                    const float* mask, float* o, float* stats, int B, int N,
+                    int Tq, int Tk, int D, int causal, float scale,
+                    cudaStream_t s) {
+  const int qblocks = (Tq + kWideWarps - 1) / kWideWarps;
+  if (qblocks > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = ready(flash_wide_fwd_kernel<DL>, wide_smem(0, DL),
+                          wide_bit(DL, 0));
+  if (err != cudaSuccess) return err;
+  flash_wide_fwd_kernel<DL><<<dim3(B * N, qblocks), kWideThreads,
+                              wide_smem(0, DL), s>>>(
+      q, k, v, mask, o, stats, B * N, N, Tq, Tk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int DL>
+int launch_wide_bwd(const float* q, const float* k, const float* v,
+                    const float* mask, const float* o, const float* dout,
+                    const float* stats, float* delta, float* dq, float* dk,
+                    float* dv, int B, int N, int Tq, int Tk, int D,
+                    int causal, float scale, cudaStream_t s) {
+  const int qblocks = (Tq + kWideWarps - 1) / kWideWarps;
+  const int kblocks = (Tk + kWideWarps - 1) / kWideWarps;
+  if (qblocks > 65535 || kblocks > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = ready(flash_wide_dq_kernel<DL>, wide_smem(1, DL),
+                          wide_bit(DL, 1));
+  if (err != cudaSuccess) return err;
+  err = ready(flash_wide_dkdv_kernel<DL>, wide_smem(2, DL), wide_bit(DL, 2));
+  if (err != cudaSuccess) return err;
+  flash_wide_dq_kernel<DL><<<dim3(B * N, qblocks), kWideThreads,
+                             wide_smem(1, DL), s>>>(
+      q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, D, causal,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // same stream: delta is written before this kernel starts
+  flash_wide_dkdv_kernel<DL><<<dim3(B * N, kblocks), kWideThreads,
+                               wide_smem(2, DL), s>>>(
+      q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk, D, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_fwd(const float* q, const float* k, const float* v,
@@ -929,7 +1375,19 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
       return launch_fwd<128>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
                              scale, s);
     default:
-      return cudaErrorInvalidValue;
+      break;
+  }
+  if (D <= 128 || D > kWideMaxD) return cudaErrorInvalidValue;
+  switch (wide_lanes(D)) {
+    case 8:
+      return launch_wide_fwd<8>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
+                                causal, scale, s);
+    case 16:
+      return launch_wide_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
+                                 causal, scale, s);
+    default:
+      return launch_wide_fwd<32>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
+                                 causal, scale, s);
   }
 }
 
@@ -957,13 +1415,28 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
       return launch_bwd<128>(q, k, v, mask, o, dout, stats, delta, dq, dk,
                              dv, B, N, Tq, Tk, causal, scale, s);
     default:
-      return cudaErrorInvalidValue;
+      break;
+  }
+  if (D <= 128 || D > kWideMaxD) return cudaErrorInvalidValue;
+  switch (wide_lanes(D)) {
+    case 8:
+      return launch_wide_bwd<8>(q, k, v, mask, o, dout, stats, delta, dq, dk,
+                                dv, B, N, Tq, Tk, D, causal, scale, s);
+    case 16:
+      return launch_wide_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq,
+                                 dk, dv, B, N, Tq, Tk, D, causal, scale, s);
+    default:
+      return launch_wide_bwd<32>(q, k, v, mask, o, dout, stats, delta, dq,
+                                 dk, dv, B, N, Tq, Tk, D, causal, scale, s);
   }
 }
 
 // The dynamic shared memory, bytes, that kernel `which` (0 forward, 1 dq,
-// 2 dkdv) requests at head width D; -1 for a D with no instance.
+// 2 dkdv) requests at head width D: an instance's, or the wide path's
+// (128 < D <= kWideMaxD); -1 for another D.
 extern "C" long long flash_smem(int which, int D) {
+  if (D > 128 && D <= kWideMaxD && which >= 0 && which <= 2)
+    return static_cast<long long>(wide_smem(which, wide_lanes(D)));
   if (D != 8 && D != 16 && D != 32 && D != 64 && D != 128) return -1;
   switch (which) {
     case 0:

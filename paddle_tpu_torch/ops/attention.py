@@ -28,10 +28,12 @@ check in one pass; ``build.call``: PyTorch's current stream, a device
 guard only off the current device); without a mask the kernels take a
 null pointer (every key real).
 
-The kernels are instantiated for D in ``HEAD_DIMS``; on the card another
-D <= 128 is padded with zero columns up to the next instance and the
-results sliced back (``fwd_padded``, ``bwd_padded``), with the scale of
-the true D. D > 128 raises.
+The tensor-core kernels are instantiated for D in ``HEAD_DIMS``; on the
+card another D <= 128 is padded with zero columns up to the next instance
+and the results sliced back (``fwd_padded``, ``bwd_padded``), with the
+scale of the true D. 128 < D <= ``WIDE_MAX_D`` takes the wide-head path
+of the same entries (f32 on the CUDA cores, a warp a row, any D there);
+a wider head raises, naming the limit.
 
 ``mha_plain`` is the plain softmax attention, the ground truth of the
 tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
@@ -61,9 +63,13 @@ _NEG = -1e9
 # the kv block of the plain online softmax: what JAX's flash_attention
 # passes to blockwise_attention on the CPU
 _PLAIN_BLOCK_K = 256
-# the head widths the kernels are instantiated for (csrc/flash_attn.cu);
-# another D up to the last pads with zero columns to the next one
+# the head widths the tensor-core kernels are instantiated for
+# (csrc/flash_attn.cu); another D up to the last pads with zero columns to
+# the next one
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# the widest head of the wide-head path (csrc/flash_attn.cu: kWideMaxD),
+# which takes every D above HEAD_DIMS[-1] up to it
+WIDE_MAX_D = 1024
 
 
 def _default_scale(q, scale):
@@ -183,13 +189,16 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
 
 # ------------------------------------------------------ head-width padding
 def padded_width(D: int) -> int:
-    """The kernels' head width for D: the smallest instance >= D. Raises
-    for D above the widest instance."""
+    """The kernels' head width for D: the smallest instance >= D up to
+    ``HEAD_DIMS[-1]``, D itself on the wide-head path above it. Raises for
+    D above ``WIDE_MAX_D``."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
+    if D <= WIDE_MAX_D:
+        return D
     raise ValueError(f"head width D={D} is not supported: the flash kernels "
-                     f"take D <= {HEAD_DIMS[-1]}")
+                     f"take D <= {WIDE_MAX_D}")
 
 
 def _pad_heads(width, *ts):
@@ -227,27 +236,53 @@ SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
 
 
+# the wide-head path: a block's rows (a warp each) and the floats of one
+# staged tile (csrc/flash_attn.cu: kWideWarps, kWideStage)
+WIDE_ROWS = 8
+WIDE_STAGE = 4096
+
+
+def _wide_plan(D: int) -> dict:
+    """The wide-head path at 128 < D <= ``WIDE_MAX_D``: ``lanes`` elements
+    of a row a lane (D <= 32 lanes), ``stage_rows`` rows of a ring stage
+    (keys; queries in dkdv), two stages of two tiles and the rows' mask
+    (forward, dq) or m, log l and delta (dkdv)."""
+    lanes = 8 if D <= 256 else (16 if D <= 512 else 32)
+    rows = WIDE_STAGE // (32 * lanes)
+    smem = {name: 4 * 2 * (2 * WIDE_STAGE + vecs * rows)
+            for name, vecs in (("fwd", 1), ("dq", 1), ("dkdv", 3))}
+    return dict(variant="wide", rows=WIDE_ROWS, lanes=lanes,
+                stage_rows=rows, max_d=WIDE_MAX_D, smem=smem)
+
+
 def flash_plan(D: int) -> dict:
-    """The kernels' tiles and dynamic shared memory at head width ``D``
-    (an instance, ``HEAD_DIMS``), by the formula of ``csrc/flash_attn.cu``
-    (``flash_smem``; a card test holds the two equal): ``rows`` a block
-    owns, ``kv_cols`` keys a ring stage of the forward, ``dq_cols`` of
-    dq, ``q_cols`` queries a stage of dkdv, ``smem_<kernel>`` bytes and
-    ``blocks_per_sm_<kernel>`` by shared memory, for ``fwd``, ``dq`` and
-    ``dkdv``."""
-    if D not in HEAD_DIMS:
+    """The kernels' tiles and dynamic shared memory at head width ``D``,
+    by the formulas of ``csrc/flash_attn.cu`` (``flash_smem``; a card test
+    holds the two equal). An instance (``HEAD_DIMS``): ``variant``
+    ``tensor_cores``, ``rows`` a block owns, ``kv_cols`` keys a ring stage
+    of the forward, ``dq_cols`` of dq, ``q_cols`` queries a stage of dkdv.
+    128 < D <= ``WIDE_MAX_D``: ``variant`` ``wide`` (``_wide_plan``). Both:
+    ``smem_<kernel>`` bytes and ``blocks_per_sm_<kernel>`` by shared
+    memory, for ``fwd``, ``dq`` and ``dkdv``, and ``max_d``, the widest
+    head of the kernels."""
+    if HEAD_DIMS[-1] < D <= WIDE_MAX_D:
+        plan = _wide_plan(D)
+        smem = plan.pop("smem")
+    elif D not in HEAD_DIMS:
         raise ValueError(f"flash_plan: D={D} is not an instance "
-                         f"({HEAD_DIMS})")
-    ld = D + 4  # row stride of every tile, floats
-    kv = 32 if D == 128 else 64  # keys a stage, forward
-    kv_dq = 16 if D == 128 else 64  # keys a stage, dq
-    qc = 16 if D == 128 else 32  # queries a stage, dkdv
-    rows = FLASH_ROWS * ld  # a resident tile: q, dO, k or v
-    smem = dict(fwd=4 * (rows + 2 * (2 * kv * ld + kv)),
-                dq=4 * (2 * rows + 2 * (2 * kv_dq * ld + kv_dq)
-                        + FLASH_ROWS),
-                dkdv=4 * (2 * rows + 2 * (2 * qc * ld + 3 * qc)) + 4 * 4)
-    plan = dict(rows=FLASH_ROWS, kv_cols=kv, dq_cols=kv_dq, q_cols=qc)
+                         f"({HEAD_DIMS}) nor 128 < D <= {WIDE_MAX_D}")
+    else:
+        ld = D + 4  # row stride of every tile, floats
+        kv = 32 if D == 128 else 64  # keys a stage, forward
+        kv_dq = 16 if D == 128 else 64  # keys a stage, dq
+        qc = 16 if D == 128 else 32  # queries a stage, dkdv
+        rows = FLASH_ROWS * ld  # a resident tile: q, dO, k or v
+        smem = dict(fwd=4 * (rows + 2 * (2 * kv * ld + kv)),
+                    dq=4 * (2 * rows + 2 * (2 * kv_dq * ld + kv_dq)
+                            + FLASH_ROWS),
+                    dkdv=4 * (2 * rows + 2 * (2 * qc * ld + 3 * qc)) + 4 * 4)
+        plan = dict(variant="tensor_cores", rows=FLASH_ROWS, kv_cols=kv,
+                    dq_cols=kv_dq, q_cols=qc, max_d=WIDE_MAX_D)
     for name, nbytes in smem.items():
         plan["smem_" + name] = nbytes
         plan["blocks_per_sm_" + name] = SM_SMEM_BYTES // (

@@ -14,9 +14,10 @@ Three kernel wrappers, each counting the calls that launched its kernels
 kernels (or raises), on a CPU tensor it runs its plain PyTorch version,
 which the CPU tests hold against the JAX package.
 
-- ``crf_alpha_fwd``: every alpha [B,T,C] and log Z [B], one launch (two
-  where its matrix stays in global memory), C <= ``MAX_CLASSES``; plain
-  version ``crf_forward_plain``.
+- ``crf_alpha_fwd``: every alpha [B,T,C] and log Z [B], any C, one
+  launch: up to 32 classes a warp a sequence, above a block a sequence
+  (the beta chain's step on the transposed matrix); plain version
+  ``crf_forward_plain``.
 - ``crf_bwd``: the analytic backward (dx, dtrans, da, db), any C, two
   launches: up to 32 classes one block a sequence (a chain warp hands each
   step's betas to worker warps that sum the pairwise marginals) and the
@@ -43,11 +44,6 @@ from typing import Optional, Tuple
 import torch
 
 from paddle_tpu_torch.ops import build
-
-# the forward kernel's largest class count (csrc/crf.cu: kMaxClasses, 8
-# classes per lane of a warp; above C = 239 its matrix stays in global
-# memory). The backward and the Viterbi take any C.
-MAX_CLASSES = 256
 
 # csrc/crf.cu's plan constants
 WARPS = 4               # sequences a warp-variant block (C <= 32)
@@ -129,17 +125,64 @@ def _viterbi_plan(T: int, C: int) -> dict:
     return dict(plan, bp_bytes=bp_bytes, scratch_per_row=-(-stride // 16) * 16)
 
 
+def _fwd_plan(C: int, in_global: bool = False) -> dict:
+    """The forward (``csrc/crf.cu:alpha_plan``): C <= 32 a warp a sequence,
+    E in shared memory at row stride C; above, a block a sequence, K lanes
+    a column, E at a column stride = 32 / K mod 32 where it fits beside the
+    vectors alpha and p: K = 4 where that fits (C <= 232), else 2 (C <=
+    239); else each block's copy of E in scratch read from L2 (4 lanes a
+    column up to C = 256); ``in_global`` forces the copy at the shared
+    path's K (the same bits). ``scratch_floats_per_row``: a sequence's
+    scratch in the block variant."""
+    if C <= 32:
+        return dict(variant="warp", threads=32 * WARPS, parts=1,
+                    ld=0 if in_global else C, matrix_in_smem=not in_global,
+                    giant=False, scratch_floats_per_row=0,
+                    smem=4 * (32 * WARPS + 32 + (0 if in_global else C * C)))
+    red, vec = 4 * 32, 8 * C
+    mat = lambda K: 4 * C * _t_stride(C, K)  # noqa: E731
+    K = 4 if C <= 256 and red + vec + mat(4) <= build.SMEM_BYTES \
+        else _block_parts(C)
+    if red + vec + mat(K) <= build.SMEM_BYTES:  # E fits beside the vectors
+        on_chip = not in_global
+        return dict(variant="block", threads=_block_threads(C, K), parts=K,
+                    ld=_t_stride(C, K) if on_chip else 0,
+                    matrix_in_smem=on_chip, giant=False,
+                    scratch_floats_per_row=0 if on_chip else C * C,
+                    smem=red + vec + (mat(K) if on_chip else 0))
+    K = 4 if C <= 256 else _block_parts(C)
+    giant = red + vec > build.SMEM_BYTES
+    return dict(variant="block", threads=_block_threads(C, K), parts=K, ld=0,
+                matrix_in_smem=False, giant=giant,
+                scratch_floats_per_row=C * C + (2 * C if giant else 0),
+                smem=red + (0 if giant else vec))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_work_floats(B: int, C: int, in_global: bool = False) -> int:
+    """Floats of ``crf_alpha_fwd``'s scratch (``csrc/crf.cu:
+    fwd_work_floats``): each block's copy of E where it is not in shared
+    memory (ceil(B / ``WARPS``) blocks at C <= 32, B above), then each
+    sequence's alpha and p [2, C] where the vectors outgrow shared
+    memory. 0 at the tagger's shapes."""
+    plan = _fwd_plan(C, in_global)
+    blocks = B if plan["variant"] == "block" else -(-B // WARPS)
+    return ((0 if plan["matrix_in_smem"] else blocks * C * C)
+            + (2 * B * C if plan["giant"] else 0))
+
+
 def crf_plan(T: int, C: int) -> dict:
     """The kernels' layout at T steps and C classes, by the formulas of
-    ``csrc/crf.cu`` (``beta_plan``, ``viterbi_plan``): for the backward's
-    beta chain (``bwd``) and the Viterbi (``viterbi``), the ``variant``
-    (``warp``: C <= 32, a warp a sequence, ``WARPS`` a block; ``block``: a
-    block a sequence, ``parts`` lanes a row or column), its ``threads``,
-    whether its [C, C] matrix sits in shared memory (``matrix_in_smem``, at
-    row stride ``ld``; else global: the backward a
-    transposed copy a sequence, the Viterbi trans itself), whether its
-    per-class vectors outgrow shared memory (``giant``) and its dynamic
-    shared memory ``smem``. The Viterbi adds ``bp_in_smem`` (its T x C
+    ``csrc/crf.cu`` (``alpha_plan``, ``beta_plan``, ``viterbi_plan``): for
+    the forward (``fwd``), the backward's beta chain (``bwd``) and the
+    Viterbi (``viterbi``), the ``variant`` (``warp``: C <= 32, a warp a
+    sequence, ``WARPS`` a block; ``block``: a block a sequence, ``parts``
+    lanes a row or column), its ``threads``, whether its [C, C] matrix
+    sits in shared memory (``matrix_in_smem``, at row stride ``ld``; else
+    global: the forward and the backward a copy a sequence, the Viterbi
+    trans itself), whether its per-class vectors outgrow shared memory
+    (``giant``) and its dynamic shared memory ``smem``. The forward adds
+    ``scratch_floats_per_row``; the Viterbi ``bp_in_smem`` (its T x C
     back-pointers; else spilled to scratch), ``bp_bytes`` and
     ``scratch_per_row`` (bytes of scratch a sequence). ``floor``: the
     chain floors' threads (each runs its chain's block) and shared
@@ -148,10 +191,11 @@ def crf_plan(T: int, C: int) -> dict:
         raise ValueError(f"crf_plan: T={T}, C={C}: the kernels take T >= 1 "
                          "and C >= 1")
     Cw = max(C, 32)
-    bwd, vit = _beta_plan(C), _viterbi_plan(T, C)
-    return dict(bwd=bwd, viterbi=vit, floor=dict(
+    fwd, bwd, vit = _fwd_plan(C), _beta_plan(C), _viterbi_plan(T, C)
+    return dict(fwd=fwd, bwd=bwd, viterbi=vit, floor=dict(
         beta_threads=32 if C <= 32 else bwd["threads"],
         viterbi_threads=32 if C <= 32 else vit["threads"],
+        alpha_threads=32 if C <= 32 else fwd["threads"],
         smem=4 * (32 + 2 * C + 2 * Cw) + 2 * 16 * C))
 
 
@@ -313,17 +357,32 @@ def _floor_inputs(C: int):
         (-0.5 * (j % 3)).float()
 
 
-def chain_floor_plain(T: int, C: int, viterbi: bool = False) -> torch.Tensor:
+FLOOR_VARIANTS = ("beta", "viterbi", "alpha")
+
+
+def chain_floor_plain(T: int, C: int, variant: str = "beta") -> torch.Tensor:
     """What ``crf_chain_floor`` computes: T steps of the beta recursion
     (``crf_betas_plain`` with trans[i, j] = r_j, x_t = x, mask 1, b = the
-    start) or of the Viterbi's (``crf_viterbi_plain``'s step) from the
-    start, at C classes. Returns [C] the last vector; the Viterbi adds [C]
-    the last step's first-index argmax, as floats."""
+    start), of the Viterbi's (``crf_viterbi_plain``'s step, trans[i, j] =
+    r_j) or of the alpha recursion (``crf_forward_plain``'s step with
+    trans[i, j] = r_i, x_t = x, mask 1) from the start, at C classes.
+    Returns [C] the last vector; the Viterbi adds [C] the last step's
+    first-index argmax, as floats."""
     r, x, start = _floor_inputs(C)
-    trans = r[None, :].expand(C, C)
-    if not viterbi:
+    if variant == "beta":
         xs = x[None, None, :].expand(1, T + 1, C)
-        return crf_betas_plain(xs, torch.ones(1, T + 1), trans, start)[0, 0]
+        return crf_betas_plain(xs, torch.ones(1, T + 1),
+                               r[None, :].expand(C, C), start)[0, 0]
+    if variant == "alpha":  # alpha_0 = 0 + start, then T steps
+        xs = torch.cat([start[None], x[None].expand(T, C)])[None]
+        zeros = torch.zeros(C)
+        return crf_forward_plain(xs, torch.ones(1, T + 1),
+                                 r[:, None].expand(C, C), zeros,
+                                 zeros)[0][0, -1]
+    if variant != "viterbi":
+        raise ValueError(f"chain_floor_plain: variant {variant!r} is not one "
+                         f"of {FLOOR_VARIANTS}")
+    trans = r[None, :].expand(C, C)
     alpha = start[None, :]
     for _ in range(T):
         scores = alpha[:, :, None] + trans[None]
@@ -333,21 +392,18 @@ def chain_floor_plain(T: int, C: int, viterbi: bool = False) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- kernels
-def _check(kernel, x, mask, trans, more, max_classes=None):
+def _check(kernel, x, mask, trans, more):
     """The operands' device, types and shapes in one pass
-    (``build.check_cell``; the per-tensor messages on failure), and the
-    class count the kernel takes. ``more``: (name, tensor, shape by (B, T,
-    C)). Returns (the card's index, B, T, C)."""
+    (``build.check_cell``; the per-tensor messages on failure). ``more``:
+    (name, tensor, shape by (B, T, C)). Returns (the card's index, B, T,
+    C)."""
     if x.dim() != 3:
         raise ValueError(f"{kernel}: x must be [B, T, C], got "
                          f"{tuple(x.shape)}")
     B, T, C = x.shape
-    if T < 1 or C < 1 or (max_classes is not None and C > max_classes):
-        limit = "" if max_classes is None else (
-            f" and C <= {max_classes} (a warp per sequence, at most 8 "
-            "classes per lane)")
+    if T < 1 or C < 1:
         raise ValueError(f"{kernel}: T={T}, C={C} classes: the kernel takes "
-                         f"T >= 1, C >= 1{limit}")
+                         "T >= 1, C >= 1")
     idx, _ = build.check_cell(kernel, (
         ("x", x, (B, T, C)), ("mask", mask, (B, T)), ("trans", trans, (C, C)),
         *((name, t, shape(B, T, C)) for name, t, shape in more)))
@@ -359,9 +415,10 @@ _VEC = lambda B, T, C: (C,)  # noqa: E731
 
 @functools.lru_cache(maxsize=None)
 def _work_floats(kernel: int, C: int) -> int:
-    """Floats of scratch the forward (``kernel`` 0) or the inline backward
-    (1) needs at C: 2 C^2 + 1 where its matrices outgrow shared memory,
-    else 0 (``csrc/crf.cu:crf_work_floats``)."""
+    """Floats of scratch the earlier forward (``kernel`` 0,
+    ``crf_alpha_fwd_lanes``) or the inline backward (1) needs at C <= 256:
+    2 C^2 + 1 where its matrices outgrow shared memory, else 0
+    (``csrc/crf.cu:crf_work_floats``)."""
     fn = build.load("crf").crf_work_floats
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -374,23 +431,26 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def crf_alpha_fwd(x, mask, trans, a, b, *, in_global=False):
     """The forward kernel's wrapper; same arguments and results as
-    ``crf_forward_plain``; C <= ``MAX_CLASSES``. ``crf_alpha_fwd.launches``
-    counts the calls that launched it. ``in_global`` keeps the [C, C]
-    matrix in global memory even where it fits a block (the same bits;
-    chip_smoke.py times both paths)."""
+    ``crf_forward_plain``, any C, one launch (``csrc/crf.cu:
+    crf_alpha_fwd``), no scratch where E stays in shared memory.
+    ``crf_alpha_fwd.launches`` counts the calls that launched it.
+    ``in_global`` reads E from each block's copy in global memory even
+    where it fits shared memory (the same bits; chip_smoke.py times both
+    paths)."""
     if x.device.type == "cpu":
         return crf_forward_plain(x, mask, trans, a, b)
     idx, B, T, C = _check("crf_alpha_fwd", x, mask, trans,
-                          (("a", a, _VEC), ("b", b, _VEC)), MAX_CLASSES)
-    alphas = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
-    log_z = torch.empty((B,), dtype=torch.float32, device=x.device)
-    n = 2 * C * C + 1 if in_global else _work_floats(0, C)
-    work = torch.empty((n,), dtype=torch.float32, device=x.device) \
-        if n else None
-    err = build.call(build.bind("crf", "crf_alpha_fwd", 8, 3), idx,
+                          (("a", a, _VEC), ("b", b, _VEC)))
+    dev = x.device
+    alphas = torch.empty((B, T, C), dtype=torch.float32, device=dev)
+    log_z = torch.empty((B,), dtype=torch.float32, device=dev)
+    n = fwd_work_floats(B, C, in_global)
+    work = torch.empty((n,), dtype=torch.float32, device=dev) if n else None
+    err = build.call(build.bind("crf", "crf_alpha_fwd", 8, 4), idx,
                      x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
                      a.data_ptr(), b.data_ptr(), _ptr(work),
-                     alphas.data_ptr(), log_z.data_ptr(), B, T, C)
+                     alphas.data_ptr(), log_z.data_ptr(), B, T, C,
+                     int(in_global))
     build.raise_on(err, "crf_alpha_fwd")
     crf_alpha_fwd.launches += 1
     return alphas, log_z
@@ -464,15 +524,18 @@ def crf_viterbi(x, mask, trans, a, b):
 crf_viterbi.launches = 0
 
 
-def crf_chain_floor(T: int, C: int, viterbi: bool = False,
+def crf_chain_floor(T: int, C: int, variant: str = "beta",
                     device: Optional[torch.device] = None) -> torch.Tensor:
     """The chain-floor microkernel (card only): one block (a warp at C <=
-    32) runs T steps of the backward's beta step or of the Viterbi's step
-    with no global memory: its time over T is a step's least latency, the
-    unit of the chain bound. Returns what ``chain_floor_plain`` does."""
-    out = torch.empty((2 * C if viterbi else C,), device=device or "cuda")
+    32) runs T steps of the backward's beta step, the Viterbi's step or
+    the forward's alpha step (``variant``) with no global memory: its time
+    over T is a step's least latency, the unit of the chain bound. Returns
+    what ``chain_floor_plain`` does."""
+    out = torch.empty((2 * C if variant == "viterbi" else C,),
+                      device=device or "cuda")
     err = build.call(build.bind("crf", "crf_chain_floor", 1, 3),
-                     out.get_device(), out.data_ptr(), T, C, int(viterbi))
+                     out.get_device(), out.data_ptr(), T, C,
+                     FLOOR_VARIANTS.index(variant))
     build.raise_on(err, "crf_chain_floor")
     return out
 

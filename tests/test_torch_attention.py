@@ -294,7 +294,8 @@ def test_pad_and_slice_around_the_plain_versions_is_exact(causal):
     zero columns to the next instance (64) and sliced back, with the scale
     of the true D: around ``blockwise_plain`` and ``flash_bwd_plain`` the
     helpers give exactly the unpadded results (o, the row statistics, dq,
-    dk, dv), an all-padding kv row included. D > 128 has no instance."""
+    dk, dv), an all-padding kv row included. D > 128 has no instance: it
+    takes the wide-head path unpadded, up to 1024."""
     q, k, v, mask, do = (torch.from_numpy(a) for a in _inputs(
         3, 2, 20, 33, 40, 11, all_padding=True))
     scale = 40 ** -0.5
@@ -309,5 +310,6 @@ def test_pad_and_slice_around_the_plain_versions_is_exact(causal):
                            do, causal, scale)
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
-    with pytest.raises(ValueError, match="D <= 128"):
-        tattn.padded_width(129)
+    assert tattn.padded_width(129) == 129
+    with pytest.raises(ValueError, match="D <= 1024"):
+        tattn.padded_width(1025)

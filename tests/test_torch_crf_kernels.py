@@ -2,11 +2,18 @@
 ops/crf.py``; the kernels are ``csrc/crf.cu``, held to the same plain
 versions on the card by ``tests/test_torch_cuda.py``):
 
-- the plain backward and Viterbi against the JAX package at C = 300, a
-  class count above the forward kernel's 256 that the backward and the
-  Viterbi kernels now take (``jax.vjp`` of ``paddle_tpu/ops/crf.py:
-  crf_log_z`` with its Pallas kernel interpreted, and ``paddle_tpu/
-  layers/chain.py:crf_decode``, as ``tests/test_torch_crf.py`` runs them);
+- the plain forward against the JAX package at C = 33, 257 and 300, class
+  counts of the forward's block variant, in and out of shared memory
+  (``paddle_tpu/ops/crf.py:_crf_alphas_pallas`` interpreted and
+  ``crf_log_z_ref``), with ragged and all-padding rows;
+- the forward's summation orders in plain code (a warp: each lane's
+  column in order; a block: K parts of a column, each in order, then the
+  butterfly; log Z over the owners, the warps' butterflies and the warps
+  in order), held to ``crf_forward_plain``;
+- the plain backward and Viterbi against the JAX package at C = 300
+  (``jax.vjp`` of ``paddle_tpu/ops/crf.py:crf_log_z`` with its Pallas
+  kernel interpreted, and ``paddle_tpu/layers/chain.py:crf_decode``, as
+  ``tests/test_torch_crf.py`` runs them);
 - the Viterbi kernels' max over i as four interleaved partial (value,
   first index) maxima combined with the lower index winning a tie, in
   plain code, equal to ``torch.max`` / ``torch.argmax``;
@@ -16,7 +23,8 @@ versions on the card by ``tests/test_torch_cuda.py``):
   held to ``crf_bwd_plain``;
 - ``chain_floor_plain``, what the chain-floor microkernel computes;
 - ``crf_plan``'s variant and shared-memory formula at C = 1, 23, 32, 33,
-  256, 257, 1000 and where the vectors outgrow shared memory.
+  256, 257, 1000 and where the vectors outgrow shared memory, and the
+  forward's at C = 1 .. 14,600.
 
 Inputs come from numpy with a seed. Tolerances: log Z and scores 1e-5;
 gradients per tensor within 1e-4 of the largest entry + 1e-5 (f32 sums in
@@ -31,7 +39,9 @@ import torch
 
 from paddle_tpu.layers.chain import crf_decode as j_crf_decode
 from paddle_tpu.ops import common
+from paddle_tpu.ops.crf import _crf_alphas_pallas as j_crf_alphas
 from paddle_tpu.ops.crf import crf_log_z as j_crf_log_z
+from paddle_tpu.ops.crf import crf_log_z_ref as j_crf_log_z_ref
 from paddle_tpu_torch.layers.chain import crf_decode as t_crf_decode
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops import crf as tcrf
@@ -84,6 +94,119 @@ def test_plain_backward_and_viterbi_match_jax_at_300_classes():
     np.testing.assert_array_equal(tpath.numpy(), np.asarray(jpath))
     np.testing.assert_allclose(tscore.numpy(), np.asarray(jscore),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C,lengths", [(33, [7, 1, 0]), (257, [7, 3, 0]),
+                                       (300, [5, 7, 0, 2])])
+def test_plain_forward_matches_jax_at_block_class_counts(C, lengths):
+    """At C = 33 (E in shared memory), 257 and 300 (E read from L2) the
+    forward kernel runs a block a sequence; its plain version, which the
+    card holds it to, gives JAX's alphas (``_crf_alphas_pallas``, the
+    Pallas kernel interpreted) and log Z (``crf_log_z`` interpreted and
+    ``crf_log_z_ref``), with ragged rows, a length-1 row and an
+    all-padding row (alpha frozen at alpha_0)."""
+    B, T = len(lengths), max(lengths)
+    x, mask, trans, a, b, _ = _inputs(B, T, C, C, lengths=lengths)
+    args = [jnp.asarray(v) for v in (x, mask, trans, a, b)]
+    with common.force_mode("interpret"):
+        j_alphas = np.asarray(j_crf_alphas(args[0], args[1], args[2],
+                                           args[3]))
+        j_log_z = np.asarray(j_crf_log_z(*args))
+    j_ref = np.asarray(j_crf_log_z_ref(*args))
+    alphas, log_z = tcrf.crf_forward_plain(
+        *(torch.from_numpy(v) for v in (x, mask, trans, a, b)))
+    np.testing.assert_allclose(alphas.numpy(), j_alphas, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(log_z.numpy(), j_log_z, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(log_z.numpy(), j_ref, rtol=1e-5, atol=1e-5)
+    pad = lengths.index(0)
+    np.testing.assert_array_equal(alphas[pad].numpy(),
+                                  np.broadcast_to(a + x[pad, 0], (T, C)))
+
+
+# --------------------------------------------- the forward's sum orders
+def _f32(v):
+    return np.float32(v)
+
+
+def _butterfly(parts):
+    """The xor butterfly over K = len(parts) lanes as part 0 ends it:
+    at o = 1, 2, ..., lane k adds lane k ^ o's value."""
+    vals = [np.float32(v) for v in parts]
+    o = 1
+    while o < len(vals):
+        vals = [np.float32(vals[k] + vals[k ^ o]) for k in range(len(vals))]
+        o *= 2
+    return vals[0]
+
+
+def _forward_in_kernel_order(x, mask, trans, a, b):
+    """``crf_alpha_fwd``'s arithmetic in numpy float32, in the kernels'
+    orders (``crf_plan``'s variant and K): column j's dot over i as K
+    parts (part k: i = k, k + K, ... in order; the warp variant: K = 1
+    over the 8-rounded C, the padded terms +0), combined in the fixed
+    butterfly, then ((log(max(s, 1e-37)) + m) + tm) + x_t[j]; log Z as m
+    + log(z), z summed over each owner's columns in order, 32-lane
+    butterflies, then the warps in order."""
+    B, T, C = x.shape
+    plan = tcrf.crf_plan(T, C)["fwd"]
+    K, nt = plan["parts"], plan["threads"]
+    slots = nt // K if plan["variant"] == "block" else 32
+    tm = np.float32(trans.max())
+    E = np.exp(trans - tm).astype(np.float32)
+    alphas = np.zeros((B, T, C), np.float32)
+    log_z = np.zeros(B, np.float32)
+    for bb in range(B):
+        alpha = (a + x[bb, 0]).astype(np.float32)
+        alphas[bb, 0] = alpha
+        for t in range(1, T):
+            if mask[bb, t] > 0:
+                m = np.float32(alpha.max())
+                p = np.exp(alpha - m).astype(np.float32)
+                new = np.empty(C, np.float32)
+                for j in range(C):
+                    parts = []
+                    for k in range(K):
+                        s = np.float32(0)
+                        for i in range(k, C, K):
+                            s = np.float32(s + p[i] * E[i, j])
+                        parts.append(s)
+                    s = _butterfly(parts)
+                    r = np.float32(np.log(max(s, np.float32(1e-37))))
+                    new[j] = np.float32(np.float32(np.float32(r + m) + tm)
+                                        + x[bb, t, j])
+                alpha = new
+            alphas[bb, t] = alpha
+        v = (alpha + b).astype(np.float32)
+        m = np.float32(v.max())
+        lane = np.zeros(max(nt, 32), np.float32)
+        for j in range(C):  # owner thread of column j
+            owner = (j % slots) * K
+            lane[owner] = np.float32(lane[owner] + np.exp(np.float32(v[j]
+                                                                  - m)))
+        z = np.float32(0)
+        for w in range(0, len(lane), 32):
+            z = np.float32(z + _butterfly(lane[w:w + 32]))
+        log_z[bb] = np.float32(m + np.float32(np.log(z)))
+    return alphas, log_z
+
+
+@pytest.mark.parametrize("B,T,C", [(3, 6, 23), (3, 6, 33), (2, 5, 128),
+                                   (2, 4, 257)])
+def test_forward_sum_order_holds_the_plain_forward(B, T, C):
+    """The forward kernels' summation orders (the warp variant at C = 23;
+    the block variant's K = 4 parts at C = 33 and 128, E in shared memory,
+    and 2 at C = 257, E from L2), rendered in float32, within rtol 1e-4 /
+    atol 1e-5 of ``crf_forward_plain``, an all-padding row included."""
+    lengths = [T] + [2] * (B - 2) + [0]  # full, ragged, all padding
+    x, mask, trans, a, b, _ = _inputs(B, T, C, B + T + C, lengths=lengths)
+    got_a, got_z = _forward_in_kernel_order(x, mask, trans, a, b)
+    want_a, want_z = tcrf.crf_forward_plain(
+        *(torch.from_numpy(v) for v in (x, mask, trans, a, b)))
+    np.testing.assert_allclose(got_a, want_a.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got_z, want_z.numpy(), rtol=1e-4, atol=1e-5)
+    assert tcrf.crf_plan(T, C)["fwd"]["parts"] == {23: 1, 33: 4, 128: 4,
+                                                   257: 2}[C]
 
 
 # ------------------------------------------------ the Viterbi's argmax
@@ -232,7 +355,7 @@ def test_chain_floor_plain_is_the_chains_recursion(C):
         alpha = alpha.max() + r + x
     got = tcrf.chain_floor_plain(T, C)
     np.testing.assert_allclose(got.numpy(), beta, rtol=1e-5)
-    got_v = tcrf.chain_floor_plain(T, C, viterbi=True)
+    got_v = tcrf.chain_floor_plain(T, C, "viterbi")
     np.testing.assert_array_equal(got_v[:C].double().numpy(), alpha)
     assert (got_v[C:] == arg).all()
     rf, xf, sf = tcrf._floor_inputs(C)
@@ -340,3 +463,73 @@ def test_plan_moves_the_vectors_to_scratch_at_any_class_count(C, bwd_giant,
                                                     else 0)
     with pytest.raises(ValueError, match="C >= 1"):
         tcrf.crf_plan(3, 0)
+
+
+@pytest.mark.parametrize("C", [1, 23, 40, 257])
+def test_chain_floor_plain_alpha_is_the_forward_recursion(C):
+    """The floor's alpha variant: T steps of ``crf_forward_plain``'s step
+    with trans[i, j] = r_i from alpha_0 = the start, within 1e-5 relative
+    of a float64 log-sum-exp (every column the same sum, plus x_j)."""
+    T = 40
+    r, x, start = (v.double().numpy() for v in tcrf._floor_inputs(C))
+    alpha = start.copy()
+    for _ in range(T):
+        y = alpha + r
+        m = y.max()
+        alpha = m + np.log(np.exp(y - m).sum()) + x
+    got = tcrf.chain_floor_plain(T, C, "alpha")
+    np.testing.assert_allclose(got.numpy(), alpha, rtol=1e-5)
+    with pytest.raises(ValueError, match="variant"):
+        tcrf.chain_floor_plain(T, C, "gamma")
+
+
+@pytest.mark.parametrize("C", [1, 23, 32, 33, 128, 232, 233, 238, 239, 240,
+                               241, 256, 257, 1000, 14600, 29100])
+def test_forward_plan_at_class_counts(C):
+    """The forward's plan: a warp a sequence up to C = 32 (E [C, C] in
+    shared memory beside the four warps' rows and red); above, a block a
+    sequence, E at a column stride = 32 / K mod 32 beside the vectors
+    alpha and p while it fits: K = 4 lanes a column up to C = 232, then 2
+    up to C = 240; above, each block's copy of E in scratch, 4 lanes a
+    column up to C = 256, 2 up to 512, then 1; the vectors in scratch too
+    above C ~ 29,000. Scratch: none where E stays on chip (the tagger's
+    shapes), one C x C copy a sequence (a block of four at C <= 32 with
+    ``in_global``) above; ``in_global`` keeps the shared path's K. The
+    floor's alpha threads are the forward's."""
+    T, B = 80, 16
+    plan = tcrf.crf_plan(T, C)
+    fwd = plan["fwd"]
+    if C <= 32:
+        assert fwd["variant"] == "warp" and fwd["threads"] == 128
+        assert fwd["smem"] == 4 * (128 + 32 + C * C)
+        assert fwd["matrix_in_smem"] and fwd["ld"] == C
+        assert plan["floor"]["alpha_threads"] == 32
+        assert tcrf.fwd_work_floats(B, C) == 0
+        assert tcrf.fwd_work_floats(B, C, True) == -(-B // 4) * C * C
+        return
+    ld = lambda K: C + (32 // K - C) % 32  # noqa: E731
+    for K in (1, 2, 4):
+        assert ld(K) % 32 == (32 // K) % 32 and ld(K) >= C
+    red, vec = 4 * 32, 8 * C
+    fits = lambda K: red + vec + 4 * C * ld(K) <= build.SMEM_BYTES  # noqa
+    narrow = 1 if C > 512 else 2
+    K = 4 if C <= 256 and fits(4) else narrow
+    assert (K == 4) == (C <= 232)
+    in_smem = fits(K)
+    assert in_smem == (C <= 240)
+    assert fwd["variant"] == "block" and fwd["matrix_in_smem"] == in_smem
+    Kf = K if in_smem else (4 if C <= 256 else narrow)
+    assert fwd["parts"] == Kf
+    assert fwd["threads"] == 32 * -(-min(C * Kf, 1024) // 32)
+    assert plan["floor"]["alpha_threads"] == fwd["threads"]
+    giant = red + vec > build.SMEM_BYTES
+    assert fwd["giant"] == giant == (C == 29100)
+    assert fwd["ld"] == (ld(K) if in_smem else 0)
+    assert fwd["smem"] == red + (0 if giant else vec) + (
+        4 * C * ld(K) if in_smem else 0)
+    assert 0 < fwd["smem"] <= build.SMEM_BYTES
+    assert tcrf.fwd_work_floats(B, C) == (
+        0 if in_smem else B * C * C + (2 * B * C if giant else 0))
+    forced = tcrf._fwd_plan(C, in_global=True)
+    assert forced["parts"] == Kf and not forced["matrix_in_smem"]
+    assert tcrf.fwd_work_floats(B, C, True) >= B * C * C

@@ -891,27 +891,22 @@ def _crf_inputs(B, T, C, seed, device):
                                    (2, 20, 1000)])
 def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
     """The tagger's shape (B=64, T=80, C=23), its serving shape (B=1), and
-    class counts below and across a warp's 32, up to 256 (the forward's
-    limit; above 239 every matrix stays in global memory) and beyond, where
-    the backward (fed the plain alphas) and the Viterbi run alone:
-    log Z and the alphas within rtol 1e-4 / atol 1e-5; every gradient per
-    tensor within 1e-4 of its largest entry + 1e-5 (sums over steps and
-    rows in another order), forbidden transitions finite and near 0;
-    the Viterbi paths identical and their scores within 1e-5."""
+    class counts below and across a warp's 32, up to 256 (the forward's E
+    read from L2 above C = 238) and beyond: log Z and the alphas within
+    rtol 1e-4 / atol 1e-5; every gradient per tensor within 1e-4 of its
+    largest entry + 1e-5 (sums over steps and rows in another order),
+    forbidden transitions finite and near 0; the Viterbi paths identical
+    and their scores within 1e-5."""
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, B * T + C, cuda_device)
-    fwd = C <= tcrf.MAX_CLASSES
     before = (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
               tcrf.crf_viterbi.launches)
     w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
-    if fwd:
-        alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
-    else:
-        alphas, log_z = w_alphas, w_log_z
+    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
     got_b = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
     path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
     torch.cuda.synchronize()
     assert (tcrf.crf_alpha_fwd.launches, tcrf.crf_bwd.launches,
-            tcrf.crf_viterbi.launches) == (before[0] + fwd, before[1] + 1,
+            tcrf.crf_viterbi.launches) == (before[0] + 1, before[1] + 1,
                                            before[2] + 1)
     torch.testing.assert_close(alphas, w_alphas, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(log_z, w_log_z, rtol=1e-4, atol=1e-5)
@@ -934,10 +929,11 @@ def test_crf_kernels_match_plain_on_card(cuda_device, B, T, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,C", [(64, 80, 23), (5, 12, 33), (8, 20, 97),
-                                   (8, 20, 128)])
+                                   (8, 20, 128), (3, 9, 238)])
 def test_crf_global_path_equals_shared_path(cuda_device, B, T, C):
-    """At a C where the forward's matrix fits shared memory (below C =
-    240), its global-memory path (``in_global``) gives the same bits."""
+    """At a C where the forward's matrix fits shared memory (C <= 238),
+    its global-memory path (``in_global``: each block's copy of E read
+    from L2, the same partition of every sum) gives the same bits."""
     x, mask, trans, a, b, g = _crf_inputs(B, T, C, B + T + C, cuda_device)
     alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
     g_alphas, g_log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b,
@@ -948,8 +944,8 @@ def test_crf_global_path_equals_shared_path(cuda_device, B, T, C):
 @pytest.mark.cuda
 def test_crf_kernels_reject_bad_inputs(cuda_device):
     """A CPU tensor into a CUDA path and a wrong dtype raise; a class
-    count beyond 256 raises from the forward alone, with its limit named,
-    while the backward and the Viterbi take it."""
+    count beyond 256, which the earlier forward refused, runs all three
+    kernels, the forward held to its plain version."""
     x, mask, trans, a, b, g = _crf_inputs(3, 4, 5, 0, cuda_device)
     with pytest.raises(ValueError, match="CUDA"):
         tcrf.crf_alpha_fwd(x, mask.cpu(), trans, a, b)
@@ -957,11 +953,11 @@ def test_crf_kernels_reject_bad_inputs(cuda_device):
         tcrf.crf_viterbi(x.double(), mask, trans, a, b)
     with pytest.raises(ValueError, match="float32"):
         tcrf.crf_bwd(x, mask, trans, b, x, g.double(), g)
-    C = tcrf.MAX_CLASSES + 1
-    x, mask, trans, a, b, g = _crf_inputs(2, 3, C, 1, cuda_device)
-    with pytest.raises(ValueError, match=f"C <= {tcrf.MAX_CLASSES}"):
-        tcrf.crf_alpha_fwd(x, mask, trans, a, b)
-    alphas, log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    x, mask, trans, a, b, g = _crf_inputs(2, 3, 257, 1, cuda_device)
+    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    torch.testing.assert_close(alphas, w_alphas, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(log_z, w_log_z, rtol=1e-4, atol=1e-5)
     tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
     tcrf.crf_viterbi(x, mask, trans, a, b)
     torch.cuda.synchronize()
@@ -978,10 +974,10 @@ def test_crf_plan_matches_the_kernels_on_card(cuda_device, B, T, C):
     """``crf_plan``, ``crf_marginal_plan`` and the scratch sizes the
     wrappers allocate equal ``csrc/crf.cu``'s own (``crf_plan_query``):
     the variant flags, threads, parts a row, matrix stride and shared
-    memory of the beta chain and the Viterbi, the floor's, and the marginal
-    pass's grid."""
+    memory of the forward, the beta chain and the Viterbi, the floors',
+    and the marginal pass's grid."""
     plan = tcrf.crf_plan(T, C)
-    for k, name in ((0, "bwd"), (1, "viterbi")):
+    for k, name in ((5, "fwd"), (0, "bwd"), (1, "viterbi")):
         p = plan[name]
         flags = ((p["variant"] == "block") | 2 * p["matrix_in_smem"]
                  | 4 * p.get("bp_in_smem", False) | 8 * p["giant"])
@@ -989,12 +985,13 @@ def test_crf_plan_matches_the_kernels_on_card(cuda_device, B, T, C):
                 for f in (0, 1, 2, 4, 5)] == [
             p["smem"], flags, p["threads"], p["parts"], p["ld"]], name
     assert tcrf.plan_of_kernel(0, B, T, C, 3) == tcrf.bwd_work_floats(B, T, C)
+    assert tcrf.plan_of_kernel(5, B, T, C, 3) == tcrf.fwd_work_floats(B, C)
     assert tcrf.plan_of_kernel(1, B, T, C, 3) == \
         B * plan["viterbi"]["scratch_per_row"]
     m = tcrf.crf_marginal_plan(B, T, C)
     assert [tcrf.plan_of_kernel(4, B, T, C, f) for f in (0, 1, 2, 3)] == [
         tcrf.MARG_SMEM, m["tiles"], m["chunks"], m["tj"]]
-    for k, kind in ((2, "beta"), (3, "viterbi")):
+    for k, kind in ((2, "beta"), (3, "viterbi"), (6, "alpha")):
         assert [tcrf.plan_of_kernel(k, B, T, C, f) for f in (0, 2)] == [
             plan["floor"]["smem"], plan["floor"][f"{kind}_threads"]]
 
@@ -1015,14 +1012,26 @@ def test_crf_viterbi_spills_its_back_pointers_on_card(cuda_device, B, T, C):
 
 @pytest.mark.cuda
 def test_crf_kernels_take_classes_beyond_shared_memory(cuda_device):
-    """Above C ~ 12,400 (the backward) and ~ 14,500 (the Viterbi) the
-    per-class vectors move to global scratch: both still hold the plain
-    versions (B = 1, T = 3)."""
-    for C, kind in ((12500, "bwd"), (14600, "viterbi")):
+    """Above C ~ 29,000 (the forward), ~ 12,400 (the backward) and ~
+    14,500 (the Viterbi) the per-class vectors move to global scratch: all
+    three still hold the plain versions (B = 1, T = 3)."""
+    for C, kind in ((29100, "fwd"), (12500, "bwd"), (14600, "viterbi")):
         assert tcrf.crf_plan(3, C)[kind]["giant"]
-        x, mask, trans, a, b, g = _crf_inputs(1, 3, C, C, cuda_device)
-        mask = torch.ones_like(mask)
-        if kind == "bwd":
+        if kind == "fwd":  # 847 M entries of trans: drawn on the card
+            gen = torch.Generator(device=cuda_device).manual_seed(C)
+            x, trans, a, b = (torch.randn(s, generator=gen,
+                                          device=cuda_device)
+                              for s in ((1, 3, C), (C, C), (C,), (C,)))
+            mask = torch.ones((1, 3), device=cuda_device)
+        else:
+            x, mask, trans, a, b, g = _crf_inputs(1, 3, C, C, cuda_device)
+            mask = torch.ones_like(mask)
+        if kind == "fwd":
+            got = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+            want = tcrf.crf_forward_plain(x, mask, trans, a, b)
+            for gk, gp in zip(got, want):
+                torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
+        elif kind == "bwd":
             alphas, log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
             got = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, g)
             want = tcrf.crf_bwd_plain(x, mask, trans, b, alphas, log_z, g)
@@ -1040,15 +1049,15 @@ def test_crf_kernels_take_classes_beyond_shared_memory(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 23, 40, 257])
-@pytest.mark.parametrize("viterbi", [False, True])
-def test_crf_chain_floor_matches_plain_on_card(cuda_device, C, viterbi):
+@pytest.mark.parametrize("variant", tcrf.FLOOR_VARIANTS)
+def test_crf_chain_floor_matches_plain_on_card(cuda_device, C, variant):
     """The chain-floor microkernel (the chains' own step functions, one
     block, no global memory) against ``chain_floor_plain`` over 50 steps:
-    the Viterbi's values and back-pointers exactly, the betas within rtol
-    1e-5 (the plain dot is a matmul)."""
-    got = tcrf.crf_chain_floor(50, C, viterbi).cpu()
-    want = tcrf.chain_floor_plain(50, C, viterbi)
-    if viterbi:
+    the Viterbi's values and back-pointers exactly, the betas and the
+    alphas within rtol 1e-5 (the plain dot is a matmul)."""
+    got = tcrf.crf_chain_floor(50, C, variant).cpu()
+    want = tcrf.chain_floor_plain(50, C, variant)
+    if variant == "viterbi":
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -1255,10 +1264,11 @@ def test_flash_kernels_with_leading_padding_match_plain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", tattn.HEAD_DIMS)
+@pytest.mark.parametrize("D", tattn.HEAD_DIMS + (129, 256, 257, 1024))
 def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
     """``flash_plan``'s shared-memory bytes are what each kernel requests
-    (its own count, ``flash_smem``), within a block's limit."""
+    (its own count, ``flash_smem``: an instance's, or the wide-head
+    path's above D = 128), within a block's limit."""
     plan = tattn.flash_plan(D)
     for kernel in ("fwd", "dq", "dkdv"):
         assert tattn.flash_smem_of_kernel(kernel, D) == \
@@ -1267,11 +1277,13 @@ def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_bad_inputs(cuda_device):
-    """A head width above 128, a non-contiguous input, a wrong dtype and
-    a CPU mask all raise with the reason."""
+    """A head width above the wide-head path's 1024, a non-contiguous
+    input, a wrong dtype and a CPU mask all raise with the reason; D =
+    160, which the tensor-core kernels alone refused, runs on the wide
+    path and holds the plain versions."""
     q, k, v, mask, do = _attn_inputs(2, 2, 8, 8, 16, 0, cuda_device)
-    wide = torch.zeros(2, 2, 8, 160, device=cuda_device)
-    with pytest.raises(ValueError, match="head width D=160"):
+    wide = torch.zeros(2, 2, 8, tattn.WIDE_MAX_D + 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head width D=1056"):
         tattn.flash_fwd(wide, wide, wide, mask)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_fwd(q.transpose(1, 2), k, v, mask)
@@ -1282,6 +1294,88 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
     o, lse = tattn.flash_fwd(q, k, v, mask)
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_bwd(q, k, v, mask, o, lse, do.transpose(2, 3))
+    q, k, v, mask, do = _attn_inputs(2, 2, 8, 8, 160, 0, cuda_device)
+    o, lse = tattn.flash_fwd(q, k, v, mask)
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(tattn.flash_bwd(q, k, v, mask, o, lse, do),
+                        tattn.flash_bwd_plain(q, k, v, mask, w_o, w_lse, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal,all_padding", [
+    (2, 4, 300, 300, 256, False, True),  # an all-padding kv row, Tk > 256
+    (2, 4, 300, 300, 256, True, True),
+    (2, 2, 333, 200, 256, True, False),  # causal, Tq > Tk
+    (3, 2, 70, 133, 160, True, False),
+    (2, 1, 40, 57, 129, False, False),
+    (2, 2, 50, 90, 384, False, True),
+    (1, 2, 33, 47, 1024, True, False)])
+def test_flash_wide_heads_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
+                                             causal, all_padding):
+    """Head widths above 128 take the wide-head path (one launch forward,
+    two backward): o and the row statistics within rtol 1e-4 / atol 1e-5
+    of ``blockwise_plain``, every gradient per tensor within 1e-4 of its
+    largest entry + 1e-5 of ``flash_bwd_plain``, rows that see no key
+    included (JAX's padded mean of v, a zero dq); two backward runs
+    bit-equal."""
+    q, k, v, mask, do = _attn_inputs(B, N, Tq, Tk, D, B * Tq + D,
+                                     cuda_device, all_padding)
+    before = (tattn.flash_fwd.launches, tattn.flash_bwd.launches)
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (tattn.flash_fwd.launches, tattn.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads, tattn.flash_bwd_plain(
+        q, k, v, mask, w_o, w_lse, do, causal))
+    if all_padding:
+        assert grads[0][-1].abs().max().item() == 0.0
+    again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    for g1, g2 in zip(grads, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+def test_attention_layer_with_wide_heads_runs_the_kernels_on_card(
+        cuda_device):
+    """``multi_head_attention`` at size 512 with 2 heads (D = 256): the
+    forward and every gradient on the card against the same layer on the
+    CPU (the plain versions)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    dsl.reset()
+    x = dsl.data(name="x", size=512, is_sequence=True)
+    out = dsl.multi_head_attention(x, size=512, num_heads=2, name="att")
+    net = Network(dsl.current_graph(), outputs=[out.name])
+    rng = np.random.default_rng(5)
+    params = {k: rng.normal(size=s.shape).astype(np.float32) * 0.05
+              for k, s in net.param_specs.items()}
+    mask = torch.from_numpy((np.arange(29)[None, :] < np.array(
+        [[29], [11], [0]])).astype(np.float32))
+    xv = torch.from_numpy(rng.normal(size=(3, 29, 512)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(3, 29, 512)).astype(np.float32))
+    results = []
+    for dev in ("cpu", cuda_device):
+        p = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+             for k, v in params.items()}
+        before = tattn.flash_bwd.launches
+        y = net.apply(p, {"x": Argument(xv.to(dev), mask.to(dev))})[
+            out.name].value
+        gs = torch.autograd.grad((y * ct.to(dev)).sum(), list(p.values()))
+        if dev != "cpu":
+            assert tattn.flash_bwd.launches == before + 1
+        results.append((y.detach().cpu(), [g.cpu() for g in gs]))
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = results
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=1e-4, atol=1e-5)
+    for g, w in zip(g_gpu, g_cpu):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() \
+            + 1e-5
 
 
 def _ctc_inputs(B, T, C, L, seed, device):
