@@ -158,8 +158,16 @@ non-zero without the result line:
    warp, T = 100,000 frames of the chain's step at the shape's states a
    lane). At the acoustic model's shape, the host split of both fused
    wrappers' launch paths beside ``ctc_loss``'s spelling before them,
-   interleaved in 5 rounds. ``python3 chip_smoke.py --ctc-kernels`` runs
-   this phase alone, into ``chiprun_out/ctc_kernels.json``.
+   interleaved in 5 rounds. Then the fused kernels at CTC_BEYOND_SHAPES,
+   sizes they refused before: (2, 50) frames at C = 60,000 (L = 10; the
+   sorted posterior pass) and (1, 10,500) frames of 29 classes at S =
+   20,001 (the wide chains): the forward and the posterior pass against
+   their plain versions as above, two backward runs bit-equal, the loss
+   and its gradient against the CPU plain path (within 1e-5 relative;
+   1e-3 of the largest entry + 1e-6), device and event times, the plain
+   versions, ``F.ctc_loss`` forward and backward, the bounds.
+   ``python3 chip_smoke.py --ctc-kernels`` runs this phase alone, into
+   ``chiprun_out/ctc_kernels.json``.
 7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
    — the attention seq2seq path's (50, 4, 50, 50, 128) with kv lengths
    10-50 and one all-padding row, its batch 1, a causal cross-attention
@@ -172,7 +180,10 @@ non-zero without the result line:
    4, 200, 333, 40) — and at every FLASH_WIDE_SHAPES row on the
    wide-head path (128 < D <= 1024: (2, 4, 300, 300, 256) both ways with
    an all-padding kv row, causal (2, 4, 333, 200, 256), causal (2, 4,
-   200, 333, 160), (2, 2, 64, 64, 1024)) —
+   200, 333, 160), (2, 2, 64, 64, 1024)) and every FLASH_SPLIT_SHAPES
+   row on the split-row path (D > 1024: (1, 2, 64, 64) at D = 1056 and
+   2048, with an all-padding kv row at 1056, causal (1, 2, 80, 64) at
+   2048) —
    the forward kernel's o and row statistics
    within rtol 1e-4 / atol 1e-5 of ``blockwise_plain``, the backward
    kernels' gradients per tensor within 1e-4 of the largest entry + 1e-5
@@ -309,13 +320,49 @@ non-zero without the result line:
    busy time, idle share, top kernels), and ``--job test``
    on 2 more batches (cost, ctc_edit_distance; the fused CTC forward and
    the primal GRU kernel launched, the posterior pass not).
-12. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 11c). The
+12. the image slice (cuDNN's convolutions and torch's pools with TF32
+   off; no Pallas kernel lies on it): ResNet-50 as
+   ``__graft_entry__.py:entry()`` builds it (``resnet(50,
+   classes=1000, image_size=224)``, 25,610,152 parameters from
+   ``init_params`` with a seeded generator, an NHWC feed [8, 224, 224,
+   3]) on the card against the port's CPU path: (a) ``train=True``, the
+   output and the 106 moving statistics; (b) ``train=False`` on (a)'s
+   statistics; (c) ``train=False`` at ``init_params`` (moving variance
+   0): NaN in the same places of the output; rtol 1e-4 / atol 1e-5. In
+   each, every layer run on the card from the CPU's values of the layers
+   it reads, and the fc's pre-softmax output, against the CPU's (rtol
+   1e-4, atol 1e-5 of the layer's largest value; in (c) the layers below
+   the overflow), since (b)'s softmax saturates and (c)'s output is NaN.
+   The (b) forward by CUDA events and device time (median of 5), a
+   profiled call's idle share and top kernels, beside its f32 operations
+   bound (2 B Ho Wo fs^2 Cin/g Cout over the convolutions, and the fc,
+   from the graph's shapes). Its training at full width: the loss and
+   every gradient of a batch of 2 on the card against the CPU (within
+   1e-3 of each tensor's largest entry + 1e-6) in float64, and in float32
+   with the float64 run's ReLU masks replayed (float32 alone flips masks
+   near 0 and misses the exact gradients by ~150 times the tolerance on
+   both devices alike: reported, the card's at most twice the CPU's + 1);
+   the moving statistics of the step card against CPU and folded into
+   the parameters by ``train_step``; the ``Momentum(0.01, 0.9)`` step at
+   batch 8, median of 5, one ``momentum_multi_kernel`` launch a step.
+   LeNet (``lenet_mnist``) through ``--job train`` (Momentum, 3 passes
+   over 4 batches of 64 synthetic digits: each class a fixed random
+   prototype plus noise, from the seed; the classification error falls),
+   ``--job test``, ``--job merge`` and the predictor on the card and on
+   the CPU (single rows and a batch of 16 within 1e-5).
+   ``python3 chip_smoke.py --image`` runs this phase alone, into
+   ``chiprun_out/image_slice.json``.
+13. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+   kernel, with the launches of the main paths (phases 8 to 12). The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
    persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
-   ``ctc_bwd``: the layer takes the fused ones): their entries say
-   ``on_path: false`` and must show 0 launches.
+   ``ctc_bwd``: the layer takes the fused ones), the fused CTC kernels'
+   wide and sorted routes or flash's split-row path: their entries say
+   ``on_path: false`` and must show 0 launches. The ``momentum`` entry's
+   ``launches`` are the classifier's training pass (phase 8); LeNet's
+   and ResNet's runs of phase 12 stand beside them as ``lenet_launches``
+   and ``resnet_launches``.
 
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -334,9 +381,10 @@ routes, the host splits, the cluster sizes), ~30 s, into
 
     python3 chip_smoke.py --flash-kernels
 
-runs only phase 7 (the flash kernels at every FLASH_SHAPES and
-FLASH_WIDE_SHAPES row with the SDPA yardstick, the wide-head layer check,
-the wrappers' host split), ~1.5 min, into ``flash_kernels.json``.
+runs only phase 7 (the flash kernels at every FLASH_SHAPES,
+FLASH_WIDE_SHAPES and FLASH_SPLIT_SHAPES row with the SDPA yardstick, the
+wide-head layer check, the wrappers' host split), ~1.5 min, into
+``flash_kernels.json``.
 
     python3 chip_smoke.py --opt-kernels
 
@@ -376,6 +424,7 @@ import warnings
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.kernels import rnn_cells as C
 from paddle_tpu_torch.ops import attention as ATT
 from paddle_tpu_torch.ops import build
@@ -490,6 +539,13 @@ FLASH_WIDE_SHAPES = [
     (2, 4, 333, 200, 256, True, 1, False),
     (2, 4, 200, 333, 160, True, 1, False),
     (2, 2, 64, 64, 1024, False, 1, False)]
+# the split-row path (D > 1024, a block a row): D = 1056 and 2048 at T = 64,
+# causal with Tq > Tk, and an all-padding kv row
+FLASH_SPLIT_SHAPES = [
+    (1, 2, 64, 64, 1056, False, 1, False),
+    (2, 2, 64, 64, 1056, False, 1, True),
+    (1, 2, 64, 64, 2048, False, 1, False),
+    (1, 2, 80, 64, 2048, True, 1, False)]
 # the layer check of the wide path: multi_head_attention at size 512 with
 # 2 heads (D = 256), batch 4 of 50 steps
 WIDE_LAYER = dict(size=512, num_heads=2, batch=4, steps=50)
@@ -523,6 +579,20 @@ DS2_SOURCE_LR = 5e-4
 CTC_SHAPES = [(DS2_BATCH, DS2_MAX_T, DS2_LABEL_PAD), (1, DS2_MAX_T,
                                                      DS2_LABEL_PAD),
               (DS2_BATCH, 1600, 240)]
+# sizes the fused kernels refused before they took any S and C (B, T, C,
+# L): 60,000 classes (the staged posterior pass's class offsets no longer
+# fit a block: the sorted pass) and 20,001 states (above the lanes'
+# 16,384: the wide chains), each with a full row and a padded one
+CTC_BEYOND_SHAPES = [(2, 50, 60000, 10), (1, 10500, 29, 10000)]
+# the image slice: ResNet-50 as __graft_entry__.py:entry() builds it
+# (resnet(50, classes=1000, image_size=224), an NHWC feed [8, 224, 224, 3])
+# at full width and depth; its gradients at batch 2; LeNet (lenet_mnist)
+# trained through the CLI on synthetic 28 x 28 digits (each class a fixed
+# random prototype plus noise, from SEED)
+RESNET = dict(depth=50, classes=1000, image_size=224)
+RESNET_BATCH, RESNET_GRAD_BATCH, RESNET_REPS = 8, 2, 5
+LENET_BATCH, LENET_BATCHES, LENET_PASSES = 64, 4, 3
+LENET_SERVE_BATCH = 16
 
 
 def phase(title: str, **kv):
@@ -608,30 +678,27 @@ def _device_ms(fn, kernel, calls=20, per_call=1):
     """Device time of one call of ``fn``: the CUDA kernels whose names
     contain ``kernel`` (or one of a tuple of names; each launched
     ``per_call`` times per call), from
-    ``torch.profiler`` over ``calls`` calls after one warm call: for a
+    ``torch.profiler`` over ``calls`` calls after one warm call and a
+    warm-up cycle (``_traced``): for a
     kernel shorter than its wrapper's host work, where CUDA events around
     the call measure the host. Each kernel's time is its mean over the
     launches the trace holds, times ``per_call``; a trace that holds fewer
-    than half of them (the profiler here drops launches now and then) is
-    taken again, up to three times. ``kernel=None``: every CUDA kernel of
+    than half of them (the profiler here drops launches now and then, and
+    now and then a whole trace: then after a pause) is taken again, up to
+    six times. ``kernel=None``: every CUDA kernel of
     the calls, summed and divided by ``calls``. Returns (ms, record): the
     record holds ``calls`` and each trace's [launches, mean ms a launch]
     by kernel name, so that a trace with dropped launches shows beside the
     time."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     names = (kernel,) if isinstance(kernel, str) else kernel
     traces = []
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        found = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (names is None or any(n in e.key for n in names))]
+    for _ in range(6):
+        if traces and not traces[-1]:
+            time.sleep(0.5)
+        found = [e for e in _traced(fn, calls)[0]
+                 if names is None or any(n in e.key for n in names)]
         traces.append({e.key: [e.count, 1e-3 * e.self_device_time_total
                                / max(e.count, 1)] for e in found})
         record = dict(calls=calls, traces=traces)
@@ -642,8 +709,31 @@ def _device_ms(fn, kernel, calls=20, per_call=1):
                          <= calls * per_call for e in found):
             return 1e-3 * per_call * sum(e.self_device_time_total / e.count
                                          for e in found), record
-    raise AssertionError(f"profiler found {traces} for {kernel} in three "
+    raise AssertionError(f"profiler found {traces} for {kernel} in six "
                          "traces")
+
+
+def _traced(fn, calls):
+    """``torch.profiler`` over ``calls`` calls of ``fn``, after a warm-up
+    cycle of as many calls under the profiler, which it does not keep (the
+    profiler drops launches at the start of a trace): the device events
+    of the traced calls by kernel (``key_averages``, without the
+    profiler's own step annotation) and their wall ms to a
+    synchronise."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            prof.step()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")], wall_ms
 
 
 def _bound(ops, nbytes):
@@ -2719,8 +2809,8 @@ def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
     emit = torch.gather(log_probs, 2, ext[:, None, :].expand(B, T, S))
     g_ops = (emit, in_mask, valid_s.float(), can_skip.float(), ext_lens)
     g_alphas, g_ll = CTC.ctc_alpha_fwd(*g_ops)
-    f_fwd = build.bind("ctc", "ctc_fused_fwd", 7, 7)
-    f_bwd = build.bind("ctc", "ctc_fused_bwd", 8, 8)
+    f_fwd = build.bind("ctc", "ctc_fused_fwd", 8, 7)
+    f_bwd = build.bind("ctc", "ctc_fused_bwd", 9, 8)
     a_fwd = build.bind("ctc", "ctc_alpha_fwd", 7, 3)
     a_bwd = build.bind("ctc", "ctc_bwd", 9, 3)
     stream = torch.cuda.current_stream().cuda_stream
@@ -2728,12 +2818,12 @@ def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
     dlp = torch.empty(B, T, C, device=dev)
     demit = torch.empty(B, T, S, device=dev)
     fwd_args = (log_probs.data_ptr(), labels.data_ptr(), in_mask.data_ptr(),
-                label_mask.data_ptr(), None, None, out.data_ptr(), B, T, L,
-                C, blank, 1, 1, stream)
+                label_mask.data_ptr(), None, None, out.data_ptr(), None, B,
+                T, L, C, blank, 1, 1, stream)
     bwd_args = (labels.data_ptr(), in_mask.data_ptr(),
                 label_mask.data_ptr(), alphas.data_ptr(), betas.data_ptr(),
-                ll.data_ptr(), g.data_ptr(), dlp.data_ptr(), B, T, L, C,
-                blank, 1, 1, 1, stream)
+                ll.data_ptr(), g.data_ptr(), dlp.data_ptr(), None, B, T, L,
+                C, blank, 1, 1, 1, stream)
     gf_args = tuple(t.data_ptr() for t in g_ops) + (
         g_alphas.data_ptr(), out.data_ptr(), B, T, S, stream)
     gb_args = tuple(t.data_ptr() for t in g_ops) + (
@@ -2856,13 +2946,151 @@ def check_ctc_host_split():
     return row
 
 
+def _profiled_ms(fn, kernel, calls):
+    """``_device_ms`` of ``fn`` at ``kernel``, or None where six traces
+    hold none of its launches."""
+    try:
+        return _device_ms(fn, kernel, calls=calls)[0]
+    except AssertionError:
+        return None
+
+
+def check_ctc_beyond(B, T, C, L, seed):
+    """The fused kernels at a size they refused before (CTC_BEYOND_SHAPES):
+    the routes ``ctc_plan`` gives, the forward (both chains) and the
+    posterior pass against ``ctc_fused_forward_plain`` and
+    ``ctc_fused_bwd_plain`` on the same card tensors (alphas, betas and ll
+    within rtol 1e-4 / atol 1e-5 with their NEG entries equal; d log_probs
+    within 1e-4 of its largest entry + 1e-5), two backward runs bit-equal,
+    the no-grad ll the same bits; the loss (``ctc_ll_from_log_probs``,
+    ``negate``, through ``CtcFusedFunction``) and its gradient against the
+    plain versions' at phase 11c's tolerances (the loss within 1e-5
+    relative, the gradient within 1e-3 of its largest entry + 1e-6). Times: CUDA events around a
+    wrapper call and the kernels' device time, the plain versions, and
+    ``F.ctc_loss`` forward and backward, beside the bounds."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    blank = C - 1
+    log_probs = torch.log_softmax(torch.from_numpy(rng.normal(
+        size=(B, T, C)).astype(np.float32)).cuda(), dim=-1)
+    in_lens = rng.integers(T // 2, T + 1, size=B)
+    in_lens[0] = T
+    lab_lens = np.minimum(rng.integers(1, L + 1, size=B), in_lens // 2)
+    lab_lens[0] = L
+    labels = torch.from_numpy(rng.integers(0, C - 1, size=(B, L))).cuda()
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).cuda()
+    label_mask = torch.from_numpy((np.arange(L)[None, :]
+                                   < lab_lens[:, None])
+                                  .astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    S = 2 * L + 1
+    plan = CTC.ctc_plan(S, C)
+    where = f"CTC beyond B={B} T={T} C={C} S={S}"
+    fused = (log_probs, labels, in_mask, label_mask, blank)
+    before = (CTC.ctc_fused_fwd.launches, CTC.ctc_fused_bwd.launches)
+    ll, alphas, betas = CTC.ctc_fused_fwd(*fused, grad=True)
+    bwd_args = (labels, in_mask, label_mask, blank, C, alphas, betas, ll, g)
+    dlp = CTC.ctc_fused_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    if (CTC.ctc_fused_fwd.launches, CTC.ctc_fused_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"{where}: the wrappers did not launch")
+    plain_ms = {}  # each plain version once: host clock to a synchronise
+
+    def timed(kind, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_ms[kind] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    w_alphas, w_betas, w_ll = timed(
+        "fused_fwd", lambda: CTC.ctc_fused_forward_plain(*fused))
+    fwd_err = max(_ctc_check(where, n, got, want) for n, got, want in (
+        ("alphas", alphas, w_alphas), ("betas", betas, w_betas),
+        ("ll", ll, w_ll)))
+    fwd_bits = all(torch.equal(a, b) for a, b in (
+        (alphas, w_alphas), (betas, w_betas), (ll, w_ll)))
+    w_dlp = timed("fused_bwd", lambda: CTC.ctc_fused_bwd_plain(
+        labels, in_mask, label_mask, blank, C, w_alphas, w_betas, w_ll, g))
+    if not torch.isfinite(dlp).all():
+        raise AssertionError(f"{where}: d log_probs is not finite")
+    bwd_err = _check_grads(where, (dlp,), (w_dlp,), ("log_probs",))
+    if not torch.equal(dlp, CTC.ctc_fused_bwd(*bwd_args)):
+        raise AssertionError(f"{where}: two backward runs differ")
+    if not torch.equal(CTC.ctc_fused_fwd(*fused), ll):
+        raise AssertionError(f"{where}: the no-grad ll differs")
+    del w_alphas, w_betas
+    # the loss (-ll, the sign taken in the kernels) and its gradient
+    # through CtcFusedFunction, against the plain values: -w_ll, and
+    # -w_dlp (the plain pass is linear in g, and a sign flip is exact)
+    leaf = log_probs.detach().clone().requires_grad_(True)
+    loss = CTC.ctc_ll_from_log_probs(leaf, labels, in_mask, label_mask,
+                                     blank, negate=True)
+    grad, = torch.autograd.grad((loss * g).sum(), leaf)
+    loss_err = ((loss.detach() + w_ll).abs()
+                / w_ll.abs().clamp_min(1e-30)).max().item()
+    grad_err = (grad + w_dlp).abs().max().item()
+    if not (loss_err <= 1e-5
+            and grad_err <= 1e-3 * w_dlp.abs().max().item() + 1e-6):
+        raise AssertionError(f"{where}: loss rel err {loss_err}, gradient "
+                             f"err {grad_err} against the plain versions")
+    del leaf, loss, grad, w_dlp
+    names = {"fwd": ("ctc_fused_wide_kernel" if plan["fwd"] == "wide"
+                     else "ctc_fused_fwd_kernel"),
+             "bwd": (("ctc_class_order_kernel", "ctc_fused_bwd_sorted_kernel")
+                     if plan["bwd"] == "sorted" else "ctc_fused_bwd_kernel")}
+    row = dict(B=B, T=T, C=C, L=L, S=S, frames=in_lens.tolist(),
+               characters=lab_lens.tolist(), plan=plan,
+               fused_fwd_max_abs_err=fwd_err, fused_fwd_bit_equal=fwd_bits,
+               fused_bwd_max_abs_err=bwd_err, bwd_bit_equal=True,
+               loss_rel_err=loss_err, loss_grad_max_abs_err=grad_err)
+    reps = 3 if T > 1000 else 10
+    for kind, call in (
+            ("fused_fwd", lambda: CTC.ctc_fused_fwd(*fused, grad=True)),
+            ("fused_bwd", lambda: CTC.ctc_fused_bwd(*bwd_args))):
+        # ms: CUDA events around a call (one launch, or two on the sorted
+        # route); device_ms: torch.profiler, null where its traces hold
+        # none of the kernels
+        row[f"{kind}_ms"] = _time_ms(call, reps=reps, warmup=1)
+        row[f"{kind}_device_ms"] = _profiled_ms(call, names[kind[6:]], reps)
+        row[f"{kind}_plain_ms"] = plain_ms[kind]
+    lp_t = log_probs.detach().transpose(0, 1).requires_grad_(True)
+    lib_args = (labels, torch.from_numpy(in_lens), torch.from_numpy(lab_lens))
+
+    def lib_fwd():
+        return torch.nn.functional.ctc_loss(lp_t, *lib_args, blank=blank,
+                                            reduction="none")
+
+    lib_out = lib_fwd()
+    row["fused_fwd_library_ms"] = _time_ms(lib_fwd, reps=reps, warmup=1)
+    row["fused_bwd_library_ms"] = _time_ms(lambda: torch.autograd.grad(
+        lib_out, lp_t, g, retain_graph=True), reps=reps, warmup=1)
+    ext_lens = (2 * label_mask.sum(dim=1) + 1).int().tolist()
+    for kind, (bound_ms, bound_by) in _ctc_bounds(
+            B, T, S, C, in_lens, ext_lens).items():
+        if kind.startswith("fused_") and kind != "fused_fwd_nograd":
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = (bound_ms,
+                                                                bound_by)
+    row["seconds"] = time.perf_counter() - t0
+    phase("ctc_beyond_check", **row)
+    return row
+
+
+def check_ctc_beyond_shapes():
+    return [check_ctc_beyond(B, T, C, L, B + T + C + L)
+            for B, T, C, L in CTC_BEYOND_SHAPES]
+
+
 def ctc_kernels():
     """``--ctc-kernels``: phase 6b alone (both operand forms at every
     CTC_SHAPES row with ``F.ctc_loss`` beside them, the chain floor, the
-    host split of the fused wrappers); rows in ``ctc_kernels.json`` in
-    ``OUT_DIR``."""
+    fused kernels at CTC_BEYOND_SHAPES, the host split of the fused
+    wrappers); rows in ``ctc_kernels.json`` in ``OUT_DIR``."""
     build.build_all(["ctc"])
     out = dict(ctc_shapes=check_ctc_kernels(),
+               ctc_beyond=check_ctc_beyond_shapes(),
                ctc_host_split=check_ctc_host_split())
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ctc_kernels.json"), "w") as f:
@@ -3020,14 +3248,13 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
     if not all(torch.equal(u, w) for u, w in zip(grads, again)):
         raise AssertionError(f"{where}: two backward runs differ")
     scale = D ** -0.5
-    wide = D > ATT.HEAD_DIMS[-1]
+    path = ATT.flash_plan(ATT.padded_width(D))["variant"]
     fwd_dev = _device_ms(lambda: ATT.flash_fwd(q, k, v, mask, causal),
-                         _FLASH_KERNELS[wide][0], calls=10)
+                         _FLASH_KERNELS[path][0], calls=10)
     bwd_dev = _device_ms(
         lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
-        _FLASH_KERNELS[wide][1], calls=10)
-    row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal,
-               path="wide" if wide else "tensor_cores",
+        _FLASH_KERNELS[path][1], calls=10)
+    row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal, path=path,
                all_padding_rows=int((mask.sum(dim=1) == 0).sum()),
                no_key_rows=no_key_rows,
                visible_pairs=N * float(visible.sum()),
@@ -3069,16 +3296,24 @@ def check_flash_shape(B, N, Tq, Tk, D, causal, min_len, pad_row, seed):
 
 
 # the profiler's filters of each path's kernels: (forward, backward) by
-# D > 128
-_FLASH_KERNELS = {False: ("flash_fwd_kernel", "flash_bwd_"),
-                  True: ("flash_wide_fwd_kernel", "flash_wide_d")}
+# ``flash_plan``'s variant
+_FLASH_KERNELS = {"tensor_cores": ("flash_fwd_kernel", "flash_bwd_"),
+                  "wide": ("flash_wide_fwd_kernel", "flash_wide_d"),
+                  "split": ("flash_split_fwd_kernel",
+                            ("flash_split_dq_kernel",
+                             "flash_split_dkdv_kernel"))}
 
 
 def check_flash_kernels():
-    """Every FLASH_SHAPES row on the tensor-core kernels, then every
-    FLASH_WIDE_SHAPES row on the wide-head path."""
-    return [check_flash_shape(*shape, seed=sum(shape[:5]))
-            for shape in FLASH_SHAPES + FLASH_WIDE_SHAPES]
+    """Every FLASH_SHAPES row on the tensor-core kernels, every
+    FLASH_WIDE_SHAPES row on the wide-head path, every FLASH_SPLIT_SHAPES
+    row on the split-row path."""
+    rows = []
+    for shape in FLASH_SHAPES + FLASH_WIDE_SHAPES + FLASH_SPLIT_SHAPES:
+        t0 = time.perf_counter()
+        rows.append(check_flash_shape(*shape, seed=sum(shape[:5])))
+        rows[-1]["seconds"] = time.perf_counter() - t0
+    return rows
 
 
 def check_wide_attention_layer():
@@ -3287,8 +3522,9 @@ def check_flash_host_split():
 
 
 def flash_kernels():
-    """``--flash-kernels``: phase 7 alone (every FLASH_SHAPES and
-    FLASH_WIDE_SHAPES row with the SDPA yardstick, the wide-head layer
+    """``--flash-kernels``: phase 7 alone (every FLASH_SHAPES,
+    FLASH_WIDE_SHAPES and FLASH_SPLIT_SHAPES row with the SDPA yardstick,
+    the wide-head layer
     check, the host split of both wrappers); rows in
     ``flash_kernels.json`` in ``OUT_DIR``."""
     build.build_all(["flash_attn"])
@@ -3389,7 +3625,7 @@ def _grads_card_vs_cpu(build_model, save_dir, feed, optimizer):
             if arg.value.is_floating_point():
                 arg.value = arg.value.to(dtype)
         t0 = time.perf_counter()
-        _, loss, grads = trainer.loss_and_grads(dev_feed)
+        _, loss, grads, _ = trainer.loss_and_grads(dev_feed)
         runs[key] = (float(loss), {k: v.cpu().double() for k, v in
                                    grads.items()},
                      time.perf_counter() - t0)
@@ -4971,6 +5207,525 @@ def _cell_route_keys(row):
                 plan=row["plan"])
 
 
+# ------------------------------------------------------ 12. the image slice
+def _resnet_net():
+    """The port's ResNet graph at RESNET, executed up to its softmax."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.models import resnet
+    dsl.reset()
+    cost, out, _ = resnet(**RESNET)
+    return Network(dsl.current_graph(), outputs=[out.name]), cost, out.name
+
+
+def _conv_fc_flops(net, B):
+    """The forward's operations from the graph's shapes: 2 B Ho Wo fs^2
+    (Cin / g) Cout over every convolution, plus 2 B in out over the fc."""
+    total = 0
+    for name in net.order:
+        layer = net.model.layers[name]
+        if layer.type not in ("exconv", "cudnn_conv", "conv", "fc"):
+            continue
+        out = net.shape_infos[name]
+        for suffix, pname in net._layer_params[name].items():
+            if suffix == "wbias":
+                continue
+            shape = net.param_specs[pname].shape
+            if layer.type == "fc":
+                total += 2 * B * shape[0] * shape[1]
+            else:  # HWIO (fsy, fs, c / g, nf)
+                total += 2 * B * out.height * out.width * int(
+                    np.prod(shape))
+    return total
+
+
+def _forward_trace(fn):
+    """One call of ``fn`` under ``torch.profiler``: the device's busy ms
+    (every kernel's device time), its idle share of the wall time, and
+    the five kernels that take most."""
+    fn()
+    torch.cuda.synchronize()
+    kernels, wall_ms = _traced(fn, 1)
+    kernels = [e for e in kernels if e.self_device_time_total > 0]
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                kernels=len(kernels), launches=sum(e.count for e in kernels),
+                top_kernels=[dict(name=e.key[:80],
+                                  ms=1e-3 * e.self_device_time_total,
+                                  count=e.count) for e in top])
+
+
+def _close(where, got, want):
+    """got within rtol 1e-4 / atol 1e-5 of want; the max abs error."""
+    torch.testing.assert_close(got, want, **TOL,
+                               msg=lambda m: f"{where}: {m}")
+    return (got - want).abs().max().item() if got.numel() else 0.0
+
+
+def _layer_share(where, got, want):
+    """got against want: within rtol 1e-4 and an atol of 1e-5 times
+    want's largest |value| (at least 1e-5), the non-finite entries (NaN,
+    +inf, -inf) in the same places; the largest share of that tolerance
+    an entry takes."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(got), test(want)):
+            raise AssertionError(f"{where}: {test.__name__} in other places")
+    live = torch.isfinite(want)
+    got, want = got[live], want[live]
+    if not want.numel():
+        return 0.0
+    atol = TOL["atol"] * max(1.0, want.abs().max().item())
+    share = ((got - want).abs()
+             / (atol + TOL["rtol"] * want.abs())).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"{where}: {share} times the tolerance")
+    return share
+
+
+def _layers_on_card(where, net, dev_params, outs_cpu, train,
+                    below_overflow=False):
+    """Each layer on the card from the CPU run's outputs of the layers it
+    reads, against the CPU run's output of that layer (``_layer_share``):
+    every kernel held at the values the whole stack gives it, whatever
+    the rounding upstream. ``below_overflow`` takes only the layers whose
+    inputs and output are finite throughout on the CPU. The largest share
+    of the tolerance and the number of layers compared."""
+    share, compared = 0.0, 0
+    for name in net.order:
+        layer = net.model.layers[name]
+        if layer.type == "data":
+            continue
+        reads = {i: Argument(outs_cpu[i].value.cuda())
+                 for i in layer.input_names()}
+        want = outs_cpu[name].value.cuda()
+        if below_overflow and not all(
+                torch.isfinite(t).all() for t in
+                [want] + [a.value for a in reads.values()]):
+            continue
+        with torch.no_grad():
+            got, _ = net.apply_layer(name, dev_params, reads, train=train)
+        share = max(share, _layer_share(f"{where} {name}", got.value, want))
+        compared += 1
+    return share, compared
+
+
+def _logits(outs, params):
+    """The fc's pre-softmax output, from its input (the global pool) and
+    its weights, as ``layers/common.py``'s fc computes it."""
+    x = outs["global_pool"].value
+    return x.reshape(x.shape[0], -1) @ params["_output.w0"] \
+        + params["_output.wbias"]
+
+
+def check_resnet():
+    """ResNet-50 at entry()'s shape on the card against the port's CPU
+    path, the same parameters (``init_params`` from a seeded generator)
+    and feed [8, 224, 224, 3], three ways: (a) ``train=True``, the output
+    and the 106 state updates (rtol 1e-4 / atol 1e-5); (b)
+    ``train=False`` on (a)'s moving statistics, the output finite and
+    close; (c) ``train=False`` at ``init_params``, as entry() runs it
+    (moving variance 0): NaN in the same places of the output. In each,
+    every layer is also run on the card from the CPU run's values of the
+    layers it reads and held to the CPU's output of that layer
+    (``_layer_share``), the fc's pre-softmax output too: (b)'s softmax
+    saturates (the moving variance after one update is a tenth of the
+    batch's, so values grow through the stack, the logits to ~1e25), and
+    (c)'s values grow by 1 / sqrt(eps) a batch norm until they overflow
+    (its output is all NaN; the layers below the overflow are compared),
+    so their outputs alone would hold little. The forward at (b): CUDA
+    events and device time (median of RESNET_REPS), a profiled call's
+    idle share and top kernels, beside its f32 operations bound."""
+    t0 = time.perf_counter()
+    net, _, name = _resnet_net()
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    image = torch.randn((RESNET_BATCH, RESNET["image_size"],
+                         RESNET["image_size"], 3),
+                        generator=torch.Generator().manual_seed(SEED + 1))
+    dev_params = {k: v.cuda() for k, v in params.items()}
+    dev_feed = {"image": Argument(image.cuda())}
+    cpu_feed = {"image": Argument(image)}
+
+    def run(p, feed, train):
+        with torch.no_grad():
+            return net.apply_with_state(p, feed, train=train)
+
+    def logits_on_card(where, outs_cpu, p, dev_p):
+        want = _logits(outs_cpu, p).cuda()
+        got = _logits({"global_pool": Argument(
+            outs_cpu["global_pool"].value.cuda())}, dev_p)
+        if not (want.std(dim=1) > 0).all():
+            raise AssertionError(f"{where}: the logits are flat in a row")
+        return _layer_share(f"{where} logits", got, want)
+
+    row = dict(batch=RESNET_BATCH, **RESNET,
+               parameters=sum(int(np.prod(s.shape))
+                              for s in net.param_specs.values()),
+               stem_pool=[net.shape_infos["stem_pool"].channels,
+                          net.shape_infos["stem_pool"].height,
+                          net.shape_infos["stem_pool"].width],
+               res5c_add=[net.shape_infos["res5c_add"].channels,
+                          net.shape_infos["res5c_add"].height,
+                          net.shape_infos["res5c_add"].width],
+               layers=len(net.order) - 1)
+    ya, ua = run(dev_params, dev_feed, True)
+    ya_c, ua_c = run(params, cpu_feed, True)
+    if len(ua) != 106 or sorted(ua) != sorted(ua_c):
+        raise AssertionError(f"resnet (a): {len(ua)} state updates")
+    row["a_max_abs_err"] = _close("resnet (a) output", ya[name].value.cpu(),
+                                  ya_c[name].value)
+    row["a_updates_max_abs_err"] = max(
+        _close(f"resnet (a) {k}", u.cpu(), ua_c[k]) for k, u in ua.items())
+    del ya
+    row["a_layers_tol_share"], row["a_layers"] = _layers_on_card(
+        "resnet (a)", net, dev_params, ya_c, True)
+    row["a_logits_tol_share"] = logits_on_card("resnet (a)", ya_c, params,
+                                               dev_params)
+    del ya_c
+    b_params, b_params_c = {**dev_params, **ua}, {**params, **ua_c}
+    yb, ub = run(b_params, dev_feed, False)
+    yb_c, _ = run(b_params_c, cpu_feed, False)
+    if ub or not torch.isfinite(yb_c[name].value).all():
+        raise AssertionError("resnet (b): updates at test, or not finite")
+    row["b_max_abs_err"] = _close("resnet (b) output", yb[name].value.cpu(),
+                                  yb_c[name].value)
+    row["b_softmax_top_mean"] = yb_c[name].value.max(dim=1)[0].mean().item()
+    del yb
+    row["b_layers_tol_share"], row["b_layers"] = _layers_on_card(
+        "resnet (b)", net, b_params, yb_c, False)
+    row["b_logits_tol_share"] = logits_on_card("resnet (b)", yb_c,
+                                               b_params_c, b_params)
+    row["b_logits_abs_max"] = _logits(yb_c, b_params_c).abs().max().item()
+    del yb_c, ua_c, b_params_c
+    yc, _ = run(dev_params, dev_feed, False)
+    yc_c, _ = run(params, cpu_feed, False)
+    nan = torch.isnan(yc_c[name].value)
+    if not torch.equal(torch.isnan(yc[name].value.cpu()), nan):
+        raise AssertionError("resnet (c): NaN in other places")
+    row["c_nan_share"] = float(nan.float().mean())
+    del yc
+    row["c_layers_tol_share"], row["c_layers"] = _layers_on_card(
+        "resnet (c)", net, dev_params, yc_c, False, below_overflow=True)
+    if not row["c_layers"]:
+        raise AssertionError("resnet (c): no layer below the overflow")
+    del yc_c
+
+    def forward():
+        run(b_params, dev_feed, False)
+
+    flops = _conv_fc_flops(net, RESNET_BATCH)
+    row.update(
+        fwd_ms=_time_ms(forward, reps=RESNET_REPS),
+        fwd_device_ms=_device_ms(forward, None, calls=RESNET_REPS)[0],
+        fwd_flops=flops, fwd_bound_ms=1e3 * flops / F32_FLOPS,
+        fwd_bound_by="operations", fwd_trace=_forward_trace(forward),
+        seconds=time.perf_counter() - t0)
+    phase("resnet_check", **row)
+    return row, net, params
+
+
+@contextlib.contextmanager
+def _relu_masks(record=None, replay=None):
+    """The executor's ReLU with its masks recorded (appended to
+    ``record``, in call order) or replayed (``replay``: an earlier run's
+    masks, applied as ``x * mask``, whose gradient is the mask). The
+    executor looks ``apply_activation`` up at each layer, so the patch
+    reaches every ReLU of the graph; a replay must use up every mask."""
+    from paddle_tpu_torch.layers import activations
+    plain = activations.apply_activation
+    left = iter(replay or ())
+
+    def act(kind, value, mask):
+        if kind != "relu" or replay is None:
+            if kind == "relu" and record is not None:
+                record.append(value.detach() > 0)
+            return plain(kind, value, mask)
+        return value * next(left).to(value.device, value.dtype)
+
+    activations.apply_activation = act
+    try:
+        yield
+    finally:
+        activations.apply_activation = plain
+    if replay is not None and next(left, None) is not None:
+        raise AssertionError("resnet: a recorded ReLU mask was not used")
+
+
+def check_resnet_training(net, params):
+    """ResNet-50 training at full width: one batch of RESNET_GRAD_BATCH
+    rows, the loss and every parameter gradient, card against CPU, per
+    tensor within 1e-3 of the largest entry + 1e-6 (the loss within 1e-5
+    relative), three ways:
+
+    - float64 on both;
+    - float32 with the float64 run's ReLU masks replayed on both (each
+      within the tolerance of the other and of the float64 gradients):
+      the float32 kernels the step runs, held at full width;
+    - float32 as the step runs it: the loss, the moving statistics (rtol
+      1e-4 / atol 1e-5) and the statistics folded into the card's
+      parameters by ``train_step`` (the optimizer's update, then the
+      state). Its gradients' distance from the float64 ones is reported
+      per device, as a multiple of the tolerance, and the card's may be at
+      most twice the CPU's + 1: in float32 a pre-activation within
+      rounding of 0 takes the other side of a ReLU than in float64 and
+      routes a whole gradient entry elsewhere, so at init both devices
+      miss the exact gradients by ~150 times the tolerance, alike
+      (``tests/test_torch_resnet.py`` shows the same miss in the JAX
+      package, and its disappearance when the masks are replayed).
+
+    Then the Momentum(0.01, 0.9) step at RESNET_BATCH on the card: host
+    clock to a synchronise, median of RESNET_REPS after a warm step, one
+    ``momentum_multi_kernel`` launch a step, a profiled step's idle
+    share."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import dense_vector, integer_value
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.optim import Momentum
+    from paddle_tpu_torch.trainer.trainer import SGD
+    t0 = time.perf_counter()
+    size = RESNET["image_size"]
+    feeder = DataFeeder({"image": dense_vector(3 * size * size),
+                         "label": integer_value(RESNET["classes"])},
+                        device="cpu")
+    rng = np.random.default_rng(SEED + 2)
+
+    def batch(n):
+        return feeder([(rng.normal(size=3 * size * size).astype(np.float32),
+                        int(rng.integers(0, RESNET["classes"])))
+                       for _ in range(n)])
+
+    dsl.reset()
+    cost = resnet(**RESNET)[0]
+    feed = batch(RESNET_GRAD_BATCH)
+    runs, masks, seconds = {}, [], {}
+    for key, dev, dtype, relu in (
+            ("cuda64", "cuda", torch.float64, dict(record=masks)),
+            ("cpu64", "cpu", torch.float64, {}),
+            ("cuda_m", "cuda", torch.float32, dict(replay=masks)),
+            ("cpu_m", "cpu", torch.float32, dict(replay=masks)),
+            ("cuda", "cuda", torch.float32, {}),
+            ("cpu", "cpu", torch.float32, {})):
+        t1 = time.perf_counter()
+        tr = SGD(cost, parameters=params, device=dev,
+                 update_equation=Momentum(learning_rate=0.01, momentum=0.9))
+        tr.params = {k: v.to(dtype) for k, v in tr.params.items()}
+        dfeed = tr._to_device(feed)
+        for arg in dfeed.values():
+            if arg.value.is_floating_point():
+                arg.value = arg.value.to(dtype)
+        with _relu_masks(**relu):
+            _, loss, grads, updates = tr.loss_and_grads(dfeed)
+        runs[key] = (float(loss),
+                     {k: g.cpu().double() for k, g in grads.items()},
+                     {k: u.cpu() for k, u in updates.items()})
+        if key == "cuda":  # the step folds the same statistics in
+            tr.train_step(dfeed)
+            fold_err = max(_close(f"resnet step {k}", tr.params[k].cpu(), u)
+                           for k, u in runs[key][2].items())
+        del tr
+        seconds[key] = time.perf_counter() - t1
+    if not masks:
+        raise AssertionError("resnet: no ReLU mask recorded")
+    for suffix in ("64", "_m", ""):
+        lg, lc = runs["cuda" + suffix][0], runs["cpu" + suffix][0]
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            raise AssertionError(f"resnet loss {lg} on the card, {lc} on "
+                                 f"the CPU ({suffix or '32'})")
+    exact = runs["cpu64"][1]
+    limit = {k: 1e-3 * w.abs().max().item() + 1e-6 for k, w in exact.items()}
+
+    def multiple(key, against=exact):
+        """The largest distance of run ``key``'s gradients from
+        ``against``'s, per tensor as a multiple of the tolerance."""
+        return max((runs[key][1][k] - w).abs().max().item() / limit[k]
+                   for k, w in against.items())
+
+    grad_err = max((runs["cuda64"][1][k] - w).abs().max().item()
+                   for k, w in exact.items())
+    checked = dict(cuda64=multiple("cuda64"), cuda_m=multiple("cuda_m"),
+                   cpu_m=multiple("cpu_m"),
+                   cuda_m_vs_cpu_m=multiple("cuda_m", runs["cpu_m"][1]))
+    for what, m in checked.items():
+        if not m <= 1.0:
+            raise AssertionError(f"resnet gradients {what}: {m} times the "
+                                 "tolerance")
+    f32_vs_64 = {dev: multiple(dev) for dev in ("cuda", "cpu")}
+    if not f32_vs_64["cuda"] <= 2 * f32_vs_64["cpu"] + 1:
+        raise AssertionError(f"resnet float32 gradients: {f32_vs_64} times "
+                             "the tolerance from float64, card and CPU")
+    sg, sc = runs["cuda"][2], runs["cpu"][2]
+    if len(sc) != 106:
+        raise AssertionError(f"resnet: {len(sc)} moving statistics")
+    stats_err = max(_close(f"resnet statistics {k}", sg[k], w)
+                    for k, w in sc.items())
+    lg, lc = runs["cuda"][0], runs["cpu"][0]
+    del runs, masks
+    t1 = time.perf_counter()
+    tr = SGD(cost, parameters=params, device="cuda",
+             update_equation=Momentum(learning_rate=0.01, momentum=0.9))
+    dfeed = tr._to_device(batch(RESNET_BATCH))
+
+    def step():
+        t0 = time.perf_counter()
+        tr.train_step(dfeed)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    step()
+    ops.reset_kernel_counts()
+    step_ms = [step() for _ in range(RESNET_REPS)]
+    launches = ops.kernel_counts()["momentum"]["launches"]
+    if launches != RESNET_REPS:
+        raise AssertionError(f"resnet: {launches} momentum launches in "
+                             f"{RESNET_REPS} steps")
+    flops = _conv_fc_flops(net, RESNET_BATCH)
+    row = dict(grad_batch=RESNET_GRAD_BATCH, loss_cuda=lg, loss_cpu=lc,
+               grad64_max_abs_err=grad_err,
+               grad_limit_multiple=checked,
+               grad32_vs_64_limit_multiple=f32_vs_64,
+               stats_max_abs_err=stats_err,
+               step_fold_max_abs_err=fold_err,
+               step_batch=RESNET_BATCH, step_ms=statistics.median(step_ms),
+               step_ms_all=step_ms, momentum_launches=launches,
+               step_flops=3 * flops, step_bound_ms=3e3 * flops / F32_FLOPS,
+               step_trace=_forward_trace(step))
+    seconds["step"] = time.perf_counter() - t1
+    row.update(run_seconds=seconds, seconds=time.perf_counter() - t0)
+    phase("resnet_train_check", **row)
+    return row
+
+
+def _write_lenet_config(path):
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.data.types import (dense_vector,
+                                                     integer_value)
+            from paddle_tpu_torch.models import lenet_mnist
+            from paddle_tpu_torch.optim import Momentum
+
+            dsl.reset()
+            cost, out, _ = lenet_mnist()
+            outputs = [out]
+            optimizer = Momentum(learning_rate=0.01, momentum=0.9)
+            feeding = {{"pixel": dense_vector(784),
+                        "label": integer_value(10)}}
+
+
+            def digits(seed, batches):
+                # each class a fixed random prototype plus noise
+                protos = np.random.default_rng({SEED}).normal(
+                    size=(10, 784))
+                rng = np.random.default_rng(seed)
+                for _ in range(batches):
+                    y = rng.integers(0, 10, size={LENET_BATCH})
+                    x = protos[y] + 0.5 * rng.normal(size=({LENET_BATCH},
+                                                           784))
+                    yield [(x[i].astype(np.float32), int(y[i]))
+                           for i in range({LENET_BATCH})]
+
+
+            def train_reader():
+                return digits({SEED}, {LENET_BATCHES})
+
+
+            def test_reader():
+                return digits({SEED + 1}, 2)
+        """))
+
+
+def train_lenet(tmp):
+    """LeNet through the normal entry points: ``--job train`` (Momentum
+    0.01 / 0.9, LENET_PASSES passes over LENET_BATCHES fixed batches; the
+    classification error falls, one momentum launch a step), ``--job
+    test``, ``--job merge``, then the merged model in the predictor on the
+    card and on the CPU: single rows and a batch of LENET_SERVE_BATCH give
+    the CPU's scores within 1e-5."""
+    from paddle_tpu_torch.data.types import dense_vector
+    from paddle_tpu_torch.serving.predictor import ServingPredictor
+    t0 = time.perf_counter()
+    conf = os.path.join(tmp, "lenet_conf.py")
+    _write_lenet_config(conf)
+    save_dir = os.path.join(tmp, "lenet_ckpt")
+    out = _cli(["--config", conf, "--job", "train", "--num_passes",
+                str(LENET_PASSES), "--seed", str(SEED), "--save_dir",
+                save_dir], timeout=600)
+    passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
+    errs = [float(ln.split("classification_error=")[1].split()[0])
+            for ln in passes]
+    costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
+    summary = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("train_summary "))[14:])
+    if len(errs) != LENET_PASSES or not errs[-1] < errs[0]:
+        raise AssertionError(f"LeNet classification error {errs} does not "
+                             "fall")
+    _check_opt_launches("LeNet --job train", summary["kernels"],
+                        summary["steps"], "momentum")
+    test_out = _cli(["--config", conf, "--job", "test", "--save_dir",
+                     save_dir], timeout=600)
+    test_line = next(ln for ln in test_out.splitlines()
+                     if ln.startswith("Test: "))
+    model = os.path.join(tmp, "lenet.ptmodel")
+    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+          "--model_path", model], timeout=600)
+    feeding = {"pixel": dense_vector(784)}
+    preds = {dev: ServingPredictor.from_merged(
+        model, feeding, batch_buckets=[1, LENET_SERVE_BATCH], device=dev)
+        for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(SEED + 3)
+    rows = [(rng.normal(size=784).astype(np.float32),)
+            for _ in range(LENET_SERVE_BATCH)]
+    err = 0.0
+    for group in ([rows[0]], [rows[1]], rows):
+        got, want = (preds[d].predict_rows(group)[0] for d in ("cuda",
+                                                               "cpu"))
+        for k in want:
+            e = float(np.abs(got[k][:len(group)]
+                             - want[k][:len(group)]).max())
+            if not e <= 1e-5:
+                raise AssertionError(f"LeNet served {k}: card against CPU "
+                                     f"{e}")
+            err = max(err, e)
+    result = dict(pass_costs=costs, pass_errors=errs,
+                  steps=summary["steps"],
+                  median_step_ms=summary["median_step_ms"],
+                  kernels=summary["kernels"], test=test_line,
+                  served_max_abs_err=err,
+                  seconds=time.perf_counter() - t0)
+    phase("lenet", **result)
+    return result
+
+
+def check_image(tmp):
+    """Phase 12, the image slice: ResNet-50 (a), (b), (c) and its forward
+    time, its training check and step time, LeNet through the CLI and the
+    predictor."""
+    resnet_row, net, params = check_resnet()
+    resnet_train = check_resnet_training(net, params)
+    del net, params
+    return dict(resnet=resnet_row, resnet_train=resnet_train,
+                lenet=train_lenet(tmp))
+
+
+def image_slice():
+    """``--image``: phase 12 alone; rows in ``image_slice.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["opt_update"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        out = check_image(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "image_slice.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -5030,6 +5785,9 @@ def main() -> int:
                         help="only phase 6's CRF part (every CRF_SHAPES and "
                         "CRF_BIG_SHAPES row, the chain floor, the earlier "
                         "kernels beside the new, the host split)")
+    parser.add_argument("--image", action="store_true",
+                        help="only phase 12, the image slice (ResNet-50 at "
+                        "entry()'s shape, its training check, LeNet)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -5059,32 +5817,48 @@ def main() -> int:
     if args.opt_kernels:
         opt_kernels()
         return 0
-    build_kernels()
-    rows, serve_rows = check_kernels()
-    train_rows, reverse_err, opt_rows = check_train_kernels()
-    gru_rows, cell_rows = check_gru_kernels()
-    lstm_cell_rows = check_lstm_cells()
-    crf_rows = check_crf_kernels()
-    crf_split = check_crf_host_split()
-    tag_lstm_rows = check_tagger_lstm_kernels()
-    ctc_rows = check_ctc_kernels()
-    ctc_split = check_ctc_host_split()
-    flash_rows = check_flash_kernels()
-    wide_layer = check_wide_attention_layer()
-    flash_split = check_flash_host_split()
+    if args.image:
+        image_slice()
+        return 0
+    seconds = {}  # each phase's wall time
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", build_kernels)
+    rows, serve_rows = timed("lstm_kernels", check_kernels)
+    train_rows, reverse_err, opt_rows = timed("train_kernels",
+                                              check_train_kernels)
+    gru_rows, cell_rows = timed("gru_kernels", check_gru_kernels)
+    lstm_cell_rows = timed("lstm_cells", check_lstm_cells)
+    crf_rows = timed("crf_kernels", check_crf_kernels)
+    crf_split = timed("crf_host_split", check_crf_host_split)
+    tag_lstm_rows = timed("tagger_lstm_kernels", check_tagger_lstm_kernels)
+    ctc_rows = timed("ctc_kernels", check_ctc_kernels)
+    ctc_beyond = timed("ctc_beyond", check_ctc_beyond_shapes)
+    ctc_split = timed("ctc_host_split", check_ctc_host_split)
+    flash_rows = timed("flash_kernels", check_flash_kernels)
+    wide_layer = timed("flash_wide_layer", check_wide_attention_layer)
+    flash_split = timed("flash_host_split", check_flash_host_split)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        trained, conf, model = train(tmp)
-        served = serve(tmp, conf, model)
-        s2s, s2s_dir = train_seq2seq(tmp, S2S, "seq2seq_train")
-        gen_served = serve_generation(tmp, s2s_dir)
-        s2s_att, _ = train_seq2seq(tmp, S2S_ATT, "seq2seq_attention_train",
-                                   ("flash_fwd", "flash_bwd"),
-                                   ("flash_fwd",))
-        lstm_dec = lstm_decoder_path(tmp)
-        tagger, tag_conf, tag_model = train_tagger(tmp)
-        tag_served = serve_tagger(tmp, tag_conf, tag_model)
-        acoustic = train_acoustic(tmp)
+        trained, conf, model = timed("train", train, tmp)
+        served = timed("serve", serve, tmp, conf, model)
+        s2s, s2s_dir = timed("seq2seq", train_seq2seq, tmp, S2S,
+                             "seq2seq_train")
+        gen_served = timed("seq2seq_serve", serve_generation, tmp, s2s_dir)
+        s2s_att, _ = timed("seq2seq_attention", train_seq2seq, tmp, S2S_ATT,
+                           "seq2seq_attention_train",
+                           ("flash_fwd", "flash_bwd"), ("flash_fwd",))
+        lstm_dec = timed("lstm_decoder", lstm_decoder_path, tmp)
+        tagger, tag_conf, tag_model = timed("tagger", train_tagger, tmp)
+        tag_served = timed("tagger_serve", serve_tagger, tmp, tag_conf,
+                           tag_model)
+        acoustic = timed("acoustic", train_acoustic, tmp)
+        image = timed("image", check_image, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -5124,6 +5898,10 @@ def main() -> int:
     tc_rows = [r for r in flash_rows if r["path"] == "tensor_cores"]
     wide_rows = [r for r in flash_rows if r["path"] == "wide"]
     w_row = wide_rows[0]  # D = 256, the wide layer's head width
+    split_rows = [r for r in flash_rows if r["path"] == "split"]
+    s_row = split_rows[0]  # D = 1056
+    ctc_wide = next(r for r in ctc_beyond if r["plan"]["fwd"] == "wide")
+    ctc_sorted = next(r for r in ctc_beyond if r["plan"]["bwd"] == "sorted")
     counts = trained["kernels"]
     s2s_counts, s2s_test = s2s["kernels"], s2s["test_kernels"]
     tag_counts, tag_test = tagger["kernels"], tagger["test_kernels"]
@@ -5262,6 +6040,8 @@ def main() -> int:
                     trained["momentum_kernels"]["momentum"]["launches"],
                     opt_rows["momentum"]["max_abs_err"], opt_rows["momentum"]),
              **_opt_keys(opt_rows["momentum"]),
+             lenet_launches=image["lenet"]["kernels"]["momentum"]["launches"],
+             resnet_launches=image["resnet_train"]["momentum_launches"],
              library="none: torch._fused_sgd_ keeps its buffer in gradient "
                      "units (buf = -mom / lr); Paddle's step needs a "
                      "rescaling pass around it"),
@@ -5346,6 +6126,29 @@ def main() -> int:
              layer_check_launches=wide_layer["flash_launches"][1],
              path="none: no path has a head wider than 128; "
                   "multi_head_attention(size=512, num_heads=2) checked"),
+        # the split-row path (D > 1024): on no path's shapes
+        dict(_entry("flash_fwd_split", flash_src,
+                    "paddle_tpu/ops/attention.py:107", 0,
+                    max(r["fwd_max_abs_err"] for r in split_rows), s_row,
+                    "fwd_"),
+             shape={k: s_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=s_row["fwd_device_ms"],
+             library_device_ms=s_row["fwd_library_device_ms"],
+             library=f"scaled_dot_product_attention ({s_row['sdpa_backend']})",
+             on_path=False, kernel_route="split",
+             path="none: no path has a head wider than 1024"),
+        dict(_entry("flash_bwd_split", flash_src,
+                    "jax.vjp of blockwise_attention, paddle_tpu/ops/"
+                    "attention.py:206 (_flash_bwd)", 0,
+                    max(r["bwd_max_abs_err"] for r in split_rows), s_row,
+                    "bwd_"),
+             shape={k: s_row[k] for k in ("B", "N", "Tq", "Tk", "D")},
+             device_ms=s_row["bwd_device_ms"],
+             library_device_ms=s_row["bwd_library_device_ms"],
+             library=f"scaled_dot_product_attention backward "
+                     f"({s_row['sdpa_backend']})",
+             on_path=False, kernel_route="split",
+             path="none: no path has a head wider than 1024"),
         dict(_entry("gru_seq_h1024", gru_src, "paddle_tpu/ops/gru.py:57",
                     ac_test["gru_seq"]["launches"], gru_fwd_err, a_row),
              shape={k: a_row[k] for k in ("B", "H", "T")},
@@ -5428,6 +6231,25 @@ def main() -> int:
              on_path=False,
              path="none: the gathered form's beta chain; timed here at the "
                   "acoustic model's shape"),
+        # the fused kernels' routes above the lane chains and the staged
+        # posterior pass: on no path's shapes
+        dict(_entry("ctc_fused_fwd_wide", ctc_src, "paddle_tpu/ops/ctc.py:87",
+                    0, ctc_wide["fused_fwd_max_abs_err"], ctc_wide,
+                    "fused_fwd_"),
+             shape={k: ctc_wide[k] for k in ("B", "T", "C", "S")},
+             device_ms=ctc_wide["fused_fwd_device_ms"],
+             library="torch.nn.functional.ctc_loss forward",
+             on_path=False, kernel_route="wide",
+             path="none: no path has more than 16,384 states"),
+        dict(_entry("ctc_fused_bwd_sorted", ctc_src,
+                    "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)", 0,
+                    ctc_sorted["fused_bwd_max_abs_err"], ctc_sorted,
+                    "fused_bwd_"),
+             shape={k: ctc_sorted[k] for k in ("B", "T", "C", "S")},
+             device_ms=ctc_sorted["fused_bwd_device_ms"],
+             library="torch.nn.functional.ctc_loss backward",
+             on_path=False, kernel_route="sorted",
+             path="none: no path's classes overflow the staged pass"),
     ]
     for e in entries:
         if e.get("on_path", True) and e["launches"] <= 0:
@@ -5437,7 +6259,7 @@ def main() -> int:
                                  f"path, yet launched {e['launches']}")
     kernels = {"kernels": entries}
     elapsed = time.perf_counter() - t_start
-    phase("elapsed", seconds=elapsed)
+    phase("elapsed", seconds=elapsed, phases=seconds)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"bench_shapes": rows, "serve_shapes": serve_rows,
@@ -5450,12 +6272,14 @@ def main() -> int:
                    "flash_shapes": flash_rows,
                    "flash_wide_layer": wide_layer,
                    "flash_host_split": flash_split, "ctc_shapes": ctc_rows,
-                   "ctc_host_split": ctc_split,
+                   "ctc_beyond": ctc_beyond, "ctc_host_split": ctc_split,
+                   "image": image,
                    "train": trained, "serve": served, "seq2seq": s2s,
                    "seq2seq_generate_serve": gen_served,
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
                    "tagger": tagger, "tagger_serve": tag_served,
                    "acoustic": acoustic, "elapsed_s": elapsed,
+                   "phase_seconds": seconds,
                    **kernels},
                   f, indent=1)
     print(json.dumps(kernels), flush=True)

@@ -2,7 +2,8 @@
 ``lstm_text_classifier``, ``seq2seq_attention`` (its training graph, with
 its encoder self-attention block, and its generating graph),
 ``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators), an
-``lstm_step`` decoder, a CTC acoustic model and a serve config need.
+``lstm_step`` decoder, a CTC acoustic model, ``resnet``, ``lenet_mnist``
+(conv, image pool, batch norm, cross-map norm) and a serve config need.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
@@ -165,6 +166,66 @@ def multi_head_attention(query, key_value=None, *, size: int = None,
                     attrs={"num_heads": num_heads, "causal": causal,
                            "seq_parallel": seq_parallel,
                            "seq_axis": seq_axis})
+    return _add(ldef)
+
+
+def conv(input, *, num_filters: int, filter_size: int, stride: int = 1,
+         padding: int = 0, groups: int = 1, channels: int = None,
+         act: str = "relu", name: str = None, bias_attr=True,
+         param_attr=None, layer_type: str = "exconv") -> LayerOutput:
+    """A convolution (``layer_type`` "exconvt" for the transposed one)."""
+    src = _in(input)[0]
+    extra = {"filter_size": filter_size, "stride": stride,
+             "padding": padding, "groups": groups}
+    if channels:
+        extra["channels"] = channels
+    ldef = LayerDef(name=name or _auto_name("conv"), type=layer_type,
+                    inputs=[Input(src.name, param_attr=_param(param_attr),
+                                  extra=extra)],
+                    act=act, bias=_bias(bias_attr),
+                    attrs={"num_filters": num_filters})
+    return _add(ldef)
+
+
+def img_pool(input, *, pool_size: Optional[int] = None, stride: int = 1,
+             padding: int = 0, pool_type: str = "max-projection",
+             name: str = None) -> LayerOutput:
+    """pool_size=None pools over the full spatial extent (global pooling)."""
+    src = _in(input)[0]
+    if pool_size is None:
+        info = _SHAPES[src.name]
+        extra = {"filter_size": info.width, "size_y": info.height,
+                 "stride": info.width, "stride_y": info.height,
+                 "padding": 0, "pool_type": pool_type}
+    else:
+        extra = {"filter_size": pool_size, "stride": stride,
+                 "padding": padding, "pool_type": pool_type}
+    ldef = LayerDef(name=name or _auto_name("pool"), type="pool", bias=False,
+                    inputs=[Input(src.name, extra=extra)])
+    return _add(ldef)
+
+
+def batch_norm(input, *, act: str = "linear", name: str = None,
+               use_global_stats: bool = None,
+               moving_average_fraction: float = 0.9,
+               epsilon: float = 1e-5, bias_attr=True) -> LayerOutput:
+    src = _in(input)[0]
+    attrs = {"use_global_stats": use_global_stats,
+             "moving_average_fraction": moving_average_fraction,
+             "epsilon": epsilon}
+    ldef = LayerDef(name=name or _auto_name("batch_norm"), type="batch_norm",
+                    inputs=[Input(src.name)], act=act, bias=_bias(bias_attr),
+                    attrs=attrs)
+    return _add(ldef)
+
+
+def img_cmrnorm(input, *, size: int = 5, scale: float = 1e-4,
+                power: float = 0.75, name: str = None) -> LayerOutput:
+    src = _in(input)[0]
+    ldef = LayerDef(name=name or _auto_name("norm"), type="norm", bias=False,
+                    inputs=[Input(src.name, extra={"size": size,
+                                                   "scale": scale,
+                                                   "pow": power})])
     return _add(ldef)
 
 

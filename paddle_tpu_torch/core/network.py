@@ -11,7 +11,7 @@ graph it builds is what the trainer differentiates.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -26,8 +26,13 @@ class Context:
     """Per-apply execution context handed to layer impls."""
 
     train: bool = False
+    in_infos: List[ShapeInfo] = dataclasses.field(default_factory=list)
     out_info: Optional[ShapeInfo] = None
     outputs: Dict[str, Argument] = dataclasses.field(default_factory=dict)
+    # moving statistics (batch_norm): param name -> new value, folded into
+    # the parameters by the train step after the optimizer's update
+    state_updates: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
     # cross-batch recurrent state: layer name -> initial state
     carried: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
@@ -135,32 +140,57 @@ class Network:
               ) -> Dict[str, Argument]:
         """Forward over the whole graph. ``feed`` maps data-layer names to
         Arguments; returns every layer's output keyed by layer name."""
-        from paddle_tpu_torch.layers.activations import apply_activation
+        return self.apply_with_state(params, feed, train=train,
+                                     carried=carried)[0]
+
+    def apply_with_state(self, params: Dict[str, torch.Tensor],
+                         feed: Dict[str, Argument], *, train: bool = False,
+                         carried: Optional[Dict[str, Any]] = None,
+                         ) -> Tuple[Dict[str, Argument],
+                                    Dict[str, torch.Tensor]]:
+        """``apply`` that also returns the state updates (batch norm's
+        moving statistics, by parameter name), detached: no gradient flows
+        through them, as in JAX, where they are ``value_and_grad``'s aux."""
         ctx = Context(train=train, carried=carried or {})
         for name in self.order:
-            layer = self.model.layers[name]
-            if layer.type == "data":
+            if self.model.layers[name].type == "data":
                 if name not in feed:
                     raise KeyError(f"missing feed for data layer {name!r}")
                 ctx.outputs[name] = feed[name]
-                continue
-            impl = get_layer_impl(layer.type)
-            ins = [ctx.outputs[i] for i in layer.input_names()]
-            lparams = {s: params[p]
-                       for s, p in self._layer_params[name].items()}
-            ctx.out_info = self.shape_infos[name]
-            out = impl.apply(layer, lparams, ins, ctx)
-            if layer.act and layer.act not in ("linear", ""):
-                out = out.with_value(apply_activation(layer.act, out.value,
-                                                      out.mask))
-            if layer.drop_rate > 0.0:
-                if train:
-                    raise NotImplementedError(
-                        "training-mode dropout is not ported yet")
-                # reference (non-inverted) dropout scales at test time
-                out = out.with_value(out.value * (1.0 - layer.drop_rate))
-            ctx.outputs[name] = out
-        return ctx.outputs
+            else:
+                ctx.outputs[name] = self._run_layer(name, params, ctx)
+        return ctx.outputs, {k: v.detach()
+                             for k, v in ctx.state_updates.items()}
+
+    def apply_layer(self, name: str, params: Dict[str, torch.Tensor],
+                    outputs: Dict[str, Argument], *, train: bool = False,
+                    ) -> Tuple[Argument, Dict[str, torch.Tensor]]:
+        """One layer's output and state updates from the given outputs of
+        the layers it reads: what ``apply_with_state`` computes for it."""
+        ctx = Context(train=train, outputs=dict(outputs))
+        out = self._run_layer(name, params, ctx)
+        return out, {k: v.detach() for k, v in ctx.state_updates.items()}
+
+    def _run_layer(self, name: str, params: Dict[str, torch.Tensor],
+                   ctx: Context) -> Argument:
+        from paddle_tpu_torch.layers.activations import apply_activation
+        layer = self.model.layers[name]
+        impl = get_layer_impl(layer.type)
+        ins = [ctx.outputs[i] for i in layer.input_names()]
+        lparams = {s: params[p] for s, p in self._layer_params[name].items()}
+        ctx.in_infos = [self.shape_infos[i] for i in layer.input_names()]
+        ctx.out_info = self.shape_infos[name]
+        out = impl.apply(layer, lparams, ins, ctx)
+        if layer.act and layer.act not in ("linear", ""):
+            out = out.with_value(apply_activation(layer.act, out.value,
+                                                  out.mask))
+        if layer.drop_rate > 0.0:
+            if ctx.train:
+                raise NotImplementedError(
+                    "training-mode dropout is not ported yet")
+            # reference (non-inverted) dropout scales at test time
+            out = out.with_value(out.value * (1.0 - layer.drop_rate))
+        return out
 
     def param_meta(self) -> Dict[str, ParamSpec]:
         """Per-parameter ``ParamSpec`` (learning_rate, l1/l2 rates,

@@ -127,9 +127,10 @@
 // Limits: D in {8, 16, 32, 64, 128} on the tensor cores (template
 // instances; the wrapper pads any other D <= 128 with zero columns up to
 // the next instance); 128 < D <= 1024 on the wide-head path below (f32 on
-// the CUDA cores, a warp a row; the wrapper refuses D > 1024); B * N on
-// the grid's x (up to 2^31 - 1), the query (or kv) blocks on its y (up to
-// 65535 x 64 rows; the wide path's 65535 x 8).
+// the CUDA cores, a warp a row); any D above on the split-row path (a
+// block a row); B * N on the grid's x (up to 2^31 - 1), the query (or kv)
+// blocks on its y (up to 65535 x 64 rows; the wide path's 65535 x 8); the
+// split-row path's B * N * T rows on x.
 
 #include <cuda_runtime.h>
 
@@ -1236,6 +1237,280 @@ flash_wide_dkdv_kernel(const float* __restrict__ q,
   }
 }
 
+// ------------------------------------------------------ split rows
+// D > kWideMaxD, any width: a block of kSplitThreads threads owns one row
+// (a query row in the forward and dq, a key in dkdv) and splits its D
+// across all of its warps: thread t holds the elements d = t +
+// kSplitThreads u. The row's accumulator (o, dq, or dk and dv) lives in
+// the output row itself, each element read and written only by its
+// owner thread; the streamed rows are read from global memory (L2),
+// kSplitRows of them a step. A step's dot products are each thread's
+// terms in order, each warp's xor butterfly, then the kSplitWarps warps'
+// partials added in warp order from shared memory: the same bits on
+// every thread and over two runs, no atomics. The online softmax, masks,
+// causal offset, key tails and rows that see no key follow the wide
+// path's rules. f32 on the CUDA cores; speed recorded, not targeted.
+constexpr int kSplitWarps = 8;
+constexpr int kSplitThreads = 32 * kSplitWarps;
+constexpr int kSplitRows = 8;  // streamed rows a step
+
+// the block's sums of R per-thread partials (R <= 2 kSplitRows), in place;
+// red: the block's [2][kSplitWarps][2 kSplitRows] floats, alternate halves
+// by `phase` so that one barrier a call suffices
+template <int R>
+__device__ __forceinline__ void split_sums(float (&v)[R], float* red,
+                                           int& phase) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* half = red + phase * kSplitWarps * 2 * kSplitRows;
+  phase ^= 1;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x = v[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+    if (lane == 0) half[warp * 2 * kSplitRows + r] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x = half[r];
+    for (int w = 1; w < kSplitWarps; ++w) x += half[w * 2 * kSplitRows + r];
+    v[r] = x;
+  }
+}
+
+// a key visible from a query row: within Tk, unmasked, not past the
+// row's diagonal
+__device__ __forceinline__ bool split_visible(const float* mrow, int kj,
+                                              int qi, int off, int causal) {
+  return (mrow == nullptr || mrow[kj] > 0.f) && !(causal && kj > qi + off);
+}
+
+__global__ void __launch_bounds__(kSplitThreads)
+flash_split_fwd_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ mask, float* __restrict__ o,
+                       float* __restrict__ stats, int BN, int N, int Tq,
+                       int Tk, int D, int causal, float scale) {
+  __shared__ float red[2 * kSplitWarps * 2 * kSplitRows];
+  int phase = 0;
+  const int bn = blockIdx.x / Tq, row = blockIdx.x % Tq, b = bn / N;
+  const int off = Tk - Tq, tid = threadIdx.x;
+  const float* qr = q + (static_cast<size_t>(bn) * Tq + row) * D;
+  const float* kb = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vb = v + static_cast<size_t>(bn) * Tk * D;
+  float* orow = o + (static_cast<size_t>(bn) * Tq + row) * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  for (int d = tid; d < D; d += kSplitThreads) orow[d] = 0.f;
+  float m = kNeg, l = 0.f;
+  for (int k0 = 0; k0 < Tk && !(causal && k0 > row + off);
+       k0 += kSplitRows) {
+    float s[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int kj = k0 + r;
+      float part = 0.f;
+      if (kj < Tk) {
+        const float* kr = kb + static_cast<size_t>(kj) * D;
+        for (int d = tid; d < D; d += kSplitThreads) part += qr[d] * kr[d];
+      }
+      s[r] = part;
+    }
+    split_sums<kSplitRows>(s, red, phase);
+    float mx = kNeg;
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int kj = k0 + r;
+      // the tile's tail is left out; a masked score takes the fill
+      s[r] = kj >= Tk ? -INFINITY
+                      : (split_visible(mrow, kj, row, off, causal)
+                             ? s[r] * scale
+                             : kNeg);
+      mx = fmaxf(mx, s[r]);
+    }
+    const float mn = fmaxf(m, mx);
+    const float al = expf(m - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      s[r] = expf(s[r] - mn);
+      sum += s[r];
+    }
+    l = l * al + sum;
+    m = mn;
+    for (int d = tid; d < D; d += kSplitThreads) {
+      float acc = orow[d] * al;
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r)
+        if (k0 + r < Tk) acc += s[r] * vb[static_cast<size_t>(k0 + r) * D + d];
+      orow[d] = acc;
+    }
+  }
+  if (m == kNeg) {  // the row sees no key: JAX's padded mean of v
+    for (int d = tid; d < D; d += kSplitThreads) {
+      float acc = 0.f;
+      for (int j = 0; j < Tk; ++j) acc += vb[static_cast<size_t>(j) * D + d];
+      orow[d] = acc;
+    }
+    l = padded_keys(Tk);
+  }
+  for (int d = tid; d < D; d += kSplitThreads) orow[d] = orow[d] / l;
+  if (tid == 0) {
+    stats[static_cast<size_t>(bn) * Tq + row] = m;
+    stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(l);
+  }
+}
+
+// dq and delta: a block a query row, sweeping the keys as the forward
+__global__ void __launch_bounds__(kSplitThreads)
+flash_split_dq_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ o,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ stats,
+                      float* __restrict__ delta, float* __restrict__ dq,
+                      int BN, int N, int Tq, int Tk, int D, int causal,
+                      float scale) {
+  __shared__ float red[2 * kSplitWarps * 2 * kSplitRows];
+  int phase = 0;
+  const int bn = blockIdx.x / Tq, row = blockIdx.x % Tq, b = bn / N;
+  const int off = Tk - Tq, tid = threadIdx.x;
+  const size_t r_at = static_cast<size_t>(bn) * Tq + row;
+  const float* qr = q + r_at * D;
+  const float* dor = dout + r_at * D;
+  const float* orow = o + r_at * D;
+  const float* kb = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vb = v + static_cast<size_t>(bn) * Tk * D;
+  float* dqrow = dq + r_at * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  float dl[1] = {0.f};
+  for (int d = tid; d < D; d += kSplitThreads) {
+    dl[0] += dor[d] * orow[d];
+    dqrow[d] = 0.f;
+  }
+  split_sums<1>(dl, red, phase);
+  if (tid == 0) delta[r_at] = dl[0];
+  const float m_i = stats[r_at];
+  const float ll_i = stats[static_cast<size_t>(BN) * Tq + r_at];
+  for (int k0 = 0; k0 < Tk && !(causal && k0 > row + off);
+       k0 += kSplitRows) {
+    float sd[2 * kSplitRows];  // the scores' dots, then dO . v
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int kj = k0 + r;
+      float ps = 0.f, pd = 0.f;
+      if (kj < Tk) {
+        const float* kr = kb + static_cast<size_t>(kj) * D;
+        const float* vr = vb + static_cast<size_t>(kj) * D;
+        for (int d = tid; d < D; d += kSplitThreads) {
+          ps += qr[d] * kr[d];
+          pd += dor[d] * vr[d];
+        }
+      }
+      sd[r] = ps;
+      sd[kSplitRows + r] = pd;
+    }
+    split_sums<2 * kSplitRows>(sd, red, phase);
+    float ds[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int kj = k0 + r;
+      // a masked score takes no gradient
+      ds[r] = kj < Tk && split_visible(mrow, kj, row, off, causal)
+                  ? expf((sd[r] * scale - m_i) - ll_i) *
+                        (sd[kSplitRows + r] - dl[0])
+                  : 0.f;
+    }
+    for (int d = tid; d < D; d += kSplitThreads) {
+      float acc = dqrow[d];
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r)
+        if (k0 + r < Tk)
+          acc += ds[r] * kb[static_cast<size_t>(k0 + r) * D + d];
+      dqrow[d] = acc;
+    }
+  }
+  for (int d = tid; d < D; d += kSplitThreads) dqrow[d] = dqrow[d] * scale;
+}
+
+// dk and dv: a block a key row, sweeping every query row
+__global__ void __launch_bounds__(kSplitThreads)
+flash_split_dkdv_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ stats,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        int BN, int N, int Tq, int Tk, int D, int causal,
+                        float scale) {
+  __shared__ float red[2 * kSplitWarps * 2 * kSplitRows];
+  int phase = 0;
+  const int bn = blockIdx.x / Tk, key = blockIdx.x % Tk, b = bn / N;
+  const int off = Tk - Tq, tid = threadIdx.x;
+  const size_t k_at = (static_cast<size_t>(bn) * Tk + key) * D;
+  const float* kr = k + k_at;
+  const float* vr = v + k_at;
+  const float* qb = q + static_cast<size_t>(bn) * Tq * D;
+  const float* dob = dout + static_cast<size_t>(bn) * Tq * D;
+  const float* m_s = stats + static_cast<size_t>(bn) * Tq;
+  const float* ll_s = stats + (static_cast<size_t>(BN) + bn) * Tq;
+  const float* dl_s = delta + static_cast<size_t>(bn) * Tq;
+  const bool mk =
+      mask == nullptr || mask[static_cast<size_t>(b) * Tk + key] > 0.f;
+  for (int d = tid; d < D; d += kSplitThreads) dk[k_at + d] = dv[k_at + d] = 0.f;
+  for (int q0 = 0; q0 < Tq; q0 += kSplitRows) {
+    float sd[2 * kSplitRows];
+    bool live[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int qi = q0 + r;
+      live[r] = qi < Tq && mk && !(causal && key > qi + off);
+      float ps = 0.f, pd = 0.f;
+      if (live[r]) {
+        const float* qr = qb + static_cast<size_t>(qi) * D;
+        const float* dor = dob + static_cast<size_t>(qi) * D;
+        for (int d = tid; d < D; d += kSplitThreads) {
+          ps += kr[d] * qr[d];
+          pd += vr[d] * dor[d];
+        }
+      }
+      sd[r] = ps;
+      sd[kSplitRows + r] = pd;
+    }
+    split_sums<2 * kSplitRows>(sd, red, phase);
+    float p[kSplitRows], w[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      const int qi = q0 + r;
+      p[r] = w[r] = 0.f;
+      // a masked score's P is 0 but for a row that sees no key
+      if (qi < Tq && (live[r] || m_s[qi] == kNeg)) {
+        const float s = live[r] ? sd[r] * scale : kNeg;
+        p[r] = expf((s - m_s[qi]) - ll_s[qi]);
+        if (live[r]) w[r] = p[r] * (sd[kSplitRows + r] - dl_s[qi]);
+      }
+    }
+    for (int d = tid; d < D; d += kSplitThreads) {
+      float av = dv[k_at + d], ak = dk[k_at + d];
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r) {
+        if (q0 + r >= Tq) continue;
+        const size_t at = static_cast<size_t>(q0 + r) * D + d;
+        av += p[r] * dob[at];
+        ak += w[r] * qb[at];
+      }
+      dv[k_at + d] = av;
+      dk[k_at + d] = ak;
+    }
+  }
+  for (int d = tid; d < D; d += kSplitThreads) dk[k_at + d] *= scale;
+}
+
 // ------------------------------------------------------------- launch
 // each (kernel, D) instance's shared-memory limit, raised once a device
 unsigned g_ready[kMaxDevices];
@@ -1377,7 +1652,14 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
     default:
       break;
   }
-  if (D <= 128 || D > kWideMaxD) return cudaErrorInvalidValue;
+  if (D <= 128) return cudaErrorInvalidValue;
+  if (D > kWideMaxD) {
+    if (static_cast<long long>(B) * N * Tq > INT_MAX)
+      return cudaErrorInvalidValue;
+    flash_split_fwd_kernel<<<B * N * Tq, kSplitThreads, 0, s>>>(
+        q, k, v, mask, o, stats, B * N, N, Tq, Tk, D, causal, scale);
+    return cudaGetLastError();
+  }
   switch (wide_lanes(D)) {
     case 8:
       return launch_wide_fwd<8>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
@@ -1417,7 +1699,21 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
     default:
       break;
   }
-  if (D <= 128 || D > kWideMaxD) return cudaErrorInvalidValue;
+  if (D <= 128) return cudaErrorInvalidValue;
+  if (D > kWideMaxD) {
+    if (static_cast<long long>(B) * N * (Tq > Tk ? Tq : Tk) > INT_MAX)
+      return cudaErrorInvalidValue;
+    flash_split_dq_kernel<<<B * N * Tq, kSplitThreads, 0, s>>>(
+        q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, D,
+        causal, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // same stream: delta is written before this kernel starts
+    flash_split_dkdv_kernel<<<B * N * Tk, kSplitThreads, 0, s>>>(
+        q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk, D,
+        causal, scale);
+    return cudaGetLastError();
+  }
   switch (wide_lanes(D)) {
     case 8:
       return launch_wide_bwd<8>(q, k, v, mask, o, dout, stats, delta, dq, dk,
@@ -1432,9 +1728,11 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
 }
 
 // The dynamic shared memory, bytes, that kernel `which` (0 forward, 1 dq,
-// 2 dkdv) requests at head width D: an instance's, or the wide path's
-// (128 < D <= kWideMaxD); -1 for another D.
+// 2 dkdv) requests at head width D: an instance's, the wide path's
+// (128 < D <= kWideMaxD) or the split-row path's (0: its shared memory is
+// static); -1 for another D.
 extern "C" long long flash_smem(int which, int D) {
+  if (D > kWideMaxD && which >= 0 && which <= 2) return 0;
   if (D > 128 && D <= kWideMaxD && which >= 0 && which <= 2)
     return static_cast<long long>(wide_smem(which, wide_lanes(D)));
   if (D != 8 && D != 16 && D != 32 && D != 64 && D != 128) return -1;

@@ -14,6 +14,7 @@ import torch
 from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
                                             register_layer)
+from paddle_tpu_torch.layers.conv import to_nhwc
 
 
 def _first_mask(ins: List[Argument]):
@@ -112,18 +113,30 @@ class AddtoLayer(LayerImpl):
 
 @register_layer("concat")
 class ConcatLayer(LayerImpl):
-    """Feature-wise concatenation of flat or sequence inputs (image
-    inputs are not ported yet)."""
+    """Feature-wise concatenation; image inputs with matching spatial
+    extents concatenate channel-wise (inception blocks), keeping their
+    geometry so pooling can follow."""
 
     def infer(self, cfg, in_infos):
-        if any(i.channels is not None for i in in_infos):
-            raise NotImplementedError(
-                "channel-wise concat of image inputs is not ported yet")
-        return ShapeInfo(size=sum(i.size for i in in_infos),
+        info = ShapeInfo(size=sum(i.size for i in in_infos),
                          is_sequence=any(i.is_sequence for i in in_infos))
+        if all(i.height is not None and i.channels is not None
+               for i in in_infos) and len(
+                {(i.height, i.width) for i in in_infos}) == 1:
+            info.channels = sum(i.channels for i in in_infos)
+            info.height = in_infos[0].height
+            info.width = in_infos[0].width
+        return info
 
     def apply(self, cfg, params, ins, ctx):
-        return Argument(value=torch.cat([a.value for a in ins], dim=-1),
+        vals = []
+        for a, info in zip(ins, ctx.in_infos):
+            v = a.value
+            if ctx.out_info.channels is not None and v.dim() == 2:
+                # flat channel-major rows -> NHWC before channel concat
+                v = to_nhwc(v, info.channels, info.height, info.width)
+            vals.append(v)
+        return Argument(value=torch.cat(vals, dim=-1),
                         mask=_first_mask(ins))
 
 

@@ -32,8 +32,9 @@ The tensor-core kernels are instantiated for D in ``HEAD_DIMS``; on the
 card another D <= 128 is padded with zero columns up to the next instance
 and the results sliced back (``fwd_padded``, ``bwd_padded``), with the
 scale of the true D. 128 < D <= ``WIDE_MAX_D`` takes the wide-head path
-of the same entries (f32 on the CUDA cores, a warp a row, any D there);
-a wider head raises, naming the limit.
+of the same entries (f32 on the CUDA cores, a warp a row, any D there),
+and any wider head the split-row path (a block a row, its D split across
+the block's warps, the partial dots added in a fixed order).
 
 ``mha_plain`` is the plain softmax attention, the ground truth of the
 tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
@@ -68,7 +69,8 @@ _PLAIN_BLOCK_K = 256
 # the next one
 HEAD_DIMS = (8, 16, 32, 64, 128)
 # the widest head of the wide-head path (csrc/flash_attn.cu: kWideMaxD),
-# which takes every D above HEAD_DIMS[-1] up to it
+# which takes every D above HEAD_DIMS[-1] up to it; the split-row path
+# takes every D above it
 WIDE_MAX_D = 1024
 
 
@@ -190,15 +192,14 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
 # ------------------------------------------------------ head-width padding
 def padded_width(D: int) -> int:
     """The kernels' head width for D: the smallest instance >= D up to
-    ``HEAD_DIMS[-1]``, D itself on the wide-head path above it. Raises for
-    D above ``WIDE_MAX_D``."""
+    ``HEAD_DIMS[-1]``, D itself on the wide-head and split-row paths above
+    it. Raises for D < 1."""
+    if D < 1:
+        raise ValueError(f"head width D={D}: the flash kernels take D >= 1")
     for width in HEAD_DIMS:
         if D <= width:
             return width
-    if D <= WIDE_MAX_D:
-        return D
-    raise ValueError(f"head width D={D} is not supported: the flash kernels "
-                     f"take D <= {WIDE_MAX_D}")
+    return D
 
 
 def _pad_heads(width, *ts):
@@ -240,6 +241,10 @@ BLOCK_RESERVED_BYTES = 1024
 # staged tile (csrc/flash_attn.cu: kWideWarps, kWideStage)
 WIDE_ROWS = 8
 WIDE_STAGE = 4096
+# the split-row path: a block's threads (one row) and the rows a step
+# streams (csrc/flash_attn.cu: kSplitThreads, kSplitRows)
+SPLIT_THREADS = 256
+SPLIT_ROWS = 8
 
 
 def _wide_plan(D: int) -> dict:
@@ -261,16 +266,22 @@ def flash_plan(D: int) -> dict:
     holds the two equal). An instance (``HEAD_DIMS``): ``variant``
     ``tensor_cores``, ``rows`` a block owns, ``kv_cols`` keys a ring stage
     of the forward, ``dq_cols`` of dq, ``q_cols`` queries a stage of dkdv.
-    128 < D <= ``WIDE_MAX_D``: ``variant`` ``wide`` (``_wide_plan``). Both:
-    ``smem_<kernel>`` bytes and ``blocks_per_sm_<kernel>`` by shared
-    memory, for ``fwd``, ``dq`` and ``dkdv``, and ``max_d``, the widest
-    head of the kernels."""
-    if HEAD_DIMS[-1] < D <= WIDE_MAX_D:
+    128 < D <= ``WIDE_MAX_D``: ``variant`` ``wide`` (``_wide_plan``). Above:
+    ``variant`` ``split``, a block of ``threads`` a row, ``stage_rows``
+    streamed rows a step, no dynamic shared memory. All: ``smem_<kernel>``
+    bytes and ``blocks_per_sm_<kernel>`` by shared memory, for ``fwd``,
+    ``dq`` and ``dkdv``, and ``max_d``, the widest head of the wide
+    path."""
+    if D > WIDE_MAX_D:
+        plan = dict(variant="split", rows=1, threads=SPLIT_THREADS,
+                    stage_rows=SPLIT_ROWS, max_d=WIDE_MAX_D)
+        smem = dict(fwd=0, dq=0, dkdv=0)
+    elif HEAD_DIMS[-1] < D:
         plan = _wide_plan(D)
         smem = plan.pop("smem")
     elif D not in HEAD_DIMS:
         raise ValueError(f"flash_plan: D={D} is not an instance "
-                         f"({HEAD_DIMS}) nor 128 < D <= {WIDE_MAX_D}")
+                         f"({HEAD_DIMS}) nor above {HEAD_DIMS[-1]}")
     else:
         ld = D + 4  # row stride of every tile, floats
         kv = 32 if D == 128 else 64  # keys a stage, forward

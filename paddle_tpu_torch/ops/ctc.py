@@ -40,6 +40,14 @@ which the CPU tests hold against the JAX package.
   alphas, betas and ll, a parallel pass with no chain; plain
   ``ctc_fused_bwd_plain``.
 
+The fused form takes any S and C (``ctc_plan`` gives the routes): up to
+``MAX_STATES`` states the chains run a state a lane (more above 1024),
+beyond it the wide chains (a block of 1024 threads a chain, the frames in
+scratch rows); the posterior pass stages frames in shared memory where
+the class offsets fit (4 (C + 1) + 8 S bytes at one frame), and beyond it
+ranks each sequence's states by class into a list in scratch, so C takes
+no shared memory. The gathered form keeps the lanes' ``MAX_STATES``.
+
 The kernels compute the plain versions' arithmetic operation for operation
 (``lse3_kernel`` spells their shortened log-sum-exp, which gives
 ``_lse3``'s bits), so they give the plain versions' bits on the card. f32
@@ -61,12 +69,14 @@ from paddle_tpu_torch.ops import build
 NEG = -1e30  # paddle_tpu/ops/common.py:NEG, the finite -inf of log space
 
 # csrc/ctc.cu: a chain's lane owns at most 16 states, a block at most 32
-# warps; the posterior pass of the fused form stages at most 8 frames a
-# block of 256 threads
+# warps (the gathered form's limit, and the fused forward's lane route);
+# the staged posterior pass of the fused form stages at most 8 frames a
+# block of 256 threads; the wide chains are blocks of 1024 threads
 MAX_STATES = 32 * 32 * 16
 RING = 32  # frames in flight between two warps of a chain
 GRAD_THREADS = 256
 GRAD_FRAMES = 8
+WIDE_THREADS = 1024
 
 
 # ----------------------------------------------------------------- plan
@@ -81,38 +91,37 @@ def _grad_smem(S: int, C: int, frames: int) -> int:
     return 4 * (C + 1) + 4 * S + 4 * max(frames * S, GRAD_THREADS)
 
 
-def max_states(C: int = 0) -> int:
-    """The largest extended label length S = 2 L + 1 the kernels take with C
-    classes (C = 0: the gathered form): 16 states a lane over 32 warps,
-    and the fused posterior pass's shared memory at one frame, 4 (C + 1) +
-    8 S bytes, within a block's ``build.SMEM_BYTES`` (``csrc/ctc.cu:
-    max_states``, held equal by a card test)."""
-    return max(0, min(MAX_STATES, (build.SMEM_BYTES - 4 * (C + 1)) // 8))
-
-
 def ctc_plan(S: int, C: int = 0) -> dict:
-    """The kernels' layout at S states and C classes, by the formulas of
-    ``csrc/ctc.cu`` (``ctc_smem``; a card test holds the two equal):
-    ``per_lane`` states a lane, ``warps`` of a chain's block,
-    ``smem_chain`` its dynamic shared memory (per warp ``RING`` slots of
-    two 64-bit words, a sink word a lane, the epilogue's two values, a
-    progress counter a warp),
-    ``frames`` a posterior block stages and ``smem_grad``
-    its bytes (class offsets, class-sorted states, the frames'
-    posteriors). Raises above ``max_states(C)``."""
-    if not 1 <= S <= max_states(C):
-        raise ValueError(f"ctc_plan: S={S} states: the kernels take 1 <= S "
-                         f"<= {max_states(C)} at C={C} (at most 16 states "
-                         "a lane over 32 warps, and 4 (C + 1) + 8 S bytes of "
-                         f"shared memory within {build.SMEM_BYTES})")
-    P = _per_lane(S)
-    W = -(-S // (32 * P))
-    frames = next(f for f in range(GRAD_FRAMES, 0, -1)
-                  if _grad_smem(S, C, f) <= build.SMEM_BYTES)
-    return dict(per_lane=P, warps=W, threads=32 * W,
-                smem_chain=16 * RING * W + 8 * 32 + 8 + 4 * W,
-                frames=frames,
-                smem_grad=_grad_smem(S, C, frames))
+    """The fused kernels' routes and layout at S states and C classes, by
+    the formulas of ``csrc/ctc.cu`` (``ctc_smem``; a card test holds the
+    two equal). ``fwd``: ``lanes`` up to ``MAX_STATES`` (``per_lane``
+    states a lane, ``warps`` of a chain's block, ``smem_chain`` its
+    dynamic shared memory: per warp ``RING`` slots of two 64-bit words, a
+    sink word a lane, the epilogue's two values, a progress counter a
+    warp), ``wide`` above (a block of ``WIDE_THREADS`` a chain, no dynamic
+    shared memory, ``scratch_floats`` 2 S a chain). ``bwd``: ``staged``
+    where the class offsets, the class-sorted states and one frame fit a
+    block (``frames`` a block stages, ``smem_grad`` its bytes), else
+    ``sorted`` (the states ranked by class into ``order_ints`` S a
+    sequence, a block a frame, no dynamic shared memory). Any S >= 1."""
+    if S < 1:
+        raise ValueError(f"ctc_plan: S={S} states: the kernels take S >= 1")
+    frames = next((f for f in range(GRAD_FRAMES, 0, -1)
+                   if _grad_smem(S, C, f) <= build.SMEM_BYTES), 0)
+    plan = dict(frames=frames,
+                smem_grad=_grad_smem(S, C, frames) if frames else 0,
+                bwd="staged" if frames else "sorted",
+                order_ints=0 if frames else S)
+    if S <= MAX_STATES:
+        P = _per_lane(S)
+        W = -(-S // (32 * P))
+        plan.update(fwd="lanes", per_lane=P, warps=W, threads=32 * W,
+                    smem_chain=16 * RING * W + 8 * 32 + 8 + 4 * W,
+                    scratch_floats=0)
+    else:
+        plan.update(fwd="wide", threads=WIDE_THREADS, smem_chain=0,
+                    scratch_floats=2 * S)
+    return plan
 
 
 def ctc_smem_of_kernel(which: str, S: int, C: int = 0) -> int:
@@ -123,15 +132,6 @@ def ctc_smem_of_kernel(which: str, S: int, C: int = 0) -> int:
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
     return fn(("chain", "grad").index(which), S, C)
-
-
-def max_states_of_kernel(C: int = 0) -> int:
-    """``csrc/ctc.cu:max_states`` (card only), to hold ``max_states``
-    against."""
-    fn = build.load("ctc").ctc_max_states
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(C)
 
 
 # ---------------------------------------------------------------- plain
@@ -428,21 +428,17 @@ def _check_fused(kernel, labels, in_mask, label_mask, blank, C,
                  tensors=()):
     """Every check of the fused operands in one pass: ``tensors`` (name,
     tensor, shape) and the masks contiguous float32 on one card, labels
-    [B,L] contiguous int32 or int64 there, 0 <= blank < C, S = 2 L + 1 <=
-    ``max_states(C)``. Returns (the card's index, B, T, L)."""
+    [B,L] contiguous int32 or int64 there, 0 <= blank < C. Any S and C.
+    Returns (the card's index, B, T, L)."""
     if labels.dim() != 2 or in_mask.dim() != 2:
         raise ValueError(f"{kernel}: labels and in_mask must be [B, L] and "
                          f"[B, T], got {tuple(labels.shape)} and "
                          f"{tuple(in_mask.shape)}")
     (B, L), T = labels.shape, in_mask.shape[1]
-    S = 2 * L + 1
-    if T < 1 or C < 1 or not 0 <= blank < C or S > max_states(C):
+    if T < 1 or C < 1 or not 0 <= blank < C:
         raise ValueError(
-            f"{kernel}: T={T}, C={C}, blank={blank}, S={S}: the kernels take "
-            f"T >= 1, 0 <= blank < C and S = 2 L + 1 <= {max_states(C)} "
-            f"extended label states at C={C} (16 states a lane over 32 "
-            f"warps; 4 (C + 1) + 8 S bytes of shared memory within "
-            f"{build.SMEM_BYTES})")
+            f"{kernel}: T={T}, C={C}, blank={blank}: the kernels take "
+            f"T >= 1 and 0 <= blank < C")
     idx, _ = build.check_cell(kernel, tuple(tensors) + (
         ("in_mask", in_mask, (B, T)), ("label_mask", label_mask, (B, L))))
     if labels.dtype not in (torch.int32, torch.int64) \
@@ -479,12 +475,16 @@ def ctc_fused_fwd(log_probs, labels, in_mask, label_mask, blank, grad=False,
     if grad:
         alphas = log_probs.new_empty((B, T, S))
         betas = log_probs.new_empty((B, T, S))
+    # the wide route's frame rows: 2 S floats a chain
+    scratch = (log_probs.new_empty(((2 if grad else 1) * B, 2 * S))
+               if S > MAX_STATES and B else None)
     err = build.call(
-        build.bind("ctc", "ctc_fused_fwd", 7, 7), idx, log_probs.data_ptr(),
+        build.bind("ctc", "ctc_fused_fwd", 8, 7), idx, log_probs.data_ptr(),
         labels.data_ptr(), in_mask.data_ptr(), label_mask.data_ptr(),
         None if alphas is None else alphas.data_ptr(),
-        None if betas is None else betas.data_ptr(), ll.data_ptr(), B, T, L,
-        C, int(blank), int(labels.dtype is torch.int64), int(negate))
+        None if betas is None else betas.data_ptr(), ll.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), B, T, L, C,
+        int(blank), int(labels.dtype is torch.int64), int(negate))
     build.raise_on(err, "ctc_fused_fwd")
     ctc_fused_fwd.launches += 1
     return (ll, alphas, betas) if grad else ll
@@ -517,12 +517,16 @@ def ctc_fused_bwd(labels, in_mask, label_mask, blank, num_classes, alphas,
                          f"on cuda:{idx}, got {g.dtype} {tuple(g.shape)} on "
                          f"{g.device}")
     dlp = alphas.new_empty((B, T, num_classes))
+    # the sorted route's class-ranked states: S ints a sequence
+    order = (torch.empty((B, S), dtype=torch.int32, device=alphas.device)
+             if ctc_plan(S, num_classes)["bwd"] == "sorted" else None)
     err = build.call(
-        build.bind("ctc", "ctc_fused_bwd", 8, 8), idx, labels.data_ptr(),
+        build.bind("ctc", "ctc_fused_bwd", 9, 8), idx, labels.data_ptr(),
         in_mask.data_ptr(), label_mask.data_ptr(), alphas.data_ptr(),
-        betas.data_ptr(), ll.data_ptr(), g.data_ptr(), dlp.data_ptr(), B, T,
-        L, num_classes, int(blank), int(labels.dtype is torch.int64),
-        int(negate), g.stride(0))
+        betas.data_ptr(), ll.data_ptr(), g.data_ptr(), dlp.data_ptr(),
+        None if order is None else order.data_ptr(), B, T, L, num_classes,
+        int(blank), int(labels.dtype is torch.int64), int(negate),
+        g.stride(0))
     build.raise_on(err, "ctc_fused_bwd")
     ctc_fused_bwd.launches += 1
     return dlp

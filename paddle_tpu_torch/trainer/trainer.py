@@ -11,6 +11,11 @@ step of a recurrent group its cell kernel, and the Momentum and Adam
 updates their fused kernels. Parameters are plain tensors on
 the trainer's device, held in a dict by name (the JAX package's pytree).
 
+Batch norm's moving statistics are static parameters: no gradient, no
+optimizer update; the training forward returns their new values, which
+the step folds into the parameters after the update, as the JAX step does.
+Test and forward runs read them (``train=False``).
+
 Config-declared evaluators (``dsl.evaluator``, ``trainer/metrics.py``) are
 wired as the JAX trainer wires them: the executed sub-graph grows to the
 layers they read (such as a CRF decode branch off the loss path), each
@@ -176,26 +181,31 @@ class SGD:
 
     # ---------------------------------------------------------------- step
     def loss_and_grads(self, feed):
-        """(outputs, loss, grads) of one batch from the current
+        """(outputs, loss, grads, updates) of one batch from the current
         parameters: the forward with autograd recording, the batch-mean
-        cost, and its gradient for every non-static parameter (zeros for
-        one the cost does not reach, as ``jax.grad`` gives)."""
+        cost, its gradient for every non-static parameter (zeros for one
+        the cost does not reach, as ``jax.grad`` gives), and the state
+        updates of the training forward (batch norm's moving statistics,
+        by parameter name, detached)."""
         names = [n for n in self.params
                  if not (n in self.meta and self.meta[n].is_static)]
         leaves = {n: p.detach().requires_grad_(n in names)
                   for n, p in self.params.items()}
-        outputs = self.network.apply(leaves, feed, train=True)
+        outputs, updates = self.network.apply_with_state(leaves, feed,
+                                                         train=True)
         loss = self._total_cost(outputs, self._row_mask(feed))
         found = torch.autograd.grad(loss, [leaves[n] for n in names],
                                     allow_unused=True)
         grads = {n: g if g is not None else torch.zeros_like(leaves[n])
                  for n, g in zip(names, found)}
-        return outputs, loss.detach(), grads
+        return outputs, loss.detach(), grads, updates
 
     def train_step(self, feed, pass_id: int = 0):
         """One step on a device-placed feed; updates ``params`` and
-        ``opt_state`` and returns the batch's metrics (tensors)."""
-        outputs, loss, grads = self.loss_and_grads(feed)
+        ``opt_state`` and returns the batch's metrics (tensors). The state
+        updates are folded into ``params`` after the optimizer's update,
+        as f32 (``new_params.update(updates)`` in the JAX step)."""
+        outputs, loss, grads, updates = self.loss_and_grads(feed)
         row_mask = self._row_mask(feed)
         # LIVE rows drive the lr schedule's sample count, not the padded
         # shape (sum_gradients scaling likewise)
@@ -204,6 +214,8 @@ class SGD:
         self.params, self.opt_state = self.optimizer.update(
             grads, self.opt_state, self.params, self.meta, batch_size=bsz,
             num_passes=pass_id)
+        self.params.update({n: u.to(torch.float32)
+                            for n, u in updates.items()})
         with torch.no_grad():
             metrics = self._metrics(
                 {k: a.with_value(a.value.detach()) for k, a in

@@ -295,7 +295,8 @@ def test_pad_and_slice_around_the_plain_versions_is_exact(causal):
     of the true D: around ``blockwise_plain`` and ``flash_bwd_plain`` the
     helpers give exactly the unpadded results (o, the row statistics, dq,
     dk, dv), an all-padding kv row included. D > 128 has no instance: it
-    takes the wide-head path unpadded, up to 1024."""
+    takes the wide-head path unpadded up to 1024, the split-row path
+    above."""
     q, k, v, mask, do = (torch.from_numpy(a) for a in _inputs(
         3, 2, 20, 33, 40, 11, all_padding=True))
     scale = 40 ** -0.5
@@ -311,5 +312,4 @@ def test_pad_and_slice_around_the_plain_versions_is_exact(causal):
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
     assert tattn.padded_width(129) == 129
-    with pytest.raises(ValueError, match="D <= 1024"):
-        tattn.padded_width(1025)
+    assert tattn.padded_width(1025) == 1025

@@ -423,7 +423,7 @@ def test_vehicle_loss_and_every_gradient_match_jax(vehicle):
                                    jtr._row_mask(jfeed))
 
         jl, jg = jax.jit(jax.value_and_grad(jloss))(jtr.params)
-    _, tl, tg = ttr.loss_and_grads(tfeed)
+    _, tl, tg, _ = ttr.loss_and_grads(tfeed)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert sorted(tg) == sorted(jg) == sorted(params)
     for k in jg:

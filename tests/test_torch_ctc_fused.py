@@ -17,8 +17,9 @@ package, on the CPU, where the wrappers run their plain versions.
   its largest entry + 1e-5), and in fact bit-equal.
 - The posterior pass's class sums (ascending s from 0), emulated in plain
   torch, against autograd's scatter within 1e-6 relative.
-- The shared-memory formula against the S limit at S = 133, 481 and the
-  new maximum.
+- The routes (``ctc_plan``) at S = 133, 481 and the former limits, and
+  at the sizes the kernels refused before (C = 60,000; S = 20,001); the
+  fused wrappers' CPU path at C = 60,000 against JAX.
 
 Run as a script, it prints the accuracy budget of other log-sum-exp
 spellings over T = 1600 (each against today's plain versions, as a
@@ -228,28 +229,87 @@ def test_class_sum_order_matches_autograd_scatter():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
+def _former_limit(C):
+    """The S above which the kernels refused before any S and C were taken:
+    16 states a lane over 32 warps, and the staged posterior pass's 4 (C +
+    1) + 8 S bytes within a block."""
+    return max(0, min(tctc.MAX_STATES, (build.SMEM_BYTES - 4 * (C + 1)) // 8))
+
+
 @pytest.mark.parametrize("S,C", [(133, 29), (481, 29), (None, 29),
                                  (None, 0), (None, 40000)])
 def test_smem_formula_against_the_limit(S, C):
-    """At S = 133, 481 and the largest S of C classes, ``ctc_plan``'s
-    chains cover S within 32 warps and both kernels' shared memory fits a
-    block; two states more are refused. At 40,000 classes the posterior
-    pass's shared memory, not the lanes, sets the limit."""
-    limit = tctc.max_states(C)
+    """At S = 133, 481 and the former limit of C classes, ``ctc_plan``
+    keeps the lane chains and the staged posterior pass (the chains cover
+    S within 32 warps, both kernels' shared memory fits a block); two
+    states more take the wide chains (above 16,384 states) or the sorted
+    posterior pass (at 40,000 classes, where the class offsets and one
+    frame no longer fit), and nothing raises."""
+    limit = _former_limit(C)
     S = S or limit
     plan = tctc.ctc_plan(S, C)
+    assert (plan["fwd"], plan["bwd"]) == ("lanes", "staged")
     assert plan["warps"] <= 32 and 32 * plan["warps"] * plan["per_lane"] >= S
     assert plan["smem_chain"] <= build.SMEM_BYTES
     assert plan["smem_grad"] <= build.SMEM_BYTES and plan["frames"] >= 1
-    with pytest.raises(ValueError, match="states"):
-        tctc.ctc_plan(limit + 2, C)
+    above = tctc.ctc_plan(limit + 2, C)
     if C == 40000:
         assert limit < tctc.MAX_STATES
         assert 4 * (C + 1) + 8 * (limit + 1) > build.SMEM_BYTES
+        assert (above["fwd"], above["bwd"]) == ("lanes", "sorted")
+        assert above["smem_grad"] == 0 and above["order_ints"] == limit + 2
     else:
         assert limit == tctc.MAX_STATES == 16384 >= 12001
+        assert (above["fwd"], above["bwd"]) == ("wide", "staged")
+        assert above["smem_chain"] == 0
+        assert above["scratch_floats"] == 2 * (limit + 2)
     if S in (133, 481):  # a state a lane: 5 and 16 warps
         assert (plan["per_lane"], plan["warps"]) == (1, -(-S // 32))
+
+
+@pytest.mark.parametrize("S,C,routes", [
+    (21, 60000, ("lanes", "sorted")),      # every transcript refused before
+    (20001, 29, ("wide", "staged")),       # above 16,384 states
+    (20001, 20000, ("wide", "sorted")),
+    (1, 1, ("lanes", "staged"))])
+def test_ctc_plan_takes_every_size(S, C, routes):
+    """Sizes the kernels refused (C >= 58,110 at any S; S > 16,384) have a
+    route; the wrappers' CPU path takes them too (below)."""
+    plan = tctc.ctc_plan(S, C)
+    assert (plan["fwd"], plan["bwd"]) == routes
+    with pytest.raises(ValueError, match="S >= 1"):
+        tctc.ctc_plan(0, C)
+
+
+def test_fused_plain_matches_jax_at_60000_classes():
+    """C = 60,000 (B = 1, T = 8, L = 3, a repeat): the fused wrappers' CPU
+    path (``ctc_fused_fwd`` / ``ctc_fused_bwd``: the plain versions the
+    card holds the kernels to) against JAX's ``ctc_loss`` and its VJP."""
+    B, T, C, blank = 1, 8, 60000, 0
+    rng = np.random.default_rng(60000)
+    log_probs = np.array(jax.nn.log_softmax(jnp.asarray(
+        rng.normal(size=(B, T, C)).astype(np.float32)), axis=-1))
+    labels = np.array([[17, 59999, 59999]], np.int32)
+    in_mask, label_mask = np.ones((B, T), np.float32), np.ones((B, 3),
+                                                               np.float32)
+    g = np.array([0.7], np.float32)
+
+    def jloss(lp):
+        return j_ctc_loss(lp, jnp.asarray(labels), jnp.asarray(in_mask),
+                          jnp.asarray(label_mask), blank)
+
+    with common.force_mode("interpret"):
+        want, vjp = jax.vjp(jloss, jnp.asarray(log_probs))
+        want_g = np.asarray(vjp(jnp.asarray(g))[0])
+    args = (torch.from_numpy(labels), torch.from_numpy(in_mask),
+            torch.from_numpy(label_mask), blank)
+    loss, alphas, betas = tctc.ctc_fused_fwd(torch.from_numpy(log_probs),
+                                             *args, grad=True, negate=True)
+    dlp = tctc.ctc_fused_bwd(*args, C, alphas, betas, loss,
+                             torch.from_numpy(g), negate=True)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want), **VAL_TOL)
+    np.testing.assert_allclose(dlp.numpy(), want_g, **GRAD_TOL)
+    assert np.count_nonzero(dlp.numpy()) <= T * 3  # blank, 17, 59999
 
 
 # ----------------------------------------------------- the budget, printed

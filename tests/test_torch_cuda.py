@@ -8,9 +8,12 @@ and a per-step backward above the route line), the GRU cell on both
 routes (one launch a step on thread block clusters; two launches), the
 Momentum and Adam updates (one kernel launch for a step's list of
 parameters), the CRF forward, backward and Viterbi kernels,
-the flash-attention forward and backward kernels, the CTC alpha and beta
-chains in both operand forms and the fused posterior pass) against
-their plain PyTorch versions, on the card. Every test here is marked
+the flash-attention forward and backward kernels (the split-row path
+above D = 1024 too), the CTC alpha and beta chains in both operand forms
+and the fused posterior pass (the wide chains above 16,384 states and the
+sorted pass at 60,000 classes too)) against their plain PyTorch versions,
+on the card; and the image layers and ResNet-50's three ways, card
+against CPU (cuDNN's convolutions with TF32 off). Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
@@ -1264,11 +1267,13 @@ def test_flash_kernels_with_leading_padding_match_plain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", tattn.HEAD_DIMS + (129, 256, 257, 1024))
+@pytest.mark.parametrize("D", tattn.HEAD_DIMS + (129, 256, 257, 1024, 1056,
+                                                2048))
 def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
     """``flash_plan``'s shared-memory bytes are what each kernel requests
-    (its own count, ``flash_smem``: an instance's, or the wide-head
-    path's above D = 128), within a block's limit."""
+    (its own count, ``flash_smem``: an instance's, the wide-head path's
+    above D = 128, or the split-row path's 0 above 1024), within a block's
+    limit."""
     plan = tattn.flash_plan(D)
     for kernel in ("fwd", "dq", "dkdv"):
         assert tattn.flash_smem_of_kernel(kernel, D) == \
@@ -1277,14 +1282,22 @@ def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_bad_inputs(cuda_device):
-    """A head width above the wide-head path's 1024, a non-contiguous
-    input, a wrong dtype and a CPU mask all raise with the reason; D =
-    160, which the tensor-core kernels alone refused, runs on the wide
-    path and holds the plain versions."""
+    """A non-contiguous input, a wrong dtype and a CPU mask all raise with
+    the reason; D = 160, which the tensor-core kernels alone refused, runs
+    on the wide path, and D = 1056, which the wide path refused, on the
+    split-row path: both hold the plain versions (the split path's
+    backward bit-equal over two runs)."""
     q, k, v, mask, do = _attn_inputs(2, 2, 8, 8, 16, 0, cuda_device)
-    wide = torch.zeros(2, 2, 8, tattn.WIDE_MAX_D + 32, device=cuda_device)
-    with pytest.raises(ValueError, match="head width D=1056"):
-        tattn.flash_fwd(wide, wide, wide, mask)
+    wide = _attn_inputs(2, 2, 8, 8, tattn.WIDE_MAX_D + 32, 0, cuda_device)
+    o, lse = tattn.flash_fwd(*wide[:4])
+    w_o, w_lse = tattn.blockwise_plain(*wide[:4])
+    torch.testing.assert_close(o, w_o, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, w_lse, rtol=1e-4, atol=1e-5)
+    grads = tattn.flash_bwd(*wide[:4], o, lse, wide[4])
+    _assert_grads_close(grads, tattn.flash_bwd_plain(*wide[:4], w_o, w_lse,
+                                                     wide[4]))
+    assert all(torch.equal(a, b) for a, b in zip(grads, tattn.flash_bwd(
+        *wide[:4], o, lse, wide[4])))
     with pytest.raises(ValueError, match="contiguous"):
         tattn.flash_fwd(q.transpose(1, 2), k, v, mask)
     with pytest.raises(ValueError, match="float32"):
@@ -1311,7 +1324,11 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
     (3, 2, 70, 133, 160, True, False),
     (2, 1, 40, 57, 129, False, False),
     (2, 2, 50, 90, 384, False, True),
-    (1, 2, 33, 47, 1024, True, False)])
+    (1, 2, 33, 47, 1024, True, False),
+    # the split-row path (D > 1024)
+    (1, 2, 64, 64, 1056, False, True),
+    (1, 2, 64, 64, 2048, True, False),
+    (1, 2, 80, 64, 2048, True, True)])  # causal, Tq > Tk, a padding row
 def test_flash_wide_heads_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
                                              causal, all_padding):
     """Head widths above 128 take the wide-head path (one launch forward,
@@ -1469,9 +1486,11 @@ def test_ctc_kernels_match_plain_on_card(cuda_device, B, T, C, L):
 @pytest.mark.cuda
 def test_ctc_kernels_reject_bad_inputs(cuda_device):
     """A CPU tensor into a CUDA path, a wrong dtype, int64 lengths and an
-    S just above the kernels' limit (``max_states``: 16 states a lane over
-    32 warps, S = 16,385) all raise with the reason; so do the fused
-    wrappers' float labels, a blank outside [0, C) and S above the limit."""
+    S just above the gathered form's limit (16 states a lane over 32
+    warps, S = 16,385) all raise with the reason; so do the fused
+    wrappers' float labels and a blank outside [0, C). The fused form,
+    which refused S = 16,385 too, takes it on the wide chains: ll and the
+    gradient against the plain versions."""
     emit, in_mask, valid_s, can_skip, ext_lens, g, log_probs, labels, \
         lab_lens, _ = _ctc_inputs(2, 6, 5, 2, 0, cuda_device)
     with pytest.raises(ValueError, match="CUDA"):
@@ -1481,7 +1500,7 @@ def test_ctc_kernels_reject_bad_inputs(cuda_device):
                            ext_lens)
     with pytest.raises(ValueError, match="int32"):
         tctc.ctc_alpha_fwd(emit, in_mask, valid_s, can_skip, ext_lens.long())
-    S = tctc.max_states() + 1
+    S = tctc.MAX_STATES + 1
     assert S == 16385
     big = torch.zeros(1, 2, S, device=cuda_device)
     with pytest.raises(ValueError, match="states"):
@@ -1493,10 +1512,23 @@ def test_ctc_kernels_reject_bad_inputs(cuda_device):
         tctc.ctc_fused_fwd(log_probs, labels.float(), in_mask, lm, 4)
     with pytest.raises(ValueError, match="blank"):
         tctc.ctc_fused_fwd(log_probs, labels, in_mask, lm, 5)
-    wide = torch.zeros(1, (S - 1) // 2, dtype=torch.int32,
-                       device=cuda_device)
-    with pytest.raises(ValueError, match="states"):
-        tctc.ctc_fused_fwd(log_probs[:1], wide, in_mask[:1], wide.float(), 4)
+    wide = torch.randint(0, 4, (1, (S - 1) // 2), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3)).to(
+                             cuda_device)
+    assert tctc.ctc_plan(S, 5)["fwd"] == "wide"
+    args = (wide, in_mask[:1].contiguous(), torch.ones_like(wide).float(), 4)
+    ll, alphas, betas = tctc.ctc_fused_fwd(log_probs[:1].contiguous(),
+                                           *args, grad=True)
+    w_alphas, w_betas, w_ll = tctc.ctc_fused_forward_plain(
+        log_probs[:1].contiguous(), *args)
+    for name, got, want in (("alphas", alphas, w_alphas),
+                            ("betas", betas, w_betas), ("ll", ll, w_ll)):
+        assert torch.equal(got, want), name
+    g1 = g[:1].contiguous()
+    assert torch.equal(
+        tctc.ctc_fused_bwd(*args[:3], 4, 5, alphas, betas, ll, g1),
+        tctc.ctc_fused_bwd_plain(*args[:3], 4, 5, w_alphas, w_betas, w_ll,
+                                 g1))
 
 
 def _fused_run(log_probs, labels, in_mask, label_mask, blank, g):
@@ -1516,7 +1548,10 @@ def _fused_run(log_probs, labels, in_mask, label_mask, blank, g):
     (5, 9, 6, 4),        # T = 2 L + 1 for the full rows
     (4, 700, 29, 320),   # S = 641
     (2, 4400, 29, 2150),  # S = 4301
-    (2, 12500, 29, 6000)])  # S = 12,001, above the former limit of 8192
+    (2, 12500, 29, 6000),  # S = 12,001, above the former limit of 8192
+    (2, 50, 60000, 10),  # C = 60,000: the sorted posterior pass
+    (1, 10500, 29, 10000),  # S = 20,001: the wide chains
+    (1, 8500, 30000, 8200)])  # S = 16,401 and C = 30,000: both
 def test_ctc_fused_kernels_match_plain_on_card(cuda_device, B, T, C, L):
     """The fused forward (both chains in one launch) and the posterior
     pass from the log-probs, int64 and int32 labels: alphas, betas and ll
@@ -1597,16 +1632,15 @@ def test_ctc_fused_kernels_match_plain_on_card(cuda_device, B, T, C, L):
 @pytest.mark.parametrize("C", [0, 29, 40000])
 def test_ctc_plan_matches_the_kernel_smem_on_card(cuda_device, C):
     """``ctc_plan``'s shared-memory bytes are what the chains and the
-    posterior pass request (their own count, ``ctc_smem``), and
-    ``max_states`` is the kernels' limit, at S from 1 to the limit."""
-    limit = tctc.max_states(C)
-    assert tctc.max_states_of_kernel(C) == limit
-    for S in [S for S in (1, 133, 481, 1025, 4301, 12001, limit)
-              if S <= limit]:
+    posterior pass request (their own count, ``ctc_smem``) on every route,
+    at S from 1 past the lanes' limit and past the staged pass's."""
+    for S in (1, 133, 481, 1025, 4301, 12001, 16384, 16385, 20001, 40001):
         plan = tctc.ctc_plan(S, C)
         assert tctc.ctc_smem_of_kernel("chain", S, C) == plan["smem_chain"]
         assert tctc.ctc_smem_of_kernel("grad", S, C) == plan["smem_grad"]
-    assert tctc.ctc_smem_of_kernel("chain", limit + 1, C) == -1
+        assert (plan["fwd"] == "wide") == (S > tctc.MAX_STATES)
+        assert (plan["bwd"] == "sorted") == (plan["smem_grad"] == 0)
+    assert tctc.ctc_smem_of_kernel("chain", 0, C) == -1
 
 
 @pytest.mark.cuda
@@ -1660,3 +1694,137 @@ def test_ctc_layer_runs_the_kernels_on_card(cuda_device):
     torch.testing.assert_close(c_gpu, c_cpu, rtol=1e-4, atol=1e-5)
     assert (g_gpu - g_cpu).abs().max().item() <= 1e-4 * g_cpu.abs().max(
     ).item() + 1e-5
+
+
+# ------------------------------------------------------------ the image slice
+def _image_graph(kind):
+    """A one-layer image graph of the port's DSL (and its feed shapes):
+    the layer kinds of ``tests/test_torch_image.py``."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config.model_config import Input, LayerDef
+    dsl.reset()
+    x = dsl.data(name="x", size=4 * 9 * 7, channels=4, height=9, width=7)
+    if kind == "conv":
+        out = dsl.conv(input=x, num_filters=6, filter_size=3, stride=2,
+                       padding=1, groups=2, name="c")
+    elif kind == "depthwise":
+        out = dsl.conv(input=x, num_filters=8, filter_size=3, padding=1,
+                       groups=4, act="linear", bias_attr=False, name="c")
+    elif kind == "convt":
+        out = dsl.conv(input=x, num_filters=6, filter_size=3, stride=2,
+                       padding=1, groups=2, act="linear", name="c",
+                       layer_type="exconvt")
+    elif kind in ("max", "avg"):
+        out = dsl.img_pool(input=x, pool_size=3, stride=2, padding=1,
+                           pool_type=f"{kind}-projection", name="p")
+    elif kind == "spp":
+        out = dsl._add(LayerDef(name="s", type="spp", bias=False,
+                                inputs=[Input("x")],
+                                attrs={"pyramid_height": 3}))
+    elif kind in ("bn_train", "bn_test"):
+        out = dsl.batch_norm(input=x, act="relu", name="bn")
+    elif kind == "cmrnorm":
+        out = dsl.img_cmrnorm(input=x, size=3, scale=0.5, name="n")
+    else:  # channel-wise concat of two convs, then a pool
+        a = dsl.conv(input=x, num_filters=3, filter_size=3, padding=1,
+                     name="a")
+        b = dsl.conv(input=x, num_filters=2, filter_size=1, name="b")
+        out = dsl.img_pool(input=dsl.concat([a, b]), pool_size=2, stride=2,
+                           name="p")
+    return dsl.current_graph(), out.name
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv", "depthwise", "convt", "max", "avg",
+                                  "spp", "bn_train", "bn_test", "cmrnorm",
+                                  "concat"])
+def test_image_layers_match_cpu_on_card(cuda_device, kind):
+    """Each image layer on the card (cuDNN's convolutions with TF32 off,
+    torch's pools) against the same layer on the CPU: the output within
+    rtol 1e-4 / atol 1e-5, every gradient (the parameters and the input)
+    within 1e-4 of its largest entry + 1e-5, and batch norm's state
+    updates within rtol 1e-4 / atol 1e-5; nothing moves off the card."""
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    _no_tf32()
+    graph, name = _image_graph(kind)
+    net = Network(graph, outputs=[name])
+    rng = np.random.default_rng(7)
+    params = {k: np.abs(rng.normal(size=s.shape)).astype(np.float32) + 0.5
+              if k.endswith(".w2") else
+              rng.normal(size=s.shape).astype(np.float32) * 0.5
+              for k, s in net.param_specs.items()}
+    xv = rng.normal(size=(3, 9, 7, 4)).astype(np.float32)
+    train = kind != "bn_test"
+    results = []
+    for dev in ("cpu", cuda_device):
+        p = {k: torch.from_numpy(v).to(dev).requires_grad_(
+            not net.param_specs[k].is_static) for k, v in params.items()}
+        x = torch.from_numpy(xv).to(dev).requires_grad_(True)
+        outs, upd = net.apply_with_state(p, {"x": Argument(x)}, train=train)
+        y = outs[name].value
+        assert y.device.type == torch.device(dev).type
+        ct = torch.from_numpy(np.random.default_rng(8).normal(
+            size=tuple(y.shape)).astype(np.float32)).to(dev)
+        leaves = [t for t in p.values() if t.requires_grad] + [x]
+        gs = torch.autograd.grad((y * ct).sum(), leaves)
+        results.append((y.detach().cpu(), [g.cpu() for g in gs],
+                        {k: u.cpu() for k, u in upd.items()}))
+    (y0, g0, u0), (y1, g1, u1) = results
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-5)
+    for g, w in zip(g1, g0):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() \
+            + 1e-5
+    assert sorted(u0) == sorted(u1) and (kind == "bn_train") == bool(u0)
+    for k in u0:
+        torch.testing.assert_close(u1[k], u0[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_resnet50_three_ways_match_cpu_on_card(cuda_device):
+    """``resnet(50, classes=10, image_size=32, width=8)`` at batch 2 on the
+    card against the port's CPU path, the same parameters
+    (``init_params`` from a seeded generator) and feed: (a) ``train=True``,
+    the output and the 106 state updates; (b) ``train=False`` on (a)'s
+    moving statistics; (c) ``train=False`` at ``init_params``: NaN in the
+    same places, equal values where finite. rtol 1e-4 / atol 1e-5."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.models import resnet
+    _no_tf32()
+    dsl.reset()
+    _, out, _ = resnet(50, classes=10, image_size=32, width=8)
+    net = Network(dsl.current_graph(), outputs=[out.name])
+    params = net.init_params(torch.Generator().manual_seed(0), device="cpu")
+    image = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 32, 32, 3)).astype(np.float32))
+
+    def run(dev, p, train):
+        with torch.no_grad():
+            outs, upd = net.apply_with_state(
+                {k: v.to(dev) for k, v in p.items()},
+                {"image": Argument(image.to(dev))}, train=train)
+        return outs[out.name].value.cpu(), {k: u.cpu() for k, u in
+                                            upd.items()}
+
+    (ya, ua), (ya_c, ua_c) = run(cuda_device, params, True), \
+        run("cpu", params, True)
+    torch.testing.assert_close(ya, ya_c, rtol=1e-4, atol=1e-5)
+    assert sorted(ua) == sorted(ua_c) and len(ua) == 106
+    for k in ua:
+        torch.testing.assert_close(ua[k], ua_c[k], rtol=1e-4, atol=1e-5)
+    yb, _ = run(cuda_device, {**params, **ua}, False)
+    yb_c, _ = run("cpu", {**params, **ua_c}, False)
+    assert torch.isfinite(yb_c).all()
+    torch.testing.assert_close(yb, yb_c, rtol=1e-4, atol=1e-5)
+    yc, _ = run(cuda_device, params, False)
+    yc_c, _ = run("cpu", params, False)
+    assert torch.equal(torch.isnan(yc), torch.isnan(yc_c))
+    live = ~torch.isnan(yc_c)
+    torch.testing.assert_close(yc[live], yc_c[live], rtol=1e-4, atol=1e-5)

@@ -10,7 +10,7 @@ its default blocks, so its Pallas kernel ``_flash_kernel`` is taken, and
 its gradient is ``jax.vjp`` of ``blockwise_attention``; rows that see no
 key (an all-padding kv row with Tk > 256, and causal with Tq > Tk) get
 JAX's padded mean of v. Inputs come from numpy with a seed (D = 160 and
-256, T <= 300).
+256, T <= 300; D = 1056 and 2048, the split-row path's widths).
 
 Tolerances: the forward rtol/atol 1e-5 (f32 sums over D and Tk in another
 order); gradients rtol 1e-4 / atol 1e-5 (the analytic backward against
@@ -63,7 +63,10 @@ def _jax(q, k, v, mask, causal, do):
 CASES = [(2, 2, 40, 40, 160, True, False),
          (2, 1, 20, 300, 256, False, True),
          (2, 1, 300, 300, 256, True, True),
-         (1, 2, 45, 30, 160, True, False)]
+         (1, 2, 45, 30, 160, True, False),
+         # the split-row path's widths (above 1024)
+         (2, 1, 24, 20, 1056, True, True),
+         (1, 2, 16, 16, 2048, False, False)]
 
 
 @pytest.mark.parametrize("B,N,Tq,Tk,D,causal,all_padding", CASES)
@@ -138,12 +141,17 @@ def test_wide_heads_route_to_the_wide_path(D):
 
 @pytest.mark.parametrize("D", [1025, 1056, 4096])
 def test_heads_above_the_wide_limit_raise_naming_it(D):
-    """Above ``WIDE_MAX_D`` the kernels refuse, and the message names the
-    limit; the instances keep their padding below 128."""
-    with pytest.raises(ValueError, match=f"D={D} .* D <= 1024"):
-        tattn.padded_width(D)
-    with pytest.raises(ValueError, match="not an instance"):
-        tattn.flash_plan(D)
+    """Above ``WIDE_MAX_D`` the kernels no longer refuse: ``padded_width``
+    is D itself and ``flash_plan`` gives the split-row path (a block of
+    256 threads a row, 8 streamed rows a step, no dynamic shared memory);
+    the instances keep their padding below 128 and D < 1 raises."""
+    assert tattn.padded_width(D) == D
+    plan = tattn.flash_plan(D)
+    assert (plan["variant"], plan["rows"], plan["threads"],
+            plan["stage_rows"]) == ("split", 1, 256, 8)
+    assert plan["smem_fwd"] == plan["smem_dq"] == plan["smem_dkdv"] == 0
+    with pytest.raises(ValueError, match="D >= 1"):
+        tattn.padded_width(0)
     assert [tattn.padded_width(d) for d in (8, 9, 40, 100, 128)] == \
         [8, 16, 64, 128, 128]
     assert tattn.flash_plan(128)["variant"] == "tensor_cores"

@@ -306,7 +306,7 @@ def test_loss_and_every_gradient_match_jax(model):
                                jtr._row_mask(jfeed))
 
     jl, jg = jax.jit(jax.value_and_grad(jloss))(jtr.params)
-    _, tl, tg = ttr.loss_and_grads(tfeed)
+    _, tl, tg, _ = ttr.loss_and_grads(tfeed)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert sorted(tg) == sorted(jg)
     _assert_params_close({k: v.numpy() for k, v in tg.items()}, jg, GRAD_TOL)
