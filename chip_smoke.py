@@ -165,7 +165,13 @@ non-zero without the result line:
    their plain versions as above, two backward runs bit-equal, the loss
    and its gradient against the CPU plain path (within 1e-5 relative;
    1e-3 of the largest entry + 1e-6), device and event times, the plain
-   versions, ``F.ctc_loss`` forward and backward, the bounds.
+   versions, ``F.ctc_loss`` forward and backward, the bounds. Then the
+   gathered kernels (``ctc_alpha_fwd``, ``ctc_bwd``) at
+   CTC_GATHERED_BEYOND, S = 16,385 and 20,001 over 2000 frames (the wide
+   route they refused before): against their plain versions as above
+   and against the fused form on the same inputs (alphas, ll; d
+   log_probs against demit summed per class), two backward runs
+   bit-equal, times, ``F.ctc_loss``, the bounds.
    ``python3 chip_smoke.py --ctc-kernels`` runs this phase alone, into
    ``chiprun_out/ctc_kernels.json``.
 7. flash-attention kernel check: at every FLASH_SHAPES (B, N, Tq, Tk, D)
@@ -352,14 +358,48 @@ non-zero without the result line:
    the CPU (single rows and a batch of 16 within 1e-5).
    ``python3 chip_smoke.py --image`` runs this phase alone, into
    ``chiprun_out/image_slice.json``.
-13. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 12). The
+13. the rest of training, at the classifier's full width: (a)
+   ``--grad_accum_steps``: one batch's gradient at k = 2 and 4 against
+   the whole batch's (per tensor within 1e-4 of its largest entry +
+   1e-5), ``lstm_route`` at the microbatch's rows, 2 passes of ``--job
+   train`` with Momentum at k = 2 against k = 1 (pass costs within 1e-4
+   relative; one Momentum launch a step, a reverse chain per layer and
+   microbatch; Adam's sign-like first steps would amplify roundoff) and
+   the Adam config at k = 2 beside phase 8's k = 1; (b) ``prev_batch_state`` over 3 batches of 16 rows, card
+   against the CPU plain path (costs within 1e-4 relative, the carried h
+   and c within 1e-4 of the largest + 1e-5, the LSTM kernels launched
+   with a non-zero h0); (c) ``async_load_data`` (depth 2) against
+   synchronous loading, 5 interleaved repeats: the parameters bit-equal,
+   each mode's wall ms a step (median and spread); the caller's time of
+   a foreground and of a background save of 24,186,882 parameters and
+   their Adam slots; (d) the classifier with ``dsl.dropout(0.5)`` before
+   its softmax fc, ``--save_dir --saving_period_by_batches 2
+   --background_save``, 2 passes: twice without a kill (the same bits),
+   then killed by ``PADDLE_TPU_CHAOS_PLAN`` (``exit`` at step 7, between
+   two saves) and run again: the final checkpoint bit-equal, every key;
+   (e) dropout's keep mask on the card (within 4 sigma of the binomial
+   mean, the same bits twice, one stream a layer, the gradient the mask
+   times the upstream), the dropout classifier's cost falling over 3
+   passes; (f) ``--job
+   test`` of (d)'s checkpoint with ``classification_error``, ``auc``,
+   ``precision_recall``, ``pnpair`` and three printers, card against the
+   CPU plain path (values within 1e-6, the printed numbers within 1e-5);
+   (g) ``--job time`` (its step times) and ``--job checkgrad`` of a
+   small LSTM classifier (autograd through the kernels against float64
+   central differences). The CLI jobs run in this process (each resets
+   the kernel counts its summary reports), but the killed one, a process
+   of its own. ``python3 chip_smoke.py --training`` runs this phase
+   alone, into ``chiprun_out/training.json``.
+14. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+   kernel, with the launches of the main paths (phases 8 to 12), and the
+   rest of training's (phase 13) as ``training_launches``. The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
    persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
    ``ctc_bwd``: the layer takes the fused ones), the fused CTC kernels'
    wide and sorted routes or flash's split-row path: their entries say
-   ``on_path: false`` and must show 0 launches. The ``momentum`` entry's
+   ``on_path: false`` and must show 0 launches (the gathered pair's
+   wide route, ``ctc_alpha_fwd_wide`` / ``ctc_bwd_wide``, too). The ``momentum`` entry's
    ``launches`` are the classifier's training pass (phase 8); LeNet's
    and ResNet's runs of phase 12 stand beside them as ``lenet_launches``
    and ``resnet_launches``.
@@ -584,6 +624,9 @@ CTC_SHAPES = [(DS2_BATCH, DS2_MAX_T, DS2_LABEL_PAD), (1, DS2_MAX_T,
 # fit a block: the sorted pass) and 20,001 states (above the lanes'
 # 16,384: the wide chains), each with a full row and a padded one
 CTC_BEYOND_SHAPES = [(2, 50, 60000, 10), (1, 10500, 29, 10000)]
+# the gathered form above the lanes' 16,384 states (B, T, C, L): S =
+# 16,385 and 20,001, transcripts of T/4 to T/2 characters
+CTC_GATHERED_BEYOND = [(1, 2000, 29, 8192), (1, 2000, 29, 10000)]
 # the image slice: ResNet-50 as __graft_entry__.py:entry() builds it
 # (resnet(50, classes=1000, image_size=224), an NHWC feed [8, 224, 224, 3])
 # at full width and depth; its gradients at batch 2; LeNet (lenet_mnist)
@@ -2812,7 +2855,7 @@ def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
     f_fwd = build.bind("ctc", "ctc_fused_fwd", 8, 7)
     f_bwd = build.bind("ctc", "ctc_fused_bwd", 9, 8)
     a_fwd = build.bind("ctc", "ctc_alpha_fwd", 7, 3)
-    a_bwd = build.bind("ctc", "ctc_bwd", 9, 3)
+    a_bwd = build.bind("ctc", "ctc_bwd", 10, 3)
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty(B, device=dev)
     dlp = torch.empty(B, T, C, device=dev)
@@ -2828,7 +2871,7 @@ def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
         g_alphas.data_ptr(), out.data_ptr(), B, T, S, stream)
     gb_args = tuple(t.data_ptr() for t in g_ops) + (
         g_alphas.data_ptr(), g_ll.data_ptr(), g.data_ptr(),
-        demit.data_ptr(), B, T, S, stream)
+        demit.data_ptr(), None, B, T, S, stream)
 
     def base_checks(kernel, **more):
         d = build.cuda_device(kernel, emit)
@@ -2868,8 +2911,9 @@ def _ctc_pieces(log_probs, labels, in_mask, label_mask, blank, g):
         d = torch.empty((B, T, S), device=dev)
         with torch.cuda.device(dev):
             st = torch.cuda.current_stream().cuda_stream
-            build.raise_on(a_bwd(*gb_args[:8], d.data_ptr(), B, T, S, st),
-                           "ctc_bwd")
+            # no scratch: the lanes' route (S <= 16,384) reads none
+            build.raise_on(a_bwd(*gb_args[:8], d.data_ptr(), *gb_args[9:13],
+                                 st), "ctc_bwd")
         scatter()
 
     fused = (labels, in_mask, label_mask, blank, C)
@@ -3083,6 +3127,129 @@ def check_ctc_beyond_shapes():
             for B, T, C, L in CTC_BEYOND_SHAPES]
 
 
+def check_ctc_gathered_beyond(B, T, C, L, seed):
+    """The gathered kernels (``ctc_alpha_fwd``, ``ctc_bwd``: JAX's operands)
+    at S = 2 L + 1 above the lanes' 16,384 states, where they refused
+    before (CTC_GATHERED_BEYOND): the wide route (``ctc_gathered_wide_
+    kernel``) against ``ctc_forward_plain`` and ``ctc_bwd_plain`` (alphas
+    and ll within rtol 1e-4 / atol 1e-5, NEG entries equal; demit within
+    1e-4 of its largest entry + 1e-5; and whether the bits are equal),
+    two backward runs bit-equal, and against the fused form on the same
+    inputs (its alphas and ll; its d log_probs against demit summed per
+    class, ``class_sums_plain``). The transcript is shorter than the
+    padded L (the frames must hold it): the states past it are valid_s 0,
+    as a padded batch has them. Times as in ``check_ctc_beyond``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    blank = C - 1
+    log_probs = torch.log_softmax(torch.from_numpy(rng.normal(
+        size=(B, T, C)).astype(np.float32)).cuda(), dim=-1)
+    in_lens = rng.integers(T // 2, T + 1, size=B)
+    in_lens[0] = T
+    lab_lens = rng.integers(T // 4, T // 2, size=B)
+    labels = torch.from_numpy(rng.integers(0, C - 1, size=(B, L))).cuda()
+    in_mask = torch.from_numpy((np.arange(T)[None, :] < in_lens[:, None])
+                               .astype(np.float32)).cuda()
+    label_mask = torch.from_numpy((np.arange(L)[None, :]
+                                   < lab_lens[:, None])
+                                  .astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=B).astype(np.float32)).cuda()
+    emit, valid_s, can_skip, ext_lens, ext = CTC._fused_operands(
+        log_probs, labels, label_mask, blank)
+    S = emit.shape[2]
+    where = f"CTC gathered beyond B={B} T={T} S={S}"
+    if CTC.ctc_plan(S)["fwd"] != "wide":
+        raise AssertionError(f"{where}: not on the wide route")
+    args = (emit.contiguous(), in_mask, valid_s.contiguous(),
+            can_skip.contiguous(), ext_lens.contiguous())
+    before = (CTC.ctc_alpha_fwd.launches, CTC.ctc_bwd.launches)
+    alphas, ll = CTC.ctc_alpha_fwd(*args)
+    demit = CTC.ctc_bwd(*args, alphas, ll, g)
+    torch.cuda.synchronize()
+    if (CTC.ctc_alpha_fwd.launches, CTC.ctc_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"{where}: the wrappers did not launch")
+    plain_ms = {}
+
+    def timed(kind, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_ms[kind] = 1e3 * (time.perf_counter() - t1)
+        return out
+
+    w_alphas, w_ll = timed("fwd", lambda: CTC.ctc_forward_plain(*args))
+    fwd_err = max(_ctc_check(where, n, got, want) for n, got, want in (
+        ("alphas", alphas, w_alphas), ("ll", ll, w_ll)))
+    w_demit = timed("bwd", lambda: CTC.ctc_bwd_plain(*args, w_alphas, w_ll,
+                                                     g))
+    if not torch.isfinite(demit).all():
+        raise AssertionError(f"{where}: demit is not finite")
+    bwd_err = _check_grads(where, (demit,), (w_demit,), ("emit",))
+    if not torch.equal(demit, CTC.ctc_bwd(*args, alphas, ll, g)):
+        raise AssertionError(f"{where}: two backward runs differ")
+    bits = dict(fwd=bool(torch.equal(alphas, w_alphas)
+                         and torch.equal(ll, w_ll)),
+                bwd=bool(torch.equal(demit, w_demit)))
+    del w_alphas, w_demit
+    # the fused form on the same inputs
+    f_ll, f_alphas, f_betas = CTC.ctc_fused_fwd(
+        log_probs, labels, in_mask, label_mask, blank, grad=True)
+    fused_err = max(_ctc_check(where + " vs fused", n, got, want)
+                    for n, got, want in (("alphas", alphas, f_alphas),
+                                         ("ll", ll, f_ll)))
+    f_dlp = CTC.ctc_fused_bwd(labels, in_mask, label_mask, blank, C,
+                              f_alphas, f_betas, f_ll, g)
+    del f_alphas, f_betas
+    summed = CTC.class_sums_plain(demit, ext, C)
+    fused_grad_err = _check_grads(where + " vs fused", (summed,), (f_dlp,),
+                                  ("log_probs",))
+    row = dict(B=B, T=T, C=C, L=L, S=S, frames=in_lens.tolist(),
+               characters=lab_lens.tolist(), plan=CTC.ctc_plan(S),
+               fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+               plain_bit_equal=bits, bwd_bit_equal=True,
+               fused_max_abs_err=fused_err,
+               fused_bit_equal=bool(torch.equal(alphas, CTC.ctc_fused_fwd(
+                   log_probs, labels, in_mask, label_mask, blank,
+                   grad=True)[1])),
+               fused_grad_max_abs_err=fused_grad_err,
+               fused_grad_bit_equal=bool(torch.equal(summed, f_dlp)))
+    del f_dlp, summed
+    for kind, call in (
+            ("fwd", lambda: CTC.ctc_alpha_fwd(*args)),
+            ("bwd", lambda: CTC.ctc_bwd(*args, alphas, ll, g))):
+        row[f"{kind}_ms"] = _time_ms(call, reps=3, warmup=1)
+        row[f"{kind}_device_ms"] = _profiled_ms(
+            call, "ctc_gathered_wide_kernel", 3)
+        row[f"{kind}_plain_ms"] = plain_ms[kind]
+    lp_t = log_probs.detach().transpose(0, 1).requires_grad_(True)
+    lib_args = (labels, torch.from_numpy(in_lens), torch.from_numpy(lab_lens))
+
+    def lib_fwd():
+        return torch.nn.functional.ctc_loss(lp_t, *lib_args, blank=blank,
+                                            reduction="none")
+
+    lib_out = lib_fwd()
+    row["fwd_library_ms"] = _time_ms(lib_fwd, reps=3, warmup=1)
+    row["bwd_library_ms"] = _time_ms(lambda: torch.autograd.grad(
+        lib_out, lp_t, g, retain_graph=True), reps=3, warmup=1)
+    for kind, (bound_ms, bound_by) in _ctc_bounds(
+            B, T, S, C, in_lens, ext_lens.tolist()).items():
+        if kind in ("fwd", "bwd"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = (bound_ms,
+                                                                bound_by)
+    row["seconds"] = time.perf_counter() - t0
+    phase("ctc_gathered_beyond_check", **{k: v for k, v in row.items()
+                                         if k not in ("frames",
+                                                      "characters")})
+    return row
+
+
+def check_ctc_gathered_beyond_shapes():
+    return [check_ctc_gathered_beyond(B, T, C, L, B + T + C + L)
+            for B, T, C, L in CTC_GATHERED_BEYOND]
+
+
 def ctc_kernels():
     """``--ctc-kernels``: phase 6b alone (both operand forms at every
     CTC_SHAPES row with ``F.ctc_loss`` beside them, the chain floor, the
@@ -3091,6 +3258,7 @@ def ctc_kernels():
     build.build_all(["ctc"])
     out = dict(ctc_shapes=check_ctc_kernels(),
                ctc_beyond=check_ctc_beyond_shapes(),
+               ctc_gathered_beyond=check_ctc_gathered_beyond_shapes(),
                ctc_host_split=check_ctc_host_split())
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "ctc_kernels.json"), "w") as f:
@@ -5726,6 +5894,645 @@ def image_slice():
         json.dump(out, f, indent=1)
 
 
+# ------------------------------------------- 13. the rest of training
+CARRY_ROWS = 16       # (b): the carried state, card against the CPU
+ASYNC_REPEATS = 5     # (c): interleaved repeats of each loading mode
+# (d): 2 passes of 4 batches, a save every 2 batches, the kill at step 7
+# (pass 1, batch 2: after the save at pass 1's batch 2, before batch 4's)
+RESUME_PASSES, RESUME_CADENCE, RESUME_KILL_AT = 2, 2, 7
+DROP_PASSES = 3       # (e): the dropout classifier's cost over 3 passes
+EVAL_BATCH = 32       # (f): --job test over 2 batches of 32
+DROP_RATE = 0.5
+
+
+def _classifier_samples():
+    """The main config's train_reader: TRAIN_BATCHES fixed batches of
+    TRAIN_BATCH samples (lengths 1-SEQLEN, labels from a rule on the
+    ids)."""
+    rng = np.random.default_rng(SEED)
+    for _ in range(TRAIN_BATCHES):
+        batch = []
+        for n in rng.integers(1, SEQLEN + 1, size=TRAIN_BATCH):
+            ids = rng.integers(0, MODEL["vocab_size"], size=int(n))
+            low = (ids < MODEL["vocab_size"] // 2).mean()
+            batch.append((ids.tolist(), int(low > 0.5)))
+        yield batch
+
+
+def _classifier_feeder(device):
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    return DataFeeder({"words": integer_value_sequence(MODEL["vocab_size"]),
+                       "label": integer_value(MODEL["classes"])},
+                      pad_multiple=SEQLEN, device=device)
+
+
+def _classifier_trainer(device, optimizer=None, **kw):
+    """The h=1280 classifier's SGD on ``device``, its parameters from
+    SEED (the same on every device)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = lstm_text_classifier(**MODEL)[0]
+    params = SGD(cost, device="cpu", seed=SEED,
+                 update_equation=Adam(learning_rate=2e-3)).params
+    return SGD(cost, parameters=params, device=device,
+               update_equation=optimizer or Adam(learning_rate=2e-3), **kw)
+
+
+_DROPOUT_MODEL = """
+def dropout_classifier(dsl):
+    # lstm_text_classifier with dsl.dropout between the max-over-time
+    # pooling and the softmax fc
+    words = dsl.data(name="words", size={vocab}, is_sequence=True)
+    label = dsl.data(name="label", size={classes})
+    x = dsl.embedding(input=words, size={embed}, vocab_size={vocab},
+                      name="embed")
+    for i in range({layers}):
+        proj = dsl.fc(input=x, size={hidden} * 4, act="linear",
+                      name=f"lstm{{i}}_proj")
+        x = dsl.lstmemory(input=proj, name=f"lstm{{i}}")
+    pooled = dsl.pooling(input=x, pooling_type="max", name="pool_time")
+    dropped = dsl.dropout(pooled, {rate}, name="drop")
+    out = dsl.fc(input=dropped, size={classes}, act="softmax", name="output")
+    cost = dsl.classification_cost(input=out, label=label, name="cost")
+    return cost, out, label
+""".format(vocab=MODEL["vocab_size"], classes=MODEL["classes"],
+           embed=MODEL["embed_dim"], hidden=MODEL["hidden"],
+           layers=MODEL["num_layers"], rate=DROP_RATE)
+
+
+def _write_dropout_config(path, evaluators=False):
+    """The dropout classifier's config (the main config's data and Adam);
+    with ``evaluators`` it declares classification_error, auc,
+    precision_recall, pnpair and three printers, and a test reader of 2
+    batches of EVAL_BATCH."""
+    evals = textwrap.dedent("""
+        dsl.evaluator("classification_error", out, label=label, name="err")
+        dsl.evaluator("auc", out, label=label, name="auc")
+        dsl.evaluator("precision_recall", out, label=label, name="pr")
+        dsl.evaluator("pnpair", out, label=label, name="pnpair")
+        dsl.evaluator("max_id_printer", out, name="maxid")
+        dsl.evaluator("classification_error_printer", out, label=label,
+                      name="errs")
+        dsl.evaluator("value_printer", out, name="values")
+    """) if evaluators else ""
+    with open(path, "w") as f:
+        f.write(textwrap.dedent(f"""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import (
+                integer_value, integer_value_sequence)
+            from paddle_tpu_torch.optim import Adam
+        """) + _DROPOUT_MODEL + textwrap.dedent(f"""
+            cost, out, label = dropout_classifier(dsl)
+            outputs = [out]
+            optimizer = Adam(learning_rate=2e-3)
+            feeding = DataFeeder(
+                {{"words": integer_value_sequence({MODEL['vocab_size']}),
+                  "label": integer_value({MODEL['classes']})}},
+                pad_multiple={SEQLEN})
+
+            def _batches(seed, n, size):
+                rng = np.random.default_rng(seed)
+                for _ in range(n):
+                    batch = []
+                    for k in rng.integers(1, {SEQLEN + 1}, size=size):
+                        ids = rng.integers(0, {MODEL['vocab_size']},
+                                           size=int(k))
+                        low = (ids < {MODEL['vocab_size'] // 2}).mean()
+                        batch.append((ids.tolist(), int(low > 0.5)))
+                    yield batch
+
+            def train_reader():
+                return _batches({SEED}, {TRAIN_BATCHES}, {TRAIN_BATCH})
+
+            def test_reader():
+                return _batches({SEED + 5}, 2, {EVAL_BATCH})
+        """) + evals)
+
+
+def _cli_run(args, env=None, timeout=900, expect=0):
+    """One CLI process: (return code, stdout)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env=env)
+    if res.returncode != expect:
+        sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
+        raise AssertionError(f"trainer.cli {' '.join(args[:4])} exited "
+                             f"{res.returncode}, expected {expect}")
+    return res.stdout
+
+
+def _cli_inproc(args):
+    """One CLI job in this process (no interpreter start-up; the job
+    resets the kernel counts its summary reports): its standard output."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.trainer import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    if rc != 0:
+        sys.stderr.write(buf.getvalue()[-4000:])
+        raise AssertionError(f"trainer.cli {' '.join(args[:4])} returned "
+                             f"{rc}")
+    return buf.getvalue()
+
+
+def _summary(out, key="train_summary"):
+    return json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith(key + " "))[len(key) + 1:])
+
+
+def _pass_costs(out):
+    return [float(ln.split("cost=")[1].split()[0])
+            for ln in out.splitlines() if ln.startswith("Pass ")]
+
+
+def _max_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def _training_accum(conf, mom_conf):
+    """(a): one batch's gradient at k = 2 and 4 against the whole batch's
+    on the card; 2 passes of --job train at k = 2 against k = 1 (pass
+    costs within 1e-4 relative), the routes at the microbatch's rows and
+    the launches (one optimizer launch a step, a reverse chain per layer
+    and microbatch). The passes run the config with the CLI's default
+    Momentum: Adam's first steps are sign-like (m / sqrt(v) = +-1), so
+    an entry whose gradient is roundoff takes a whole step of either sign
+    and the trajectory measures that, not the accumulation; the Adam
+    config's k = 2 pass costs are recorded beside k = 1's (phase 8's,
+    or run here)."""
+    from paddle_tpu_torch import ops
+    trainer = _classifier_trainer("cuda")
+    feed = trainer._to_device(_classifier_batch())
+    _, loss, whole, _, _ = trainer._grads(feed, seed=0)
+    row = dict(loss=float(loss), routes={
+        rows: L.lstm_route(rows, MODEL["hidden"])
+        for rows in (TRAIN_BATCH, TRAIN_BATCH // 2, TRAIN_BATCH // 4)})
+    for k in (2, 4):
+        ops.reset_kernel_counts()
+        metrics, grads, _ = trainer._accum_grads(feed, k, seed=0)
+        torch.cuda.synchronize()
+        counts = ops.kernel_counts()
+        if counts["lstm_bwd_chain"]["launches"] != k * MODEL["num_layers"]:
+            raise AssertionError(f"accumulation at k={k}: {counts}")
+        errs = {}
+        for name, w in whole.items():
+            err = (grads[name] - w).abs().max().item()
+            limit = 1e-4 * w.abs().max().item() + 1e-5
+            errs[name] = err
+            if not err <= limit:
+                raise AssertionError(f"accumulated gradient {name} at k={k}:"
+                                     f" {err} > {limit}")
+        loss_err = abs(float(metrics["cost"]) - float(loss)) / abs(
+            float(loss))
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"accumulated loss at k={k}: rel err "
+                                 f"{loss_err}")
+        row[f"k{k}"] = dict(max_abs_err=max(errs.values()),
+                            loss_rel_err=loss_err,
+                            lstm_seq_train_launches=counts[
+                                "lstm_seq_train"]["launches"],
+                            lstm_bwd_chain_launches=counts[
+                                "lstm_bwd_chain"]["launches"])
+    del trainer, whole, grads
+    runs = {}
+    for k in (1, 2):
+        out = _cli_inproc(["--config", mom_conf, "--job", "train",
+                           "--num_passes", "2", "--seed", str(SEED),
+                           "--grad_accum_steps", str(k)])
+        runs[k] = (_pass_costs(out), _summary(out))
+    (c1, s1), (c2, s2) = runs[1], runs[2]
+    rel = _max_rel(c2, c1)
+    if not (len(c2) == len(c1) == 2 and rel <= 1e-4):
+        raise AssertionError(f"k=2 pass costs {c2} against k=1 {c1}: rel "
+                             f"{rel}")
+    steps, counts = s2["steps"], s2["kernels"]
+    _check_opt_launches("--grad_accum_steps 2", counts, steps, "momentum")
+    _check_lstm_chains("--grad_accum_steps 2", counts,
+                       2 * MODEL["num_layers"] * steps)
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       "2", "--seed", str(SEED), "--grad_accum_steps", "2"])
+    adam_k2, adam_summary = _pass_costs(out), _summary(out)
+    _check_opt_launches("Adam --grad_accum_steps 2", adam_summary["kernels"],
+                        adam_summary["steps"])
+    row.update(pass_costs_k2=c2, pass_costs_k1=c1, pass_cost_rel_err=rel,
+               steps=steps, median_step_ms_k1=s1["median_step_ms"],
+               median_step_ms_k2=s2["median_step_ms"],
+               adam_pass_costs_k2=adam_k2,
+               adam_median_step_ms_k2=adam_summary["median_step_ms"],
+               kernels=counts, adam_kernels=adam_summary["kernels"])
+    return row
+
+
+def _training_carry():
+    """(b): 3 batches of CARRY_ROWS rows with ``prev_batch_state`` on the
+    card and on the CPU plain path, from the same parameters (Momentum,
+    the CLI's default: Adam's first steps are sign-like, and a gradient
+    of roundoff would flip a step): every batch's cost within 1e-4
+    relative and the carried h and c of both layers within 1e-4 of the
+    largest + 1e-5; the LSTM's residual kernel launched with a non-zero
+    h0 from the second batch on."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.optim import Momentum
+    rng = np.random.default_rng(SEED + 3)
+    feeder = _classifier_feeder("cpu")
+    feeds = [feeder([(rng.integers(0, MODEL["vocab_size"], size=int(n))
+                      .tolist(), int(rng.integers(0, 2)))
+                     for n in rng.integers(1, SEQLEN + 1, size=CARRY_ROWS)])
+             for _ in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = _classifier_trainer(device, Momentum(learning_rate=0.01,
+                                                  momentum=0.9),
+                                 prev_batch_state=True)
+        costs, carried, h0_max, launches = [], [], [], []
+        for i, feed in enumerate(feeds):
+            h0 = tr._carried
+            h0_max.append(0.0 if h0 is None else max(
+                float(h0[n][0].abs().max()) for n in h0))
+            ops.reset_kernel_counts()
+            costs.append(float(tr.train_step(tr._to_device(feed),
+                                             seed=i)["cost"]))
+            launches.append(ops.kernel_counts()["lstm_seq_train"]["launches"])
+            carried.append({n: tuple(t.cpu() for t in st)
+                            for n, st in tr._carried.items()})
+        runs[device] = (costs, carried, h0_max, launches)
+        del tr
+    (cc, ccar, h0c, lc), (pc, pcar, _, _) = runs["cuda"], runs["cpu"]
+    rel = _max_rel(cc, pc)
+    if not rel <= 1e-4:
+        raise AssertionError(f"prev_batch_state costs card {cc}, CPU {pc}")
+    if not (h0c[0] == 0.0 and min(h0c[1:]) > 0
+            and lc == [MODEL["num_layers"]] * 3):
+        raise AssertionError(f"prev_batch_state: h0 max {h0c}, "
+                             f"lstm_seq_train launches {lc}")
+    err = 0.0
+    for got, want in zip(ccar, pcar):
+        for n in want:
+            for g, w in zip(got[n], want[n]):
+                e = (g - w).abs().max().item()
+                if not e <= 1e-4 * w.abs().max().item() + 1e-5:
+                    raise AssertionError(f"carried state of {n}: {e}")
+                err = max(err, e)
+    return dict(rows=CARRY_ROWS, costs_cuda=cc, costs_cpu=pc,
+                cost_rel_err=rel, carried_max_abs_err=err, h0_max_abs=h0c,
+                lstm_seq_train_launches=lc, optimizer="Momentum(0.01, 0.9)")
+
+
+def _training_async():
+    """(c): one pass of the 4 batches with synchronous loading and with
+    ``async_load_data`` (depth 2), ASYNC_REPEATS of each interleaved (S A
+    A S ...), each from the same parameters: every run's final parameters
+    bit-equal to the first synchronous run's; each run's wall ms a step
+    (the wait for the batch and the step), its median over the steps; the
+    median and the spread of those over the repeats."""
+    feeder = _classifier_feeder("cuda")
+    ref, per_mode = None, {"sync": [], "async": []}
+    order = [m for i in range(ASYNC_REPEATS)
+             for m in (("sync", "async") if i % 2 == 0
+                       else ("async", "sync"))]
+    for mode in order:
+        tr = _classifier_trainer("cuda")
+        tr.train(_classifier_samples, feeder=feeder, num_passes=1,
+                 async_load_data=mode == "async", prefetch_depth=2)
+        torch.cuda.synchronize()
+        params = {k: v.detach().clone() for k, v in tr.params.items()}
+        if ref is None:
+            ref = params
+        elif not all(torch.equal(params[k], ref[k]) for k in ref):
+            raise AssertionError(f"{mode} loading: the parameters differ "
+                                 "from the first synchronous run's")
+        walls = [1e3 * (w + s) for w, s in zip(tr.data_wait_seconds,
+                                                tr.step_seconds)]
+        per_mode[mode].append(dict(
+            wall_ms=statistics.median(walls),
+            step_ms=statistics.median(1e3 * s for s in tr.step_seconds),
+            wait_ms=statistics.median(1e3 * w
+                                      for w in tr.data_wait_seconds)))
+        del tr
+    row = dict(order=order, bit_equal=True, repeats=per_mode)
+    for mode, reps in per_mode.items():
+        walls = [r["wall_ms"] for r in reps]
+        row[f"{mode}_wall_ms_median"] = statistics.median(walls)
+        row[f"{mode}_wall_ms_spread"] = [min(walls), max(walls)]
+        row[f"{mode}_wait_ms_median"] = statistics.median(
+            r["wait_ms"] for r in reps)
+    return row
+
+
+def _training_save_times(tmp):
+    """The caller's wall time of one save of the classifier's parameters
+    and Adam slots (3 x 24,186,882 floats) in the foreground (serialise,
+    fsync, rename) and in the background (the copy to the host; the
+    writer's own time to the end of its flush beside it), 2 of each
+    interleaved (F B B F)."""
+    from paddle_tpu_torch.dist.checkpoint import Checkpointer
+    tr = _classifier_trainer("cuda")
+    tr.train_step(tr._to_device(_classifier_batch()), seed=0)
+    torch.cuda.synchronize()
+    times = {"foreground": [], "background": [], "background_flush": []}
+    for i, bg in enumerate((False, True, True, False)):
+        ck = Checkpointer(os.path.join(tmp, f"save_{i}"), background=bg)
+        t0 = time.perf_counter()
+        ck.save(lambda: tr.params, lambda: tr.opt_state, pass_id=0,
+                trainer_state=tr._trainer_state_for_save)
+        t1 = time.perf_counter()
+        ck.close()
+        t2 = time.perf_counter()
+        times["background" if bg else "foreground"].append(1e3 * (t1 - t0))
+        if bg:
+            times["background_flush"].append(1e3 * (t2 - t0))
+        shutil.rmtree(os.path.join(tmp, f"save_{i}"), ignore_errors=True)
+    n = sum(v.numel() for v in tr.params.values())
+    return dict(parameters=n, **{f"{k}_ms": v for k, v in times.items()},
+                **{f"{k}_ms_median": statistics.median(v)
+                   for k, v in times.items()})
+
+
+def _newest_state(save_dir):
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_checkpoint)
+    path = latest_checkpoint(save_dir)
+    return os.path.basename(path), load_checkpoint(path)
+
+
+def _same_bits(a, b):
+    """The keys of two checkpoints' (params, opt, state) that differ."""
+    diff = []
+    for x, y in zip(a, b):
+        if set(x) != set(y):
+            return ["key sets"]
+        diff += [k for k in x if not np.array_equal(x[k], y[k])]
+    return diff
+
+
+def _training_resume(tmp, conf):
+    """(d): the dropout classifier, --save_dir D --saving_period_by_batches
+    2 --background_save, RESUME_PASSES passes: twice without a kill (the
+    same bits), then killed by an ``exit`` fault at step RESUME_KILL_AT
+    (a process of its own: ``os._exit``) and run again without the plan:
+    the final checkpoint bit-equal to the runs without the kill (every
+    key: parameters, slots, counters, the step generator). The runs
+    without a kill and the resumed one run in this process."""
+    from paddle_tpu_torch.testing.chaos import FaultPlan
+    args = ["--config", conf, "--job", "train", "--num_passes",
+            str(RESUME_PASSES), "--seed", str(SEED),
+            "--saving_period_by_batches", str(RESUME_CADENCE),
+            "--background_save"]
+    env = dict(os.environ)
+    env.pop("PADDLE_TPU_CHAOS_PLAN", None)
+    clean = []
+    for i in range(2):
+        save_dir = os.path.join(tmp, f"resume_clean{i}")
+        out = _cli_inproc(args + ["--save_dir", save_dir])
+        clean.append((save_dir, _pass_costs(out), _summary(out)))
+    states = [_newest_state(d) for d, _, _ in clean]
+    diff = _same_bits(states[0][1], states[1][1])
+    if diff:
+        raise AssertionError(f"two runs without a kill differ in {diff}")
+    kill_dir = os.path.join(tmp, "resume_kill")
+    plan = FaultPlan(faults=[{"type": "kill", "site": "step_done",
+                              "at": RESUME_KILL_AT, "mode": "exit"}])
+    killed = _cli_run(args + ["--save_dir", kill_dir],
+                      env=dict(env, PADDLE_TPU_CHAOS_PLAN=plan.to_json()),
+                      expect=plan.exit_code)
+    saved = sorted(n for n in os.listdir(kill_dir) if n.endswith(".npz"))
+    out = _cli_inproc(args + ["--save_dir", kill_dir])
+    resumed = _newest_state(kill_dir)
+    diff = _same_bits(states[0][1], resumed[1])
+    if diff or resumed[0] != states[0][0]:
+        raise AssertionError(f"the resumed run's {resumed[0]} differs from "
+                             f"{states[0][0]} in {diff}")
+    summary = _summary(out)
+    return dict(passes=RESUME_PASSES, cadence=RESUME_CADENCE,
+                kill_at=RESUME_KILL_AT, saved_at_kill=saved,
+                killed_passes=_pass_costs(killed),
+                resumed_steps=summary["steps"],
+                resumed_pass_costs=_pass_costs(out),
+                clean_pass_costs=clean[0][1],
+                final_checkpoint=states[0][0],
+                keys=sum(len(x) for x in states[0][1]), bit_equal=True,
+                two_clean_runs_bit_equal=True,
+                save_ms=clean[0][2]["save_ms"],
+                median_step_ms=clean[0][2]["median_step_ms"],
+                kernels=clean[0][2]["kernels"])
+
+
+def _training_dropout(conf):
+    """(e): the keep mask on the card at the dropout layer's shape
+    (TRAIN_BATCH x hidden): the keep fraction within 4 sigma of the
+    binomial mean, the same bits from one seed twice, another layer's
+    stream another mask; the gradient through the layer the mask times the
+    upstream gradient; the dropout classifier's cost over DROP_PASSES
+    passes of --job train falling."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core import network
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       str(DROP_PASSES), "--seed", str(SEED)])
+    costs, summary = _pass_costs(out), _summary(out)
+    shape = (TRAIN_BATCH, MODEL["hidden"])
+    ctx = network.Context(train=True, seed=SEED)
+    a = network._dropout_mask(shape, DROP_RATE, ctx, "drop", "cuda")
+    b = network._dropout_mask(shape, DROP_RATE, ctx, "drop", "cuda")
+    other = network._dropout_mask(shape, DROP_RATE, ctx, "other", "cuda")
+    n = a.numel()
+    kept = float(a.sum())
+    sigma = (n * DROP_RATE * (1 - DROP_RATE)) ** 0.5
+    dsl.reset()
+    x = dsl.data(name="x", size=MODEL["hidden"])
+    d = dsl.dropout(x, DROP_RATE, name="drop")
+    net = network.Network(dsl.current_graph(), outputs=[d.name])
+    xv = torch.randn(*shape, device="cuda", requires_grad=True)
+    up = torch.randn(*shape, device="cuda")
+    y = net.apply({}, {"x": Argument(xv)}, train=True, seed=SEED)["drop"]
+    (gx,) = torch.autograd.grad((y.value * up).sum(), [xv])
+    ok = dict(
+        keep_within_4_sigma=abs(kept - n * (1 - DROP_RATE)) <= 4 * sigma,
+        same_bits=bool(torch.equal(a, b)),
+        layers_differ=not bool(torch.equal(a, other)),
+        grad_is_mask_times_upstream=bool(torch.equal(gx, a * up)),
+        costs_fall=bool(all(np.isfinite(costs)) and costs[-1] < costs[0]))
+    if not all(ok.values()):
+        raise AssertionError(f"dropout on the card: {ok}")
+    return dict(shape=list(shape), rate=DROP_RATE, kept=kept,
+                expected=n * (1 - DROP_RATE), sigma=sigma, pass_costs=costs,
+                median_step_ms=summary["median_step_ms"],
+                kernels=summary["kernels"], **ok)
+
+
+def _printed_floats(out, tag):
+    lines = [ln for ln in out.splitlines() if not ln.startswith(
+        ("Test:", "test_summary", "Pass"))]
+    return [float(v) for ln in lines for v in ln.replace(",", " ").split()
+            if v.replace(".", "", 1).replace("-", "", 1).replace(
+                "e", "", 1).isdigit()]
+
+
+def _training_evaluators(tmp, save_dir):
+    """(f): --job test of the dropout classifier's checkpoint (d) with
+    classification_error, auc, precision_recall and pnpair declared and
+    three printers, on the card and on the CPU plain path (both in this
+    process): every evaluator value within 1e-6, the
+    printers' lines printed, their numbers within 1e-5 of the CPU's."""
+    conf = os.path.join(tmp, "eval_conf.py")
+    _write_dropout_config(conf, evaluators=True)
+    args = ["--config", conf, "--job", "test", "--save_dir", save_dir]
+    card = _cli_inproc(args)
+    cpu = _cli_inproc(args + ["--device", "cpu"])
+
+    def values(out):
+        line = next(ln for ln in out.splitlines() if ln.startswith("Test:"))
+        return {kv.split("=")[0]: float(kv.split("=")[1])
+                for kv in line[len("Test: "):].split()}
+
+    vc, vp = values(card), values(cpu)
+    errs = {k: abs(vc[k] - vp[k]) for k in vp}
+    if set(vc) != set(vp) or max(errs.values()) > 1e-6 \
+            or not {"err", "auc", "pr", "pnpair"} <= set(vc):
+        raise AssertionError(f"evaluators card {vc}, CPU {vp}")
+    pc, pp = _printed_floats(card, ""), _printed_floats(cpu, "")
+    heads = ("row max id vector", "Classification Error", "value:")
+    if len(pc) != len(pp) or not all(h in card for h in heads):
+        raise AssertionError("the printers' lines differ in shape")
+    print_err = max(abs(a - b) for a, b in zip(pc, pp))
+    if print_err > 1e-5:
+        raise AssertionError(f"printed numbers differ by {print_err}")
+    return dict(card=vc, cpu=vp, max_abs_err=max(errs.values()),
+                printed_numbers=len(pc), printed_max_abs_err=print_err,
+                test_kernels=_summary(card, "test_summary")["kernels"])
+
+
+_CHECKGRAD_CONF = """
+import numpy as np
+from paddle_tpu_torch.data.feeder import DataFeeder
+from paddle_tpu_torch.data.types import integer_value, integer_value_sequence
+from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+cost, out, _ = lstm_text_classifier(vocab_size=50, embed_dim=32, hidden=32,
+                                    num_layers=2, classes=2)
+feeding = DataFeeder({"words": integer_value_sequence(50),
+                      "label": integer_value(2)}, pad_multiple=16)
+
+def train_reader():
+    rng = np.random.default_rng(3)
+    batch = []
+    for n in rng.integers(1, 17, size=8):
+        ids = rng.integers(0, 50, size=int(n))
+        batch.append((ids.tolist(), int((ids < 25).mean() > 0.5)))
+    yield batch
+"""
+
+
+def _training_jobs(tmp, conf):
+    """(g): --job time of the main config on the card (its step times),
+    --job checkgrad of a small LSTM classifier on the card (autograd
+    through the LSTM kernels against float64 central differences)."""
+    out = _cli_inproc(["--config", conf, "--job", "time", "--time_batches",
+                       "5", "--time_warmup", "2", "--seed", str(SEED)])
+    timing = _summary(out, "time_summary")
+    if len(timing["step_ms"]) != 5 \
+            or timing["kernels"]["lstm_seq_train"]["launches"] <= 0:
+        raise AssertionError(f"--job time: {out[-2000:]}")
+    small = os.path.join(tmp, "checkgrad_conf.py")
+    with open(small, "w") as f:
+        f.write(_CHECKGRAD_CONF)
+    from paddle_tpu_torch import ops
+    ops.reset_kernel_counts()
+    line = _cli_inproc(["--config", small, "--job",
+                        "checkgrad"]).strip().splitlines()[-1]
+    launched = ops.kernel_counts()["lstm_seq_train"]["launches"]
+    if "PASSED" not in line or launched <= 0:
+        raise AssertionError(f"--job checkgrad: {line}, {launched} "
+                             "lstm_seq_train launches")
+    return dict(time=timing, checkgrad=line,
+                checkgrad_lstm_seq_train_launches=launched)
+
+
+def check_training(tmp, adam_k1_costs=None):
+    """Phase 13, the rest of training: (a) to (g) at the classifier's
+    full width. ``adam_k1_costs``: the Adam config's pass costs at k = 1
+    (phase 8's run), recorded beside its k = 2 run's. Returns the row, its
+    ``launches`` the CLI runs' kernel counts summed."""
+    t0 = time.perf_counter()
+    conf = os.path.join(tmp, "training_conf.py")
+    _write_config(conf, "optimizer = Adam(learning_rate=2e-3)")
+    mom_conf = os.path.join(tmp, "training_momentum_conf.py")
+    _write_config(mom_conf, "# no optimizer: the CLI's default Momentum")
+    drop_conf = os.path.join(tmp, "dropout_conf.py")
+    _write_dropout_config(drop_conf)
+    row, seconds = {}, {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    row["accum"] = part("accum", _training_accum, conf, mom_conf)
+    row["accum"]["adam_pass_costs_k1"] = adam_k1_costs
+    row["prev_batch_state"] = part("prev_batch_state", _training_carry)
+    row["async"] = part("async", _training_async)
+    row["save_times"] = part("save_times", _training_save_times, tmp)
+    row["resume"] = part("resume", _training_resume, tmp, drop_conf)
+    row["dropout"] = part("dropout", _training_dropout, drop_conf)
+    row["evaluators"] = part("evaluators", _training_evaluators, tmp,
+                             os.path.join(tmp, "resume_clean0"))
+    row["jobs"] = part("jobs", _training_jobs, tmp, conf)
+    launches = {}
+    for counts in (row["accum"]["kernels"], row["accum"]["adam_kernels"],
+                   row["resume"]["kernels"], row["dropout"]["kernels"],
+                   row["evaluators"]["test_kernels"]):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c["launches"]
+    row.update(launches=launches, part_seconds=seconds,
+               seconds=time.perf_counter() - t0)
+    phase("training", seconds=row["seconds"], part_seconds=seconds,
+          launches={k: v for k, v in launches.items() if v},
+          accum={k: row["accum"][k] for k in (
+              "routes", "k2", "k4", "pass_costs_k1", "pass_costs_k2",
+              "pass_cost_rel_err", "median_step_ms_k1", "median_step_ms_k2",
+              "adam_pass_costs_k1", "adam_pass_costs_k2",
+              "adam_median_step_ms_k2")},
+          carry={k: row["prev_batch_state"][k] for k in (
+              "cost_rel_err", "carried_max_abs_err", "h0_max_abs")},
+          async_wall_ms={m: (row["async"][f"{m}_wall_ms_median"],
+                             row["async"][f"{m}_wall_ms_spread"])
+                         for m in ("sync", "async")},
+          save_ms={k: row["save_times"][f"{k}_ms_median"] for k in (
+              "foreground", "background", "background_flush")},
+          resume={k: row["resume"][k] for k in (
+              "saved_at_kill", "final_checkpoint", "keys", "bit_equal",
+              "clean_pass_costs")},
+          evaluators={k: row["evaluators"][k] for k in (
+              "card", "max_abs_err", "printed_max_abs_err")},
+          time_median_step_ms=row["jobs"]["time"]["median_step_ms"],
+          checkgrad=row["jobs"]["checkgrad"])
+    return row
+
+
+def training():
+    """``--training``: phase 13 alone; its row in ``training.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["lstm_seq", "opt_update"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        out = check_training(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "training.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -5788,6 +6595,10 @@ def main() -> int:
     parser.add_argument("--image", action="store_true",
                         help="only phase 12, the image slice (ResNet-50 at "
                         "entry()'s shape, its training check, LeNet)")
+    parser.add_argument("--training", action="store_true",
+                        help="only phase 13, the rest of training (gradient "
+                        "accumulation, prev_batch_state, async loading, "
+                        "kill and resume, dropout, evaluators, the jobs)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -5820,6 +6631,9 @@ def main() -> int:
     if args.image:
         image_slice()
         return 0
+    if args.training:
+        training()
+        return 0
     seconds = {}  # each phase's wall time
 
     def timed(name, fn, *args, **kw):
@@ -5839,6 +6653,8 @@ def main() -> int:
     tag_lstm_rows = timed("tagger_lstm_kernels", check_tagger_lstm_kernels)
     ctc_rows = timed("ctc_kernels", check_ctc_kernels)
     ctc_beyond = timed("ctc_beyond", check_ctc_beyond_shapes)
+    ctc_gathered = timed("ctc_gathered_beyond",
+                         check_ctc_gathered_beyond_shapes)
     ctc_split = timed("ctc_host_split", check_ctc_host_split)
     flash_rows = timed("flash_kernels", check_flash_kernels)
     wide_layer = timed("flash_wide_layer", check_wide_attention_layer)
@@ -5859,6 +6675,8 @@ def main() -> int:
                            tag_model)
         acoustic = timed("acoustic", train_acoustic, tmp)
         image = timed("image", check_image, tmp)
+        training_row = timed("training", check_training, tmp,
+                             trained["pass_costs"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -5923,6 +6741,7 @@ def main() -> int:
                     main_row),
              shape={k: main_row[k] for k in ("B", "H", "T")},
              **_lstm_route_keys(main_row, ""),
+             training_launches=training_row["launches"]["lstm_seq"],
              path="lstm_text_classifier serve"),
         dict(_entry("lstm_seq_train", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     counts["lstm_seq_train"]["launches"],
@@ -5930,6 +6749,7 @@ def main() -> int:
                     "fwd_"),
              shape={k: t_row[k] for k in ("B", "H", "T")},
              **_lstm_route_keys(t_row, "fwd_"),
+             training_launches=training_row["launches"]["lstm_seq_train"],
              path="lstm_text_classifier train"),
         dict(_entry("lstm_bwd_chain", lstm_src,
                     "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
@@ -5937,7 +6757,9 @@ def main() -> int:
                     max([r["bwd_max_abs_err"] for r in train_rows]
                         + [reverse_err]), t_row, "chain_"),
              shape={k: t_row[k] for k in ("B", "H", "T")},
-             **_lstm_chain_keys(t_row), path="lstm_text_classifier train"),
+             **_lstm_chain_keys(t_row),
+             training_launches=training_row["launches"]["lstm_bwd_chain"],
+             path="lstm_text_classifier train"),
         dict(_entry("lstm_bwd_step", lstm_src,
                     "JAX lax.scan paddle_tpu/ops/lstm.py:358 (_bwd_rule)",
                     counts["lstm_bwd_step"]["launches"],
@@ -6054,6 +6876,7 @@ def main() -> int:
                     + ac_counts["adam"]["launches"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              **_opt_keys(opt_rows["adam"]),
+             training_launches=training_row["launches"]["adam"],
              library="torch._fused_adam_ (eps / sqrt(1 - beta2^t))"),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
                     tag_counts["crf_alpha_fwd"]["launches"]
@@ -6231,6 +7054,25 @@ def main() -> int:
              on_path=False,
              path="none: the gathered form's beta chain; timed here at the "
                   "acoustic model's shape"),
+        # the gathered form's wide route (S above 16,384): on no path
+        dict(_entry("ctc_alpha_fwd_wide", ctc_src,
+                    "paddle_tpu/ops/ctc.py:87", 0,
+                    max(r["fwd_max_abs_err"] for r in ctc_gathered),
+                    ctc_gathered[-1], "fwd_"),
+             shape={k: ctc_gathered[-1][k] for k in ("B", "T", "S")},
+             device_ms=ctc_gathered[-1]["fwd_device_ms"],
+             library="torch.nn.functional.ctc_loss forward",
+             on_path=False, kernel_route="wide",
+             path="none: the gathered form above 16,384 states"),
+        dict(_entry("ctc_bwd_wide", ctc_src,
+                    "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)", 0,
+                    max(r["bwd_max_abs_err"] for r in ctc_gathered),
+                    ctc_gathered[-1], "bwd_"),
+             shape={k: ctc_gathered[-1][k] for k in ("B", "T", "S")},
+             device_ms=ctc_gathered[-1]["bwd_device_ms"],
+             library="torch.nn.functional.ctc_loss backward",
+             on_path=False, kernel_route="wide",
+             path="none: the gathered form above 16,384 states"),
         # the fused kernels' routes above the lane chains and the staged
         # posterior pass: on no path's shapes
         dict(_entry("ctc_fused_fwd_wide", ctc_src, "paddle_tpu/ops/ctc.py:87",
@@ -6252,6 +7094,9 @@ def main() -> int:
              path="none: no path's classes overflow the staged pass"),
     ]
     for e in entries:
+        if "training_launches" in e and e["training_launches"] <= 0:
+            raise AssertionError(f"the rest of training never launched "
+                                 f"{e['name']}")
         if e.get("on_path", True) and e["launches"] <= 0:
             raise AssertionError(f"the main path never launched {e['name']}")
         if not e.get("on_path", True) and e["launches"] != 0:
@@ -6272,13 +7117,16 @@ def main() -> int:
                    "flash_shapes": flash_rows,
                    "flash_wide_layer": wide_layer,
                    "flash_host_split": flash_split, "ctc_shapes": ctc_rows,
-                   "ctc_beyond": ctc_beyond, "ctc_host_split": ctc_split,
+                   "ctc_beyond": ctc_beyond,
+                   "ctc_gathered_beyond": ctc_gathered,
+                   "ctc_host_split": ctc_split,
                    "image": image,
                    "train": trained, "serve": served, "seq2seq": s2s,
                    "seq2seq_generate_serve": gen_served,
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
                    "tagger": tagger, "tagger_serve": tag_served,
-                   "acoustic": acoustic, "elapsed_s": elapsed,
+                   "acoustic": acoustic, "training": training_row,
+                   "elapsed_s": elapsed,
                    "phase_seconds": seconds,
                    **kernels},
                   f, indent=1)

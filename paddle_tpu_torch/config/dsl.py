@@ -99,11 +99,28 @@ def data(name: str, size: int, *, height: int = None, width: int = None,
     return _add(ldef)
 
 
+def _drop_rate(layer_attr: Optional[dict]) -> float:
+    """A ``layer_attr``'s dropout rate (the reference's
+    ``ExtraLayerAttribute(drop_rate=...)``); 0 without one."""
+    return float((layer_attr or {}).get("drop_rate", 0.0))
+
+
 def fc(input, size: int, *, act: str = "tanh", name: str = None,
-       bias_attr=True, param_attr=None) -> LayerOutput:
+       bias_attr=True, param_attr=None,
+       layer_attr: Optional[dict] = None) -> LayerOutput:
     ins = [Input(i.name, param_attr=_param(param_attr)) for i in _in(input)]
     ldef = LayerDef(name=name or _auto_name("fc"), type="fc", inputs=ins,
-                    size=size, act=act, bias=_bias(bias_attr))
+                    size=size, act=act, bias=_bias(bias_attr),
+                    drop_rate=_drop_rate(layer_attr))
+    return _add(ldef)
+
+
+def dropout(input, rate: float, *, name: str = None) -> LayerOutput:
+    """The reference expresses dropout as a layer attribute; this helper
+    adds an identity ``addto`` carrying ``drop_rate``."""
+    src = _in(input)[0]
+    ldef = LayerDef(name=name or _auto_name("dropout"), type="addto",
+                    inputs=[Input(src.name)], bias=False, drop_rate=rate)
     return _add(ldef)
 
 

@@ -11,6 +11,7 @@ graph it builds is what the trainer differentiates.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -35,6 +36,40 @@ class Context:
         default_factory=dict)
     # cross-batch recurrent state: layer name -> initial state
     carried: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the step's seed (training-mode dropout): each layer folds its name in
+    seed: Optional[int] = None
+
+    def layer_seed(self, name: str) -> int:
+        """The seed of one layer's random stream: the step's seed with
+        ``crc32(name)`` folded in (JAX ``Context.layer_rng``)."""
+        if self.seed is None:
+            raise ValueError("this apply needs a step seed (training-mode "
+                             "dropout)")
+        return fold_seed(self.seed, zlib.crc32(name.encode()))
+
+
+_MASK63 = (1 << 63) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A 63-bit seed from ``seed`` and ``data`` (splitmix64's mixer): the
+    counterpart of ``jax.random.fold_in`` for the port's seeds."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & (2**64 - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2**64 - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2**64 - 1)
+    return (z ^ (z >> 31)) & _MASK63
+
+
+def _dropout_mask(shape, rate: float, ctx: Context, name: str,
+                  device) -> torch.Tensor:
+    """The 0/1 keep mask (float32) of layer ``name``'s training-mode
+    dropout: each entry kept with probability 1 - rate, drawn on
+    ``device`` from a generator seeded by the step's seed and
+    ``crc32(name + "/drop")``. The same seed gives the same mask."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ctx.layer_seed(name + "/drop"))
+    u = torch.rand(shape, generator=gen, device=device)
+    return (u < 1.0 - rate).to(torch.float32)
 
 
 def _resolve_param_name(layer: LayerDef, suffix: str, spec: ParamSpec,
@@ -137,21 +172,23 @@ class Network:
     def apply(self, params: Dict[str, torch.Tensor],
               feed: Dict[str, Argument], *, train: bool = False,
               carried: Optional[Dict[str, Any]] = None,
-              ) -> Dict[str, Argument]:
+              seed: Optional[int] = None) -> Dict[str, Argument]:
         """Forward over the whole graph. ``feed`` maps data-layer names to
-        Arguments; returns every layer's output keyed by layer name."""
+        Arguments; returns every layer's output keyed by layer name.
+        ``seed``: the step's seed, which training-mode dropout needs."""
         return self.apply_with_state(params, feed, train=train,
-                                     carried=carried)[0]
+                                     carried=carried, seed=seed)[0]
 
     def apply_with_state(self, params: Dict[str, torch.Tensor],
                          feed: Dict[str, Argument], *, train: bool = False,
                          carried: Optional[Dict[str, Any]] = None,
+                         seed: Optional[int] = None,
                          ) -> Tuple[Dict[str, Argument],
                                     Dict[str, torch.Tensor]]:
         """``apply`` that also returns the state updates (batch norm's
         moving statistics, by parameter name), detached: no gradient flows
         through them, as in JAX, where they are ``value_and_grad``'s aux."""
-        ctx = Context(train=train, carried=carried or {})
+        ctx = Context(train=train, carried=carried or {}, seed=seed)
         for name in self.order:
             if self.model.layers[name].type == "data":
                 if name not in feed:
@@ -185,11 +222,14 @@ class Network:
             out = out.with_value(apply_activation(layer.act, out.value,
                                                   out.mask))
         if layer.drop_rate > 0.0:
+            # reference (non-inverted) dropout (``Layer::forwardDropOut``):
+            # training multiplies by a 0/1 keep mask, test scales by 1-rate
             if ctx.train:
-                raise NotImplementedError(
-                    "training-mode dropout is not ported yet")
-            # reference (non-inverted) dropout scales at test time
-            out = out.with_value(out.value * (1.0 - layer.drop_rate))
+                keep = _dropout_mask(out.value.shape, layer.drop_rate, ctx,
+                                     name, out.value.device)
+                out = out.with_value(out.value * keep.to(out.value.dtype))
+            else:
+                out = out.with_value(out.value * (1.0 - layer.drop_rate))
         return out
 
     def param_meta(self) -> Dict[str, ParamSpec]:

@@ -80,9 +80,22 @@ class DataFeeder:
         return _ceil_to(raw_max, self.pad_multiple)
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr)
 
-    def convert(self, batch: List[Tuple]) -> Dict[str, Argument]:
+    def convert(self, batch: List[Tuple], host: bool = False
+                ) -> Dict[str, Argument]:
+        """One batch as Arguments on ``device``; with ``host`` as CPU
+        tensors (the prefetch pipeline copies them itself)."""
+        feed = self._convert_host(batch)
+        if host:
+            return feed
+
+        def move(t):
+            return None if t is None else t.to(self.device)
+        return {k: Argument(value=move(a.value), mask=move(a.mask))
+                for k, a in feed.items()}
+
+    def _convert_host(self, batch: List[Tuple]) -> Dict[str, Argument]:
         n_real = len(batch)
         row_mask = None
         if self.batch_buckets:

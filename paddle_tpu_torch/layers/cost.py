@@ -10,6 +10,7 @@ the batch (``Argument::sum(outArgs)/batchSize`` in
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.argument import Argument
 from paddle_tpu_torch.core.registry import LayerImpl, ShapeInfo, register_layer
@@ -34,11 +35,14 @@ class MultiClassCrossEntropy(LayerImpl):
 
     def apply(self, cfg, params, ins, ctx):
         prob, label = ins[0], ins[1]
+        lab = label.value.long()
         if (prob.mask is not None and label.mask is not None
-                and label.value.shape[1] != prob.value.shape[1]):
-            raise NotImplementedError(
-                "cross-entropy over differently padded sequences is not "
-                "ported yet")
+                and lab.shape[1] != prob.value.shape[1]):
+            # the feeder pads each slot on its own: trim or zero-pad the
+            # label to the output's padded length (the masks carry truth)
+            T = prob.value.shape[1]
+            lab = (lab[:, :T] if lab.shape[1] > T
+                   else F.pad(lab, (0, T - lab.shape[1])))
         p = torch.clamp(prob.value, _EPS, 1.0)
-        ll = torch.gather(p, -1, label.value.long().unsqueeze(-1))[..., 0]
+        ll = torch.gather(p, -1, lab.unsqueeze(-1))[..., 0]
         return Argument(value=_reduce_tokens(-torch.log(ll), prob.mask))

@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from paddle_tpu_torch.core.argument import Argument
-from paddle_tpu_torch.core.network import Network
+from paddle_tpu_torch.core.network import Network, fold_seed
 from paddle_tpu_torch.core.registry import LayerImpl, ShapeInfo, register_layer
 
 # group LayerDef (held, so its id stays unique) -> its step Network
@@ -138,6 +138,10 @@ class RecurrentLayerGroup(LayerImpl):
                                              dtype=torch.float32)
 
         out_names = cfg.attrs["outputs"]
+        # each step's seed (dropout inside the step net): the group's
+        # stream with the step folded in (JAX splits it T ways)
+        group_seed = (None if ctx.seed is None
+                      else ctx.layer_seed(cfg.name + "/group"))
         ys: Dict[str, List[torch.Tensor]] = {o: [None] * T for o in out_names}
         steps = range(T - 1, -1, -1) if reverse else range(T)
         for t in steps:
@@ -146,7 +150,9 @@ class RecurrentLayerGroup(LayerImpl):
                 feed[k] = Argument(value=v[t])
             for mem in memories:
                 feed[mem["boundary"]] = Argument(value=carry[mem["boundary"]])
-            outs = net.apply(sub_params, feed, train=ctx.train)
+            outs = net.apply(sub_params, feed, train=ctx.train,
+                             seed=None if group_seed is None
+                             else fold_seed(group_seed, t))
             m_t = mask_tb[t]
 
             def _shaped(y, m_t=m_t):

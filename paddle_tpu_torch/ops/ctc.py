@@ -46,7 +46,10 @@ beyond it the wide chains (a block of 1024 threads a chain, the frames in
 scratch rows); the posterior pass stages frames in shared memory where
 the class offsets fit (4 (C + 1) + 8 S bytes at one frame), and beyond it
 ranks each sequence's states by class into a list in scratch, so C takes
-no shared memory. The gathered form keeps the lanes' ``MAX_STATES``.
+no shared memory. The gathered form takes any S too: the lanes up to
+``MAX_STATES``, above it the gathered twin of the wide chains (the alpha
+chain keeps its frame in the alphas it writes, the beta chain two rows of
+scratch a chain).
 
 The kernels compute the plain versions' arithmetic operation for operation
 (``lse3_kernel`` spells their shortened log-sum-exp, which gives
@@ -69,7 +72,7 @@ from paddle_tpu_torch.ops import build
 NEG = -1e30  # paddle_tpu/ops/common.py:NEG, the finite -inf of log space
 
 # csrc/ctc.cu: a chain's lane owns at most 16 states, a block at most 32
-# warps (the gathered form's limit, and the fused forward's lane route);
+# warps (the lane route of both forms; the wide chains above);
 # the staged posterior pass of the fused form stages at most 8 frames a
 # block of 256 threads; the wide chains are blocks of 1024 threads
 MAX_STATES = 32 * 32 * 16
@@ -359,11 +362,10 @@ def _check_gathered(kernel, emit, in_mask, valid_s, can_skip, ext_lens,
         raise ValueError(f"{kernel}: emit must be [B, T, S], got "
                          f"{tuple(emit.shape)}")
     B, T, S = emit.shape
-    if T < 1 or not 1 <= S <= MAX_STATES:
+    if T < 1 or S < 1:
         raise ValueError(
-            f"{kernel}: T={T}, S={S}: the kernels take T >= 1 and 1 <= S <= "
-            f"{MAX_STATES} extended label states (S = 2 L + 1; 16 states a "
-            "lane over 32 warps)")
+            f"{kernel}: T={T}, S={S}: the kernels take T >= 1 and S >= 1 "
+            "extended label states (S = 2 L + 1)")
     idx, _ = build.check_cell(kernel, (
         ("emit", emit, (B, T, S)), ("in_mask", in_mask, (B, T)),
         ("valid_s", valid_s, (B, S)), ("can_skip", can_skip, (B, S)))
@@ -411,11 +413,15 @@ def ctc_bwd(emit, in_mask, valid_s, can_skip, ext_lens, alphas, ll, g):
         "ctc_bwd", emit, in_mask, valid_s, can_skip, ext_lens,
         (("alphas", alphas, emit.shape), ("ll", ll, (B,)), ("g", g, (B,))))
     demit = emit.new_empty((B, T, S))
-    err = build.call(build.bind("ctc", "ctc_bwd", 9, 3), idx,
+    # the wide route's frame rows: 2 S floats a chain
+    scratch = emit.new_empty((B, 2 * S)) if S > MAX_STATES and B else None
+    err = build.call(build.bind("ctc", "ctc_bwd", 10, 3), idx,
                      emit.data_ptr(), in_mask.data_ptr(), valid_s.data_ptr(),
                      can_skip.data_ptr(), ext_lens.data_ptr(),
                      alphas.data_ptr(), ll.data_ptr(), g.data_ptr(),
-                     demit.data_ptr(), B, T, S)
+                     demit.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(),
+                     B, T, S)
     build.raise_on(err, "ctc_bwd")
     ctc_bwd.launches += 1
     return demit

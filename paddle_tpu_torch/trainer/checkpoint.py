@@ -8,13 +8,18 @@ One ``.npz`` holds ``param::<name>`` for every parameter and
 under model averaging), with a ``.meta`` JSON sidecar carrying the MD5 of
 the ``.npz`` bytes. Writes are atomic (temporary file, fsync, rename).
 
-A save directory holds one generation per pass end, named as the JAX
-package's ``Checkpointer`` names them
-(``checkpoint-p{pass:05d}-b{batch:08d}.npz``, ``paddle_tpu/dist/
-checkpoint.py:61,112``), with its ``LATEST`` pointer, and the newest
-three kept, so either package restores the other's directory. The
-background writer and auto-resume of that ``Checkpointer`` are not
-ported.
+Exact-resume state rides in a third namespace, ``state::<key>`` (the
+JAX package's): the port's step generator as ``state::torch_rng`` and
+the carried truncated-BPTT state as ``state::carried/<layer>[/<part>]``
+arrays (a tuple's parts named ``#0``, ``#1``), so nothing is pickled.
+The JAX package's own ``state::rng`` key and ``stateobj::`` pickles are
+read back as they are and not used.
+
+A save directory holds generations named as the JAX package's
+``Checkpointer`` names them (``checkpoint-p{pass:05d}-b{batch:08d}.npz``,
+``paddle_tpu/dist/checkpoint.py:61,112``) with its ``LATEST`` pointer,
+so either package restores the other's directory. The cadence, the
+background writer and the resume live in ``dist/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -23,15 +28,11 @@ import hashlib
 import io
 import json
 import os
-import re
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-_GEN_RE = re.compile(r"^checkpoint-p(\d+)-b(\d+)\.npz$")
-_KEEP = 3  # generations a save directory keeps (the JAX Checkpointer's)
 
 
 def _host(v) -> np.ndarray:
@@ -55,13 +56,57 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return {prefix.rstrip("/"): _host(tree)}
 
 
-def snapshot_arrays(params, opt_state=None) -> Dict[str, np.ndarray]:
-    """Every parameter and optimizer-state entry as host numpy, under its
-    ``param::`` / ``opt::`` key."""
+def _flatten_state(tree: Any, prefix: str) -> Dict[str, np.ndarray]:
+    """A nest of dicts, tuples and tensors as flat arrays: a dict's
+    keys and a tuple's ``#i`` joined by ``/``."""
+    if isinstance(tree, dict):
+        items = [(str(k), v) for k, v in tree.items()]
+    elif isinstance(tree, (tuple, list)):
+        items = [(f"#{i}", v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: _host(tree)}
+    flat = {}
+    for k, v in items:
+        flat.update(_flatten_state(v, f"{prefix}/{k}"))
+    return flat
+
+
+def unflatten_state(flat: Dict[str, Any]) -> Any:
+    """The inverse of the ``state::`` flattening below one key: paths
+    relative to it (``""`` for a leaf) -> the nest, tuples where every key
+    of a level is ``#i``."""
+    if "" in flat:
+        return flat[""]
+    heads: Dict[str, Dict[str, Any]] = {}
+    for path, v in flat.items():
+        head, _, rest = path.partition("/")
+        heads.setdefault(head, {})[rest] = v
+    if heads and all(h.startswith("#") for h in heads):
+        return tuple(unflatten_state(heads[f"#{i}"])
+                     for i in range(len(heads)))
+    return {h: unflatten_state(sub) for h, sub in heads.items()}
+
+
+def snapshot_arrays(params, opt_state=None, extra_state=None
+                    ) -> Dict[str, np.ndarray]:
+    """Every parameter, optimizer-state and extra-state entry as host
+    numpy, under its ``param::`` / ``opt::`` / ``state::`` key: the
+    synchronous half of a save (what remains is file I/O a background
+    thread can own). Each argument may be a zero-argument callable that
+    gives it."""
+    if callable(params):
+        params = params()
+    if callable(opt_state):
+        opt_state = opt_state()
+    if callable(extra_state):
+        extra_state = extra_state()
     arrays = {f"param::{k}": _host(v) for k, v in params.items()}
     if opt_state is not None:
         arrays.update({f"opt::{k}": v
                        for k, v in _flatten(opt_state).items()})
+    for k, v in (extra_state or {}).items():
+        if v is not None:
+            arrays.update(_flatten_state(v, f"state::{k}"))
     return arrays
 
 
@@ -96,19 +141,22 @@ def save_params(path: str, params: Dict[str, Any],
     return write_snapshot(path, snapshot_arrays(params, opt_state), meta)
 
 
-def load_checkpoint(path: str, check_integrity: bool = True
+def load_checkpoint(path: str, check_integrity: bool = True,
+                    meta: Optional[dict] = None
                     ) -> Tuple[dict, dict, dict]:
-    """(params, opt_flat, trainer_state) as numpy from one checkpoint file;
-    raises IOError when the bytes fail the sidecar's MD5. Trainer state
-    (the JAX package's ``state::`` arrays, e.g. its RNG key) is returned
-    but not used by the port; pickled ``stateobj::`` entries come back as
-    their raw bytes, never unpickled."""
+    """(params, opt_flat, state) as numpy from one checkpoint file;
+    raises IOError when the bytes fail the sidecar's MD5 (``meta``: the
+    sidecar already parsed). ``state`` maps the ``state::`` keys (flat,
+    as written); pickled ``stateobj::`` entries of the JAX package come
+    back as their raw bytes, never unpickled."""
     real_path = path if path.endswith(".npz") else path + ".npz"
     with open(real_path, "rb") as f:
         raw = f.read()
-    if check_integrity and os.path.exists(real_path + ".meta"):
-        with open(real_path + ".meta") as f:
-            meta = json.load(f)
+    if check_integrity and (meta is not None
+                            or os.path.exists(real_path + ".meta")):
+        if meta is None:
+            with open(real_path + ".meta") as f:
+                meta = json.load(f)
         if hashlib.md5(raw).hexdigest() != meta.get("md5"):
             raise IOError(f"checkpoint {real_path} failed MD5 integrity "
                           "check")
@@ -128,58 +176,21 @@ def load_params(path: str, check_integrity: bool = True):
     return params, opt_flat
 
 
-def generation_path(save_dir: str, pass_id: int, batch_id: int = 0) -> str:
-    """The JAX ``Checkpointer``'s file name of one generation."""
-    return os.path.join(save_dir,
-                        f"checkpoint-p{pass_id:05d}-b{batch_id:08d}.npz")
-
-
-def _generations(save_dir: str):
-    """Generation file names of ``save_dir``, newest first: by pass, an
-    end-of-pass save (batch 0) newest of its pass, then by batch."""
-    def key(name):
-        m = _GEN_RE.match(name)
-        pass_id, batch_id = int(m.group(1)), int(m.group(2))
-        return pass_id, batch_id == 0, batch_id
-
-    if not os.path.isdir(save_dir):
-        return []
-    return sorted((n for n in os.listdir(save_dir) if _GEN_RE.match(n)),
-                  key=key, reverse=True)
-
-
 def save_generation(save_dir: str, pass_id: int, params, opt_state) -> str:
-    """The end-of-pass save: the generation file, its sidecar (with the
-    pass/batch metadata the JAX ``Checkpointer`` reads) and the ``LATEST``
-    pointer, written after the data is durable; then all but the newest
-    three generations are deleted, as the JAX ``Checkpointer`` does."""
-    path = write_snapshot(
-        generation_path(save_dir, pass_id),
-        snapshot_arrays(params, opt_state),
-        {"pass_id": pass_id, "batch_id": 0, "end_of_pass": True,
-         "time": time.time()})
-    _write_atomic(os.path.join(save_dir, "LATEST"),
-                  os.path.basename(path)[:-len(".npz")].encode())
-    for name in _generations(save_dir)[_KEEP:]:
-        for suffix in ("", ".meta"):
-            try:
-                os.remove(os.path.join(save_dir, name + suffix))
-            except FileNotFoundError:
-                pass
-    return path
+    """An end-of-pass save, as ``dist.checkpoint.Checkpointer`` writes it
+    (the generation, its sidecar, the ``LATEST`` pointer, the newest three
+    kept); returns the ``.npz`` path."""
+    from paddle_tpu_torch.dist.checkpoint import Checkpointer
+    return Checkpointer(save_dir).save(params, opt_state, pass_id=pass_id,
+                                       end_of_pass=True) + ".npz"
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:
     """The newest generation of ``save_dir`` that has its ``.meta``
     sidecar (the ``LATEST`` target first, then the newest generation), or
     None."""
-    names = []
-    try:
-        with open(os.path.join(save_dir, "LATEST")) as f:
-            names.append(f.read().strip() + ".npz")
-    except FileNotFoundError:
-        pass
-    for name in names + _generations(save_dir):
+    from paddle_tpu_torch.dist.checkpoint import candidates
+    for name in candidates(save_dir):
         path = os.path.join(save_dir, name)
         if os.path.exists(path) and os.path.exists(path + ".meta"):
             return path

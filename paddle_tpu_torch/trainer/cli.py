@@ -1,7 +1,8 @@
-"""Command line of the port: ``--job train|test|merge|serve``, the
-counterpart of ``paddle_tpu/trainer/cli.py`` (``cmd_train``, ``cmd_test``,
-``cmd_merge``, ``_serving_plan`` / ``cmd_serve``) without the parallel,
-health and quantize flags.
+"""Command line of the port: ``--job train|test|time|checkgrad|merge|
+serve``, the counterpart of ``paddle_tpu/trainer/cli.py`` (``cmd_train``,
+``cmd_test``, ``cmd_time``, ``cmd_checkgrad``, ``cmd_merge``,
+``_serving_plan`` / ``cmd_serve``) without the parallel, health, bf16 and
+quantize flags.
 
     python -m paddle_tpu_torch.trainer.cli --config conf.py --job train \\
         --save_dir ckpt --num_passes 3 [--device cuda]
@@ -31,11 +32,27 @@ warning, as the JAX package does.
 
 ``--job train`` prints ``Pass N: cost=...`` with the pass's evaluators
 (``classification_error`` for a classification cost, and the config's
-own, such as a tagger's ``error=... chunk_f1=...``) at each pass end,
-saves ``checkpoint-p{pass:05d}-b00000000.npz`` into ``--save_dir`` (the
-JAX package's file format and names), and ends with a
-``train_summary {...}`` JSON line: the kernel launch counts of the
-training loop and its wall ms per training step; ``--job test`` prints
+own, such as a tagger's ``error=... chunk_f1=...``) at each pass end.
+With ``--save_dir`` it saves through ``dist.checkpoint.Checkpointer``
+(the JAX package's file format and names,
+``checkpoint-p{pass:05d}-b{batch:08d}.npz``) every ``--saving_period``
+passes and every ``--saving_period_by_batches`` batches, on a
+background writer unless ``--no-background_save``, and first resumes
+exactly from the newest intact generation there unless
+``--no-auto_resume``. ``--grad_accum_steps K`` splits each batch into K
+microbatches, ``--prev_batch_state`` carries the recurrent state across
+batches, ``--use_async_load_data`` prepares ``--prefetch_depth`` batches
+in a background thread, ``--dot_period``, ``--show_parameter_stats_period``
+and ``--show_layer_stat`` print progress and statistics.
+``PADDLE_TPU_CHAOS_PLAN`` arms a kill fault (``testing/chaos.py``). It
+ends with a ``train_summary {...}`` JSON line: the kernel launch counts of
+the training loop, its wall ms per training step and the ms each step
+waited for its batch. ``--job time`` times ``--time_batches`` steps after
+``--time_warmup`` and prints ``TimeInfo: ...`` and a ``time_summary``
+line; ``--job checkgrad`` checks the gradient of one batch against
+central differences (``--checkgrad_eps``). ``--init_model_path`` also
+takes a directory of v1 parameter files (``Parameter::save``), loaded by
+name with a size check. ``--job test`` prints
 ``Test: cost=...`` and a ``test_summary`` JSON line with the kernel
 launch counts of the test pass. ``--job test`` and ``--job merge`` read
 ``--init_model_path`` (a ``.ptmodel`` or a checkpoint ``.npz``), else the
@@ -54,6 +71,7 @@ import logging
 import os
 import statistics
 import sys
+import time
 
 import torch
 
@@ -62,17 +80,62 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m paddle_tpu_torch.trainer.cli")
     p.add_argument("--config", required=True)
     p.add_argument("--job", required=True,
-                   choices=["train", "test", "merge", "serve"],
+                   choices=["train", "test", "time", "checkgrad", "merge",
+                            "serve"],
                    help="train: the training loop; test: the test reader's "
-                        "cost and evaluators; merge: write a PTM1 model; "
+                        "cost and evaluators; time: steady-state step "
+                        "time; checkgrad: one batch's gradient against "
+                        "central differences; merge: write a PTM1 model; "
                         "serve: answer /v1/score (and /v1/generate for a "
                         "generating config) over HTTP")
     p.add_argument("--init_model_path", default=None,
-                   help="merged model (.ptmodel) or checkpoint (.npz) to "
-                        "start from; serve takes a .ptmodel")
+                   help="merged model (.ptmodel), checkpoint (.npz) or a "
+                        "directory of v1 parameter files to start from; "
+                        "serve takes a .ptmodel")
     p.add_argument("--save_dir", default=None,
                    help="checkpoint directory (train) / source (test, "
                         "merge)")
+    p.add_argument("--saving_period", type=int, default=1,
+                   help="save every N passes")
+    p.add_argument("--saving_period_by_batches", type=int, default=None,
+                   help="also save every N batches inside a pass")
+    p.add_argument("--auto_resume", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="restore the newest intact checkpoint in "
+                        "--save_dir before training (exact resume: the "
+                        "step generator, data position and schedule "
+                        "state included); --no-auto_resume makes "
+                        "--save_dir save-only")
+    p.add_argument("--background_save", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="write checkpoints on a background thread (the "
+                        "tensors are still copied to the host at once, "
+                        "so the saved generation is exact)")
+    p.add_argument("--grad_accum_steps", type=int, default=1,
+                   help="split each batch into k microbatches, one "
+                        "backward each, the optimizer once on their "
+                        "summed gradient")
+    p.add_argument("--prev_batch_state", action="store_true",
+                   help="carry the recurrent state across batches "
+                        "(truncated BPTT)")
+    p.add_argument("--use_async_load_data", action="store_true",
+                   help="prepare batches in a background thread and copy "
+                        "them to the device ahead of the step")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="batches in flight under --use_async_load_data")
+    p.add_argument("--dot_period", type=int, default=0,
+                   help="print a progress dot every N batches")
+    p.add_argument("--show_parameter_stats_period", type=int, default=0,
+                   help="log every parameter's mean and largest |value| "
+                        "every N batches")
+    p.add_argument("--show_layer_stat", action="store_true",
+                   help="log each layer output's mean and largest |value| "
+                        "at each log_period")
+    p.add_argument("--time_batches", type=int, default=20,
+                   help="--job=time: timed batches after warmup")
+    p.add_argument("--time_warmup", type=int, default=3)
+    p.add_argument("--checkgrad_eps", type=float, default=1e-3,
+                   help="--job=checkgrad finite-difference step")
     p.add_argument("--model_path", default=None,
                    help="output path for --job=merge")
     p.add_argument("--num_passes", type=int, default=1)
@@ -209,17 +272,52 @@ def _build_trainer(ns, args):
     optimizer = ns.get("optimizer") or Momentum(learning_rate=0.01,
                                                 momentum=0.9)
     trainer = SGD(cost=topo, update_equation=optimizer, seed=args.seed,
-                  device=args.device)
+                  device=args.device,
+                  prev_batch_state=getattr(args, "prev_batch_state", False))
     if args.init_model_path:
         _load_into(trainer, args.init_model_path)
     return trainer
 
 
+def _load_v1_dir(trainer, path):
+    """A directory of v1 parameter files (``Parameter::save``, one file a
+    parameter, named after it) into ``trainer`` by name, each file's size
+    checked against the parameter's (JAX ``cli._init_params``); missing
+    parameters keep their initialisation, with a warning."""
+    from paddle_tpu_torch.compat.param_format import load_v1_model_dir
+    raw = load_v1_model_dir(path)
+    params = dict(trainer.params)
+    missing = []
+    for name, spec in trainer.meta.items():
+        if name not in raw:
+            missing.append(name)
+            continue
+        flat = raw[name]
+        want = 1
+        for d in spec.shape:
+            want *= int(d)
+        if flat.size != want:
+            raise ValueError(
+                f"--init_model_path: parameter {name!r} has {flat.size} "
+                f"values, the model needs {want} (shape {spec.shape}; "
+                "fused-gate layouts may need repacking)")
+        params[name] = torch.from_numpy(flat.reshape(spec.shape))
+    if missing:
+        logging.getLogger("paddle_tpu_torch.cli").warning(
+            "--init_model_path: %d parameters missing in %s (kept "
+            "initialized): %s", len(missing), path, missing[:5])
+    trainer.load_state(params)
+
+
 def _load_into(trainer, path):
-    """A merged model's parameters, or a checkpoint's parameters and
-    optimizer state, into ``trainer``. A generating graph also takes the
-    file's embeddings of its generated words, which no layer of it owns."""
+    """A merged model's parameters, a checkpoint's parameters and
+    optimizer state, or a directory of v1 parameter files, into
+    ``trainer``. A generating graph also takes the file's embeddings of
+    its generated words, which no layer of it owns."""
     from paddle_tpu_torch.core.generation import generation_params
+    if os.path.isdir(path):
+        _load_v1_dir(trainer, path)
+        return
     if path.endswith(".ptmodel"):
         from paddle_tpu_torch.trainer.merge_model import load_merged_ex
         _, params, _, extras = load_merged_ex(path)
@@ -277,13 +375,19 @@ def _evals(evaluator):
 def cmd_train(ns, args) -> int:
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.trainer import events as ev
-    from paddle_tpu_torch.trainer.checkpoint import save_generation
     reader = ns.get("train_reader")
     if reader is None:
         raise SystemExit("config must define `train_reader` for --job=train")
     trainer = _build_trainer(ns, args)
     feeder = _feeder(ns, args.device)
     test_reader = ns.get("test_reader")
+    ck = None
+    if args.save_dir:
+        from paddle_tpu_torch.dist.checkpoint import Checkpointer
+        ck = Checkpointer(args.save_dir, saving_period=args.saving_period,
+                          saving_period_by_batches=(
+                              args.saving_period_by_batches),
+                          background=args.background_save)
 
     def handler(e):
         if isinstance(e, ev.EndPass):
@@ -291,9 +395,6 @@ def cmd_train(ns, args) -> int:
                 {"cost": _pass_cost[0] / max(_pass_cost[1], 1),
                  **e.evaluator}), flush=True)
             _pass_cost[:] = [0.0, 0]
-            if args.save_dir:
-                save_generation(args.save_dir, e.pass_id, trainer.params,
-                                trainer.opt_state)
             if (test_reader is not None and args.test_period
                     and (e.pass_id + 1) % args.test_period == 0):
                 res = trainer.test(test_reader, feeder=feeder)
@@ -305,15 +406,153 @@ def cmd_train(ns, args) -> int:
 
     _pass_cost = [0.0, 0]
     ops.reset_kernel_counts()  # the summary counts this loop's launches
-    trainer.train(reader, feeder=feeder, num_passes=args.num_passes,
-                  event_handler=handler, log_period=args.log_period)
+    try:
+        trainer.train(
+            reader, feeder=feeder, num_passes=args.num_passes,
+            event_handler=handler, log_period=args.log_period,
+            checkpointer=ck, auto_resume=args.auto_resume,
+            dot_period=args.dot_period,
+            show_parameter_stats_period=args.show_parameter_stats_period,
+            show_layer_stat=args.show_layer_stat,
+            async_load_data=args.use_async_load_data,
+            prefetch_depth=args.prefetch_depth,
+            grad_accum_steps=args.grad_accum_steps)
+    finally:
+        if ck is not None:
+            ck.close()
     steps_ms = [1e3 * s for s in trainer.step_seconds]
     print("train_summary " + json.dumps({
         "device": str(trainer.device), "steps": len(steps_ms),
         "step_ms": steps_ms,
         "median_step_ms": statistics.median(steps_ms) if steps_ms else None,
+        "data_wait_ms": [1e3 * s for s in trainer.data_wait_seconds],
+        "save_ms": [1e3 * s for s in ck.save_seconds] if ck else [],
         "kernels": ops.kernel_counts()}), flush=True)
     return 0
+
+
+def cmd_time(ns, args) -> int:
+    """Steady-state step time (``paddle_trainer --job=time``): the first
+    ``--time_warmup + --time_batches`` batches of the train reader (read
+    again from the start when it runs out), each a training step; the
+    batches after the warmup whose shapes equal the first's are timed,
+    host clock to the cost's fetch."""
+    from paddle_tpu_torch import ops
+    trainer = _build_trainer(ns, args)
+    reader = ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define `train_reader` for --job=time")
+    feeder = _feeder(ns, args.device)
+    want = args.time_warmup + args.time_batches
+    batches = []
+    while len(batches) < want:
+        before = len(batches)
+        for data in reader():
+            batches.append(data)
+            if len(batches) >= want:
+                break
+        if len(batches) == before:
+            break
+    if not batches:
+        raise SystemExit("train_reader produced no batches")
+
+    def shape_sig(feed):
+        return tuple(sorted((k, tuple(a.value.shape))
+                            for k, a in feed.items()))
+
+    ops.reset_kernel_counts()
+    times, sig0 = [], None
+    for i, data in enumerate(batches):
+        feed = trainer._prepare(data, feeder)
+        sig = shape_sig(feed)
+        sig0 = sig0 or sig
+        t0 = time.perf_counter()
+        float(trainer.train_step(feed)["cost"])  # waits for the device
+        dt = time.perf_counter() - t0
+        if i >= args.time_warmup and sig == sig0:
+            times.append(dt)
+    if not times:
+        raise SystemExit("no steady-state batches to time (all warmup or "
+                         "shape-mismatched)")
+    ms = [1e3 * t for t in times]
+    print(f"TimeInfo: avg_batch_time={sum(ms) / len(ms):.3f}ms over "
+          f"{len(ms)} batches (skipped {args.time_warmup} warmup)",
+          flush=True)
+    print("time_summary " + json.dumps({
+        "device": str(trainer.device), "step_ms": ms,
+        "median_step_ms": statistics.median(ms),
+        "kernels": ops.kernel_counts()}), flush=True)
+    return 0
+
+
+def cmd_checkgrad(ns, args, *, rtol=5e-2, samples=6) -> int:
+    """The gradient of one batch's cost against central differences
+    (``Trainer::checkGradient``): for up to ``samples`` entries of every
+    learnable parameter, autograd's entry on ``--device`` beside (cost(p +
+    eps) - cost(p - eps)) / 2 eps, the costs taken in float64 on the
+    CPU's plain path (the reference checks in double; float32 costs would
+    put their rounding, about 1e-7 of the cost, over 2 eps), passing
+    within ``rtol`` relative. The forward is the test-mode one, as in the
+    JAX package."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.argument import Argument
+    eps = args.checkgrad_eps
+    trainer = _build_trainer(ns, args)
+    reader = ns.get("train_reader")
+    if reader is None:
+        raise SystemExit("config must define `train_reader` for "
+                         "--job=checkgrad")
+    feed = trainer._prepare(next(iter(reader())),
+                            _feeder(ns, args.device))
+    network, cost_name = trainer.network, trainer.topology.cost_name
+
+    def loss_fn(params, feed):
+        out = network.apply(params, feed, train=False)[cost_name].value
+        return out.sum() / out.shape[0]
+
+    def host64(t):
+        t = t.detach().cpu()
+        return t.double() if t.is_floating_point() else t
+
+    names = [n for n in trainer.params
+             if not network.param_specs[n].is_static]
+    leaves = {n: p.detach().requires_grad_(n in names)
+              for n, p in trainer.params.items()}
+    analytic = dict(zip(names, torch.autograd.grad(
+        loss_fn(leaves, feed), [leaves[n] for n in names],
+        allow_unused=True)))
+    feed64 = {k: Argument(value=host64(a.value),
+                          mask=None if a.mask is None else host64(a.mask))
+              for k, a in feed.items()}
+    base64 = {k: host64(v) for k, v in trainer.params.items()}
+    rng = np.random.RandomState(args.seed)
+    worst, failed = 0.0, []
+    with torch.no_grad():
+        for name in names:
+            g = analytic[name]
+            flat = base64[name].reshape(-1)
+            for idx in rng.choice(flat.numel(), size=min(samples,
+                                                         flat.numel()),
+                                  replace=False):
+                def cost_at(delta):
+                    p = flat.clone()
+                    p[idx] += delta
+                    return float(loss_fn(
+                        {**base64, name: p.reshape(base64[name].shape)},
+                        feed64))
+                num = (cost_at(eps) - cost_at(-eps)) / (2 * eps)
+                ana = 0.0 if g is None else float(g.reshape(-1)[idx])
+                rel = abs(num - ana) / max(abs(num), abs(ana), 1e-4)
+                worst = max(worst, rel)
+                if rel > rtol:
+                    failed.append((name, int(idx), num, ana))
+    for name, idx, num, ana in failed[:10]:
+        print(f"FAIL {name}[{idx}]: numeric={num:.6g} analytic={ana:.6g}")
+    print(f"checkgrad {'FAILED' if failed else 'PASSED'} "
+          f"({len(failed)} mismatches, worst rel err {worst:.3g})",
+          flush=True)
+    return 1 if failed else 0
 
 
 def cmd_test(ns, args) -> int:
@@ -371,8 +610,11 @@ def main(argv=None) -> int:
         # the f32 reference semantics: no TF32 in matmuls or convolutions
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.testing import chaos
+    chaos.install_from_env()
     ns = load_config(args.config)
-    return {"train": cmd_train, "test": cmd_test, "merge": cmd_merge,
+    return {"train": cmd_train, "test": cmd_test, "time": cmd_time,
+            "checkgrad": cmd_checkgrad, "merge": cmd_merge,
             "serve": cmd_serve}[args.job](ns, args)
 
 

@@ -10,8 +10,8 @@ Momentum and Adam updates (one kernel launch for a step's list of
 parameters), the CRF forward, backward and Viterbi kernels,
 the flash-attention forward and backward kernels (the split-row path
 above D = 1024 too), the CTC alpha and beta chains in both operand forms
-and the fused posterior pass (the wide chains above 16,384 states and the
-sorted pass at 60,000 classes too)) against their plain PyTorch versions,
+(the wide chains above 16,384 states in both) and the fused posterior pass
+(the sorted pass at 60,000 classes too)) against their plain PyTorch versions,
 on the card; and the image layers and ResNet-50's three ways, card
 against CPU (cuDNN's convolutions with TF32 off). Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
@@ -1485,12 +1485,12 @@ def test_ctc_kernels_match_plain_on_card(cuda_device, B, T, C, L):
 
 @pytest.mark.cuda
 def test_ctc_kernels_reject_bad_inputs(cuda_device):
-    """A CPU tensor into a CUDA path, a wrong dtype, int64 lengths and an
-    S just above the gathered form's limit (16 states a lane over 32
-    warps, S = 16,385) all raise with the reason; so do the fused
-    wrappers' float labels and a blank outside [0, C). The fused form,
-    which refused S = 16,385 too, takes it on the wide chains: ll and the
-    gradient against the plain versions."""
+    """A CPU tensor into a CUDA path, a wrong dtype, int64 lengths and no
+    state at all (S = 0) raise with the reason; so do the fused wrappers'
+    float labels and a blank outside [0, C). Both forms take S = 16,385,
+    one state past the lanes' 16 states over 32 warps, and 20,001 on the
+    wide chains: the gathered alphas, ll and demit, and the fused ll and
+    gradient, equal to the plain versions' bits."""
     emit, in_mask, valid_s, can_skip, ext_lens, g, log_probs, labels, \
         lab_lens, _ = _ctc_inputs(2, 6, 5, 2, 0, cuda_device)
     with pytest.raises(ValueError, match="CUDA"):
@@ -1502,10 +1502,23 @@ def test_ctc_kernels_reject_bad_inputs(cuda_device):
         tctc.ctc_alpha_fwd(emit, in_mask, valid_s, can_skip, ext_lens.long())
     S = tctc.MAX_STATES + 1
     assert S == 16385
-    big = torch.zeros(1, 2, S, device=cuda_device)
+    none = torch.zeros(1, 2, 0, device=cuda_device)
     with pytest.raises(ValueError, match="states"):
-        tctc.ctc_alpha_fwd(big, in_mask[:1, :2].contiguous(), big[:, 0],
-                           big[:, 0], ext_lens[:1])
+        tctc.ctc_alpha_fwd(none, in_mask[:1, :2].contiguous(), none[:, 0],
+                           none[:, 0], ext_lens[:1])
+    for big_s in (S, 20001):
+        assert tctc.ctc_plan(big_s)["fwd"] == "wide"
+        gargs = _ctc_inputs(1, 60, 29, (big_s - 1) // 2, big_s,
+                            cuda_device)[:5]
+        assert gargs[0].shape[2] == big_s
+        alphas, ll = tctc.ctc_alpha_fwd(*gargs)
+        w_alphas, w_ll = tctc.ctc_forward_plain(*gargs)
+        assert torch.equal(alphas, w_alphas) and torch.equal(ll, w_ll)
+        g1 = torch.tensor([0.7], device=cuda_device)
+        demit = tctc.ctc_bwd(*gargs, alphas, ll, g1)
+        assert torch.equal(demit, tctc.ctc_bwd_plain(*gargs, w_alphas,
+                                                     w_ll, g1))
+        assert torch.equal(demit, tctc.ctc_bwd(*gargs, alphas, ll, g1))
     lm = (torch.arange(2, device=cuda_device)[None, :]
           < torch.from_numpy(lab_lens).to(cuda_device)[:, None]).float()
     with pytest.raises(ValueError, match="int32 or int64"):
@@ -1828,3 +1841,81 @@ def test_resnet50_three_ways_match_cpu_on_card(cuda_device):
     assert torch.equal(torch.isnan(yc), torch.isnan(yc_c))
     live = ~torch.isnan(yc_c)
     torch.testing.assert_close(yc[live], yc_c[live], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- the rest of training
+@pytest.mark.cuda
+def test_dropout_mask_on_card_same_bits_from_one_seed(cuda_device):
+    """Training-mode dropout's keep mask drawn on the card: the same bits
+    from one step seed twice, another layer another mask, the keep
+    fraction within 4 sigma of the binomial mean."""
+    from paddle_tpu_torch.core import network
+    ctx = network.Context(train=True, seed=2017)
+    shape, rate = (64, 1280), 0.5
+    a = network._dropout_mask(shape, rate, ctx, "drop", cuda_device)
+    b = network._dropout_mask(shape, rate, ctx, "drop", cuda_device)
+    assert a.is_cuda and torch.equal(a, b)
+    assert not torch.equal(a, network._dropout_mask(shape, rate, ctx,
+                                                    "other", cuda_device))
+    n = a.numel()
+    assert abs(float(a.sum()) - n * (1 - rate)) <= 4 * (
+        n * rate * (1 - rate)) ** 0.5
+
+
+@pytest.mark.cuda
+def test_prefetched_feed_bit_equal_on_card(cuda_device):
+    """The prefetch pipeline's feeds (pinned host memory, a non_blocking
+    copy on a side stream, the consumer's stream waiting on its event)
+    equal the synchronous feeder's on the card, bit for bit."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.prefetch import PrefetchPipeline
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    rng = np.random.default_rng(7)
+    batches = [[(rng.integers(0, 1000, size=int(n)).tolist(),
+                 int(rng.integers(0, 2)))
+                for n in rng.integers(1, 101, size=64)] for _ in range(6)]
+    feeder = DataFeeder({"words": integer_value_sequence(1000),
+                         "label": integer_value(2)}, pad_multiple=100,
+                        device=cuda_device)
+    got = list(PrefetchPipeline(lambda: iter(batches), feeder=feeder,
+                                depth=2))
+    assert len(got) == len(batches)
+    for feed, batch in zip(got, batches):
+        want = feeder(batch)
+        for k in want:
+            assert feed[k].value.is_cuda
+            assert torch.equal(feed[k].value, want[k].value)
+            if want[k].mask is not None:
+                assert torch.equal(feed[k].mask, want[k].mask)
+
+
+@pytest.mark.cuda
+def test_accumulated_gradient_matches_whole_batch_on_card(cuda_device):
+    """A classifier batch of 64 rows as 2 microbatches of 32 on the card
+    (the LSTM kernels, the f32 sum of the two backwards): every gradient
+    within 1e-4 of the whole batch's largest entry + 1e-5, the loss
+    within 1e-5 relative."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = lstm_text_classifier(vocab_size=1000, embed_dim=64, hidden=256,
+                                num_layers=2, classes=2)[0]
+    tr = SGD(cost, update_equation=Adam(), seed=3, device=cuda_device)
+    rng = np.random.default_rng(5)
+    feed = DataFeeder({"words": integer_value_sequence(1000),
+                       "label": integer_value(2)}, pad_multiple=50,
+                      device=cuda_device)(
+        [(rng.integers(0, 1000, size=int(n)).tolist(),
+          int(rng.integers(0, 2))) for n in rng.integers(1, 51, size=64)])
+    _, loss, whole, _, _ = tr._grads(feed, seed=0)
+    metrics, grads, _ = tr._accum_grads(feed, 2, seed=0)
+    assert float(metrics["cost"]) == pytest.approx(float(loss), rel=1e-5)
+    for name, w in whole.items():
+        err = (grads[name] - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item() + 1e-5, name

@@ -234,8 +234,20 @@ def test_adam_trajectory_and_test_evaluators_match_jax(model):
 
 
 def test_unported_evaluator_types_raise_naming_themselves():
-    with pytest.raises(NotImplementedError, match="'auc'"):
-        build_from_configs([{"type": "auc", "input_layers": ["x", "y"]}])
+    """Every evaluator type is ported now: ``auc`` (once refused here)
+    builds and gives JAX's value on the same arrays; an unknown type is
+    still skipped, as in the JAX package."""
+    from paddle_tpu.trainer.metrics import build_from_configs as j_build
+    cfg = [{"type": "auc", "input_layers": ["x", "y"], "name": "auc"}]
+    ((te, _, _),), ((je, _, _),) = build_from_configs(cfg), j_build(cfg)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        probs = rng.dirichlet(np.ones(2), size=32).astype(np.float32)
+        label = rng.integers(0, 2, size=32)
+        te.eval_batch(probs, label=label)
+        je.eval_batch(probs, label=label)
+    assert 0.0 < te.value() < 1.0
+    assert te.value() == pytest.approx(je.value(), abs=1e-12)
     assert build_from_configs([{"type": "no_such_type",
                                 "input_layers": ["x"]}]) == []
 
