@@ -390,9 +390,39 @@ non-zero without the result line:
    the kernel counts its summary reports), but the killed one, a process
    of its own. ``python3 chip_smoke.py --training`` runs this phase
    alone, into ``chiprun_out/training.json``.
-14. kernels: one JSON line ``{"kernels": [...]}`` for every ported
-   kernel, with the launches of the main paths (phases 8 to 12), and the
-   rest of training's (phase 13) as ``training_launches``. The
+14. the layer plane: (a) DeepSpeech2 as PaddlePaddle/models released it
+   (``_DS2R_MODEL``: ``deep_speech_2/layer.py``'s conv group of two conv
+   + batch norm(brelu) layers over the 161 x 400 spectrogram, 32 filters
+   of 11 x 41 (stride 3 x 2) and 11 x 21 (1 x 2), ``block_expand`` into
+   134 steps of 1312, 3 bidirectional batch-normed GRUs of 1024 with act
+   relu, fc(29), ``warp_ctc(blank=28, norm_by_times)`` and the softmax
+   ``mixed`` output) trained through ``--job train`` (Adam(2e-4), 3
+   passes over 4 batches of 16; the cost falls; one ``ctc_fused_fwd``,
+   one ``ctc_fused_bwd`` and one ``adam`` launch a step, no GRU kernel:
+   relu takes the inline step, as in the JAX package); its parameter
+   count; the gradients of 4 rows (one empty transcript) card against
+   the CPU within 1e-3 of each tensor's largest entry + 1e-6, directly or,
+   where float32 flips a relu/brelu kink, in float32 with the CPU's
+   float64 masks replayed on both (each within the tolerance of the other
+   and of float64); the probabilities on the card against the CPU; a
+   profiled step (``step_trace``); ``--job test`` card against the CPU
+   plain path (cost within 1e-4 relative, ``ctc_edit_distance`` within
+   one character); (b) the simple-RNN branch (one shared projection, two
+   ``recurrent(act=brelu)``): one pass, its cost printed, and one batch's
+   gradients the same way; the CTC kernels against their plain versions
+   at the path's (16, 134, S = 133), as phase 6b; (c) every layer type
+   this slice ports (``layer_cases``: the tier-1 matrix's shapes and
+   inputs), forward and gradient on the card against the CPU (values
+   rtol 1e-4 / atol 1e-5, gradients within 1e-4 of the largest entry +
+   1e-5, integer outputs equal), ``sampling_id`` on one-hot rows, by its
+   frequencies over 20,000 draws and its repeat under one seed.
+   ``python3 chip_smoke.py --layers`` runs this phase alone, into
+   ``chiprun_out/layers.json``.
+15. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+   kernel, with the launches of the main paths (phases 8 to 12), the
+   rest of training's (phase 13) as ``training_launches`` and
+   DeepSpeech2 as released (phase 14) as ``ds2_release_launches``
+   beside the times at its CTC shape. The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
    persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
@@ -404,6 +434,10 @@ non-zero without the result line:
    and ResNet's runs of phase 12 stand beside them as ``lenet_launches``
    and ``resnet_launches``.
 
+Every ``--job`` of the CLI runs in this process (``_cli_inproc``: each
+job resets the kernel counts it reports and the DSL's graph), but the
+servers and the killed training run of phase 13, processes of their own.
+A ``phase done`` line after each phase gives its seconds and the total.
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
 
@@ -612,13 +646,27 @@ DS2_LABEL_PAD = DS2_MAX_T // 6
 DS2_GRAD_ROWS = 4
 DS2_LR = 2e-4
 DS2_SOURCE_LR = 5e-4
+# DeepSpeech2 as released (``_DS2R_MODEL``, phase 14) at full width: the
+# 161 x 400 spectrogram, 32 filters of 11 x 41 (stride 3 x 2, padding 5 x
+# 20) and 11 x 21 (1 x 2, 5 x 10), 41 rows into block_expand (134 steps
+# of 1312), 3 bidirectional layers of 1024, 28 characters and the blank
+DS2R = dict(height=DS2["features"], width=DS2_MAX_T, chars=DS2["chars"],
+            filters=32, hidden=DS2["hidden"], layers=DS2["layers"],
+            convs=[(11, 41, 3, 2, 5, 20), (11, 21, 1, 2, 5, 10)])
+DS2R_STEPS = DS2_MAX_T  # the time columns after the convs: 134
+for _fx, _, _sx, _, _px, _ in DS2R["convs"]:
+    DS2R_STEPS = (DS2R_STEPS + 2 * _px - _fx) // _sx + 1
+DS2R_PASSES, DS2R_RNN_PASSES = 3, 1
+DS2R_TEST_BATCHES = 1  # --job test, card and CPU (the CPU's takes most)
 # CTC kernel check shapes (B, T, L): the acoustic model's (with an empty
 # transcript, an infeasible row, repeated labels, padded frame tails), its
-# batch 1, and utterances of LibriSpeech's length (16 s, up to 240
-# characters: S = 481)
+# batch 1, utterances of LibriSpeech's length (16 s, up to 240
+# characters: S = 481), and DeepSpeech2 as released's 134 frames after
+# its convolutions (phase 14)
 CTC_SHAPES = [(DS2_BATCH, DS2_MAX_T, DS2_LABEL_PAD), (1, DS2_MAX_T,
                                                      DS2_LABEL_PAD),
-              (DS2_BATCH, 1600, 240)]
+              (DS2_BATCH, 1600, 240),
+              (DS2_BATCH, DS2R_STEPS, DS2_LABEL_PAD)]
 # sizes the fused kernels refused before they took any S and C (B, T, C,
 # L): 60,000 classes (the staged posterior pass's class offsets no longer
 # fit a block: the sorted pass) and 20,001 states (above the lanes'
@@ -3739,15 +3787,23 @@ def _write_config(path, optimizer):
         """))
 
 
-def _cli(args, timeout):
-    res = subprocess.run(
-        [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
-        raise AssertionError(f"trainer.cli {' '.join(args[:4])} exited "
-                             f"{res.returncode}")
-    return res.stdout
+def _cli_inproc(args):
+    """One CLI job (``python -m paddle_tpu_torch.trainer.cli``'s
+    ``main``) in this process: no interpreter start-up, no second load of
+    the kernels; the job resets the kernel counts its summary reports and
+    the DSL's graph. Its standard output."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch.trainer import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    if rc != 0:
+        sys.stderr.write(buf.getvalue()[-4000:])
+        raise AssertionError(f"trainer.cli {' '.join(args[:4])} returned "
+                             f"{rc}")
+    return buf.getvalue()
 
 
 def _train_run(conf, passes, save_dir=None, batches=TRAIN_BATCHES):
@@ -3756,7 +3812,7 @@ def _train_run(conf, passes, save_dir=None, batches=TRAIN_BATCHES):
             "--seed", str(SEED)]
     if save_dir:
         args += ["--save_dir", save_dir]
-    out = _cli(args, timeout=900)
+    out = _cli_inproc(args)
     costs = [float(ln.split("cost=")[1].split()[0])
              for ln in out.splitlines() if ln.startswith("Pass ")]
     summary = json.loads(next(ln for ln in out.splitlines()
@@ -3906,8 +3962,8 @@ def train(tmp):
     trace = _step_trace(lambda: lstm_text_classifier(**MODEL), save_dir,
                         Adam(learning_rate=2e-3), _classifier_batch())
     model = os.path.join(tmp, "lstm_text_h1280.ptmodel")
-    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
-          "--model_path", model], timeout=600)
+    _cli_inproc(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+                 "--model_path", model])
     result = dict(pass_costs=costs, steps=summary["steps"],
                   median_step_ms=summary["median_step_ms"],
                   step_ms=summary["step_ms"], kernels=counts,
@@ -4095,8 +4151,8 @@ def train_seq2seq(tmp, model, title, train_kernels=(), test_kernels=()):
         lambda: seq2seq_attention(**model), save_dir, feed,
         Adam(learning_rate=5e-4)))
     split = _s2s_step_split(save_dir, model)
-    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
-               timeout=600)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir])
     test_cost = float(out.split("Test: cost=")[1].split()[0])
     test_counts = json.loads(next(ln for ln in out.splitlines()
                                   if ln.startswith("test_summary "))[13:])[
@@ -4508,8 +4564,8 @@ def serve_generation(tmp, save_dir):
         "seq2seq_attention(generating=True)")
     model = os.path.join(tmp, "s2s_gen.ptmodel")
     t0 = time.perf_counter()
-    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
-          "--model_path", model], timeout=600)
+    _cli_inproc(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+                 "--model_path", model])
     merge_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 4)
 
@@ -4907,9 +4963,9 @@ def train_tagger(tmp):
     from paddle_tpu_torch.optim import Adam
     conf, serve_conf = _write_tagger_configs(tmp)
     save_dir = os.path.join(tmp, "tagger_ckpt")
-    out = _cli(["--config", conf, "--job", "train", "--num_passes",
-                str(TAG_PASSES), "--seed", str(SEED), "--save_dir",
-                save_dir], timeout=900)
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       str(TAG_PASSES), "--seed", str(SEED), "--save_dir",
+                       save_dir])
     passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
     costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
     summary = json.loads(next(ln for ln in out.splitlines()
@@ -4939,8 +4995,8 @@ def train_tagger(tmp):
     grads = dict(rows=TAG_GRAD_ROWS, **_grads_card_vs_cpu(
         lambda: bilstm_crf_tagger(**TAGGER), save_dir, feed,
         Adam(learning_rate=5e-3)))
-    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
-               timeout=600)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir])
     line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
     test = {k: float(v) for k, v in (kv.split("=") for kv in
                                      line[len("Test: "):].split())}
@@ -4959,8 +5015,8 @@ def train_tagger(tmp):
                              f"times in {TAG_TEST_BATCHES} batches")
     _check_lstm_chains("tagger --job test", test_counts, 0)
     model = os.path.join(tmp, "tagger.ptmodel")
-    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
-          "--model_path", model], timeout=600)
+    _cli_inproc(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+                 "--model_path", model])
     result = dict(pass_lines=passes, pass_costs=costs,
                   steps=summary["steps"],
                   median_step_ms=summary["median_step_ms"],
@@ -5084,6 +5140,68 @@ def utterances(rng, n):
            lo=DS2_MIN_T, hi=DS2_MAX_T, last=DS2["chars"] - 1)
 
 
+# DeepSpeech2 as PaddlePaddle/models released it in 2017
+# (deep_speech_2/layer.py: conv_group, rnn_group, deep_speech2): two
+# conv + batch norm(brelu) layers over the spectrogram image (frequency
+# rows, time columns; channel-major flat f * W + t), block_expand into a
+# sequence of time columns, bidirectional batch-normed GRUs (act relu) or
+# simple RNNs (one shared projection, act brelu), fc(chars + 1) into
+# warp_ctc(blank = chars, norm_by_times) and a softmax mixed layer over an
+# identity projection as the probability output. A conv is written as
+# trainer_config_helpers.img_conv_layer writes one (non-square filter,
+# stride and padding in the input's extra; He-style std from the x
+# filter), through each DSL's _add, so both packages build it from the
+# same text. ``convs``: (filter_x, filter_y, stride_x, stride_y, pad_x,
+# pad_y) per conv layer
+_DS2R_MODEL = """
+def deep_speech2(dsl, mc, height, width, chars, filters, hidden, layers,
+                 use_gru, convs):
+    audio = dsl.data(name="audio", size=height * width, height=height,
+                     width=width, channels=1)
+    text = dsl.data(name="text", size=chars, is_sequence=True)
+    x, c, h = audio, 1, height
+    for i, (fx, fy, sx, sy, px, py) in enumerate(convs):
+        conv = dsl._add(mc.LayerDef(
+            name=f"conv{i}", type="exconv", act="linear", bias=False,
+            inputs=[mc.Input(x.name, param_attr=mc.ParamAttr(
+                initial_std=(2.0 / (fx * fx * c)) ** 0.5), extra={
+                    "filter_size": fx, "filter_size_y": fy, "stride": sx,
+                    "stride_y": sy, "padding": px, "padding_y": py,
+                    "channels": c, "groups": 1})],
+            attrs={"num_filters": filters}))
+        x = dsl.batch_norm(input=conv, act="brelu", name=f"conv{i}_bn")
+        c, h = filters, (h + 2 * py - fy) // sy + 1
+    seq = dsl.block_expand_layer(input=x, block_x=1, block_y=h,
+                                 name="conv2seq")
+    for i in range(layers):
+        if use_gru:
+            dirs = [dsl.grumemory(
+                input=dsl.batch_norm(input=dsl.fc(
+                    input=seq, size=3 * hidden, act="linear",
+                    bias_attr=False, name=f"rnn{i}_{d}_proj"),
+                    name=f"rnn{i}_{d}_bn"),
+                act="relu", reverse=d == "bwd", name=f"rnn{i}_{d}")
+                for d in ("fwd", "bwd")]
+        else:
+            proj = dsl.batch_norm(input=dsl.fc(
+                input=seq, size=hidden, act="linear", bias_attr=False,
+                name=f"rnn{i}_proj"), name=f"rnn{i}_bn")
+            dirs = [dsl.recurrent(input=proj, act="brelu",
+                                  reverse=d == "bwd", name=f"rnn{i}_{d}")
+                    for d in ("fwd", "bwd")]
+        seq = dsl.concat(dirs, name=f"rnn{i}")
+    scores = dsl.fc(input=seq, size=chars + 1, act="linear", name="scores")
+    probs = dsl.mixed(inputs=[scores], size=chars + 1,
+                      projections=[{"type": "identity"}], act="softmax",
+                      name="probs")
+    cost = dsl.warp_ctc_layer(input=scores, label=text, size=chars + 1,
+                              blank=chars, norm_by_times=True, name="cost")
+    dsl.evaluator("ctc_edit_distance", input=scores, label=text,
+                  name="ctc_edit_distance")
+    return cost, probs
+"""
+
+
 def _ds2_ns():
     from paddle_tpu_torch.config import dsl
     ns = {"np": np}
@@ -5145,7 +5263,7 @@ _TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
            "adam": "adam_multi_kernel"}
 
 
-def _step_trace(build_model, save_dir, optimizer, feed):
+def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True):
     """One training step on the card from the newest checkpoint of
     ``save_dir`` (``train_step`` on the CPU-fed batch ``feed``: forward,
     backward, update): the host-clock median of 3 after one warm step,
@@ -5156,7 +5274,9 @@ def _step_trace(build_model, save_dir, optimizer, feed):
     wrappers counted in that step (``expected``); ``complete`` says
     whether every one of the wrappers' launches is in the trace (where
     some are not, the busy time is low and the idle share an upper
-    bound)."""
+    bound). ``cpu_ops=False`` records the device activity alone: a step of
+    tens of thousands of small ops otherwise takes the profiler longer to
+    summarise than the step takes to run."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
@@ -5182,8 +5302,8 @@ def _step_trace(build_model, save_dir, optimizer, feed):
 
     step()
     step_ms = statistics.median(step() for _ in range(3))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu_ops else [])
     before = device_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_ms = step()
@@ -5220,9 +5340,9 @@ def train_acoustic(tmp):
     _write_ds2_config(conf)
     save_dir = os.path.join(tmp, "acoustic_ckpt")
     t0 = time.perf_counter()
-    out = _cli(["--config", conf, "--job", "train", "--num_passes",
-                str(DS2_PASSES), "--seed", str(SEED), "--save_dir", save_dir],
-               timeout=1200)
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       str(DS2_PASSES), "--seed", str(SEED), "--save_dir",
+                       save_dir])
     train_s = time.perf_counter() - t0
     passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
     costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
@@ -5268,8 +5388,8 @@ def train_acoustic(tmp):
                         Adam(learning_rate=DS2_LR), _ds2_feeder("cpu")(
                             ns["utterances"](np.random.default_rng(SEED),
                                              DS2_BATCH)))
-    out = _cli(["--config", conf, "--job", "test", "--save_dir", save_dir],
-               timeout=900)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir])
     line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
     test = {k: float(v) for k, v in (kv.split("=") for kv in
                                      line[len("Test: "):].split())}
@@ -5311,9 +5431,9 @@ def ds2_rate_witness():
         _write_ds2_config(conf, lr=DS2_SOURCE_LR)
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            out = _cli(["--config", conf, "--job", "train", "--num_passes",
-                        str(DS2_PASSES), "--seed", str(SEED), "--device",
-                        device], timeout=2400)
+            out = _cli_inproc(["--config", conf, "--job", "train",
+                               "--num_passes", str(DS2_PASSES), "--seed",
+                               str(SEED), "--device", device])
             passes = [ln for ln in out.splitlines()
                       if ln.startswith("Pass ")]
             costs = [float(ln.split("cost=")[1].split()[0]) for ln in passes]
@@ -5820,9 +5940,9 @@ def train_lenet(tmp):
     conf = os.path.join(tmp, "lenet_conf.py")
     _write_lenet_config(conf)
     save_dir = os.path.join(tmp, "lenet_ckpt")
-    out = _cli(["--config", conf, "--job", "train", "--num_passes",
-                str(LENET_PASSES), "--seed", str(SEED), "--save_dir",
-                save_dir], timeout=600)
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       str(LENET_PASSES), "--seed", str(SEED), "--save_dir",
+                       save_dir])
     passes = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
     errs = [float(ln.split("classification_error=")[1].split()[0])
             for ln in passes]
@@ -5834,13 +5954,13 @@ def train_lenet(tmp):
                              "fall")
     _check_opt_launches("LeNet --job train", summary["kernels"],
                         summary["steps"], "momentum")
-    test_out = _cli(["--config", conf, "--job", "test", "--save_dir",
-                     save_dir], timeout=600)
+    test_out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                            save_dir])
     test_line = next(ln for ln in test_out.splitlines()
                      if ln.startswith("Test: "))
     model = os.path.join(tmp, "lenet.ptmodel")
-    _cli(["--config", conf, "--job", "merge", "--save_dir", save_dir,
-          "--model_path", model], timeout=600)
+    _cli_inproc(["--config", conf, "--job", "merge", "--save_dir", save_dir,
+                 "--model_path", model])
     feeding = {"pixel": dense_vector(784)}
     preds = {dev: ServingPredictor.from_merged(
         model, feeding, batch_buckets=[1, LENET_SERVE_BATCH], device=dev)
@@ -6027,23 +6147,6 @@ def _cli_run(args, env=None, timeout=900, expect=0):
         raise AssertionError(f"trainer.cli {' '.join(args[:4])} exited "
                              f"{res.returncode}, expected {expect}")
     return res.stdout
-
-
-def _cli_inproc(args):
-    """One CLI job in this process (no interpreter start-up; the job
-    resets the kernel counts its summary reports): its standard output."""
-    import contextlib
-    import io
-
-    from paddle_tpu_torch.trainer import cli
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(list(args))
-    if rc != 0:
-        sys.stderr.write(buf.getvalue()[-4000:])
-        raise AssertionError(f"trainer.cli {' '.join(args[:4])} returned "
-                             f"{rc}")
-    return buf.getvalue()
 
 
 def _summary(out, key="train_summary"):
@@ -6533,6 +6636,736 @@ def training():
         json.dump(out, f, indent=1)
 
 
+# ------------------------------------------------------ 14. the layer plane
+
+_DS2R_SAMPLES = """
+def spectrogram(frames):
+    # frequency rows, time columns (flat f * {W} + t), padded with the
+    # silence prototype to {W} columns
+    pad = np.repeat(PROTOS[{V}][None], {W} - len(frames), axis=0)
+    return np.concatenate([frames, pad]).T.reshape(-1).astype(np.float32)
+
+
+def released(batch):
+    return [(spectrogram(f), chars) for f, chars in batch]
+""".format(W=DS2_MAX_T, V=DS2["chars"])
+
+
+def _ds2r_ns(use_gru):
+    """The config's namespace and the port's DSL, with the model built
+    (``ns["build"]()`` builds it again after a reset)."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config import model_config as mc
+    ns = {"np": np}
+    exec(_DS2_SAMPLES + _DS2R_SAMPLES + _DS2R_MODEL, ns)
+    ns["build"] = lambda: ns["deep_speech2"](dsl, mc, use_gru=use_gru,
+                                             **DS2R)
+    dsl.reset()
+    return ns
+
+
+def _ds2r_feeder(device):
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (dense_vector,
+                                             integer_value_sequence)
+    return DataFeeder({"audio": dense_vector(DS2R["height"] * DS2_MAX_T),
+                       "text": integer_value_sequence(DS2["chars"])},
+                      length_buckets=[DS2_LABEL_PAD], device=device)
+
+
+def _write_ds2r_config(path, use_gru):
+    head = textwrap.dedent("""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.config import model_config as mc
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import (dense_vector,
+                                                     integer_value_sequence)
+            from paddle_tpu_torch.optim import Adam
+        """)
+    tail = textwrap.dedent(f"""
+
+            dsl.reset()
+            cost, probs = deep_speech2(dsl, mc, use_gru={use_gru},
+                                       **{DS2R!r})
+            optimizer = Adam(learning_rate={DS2_LR})
+            # transcripts pad to {DS2_LABEL_PAD} characters
+            feeding = DataFeeder(
+                {{"audio": dense_vector({DS2R['height'] * DS2_MAX_T}),
+                  "text": integer_value_sequence({DS2['chars']})}},
+                length_buckets=[{DS2_LABEL_PAD}])
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({DS2_BATCHES}):
+                    yield released(utterances(rng, {DS2_BATCH}))
+
+            def test_reader():
+                rng = np.random.default_rng({SEED + 2})
+                for _ in range({DS2R_TEST_BATCHES}):
+                    yield released(utterances(rng, {DS2_BATCH}))
+        """)
+    with open(path, "w") as f:
+        f.write(head + _DS2_SAMPLES + _DS2R_SAMPLES + _DS2R_MODEL + tail)
+
+
+@contextlib.contextmanager
+def _kink_masks(record=None, replay=None):
+    """The executor's and the recurrences' relu and brelu (all reached
+    through ``apply_activation``) with their masks recorded (appended to
+    ``record`` in call order: the activation, x > 0 and, for brelu, x >=
+    24) or replayed (``replay``: an earlier run's, out = x * live + 24 *
+    top, whose gradient is the live mask). A replay must use up every
+    mask."""
+    from paddle_tpu_torch.layers import activations
+    plain = activations.apply_activation
+    left = iter(replay or ())
+
+    def act(kind, value, mask=None):
+        if kind not in ("relu", "brelu"):
+            return plain(kind, value, mask)
+        if replay is None:
+            if record is not None:
+                v = value.detach()
+                top = v >= 24.0 if kind == "brelu" else None
+                live = (v > 0) if top is None else (v > 0) & ~top
+                record.append((kind, live.cpu(), None if top is None
+                               else top.cpu()))
+            return plain(kind, value, mask)
+        rkind, live, top = next(left)
+        if rkind != kind:
+            raise AssertionError(f"replayed {rkind} mask at a {kind}")
+        out = value * live.to(value.device, value.dtype)
+        if top is not None:
+            out = out + 24.0 * top.to(value.device, value.dtype)
+        return out
+
+    activations.apply_activation = act
+    try:
+        yield
+    finally:
+        activations.apply_activation = plain
+    if replay is not None and next(left, None) is not None:
+        raise AssertionError("a recorded activation mask was not used")
+
+
+def _ds2r_grads(build, save_dir, feed):
+    """One batch's loss and every gradient from the newest checkpoint of
+    ``save_dir``, card against the CPU, per tensor within 1e-3 of the
+    CPU's largest entry + 1e-6 (the loss within 1e-5 relative): ``route``
+    "direct". Where float32 puts a pre-activation within rounding of a
+    relu or brelu kink, the card and the CPU may take different sides and
+    route a whole entry elsewhere; then the CPU runs in float64, the exact
+    reference, recording its masks, and both run again in float32 with
+    those masks replayed and must hold each other and the float64
+    gradients within the same tolerance (``route`` "masks"). The card runs
+    in float32 only: the CTC kernels take float32."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = build()[0]
+    params, _ = load_params(latest_checkpoint(save_dir))
+    runs, masks, seconds = {}, [], {}
+
+    def run(key, device, dtype, **kink):
+        t0 = time.perf_counter()
+        tr = SGD(cost, parameters=params, device=device,
+                 update_equation=Adam(learning_rate=DS2_LR))
+        tr.params = {k: v.to(dtype) for k, v in tr.params.items()}
+        dfeed = tr._to_device(feed)
+        for arg in dfeed.values():
+            if arg.value.is_floating_point():
+                arg.value = arg.value.to(dtype)
+        with _kink_masks(**kink):
+            _, loss, grads, _ = tr.loss_and_grads(dfeed)
+        runs[key] = (float(loss), {k: g.cpu().double()
+                                   for k, g in grads.items()})
+        seconds[key] = time.perf_counter() - t0
+
+    run("cuda", "cuda", torch.float32)
+    run("cpu", "cpu", torch.float32)
+    limit = {k: 1e-3 * g.abs().max().item() + 1e-6
+             for k, g in runs["cpu"][1].items()}
+
+    def multiple(key, against):
+        """The largest distance of ``key``'s gradients from ``against``'s,
+        per tensor, as a multiple of the tolerance."""
+        return max((runs[key][1][k] - w).abs().max().item() / limit[k]
+                   for k, w in runs[against][1].items())
+
+    if not abs(runs["cuda"][0] - runs["cpu"][0]) <= 1e-5 * abs(
+            runs["cpu"][0]):
+        raise AssertionError(f"DS2 loss {runs['cuda'][0]} on the card, "
+                             f"{runs['cpu'][0]} on the CPU")
+    row = dict(loss_cuda=runs["cuda"][0], loss_cpu=runs["cpu"][0],
+               limit_multiple=dict(cuda_vs_cpu=multiple("cuda", "cpu")),
+               grad_max_abs_err=max(
+                   (runs["cuda"][1][k] - w).abs().max().item()
+                   for k, w in runs["cpu"][1].items()),
+               tensors=len(limit))
+    if row["limit_multiple"]["cuda_vs_cpu"] <= 1.0:
+        row["route"] = "direct"
+    else:
+        row["route"] = "masks"
+        run("cpu64", "cpu", torch.float64, record=masks)
+        run("cuda_m", "cuda", torch.float32, replay=masks)
+        run("cpu_m", "cpu", torch.float32, replay=masks)
+        row.update(loss_cpu64=runs["cpu64"][0], masks=len(masks))
+        row["limit_multiple"].update(
+            cuda_vs_64=multiple("cuda", "cpu64"),
+            cpu_vs_64=multiple("cpu", "cpu64"),
+            cuda_m_vs_cpu_m=multiple("cuda_m", "cpu_m"),
+            cuda_m_vs_64=multiple("cuda_m", "cpu64"),
+            cpu_m_vs_64=multiple("cpu_m", "cpu64"))
+        for what in ("cuda_m_vs_cpu_m", "cuda_m_vs_64", "cpu_m_vs_64"):
+            if not row["limit_multiple"][what] <= 1.0:
+                raise AssertionError(f"DS2 gradients {what}: "
+                                     f"{row['limit_multiple']}")
+    row["seconds"] = seconds
+    return row
+
+
+def _ds2r_train(tmp, use_gru, passes):
+    """--job train of one branch in this process (4 batches of 16, Adam):
+    (save_dir, pass lines, pass costs, train_summary)."""
+    name = "gru" if use_gru else "simple_rnn"
+    conf = os.path.join(tmp, f"ds2r_{name}_conf.py")
+    _write_ds2r_config(conf, use_gru)
+    save_dir = os.path.join(tmp, f"ds2r_{name}_ckpt")
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       str(passes), "--seed", str(SEED), "--save_dir",
+                       save_dir])
+    passes_out = [ln for ln in out.splitlines() if ln.startswith("Pass ")]
+    costs = _pass_costs(out)
+    summary = _summary(out)
+    if len(costs) != passes or summary["steps"] != passes * DS2_BATCHES:
+        raise AssertionError(f"DS2 {name} train printed {passes_out}, "
+                             f"{summary}")
+    if not all(np.isfinite(costs)):
+        raise AssertionError(f"DS2 {name} pass costs {costs}")
+    return conf, save_dir, passes_out, costs, summary
+
+
+def _ds2r_test(conf, save_dir):
+    """--job test (cost, ctc_edit_distance) on the card and on the CPU
+    plain path: the cost within 1e-4 relative; the edit distance within
+    one character of the test set's transcripts, since a best-path frame
+    whose top two scores lie within rounding may decode otherwise."""
+    got, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                           save_dir, "--device", device])
+        seconds[device] = time.perf_counter() - t0
+        line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+        got[device] = ({k: float(v) for k, v in (kv.split("=") for kv in
+                                                 line[6:].split())},
+                       _summary(out, "test_summary")["kernels"])
+    (card, counts), (cpu, _) = got["cuda"], got["cpu"]
+    ns = _ds2r_ns(True)
+    rng = np.random.default_rng(SEED + 2)
+    chars = sum(len(c) for _ in range(DS2R_TEST_BATCHES)
+                for _, c in ns["utterances"](rng, DS2_BATCH))
+    if set(card) != {"cost", "ctc_edit_distance"} or not all(
+            np.isfinite(list(card.values()))):
+        raise AssertionError(f"DS2 --job test printed {card}")
+    if not abs(card["cost"] - cpu["cost"]) <= 1e-4 * abs(cpu["cost"]):
+        raise AssertionError(f"DS2 test cost {card} on the card, {cpu} on "
+                             "the CPU")
+    if not abs(card["ctc_edit_distance"] - cpu["ctc_edit_distance"]) <= \
+            1.0 / chars:
+        raise AssertionError(f"DS2 test error {card} on the card, {cpu} on "
+                             "the CPU")
+    if counts["ctc_fused_fwd"]["launches"] <= 0 or \
+            counts["ctc_fused_bwd"]["launches"] != 0:
+        raise AssertionError(f"DS2 --job test launches {counts}")
+    return dict(card=card, cpu=cpu, transcript_chars=chars,
+                kernels={k: v for k, v in counts.items()
+                         if v["launches"]}, seconds=seconds)
+
+
+def _ds2r_check_probs(build, save_dir, feed):
+    """The release's probability output (softmax of the mixed layer over
+    the scores) on the card: finite, rows summing to 1, within rtol 1e-4
+    / atol 1e-5 of the CPU's."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    dsl.reset()
+    probs = build()[1]
+    net = Network(probs.graph, outputs=[probs.name])
+    params, _ = load_params(latest_checkpoint(save_dir))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        p = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
+        f = {k: Argument(value=a.value.to(device), mask=None if a.mask is None
+                         else a.mask.to(device)) for k, a in feed.items()}
+        with torch.no_grad():
+            outs[device] = net.apply(p, f)[probs.name].value.cpu()
+    got, want = outs["cuda"], outs["cpu"]
+    if tuple(got.shape) != (feed["audio"].value.shape[0], DS2R_STEPS,
+                            DS2["chars"] + 1):
+        raise AssertionError(f"DS2 probs shape {tuple(got.shape)}")
+    if not torch.isfinite(got).all() or not torch.allclose(
+            got.sum(-1), torch.ones(()), atol=1e-5):
+        raise AssertionError("DS2 probs are not distributions")
+    return dict(shape=list(got.shape),
+                max_abs_err=_close("DS2 probs", got, want))
+
+
+def check_ds2_release(tmp):
+    """(a) and (b) of phase 14; the row keeps the GRU branch's kernel
+    counts (``kernels``, its --job train) for the kernels line."""
+    from paddle_tpu_torch.optim import Adam
+    t0 = time.perf_counter()
+    seconds = {}
+    conf, save_dir, lines, costs, summary = _ds2r_train(tmp, True,
+                                                        DS2R_PASSES)
+    seconds["gru_train"] = time.perf_counter() - t0
+    counts = summary["kernels"]
+    if not costs[-1] < costs[0]:
+        raise AssertionError(f"DS2 pass costs {costs} do not fall")
+    steps = summary["steps"]
+    if (counts["ctc_fused_fwd"]["launches"], counts["ctc_fused_bwd"][
+            "launches"]) != (steps, steps):
+        raise AssertionError(f"DS2 train CTC launches {counts}")
+    _check_opt_launches("DS2 --job train", counts, steps)
+    # relu is no default activation: the GRUs take their inline step in
+    # both packages, no GRU kernel
+    for name in ("gru_seq_train", "gru_bwd_chain", "gru_bwd_step", "gru_seq",
+                 "gru_cell"):
+        if counts[name]["launches"]:
+            raise AssertionError(f"DS2 train launched {name}")
+    ns = _ds2r_ns(True)
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    n_params = sum(int(np.asarray(v).size) for v in
+                   load_params(latest_checkpoint(save_dir))[0].values())
+    batch = ns["utterances"](np.random.default_rng(SEED + 1), DS2_GRAD_ROWS)
+    batch[1] = (batch[1][0], [])  # an empty transcript
+    feed = _ds2r_feeder("cpu")(ns["released"](batch))
+    t1 = time.perf_counter()
+    grads = _ds2r_grads(ns["build"], save_dir, feed)
+    probs = _ds2r_check_probs(ns["build"], save_dir, feed)
+    seconds["gru_grads"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    trace = _step_trace(ns["build"], save_dir, Adam(learning_rate=DS2_LR),
+                        _ds2r_feeder("cpu")(ns["released"](ns["utterances"](
+                            np.random.default_rng(SEED), DS2_BATCH))),
+                        cpu_ops=False)
+    seconds["gru_trace"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    test = _ds2r_test(conf, save_dir)
+    seconds["gru_test"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rconf, rdir, rlines, rcosts, rsummary = _ds2r_train(tmp, False,
+                                                        DS2R_RNN_PASSES)
+    rns = _ds2r_ns(False)
+    rgrads = _ds2r_grads(rns["build"], rdir, feed)
+    seconds["simple_rnn"] = time.perf_counter() - t1
+    gru = dict(parameters=n_params, pass_lines=lines, pass_costs=costs,
+               steps=steps, median_step_ms=summary["median_step_ms"],
+               step_ms=summary["step_ms"], grad_check=grads, probs=probs,
+               step_trace=trace, test=test)
+    rnn = dict(pass_lines=rlines, pass_costs=rcosts,
+               steps=rsummary["steps"],
+               median_step_ms=rsummary["median_step_ms"],
+               grad_check=rgrads)
+    phase("ds2_release_gru", **{k: v for k, v in gru.items()
+                                if k != "step_ms"})
+    phase("ds2_release_simple_rnn", **rnn)
+    return dict(gru=gru, simple_rnn=rnn, kernels=counts, seconds=seconds)
+
+
+def _case(data, name, type_, inputs, feed, **kw):
+    """One layer case: (data layers [(name, size, kwargs)], the layer's
+    keywords, feed {name: (value, mask)})."""
+    return data, dict(name=name, type=type_, inputs=inputs,
+                      size=kw.pop("size", None), act=kw.pop("act", "linear"),
+                      bias=kw.pop("bias", False), attrs=kw), feed
+
+
+def _m_rng(seed):
+    return np.random.RandomState(seed)
+
+
+def _m_dense(b=3, d=6, seed=0, positive=False):
+    v = _m_rng(seed).randn(b, d).astype(np.float32)
+    return (np.abs(v) + 0.5 if positive else v), None
+
+
+def _m_seq(b=3, t=5, d=6, seed=0, full=False):
+    r = _m_rng(seed)
+    mask = np.ones((b, t), np.float32)
+    if not full:
+        for i, n in enumerate(r.randint(2, t + 1, size=b)):
+            mask[i, n:] = 0.0
+    v = r.randn(b, t, d).astype(np.float32) * mask[..., None]
+    return v, mask
+
+
+def _m_seq_ids(b=3, t=5, classes=4, seed=2):
+    ids = _m_rng(seed).randint(0, classes, size=(b, t)).astype(np.int32)
+    return ids, np.ones((b, t), np.float32)
+
+
+def _m_img(b=2, c=2, h=6, w=6, seed=0):
+    return _m_rng(seed).randn(b, h, w, c).astype(np.float32), None
+
+
+def _m_softmax(x):
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def _m_sigmoid(x):
+    return (1 / (1 + np.exp(-x))).astype(np.float32)
+
+
+def layer_cases():
+    """Every layer type this slice ports, at the shapes and with the
+    inputs of the tier-1 matrix (``tests/test_layer_grad_matrix.py``'s
+    ``_case_*``; ``tests/test_torch_layer_matrix.py`` holds this table
+    equal to them): type -> (data layers, layer keywords, feed)."""
+    from paddle_tpu_torch.config.model_config import Input, ParamAttr
+    D = _m_dense
+    img4 = {"channels": 2, "height": 4, "width": 4}
+    img6 = {"channels": 2, "height": 6, "width": 6}
+    sel = np.zeros((3, 4), np.float32)
+    sel[:, :2] = 1.0
+    rel = _m_rng(1).rand(3, 5, 1).astype(np.float32)
+    lam_s = _m_seq(d=1, t=5, seed=0)
+    return {
+        "concat2": _case([("a", 6, {}), ("b", 4, {})], "out", "concat2",
+                         ["a", "b"], {"a": D(), "b": D(d=4, seed=1)},
+                         size=8, act="tanh",
+                         projections=[{"type": "full_matrix", "size": 4},
+                                      {"type": "identity", "size": 4}]),
+        "mixed": _case([("a", 6, {}), ("b", 4, {})], "out", "mixed",
+                       ["a", "b"], {"a": D(), "b": D(d=4, seed=1)}, size=4,
+                       act="tanh", projections=[{"type": "full_matrix"},
+                                                {"type": "dot_mul"}]),
+        "recurrent": _case([("x", 6, {"is_sequence": True})], "out",
+                           "recurrent", ["x"], {"x": _m_seq()}, bias=True,
+                           active_type="tanh"),
+        "mdlstmemory": _case(
+            [("x", 4 * 4 * 10, {"channels": 10, "height": 4, "width": 4,
+                                "is_sequence": False})], "out", "mdlstmemory",
+            [Input("x", extra={"channels": 10})],
+            {"x": (_m_rng(3).randn(2, 4, 4, 10).astype(np.float32), None)},
+            size=2, bias=True),
+        "seqreshape": _case([("x", 6, {"is_sequence": True})], "out",
+                            "seqreshape", ["x"], {"x": _m_seq(full=True)},
+                            size=3),
+        "seqconcat": _case([("a", 6, {"is_sequence": True}),
+                            ("b", 6, {"is_sequence": True})], "out",
+                           "seqconcat", ["a", "b"],
+                           {"a": _m_seq(), "b": _m_seq(seed=1)}),
+        "featmap_expand": _case([("x", 6, {})], "out", "featmap_expand",
+                                ["x"], {"x": D()}, num_filters=3),
+        "interpolation": _case(
+            [("w", 1, {}), ("a", 6, {}), ("b", 6, {})], "out",
+            "interpolation", ["w", "a", "b"],
+            {"w": (_m_rng(2).rand(3, 1).astype(np.float32), None),
+             "a": D(), "b": D(seed=1)}),
+        "power": _case([("w", 1, {}), ("x", 6, {})], "out", "power",
+                       ["w", "x"], {"w": (np.full((3, 1), 2.0, np.float32),
+                                          None), "x": D(positive=True)}),
+        "slope_intercept": _case([("x", 6, {})], "out", "slope_intercept",
+                                 ["x"], {"x": D()}, slope=2.0,
+                                 intercept=1.0),
+        "clip": _case([("x", 6, {})], "out", "clip", ["x"], {"x": D()},
+                      min=-0.5, max=0.5),
+        "sum_to_one_norm": _case([("x", 6, {})], "out", "sum_to_one_norm",
+                                 ["x"], {"x": D(positive=True)}),
+        "row_l2_norm": _case([("x", 6, {})], "out", "row_l2_norm", ["x"],
+                             {"x": D()}),
+        "cos": _case([("a", 6, {}), ("b", 6, {})], "out", "cos", ["a", "b"],
+                     {"a": D(), "b": D(seed=1)}, cos_scale=1.0),
+        "cos_vm": _case([("a", 4, {}), ("b", 12, {})], "out", "cos_vm",
+                        ["a", "b"], {"a": D(d=4), "b": D(d=12, seed=1)},
+                        size=3, cos_scale=1.0),
+        "convex_comb": _case([("w", 3, {}), ("v", 12, {})], "out",
+                             "convex_comb", ["w", "v"],
+                             {"w": D(d=3), "v": D(d=12, seed=1)}, size=4),
+        "trans": _case([("x", 6, {})], "out", "trans", ["x"],
+                       {"x": D(b=6, d=6)}),
+        "rotate": _case([("x", 32, img4)], "out", "rotate", ["x"],
+                        {"x": _m_img(c=2, h=4, w=4)}),
+        "resize": _case([("x", 6, {})], "out", "resize", ["x"],
+                        {"x": D(b=2, d=6)}, size=3),
+        "pad": _case([("x", 32, img4)], "out", "pad", ["x"],
+                     {"x": _m_img(c=2, h=4, w=4)}, pad_c=[1, 1],
+                     pad_h=[0, 1], pad_w=[1, 0]),
+        "crop": _case([("x", 32, img4)], "out", "crop", ["x"],
+                      {"x": _m_img(c=2, h=4, w=4)}, axis=2, offset=[1, 1],
+                      shape=[2, 2]),
+        "maxout": _case([("x", 72, img6)], "out", "maxout", ["x"],
+                        {"x": _m_img()}, groups=2),
+        "blockexpand": _case([("x", 32, img4)], "out", "blockexpand", ["x"],
+                             {"x": _m_img(c=2, h=4, w=4)}, block_x=2,
+                             block_y=2, stride_x=2, stride_y=2, channels=2),
+        "bilinear_interp": _case([("x", 32, img4)], "out",
+                                 "bilinear_interp", ["x"],
+                                 {"x": _m_img(c=2, h=4, w=4)}, out_size_x=8,
+                                 out_size_y=8),
+        "row_conv": _case([("x", 6, {"is_sequence": True})], "out",
+                          "row_conv", ["x"], {"x": _m_seq()},
+                          context_length=2),
+        "conv_shift": _case([("a", 7, {}), ("b", 3, {})], "out",
+                            "conv_shift", ["a", "b"],
+                            {"a": D(d=7), "b": D(d=3, seed=1)}),
+        "tensor": _case([("a", 4, {}), ("b", 5, {})], "out", "tensor",
+                        ["a", "b"], {"a": D(d=4), "b": D(d=5, seed=1)},
+                        size=3, bias=True),
+        "selective_fc": _case([("x", 6, {}), ("sel", 4, {})], "out",
+                              "selective_fc", ["x", "sel"],
+                              {"x": D(), "sel": (sel, None)}, size=4,
+                              bias=True, active_type="tanh"),
+        "prelu": _case([("x", 6, {})], "out", "prelu", ["x"], {"x": D()}),
+        "agent": _case([("x", 6, {})], "out", "agent", ["x"], {"x": D()}),
+        "scatter_agent": _case([("x", 6, {})], "out", "scatter_agent",
+                               ["x"], {"x": D()}),
+        "gather_agent": _case([("x", 6, {"is_sequence": True}),
+                               ("y", 6, {"is_sequence": True})], "out",
+                              "gather_agent", ["x", "y"],
+                              {"x": _m_seq(), "y": _m_seq(seed=3)}),
+        "out_prod": _case([("x", 3, {}), ("y", 4, {})], "out", "out_prod",
+                          ["x", "y"], {"x": D(d=3), "y": D(d=4, seed=5)}),
+        "data_norm": _case(
+            [("x", 6, {})], "out", "data_norm",
+            [Input("x", param_attr=ParamAttr(init="normal", initial_mean=0.1,
+                                             initial_std=0.5))],
+            {"x": D()}, data_norm_strategy="z-score"),
+        "multi_class_cross_entropy_with_selfnorm": _case(
+            [("p", 4, {}), ("y", 4, {})], "out",
+            "multi_class_cross_entropy_with_selfnorm", ["p", "y"],
+            {"p": D(d=4, positive=True),
+             "y": (_m_rng(1).randint(0, 4, size=3).astype(np.int32), None)},
+            softmax_selfnorm_alpha=0.1),
+        "soft_binary_class_cross_entropy": _case(
+            [("p", 4, {}), ("y", 4, {})], "out",
+            "soft_binary_class_cross_entropy", ["p", "y"],
+            {"p": (_m_sigmoid(_m_rng(0).randn(3, 4)), None),
+             "y": (_m_rng(1).rand(3, 4).astype(np.float32), None)}),
+        "multi_binary_label_cross_entropy": _case(
+            [("p", 4, {}), ("y", 4, {})], "out",
+            "multi_binary_label_cross_entropy", ["p", "y"],
+            {"p": (_m_sigmoid(_m_rng(0).randn(3, 4)), None),
+             "y": ((_m_rng(1).rand(3, 4) > 0.5).astype(np.float32), None)}),
+        "square_error": _case([("p", 4, {}), ("y", 4, {})], "out",
+                              "square_error", ["p", "y"],
+                              {"p": D(d=4), "y": D(d=4, seed=1)}),
+        "smooth_l1": _case([("p", 4, {}), ("y", 4, {})], "out", "smooth_l1",
+                           ["p", "y"], {"p": D(d=4), "y": D(d=4, seed=1)}),
+        "huber_classification": _case(
+            [("p", 1, {}), ("y", 1, {})], "out", "huber_classification",
+            ["p", "y"], {"p": D(d=1), "y": (_m_rng(1).randint(
+                0, 2, size=3).astype(np.int32), None)}),
+        "rank-cost": _case(
+            [("l", 1, {}), ("r", 1, {}), ("y", 1, {})], "out", "rank-cost",
+            ["l", "r", "y"], {"l": D(d=1), "r": D(d=1, seed=1),
+                              "y": (_m_rng(2).randint(0, 2, size=(3, 1))
+                                    .astype(np.float32), None)}),
+        "lambda_cost": _case(
+            [("s", 1, {"is_sequence": True}), ("y", 1, {"is_sequence": True})],
+            "out", "lambda_cost", ["s", "y"],
+            {"s": lam_s, "y": (rel, lam_s[1])}, NDCG_num=3),
+        "sum_cost": _case([("x", 4, {})], "out", "sum_cost", ["x"],
+                          {"x": D(d=4)}),
+        "kl_gaussian": _case([("mu", 4, {}), ("lv", 4, {})], "out",
+                             "kl_gaussian", ["mu", "lv"],
+                             {"mu": D(d=4), "lv": D(d=4, seed=1)}),
+        # forward-only: integer or random outputs
+        "maxid": _case([("x", 6, {})], "out", "maxid", ["x"], {"x": D()}),
+        "eos_id": _case([("x", 1, {"is_sequence": True})], "out", "eos_id",
+                        ["x"], {"x": _m_seq_ids(classes=3)}, eos_id=1),
+        "sampling_id": _case([("x", 4, {})], "out", "sampling_id", ["x"],
+                             {"x": (_m_softmax(_m_rng(0).randn(3, 4)),
+                                    None)}),
+        "kmax_seq_score": _case([("x", 1, {"is_sequence": True})], "out",
+                                "kmax_seq_score", ["x"],
+                                {"x": _m_seq(d=1)}, beam_size=2),
+        "multiplex": _case([("i", 1, {}), ("a", 6, {}), ("b", 6, {})], "out",
+                           "multiplex", ["i", "a", "b"],
+                           {"i": (np.array([0, 1, 0], np.int32), None),
+                            "a": D(), "b": D(seed=1)}),
+        "print": _case([("x", 4, {})], "out", "print", ["x"],
+                       {"x": D(d=4)}),
+    }
+
+
+def layer_case_net(case):
+    """The port's network of one ``layer_cases`` entry, with parameters
+    from the seed by name (a moving variance positive), as numpy."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config.model_config import Input, LayerDef
+    from paddle_tpu_torch.core.network import Network
+    data, kw, _ = case
+    dsl.reset()
+    for name, size, dkw in data:
+        dsl.data(name=name, size=size, **dkw)
+    kw = dict(kw, inputs=[i if isinstance(i, Input) else Input(i)
+                          for i in kw["inputs"]])
+    dsl.current_graph().add(LayerDef(**kw))
+    net = Network(dsl.current_graph(), outputs=[kw["name"]])
+    rng = np.random.default_rng(11)
+    params = {}
+    for k, s in sorted(net.param_specs.items()):
+        p = (rng.normal(size=s.shape) * 0.5).astype(np.float32)
+        params[k] = np.abs(p) + 0.5 if k.endswith(".w2") else p
+    return net, params
+
+
+def _layer_run(net, name, params, feed, device, w=None):
+    """(output, {leaf: gradient}) of layer ``name`` on ``device``; with
+    ``w``, the gradients of sum(out * w) for every trained parameter and
+    float input."""
+    tp = {k: torch.from_numpy(v).to(device).requires_grad_(
+        w is not None and not net.param_specs[k].is_static)
+        for k, v in params.items()}
+    tx = {k: torch.from_numpy(v).to(device).requires_grad_(
+        w is not None and np.issubdtype(v.dtype, np.floating))
+        for k, (v, _) in feed.items()}
+    f = {k: Argument(value=tx[k], mask=None if m is None
+                     else torch.from_numpy(m).to(device))
+         for k, (_, m) in feed.items()}
+    out = net.apply(tp, f, seed=SEED)[name].value
+    if w is None:
+        return out.detach().cpu(), {}
+    leaves = {k: t for k, t in {**tp, **tx}.items() if t.requires_grad}
+    if not leaves:  # a float output of integer inputs (eos_id)
+        return out.detach().cpu(), {}
+    grads = torch.autograd.grad((out * torch.from_numpy(w).to(device)).sum(),
+                                list(leaves.values()), allow_unused=True)
+    return out.detach().cpu(), {
+        k: (torch.zeros_like(t) if g is None else g).cpu()
+        for (k, t), g in zip(leaves.items(), grads)}
+
+
+def _sampling_on_card():
+    """sampling_id on the card three ways: one-hot rows draw their id;
+    each id's frequency over 20,000 draws of (0.1, 0.2, 0.3, 0.4) within
+    0.015 of its probability; the same seed the same bits, another seed
+    another draw."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    dsl.reset()
+    dsl.sampling_id_layer(input=dsl.data(name="x", size=4), name="ids")
+    net = Network(dsl.current_graph(), outputs=["ids"])
+
+    def draw(p, seed):
+        x = Argument(value=torch.from_numpy(p).cuda())
+        return net.apply({}, {"x": x}, seed=seed)["ids"].value.cpu().numpy()
+    ids = np.array([3, 0, 2, 1, 3])
+    for seed in range(3):
+        if not np.array_equal(draw(np.eye(4, dtype=np.float32)[ids], seed),
+                              ids):
+            raise AssertionError("sampling_id: a one-hot row drew another "
+                                 "id on the card")
+    probs = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    p = np.tile(probs, (20000, 1))
+    a = draw(p, 7)
+    freq = np.bincount(a, minlength=4) / a.size
+    if not np.all(np.abs(freq - probs) <= 0.015):
+        raise AssertionError(f"sampling_id frequencies {freq} on the card")
+    if not np.array_equal(draw(p, 7), a) or np.array_equal(draw(p, 8), a):
+        raise AssertionError("sampling_id: the card's draw does not repeat "
+                             "under its seed")
+    return dict(frequencies=freq.tolist())
+
+
+def check_layer_matrix():
+    """(c): every layer type this slice ports, forward and gradient, on
+    the card against the CPU at the tier-1 matrix's shapes: values within
+    rtol 1e-4 / atol 1e-5, each gradient within 1e-4 of its largest entry
+    + 1e-5; integer outputs equal; sampling_id three ways; print passes
+    its input through."""
+    t0 = time.perf_counter()
+    rows = {}
+    for type_, case in sorted(layer_cases().items()):
+        if type_ == "sampling_id":
+            rows[type_] = _sampling_on_card()
+            continue
+        net, params = layer_case_net(case)
+        name, feed = case[1]["name"], case[2]
+        cpu, _ = _layer_run(net, name, params, feed, "cpu")
+        grad = cpu.is_floating_point() and type_ != "print"
+        w = (np.random.default_rng(5).normal(size=tuple(cpu.shape))
+             .astype(np.float32) if grad else None)
+        cpu, gcpu = _layer_run(net, name, params, feed, "cpu", w)
+        card, gcard = _layer_run(net, name, params, feed, "cuda", w)
+        if tuple(card.shape) != tuple(cpu.shape) or card.dtype != cpu.dtype:
+            raise AssertionError(f"{type_}: {card.shape} {card.dtype} on "
+                                 f"the card, {cpu.shape} {cpu.dtype}")
+        if grad:
+            err = _close(f"layer {type_}", card, cpu)
+        elif not torch.equal(card, cpu):
+            raise AssertionError(f"layer {type_}: the card's output differs")
+        else:
+            err = 0.0
+        gerr = 0.0
+        for k, g in gcpu.items():
+            e = (gcard[k] - g).abs().max().item()
+            if not e <= 1e-4 * g.abs().max().item() + 1e-5:
+                raise AssertionError(f"layer {type_} d/d {k}: max abs err "
+                                     f"{e}")
+            gerr = max(gerr, e)
+        rows[type_] = dict(max_abs_err=err, grad_max_abs_err=gerr,
+                           grads=len(gcpu))
+    row = dict(types=len(rows), rows=rows,
+               seconds=time.perf_counter() - t0)
+    phase("layer_matrix", types=len(rows), seconds=row["seconds"],
+          max_abs_err=max(r.get("max_abs_err", 0) for r in rows.values()),
+          grad_max_abs_err=max(r.get("grad_max_abs_err", 0)
+                               for r in rows.values()))
+    return row
+
+
+def _ds2r_ctc_row(ctc_rows):
+    """Phase 6b's row at DeepSpeech2 as released's (16, 134, S = 133)."""
+    return next(r for r in ctc_rows
+                if (r["B"], r["T"]) == (DS2_BATCH, DS2R_STEPS))
+
+
+def check_layers(tmp, ctc):
+    """Phase 14, the layer plane: (a) and (b) DeepSpeech2 as released,
+    (c) the layer matrix on the card; ``ctc``: the CTC kernels' check at
+    its (16, 134, S <= 133), phase 6b's row."""
+    t0 = time.perf_counter()
+    ds2 = check_ds2_release(tmp)
+    matrix = check_layer_matrix()
+    row = dict(ds2_release=ds2, ctc_shape=ctc, layer_matrix=matrix,
+               seconds=time.perf_counter() - t0)
+    phase("layers", seconds=row["seconds"], ds2_seconds=ds2["seconds"],
+          ctc_shape={k: ctc[k] for k in ("B", "T", "S")},
+          ctc_fused_fwd_max_abs_err=ctc["fused_fwd_max_abs_err"],
+          ctc_fused_bwd_max_abs_err=ctc["fused_bwd_max_abs_err"])
+    return row
+
+
+def layers():
+    """``--layers``: phase 14 alone (the CTC shape checked first, as phase
+    6b would); its row in ``layers.json`` in ``OUT_DIR``."""
+    build.build_all(SOURCES)
+    floors = {(P, beta): _chain_floor_us(P, beta)
+              for P in (1, 2, 4) for beta in (False, True)}
+    ctc = check_ctc_shape(DS2_BATCH, DS2R_STEPS, DS2_LABEL_PAD,
+                          DS2_BATCH + DS2R_STEPS, floors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        out = check_layers(tmp, ctc)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "layers.json"), "w") as f:
+        json.dump(out, f, indent=1)
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -6599,6 +7432,11 @@ def main() -> int:
                         help="only phase 13, the rest of training (gradient "
                         "accumulation, prev_batch_state, async loading, "
                         "kill and resume, dropout, evaluators, the jobs)")
+    parser.add_argument("--layers", action="store_true",
+                        help="only phase 14, the layer plane (DeepSpeech2 "
+                        "as released, both branches; the CTC kernels at its "
+                        "shape; every newly ported layer type card against "
+                        "CPU)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -6634,12 +7472,17 @@ def main() -> int:
     if args.training:
         training()
         return 0
+    if args.layers:
+        layers()
+        return 0
     seconds = {}  # each phase's wall time
 
     def timed(name, fn, *args, **kw):
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t0
+        phase("done", name=name, seconds=seconds[name],
+              total=time.perf_counter() - t_start)
         return out
 
     timed("build", build_kernels)
@@ -6677,6 +7520,8 @@ def main() -> int:
         image = timed("image", check_image, tmp)
         training_row = timed("training", check_training, tmp,
                              trained["pass_costs"])
+        layers_row = timed("layers", check_layers, tmp,
+                           _ds2r_ctc_row(ctc_rows))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -6698,6 +7543,10 @@ def main() -> int:
     ctc_row = ctc_rows[0]  # the acoustic model's shape
     ctc_src = "paddle_tpu_torch/csrc/ctc.cu"
     ac_counts, ac_test = acoustic["kernels"], acoustic["test_kernels"]
+    # phase 14's DeepSpeech2 as released (its --job train's counts) and
+    # its CTC shape (16, 134, S)
+    ds2r_counts = layers_row["ds2_release"]["kernels"]
+    ds2r_ctc = layers_row["ctc_shape"]
     ctc_lib = ", ".join(ctc_row["library_kernels"])
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
     gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
@@ -6877,6 +7726,7 @@ def main() -> int:
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              **_opt_keys(opt_rows["adam"]),
              training_launches=training_row["launches"]["adam"],
+             ds2_release_launches=ds2r_counts["adam"]["launches"],
              library="torch._fused_adam_ (eps / sqrt(1 - beta2^t))"),
         dict(_entry("crf_alpha_fwd", crf_src, "paddle_tpu/ops/crf.py:87",
                     tag_counts["crf_alpha_fwd"]["launches"]
@@ -7007,9 +7857,16 @@ def main() -> int:
         dict(_entry("ctc_fused_fwd", ctc_src, "paddle_tpu/ops/ctc.py:87",
                     ac_counts["ctc_fused_fwd"]["launches"]
                     + ac_test["ctc_fused_fwd"]["launches"],
-                    max(r["fused_fwd_max_abs_err"] for r in ctc_rows),
+                    max(r["fused_fwd_max_abs_err"]
+                        for r in ctc_rows + [ds2r_ctc]),
                     ctc_row, "fused_fwd_"),
              shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             ds2_release_launches=ds2r_counts["ctc_fused_fwd"]["launches"],
+             ds2_release_shape={k: ds2r_ctc[k] for k in ("B", "T", "S")},
+             ds2_release_ms=ds2r_ctc["fused_fwd_ms"],
+             ds2_release_plain_ms=ds2r_ctc["fused_fwd_plain_ms"],
+             ds2_release_bound_ms=ds2r_ctc["fused_fwd_bound_ms"],
+             ds2_release_library_ms=ds2r_ctc.get("fused_fwd_library_ms"),
              call_ms=ctc_row["fused_fwd_call_ms"],
              nograd_ms=ctc_row["fused_fwd_nograd_ms"],
              nograd_call_ms=ctc_row["fused_fwd_nograd_call_ms"],
@@ -7022,9 +7879,16 @@ def main() -> int:
         dict(_entry("ctc_fused_bwd", ctc_src,
                     "JAX lax.scan paddle_tpu/ops/ctc.py:136 (_ctc_bwd)",
                     ac_counts["ctc_fused_bwd"]["launches"],
-                    max(r["fused_bwd_max_abs_err"] for r in ctc_rows),
+                    max(r["fused_bwd_max_abs_err"]
+                        for r in ctc_rows + [ds2r_ctc]),
                     ctc_row, "fused_bwd_"),
              shape={k: ctc_row[k] for k in ("B", "T", "S")},
+             ds2_release_launches=ds2r_counts["ctc_fused_bwd"]["launches"],
+             ds2_release_shape={k: ds2r_ctc[k] for k in ("B", "T", "S")},
+             ds2_release_ms=ds2r_ctc["fused_bwd_ms"],
+             ds2_release_plain_ms=ds2r_ctc["fused_bwd_plain_ms"],
+             ds2_release_bound_ms=ds2r_ctc["fused_bwd_bound_ms"],
+             ds2_release_library_ms=ds2r_ctc.get("fused_bwd_library_ms"),
              call_ms=ctc_row["fused_bwd_call_ms"],
              port_path_ms=ctc_row["bwd_port_path_ms"],
              baseline_path_ms=ctc_row["bwd_baseline_path_ms"],
@@ -7094,6 +7958,9 @@ def main() -> int:
              path="none: no path's classes overflow the staged pass"),
     ]
     for e in entries:
+        if "ds2_release_launches" in e and e["ds2_release_launches"] <= 0:
+            raise AssertionError(f"DeepSpeech2 as released never launched "
+                                 f"{e['name']}")
         if "training_launches" in e and e["training_launches"] <= 0:
             raise AssertionError(f"the rest of training never launched "
                                  f"{e['name']}")
@@ -7126,6 +7993,7 @@ def main() -> int:
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
                    "tagger": tagger, "tagger_serve": tag_served,
                    "acoustic": acoustic, "training": training_row,
+                   "layers": layers_row,
                    "elapsed_s": elapsed,
                    "phase_seconds": seconds,
                    **kernels},

@@ -1,9 +1,9 @@
-"""Layer-construction DSL: the subset of ``paddle_tpu/config/dsl.py`` that
-``lstm_text_classifier``, ``seq2seq_attention`` (its training graph, with
-its encoder self-attention block, and its generating graph),
-``bilstm_crf_tagger`` (the CRF layers and config-declared evaluators), an
-``lstm_step`` decoder, a CTC acoustic model, ``resnet``, ``lenet_mnist``
-(conv, image pool, batch norm, cross-map norm) and a serve config need.
+"""Layer-construction DSL: ``paddle_tpu/config/dsl.py``'s functions for
+every ported layer type — the models (``lstm_text_classifier``,
+``seq2seq_attention``, ``bilstm_crf_tagger``, ``resnet``, ``lenet_mnist``,
+DeepSpeech2), recurrent groups and beam search, the evaluators, ``mixed``
+with its projections and the long-tail layers — with the same names and
+keywords.
 
 Each function appends a ``LayerDef`` to the active ``ModelDef`` and returns
 a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
@@ -266,6 +266,53 @@ _POOL_TYPES = {"max": "max", "avg": "average", "average": "average",
                "first": "seqlastins"}
 
 
+def mixed(inputs, size: int, *, projections, act: str = "linear",
+          name: str = None, bias_attr=False) -> LayerOutput:
+    """A sum of projections, one entry of ``projections`` (a dict with its
+    "type" and its keys, an optional "param_attr") for each input."""
+    ins = [Input(i.name, param_attr=_param(p.pop("param_attr", None)))
+           for i, p in zip(_in(inputs), [dict(p) for p in projections])]
+    ldef = LayerDef(name=name or _auto_name("mixed"), type="mixed",
+                    inputs=ins, size=size, act=act, bias=_bias(bias_attr),
+                    attrs={"projections": list(projections)})
+    return _add(ldef)
+
+
+def recurrent(input, *, name: str = None, reverse: bool = False,
+              act: str = "tanh", bias_attr=True,
+              param_attr=None) -> LayerOutput:
+    """The simple recurrence act(x_t + h W + b); ``act`` runs inside the
+    step."""
+    src = _in(input)[0]
+    ldef = LayerDef(name=name or _auto_name("recurrent"), type="recurrent",
+                    inputs=[Input(src.name, param_attr=_param(param_attr))],
+                    bias=_bias(bias_attr), act="linear",
+                    attrs={"reversed": reverse, "active_type": act})
+    return _add(ldef)
+
+
+def maxid(input, *, name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("maxid"), type="maxid",
+                    inputs=[Input(_in(input)[0].name)], bias=False)
+    return _add(ldef)
+
+
+def cos_sim(a, b, *, scale: float = 1.0, name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("cos"), type="cos",
+                    inputs=[Input(_in(a)[0].name), Input(_in(b)[0].name)],
+                    bias=False, attrs={"cos_scale": scale})
+    return _add(ldef)
+
+
+def slope_intercept(input, *, slope: float = 1.0, intercept: float = 0.0,
+                    name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("slope_intercept"),
+                    type="slope_intercept",
+                    inputs=[Input(_in(input)[0].name)], bias=False,
+                    attrs={"slope": slope, "intercept": intercept})
+    return _add(ldef)
+
+
 def pooling(input, *, pooling_type: str = "max",
             name: str = None) -> LayerOutput:
     """Sequence pooling (``pooling_layer`` in the reference DSL)."""
@@ -350,6 +397,27 @@ def classification_cost(input, label, *, name: str = None) -> LayerOutput:
     ldef = LayerDef(name=name or _auto_name("cost"),
                     type="multi-class-cross-entropy",
                     inputs=[Input(_in(input)[0].name),
+                            Input(_in(label)[0].name)], bias=False)
+    return _add(ldef)
+
+
+cross_entropy_cost = classification_cost
+
+
+def square_error_cost(input, label, *, name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("cost"), type="square_error",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(label)[0].name)], bias=False)
+    return _add(ldef)
+
+
+mse_cost = square_error_cost
+
+
+def rank_cost(left, right, label, *, name: str = None) -> LayerOutput:
+    ldef = LayerDef(name=name or _auto_name("cost"), type="rank-cost",
+                    inputs=[Input(_in(left)[0].name),
+                            Input(_in(right)[0].name),
                             Input(_in(label)[0].name)], bias=False)
     return _add(ldef)
 
@@ -646,3 +714,137 @@ def beam_search(step, input, *, bos_id: int = None, eos_id: int = None,
                "stop_beam_search": stop_beam_search,
                "decode_chunk": decode_chunk, "full_scan": full_scan})
     return _add(ldef)
+
+
+# ------------------------------------------------ long-tail layer wrappers
+def _simple(type_name, input, name=None, *, attrs=None, size=None,
+            extra_inputs=(), act="linear", bias=False, param_attr=None):
+    ins = [Input(_in(input)[0].name, param_attr=_param(param_attr))]
+    ins += [Input(_in(e)[0].name) for e in extra_inputs]
+    ldef = LayerDef(name=name or _auto_name(type_name), type=type_name,
+                    inputs=ins, size=size, act=act, bias=bias,
+                    attrs=attrs or {})
+    return _add(ldef)
+
+
+def clip_layer(input, *, min: float, max: float, name=None):
+    return _simple("clip", input, name, attrs={"min": min, "max": max})
+
+
+def power_layer(input, weight, *, name=None):
+    ldef = LayerDef(name=name or _auto_name("power"), type="power",
+                    inputs=[Input(_in(weight)[0].name),
+                            Input(_in(input)[0].name)], bias=False)
+    return _add(ldef)
+
+
+def prelu_layer(input, *, partial_sum: int = 1, name=None, param_attr=None):
+    return _simple("prelu", input, name, attrs={"partial_sum": partial_sum},
+                   param_attr=param_attr)
+
+
+def maxout_layer(input, *, groups: int, name=None):
+    return _simple("maxout", input, name, attrs={"groups": groups})
+
+
+def multiplex_layer(index, inputs, *, name=None):
+    ins = [Input(_in(index)[0].name)] + [Input(_in(i)[0].name)
+                                         for i in inputs]
+    return _add(LayerDef(name=name or _auto_name("multiplex"),
+                         type="multiplex", inputs=ins, bias=False))
+
+
+def eos_id_layer(input, *, eos_id: int, name=None):
+    return _simple("eos_id", input, name, attrs={"eos_id": eos_id})
+
+
+def sampling_id_layer(input, *, name=None):
+    return _simple("sampling_id", input, name)
+
+
+def print_layer(input, *, name=None):
+    return _simple("print", input, name)
+
+
+def resize_layer(input, *, size: int, name=None):
+    return _simple("resize", input, name, size=size)
+
+
+def rotate_layer(input, *, name=None):
+    return _simple("rotate", input, name)
+
+
+def bilinear_interp_layer(input, *, out_size_x: int, out_size_y: int,
+                          name=None):
+    return _simple("bilinear_interp", input, name,
+                   attrs={"out_size_x": out_size_x, "out_size_y": out_size_y})
+
+
+def pad_layer(input, *, pad_c=(0, 0), pad_h=(0, 0), pad_w=(0, 0), name=None):
+    return _simple("pad", input, name,
+                   attrs={"pad_c": list(pad_c), "pad_h": list(pad_h),
+                          "pad_w": list(pad_w)})
+
+
+def crop_layer(input, *, axis: int = 2, offset=None, shape=None,
+               reference=None, name=None):
+    attrs = {"axis": axis}
+    if offset is not None:
+        attrs["offset"] = list(offset)
+    if shape is not None:
+        attrs["shape"] = list(shape)
+    extra = [reference] if reference is not None else []
+    return _simple("crop", input, name, attrs=attrs, extra_inputs=extra)
+
+
+def conv_shift_layer(a, b, *, name=None):
+    ldef = LayerDef(name=name or _auto_name("conv_shift"), type="conv_shift",
+                    inputs=[Input(_in(a)[0].name), Input(_in(b)[0].name)],
+                    bias=False)
+    return _add(ldef)
+
+
+def row_conv_layer(input, *, context_length: int, name=None,
+                   param_attr=None):
+    return _simple("row_conv", input, name,
+                   attrs={"context_length": context_length},
+                   param_attr=param_attr)
+
+
+def tensor_layer(a, b, *, size: int, act: str = "linear", name=None,
+                 bias_attr=True, param_attr=None):
+    ldef = LayerDef(name=name or _auto_name("tensor"), type="tensor",
+                    inputs=[Input(_in(a)[0].name,
+                                  param_attr=_param(param_attr)),
+                            Input(_in(b)[0].name)],
+                    size=size, act=act, bias=_bias(bias_attr))
+    return _add(ldef)
+
+
+def selective_fc_layer(input, *, size: int, select=None, act: str = "tanh",
+                       name=None, bias_attr=True, param_attr=None):
+    # the layer applies the activation itself (the selection after it)
+    extra = [select] if select is not None else []
+    return _simple("selective_fc", input, name, size=size, act="linear",
+                   bias=_bias(bias_attr), extra_inputs=extra,
+                   param_attr=param_attr, attrs={"active_type": act})
+
+
+def mdlstm_layer(input, *, name=None, act: str = "tanh",
+                 gate_act: str = "sigmoid", state_act: str = "tanh",
+                 bias_attr=True, param_attr=None):
+    """The 2-D LSTM over an image of gate projections (5*size
+    channels)."""
+    return _simple("mdlstmemory", input, name, bias=_bias(bias_attr),
+                   param_attr=param_attr,
+                   attrs={"active_type": act, "active_gate_type": gate_act,
+                          "active_state_type": state_act})
+
+
+def block_expand_layer(input, *, block_x: int, block_y: int,
+                       stride_x: int = 1, stride_y: int = 1,
+                       padding_x: int = 0, padding_y: int = 0, name=None):
+    return _simple("blockexpand", input, name,
+                   attrs={"block_x": block_x, "block_y": block_y,
+                          "stride_x": stride_x, "stride_y": stride_y,
+                          "padding_x": padding_x, "padding_y": padding_y})

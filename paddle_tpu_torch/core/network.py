@@ -190,9 +190,16 @@ class Network:
         through them, as in JAX, where they are ``value_and_grad``'s aux."""
         ctx = Context(train=train, carried=carried or {}, seed=seed)
         for name in self.order:
-            if self.model.layers[name].type == "data":
+            layer = self.model.layers[name]
+            if layer.type == "data" or (
+                    get_layer_impl(layer.type).feed_slot
+                    and not layer.inputs):
+                # data layers and input-less agents (the memory and in-link
+                # agents of an expanded recurrent sub-model) are fed by name
                 if name not in feed:
-                    raise KeyError(f"missing feed for data layer {name!r}")
+                    what = ("data layer" if layer.type == "data"
+                            else f"{layer.type} feed slot")
+                    raise KeyError(f"missing feed for {what} {name!r}")
                 ctx.outputs[name] = feed[name]
             else:
                 ctx.outputs[name] = self._run_layer(name, params, ctx)

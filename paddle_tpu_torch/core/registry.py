@@ -59,6 +59,10 @@ class LayerImpl:
     """
 
     type_name: str = ""
+    # the layer draws random numbers (the step's seed, ``Context.layer_seed``)
+    needs_rng: bool = False
+    # an input-less instance is fed by name, like a data layer
+    feed_slot: bool = False
 
     def infer(self, cfg, in_infos: List[ShapeInfo]) -> ShapeInfo:
         raise NotImplementedError

@@ -1,7 +1,8 @@
-"""Activation functions (``ActivationFunction.cpp``): the subset the ported
-layers use — linear, tanh, sigmoid, relu, softmax and sequence_softmax.
-Each takes the layer's value and its sequence mask (None for non-sequence
-values), as ``paddle_tpu/layers/activations.py`` does."""
+"""Activation functions (``ActivationFunction.cpp``): the reference's 16 —
+linear, sigmoid, softmax, sequence_softmax, relu, brelu, tanh, stanh,
+softrelu, abs, square, exponential, reciprocal, sqrt and log — with the
+expressions of ``paddle_tpu/layers/activations.py``. Each takes the
+layer's value and its sequence mask (None for non-sequence values)."""
 
 from __future__ import annotations
 
@@ -33,13 +34,26 @@ _ACTIVATIONS: Dict[str, Callable] = {
     "softmax": lambda x, m=None: torch.softmax(x, dim=-1),
     "sequence_softmax": _sequence_softmax,
     "relu": lambda x, m=None: torch.relu(x),
+    "brelu": lambda x, m=None: torch.clamp(x, 0.0, 24.0),
     "tanh": lambda x, m=None: torch.tanh(x),
+    "stanh": lambda x, m=None: 1.7159 * torch.tanh((2.0 / 3.0) * x),
+    "softrelu": lambda x, m=None: torch.log1p(torch.exp(
+        torch.clamp(x, -40.0, 40.0))),
+    "abs": lambda x, m=None: torch.abs(x),
+    "square": lambda x, m=None: torch.square(x),
+    "exponential": lambda x, m=None: torch.exp(x),
+    "reciprocal": lambda x, m=None: 1.0 / x,
+    "sqrt": lambda x, m=None: torch.sqrt(x),
+    "log": lambda x, m=None: torch.log(x),
 }
 
 
 def apply_activation(name: str, x: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if name not in _ACTIVATIONS:
-        raise KeyError(f"activation {name!r} is not ported yet; ported: "
-                       f"{sorted(k for k in _ACTIVATIONS if k)}")
+        raise KeyError(f"unknown activation {name!r}")
     return _ACTIVATIONS[name](x, mask)
+
+
+def activation_names():
+    return sorted(k for k in _ACTIVATIONS if k)

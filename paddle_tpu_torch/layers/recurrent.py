@@ -1,9 +1,8 @@
 """Recurrent layers: lstmemory (``LstmLayer.cpp``), gated_recurrent
-(``GruLayer.cpp``) and the single steps gru_step (``GruStepLayer.cpp``) and
-lstm_step (``LstmStepLayer.cpp``).
-
-The port's counterpart of ``paddle_tpu/layers/recurrent.py``'s
-``LstmLayer``, ``GruLayer``, ``GruStepLayer`` and ``LstmStepLayer``.
+(``GruLayer.cpp``), the simple recurrence (``RecurrentLayer.cpp``), the
+single steps gru_step (``GruStepLayer.cpp``) and lstm_step
+(``LstmStepLayer.cpp``), and the 2-D LSTM mdlstmemory
+(``MDLstmLayer.cpp``): the port of ``paddle_tpu/layers/recurrent.py``.
 
 - LSTM: the incoming projection supplies 4 gate blocks in order [input,
   input_gate, forget_gate, output_gate]; the recurrent weight is [size,
@@ -30,6 +29,7 @@ from paddle_tpu_torch.kernels.rnn_cells import (activation, gru_cell,
                                                 gru_cell_infer, gru_math,
                                                 lstm_cell, lstm_cell_infer,
                                                 lstm_math)
+from paddle_tpu_torch.layers.conv import to_nhwc
 from paddle_tpu_torch.ops.gru import gru_sequence
 from paddle_tpu_torch.ops.lstm import lstm_sequence
 
@@ -151,6 +151,47 @@ class GruLayer(LayerImpl):
         return Argument(value=value, mask=a.mask, state=h)
 
 
+@register_layer("recurrent")
+class SimpleRecurrentLayer(LayerImpl):
+    """The Elman recurrence out_t = act(x_t + out_{t-1} W + b)
+    (``RecurrentLayer.cpp``): the activation (``active_type``) runs inside
+    the step loop, so the layer's own ``act`` is linear. No kernel: the
+    JAX package runs it as a ``lax.scan``, the port as this loop of plain
+    torch ops. h0 is the carried state (``prev_batch_state``) of a forward
+    layer, zeros otherwise."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=in_infos[0].size, is_sequence=True)
+
+    def params(self, cfg, in_infos):
+        size = in_infos[0].size
+        specs = {"w0": ParamSpec(shape=(size, size))}
+        if cfg.bias:
+            specs["wbias"] = ParamSpec(shape=(size,), init="zeros",
+                                       is_bias=True)
+        return specs
+
+    def apply(self, cfg, params, ins, ctx):
+        a = ins[0]
+        act = activation(cfg.attrs.get("active_type", cfg.act or "tanh"))
+        reverse = bool(cfg.attrs.get("reversed", False))
+        w = params["w0"]
+        B, T, D = a.value.shape
+        b = params.get("wbias", 0.0)
+        xs = a.value.transpose(0, 1)
+        mask = a.mask.transpose(0, 1)
+        carried = None if reverse else ctx.carried.get(cfg.name)
+        h = carried if carried is not None else a.value.new_zeros(B, D)
+        ys = [None] * T
+        for t in _steps(T, reverse):
+            out = act(xs[t] + h @ w + b)
+            m = mask[t].unsqueeze(-1)
+            h = torch.where(m > 0, out, h)
+            ys[t] = out * m
+        value = torch.stack(ys, dim=1) if ys else a.value.new_zeros(B, 0, D)
+        return Argument(value=value, mask=a.mask, state=h)
+
+
 @register_layer("gru_step")
 class GruStepLayer(LayerImpl):
     """Single GRU step for use inside recurrent groups: inputs = (gate
@@ -220,3 +261,59 @@ class LstmStepLayer(LayerImpl):
                           cfg.attrs.get("active_gate_type", "sigmoid"),
                           cfg.attrs.get("active_state_type", "tanh"))
         return Argument(value=out, state={"state": state})
+
+
+@register_layer("mdlstmemory")
+class MDLstmLayer(LayerImpl):
+    """The 2-D LSTM (``MDLstmLayer.cpp``): cell (i, j) sees its neighbours
+    (i-1, j) and (i, j-1), with one forget gate per direction. The input
+    is an image of gate projections, 5*size channels (in, ig, fg_h, fg_w,
+    og). Rows in an outer loop, columns in an inner one, as the JAX
+    package's nested scans."""
+
+    def infer(self, cfg, in_infos):
+        info = in_infos[0]
+        if info.channels % 5:
+            raise ValueError("mdlstmemory input must have 5*size channels")
+        size = info.channels // 5
+        return ShapeInfo(size=size * info.height * info.width, channels=size,
+                         height=info.height, width=info.width)
+
+    def params(self, cfg, in_infos):
+        size = in_infos[0].channels // 5
+        specs = {"w0": ParamSpec(shape=(2, size, 5 * size))}
+        if cfg.bias:
+            specs["wbias"] = ParamSpec(shape=(5 * size,), init="zeros",
+                                       is_bias=True)
+        return specs
+
+    def apply(self, cfg, params, ins, ctx):
+        info = ctx.in_infos[0]
+        x = to_nhwc(ins[0].value, info.channels, info.height, info.width)
+        size = ctx.out_info.channels
+        w_h, w_w = params["w0"][0], params["w0"][1]
+        bias = params.get("wbias")
+        act_in = activation(cfg.attrs.get("active_type", "tanh"))
+        act_gate = activation(cfg.attrs.get("active_gate_type", "sigmoid"))
+        act_state = activation(cfg.attrs.get("active_state_type", "tanh"))
+        B, H, W, _ = x.shape
+        z = x.new_zeros(B, size)
+        h_up, c_up = [z] * W, [z] * W
+        rows = []
+        for i in range(H):
+            h_left = c_left = z
+            h_row, c_row = [], []
+            for j in range(W):
+                gates = x[:, i, j] + h_up[j] @ w_h + h_left @ w_w
+                if bias is not None:
+                    gates = gates + bias
+                g_in, g_ig, g_fh, g_fw, g_og = gates.chunk(5, dim=-1)
+                c_left = (act_in(g_in) * act_gate(g_ig)
+                          + c_up[j] * act_gate(g_fh)
+                          + c_left * act_gate(g_fw))
+                h_left = act_gate(g_og) * act_state(c_left)
+                h_row.append(h_left)
+                c_row.append(c_left)
+            h_up, c_up = h_row, c_row
+            rows.append(torch.stack(h_row, dim=1))
+        return Argument(value=torch.stack(rows, dim=1))  # [B, H, W, size]

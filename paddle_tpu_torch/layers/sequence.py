@@ -1,8 +1,9 @@
-"""Sequence aggregation layers: masked reductions over the padded
-``[B, T, D]`` layout (``MaxLayer.cpp``, ``AverageLayer.cpp``,
-``SequenceLastInstanceLayer.cpp``, ``ExpandLayer.cpp`` in the reference).
-The port's counterpart of ``paddle_tpu/layers/sequence.py`` for flat
-sequences; nested (two-level) inputs and ``agg_level`` TO_SEQUENCE raise
+"""Sequence layers: masked reductions over the padded ``[B, T, D]`` layout
+(``MaxLayer.cpp``, ``AverageLayer.cpp``, ``SequenceLastInstanceLayer.cpp``,
+``ExpandLayer.cpp``) and the reshape and time concatenation of sequences
+(``SequenceReshapeLayer.cpp``, ``SequenceConcatLayer.cpp``). The port's
+counterpart of ``paddle_tpu/layers/sequence.py`` for flat sequences;
+nested (two-level) inputs and ``agg_level`` TO_SEQUENCE raise
 ``NotImplementedError``."""
 
 from __future__ import annotations
@@ -105,4 +106,50 @@ class ExpandLayer(LayerImpl):
                 "expand of a per-sub-sequence input is not ported yet")
         B, T = mask.shape
         v = src.value.unsqueeze(1).expand(B, T, src.value.shape[-1])
+        return Argument(value=v * mask.unsqueeze(-1), mask=mask)
+
+
+def _lengths(a: Argument) -> torch.Tensor:
+    """[B] true lengths (int64)."""
+    return (a.mask > 0).sum(dim=1)
+
+
+@register_layer("seqreshape")
+class SeqReshapeLayer(LayerImpl):
+    """[B, T, D] -> [B, T*D // size, size], the mask recomputed from each
+    sequence's true token count."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=cfg.size, is_sequence=True)
+
+    def apply(self, cfg, params, ins, ctx):
+        a = ins[0]
+        b, t, d = a.value.shape
+        new_t = t * d // cfg.size
+        toks = _lengths(a) * d // cfg.size
+        pos = torch.arange(new_t, device=a.value.device)
+        mask = (pos.unsqueeze(0) < toks.unsqueeze(1)).to(a.mask.dtype)
+        return Argument(value=a.value.reshape(b, new_t, cfg.size), mask=mask)
+
+
+@register_layer("seqconcat")
+class SeqConcatLayer(LayerImpl):
+    """Two sequences concatenated in time: the second placed after each
+    first sequence's true length, the rest padding."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=in_infos[0].size, is_sequence=True)
+
+    def apply(self, cfg, params, ins, ctx):
+        a, b = ins
+        Ta, Tb = a.value.shape[1], b.value.shape[1]
+        la, lb = _lengths(a), _lengths(b)
+        pos = torch.arange(Ta + Tb, device=a.value.device).unsqueeze(0)
+        mask = (pos < (la + lb).unsqueeze(1)).to(a.mask.dtype)
+        D = a.value.shape[-1]
+        idx_a = pos.clamp(0, Ta - 1).expand(a.value.shape[0], -1)
+        idx_b = (pos - la.unsqueeze(1)).clamp(0, Tb - 1)
+        va = torch.gather(a.value, 1, idx_a.unsqueeze(-1).expand(-1, -1, D))
+        vb = torch.gather(b.value, 1, idx_b.unsqueeze(-1).expand(-1, -1, D))
+        v = torch.where((pos < la.unsqueeze(1)).unsqueeze(-1), va, vb)
         return Argument(value=v * mask.unsqueeze(-1), mask=mask)

@@ -1919,3 +1919,84 @@ def test_accumulated_gradient_matches_whole_batch_on_card(cuda_device):
     for name, w in whole.items():
         err = (grads[name] - w).abs().max().item()
         assert err <= 1e-4 * w.abs().max().item() + 1e-5, name
+
+
+# --------------------------------------------- the layer plane (phase 14)
+def _layer_plane_types():
+    import chip_smoke
+    return sorted(t for t in chip_smoke.layer_cases() if t != "sampling_id")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("type_name", _layer_plane_types())
+def test_layer_plane_type_on_card_matches_cpu(cuda_device, type_name):
+    """Each layer type of the layer plane at the tier-1 matrix's shapes
+    (``chip_smoke.layer_cases``): the output within rtol 1e-4 / atol 1e-5
+    of the CPU's (integer outputs equal), each gradient of a fixed random
+    weighting within 1e-4 of its largest entry + 1e-5."""
+    import chip_smoke
+    case = chip_smoke.layer_cases()[type_name]
+    net, params = chip_smoke.layer_case_net(case)
+    name, feed = case[1]["name"], case[2]
+    cpu, _ = chip_smoke._layer_run(net, name, params, feed, "cpu")
+    w = (np.random.default_rng(5).normal(size=tuple(cpu.shape))
+         .astype(np.float32) if cpu.is_floating_point() else None)
+    cpu, gcpu = chip_smoke._layer_run(net, name, params, feed, "cpu", w)
+    card, gcard = chip_smoke._layer_run(net, name, params, feed, "cuda", w)
+    assert card.dtype == cpu.dtype and card.shape == cpu.shape
+    if cpu.is_floating_point():
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-5)
+    else:
+        assert torch.equal(card, cpu)
+    for k, g in gcpu.items():
+        err = (gcard[k] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-5, k
+
+
+@pytest.mark.cuda
+def test_sampling_id_on_card_three_ways(cuda_device):
+    """One-hot rows draw their id; the frequencies of 20,000 draws within
+    0.015 of the probabilities; one seed, one draw."""
+    import chip_smoke
+    chip_smoke._sampling_on_card()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_gru", [True, False], ids=["gru", "simple_rnn"])
+def test_small_deepspeech2_release_on_card_matches_cpu(cuda_device,
+                                                       use_gru):
+    """DeepSpeech2 as released at the tier-1 test's tiny width (21 x 31
+    spectrogram, 4 filters, hidden 8, 2 layers, 6 classes): the loss
+    within 1e-5 relative and every gradient within 1e-3 of its largest
+    entry + 1e-6 of the CPU's, through the CTC kernels on the card."""
+    import chip_smoke
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config import model_config as mc
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (dense_vector,
+                                             integer_value_sequence)
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import SGD
+    ns = {}
+    exec(chip_smoke._DS2R_MODEL, ns)
+    dsl.reset()
+    cost = ns["deep_speech2"](
+        dsl, mc, height=21, width=31, chars=5, filters=4, hidden=8,
+        layers=2, use_gru=use_gru,
+        convs=[(5, 5, 3, 2, 2, 2), (3, 3, 1, 2, 1, 1)])[0]
+    rng = np.random.default_rng(1)
+    batch = [(rng.normal(size=21 * 31).astype(np.float32),
+              rng.integers(0, 5, size=int(n)).tolist())
+             for n in (3, 0, 2, 4)]
+    feeder = DataFeeder({"audio": dense_vector(21 * 31),
+                         "text": integer_value_sequence(5)}, pad_multiple=4,
+                        device="cpu")
+    tr = SGD(cost, update_equation=Adam(), seed=2, device="cpu")
+    _, loss, grads, _ = tr.loss_and_grads(feeder(batch))
+    card = SGD(cost, parameters={k: v.clone() for k, v in tr.params.items()},
+               update_equation=Adam(), device=cuda_device)
+    _, closs, cgrads, _ = card.loss_and_grads(card._to_device(feeder(batch)))
+    assert float(closs) == pytest.approx(float(loss), rel=1e-5)
+    for k, g in grads.items():
+        err = (cgrads[k].cpu() - g).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item() + 1e-6, k
