@@ -418,11 +418,33 @@ non-zero without the result line:
    frequencies over 20,000 draws and its repeat under one seed.
    ``python3 chip_smoke.py --layers`` runs this phase alone, into
    ``chiprun_out/layers.json``.
-15. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+15. the last layer types, each model held against the CPU (synthetic
+   batches from seed 2017): (a) a nested GRU text model
+   (``nested_text``: ``sequence_nest_rnn.conf``'s topology at seq2seq's
+   widths, 30000 / 512 / 512, batch 50 documents of 2-8 sentences of
+   5-30 words through the feeder's nested slot; the inner step a 3H
+   projection and ``gru_step``): nested == flat on the card, card
+   against CPU (loss rtol 1e-4, gradients within 1e-3 of the largest
+   entry + 1e-6), 4 batches x 3 passes of Adam(5e-4) (the cost falls;
+   the step's ms, busy ms and idle share), subseq and the TO_SEQUENCE
+   max / seqlastins on the nested out-link; (b) the book's word2vec
+   N-gram (2048 words, embedding 32, fc 256) with hsigmoid and with nce,
+   card against CPU (nce's negatives replayed), then trained; (c)
+   SSD300's head (six maps, 8732 priors, 21 classes, batch 32): the
+   priors bit-equal, the loss and the heads' gradients, every
+   ``detection_output`` row, 4 Momentum steps, the forward's and
+   ``detection_output``'s ms and device ms; (d) the VAE (784 / 256 /
+   32, eps replayed for the comparison, then trained; the decoder from
+   z); (e) ``moe`` at d 512, hidden 2048, 8 experts on 50 x 64 padded
+   tokens at a capacity that drops tokens and at the default.
+   ``python3 chip_smoke.py --last-types`` runs this phase alone, into
+   ``last_types.json`` in ``OUT_DIR``.
+16. kernels: one JSON line ``{"kernels": [...]}`` for every ported
    kernel, with the launches of the main paths (phases 8 to 12), the
-   rest of training's (phase 13) as ``training_launches`` and
+   rest of training's (phase 13) as ``training_launches``,
    DeepSpeech2 as released (phase 14) as ``ds2_release_launches``
-   beside the times at its CTC shape. The
+   beside the times at its CTC shape, and phase 15's as
+   ``last_types_launches`` (added to ``launches`` too). The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
    persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
@@ -7027,8 +7049,8 @@ def _m_sigmoid(x):
 
 
 def layer_cases():
-    """Every layer type this slice ports, at the shapes and with the
-    inputs of the tier-1 matrix (``tests/test_layer_grad_matrix.py``'s
+    """Every layer type of the layer plane, and the last types that have
+    a matrix row, at the shapes and with the inputs of the tier-1 matrix (``tests/test_layer_grad_matrix.py``'s
     ``_case_*``; ``tests/test_torch_layer_matrix.py`` holds this table
     equal to them): type -> (data layers, layer keywords, feed)."""
     from paddle_tpu_torch.config.model_config import Input, ParamAttr
@@ -7196,6 +7218,34 @@ def layer_cases():
                             "a": D(), "b": D(seed=1)}),
         "print": _case([("x", 4, {})], "out", "print", ["x"],
                        {"x": D(d=4)}),
+        # the last types with a matrix row (phase 15 checks the rest);
+        # at evaluation nce takes its strided negatives and
+        # sample_gaussian gives mu
+        "subseq": _case(
+            [("x", 5, {"is_sequence": True}), ("off", 1, {}), ("n", 1, {})],
+            "out", "subseq", ["x", "off", "n"],
+            {"x": _m_seq(b=3, t=6, d=5, full=True),
+             "off": (np.array([0, 1, 2], np.int32), None),
+             "n": (np.array([3, 2, 4], np.int32), None)}),
+        "nce": _case([("x", 6, {}), ("y", 8, {})], "out", "nce", ["x", "y"],
+                     {"x": D(), "y": (_m_rng(1).randint(0, 8, size=3)
+                                      .astype(np.int32), None)},
+                     bias=True, num_classes=8, num_neg_samples=4),
+        "hsigmoid": _case([("x", 6, {}), ("y", 8, {})], "out", "hsigmoid",
+                          ["x", "y"],
+                          {"x": D(), "y": (_m_rng(1).randint(0, 8, size=3)
+                                           .astype(np.int32), None)},
+                          bias=True, num_classes=8),
+        "sample_gaussian": _case([("mu", 4, {}), ("lv", 4, {})], "out",
+                                 "sample_gaussian", ["mu", "lv"],
+                                 {"mu": D(d=4), "lv": D(d=4, seed=1)}),
+        "priorbox": _case(
+            [("x", 32, {"channels": 2, "height": 4, "width": 4}),
+             ("img", 48, {"channels": 3, "height": 4, "width": 4})],
+            "out", "priorbox", ["x", "img"],
+            {"x": _m_img(c=2, h=4, w=4), "img": _m_img(c=3, h=4, w=4)},
+            min_size=[2], max_size=[], aspect_ratio=[1.0],
+            variance=[0.1] * 4),
     }
 
 
@@ -7238,7 +7288,9 @@ def _layer_run(net, name, params, feed, device, w=None):
     if w is None:
         return out.detach().cpu(), {}
     leaves = {k: t for k, t in {**tp, **tx}.items() if t.requires_grad}
-    if not leaves:  # a float output of integer inputs (eos_id)
+    if not leaves or not out.requires_grad:
+        # a float output of integer inputs (eos_id) or of none of them
+        # (priorbox: the geometry alone)
         return out.detach().cpu(), {}
     grads = torch.autograd.grad((out * torch.from_numpy(w).to(device)).sum(),
                                 list(leaves.values()), allow_unused=True)
@@ -7366,6 +7418,738 @@ def layers():
         json.dump(out, f, indent=1)
 
 
+# ------------------------------------------------ 15. the last layer types
+# (a) the nested GRU text model at seq2seq's widths (PERF.md §4)
+NEST = dict(vocab_size=30000, embed_dim=512, hidden=512, classes=3)
+NEST_BATCH, NEST_SENTS, NEST_WORDS = 50, (2, 8), (5, 30)
+# (b) the PaddlePaddle book's N-gram word2vec: 4 context words, embedding
+# 32, hidden 256, the imikolov synthetic tier's 2048 words
+W2V = dict(vocab_size=2048, embed_dim=32, hidden=256, context=4)
+W2V_BATCH = 256
+# (c) SSD300 (Liu et al. 2016; Caffe ssd_pascal.py): (map, channels),
+# min and max sizes, aspect ratios; 21 VOC classes
+SSD_IMAGE = 300
+SSD_MAPS = [(38, 512), (19, 1024), (10, 512), (5, 256), (3, 256), (1, 256)]
+SSD_MIN = [30, 60, 111, 162, 213, 264]
+SSD_MAX = [60, 111, 162, 213, 264, 315]
+SSD_AR = [[2], [2, 3], [2, 3], [2, 3], [2], [2]]
+SSD_PRIORS = 8732
+SSD_CLASSES, SSD_BATCH, SSD_GT = 21, 32, (1, 8)
+SSD_DET = dict(confidence_threshold=0.01, nms_threshold=0.45, nms_top_k=400,
+               keep_top_k=200)
+SSD_STEPS = 4
+# (d) the VAE as models/vae.py builds it (v1_api_demo/vae)
+VAE_DIMS = dict(data_dim=784, hidden=256, latent=32)
+VAE_BATCH = 64
+# (e) moe: d 512, hidden 2048, 8 experts over 50 x 64 tokens
+MOE = dict(d=512, hidden=2048, experts=8, rows=50, T=64, tight=128)
+LT_BATCHES, LT_PASSES = 4, 3
+# two detections whose scores lie within the score tolerance of each
+# other may take each other's rank on the card and on the CPU
+LT_TIE_ATOL = 1e-5
+
+
+def _lt_sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _grad_share(where, got, want, rel=1e-3, floor=1e-6):
+    """Each gradient within ``rel`` of its largest entry + ``floor``; the
+    largest share of that tolerance an entry takes."""
+    share = 0.0
+    for k, g in want.items():
+        err = (got[k].cpu().double() - g.cpu().double()).abs().max().item()
+        lim = rel * g.abs().max().item() + floor
+        if not err <= lim:
+            raise AssertionError(f"{where} d/d {k}: max abs err {err} > "
+                                 f"{lim}")
+        share = max(share, err / lim)
+    return share
+
+
+def _lt_loss_grads(cost, params, feed, device, seed=None):
+    """(outputs, loss, {param: gradient on the CPU}) of one batch from
+    ``params`` on ``device`` through ``SGD.loss_and_grads``."""
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import SGD
+    tr = SGD(cost, parameters=params, device=device, update_equation=Adam())
+    outs, loss, grads, _ = tr.loss_and_grads(tr._to_device(feed), seed=seed)
+    _lt_sync()
+    return outs, float(loss), {k: v.detach().cpu() for k, v in grads.items()}
+
+
+def _lt_card_vs_cpu(where, cost, params, feed, dev, seed=None):
+    """One batch's loss and gradients on the card against the CPU: the
+    loss within rtol 1e-4, each gradient within 1e-3 of its largest entry
+    + 1e-6 (PERF.md §2, full-width training)."""
+    _, loss_cpu, g_cpu = _lt_loss_grads(cost, params, feed, "cpu", seed)
+    _, loss_dev, g_dev = _lt_loss_grads(cost, params, feed, dev, seed)
+    if not abs(loss_dev - loss_cpu) <= 1e-4 * abs(loss_cpu) + 1e-5:
+        raise AssertionError(f"{where}: loss {loss_dev} on the card, "
+                             f"{loss_cpu} on the CPU")
+    return dict(loss=loss_dev, loss_cpu=loss_cpu,
+                grad_share=_grad_share(where, g_dev, g_cpu))
+
+
+@contextlib.contextmanager
+def _cpu_draws():
+    """nce's negatives and sample_gaussian's eps drawn by the CPU's
+    generator whatever the device, so the card replays the CPU's draws
+    (``layers/sampling.py``'s helpers, the one switch)."""
+    from paddle_tpu_torch.layers import sampling
+    negs, eps = sampling._nce_negatives, sampling._gaussian_eps
+    sampling._nce_negatives = (lambda shape, n, ctx, name, device: negs(
+        shape, n, ctx, name, "cpu").to(device))
+    sampling._gaussian_eps = (lambda shape, dtype, ctx, name, device: eps(
+        shape, dtype, ctx, name, "cpu").to(device))
+    try:
+        yield
+    finally:
+        sampling._nce_negatives, sampling._gaussian_eps = negs, eps
+
+
+def _lt_train(cost, batches, optimizer, dev, passes=LT_PASSES):
+    """``SGD.train`` over ``batches`` (feeds) for ``passes`` passes on
+    ``dev``, the kernel counts set to 0 just before it and read just
+    after: (trainer, each pass's mean cost, the launches by kernel)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.trainer import events
+    from paddle_tpu_torch.trainer.trainer import SGD
+    tr = SGD(cost, device=dev, seed=SEED, update_equation=optimizer)
+    costs = {}
+    ops.reset_kernel_counts()
+    tr.train(lambda: iter(batches), num_passes=passes,
+             event_handler=lambda e: costs.setdefault(e.pass_id, []).append(
+                 e.cost) if isinstance(e, events.EndIteration) else None)
+    _lt_sync()
+    launches = {k: c["launches"] for k, c in ops.kernel_counts().items()
+                if c.get("launches")}
+    pass_costs = [float(np.mean(costs[p])) for p in sorted(costs)]
+    if not all(np.isfinite(pass_costs)) or not pass_costs[-1] < pass_costs[0]:
+        raise AssertionError(f"the cost did not fall: {pass_costs}")
+    return tr, pass_costs, launches
+
+
+def _lt_step(tr, feed):
+    """One more training step's host ms (median of 3 after a warm one)
+    and, from a step traced for its device activity alone, the busy ms
+    and the idle share (None off the card)."""
+    feed = tr._to_device(feed)
+
+    def step():
+        t0 = time.perf_counter()
+        tr.train_step(feed)
+        _lt_sync()
+        return 1e3 * (time.perf_counter() - t0)
+    step()
+    row = dict(step_ms=statistics.median(step() for _ in range(3)))
+    row.update(_lt_busy(step))
+    return row
+
+
+def _lt_busy(fn):
+    """Device busy ms of one call of ``fn`` (traced for its CUDA activity
+    alone; ``fn`` returns its wall ms), its idle share and top kernels."""
+    if not torch.cuda.is_available():
+        return dict(device_busy_ms=None, device_idle_share=None)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = fn()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
+    busy = 1e-3 * sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return dict(profiled_ms=wall, device_busy_ms=busy,
+                device_idle_share=1 - busy / wall if busy else None,
+                launches=sum(e.count for e in kernels),
+                top_kernels=[dict(name=e.key[:60],
+                                  ms=1e-3 * e.self_device_time_total,
+                                  count=e.count) for e in top])
+
+
+def _outs_grads(net, names, params, feed, device, seed=None):
+    """The outputs ``names`` of ``net``'s training forward on ``device``
+    (the differentiable kernels: ``gru_step``'s no-grad forward has no
+    backward) and the gradients of sum_i sum(out_i * w_i) (fixed random
+    w_i) for every parameter and float input; ``feed``: {name: (value,
+    mask)} as numpy."""
+    tp = {k: torch.as_tensor(np.asarray(v)).to(device).requires_grad_(
+        not net.param_specs[k].is_static) for k, v in params.items()}
+    tx = {k: torch.from_numpy(v).to(device).requires_grad_(
+        np.issubdtype(v.dtype, np.floating)) for k, (v, _) in feed.items()}
+    f = {k: Argument(value=tx[k], mask=None if m is None
+                     else torch.from_numpy(m).to(device))
+         for k, (_, m) in feed.items()}
+    outs = net.apply(tp, f, train=True, seed=seed)
+    rng = np.random.default_rng(5)
+    total = 0.0
+    for n in names:
+        w = rng.normal(size=tuple(outs[n].value.shape)).astype(np.float32)
+        total = total + (outs[n].value * torch.from_numpy(w).to(
+            device)).sum()
+    leaves = {k: t for k, t in {**tp, **tx}.items() if t.requires_grad}
+    grads = torch.autograd.grad(total, list(leaves.values()),
+                                allow_unused=True)
+    return ({n: outs[n].value.detach().cpu() for n in names},
+            {k: (torch.zeros_like(t) if g is None else g).detach().cpu()
+             for (k, t), g in zip(leaves.items(), grads)})
+
+
+# (a) ------------------------------------------------- nested GRU text
+def nested_text(dsl, nested=True, outlink=False):
+    """``sequence_nest_rnn.conf``'s topology at seq2seq's widths: the
+    words' embedding, an outer group over sentences whose inner group
+    over words boots from the outer memory (a 3H projection and
+    ``gru_step``), the outer memory the inner group's last output, then
+    the document's last state and a softmax over the classes. ``nested=
+    False``: the flat twin, one group over the concatenated words.
+    ``outlink``: the outer step returns its whole inner output as well (a
+    nested out-link); returns the group's (main, extra) handles."""
+    H = NEST["hidden"]
+    words = dsl.data(name="words", size=NEST["vocab_size"], is_sequence=True)
+    label = dsl.data(name="label", size=NEST["classes"])
+    emb = dsl.embedding(words, size=NEST["embed_dim"], name="emb")
+
+    def word_step(w, boot=None):
+        h = dsl.memory(name="h", size=H, boot_layer=boot)
+        x = dsl.fc(input=w, size=3 * H, act="linear", name="proj")
+        return dsl.gru_step_layer(x, h, name="h")
+
+    if not nested:
+        g = dsl.recurrent_group(word_step, emb, name="word_rnn")
+    else:
+        def sentence_step(sent):
+            s = dsl.memory(name="sent", size=H)
+            ws = dsl.recurrent_group(lambda w: word_step(w, s), sent,
+                                     name="word_rnn")
+            last = dsl.last_seq(ws, name="sent")
+            return (ws, last) if outlink else last
+        g = dsl.recurrent_group(sentence_step, dsl.SubsequenceInput(emb),
+                                name="doc_rnn")
+    if outlink:
+        return g
+    out = dsl.fc(input=dsl.last_seq(g, name="doc"), size=NEST["classes"],
+                 act="softmax", name="out")
+    return dsl.classification_cost(input=out, label=label, name="cost"), g
+
+
+def _nest_docs(rng, n):
+    """Synthetic documents of 2-8 sentences of 5-30 words; class c draws
+    half its words from its own band of 300 ids."""
+    docs = []
+    for _ in range(n):
+        c = int(rng.integers(0, NEST["classes"]))
+        sents = []
+        for _ in range(int(rng.integers(NEST_SENTS[0], NEST_SENTS[1] + 1))):
+            k = int(rng.integers(NEST_WORDS[0], NEST_WORDS[1] + 1))
+            band = rng.integers(c * 300, (c + 1) * 300, size=k)
+            any_ = rng.integers(0, NEST["vocab_size"], size=k)
+            sents.append(np.where(rng.random(k) < 0.5, band, any_).tolist())
+        docs.append((sents, c))
+    return docs
+
+
+def _nest_feeders(dev):
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence,
+                                             integer_value_sub_sequence)
+    V, C = NEST["vocab_size"], NEST["classes"]
+    return (DataFeeder({"words": integer_value_sub_sequence(V),
+                        "label": integer_value(C)}, device=dev),
+            DataFeeder({"words": integer_value_sequence(V),
+                        "label": integer_value(C)}, device=dev))
+
+
+def _np_feed(feed):
+    return {k: (a.value.cpu().numpy(), None if a.mask is None
+                else a.mask.cpu().numpy()) for k, a in feed.items()}
+
+
+def check_nested_text(dev="cuda"):
+    """15a: (i) nested == flat on the card (the document state and each
+    sentence's state, forward at rtol 1e-4 / atol 1e-5); (ii) card
+    against CPU, the loss and every gradient; (iii) 4 batches x 3 passes
+    of Adam(5e-4): the cost falls, the step's ms, busy ms, idle share and
+    the GRU cell's launches; then subseq, max and seqlastins over
+    sentences on the outer group's nested out-link, card against CPU."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config.model_config import Input, LayerDef
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.optim import Adam
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    docs = [_nest_docs(rng, NEST_BATCH) for _ in range(LT_BATCHES)]
+    nfeed, ffeed = _nest_feeders(dev)
+    dsl.reset()
+    cost, _ = nested_text(dsl)
+    net = Network(dsl.current_graph(), outputs=["doc", "doc_rnn", "cost"])
+    params = net.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    dsl.reset()
+    nested_text(dsl, nested=False)
+    flat_net = Network(dsl.current_graph(), outputs=["doc", "word_rnn"])
+    assert set(flat_net.param_specs) <= set(net.param_specs)
+    batch = docs[0]
+    nf = nfeed([(d, c) for d, c in batch])
+    ff = ffeed([(sum(d, []), c) for d, c in batch])
+    with torch.no_grad():
+        on = net.apply(params, nf)
+        of = flat_net.apply(params, ff)
+    flat_err = _close("15a nested == flat (doc)", on["doc"].value,
+                      of["doc"].value)
+    ends = []
+    for b, (d, _) in enumerate(batch):
+        t = -1
+        for s, sent in enumerate(d):
+            t += len(sent)
+            ends.append((b, s, t))
+    bi, si, ti = (torch.tensor(x, device=dev) for x in zip(*ends))
+    flat_err = max(flat_err, _close(
+        "15a nested == flat (sentences)", on["doc_rnn"].value[bi, si],
+        of["word_rnn"].value[bi, ti]))
+    np_params = {k: v.cpu() for k, v in params.items()}
+    vs_cpu = _lt_card_vs_cpu("15a", cost, np_params, nf, dev)
+    tr, pass_costs, launches = _lt_train(
+        cost, [nfeed([(d, c) for d, c in b]) for b in docs],
+        Adam(learning_rate=5e-4), dev)
+    step = _lt_step(tr, nf)
+    # subseq and the TO_SEQUENCE layers on the nested out-link
+    dsl.reset()
+    ws, _ = nested_text(dsl, outlink=True)
+    for name, type_ in (("sent_max", "max"), ("sent_last", "seqlastins")):
+        dsl._add(LayerDef(name=name, type=type_, inputs=[Input(ws.name)],
+                          bias=False, attrs={"trans_type": "seq"}))
+    dsl.data(name="off", size=1)
+    dsl.data(name="n", size=1)
+    dsl._add(LayerDef(name="span", type="subseq",
+                      inputs=[Input(ws.name), Input("off"), Input("n")],
+                      bias=True))
+    names = ["sent_max", "sent_last", "span"]
+    onet = Network(dsl.current_graph(), outputs=names)
+    oparams = {k: np_params[k] if k in np_params else torch.zeros(s.shape)
+               for k, s in onet.param_specs.items()}
+    feed = _np_feed(nf)
+    tq = feed["words"][0].shape[-1]
+    feed["off"] = (np.full(NEST_BATCH, tq, np.int32), None)
+    feed["n"] = (np.full(NEST_BATCH, tq // 2, np.int32), None)
+    cpu_o, cpu_g = _outs_grads(onet, names, oparams, feed, "cpu")
+    dev_o, dev_g = _outs_grads(onet, names, oparams, feed, dev)
+    out_err = max(_close(f"15a {n}", dev_o[n], cpu_o[n]) for n in names)
+    out_share = _grad_share("15a nested out-link", dev_g, cpu_g)
+    row = dict(batch=NEST_BATCH, max_sentences=int(nf["words"].mask.shape[1]),
+               sentence_pad=int(tq), nested_vs_flat_max_abs_err=flat_err,
+               card_vs_cpu=vs_cpu, pass_costs=pass_costs, launches=launches,
+               step=step, outlink_max_abs_err=out_err,
+               outlink_grad_share=out_share,
+               seconds=time.perf_counter() - t0)
+    phase("last_types_a", **{k: row[k] for k in (
+        "nested_vs_flat_max_abs_err", "pass_costs", "launches",
+        "outlink_max_abs_err", "outlink_grad_share", "seconds")},
+          card_vs_cpu=vs_cpu, step=step)
+    return row
+
+
+# (b) ----------------------------------------------------- word2vec
+def ngram_lm(dsl, cost_type="hsigmoid"):
+    """The PaddlePaddle book's N-gram model: 4 context words through one
+    shared embedding, concatenated, a sigmoid fc, then hsigmoid or nce
+    (``num_neg_samples`` at the DSL's default) over the vocabulary."""
+    V = W2V["vocab_size"]
+    ctx = [dsl.embedding(dsl.data(name=f"w{i}", size=V), size=W2V[
+        "embed_dim"], name=f"emb{i}", param_attr={"name": "_proj"})
+        for i in range(W2V["context"])]
+    nxt = dsl.data(name="next", size=V)
+    hid = dsl.fc(input=dsl.concat(ctx, name="context"), size=W2V["hidden"],
+                 act="sigmoid", name="hidden")
+    if cost_type == "hsigmoid":
+        return dsl.hsigmoid(hid, nxt, num_classes=V, name="cost")
+    return dsl.nce_layer(hid, nxt, num_classes=V, name="cost")
+
+
+def _w2v_batches(rng, dev):
+    """5-grams whose next word is the last context word + 1 (7 in 10) or
+    any word."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import integer_value
+    V = W2V["vocab_size"]
+    names = [f"w{i}" for i in range(W2V["context"])] + ["next"]
+    feeder = DataFeeder({n: integer_value(V) for n in names}, device=dev)
+    out = []
+    for _ in range(LT_BATCHES):
+        ctx = rng.integers(0, V, size=(W2V_BATCH, W2V["context"]))
+        nxt = np.where(rng.random(W2V_BATCH) < 0.7, (ctx[:, -1] + 1) % V,
+                       rng.integers(0, V, size=W2V_BATCH))
+        out.append(feeder([tuple(int(v) for v in c) + (int(n),)
+                           for c, n in zip(ctx, nxt)]))
+    return out
+
+
+def check_word2vec(dev="cuda"):
+    """15b: hsigmoid and nce heads, each card against CPU (the loss and
+    every gradient; nce's negatives the CPU's, replayed), then 4 batches
+    x 3 passes of Adam(1e-3) with the card's own draws: the cost falls."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.optim import Adam
+    t0 = time.perf_counter()
+    batches = _w2v_batches(np.random.default_rng(SEED + 1), dev)
+    rows = {}
+    for kind in ("hsigmoid", "nce"):
+        dsl.reset()
+        cost = ngram_lm(dsl, kind)
+        params = Network(dsl.current_graph(), outputs=[cost.name]).init_params(
+            torch.Generator().manual_seed(SEED), device="cpu")
+        with _cpu_draws():
+            vs_cpu = _lt_card_vs_cpu(f"15b {kind}", cost, params,
+                                     batches[0], dev, seed=SEED)
+        _, pass_costs, launches = _lt_train(cost, batches,
+                                            Adam(learning_rate=1e-3), dev)
+        rows[kind] = dict(card_vs_cpu=vs_cpu, pass_costs=pass_costs,
+                          launches=launches)
+    row = dict(rows, batch=W2V_BATCH, seconds=time.perf_counter() - t0)
+    phase("last_types_b", **row)
+    return row
+
+
+# (c) ------------------------------------------------- SSD300's head
+def ssd300_head(dsl):
+    """SSD300's detection head over its six feature maps: a 3 x 3 loc
+    and conf conv on each, priorbox on each, the maps' boxes, locs and
+    confs concatenated in map order, multibox_loss and detection_output
+    over them. Returns (loss, detections)."""
+    img = dsl.data(name="image", size=3 * SSD_IMAGE ** 2, channels=3,
+                   height=SSD_IMAGE, width=SSD_IMAGE)
+    gt = dsl.data(name="gt", size=5, is_sequence=True)
+    locs, confs, pbs = [], [], []
+    for i, ((fm, ch), mn, mx, ar) in enumerate(zip(SSD_MAPS, SSD_MIN,
+                                                   SSD_MAX, SSD_AR)):
+        feat = dsl.data(name=f"map{i}", size=ch * fm * fm, channels=ch,
+                        height=fm, width=fm)
+        k = 2 + 2 * len(ar)
+        for heads, width, what in ((locs, 4, "loc"),
+                                   (confs, SSD_CLASSES, "conf")):
+            c = dsl.conv(feat, num_filters=width * k, filter_size=3,
+                         padding=1, act="linear", name=f"{what}{i}")
+            heads.append(dsl.resize_layer(c, size=fm * fm * width * k,
+                                          name=f"{what}{i}_flat"))
+        pb = dsl.priorbox_layer(feat, img, min_size=[mn], max_size=[mx],
+                                aspect_ratio=ar,
+                                variance=[0.1, 0.1, 0.2, 0.2],
+                                name=f"prior{i}")
+        pbs.append(dsl.resize_layer(pb, size=pb.size, name=f"prior{i}_row"))
+    loc = dsl.concat(locs, name="loc")
+    conf = dsl.concat(confs, name="conf")
+    priors = dsl.resize_layer(dsl.concat(pbs, name="priors_row"), size=8,
+                              name="priors")
+    loss = dsl.multibox_loss_layer(priors, gt, conf, loc,
+                                   num_classes=SSD_CLASSES,
+                                   overlap_threshold=0.5, neg_pos_ratio=3.0,
+                                   name="loss")
+    det = dsl.detection_output_layer(priors, conf, loc,
+                                     num_classes=SSD_CLASSES, name="det",
+                                     **SSD_DET)
+    return loss, det
+
+
+def _ssd_feed(rng):
+    """Random feature maps (NHWC), a blank image, 1-8 ground-truth boxes
+    an image with classes 1-20."""
+    feed = {"image": (np.zeros((SSD_BATCH, SSD_IMAGE, SSD_IMAGE, 3),
+                               np.float32), None)}
+    for i, (fm, ch) in enumerate(SSD_MAPS):
+        feed[f"map{i}"] = (rng.normal(size=(SSD_BATCH, fm, fm, ch)).astype(
+            np.float32), None)
+    G = SSD_GT[1]
+    gtv = np.zeros((SSD_BATCH, G, 5), np.float32)
+    gtm = np.zeros((SSD_BATCH, G), np.float32)
+    for b in range(SSD_BATCH):
+        n = int(rng.integers(SSD_GT[0], G + 1))
+        lo = rng.random((n, 2)) * 0.7
+        gtv[b, :n, 0] = rng.integers(1, SSD_CLASSES, size=n)
+        gtv[b, :n, 1:3] = lo
+        gtv[b, :n, 3:5] = np.minimum(lo + 0.05 + rng.random((n, 2)) * 0.4, 1)
+        gtm[b, :n] = 1.0
+    feed["gt"] = (gtv, gtm)
+    return feed
+
+
+def _compare_detections(got, want):
+    """Valid rows card against CPU: labels and validity equal, score and
+    box within 1e-5. A row that differs where the card's and the CPU's
+    scores at its rank lie within that tolerance (two detections at a
+    float32 near-tie, ranked the other way) is counted; any other
+    difference fails. (rows compared, near-tie rows, max abs err)."""
+    got, want = got.cpu(), want.cpu()
+    near, err = 0, 0.0
+    for b in range(want.shape[0]):
+        for r in range(want.shape[1]):
+            g, w = got[b, r], want[b, r]
+            if w[6] == 0 and g[6] == 0:
+                continue
+            if g[0] == w[0] and g[6] == w[6] and torch.allclose(
+                    g[1:6], w[1:6], rtol=0, atol=1e-5):
+                err = max(err, (g[1:6] - w[1:6]).abs().max().item())
+                continue
+            # a swap at a near-tie: the score at this rank is the same
+            tie = abs(g[1] - w[1]).item() <= LT_TIE_ATOL
+            if not tie:
+                raise AssertionError(f"detection_output image {b} row {r}: "
+                                     f"card {g.tolist()}, CPU {w.tolist()}")
+            near += 1
+    return int((want[..., 6] > 0).sum()), near, err
+
+
+def check_ssd300(dev="cuda"):
+    """15c: the priors bit-equal card and CPU (8732 of them); the loss and
+    the heads' gradients at rtol 1e-4; detection_output's rows; 4 Momentum
+    steps lower the loss; the forward's and detection_output's ms and
+    device ms (CUDA events, median of 5; the profiler's busy time)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.optim import Momentum
+    from paddle_tpu_torch.trainer.trainer import SGD
+    t0 = time.perf_counter()
+    feed = _ssd_feed(np.random.default_rng(SEED + 2))
+    dsl.reset()
+    loss, det = ssd300_head(dsl)
+    net = Network(dsl.current_graph(), outputs=["priors", "loss", "det"])
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    runs = {}
+    for device in ("cpu", dev):
+        p = {k: v.to(device) for k, v in params.items()}
+        f = {k: Argument(value=torch.from_numpy(v).to(device),
+                         mask=None if m is None
+                         else torch.from_numpy(m).to(device))
+             for k, (v, m) in feed.items()}
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            runs[device] = (net.apply(p, f), p, f)
+        _lt_sync()
+        runs[device] += (time.perf_counter() - t1,)
+    (cpu, _, _, cpu_s), (card, p, f, _) = runs["cpu"], runs[dev]
+    n_priors = card["priors"].value.shape[0]
+    if n_priors != SSD_PRIORS or not torch.equal(
+            card["priors"].value.cpu(), cpu["priors"].value):
+        raise AssertionError(f"15c priors: {n_priors}, or not bit-equal")
+    rows, near, det_err = _compare_detections(card["det"].value,
+                                              cpu["det"].value)
+    # the loss and the heads' gradients
+    grads = {}
+    for device in ("cpu", dev):
+        tr = SGD(loss, parameters=params, device=device,
+                 update_equation=Momentum(learning_rate=1e-2, momentum=0.9))
+        _, l, g, _ = tr.loss_and_grads(tr._to_device(
+            {k: Argument(value=torch.from_numpy(v), mask=None if m is None
+                         else torch.from_numpy(m)) for k, (v, m)
+             in feed.items()}))
+        grads[device] = (float(l), {k: v.cpu() for k, v in g.items()})
+    if not abs(grads[dev][0] - grads["cpu"][0]) <= 1e-4 * abs(
+            grads["cpu"][0]):
+        raise AssertionError(f"15c loss {grads[dev][0]} on the card, "
+                             f"{grads['cpu'][0]} on the CPU")
+    grad_share = _grad_share("15c", grads[dev][1], grads["cpu"][1],
+                             rel=1e-4, floor=1e-5)
+    # 4 Momentum steps of the heads on this batch
+    tr = SGD(loss, parameters=params, device=dev,
+             update_equation=Momentum(learning_rate=1e-2, momentum=0.9))
+    dfeed = tr._to_device({k: Argument(
+        value=torch.from_numpy(v), mask=None if m is None
+        else torch.from_numpy(m)) for k, (v, m) in feed.items()})
+    ops.reset_kernel_counts()
+    losses = [float(tr.train_step(dfeed)["cost"])
+              for _ in range(SSD_STEPS)]
+    _lt_sync()
+    launches = {k: c["launches"] for k, c in ops.kernel_counts().items()
+                if c.get("launches")}
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"15c: the loss did not fall: {losses}")
+    # the forward and detection_output alone
+
+    def forward():
+        with torch.no_grad():
+            return net.apply(p, f)
+    outs = forward()
+
+    def detect():
+        with torch.no_grad():
+            return net.apply_layer("det", p, outs)
+
+    def timed(fn):
+        def call():
+            t1 = time.perf_counter()
+            fn()
+            _lt_sync()
+            return 1e3 * (time.perf_counter() - t1)
+        return call
+    fwd = dict(ms=_time_ms(forward, reps=5, warmup=1),
+               **_lt_busy(timed(forward)))
+    det_t = dict(ms=_time_ms(detect, reps=5, warmup=1),
+                 **_lt_busy(timed(detect)))
+    row = dict(priors=n_priors, batch=SSD_BATCH, rows=rows,
+               near_tie_rows=near, det_max_abs_err=det_err,
+               loss=grads[dev][0], loss_cpu=grads["cpu"][0],
+               grad_share=grad_share, momentum_losses=losses,
+               launches=launches, forward=fwd, detection_output=det_t,
+               nms_share_of_forward=(det_t["device_busy_ms"]
+                                     / fwd["device_busy_ms"]
+                                     if fwd.get("device_busy_ms") else None),
+               nms_share_of_forward_wall=det_t["ms"] / fwd["ms"],
+               cpu_forward_s=cpu_s, seconds=time.perf_counter() - t0)
+    phase("last_types_c", **{k: v for k, v in row.items()
+                             if k not in ("forward", "detection_output")},
+          forward_ms=fwd["ms"], forward_busy_ms=fwd.get("device_busy_ms"),
+          det_ms=det_t["ms"], det_busy_ms=det_t.get("device_busy_ms"))
+    return row
+
+
+# (d) ------------------------------------------------------------ VAE
+def _vae_batches(rng, dev):
+    proto = (rng.random((10, VAE_DIMS["data_dim"])) > 0.5).astype(np.float32)
+    out = []
+    for _ in range(LT_BATCHES):
+        x = proto[rng.integers(0, 10, size=VAE_BATCH)]
+        flip = rng.random(x.shape) < 0.05
+        out.append({"x": Argument(value=torch.from_numpy(
+            np.where(flip, 1 - x, x).astype(np.float32)).to(dev))})
+    return out
+
+
+def check_vae(dev="cuda"):
+    """15d: the VAE at 784 / 256 / 32 on 28 x 28 synthetic digits: card
+    against CPU with the CPU's eps replayed (both costs, every gradient);
+    4 x 3 Adam(1e-3) with the card's own draws, the summed cost falls; the
+    decoder graph produces from z with the trained parameters by name."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.models import vae, vae_decoder
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import Topology
+    t0 = time.perf_counter()
+    batches = _vae_batches(np.random.default_rng(SEED + 3), dev)
+    dsl.reset()
+    costs, _, _ = vae(**VAE_DIMS)
+    topo = Topology(costs)
+    params = topo.network.init_params(torch.Generator().manual_seed(SEED),
+                                      device="cpu")
+    cpu_feed = {"x": Argument(value=batches[0]["x"].value.cpu())}
+    with _cpu_draws():
+        vs_cpu = _lt_card_vs_cpu("15d", topo, params, cpu_feed, dev,
+                                 seed=SEED)
+        outs = {}
+        for device in ("cpu", dev):
+            o, _, _ = _lt_loss_grads(topo, params, cpu_feed, device, SEED)
+            outs[device] = o
+    each = max(_close(f"15d {c.name}", outs[dev][c.name].value.detach()
+                      .cpu(), outs["cpu"][c.name].value.detach())
+               for c in costs)
+    tr, pass_costs, launches = _lt_train(topo, batches,
+                                         Adam(learning_rate=1e-3), dev)
+    dsl.reset()
+    out = vae_decoder(**VAE_DIMS)
+    dec = Network(dsl.current_graph(), outputs=[out.name])
+    if not set(dec.param_specs) <= set(tr.params):
+        raise AssertionError("15d: the decoder's parameters are not the "
+                             "trained ones")
+    z = torch.randn(16, VAE_DIMS["latent"],
+                    generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():
+        v = dec.apply(tr.params, {"z": Argument(value=z)})[out.name].value
+    if not (tuple(v.shape) == (16, VAE_DIMS["data_dim"])
+            and 0 <= v.min().item() and v.max().item() <= 1):
+        raise AssertionError(f"15d decoder: {tuple(v.shape)}")
+    row = dict(card_vs_cpu=vs_cpu, costs_max_abs_err=each,
+               pass_costs=pass_costs, launches=launches, batch=VAE_BATCH,
+               seconds=time.perf_counter() - t0)
+    phase("last_types_d", **row)
+    return row
+
+
+# (e) ------------------------------------------------------------ moe
+def check_moe(dev="cuda"):
+    """15e: the moe layer over 50 x 64 tokens with padded rows, card
+    against CPU at a capacity that drops tokens and at the default: the
+    output within rtol 1e-4 / atol 1e-5, each gradient within 1e-4 of
+    its largest entry + 1e-5."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 4)
+    B, T, d = MOE["rows"], MOE["T"], MOE["d"]
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    x = (rng.normal(size=(B, T, d)) * mask[..., None]).astype(np.float32)
+    rows = {}
+    for cap in (MOE["tight"], None):
+        dsl.reset()
+        dsl.moe(input=dsl.data(name="x", size=d, is_sequence=True),
+                expert_hidden=MOE["hidden"], num_experts=MOE["experts"],
+                capacity=cap, name="mx")
+        net = Network(dsl.current_graph(), outputs=["mx"])
+        params = {k: (rng.normal(size=s.shape) * (
+            s.shape[-2] ** -0.5 if len(s.shape) > 1 else 0.1)).astype(
+                np.float32) for k, s in sorted(net.param_specs.items())}
+        feed = {"x": (x, mask)}
+        cpu_o, cpu_g = _outs_grads(net, ["mx"], params, feed, "cpu")
+        dev_o, dev_g = _outs_grads(net, ["mx"], params, feed, dev)
+        err = _close(f"15e capacity {cap}", dev_o["mx"], cpu_o["mx"])
+        share = _grad_share(f"15e capacity {cap}", dev_g, cpu_g, rel=1e-4,
+                            floor=1e-5)
+        live = cpu_o["mx"].abs().sum(-1) > 0
+        rows["default" if cap is None else str(cap)] = dict(
+            max_abs_err=err, grad_share=share,
+            live_tokens=int(mask.sum()), routed_tokens=int(live.sum()))
+    if rows[str(MOE["tight"])]["routed_tokens"] >= int(mask.sum()):
+        raise AssertionError("15e: the tight capacity dropped no token")
+    row = dict(rows=rows, seconds=time.perf_counter() - t0)
+    phase("last_types_e", **row)
+    return row
+
+
+def check_last_types(dev="cuda"):
+    """Phase 15: the last layer types (nested sequences, the sampled and
+    hierarchical costs, SSD's layers, moe) through four models and the
+    moe layer on the card, each held against the CPU. Returns the row,
+    with the phase's launches by kernel."""
+    t0 = time.perf_counter()
+    row = dict(nested=check_nested_text(dev), word2vec=check_word2vec(dev),
+               ssd300=check_ssd300(dev), vae=check_vae(dev),
+               moe=check_moe(dev))
+    launches = {}
+    for part in (row["nested"], row["word2vec"]["hsigmoid"],
+                 row["word2vec"]["nce"], row["ssd300"], row["vae"]):
+        for k, n in part["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    row.update(launches=launches, seconds=time.perf_counter() - t0)
+    phase("last_types", launches=launches, seconds=row["seconds"],
+          parts={k: row[k]["seconds"] for k in ("nested", "word2vec",
+                                                 "ssd300", "vae", "moe")})
+    return row
+
+
+def _check_last_launches(row):
+    for k in ("gru_cell", "adam", "momentum"):
+        if row["launches"].get(k, 0) <= 0:
+            raise AssertionError(f"phase 15 never launched {k}")
+
+
+def last_types():
+    """``--last-types``: phase 15 alone; its row in ``last_types.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["gru_cell", "opt_update"])
+    row = check_last_types()
+    _check_last_launches(row)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "last_types.json"), "w") as f:
+        json.dump(row, f, indent=1)
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -7437,6 +8221,10 @@ def main() -> int:
                         "as released, both branches; the CTC kernels at its "
                         "shape; every newly ported layer type card against "
                         "CPU)")
+    parser.add_argument("--last-types", action="store_true",
+                        help="only phase 15, the last layer types (the "
+                        "nested GRU text model, word2vec with hsigmoid and "
+                        "nce, SSD300's head, the VAE, moe)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -7474,6 +8262,9 @@ def main() -> int:
         return 0
     if args.layers:
         layers()
+        return 0
+    if args.last_types:
+        last_types()
         return 0
     seconds = {}  # each phase's wall time
 
@@ -7522,6 +8313,7 @@ def main() -> int:
                              trained["pass_costs"])
         layers_row = timed("layers", check_layers, tmp,
                            _ds2r_ctc_row(ctc_rows))
+        last_row = timed("last_types", check_last_types)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -7546,6 +8338,8 @@ def main() -> int:
     # phase 14's DeepSpeech2 as released (its --job train's counts) and
     # its CTC shape (16, 134, S)
     ds2r_counts = layers_row["ds2_release"]["kernels"]
+    _check_last_launches(last_row)
+    last = last_row["launches"]
     ds2r_ctc = layers_row["ctc_shape"]
     ctc_lib = ", ".join(ctc_row["library_kernels"])
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
@@ -7679,9 +8473,13 @@ def main() -> int:
                   "route line); timed here at the seq2seq shape"),
         dict(_entry("gru_cell", gru_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
-                    s2s_counts["gru_cell"]["launches"], cell_err, c_row),
+                    s2s_counts["gru_cell"]["launches"] + last["gru_cell"],
+                    cell_err, c_row),
              shape={"B": c_row["B"], "H": c_row["H"]},
-             **_cell_route_keys(c_row), path="seq2seq_attention train"),
+             **_cell_route_keys(c_row),
+             last_types_launches=last["gru_cell"],
+             path="seq2seq_attention train; the nested GRU text model "
+                  "train (phase 15a)"),
         dict(_entry("gru_cell_infer", gru_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
                     s2s_test["gru_cell_infer"]["launches"]
@@ -7708,9 +8506,11 @@ def main() -> int:
              path="lstm_step decoder beam search"),
         dict(_entry("momentum", opt_src,
                     "paddle_tpu/kernels/opt_update.py:83",
-                    trained["momentum_kernels"]["momentum"]["launches"],
+                    trained["momentum_kernels"]["momentum"]["launches"]
+                    + last["momentum"],
                     opt_rows["momentum"]["max_abs_err"], opt_rows["momentum"]),
              **_opt_keys(opt_rows["momentum"]),
+             last_types_launches=last["momentum"],
              lenet_launches=image["lenet"]["kernels"]["momentum"]["launches"],
              resnet_launches=image["resnet_train"]["momentum_launches"],
              library="none: torch._fused_sgd_ keeps its buffer in gradient "
@@ -7722,9 +8522,10 @@ def main() -> int:
                     + tag_counts["adam"]["launches"]
                     + att_counts["adam"]["launches"]
                     + lstm_dec["kernels"]["adam"]["launches"]
-                    + ac_counts["adam"]["launches"],
+                    + ac_counts["adam"]["launches"] + last["adam"],
                     opt_rows["adam"]["max_abs_err"], opt_rows["adam"]),
              **_opt_keys(opt_rows["adam"]),
+             last_types_launches=last["adam"],
              training_launches=training_row["launches"]["adam"],
              ds2_release_launches=ds2r_counts["adam"]["launches"],
              library="torch._fused_adam_ (eps / sqrt(1 - beta2^t))"),
@@ -7993,7 +8794,7 @@ def main() -> int:
                    "seq2seq_attention": s2s_att, "lstm_decoder": lstm_dec,
                    "tagger": tagger, "tagger_serve": tag_served,
                    "acoustic": acoustic, "training": training_row,
-                   "layers": layers_row,
+                   "layers": layers_row, "last_types": last_row,
                    "elapsed_s": elapsed,
                    "phase_seconds": seconds,
                    **kernels},

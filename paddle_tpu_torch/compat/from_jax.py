@@ -9,7 +9,12 @@ transition matrix under its shared ``ParamAttr`` name such as
 ``crf_transitions``, a ``multi_head_attention`` layer's projections
 ``wq`` [q_in, S], ``wk`` and ``wv`` [kv_in, S], ``wo`` [S, S] and
 ``wbias`` [S], such as ``_enc_self_att.wq``; heads are column blocks of S;
-an ``lstm_step``'s ``wbias`` [3H], its three peephole vectors) and its
+an ``lstm_step``'s ``wbias`` [3H], its three peephole vectors; an
+``nce`` layer's ``w0`` [C, D] and ``wbias`` [C], an ``hsigmoid``'s ``w0``
+[C - 1, D] and ``wbias`` [C - 1]; a ``moe`` layer's ``wg`` [d, E], ``w1``
+[E, d, h], ``b1`` [E, h], ``w2`` [E, h, d] and ``b2`` [E, d]; a nested
+recurrent group's sub-layer parameters, the inner group's included, under
+their absolute names such as ``_h.w0``) and its
 optimizer-state tree, so a JAX parameter dict or optimizer state, as numpy,
 maps onto the port's by name. A generating graph (a ``beam_search``
 group) hoists its step network's parameters under the same absolute names

@@ -10,8 +10,7 @@ a ``LayerOutput`` handle usable as ``input=`` of later calls. Names,
 attributes and auto-generated names (``__fc_layer_0__``,
 ``__recurrent_group_0__``, ``__beam_search_layer_0__``) match the JAX DSL,
 so both build the same graph, with the same parameter names, from the same
-calls. Nested groups (``SubsequenceInput``) raise ``NotImplementedError``:
-they are a later slice.
+calls, nested groups (``SubsequenceInput``) included.
 """
 
 from __future__ import annotations
@@ -121,6 +120,19 @@ def dropout(input, rate: float, *, name: str = None) -> LayerOutput:
     src = _in(input)[0]
     ldef = LayerDef(name=name or _auto_name("dropout"), type="addto",
                     inputs=[Input(src.name)], bias=False, drop_rate=rate)
+    return _add(ldef)
+
+
+def moe(input, *, expert_hidden: int, num_experts: int,
+        capacity: int = None, name: str = None) -> LayerOutput:
+    """Top-1 mixture-of-experts FFN (``layers/moe.py``); output size =
+    input size. ``capacity`` defaults to the token count."""
+    src = _in(input)[0]
+    ldef = LayerDef(name=name or _auto_name("moe"), type="moe",
+                    inputs=[Input(src.name)], bias=False,
+                    attrs={"num_experts": num_experts,
+                           "expert_hidden": expert_hidden,
+                           "capacity": capacity})
     return _add(ldef)
 
 
@@ -507,14 +519,14 @@ class StaticInput:
     input: LayerOutput
 
 
+@dataclasses.dataclass
 class SubsequenceInput:
-    """Two-level (nested) sequence input to a recurrent_group: not ported
-    yet."""
+    """Two-level (nested) sequence input to a recurrent_group: the group
+    steps over sub-sequences, each step seeing one whole sub-sequence as a
+    sequence Argument. Nested batches flow as [B, S, T_sub, D] with a
+    [B, S, T_sub] mask."""
 
-    def __init__(self, input):
-        raise NotImplementedError(
-            "SubsequenceInput (nested recurrent groups) is not ported yet: "
-            "two-level sequences come with a later slice of the port")
+    input: LayerOutput
 
 
 @dataclasses.dataclass
@@ -553,12 +565,13 @@ def recurrent_group(step, input, *, reverse: bool = False,
                     name: str = None, target_inlink=None):
     """Unroll a user step network over the timesteps of the sequence
     inputs (``layers/group.py``). ``input`` items: sequence LayerOutputs
-    (one frame per step) and StaticInput (whole every step). The step
+    (one frame per step), SubsequenceInput (one sub-sequence per step)
+    and StaticInput (whole every step). The step
     function may call memory() and returns one LayerOutput or a tuple
     (first = main out_link)."""
     global _GRAPH, _GROUP_CTX
-    inputs = [input] if isinstance(input, (LayerOutput, StaticInput)) \
-        else list(input)
+    inputs = [input] if isinstance(
+        input, (LayerOutput, StaticInput, SubsequenceInput)) else list(input)
     # the reference's auto-name convention: __recurrent_group_0__
     c = _COUNTERS.setdefault("recurrent_group", itertools.count())
     gname = name or f"__recurrent_group_{next(c)}__"
@@ -572,8 +585,14 @@ def recurrent_group(step, input, *, reverse: bool = False,
     _GROUP_CTX = {"name": gname, "memories": []}
     try:
         for i, x in enumerate(inputs):
+            attrs = {}
             if isinstance(x, StaticInput):
                 src, bname, kind = x.input, f"{gname}@static{i}", "static"
+            elif isinstance(x, SubsequenceInput):
+                # the step sees one whole sub-sequence: the boundary is
+                # itself a sequence inside the step net
+                src, bname, kind = x.input, f"{gname}@subseq{i}", "subseq"
+                attrs = {"is_sequence": True}
             else:
                 src, bname = x, f"{gname}@seq{i}"
                 # a source the graph knows is a sequence steps per
@@ -581,9 +600,10 @@ def recurrent_group(step, input, *, reverse: bool = False,
                 info = _SHAPES.get(src.name)
                 kind = "seq" if info is not None and info.is_sequence \
                     else "auto"
-            # the boundary is a plain data layer: the step sees one frame
+            # a seq boundary is a plain data layer: the step sees one frame
             proxies.append(_add(LayerDef(name=bname, type="data",
-                                         size=src.size, bias=False)))
+                                         size=src.size, bias=False,
+                                         attrs=attrs)))
             ins_meta.append({"boundary": bname, "kind": kind})
             outer_in_names.append(src.name)
         traced = step(*proxies)
@@ -848,3 +868,86 @@ def block_expand_layer(input, *, block_x: int, block_y: int,
                    attrs={"block_x": block_x, "block_y": block_y,
                           "stride_x": stride_x, "stride_y": stride_y,
                           "padding_x": padding_x, "padding_y": padding_y})
+
+
+def sub_nested_seq_layer(input, selection, *, name=None):
+    return _simple("sub_nested_seq", input, name, extra_inputs=[selection])
+
+
+# ---------------------------------------------- sampled and SSD layers
+def nce_layer(input, label, *, num_classes: int, num_neg_samples: int = 10,
+              weight=None, name=None, bias_attr=True, param_attr=None):
+    """Noise-contrastive estimation cost (``layers/sampling.py``)."""
+    ins = [Input(_in(input)[0].name, param_attr=_param(param_attr)),
+           Input(_in(label)[0].name)]
+    if weight is not None:
+        ins.append(Input(_in(weight)[0].name))
+    ldef = LayerDef(name=name or _auto_name("nce"), type="nce", inputs=ins,
+                    bias=_bias(bias_attr),
+                    attrs={"num_classes": num_classes,
+                           "num_neg_samples": num_neg_samples})
+    return _add(ldef)
+
+
+def hsigmoid(input, label, *, num_classes: int, name=None, bias_attr=True,
+             param_attr=None):
+    """Hierarchical sigmoid cost over the inputs before the label."""
+    srcs = _in(input)
+    ins = [Input(s.name, param_attr=_param(param_attr)) for s in srcs]
+    ins.append(Input(_in(label)[0].name))
+    ldef = LayerDef(name=name or _auto_name("hsigmoid"), type="hsigmoid",
+                    inputs=ins, bias=_bias(bias_attr),
+                    attrs={"num_classes": num_classes})
+    return _add(ldef)
+
+
+def priorbox_layer(input, image, *, min_size, max_size=(), aspect_ratio=(1.0,),
+                   variance=(0.1, 0.1, 0.2, 0.2), name=None):
+    ldef = LayerDef(name=name or _auto_name("priorbox"), type="priorbox",
+                    inputs=[Input(_in(input)[0].name),
+                            Input(_in(image)[0].name)], bias=False,
+                    attrs={"min_size": list(min_size),
+                           "max_size": list(max_size),
+                           "aspect_ratio": list(aspect_ratio),
+                           "variance": list(variance)})
+    return _add(ldef)
+
+
+def multibox_loss_layer(priorbox, label, conf, loc, *, num_classes: int,
+                        overlap_threshold: float = 0.5,
+                        neg_pos_ratio: float = 3.0, neg_overlap: float = 0.5,
+                        background_id: int = 0, name=None):
+    """SSD's loss; its inputs in the reference's order (priorbox, label,
+    loc, conf)."""
+    ldef = LayerDef(name=name or _auto_name("multibox_loss"),
+                    type="multibox_loss",
+                    inputs=[Input(_in(priorbox)[0].name),
+                            Input(_in(label)[0].name),
+                            Input(_in(loc)[0].name),
+                            Input(_in(conf)[0].name)], bias=False,
+                    attrs={"num_classes": num_classes,
+                           "overlap_threshold": overlap_threshold,
+                           "neg_pos_ratio": neg_pos_ratio,
+                           "neg_overlap": neg_overlap,
+                           "background_id": background_id})
+    return _add(ldef)
+
+
+def detection_output_layer(priorbox, conf, loc, *, num_classes: int,
+                           nms_threshold: float = 0.45,
+                           nms_top_k: int = 100, keep_top_k: int = 200,
+                           confidence_threshold: float = 0.01,
+                           background_id: int = 0, name=None):
+    """SSD's decode, per-class NMS and keep_top_k; its inputs in the
+    reference's order (priorbox, loc, conf)."""
+    ldef = LayerDef(name=name or _auto_name("detection_output"),
+                    type="detection_output",
+                    inputs=[Input(_in(priorbox)[0].name),
+                            Input(_in(loc)[0].name),
+                            Input(_in(conf)[0].name)], bias=False,
+                    attrs={"num_classes": num_classes,
+                           "nms_threshold": nms_threshold,
+                           "nms_top_k": nms_top_k, "keep_top_k": keep_top_k,
+                           "confidence_threshold": confidence_threshold,
+                           "background_id": background_id})
+    return _add(ldef)

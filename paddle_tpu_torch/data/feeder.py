@@ -1,8 +1,11 @@
 """DataFeeder: python samples -> device Arguments.
 
-The port's counterpart of ``paddle_tpu/data/feeder.py`` for dense and
-index slots, flat or as sequences. Sequences pad to ``pad_multiple`` or to
-a ``length_buckets`` menu; ``batch_buckets`` pads a short batch up to a
+The port's counterpart of ``paddle_tpu/data/feeder.py`` for every slot
+type: dense, sparse (binary or float, densified) and index values, flat,
+as sequences or as nested sequences (a sample is a list of sub-sequences:
+``[B, S, T(, D)]`` values with a ``[B, S, T]`` mask, ``T`` padded like a
+sequence's length). Sequences pad to ``pad_multiple`` or to a
+``length_buckets`` menu; ``batch_buckets`` pads a short batch up to a
 bucketed row count with all-masked rows plus a ``ROW_MASK_KEY`` entry.
 Batches are assembled in numpy on the host and land as torch tensors on
 ``device``. Masks are f32.
@@ -37,7 +40,19 @@ def _zero_sample(itype: T.InputType):
         return []
     if itype.type == T.INDEX:
         return 0
+    if itype.type in (T.SPARSE_BINARY, T.SPARSE_FLOAT):
+        return []
     return np.zeros(itype.dim, dtype=np.float32)
+
+
+def _densify(value: np.ndarray, sparse_type: str, idxs) -> None:
+    """Write one sparse entry into its dense row ``value`` [dim]: ids set
+    to 1 (binary) or (id, value) pairs (float)."""
+    if sparse_type == T.SPARSE_BINARY:
+        value[np.asarray(idxs, dtype=np.int64)] = 1.0
+    else:
+        for j, v in idxs:
+            value[j] = v
 
 
 class DataFeeder:
@@ -54,12 +69,6 @@ class DataFeeder:
         INDEX input against its declared range on the host and raises with
         the offending id. ``shared_length_bucket`` pads every sequence slot
         of a batch to one bucket (serving's closed shape menu)."""
-        for name, itype in feeding.items():
-            if itype.seq_type == T.SUB_SEQUENCE or itype.type not in (
-                    T.DENSE, T.INDEX):
-                raise NotImplementedError(
-                    f"input {name!r}: {itype} is not ported yet (dense and "
-                    "index slots, flat or sequence, are)")
         self.feeding = feeding
         self.names = list(feeding)
         self.pad_multiple = pad_multiple
@@ -90,10 +99,7 @@ class DataFeeder:
         if host:
             return feed
 
-        def move(t):
-            return None if t is None else t.to(self.device)
-        return {k: Argument(value=move(a.value), mask=move(a.mask))
-                for k, a in feed.items()}
+        return {k: a.to(self.device) for k, a in feed.items()}
 
     def _convert_host(self, batch: List[Tuple]) -> Dict[str, Argument]:
         n_real = len(batch)
@@ -158,8 +164,17 @@ class DataFeeder:
                 arr = np.asarray(col, dtype=np.int32)
                 self._check_ids(name, itype, arr)
                 return Argument(value=self._tensor(arr))
-            return Argument(value=self._tensor(
-                np.asarray(col, dtype=np.float32)))
+            if itype.type == T.DENSE:
+                return Argument(value=self._tensor(
+                    np.asarray(col, dtype=np.float32)))
+            if itype.type not in (T.SPARSE_BINARY, T.SPARSE_FLOAT):
+                raise KeyError(itype.type)
+            dense = np.zeros((len(col), itype.dim), dtype=np.float32)
+            for i, idxs in enumerate(col):
+                _densify(dense[i], itype.type, idxs)
+            return Argument(value=self._tensor(dense))
+        if itype.seq_type == T.SUB_SEQUENCE:
+            return self._convert_nested(itype, col, name)
         max_len = pad_to or self._pad_len(max(len(s) for s in col))
         bsz = len(col)
         mask = np.zeros((bsz, max_len), dtype=np.float32)
@@ -169,6 +184,13 @@ class DataFeeder:
                 value[i, : len(s)] = np.asarray(s, dtype=np.int32)
                 mask[i, : len(s)] = 1.0
             self._check_ids(name, itype, value, mask)
+        elif itype.type in (T.SPARSE_BINARY, T.SPARSE_FLOAT):
+            # per-timestep id lists densify to [B, T, dim]
+            value = np.zeros((bsz, max_len, itype.dim), dtype=np.float32)
+            for i, s in enumerate(col):
+                for t, idxs in enumerate(s):
+                    _densify(value[i, t], itype.type, idxs)
+                    mask[i, t] = 1.0
         else:
             value = np.zeros((bsz, max_len, itype.dim), dtype=np.float32)
             for i, s in enumerate(col):
@@ -176,4 +198,37 @@ class DataFeeder:
                                                               itype.dim)
                 value[i, : len(s)] = arr
                 mask[i, : len(s)] = 1.0
+        return Argument(value=self._tensor(value), mask=self._tensor(mask))
+
+    def _convert_nested(self, itype: T.InputType, col: Sequence,
+                        name: str) -> Argument:
+        """A nested slot: each sample a list of sub-sequences, as
+        ``[B, S, T(, D)]`` with a ``[B, S, T]`` mask; S is the batch's
+        largest sub-sequence count, T its padded longest sub-sequence."""
+        B = len(col)
+        S = max(len(s) for s in col)
+        Tm = self._pad_len(max((len(ss) for s in col for ss in s),
+                               default=1))
+        mask = np.zeros((B, S, Tm), dtype=np.float32)
+        if itype.type == T.INDEX:
+            value = np.zeros((B, S, Tm), dtype=np.int32)
+            for i, s in enumerate(col):
+                for j, ss in enumerate(s):
+                    value[i, j, : len(ss)] = np.asarray(ss, dtype=np.int32)
+                    mask[i, j, : len(ss)] = 1.0
+            self._check_ids(name, itype, value, mask)
+        elif itype.type == T.DENSE:
+            value = np.zeros((B, S, Tm, itype.dim), dtype=np.float32)
+            for i, s in enumerate(col):
+                for j, ss in enumerate(s):
+                    value[i, j, : len(ss)] = np.asarray(
+                        ss, dtype=np.float32).reshape(len(ss), itype.dim)
+                    mask[i, j, : len(ss)] = 1.0
+        else:
+            value = np.zeros((B, S, Tm, itype.dim), dtype=np.float32)
+            for i, s in enumerate(col):
+                for j, ss in enumerate(s):
+                    for t, idxs in enumerate(ss):
+                        _densify(value[i, j, t], itype.type, idxs)
+                        mask[i, j, t] = 1.0
         return Argument(value=self._tensor(value), mask=self._tensor(mask))

@@ -124,10 +124,7 @@ class PrefetchPipeline:
         tensors the copy reads)."""
         from paddle_tpu_torch.core.argument import Argument
         if self._stream is None:
-            def move(t):
-                return None if t is None else t.to(self.device)
-            return ({k: Argument(value=move(a.value), mask=move(a.mask),
-                                 state=a.state)
+            return ({k: a.to(self.device)
                      for k, a in _args_of(feed).items()}, None, ())
         pinned, out = [], {}
         with torch.cuda.stream(self._stream):
@@ -139,6 +136,7 @@ class PrefetchPipeline:
                 return p.to(self.device, non_blocking=True)
             for k, a in _args_of(feed).items():
                 out[k] = Argument(value=move(a.value), mask=move(a.mask),
+                                  sub_starts_mask=move(a.sub_starts_mask),
                                   state=a.state)
             event = torch.cuda.Event()
             event.record(self._stream)

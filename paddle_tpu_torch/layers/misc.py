@@ -1,6 +1,5 @@
 """Long-tail layer types: elementwise, shape and image utility layers, the
-port's counterpart of ``paddle_tpu/layers/misc.py`` (all of it but
-``sub_nested_seq``, which needs nested sequences). Each class names the
+port's counterpart of ``paddle_tpu/layers/misc.py``. Each class names the
 reference implementation in ``paddle/gserver/layers/``; each is plain
 tensor code, differentiated by autograd. Anything image-shaped flows NHWC
 (see ``conv.py``).
@@ -507,6 +506,33 @@ class BlockExpandLayer(LayerImpl):
                         stride=(sy, sx))        # [B, C*by*bx, oh*ow]
         seq = cols.transpose(1, 2)
         return Argument(value=seq, mask=seq.new_ones(seq.shape[:2]))
+
+
+@register_layer("sub_nested_seq")
+class SubNestedSequenceLayer(LayerImpl):
+    """``SubNestedSequenceLayer.cpp``: from a nested sequence (a flat
+    ``[B, T, D]`` with ``sub_starts_mask``), the sub-sequence the second
+    input selects for each row, compacted to the front in its order (a
+    stable sort of kept positions first)."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=in_infos[0].size, is_sequence=True)
+
+    def apply(self, cfg, params, ins, ctx):
+        a, sel = ins[0], ins[1]
+        x, mask, starts = a.value, a.mask, a.sub_starts_mask
+        if starts is None:
+            raise ValueError("sub_nested_seq input must be a nested sequence")
+        idx = sel.value.reshape(-1).long()
+        sub_id = torch.cumsum(starts, dim=1) - 1
+        keep = (sub_id == idx.unsqueeze(1)) & (mask > 0)
+        T = x.shape[1]
+        key = (~keep).long() * T + torch.arange(T, device=x.device)
+        order = torch.argsort(key, dim=1, stable=True)
+        out = torch.gather(x, 1, order.unsqueeze(-1).expand(-1, -1,
+                                                            x.shape[-1]))
+        new_mask = torch.gather(keep.to(torch.float32), 1, order)
+        return Argument(value=out * new_mask.unsqueeze(-1), mask=new_mask)
 
 
 @register_layer("get_output")

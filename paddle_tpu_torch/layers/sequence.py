@@ -1,63 +1,98 @@
 """Sequence layers: masked reductions over the padded ``[B, T, D]`` layout
 (``MaxLayer.cpp``, ``AverageLayer.cpp``, ``SequenceLastInstanceLayer.cpp``,
-``ExpandLayer.cpp``) and the reshape and time concatenation of sequences
-(``SequenceReshapeLayer.cpp``, ``SequenceConcatLayer.cpp``). The port's
-counterpart of ``paddle_tpu/layers/sequence.py`` for flat sequences;
-nested (two-level) inputs and ``agg_level`` TO_SEQUENCE raise
-``NotImplementedError``."""
+``ExpandLayer.cpp``), the reshape and time concatenation of sequences
+(``SequenceReshapeLayer.cpp``, ``SequenceConcatLayer.cpp``) and the span of
+each sequence (``SubSequenceLayer.cpp``). The port's counterpart of
+``paddle_tpu/layers/sequence.py``.
+
+Nested (two-level) inputs come as ``[B, S, T, D]`` with a ``[B, S, T]``
+mask, or as a recurrent group's flattened output carrying that view in
+``state["nested"]``. ``agg_level`` TO_SEQUENCE (``trans_type == "seq"``)
+reduces each sub-sequence, giving a flat sequence over S whose mask marks
+the sub-sequences that have tokens.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from paddle_tpu_torch.core.argument import Argument
-from paddle_tpu_torch.core.registry import LayerImpl, ShapeInfo, register_layer
+from paddle_tpu_torch.core.argument import Argument, check_dead
+from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
+                                            register_layer)
 
 _NEG_INF = -1e30
 
 
-def _pooled_info(cfg, in_infos, what):
-    if cfg.attrs.get("trans_type") == "seq":
-        raise NotImplementedError(
-            f"{what} of nested sequences is not ported yet")
+def _pooled_info(cfg, in_infos):
+    if _to_sequence(cfg):
+        return ShapeInfo(size=in_infos[0].size, is_sequence=True)
     return ShapeInfo(size=in_infos[0].size, is_sequence=False)
 
 
-def _flat_mask(a: Argument, what: str) -> torch.Tensor:
-    if a.mask is not None and a.mask.dim() != 2:
-        raise NotImplementedError(
-            f"{what} of nested sequences is not ported yet")
-    return a.mask
+def _nested_view(a: Argument):
+    """(value [B, S, T, D], mask [B, S, T]) of a two-level input: the
+    group's stashed un-flattened view or a directly nested Argument; None
+    for a flat one."""
+    if isinstance(a.state, dict) and "nested" in a.state:
+        nested = a.state["nested"]
+        return nested.value, nested.mask
+    if a.mask is not None and a.mask.dim() == 3:
+        return a.value, a.mask
+    return None
+
+
+def _to_sequence(cfg) -> bool:
+    return cfg.attrs.get("trans_type") == "seq"
+
+
+def _sub_live(m3: torch.Tensor) -> torch.Tensor:
+    """[B, S] f32: 1 where the sub-sequence has a token."""
+    return (m3.sum(dim=-1) > 0).to(torch.float32)
 
 
 @register_layer("max")
 class MaxLayer(LayerImpl):
-    """Max over time of each sequence. An all-padding row reads
-    ``_NEG_INF``, as in the JAX package."""
+    """Max over time of each sequence; with TO_SEQUENCE on a nested input,
+    max over each sub-sequence. An all-padding row reads ``_NEG_INF``, as
+    in the JAX package."""
 
     def infer(self, cfg, in_infos):
-        return _pooled_info(cfg, in_infos, "max pooling")
+        return _pooled_info(cfg, in_infos)
 
     def apply(self, cfg, params, ins, ctx):
         a = ins[0]
-        v = torch.where(a.mask.unsqueeze(-1) > 0, a.value,
-                        torch.full((), _NEG_INF, dtype=a.value.dtype,
-                                   device=a.value.device))
+        neg = torch.full((), _NEG_INF, dtype=a.value.dtype,
+                         device=a.value.device)
+        if _to_sequence(cfg):
+            v4, m3 = _nested_view(a)
+            out = torch.where(m3.unsqueeze(-1) > 0, v4, neg).amax(dim=2)
+            live = _sub_live(m3)
+            return Argument(value=out * live.unsqueeze(-1), mask=live)
+        v = torch.where(a.mask.unsqueeze(-1) > 0, a.value, neg)
         return Argument(value=v.amax(dim=1))
 
 
 @register_layer("average")
 class AverageLayer(LayerImpl):
     """Mean, sum or sqrt-n over time (``average_strategy`` "average",
-    "sum", "squarerootn")."""
+    "sum", "squarerootn"); with TO_SEQUENCE, over each sub-sequence."""
 
     def infer(self, cfg, in_infos):
-        return _pooled_info(cfg, in_infos, "average pooling")
+        return _pooled_info(cfg, in_infos)
 
     def apply(self, cfg, params, ins, ctx):
         a = ins[0]
-        mask = _flat_mask(a, "average pooling")
         strategy = cfg.attrs.get("average_strategy", "average")
+        if _to_sequence(cfg):
+            v4, m3 = _nested_view(a)
+            s = (v4 * m3.unsqueeze(-1)).sum(dim=2)
+            n = torch.clamp_min(m3.sum(dim=2).unsqueeze(-1), 1.0)
+            live = _sub_live(m3)
+            out = (s if strategy == "sum" else
+                   s / torch.sqrt(n) if strategy == "squarerootn" else s / n)
+            return Argument(value=out * live.unsqueeze(-1), mask=live)
+        mask = a.mask
         s = (a.value * mask.unsqueeze(-1)).sum(dim=1)
         if strategy == "sum":
             return Argument(value=s)
@@ -70,18 +105,32 @@ class AverageLayer(LayerImpl):
 @register_layer("seqlastins")
 class SeqLastInsLayer(LayerImpl):
     """Last (or first, with ``select_first``) real token of each sequence,
-    found from the mask itself."""
+    found from the mask itself (a flattened nested layout pads between
+    sub-sequences); with TO_SEQUENCE, of each sub-sequence."""
 
     def infer(self, cfg, in_infos):
-        return _pooled_info(cfg, in_infos, "first/last instance")
+        return _pooled_info(cfg, in_infos)
 
     def apply(self, cfg, params, ins, ctx):
         a = ins[0]
-        m = _flat_mask(a, "first/last instance")
+        first = cfg.attrs.get("select_first", False)
+        if _to_sequence(cfg):
+            v4, m3 = _nested_view(a)
+            if first:
+                idx = torch.zeros(m3.shape[:2], dtype=torch.long,
+                                  device=m3.device)
+            else:
+                idx = torch.clamp_min(m3.sum(dim=-1).long() - 1, 0)
+            D = v4.shape[-1]
+            v = torch.gather(v4, 2, idx[:, :, None, None].expand(
+                -1, -1, 1, D))[:, :, 0]
+            live = _sub_live(m3)
+            return Argument(value=v * live.unsqueeze(-1), mask=live)
+        m = a.mask
         if m is None:
             m = a.value.new_ones(a.value.shape[:2])
         live = (m > 0).to(torch.int32)
-        if cfg.attrs.get("select_first", False):
+        if first:
             idx = torch.argmax(live, dim=1)
         else:
             idx = m.shape[1] - 1 - torch.argmax(live.flip(1), dim=1)
@@ -93,18 +142,54 @@ class SeqLastInsLayer(LayerImpl):
 @register_layer("expand")
 class ExpandLayer(LayerImpl):
     """Broadcast a per-sequence vector (input 0, [B, D]) across the
-    timesteps of input 1, zero on its padded steps."""
+    timesteps of input 1, zero on its padded steps. Onto a nested target
+    ``[B, S, T]``: a per-sub-sequence vector ``[B, S', D]`` over each
+    sub-sequence's steps (S' aligned to S where the extra or missing
+    entries are dead), a per-sequence one over all of them. A sequence of
+    per-sub-sequence vectors onto a flattened nested target: position t
+    takes sub-sequence ``t // T_sub``."""
 
     def infer(self, cfg, in_infos):
         return ShapeInfo(size=in_infos[0].size, is_sequence=True)
 
     def apply(self, cfg, params, ins, ctx):
         src, ref = ins
-        mask = _flat_mask(ref, "expand")
-        if src.value.dim() != 2:
-            raise NotImplementedError(
-                "expand of a per-sub-sequence input is not ported yet")
-        B, T = mask.shape
+        if ref.mask is not None and ref.mask.dim() == 3:
+            B, S, T = ref.mask.shape
+            sv = src.value
+            if sv.dim() == 3 and sv.shape[1] != S:
+                if sv.shape[1] > S:
+                    if src.mask is None:
+                        raise ValueError(
+                            f"expand: maskless per-sub source (len "
+                            f"{sv.shape[1]}) cannot align to the "
+                            f"target's {S} sub-sequences")
+                    check_dead(src.mask[:, S:].sum(),
+                               "expand: per-sub source longer than the "
+                               f"target's {S} sub-sequences")
+                    sv = sv[:, :S]
+                else:
+                    check_dead(
+                        (ref.mask.sum(dim=-1) > 0)[:, sv.shape[1]:].sum(),
+                        f"expand: per-sub source (len {sv.shape[1]}) "
+                        "shorter than the target's live sub-sequences")
+                    sv = F.pad(sv, (0, 0, 0, S - sv.shape[1]))
+            v = sv[:, :, None, :] if sv.dim() == 3 else sv[:, None, None, :]
+            v = v.expand(B, S, T, sv.shape[-1])
+            return Argument(value=v * ref.mask.unsqueeze(-1), mask=ref.mask)
+        T = ref.value.shape[1]
+        if src.value.dim() == 3:
+            nested = _nested_view(ref) if ref.mask.dim() == 2 else None
+            if nested is None:
+                raise ValueError(
+                    "expand of a per-sub-sequence input needs a nested "
+                    "target (a group output carrying its 2-level view)")
+            t_sub = nested[1].shape[-1]
+            sub_of = torch.arange(T, device=src.value.device) // t_sub
+            v = src.value.index_select(1, sub_of)
+            return Argument(value=v * ref.mask.unsqueeze(-1), mask=ref.mask)
+        mask = ref.mask
+        B = src.value.shape[0]
         v = src.value.unsqueeze(1).expand(B, T, src.value.shape[-1])
         return Argument(value=v * mask.unsqueeze(-1), mask=mask)
 
@@ -153,3 +238,39 @@ class SeqConcatLayer(LayerImpl):
         vb = torch.gather(b.value, 1, idx_b.unsqueeze(-1).expand(-1, -1, D))
         v = torch.where((pos < la.unsqueeze(1)).unsqueeze(-1), va, vb)
         return Argument(value=v * mask.unsqueeze(-1), mask=mask)
+
+
+@register_layer("subseq")
+class SubSequenceLayer(LayerImpl):
+    """``SubSequenceLayer.cpp``: a span of each sequence, ``out[b] =
+    x[b, off[b] : off[b] + n[b]]`` shifted to position 0, as one gather
+    with a recomputed mask; a span past the source's true length is
+    clamped and masked. Inputs: sequence [B, T, D], offsets [B], sizes
+    [B]; an optional bias on the kept positions."""
+
+    def infer(self, cfg, in_infos):
+        return ShapeInfo(size=in_infos[0].size, is_sequence=True)
+
+    def params(self, cfg, in_infos):
+        if cfg.bias:
+            return {"wbias": ParamSpec(shape=(in_infos[0].size,),
+                                       init="zeros", is_bias=True)}
+        return {}
+
+    def apply(self, cfg, params, ins, ctx):
+        a, off_a, size_a = ins
+        x = a.value
+        B, T = x.shape[0], x.shape[1]
+        off = off_a.value.reshape(B).long()
+        n = size_a.value.reshape(B).long()
+        pos = torch.arange(T, device=x.device).unsqueeze(0)
+        idx = torch.clamp(pos + off.unsqueeze(1), 0, T - 1)
+        out = torch.gather(x, 1, idx.unsqueeze(-1).expand(-1, -1,
+                                                          x.shape[-1]))
+        mask = (pos < n.unsqueeze(1)).to(torch.float32)
+        if a.mask is not None:
+            mask = mask * torch.gather(a.mask, 1, idx)
+        out = out * mask.unsqueeze(-1)
+        if "wbias" in params:
+            out = out + params["wbias"] * mask.unsqueeze(-1)
+        return Argument(value=out, mask=mask)

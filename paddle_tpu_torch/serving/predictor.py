@@ -75,6 +75,15 @@ class ServingPredictor:
         self.batch_buckets = sorted(int(b) for b in batch_buckets)
         if not self.batch_buckets or self.batch_buckets[0] < 1:
             raise ValueError(f"bad batch_buckets: {batch_buckets}")
+        nested = [n for n, t in self.feeding.items()
+                  if t.seq_type == T.SUB_SEQUENCE]
+        if nested:
+            # the outer sub-sequence count is a shape axis the bucket menu
+            # does not close: refuse at build time
+            raise ValueError(
+                f"serving does not support nested-sequence (SUB_SEQUENCE)"
+                f" inputs yet: {nested} — the outer subsequence count is"
+                " an unbucketed shape axis")
         self.has_sequences = any(_is_seq(t) for t in self.feeding.values())
         self.length_buckets = (sorted(int(e) for e in length_buckets)
                                if length_buckets and self.has_sequences

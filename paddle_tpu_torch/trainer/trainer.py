@@ -124,8 +124,11 @@ def _split_feed(feed, k: int) -> List[Dict[str, Argument]]:
                 f"feed entry; got shape {tuple(a.value.shape)} for {name!r}")
         vals = a.value.chunk(k)
         masks = a.mask.chunk(k) if a.mask is not None else [None] * k
+        starts = (a.sub_starts_mask.chunk(k)
+                  if a.sub_starts_mask is not None else [None] * k)
         for i in range(k):
             micro[i][name] = Argument(value=vals[i], mask=masks[i],
+                                      sub_starts_mask=starts[i],
                                       state=a.state)
     return micro
 
@@ -272,10 +275,7 @@ class SGD:
         return metrics
 
     def _to_device(self, feed: Dict[str, Argument]) -> Dict[str, Argument]:
-        def move(t):
-            return None if t is None else t.to(self.device)
-        return {k: Argument(value=move(a.value), mask=move(a.mask),
-                            state=a.state) for k, a in feed.items()}
+        return {k: a.to(self.device) for k, a in feed.items()}
 
     def _prepare(self, data, feeder):
         return self._to_device(feeder(data) if feeder is not None else data)

@@ -2000,3 +2000,81 @@ def test_small_deepspeech2_release_on_card_matches_cpu(cuda_device,
     for k, g in grads.items():
         err = (cgrads[k].cpu() - g).abs().max().item()
         assert err <= 1e-3 * g.abs().max().item() + 1e-6, k
+
+
+# ------------------------------------ the last layer types (phase 15)
+def _small_last_types(monkeypatch):
+    """chip_smoke's phase-15 constants at small widths (the VAE at its
+    full 784 / 256 / 32, which trains reliably)."""
+    import chip_smoke as cs
+    monkeypatch.setitem(cs.NEST, "vocab_size", 1000)
+    monkeypatch.setitem(cs.NEST, "embed_dim", 32)
+    monkeypatch.setitem(cs.NEST, "hidden", 32)
+    monkeypatch.setattr(cs, "NEST_BATCH", 8)
+    monkeypatch.setattr(cs, "NEST_SENTS", (2, 4))
+    monkeypatch.setattr(cs, "NEST_WORDS", (2, 9))
+    monkeypatch.setitem(cs.W2V, "vocab_size", 100)
+    monkeypatch.setattr(cs, "W2V_BATCH", 32)
+    monkeypatch.setattr(cs, "SSD_IMAGE", 30)
+    monkeypatch.setattr(cs, "SSD_MAPS", [(4, 16), (2, 16), (1, 16)])
+    monkeypatch.setattr(cs, "SSD_MIN", [3, 6, 11])
+    monkeypatch.setattr(cs, "SSD_MAX", [6, 11, 16])
+    monkeypatch.setattr(cs, "SSD_AR", [[2], [2, 3], [2]])
+    monkeypatch.setattr(cs, "SSD_PRIORS", 16 * 4 + 4 * 6 + 4)
+    monkeypatch.setattr(cs, "SSD_BATCH", 4)
+    monkeypatch.setitem(cs.SSD_DET, "nms_top_k", 20)
+    monkeypatch.setitem(cs.SSD_DET, "keep_top_k", 30)
+    monkeypatch.setitem(cs.MOE, "d", 32)
+    monkeypatch.setitem(cs.MOE, "hidden", 64)
+    monkeypatch.setitem(cs.MOE, "rows", 6)
+    monkeypatch.setitem(cs.MOE, "T", 8)
+    monkeypatch.setitem(cs.MOE, "tight", 3)
+    return cs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["nested", "word2vec", "ssd300", "vae",
+                                  "moe"])
+def test_last_types_on_card_at_small_widths(cuda_device, monkeypatch, part):
+    """Phase 15's holds at small widths: (a) the nested GRU text model
+    (nested == flat, card against CPU, the cost falls, the GRU cell
+    launched; subseq and the TO_SEQUENCE layers on the nested out-link),
+    (b) word2vec with hsigmoid and nce (negatives replayed), (c) the SSD
+    head (priors bit-equal, loss and gradients, every detection row),
+    (d) the VAE (eps replayed), (e) moe at a dropping and the default
+    capacity."""
+    cs = _small_last_types(monkeypatch)
+    fn = dict(nested=cs.check_nested_text, word2vec=cs.check_word2vec,
+              ssd300=cs.check_ssd300, vae=cs.check_vae,
+              moe=cs.check_moe)[part]
+    row = fn("cuda")
+    if part == "nested":
+        assert row["launches"].get("gru_cell", 0) > 0
+        assert row["launches"].get("adam", 0) > 0
+    if part == "ssd300":
+        assert row["launches"].get("momentum", 0) > 0
+
+
+@pytest.mark.cuda
+def test_nested_feed_and_sub_nested_seq_on_card(cuda_device):
+    """A nested feed moves to the card whole (its sub-sequence starts
+    too), and sub_nested_seq selects there as on the CPU."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.network import Network
+    dsl.reset()
+    x = dsl.data("x", size=2, is_sequence=True)
+    sel = dsl.data("sel", size=1)
+    dsl.sub_nested_seq_layer(x, sel, name="s")
+    net = Network(dsl.current_graph(), outputs=["s"])
+    xv = torch.arange(24, dtype=torch.float32).reshape(2, 6, 2)
+    mask = torch.ones(2, 6)
+    mask[1, 4:] = 0
+    starts = torch.zeros(2, 6)
+    starts[0, 0] = starts[0, 3] = starts[1, 0] = starts[1, 2] = 1
+    feed = {"x": Argument(xv, mask, sub_starts_mask=starts),
+            "sel": Argument(torch.tensor([[1.0], [0.0]]))}
+    cpu = net.apply({}, feed)["s"]
+    card = net.apply({}, {k: a.to(cuda_device) for k, a in feed.items()})["s"]
+    assert torch.equal(card.value.cpu(), cpu.value)
+    assert torch.equal(card.mask.cpu(), cpu.mask)

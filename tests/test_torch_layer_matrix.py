@@ -43,11 +43,8 @@ FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 ROADMAP = os.path.join(os.path.dirname(__file__), os.pardir, "ROADMAP.md")
 
-# the reference's layer types the port does not register yet (nested
-# sequences, sampling.py, detection.py, moe.py)
-NOT_YET_PORTED = {"subseq", "sub_nested_seq", "nce", "hsigmoid",
-                  "sample_gaussian", "priorbox", "multibox_loss",
-                  "detection_output", "moe"}
+# the reference's layer types the port does not register yet
+NOT_YET_PORTED = set()
 
 # ported types whose checks need more than a one-layer graph
 PORT_COVERED_ELSEWHERE = {
@@ -56,6 +53,11 @@ PORT_COVERED_ELSEWHERE = {
     "beam_search_group": "tests/test_torch_generation.py",
     "group_output": "tests/test_torch_seq2seq.py",
     "get_output": "tests/test_torch_generation.py (lstm_step decoder)",
+    "sub_nested_seq": "tests/test_torch_nested.py (nested selection)",
+    "multibox_loss": "tests/test_torch_detection.py (detection stack)",
+    "detection_output": "tests/test_torch_detection.py (detection stack)",
+    "moe": "tests/test_torch_moe.py (routing boundaries break numeric "
+           "differentiation)",
 }
 
 PORT_GRAD = sorted(t for t in GRAD_CASES if t not in NOT_YET_PORTED)
@@ -371,6 +373,9 @@ EARLIER = {"addto", "average", "batch_norm", "beam_search_group", "concat",
            "group_output", "gru_step", "lstm_step", "lstmemory", "max",
            "multi-class-cross-entropy", "multi_head_attention", "norm",
            "pool", "recurrent_layer_group", "scaling", "seqlastins", "spp"}
+# the last types without a matrix row: chip_smoke.py's phase 15 checks
+# them on the card at full width
+LAST_TYPES = {"sub_nested_seq", "multibox_loss", "detection_output", "moe"}
 
 
 def test_chip_smoke_layer_cases_are_the_matrix_cases():
@@ -380,7 +385,7 @@ def test_chip_smoke_layer_cases_are_the_matrix_cases():
     import chip_smoke
     cases = chip_smoke.layer_cases()
     canonical = {impl.type_name for impl in TREG.values()}
-    assert set(cases) == canonical - EARLIER
+    assert set(cases) == canonical - EARLIER - LAST_TYPES
     for type_, (data, kw, feed) in cases.items():
         jdata, ld, jfeed = (GRAD_CASES.get(type_) or FWD_CASES[type_])()
         assert data == jdata, type_

@@ -554,9 +554,11 @@ def test_unported_paths_raise_not_implemented():
                        for n, l in g.layers.items()])
         assert g.layers["enc_self_att"].attrs["seq_parallel"] == kind
     assert graphs[0] == graphs[1]
-    tdsl.reset()
-    with pytest.raises(NotImplementedError, match="SubsequenceInput"):
-        tdsl.SubsequenceInput(None)
+    # SubsequenceInput is ported: it wraps its input as JAX's does
+    for dsl in (jdsl, tdsl):
+        dsl.reset()
+        x = dsl.data(name="x", size=4, is_sequence=True)
+        assert dsl.SubsequenceInput(x).input is x
     # beam_search is ported: both DSLs refuse a group with no
     # GeneratedInput the same way
     for dsl in (jdsl, tdsl):
