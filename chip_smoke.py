@@ -439,12 +439,46 @@ non-zero without the result line:
    tokens at a capacity that drops tokens and at the default.
    ``python3 chip_smoke.py --last-types`` runs this phase alone, into
    ``last_types.json`` in ``OUT_DIR``.
-16. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+16. the serving tier, through ``--job merge`` and ``--job serve``
+   processes, all started together and measured one at a time (the CPU
+   references computed while they start): (a) the generating seq2seq (30000/512/512, beam 4, <= 50
+   words) merged from phase 10's save dir and served twice (max_batch 8,
+   one length bucket of 50), with ``--serving_continuous_batching`` and
+   without: 24 sources of 1-50 words (seed 2033) sent at once with a
+   request of a 1-ms deadline (the typed 504); each answer against the
+   port's CPU plain path on the same file by ``_compare_beams``' rule
+   (near-ties counted, traced on the card at 8, 4, 2 or 1 copies of the
+   source), the modes apart only at such near-ties; continuous mode
+   admits after its first chunk, launches ``gru_cell_infer`` once a
+   session step (decode_chunks_total x 8) and the encoder's two
+   ``gru_seq`` primal kernels at each admission; with buckets 16,50 the
+   server logs the stand-down and serves convoy; per-request p50 / p90,
+   device decode steps, chunks, lane occupancy of both modes; (b) phase
+   8's classifier (30000/128/1280) merged fp32, ``--quantize bf16`` and
+   ``--quantize int8`` and served: ``/healthz``'s quant block (the gate
+   checked and passed, its max delta), ``+bf16`` / ``+int8`` versions,
+   16 rows of 1-100 words within the tier's gate tolerance of fp32's and
+   within 1e-5 of the CPU plain path on the same file, one persistent
+   ``lstm_seq`` launch a layer and batch; the parameter bytes resident on
+   the card and the peak above them in one 64-row request, per tier
+   (int8 <= 0.3 and bf16 <= 0.55 of fp32's); a drifted int8 file
+   (JAX's ``_drifted_int8``: a table times -3, each in turn, then every
+   scale times 100, until the gate refuses it in this process) makes the
+   server exit non-zero with ``quant_gate`` in its log, never ready; (c)
+   the generating seq2seq merged ``--quantize int8`` and served with
+   continuous batching: the gate stands down by name (generation-only),
+   4 answers held against the CPU path on the same file as in (a).
+   ``python3 chip_smoke.py --serving`` runs this phase alone (after one
+   training pass of the classifier and of seq2seq), into
+   ``serving.json`` in ``OUT_DIR``.
+17. kernels: one JSON line ``{"kernels": [...]}`` for every ported
    kernel, with the launches of the main paths (phases 8 to 12), the
    rest of training's (phase 13) as ``training_launches``,
    DeepSpeech2 as released (phase 14) as ``ds2_release_launches``
    beside the times at its CTC shape, and phase 15's as
-   ``last_types_launches`` (added to ``launches`` too). The
+   ``last_types_launches`` (added to ``launches`` too), and phase 16's
+   as ``serving_tier_launches`` (``lstm_seq``, ``gru_seq``,
+   ``gru_cell_infer``; added to ``launches`` too). The
    backward steps of the per-step routes (``gru_bwd_step``,
    ``lstm_bwd_step``) run on no path (every path's shape is on the
    persistent route), nor do the gathered CTC kernels (``ctc_alpha_fwd``,
@@ -458,7 +492,8 @@ non-zero without the result line:
 
 Every ``--job`` of the CLI runs in this process (``_cli_inproc``: each
 job resets the kernel counts it reports and the DSL's graph), but the
-servers and the killed training run of phase 13, processes of their own.
+servers (phases 9, 10b, the tagger's, 16) and the killed training run of phase
+13, processes of their own.
 A ``phase done`` line after each phase gives its seconds and the total.
 The last line is ``{"ok": true, "device": {...}}``. Full results go to
 ``chip_smoke.json`` in ``OUT_DIR``.
@@ -4240,19 +4275,25 @@ def _wait_ready(proc, timeout):
     raise AssertionError(f"server not ready within {timeout}s")
 
 
+def _serve_cmd(conf, model, length_buckets, max_batch, extra=()):
+    return [sys.executable, "-m", "paddle_tpu_torch.trainer.cli",
+            "--config", conf, "--job", "serve", "--init_model_path", model,
+            "--max_batch", str(max_batch), "--serving_length_buckets",
+            ",".join(map(str, length_buckets)), "--port", "0", *extra]
+
+
 @contextlib.contextmanager
-def _server(tmp, conf, model, length_buckets, max_batch=MAX_BATCH):
-    """A ``--job serve`` process of the merged ``model``: yields (port,
+def _server(tmp, conf, model, length_buckets, max_batch=MAX_BATCH,
+            extra=(), name="server"):
+    """A ``--job serve`` process of the merged ``model`` (``extra``: more
+    flags; its standard error in ``tmp/<name>.stderr``): yields (port,
     seconds until ready, [exit code]); on leaving, SIGTERM must drain it to
     exit 0, and the list then holds that code."""
     t_start = time.perf_counter()
-    log_path = os.path.join(tmp, "server.stderr")
+    log_path = os.path.join(tmp, f"{name}.stderr")
     err_log = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "paddle_tpu_torch.trainer.cli", "--config",
-         conf, "--job", "serve", "--init_model_path", model,
-         "--max_batch", str(max_batch), "--serving_length_buckets",
-         ",".join(map(str, length_buckets)), "--port", "0"],
+        _serve_cmd(conf, model, length_buckets, max_batch, extra),
         cwd=ROOT, stdout=subprocess.PIPE, stderr=err_log, text=True)
     rc = []
     try:
@@ -8150,6 +8191,578 @@ def last_types():
         json.dump(row, f, indent=1)
 
 
+# ------------------------------------------------------ 16. the serving tier
+SERVE16_SOURCES = 24       # (a)'s generate mix: lengths 1-50, concurrent
+SERVE16_QGEN_SOURCES = 4   # (c)'s int8 generate mix
+SERVE16_ROWS = 16          # (b)'s score rows: lengths 1-100
+# one length bucket: seq2seq's encoded source pads to its bucket, and a
+# decode session's lanes hold one shape
+GEN_CONT_BUCKETS = [S2S_LEN]
+QUANT_TIERS = ("fp32", "bf16", "int8")
+
+
+def _healthz(port):
+    status, h = _http(port, "GET", "/healthz")
+    if status != 200:
+        raise AssertionError(f"/healthz answered {status}: {h}")
+    return h
+
+
+def _metrics(port):
+    status, m = _http(port, "GET", "/metrics?format=json")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}: {m}")
+    return m
+
+
+def _post_all(port, path, bodies, timeout=300):
+    """POST every body to ``path`` at once, a thread each: [(status,
+    answer, wall ms)] in order."""
+    out = [None] * len(bodies)
+
+    def one(i, body):
+        t0 = time.perf_counter()
+        status, answer = _http(port, "POST", path, body)
+        out[i] = (status, answer, 1e3 * (time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=one, args=(i, b), daemon=True)
+               for i, b in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError(f"{path}: requests unanswered after {timeout}s")
+    return out
+
+
+def _deltas(before, after, names):
+    """The kernel counts' growth between two /healthz reads."""
+    return {n: {k: after[n][k] - before[n][k] for k in after[n]}
+            for n in names}
+
+
+@contextlib.contextmanager
+def _server_group(tmp, specs, refused=()):
+    """Every ``--job serve`` process of ``specs`` ({name: command}) started
+    at once, so their start-ups and warmups overlap (each one's standard
+    error in ``tmp/<name>.stderr``). Yields ``{"ports", "ready_s",
+    "exits"}`` once all are ready; a process named in ``refused`` must
+    exit before it is ready instead (its code in ``exits`` then). On
+    leaving, SIGTERM must drain every server to exit 0 (their codes in
+    ``exits`` too)."""
+    t0 = time.perf_counter()
+    procs, logs = {}, []
+    group = {"ports": {}, "ready_s": {}, "exits": {}}
+    try:
+        for name, cmd in specs.items():
+            logs.append(open(os.path.join(tmp, f"{name}.stderr"), "w"))
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT,
+                                           stdout=subprocess.PIPE,
+                                           stderr=logs[-1], text=True)
+        for name, proc in procs.items():
+            try:
+                port = _wait_ready(proc, timeout=600)
+            except AssertionError:
+                if name not in refused:
+                    raise
+                group["exits"][name] = proc.wait(timeout=30)
+                continue
+            if name in refused:
+                raise AssertionError(f"{name} became ready")
+            group["ports"][name] = port
+            group["ready_s"][name] = time.perf_counter() - t0
+        yield group
+        for name in group["ports"]:
+            procs[name].send_signal(signal.SIGTERM)
+        for name in group["ports"]:
+            group["exits"][name] = procs[name].wait(timeout=120)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        for log in logs:
+            log.close()
+    bad = {n: rc for n, rc in group["exits"].items()
+           if n not in refused and rc != 0}
+    for name in bad:
+        with open(os.path.join(tmp, f"{name}.stderr")) as f:
+            sys.stderr.write(f.read()[-4000:])
+    if bad:
+        raise AssertionError(f"servers exited {bad} after SIGTERM")
+
+
+def _log(tmp, name):
+    with open(os.path.join(tmp, f"{name}.stderr")) as f:
+        return f.read()
+
+
+def _gen_mode(port, sources, name):
+    """``/v1/generate`` on a server: every source and a request with a
+    1-ms deadline sent at once. Returns the answers, their wall ms, the
+    deadline request's error code, the kernel counts' and the metrics'
+    growth."""
+    bodies = ([{"sample": s} for s in sources]
+              + [{"sample": sources[0], "deadline_ms": 1}])
+    h0, m0 = _healthz(port), _metrics(port)
+    sent = _post_all(port, "/v1/generate", bodies)
+    h1, m1 = _healthz(port), _metrics(port)
+    for status, body, _ in sent[:-1]:
+        if status != 200:
+            raise AssertionError(f"{name}: /v1/generate answered {status}: "
+                                 f"{body}")
+    status, late, _ = sent[-1]
+    if status != 504 or late["error"]["code"] != "deadline_exceeded":
+        raise AssertionError(f"{name}: the 1-ms deadline got {status}: "
+                             f"{late}")
+    ms = [t for _, _, t in sent[:-1]]
+    counters = ("decode_chunks_total", "continuous_admissions_total",
+                "decode_steps_total", "batches_total", "responses_total",
+                "deadline_exceeded_total")
+    return dict(
+        answers=[body["sequences"] for _, body, _ in sent[:-1]], ms=ms,
+        p50_ms=float(np.percentile(ms, 50)),
+        p90_ms=float(np.percentile(ms, 90)),
+        deadline_error=late["error"]["code"],
+        kernels=_deltas(h0["kernels"], h1["kernels"],
+                        ("gru_seq", "gru_cell_infer")),
+        metrics={c: m1[c] - m0[c] for c in counters},
+        lane_occupancy_mean=m1["lane_occupancy"]["mean"],
+        quant=h1["quant"], model_version=h1["model_version"])
+
+
+def _score_tier(port, rows, dt):
+    """``/v1/score`` of ``rows`` in one call on a classifier server: the
+    scores, the /healthz quant block and version, the call's ms, the
+    batches it took and its ``lstm_seq`` launches."""
+    h0, m0 = _healthz(port), _metrics(port)
+    t0 = time.perf_counter()
+    status, body = _http(port, "POST", "/v1/score", {"rows": rows})
+    rows_ms = 1e3 * (time.perf_counter() - t0)
+    h1, m1 = _healthz(port), _metrics(port)
+    if status != 200:
+        raise AssertionError(f"{dt}: /v1/score answered {status}: {body}")
+    return dict(scores=np.asarray([r["outputs"]["output"]
+                                   for r in body["results"]], np.float64),
+                quant=h1["quant"], model_version=h1["model_version"],
+                rows_ms=rows_ms,
+                batches=m1["batches_total"] - m0["batches_total"],
+                lstm_seq=_deltas(h0["kernels"], h1["kernels"],
+                                 ("lstm_seq",))["lstm_seq"])
+
+
+def _cpu_beams(model, feeding, sources):
+    """The port's CPU plain path on ``model``: each source's beams alone
+    (``_row_beams``), and the file's parameters as f32 arrays (an int8 or
+    bf16 file's dequantized) for ``_rescore_cpu``."""
+    from paddle_tpu_torch import quant as quant_lib
+    from paddle_tpu_torch.serving import ServingPredictor
+    from paddle_tpu_torch.trainer.merge_model import load_merged_ex
+    ref = ServingPredictor.from_merged(
+        model, feeding, batch_buckets=[1], length_buckets=GEN_CONT_BUCKETS,
+        device="cpu")
+    wants = []
+    for s in sources:
+        (tk, sc, ln), _ = ref.generate_rows([tuple(s)])
+        wants.append(_row_beams(tk, sc, ln, 0))
+    _, params, _, extras = load_merged_ex(model)
+    if extras.get("quant"):
+        params = quant_lib.dequantize_params(params, extras["quant"])
+    return ref, wants, params
+
+
+def _hold_beams(answers, sources, model, feeding, cpu, device, where):
+    """Each answer against the port's CPU plain path on the same file
+    (``cpu``: ``_cpu_beams``) by ``_compare_beams``' rule; a parting is
+    traced on ``device`` in this process through the same file, at the
+    batch sizes the server may have run the source in (its rows compute
+    alone: 8, 4, 2 or 1 copies of it). Returns (worst relative score
+    error, partings)."""
+    from paddle_tpu_torch.serving import ServingPredictor
+    ref, wants, params = cpu
+    card = []
+
+    def trace(s, got):
+        if not card:
+            card.append(ServingPredictor.from_merged(
+                model, feeding, batch_buckets=_batch_buckets(GEN_MAX_BATCH),
+                length_buckets=GEN_CONT_BUCKETS, device=device))
+        for n in (GEN_MAX_BATCH, 4, 2, 1):
+            traced = _search_trace(lambda **h: _predictor_generate(
+                card[0], [s] * n, **h), 0)
+            if [x["tokens"] for x in traced[0]] == [
+                    x["tokens"] for x in got]:
+                break
+        return traced, _search_trace(lambda **h: _predictor_generate(
+            ref, [s], **h), 0)
+
+    worst, partings = 0.0, []
+    for i, (s, got, want) in enumerate(zip(sources, answers, wants)):
+        err, part = _compare_beams(
+            got, want,
+            lambda beams, src=s[0]: _rescore_cpu(_s2s_training, params, src,
+                                                 beams),
+            lambda s=s, got=got: trace(s, got), f"{where} answer {i}")
+        worst = max(worst, err)
+        if part is not None:
+            partings.append(dict(answer=i, **part))
+    _check_partings(partings, len(answers), where)
+    return worst, partings
+
+
+def _check_session_launches(where, mode):
+    """The session's step over all W*K rows launches gru_cell_infer once:
+    one device launch a step, chunks x the default chunk steps."""
+    from paddle_tpu_torch.core.generation import DEFAULT_DECODE_CHUNK
+    cell = mode["kernels"]["gru_cell_infer"]
+    steps = mode["metrics"]["decode_chunks_total"] * DEFAULT_DECODE_CHUNK
+    if cell["launches"] != steps or cell["step_launches"] != steps:
+        raise AssertionError(f"{where}: {cell} gru_cell_infer launches in "
+                             f"{steps} session steps, one a step expected")
+
+
+def _param_memory(path, feeding, rows, device):
+    """A predictor of ``path`` on ``device``: the bytes its parameters
+    hold there, and the peak above that during one request of ``rows``
+    (None off the card)."""
+    from paddle_tpu_torch.serving import ServingPredictor
+    if device != "cuda":
+        return dict(resident_bytes=None, peak_over_resident_bytes=None)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    pred = ServingPredictor.from_merged(
+        path, feeding, batch_buckets=[len(rows)],
+        length_buckets=LENGTH_BUCKETS, device=device)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - m0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pred.predict_rows(rows)
+    peak = torch.cuda.max_memory_allocated() - base
+    out = dict(resident_bytes=resident, param_bytes=pred.param_bytes(),
+               peak_over_resident_bytes=peak)
+    del pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def _drifted_int8(tmp, int8_model, feeding, device):
+    """A drifted int8 file: JAX's ``_drifted_int8`` (an int8 table times
+    -3 after the golden references were recorded), each table in turn,
+    then every scale times 100, until the gate, run in this process,
+    refuses the file (the golden rows of a model near its decision
+    boundary may not see a table's corruption). Returns (path, the
+    corruption)."""
+    from paddle_tpu_torch.serving import QuantGateError, ServingPredictor
+    from paddle_tpu_torch.trainer.merge_model import (load_merged_ex,
+                                                      merge_model)
+    graph, params, outputs, extras = load_merged_ex(int8_model)
+    tables = sorted(k for k, v in params.items() if v.dtype == np.int8)
+    path = os.path.join(tmp, "drifted.int8.ptmodel")
+    scaled = dict(extras["quant"], scales={
+        k: v * np.float32(100.0) for k, v in extras["quant"]["scales"].items()})
+    tries = [(f"{t} x -3", dict(params, **{t: np.clip(
+        params[t].astype(np.int32) * -3, -127, 127).astype(np.int8)}),
+        extras["quant"]) for t in tables]
+    tries.append(("every scale x 100", params, scaled))
+    for what, bad, quant in tries:
+        merge_model(path, graph, bad, outputs=outputs, quant=quant,
+                    golden=extras["golden"])
+        pred = ServingPredictor.from_merged(
+            path, feeding, batch_buckets=_batch_buckets(MAX_BATCH),
+            length_buckets=LENGTH_BUCKETS, device=device)
+        try:
+            pred._run_quant_gate()
+        except QuantGateError:
+            return path, what
+        finally:
+            del pred
+    raise AssertionError("no corruption of the int8 file moved the golden "
+                         "outputs past the gate")
+
+
+def _merge16(conf, save_dir, model, device, quantize=None):
+    args = ["--config", conf, "--job", "merge", "--save_dir", save_dir,
+            "--model_path", model, "--device", device]
+    _cli_inproc(args + (["--quantize", quantize] if quantize else []))
+    return model
+
+
+def _continuous_holds(modes, sources, model, feeding, cpu, device):
+    """(a)'s checks after the servers stopped: both modes against the CPU
+    (``cpu``: ``_cpu_beams``, one reference for both), the modes apart only
+    at near-ties, the session's launches."""
+    cont, convoy = modes["continuous"], modes["convoy"]
+    if cont["metrics"]["continuous_admissions_total"] <= 0:
+        raise AssertionError("no request was admitted after the first "
+                             f"chunk: {cont['metrics']}")
+    if convoy["metrics"]["decode_chunks_total"] != 0:
+        raise AssertionError("the convoy server ran a decode session")
+    holds = {}
+    for key, mode in modes.items():
+        worst, partings = _hold_beams(mode["answers"], sources, model,
+                                      feeding, cpu, device, key)
+        holds[key] = dict(max_rel_score_err_vs_cpu=worst,
+                          tie_flips=len(partings), partings=partings)
+    parted = {p["answer"] for h in holds.values() for p in h["partings"]}
+    differ = [i for i, (a, b) in enumerate(zip(cont["answers"],
+                                               convoy["answers"]))
+              if [x["tokens"] for x in a] != [x["tokens"] for x in b]]
+    if set(differ) - parted:
+        raise AssertionError(f"continuous and convoy answers differ at "
+                             f"{sorted(set(differ) - parted)} without a "
+                             "near-tie")
+    if device == "cuda":
+        _check_session_launches("continuous batching", cont)
+        _check_cell_route("convoy generate",
+                          convoy["kernels"]["gru_cell_infer"],
+                          "gru_cell_infer")
+        # the encoder's two GRUs run their primal kernel at each admission
+        enc = cont["kernels"]["gru_seq"]
+        if enc["launches"] not in (2 * SERVE16_SOURCES,
+                                   2 * SERVE16_SOURCES + 2):
+            raise AssertionError(f"gru_seq launched {enc} at "
+                                 f"{SERVE16_SOURCES} admissions")
+    out = {key: dict({k: v for k, v in mode.items() if k != "answers"},
+                     answer_lengths=[[len(b["tokens"]) for b in a]
+                                     for a in mode["answers"]],
+                     device_decode_steps=mode["kernels"]["gru_cell_infer"][
+                         "launches"], **holds[key])
+           for key, mode in modes.items()}
+    out["modes_differ_at"] = differ
+    return out
+
+
+def _scoring_holds(tiers, files, rows, peak_rows, feeding, device):
+    """(b)'s checks after the servers stopped: each tier's /healthz, its
+    scores against fp32's and the CPU plain path's on the same file, its
+    launches, its resident and peak parameter bytes."""
+    from paddle_tpu_torch import quant as quant_lib
+    from paddle_tpu_torch.serving import ServingPredictor
+    out = {}
+    for dt, tier in tiers.items():
+        gate, quant = tier["quant"]["gate"], tier["quant"]
+        if dt == "fp32":
+            if quant != {"dtype": "fp32", "gate": None}:
+                raise AssertionError(f"fp32 quant block {quant}")
+        elif not (quant["dtype"] == dt and gate["checked"] and gate["passed"]
+                  and gate["max_delta"] <= gate["tol"]
+                  and tier["model_version"].endswith("+" + dt)):
+            raise AssertionError(f"{dt}: /healthz {quant}, version "
+                                 f"{tier['model_version']}")
+        ref = ServingPredictor.from_merged(
+            files[dt], feeding, batch_buckets=_batch_buckets(MAX_BATCH),
+            length_buckets=LENGTH_BUCKETS, device="cpu")
+        want = ref.predict_rows([tuple(r) for r in rows])[0]["output"][
+            :len(rows)]
+        cpu_err = float(np.abs(tier["scores"] - want).max())
+        if not cpu_err <= 1e-5:
+            raise AssertionError(f"{dt}: served scores {cpu_err} from the "
+                                 "CPU plain path on the same file")
+        lstm = tier["lstm_seq"]
+        if device == "cuda" and (
+                lstm["launches"] != MODEL["num_layers"] * tier["batches"]
+                or lstm["step_launches"] != lstm["launches"]):
+            raise AssertionError(f"{dt}: lstm_seq {lstm} in "
+                                 f"{tier['batches']} batches, one "
+                                 "persistent launch a layer and batch "
+                                 "expected")
+        out[dt] = dict({k: v for k, v in tier.items() if k != "scores"},
+                       max_abs_err_vs_cpu=cpu_err,
+                       **_param_memory(files[dt], feeding, peak_rows,
+                                       device))
+        if dt != "fp32":
+            delta = quant_lib.gate_delta(tier["scores"],
+                                         tiers["fp32"]["scores"])
+            tol = quant_lib.GATE_TOLERANCES[dt]
+            if not delta <= tol:
+                raise AssertionError(f"{dt}: scores {delta} from fp32's, "
+                                     f"past {tol}")
+            out[dt]["delta_vs_fp32"] = delta
+    if device == "cuda":
+        fp32_bytes = out["fp32"]["resident_bytes"]
+        for dt, most in (("int8", 0.3), ("bf16", 0.55)):
+            share = out[dt]["resident_bytes"] / fp32_bytes
+            out[dt]["resident_share_of_fp32"] = share
+            if not share <= most:
+                raise AssertionError(f"{dt} holds {share:.3f} of fp32's "
+                                     f"parameter bytes, more than {most}")
+    return out
+
+
+def serving_tier(tmp, s2s_dir, conf, save_dir, fp32_model, device="cuda"):
+    """Phase 16: (a) continuous batching against convoy and the
+    stand-down, (b) the fp32, bf16 and int8 tiers of the classifier and a
+    drifted int8 file, (c) int8 generation with continuous batching, all
+    through ``--job merge`` and ``--job serve`` processes; the servers
+    start together and are measured one at a time, the CPU references
+    after they stop. Returns its row, with the kernel launches of its
+    servers under ``launches``."""
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the servers share the card
+    gen_conf = os.path.join(tmp, "s2s_gen16_conf.py")
+    _write_gen_config(gen_conf)
+    gen_model = _merge16(gen_conf, s2s_dir,
+                         os.path.join(tmp, "s2s_gen16.ptmodel"), device)
+    qgen_model = _merge16(gen_conf, s2s_dir,
+                          os.path.join(tmp, "s2s_gen16.int8.ptmodel"),
+                          device, "int8")
+    files = dict(fp32=fp32_model, **{
+        dt: _merge16(conf, save_dir, os.path.join(
+            tmp, f"lstm_text_h1280.{dt}.ptmodel"), device, dt)
+        for dt in QUANT_TIERS[1:]})
+    gen_feeding = {"source_words": integer_value_sequence(S2S["src_vocab"])}
+    feeding = {"words": integer_value_sequence(MODEL["vocab_size"]),
+               "label": integer_value(MODEL["classes"])}
+    drifted, corruption = _drifted_int8(tmp, files["int8"], feeding, device)
+    rng = np.random.default_rng(SEED + 16)
+    sources = [[rng.integers(2, S2S["src_vocab"], size=int(n)).tolist()]
+               for n in rng.integers(1, S2S_LEN + 1, size=SERVE16_SOURCES)]
+    rng = np.random.default_rng(SEED + 17)
+
+    def row(n):
+        return [rng.integers(0, MODEL["vocab_size"], size=int(n)).tolist(),
+                int(rng.integers(0, MODEL["classes"]))]
+
+    rows = [row(n) for n in rng.integers(1, SEQLEN + 1, size=SERVE16_ROWS)]
+    peak_rows = [tuple(row(n)) for n in rng.integers(1, SEQLEN + 1,
+                                                     size=MAX_BATCH)]
+    qsources = sources[:SERVE16_QGEN_SOURCES]
+    dev, cont = ["--device", device], ["--serving_continuous_batching"]
+    specs = {
+        "gen16_continuous": _serve_cmd(gen_conf, gen_model,
+                                       GEN_CONT_BUCKETS, GEN_MAX_BATCH,
+                                       dev + cont),
+        "gen16_convoy": _serve_cmd(gen_conf, gen_model, GEN_CONT_BUCKETS,
+                                   GEN_MAX_BATCH, dev),
+        "gen16_standdown": _serve_cmd(gen_conf, gen_model,
+                                      GEN_LENGTH_BUCKETS, GEN_MAX_BATCH,
+                                      dev + cont),
+        "qgen16": _serve_cmd(gen_conf, qgen_model, GEN_CONT_BUCKETS,
+                             GEN_MAX_BATCH, dev + cont),
+        **{f"score16_{dt}": _serve_cmd(conf, files[dt], LENGTH_BUCKETS,
+                                       MAX_BATCH, dev)
+           for dt in QUANT_TIERS},
+        "drifted16": _serve_cmd(conf, drifted, LENGTH_BUCKETS, MAX_BATCH,
+                                dev)}
+    # the CPU references run while the servers start, never while they
+    # are measured
+    refs = {}
+
+    def cpu_refs():
+        try:
+            t = time.perf_counter()
+            refs["a"] = _cpu_beams(gen_model, gen_feeding, sources)
+            refs["c"] = _cpu_beams(qgen_model, gen_feeding, qsources)
+            refs["seconds"] = time.perf_counter() - t
+        except BaseException as e:  # noqa: BLE001 — raised below
+            refs["error"] = e
+
+    worker = threading.Thread(target=cpu_refs, daemon=True)
+    worker.start()
+    t1 = time.perf_counter()
+    with _server_group(tmp, specs, refused=("drifted16",)) as group:
+        worker.join()
+        if "error" in refs:
+            raise refs["error"]
+        t2 = time.perf_counter()
+        ports = group["ports"]
+        modes = {key: _gen_mode(ports[f"gen16_{key}"], sources, key)
+                 for key in ("continuous", "convoy")}
+        port = ports["gen16_standdown"]
+        status, body = _http(port, "POST", "/v1/generate",
+                             {"sample": sources[0]})
+        standdown_chunks = _metrics(port)["decode_chunks_total"]
+        qgen = _gen_mode(ports["qgen16"], qsources, "qgen16")
+        tiers = {dt: _score_tier(ports[f"score16_{dt}"], rows, dt)
+                 for dt in QUANT_TIERS}
+        t3 = time.perf_counter()
+    exits, ready_s = group["exits"], group["ready_s"]
+    t4 = time.perf_counter()
+    # (a) the stand-down: two length buckets, convoy served
+    if "continuous batching stood down" not in _log(tmp, "gen16_standdown"):
+        raise AssertionError("two length buckets: no stand-down in the log")
+    if status != 200 or standdown_chunks != 0:
+        raise AssertionError(f"the stood-down server answered {status} "
+                             f"with {standdown_chunks} session chunks")
+    cb = _continuous_holds(modes, sources, gen_model, gen_feeding,
+                           refs["a"], device)
+    # (b) the tiers, and the drifted file never ready
+    scoring = _scoring_holds(tiers, files, rows, peak_rows, feeding, device)
+    log = _log(tmp, "drifted16")
+    if exits["drifted16"] == 0 or "quant_gate" not in log:
+        raise AssertionError(f"the drifted int8 file: exit "
+                             f"{exits['drifted16']}, log {log[-2000:]}")
+    # (c) int8 generation: the gate stands down by name
+    gate = qgen["quant"]["gate"]
+    if not (qgen["quant"]["dtype"] == "int8" and gate["checked"] is False
+            and "generation-only" in gate["reason"]
+            and qgen["model_version"].endswith("+int8")
+            and "STOOD DOWN" in _log(tmp, "qgen16")):
+        raise AssertionError(f"int8 generate: /healthz {qgen['quant']}")
+    if device == "cuda":
+        _check_session_launches("int8 continuous batching", qgen)
+    worst, partings = _hold_beams(qgen["answers"], qsources, qgen_model,
+                                  gen_feeding, refs["c"], device,
+                                  "int8 generate")
+    qgen_row = dict({k: v for k, v in qgen.items() if k != "answers"},
+                    answer_lengths=[[len(b["tokens"]) for b in a]
+                                    for a in qgen["answers"]],
+                    max_rel_score_err_vs_cpu=worst, tie_flips=len(partings),
+                    partings=partings)
+    mode_rows = (modes["continuous"], modes["convoy"], qgen)
+    launches = {
+        "lstm_seq": sum(t["lstm_seq"]["launches"] for t in tiers.values()),
+        "gru_seq": sum(m["kernels"]["gru_seq"]["launches"]
+                       for m in mode_rows),
+        "gru_cell_infer": sum(m["kernels"]["gru_cell_infer"]["launches"]
+                              for m in mode_rows)}
+    row = dict(continuous_batching=cb, quantized_scoring=dict(
+                   rows=len(rows), tiers=scoring,
+                   drifted=dict(corruption=corruption,
+                                exit=exits["drifted16"],
+                                refused="quant_gate")),
+               quantized_generation=qgen_row, launches=launches,
+               ready_s=ready_s, server_exits=exits,
+               cpu_reference_s=refs["seconds"],
+               standdown=dict(status=status, session_chunks=standdown_chunks),
+               seconds=dict(files=t1 - t0, start_and_cpu=t2 - t1,
+                            served=t3 - t2, stop=t4 - t3,
+                            holds=time.perf_counter() - t4))
+    phase("serving_tier", **row)
+    return row
+
+
+def serving():
+    """``--serving``: phase 16 alone (one training pass of the classifier
+    and of seq2seq for its files); its row in ``serving.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["lstm_seq", "gru_seq", "gru_cell", "opt_update"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        conf = os.path.join(tmp, "train_conf.py")
+        _write_config(conf, "optimizer = Adam(learning_rate=2e-3)")
+        save_dir = os.path.join(tmp, "ckpt")
+        _train_run(conf, 1, save_dir)
+        model = os.path.join(tmp, "lstm_text_h1280.ptmodel")
+        _cli_inproc(["--config", conf, "--job", "merge", "--save_dir",
+                     save_dir, "--model_path", model])
+        s2s_conf = os.path.join(tmp, "s2s_conf.py")
+        _write_s2s_config(s2s_conf, S2S)
+        s2s_dir = os.path.join(tmp, "s2s_ckpt")
+        _train_run(s2s_conf, 1, s2s_dir, batches=S2S_BATCHES)
+        row = serving_tier(tmp, s2s_dir, conf, save_dir, model)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "serving.json"), "w") as f:
+        json.dump(row, f, indent=1)
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -8225,6 +8838,11 @@ def main() -> int:
                         help="only phase 15, the last layer types (the "
                         "nested GRU text model, word2vec with hsigmoid and "
                         "nce, SSD300's head, the VAE, moe)")
+    parser.add_argument("--serving", action="store_true",
+                        help="only phase 16, the serving tier (continuous "
+                        "batching against convoy, the bf16 and int8 tiers "
+                        "with their gate, int8 generation), after one "
+                        "training pass of the classifier and of seq2seq")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -8265,6 +8883,9 @@ def main() -> int:
         return 0
     if args.last_types:
         last_types()
+        return 0
+    if args.serving:
+        serving()
         return 0
     seconds = {}  # each phase's wall time
 
@@ -8314,6 +8935,9 @@ def main() -> int:
         layers_row = timed("layers", check_layers, tmp,
                            _ds2r_ctc_row(ctc_rows))
         last_row = timed("last_types", check_last_types)
+        # phase 16: the serving tier on phase 8's and phase 10's files
+        serve_row = timed("serving_tier", serving_tier, tmp, s2s_dir, conf,
+                          os.path.join(tmp, "ckpt"), model)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     main_row = serve_rows[-1]  # the largest shape the serving path runs
@@ -8340,6 +8964,7 @@ def main() -> int:
     ds2r_counts = layers_row["ds2_release"]["kernels"]
     _check_last_launches(last_row)
     last = last_row["launches"]
+    tier = serve_row["launches"]
     ds2r_ctc = layers_row["ctc_shape"]
     ctc_lib = ", ".join(ctc_row["library_kernels"])
     lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
@@ -8379,13 +9004,15 @@ def main() -> int:
     tag_t_row = tag_lstm_rows["train"]
     entries = [
         dict(_entry("lstm_seq", lstm_src, "paddle_tpu/ops/lstm.py:174",
-                    served["launches"],
+                    served["launches"] + tier["lstm_seq"],
                     max(r["max_abs_err"] for r in rows + serve_rows),
                     main_row),
              shape={k: main_row[k] for k in ("B", "H", "T")},
              **_lstm_route_keys(main_row, ""),
              training_launches=training_row["launches"]["lstm_seq"],
-             path="lstm_text_classifier serve"),
+             serving_tier_launches=tier["lstm_seq"],
+             path="lstm_text_classifier serve; its fp32, bf16 and int8 "
+                  "tiers (phase 16b)"),
         dict(_entry("lstm_seq_train", lstm_src, "paddle_tpu/ops/lstm.py:174",
                     counts["lstm_seq_train"]["launches"],
                     max(r["fwd_max_abs_err"] for r in train_rows), t_row,
@@ -8442,9 +9069,13 @@ def main() -> int:
              path="none: the per-step route's backward (H above the route "
                   "line); timed here at the tagger's shape"),
         dict(_entry("gru_seq", gru_src, "paddle_tpu/ops/gru.py:57",
-                    s2s_test["gru_seq"]["launches"], gru_fwd_err, g_row),
+                    s2s_test["gru_seq"]["launches"] + tier["gru_seq"],
+                    gru_fwd_err, g_row),
              shape={k: g_row[k] for k in ("B", "H", "T")},
-             two_launch_ms=g_row["two_launch_ms"], kernel_route="persistent"),
+             two_launch_ms=g_row["two_launch_ms"], kernel_route="persistent",
+             serving_tier_launches=tier["gru_seq"],
+             path="seq2seq_attention test; the encoder at each admission "
+                  "and convoy batch (phase 16a, c)"),
         dict(_entry("gru_seq_train", gru_src, "paddle_tpu/ops/gru.py:57",
                     s2s_counts["gru_seq_train"]["launches"], gru_fwd_err,
                     g_row, "train_"),
@@ -8483,10 +9114,13 @@ def main() -> int:
         dict(_entry("gru_cell_infer", gru_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:171",
                     s2s_test["gru_cell_infer"]["launches"]
-                    + gen_served["launches"], cell_err, gen_row),
+                    + gen_served["launches"] + tier["gru_cell_infer"],
+                    cell_err, gen_row),
              shape={"B": gen_row["B"], "H": gen_row["H"]},
              **_cell_route_keys(gen_row),
-             path="seq2seq_attention test and /v1/generate"),
+             serving_tier_launches=tier["gru_cell_infer"],
+             path="seq2seq_attention test and /v1/generate; a decode "
+                  "session's step over its 32 rows (phase 16a, c)"),
         dict(_entry("lstm_cell", lstm_cell_src,
                     "paddle_tpu/kernels/rnn_cells.py:78",
                     lstm_dec["kernels"]["lstm_cell"]["launches"], lc_err,
@@ -8765,6 +9399,9 @@ def main() -> int:
         if "training_launches" in e and e["training_launches"] <= 0:
             raise AssertionError(f"the rest of training never launched "
                                  f"{e['name']}")
+        if "serving_tier_launches" in e and e["serving_tier_launches"] <= 0:
+            raise AssertionError(f"the serving tier never launched "
+                                 f"{e['name']}")
         if e.get("on_path", True) and e["launches"] <= 0:
             raise AssertionError(f"the main path never launched {e['name']}")
         if not e.get("on_path", True) and e["launches"] != 0:
@@ -8795,6 +9432,7 @@ def main() -> int:
                    "tagger": tagger, "tagger_serve": tag_served,
                    "acoustic": acoustic, "training": training_row,
                    "layers": layers_row, "last_types": last_row,
+                   "serving_tier": serve_row,
                    "elapsed_s": elapsed,
                    "phase_seconds": seconds,
                    **kernels},

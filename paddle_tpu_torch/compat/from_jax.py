@@ -39,16 +39,50 @@ def params_from_numpy(np_params: Dict[str, object], device="cuda",
     ``network`` (``core/network.py:Network``), every parameter it needs
     must be present with its spec's shape."""
     if network is not None:
-        missing = sorted(set(network.param_specs) - set(np_params))
-        if missing:
-            raise KeyError(f"parameters missing for this graph: {missing}")
-        for name, spec in network.param_specs.items():
-            shape = tuple(np.shape(np_params[name]))
-            if shape != tuple(spec.shape):
-                raise ValueError(f"parameter {name!r} has shape {shape}, "
-                                 f"the graph needs {tuple(spec.shape)}")
+        _check_params(np_params, network)
     return {name: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for name, v in np_params.items()}
+
+
+def _check_params(np_params, network):
+    """Every parameter ``network`` needs is present with its spec's
+    shape."""
+    missing = sorted(set(network.param_specs) - set(np_params))
+    if missing:
+        raise KeyError(f"parameters missing for this graph: {missing}")
+    for name, spec in network.param_specs.items():
+        shape = tuple(np.shape(np_params[name]))
+        if shape != tuple(spec.shape):
+            raise ValueError(f"parameter {name!r} has shape {shape}, "
+                             f"the graph needs {tuple(spec.shape)}")
+
+
+def quantized_params_from_numpy(np_params: Dict[str, object], quant: Dict,
+                                device="cuda", network=None
+                                ) -> Dict[str, torch.Tensor]:
+    """The params of a quantized merged model in their storage dtype on
+    ``device``: int8 leaves as ``torch.int8``, bf16 leaves (JAX's
+    ``ml_dtypes.bfloat16`` arrays or the port's uint16 bits) as
+    ``torch.bfloat16``, f32 stand-downs as f32, non-float leaves as they
+    are, and each int8 scale as an f32 tensor under ``name +
+    quant.SCALE_SUFFIX``. With a ``network``, the presence and shape
+    checks of :func:`params_from_numpy`."""
+    from paddle_tpu_torch import quant as quant_lib
+    if network is not None:
+        _check_params(np_params, network)
+    out = {}
+    for name, v in np_params.items():
+        bits = quant_lib.bf16_bits(v, quant)
+        if bits is not None:
+            t = quant_lib.bf16_from_bits(bits)
+        else:
+            a = np.asarray(v)
+            t = torch.from_numpy(np.array(a, dtype=np.float32)
+                                 if a.dtype.kind == "f" else np.array(a))
+        out[name] = t.to(device)
+    for key, s in quant_lib.scale_leaves(quant).items():
+        out[key] = torch.from_numpy(np.array(s, np.float32)).to(device)
+    return out
 
 
 def _tensor(v, device) -> torch.Tensor:

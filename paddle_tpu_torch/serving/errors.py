@@ -1,6 +1,6 @@
 """Typed serving errors — the wire contract for everything that is not a
 500. The port's copy of the part of ``paddle_tpu/serving/errors.py`` its
-score path raises; the codes and bodies are the same, so the JAX
+serving paths raise; the codes and bodies are the same, so the JAX
 package's ``ServingClient`` rebuilds them."""
 
 from __future__ import annotations
@@ -59,3 +59,28 @@ class ShuttingDown(Overloaded):
     still completes. 429."""
 
     code = "shutting_down"
+
+
+class QuantGateError(ServingError):
+    """A quantized artifact drifted past the warmup accuracy gate: the
+    golden-request replay's per-output delta against the recorded fp32
+    references exceeded the per-dtype tolerance. Raised at warmup; the
+    server never reports ready. 503, with the gate evidence in the wire
+    body's ``gate`` block."""
+
+    status = 503
+    code = "quant_gate"
+
+    def __init__(self, message: str, dtype: Optional[str] = None,
+                 deltas: Optional[dict] = None,
+                 tol: Optional[float] = None, **kw):
+        super().__init__(message, **kw)
+        self.dtype = dtype
+        self.deltas = deltas
+        self.tol = tol
+
+    def to_wire(self) -> dict:
+        body = super().to_wire()
+        body["error"]["gate"] = {"dtype": self.dtype, "tol": self.tol,
+                                 "deltas": self.deltas}
+        return body

@@ -17,24 +17,45 @@ by ``generate_rows``: the encoder network over the bucketed batch, then
 ``core/generation.py:SequenceGenerator`` (its step's GRU or LSTM cell
 launches its kernel on the card). Serving pins one (beam_size,
 max_length) pair, the config's unless the caller gives others; any other
-pair is a typed 400 that carries the menu (``allowed``).
+pair is a typed 400 that carries the menu (``allowed``). ``build_session``
+gives the continuous batcher a warmed ``DecodeSession``, or stands down
+(a warning and None) where lanes cannot hold the model's static inputs
+or the decode policy is the full scan.
+
+**Quantized tier.** A ``--quantize`` PTM1 file loads with its weights in
+their storage dtype on the device (int8 as ``torch.int8`` with f32
+scales, bf16 as ``torch.bfloat16``; ``compat/from_jax.py:
+quantized_params_from_numpy``), read by the score forward, the encoder
+and the beam search's step through ``quant.materialize``'s lazy view,
+which dequantizes a layer's leaves when the layer runs: no f32 copy of
+the whole model is resident. ``model_version`` carries ``+bf16`` /
+``+int8``. At the end of ``warmup`` the file's golden rows replay through
+the real bucketed path against their recorded fp32 outputs
+(``_run_quant_gate``): past the per-dtype tolerance the predictor raises
+``QuantGateError`` and never reports warmed; a generation-only config has
+no golden rows and the gate stands down with a named warning.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.compat.from_jax import params_from_numpy
+from paddle_tpu_torch import quant as quant_lib
+from paddle_tpu_torch.compat.from_jax import (params_from_numpy,
+                                              quantized_params_from_numpy)
 from paddle_tpu_torch.core.generation import (SequenceGenerator,
                                               generation_params)
 from paddle_tpu_torch.core.network import Network
 from paddle_tpu_torch.data import types as T
 from paddle_tpu_torch.data.feeder import DataFeeder
-from paddle_tpu_torch.serving.errors import BadRequest
+from paddle_tpu_torch.serving.errors import BadRequest, QuantGateError
+
+logger = logging.getLogger("paddle_tpu_torch.serving")
 
 
 def _is_seq(itype) -> bool:
@@ -47,9 +68,13 @@ def _synth_sample(itype, length: int):
     if itype.seq_type == T.NO_SEQUENCE:
         if itype.type == T.INDEX:
             return 0
+        if itype.type in (T.SPARSE_BINARY, T.SPARSE_FLOAT):
+            return []
         return np.zeros(itype.dim, dtype=np.float32)
     if itype.type == T.INDEX:
         return [0] * length
+    if itype.type in (T.SPARSE_BINARY, T.SPARSE_FLOAT):
+        return [[] for _ in range(length)]
     return [np.zeros(itype.dim, dtype=np.float32) for _ in range(length)]
 
 
@@ -64,12 +89,21 @@ class ServingPredictor:
                  length_buckets: Optional[Sequence[int]] = None,
                  model_hash: Optional[str] = None,
                  gen_decode_chunk: Optional[int] = None,
+                 gen_full_scan: Optional[bool] = None,
+                 quant: Optional[Dict[str, Any]] = None,
+                 golden: Optional[Dict[str, Any]] = None,
                  device="cuda"):
         self.device = torch.device(device)
         self.graph = graph
         self.model_hash = str(model_hash) if model_hash else None
         self.model_version = (self.model_hash[:12] if self.model_hash
                               else None)
+        # the precision tier: its dtype is part of the published version
+        self.quant = dict(quant) if quant else None
+        self.golden = golden
+        self.quant_gate: Optional[Dict[str, Any]] = None
+        if self.quant and self.model_version is not None:
+            self.model_version += "+" + str(self.quant["dtype"])
         self.feeding = dict(feeding)
         self.names = list(self.feeding)
         self.batch_buckets = sorted(int(b) for b in batch_buckets)
@@ -111,10 +145,16 @@ class ServingPredictor:
              if l.type == "beam_search_group"), None)
         score_outputs = [n for n in self.output_names
                          if n != self._gen_name]
+        self.score_outputs = score_outputs
         # every parameter the served paths read must be in the table
         needed = Network(graph, outputs=score_outputs + (
             [self._gen_name] if self._gen_name else []))
-        self.params = params_from_numpy(params, self.device, needed)
+        # a quantized model's params stay in their storage dtype; every
+        # forward reads them through the lazy view (_view)
+        self.params = (quantized_params_from_numpy(params, self.quant,
+                                                   self.device, needed)
+                       if self.quant
+                       else params_from_numpy(params, self.device, needed))
         self.network = (needed if self._gen_name is None
                         else Network(graph, outputs=score_outputs)
                         if score_outputs else None)
@@ -126,10 +166,19 @@ class ServingPredictor:
         if self._gen_name is not None:
             self.engine = SequenceGenerator(graph, self._gen_name)
             attrs = self.engine.cfg.attrs
+            if self.quant:
+                # the step reads its params through the view, one layer
+                # at a time
+                self.engine._param_view = self._view
             self.gen_beam_size = int(attrs.get("beam_size", 1))
             self.gen_max_length = int(attrs.get("max_length", 100))
-            # None = the config's pinned policy; the engine reads the rest
-            self.gen_decode_chunk = gen_decode_chunk
+            # None = the config's pinned policy; a chunk <= 0 is the full
+            # scan; the engine reads the rest
+            if gen_decode_chunk is not None and int(gen_decode_chunk) <= 0:
+                gen_full_scan, gen_decode_chunk = True, None
+            self.gen_full_scan = gen_full_scan
+            self.gen_decode_chunk = (int(gen_decode_chunk)
+                                     if gen_decode_chunk else None)
             self.encoder = Network(
                 graph, outputs=self.engine.static_input_layers())
         self.warmed = False
@@ -139,17 +188,26 @@ class ServingPredictor:
                     **kwargs) -> "ServingPredictor":
         """Build from a PTM1 merged model (either package's). ``feeding``
         comes from the config; the payload digest becomes the model
-        hash."""
+        hash. A quantized file's ``quant`` and ``golden`` sections pass
+        through: the storage-dtype load and the warmup gate."""
         from paddle_tpu_torch.trainer.merge_model import (load_merged_ex,
                                                           merged_digest)
         graph, params, outputs, extras = load_merged_ex(path)
-        if extras:
-            raise ValueError(
-                f"{path}: quantized merged models ({sorted(extras)} "
-                "sections) are not served by paddle_tpu_torch yet; merge "
-                "without --quantize")
         kwargs.setdefault("model_hash", merged_digest(path))
+        kwargs.setdefault("quant", extras.get("quant"))
+        kwargs.setdefault("golden", extras.get("golden"))
         return cls(graph, params, outputs, feeding, **kwargs)
+
+    def _view(self, params):
+        """The f32 view of a params table: the lazy dequantizing view
+        for a quantized model, the table itself otherwise."""
+        return quant_lib.materialize(params) if self.quant else params
+
+    def param_bytes(self) -> int:
+        """Bytes of the parameters resident on the device (storage
+        dtype, scales included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.params.values())
 
     # ------------------------------------------------------------- warmup
     def warmup(self, log=None) -> int:
@@ -171,6 +229,9 @@ class ServingPredictor:
                     # bucket: the search's shapes follow the batch
                     self.generate_rows([row] * b)
                     runs += 1
+        # a quantized model must pass the accuracy gate before it reports
+        # warmed: a drifted one raises here
+        self._run_quant_gate(log)
         self.warmed = True
         if log:
             log(f"serving warmup: {runs} bucket variants ready in "
@@ -178,6 +239,70 @@ class ServingPredictor:
                 f"(batch={self.batch_buckets}, "
                 f"length={self.length_buckets})")
         return runs
+
+    # ------------------------------------------------------- quant gate
+    def quant_health(self) -> Dict[str, Any]:
+        """The precision tier and the gate's verdict, as ``/healthz``
+        publishes them."""
+        return {"dtype": (self.quant["dtype"] if self.quant else "fp32"),
+                "gate": self.quant_gate}
+
+    def _run_quant_gate(self, log=None):
+        """Replay the file's golden rows through the real bucketed score
+        path and compare each output with its recorded fp32 reference.
+        Raises ``QuantGateError`` past the per-dtype tolerance and records
+        the verdict either way; without usable golden rows (a
+        generation-only config) the gate stands down with a named
+        warning."""
+        if not self.quant:
+            return
+        dtype = str(self.quant["dtype"])
+        tol = float(self.quant.get("tol", quant_lib.GATE_TOLERANCES[dtype]))
+        golden = self.golden
+        if self.network is None or not golden or not golden.get("rows"):
+            reason = ("no scoring outputs (generation-only config)"
+                      if self.network is None
+                      else "artifact carries no golden section")
+            self.quant_gate = {"checked": False, "dtype": dtype,
+                               "tol": tol, "reason": reason}
+            logger.warning(
+                "quantized model %s: warmup accuracy gate STOOD DOWN "
+                "(%s) — serving %s weights unverified",
+                self.model_version, reason, dtype)
+            return
+        rows = [tuple(r) for r in golden["rows"]]
+        refs = golden["outputs"]
+        bmax = self.batch_buckets[-1]
+        deltas: Dict[str, float] = {n: 0.0 for n in refs}
+        try:
+            for i in range(0, len(rows), bmax):
+                chunk = rows[i:i + bmax]
+                outs, _info = self.predict_rows(chunk)
+                for name, ref in refs.items():
+                    d = quant_lib.gate_delta(outs[name][:len(chunk)],
+                                             ref[i:i + len(chunk)])
+                    deltas[name] = max(deltas[name], d)
+        except BadRequest as e:
+            raise QuantGateError(
+                f"warmup accuracy gate could not replay the golden "
+                f"set through the serving menu: {e}", dtype=dtype,
+                deltas={}, tol=tol) from e
+        worst = max(deltas.values())
+        passed = worst <= tol
+        self.quant_gate = {"checked": True, "dtype": dtype, "tol": tol,
+                           "max_delta": worst, "passed": passed,
+                           "outputs": dict(deltas)}
+        if not passed:
+            raise QuantGateError(
+                f"quantized model {self.model_version} drifted past "
+                f"the warmup accuracy gate: max output delta "
+                f"{worst:.4g} > tolerance {tol:g} for {dtype} "
+                f"(per-output: {deltas}) — refusing to go READY",
+                dtype=dtype, deltas=deltas, tol=tol)
+        if log:
+            log(f"quant gate PASSED ({dtype}): max output delta "
+                f"{worst:.4g} <= tol {tol:g} over "
+                f"{len(rows)} golden rows")
 
     # --------------------------------------------------------- admission
     def check_sample(self, sample):
@@ -247,15 +372,26 @@ class ServingPredictor:
         key, padded = self._bucket_key(feed)
         t1 = time.perf_counter()
         with torch.inference_mode():
-            outs = self.network.apply(self.params, feed, train=False)
+            outs = self.network.apply(self._view(self.params), feed,
+                                      train=False)
             out = {n: outs[n].value.cpu().numpy()
-                   for n in self.output_names}  # waits for the device
+                   for n in self.score_outputs}  # waits for the device
         t2 = time.perf_counter()
         return out, {"bucket": key, "padded_rows": padded,
                      "pad_ms": (t1 - t0) * 1e3,
                      "compute_ms": (t2 - t1) * 1e3}
 
     # --------------------------------------------------------- generation
+    def gen_effective_full_scan(self) -> bool:
+        """The decode policy in force: the constructor's (the CLI's)
+        override when given (a positive chunk asks for chunked decode),
+        else the config's pinned ``full_scan``."""
+        if self.gen_full_scan is not None:
+            return bool(self.gen_full_scan)
+        if self.gen_decode_chunk:
+            return False
+        return bool(self.engine.cfg.attrs.get("full_scan", False))
+
     def gen_allowed_menu(self) -> dict:
         """The warmed generation options, carried in closed-menu 400s so
         clients can correct themselves."""
@@ -287,7 +423,8 @@ class ServingPredictor:
             raise BadRequest("this model has no generation group")
         feed = self.feeder(list(rows))
         with torch.inference_mode():
-            return self.encoder.apply(self.params, feed, train=False)
+            return self.encoder.apply(self._view(self.params), feed,
+                                      train=False)
 
     def generate_rows(self, rows: List[tuple]):
         """Beam-search a bucketed batch of encoder inputs. Returns
@@ -302,11 +439,13 @@ class ServingPredictor:
         key, padded = self._bucket_key(feed)
         t1 = time.perf_counter()
         with torch.inference_mode():
-            outer = self.encoder.apply(self.params, feed, train=False)
+            outer = self.encoder.apply(self._view(self.params), feed,
+                                       train=False)
             out = self.engine.generate(
                 self.params, outer, beam_size=self.gen_beam_size,
                 max_length=self.gen_max_length,
-                decode_chunk=self.gen_decode_chunk)
+                decode_chunk=self.gen_decode_chunk,
+                full_scan=self.gen_full_scan)
             tokens, scores, lengths = (t.cpu().numpy() for t in out)
         t2 = time.perf_counter()
         info = self.engine.last_info
@@ -317,3 +456,59 @@ class ServingPredictor:
             "compute_ms": (t2 - t1) * 1e3,
             "decode_steps": info.get("decode_steps"),
             "steps_saved": info.get("steps_saved")}
+
+    def build_session(self, width: int):
+        """A warmed continuous-batching ``DecodeSession`` of ``width``
+        lanes: it admits one synthetic request, runs one chunk, polls,
+        peeks and releases it. The engine calls this from ``start()``
+        when ``continuous_batching`` is on.
+
+        Returns None, with a warning (the engine then serves convoy
+        batching), when the model's static or boot inputs change shape
+        across the length buckets (a sequence-valued static input, such
+        as seq2seq's encoded source, pads to its request's bucket, but a
+        session's lanes have one shape), or when the decode policy is the
+        full scan (no chunk boundaries to admit and retire at)."""
+        if self.engine is None:
+            raise BadRequest("this model has no generation group")
+        outers, shapes = [], set()
+        for warm_len in (self.length_buckets or [1]):
+            row = tuple(_synth_sample(self.feeding[n], warm_len)
+                        for n in self.names)
+            outer = self.encode_rows([row])
+            feed = self.engine.static_feed_from_outer(outer, row=0)
+            shapes.add(tuple(sorted(
+                (b, tuple(a.value.shape[1:]),
+                 None if a.mask is None else tuple(a.mask.shape[1:]))
+                for b, a in feed.items())))
+            outers.append(outer)
+        if len(shapes) > 1:
+            logger.warning(
+                "continuous batching stood down: this model's "
+                "static/boot generation inputs change shape across the "
+                "%d warmed length buckets (a sequence-valued "
+                "StaticInput pads per bucket), but a decode session's "
+                "lane buffers have one fixed shape. Serving falls back "
+                "to convoy batching; use a single "
+                "--serving_length_buckets entry to enable continuous "
+                "batching for this model.", len(self.length_buckets))
+            return None
+        if self.gen_effective_full_scan():
+            logger.warning(
+                "continuous batching stood down: the decode policy is "
+                "full_scan (--decode_chunk 0, or pinned in the config) "
+                "and a full-length scan has no chunk boundaries to "
+                "admit/retire at. Serving falls back to convoy "
+                "batching; drop the full-scan override to enable "
+                "continuous batching.")
+            return None
+        sess = self.engine.session(
+            self.params, width, beam_size=self.gen_beam_size,
+            max_length=self.gen_max_length,
+            decode_chunk=self.gen_decode_chunk)
+        sess.admit(0, outers[0], row=0)
+        sess.run_chunk()
+        sess.poll()
+        sess.peek(0)
+        sess.release(0)
+        return sess

@@ -13,7 +13,12 @@ same wire:
   each answer is ``{"sequences": [{"tokens": [...], "score": s}, ...]}``,
   the beams best first.
 - ``GET /healthz`` — readiness: 200 only when warmed, not draining and the
-  worker alive; the body is ``ServingEngine.health()``.
+  worker alive; the body is ``ServingEngine.health()`` (with the precision
+  tier's ``quant`` block and the kernel launch counts).
+- ``GET /livez`` — liveness: 200 while the worker has not died, draining
+  and warming included.
+- ``GET /metrics`` — the engine's metrics as Prometheus text;
+  ``/metrics?format=json`` for the JSON snapshot.
 - ``POST /admin/drain`` — admission closes, queued and in-flight work
   completes, the process stays up.
 
@@ -42,6 +47,11 @@ logger = logging.getLogger("paddle_tpu_torch.serving.http")
 class ServingHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
+    # the listen backlog: socketserver's default of 5 drops the SYNs of a
+    # burst of connections while the worker holds the interpreter (a
+    # dropped SYN is retried after a second), so it matches the engine's
+    # default queue bound
+    request_queue_size = 128
 
     def __init__(self, addr, engine: ServingEngine):
         super().__init__(addr, _Handler)
@@ -54,11 +64,11 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         logger.debug("%s " + fmt, self.address_string(), *args)
 
-    def _send(self, status: int, body: dict,
-              retry_after_ms: Optional[float] = None):
-        data = json.dumps(body).encode()
+    def _send(self, status: int, body, retry_after_ms: Optional[float] = None,
+              content_type: str = "application/json"):
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         if retry_after_ms is not None:
             self.send_header("Retry-After",
@@ -86,9 +96,19 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         engine = self.server.engine
-        if self.path.split("?", 1)[0] == "/healthz":
+        path = self.path.split("?", 1)[0]
+        if path == "/healthz":
             h = engine.health()
             self._send(200 if h["ready"] else 503, h)
+        elif path == "/livez":
+            h = engine.health()
+            self._send(200 if h["live"] else 503, h)
+        elif path == "/metrics":
+            if "format=json" in self.path:
+                self._send(200, engine.metrics.snapshot())
+            else:
+                self._send(200, engine.metrics.to_prometheus().encode(),
+                           content_type="text/plain; version=0.0.4")
         else:
             self._not_found()
 

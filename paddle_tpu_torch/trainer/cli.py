@@ -1,8 +1,8 @@
 """Command line of the port: ``--job train|test|time|checkgrad|merge|
 serve``, the counterpart of ``paddle_tpu/trainer/cli.py`` (``cmd_train``,
 ``cmd_test``, ``cmd_time``, ``cmd_checkgrad``, ``cmd_merge``,
-``_serving_plan`` / ``cmd_serve``) without the parallel, health, bf16 and
-quantize flags.
+``_serving_plan`` / ``cmd_serve``) without the parallel, health, fleet
+and bf16-compute flags.
 
     python -m paddle_tpu_torch.trainer.cli --config conf.py --job train \\
         --save_dir ckpt --num_passes 3 [--device cuda]
@@ -11,6 +11,13 @@ quantize flags.
     python -m paddle_tpu_torch.trainer.cli --config conf.py --job serve \\
         --init_model_path m.ptmodel --max_batch 64 \\
         --serving_length_buckets 32,64,128 --port 8000
+
+``--job merge --quantize bf16|int8`` writes a quantized PTM1 file
+(``quant.py``: the golden rows and their fp32 outputs first, then the
+weights in their storage dtype; ``--quantize_tol`` overrides the gate's
+tolerance); ``--job serve`` of it keeps the weights in their storage dtype
+on the device and refuses to become ready past the gate. Training, test
+and merge refuse a quantized file as their start.
 
 The config is a Python file that builds its graph with
 ``paddle_tpu_torch.config.dsl`` and names, as module variables, ``cost``,
@@ -26,7 +33,11 @@ network's and the generated word's embedding, read from a training
 checkpoint under the names the training graph gave them), and ``--job
 serve`` answers ``POST /v1/generate`` with the config's (beam_size,
 max_length); ``--decode_chunk`` sets the early-exit chunk (0 = the full
-length-``max_length`` loop). Generation parameters missing from the table
+length-``max_length`` loop); ``--serving_continuous_batching`` admits and
+retires requests at chunk boundaries (``DecodeSession``), standing down to
+convoy batching, with a warning, for a full-scan policy or a model whose
+static inputs change shape across the length buckets (seq2seq's encoded
+source: give one bucket). Generation parameters missing from the table
 (a fresh initialisation) are filled with small random values and a
 warning, as the JAX package does.
 
@@ -165,6 +176,21 @@ def parse_args(argv=None):
                         "chunk boundary where every beam finished. 0 = the "
                         "full length-max_length loop; unset = the config's "
                         "pinned policy, else chunks of 8")
+    p.add_argument("--serving_continuous_batching", action="store_true",
+                   help="--job=serve: continuous batching for generate: a "
+                        "fixed-width decode session admits queued requests "
+                        "and retires finished ones at every --decode_chunk "
+                        "boundary, so one slow request no longer holds its "
+                        "batch")
+    p.add_argument("--quantize", default=None, choices=["bf16", "int8"],
+                   help="--job=merge: quantize the weights into the PTM1 "
+                        "file (bf16 storage cast, or int8 per-tensor with "
+                        "row-wise scales for sparse tables) with the golden "
+                        "rows of the warmup accuracy gate")
+    p.add_argument("--quantize_tol", type=float, default=None,
+                   help="--job=merge --quantize: the gate's tolerance "
+                        "recorded in the file (default per dtype: bf16 "
+                        "2e-2, int8 1e-1)")
     return p.parse_args(argv)
 
 
@@ -201,9 +227,13 @@ def _serving_plan(ns, args):
         batch_buckets.append(min(batch_buckets[-1] * 2, max_batch))
     length_buckets = [int(x) for x in filter(
         None, str(args.serving_length_buckets).split(","))]
+    # None = the config's pinned decode policy; <= 0 = the full scan
+    decode_chunk = args.decode_chunk
     pred_kwargs = dict(
         batch_buckets=batch_buckets, length_buckets=length_buckets,
-        gen_decode_chunk=args.decode_chunk, device=args.device)
+        gen_decode_chunk=decode_chunk,
+        gen_full_scan=(None if decode_chunk is None
+                       else decode_chunk <= 0), device=args.device)
     mp = args.init_model_path
     if mp:
         if not mp.endswith(".ptmodel"):
@@ -212,10 +242,11 @@ def _serving_plan(ns, args):
         from paddle_tpu_torch.trainer.merge_model import (load_merged_ex,
                                                           merged_digest)
         _, params, _, extras = load_merged_ex(mp)
-        if extras:
-            raise SystemExit(f"{mp}: quantized merged models are not "
-                             "served by paddle_tpu_torch yet")
         pred_kwargs["model_hash"] = merged_digest(mp)
+        # a quantized file's sections reach the predictor: the storage-
+        # dtype load and the warmup gate
+        pred_kwargs["quant"] = extras.get("quant")
+        pred_kwargs["golden"] = extras.get("golden")
     else:
         from paddle_tpu_torch.core.network import Network
         gen = torch.Generator().manual_seed(args.seed)
@@ -225,7 +256,8 @@ def _serving_plan(ns, args):
     eng_kwargs = dict(max_batch=max_batch,
                       batch_timeout_ms=args.batch_timeout_ms,
                       queue_depth=args.queue_depth,
-                      default_deadline_ms=args.serving_deadline_ms or None)
+                      default_deadline_ms=args.serving_deadline_ms or None,
+                      continuous_batching=args.serving_continuous_batching)
     return graph, params, names, feeding, pred_kwargs, eng_kwargs
 
 
@@ -322,8 +354,13 @@ def _load_into(trainer, path):
         from paddle_tpu_torch.trainer.merge_model import load_merged_ex
         _, params, _, extras = load_merged_ex(path)
         if extras:
-            raise SystemExit(f"{path}: quantized merged models are not "
-                             "read by paddle_tpu_torch yet")
+            # the JAX package's training load reads such a file through
+            # the section-ignoring load_merged and would start from raw
+            # storage-dtype leaves; the port refuses instead
+            raise SystemExit(f"{path}: a quantized merged model holds "
+                             "storage-dtype weights; train, test and merge "
+                             "start from an fp32 model or checkpoint (serve "
+                             "it with --job serve)")
         state = (params,)
     else:
         from paddle_tpu_torch.trainer.checkpoint import load_params
@@ -577,10 +614,34 @@ def cmd_merge(ns, args) -> int:
     trainer = _build_trainer(ns, args)
     _restore(trainer, args)
     out_path = args.model_path or "model.ptmodel"
-    _ensure_generation_params(trainer.topology.graph, trainer.params)
-    merge_model(out_path, trainer.topology.graph, trainer.params,
-                outputs=_output_names(ns))
-    print(f"merged model written to {out_path}", flush=True)
+    graph, names = trainer.topology.graph, _output_names(ns)
+    _ensure_generation_params(graph, trainer.params)
+    params = trainer.params
+    quant_meta = golden = None
+    if args.quantize:
+        from paddle_tpu_torch import quant as quant_lib
+        feeding = ns.get("feeding")
+        if not isinstance(feeding, dict):
+            feeding = getattr(feeding, "feeding", None)
+        if not isinstance(feeding, dict):
+            raise SystemExit(
+                "--quantize needs the config to define `feeding` "
+                "(data-layer name -> InputType) so the golden "
+                "warmup-gate set can be recorded with the artifact")
+        params = {k: v.detach().cpu().numpy() for k, v in params.items()}
+        # the golden references come from the unquantized params: the
+        # fp32 side of the warmup gate
+        golden = quant_lib.golden_section(graph, params, names, feeding)
+        sparse = {name for name, spec in trainer.meta.items()
+                  if spec.sparse_grad}
+        params, quant_meta = quant_lib.quantize_params(
+            params, args.quantize, sparse_names=sparse)
+        if args.quantize_tol is not None:
+            quant_meta["tol"] = float(args.quantize_tol)
+    merge_model(out_path, graph, params, outputs=names, quant=quant_meta,
+                golden=golden)
+    tag = f" ({args.quantize} quantized)" if args.quantize else ""
+    print(f"merged model written to {out_path}{tag}", flush=True)
     return 0
 
 
@@ -594,9 +655,15 @@ def build_serving_engine(ns, args):
 
 
 def cmd_serve(ns, args) -> int:
-    from paddle_tpu_torch.serving import serve_forever
-    return serve_forever(build_serving_engine(ns, args), host=args.host,
-                         port=args.port)
+    from paddle_tpu_torch.serving import QuantGateError, serve_forever
+    try:
+        return serve_forever(build_serving_engine(ns, args), host=args.host,
+                             port=args.port)
+    except QuantGateError as e:
+        # a quantized model that fails its warmup gate never serves
+        logging.getLogger("paddle_tpu_torch.cli").error(
+            "serving refused: %s", json.dumps(e.to_wire()))
+        return 1
 
 
 def main(argv=None) -> int:

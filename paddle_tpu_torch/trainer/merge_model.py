@@ -5,7 +5,14 @@ port.
 Format: ``b"PTM1" + md5(payload)[16 bytes] + pickle(payload)`` where
 payload = {"graph": ModelDef, "params": {name: np.ndarray},
 "outputs": [names]}, plus the optional ``"quant"`` and ``"golden"``
-sections of a quantized merge.
+sections of a quantized merge (``paddle_tpu_torch/quant.py``), written
+only when given, so an unquantized payload is the plain format.
+
+A bf16 leaf the port writes is a ``uint16`` array of its bits, marked by
+``"bf16_storage": "uint16"`` in the ``quant`` section, so the file needs
+no ``ml_dtypes`` to load. A bf16 file the JAX package wrote pickles
+``ml_dtypes.bfloat16`` arrays: it loads where ``ml_dtypes`` is
+importable and raises :class:`Bfloat16Unavailable` where it is not.
 
 A PTM1 file written by the JAX package pickles
 ``paddle_tpu.config.model_config.ModelDef``. Loading goes through an
@@ -37,8 +44,23 @@ _MODULE_MAP = {
 }
 
 
+class Bfloat16Unavailable(IOError):
+    """A merged model holds ``ml_dtypes.bfloat16`` arrays (a bf16 merge
+    written by the JAX package) and ``ml_dtypes`` is not installed."""
+
+
 class _PortUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
+        if module == "ml_dtypes" or module.startswith("ml_dtypes."):
+            try:
+                return super().find_class(module, name)
+            except ImportError as e:
+                raise Bfloat16Unavailable(
+                    f"merged model stores {module}.{name} arrays (a bf16 "
+                    "merge written by the JAX package), and ml_dtypes is "
+                    "not installed: install it, or re-merge with "
+                    "paddle_tpu_torch, which stores bf16 leaves as uint16 "
+                    "bits") from e
         if module in _MODULE_MAP:
             module = _MODULE_MAP[module]
         elif module == "paddle_tpu" or module.startswith("paddle_tpu."):
@@ -50,8 +72,12 @@ class _PortUnpickler(pickle.Unpickler):
 
 
 def merge_model(path: str, graph, params: Dict[str, object],
-                outputs: Optional[List[str]] = None):
-    """Write a PTM1 file; tensors are stored as numpy arrays."""
+                outputs: Optional[List[str]] = None,
+                quant: Optional[Dict] = None,
+                golden: Optional[Dict] = None):
+    """Write a PTM1 file; tensors are stored as numpy arrays. ``quant``
+    and ``golden`` (``quant.py:quantize_params`` and ``golden_section``)
+    are written only when given."""
     data = {
         "graph": graph,
         "params": {k: (v.detach().cpu().numpy()
@@ -59,6 +85,10 @@ def merge_model(path: str, graph, params: Dict[str, object],
                    for k, v in params.items()},
         "outputs": list(outputs or graph.output_layer_names or []),
     }
+    if quant is not None:
+        data["quant"] = quant
+    if golden is not None:
+        data["golden"] = golden
     payload = pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL)
     with open(path, "wb") as f:
         f.write(_MAGIC + hashlib.md5(payload).digest() + payload)

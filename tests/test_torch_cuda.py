@@ -12,8 +12,10 @@ the flash-attention forward and backward kernels (the split-row path
 above D = 1024 too), the CTC alpha and beta chains in both operand forms
 (the wide chains above 16,384 states in both) and the fused posterior pass
 (the sorted pass at 60,000 classes too)) against their plain PyTorch versions,
-on the card; and the image layers and ResNet-50's three ways, card
-against CPU (cuDNN's convolutions with TF32 off). Every test here is marked
+on the card; the image layers and ResNet-50's three ways, card
+against CPU (cuDNN's convolutions with TF32 off); a continuous-batching
+decode session and a bf16 / int8 predictor on the card, against their CPU
+runs, launching the GRU cell and the LSTM kernels. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
@@ -2078,3 +2080,115 @@ def test_nested_feed_and_sub_nested_seq_on_card(cuda_device):
     card = net.apply({}, {k: a.to(cuda_device) for k, a in feed.items()})["s"]
     assert torch.equal(card.value.cpu(), cpu.value)
     assert torch.equal(card.mask.cpu(), cpu.mask)
+
+
+def _session_decoder(H=96, V=40, E=16):
+    """A GRU-step decoder booted from a dense source: its step's cell is
+    on the cluster route at H = 96."""
+    from paddle_tpu_torch.config import dsl
+    dsl.reset()
+    src = dsl.data("src", size=H)
+    boot = dsl.fc(src, size=H, act="tanh", name="boot", bias_attr=False)
+
+    def step(prev_emb):
+        m = dsl.memory(name="g", size=H, boot_layer=boot)
+        x = dsl.fc(prev_emb, size=3 * H, act="linear", name="xg",
+                   bias_attr=False)
+        g = dsl.gru_step_layer(x, m, name="g")
+        return dsl.fc(g, size=V, act="softmax", name="prob",
+                      bias_attr=False)
+
+    dsl.beam_search(
+        step, [dsl.GeneratedInput(size=V, embedding_name="gen_emb",
+                                  embedding_size=E)],
+        bos_id=0, eos_id=1, beam_size=3, max_length=12, name="gen")
+    return dsl.current_graph()
+
+
+@pytest.mark.cuda
+def test_decode_session_on_card_launches_the_gru_cell(cuda_device):
+    """A DecodeSession on the card: each step of a chunk launches
+    ``gru_cell_infer`` once over all W*K rows (no plain fallback), and
+    its lanes give the CPU session's tokens, lengths and steps (scores
+    within 1e-4)."""
+    from paddle_tpu_torch.core.argument import Argument
+    from paddle_tpu_torch.core.generation import SequenceGenerator
+    from paddle_tpu_torch.core.network import Network
+    graph = _session_decoder()
+    gen = torch.Generator().manual_seed(0)
+    params = Network(graph, outputs=["gen"]).init_params(gen, device="cpu")
+    params["gen_emb"] = torch.randn(40, 16, generator=gen)
+    src = torch.randn(4, 96, generator=gen)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        outer = Network(graph, outputs=["boot"]).apply(
+            p, {"src": Argument(src.to(dev))})
+        sess = SequenceGenerator(graph, "gen").session(p, 3,
+                                                       decode_chunk=4)
+        for lane in range(3):
+            sess.admit(lane, outer, row=lane)
+        before = rnn_cells.gru_cell_infer.launches
+        sess.run_chunk()
+        sess.release(1)
+        sess.admit(1, outer, row=3)
+        sess.run_chunk()
+        sess.run_chunk()
+        sess.run_chunk()
+        runs[str(dev)] = ([sess.peek(lane) for lane in range(3)],
+                          rnn_cells.gru_cell_infer.launches - before)
+    (cpu, cpu_launches), (card, launches) = runs["cpu"], runs["cuda"]
+    assert cpu_launches == 0 and launches == 16
+    for (t1, s1, l1, n1), (t2, s2, l2, n2) in zip(card, cpu):
+        assert np.array_equal(t1, t2) and np.array_equal(l1, l2)
+        assert n1 == n2
+        np.testing.assert_allclose(s1, s2, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_quantized_predictor_on_card(cuda_device, tmp_path, dtype):
+    """A quantized LSTM classifier served on the card: the weights stay
+    in their storage dtype there, the gate passes, each forward launches
+    the LSTM kernel (no plain fallback), and the scores are the CPU
+    predictor's on the same file within 1e-5."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.data import types
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.serving import ServingPredictor
+    from paddle_tpu_torch.trainer.merge_model import merge_model
+    dsl.reset()
+    _, out, _ = lstm_text_classifier(vocab_size=200, embed_dim=16,
+                                     hidden=64)
+    graph = dsl.current_graph()
+    params = {k: v.numpy() for k, v in Network(
+        graph, outputs=[out.name]).init_params(
+            torch.Generator().manual_seed(2), device="cpu").items()}
+    feeding = {"words": types.integer_value_sequence(200),
+               "label": types.integer_value(2)}
+    golden = quant.golden_section(graph, params, [out.name], feeding)
+    qparams, meta = quant.quantize_params(params, dtype)
+    path = str(tmp_path / f"m.{dtype}.ptmodel")
+    merge_model(path, graph, qparams, outputs=[out.name], quant=meta,
+                golden=golden)
+    rng = np.random.default_rng(5)
+    rows = [(rng.integers(0, 200, size=int(n)).tolist(), 0)
+            for n in rng.integers(1, 33, size=6)]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        pred = ServingPredictor.from_merged(
+            path, feeding, batch_buckets=[1, 8], length_buckets=[32],
+            device=dev)
+        pred.warmup()
+        assert pred.quant_gate["passed"] is True
+        before = tlstm.lstm_seq.launches
+        got[dev] = pred.predict_rows(rows)[0]["output"]
+        if dev == "cuda":
+            assert tlstm.lstm_seq.launches - before == 2
+            want = {"bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+            w = pred.params[f"_{out.name}.w0"]
+            assert w.dtype == want and w.is_cuda
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-5,
+                               atol=1e-5)

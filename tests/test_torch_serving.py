@@ -120,21 +120,48 @@ def test_port_refuses_unmapped_jax_classes(tmp_path):
         load_merged_ex(str(path))
 
 
-def test_port_refuses_quantized_ptm1(tmp_path):
-    """Quantized merges (quant/golden sections) are not served yet: a
-    clear error, never raw storage-dtype weights."""
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_port_serves_jax_quantized_ptm1_like_jax(dtype, tmp_path):
+    """A quantized merge written by the JAX package (its quant and golden
+    sections) is served by the port with its weights in their storage
+    dtype: JAX's predictions within 1e-5, JAX's gate verdict with
+    ``max_delta`` within 1e-6, and the same ``+dtype`` version suffix."""
+    import torch
+
+    from paddle_tpu import quant as jquant
     jdsl.reset()
     _, out, _ = j_classifier(vocab_size=V, embed_dim=E, hidden=H)
     graph = jdsl.current_graph()
     params = {k: np.asarray(v) for k, v in JNetwork(
         graph, outputs=[out.name]).init_params(
             jax.random.PRNGKey(1)).items()}
-    path = tmp_path / "q.ptmodel"
-    j_merge_model(str(path), graph, params, outputs=[out.name],
-                  quant={"dtype": "bf16"})
-    with pytest.raises(ValueError, match="quantized"):
-        ServingPredictor.from_merged(str(path), _feeding(ttypes),
-                                     device="cpu", **BUCKETS)
+    golden = jquant.golden_section(graph, params, [out.name],
+                                   _feeding(jtypes))
+    qparams, meta = jquant.quantize_params(params, dtype)
+    path = tmp_path / f"q.{dtype}.ptmodel"
+    j_merge_model(str(path), graph, qparams, outputs=[out.name],
+                  quant=meta, golden=golden)
+    port = ServingPredictor.from_merged(str(path), _feeding(ttypes),
+                                        device="cpu", **BUCKETS)
+    ref = JPredictor.from_merged(str(path), _feeding(jtypes), **BUCKETS)
+    port.warmup()
+    ref.warmup()
+    assert port.model_version == ref.model_version
+    assert port.model_version.endswith("+" + dtype)
+    assert port.params[f"_{out.name}.w0"].dtype == {
+        "bf16": torch.bfloat16, "int8": torch.int8}[dtype]
+    got_gate, want_gate = port.quant_gate, ref.quant_gate
+    assert got_gate["passed"] is want_gate["passed"] is True
+    assert (got_gate["checked"], got_gate["dtype"], got_gate["tol"]) == (
+        want_gate["checked"], want_gate["dtype"], want_gate["tol"])
+    assert abs(got_gate["max_delta"] - want_gate["max_delta"]) <= 1e-6
+    assert port.quant_health()["dtype"] == ref.quant_health()["dtype"]
+    for rows in (_rows(1, 3), _rows(2, 1), _rows(3, 4)):
+        got, ginfo = port.predict_rows(rows)
+        want, winfo = ref.predict_rows(rows)
+        assert ginfo["bucket"] == winfo["bucket"]
+        np.testing.assert_allclose(got["output"], want["output"],
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture
