@@ -248,7 +248,7 @@ non-zero without the result line:
    server to exit 0.
 10. seq2seq train: ``seq2seq_attention`` at the seqToseq demo's published
    width (dicts 30000, embed 512, hidden 512) trained by ``--job train``
-   with ``Adam(learning_rate=5e-4)`` for 3 passes over 4 fixed batches of
+   with ``Adam(learning_rate=5e-4)`` for 2 passes over 4 fixed batches of
    50 (source lengths uniform in 10-50, padded to 50; ids from the seed;
    the target is the source reversed): the cost must be finite and fall
    from pass 0 to pass 2, and the fresh process's counts must show the
@@ -280,7 +280,7 @@ non-zero without the result line:
    seqToseq decoder at 30000/512/512 (``lstm_step`` over fc([word, h])
    with its peepholes, the cell state carried through ``get_output``,
    booted from the average source embedding), trained by ``--job train``
-   (Adam(5e-4), 3 passes over phase 10's batches: the cost falls, the
+   (Adam(5e-4), 2 passes over phase 10's batches: the cost falls, the
    counts show lstm_cell launched and one Adam launch a step), its
    full-width gradients (8
    rows) card against CPU, then the same step in a beam search (beam 4,
@@ -396,7 +396,7 @@ non-zero without the result line:
    of 11 x 41 (stride 3 x 2) and 11 x 21 (1 x 2), ``block_expand`` into
    134 steps of 1312, 3 bidirectional batch-normed GRUs of 1024 with act
    relu, fc(29), ``warp_ctc(blank=28, norm_by_times)`` and the softmax
-   ``mixed`` output) trained through ``--job train`` (Adam(2e-4), 3
+   ``mixed`` output) trained through ``--job train`` (Adam(2e-4), 2
    passes over 4 batches of 16; the cost falls; one ``ctc_fused_fwd``,
    one ``ctc_fused_bwd`` and one ``adam`` launch a step, no GRU kernel:
    relu takes the inline step, as in the JAX package); its parameter
@@ -444,7 +444,7 @@ non-zero without the result line:
    references computed while they start): (a) the generating seq2seq (30000/512/512, beam 4, <= 50
    words) merged from phase 10's save dir and served twice (max_batch 8,
    one length bucket of 50), with ``--serving_continuous_batching`` and
-   without: 24 sources of 1-50 words (seed 2033) sent at once with a
+   without: 12 sources of 1-50 words (seed 2033) sent at once with a
    request of a 1-ms deadline (the typed 504); each answer against the
    port's CPU plain path on the same file by ``_compare_beams``' rule
    (near-ties counted, traced on the card at 8, 4, 2 or 1 copies of the
@@ -471,7 +471,43 @@ non-zero without the result line:
    ``python3 chip_smoke.py --serving`` runs this phase alone (after one
    training pass of the classifier and of seq2seq), into
    ``serving.json`` in ``OUT_DIR``.
-17. kernels: one JSON line ``{"kernels": [...]}`` for every ported
+17. mixed-precision training (``--compute_dtype bfloat16``): (a) the
+   bf16 forms of the LSTM sequence kernels (K1: primal and residual
+   forward; K2: the reverse chain) at the classifier's lstm0 (64, 1280,
+   100) and at batch 1, and of the GRU's (K3, K4) at the acoustic model's
+   first layer (16, 1024, 400) forward and reversed and at batch 1
+   (``_inputs`` / ``_gru_inputs`` at bf16, ragged masks), each against its
+   plain bf16 version on the card: values and gradients within 2e-2 of
+   each tensor's largest entry, and no farther from the f32 computation
+   of the same widened inputs than twice the plain bf16 version plus
+   1e-3 of the f32 result's largest entry; again at T = 3 (BF16_SHORT_T,
+   before the recurrence amplifies the 1-ulp roundings in which the
+   kernel's sum order and the plain version's differ), where each result
+   keeps the plain version's bf16 rounding points: at most 1 % of its
+   elements more than one bf16 ulp of their own value from the plain
+   version, none more than 4 ulps of the largest entry (``_bf16_ulps``);
+   at the path shapes CUDA-event and profiler ms, the
+   f32 forms' ms at the widened inputs, the plain ms and the bound (2
+   bytes a bf16 element and 4 an f32 one over HBM, or the products at
+   989.4 TFLOP/s dense BF16); (b) the classifier at full width through
+   ``--job train`` (4 batches x 3 passes), ``test`` and ``time`` with
+   ``--compute_dtype bfloat16``: lstm0 on the bf16 forms and lstm1 on the
+   f32 forms once a step each, the masters and Adam's slots f32 in the
+   checkpoint, the first step's gradients (the initial parameters, the
+   first batch) card against the CPU plain bf16 path (``_bf16_grads``:
+   each tensor no farther from the CPU's f32 gradient than twice the
+   CPU's bf16 one plus 1e-3 of the f32 gradient's largest entry; within
+   2e-2 of the largest entry of the CPU's bf16 gradient, or, where that
+   gradient itself lies farther than 2e-2 from f32, within twice the
+   distance between the CPU's and a witness: the same bf16 computation
+   on the card with the plain bf16 versions in place of the kernels), a
+   traced step at bf16 beside one at f32; (c) the acoustic model the same way, one pass (the first layer's
+   two GRUs on the bf16 forms, layers 2 and 3 and CTC on the f32 kernels);
+   (d) a bf16 CUDA tensor into one f32-only kernel of each family raises.
+   The full run takes it after phase 11c, beside phases 8's and 11c's
+   f32 step traces; ``python3 chip_smoke.py --bf16`` runs this phase
+   alone (with its own f32 traces), into ``bf16.json`` in ``OUT_DIR``.
+18. kernels: one JSON line ``{"kernels": [...]}`` for every ported
    kernel, with the launches of the main paths (phases 8 to 12), the
    rest of training's (phase 13) as ``training_launches``,
    DeepSpeech2 as released (phase 14) as ``ds2_release_launches``
@@ -488,7 +524,8 @@ non-zero without the result line:
    wide route, ``ctc_alpha_fwd_wide`` / ``ctc_bwd_wide``, too). The ``momentum`` entry's
    ``launches`` are the classifier's training pass (phase 8); LeNet's
    and ResNet's runs of phase 12 stand beside them as ``lenet_launches``
-   and ``resnet_launches``.
+   and ``resnet_launches``. The bf16 forms (``*_bf16``) have the
+   launches of phase 17's runs.
 
 Every ``--job`` of the CLI runs in this process (``_cli_inproc``: each
 job resets the kernel counts it reports and the DSL's graph), but the
@@ -573,6 +610,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # published H100 SXM peaks at 700 W (NVIDIA data sheet)
 F32_FLOPS = 67e12      # f32 outside the tensor cores
 TF32_FLOPS = 494.7e12  # dense TF32 on the tensor cores
+BF16_FLOPS = 989.4e12  # dense BF16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 TOL = dict(rtol=1e-4, atol=1e-5)
 T_CHECK = 100
@@ -589,7 +627,7 @@ SEED = 2017
 # 30000, word vectors and encoder/decoder of 512), trained as its
 # train.conf does: batch 50, Adam(5e-4)
 S2S = dict(src_vocab=30000, trg_vocab=30000, embed_dim=512, hidden=512)
-S2S_BATCH, S2S_BATCHES, S2S_PASSES, S2S_LEN = 50, 4, 3, 50
+S2S_BATCH, S2S_BATCHES, S2S_PASSES, S2S_LEN = 50, 4, 2, 50
 S2S_MIN_LEN = 10
 S2S_GRAD_ROWS = 8
 # GRU kernel check shapes (B, H, T): the seq2seq path's own, a longer one,
@@ -713,7 +751,7 @@ DS2R = dict(height=DS2["features"], width=DS2_MAX_T, chars=DS2["chars"],
 DS2R_STEPS = DS2_MAX_T  # the time columns after the convs: 134
 for _fx, _, _sx, _, _px, _ in DS2R["convs"]:
     DS2R_STEPS = (DS2R_STEPS + 2 * _px - _fx) // _sx + 1
-DS2R_PASSES, DS2R_RNN_PASSES = 3, 1
+DS2R_PASSES, DS2R_RNN_PASSES = 2, 1
 DS2R_TEST_BATCHES = 1  # --job test, card and CPU (the CPU's takes most)
 # CTC kernel check shapes (B, T, L): the acoustic model's (with an empty
 # transcript, an infeasible row, repeated labels, padded frame tails), its
@@ -760,6 +798,8 @@ def check_device() -> str:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products summed in f32, as JAX's bf16 dots are
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
@@ -3629,8 +3669,12 @@ def check_wide_attention_layer():
         results.append((y.detach().cpu(), [g.cpu() for g in gs]))
     (y_cpu, g_cpu), (y_gpu, g_gpu) = results
     where = f"multi_head_attention size={size} heads={heads}"
-    torch.testing.assert_close(y_gpu, y_cpu, **TOL,
-                               msg=lambda m: f"{where} y: {m}")
+    try:
+        torch.testing.assert_close(y_gpu, y_cpu, **TOL,
+                                   msg=lambda m: f"{where} y: {m}")
+    except AssertionError:
+        _diagnose_wide_layer(net, out.name, params, xv, mask, y_gpu, heads)
+        raise
     if launches != (1, 1):
         raise AssertionError(f"{where}: flash launches {launches}")
     row = dict(size=size, num_heads=heads, head_width=size // heads, B=B,
@@ -3640,6 +3684,42 @@ def check_wide_attention_layer():
                flash_launches=launches)
     phase("flash_wide_layer_check", **row)
     return row
+
+
+def _diagnose_wide_layer(net, name, params, xv, mask, y_gpu, heads):
+    """Where the wide layer's card output parted from the CPU's: each
+    projection (card against CPU), the flash forward on the card's own
+    q, k, v against its plain version on the CPU, and whether a second
+    card forward repeats the first one's bits. Printed as a phase line
+    before the check's failure is raised."""
+    def stages(dev):
+        p = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        x, m = xv.to(dev), mask.to(dev)
+        w = {k.rsplit(".", 1)[1]: v for k, v in p.items()}
+        B, T, S = x.shape
+
+        def split(t):
+            return t.reshape(B, T, heads, S // heads).transpose(1, 2)
+
+        qkv = [split(x @ w[k]).contiguous() for k in ("wq", "wk", "wv")]
+        with torch.no_grad():
+            y = net.apply(p, {"x": Argument(x, m)})[name].value
+        return p, m, qkv, y.cpu()
+
+    _, m_cpu, qkv_cpu, _ = stages("cpu")
+    _, m_gpu, qkv_gpu, y_again = stages("cuda")
+    with torch.no_grad():
+        o_gpu = ATT.flash_attention(*qkv_gpu, m_gpu).cpu()
+        o_plain = ATT.flash_attention(*(t.cpu() for t in qkv_gpu), m_cpu)
+    bad = (y_gpu - y_again).ne(0).nonzero()
+    phase("flash_wide_layer_diagnosis",
+          projection_max_abs_err={
+              k: (g.cpu() - c).abs().max().item()
+              for k, g, c in zip(("q", "k", "v"), qkv_gpu, qkv_cpu)},
+          flash_fwd_vs_plain_max_abs_err=(o_gpu - o_plain).abs()
+          .max().item(),
+          second_forward_bit_equal=bool(len(bad) == 0),
+          second_forward_differs_at=bad[:16].tolist())
 
 
 def _baseline_flash_pieces(q, k, v, mask, o, lse, do):
@@ -3863,10 +3943,12 @@ def _cli_inproc(args):
     return buf.getvalue()
 
 
-def _train_run(conf, passes, save_dir=None, batches=TRAIN_BATCHES):
-    """One ``--job train`` process: (per-pass costs, train_summary)."""
+def _train_run(conf, passes, save_dir=None, batches=TRAIN_BATCHES,
+               extra=()):
+    """One ``--job train`` process: (per-pass costs, train_summary).
+    ``extra``: further CLI arguments."""
     args = ["--config", conf, "--job", "train", "--num_passes", str(passes),
-            "--seed", str(SEED)]
+            "--seed", str(SEED), *extra]
     if save_dir:
         args += ["--save_dir", save_dir]
     out = _cli_inproc(args)
@@ -5321,12 +5403,17 @@ _TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
            "lstm_bwd_chain": "lstm_bwd_chain_kernel",
            "gru_seq_train": "gru_persistent_kernel",
            "gru_bwd_chain": "gru_bwd_chain_kernel",
+           "lstm_seq_train_bf16": "lstm_persistent_kernel",
+           "lstm_bwd_chain_bf16": "lstm_bwd_chain_kernel",
+           "gru_seq_train_bf16": "gru_persistent_kernel",
+           "gru_bwd_chain_bf16": "gru_bwd_chain_kernel",
            "ctc_fused_fwd": "ctc_fused_fwd_kernel",
            "ctc_fused_bwd": "ctc_fused_bwd_kernel",
            "adam": "adam_multi_kernel"}
 
 
-def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True):
+def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True,
+                compute_dtype=None):
     """One training step on the card from the newest checkpoint of
     ``save_dir`` (``train_step`` on the CPU-fed batch ``feed``: forward,
     backward, update): the host-clock median of 3 after one warm step,
@@ -5339,7 +5426,8 @@ def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True):
     some are not, the busy time is low and the idle share an upper
     bound). ``cpu_ops=False`` records the device activity alone: a step of
     tens of thousands of small ops otherwise takes the profiler longer to
-    summarise than the step takes to run."""
+    summarise than the step takes to run. ``compute_dtype``: the
+    trainer's (``"bfloat16"``: mixed precision)."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
@@ -5349,7 +5437,7 @@ def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True):
     cost = build_model()[0]
     params, _ = load_params(latest_checkpoint(save_dir))
     tr = SGD(cost, parameters=params, device="cuda",
-             update_equation=optimizer)
+             update_equation=optimizer, compute_dtype=compute_dtype)
     feed = tr._to_device(feed)
 
     def step():
@@ -5370,8 +5458,10 @@ def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True):
     before = device_launches()
     with torch.profiler.profile(activities=acts) as prof:
         wall_ms = step()
-    expected = {_TRACED[k]: n - before[k]
-                for k, n in device_launches().items() if n > before[k]}
+    expected = {}
+    for k, n in device_launches().items():
+        if n > before[k]:  # a bf16 form's kernel carries its f32 form's name
+            expected[_TRACED[k]] = expected.get(_TRACED[k], 0) + n - before[k]
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -8192,7 +8282,7 @@ def last_types():
 
 
 # ------------------------------------------------------ 16. the serving tier
-SERVE16_SOURCES = 24       # (a)'s generate mix: lengths 1-50, concurrent
+SERVE16_SOURCES = 12       # (a)'s generate mix: lengths 1-50, concurrent
 SERVE16_QGEN_SOURCES = 4   # (c)'s int8 generate mix
 SERVE16_ROWS = 16          # (b)'s score rows: lengths 1-100
 # one length bucket: seq2seq's encoded source pads to its bucket, and a
@@ -8763,6 +8853,726 @@ def serving():
         json.dump(row, f, indent=1)
 
 
+# ------------------------------------------ 17. mixed-precision training
+BF16_SHORT_T = 3  # the rounding-point check's steps, at the path shapes
+BF16_LSTM_SHAPES = [(TRAIN_BATCH, MODEL["hidden"], SEQLEN),
+                    (1, MODEL["hidden"], SEQLEN),
+                    (TRAIN_BATCH, MODEL["hidden"], BF16_SHORT_T)]
+BF16_GRU_SHAPES = [(DS2_BATCH, DS2["hidden"], DS2_MAX_T, False),
+                   (DS2_BATCH, DS2["hidden"], DS2_MAX_T, True),
+                   (1, DS2["hidden"], DS2_MAX_T, False),
+                   (DS2_BATCH, DS2["hidden"], BF16_SHORT_T, False),
+                   (DS2_BATCH, DS2["hidden"], BF16_SHORT_T, True)]
+BF16_TOL = 2e-2  # values and gradients, of each tensor's largest entry
+BF16_ULP_SHARE, BF16_ULPS = 1e-2, 4  # the short-T check (_bf16_ulps)
+BF16_PASSES = 3  # the classifier's; the acoustic model trains one pass
+_BF = torch.bfloat16
+
+
+def _bf16_held(where, names, got, want, f32):
+    """Each bf16 result against its plain bf16 version on the card,
+    ``max|got - want| <= BF16_TOL * max|want|``, and no farther from the
+    float32 computation of the same widened inputs than twice the plain
+    version is, plus 1e-3 of the f32 result's largest entry. Returns
+    the largest error and the largest error over the limit's entry."""
+    err = share = 0.0
+    for name, g, w, f in zip(names, got, want, f32):
+        g, w, f = g.float(), w.float(), f.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{where} {name} is not finite")
+        e = (g - w).abs().max().item()
+        big = w.abs().max().item()
+        mine = (g - f).abs().max().item()
+        own = (w - f).abs().max().item()
+        if not (e <= BF16_TOL * big and
+                mine <= 2 * own + 1e-3 * f.abs().max().item()):
+            raise AssertionError(
+                f"{where} {name}: max abs err {e} (limit {BF16_TOL * big});"
+                f" from f32 {mine} against the plain bf16's {own}")
+        err, share = max(err, e), max(share, e / big if big else 0.0)
+    return err, share
+
+
+def _bf16_ulps(where, names, got, want):
+    """The short-T check: each result keeps its plain version's bf16
+    rounding points. An element whose sum order differs (the kernel's
+    product against cuBLAS's) rounds the other way rarely (a CPU
+    experiment at these shapes, the plain version with its hidden units
+    permuted, parted at T = 3 in 0.04 % of the elements, by at most one
+    ulp of the largest entry); a kernel that keeps f32 between two of the
+    reference's roundings parts in 4-30 % of them by more than an ulp.
+    Holds: at most ``BF16_ULP_SHARE`` of the elements more than one bf16
+    ulp of their own plain value away, none more than ``BF16_ULPS`` ulps
+    of the largest entry. Returns {name: (share, ulps of the largest)}."""
+    def ulp(x):  # of bf16 at |x| (8 significant bits)
+        e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+        return torch.exp2(e - 7)
+
+    out = {}
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        share = (d > ulp(w)).float().mean().item()
+        top = (d.max() / ulp(w.abs().max())).item()
+        out[name] = (share, top)
+        if not (share <= BF16_ULP_SHARE and top <= BF16_ULPS):
+            raise AssertionError(
+                f"{where} {name}: {share:.4%} of the elements beyond one "
+                f"bf16 ulp (limit {BF16_ULP_SHARE:.0%}), {top} ulps of "
+                f"the largest entry (limit {BF16_ULPS})")
+    return out
+
+
+def _bf16_bound(ops, bf16_elems, f32_elems):
+    """Least time, ms: 2 bytes a bf16 element and 4 an f32 one over HBM,
+    or the products at the dense BF16 rate; and which one it is."""
+    t_ops = ops / BF16_FLOPS
+    t_bytes = (2 * bf16_elems + 4 * f32_elems) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _bf16_device_ms(fn, kernel, calls):
+    """Device ms of one call of ``fn``: the mean of ``kernel``'s launches
+    in one ``torch.profiler`` trace of ``calls`` calls (``_traced``), or
+    None where the trace holds fewer than half of them (late in the full
+    run the profiler returned whole traces without the GRU kernels, six
+    tries in a row: one try here, and the CUDA-event time stands)."""
+    fn()
+    torch.cuda.synchronize()
+    found = [e for e in _traced(fn, calls)[0] if kernel in e.key]
+    n = sum(e.count for e in found)
+    if not calls // 2 <= n <= calls:
+        phase("bf16_profiler_missed", kernel=kernel, launches=n, calls=calls)
+        return None
+    return 1e-3 * sum(e.self_device_time_total for e in found) / n
+
+
+def _bf16_rows(row, where, held):
+    """``_bf16_held`` of each part of a check ({part: (names, got, want,
+    f32)}) into ``row`` (``<part>_max_abs_err``, ``<part>_share`` of the
+    largest entry), and ``_bf16_ulps`` at ``BF16_SHORT_T`` steps
+    (``<part>_ulps``)."""
+    for part, (names, got, want, f32) in held.items():
+        row[part + "_max_abs_err"], row[part + "_share"] = _bf16_held(
+            f"{where} {part}", names, got, want, f32)
+        if row["T"] <= BF16_SHORT_T:
+            row[part + "_ulps"] = _bf16_ulps(f"{where} {part}", names, got,
+                                             want)
+
+
+def check_bf16_lstm(B, H, T, seed, timed):
+    """K1 and K2 at (B, H, T): the residual and primal forward kernels'
+    bf16 form (bias unfolded, ys f32, the rest bf16) and the chain's,
+    each against its plain bf16 version on the card (``_bf16_held``; the
+    inputs ``_inputs``' at bf16, a ragged mask); ``timed``: CUDA-event ms,
+    profiler device ms, the f32 form's ms at the widened inputs, the plain
+    version's ms and the bound. At ``BF16_SHORT_T`` steps also
+    ``_bf16_ulps``."""
+    a = _inputs(B, H, T, seed)
+    b = {k: v.to(_BF) for k, v in a.items() if k != "mask"}
+    f = {k: v.float() for k, v in b.items()}
+    mask = a["mask"]
+    args = (b["xs"], mask, b["w"], b["pI"], b["pF"], b["pO"], b["h0"],
+            b["c0"])
+    f_args = ((f["xs"] + f["bias"]).contiguous(), mask, f["w"], f["pI"],
+              f["pF"], f["pO"], f["h0"], f["c0"])
+    where = f"bf16 LSTM B={B} H={H} T={T}"
+    res = L.lstm_seq_train(*args, gate_bias=b["bias"])
+    res_p = L.lstm_sequence_residual_plain(*args, gate_bias=b["bias"])
+    res_f = L.lstm_sequence_residual_plain(*f_args)
+    torch.cuda.synchronize()
+    if [t.dtype for t in res] != [torch.float32, _BF, _BF, _BF]:
+        raise AssertionError(f"{where}: residual dtypes {res}")
+    row = dict(B=B, H=H, T=T)
+    held = {}
+    held["fwd"] = (("ys", "hs", "cs", "gates"), res, res_p, res_f)
+    prim = L.lstm_seq(*args, gate_bias=b["bias"])
+    prim_p = L.lstm_sequence_plain(*args, gate_bias=b["bias"])
+    prim_f = L.lstm_sequence_plain(*f_args)
+    held["primal"] = (("ys", "hT", "cT"), prim, prim_p, prim_f)
+    dys, dhT, dcT = _cotangents(B, H, T, seed + 1)
+    _, hs, cs, gates = res_p
+    chain_args = (dys, mask, gates, cs, b["c0"], b["w"], b["pI"], b["pF"],
+                  b["pO"], dhT.to(_BF), dcT.to(_BF))
+    chain = L.lstm_bwd_chain(*chain_args)
+    # the plain chain over one block (the kernel's blocked arrangement is
+    # held against one block on the CPU, tests/test_torch_rnn_bf16.py)
+    chain_p = L.lstm_bwd_chain_plain(*chain_args)
+    chain_f = L.lstm_bwd_chain_plain(dys, mask, res_f[3], res_f[2], f["c0"],
+                                     f["w"], f["pI"], f["pF"], f["pO"], dhT,
+                                     dcT)
+    torch.cuda.synchronize()
+    held["chain"] = (("dxs", "dh0", "dc0"), chain, chain_p, chain_f)
+    _bf16_rows(row, where, held)
+    if not timed:
+        return row
+    calls = 10
+    run = lambda: L.lstm_seq_train(*args, gate_bias=b["bias"])
+    run_p = lambda: L.lstm_seq(*args, gate_bias=b["bias"])
+    run_c = lambda: L.lstm_bwd_chain(*chain_args)
+    f_res = L.lstm_sequence_residual_plain(*f_args)
+    f_chain = (dys, mask, f_res[3], f_res[2], f["c0"], f["w"], f["pI"],
+               f["pF"], f["pO"], dhT, dcT)
+    bh, tbh = B * H, T * B * H
+    w_elems, vec = 4 * H * H, 7 * H
+    for key, fn, f_fn, plain, kernel, bound in (
+            ("fwd_", run, lambda: L.lstm_seq_train(*f_args),
+             lambda: L.lstm_sequence_residual_plain(
+                 *args, gate_bias=b["bias"]), "lstm_persistent_kernel",
+             _bf16_bound(8.0 * B * H * H * T,
+                         4 * tbh + w_elems + vec + 2 * bh + 2 * tbh
+                         + 4 * tbh, T * B + tbh)),
+            ("primal_", run_p, lambda: L.lstm_seq(*f_args),
+             lambda: L.lstm_sequence_plain(*args, gate_bias=b["bias"]),
+             "lstm_persistent_kernel",
+             _bf16_bound(8.0 * B * H * H * T,
+                         4 * tbh + w_elems + vec + 4 * bh, T * B + tbh)),
+            ("chain_", run_c, lambda: L.lstm_bwd_chain(*f_chain),
+             lambda: L.lstm_bwd_chain_plain(*chain_args),
+             "lstm_bwd_chain_kernel",
+             _bf16_bound(8.0 * B * H * H * T,
+                         4 * tbh + tbh + w_elems + 3 * H + 5 * bh
+                         + 4 * tbh, T * B + tbh))):
+        row[key + "ms"] = _time_ms(fn)
+        row[key + "device_ms"] = _bf16_device_ms(fn, kernel, calls)
+        row[key + "f32_ms"] = _time_ms(f_fn)
+        row[key + "f32_device_ms"] = _bf16_device_ms(f_fn, kernel, calls)
+        row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
+        row[key + "bound_ms"], row[key + "bound_by"] = bound
+        row[key + "library_ms"] = None
+    return row
+
+
+def check_bf16_gru(B, H, T, reverse, seed, timed):
+    """K3 and K4 at (B, H, T) as the acoustic model's first layer runs
+    them (``reverse``: its backward GRU, on time-flipped inputs): the
+    residual and primal forward kernels' bf16 form and the chain's, with
+    the two column slices of one bf16 w0 as the weights, against their
+    plain bf16 versions on the card; ``timed`` and ``BF16_SHORT_T`` as
+    ``check_bf16_lstm``."""
+    a = _gru_inputs(B, H, T, seed)
+    xs = (a["xs"].to(_BF) + a["bias"].to(_BF))  # the layer's bf16 fold
+    mask = a["mask"]
+    if reverse:
+        xs, mask = xs.flip(0).contiguous(), mask.flip(0).contiguous()
+    w0 = torch.cat([a["wg"], a["ws"]], dim=1).to(_BF)
+    h0 = a["h0"].to(_BF)
+    wg, ws = w0[:, :2 * H], w0[:, 2 * H:]
+    w0f = w0.float()
+    args = (xs, mask, wg, ws, h0)
+    f_args = (xs.float(), mask, w0f[:, :2 * H], w0f[:, 2 * H:], h0.float())
+    where = f"bf16 GRU B={B} H={H} T={T} reverse={reverse}"
+    res = G.gru_seq_train(*args)
+    res_p = G.gru_sequence_residual_plain(*args)
+    res_f = G.gru_sequence_residual_plain(*f_args)
+    torch.cuda.synchronize()
+    if [t.dtype for t in res] != [torch.float32, _BF, _BF]:
+        raise AssertionError(f"{where}: residual dtypes {res}")
+    row = dict(B=B, H=H, T=T, reverse=reverse)
+    held = {"fwd": (("ys", "hs", "gates"), res, res_p, res_f),
+            "primal": (("ys", "hT"), G.gru_seq(*args),
+                       G.gru_sequence_plain(*args),
+                       G.gru_sequence_plain(*f_args))}
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dys = torch.randn((T, B, H), generator=g, device="cuda")
+    dhT = torch.randn((B, H), generator=g, device="cuda")
+    _, hs, gates = res_p
+    chain_args = (dys, mask, gates, h0, hs, wg, ws, dhT.to(_BF))
+    chain = G.gru_bwd_chain(*chain_args)
+    # the plain chain over one block: over the kernel's 128 blocks of 8
+    # units it is ~10^6 small launches a call (its arrangement is held
+    # against one block on the CPU, tests/test_torch_rnn_bf16.py)
+    chain_p = G.gru_bwd_chain_plain(*chain_args)
+    chain_f = G.gru_bwd_chain_plain(dys, mask, res_f[2], h0.float(),
+                                    res_f[1], *f_args[2:4], dhT)
+    torch.cuda.synchronize()
+    held["chain"] = (("dxs", "dh0"), chain, chain_p, chain_f)
+    _bf16_rows(row, where, held)
+    if not timed:
+        return row
+    calls = 5
+    f_res = G.gru_sequence_residual_plain(*f_args)
+    f_chain = (dys, mask, f_res[2], h0.float(), f_res[1], *f_args[2:4], dhT)
+    bh, tbh = B * H, T * B * H
+    for key, fn, f_fn, plain, kernel, bound in (
+            ("fwd_", lambda: G.gru_seq_train(*args),
+             lambda: G.gru_seq_train(*f_args),
+             lambda: G.gru_sequence_residual_plain(*args),
+             "gru_persistent_kernel",
+             _bf16_bound(6.0 * B * H * H * T,
+                         3 * tbh + 3 * H * H + bh + tbh + 3 * tbh,
+                         T * B + tbh)),
+            ("primal_", lambda: G.gru_seq(*args),
+             lambda: G.gru_seq(*f_args),
+             lambda: G.gru_sequence_plain(*args), "gru_persistent_kernel",
+             _bf16_bound(6.0 * B * H * H * T,
+                         3 * tbh + 3 * H * H + 2 * bh, T * B + tbh)),
+            ("chain_", lambda: G.gru_bwd_chain(*chain_args),
+             lambda: G.gru_bwd_chain(*f_chain),
+             lambda: G.gru_bwd_chain_plain(*chain_args),
+             "gru_bwd_chain_kernel",
+             _bf16_bound(6.0 * B * H * H * T,
+                         3 * tbh + bh + tbh + 3 * H * H + bh + 3 * tbh + bh,
+                         tbh + T * B))):
+        row[key + "ms"] = _time_ms(fn)
+        row[key + "device_ms"] = _bf16_device_ms(fn, kernel, calls)
+        row[key + "f32_ms"] = _time_ms(f_fn)
+        row[key + "f32_device_ms"] = _bf16_device_ms(f_fn, kernel, calls)
+        row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
+        row[key + "bound_ms"], row[key + "bound_by"] = bound
+        row[key + "library_ms"] = None
+    return row
+
+
+@contextlib.contextmanager
+def _plain_bf16_forms():
+    """The bf16 forms' wrappers (K1-K4) replaced by their plain bf16
+    versions on the card (PyTorch's operations, cuBLAS's products: the
+    same bf16 rounding points, other sums' orders); float32 calls go to
+    the kernels as before. The witness of ``_bf16_grads``."""
+    swaps = [(L, "lstm_seq", 0, L.lstm_sequence_plain),
+             (L, "lstm_seq_train", 0, L.lstm_sequence_residual_plain),
+             (L, "lstm_bwd_chain", 3, L.lstm_bwd_chain_plain),
+             (G, "gru_seq", 0, G.gru_sequence_plain),
+             (G, "gru_seq_train", 0, G.gru_sequence_residual_plain),
+             (G, "gru_bwd_chain", 4, G.gru_bwd_chain_plain)]
+    kernels = {(mod, name): getattr(mod, name) for mod, name, _, _ in swaps}
+
+    def swap(kernel, at, plain):
+        # the wrapper's counters copied (the float32 wrappers count their
+        # launches through their module's name, the swap while it stands;
+        # the kernel's own counts stay as they were)
+        @functools.wraps(kernel)
+        def fn(*args, **kw):
+            if args[at].dtype != _BF:
+                return kernel(*args, **kw)
+            kw.pop("per_step", None)
+            kw.pop("two_launch", None)
+            return plain(*args, **kw)
+        return fn
+
+    try:
+        for mod, name, at, plain in swaps:
+            setattr(mod, name, swap(kernels[(mod, name)], at, plain))
+        yield
+    finally:
+        for (mod, name), kernel in kernels.items():
+            setattr(mod, name, kernel)
+
+
+def _bf16_grads(where, build_model, feed, optimizer, rows):
+    """The first step's loss and every parameter gradient at bf16 compute
+    (the initial parameters of ``--seed SEED``, the first training
+    batch): the card (the bf16 kernels) against the plain bf16 path on
+    the CPU; every gradient f32 on the f32 masters. Each tensor no
+    farther from the CPU's float32 gradient than twice the CPU's bf16
+    one, plus 1e-3 of the f32 gradient's largest entry; and within
+    ``BF16_TOL`` of the largest entry of the CPU's bf16 gradient, wherever
+    that gradient itself lies within that bound of the f32 one. Where it
+    does not (``noise_dominated``: at the initial parameters the weight
+    gradients of the classifier's embedding, projections and recurrences
+    are batch sums that cancel, and bf16's rounding of their terms moves
+    them by 9-34 % of their largest entry), the tensor is held within
+    twice the distance between the CPU's bf16 gradient and a witness's:
+    the same bf16 computation on the card with the plain bf16 versions
+    in place of the bf16 kernels (``_plain_bf16_forms``), which differs
+    from the CPU's in its sums' order alone. ``vs_witness``: the kernels'
+    gradient against the witness's. The per-tensor errors are printed
+    before any check fails."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost = build_model()[0]
+    runs = {}
+    for key, device, dt in (("cuda", "cuda", "bfloat16"),
+                            ("witness", "cuda", "bfloat16"),
+                            ("cpu", "cpu", "bfloat16"),
+                            ("cpu_f32", "cpu", None)):
+        tr = SGD(cost, device=device, update_equation=optimizer, seed=SEED,
+                 compute_dtype=dt)
+        t0 = time.perf_counter()
+        with (_plain_bf16_forms() if key == "witness"
+              else contextlib.nullcontext()):
+            _, loss, grads, _ = tr.loss_and_grads(tr._to_device(feed))
+        if any(g.dtype != torch.float32 for g in grads.values()):
+            raise AssertionError(f"{key}: a gradient is not f32")
+        runs[key] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                     time.perf_counter() - t0)
+        del tr
+    names = sorted(runs["cpu"][1])
+    per = {}
+    for n in names:
+        g, x, w, f = (runs[k][1][n] for k in ("cuda", "witness", "cpu",
+                                              "cpu_f32"))
+        dist = lambda u, v: (u - v).abs().max().item()
+        e = per[n] = dict(err=dist(g, w),
+                          limit=BF16_TOL * w.abs().max().item(),
+                          from_f32=dist(g, f), cpu_from_f32=dist(w, f),
+                          f32_max=f.abs().max().item(),
+                          witness=dist(x, w), vs_witness=dist(g, x))
+        e["noise_dominated"] = e["cpu_from_f32"] > e["limit"]
+        if e["noise_dominated"]:
+            e["limit"] = 2 * e["witness"]
+    row = dict(loss_cuda=runs["cuda"][0], loss_witness=runs["witness"][0],
+               loss_cpu=runs["cpu"][0], loss_cpu_f32=runs["cpu_f32"][0],
+               rows=rows, grads=per,
+               noise_dominated=[n for n in names
+                                if per[n]["noise_dominated"]],
+               seconds={k: v[2] for k, v in runs.items()})
+    phase(where, **row)
+    for n in names:
+        e = per[n]
+        if not (e["from_f32"] <= 2 * e["cpu_from_f32"] + 1e-3 * e["f32_max"]
+                and e["err"] <= e["limit"]):
+            raise AssertionError(f"{where} {n}: {e}")
+    row["max_abs_err"] = max(per[n]["err"] for n in names)
+    loss_g, loss_c = runs["cuda"][0], runs["cpu"][0]
+    if not np.isfinite(loss_g) or abs(loss_g - loss_c) > BF16_TOL * \
+            abs(loss_c):
+        raise AssertionError(f"bf16 loss on the card {loss_g}, on the CPU "
+                             f"{loss_c}")
+    return row
+
+
+def _f32_masters(save_dir):
+    """Every master parameter and optimizer slot of the newest checkpoint
+    is float32."""
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    params, opt = load_params(latest_checkpoint(save_dir))
+    slots = {k: v for k, v in (opt or {}).items() if k.startswith("slots/")}
+    bad = [k for k, v in {**params, **slots}.items()
+           if np.asarray(v).dtype != np.float32]
+    if bad or not slots:
+        raise AssertionError(f"not float32 after bf16 training: {bad} "
+                             f"({len(slots)} slots)")
+    return len(params), len(slots)
+
+
+def _bf16_counts(where, counts, expect):
+    """The launches of a bf16 run: {counter name: expected}."""
+    got = {k: counts[k]["launches"] for k in expect}
+    if got != expect:
+        raise AssertionError(f"{where}: launches {got}, expected {expect}")
+
+
+def _bf16_traces(build_model, save_dir, optimizer, feed, f32_trace):
+    """The traced bf16 step from ``save_dir``'s checkpoint beside the f32
+    step: ``f32_trace`` (the same run's f32 trace of the model, phase 8's
+    or 11c's) or, alone, the f32 step from the same checkpoint."""
+    traces = {"bfloat16": _step_trace(build_model, save_dir, optimizer, feed,
+                                      compute_dtype="bfloat16")}
+    traces["float32"] = f32_trace or _step_trace(build_model, save_dir,
+                                                 optimizer, feed)
+    return traces
+
+
+def bf16_classifier(tmp, f32_trace=None):
+    """17(b): the classifier at full width with ``--compute_dtype
+    bfloat16``: --job train (4 batches x 3 passes, Adam(2e-3)), --job test,
+    --job time; lstm0 on the bf16 forms (K1, K2), lstm1 on the f32 forms
+    (its f32 inputs promote); the masters and slots f32; the first step's
+    gradients (the initial parameters, the first batch) card against the
+    CPU plain bf16 path (``_bf16_grads``); a traced step at bf16 and at
+    f32 from the same checkpoint."""
+    from paddle_tpu_torch.models.lstm_text import lstm_text_classifier
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "bf16_conf.py")
+    _write_config(conf, "optimizer = Adam(learning_rate=2e-3)")
+    save_dir = os.path.join(tmp, "bf16_ckpt")
+    bf = ["--compute_dtype", "bfloat16"]
+    costs, summary = _train_run(conf, BF16_PASSES, save_dir, extra=bf)
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise AssertionError(f"bf16 pass costs {costs} do not fall")
+    steps = summary["steps"]
+    counts = summary["kernels"]
+    _bf16_counts("bf16 --job train", counts, {
+        "lstm_seq_train_bf16": steps, "lstm_seq_train": steps,
+        "lstm_bwd_chain_bf16": steps, "lstm_bwd_chain": steps,
+        "lstm_bwd_step": 0, "adam": steps})
+    n_params, n_slots = _f32_masters(save_dir)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir, *bf])
+    test_line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("test_summary "))[13:])[
+        "kernels"]
+    if test_counts["lstm_seq_bf16"]["launches"] <= 0 or test_counts[
+            "lstm_seq"]["launches"] != test_counts["lstm_seq_bf16"][
+            "launches"]:
+        raise AssertionError(f"bf16 --job test launches {test_counts}")
+    from paddle_tpu_torch.trainer.checkpoint import latest_checkpoint
+    out = _cli_inproc(["--config", conf, "--job", "time", "--init_model_path",
+                       latest_checkpoint(save_dir), "--time_batches", "4",
+                       "--time_warmup", "1", *bf])
+    time_line = next(ln for ln in out.splitlines()
+                     if ln.startswith("TimeInfo: "))
+    time_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("time_summary "))[13:])[
+        "kernels"]
+    grads = _bf16_grads("bf16_classifier_grads",
+                        lambda: lstm_text_classifier(**MODEL),
+                        _classifier_rows(TRAIN_BATCH),
+                        Adam(learning_rate=2e-3), TRAIN_BATCH)
+    traces = _bf16_traces(lambda: lstm_text_classifier(**MODEL), save_dir,
+                          Adam(learning_rate=2e-3), _classifier_batch(),
+                          f32_trace)
+    return dict(pass_costs=costs, steps=steps,
+                median_step_ms=summary["median_step_ms"], kernels=counts,
+                f32_parameters=n_params, f32_slots=n_slots, test=test_line,
+                test_kernels=test_counts, time=time_line,
+                time_kernels=time_counts, grad_check=grads,
+                step_trace=traces)
+
+
+def _classifier_rows(rows):
+    """The first training batch's first ``rows`` rows, CPU-fed (the
+    config's reader: the same seed)."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value,
+                                             integer_value_sequence)
+    rng = np.random.default_rng(SEED)
+    batch = []
+    for n in rng.integers(1, SEQLEN + 1, size=TRAIN_BATCH):
+        ids = rng.integers(0, MODEL["vocab_size"], size=int(n))
+        low = (ids < MODEL["vocab_size"] // 2).mean()
+        batch.append((ids.tolist(), int(low > 0.5)))
+    return DataFeeder({"words": integer_value_sequence(MODEL["vocab_size"]),
+                       "label": integer_value(MODEL["classes"])},
+                      pad_multiple=SEQLEN, device="cpu")(batch[:rows])
+
+
+def bf16_acoustic(tmp, f32_trace=None):
+    """17(c): the CTC acoustic model at DeepSpeech2's width with
+    ``--compute_dtype bfloat16``: one pass of --job train, --job test; the
+    first layer's two GRUs on the bf16 forms (K3, K4), layers 2 and 3 on
+    the f32 forms, CTC's f32 kernels, Adam once a step; the masters f32;
+    the first batch's gradients (its DS2_BATCH rows) card against the CPU
+    plain bf16 path (``_bf16_grads``); a traced step at bf16 and at
+    f32."""
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "bf16_acoustic_conf.py")
+    _write_ds2_config(conf)
+    save_dir = os.path.join(tmp, "bf16_acoustic_ckpt")
+    bf = ["--compute_dtype", "bfloat16"]
+    out = _cli_inproc(["--config", conf, "--job", "train", "--num_passes",
+                       "1", "--seed", str(SEED), "--save_dir", save_dir,
+                       *bf])
+    costs = [float(ln.split("cost=")[1].split()[0])
+             for ln in out.splitlines() if ln.startswith("Pass ")]
+    summary = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("train_summary "))[14:])
+    steps = summary["steps"]
+    if len(costs) != 1 or steps != DS2_BATCHES or not np.isfinite(costs[0]):
+        raise AssertionError(f"bf16 acoustic train printed {costs}, "
+                             f"{summary}")
+    first, rest = 2 * steps, 2 * (DS2["layers"] - 1) * steps
+    counts = summary["kernels"]
+    _bf16_counts("bf16 acoustic --job train", counts, {
+        "gru_seq_train_bf16": first, "gru_seq_train": rest,
+        "gru_bwd_chain_bf16": first, "gru_bwd_chain": rest,
+        "gru_bwd_step": 0, "ctc_fused_fwd": steps, "ctc_fused_bwd": steps,
+        "adam": steps})
+    n_params, n_slots = _f32_masters(save_dir)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir, *bf])
+    test_line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test_counts = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("test_summary "))[13:])[
+        "kernels"]
+    if test_counts["gru_seq_bf16"]["launches"] <= 0 or test_counts[
+            "ctc_fused_fwd"]["launches"] <= 0:
+        raise AssertionError(f"bf16 acoustic --job test launches "
+                             f"{test_counts}")
+    ns, dsl = _ds2_ns()
+    # the first training batch (the config's reader)
+    batch = ns["utterances"](np.random.default_rng(SEED), DS2_BATCH)
+    grads = _bf16_grads("bf16_acoustic_grads",
+                        lambda: ns["acoustic_model"](dsl),
+                        _ds2_feeder("cpu")(batch),
+                        Adam(learning_rate=DS2_LR), len(batch))
+    traces = _bf16_traces(lambda: ns["acoustic_model"](dsl), save_dir,
+                          Adam(learning_rate=DS2_LR), _ds2_feeder("cpu")(
+                              batch), f32_trace)
+    return dict(pass_costs=costs, steps=steps,
+                median_step_ms=summary["median_step_ms"], kernels=counts,
+                f32_parameters=n_params, f32_slots=n_slots, test=test_line,
+                test_kernels=test_counts, grad_check=grads,
+                step_trace=traces)
+
+
+def bf16_refusals():
+    """17(d): a bf16 CUDA tensor into one f32-only kernel of each family
+    raises (no quiet upcast): flash, CRF, CTC, the GRU and LSTM cells, the
+    per-step backward routes, the optimizers."""
+    from paddle_tpu_torch.kernels import opt_update
+    from paddle_tpu_torch.optim import Adam, Momentum
+    d = dict(device="cuda", dtype=_BF)
+    B, T, H, K = 2, 8, 32, 5
+    m = torch.ones(B, T, device="cuda")
+    cases = {
+        "flash_fwd": lambda: ATT.flash_fwd(*(torch.randn(B, 2, T, 64, **d)
+                                             for _ in range(3))),
+        "crf_alpha_fwd": lambda: CRF.crf_alpha_fwd(
+            torch.randn(B, T, K, **d), m, torch.randn(K, K, **d),
+            torch.randn(K, **d), torch.randn(K, **d)),
+        "ctc_fused_fwd": lambda: CTC.ctc_fused_fwd(
+            torch.randn(B, T, K, **d), torch.zeros(B, 3, dtype=torch.int32,
+                                                   device="cuda"),
+            m, torch.ones(B, 3, device="cuda"), K - 1),
+        "gru_cell": lambda: C.gru_cell(
+            torch.randn(B, 3 * H, **d), torch.randn(B, H, **d),
+            torch.randn(H, 2 * H, **d), torch.randn(H, H, **d)),
+        "lstm_cell": lambda: C.lstm_cell(
+            torch.randn(B, 4 * H, **d), torch.randn(B, H, **d),
+            *(torch.randn(H, **d) for _ in range(3))),
+        "lstm_bwd_step": lambda: L.lstm_bwd_step(
+            *(torch.randn(*s, **d) for s in (
+                (B, H), (B,), (B, 4 * H), (B, H), (B, H), (H,), (H,), (H,),
+                (B, H), (B, H), (B, H), (B, 4 * H)))),
+        "gru_bwd_step": lambda: G.gru_bwd_step(
+            *(torch.randn(*s, **d) for s in (
+                (B, H), (B,), (B, 3 * H), (B, H), (H, 2 * H), (H, H),
+                (B, H), (B, H), (B, 3 * H)))),
+        "adam": lambda: opt_update.adam(
+            Adam(learning_rate=1e-3), torch.randn(64, **d),
+            torch.randn(64, **d), {"mom": torch.zeros(64, **d),
+                                   "v": torch.zeros(64, **d)}, 1e-3, 0.0, 1),
+        "momentum": lambda: opt_update.momentum(
+            Momentum(learning_rate=1e-3, momentum=0.9), torch.randn(64, **d),
+            torch.randn(64, **d), {"mom": torch.zeros(64, **d)}, 1e-3, 0.0),
+    }
+    refused = {}
+    for name, call in cases.items():
+        try:
+            call()
+        except ValueError as err:
+            refused[name] = str(err)[:120]
+            continue
+        raise AssertionError(f"{name} took a bf16 CUDA tensor")
+    torch.cuda.synchronize()
+    return refused
+
+
+def check_bf16(tmp, f32_traces=(None, None)):
+    """Phase 17: mixed-precision training (see the module note).
+    ``f32_traces``: the same run's f32 step traces of the classifier and
+    the acoustic model (phases 8 and 11c), else taken here."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    lstm_rows = part("lstm_kernels", lambda: [
+        check_bf16_lstm(B, H, T, seed=B + 17, timed=i == 0)
+        for i, (B, H, T) in enumerate(BF16_LSTM_SHAPES)])
+    gru_rows = part("gru_kernels", lambda: [
+        check_bf16_gru(B, H, T, rev, seed=B + 19, timed=i == 0)
+        for i, (B, H, T, rev) in enumerate(BF16_GRU_SHAPES)])
+    phase("bf16_kernels", lstm=lstm_rows, gru=gru_rows)
+    classifier = part("classifier", bf16_classifier, tmp, f32_traces[0])
+    acoustic = part("acoustic", bf16_acoustic, tmp, f32_traces[1])
+    refused = part("refusals", bf16_refusals)
+    row = dict(lstm_shapes=lstm_rows, gru_shapes=gru_rows,
+               classifier=classifier, acoustic=acoustic, refused=refused,
+               part_seconds=parts, seconds=time.perf_counter() - t0)
+    brief = lambda r: {k: r[k] for k in ("pass_costs", "steps",
+                                         "median_step_ms")}
+    trace = lambda r: {dt: {k: t[k] for k in (
+        "step_ms", "device_busy_ms", "device_idle_share", "top_kernels",
+        "complete")} for dt, t in r["step_trace"].items()}
+    phase("bf16", seconds=row["seconds"], part_seconds=parts,
+          classifier=brief(classifier),
+          classifier_trace=trace(classifier), acoustic=brief(acoustic),
+          acoustic_trace=trace(acoustic), refused=sorted(refused))
+    return row
+
+
+def bf16():
+    """``--bf16``: phase 17 alone; its row in ``bf16.json`` in
+    ``OUT_DIR``."""
+    build.build_all(["lstm_seq", "gru_seq", "opt_update", "ctc", "crf",
+                     "flash_attn", "gru_cell", "lstm_cell"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        row = check_bf16(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "bf16.json"), "w") as f:
+        json.dump(row, f, indent=1)
+    return row
+
+
+def _bf16_entries(row):
+    """K1-K4's bf16 forms in the kernels line: the launches of phase 17's
+    runs (the classifier's train, test and time jobs; the acoustic
+    model's train and test), the times at the path's shapes."""
+    lstm_src = "paddle_tpu_torch/csrc/lstm_seq.cu"
+    gru_src = "paddle_tpu_torch/csrc/gru_seq.cu"
+    cl, ac = row["classifier"], row["acoustic"]
+    l_row, g_row = row["lstm_shapes"][0], row["gru_shapes"][0]
+    l_err = lambda k: max(r[k] for r in row["lstm_shapes"])
+    g_err = lambda k: max(r[k] for r in row["gru_shapes"])
+
+    def entry(name, src, replaces, launches, err, r, key, path):
+        return dict(_entry(name, src, replaces, launches, err, r, key),
+                    shape={k: r[k] for k in ("B", "H", "T")},
+                    device_ms=r[key + "device_ms"],
+                    f32_ms=r[key + "f32_ms"],
+                    f32_device_ms=r[key + "f32_device_ms"],
+                    dtype="bfloat16", kernel_route="persistent", path=path,
+                    library="none: nn.LSTM has no peepholes" if "lstm" in name
+                    else "none: nn.GRU applies its reset gate after the "
+                         "product")
+
+    return [
+        entry("lstm_seq_bf16", lstm_src,
+              "paddle_tpu/ops/lstm.py:45 (lstm_sequence_ref at bf16; the "
+              "Pallas sites :145, :287 refuse bf16)",
+              cl["test_kernels"]["lstm_seq_bf16"]["launches"]
+              + cl["time_kernels"]["lstm_seq_bf16"]["launches"],
+              l_err("primal_max_abs_err"), l_row, "primal_",
+              "lstm_text_classifier --compute_dtype bfloat16 test and time "
+              "(lstm0)"),
+        entry("lstm_seq_train_bf16", lstm_src,
+              "paddle_tpu/ops/lstm.py:45 (lstm_sequence_ref at bf16; the "
+              "Pallas sites :145, :287 refuse bf16)",
+              cl["kernels"]["lstm_seq_train_bf16"]["launches"],
+              l_err("fwd_max_abs_err"), l_row, "fwd_",
+              "lstm_text_classifier --compute_dtype bfloat16 train (lstm0)"),
+        entry("lstm_bwd_chain_bf16", lstm_src,
+              "jax.vjp of paddle_tpu/ops/lstm.py:45 (lstm_sequence_ref at "
+              "bf16)", cl["kernels"]["lstm_bwd_chain_bf16"]["launches"],
+              l_err("chain_max_abs_err"), l_row, "chain_",
+              "lstm_text_classifier --compute_dtype bfloat16 train (lstm0)"),
+        entry("gru_seq_bf16", gru_src,
+              "paddle_tpu/ops/gru.py:33 (gru_sequence_ref at bf16; the "
+              "Pallas site :109 refuses bf16)",
+              ac["test_kernels"]["gru_seq_bf16"]["launches"],
+              g_err("primal_max_abs_err"), g_row, "primal_",
+              "CTC acoustic model --compute_dtype bfloat16 test (layer 1)"),
+        entry("gru_seq_train_bf16", gru_src,
+              "paddle_tpu/ops/gru.py:33 (gru_sequence_ref at bf16; the "
+              "Pallas site :109 refuses bf16)",
+              ac["kernels"]["gru_seq_train_bf16"]["launches"],
+              g_err("fwd_max_abs_err"), g_row, "fwd_",
+              "CTC acoustic model --compute_dtype bfloat16 train (layer 1, "
+              "both directions)"),
+        entry("gru_bwd_chain_bf16", gru_src,
+              "jax.vjp of paddle_tpu/ops/gru.py:33 (gru_sequence_ref at "
+              "bf16)", ac["kernels"]["gru_bwd_chain_bf16"]["launches"],
+              g_err("chain_max_abs_err"), g_row, "chain_",
+              "CTC acoustic model --compute_dtype bfloat16 train (layer 1, "
+              "both directions)"),
+    ]
+
+
 def _opt_keys(row):
     """The grouped optimizer kernel's list and its other times for its
     entry."""
@@ -8843,6 +9653,11 @@ def main() -> int:
                         "batching against convoy, the bf16 and int8 tiers "
                         "with their gate, int8 generation), after one "
                         "training pass of the classifier and of seq2seq")
+    parser.add_argument("--bf16", action="store_true",
+                        help="only phase 17, mixed-precision training (the "
+                        "bf16 forms of the LSTM and GRU sequence kernels, "
+                        "the classifier and the acoustic model at "
+                        "--compute_dtype bfloat16, the refusals)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "
@@ -8887,6 +9702,9 @@ def main() -> int:
     if args.serving:
         serving()
         return 0
+    if args.bf16:
+        bf16()
+        return 0
     seconds = {}  # each phase's wall time
 
     def timed(name, fn, *args, **kw):
@@ -8929,6 +9747,10 @@ def main() -> int:
         tag_served = timed("tagger_serve", serve_tagger, tmp, tag_conf,
                            tag_model)
         acoustic = timed("acoustic", train_acoustic, tmp)
+        # phase 17 after the paths it runs at bf16 (8, 11c), beside their
+        # f32 traces
+        bf16_row = timed("bf16", check_bf16, tmp,
+                         (trained["step_trace"], acoustic["step_trace"]))
         image = timed("image", check_image, tmp)
         training_row = timed("training", check_training, tmp,
                              trained["pass_costs"])
@@ -9391,6 +10213,7 @@ def main() -> int:
              library="torch.nn.functional.ctc_loss backward",
              on_path=False, kernel_route="sorted",
              path="none: no path's classes overflow the staged pass"),
+        *_bf16_entries(bf16_row),
     ]
     for e in entries:
         if "ds2_release_launches" in e and e["ds2_release_launches"] <= 0:
@@ -9432,7 +10255,7 @@ def main() -> int:
                    "tagger": tagger, "tagger_serve": tag_served,
                    "acoustic": acoustic, "training": training_row,
                    "layers": layers_row, "last_types": last_row,
-                   "serving_tier": serve_row,
+                   "serving_tier": serve_row, "bf16": bf16_row,
                    "elapsed_s": elapsed,
                    "phase_seconds": seconds,
                    **kernels},

@@ -93,6 +93,18 @@
 // a row-major [H, 2H] / [H, H] block; the wrapper checks that the columns
 // are contiguous (stride 1) and passes the row stride.
 //
+// bf16 (--compute_dtype bfloat16): gru_persistent_kernel and
+// gru_bwd_chain_kernel are templated on the storage type (persistent.cuh:
+// Store), as in lstm_seq.cu: bf16 operands widened into the f32 forms'
+// shared memory (persistent_smem unchanged), f32 arithmetic, bf16
+// roundings where the reference's scan gru_sequence_ref rounds (each
+// product once, x + product, sigmoid as 1 / (1 + exp(-x)), r * h, and
+// h - z h + z c term by term; ys takes that last sum unrounded). The
+// state crosses blocks through the f32 pair h in both forms; the chain
+// exchanges its gradients through an f32 dxs scratch beside the bf16
+// dxs it returns, rounding dy, da_z, da_c, da_r, each product and the dh
+// carry at the step's last sum.
+//
 // Bound on the H100 (SXM, 700 W): the two products are 2 * B * H * 3H
 // operations per step at the f32 rate outside the tensor cores
 // (67 TFLOP/s), the backward chain's three 6 B H^2; the bytes are xs, ys
@@ -597,16 +609,28 @@ __device__ __forceinline__ void block_product(
 // The forward sequence, one launch. kResidual: writes hs and gates (h
 // unused); otherwise the state ping-pongs in h [2, B, H] (h[0] = h0 on
 // entry, h[T % 2] = hT on return; hs, gates unused).
-template <bool kResidual>
+//
+// The bf16 form (S = bf16): xs (bias folded in bf16, as the reference adds
+// it), the weights, hs and gates in bf16, ys in f32; the weights and x
+// widened into the same f32 shared memory. The state crosses blocks
+// through the f32 pair h in both forms (h0 = h[0], widened), and the
+// residual form also stores it into hs. Every operation rounds to bf16,
+// as the reference's scan: each product once after its f32 sum, x + the
+// product, sigmoid_bf16, r * h, and h - z h + z c term by term; ys takes
+// that last sum unrounded (the reference's f32 output does).
+template <bool kResidual, class S>
 __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
-    const float* __restrict__ xs,    // [T, B, 3H], bias folded
+    const S* __restrict__ xs,        // [T, B, 3H], bias folded
     const float* __restrict__ mask,  // [T, B]
-    const float* __restrict__ wg,    // [H, 2H], leading dim ldg
-    const float* __restrict__ w_s,   // [H, H], leading dim lds
+    const S* __restrict__ wg,        // [H, 2H], leading dim ldg
+    const S* __restrict__ w_s,       // [H, H], leading dim lds
     const float* __restrict__ h0,    // [B, H]
-    float* h, float* __restrict__ ys, float* hs, float* __restrict__ gates,
+    float* h, float* __restrict__ ys, S* hs, S* __restrict__ gates,
     float* rh, unsigned* count, int ldg, int lds, int T, int B, int H, int U,
     int kc) {
+  using St = Store<S>;
+  // the state's exchange: h's ping-pong, or (the f32 residual form) hs
+  constexpr bool kPing = !kResidual || !St::kF32;
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   const int u0 = blockIdx.x * U;
@@ -623,12 +647,12 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
   // the x columns of the block's units and the mask of step t, into
   // buffer t & 1 (read-only inputs: a step ahead, through L1)
   auto prefetch = [&](int t) {
-    const float* x_t = xs + static_cast<size_t>(t) * B * H3;
+    const S* x_t = xs + static_cast<size_t>(t) * B * H3;
     float* xb = x_own + (t & 1) * 3 * B * U;
     for (int i = threadIdx.x; i < 3 * B * up; i += kPThreads) {
       const int b = i / (3 * up), cu = i % (3 * up);
       const int g = cu / up, u = cu % up;
-      cp_async4(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
+      stage_elem(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
     }
     for (int b = threadIdx.x; b < B; b += kPThreads)
       cp_async4(m_own + (t & 1) * B + b,
@@ -638,12 +662,12 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
   for (int i = threadIdx.x; i < 2 * up * H; i += kPThreads) {
     const int k = i / (2 * up), cu = i % (2 * up);
     const int g = cu / up, u = cu % up;
-    cp_async4(wa + cu * H + k,
-              wg + static_cast<size_t>(k) * ldg + g * H + u0 + u);
+    stage_elem(wa + cu * H + k,
+               wg + static_cast<size_t>(k) * ldg + g * H + u0 + u);
   }
   for (int i = threadIdx.x; i < up * H; i += kPThreads) {
     const int k = i / up, u = i % up;
-    cp_async4(wb + u * H + k, w_s + static_cast<size_t>(k) * lds + u0 + u);
+    stage_elem(wb + u * H + k, w_s + static_cast<size_t>(k) * lds + u0 + u);
   }
   prefetch(0);
   cp_async_commit();
@@ -656,12 +680,15 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
 
   unsigned arrivals = 0;
   for (int t = 0; t < T; ++t) {
-    const float* h_prev =
-        kResidual ? (t ? hs + (t - 1) * bh : h0) : h + (t & 1) * bh;
+    const float* h_prev;
+    if constexpr (kPing) {
+      h_prev = h + (t & 1) * bh;
+    } else {
+      h_prev = t ? hs + (t - 1) * bh : h0;
+    }
     const float* xb = x_own + (t & 1) * 3 * B * U;
     const float* mb = m_own + (t & 1) * B;
-    float* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3
-                           : nullptr;
+    S* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3 : nullptr;
     if (t + 1 < T) {
       prefetch(t + 1);
       cp_async_commit();
@@ -669,35 +696,50 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
     block_product(h_prev, H, H, wa, H, 2 * up, B, kc, stage,
                   [&](int b, int c, float acc) {
                     const int g = c >= up, u = c - g * up, j = u0 + u;
-                    const float v =
-                        sigmoid_f(xb[b * 3 * U + g * U + u] + acc);
+                    const float xa = xb[b * 3 * U + g * U + u];
+                    float v;
+                    if constexpr (St::kF32) {
+                      v = sigmoid_f(xa + acc);
+                    } else {
+                      v = sigmoid_bf16(St::r(xa + St::r(acc)));
+                    }
                     if (g == 0) {
                       z_own[b * U + u] = v;
                     } else {
-                      rh[b * H + j] = v * h_own[b * U + u];
+                      rh[b * H + j] = St::r(v * h_own[b * U + u]);
                     }
-                    if (kResidual) g_t[b * H3 + g * H + j] = v;
+                    if (kResidual) St::st(g_t + b * H3 + g * H + j, v);
                   });
     arrivals += gridDim.x;
     grid_barrier(count, arrivals);
     block_product(rh, H, H, wb, H, up, B, kc, stage,
                   [&](int b, int u, float acc) {
                     const int j = u0 + u;
-                    const float c = tanhf(xb[b * 3 * U + 2 * U + u] + acc);
+                    const float xc = xb[b * 3 * U + 2 * U + u];
                     const float hp = h_own[b * U + u];
                     const float z = z_own[b * U + u];
-                    const float h_new = (hp - z * hp) + z * c;
+                    float c, h_new, y;
+                    if constexpr (St::kF32) {
+                      c = tanhf(xc + acc);
+                      h_new = (hp - z * hp) + z * c;
+                      y = h_new;
+                    } else {
+                      c = St::r(tanhf(St::r(xc + St::r(acc))));
+                      y = St::r(hp - St::r(z * hp)) + St::r(z * c);
+                      h_new = St::r(y);
+                    }
                     const float m = mb[b];
                     const float hn = m > 0.0f ? h_new : hp;
                     h_own[b * U + u] = hn;
                     const size_t o = static_cast<size_t>(t) * bh +
                                      static_cast<size_t>(b) * H + j;
-                    ys[o] = h_new * m;
-                    if (kResidual) {
-                      hs[o] = hn;
-                      g_t[b * H3 + 2 * H + j] = c;
-                    } else {
+                    ys[o] = y * m;
+                    if constexpr (kPing) {
                       h[((t + 1) & 1) * bh + b * H + j] = hn;
+                    }
+                    if (kResidual) {
+                      St::st(hs + o, hn);
+                      St::st(g_t + b * H3 + 2 * H + j, c);
                     }
                   });
     if (t + 1 < T) {
@@ -710,17 +752,27 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
 // The backward's reverse chain, one launch: dxs [T, B, 3H] and dh0 from
 // the residuals (hs, gates), the cotangents dys and dhT. Block p holds the
 // rows of Wg (2H) and Ws (H) of its units and their dh carry.
+//
+// The bf16 form (S = bf16): the residuals, h0, the weights, dhT, dh0 and
+// dxs_out in bf16; dys in f32; dxs an f32 scratch [T, B, 3H] through which
+// the blocks exchange the gradients the products read (the bf16 values,
+// widened; in the f32 form dxs is the output and dxs_out unused). Each
+// step computes in f32 from the widened inputs and rounds where the
+// reference holds bf16 values: dy as it meets h_new, da_z, da_c, da_r,
+// each product's result, and the dh carry at the step's last sum.
+template <class S>
 __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
     const float* __restrict__ dys,    // [T, B, H]
     const float* __restrict__ mask,   // [T, B]
-    const float* __restrict__ gates,  // [T, B, 3H]: z, r, c
-    const float* __restrict__ h0,     // [B, H]
-    const float* __restrict__ hs,     // [T, B, H]
-    const float* __restrict__ wg,     // [H, 2H], leading dim ldg
-    const float* __restrict__ w_s,    // [H, H], leading dim lds
-    const float* __restrict__ dhT,    // [B, H]
-    float* dxs, float* __restrict__ dh0, unsigned* count, int ldg, int lds,
-    int T, int B, int H, int U, int kc) {
+    const S* __restrict__ gates,      // [T, B, 3H]: z, r, c
+    const S* __restrict__ h0,         // [B, H]
+    const S* __restrict__ hs,         // [T, B, H]
+    const S* __restrict__ wg,         // [H, 2H], leading dim ldg
+    const S* __restrict__ w_s,        // [H, H], leading dim lds
+    const S* __restrict__ dhT,        // [B, H]
+    float* dxs, S* __restrict__ dxs_out, S* __restrict__ dh0,
+    unsigned* count, int ldg, int lds, int T, int B, int H, int U, int kc) {
+  using St = Store<S>;
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   const int u0 = blockIdx.x * U;
@@ -737,16 +789,19 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
   // the inputs of reverse step t for the block's units, into buffer t & 1
   // (read-only: a step ahead, through L1)
   auto prefetch = [&](int t) {
-    const float* g_t = gates + static_cast<size_t>(t) * B * H3;
-    const float* h_pv = t ? hs + (t - 1) * bh : h0;
+    const S* g_t = gates + static_cast<size_t>(t) * B * H3;
+    const S* h_pv = t ? hs + (t - 1) * bh : h0;
     const float* dy = dys + static_cast<size_t>(t) * bh;
     float* ib = in_own + (t & 1) * 5 * B * U;
     for (int i = threadIdx.x; i < 5 * B * up; i += kPThreads) {
       const int b = i / (5 * up), cu = i % (5 * up);
       const int g = cu / up, u = cu % up, j = u0 + u;
-      const float* src = g < 3 ? g_t + b * H3 + g * H + j
-                               : (g == 3 ? h_pv : dy) + b * H + j;
-      cp_async4(ib + b * 5 * U + g * U + u, src);
+      float* dst = ib + b * 5 * U + g * U + u;
+      if (g == 4) {
+        cp_async4(dst, dy + b * H + j);
+      } else {
+        stage_elem(dst, g < 3 ? g_t + b * H3 + g * H + j : h_pv + b * H + j);
+      }
     }
     for (int b = threadIdx.x; b < B; b += kPThreads)
       cp_async4(m_own + (t & 1) * B + b,
@@ -755,17 +810,17 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
 
   for (int i = threadIdx.x; i < up * H; i += kPThreads) {
     const int u = i / H, k = i % H;
-    cp_async4(w2 + i, w_s + static_cast<size_t>(u0 + u) * lds + k);
+    stage_elem(w2 + i, w_s + static_cast<size_t>(u0 + u) * lds + k);
   }
   for (int i = threadIdx.x; i < up * 2 * H; i += kPThreads) {
     const int u = i / (2 * H), k = i % (2 * H);
-    cp_async4(w3 + i, wg + static_cast<size_t>(u0 + u) * ldg + k);
+    stage_elem(w3 + i, wg + static_cast<size_t>(u0 + u) * ldg + k);
   }
   prefetch(T - 1);
   cp_async_commit();
   for (int i = threadIdx.x; i < B * up; i += kPThreads) {
     const int b = i / up, u = i % up;
-    dh[b * U + u] = dhT[b * H + u0 + u];
+    dh[b * U + u] = St::ld(dhT + b * H + u0 + u);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -788,22 +843,36 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
       const float c = in[2 * U + u];
       const float hp = in[3 * U + u];
       const float d = dh[b * U + u];
-      const float dh_new = m * (d + in[4 * U + u]);
+      const float dh_new = m * (d + St::r(in[4 * U + u]));
       const float dz = dh_new * (c - hp);
-      dx_t[b * H3 + 2 * H + j] = (dh_new * z) * (1.0f - c * c);
-      dx_t[b * H3 + j] = (dz * z) * (1.0f - z);
+      const float da_c = St::r((dh_new * z) * (1.0f - c * c));
+      const float da_z = St::r((dz * z) * (1.0f - z));
+      dx_t[b * H3 + 2 * H + j] = da_c;
+      dx_t[b * H3 + j] = da_z;
+      if constexpr (!St::kF32) {
+        S* o = dxs_out + static_cast<size_t>(t) * B * H3 + b * H3;
+        St::st(o + 2 * H + j, da_c);
+        St::st(o + j, da_z);
+      }
       dh[b * U + u] = (1.0f - m) * d + dh_new * (1.0f - z);
     }
     arrivals += gridDim.x;
     grid_barrier(count, arrivals);
     // 2. drh = da_c @ Ws^T for the block's units; da_r; + drh * r
     block_product(dx_t + 2 * H, H3, H, w2, H, up, B, kc, stage,
-                  [&](int b, int u, float drh) {
+                  [&](int b, int u, float p) {
                     const int j = u0 + u;
                     const float* in = ib + b * 5 * U;
                     const float r = in[U + u];
+                    const float drh = St::r(p);
                     const float dr = drh * in[3 * U + u];
-                    dx_t[b * H3 + H + j] = (dr * r) * (1.0f - r);
+                    const float da_r = St::r((dr * r) * (1.0f - r));
+                    dx_t[b * H3 + H + j] = da_r;
+                    if constexpr (!St::kF32) {
+                      St::st(dxs_out + static_cast<size_t>(t) * B * H3 +
+                                 b * H3 + H + j,
+                             da_r);
+                    }
                     dh[b * U + u] = dh[b * U + u] + drh * r;
                   });
     // 3. + da_z @ Wg[:, :H]^T (every da_z is out since the barrier
@@ -813,23 +882,70 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
     grid_arrive(count);
     block_product(dx_t, H3, H, w3, 2 * H, up, B, kc, stage,
                   [&](int b, int u, float p) {
-                    dh[b * U + u] = dh[b * U + u] + p;
+                    dh[b * U + u] = dh[b * U + u] + St::r(p);
                   });
     grid_wait(count, arrivals);
     block_product(dx_t + H, H3, H, w3 + H, 2 * H, up, B, kc, stage,
                   [&](int b, int u, float p) {
-                    dh[b * U + u] = dh[b * U + u] + p;
+                    dh[b * U + u] = St::r(dh[b * U + u] + St::r(p));
                   });
   }
   for (int i = threadIdx.x; i < B * up; i += kPThreads) {
     const int b = i / up, u = i % up;
-    dh0[b * H + u0 + u] = dh[b * U + u];
+    St::st(dh0 + b * H + u0 + u, dh[b * U + u]);
   }
 }
 
 bool bad_plan(int B, int H, int U, int kc) {
   return B < 1 || H < 4 || H % 4 != 0 || U < 1 || kc < 4 || kc % 4 != 0 ||
          slices_of(B, 2 * U) == 0;
+}
+
+// The forward launch of either form: the kernel's arguments in order (the
+// pointers of the storage type S pass untyped: the form picks the kernel).
+template <class S>
+int forward_persistent(const void* xs, const float* mask, const void* wg,
+                       const void* w_s, const float* h0, float* h, float* ys,
+                       void* hs, void* gates, float* rh, unsigned* count,
+                       int residual, int ldg, int lds, int T, int B, int H,
+                       int U, int kc, cudaStream_t s) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs, &mask, &wg, &w_s, &h0, &h, &ys, &hs, &gates, &rh,
+                  &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  const int grid = (H + U - 1) / U;
+  const long long smem = persistent_smem(B, H, U, kc, false);
+  return residual
+             ? launch_cooperative(
+                   (const void*)gru_persistent_kernel<true, S>,
+                   grid, smem, args, s)
+             : launch_cooperative(
+                   (const void*)gru_persistent_kernel<false, S>,
+                   grid, smem, args, s);
+}
+
+// The chain's launch of either form.
+template <class S>
+int chain_launch(const float* dys, const float* mask, const void* gates,
+                 const void* h0, const void* hs, const void* wg,
+                 const void* w_s, const void* dhT, float* dxs, void* dxs_out,
+                 void* dh0, unsigned* count, int ldg, int lds, int T, int B,
+                 int H, int U, int kc, cudaStream_t s) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  if (T == 0) {
+    return static_cast<int>(cudaMemcpyAsync(
+        dh0, dhT, sizeof(S) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &h0, &hs, &wg, &w_s, &dhT, &dxs,
+                  &dxs_out, &dh0, &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  return launch_cooperative(
+      (const void*)gru_bwd_chain_kernel<S>,
+      (H + U - 1) / U, persistent_smem(B, H, U, kc, true), args, s);
 }
 
 }  // namespace
@@ -844,55 +960,37 @@ extern "C" long long gru_persistent_smem(int B, int H, int U, int kc,
 // The forward sequence on the persistent route: one cooperative launch of
 // ceil(H / U) blocks, U units each, staging chunks of kc floats (a
 // multiple of 4; H % 4 == 0). residual != 0: the residual form (ys, hs,
-// gates from h0; h unused), else the primal form (h [2, B, H] with
-// h[0] = h0; hT in h[T % 2]). rh ([B, H]) and count (one unsigned, zeroed
-// here on the stream) are scratch. Returns 0, a CUDA error, -1/-2/-3 (see
-// launch_cooperative) or -4 (a plan the kernel does not take).
+// gates), else the primal form (hT in h[T % 2]). bf16_form == 0: the f32 form,
+// every tensor f32; the residual form starts from h0 (h unused), the
+// primal form from h [2, B, H] with h[0] = h0. bf16_form != 0: the bf16 form,
+// xs, the weights, hs and gates in bf16; h ([2, B, H] f32, h[0] = h0
+// widened, h0 pointing at it) the blocks' exchange of the state in both
+// forms. ys is f32 in both. rh ([B, H] f32) and count (one unsigned,
+// zeroed here on the stream) are scratch. Returns 0, a CUDA error,
+// -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel does not
+// take).
 extern "C" int gru_seq_forward_persistent(
-    const float* xs, const float* mask, const float* wg, const float* w_s,
-    const float* h0, float* h, float* ys, float* hs, float* gates, float* rh,
-    unsigned* count, int residual, int ldg, int lds, int T, int B, int H,
-    int U, int kc, void* stream) {
-  if (T == 0 || B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U, kc)) return -4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xs, &mask, &wg, &w_s, &h0, &h, &ys, &hs, &gates, &rh,
-                  &count, &ldg, &lds, &T, &B, &H, &U, &kc};
-  const int grid = (H + U - 1) / U;
-  const long long smem = persistent_smem(B, H, U, kc, false);
-  return residual
-             ? launch_cooperative(
-                   (const void*)gru_persistent_kernel<true>,
-                   grid, smem, args, s)
-             : launch_cooperative(
-                   (const void*)gru_persistent_kernel<false>,
-                   grid, smem, args, s);
+    const void* xs, const float* mask, const void* wg, const void* w_s,
+    const float* h0, float* h, float* ys, void* hs, void* gates, float* rh,
+    unsigned* count, int residual, int bf16_form, int ldg, int lds, int T,
+    int B, int H, int U, int kc, void* stream) {
+  return (bf16_form ? forward_persistent<bf16> : forward_persistent<float>)(
+      xs, mask, wg, w_s, h0, h, ys, hs, gates, rh, count, residual, ldg, lds,
+      T, B, H, U, kc, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's reverse chain on the persistent route: dxs ([T, B, 3H])
-// and dh0 ([B, H]) from the residuals of the forward. Same plan, scratch
-// and error contract as gru_seq_forward_persistent.
-extern "C" int gru_bwd_chain_launch(const float* dys, const float* mask,
-                                    const float* gates, const float* h0,
-                                    const float* hs, const float* wg,
-                                    const float* w_s, const float* dhT,
-                                    float* dxs, float* dh0, unsigned* count,
-                                    int ldg, int lds, int T, int B, int H,
-                                    int U, int kc, void* stream) {
-  if (B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U, kc)) return -4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T == 0) {
-    return static_cast<int>(cudaMemcpyAsync(
-        dh0, dhT, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, s));
-  }
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&dys, &mask, &gates, &h0,  &hs,  &wg, &w_s, &dhT, &dxs,
-                  &dh0, &count, &ldg, &lds, &T, &B, &H, &U, &kc};
-  return launch_cooperative(
-      (const void*)gru_bwd_chain_kernel,
-      (H + U - 1) / U, persistent_smem(B, H, U, kc, true), args, s);
+// and dh0 ([B, H]) from the residuals of the forward. bf16_form != 0: the bf16
+// form, the residuals, h0, the weights, dhT, dxs_out and dh0 in bf16, dxs
+// ([T, B, 3H] f32) the blocks' exchange of the gradients; else every
+// tensor f32 (dxs_out unused). dys is f32 in both. Same plan, scratch and
+// error contract as gru_seq_forward_persistent.
+extern "C" int gru_bwd_chain_launch(
+    const float* dys, const float* mask, const void* gates, const void* h0,
+    const void* hs, const void* wg, const void* w_s, const void* dhT,
+    float* dxs, void* dxs_out, void* dh0, unsigned* count, int bf16_form,
+    int ldg, int lds, int T, int B, int H, int U, int kc, void* stream) {
+  return (bf16_form ? chain_launch<bf16> : chain_launch<float>)(
+      dys, mask, gates, h0, hs, wg, w_s, dhT, dxs, dxs_out, dh0, count, ldg,
+      lds, T, B, H, U, kc, static_cast<cudaStream_t>(stream));
 }

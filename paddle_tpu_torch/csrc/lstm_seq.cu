@@ -1,6 +1,7 @@
 // Masked peephole-LSTM sequence recurrence, f32, for Hopper (sm_90a):
 // the forward in its primal and its residual (training) form, and the
-// backward's per-step gate-gradient chain.
+// backward's per-step gate-gradient chain. The persistent kernels also
+// have a bf16 form (S = bf16, the _bf16 entry points; see "bf16" below).
 //
 // Forward. Replaces the TPU kernels paddle_tpu/ops/lstm.py:_lstm_kernel
 // (the recurrent weight resident in VMEM, h <= 512) and _lstm_kernel_tiled
@@ -84,6 +85,28 @@
 //    between steps stay torch.matmul in the wrapper, as JAX leaves them to
 //    XLA. That step is bound by bytes: per element of [B, H] it reads 10
 //    and writes 6 floats, against ~40 operations.
+//
+// bf16 (--compute_dtype bfloat16). The reference's Pallas kernels cannot
+// run in bf16 with an f32 mask (their h_new * m is f32, stored into a
+// bf16 ref), so what the JAX package computes is its scan
+// lstm_sequence_ref under jax.vjp, every operation rounded to bf16. The
+// bf16 forms of lstm_persistent_kernel and lstm_bwd_chain_kernel are the
+// f32 ones templated on the storage type (persistent.cuh: Store): the
+// operands are read as bf16 and widened, the weight into the same f32
+// shared rows (so lstm_smem and the plans hold unchanged), the arithmetic
+// is f32 in registers, and the kernels round to bf16 where the reference
+// does. Forward: the product once after its f32 sum; x_t + product, then
+// + bias (not folded into xs: the reference adds it third); each gate's
+// and the cell's operations (sigmoid as 1 / (1 + exp(-x)), three
+// roundings); ys = og * tanh(c) * mask in f32, unrounded as the
+// reference's f32 output is; h and c carried as bf16 values. h_t crosses
+// blocks through the f32 hbuf as in the f32 form, and the residual form
+// also stores it into the bf16 hs. Chain: every step in f32 from the
+// widened residuals, rounding dy as it meets h_new, the product once after
+// its 16 partials' f32 sum, dh_in = carry + product, dgates (dgs, the
+// exchange, holds the rounded values widened) and the dc carry. dW stays
+// one product after the chain (bf16 operands, f32 accumulation, rounded
+// once), where the reference accumulates it in bf16 step by step.
 //
 // Bound on the H100 (SXM, 700 W): the recurrent product is
 // 2 * B * H * 4H operations per step, at the f32 rate outside the tensor
@@ -500,17 +523,30 @@ __device__ __forceinline__ void hand_over(float (&acc)[RPL][CPL], bool give,
 // h and c in registers, and writes ys, h_t into hbuf[t] (hs in the
 // residual form), and in the residual form cs and gates; in the primal
 // form cT goes to c_out.
-template <bool kResidual, int RPL, int U>
+//
+// The bf16 form (S = bf16): xs, W, the peepholes, the unfolded gate bias,
+// c0 and the residuals hs, cs, gates and cT in bf16; ys in f32; W widened
+// into the same f32 shared rows. h_t crosses blocks through hbuf in f32
+// (the bf16 values, widened: staged exactly as the f32 form stages them;
+// h0 arrives widened) and, in the residual form, is also stored into hs.
+// The cell rounds to bf16 after every operation, as the reference's scan
+// does in bf16: the product once after its f32 sum, x_t + h W + bias in
+// that order, sigmoid as 1 / (1 + exp(-x)) (sigmoid_bf16); ys = og *
+// tanh(c) * mask, the product exact in f32 (the reference's f32 output
+// skips h_new's rounding).
+template <bool kResidual, int RPL, int U, class S>
 __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
-    const float* __restrict__ xs,    // [T, B, 4H], bias folded
+    const S* __restrict__ xs,        // [T, B, 4H], f32: bias folded
     const float* __restrict__ mask,  // [T, B]
-    const float* __restrict__ w,     // [H, 4H], leading dim ldw
-    const float* __restrict__ p_i, const float* __restrict__ p_f,
-    const float* __restrict__ p_o,   // [H] each
-    const float* __restrict__ h0, const float* __restrict__ c0,  // [B, H]
-    float* hbuf, float* __restrict__ c_out, float* __restrict__ ys,
-    float* __restrict__ cs, float* __restrict__ gates, unsigned* count,
-    int ldw, int T, int B, int H) {
+    const S* __restrict__ w,         // [H, 4H], leading dim ldw
+    const S* __restrict__ p_i, const S* __restrict__ p_f,
+    const S* __restrict__ p_o,       // [H] each
+    const S* __restrict__ bias,      // [4H], bf16 only
+    const float* __restrict__ h0, const S* __restrict__ c0,  // [B, H]
+    float* hbuf, S* __restrict__ c_out, float* __restrict__ ys,
+    S* __restrict__ cs, S* __restrict__ gates, S* __restrict__ hs,
+    unsigned* count, int ldw, int T, int B, int H) {
+  using St = Store<S>;
   extern __shared__ float4 smem4[];
   const int lw = padded_ld(H);
   float* const ws = reinterpret_cast<float*>(smem4);  // [4U][lw]
@@ -522,8 +558,8 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   for (int i = threadIdx.x; i < 4 * up * H; i += kPThreads) {
     const int k = i / (4 * up), n = i % (4 * up);
     const int g = n / up, u = n % up;
-    cp_async4(ws + (4 * u + g) * lw + k,
-              w + static_cast<size_t>(k) * ldw + g * H + u0 + u);
+    stage_elem(ws + (4 * u + g) * lw + k,
+               w + static_cast<size_t>(k) * ldw + g * H + u0 + u);
   }
   cp_async_commit();
   const int mw = fwd_rows(B).mw, KW = kWarps / mw;
@@ -544,7 +580,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   bool mine[kPairs];
   int cb[kPairs], cu[kPairs];
   float hc[kPairs], cc[kPairs], pi[kPairs], pf[kPairs], po[kPairs],
-      x[kPairs][4], m[kPairs];
+      x[kPairs][4], m[kPairs], bb[kPairs][4];
 #pragma unroll
   for (int e = 0; e < kPairs; ++e) {
     const int c = threadIdx.x + e * kPThreads;
@@ -554,10 +590,14 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
     if (mine[e]) {
       const int j = u0 + cu[e];
       hc[e] = h0[cb[e] * H + j];
-      cc[e] = c0[cb[e] * H + j];
-      pi[e] = p_i[j];
-      pf[e] = p_f[j];
-      po[e] = p_o[j];
+      cc[e] = St::ld(c0 + cb[e] * H + j);
+      pi[e] = St::ld(p_i + j);
+      pf[e] = St::ld(p_f + j);
+      po[e] = St::ld(p_o + j);
+      if constexpr (!St::kF32) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) bb[e][g] = St::ld(bias + g * H + j);
+      }
     }
   }
   cp_async_wait<0>();
@@ -570,10 +610,10 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
       if (mine[e]) {
-        const float* xr = xs + (static_cast<size_t>(t) * B + cb[e]) * H4 +
-                          u0 + cu[e];
+        const S* xr = xs + (static_cast<size_t>(t) * B + cb[e]) * H4 +
+                      u0 + cu[e];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[e][g] = xr[g * H];
+        for (int g = 0; g < 4; ++g) x[e][g] = St::ld(xr + g * H);
         m[e] = mask[static_cast<size_t>(t) * B + cb[e]];
       }
     }
@@ -644,24 +684,42 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
       const size_t o = static_cast<size_t>(t) * bh +
                        static_cast<size_t>(b) * H + j;
       const float cp = cc[e];
-      const float in = tanhf(x[e][0] + a.x);
-      const float ig = sigmoid_f(x[e][1] + a.y + cp * pi[e]);
-      const float fg = sigmoid_f(x[e][2] + a.z + cp * pf[e]);
-      const float c_new = in * ig + cp * fg;
-      const float og = sigmoid_f(x[e][3] + a.w + c_new * po[e]);
-      const float h_new = og * tanhf(c_new);
+      float in, ig, fg, c_new, og, h_new, y;
+      if constexpr (St::kF32) {
+        in = tanhf(x[e][0] + a.x);
+        ig = sigmoid_f(x[e][1] + a.y + cp * pi[e]);
+        fg = sigmoid_f(x[e][2] + a.z + cp * pf[e]);
+        c_new = in * ig + cp * fg;
+        og = sigmoid_f(x[e][3] + a.w + c_new * po[e]);
+        h_new = og * tanhf(c_new);
+        y = h_new;
+      } else {
+        // gates = x_t + h @ W + bias, each sum rounded
+        const float g0 = St::r(St::r(x[e][0] + St::r(a.x)) + bb[e][0]);
+        const float g1 = St::r(St::r(x[e][1] + St::r(a.y)) + bb[e][1]);
+        const float g2 = St::r(St::r(x[e][2] + St::r(a.z)) + bb[e][2]);
+        const float g3 = St::r(St::r(x[e][3] + St::r(a.w)) + bb[e][3]);
+        in = St::r(tanhf(g0));
+        ig = sigmoid_bf16(St::r(g1 + St::r(cp * pi[e])));
+        fg = sigmoid_bf16(St::r(g2 + St::r(cp * pf[e])));
+        c_new = St::r(St::r(in * ig) + St::r(cp * fg));
+        og = sigmoid_bf16(St::r(g3 + St::r(c_new * po[e])));
+        y = og * St::r(tanhf(c_new));  // exact in f32
+        h_new = St::r(y);
+      }
       const bool live = m[e] > 0.0f;
       const float hn = live ? h_new : hc[e];
       const float cn = live ? c_new : cp;
-      ys[o] = h_new * m[e];
+      ys[o] = y * m[e];
       hbuf[o] = hn;
       if (kResidual) {
-        cs[o] = cn;
-        float* gr = gates + (static_cast<size_t>(t) * B + b) * H4 + j;
-        gr[0] = in;
-        gr[H] = ig;
-        gr[2 * H] = fg;
-        gr[3 * H] = og;
+        if constexpr (!St::kF32) St::st(hs + o, hn);
+        St::st(cs + o, cn);
+        S* gr = gates + (static_cast<size_t>(t) * B + b) * H4 + j;
+        St::st(gr, in);
+        St::st(gr + H, ig);
+        St::st(gr + 2 * H, fg);
+        St::st(gr + 3 * H, og);
       }
       hc[e] = hn;
       cc[e] = cn;
@@ -676,7 +734,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   if (!kResidual) {
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
-      if (mine[e]) c_out[cb[e] * H + u0 + cu[e]] = cc[e];
+      if (mine[e]) St::st(c_out + cb[e] * H + u0 + cu[e], cc[e]);
     }
   }
 }
@@ -706,20 +764,29 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
 // per column group, each only growing: a block waits only for the blocks
 // whose output it reads; halves alternate by the parity of t, so that no
 // block overwrites a buffer another may still read.
-template <int RPL, int U>
+//
+// The bf16 form (S = bf16): the residuals, c0, W, the peepholes, dhT and
+// dcT in bf16, dys (the cotangent of the f32 ys) in f32; dxs, dh0 and dc0
+// written in bf16. Each step computes in f32 from the widened inputs and
+// rounds where the reference holds bf16 values: dy as it meets h_new, the
+// recurrent product once after the f32 sum of its 16 partials, dh_in =
+// carry + product, dgates_t (the exchange dgs holds the rounded values,
+// widened) and the dc carry.
+template <int RPL, int U, class S>
 __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     const float* __restrict__ dys,    // [T, B, H]
     const float* __restrict__ mask,   // [T, B]
-    const float* __restrict__ gates,  // [T, B, 4H] activated
-    const float* __restrict__ cs,     // [T, B, H]
-    const float* __restrict__ c0,     // [B, H]
-    const float* __restrict__ w,      // [H, 4H], leading dim ldw
-    const float* __restrict__ p_i, const float* __restrict__ p_f,
-    const float* __restrict__ p_o,    // [H] each
-    const float* __restrict__ dhT, const float* __restrict__ dcT,  // [B, H]
-    float* dxs, float* dgs, float* part, float* __restrict__ dh0,
-    float* __restrict__ dc0, unsigned* count, int ldw, int T, int B,
+    const S* __restrict__ gates,      // [T, B, 4H] activated
+    const S* __restrict__ cs,         // [T, B, H]
+    const S* __restrict__ c0,         // [B, H]
+    const S* __restrict__ w,          // [H, 4H], leading dim ldw
+    const S* __restrict__ p_i, const S* __restrict__ p_f,
+    const S* __restrict__ p_o,        // [H] each
+    const S* __restrict__ dhT, const S* __restrict__ dcT,  // [B, H]
+    S* dxs, float* dgs, float* part, S* __restrict__ dh0,
+    S* __restrict__ dc0, unsigned* count, int ldw, int T, int B,
     int H) {
+  using St = Store<S>;
   constexpr int C = kGroupCols, N = C * U, G2 = RPL > 1 ? RPL / 2 : 1;
   extern __shared__ float4 smem4[];
   float* const ws = reinterpret_cast<float*>(smem4);  // [N][lk]
@@ -740,7 +807,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     const int j = r * N + n, su = (s * C + c) * U + u;
     float* dst = ws + n * lk + k;
     if (j < H && su < H) {
-      cp_async4(dst, w + static_cast<size_t>(j) * ldw + g * H + su);
+      stage_elem(dst, w + static_cast<size_t>(j) * ldw + g * H + su);
     } else {
       *dst = 0.0f;
     }
@@ -758,11 +825,11 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     mine[e] = pb[e] < B && pu[e] < up;
     if (mine[e]) {
       const int j = u0 + pu[e];
-      dhc[e] = dhT[pb[e] * H + j];
-      dcc[e] = dcT[pb[e] * H + j];
-      pi[e] = p_i[j];
-      pf[e] = p_f[j];
-      po[e] = p_o[j];
+      dhc[e] = St::ld(dhT + pb[e] * H + j);
+      dcc[e] = St::ld(dcT + pb[e] * H + j);
+      pi[e] = St::ld(p_i + j);
+      pf[e] = St::ld(p_f + j);
+      po[e] = St::ld(p_o + j);
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -869,7 +936,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       float v = got[e][0];
 #pragma unroll
       for (int k = 1; k < C; ++k) v += got[e][k];
-      dh_in[e] = dhc[e] + v;
+      dh_in[e] = St::r(dhc[e] + St::r(v));
     }
   };
 
@@ -877,18 +944,18 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
   for (int t = T - 1; t >= 0; --t) {
     // this step's inputs of the own pairs, into registers (read-only)
     float gt[kPairs][4], c_new[kPairs], c_pv[kPairs], dy[kPairs], m[kPairs];
-    const float* c_prev = t ? cs + (t - 1) * bh : c0;
+    const S* c_prev = t ? cs + (t - 1) * bh : c0;
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
       if (!mine[e]) continue;
       const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
-      const float* gr = gates + static_cast<size_t>(t) * B * H4 +
-                        static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+      const S* gr = gates + static_cast<size_t>(t) * B * H4 +
+                    static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) gt[e][g] = gr[g * H];
-      c_new[e] = cs[t * bh + o];
-      c_pv[e] = c_prev[o];
-      dy[e] = dys[t * bh + o];
+      for (int g = 0; g < 4; ++g) gt[e][g] = St::ld(gr + g * H);
+      c_new[e] = St::ld(cs + t * bh + o);
+      c_pv[e] = St::ld(c_prev + o);
+      dy[e] = St::r(dys[t * bh + o]);
       m[e] = mask[static_cast<size_t>(t) * B + pb[e]];
     }
     float dh_in[kPairs];
@@ -904,7 +971,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       grid_wait(row_count, row_arrivals);
       reduce(t & 1, dh_in);
     }
-    float* dx_t = dxs + static_cast<size_t>(t) * B * H4;
+    S* dx_t = dxs + static_cast<size_t>(t) * B * H4;
     float* dg_t = dgs + static_cast<size_t>(t & 1) * dgs_half +
                   static_cast<size_t>(p) * B * 4 * U;
 #pragma unroll
@@ -921,19 +988,18 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       const float da_i = (dc_tot * ig) * (1.0f - i * i);
       const float da_ig = ((dc_tot * i) * ig) * (1.0f - ig);
       const float da_fg = ((dc_tot * c_pv[e]) * fg) * (1.0f - fg);
-      dcc[e] = (((1.0f - mm) * dcc[e] + dc_tot * fg) + da_ig * pi[e]) +
-               da_fg * pf[e];
+      dcc[e] = St::r((((1.0f - mm) * dcc[e] + dc_tot * fg) + da_ig * pi[e]) +
+                     da_fg * pf[e]);
       dhc[e] = (1.0f - mm) * dh_in[e];
-      float* dr = dx_t + static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
-      dr[0] = da_i;
-      dr[H] = da_ig;
-      dr[2 * H] = da_fg;
-      dr[3 * H] = da_og;
+      const float d4[4] = {St::r(da_i), St::r(da_ig), St::r(da_fg),
+                           St::r(da_og)};
+      S* dr = dx_t + static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
       float* dg = dg_t + pb[e] * 4 * U + pu[e];
-      dg[0] = da_i;
-      dg[U] = da_ig;
-      dg[2 * U] = da_fg;
-      dg[3 * U] = da_og;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        St::st(dr + g * H, d4[g]);
+        dg[g * U] = d4[g];
+      }
     }
     grid_arrive(col_count);
   }
@@ -949,8 +1015,8 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
   for (int e = 0; e < kPairs; ++e) {
     if (!mine[e]) continue;
     const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
-    dh0[o] = dh_in[e];
-    dc0[o] = dcc[e];
+    St::st(dh0 + o, dh_in[e]);
+    St::st(dc0 + o, dcc[e]);
   }
 }
 
@@ -986,81 +1052,69 @@ const void* by_rows(int rpl, int U) {
   return nullptr;
 }
 
-template <int RPL, int U>
-struct Primal {
-  static const void* fn() {
-    return (const void*)lstm_persistent_kernel<false, RPL, U>;
-  }
-};
-template <int RPL, int U>
-struct Residual {
-  static const void* fn() {
-    return (const void*)lstm_persistent_kernel<true, RPL, U>;
-  }
-};
-template <int RPL, int U>
-struct Chain {
-  static const void* fn() { return (const void*)lstm_bwd_chain_kernel<RPL, U>; }
+template <class S>
+struct Forms {
+  template <int RPL, int U>
+  struct Primal {
+    static const void* fn() {
+      return (const void*)lstm_persistent_kernel<false, RPL, U, S>;
+    }
+  };
+  template <int RPL, int U>
+  struct Residual {
+    static const void* fn() {
+      return (const void*)lstm_persistent_kernel<true, RPL, U, S>;
+    }
+  };
+  template <int RPL, int U>
+  struct Chain {
+    static const void* fn() {
+      return (const void*)lstm_bwd_chain_kernel<RPL, U, S>;
+    }
+  };
 };
 
-}  // namespace
-
-// Shared-memory bytes of a persistent block (kind 0: the forward; 1: the
-// chain), as the launchers compute them; the wrapper's plan mirrors it.
-extern "C" long long lstm_persistent_smem(int B, int H, int U, int kind) {
-  return lstm_smem(B, H, U, kind);
-}
-
-// The forward sequence on the persistent route: one cooperative launch of
-// ceil(H / U) blocks, U units each. hbuf ([T, B, H]) receives h_t for
-// every step (hs in the residual form). residual != 0: the residual form
-// (ys, hs, cs, gates; c_out unused), else the primal form (ys, hbuf, cT
-// in c_out; cs, gates unused). count (one unsigned, zeroed here on the
-// stream) is scratch. h0 and hbuf must lie on 16 bytes. Returns 0, a CUDA
-// error, -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel does
-// not take).
-extern "C" int lstm_seq_forward_persistent(
-    const float* xs, const float* mask, const float* w, const float* p_i,
-    const float* p_f, const float* p_o, const float* h0, const float* c0,
-    float* hbuf, float* c_out, float* ys, float* cs, float* gates,
-    unsigned* count, int residual, int ldw, int T, int B, int H, int U,
-    void* stream) {
+// The forward launch of either form: the kernel's arguments in order (the
+// pointers of the storage type S pass untyped: the form picks the kernel).
+template <class S>
+int forward_persistent(const void* xs, const float* mask, const void* w,
+                       const void* p_i, const void* p_f, const void* p_o,
+                       const void* bias, const float* h0, const void* c0,
+                       float* hbuf, void* c_out, float* ys, void* cs,
+                       void* gates, void* hs, unsigned* count, int residual,
+                       int ldw, int T, int B, int H, int U, cudaStream_t s) {
   if (T == 0 || B == 0 || H == 0) return 0;
   if (bad_plan(B, H, U)) return -4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xs,    &mask, &w,  &p_i, &p_f,   &p_o,   &h0,
-                  &c0,    &hbuf, &c_out, &ys, &cs,  &gates, &count,
-                  &ldw,   &T,    &B,  &H};
+  void* args[] = {&xs,   &mask, &w,  &p_i, &p_f,   &p_o, &bias,
+                  &h0,   &c0,   &hbuf, &c_out, &ys,  &cs,  &gates,
+                  &hs,   &count, &ldw, &T,   &B,    &H};
   const int rpl = fwd_rows(B).rpl;
-  const void* kernel = residual ? by_rows<Residual, 4>(rpl, U)
-                                : by_rows<Primal, 4>(rpl, U);
-  return launch_cooperative(kernel, (H + U - 1) / U,
-                            lstm_smem(B, H, U, kFwd), args, s);
+  using F = Forms<S>;
+  const void* kernel =
+      residual ? by_rows<F::template Residual, 4>(rpl, U)
+               : by_rows<F::template Primal, 4>(rpl, U);
+  return launch_cooperative(kernel, (H + U - 1) / U, lstm_smem(B, H, U, kFwd),
+                            args, s);
 }
 
-// The backward's reverse chain on the persistent route: dxs ([T, B, 4H]),
-// dh0 and dc0 ([B, H]) from the residuals of the forward, on chain_grid(H,
-// U) blocks. Scratch: dgs ([2, G, B, 4U], zeroed here: the entries of
-// units past H stay 0), part ([2, G, B, 16U]) and count (R + 16 unsigned,
-// R = G / 16, zeroed here). Same error contract as
-// lstm_seq_forward_persistent.
-extern "C" int lstm_bwd_chain_launch(
-    const float* dys, const float* mask, const float* gates, const float* cs,
-    const float* c0, const float* w, const float* p_i, const float* p_f,
-    const float* p_o, const float* dhT, const float* dcT, float* dxs,
-    float* dgs, float* part, float* dh0, float* dc0, unsigned* count,
-    int ldw, int T, int B, int H, int U, void* stream) {
+// The chain's launch of either form.
+template <class S>
+int chain_launch(const float* dys, const float* mask, const void* gates,
+                 const void* cs, const void* c0, const void* w,
+                 const void* p_i, const void* p_f, const void* p_o,
+                 const void* dhT, const void* dcT, void* dxs, float* dgs,
+                 float* part, void* dh0, void* dc0, unsigned* count, int ldw,
+                 int T, int B, int H, int U, cudaStream_t s) {
   if (B == 0 || H == 0) return 0;
   if (bad_plan(B, H, U)) return -4;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T == 0) {
-    cudaError_t err = cudaMemcpyAsync(dh0, dhT, sizeof(float) * B * H,
+    cudaError_t err = cudaMemcpyAsync(dh0, dhT, sizeof(S) * B * H,
                                       cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaMemcpyAsync(
-        dc0, dcT, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, s));
+        dc0, dcT, sizeof(S) * B * H, cudaMemcpyDeviceToDevice, s));
   }
   const int G = chain_grid(H, U);
   cudaError_t err = cudaMemsetAsync(
@@ -1071,6 +1125,58 @@ extern "C" int lstm_bwd_chain_launch(
   void* args[] = {&dys, &mask, &gates, &cs,  &c0,  &w,   &p_i,
                   &p_f, &p_o,  &dhT,   &dcT, &dxs, &dgs, &part,
                   &dh0, &dc0,  &count, &ldw, &T,   &B,   &H};
-  return launch_cooperative(by_rows<Chain, 8>(lane_rows(B), U), G,
-                            lstm_smem(B, H, U, kBwd), args, s);
+  using F = Forms<S>;
+  return launch_cooperative(by_rows<F::template Chain, 8>(lane_rows(B), U),
+                            G, lstm_smem(B, H, U, kBwd), args, s);
+}
+
+}  // namespace
+
+// Shared-memory bytes of a persistent block (kind 0: the forward; 1: the
+// chain), as the launchers compute them; the wrapper's plan mirrors it.
+extern "C" long long lstm_persistent_smem(int B, int H, int U, int kind) {
+  return lstm_smem(B, H, U, kind);
+}
+
+// The forward sequence on the persistent route: one cooperative launch of
+// ceil(H / U) blocks, U units each. residual != 0: the residual form (ys,
+// hs, cs, gates; c_out unused), else the primal form (ys, hbuf, cT in
+// c_out; cs, gates unused). bf16_form == 0: the f32 form, every tensor f32,
+// the gate bias folded into xs (bias and hs unused: hbuf receives h_t for
+// every step, hs in the residual form). bf16_form != 0: the bf16 form, xs (the
+// bias not folded), w, the peepholes, bias ([4H]), c0, c_out, hs, cs and
+// gates in bf16, h0 widened to f32, hbuf ([T, B, H] f32) the blocks'
+// exchange of h_t. ys is f32 in both. count (one unsigned, zeroed here on
+// the stream) is scratch. h0 and hbuf must lie on 16 bytes. Returns 0, a
+// CUDA error, -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel
+// does not take).
+extern "C" int lstm_seq_forward_persistent(
+    const void* xs, const float* mask, const void* w, const void* p_i,
+    const void* p_f, const void* p_o, const void* bias, const float* h0,
+    const void* c0, float* hbuf, void* c_out, float* ys, void* hs, void* cs,
+    void* gates, unsigned* count, int residual, int bf16_form, int ldw,
+    int T, int B, int H, int U, void* stream) {
+  return (bf16_form ? forward_persistent<bf16> : forward_persistent<float>)(
+      xs, mask, w, p_i, p_f, p_o, bias, h0, c0, hbuf, c_out, ys, cs, gates,
+      hs, count, residual, ldw, T, B, H, U,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The backward's reverse chain on the persistent route: dxs ([T, B, 4H]),
+// dh0 and dc0 ([B, H]) from the residuals of the forward, on chain_grid(H,
+// U) blocks. bf16_form != 0: the bf16 form, the residuals, c0, w, the
+// peepholes, dhT, dcT, dxs, dh0 and dc0 in bf16; dys (the cotangent of
+// the f32 ys) and the scratch f32 in both forms. Scratch: dgs ([2, G, B,
+// 4U], zeroed here: the entries of units past H stay 0), part ([2, G, B,
+// 16U]) and count (R + 16 unsigned, R = G / 16, zeroed here). Same error
+// contract as lstm_seq_forward_persistent.
+extern "C" int lstm_bwd_chain_launch(
+    const float* dys, const float* mask, const void* gates, const void* cs,
+    const void* c0, const void* w, const void* p_i, const void* p_f,
+    const void* p_o, const void* dhT, const void* dcT, void* dxs, float* dgs,
+    float* part, void* dh0, void* dc0, unsigned* count, int bf16_form,
+    int ldw, int T, int B, int H, int U, void* stream) {
+  return (bf16_form ? chain_launch<bf16> : chain_launch<float>)(
+      dys, mask, gates, cs, c0, w, p_i, p_f, p_o, dhT, dcT, dxs, dgs, part,
+      dh0, dc0, count, ldw, T, B, H, U, static_cast<cudaStream_t>(stream));
 }

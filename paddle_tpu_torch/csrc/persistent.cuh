@@ -6,16 +6,59 @@
 // Cross-block data (a state another block wrote during the launch) is
 // read only through L2 (cp.async.cg, ld.global.cg), never through the
 // non-coherent L1.
+//
+// The storage types of the kernels' two forms (Store<S>): float32, and
+// bfloat16, whose values the kernels widen into f32 registers and f32
+// shared memory, so that the bf16 forms keep the f32 forms' shared-memory
+// layout; Store<S>::r rounds an f32 result to S and back (round to
+// nearest even, as the CPU's bf16 operations round), the identity for
+// float.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
 constexpr int kPThreads = 256;    // threads of a persistent block
 constexpr int kSmemLimit = 232448;
+
+using bf16 = __nv_bfloat16;
+
+template <class S>
+struct Store;
+
+template <>
+struct Store<float> {
+  static constexpr bool kF32 = true;
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
+  static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ float r(float v) { return v; }
+};
+
+template <>
+struct Store<bf16> {
+  static constexpr bool kF32 = false;
+  static __device__ __forceinline__ float ld(const bf16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void st(bf16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float r(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+// The reference's bf16 sigmoid (jax.nn.sigmoid: 1 / (1 + exp(-x)), each
+// operation rounded to bf16).
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  using R = Store<bf16>;
+  return R::r(1.0f / R::r(1.0f + R::r(expf(-x))));
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -27,6 +70,18 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
+}
+
+// One element of S from global memory into f32 shared memory: a 4-byte
+// cp.async for float, a load and a widening store for bf16 (cp.async
+// copies 4, 8 or 16 bytes).
+template <class S>
+__device__ __forceinline__ void stage_elem(float* dst, const S* src) {
+  if constexpr (Store<S>::kF32) {
+    cp_async4(dst, src);
+  } else {
+    *dst = Store<S>::ld(src);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -57,6 +57,7 @@ import torch
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import H100_SMS, SMEM_BYTES
 from paddle_tpu_torch.ops.gru import gru_step
+from paddle_tpu_torch.utils.precision import matmul
 
 _DEFAULT_IN = ("tanh", "", None)
 _DEFAULT_GATE = ("sigmoid", "", None)
@@ -184,10 +185,10 @@ def gru_math(x, h, w_gate, w_state, act_in, act_gate):
     """The inline ``GruLayer``/``GruStepLayer`` step, verbatim (``x``
     already holds the input projection plus bias, ``[B, 3H]``)."""
     size = h.shape[-1]
-    zr = x[:, :2 * size] + h @ w_gate
+    zr = x[:, :2 * size] + matmul(h, w_gate)
     z = act_gate(zr[:, :size])
     r = act_gate(zr[:, size:])
-    c = act_in(x[:, 2 * size:] + (r * h) @ w_state)
+    c = act_in(x[:, 2 * size:] + matmul(r * h, w_state))
     return h - z * h + z * c
 
 

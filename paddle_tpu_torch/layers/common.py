@@ -21,6 +21,7 @@ from paddle_tpu_torch.core.registry import (LayerImpl, ParamSpec, ShapeInfo,
 from paddle_tpu_torch.layers.conv import (_conv_geom, _conv_spec,
                                           conv_transpose_grouped, derive_geom,
                                           to_nhwc)
+from paddle_tpu_torch.utils.precision import matmul
 
 
 def _first_mask(ins: List[Argument]):
@@ -69,7 +70,7 @@ class FcLayer(LayerImpl):
     def apply(self, cfg, params, ins, ctx):
         out = None
         for i, a in enumerate(ins):
-            y = _flat(a) @ params[f"w{i}"]
+            y = matmul(_flat(a), params[f"w{i}"])
             out = y if out is None else out + y
         if "wbias" in params:
             out = out + params["wbias"]
@@ -96,9 +97,9 @@ class EmbeddingLayer(LayerImpl):
 def _project(proj: dict, x: torch.Tensor, w) -> torch.Tensor:
     kind = proj.get("type", "full_matrix")
     if kind == "full_matrix":
-        return x @ w
+        return matmul(x, w)
     if kind == "trans_full_matrix":
-        return x @ w.T
+        return matmul(x, w.T)
     if kind == "identity":
         return x
     if kind == "dot_mul":

@@ -32,6 +32,7 @@ from paddle_tpu_torch.kernels.rnn_cells import (activation, gru_cell,
 from paddle_tpu_torch.layers.conv import to_nhwc
 from paddle_tpu_torch.ops.gru import gru_sequence
 from paddle_tpu_torch.ops.lstm import lstm_sequence
+from paddle_tpu_torch.utils.precision import matmul
 
 
 def _steps(T: int, reverse: bool):
@@ -76,7 +77,9 @@ class LstmLayer(LayerImpl):
         if carried is None:
             z = a.value.new_zeros(B, size)
             carried = (z, z)
-        h0, c0 = carried
+        # a carried state enters at the input's dtype, as the zeros it
+        # stands for (the trainer keeps it in f32)
+        h0, c0 = (s.to(a.value.dtype) for s in carried)
 
         if (act_in, act_gate, act_state) == ("tanh", "sigmoid", "tanh"):
             ys, hT, cT = lstm_sequence(xs, mask, w, gate_bias, check_i,
@@ -90,8 +93,8 @@ class LstmLayer(LayerImpl):
         ys = [None] * xs.shape[0]
         acts = [activation(a) for a in (act_in, act_gate, act_state)]
         for t in _steps(xs.shape[0], reverse):
-            out, state = lstm_math(xs[t] + h @ w + gate_bias, c, check_i,
-                                   check_f, check_o, *acts)
+            out, state = lstm_math(xs[t] + matmul(h, w) + gate_bias, c,
+                                   check_i, check_f, check_o, *acts)
             m = mask[t].unsqueeze(-1)
             h = torch.where(m > 0, out, h)
             c = torch.where(m > 0, state, c)
@@ -130,7 +133,8 @@ class GruLayer(LayerImpl):
         xs = a.value.transpose(0, 1)   # [T, B, 3*size]
         mask = a.mask.transpose(0, 1)  # [T, B]
         carried = None if reverse else ctx.carried.get(cfg.name)
-        h = carried if carried is not None else a.value.new_zeros(B, size)
+        h = (carried.to(a.value.dtype) if carried is not None
+             else a.value.new_zeros(B, size))
 
         if act_in in ("tanh", "") and act_gate == "sigmoid":
             ys, hT = gru_sequence(xs, mask, w_gate, w_state, bias, h,
@@ -181,10 +185,11 @@ class SimpleRecurrentLayer(LayerImpl):
         xs = a.value.transpose(0, 1)
         mask = a.mask.transpose(0, 1)
         carried = None if reverse else ctx.carried.get(cfg.name)
-        h = carried if carried is not None else a.value.new_zeros(B, D)
+        h = (carried.to(a.value.dtype) if carried is not None
+             else a.value.new_zeros(B, D))
         ys = [None] * T
         for t in _steps(T, reverse):
-            out = act(xs[t] + h @ w + b)
+            out = act(xs[t] + matmul(h, w) + b)
             m = mask[t].unsqueeze(-1)
             h = torch.where(m > 0, out, h)
             ys[t] = out * m

@@ -36,14 +36,21 @@ def _wrappers() -> dict:
 def kernel_counts() -> dict:
     """{kernel: {counter: n}} of this process: the launches each kernel
     wrapper counted (``/healthz`` and ``--job train`` report them, so a run
-    can show that its main path went through the kernels)."""
-    return {name: {k: getattr(fn, k) for k in _COUNTERS if hasattr(fn, k)}
-            for name, fn in _wrappers().items()}
+    can show that its main path went through the kernels). A wrapper with
+    a bfloat16 form (the LSTM and GRU sequence kernels) counts that form's
+    launches apart, reported as ``<kernel>_bf16``."""
+    counts = {}
+    for name, fn in _wrappers().items():
+        counts[name] = {k: getattr(fn, k) for k in _COUNTERS
+                        if hasattr(fn, k)}
+        if hasattr(fn, "bf16_launches"):
+            counts[name + "_bf16"] = {"launches": fn.bf16_launches}
+    return counts
 
 
 def reset_kernel_counts():
     """Set every kernel wrapper's counters to 0."""
     for fn in _wrappers().values():
-        for k in _COUNTERS:
+        for k in _COUNTERS + ("bf16_launches",):
             if hasattr(fn, k):
                 setattr(fn, k, 0)

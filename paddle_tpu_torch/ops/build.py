@@ -125,6 +125,18 @@ def bind(name: str, entry: str, n_ptr: int, n_int: int, n_float: int = 0):
     return fn
 
 
+def count_launch(fn, t: torch.Tensor, steps: int):
+    """One call of the wrapper ``fn`` that launched its kernel in the
+    form of ``t``'s dtype: a bf16 form's in ``fn.bf16_launches``, the
+    float32 form's in ``fn.launches`` with its ``steps`` device launches
+    in ``fn.step_launches``."""
+    if t.dtype == torch.bfloat16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
+        fn.step_launches += steps
+
+
 def cuda_device(kernel: str, t: torch.Tensor) -> torch.device:
     if not t.is_cuda:
         raise ValueError(f"{kernel}: no kernel for device {t.device}")
@@ -132,11 +144,14 @@ def cuda_device(kernel: str, t: torch.Tensor) -> torch.device:
 
 
 def check_tensors(kernel: str, device, **tensors):
-    """Every tensor a contiguous float32 CUDA tensor on ``device`` with the
-    given shape (``name=(tensor, shape)``)."""
-    for name, (t, shape) in tensors.items():
-        if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be a contiguous float32 "
+    """Every tensor a contiguous CUDA tensor on ``device`` with the given
+    shape and dtype (``name=(tensor, shape)`` for float32, ``name=(tensor,
+    shape, dtype)`` otherwise)."""
+    for name, (t, shape, *dt) in tensors.items():
+        dtype = dt[0] if dt else torch.float32
+        if t.dtype != dtype or not t.is_cuda or not t.is_contiguous():
+            dname = str(dtype).replace("torch.", "")
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dname} "
                              f"CUDA tensor, got {t.dtype} on {t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
@@ -233,12 +248,13 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check_weight(kernel, device, name, w, shape):
-    """A float32 CUDA matrix on ``device`` of ``shape`` whose columns are
-    contiguous (a column slice of a wider matrix is fine: the kernels take
-    its row stride). Returns that row stride."""
-    if w.dtype != torch.float32 or not w.is_cuda:
-        raise ValueError(f"{kernel}: {name} must be a float32 CUDA tensor, "
+def check_weight(kernel, device, name, w, shape, dtype=torch.float32):
+    """A CUDA matrix of ``dtype`` on ``device`` of ``shape`` whose columns
+    are contiguous (a column slice of a wider matrix is fine: the kernels
+    take its row stride). Returns that row stride."""
+    if w.dtype != dtype or not w.is_cuda:
+        dname = str(dtype).replace("torch.", "")
+        raise ValueError(f"{kernel}: {name} must be a {dname} CUDA tensor, "
                          f"got {w.dtype} on {w.device}")
     if tuple(w.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(w.shape)}, "

@@ -44,7 +44,19 @@ refuse a weight whose columns are not contiguous.
 ``gru_sequence`` takes the primal kernel when no gradient is wanted and
 otherwise ``GruFunction``, whose backward (``gru_backward``) transcribes
 ``_bwd_rule``: the chain, then ``dWg`` and ``dWs`` as one product each
-over T*B rows. f32 only.
+over T*B rows.
+
+bfloat16. As for the LSTM (``ops/lstm.py``), the reference's bf16
+computation is its scan ``gru_sequence_ref`` under ``jax.vjp``: every
+operation rounded to bf16, the products once after an f32 sum, sigmoid
+as ``1 / (1 + exp(-x))``; its f32 ``ys`` take the last sum of ``h - z*h
++ z*c`` unrounded (XLA elides the round trip into the f32 product with
+the mask), ``hT`` stays bf16. The persistent kernels' bf16 form keeps
+those rounding points; its chain computes each step in f32 from the bf16
+residuals and rounds where it stores (da_z, da_r, da_c, the dh carry)
+and each product once. A mixed call (f32 ``xs``, bf16 weights) takes the
+float32 kernels on the widened weights. The two-launch route has no bf16
+form and refuses bf16 on the card.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ import torch
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
                                         check_weight, device_sms)
+from paddle_tpu_torch.ops.lstm import _rounder, _sigmoid
+from paddle_tpu_torch.utils.precision import result_type
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -165,26 +179,35 @@ def gru_step(x_t, h, w_gate, w_state):
     (``h - z*h + z*c``)."""
     H = h.shape[-1]
     zr = x_t[:, :2 * H] + h @ w_gate
-    z = torch.sigmoid(zr[:, :H])
-    r = torch.sigmoid(zr[:, H:])
+    z = _sigmoid(zr[:, :H])
+    r = _sigmoid(zr[:, H:])
     c = torch.tanh(x_t[:, 2 * H:] + (r * h) @ w_state)
     return z, r, c, h - z * h + z * c
+
+
+def _ys(h, z, c, h_new, m):
+    """The output ``h_new * mask``; in bf16 with the last sum of ``h - z*h
+    + z*c`` taken in f32, as the reference's f32 output does (see the
+    module note)."""
+    if h_new.dtype == torch.float32:
+        return h_new * m
+    return ((h - z * h).float() + (z * c).float()) * m
 
 
 def gru_sequence_plain(xs_b, mask, w_gate, w_state, h0) -> Pair:
     """Plain PyTorch loop over time. xs_b [T,B,3H] holds the projected
     inputs with the gate bias folded in, mask [T,B] f32, w_gate [H,2H],
     w_state [H,H], h0 [B,H]. Padded steps hold h and emit ``h_new * m``.
-    Returns (ys [T,B,H], hT)."""
+    Returns (ys [T,B,H] (f32), hT)."""
     h = h0
     ys = []
     for t in range(xs_b.shape[0]):
-        *_, h_new = gru_step(xs_b[t], h, w_gate, w_state)
+        z, _, c, h_new = gru_step(xs_b[t], h, w_gate, w_state)
         m = mask[t].unsqueeze(-1)
+        ys.append(_ys(h, z, c, h_new, m))
         h = torch.where(m > 0, h_new, h)
-        ys.append(h_new * m)
     if not ys:
-        return xs_b.new_zeros(0, *h0.shape), h0
+        return xs_b.new_zeros(0, *h0.shape, dtype=mask.dtype), h0
     return torch.stack(ys), h
 
 
@@ -197,22 +220,31 @@ def gru_sequence_residual_plain(xs_b, mask, w_gate, w_state, h0):
     for t in range(xs_b.shape[0]):
         z, r, c, h_new = gru_step(xs_b[t], h, w_gate, w_state)
         m = mask[t].unsqueeze(-1)
+        ys.append(_ys(h, z, c, h_new, m))
         h = torch.where(m > 0, h_new, h)
-        ys.append(h_new * m)
         hs.append(h)
         gates.append(torch.cat([z, r, c], dim=-1))
     return torch.stack(ys), torch.stack(hs), torch.stack(gates)
 
 
-def _seq_args(kernel, xs_b, mask, w_gate, w_state, h0):
-    """Checks the sequence operands; returns (device, T, B, H, ldg, lds)."""
+_BF16 = torch.bfloat16
+
+
+def _seq_args(kernel, xs_b, mask, w_gate, w_state, h0, plan):
+    """Checks the sequence operands: xs_b's dtype (float32 or bf16) for
+    all but the f32 mask; the two-launch route (``plan`` None) has no bf16
+    form. Returns (device, T, B, H, ldg, lds)."""
     dev = build.cuda_device(kernel, xs_b)
     T, B, H3 = xs_b.shape
     H = H3 // 3
-    build.check_tensors(kernel, dev, xs=(xs_b, (T, B, 3 * H)),
-                        mask=(mask, (T, B)), h0=(h0, (B, H)))
-    ldg = check_weight(kernel, dev, "w_gate", w_gate, (H, 2 * H))
-    lds = check_weight(kernel, dev, "w_state", w_state, (H, H))
+    dt = _BF16 if xs_b.dtype == _BF16 else torch.float32
+    if dt == _BF16 and plan is None:
+        raise ValueError(f"{kernel}: B={B} H={H} is on the two-launch "
+                         "route, which has no bfloat16 form")
+    build.check_tensors(kernel, dev, xs=(xs_b, (T, B, 3 * H), dt),
+                        mask=(mask, (T, B)), h0=(h0, (B, H), dt))
+    ldg = check_weight(kernel, dev, "w_gate", w_gate, (H, 2 * H), dt)
+    lds = check_weight(kernel, dev, "w_state", w_state, (H, H), dt)
     return dev, T, B, H, ldg, lds
 
 
@@ -226,22 +258,43 @@ def _persistent_plan(t, B, H, two_launch):
 
 
 def _forward_persistent(kernel, plan, xs_b, mask, w_gate, w_state, h0, ldg,
-                        lds, h, ys, hs, gates):
+                        lds, residual):
+    """One persistent forward launch in xs_b's dtype (the f32 or the bf16
+    form): (ys, hT) or, ``residual``, (ys, hs, gates); ys f32, the rest in
+    xs_b's dtype. The state pair h [2, B, H] f32 (h[0] = h0 widened) is
+    the primal form's and, in bf16, the blocks' exchange of the state in
+    both forms, staged as the f32 form stages it."""
     T, B, _ = xs_b.shape
     H = h0.shape[1]
-    dev = xs_b.device
-    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dev, dt = xs_b.device, xs_b.dtype
+    bf16 = dt == _BF16
+    new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
+                                               device=dev)
+    ys, rh = new(T, B, H, dtype=torch.float32), new(B, H,
+                                                    dtype=torch.float32)
+    hs, gates = (new(T, B, H), new(T, B, 3 * H)) if residual else (None,
+                                                                   None)
+    h = None
+    if bf16 or not residual:
+        h = new(2, B, H, dtype=torch.float32)
+        h[0].copy_(h0)
+    # the f32 residual form starts from h0 itself (16-byte aligned), the
+    # others from h[0]
+    h_init = h if bf16 else aligned(h0)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_seq_forward_persistent", 11, 8)(
+        err = build.bind("gru_seq", "gru_seq_forward_persistent", 11, 9)(
             xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), h0.data_ptr(), ptr(h), ys.data_ptr(),
+            w_state.data_ptr(), h_init.data_ptr(), ptr(h), ys.data_ptr(),
             ptr(hs), ptr(gates), rh.data_ptr(), count.data_ptr(),
-            int(hs is not None), ldg, lds, T, B, H, plan["units"],
+            int(residual), int(bf16), ldg, lds, T, B, H, plan["units"],
             plan["chunk_fwd"], stream)
     build.raise_coop(err, kernel, plan)
+    if residual:
+        return ys, hs, gates
+    return ys, h[T % 2].to(dt)
 
 
 def gru_seq(xs_b, mask, w_gate, w_state, h0, two_launch=False) -> Pair:
@@ -249,36 +302,38 @@ def gru_seq(xs_b, mask, w_gate, w_state, h0, two_launch=False) -> Pair:
     ``gru_sequence_plain``. ``two_launch=True`` forces the two-launch
     route. ``gru_seq.launches`` counts the calls that launched a kernel,
     ``gru_seq.step_launches`` the device launches (1 a call on the
-    persistent route, two per timestep on the other)."""
+    persistent route, two per timestep on the other). bf16 ``xs_b``
+    takes the bf16 form, counted in ``gru_seq.bf16_launches``
+    (``build.count_launch``)."""
     args = (xs_b, mask, w_gate, w_state, h0)
     if xs_b.device.type == "cpu":
         return gru_sequence_plain(*args)
-    dev, T, B, H, ldg, lds = _seq_args("gru_seq", *args)
+    plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 3,
+                            two_launch)
+    dev, T, B, H, ldg, lds = _seq_args("gru_seq", *args, plan)
+    if plan is not None:
+        out = _forward_persistent("gru_seq", plan, *args, ldg, lds, False)
+        build.count_launch(gru_seq, xs_b, 1 if T else 0)
+        return out
     h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
     h[0].copy_(h0)
     ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    plan = _persistent_plan(xs_b, B, H, two_launch)
-    if plan is not None:
-        _forward_persistent("gru_seq", plan, xs_b, mask, w_gate, w_state, h0,
-                            ldg, lds, h, ys, None, None)
-        gru_seq.step_launches += 1 if T else 0
-    else:
-        gates = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
-        rh = torch.empty((B, H), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = build.bind("gru_seq", "gru_seq_forward", 8, 5)(
-                xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-                w_state.data_ptr(), h.data_ptr(), gates.data_ptr(),
-                rh.data_ptr(), ys.data_ptr(), ldg, lds, T, B, H, stream)
-        build.raise_on(err, "gru_seq")
-        gru_seq.step_launches += 2 * T
-    gru_seq.launches += 1
+    gates = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
+    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("gru_seq", "gru_seq_forward", 8, 5)(
+            xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+            w_state.data_ptr(), h.data_ptr(), gates.data_ptr(),
+            rh.data_ptr(), ys.data_ptr(), ldg, lds, T, B, H, stream)
+    build.raise_on(err, "gru_seq")
+    build.count_launch(gru_seq, xs_b, 2 * T)
     return ys, h[T % 2]
 
 
 gru_seq.launches = 0
 gru_seq.step_launches = 0
+gru_seq.bf16_launches = 0
 
 
 def gru_seq_train(xs_b, mask, w_gate, w_state, h0, two_launch=False):
@@ -287,33 +342,33 @@ def gru_seq_train(xs_b, mask, w_gate, w_state, h0, two_launch=False):
     args = (xs_b, mask, w_gate, w_state, h0)
     if xs_b.device.type == "cpu":
         return gru_sequence_residual_plain(*args)
-    dev, T, B, H, ldg, lds = _seq_args("gru_seq_train", *args)
+    plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 3,
+                            two_launch)
+    dev, T, B, H, ldg, lds = _seq_args("gru_seq_train", *args, plan)
+    if plan is not None:
+        out = _forward_persistent("gru_seq_train", plan, *args, ldg, lds,
+                                  True)
+        build.count_launch(gru_seq_train, xs_b, 1 if T else 0)
+        return out
     ys, hs = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
               for _ in range(2))
     gates = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    plan = _persistent_plan(xs_b, B, H, two_launch)
-    if plan is not None:
-        _forward_persistent("gru_seq_train", plan, xs_b, mask, w_gate,
-                            w_state, aligned(h0), ldg, lds, None, ys, hs,
-                            gates)
-        gru_seq_train.step_launches += 1 if T else 0
-    else:
-        rh = torch.empty((B, H), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = build.bind("gru_seq", "gru_seq_forward_train", 9, 5)(
-                xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-                w_state.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-                hs.data_ptr(), gates.data_ptr(), rh.data_ptr(), ldg, lds, T,
-                B, H, stream)
-        build.raise_on(err, "gru_seq_train")
-        gru_seq_train.step_launches += 2 * T
-    gru_seq_train.launches += 1
+    rh = torch.empty((B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("gru_seq", "gru_seq_forward_train", 9, 5)(
+            xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+            w_state.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            hs.data_ptr(), gates.data_ptr(), rh.data_ptr(), ldg, lds, T,
+            B, H, stream)
+    build.raise_on(err, "gru_seq_train")
+    build.count_launch(gru_seq_train, xs_b, 2 * T)
     return ys, hs, gates
 
 
 gru_seq_train.launches = 0
 gru_seq_train.step_launches = 0
+gru_seq_train.bf16_launches = 0
 
 
 def gru_bwd_step_plain(dy_t, m_t, gates_t, h_pv, w_gate, w_state, dh, drh,
@@ -385,7 +440,16 @@ def gru_bwd_chain_plain(dys, mask, gates, h0, hs, w_gate, w_state, dhT,
     open), each phase over the
     blocks' unit slices in order (``units`` units a block as
     ``gru_partition``; None: one slice of all H). Returns (dxs [T, B, 3H],
-    dh0)."""
+    dh0).
+
+    bf16 residuals (the bf16 form): every step computes in f32 from them
+    and rounds to bf16 where the kernel does: dy, da_z, da_c, da_r, each
+    product's result, and the dh carry at the step's last sum; dxs and
+    dh0 come back bf16."""
+    dt = gates.dtype
+    rnd = _rounder(dt)
+    gates, h0, hs, w_gate, w_state, dhT = (
+        a.float() for a in (gates, h0, hs, w_gate, w_state, dhT))
     T, B, H = hs.shape
     parts = gru_partition(H, units or max(H, 1))
     dxs = torch.empty((T, B, 3 * H), dtype=hs.dtype, device=hs.device)
@@ -398,25 +462,26 @@ def gru_bwd_chain_plain(dys, mask, gates, h0, hs, w_gate, w_state, dhT,
         for u0, u1 in parts:  # 1. each block's units, elementwise
             sl = slice(u0, u1)
             d = dh[:, sl]
-            dh_new = m * (d + dys[t][:, sl])
+            dh_new = m * (d + rnd(dys[t][:, sl]))
             dz = dh_new * (c[:, sl] - h_pv[:, sl])
-            dx[:, 2 * H + u0:2 * H + u1] = (dh_new * z[:, sl]) * (
-                1 - c[:, sl] * c[:, sl])
-            dx[:, u0:u1] = (dz * z[:, sl]) * (1 - z[:, sl])
+            dx[:, 2 * H + u0:2 * H + u1] = rnd((dh_new * z[:, sl]) * (
+                1 - c[:, sl] * c[:, sl]))
+            dx[:, u0:u1] = rnd((dz * z[:, sl]) * (1 - z[:, sl]))
             dh[:, sl] = (1 - m) * d + dh_new * (1 - z[:, sl])
         for u0, u1 in parts:  # 2. drh of the block's units from all da_c
             sl = slice(u0, u1)
-            drh = dx[:, 2 * H:] @ w_state[sl].t()
+            drh = rnd(dx[:, 2 * H:] @ w_state[sl].t())
             dr = drh * h_pv[:, sl]
-            dx[:, H + u0:H + u1] = (dr * r[:, sl]) * (1 - r[:, sl])
+            dx[:, H + u0:H + u1] = rnd((dr * r[:, sl]) * (1 - r[:, sl]))
             dh[:, sl] = dh[:, sl] + drh * r[:, sl]
         for u0, u1 in parts:  # 3a. + da_z @ Wg[:, :H]^T
             sl = slice(u0, u1)
-            dh[:, sl] = dh[:, sl] + dx[:, :H] @ w_gate[sl, :H].t()
+            dh[:, sl] = dh[:, sl] + rnd(dx[:, :H] @ w_gate[sl, :H].t())
         for u0, u1 in parts:  # 3b. + da_r @ Wg[:, H:]^T
             sl = slice(u0, u1)
-            dh[:, sl] = dh[:, sl] + dx[:, H:2 * H] @ w_gate[sl, H:].t()
-    return dxs, dh
+            dh[:, sl] = rnd(dh[:, sl] + rnd(dx[:, H:2 * H]
+                                           @ w_gate[sl, H:].t()))
+    return dxs.to(dt), dh.to(dt)
 
 
 def gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state, dhT):
@@ -431,35 +496,45 @@ def gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state, dhT):
     dev = build.cuda_device("gru_bwd_chain", hs)
     T, B, H = hs.shape
     bh = (B, H)
+    dt = hs.dtype if hs.dtype == _BF16 else torch.float32
     build.check_tensors("gru_bwd_chain", dev, dys=(dys, (T, B, H)),
-                        mask=(mask, (T, B)), gates=(gates, (T, B, 3 * H)),
-                        h0=(h0, bh), hs=(hs, (T, B, H)), dhT=(dhT, bh))
-    ldg = check_weight("gru_bwd_chain", dev, "w_gate", w_gate, (H, 2 * H))
-    lds = check_weight("gru_bwd_chain", dev, "w_state", w_state, (H, H))
+                        mask=(mask, (T, B)),
+                        gates=(gates, (T, B, 3 * H), dt), h0=(h0, bh, dt),
+                        hs=(hs, (T, B, H), dt), dhT=(dhT, bh, dt))
+    ldg = check_weight("gru_bwd_chain", dev, "w_gate", w_gate, (H, 2 * H),
+                       dt)
+    lds = check_weight("gru_bwd_chain", dev, "w_state", w_state, (H, H), dt)
     plan = _persistent_plan(hs, B, H, False)
     if plan is None:
         raise ValueError(f"gru_bwd_chain: B={B} H={H} is not on the "
                          "persistent route (gru_route); the per-step "
                          "backward (gru_bwd_step) takes it")
+    # the f32 gradients the blocks exchange (dxs itself in float32; in
+    # bf16 a scratch beside the bf16 dxs)
     dxs = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    dh0 = torch.empty(bh, dtype=torch.float32, device=dev)
+    out = torch.empty((T, B, 3 * H), dtype=_BF16, device=dev) \
+        if dt == _BF16 else None
+    dh0 = torch.empty(bh, dtype=dt, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_bwd_chain_launch", 11, 7)(
+        err = build.bind("gru_seq", "gru_bwd_chain_launch", 12, 8)(
             dys.data_ptr(), mask.data_ptr(), gates.data_ptr(),
             h0.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
             w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
-            dh0.data_ptr(), count.data_ptr(), ldg, lds, T, B, H,
+            None if out is None else out.data_ptr(), dh0.data_ptr(),
+            count.data_ptr(), int(dt == _BF16), ldg, lds, T, B, H,
             plan["units"], plan["chunk_bwd"], stream)
     build.raise_coop(err, "gru_bwd_chain", plan)
-    gru_bwd_chain.launches += 1
-    gru_bwd_chain.step_launches += 1 if T else 0
+    build.count_launch(gru_bwd_chain, hs, 1 if T else 0)
+    if out is not None:
+        return out, dh0
     return dxs, dh0
 
 
 gru_bwd_chain.launches = 0
 gru_bwd_chain.step_launches = 0
+gru_bwd_chain.bf16_launches = 0
 
 
 def gru_backward(mask, w_gate, w_state, h0, hs, gates, dys, dhT, step=None,
@@ -475,7 +550,7 @@ def gru_backward(mask, w_gate, w_state, h0, hs, gates, dys, dhT, step=None,
     T, B, H = hs.shape
     dys = dys.contiguous()
     h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
-    if step is None and not two_launch and gru_route(
+    if hs.dtype == _BF16 or step is None and not two_launch and gru_route(
             B, H, device_sms(hs)) == PERSISTENT:
         dxs, dh = gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state,
                                 dhT.contiguous())
@@ -529,7 +604,13 @@ def gru_sequence(xs, mask, w_gate, w_state, bias, h0, reverse=False,
         ys, hT = gru_sequence(xs.flip(0), mask.flip(0), w_gate, w_state, bias,
                               h0, two_launch=two_launch)
         return ys.flip(0), hT
-    xs_b = (xs + bias).contiguous()  # fold the bias in once
+    ops = (xs, w_gate, w_state, bias, h0)
+    if result_type(*ops) == torch.float32:
+        # f32, or JAX's promoted product of a mixed call: the float32
+        # kernels on the exactly widened operands
+        xs, w_gate, w_state, bias, h0 = (a.float() for a in ops)
+    xs_b = (xs + bias).contiguous()  # fold the bias in once (bf16: the
+    # reference's own x_t + bias, rounded)
     args = (xs_b, mask.contiguous(), w_gate, w_state, h0.contiguous())
     if xs.shape[0] and torch.is_grad_enabled() and any(
             a.requires_grad for a in args):

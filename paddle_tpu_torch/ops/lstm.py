@@ -43,7 +43,30 @@ per-step one):
 otherwise ``LstmFunction``, whose backward (``lstm_backward``) is a
 transcription of ``_bwd_rule``: the chain (or the per-step loop), then
 ``dW`` and the peephole gradients as one product and three sums, where
-JAX sums them per step. f32 only; bf16 is later work.
+JAX sums them per step.
+
+bfloat16 (``--compute_dtype bfloat16``). The reference's Pallas kernels
+cannot run with bf16 operands and an f32 mask (``ys_ref[0] = h_new * m``
+is f32, stored into a bf16 ref), so what the JAX package computes in bf16
+is its scan, ``lstm_sequence_ref``, differentiated by ``jax.vjp``: every
+operation rounded to bf16 (the recurrent product once, after an f32 sum;
+``x_t + h @ w + gate_bias`` in that order, the bias not folded first;
+sigmoid as ``1 / (1 + exp(-x))``, three roundings), ``ys = h_new * mask``
+promoted to f32 by the f32 mask (XLA takes ``og * tanh(c_new)`` there
+before h_new's rounding: ``_ys``), ``hT`` and ``cT`` bf16. The plain
+versions run that on bf16 tensors (``_sigmoid``), and the persistent
+kernels have a bf16 form (``csrc/lstm_seq.cu``, ``S = __nv_bfloat16``)
+with the same rounding points: the wrappers take it for bf16 ``xs``
+(counted in ``.bf16_launches``) and take the bias unfolded. Its reverse
+chain computes each step in f32 from the bf16 residuals and rounds where
+it stores (dgates, the dh and dc carries) and the recurrent product once;
+``dW`` is one f32-accumulated product rounded once, where JAX accumulates
+it in bf16 step by step. A mixed call (f32 ``xs`` with bf16 weights: every
+layer after the first recurrent one, whose f32 ``ys`` promote what
+follows) is JAX's promoted f32 product: the float32 kernels on the
+exactly widened weights. The bf16 forms keep the f32 weight in shared
+memory, so the plans (``lstm_plan``) are the float32 ones; the per-step
+route has no bf16 form and refuses bf16 on the card.
 """
 
 from __future__ import annotations
@@ -56,6 +79,7 @@ import torch
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
                                         check_weight, device_sms)
+from paddle_tpu_torch.utils.precision import result_type
 
 Tensors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -196,38 +220,73 @@ def persistent_smem_of_kernel(B, H, units, kind) -> int:
     return fn(B, H, units, _KINDS[kind])
 
 
-def _cell(x_t, h, c, w, check_i, check_f, check_o):
-    """One step of the peephole cell: (i, ig, fg, og, c_new, h_new)."""
-    a_i, a_ig, a_fg, a_og = (x_t + h @ w).chunk(4, dim=-1)
+def _sigmoid(x):
+    """``torch.sigmoid`` in float32; below it the reference's spelling,
+    ``1 / (1 + exp(-x))`` with each operation rounded (``jax.nn.sigmoid``
+    lowers to those three operations)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def _rounder(dtype):
+    """x -> x rounded to ``dtype`` and kept in float32: the rounding
+    points of a kernel that computes in f32 registers and stores
+    ``dtype``; the identity for float32."""
+    if dtype == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(dtype).float()
+
+
+def _cell(x_t, h, c, w, check_i, check_f, check_o, gate_bias=None):
+    """One step of the peephole cell: (i, ig, fg, og, c_new, h_new). With
+    ``gate_bias`` (the bf16 form) the reference's ``x_t + h @ w +
+    gate_bias``; without, x_t has the bias folded in."""
+    a = x_t + h @ w
+    if gate_bias is not None:
+        a = a + gate_bias
+    a_i, a_ig, a_fg, a_og = a.chunk(4, dim=-1)
     i = torch.tanh(a_i)
-    ig = torch.sigmoid(a_ig + c * check_i)
-    fg = torch.sigmoid(a_fg + c * check_f)
+    ig = _sigmoid(a_ig + c * check_i)
+    fg = _sigmoid(a_fg + c * check_f)
     c_new = i * ig + c * fg
-    og = torch.sigmoid(a_og + c_new * check_o)
+    og = _sigmoid(a_og + c_new * check_o)
     return i, ig, fg, og, c_new, og * torch.tanh(c_new)
 
 
+def _ys(og, c_new, h_new, m):
+    """The output ``h_new * mask``. In bf16 the reference's f32 output
+    takes the product ``og * tanh(c_new)`` before h_new's rounding (XLA
+    widens the f32 multiply's operand back to og and tanh's bf16 values:
+    the rounding to bf16 and back is elided), exact in f32; in float32 it
+    is h_new."""
+    if h_new.dtype == torch.float32:
+        return h_new * m
+    return og.float() * torch.tanh(c_new).float() * m
+
+
 def lstm_sequence_plain(xs_b, mask, w, check_i, check_f, check_o, h0,
-                        c0) -> Tensors:
+                        c0, gate_bias=None) -> Tensors:
     """Plain PyTorch loop over time. xs_b [T,B,4H] holds the pre-projected
-    inputs with the gate bias folded in, mask [T,B] f32, w [H,4H], the
-    peepholes [H], h0/c0 [B,H]. Returns (ys [T,B,H], hT, cT)."""
+    inputs with the gate bias folded in (or, bf16, ``gate_bias`` [4H]
+    apart), mask [T,B] f32, w [H,4H], the peepholes [H], h0/c0 [B,H].
+    Returns (ys [T,B,H], hT, cT); ys is f32 (``h_new * mask``)."""
     h, c = h0, c0
     ys = []
     for t in range(xs_b.shape[0]):
-        *_, c_new, h_new = _cell(xs_b[t], h, c, w, check_i, check_f,
-                                 check_o)
+        *_, og, c_new, h_new = _cell(xs_b[t], h, c, w, check_i, check_f,
+                                     check_o, gate_bias)
         m = mask[t].unsqueeze(-1)
         h = torch.where(m > 0, h_new, h)
         c = torch.where(m > 0, c_new, c)
-        ys.append(h_new * m)
+        ys.append(_ys(og, c_new, h_new, m))
     if not ys:
-        return xs_b.new_zeros(0, *h0.shape), h0, c0
+        return xs_b.new_zeros(0, *h0.shape, dtype=mask.dtype), h0, c0
     return torch.stack(ys), h, c
 
 
 def lstm_sequence_residual_plain(xs_b, mask, w, check_i, check_f, check_o,
-                                 h0, c0):
+                                 h0, c0, gate_bias=None):
     """The residual form of ``lstm_sequence_plain`` (JAX ``_lstm_pallas(...,
     with_residuals=True)``): (ys, hs, cs [T,B,H], gates [T,B,4H]) with the
     guarded state chains hs, cs and the activated gates [i|ig|fg|og]."""
@@ -235,11 +294,11 @@ def lstm_sequence_residual_plain(xs_b, mask, w, check_i, check_f, check_o,
     ys, hs, cs, gates = [], [], [], []
     for t in range(xs_b.shape[0]):
         i, ig, fg, og, c_new, h_new = _cell(xs_b[t], h, c, w, check_i,
-                                            check_f, check_o)
+                                            check_f, check_o, gate_bias)
         m = mask[t].unsqueeze(-1)
         h = torch.where(m > 0, h_new, h)
         c = torch.where(m > 0, c_new, c)
-        ys.append(h_new * m)
+        ys.append(_ys(og, c_new, h_new, m))
         hs.append(h)
         cs.append(c)
         gates.append(torch.cat([i, ig, fg, og], dim=-1))
@@ -248,14 +307,16 @@ def lstm_sequence_residual_plain(xs_b, mask, w, check_i, check_f, check_o,
 
 
 def _cell_grads(dh_in, dc_in, dy_t, m, gates_t, c_new, c_prev, check_i,
-                check_f, check_o):
+                check_f, check_o, rnd=lambda x: x):
     """The elementwise chain of one reverse step of ``_bwd_rule``
     (``paddle_tpu/ops/lstm.py:366-389``, the kernels' order of terms) on
     the carries dh_in (the product of the step after already added) and
-    dc_in: (dgates_t [.., 4H], dc_prev, (1 - m) * dh_in)."""
+    dc_in: (dgates_t [.., 4H], dc_prev, (1 - m) * dh_in). ``rnd``: the
+    bf16 form's rounding of dy (the f32 cotangent of ys meets bf16 h_new),
+    of dgates_t and of dc_prev (``_rounder``)."""
     H = dh_in.shape[-1]
     i, ig, fg, og = (gates_t[..., k * H:(k + 1) * H] for k in range(4))
-    dh_new = m * (dh_in + dy_t)
+    dh_new = m * (dh_in + rnd(dy_t))
     dc_new = m * dc_in
     tc = torch.tanh(c_new)
     da_og = (dh_new * tc) * og * (1 - og)
@@ -265,8 +326,8 @@ def _cell_grads(dh_in, dc_in, dy_t, m, gates_t, c_new, c_prev, check_i,
     da_fg = (dc_tot * c_prev) * fg * (1 - fg)
     dc_prev = (1 - m) * dc_in + dc_tot * fg + da_ig * check_i \
         + da_fg * check_f
-    return (torch.cat([da_i, da_ig, da_fg, da_og], dim=-1), dc_prev,
-            (1 - m) * dh_in)
+    return (rnd(torch.cat([da_i, da_ig, da_fg, da_og], dim=-1)),
+            rnd(dc_prev), (1 - m) * dh_in)
 
 
 def lstm_bwd_step_plain(dy_t, m_t, gates_t, c_new, c_prev, check_i,
@@ -283,21 +344,32 @@ def lstm_bwd_step_plain(dy_t, m_t, gates_t, c_new, c_prev, check_i,
     dgates_t.copy_(dg)
 
 
+_BF16 = torch.bfloat16
+
+
 def _seq_args(kernel, xs_b, mask, w, check_i, check_f, check_o, h0, c0,
-              strided):
-    """Checks the sequence operands; returns (device, T, B, H, ldw). The
-    per-step kernels take a contiguous w; the persistent ones any row
-    stride (``strided``)."""
+              gate_bias, plan):
+    """Checks the sequence operands: xs_b's dtype (float32, or bf16 with
+    the gate bias apart) for all but the f32 mask. Returns (device, T, B,
+    H, ldw). The per-step kernels (``plan`` None) take a contiguous f32 w
+    and have no bf16 form; the persistent ones any row stride."""
     dev = build.cuda_device(kernel, xs_b)
     T, B, H4 = xs_b.shape
     H = H4 // 4
     bh = (B, H)
-    build.check_tensors(kernel, dev, xs=(xs_b, (T, B, 4 * H)),
-                        mask=(mask, (T, B)), check_i=(check_i, (H,)),
-                        check_f=(check_f, (H,)), check_o=(check_o, (H,)),
-                        h0=(h0, bh), c0=(c0, bh))
-    if strided:
-        ldw = check_weight(kernel, dev, "w", w, (H, 4 * H))
+    dt = _BF16 if xs_b.dtype == _BF16 else torch.float32
+    if dt == _BF16 and plan is None:
+        raise ValueError(f"{kernel}: B={B} H={H} is on the per-step route, "
+                         "which has no bfloat16 form")
+    bias = {} if dt == torch.float32 else dict(
+        gate_bias=(gate_bias, (4 * H,), dt))
+    build.check_tensors(kernel, dev, xs=(xs_b, (T, B, 4 * H), dt),
+                        mask=(mask, (T, B)), check_i=(check_i, (H,), dt),
+                        check_f=(check_f, (H,), dt),
+                        check_o=(check_o, (H,), dt), h0=(h0, bh, dt),
+                        c0=(c0, bh, dt), **bias)
+    if plan is not None:
+        ldw = check_weight(kernel, dev, "w", w, (H, 4 * H), dt)
     else:
         build.check_tensors(kernel, dev, w=(w, (H, 4 * H)))
         ldw = 4 * H
@@ -314,50 +386,68 @@ def _persistent_plan(t, B, H, per_step):
 
 
 def _forward_persistent(kernel, plan, xs_b, mask, w, check_i, check_f,
-                        check_o, h0, c0, ldw, hs, c, ys, cs, gates):
-    """One persistent forward launch: h_t of every step into ``hs``; the
-    residual form (``cs`` given) also cs and gates, the primal form cT into
-    ``c``."""
+                        check_o, h0, c0, gate_bias, ldw, residual):
+    """One persistent forward launch in xs_b's dtype (the f32 or the bf16
+    form): (ys, hbuf, cT) or, ``residual``, (ys, hs, cs, gates). ys is
+    f32; hbuf [T, B, H] f32 holds h_t of every step (the f32 form: hs
+    itself; the bf16 form: the bf16 values widened, the blocks' exchange,
+    which the kernel stages as the f32 form does); the rest in xs_b's
+    dtype."""
     T, B, _ = xs_b.shape
     H = h0.shape[1]
-    count = torch.empty(1, dtype=torch.int32, device=xs_b.device)
+    dev, dt = xs_b.device, xs_b.dtype
+    new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
+                                               device=dev)
+    bf16 = dt == _BF16
+    ys, hbuf = new(T, B, H, dtype=torch.float32), new(T, B, H,
+                                                      dtype=torch.float32)
+    hs = new(T, B, H) if residual and bf16 else None
+    cs, gates = (new(T, B, H), new(T, B, 4 * H)) if residual else (None,
+                                                                   None)
+    c = None if residual else c0.clone()
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    # h0 staged with 16-byte copies (bf16: a fresh widened tensor)
+    h0s = h0.float() if bf16 else aligned(h0)
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(xs_b.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_seq", "lstm_seq_forward_persistent", 14, 6)(
+        err = build.bind("lstm_seq", "lstm_seq_forward_persistent", 16, 7)(
             xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
             check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
-            h0.data_ptr(), c0.data_ptr(), hs.data_ptr(), ptr(c),
-            ys.data_ptr(), ptr(cs), ptr(gates), count.data_ptr(),
-            int(cs is not None), ldw, T, B, H, plan["units"], stream)
+            ptr(gate_bias if bf16 else None), h0s.data_ptr(),
+            c0.data_ptr(), hbuf.data_ptr(), ptr(c), ys.data_ptr(), ptr(hs),
+            ptr(cs), ptr(gates), count.data_ptr(), int(residual), int(bf16),
+            ldw, T, B, H, plan["units"], stream)
     build.raise_coop(err, kernel, plan)
+    if residual:
+        return ys, hbuf if hs is None else hs, cs, gates
+    return ys, hbuf[-1].to(dt) if T else h0, c
 
 
 def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
-             per_step=False) -> Tensors:
+             per_step=False, gate_bias=None) -> Tensors:
     """The primal kernel's wrapper; same arguments and results as
     ``lstm_sequence_plain``. ``per_step=True`` forces the per-step route.
     ``lstm_seq.launches`` counts the calls that launched a kernel,
     ``lstm_seq.step_launches`` the device launches (1 a call on the
-    persistent route, one per timestep on the other)."""
+    persistent route, one per timestep on the other). bf16 ``xs_b``
+    (with ``gate_bias`` apart) takes the bf16 form, counted in
+    ``lstm_seq.bf16_launches`` (``build.count_launch``)."""
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
-        return lstm_sequence_plain(*args)
+        return lstm_sequence_plain(*args, gate_bias=gate_bias)
     plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 4,
                             per_step)
-    dev, T, B, H, ldw = _seq_args("lstm_seq", *args, plan is not None)
-    c = c0.clone()
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    dev, T, B, H, ldw = _seq_args("lstm_seq", *args, gate_bias, plan)
     if plan is not None:
         # h_t of every step (the kernel reads h_{t-1} where no SM read
         # before, see lstm_persistent_kernel)
-        hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-        _forward_persistent("lstm_seq", plan, xs_b, mask, w, check_i,
-                            check_f, check_o, aligned(h0), c0, ldw, hs, c,
-                            ys, None, None)
-        lstm_seq.step_launches += 1 if T else 0
-        lstm_seq.launches += 1
-        return ys, hs[-1] if T else h0, c
+        out = _forward_persistent("lstm_seq", plan, *args, gate_bias, ldw,
+                                  False)
+        build.count_launch(lstm_seq, xs_b, 1 if T else 0)
+        return out
+    c = c0.clone()
+    ys = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     h = torch.empty((2, B, H), dtype=torch.float32, device=dev)
     h[0].copy_(h0)
     with torch.cuda.device(dev):
@@ -367,49 +457,48 @@ def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
             check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
             h.data_ptr(), c.data_ptr(), ys.data_ptr(), T, B, H, stream)
     build.raise_on(err, "lstm_seq")
-    lstm_seq.step_launches += T
-    lstm_seq.launches += 1
+    build.count_launch(lstm_seq, xs_b, T)
     return ys, h[T % 2], c
 
 
 lstm_seq.launches = 0
 lstm_seq.step_launches = 0
+lstm_seq.bf16_launches = 0
 
 
 def lstm_seq_train(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
-                   per_step=False):
+                   per_step=False, gate_bias=None):
     """The residual kernel's wrapper; same arguments and results as
     ``lstm_sequence_residual_plain``. Routes and counts as ``lstm_seq``."""
     args = (xs_b, mask, w, check_i, check_f, check_o, h0, c0)
     if xs_b.device.type == "cpu":
-        return lstm_sequence_residual_plain(*args)
+        return lstm_sequence_residual_plain(*args, gate_bias=gate_bias)
     plan = _persistent_plan(xs_b, xs_b.shape[1], xs_b.shape[2] // 4,
                             per_step)
-    dev, T, B, H, ldw = _seq_args("lstm_seq_train", *args, plan is not None)
+    dev, T, B, H, ldw = _seq_args("lstm_seq_train", *args, gate_bias, plan)
+    if plan is not None:
+        out = _forward_persistent("lstm_seq_train", plan, *args, gate_bias,
+                                  ldw, True)
+        build.count_launch(lstm_seq_train, xs_b, 1 if T else 0)
+        return out
     ys, hs, cs = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
                   for _ in range(3))
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    if plan is not None:
-        _forward_persistent("lstm_seq_train", plan, xs_b, mask, w, check_i,
-                            check_f, check_o, aligned(h0), c0, ldw, hs,
-                            None, ys, cs, gates)
-        lstm_seq_train.step_launches += 1 if T else 0
-    else:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = build.bind("lstm_seq", "lstm_seq_forward_train", 12, 3)(
-                xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
-                check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
-                h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
-                cs.data_ptr(), gates.data_ptr(), T, B, H, stream)
-        build.raise_on(err, "lstm_seq_train")
-        lstm_seq_train.step_launches += T
-    lstm_seq_train.launches += 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.bind("lstm_seq", "lstm_seq_forward_train", 12, 3)(
+            xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), gates.data_ptr(), T, B, H, stream)
+    build.raise_on(err, "lstm_seq_train")
+    build.count_launch(lstm_seq_train, xs_b, T)
     return ys, hs, cs, gates
 
 
 lstm_seq_train.launches = 0
 lstm_seq_train.step_launches = 0
+lstm_seq_train.bf16_launches = 0
 
 
 def lstm_bwd_step(dy_t, m_t, gates_t, c_new, c_prev, check_i, check_f,
@@ -456,7 +545,17 @@ def lstm_bwd_chain_plain(dys, mask, gates, cs, c0, w, check_i, check_f,
     the elementwise chain of each block's units (dgates_t, the carries).
     After t = 0, 1-2 once more give dh0. The products' inner order
     differs from the kernel's, so the two agree within rounding, not bit
-    for bit. Returns (dxs [T, B, 4H], dh0, dc0)."""
+    for bit. Returns (dxs [T, B, 4H], dh0, dc0).
+
+    bf16 residuals (the bf16 form): every step computes in f32 from them
+    and rounds to bf16 where the kernel stores or sums in bf16: dy, the
+    recurrent product once (its 16 partials added in f32), dh_in = carry +
+    product, dgates_t and dc_prev; dxs, dh0 and dc0 come back bf16."""
+    dt = gates.dtype
+    rnd = _rounder(dt)
+    gates, cs, c0, w, check_i, check_f, check_o, dhT, dcT = (
+        a.float() for a in (gates, cs, c0, w, check_i, check_f, check_o,
+                            dhT, dcT))
     T, B, H = cs.shape
     U = units or max(H, 1)
     blocks = lstm_partition(H, U)
@@ -474,7 +573,7 @@ def lstm_bwd_chain_plain(dys, mask, gates, cs, c0, w, check_i, check_f,
             total = dg[:, col_groups[0]] @ w[j0:j1, col_groups[0]].t()
             for cols in col_groups[1:]:
                 total = total + dg[:, cols] @ w[j0:j1, cols].t()
-            dh[:, j0:j1] += total
+            dh[:, j0:j1] = rnd(dh[:, j0:j1] + rnd(total))
 
     for t in range(T - 1, -1, -1):
         if t < T - 1:
@@ -488,11 +587,11 @@ def lstm_bwd_chain_plain(dys, mask, gates, cs, c0, w, check_i, check_f,
             dg, dc[:, sl], dh[:, sl] = _cell_grads(
                 dh[:, sl], dc[:, sl], dys[t][:, sl], m, gates[t][:, c],
                 cs[t][:, sl], c_prev[:, sl], check_i[sl], check_f[sl],
-                check_o[sl])
+                check_o[sl], rnd)
             dxs[t][:, c] = dg
     if T:
         reduce(dxs[0])
-    return dxs, dh, dc
+    return dxs.to(dt), dh.to(dt), dc.to(dt)
 
 
 def lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i, check_f, check_o,
@@ -502,7 +601,8 @@ def lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i, check_f, check_o,
     function over one block: the partitions agree within rounding, which
     the CPU tests hold). One cooperative launch per call; raises where the
     shape is not on the route or the launch is refused. ``.launches``
-    counts calls, ``.step_launches`` device launches."""
+    counts calls, ``.step_launches`` device launches; bf16 residuals take
+    the bf16 form, counted in ``.bf16_launches``."""
     args = (dys, mask, gates, cs, c0, w, check_i, check_f, check_o, dhT,
             dcT)
     if cs.device.type == "cpu":
@@ -510,40 +610,41 @@ def lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i, check_f, check_o,
     dev = build.cuda_device("lstm_bwd_chain", cs)
     T, B, H = cs.shape
     bh = (B, H)
+    dt = cs.dtype if cs.dtype == _BF16 else torch.float32
     build.check_tensors(
         "lstm_bwd_chain", dev, dys=(dys, (T, B, H)), mask=(mask, (T, B)),
-        gates=(gates, (T, B, 4 * H)), cs=(cs, (T, B, H)), c0=(c0, bh),
-        check_i=(check_i, (H,)), check_f=(check_f, (H,)),
-        check_o=(check_o, (H,)), dhT=(dhT, bh), dcT=(dcT, bh))
-    ldw = check_weight("lstm_bwd_chain", dev, "w", w, (H, 4 * H))
+        gates=(gates, (T, B, 4 * H), dt), cs=(cs, (T, B, H), dt),
+        c0=(c0, bh, dt), check_i=(check_i, (H,), dt),
+        check_f=(check_f, (H,), dt), check_o=(check_o, (H,), dt),
+        dhT=(dhT, bh, dt), dcT=(dcT, bh, dt))
+    ldw = check_weight("lstm_bwd_chain", dev, "w", w, (H, 4 * H), dt)
     plan = _persistent_plan(cs, B, H, False)
     if plan is None:
         raise ValueError(f"lstm_bwd_chain: B={B} H={H} is not on the "
                          "persistent route (lstm_route); the per-step "
                          "backward (lstm_bwd_step) takes it")
     U, G = plan["units"], plan["grid_bwd"]
-    dxs = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dxs = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
     dgs = torch.empty((2, G, B, 4 * U), dtype=torch.float32, device=dev)
     part = torch.empty((2, G, B, GROUP_COLS * U), dtype=torch.float32,
                        device=dev)
-    dh0, dc0 = (torch.empty(bh, dtype=torch.float32, device=dev)
-                for _ in range(2))
+    dh0, dc0 = (torch.empty(bh, dtype=dt, device=dev) for _ in range(2))
     count = torch.empty(G // GROUP_COLS + GROUP_COLS, dtype=torch.int32,
                         device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_seq", "lstm_bwd_chain_launch", 17, 5)(
+        err = build.bind("lstm_seq", "lstm_bwd_chain_launch", 17, 6)(
             *(a.data_ptr() for a in args), dxs.data_ptr(), dgs.data_ptr(),
             part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            count.data_ptr(), ldw, T, B, H, U, stream)
+            count.data_ptr(), int(dt == _BF16), ldw, T, B, H, U, stream)
     build.raise_coop(err, "lstm_bwd_chain", plan)
-    lstm_bwd_chain.launches += 1
-    lstm_bwd_chain.step_launches += 1 if T else 0
+    build.count_launch(lstm_bwd_chain, cs, 1 if T else 0)
     return dxs, dh0, dc0
 
 
 lstm_bwd_chain.launches = 0
 lstm_bwd_chain.step_launches = 0
+lstm_bwd_chain.bf16_launches = 0
 
 
 def lstm_backward(mask, w, check_i, check_f, check_o, h0, c0, hs, cs, gates,
@@ -559,7 +660,7 @@ def lstm_backward(mask, w, check_i, check_f, check_o, h0, c0, hs, cs, gates,
     as JAX leaves them to XLA."""
     T, B, H = hs.shape
     dys = dys.contiguous()
-    if step is None and not per_step and lstm_route(
+    if hs.dtype == _BF16 or step is None and not per_step and lstm_route(
             B, H, device_sms(hs)) == PERSISTENT:
         dxs, dh0, dc = lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i,
                                       check_f, check_o, dhT.contiguous(),
@@ -592,20 +693,24 @@ class LstmFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs_b, mask, w, check_i, check_f, check_o, h0, c0,
-                per_step):
+                per_step, gate_bias=None):
         ys, hs, cs, gates = lstm_seq_train(xs_b, mask, w, check_i, check_f,
                                            check_o, h0, c0,
-                                           per_step=per_step)
+                                           per_step=per_step,
+                                           gate_bias=gate_bias)
         ctx.save_for_backward(mask, w, check_i, check_f, check_o, h0, c0,
                               hs, cs, gates)
         ctx.per_step = per_step
+        ctx.has_bias = gate_bias is not None
         return ys, hs[-1].clone(), cs[-1].clone()
 
     @staticmethod
     def backward(ctx, dys, dhT, dcT):
         dxs, dW, dpI, dpF, dpO, dh0, dc0 = lstm_backward(
             *ctx.saved_tensors, dys, dhT, dcT, per_step=ctx.per_step)
-        return dxs, None, dW, dpI, dpF, dpO, dh0, dc0, None
+        # the bf16 form's unfolded bias: the sum of the gate gradients
+        dbias = dxs.sum(dim=(0, 1)) if ctx.has_bias else None
+        return dxs, None, dW, dpI, dpF, dpO, dh0, dc0, None, dbias
 
 
 def lstm_sequence(xs, mask, w, gate_bias, check_i, check_f, check_o, h0, c0,
@@ -616,12 +721,31 @@ def lstm_sequence(xs, mask, w, gate_bias, check_i, check_f, check_o, h0, c0,
     in input time order). Differentiable: with grad enabled and an input
     that requires it, the residual kernel and ``LstmFunction``'s backward;
     otherwise the lean primal kernel. ``per_step=True`` forces the
-    per-step route. Returns (ys [T,B,H], hT, cT)."""
+    per-step route. Returns (ys [T,B,H], hT, cT).
+
+    bf16 operands take the bf16 forms (ys f32, hT and cT bf16); a call
+    whose operands promote to f32 (``jnp.result_type``: f32 ``xs`` with
+    bf16 weights) takes the float32 path on the exactly widened
+    operands, JAX's promoted product."""
     if reverse:
         ys, hT, cT = lstm_sequence(xs.flip(0), mask.flip(0), w, gate_bias,
                                    check_i, check_f, check_o, h0, c0,
                                    per_step=per_step)
         return ys.flip(0), hT, cT
+    ops = (xs, w, gate_bias, check_i, check_f, check_o, h0, c0)
+    dt = result_type(*ops)
+    if dt == _BF16:
+        args = (xs.contiguous(), mask.contiguous(), w.contiguous(),
+                check_i.contiguous(), check_f.contiguous(),
+                check_o.contiguous(), h0.contiguous(), c0.contiguous())
+        gate_bias = gate_bias.contiguous()
+        if xs.shape[0] and torch.is_grad_enabled() and any(
+                a.requires_grad for a in args + (gate_bias,)):
+            return LstmFunction.apply(*args, per_step, gate_bias)
+        return lstm_seq(*args, per_step=per_step, gate_bias=gate_bias)
+    if dt == torch.float32:
+        xs, w, gate_bias, check_i, check_f, check_o, h0, c0 = (
+            a.float() for a in ops)
     xs_b = (xs + gate_bias).contiguous()  # fold the bias in once
     args = (xs_b, mask.contiguous(), w.contiguous(), check_i.contiguous(),
             check_f.contiguous(), check_o.contiguous(), h0.contiguous(),

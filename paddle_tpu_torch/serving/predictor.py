@@ -54,6 +54,7 @@ from paddle_tpu_torch.core.network import Network
 from paddle_tpu_torch.data import types as T
 from paddle_tpu_torch.data.feeder import DataFeeder
 from paddle_tpu_torch.serving.errors import BadRequest, QuantGateError
+from paddle_tpu_torch.utils.masks import assert_feed_masks_f32
 
 logger = logging.getLogger("paddle_tpu_torch.serving")
 
@@ -359,6 +360,12 @@ class ServingPredictor:
                 break
         return key, padded
 
+    def _feed(self, rows):
+        """rows -> feed dict through the bucketing feeder, every mask it
+        built checked f32 (``utils/masks.py``) before it reaches the
+        network, as the JAX package's serving feed is."""
+        return assert_feed_masks_f32(self.feeder(list(rows)), "serving feed")
+
     def predict_rows(self, rows: List[tuple]):
         """Score a bucketed batch. Returns ``(outs, info)``: ``outs`` maps
         output layer name -> np array over the PADDED batch (the caller
@@ -368,7 +375,7 @@ class ServingPredictor:
             raise BadRequest("this model has no scoring outputs "
                              "(generation-only config)")
         t0 = time.perf_counter()
-        feed = self.feeder(list(rows))
+        feed = self._feed(rows)
         key, padded = self._bucket_key(feed)
         t1 = time.perf_counter()
         with torch.inference_mode():
@@ -421,7 +428,7 @@ class ServingPredictor:
         Argument over the padded batch."""
         if self.engine is None:
             raise BadRequest("this model has no generation group")
-        feed = self.feeder(list(rows))
+        feed = self._feed(rows)
         with torch.inference_mode():
             return self.encoder.apply(self._view(self.params), feed,
                                       train=False)
@@ -435,7 +442,7 @@ class ServingPredictor:
         if self.engine is None:
             raise BadRequest("this model has no generation group")
         t0 = time.perf_counter()
-        feed = self.feeder(list(rows))
+        feed = self._feed(rows)
         key, padded = self._bucket_key(feed)
         t1 = time.perf_counter()
         with torch.inference_mode():

@@ -142,6 +142,11 @@ def parse_args(argv=None):
     p.add_argument("--show_layer_stat", action="store_true",
                    help="log each layer output's mean and largest |value| "
                         "at each log_period")
+    p.add_argument("--compute_dtype", default=None,
+                   choices=["bfloat16", "float32"],
+                   help="mixed precision: f32 master parameters and "
+                        "optimizer state, the forward and backward in this "
+                        "dtype (masks stay f32); float32 = no casting")
     p.add_argument("--time_batches", type=int, default=20,
                    help="--job=time: timed batches after warmup")
     p.add_argument("--time_warmup", type=int, default=3)
@@ -305,7 +310,8 @@ def _build_trainer(ns, args):
                                                 momentum=0.9)
     trainer = SGD(cost=topo, update_equation=optimizer, seed=args.seed,
                   device=args.device,
-                  prev_batch_state=getattr(args, "prev_batch_state", False))
+                  prev_batch_state=getattr(args, "prev_batch_state", False),
+                  compute_dtype=getattr(args, "compute_dtype", None))
     if args.init_model_path:
         _load_into(trainer, args.init_model_path)
     return trainer
@@ -674,9 +680,12 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             raise SystemExit(f"--device {args.device}: no CUDA device; "
                              "pass --device cpu to run on the CPU")
-        # the f32 reference semantics: no TF32 in matmuls or convolutions
+        # the f32 reference semantics: no TF32 in matmuls or convolutions,
+        # and bf16 products summed in f32 (as JAX's bf16 dots are)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     from paddle_tpu_torch.testing import chaos
     chaos.install_from_env()
     ns = load_config(args.config)

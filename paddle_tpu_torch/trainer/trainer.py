@@ -36,12 +36,22 @@ saves on the ``Checkpointer``'s cadence and resumes exactly: parameters,
 optimizer slots and counters, the step generator, the carried state and
 the data position.
 
-Not ported: the mesh, ZeRO-1, FSDP and pipeline planes, the health plane
-and bf16 compute.
+Mixed precision (``compute_dtype="bfloat16"``, JAX ``_cast_compute`` /
+``_cast_f32``): the master parameters and the optimizer state stay f32;
+each forward (training, test, ``forward``, ``layer_stats``) runs on bf16
+casts of the f32 parameters and of the feed's f32 values, made inside the
+differentiated function, so the gradients on the f32 leaves come back f32.
+Integer ids keep their dtype and every mask stays f32 (``ROW_MASK_KEY`` by
+key; a mask below f32 raises ``MaskDtypeError``). State updates and the
+carried state are widened back to f32.
+
+Not ported: the mesh, ZeRO-1, FSDP and pipeline planes and the health
+plane.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import time
@@ -61,6 +71,7 @@ from paddle_tpu_torch.trainer import metrics as _metrics
 from paddle_tpu_torch.trainer.checkpoint import unflatten_state
 from paddle_tpu_torch.trainer.evaluators import (Accumulator,
                                                  classification_error)
+from paddle_tpu_torch.utils.masks import assert_mask_f32
 
 logger = logging.getLogger("paddle_tpu_torch.trainer")
 
@@ -98,6 +109,22 @@ def _map_tensors(fn, tree):
     if isinstance(tree, (tuple, list)):
         return tuple(_map_tensors(fn, v) for v in tree)
     return fn(tree)
+
+
+def compute_dtype_of(name) -> Optional[torch.dtype]:
+    """The trainer's compute dtype from ``--compute_dtype`` (a name or a
+    torch dtype): None for float32 or None (no casting), else the dtype."""
+    if name is None:
+        return None
+    dt = name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+    if not dt.is_floating_point:
+        raise ValueError(f"compute_dtype must be a floating dtype, got {name}")
+    return None if dt == torch.float32 else dt
+
+
+def _host(t):
+    """A tensor for numpy: bf16 widened to f32 (exactly)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _first_tensor(tree):
@@ -173,12 +200,14 @@ class SGD:
     initialisation, which draws from a ``torch.Generator`` seeded by
     ``seed``; the step stream (dropout's seeds) is a generator seeded by
     ``seed + 1``. ``prev_batch_state``: truncated BPTT across batches
-    (``--prev_batch_state``)."""
+    (``--prev_batch_state``). ``compute_dtype``: mixed precision
+    (``--compute_dtype bfloat16``; see the module note)."""
 
     def __init__(self, cost, parameters: Optional[Dict[str, Any]] = None,
                  update_equation: Optimizer = None, *,
                  extra_layers: Optional[List] = None, seed: int = 0,
-                 device="cuda", prev_batch_state: bool = False):
+                 device="cuda", prev_batch_state: bool = False,
+                 compute_dtype=None):
         if update_equation is None:
             raise ValueError("update_equation (an Optimizer) is required")
         self.topology = (cost if isinstance(cost, Topology)
@@ -226,11 +255,54 @@ class SGD:
             and not (ld.attrs.get("reversed") or ld.attrs.get("reverse"))
             and name in self.network.order] if prev_batch_state else []
         self._carried = None  # {layer: final state}, threaded over batches
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         # wall seconds of each training step (from the prepared batch to
         # the host fetch of its cost, which waits for the device), and the
         # seconds the loop waited for the batch before it
         self.step_seconds: List[float] = []
         self.data_wait_seconds: List[float] = []
+
+    # --------------------------------------------------- mixed precision
+    def _cast_compute(self, tree):
+        """The compute-dtype view of parameters or a feed (JAX
+        ``_cast_compute``): every float32 tensor cast, other dtypes kept;
+        an Argument's value and state cast, its masks kept f32 (a mask
+        below f32 raises ``MaskDtypeError``), nested Arguments in state
+        likewise; the row-validity mask exempt by key."""
+        if self.compute_dtype is None:
+            return tree
+        dt = self.compute_dtype
+        if isinstance(tree, dict) and ROW_MASK_KEY in tree:
+            out = self._cast_compute({k: v for k, v in tree.items()
+                                      if k != ROW_MASK_KEY})
+            out[ROW_MASK_KEY] = tree[ROW_MASK_KEY]
+            return out
+
+        def go(x):
+            if isinstance(x, Argument):
+                assert_mask_f32(x.mask, "_cast_compute")
+                assert_mask_f32(x.sub_starts_mask, "_cast_compute")
+                return dataclasses.replace(x, value=go(x.value),
+                                           state=go(x.state))
+            if isinstance(x, dict):
+                return {k: go(v) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(go(v) for v in x)
+            if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+                return x.to(dt)
+            return x
+
+        return go(tree)
+
+    def _cast_f32(self, tree):
+        """Compute-dtype tensors of a nest widened back to f32 (JAX
+        ``_cast_f32``)."""
+        if self.compute_dtype is None:
+            return tree
+        dt = self.compute_dtype
+        return _map_tensors(
+            lambda t: t.to(torch.float32)
+            if isinstance(t, torch.Tensor) and t.dtype == dt else t, tree)
 
     # ---------------------------------------------------- cost and metrics
     @staticmethod
@@ -293,8 +365,12 @@ class SGD:
                  if not (n in self.meta and self.meta[n].is_static)]
         leaves = {n: p.detach().requires_grad_(n in names)
                   for n, p in self.params.items()}
+        # the casts inside the differentiated function: the gradients of
+        # the f32 leaves come back f32
         outputs, updates = self.network.apply_with_state(
-            leaves, feed, train=True, carried=carried, seed=seed)
+            self._cast_compute(leaves), self._cast_compute(feed), train=True,
+            carried=carried, seed=seed)
+        updates = self._cast_f32(updates)
         loss = self._total_cost(outputs, self._row_mask(feed), accum_k,
                                 total_live)
         watch = [n for n in self._grad_watch
@@ -304,8 +380,8 @@ class SGD:
             + [outputs[n].value for n in watch], allow_unused=True)
         grads = {n: g if g is not None else torch.zeros_like(leaves[n])
                  for n, g in zip(names, found)}
-        probes = {n: g.detach() if g is not None
-                  else torch.zeros_like(outputs[n].value)
+        probes = {n: _host(g.detach()) if g is not None
+                  else _host(torch.zeros_like(outputs[n].value))
                   for n, g in zip(watch, found[len(names):])}
         return outputs, loss.detach(), grads, updates, probes
 
@@ -359,7 +435,10 @@ class SGD:
             if graph.layers[n].type == "recurrent_layer_group":
                 return st["final"]
             return st
-        return {n: _map_tensors(lambda t: t.detach(), final(n))
+        # widened to f32 (exact); the layers take a carried state at their
+        # input's dtype
+        return {n: self._cast_f32(_map_tensors(lambda t: t.detach(),
+                                               final(n)))
                 for n in self._carry_layers}
 
     def train_step(self, feed, pass_id: int = 0,
@@ -680,7 +759,9 @@ class SGD:
             for data in reader():
                 feed = self._prepare(data, feeder)
                 metrics = self._metrics(
-                    self.network.apply(self.params, feed, train=False), feed)
+                    self.network.apply(self._cast_compute(self.params),
+                                       self._cast_compute(feed),
+                                       train=False), feed)
                 total_cost += float(metrics["cost"])
                 batches += 1
                 self._accumulate(acc, metrics)
@@ -710,7 +791,8 @@ class SGD:
         outs = metrics.get("eval_outputs")
         if not outs:
             return
-        host = {k: tuple(None if v is None else v.cpu().numpy() for v in tup)
+        host = {k: tuple(None if v is None else _host(v).cpu().numpy()
+                         for v in tup)
                 for k, tup in outs.items()}
         row_mask = self._row_mask(feed)
         n_live = None
@@ -765,7 +847,8 @@ class SGD:
         """Each layer output's mean and largest |value| on one batch, the
         padded positions excluded (``--show_layer_stat``)."""
         with torch.no_grad():
-            outs = self.network.apply(self.params, feed, train=False)
+            outs = self.network.apply(self._cast_compute(self.params),
+                                      self._cast_compute(feed), train=False)
         return {n: dict(zip(("avg_abs", "max_abs"), _arg_abs_stats(a)))
                 for n, a in outs.items()
                 if isinstance(a.value, torch.Tensor)
@@ -805,8 +888,9 @@ class SGD:
     # ------------------------------------------------------------ forward
     def forward(self, feed, output_names: Optional[List[str]] = None):
         with torch.no_grad():
-            outputs = self.network.apply(self.params, self._to_device(feed),
-                                         train=False)
+            outputs = self.network.apply(
+                self._cast_compute(self.params),
+                self._cast_compute(self._to_device(feed)), train=False)
         if output_names is None:
             return outputs
         return {n: outputs[n] for n in output_names}

@@ -15,7 +15,11 @@ above D = 1024 too), the CTC alpha and beta chains in both operand forms
 on the card; the image layers and ResNet-50's three ways, card
 against CPU (cuDNN's convolutions with TF32 off); a continuous-batching
 decode session and a bf16 / int8 predictor on the card, against their CPU
-runs, launching the GRU cell and the LSTM kernels. Every test here is marked
+runs, launching the GRU cell and the LSTM kernels; the bf16 forms of the
+LSTM and GRU sequence kernels and their reverse chains against their plain
+bf16 versions (values within 2e-2, gradients within 5e-2 of each tensor's
+largest entry, and no farther from f32 than twice the plain bf16 version
+plus 1e-3), and every f32-only kernel refusing bf16. Every test here is marked
 ``cuda`` and skips where there is no NVIDIA GPU: a CUDA kernel has no CPU
 mode. The file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch:
@@ -755,13 +759,10 @@ def test_gru_persistent_launch_that_does_not_fit_raises(cuda_device):
     H = 4096) is refused with the reason, not run."""
     T, B, H = 2, 2, 4096
     xs, mask, wg, ws, h0 = _gru_inputs(T, B, H, 1, cuda_device)
-    ys = torch.empty(T, B, H, device=cuda_device)
-    h = torch.empty(2, B, H, device=cuda_device)
     plan = dict(units=1, chunk_fwd=64)
     with pytest.raises(RuntimeError, match="does not fit on the card"):
         tgru._forward_persistent("gru_seq", plan, xs, mask, wg, ws, h0,
-                                 wg.stride(0), ws.stride(0), h, ys, None,
-                                 None)
+                                 wg.stride(0), ws.stride(0), False)
 
 
 # (T, B, H): the tagger's width, the classifier's at 8 steps, batch 1,
@@ -863,12 +864,10 @@ def test_lstm_persistent_launch_that_does_not_fit_raises(cuda_device):
     T, B, H = 2, 2, 4096
     ins = [torch.from_numpy(a).to(cuda_device)
            for a in _inputs(T, B, H, seed=1)]
-    ys = torch.empty(T, B, H, device=cuda_device)
-    hs = torch.empty(T, B, H, device=cuda_device)
     plan = dict(units=1)
     with pytest.raises(RuntimeError, match="does not fit on the card"):
-        tlstm._forward_persistent("lstm_seq", plan, *ins, 4 * H, hs,
-                                  ins[7].clone(), ys, None, None)
+        tlstm._forward_persistent("lstm_seq", plan, *ins, None, 4 * H,
+                                  False)
 
 
 def _crf_inputs(B, T, C, seed, device):
@@ -2192,3 +2191,193 @@ def test_quantized_predictor_on_card(cuda_device, tmp_path, dtype):
             assert w.dtype == want and w.is_cuda
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-5,
                                atol=1e-5)
+
+
+# ------------------------------------------------ the bf16 forms (K1-K4)
+BF16 = torch.bfloat16
+
+
+def _bf16_held(got, want, f32, scale=2e-2):
+    """A bf16 form against its plain bf16 version on the card: within
+    ``scale`` of each tensor's largest entry, and no farther from the f32
+    computation of the widened inputs than twice the plain version, plus
+    1e-3 of the f32 result's largest entry."""
+    for g, w, f in zip(got, want, f32):
+        g, w, f = g.float(), w.float(), f.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= scale * w.abs().max().item()
+        assert (g - f).abs().max().item() <= \
+            2 * (w - f).abs().max().item() + 1e-3 * f.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(20, 5, 40), (30, 64, 256), (12, 1, 1280)])
+def test_lstm_bf16_forms_match_plain_on_card(cuda_device, T, B, H):
+    """K1 (primal and residual) and K2 (the chain) in bf16: ys f32, the
+    state and residuals bf16, the bias unfolded; values and gradients
+    within 2e-2 of each tensor's largest entry."""
+    xs, mask, w, pi, pf, po, h0, c0 = (
+        torch.from_numpy(a).to(cuda_device) for a in _inputs(T, B, H, B + H))
+    bias = torch.randn(4 * H, device=cuda_device) * 0.1
+    b = [t.to(BF16) for t in (xs, w, pi, pf, po, h0, c0)]
+    bb = bias.to(BF16)
+    args = (b[0], mask, *b[1:])
+    fl = [t.float() for t in b]
+    f_args = (fl[0] + bb.float(), mask, *fl[1:])
+    c0_ = (tlstm.lstm_seq.bf16_launches, tlstm.lstm_seq_train.bf16_launches,
+           tlstm.lstm_bwd_chain.bf16_launches)
+    prim = tlstm.lstm_seq(*args, gate_bias=bb)
+    res = tlstm.lstm_seq_train(*args, gate_bias=bb)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in prim] == [torch.float32, BF16, BF16]
+    assert [t.dtype for t in res] == [torch.float32, BF16, BF16, BF16]
+    _bf16_held(prim, tlstm.lstm_sequence_plain(*args, gate_bias=bb),
+               tlstm.lstm_sequence_plain(*f_args), 2e-2)
+    res_p = tlstm.lstm_sequence_residual_plain(*args, gate_bias=bb)
+    res_f = tlstm.lstm_sequence_residual_plain(*f_args)
+    _bf16_held(res, res_p, res_f, 2e-2)
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    dys = torch.randn(T, B, H, generator=g, device=cuda_device)
+    dhT, dcT = (torch.randn(B, H, generator=g, device=cuda_device)
+                for _ in range(2))
+    _, hs, cs, gates = res_p
+    chain_args = (dys, mask, gates, cs, b[6], b[1], *b[2:5], dhT.to(BF16),
+                  dcT.to(BF16))
+    chain = tlstm.lstm_bwd_chain(*chain_args)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in chain] == [BF16] * 3
+    _bf16_held(chain, tlstm.lstm_bwd_chain_plain(
+        *chain_args, units=tlstm.lstm_plan(B, H)["units"]),
+        tlstm.lstm_bwd_chain_plain(dys, mask, res_f[3], res_f[2], fl[6],
+                                   fl[1], *fl[2:5], dhT, dcT), 2e-2)
+    assert (tlstm.lstm_seq.bf16_launches, tlstm.lstm_seq_train.bf16_launches,
+            tlstm.lstm_bwd_chain.bf16_launches) == tuple(
+                n + 1 for n in c0_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,reverse", [(20, 5, 40, False),
+                                           (40, 16, 1024, True),
+                                           (12, 1, 1024, False)])
+def test_gru_bf16_forms_match_plain_on_card(cuda_device, T, B, H, reverse):
+    """K3 (primal and residual) and K4 (the chain) in bf16 through
+    ``gru_sequence`` and at the wrappers, with the two column slices of
+    one bf16 w0: ys f32, the rest bf16."""
+    rng = np.random.default_rng(B + H)
+    f = lambda *s, scale=1.0: torch.tensor(
+        rng.normal(size=s) * scale, dtype=torch.float32, device=cuda_device)
+    lens = rng.integers(1, T + 1, size=B)
+    lens[0] = T
+    mask = torch.tensor((np.arange(T)[:, None] < lens[None, :]),
+                        dtype=torch.float32, device=cuda_device)
+    xs, w0 = f(T, B, 3 * H).to(BF16), f(H, 3 * H, scale=H ** -0.5).to(BF16)
+    bias, h0 = f(3 * H, scale=0.1).to(BF16), f(B, H, scale=0.5).to(BF16)
+    xs_b = xs + bias
+    if reverse:
+        xs_b, mask = xs_b.flip(0).contiguous(), mask.flip(0).contiguous()
+    wg, ws = w0[:, :2 * H], w0[:, 2 * H:]
+    args = (xs_b, mask, wg, ws, h0)
+    w0f = w0.float()
+    f_args = (xs_b.float(), mask, w0f[:, :2 * H], w0f[:, 2 * H:], h0.float())
+    before = (tgru.gru_seq.bf16_launches, tgru.gru_seq_train.bf16_launches,
+              tgru.gru_bwd_chain.bf16_launches)
+    prim = tgru.gru_seq(*args)
+    res = tgru.gru_seq_train(*args)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in prim] == [torch.float32, BF16]
+    assert [t.dtype for t in res] == [torch.float32, BF16, BF16]
+    _bf16_held(prim, tgru.gru_sequence_plain(*args),
+               tgru.gru_sequence_plain(*f_args), 2e-2)
+    res_p = tgru.gru_sequence_residual_plain(*args)
+    res_f = tgru.gru_sequence_residual_plain(*f_args)
+    _bf16_held(res, res_p, res_f, 2e-2)
+    dys = f(T, B, H)
+    dhT = f(B, H)
+    chain_args = (dys, mask, res_p[2], h0, res_p[1], wg, ws, dhT.to(BF16))
+    chain = tgru.gru_bwd_chain(*chain_args)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in chain] == [BF16, BF16]
+    _bf16_held(chain, tgru.gru_bwd_chain_plain(
+        *chain_args, units=tgru.gru_plan(B, H)["units"]),
+        tgru.gru_bwd_chain_plain(dys, mask, res_f[2], h0.float(), res_f[1],
+                                 *f_args[2:4], dhT), 2e-2)
+    assert (tgru.gru_seq.bf16_launches, tgru.gru_seq_train.bf16_launches,
+            tgru.gru_bwd_chain.bf16_launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_bf16_sequence_gradients_through_autograd_on_card(cuda_device):
+    """``lstm_sequence`` / ``gru_sequence`` with bf16 leaves: the gradient
+    of each leaf comes back in its own dtype, within 5e-2 of the largest
+    entry of autograd through the CPU's plain bf16 versions."""
+    T, B, H = 16, 4, 64
+    rng = np.random.default_rng(3)
+    vals = [rng.normal(size=s) * k for s, k in (
+        ((T, B, 4 * H), 1.0), ((H, 4 * H), H ** -0.5), ((4 * H,), 0.1),
+        ((H,), 0.1), ((H,), 0.1), ((H,), 0.1), ((B, H), 0.5), ((B, H), 0.5))]
+    mask = np.ones((T, B), np.float32)
+    mask[T // 2:, 1] = 0
+    dys = rng.normal(size=(T, B, H)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [torch.tensor(v, dtype=torch.float32).to(dev).to(BF16)
+                  .requires_grad_() for v in vals]
+        ys, hT, cT = tlstm.lstm_sequence(
+            leaves[0], torch.tensor(mask).to(dev), *leaves[1:], reverse=True)
+        (ys * torch.tensor(dys).to(dev)).sum().backward()
+        grads[str(dev)] = [leaf.grad for leaf in leaves]
+    for gc, gg in zip(grads["cpu"], grads[str(cuda_device)]):
+        assert gg.dtype == BF16
+        assert (gg.float().cpu() - gc.float()).abs().max().item() <= \
+            5e-2 * gc.float().abs().max().item() + 1e-3
+
+
+@pytest.mark.cuda
+def test_f32_only_kernels_refuse_bf16_on_card(cuda_device):
+    """A bf16 CUDA tensor into an f32-only kernel raises, one of each
+    family (no quiet upcast): flash, CRF, CTC, the cells, the per-step
+    backward routes, the optimizer kernels; the per-step LSTM and the
+    two-launch GRU routes, which have no bf16 form, too."""
+    from paddle_tpu_torch.kernels import opt_update
+    from paddle_tpu_torch.optim import Adam
+    d = dict(device=cuda_device, dtype=BF16)
+    B, T, H, K = 2, 8, 32, 5
+    m = torch.ones(B, T, device=cuda_device)
+    calls = [
+        lambda: tattn.flash_fwd(*(torch.randn(B, 2, T, 64, **d)
+                                  for _ in range(3))),
+        lambda: tcrf.crf_alpha_fwd(torch.randn(B, T, K, **d), m,
+                                   torch.randn(K, K, **d),
+                                   torch.randn(K, **d), torch.randn(K, **d)),
+        lambda: tctc.ctc_fused_fwd(
+            torch.randn(B, T, K, **d),
+            torch.zeros(B, 3, dtype=torch.int32, device=cuda_device), m,
+            torch.ones(B, 3, device=cuda_device), K - 1),
+        lambda: rnn_cells.gru_cell(torch.randn(B, 3 * H, **d),
+                                   torch.randn(B, H, **d),
+                                   torch.randn(H, 2 * H, **d),
+                                   torch.randn(H, H, **d)),
+        lambda: rnn_cells.lstm_cell(torch.randn(B, 4 * H, **d),
+                                    torch.randn(B, H, **d),
+                                    *(torch.randn(H, **d) for _ in range(3))),
+        lambda: tlstm.lstm_bwd_step(*(torch.randn(*s, **d) for s in (
+            (B, H), (B,), (B, 4 * H), (B, H), (B, H), (H,), (H,), (H,),
+            (B, H), (B, H), (B, H), (B, 4 * H)))),
+        lambda: opt_update.adam(
+            Adam(learning_rate=1e-3), torch.randn(64, **d),
+            torch.randn(64, **d), {"mom": torch.zeros(64, **d),
+                                   "v": torch.zeros(64, **d)}, 1e-3, 0.0, 1),
+        lambda: tlstm.lstm_seq(
+            torch.randn(T, B, 4 * H, **d), m.t().contiguous(),
+            torch.randn(H, 4 * H, **d), *(torch.randn(H, **d)
+                                          for _ in range(3)),
+            torch.randn(B, H, **d), torch.randn(B, H, **d), per_step=True,
+            gate_bias=torch.randn(4 * H, **d)),
+        lambda: tgru.gru_seq(torch.randn(T, B, 3 * H, **d),
+                             m.t().contiguous(), torch.randn(H, 2 * H, **d),
+                             torch.randn(H, H, **d), torch.randn(B, H, **d),
+                             two_launch=True),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
