@@ -503,7 +503,25 @@ non-zero without the result line:
    on the card with the plain bf16 versions in place of the kernels), a
    traced step at bf16 beside one at f32; (c) the acoustic model the same way, one pass (the first layer's
    two GRUs on the bf16 forms, layers 2 and 3 and CTC on the f32 kernels);
-   (d) a bf16 CUDA tensor into one f32-only kernel of each family raises.
+   (d) a bf16 CUDA tensor into a kernel form with no bf16 form raises
+   (flash's wide and split paths, the CRF's block forms, CTC, a cell
+   with a bf16 state, the per-step routes, the optimizers); (e) the bf16
+   forms of flash (D <= 128) at the seq2seq block's (50, 4, 50, 50, 128)
+   with an all-padding row, (2, 4, 300, 300, 128) both ways, batch 1 and
+   Tq = Tk = 8 (the ulp rule), and of the CRF (C <= 32) at the linear
+   tagger's (16, 80, 23) ragged, batch 1 and T = 3, each against its
+   plain bf16 version as in (a) (the Viterbi: paths identical, scores
+   bit-equal), timed at the path shapes beside the f32 forms, the plain
+   versions, the bounds, SDPA at bf16 (flash) and the chain bound (CRF);
+   (f) seq2seq with its self-attention block at full width (S2S_ATT) for
+   4 batches x 1 pass and --job test at bf16: flash_fwd_bf16 and
+   flash_bwd_bf16 once a step, the encoder's GRUs and the decoder's cell
+   on their f32 kernels, the masters f32, the first step's gradients
+   (``_bf16_grads``; the witness also swaps flash and the CRF for their
+   plain versions); (g) the linear-CRF tagger (``_LINEAR_CRF``: 76,328
+   sparse features, 23 labels) the same way: the CRF's three bf16 forms
+   once a step, the trained model's decode card against CPU (partings
+   counted; only where the CPU's f32 and bf16 decodes part too).
    The full run takes it after phase 11c, beside phases 8's and 11c's
    f32 step traces; ``python3 chip_smoke.py --bf16`` runs this phase
    alone (with its own f32 traces), into ``bf16.json`` in ``OUT_DIR``.
@@ -2235,7 +2253,7 @@ def _crf_alpha_fwd_lanes(x, mask, trans, a, b):
     8 classes a lane, C <= 256; above C = 239 ``crf_prep_kernel`` first).
     Uncounted."""
     vec = CRF._VEC
-    idx, B, T, C = CRF._check("crf_alpha_fwd", x, mask, trans,
+    idx, B, T, C, _ = CRF._check("crf_alpha_fwd", x, mask, trans,
                               (("a", a, vec), ("b", b, vec)))
     alphas = torch.empty((B, T, C), dtype=torch.float32, device=x.device)
     log_z = torch.empty((B,), dtype=torch.float32, device=x.device)
@@ -2470,7 +2488,7 @@ def _crf_fwd_pieces(x, mask, trans, a, b):
     work = torch.empty((n_now,), device=dev) if n_now else None
     stream = torch.cuda.current_stream().cuda_stream
     f_old = build.bind("crf", "crf_alpha_fwd_lanes", 8, 3)
-    f_now = build.bind("crf", "crf_alpha_fwd", 8, 4)
+    f_now = build.bind("crf", "crf_alpha_fwd", 8, 5)
     ins = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
            b.data_ptr())
     outs = (alphas.data_ptr(), log_z.data_ptr(), B, T, C)
@@ -2498,7 +2516,7 @@ def _crf_fwd_pieces(x, mask, trans, a, b):
              alloc=lambda: alloc(CRF.fwd_work_floats(B, C)),
              guard_stream=now_stream,
              ctypes_call=lambda keep=(alphas, log_z, work): f_now(
-                 *ins, CRF._ptr(work), *outs, 0, stream),
+                 *ins, CRF._ptr(work), *outs, 0, 0, stream),
              whole=lambda: CRF.crf_alpha_fwd(x, mask, trans, a, b)))
 
 
@@ -2521,15 +2539,15 @@ def _crf_pieces(x, mask, trans, a, b, alphas, log_z, g):
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    f_bwd = build.bind("crf", "crf_bwd", 12, 3)
-    f_vit = build.bind("crf", "crf_viterbi", 8, 3)
+    f_bwd = build.bind("crf", "crf_bwd", 12, 4)
+    f_vit = build.bind("crf", "crf_viterbi", 8, 4)
     bwd_args = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), b.data_ptr(),
                 alphas.data_ptr(), log_z.data_ptr(), g.data_ptr(),
-                work.data_ptr(), *(t.data_ptr() for t in outs), B, T, C,
+                work.data_ptr(), *(t.data_ptr() for t in outs), B, T, C, 0,
                 stream)
     vit_args = (x.data_ptr(), mask.data_ptr(), trans.data_ptr(), a.data_ptr(),
                 b.data_ptr(), None, path.data_ptr(), score.data_ptr(), B, T,
-                C, stream)
+                C, 0, stream)
     o_bwd = build.bind("crf", "crf_bwd_inline", 12, 3)
     o_vit = build.bind("crf", "crf_viterbi_scratch", 8, 3)
     parts = [torch.empty((B, T, C), device=dev),
@@ -3733,16 +3751,16 @@ def _baseline_flash_pieces(q, k, v, mask, o, lse, do):
     Tk = k.shape[2]
     dev = q.device
     scale = D ** -0.5
-    fwd = build.bind("flash_attn", "flash_fwd", 6, 6, 1)
-    bwd = build.bind("flash_attn", "flash_bwd", 11, 6, 1)
+    fwd = build.bind("flash_attn", "flash_fwd", 6, 7, 1)
+    bwd = build.bind("flash_attn", "flash_bwd", 11, 7, 1)
     delta = torch.empty((B * N, Tq), device=dev)
     outs = [torch.empty_like(t) for t in (q, k, v)]
     stream = torch.cuda.current_stream().cuda_stream
     f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, scale)
+              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, 0, scale)
     b_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
               o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, scale)
+              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, 0, scale)
 
     def check(kernel, **more):
         d = build.cuda_device(kernel, q)
@@ -3807,16 +3825,16 @@ def _flash_pieces(q, k, v, mask, o, lse, do):
     Tk = k.shape[2]
     idx = q.get_device()
     scale = D ** -0.5
-    fwd = build.bind("flash_attn", "flash_fwd", 6, 6, 1)
-    bwd = build.bind("flash_attn", "flash_bwd", 11, 6, 1)
+    fwd = build.bind("flash_attn", "flash_fwd", 6, 7, 1)
+    bwd = build.bind("flash_attn", "flash_bwd", 11, 7, 1)
     delta = q.new_empty((B * N, Tq))
     outs = [torch.empty_like(t) for t in (q, k, v)]
     f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, scale,
+              o.data_ptr(), lse.data_ptr(), B, N, Tq, Tk, D, 0, 0, scale,
               torch._C._cuda_getCurrentRawStream(idx))
     b_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
               o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, scale,
+              *(t.data_ptr() for t in outs), B, N, Tq, Tk, D, 0, 0, scale,
               torch._C._cuda_getCurrentRawStream(idx))
     guard = lambda: (torch.cuda.current_device() == idx,
                      torch._C._cuda_getCurrentRawStream(idx))
@@ -8948,15 +8966,17 @@ def _bf16_device_ms(fn, kernel, calls):
     return 1e-3 * sum(e.self_device_time_total for e in found) / n
 
 
-def _bf16_rows(row, where, held):
+def _bf16_rows(row, where, held, short=None):
     """``_bf16_held`` of each part of a check ({part: (names, got, want,
     f32)}) into ``row`` (``<part>_max_abs_err``, ``<part>_share`` of the
-    largest entry), and ``_bf16_ulps`` at ``BF16_SHORT_T`` steps
-    (``<part>_ulps``)."""
+    largest entry), and ``_bf16_ulps`` at ``BF16_SHORT_T`` steps, or
+    where ``short`` says (``<part>_ulps``)."""
+    if short is None:
+        short = row["T"] <= BF16_SHORT_T
     for part, (names, got, want, f32) in held.items():
         row[part + "_max_abs_err"], row[part + "_share"] = _bf16_held(
             f"{where} {part}", names, got, want, f32)
-        if row["T"] <= BF16_SHORT_T:
+        if short:
             row[part + "_ulps"] = _bf16_ulps(f"{where} {part}", names, got,
                                              want)
 
@@ -9127,8 +9147,8 @@ def check_bf16_gru(B, H, T, reverse, seed, timed):
 
 @contextlib.contextmanager
 def _plain_bf16_forms():
-    """The bf16 forms' wrappers (K1-K4) replaced by their plain bf16
-    versions on the card (PyTorch's operations, cuBLAS's products: the
+    """The bf16 forms' wrappers (K1-K4, flash's and the CRF's forward and
+    backward) replaced by their plain bf16 versions on the card (PyTorch's operations, cuBLAS's products: the
     same bf16 rounding points, other sums' orders); float32 calls go to
     the kernels as before. The witness of ``_bf16_grads``."""
     swaps = [(L, "lstm_seq", 0, L.lstm_sequence_plain),
@@ -9136,7 +9156,11 @@ def _plain_bf16_forms():
              (L, "lstm_bwd_chain", 3, L.lstm_bwd_chain_plain),
              (G, "gru_seq", 0, G.gru_sequence_plain),
              (G, "gru_seq_train", 0, G.gru_sequence_residual_plain),
-             (G, "gru_bwd_chain", 4, G.gru_bwd_chain_plain)]
+             (G, "gru_bwd_chain", 4, G.gru_bwd_chain_plain),
+             (ATT, "flash_fwd", 0, ATT.blockwise_plain),
+             (ATT, "flash_bwd", 0, ATT.flash_bwd_plain),
+             (CRF, "crf_alpha_fwd", 0, CRF.crf_forward_plain),
+             (CRF, "crf_bwd", 0, CRF.crf_bwd_plain)]
     kernels = {(mod, name): getattr(mod, name) for mod, name, _, _ in swaps}
 
     def swap(kernel, at, plain):
@@ -9147,8 +9171,8 @@ def _plain_bf16_forms():
         def fn(*args, **kw):
             if args[at].dtype != _BF:
                 return kernel(*args, **kw)
-            kw.pop("per_step", None)
-            kw.pop("two_launch", None)
+            for key in ("per_step", "two_launch", "in_global"):
+                kw.pop(key, None)
             return plain(*args, **kw)
         return fn
 
@@ -9403,20 +9427,29 @@ def bf16_acoustic(tmp, f32_trace=None):
 
 
 def bf16_refusals():
-    """17(d): a bf16 CUDA tensor into one f32-only kernel of each family
-    raises (no quiet upcast): flash, CRF, CTC, the GRU and LSTM cells, the
-    per-step backward routes, the optimizers."""
+    """17(d): a bf16 CUDA tensor into a kernel form with no bf16 form
+    raises (no quiet upcast): flash's wide-head and split-row paths, the
+    CRF's block forms (C > 32), CTC, the GRU and LSTM cells with a bf16
+    state, the per-step backward routes, the optimizers."""
     from paddle_tpu_torch.kernels import opt_update
     from paddle_tpu_torch.optim import Adam, Momentum
     d = dict(device="cuda", dtype=_BF)
     B, T, H, K = 2, 8, 32, 5
     m = torch.ones(B, T, device="cuda")
     cases = {
-        "flash_fwd": lambda: ATT.flash_fwd(*(torch.randn(B, 2, T, 64, **d)
-                                             for _ in range(3))),
-        "crf_alpha_fwd": lambda: CRF.crf_alpha_fwd(
-            torch.randn(B, T, K, **d), m, torch.randn(K, K, **d),
-            torch.randn(K, **d), torch.randn(K, **d)),
+        "flash_fwd_wide": lambda: ATT.flash_fwd(
+            *(torch.randn(B, 2, T, 256, **d) for _ in range(3))),
+        "flash_bwd_split": lambda: ATT.flash_bwd(
+            *(torch.randn(B, 2, T, 1056, **d) for _ in range(3)), None,
+            torch.randn(B, 2, T, 1056, **d),
+            torch.zeros(2, 2 * B, T, device="cuda"),
+            torch.randn(B, 2, T, 1056, **d)),
+        "crf_alpha_fwd_block": lambda: CRF.crf_alpha_fwd(
+            torch.randn(B, T, 40, **d), m.to(_BF), torch.randn(40, 40, **d),
+            torch.randn(40, **d), torch.randn(40, **d)),
+        "crf_viterbi_block": lambda: CRF.crf_viterbi(
+            torch.randn(B, T, 40, **d), m.to(_BF), torch.randn(40, 40, **d),
+            torch.randn(40, **d), torch.randn(40, **d)),
         "ctc_fused_fwd": lambda: CTC.ctc_fused_fwd(
             torch.randn(B, T, K, **d), torch.zeros(B, 3, dtype=torch.int32,
                                                    device="cuda"),
@@ -9455,6 +9488,421 @@ def bf16_refusals():
     return refused
 
 
+# 17(e): the bf16 forms of flash (D <= 128) and of the CRF (C <= 32)
+# flash: (B, N, Tq, Tk, D, causal, last kv row all padding): the seq2seq
+# block's (batch 50 of 10-50 words, 4 heads of 128), two kv blocks both
+# ways, batch 1, and the short shape of the rounding-point check
+BF16_FLASH_SHAPES = [
+    (S2S_BATCH, S2S_ATT["num_heads"], S2S_LEN, S2S_LEN,
+     S2S["embed_dim"] // S2S_ATT["num_heads"], False, True),
+    (2, 4, 300, 300, 128, False, True), (2, 4, 300, 300, 128, True, False),
+    (1, 4, S2S_LEN, S2S_LEN, 128, False, False),
+    (2, 4, 8, 8, 128, False, False)]
+BF16_FLASH_SHORT_T = 8
+# the CRF: the linear-CRF tagger's batch (16 of 10-80 words, 23 labels),
+# batch 1, and the short shape
+BF16_CRF_SHAPES = [(16, 80, 23), (1, 80, 23), (16, BF16_SHORT_T, 23)]
+# 17(g): the linear-CRF tagger at the demo's widths
+# (v1_api_demo/sequence_tagging/linear_crf.py with the CoNLL-2000
+# dictionaries tools/accuracy_run.py records: 76,328 features, 23 chunk
+# labels), batches of 16 synthetic sentences of 10-80 words, about 30
+# features a word, Adam
+LCRF = dict(features=76328, labels=23)
+LCRF_BATCH, LCRF_BATCHES, LCRF_TEST_BATCHES = 16, 4, 2
+LCRF_MIN_LEN, LCRF_MAX_LEN, LCRF_WORD_FEATURES = 10, 80, 30
+LCRF_GRAD_ROWS = 8
+
+_LINEAR_CRF = """
+def linear_crf(dsl, ParamAttr):
+    crfw = ParamAttr(name="crfw")
+    feats = dsl.data(name="features", size={F}, is_sequence=True)
+    chunk = dsl.data(name="chunk", size={C}, is_sequence=True)
+    crf_input = dsl.fc(input=feats, size={C}, act="linear", bias_attr=False,
+                       name="crf_input")
+    cost = dsl.crf_layer(input=crf_input, label=chunk, size={C},
+                         param_attr=crfw, name="crf")
+    decoded = dsl.crf_decoding_layer(input=crf_input, label=chunk, size={C},
+                                     param_attr=crfw, name="crf_decoding")
+    return cost, decoded, chunk
+
+
+def sentences(rng, n):
+    # words of about {K} distinct feature ids; a word's label is its first
+    # drawn feature's id modulo the labels
+    out = []
+    for length in rng.integers({lo}, {hi} + 1, size=n):
+        ids = rng.integers(0, {F}, size=(int(length), {K}))
+        out.append(([sorted(set(w.tolist())) for w in ids],
+                    [int(w[0]) % {C} for w in ids]))
+    return out
+""".format(F=LCRF["features"], C=LCRF["labels"], K=LCRF_WORD_FEATURES,
+           lo=LCRF_MIN_LEN, hi=LCRF_MAX_LEN)
+
+
+def _kernels_device_ms(fn, kernels):
+    """The device ms of one call of ``fn``: the sum over its ``kernels``
+    (each launched once a call) of ``_bf16_device_ms``; None where a
+    trace lacked one."""
+    dev = [_bf16_device_ms(fn, kernel, 10) for kernel in kernels]
+    return None if None in dev else sum(dev)
+
+
+def check_bf16_flash(B, N, Tq, Tk, D, causal, pad_row, seed, timed):
+    """The bf16 forms of the flash kernels (``flash_fwd_kernel`` and the
+    backward's dq and dkdv kernels with S = bf16) against
+    ``blockwise_plain`` / ``flash_bwd_plain`` at bf16 on the same card
+    tensors (``_bf16_held``: o, lse, dq, dk, dv), and at Tq = Tk <=
+    ``BF16_FLASH_SHORT_T`` ``_bf16_ulps``; ``timed``: CUDA-event and
+    profiler ms, the f32 forms' at the widened inputs, the plain ms, the
+    bound (bf16 elements 2 bytes, the mask and statistics 4; the products
+    at the dense BF16 rate) and SDPA at bf16 with the mask as a bias."""
+    q, k, v, mask, do = _flash_inputs(B, N, Tq, Tk, D, seed,
+                                      min(S2S_MIN_LEN, Tk), pad_row)
+    q, k, v, do = (t.to(_BF) for t in (q, k, v, do))
+    f = [t.float() for t in (q, k, v, do)]
+    where = f"bf16 flash B={B} N={N} Tq={Tq} Tk={Tk} D={D} causal={causal}"
+    o, lse = ATT.flash_fwd(q, k, v, mask, causal)
+    grads = ATT.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    if o.dtype != _BF or any(t.dtype != _BF for t in grads):
+        raise AssertionError(f"{where}: dtypes {o.dtype}, "
+                             f"{[t.dtype for t in grads]}")
+    p_o, p_lse = ATT.blockwise_plain(q, k, v, mask, causal)
+    f_o, f_lse = ATT.blockwise_plain(*f[:3], mask, causal)
+    held = {"fwd": (("o", "lse"), (o, lse), (p_o, p_lse), (f_o, f_lse)),
+            "bwd": (("dq", "dk", "dv"), grads,
+                    ATT.flash_bwd_plain(q, k, v, mask, p_o, p_lse, do,
+                                        causal),
+                    ATT.flash_bwd_plain(*f[:3], mask, f_o, f_lse, f[3],
+                                        causal))}
+    row = dict(B=B, N=N, Tq=Tq, Tk=Tk, D=D, causal=causal)
+    _bf16_rows(row, where, held, short=Tk <= BF16_FLASH_SHORT_T)
+    if not timed:
+        return row
+    visible = _flash_visible(B, Tq, Tk, mask, causal)
+    pairs = N * float(visible.sum())
+    q_el, kv_el = B * N * Tq * D, B * N * Tk * D
+    stats = 2 * B * N * Tq
+    for key, fn, f_fn, plain, kernels, bound in (
+            ("fwd_", lambda: ATT.flash_fwd(q, k, v, mask, causal),
+             lambda: ATT.flash_fwd(*f[:3], mask, causal),
+             lambda: ATT.blockwise_plain(q, k, v, mask, causal),
+             ("flash_fwd_kernel",),
+             _bf16_bound(4.0 * D * pairs, 2 * q_el + 2 * kv_el,
+                         B * Tk + stats)),
+            ("bwd_", lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
+             lambda: ATT.flash_bwd(*f[:3], mask, f_o, f_lse, f[3], causal),
+             lambda: ATT.flash_bwd_plain(q, k, v, mask, p_o, p_lse, do,
+                                         causal),
+             ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+             _bf16_bound(10.0 * D * pairs, 4 * q_el + 4 * kv_el,
+                         B * Tk + stats))):
+        row[key + "ms"] = _time_ms(fn)
+        row[key + "device_ms"] = _kernels_device_ms(fn, kernels)
+        row[key + "f32_ms"] = _time_ms(f_fn)
+        row[key + "f32_device_ms"] = _kernels_device_ms(f_fn, kernels)
+        row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
+        row[key + "bound_ms"], row[key + "bound_by"] = bound
+    bias = torch.zeros((B, 1, Tq, Tk), device="cuda", dtype=_BF).masked_fill(
+        ~visible[:, None], -1e9)
+    lib = _library_times(q, k, v, do, p_o, D ** -0.5, "library",
+                         attn_mask=bias)
+    row.update(lib)
+    return row
+
+
+def check_bf16_crf(B, T, C, seed, timed):
+    """The bf16 forms of the C <= 32 CRF kernels (``crf_alpha_warp_kernel``,
+    ``crf_bwd_fused_kernel`` with ``crf_sum_kernel``,
+    ``crf_decode_warp_kernel`` with S = bf16) against their plain bf16
+    versions on the same card tensors (``_crf_inputs`` at bf16: ragged, an
+    all-padding row, two forbidden transitions; the mask bf16 as the
+    layer casts it): ``_bf16_held`` on alphas, log Z, dx, dtrans, da, db,
+    ``_bf16_ulps`` at ``BF16_SHORT_T`` steps; the Viterbi's paths
+    identical and its scores bit-equal. ``timed``: CUDA-event and
+    profiler ms, the f32 forms' at the widened inputs, the plain ms, the
+    bytes or operations bound (2 bytes a bf16 element) and the chain
+    bound (the most live steps of a row times ``crf_chain_floor``'s step
+    at C)."""
+    x, mask, trans, a, b, g = (t.to(_BF) for t in _crf_inputs(B, T, C, seed))
+    f = [t.float() for t in (x, mask, trans, a, b, g)]
+    where = f"bf16 CRF B={B} T={T} C={C}"
+    alphas, log_z = CRF.crf_alpha_fwd(x, mask, trans, a, b)
+    grads = CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g)
+    path, score = CRF.crf_viterbi(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+    p_alphas, p_log_z = CRF.crf_forward_plain(x, mask, trans, a, b)
+    f_alphas, f_log_z = CRF.crf_forward_plain(*f[:5])
+    held = {"fwd": (("alphas", "log_z"), (alphas, log_z),
+                    (p_alphas, p_log_z), (f_alphas, f_log_z)),
+            "bwd": (("dx", "dtrans", "da", "db"), grads,
+                    CRF.crf_bwd_plain(x, mask, trans, b, p_alphas, p_log_z,
+                                      g),
+                    CRF.crf_bwd_plain(f[0], f[1], f[2], f[4], f_alphas,
+                                      f_log_z, f[5]))}
+    row = dict(B=B, T=T, C=C)
+    _bf16_rows(row, where, held)
+    p_path, p_score = CRF.crf_viterbi_plain(x, mask, trans, a, b)
+    if not torch.equal(path, p_path) or not torch.equal(score, p_score):
+        raise AssertionError(f"{where}: Viterbi paths differ at "
+                             f"{int((path != p_path).sum())} steps, scores "
+                             f"at {int((score != p_score).sum())} rows")
+    row["viterbi_paths_equal"] = row["viterbi_scores_bit_equal"] = True
+    if not timed:
+        return row
+    live = float(mask[:, 1:].float().sum())
+    pairs = float((mask[:, 1:] * mask[:, :-1]).float().sum())
+    ins = B * T * C + B * T + C * C + 2 * C
+    steps = int(mask[:, 1:].float().sum(dim=1).max().item())
+    row["chain_live_steps"] = steps
+    for key, fn, f_fn, plain, kernels, bound, variant in (
+            ("fwd_", lambda: CRF.crf_alpha_fwd(x, mask, trans, a, b),
+             lambda: CRF.crf_alpha_fwd(*f[:5]),
+             lambda: CRF.crf_forward_plain(x, mask, trans, a, b),
+             ("crf_alpha_warp_kernel",),
+             _bf16_bound(live * (2 * C * C + 6 * C) + 5.0 * B * C,
+                         ins + B * T * C + B, 0), "alpha"),
+            ("bwd_", lambda: CRF.crf_bwd(x, mask, trans, b, alphas, log_z, g),
+             lambda: CRF.crf_bwd(f[0], f[1], f[2], f[4], f_alphas, f_log_z,
+                                 f[5]),
+             lambda: CRF.crf_bwd_plain(x, mask, trans, b, p_alphas, p_log_z,
+                                       g),
+             ("crf_bwd_fused_kernel", "crf_sum_kernel"),
+             _bf16_bound(B * T * 6.0 * C + pairs * 7 * C * C
+                         + live * (2 * C * C + 7 * C),
+                         ins + B * T * C + 2 * B + B * T * C + C * C + 2 * C,
+                         0), "beta"),
+            ("viterbi_", lambda: CRF.crf_viterbi(x, mask, trans, a, b),
+             lambda: CRF.crf_viterbi(*f[:5]),
+             lambda: CRF.crf_viterbi_plain(x, mask, trans, a, b),
+             ("crf_decode_warp_kernel",),
+             _bf16_bound(live * (2 * C * C + C) + 3.0 * B * C, ins + B,
+                         B * T), "viterbi")):
+        row[key + "ms"] = _time_ms(fn)
+        row[key + "device_ms"] = _kernels_device_ms(fn, kernels)
+        row[key + "f32_ms"] = _time_ms(f_fn)
+        row[key + "f32_device_ms"] = _kernels_device_ms(f_fn, kernels)
+        row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
+        row[key + "bound_ms"], row[key + "bound_by"] = bound
+        row[key + "floor_us"] = _crf_floor_us(C, variant)
+        row[key + "chain_bound_ms"] = 1e-3 * steps * row[key + "floor_us"]
+        row[key + "library_ms"] = None
+    return row
+
+
+def _s2s_bf16_rows():
+    """seq2seq's first training batch's first ``S2S_GRAD_ROWS`` rows,
+    CPU-fed (the config's reader: the same seed)."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    return DataFeeder(_s2s_feeding(), pad_multiple=S2S_LEN, device="cpu")(
+        _s2s_samples(np.random.default_rng(SEED), S2S_BATCH)[
+            :S2S_GRAD_ROWS])
+
+
+def _summary_counts(out, tag):
+    return json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith(tag + " "))[len(tag) + 1:])
+
+
+def bf16_seq2seq(tmp):
+    """17(f): seq2seq with its encoder self-attention block at full width
+    (``S2S_ATT``: 30000/512/512, 4 heads of 128, batch 50 of 10-50 words)
+    with ``--compute_dtype bfloat16``: --job train (4 batches x 1 pass,
+    Adam(5e-4)) and --job test. The block's flash on the bf16 forms
+    (``flash_fwd_bf16`` and ``flash_bwd_bf16`` once a step; ``flash_fwd_
+    bf16`` in the test), the encoder's GRUs on the f32 sequence kernels
+    (the block's output is f32), the decoder's GRU cell on its f32 kernel
+    one device launch a call (the group widens its bf16 weights once a
+    forward; ``widen_casts`` reports the casts a call makes), Adam once a
+    step; the masters and slots f32; the first step's gradients card
+    against the CPU plain bf16 path (``_bf16_grads``)."""
+    from paddle_tpu_torch.models.seq2seq import seq2seq_attention
+    from paddle_tpu_torch.optim import Adam
+    conf = os.path.join(tmp, "bf16_s2s_conf.py")
+    _write_s2s_config(conf, S2S_ATT)
+    save_dir = os.path.join(tmp, "bf16_s2s_ckpt")
+    bf = ["--compute_dtype", "bfloat16"]
+    costs, summary = _train_run(conf, 1, save_dir, batches=S2S_BATCHES,
+                                extra=bf)
+    if not all(np.isfinite(costs)):
+        raise AssertionError(f"bf16 seq2seq pass costs {costs}")
+    steps = summary["steps"]
+    counts = summary["kernels"]
+    _bf16_counts("bf16 seq2seq --job train", counts, {
+        "flash_fwd_bf16": steps, "flash_bwd_bf16": steps, "flash_fwd": 0,
+        "flash_bwd": 0, "gru_seq_train": 2 * steps, "gru_seq_train_bf16": 0,
+        "gru_bwd_chain": 2 * steps, "gru_bwd_step": 0, "adam": steps})
+    if counts["gru_cell"]["launches"] <= 0:
+        raise AssertionError(f"bf16 seq2seq: no gru_cell launch {counts}")
+    _check_cell_route("bf16 seq2seq", counts["gru_cell"], "gru_cell")
+    n_params, n_slots = _f32_masters(save_dir)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir, *bf])
+    test_line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test_counts = _summary_counts(out, "test_summary")["kernels"]
+    if not np.isfinite(float(test_line.split("cost=")[1].split()[0])) or \
+            test_counts["flash_fwd_bf16"]["launches"] <= 0 or \
+            test_counts["gru_cell_infer"]["launches"] <= 0:
+        raise AssertionError(f"bf16 seq2seq --job test: {test_line}, "
+                             f"{test_counts}")
+    _check_cell_route("bf16 seq2seq test", test_counts["gru_cell_infer"],
+                      "gru_cell_infer")
+    grads = _bf16_grads("bf16_seq2seq_grads",
+                        lambda: seq2seq_attention(**S2S_ATT),
+                        _s2s_bf16_rows(), Adam(learning_rate=5e-4),
+                        S2S_GRAD_ROWS)
+    return dict(pass_costs=costs, steps=steps,
+                median_step_ms=summary["median_step_ms"], kernels=counts,
+                widen_casts_a_call=counts["gru_cell"]["widen_casts"]
+                / max(counts["gru_cell"]["launches"], 1),
+                f32_parameters=n_params, f32_slots=n_slots, test=test_line,
+                test_kernels=test_counts, grad_check=grads)
+
+
+def _write_lcrf_config(path):
+    C = LCRF["labels"]
+    with open(path, "w") as f:
+        f.write(textwrap.dedent("""
+            import numpy as np
+            from paddle_tpu_torch.config import dsl
+            from paddle_tpu_torch.config.model_config import ParamAttr
+            from paddle_tpu_torch.data.feeder import DataFeeder
+            from paddle_tpu_torch.data.types import (
+                integer_value_sequence, sparse_binary_vector_sequence)
+            from paddle_tpu_torch.optim import Adam
+        """) + _LINEAR_CRF + textwrap.dedent(f"""
+
+            cost, decoded, chunk = linear_crf(dsl, ParamAttr)
+            dsl.evaluator("sum", decoded, name="error")
+            dsl.evaluator("chunk", decoded, label=chunk, name="chunk_f1",
+                          chunk_scheme="IOB", num_chunk_types={(C - 1) // 2})
+            optimizer = Adam(learning_rate=1e-2)
+            feeding = DataFeeder(
+                {{"features": sparse_binary_vector_sequence(
+                      {LCRF['features']}),
+                  "chunk": integer_value_sequence({C})}},
+                pad_multiple={LCRF_MAX_LEN})
+
+            def train_reader():
+                rng = np.random.default_rng({SEED})
+                for _ in range({LCRF_BATCHES}):
+                    yield sentences(rng, {LCRF_BATCH})
+
+            def test_reader():
+                rng = np.random.default_rng({SEED + 2})
+                for _ in range({LCRF_TEST_BATCHES}):
+                    yield sentences(rng, {LCRF_BATCH})
+        """))
+
+
+def _lcrf_ns():
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.config.model_config import ParamAttr
+    ns = {"np": np}
+    exec(_LINEAR_CRF, ns)
+    return ns, lambda: ns["linear_crf"](dsl, ParamAttr)
+
+
+def _lcrf_feed(batch):
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.types import (integer_value_sequence,
+                                             sparse_binary_vector_sequence)
+    return DataFeeder(
+        {"features": sparse_binary_vector_sequence(LCRF["features"]),
+         "chunk": integer_value_sequence(LCRF["labels"])},
+        pad_multiple=LCRF_MAX_LEN, device="cpu")(batch)
+
+
+def _lcrf_paths(build_model, params, feed):
+    """The decode of ``feed`` from ``params`` three ways: the card at
+    bf16, the CPU at bf16 and at f32 (the plain path): {key: [B, T] ids},
+    and the mask."""
+    from paddle_tpu_torch.config import dsl
+    from paddle_tpu_torch.core.network import Network
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.trainer import SGD
+    dsl.reset()
+    cost, decoded, _ = build_model()
+    net = Network(dsl.current_graph(), outputs=[decoded.name])
+    paths = {}
+    for key, device, dt in (("cuda", "cuda", "bfloat16"),
+                            ("cpu", "cpu", "bfloat16"),
+                            ("cpu_f32", "cpu", None)):
+        # the trainer's casts and placement, the decode's network
+        tr = SGD(cost, parameters=params, device=device,
+                 update_equation=Adam(), compute_dtype=dt)
+        with torch.no_grad():
+            outs = net.apply(tr._cast_compute(tr.params),
+                             tr._cast_compute(tr._to_device(feed)))
+        paths[key] = outs[decoded.name].state["ids"].cpu()
+    return paths, feed["features"].mask.cpu()
+
+
+def bf16_linear_crf(tmp):
+    """17(g): the linear-CRF tagger (``_LINEAR_CRF``: 76,328 sparse
+    features, an fc to 23 labels without bias, ``crf_layer`` and
+    ``crf_decoding_layer`` sharing ``crfw``) with ``--compute_dtype
+    bfloat16``: --job train (4 batches x 1 pass of 16 sentences, Adam)
+    and --job test. The CRF on its bf16 forms (``crf_alpha_fwd_bf16``,
+    ``crf_bwd_bf16`` once a step, ``crf_viterbi_bf16`` once a step for
+    the labelled decode and in the test), no f32 CRF launch, Adam once a
+    step; the masters f32; the first step's gradients card against the
+    CPU plain bf16 path (``_bf16_grads``); the trained model's decode of
+    a test batch on the card against the CPU's at bf16, every parting
+    counted, and each sequence where they part one whose CPU f32 and bf16
+    decodes part too (a tie that bf16 splits either way)."""
+    from paddle_tpu_torch.optim import Adam
+    from paddle_tpu_torch.trainer.checkpoint import (latest_checkpoint,
+                                                     load_params)
+    conf = os.path.join(tmp, "bf16_lcrf_conf.py")
+    _write_lcrf_config(conf)
+    save_dir = os.path.join(tmp, "bf16_lcrf_ckpt")
+    bf = ["--compute_dtype", "bfloat16"]
+    costs, summary = _train_run(conf, 1, save_dir, batches=LCRF_BATCHES,
+                                extra=bf)
+    if not all(np.isfinite(costs)):
+        raise AssertionError(f"bf16 linear CRF pass costs {costs}")
+    steps = summary["steps"]
+    counts = summary["kernels"]
+    _bf16_counts("bf16 linear CRF --job train", counts, {
+        "crf_alpha_fwd_bf16": steps, "crf_bwd_bf16": steps,
+        "crf_viterbi_bf16": steps, "crf_alpha_fwd": 0, "crf_bwd": 0,
+        "crf_viterbi": 0, "adam": steps})
+    n_params, n_slots = _f32_masters(save_dir)
+    out = _cli_inproc(["--config", conf, "--job", "test", "--save_dir",
+                       save_dir, *bf])
+    test_line = next(ln for ln in out.splitlines() if ln.startswith("Test: "))
+    test_counts = _summary_counts(out, "test_summary")["kernels"]
+    _bf16_counts("bf16 linear CRF --job test", test_counts, {
+        "crf_alpha_fwd_bf16": LCRF_TEST_BATCHES,
+        "crf_viterbi_bf16": LCRF_TEST_BATCHES, "crf_bwd_bf16": 0,
+        "crf_viterbi": 0})
+    ns, build_model = _lcrf_ns()
+    first = ns["sentences"](np.random.default_rng(SEED), LCRF_BATCH)
+    grads = _bf16_grads("bf16_linear_crf_grads", build_model,
+                        _lcrf_feed(first[:LCRF_GRAD_ROWS]),
+                        Adam(learning_rate=1e-2), LCRF_GRAD_ROWS)
+    params, _ = load_params(latest_checkpoint(save_dir))
+    paths, mask = _lcrf_paths(build_model, params, _lcrf_feed(
+        ns["sentences"](np.random.default_rng(SEED + 2), LCRF_BATCH)))
+    live = mask > 0
+    part = (paths["cuda"] != paths["cpu"]) & live
+    own = ((paths["cpu_f32"] != paths["cpu"]) & live).any(dim=1)
+    rows = part.any(dim=1)
+    decode = dict(steps=int(live.sum()), partings=int(part.sum()),
+                  sequences_parted=int(rows.sum()),
+                  cpu_f32_bf16_partings=int(((paths["cpu_f32"]
+                                              != paths["cpu"]) & live).sum()),
+                  parted_outside_ties=int((rows & ~own).sum()))
+    phase("bf16_linear_crf_decode", **decode)
+    if decode["parted_outside_ties"]:
+        raise AssertionError(f"bf16 linear CRF decode: {decode}")
+    return dict(pass_costs=costs, steps=steps,
+                median_step_ms=summary["median_step_ms"], kernels=counts,
+                f32_parameters=n_params, f32_slots=n_slots, test=test_line,
+                test_kernels=test_counts, grad_check=grads, decode=decode)
+
+
 def check_bf16(tmp, f32_traces=(None, None)):
     """Phase 17: mixed-precision training (see the module note).
     ``f32_traces``: the same run's f32 step traces of the classifier and
@@ -9474,12 +9922,23 @@ def check_bf16(tmp, f32_traces=(None, None)):
     gru_rows = part("gru_kernels", lambda: [
         check_bf16_gru(B, H, T, rev, seed=B + 19, timed=i == 0)
         for i, (B, H, T, rev) in enumerate(BF16_GRU_SHAPES)])
-    phase("bf16_kernels", lstm=lstm_rows, gru=gru_rows)
+    flash_rows = part("flash_kernels", lambda: [
+        check_bf16_flash(*shape, seed=i + 23, timed=i == 0)
+        for i, shape in enumerate(BF16_FLASH_SHAPES)])
+    crf_rows = part("crf_kernels", lambda: [
+        check_bf16_crf(B, T, C, seed=B + T + 29, timed=i == 0)
+        for i, (B, T, C) in enumerate(BF16_CRF_SHAPES)])
+    phase("bf16_kernels", lstm=lstm_rows, gru=gru_rows, flash=flash_rows,
+          crf=crf_rows)
     classifier = part("classifier", bf16_classifier, tmp, f32_traces[0])
     acoustic = part("acoustic", bf16_acoustic, tmp, f32_traces[1])
+    seq2seq = part("seq2seq", bf16_seq2seq, tmp)
+    linear_crf = part("linear_crf", bf16_linear_crf, tmp)
     refused = part("refusals", bf16_refusals)
     row = dict(lstm_shapes=lstm_rows, gru_shapes=gru_rows,
-               classifier=classifier, acoustic=acoustic, refused=refused,
+               flash_shapes=flash_rows, crf_shapes=crf_rows,
+               classifier=classifier, acoustic=acoustic, seq2seq=seq2seq,
+               linear_crf=linear_crf, refused=refused,
                part_seconds=parts, seconds=time.perf_counter() - t0)
     brief = lambda r: {k: r[k] for k in ("pass_costs", "steps",
                                          "median_step_ms")}
@@ -9489,7 +9948,8 @@ def check_bf16(tmp, f32_traces=(None, None)):
     phase("bf16", seconds=row["seconds"], part_seconds=parts,
           classifier=brief(classifier),
           classifier_trace=trace(classifier), acoustic=brief(acoustic),
-          acoustic_trace=trace(acoustic), refused=sorted(refused))
+          acoustic_trace=trace(acoustic), seq2seq=brief(seq2seq),
+          linear_crf=brief(linear_crf), refused=sorted(refused))
     return row
 
 
@@ -9531,7 +9991,67 @@ def _bf16_entries(row):
                     else "none: nn.GRU applies its reset gate after the "
                          "product")
 
-    return [
+    flash_src = "paddle_tpu_torch/csrc/flash_attn.cu"
+    crf_src = "paddle_tpu_torch/csrc/crf.cu"
+    s2s, lcrf = row["seq2seq"], row["linear_crf"]
+    f_row, c_row = row["flash_shapes"][0], row["crf_shapes"][0]
+    f_err = lambda k: max(r[k] for r in row["flash_shapes"])  # noqa: E731
+    c_err = lambda k: max(r[k] for r in row["crf_shapes"])  # noqa: E731
+
+    def entry2(name, src, replaces, launches, err, r, key, path, **more):
+        shape = {k: r[k] for k in ("B", "N", "Tq", "Tk", "D", "T", "C")
+                 if k in r}
+        return dict(_entry(name, src, replaces, launches, err, r, key),
+                    shape=shape, device_ms=r[key + "device_ms"],
+                    f32_ms=r[key + "f32_ms"],
+                    f32_device_ms=r[key + "f32_device_ms"],
+                    dtype="bfloat16", path=path, **more)
+
+    new = [
+        entry2("flash_fwd_bf16", flash_src,
+               "paddle_tpu/ops/attention.py:107 (_flash_kernel at bf16)",
+               s2s["kernels"]["flash_fwd_bf16"]["launches"]
+               + s2s["test_kernels"]["flash_fwd_bf16"]["launches"],
+               f_err("fwd_max_abs_err"), f_row, "fwd_",
+               "seq2seq_attention(seq_parallel) --compute_dtype bfloat16 "
+               "train and test",
+               library=f"scaled_dot_product_attention at bf16 "
+                       f"({f_row['library_backend']})",
+               library_device_ms=f_row["fwd_library_device_ms"]),
+        entry2("flash_bwd_bf16", flash_src,
+               "jax.vjp of blockwise_attention at bf16, paddle_tpu/ops/"
+               "attention.py:206 (_flash_bwd)",
+               s2s["kernels"]["flash_bwd_bf16"]["launches"],
+               f_err("bwd_max_abs_err"), f_row, "bwd_",
+               "seq2seq_attention(seq_parallel) --compute_dtype bfloat16 "
+               "train",
+               library=f"scaled_dot_product_attention backward at bf16 "
+                       f"({f_row['library_backend']})",
+               library_device_ms=f_row["bwd_library_device_ms"]),
+        entry2("crf_alpha_fwd_bf16", crf_src,
+               "paddle_tpu/ops/crf.py:87 (_crf_kernel at bf16)",
+               lcrf["kernels"]["crf_alpha_fwd_bf16"]["launches"]
+               + lcrf["test_kernels"]["crf_alpha_fwd_bf16"]["launches"],
+               c_err("fwd_max_abs_err"), c_row, "fwd_",
+               "linear-CRF tagger --compute_dtype bfloat16 train and test",
+               chain_bound_ms=c_row["fwd_chain_bound_ms"]),
+        entry2("crf_bwd_bf16", crf_src,
+               "JAX lax.scan paddle_tpu/ops/crf.py:158 (_crf_bwd at bf16)",
+               lcrf["kernels"]["crf_bwd_bf16"]["launches"],
+               c_err("bwd_max_abs_err"), c_row, "bwd_",
+               "linear-CRF tagger --compute_dtype bfloat16 train",
+               chain_bound_ms=c_row["bwd_chain_bound_ms"]),
+        entry2("crf_viterbi_bf16", crf_src,
+               "JAX lax.scan paddle_tpu/layers/chain.py:65 (crf_decode at "
+               "bf16)",
+               lcrf["kernels"]["crf_viterbi_bf16"]["launches"]
+               + lcrf["test_kernels"]["crf_viterbi_bf16"]["launches"],
+               0.0, c_row, "viterbi_",
+               "linear-CRF tagger --compute_dtype bfloat16 train (the "
+               "labelled decode) and test",
+               chain_bound_ms=c_row["viterbi_chain_bound_ms"]),
+    ]
+    return new + [
         entry("lstm_seq_bf16", lstm_src,
               "paddle_tpu/ops/lstm.py:45 (lstm_sequence_ref at bf16; the "
               "Pallas sites :145, :287 refuse bf16)",
@@ -9656,8 +10176,10 @@ def main() -> int:
     parser.add_argument("--bf16", action="store_true",
                         help="only phase 17, mixed-precision training (the "
                         "bf16 forms of the LSTM and GRU sequence kernels, "
-                        "the classifier and the acoustic model at "
-                        "--compute_dtype bfloat16, the refusals)")
+                        "of flash and of the CRF; the classifier, the "
+                        "acoustic model, seq2seq with its attention block "
+                        "and the linear-CRF tagger at --compute_dtype "
+                        "bfloat16; the refusals)")
     parser.add_argument("--ctc-kernels", action="store_true",
                         help="only phase 6b for the CTC kernels (both "
                         "operand forms at every CTC_SHAPES row, F.ctc_loss "

@@ -1,5 +1,6 @@
-// Linear-chain CRF for Hopper (sm_90a), f32: the partition function's
-// forward recursion, its analytic backward, and the Viterbi decode.
+// Linear-chain CRF for Hopper (sm_90a), f32 (and, up to 32 classes,
+// bf16): the partition function's forward recursion, its analytic
+// backward, and the Viterbi decode.
 //
 // Replaces
 // - crf_alpha_fwd: the TPU kernel paddle_tpu/ops/crf.py:_crf_kernel (its
@@ -118,6 +119,23 @@
 // the same partition of every sum, the same bits. Above C ~ 29,000 the
 // vectors (alpha, p) move to scratch too.
 //
+// The bf16 form (the entries' bf16 flag; C <= 32, the warp kernels, the
+// storage type S a template: crf_alpha_warp_kernel, crf_bwd_fused_kernel
+// with crf_sum_kernel, crf_decode_warp_kernel). The reference's Pallas
+// kernel is dtype-generic: at bf16 its alphas live in bf16, exp(alpha -
+// m) is computed in bf16, the product with E = exp(trans - tm) (bf16 too)
+// is summed in f32 and rounded, and log(max(s, 1e-37)) + m + tm + x_t
+// rounds at each operation; its backward and the Viterbi are scans whose
+// every operation rounds. Here every operand is read from bf16 and
+// widened, each operation computes in f32 and rounds to bf16 where the
+// reference rounds (rnd<S>; the identity for float, so the f32 form's
+// instructions are unchanged), the products of two bf16 values are exact
+// in f32, and the outputs are stored in bf16. Two departures, both sums:
+// the dot's order (in class order, where the reference's matmul has its
+// own), and the marginal sums (dtrans, da, db) added in f32 and rounded
+// once where JAX adds each step's sum into a bf16 accumulator. The block
+// variants (C > 32) have no bf16 form.
+//
 // The earlier forward (crf_alpha_fwd_kernel: a warp a sequence, 8 classes
 // a lane at most, so C <= kEarlierClasses (256); its [C, C] matrix in
 // shared memory up to C = 239 and from global memory above, written by
@@ -129,12 +147,49 @@
 // path calls, so that chip_smoke.py times them beside the new ones in one
 // run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
+
+// the storage type S: float, or __nv_bfloat16 (the bf16 form)
+template <typename S>
+constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
+
+template <typename S>
+__device__ __forceinline__ float ld(const S* p) {
+  if constexpr (kIsBf16<S>)
+    return __bfloat162float(*p);
+  else
+    return *p;
+}
+
+template <typename S>
+__device__ __forceinline__ void st(S* p, float v) {
+  if constexpr (kIsBf16<S>)
+    *p = __float2bfloat16_rn(v);
+  else
+    *p = v;
+}
+
+// x rounded to S and widened back: a bf16 operation's result
+template <typename S>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kIsBf16<S>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// the exp-space sum's floor, 1e-37 in S (jnp.maximum(s, 1e-37))
+template <typename S>
+__device__ __forceinline__ float tiny() {
+  return rnd<S>(1e-37f);
+}
 
 constexpr int kWarps = 4;                 // sequences per warp-variant block
 constexpr int kThreads = 32 * kWarps;
@@ -232,10 +287,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // mask[t0 + dir k] > 0 (0 outside [lo, hi]); m is the lane's mask value,
 // loaded a chunk ahead by mask_of, so that no step waits on a mask's load
 // (a compare right after a global load stalls the chain on its latency).
-__device__ __forceinline__ float mask_of(const float* __restrict__ mb,
-                                         int t0, int dir, int lo, int hi) {
+template <typename S>
+__device__ __forceinline__ float mask_of(const S* __restrict__ mb, int t0,
+                                         int dir, int lo, int hi) {
   const int t = t0 + dir * static_cast<int>(threadIdx.x & 31);
-  return t >= lo && t <= hi ? mb[t] : 0.f;
+  return t >= lo && t <= hi ? ld(mb + t) : 0.f;
 }
 
 __device__ __forceinline__ unsigned live_bits(float m) {
@@ -254,15 +310,15 @@ __device__ __forceinline__ unsigned live_bits(float m) {
 // mat sits in registers (0 past C; the floor gives every lane one row); p
 // is the warp's [32] row in shared memory, 16-byte aligned, 0 past C,
 // read as float4. The dot adds the terms 0 .. kC-1 in order: the padded
-// terms add +0.
-template <int kC, bool kAlpha>
+// terms add +0. S: the rounding of each operation (the bf16 form's).
+template <int kC, bool kAlpha, typename S = float>
 __device__ __forceinline__ float warp_chain_step(float v, float x_t,
                                                  bool own, int lane, float* p,
                                                  const float (&mat)[kC],
                                                  float tm) {
-  const float y = own ? (kAlpha ? v : x_t + v) : -INFINITY;
+  const float y = own ? (kAlpha ? v : rnd<S>(x_t + v)) : -INFINITY;
   const float m = warp_max_key(y);
-  if (own) p[lane] = expf(y - m);
+  if (own) p[lane] = rnd<S>(expf(rnd<S>(y - m)));
   __syncwarp();
   float s = 0.f;
   const float4* p4 = reinterpret_cast<const float4*>(p);
@@ -276,8 +332,9 @@ __device__ __forceinline__ float warp_chain_step(float v, float x_t,
   }
   __syncwarp();  // p is rewritten next step
   if (!own) return v;
-  const float r = logf(fmaxf(s, 1e-37f)) + m + tm;
-  return kAlpha ? r + x_t : r;
+  const float r =
+      rnd<S>(rnd<S>(rnd<S>(logf(fmaxf(rnd<S>(s), tiny<S>()))) + m) + tm);
+  return kAlpha ? rnd<S>(r + x_t) : r;
 }
 
 // The block variants split each row's (or column's) sum or max over K
@@ -400,8 +457,9 @@ __device__ __forceinline__ float max_plus(const float* v, size_t sv,
 // 16-byte aligned; two rows alternate, so one __syncwarp a step
 // suffices), col = trans[0 ..
 // kC), j] in registers (the floor gives every row r_j). Four interleaved
-// partial maxima, as max_plus (eight measured slower on the H100).
-template <int kC>
+// partial maxima, as max_plus (eight measured slower on the H100). S: the
+// rounding of each addition (the bf16 form's).
+template <int kC, typename S = float>
 __device__ __forceinline__ float warp_viterbi_step(float alpha, float x_t,
                                                    bool own, int lane,
                                                    float* v,
@@ -428,7 +486,7 @@ __device__ __forceinline__ float warp_viterbi_step(float alpha, float x_t,
   }
 #pragma unroll
   for (int i = 0; i < kC; ++i) {
-    const float s = vv[i] + col[i];
+    const float s = rnd<S>(vv[i] + col[i]);
     if (s > best[i & 3]) {
       best[i & 3] = s;
       idx[i & 3] = i;
@@ -438,7 +496,7 @@ __device__ __forceinline__ float warp_viterbi_step(float alpha, float x_t,
   take_better(best[2], idx[2], best[3], idx[3]);
   take_better(best[0], idx[0], best[2], idx[2]);
   arg = idx[0];
-  return own ? best[0] + x_t : alpha;
+  return own ? rnd<S>(best[0] + x_t) : alpha;
 }
 
 // A live Viterbi step in a block (one barrier): column j of vn = the
@@ -933,16 +991,16 @@ crf_viterbi_kernel(const float* __restrict__ x,      // [B, T, C]
 // given, into its own copy at ework + blockIdx.x C^2: the same bits from
 // global memory); lane j keeps column j in registers. Shared memory: the
 // warps' [32] rows of exp(alpha - m), red [32], then E.
-template <int kC>
+template <int kC, typename S>
 __global__ void __launch_bounds__(kThreads)
-crf_alpha_warp_kernel(const float* __restrict__ x,      // [B, T, C]
-                      const float* __restrict__ mask,   // [B, T]
-                      const float* __restrict__ trans,  // [C, C]
-                      const float* __restrict__ a,      // [C]
-                      const float* __restrict__ bend,   // [C]
-                      float* ework,                     // or null
-                      float* __restrict__ alphas,       // [B, T, C]
-                      float* __restrict__ log_z,        // [B]
+crf_alpha_warp_kernel(const S* __restrict__ x,      // [B, T, C]
+                      const S* __restrict__ mask,   // [B, T]
+                      const S* __restrict__ trans,  // [C, C]
+                      const S* __restrict__ a,      // [C]
+                      const S* __restrict__ bend,   // [C]
+                      float* ework,                 // or null
+                      S* __restrict__ alphas,       // [B, T, C]
+                      S* __restrict__ log_z,        // [B]
                       int B, int T, int C) {
   extern __shared__ float smem[];
   float* p_s = smem;             // [kWarps][32], 16-byte aligned
@@ -951,10 +1009,11 @@ crf_alpha_warp_kernel(const float* __restrict__ x,      // [B, T, C]
                  ? ework + static_cast<size_t>(blockIdx.x) * C * C
                  : red + 32;     // [C, C]
   float mx = -INFINITY;
-  for (int k = threadIdx.x; k < C * C; k += kThreads) mx = fmaxf(mx, trans[k]);
+  for (int k = threadIdx.x; k < C * C; k += kThreads)
+    mx = fmaxf(mx, ld(trans + k));
   const float tm = block_max(mx, red);
   for (int k = threadIdx.x; k < C * C; k += kThreads)
-    e[k] = expf(trans[k] - tm);
+    e[k] = rnd<S>(expf(rnd<S>(ld(trans + k) - tm)));
   p_s[threadIdx.x] = 0.f;  // the padded classes' exp(alpha - m) stay 0
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -966,16 +1025,17 @@ crf_alpha_warp_kernel(const float* __restrict__ x,      // [B, T, C]
   for (int i = 0; i < kC; ++i) col[i] = own && i < C ? e[i * C + lane] : 0.f;
   float* p = p_s + warp * 32;
   const size_t tc = static_cast<size_t>(T) * C;
-  const float* xb = x + b * tc;
-  const float* mb = mask + static_cast<size_t>(b) * T;
-  float* ab = alphas + b * tc;
-  float alpha = own ? a[lane] + xb[lane] : 0.f;
-  if (own) ab[lane] = alpha;
+  const S* xb = x + b * tc;
+  const S* mb = mask + static_cast<size_t>(b) * T;
+  S* ab = alphas + b * tc;
+  float alpha = own ? rnd<S>(ld(a + lane) + ld(xb + lane)) : 0.f;
+  if (own) st(ab + lane, alpha);
   // emissions kAhead steps ahead, masks a chunk of 32 steps ahead
   float xq[kAhead];
 #pragma unroll
   for (int d = 0; d < kAhead; ++d)
-    xq[d] = own && 1 + d < T ? xb[static_cast<size_t>(1 + d) * C + lane] : 0.f;
+    xq[d] = own && 1 + d < T ? ld(xb + static_cast<size_t>(1 + d) * C + lane)
+                             : 0.f;
   float m_n = mask_of(mb, 1, 1, 1, T - 1);
   unsigned live = 0;
   for (int t = 1; t < T; ++t) {
@@ -988,17 +1048,17 @@ crf_alpha_warp_kernel(const float* __restrict__ x,      // [B, T, C]
 #pragma unroll
     for (int d = 0; d + 1 < kAhead; ++d) xq[d] = xq[d + 1];
     const int tn = t + kAhead;
-    xq[kAhead - 1] = own && tn < T ? xb[static_cast<size_t>(tn) * C + lane]
-                                   : 0.f;
+    xq[kAhead - 1] =
+        own && tn < T ? ld(xb + static_cast<size_t>(tn) * C + lane) : 0.f;
     if ((live >> k) & 1u)  // warp-uniform
-      alpha = warp_chain_step<kC, true>(alpha, x_t, own, lane, p, col, tm);
-    if (own) ab[static_cast<size_t>(t) * C + lane] = alpha;  // not waited on
+      alpha = warp_chain_step<kC, true, S>(alpha, x_t, own, lane, p, col, tm);
+    if (own) st(ab + static_cast<size_t>(t) * C + lane, alpha);  // not waited on
   }
   // log Z = m + log(sum_j exp(alpha_j + b_j - m))
-  const float v = own ? alpha + bend[lane] : -INFINITY;
+  const float v = own ? rnd<S>(alpha + ld(bend + lane)) : -INFINITY;
   const float m = warp_max_key(v);
-  const float s = warp_sum(own ? expf(v - m) : 0.f);
-  if (lane == 0) log_z[b] = m + logf(s);
+  const float s = warp_sum(own ? rnd<S>(expf(rnd<S>(v - m))) : 0.f);
+  if (lane == 0) st(log_z + b, rnd<S>(m + rnd<S>(logf(rnd<S>(s)))));
 }
 
 // C > 32: a block a sequence (K parts a column, block_threads(C, K)).
@@ -1138,19 +1198,24 @@ __device__ __forceinline__ void zero_counters(int* counters, int n) {
 // The terms of da and db a sequence b owns, for the marginal pass to sum
 // over b in order: g (exp(alpha_0 + beta_0 - log Z) mask_0) and g exp(
 // alpha_{T-1} + b - log Z) at class j.
-__device__ __forceinline__ void end_terms(const float* __restrict__ alphas,
-                                          const float* __restrict__ mask,
-                                          const float* __restrict__ bend,
-                                          const float* __restrict__ log_z,
-                                          const float* __restrict__ g,
+template <typename S>
+__device__ __forceinline__ void end_terms(const S* __restrict__ alphas,
+                                          const S* __restrict__ mask,
+                                          const S* __restrict__ bend,
+                                          const S* __restrict__ log_z,
+                                          const S* __restrict__ g,
                                           float* __restrict__ terms, int b,
                                           int j, float beta0, int T, int C) {
   const size_t tc = static_cast<size_t>(T) * C;
-  const float* ab = alphas + b * tc;
-  const float lz = log_z[b], gb = g[b];
+  const S* ab = alphas + b * tc;
+  const float lz = ld(log_z + b), gb = ld(g + b);
   float* tb = terms + static_cast<size_t>(b) * 2 * C;
-  tb[j] = gb * (expf(ab[j] + beta0 - lz) * mask[static_cast<size_t>(b) * T]);
-  tb[C + j] = gb * expf(ab[tc - C + j] + bend[j] - lz);
+  tb[j] = rnd<S>(gb * rnd<S>(rnd<S>(expf(rnd<S>(rnd<S>(ld(ab + j) + beta0) -
+                                                lz))) *
+                             ld(mask + static_cast<size_t>(b) * T)));
+  tb[C + j] = rnd<S>(
+      gb * rnd<S>(expf(rnd<S>(rnd<S>(ld(ab + tc - C + j) + ld(bend + j)) -
+                              lz))));
 }
 
 // C <= kC <= 32: the whole backward of a sequence in one block, the
@@ -1168,16 +1233,16 @@ __device__ __forceinline__ void end_terms(const float* __restrict__ alphas,
 // before it overwrites a ring row. At the end the workers write the
 // sequence's partial dtrans [C, C] and the chain its end terms;
 // crf_sum_kernel adds the sequences in order.
-template <int kC>
+template <int kC, typename S>
 __global__ void __launch_bounds__(32 * kFusedWarps)
-crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
-                     const float* __restrict__ mask,    // [B, T]
-                     const float* __restrict__ trans,   // [C, C]
-                     const float* __restrict__ bend,    // [C]
-                     const float* __restrict__ alphas,  // [B, T, C]
-                     const float* __restrict__ log_z,   // [B]
-                     const float* __restrict__ g,       // [B]
-                     float* __restrict__ dx,            // [B, T, C]
+crf_bwd_fused_kernel(const S* __restrict__ x,           // [B, T, C]
+                     const S* __restrict__ mask,        // [B, T]
+                     const S* __restrict__ trans,       // [C, C]
+                     const S* __restrict__ bend,        // [C]
+                     const S* __restrict__ alphas,      // [B, T, C]
+                     const S* __restrict__ log_z,       // [B]
+                     const S* __restrict__ g,           // [B]
+                     S* __restrict__ dx,                // [B, T, C]
                      float* __restrict__ partial,       // [B, C, C]
                      float* __restrict__ terms,         // [B, 2, C]
                      int T, int C) {
@@ -1195,34 +1260,34 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
   const int b = blockIdx.x;
   float mx = -INFINITY;
   for (int k = threadIdx.x; k < C * C; k += blockDim.x)
-    mx = fmaxf(mx, trans[k]);
+    mx = fmaxf(mx, ::ld(trans + k));
   const float tm = block_max(mx, red);
   for (int k = threadIdx.x; k < C * C; k += blockDim.x) {
     const int i = k / C;
-    e_s[i * ld + k - i * C] = expf(trans[k] - tm);
+    e_s[i * ld + k - i * C] = rnd<S>(expf(rnd<S>(::ld(trans + k) - tm)));
   }
   if (threadIdx.x < kFusedWarps) prog[threadIdx.x] = 0;
   if (warp == 0) p[lane] = 0.f;  // the padded classes' exp(y - m) stay 0
   for (int k = threadIdx.x; k < kRing * 32; k += blockDim.x) ring[k] = 0;
   __syncthreads();
   const size_t tc = static_cast<size_t>(T) * C;
-  const float* xb = x + b * tc;
-  const float* ab = alphas + b * tc;
-  const float* mb = mask + static_cast<size_t>(b) * T;
-  const float lz = log_z[b], gb = g[b];
+  const S* xb = x + b * tc;
+  const S* ab = alphas + b * tc;
+  const S* mb = mask + static_cast<size_t>(b) * T;
+  const float lz = ::ld(log_z + b), gb = ::ld(g + b);
   if (warp == 0) {  // ------------------------------------- the chain
     const bool own = lane < C;
     float erow[kC];
 #pragma unroll
     for (int j = 0; j < kC; ++j)
       erow[j] = own && j < C ? e_s[lane * ld + j] : 0.f;
-    float beta = own ? bend[lane] : 0.f;
+    float beta = own ? ::ld(bend + lane) : 0.f;
     ring[((T - 1) % kRing) * 32 + lane] = tagged(beta, 1);
     float xq[kAhead];
 #pragma unroll
     for (int d = 0; d < kAhead; ++d)
       xq[d] = own && T - 1 - d >= 1
-                  ? xb[static_cast<size_t>(T - 1 - d) * C + lane]
+                  ? ::ld(xb + static_cast<size_t>(T - 1 - d) * C + lane)
                   : 0.f;
     float m_n = mask_of(mb, T - 1, -1, 1, T - 1);
     unsigned live = 0;
@@ -1237,11 +1302,11 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
 #pragma unroll
       for (int d = 0; d + 1 < kAhead; ++d) xq[d] = xq[d + 1];
       const int tn = t - kAhead;
-      xq[kAhead - 1] = own && tn >= 1 ? xb[static_cast<size_t>(tn) * C + lane]
-                                      : 0.f;
+      xq[kAhead - 1] =
+          own && tn >= 1 ? ::ld(xb + static_cast<size_t>(tn) * C + lane) : 0.f;
       if ((live >> k) & 1u)
-        beta = warp_chain_step<kC, false>(beta, x_t, own, lane, p, erow,
-                                          tm);
+        beta = warp_chain_step<kC, false, S>(beta, x_t, own, lane, p, erow,
+                                             tm);
       // beta_{t-1} goes where beta_{t-1+kRing} was: the workers must have
       // done its last pair, t - 2 + kRing (seen: the least progress read
       // last time, so the counters are read only when that falls short)
@@ -1272,7 +1337,7 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
       const bool ok = e < CC;
       ei[q] = ok ? e / C : 0;
       ej[q] = ok ? e - ei[q] * C : 0;
-      tr[q] = ok ? trans[e] : 0.f;
+      tr[q] = ok ? ::ld(trans + e) : 0.f;
       acc[q] = 0.f;
     }
     const bool dxl = wt < C;  // this thread writes dx's column wt
@@ -1285,12 +1350,13 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
       if (t < -1) return;
 #pragma unroll
       for (int q = 0; q < kEnt; ++q) {
-        qa[d][q] = t >= 0 ? ab[static_cast<size_t>(t) * C + ei[q]] : 0.f;
-        qx[d][q] = t >= 0 ? xb[static_cast<size_t>(t + 1) * C + ej[q]] : 0.f;
+        qa[d][q] = t >= 0 ? ::ld(ab + static_cast<size_t>(t) * C + ei[q]) : 0.f;
+        qx[d][q] =
+            t >= 0 ? ::ld(xb + static_cast<size_t>(t + 1) * C + ej[q]) : 0.f;
       }
-      qd[d] = dxl ? ab[static_cast<size_t>(t + 1) * C + wt] : 0.f;
-      qm1[d] = mb[t + 1];
-      qm0[d] = t >= 0 ? mb[t] : 0.f;
+      qd[d] = dxl ? ::ld(ab + static_cast<size_t>(t + 1) * C + wt) : 0.f;
+      qm1[d] = ::ld(mb + t + 1);
+      qm0[d] = t >= 0 ? ::ld(mb + t) : 0.f;
     };
 #pragma unroll
     for (int d = 0; d < kAhead; ++d) fetch(d, T - 2 - d);
@@ -1328,14 +1394,17 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
                                // shared-memory pipe to the chain
       }
       if (dxl)
-        dx[b * tc + static_cast<size_t>(t + 1) * C + wt] =
-            gb * (expf(ad + bd - lz) * m1);
-      const float w = m1 * m0 * gb;  // 0 at t = -1
+        st(dx + b * tc + static_cast<size_t>(t + 1) * C + wt,
+           rnd<S>(gb *
+                  rnd<S>(rnd<S>(expf(rnd<S>(rnd<S>(ad + bd) - lz))) * m1)));
+      const float w = m1 * m0 * gb;  // 0 at t = -1 (masks are 0 or 1)
       if (w != 0.f) {
 #pragma unroll
         for (int q = 0; q < kEnt; ++q) {
-          const float v = ca[q] + tr[q] + (cx[q] + bq[q]) - lz;
-          acc[q] += expf(fminf(v, 30.f)) * w;
+          const float v =
+              rnd<S>(rnd<S>(rnd<S>(ca[q] + tr[q]) + rnd<S>(cx[q] + bq[q])) -
+                     lz);
+          acc[q] += rnd<S>(rnd<S>(expf(fminf(v, 30.f))) * w);
         }
       }
       // the warp's reads of this row are done (their values are used);
@@ -1353,12 +1422,13 @@ crf_bwd_fused_kernel(const float* __restrict__ x,       // [B, T, C]
 }
 
 // dtrans [C, C] = the sequences' partials summed over b in order, da and
-// db [C] the end terms likewise: one thread an output.
+// db [C] the end terms likewise: one thread an output, stored in S.
+template <typename S>
 __global__ void __launch_bounds__(kMargThreads)
 crf_sum_kernel(const float* __restrict__ partial,  // [B, C, C]
                const float* __restrict__ terms,    // [B, 2, C]
-               float* __restrict__ dtrans, float* __restrict__ da,
-               float* __restrict__ db, int B, int C) {
+               S* __restrict__ dtrans, S* __restrict__ da,
+               S* __restrict__ db, int B, int C) {
   const int CC = C * C;
   const int k = blockIdx.x * kMargThreads + threadIdx.x;
   if (k >= CC + 2 * C) return;
@@ -1368,11 +1438,11 @@ crf_sum_kernel(const float* __restrict__ partial,  // [B, C, C]
 #pragma unroll 16
   for (int b = 0; b < B; ++b) sum += src[b * stride];
   if (k < CC)
-    dtrans[k] = sum;
+    st(dtrans + k, sum);
   else if (k < CC + C)
-    da[k - CC] = sum;
+    st(da + k - CC, sum);
   else
-    db[k - CC - C] = sum;
+    st(db + k - CC - C, sum);
 }
 
 // et[j * C + i] = exp(trans[i * C + j] - tm), by up to kTileWarps warps
@@ -1636,15 +1706,15 @@ crf_marginal_kernel(const float* __restrict__ x,       // [B, T, C]
 // (kBpSmem) their back-pointers
 // [kWarps][T][C] bytes; else each sequence's back-pointers at spill + b *
 // stride (a template, so that the stores to shared memory are STS).
-template <int kC, bool kBpSmem>
+template <int kC, bool kBpSmem, typename S>
 __global__ void __launch_bounds__(kThreads)
-crf_decode_warp_kernel(const float* __restrict__ x,      // [B, T, C]
-                       const float* __restrict__ mask,   // [B, T]
-                       const float* __restrict__ trans,  // [C, C]
-                       const float* __restrict__ a,      // [C]
-                       const float* __restrict__ bend,   // [C]
-                       int* __restrict__ path,           // [B, T]
-                       float* __restrict__ score,        // [B]
+crf_decode_warp_kernel(const S* __restrict__ x,      // [B, T, C]
+                       const S* __restrict__ mask,   // [B, T]
+                       const S* __restrict__ trans,  // [C, C]
+                       const S* __restrict__ a,      // [C]
+                       const S* __restrict__ bend,   // [C]
+                       int* __restrict__ path,       // [B, T]
+                       S* __restrict__ score,        // [B]
                        unsigned char* spill, size_t stride, int B, int T,
                        int C) {
   extern __shared__ float smem[];
@@ -1657,21 +1727,22 @@ crf_decode_warp_kernel(const float* __restrict__ x,      // [B, T, C]
   float col[kC];  // the lane's column of trans, all loads in flight at once
 #pragma unroll
   for (int i = 0; i < kC; ++i)
-    col[i] = own && i < C ? trans[i * C + lane] : 0.f;
+    col[i] = own && i < C ? ld(trans + i * C + lane) : 0.f;
   float* v = v_s + warp * 64;
   v[lane] = -INFINITY;  // the padded classes never win
   v[32 + lane] = -INFINITY;
   __syncwarp();
   const size_t tc = static_cast<size_t>(T) * C;
   unsigned char* bp = kBpSmem ? bp_s + warp * tc : spill + b * stride;
-  const float* xb = x + b * tc;
-  const float* mb = mask + static_cast<size_t>(b) * T;
-  float alpha = own ? a[lane] + xb[lane] : -INFINITY;
+  const S* xb = x + b * tc;
+  const S* mb = mask + static_cast<size_t>(b) * T;
+  float alpha = own ? rnd<S>(ld(a + lane) + ld(xb + lane)) : -INFINITY;
   // emissions kAhead steps ahead, masks a chunk of 32 steps ahead
   float xq[kAhead];
 #pragma unroll
   for (int d = 0; d < kAhead; ++d)
-    xq[d] = own && 1 + d < T ? xb[static_cast<size_t>(1 + d) * C + lane] : 0.f;
+    xq[d] = own && 1 + d < T ? ld(xb + static_cast<size_t>(1 + d) * C + lane)
+                             : 0.f;
   float m_n = mask_of(mb, 1, 1, 1, T - 1);
   unsigned live = 0;
   int cur = 0;
@@ -1685,20 +1756,20 @@ crf_decode_warp_kernel(const float* __restrict__ x,      // [B, T, C]
 #pragma unroll
     for (int d = 0; d + 1 < kAhead; ++d) xq[d] = xq[d + 1];
     const int tn = t + kAhead;
-    xq[kAhead - 1] = own && tn < T ? xb[static_cast<size_t>(tn) * C + lane]
-                                   : 0.f;
+    xq[kAhead - 1] =
+        own && tn < T ? ld(xb + static_cast<size_t>(tn) * C + lane) : 0.f;
     unsigned char* bpt = bp + static_cast<size_t>(t) * C;
     if ((live >> k) & 1u) {  // warp-uniform
       int arg = 0;
-      alpha = warp_viterbi_step<kC>(alpha, x_t, own, lane, v + cur * 32, col,
-                                    arg);
+      alpha = warp_viterbi_step<kC, S>(alpha, x_t, own, lane, v + cur * 32,
+                                       col, arg);
       if (own) bpt[lane] = static_cast<unsigned char>(arg);
       cur ^= 1;
     } else if (own) {
       bpt[lane] = static_cast<unsigned char>(lane);  // j came from j
     }
   }
-  float f = own ? alpha + bend[lane] : -INFINITY;
+  float f = own ? rnd<S>(alpha + ld(bend + lane)) : -INFINITY;
   int arg = lane;
   warp_argmax(f, arg);
   __syncwarp();  // every lane's pointers are visible to lane 0
@@ -1710,7 +1781,7 @@ crf_decode_warp_kernel(const float* __restrict__ x,      // [B, T, C]
       state = bp[static_cast<size_t>(t) * C + state];
       yb[t - 1] = state;
     }
-    score[b] = f;
+    st(score + b, f);
   }
 }
 
@@ -2377,11 +2448,72 @@ extern "C" int crf_work_floats(int kernel, int C) {
 // (crf_plan_query(5, B, T, C, 3) without in_global), or null where that is
 // 0 (E in shared memory). in_global: E read from each block's copy in
 // scratch even where it fits shared memory (the same bits).
+// The bf16 form of the warp kernels (C <= 32) with every tensor operand
+// and result of the storage type S.
+template <int KC, typename S>
+cudaError_t launch_alpha_warp(const ChainPlan& p, const void* x,
+                              const void* mask, const void* trans,
+                              const void* a, const void* b, float* ework,
+                              void* alphas, void* log_z, int B, int T, int C,
+                              cudaStream_t s) {
+  return launch(crf_alpha_warp_kernel<KC, S>, dim3((B + kWarps - 1) / kWarps),
+                kThreads, p.smem, s, static_cast<const S*>(x),
+                static_cast<const S*>(mask), static_cast<const S*>(trans),
+                static_cast<const S*>(a), static_cast<const S*>(b), ework,
+                static_cast<S*>(alphas), static_cast<S*>(log_z), B, T, C);
+}
+
+template <int KC, typename S>
+cudaError_t launch_bwd_fused(const ChainPlan& p, const void* x,
+                             const void* mask, const void* trans,
+                             const void* b, const void* alphas,
+                             const void* log_z, const void* g, void* dx,
+                             float* partial, float* terms, int B, int T,
+                             int C, cudaStream_t s) {
+  return launch(crf_bwd_fused_kernel<KC, S>, dim3(B), p.threads, p.smem, s,
+                static_cast<const S*>(x), static_cast<const S*>(mask),
+                static_cast<const S*>(trans), static_cast<const S*>(b),
+                static_cast<const S*>(alphas), static_cast<const S*>(log_z),
+                static_cast<const S*>(g), static_cast<S*>(dx), partial, terms,
+                T, C);
+}
+
+template <int KC, typename S>
+cudaError_t launch_decode_warp(const ChainPlan& p, const void* x,
+                               const void* mask, const void* trans,
+                               const void* a, const void* b, int* path,
+                               void* score, unsigned char* scratch,
+                               size_t stride, int B, int T, int C,
+                               cudaStream_t s) {
+  const dim3 grid((B + kWarps - 1) / kWarps);
+  const S* xs = static_cast<const S*>(x);
+  const S* ms = static_cast<const S*>(mask);
+  const S* ts = static_cast<const S*>(trans);
+  const S* as = static_cast<const S*>(a);
+  const S* bs = static_cast<const S*>(b);
+  S* sc = static_cast<S*>(score);
+  return p.bp_smem ? launch(crf_decode_warp_kernel<KC, true, S>, grid,
+                            kThreads, p.smem, s, xs, ms, ts, as, bs, path, sc,
+                            scratch, stride, B, T, C)
+                   : launch(crf_decode_warp_kernel<KC, false, S>, grid,
+                            kThreads, p.smem, s, xs, ms, ts, as, bs, path, sc,
+                            scratch, stride, B, T, C);
+}
+
+// the warp kernels' class counts: fn<KC, S>(args) for C's
+#define CRF_WARP(err, fn, S, ...)                    \
+  switch (warp_classes(C)) {                         \
+    case 8: err = fn<8, S>(__VA_ARGS__); break;      \
+    case 16: err = fn<16, S>(__VA_ARGS__); break;    \
+    case 24: err = fn<24, S>(__VA_ARGS__); break;    \
+    default: err = fn<32, S>(__VA_ARGS__); break;    \
+  }
+
 extern "C" int crf_alpha_fwd(const float* x, const float* mask,
                              const float* trans, const float* a,
                              const float* b, float* work, float* alphas,
                              float* log_z, int B, int T, int C, int in_global,
-                             void* stream) {
+                             int bf16, void* stream) {
   if (B < 0 || T < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const bool forced = in_global != 0;
@@ -2389,21 +2521,18 @@ extern "C" int crf_alpha_fwd(const float* x, const float* mask,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ChainPlan p = alpha_plan(C, forced);
+  if (bf16 && p.block) return static_cast<int>(cudaErrorInvalidValue);
   float* ework = p.mat_smem ? nullptr : work;
   float* vwork = p.giant ? work + static_cast<size_t>(B) * C * C : nullptr;
   cudaError_t err;
   if (!p.block) {
-    const dim3 grid((B + kWarps - 1) / kWarps);
-#define CRF_ALPHA(KC)                                                        \
-  launch(crf_alpha_warp_kernel<KC>, grid, kThreads, p.smem, s, x, mask,      \
-         trans, a, b, ework, alphas, log_z, B, T, C)
-    switch (warp_classes(C)) {
-      case 8: err = CRF_ALPHA(8); break;
-      case 16: err = CRF_ALPHA(16); break;
-      case 24: err = CRF_ALPHA(24); break;
-      default: err = CRF_ALPHA(32); break;
+    if (bf16) {
+      CRF_WARP(err, launch_alpha_warp, __nv_bfloat16, p, x, mask, trans, a, b,
+               ework, alphas, log_z, B, T, C, s)
+    } else {
+      CRF_WARP(err, launch_alpha_warp, float, p, x, mask, trans, a, b, ework,
+               alphas, log_z, B, T, C, s)
     }
-#undef CRF_ALPHA
   } else {
     err = launch(crf_alpha_block_kernel, dim3(B), p.threads, p.smem, s, x,
                  mask, trans, a, b, alphas, log_z, ework, vwork, T, C,
@@ -2420,34 +2549,41 @@ extern "C" int crf_bwd(const float* x, const float* mask, const float* trans,
                        const float* b, const float* alphas,
                        const float* log_z, const float* g, float* work,
                        float* dx, float* dtrans, float* da, float* db, int B,
-                       int T, int C, void* stream) {
+                       int T, int C, int bf16, void* stream) {
   if (B < 0 || T < 1 || C < 1 ||
       (work == nullptr && bwd_work_floats(B, T, C) > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ChainPlan p = beta_plan(C);
+  if (bf16 && p.block) return static_cast<int>(cudaErrorInvalidValue);
   const size_t Bs = static_cast<size_t>(B), Cs = static_cast<size_t>(C);
   cudaError_t err = cudaSuccess;
   if (!p.block) {  // one launch for the sequences, then their sum over b
     float* partial = work;
     float* terms = partial + Bs * Cs * Cs;
     if (B > 0) {
-#define CRF_FUSED(KC)                                                          \
-  launch(crf_bwd_fused_kernel<KC>, dim3(B), p.threads, p.smem, s, x, mask,     \
-         trans, b, alphas, log_z, g, dx, partial, terms, T, C)
-      switch (warp_classes(C)) {
-        case 8: err = CRF_FUSED(8); break;
-        case 16: err = CRF_FUSED(16); break;
-        case 24: err = CRF_FUSED(24); break;
-        default: err = CRF_FUSED(32); break;
+      if (bf16) {
+        CRF_WARP(err, launch_bwd_fused, __nv_bfloat16, p, x, mask, trans, b,
+                 alphas, log_z, g, dx, partial, terms, B, T, C, s)
+      } else {
+        CRF_WARP(err, launch_bwd_fused, float, p, x, mask, trans, b, alphas,
+                 log_z, g, dx, partial, terms, B, T, C, s)
       }
-#undef CRF_FUSED
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const int outs = C * C + 2 * C;
-    err = launch(crf_sum_kernel, dim3((outs + kMargThreads - 1) / kMargThreads),
-                 kMargThreads, 0, s, static_cast<const float*>(partial),
-                 static_cast<const float*>(terms), dtrans, da, db, B, C);
+    const dim3 grid((outs + kMargThreads - 1) / kMargThreads);
+    const float* pc = partial;
+    const float* tc = terms;
+    if (bf16) {
+      using H = __nv_bfloat16;
+      err = launch(crf_sum_kernel<H>, grid, kMargThreads, 0, s, pc, tc,
+                   reinterpret_cast<H*>(dtrans), reinterpret_cast<H*>(da),
+                   reinterpret_cast<H*>(db), B, C);
+    } else {
+      err = launch(crf_sum_kernel<float>, grid, kMargThreads, 0, s, pc, tc,
+                   dtrans, da, db, B, C);
+    }
     return static_cast<int>(err);
   }
   const MargPlan m = marg_plan(B, T, C);
@@ -2486,31 +2622,23 @@ extern "C" int crf_bwd(const float* x, const float* mask, const float* trans,
 extern "C" int crf_viterbi(const float* x, const float* mask,
                            const float* trans, const float* a, const float* b,
                            unsigned char* scratch, int* path, float* score,
-                           int B, int T, int C, void* stream) {
+                           int B, int T, int C, int bf16, void* stream) {
   if (B < 0 || T < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ChainPlan p = viterbi_plan(T, C);
   const size_t stride = viterbi_stride(p, T, C);
-  if (stride != 0 && scratch == nullptr)
+  if ((stride != 0 && scratch == nullptr) || (bf16 && p.block))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (!p.block) {
-    const dim3 grid((B + kWarps - 1) / kWarps);
-#define CRF_DECODE(KC)                                                        \
-  (p.bp_smem ? launch(crf_decode_warp_kernel<KC, true>, grid, kThreads,       \
-                      p.smem, s, x, mask, trans, a, b, path, score, scratch,  \
-                      stride, B, T, C)                                        \
-             : launch(crf_decode_warp_kernel<KC, false>, grid, kThreads,      \
-                      p.smem, s, x, mask, trans, a, b, path, score, scratch,  \
-                      stride, B, T, C))
-    switch (warp_classes(C)) {
-      case 8: err = CRF_DECODE(8); break;
-      case 16: err = CRF_DECODE(16); break;
-      case 24: err = CRF_DECODE(24); break;
-      default: err = CRF_DECODE(32); break;
+    if (bf16) {
+      CRF_WARP(err, launch_decode_warp, __nv_bfloat16, p, x, mask, trans, a,
+               b, path, score, scratch, stride, B, T, C, s)
+    } else {
+      CRF_WARP(err, launch_decode_warp, float, p, x, mask, trans, a, b, path,
+               score, scratch, stride, B, T, C, s)
     }
-#undef CRF_DECODE
   } else if (p.bp_bytes == 1) {
     err = launch_decode_block<unsigned char>(p, x, mask, trans, a, b, scratch,
                                              stride, path, score, B, T, C, s);

@@ -1,5 +1,6 @@
-// Flash attention for Hopper (sm_90a), f32 in and out, the products on the
-// tensor cores: the forward and the analytic backward (two kernels).
+// Flash attention for Hopper (sm_90a), f32 or (D <= 128) bf16 in and out,
+// the products on the tensor cores: the forward and the analytic backward
+// (two kernels).
 //
 // Replaces
 // - flash_fwd: the TPU kernel paddle_tpu/ops/attention.py:_flash_kernel
@@ -124,6 +125,24 @@
 // are a prefix of the head, the first (first real key) - (Tk - Tq) rows
 // (the first real key from the mask).
 //
+// The bf16 form (flash_fwd / flash_bwd with bf16 = 1; D <= 128, the
+// tensor-core kernels templated on the storage type S): the reference's
+// Pallas kernel is dtype-generic, and at bf16 it computes s = q k^T of
+// the bf16 operands summed in f32, times the scale in f32; m and l in
+// f32, l summing the unrounded p; the accumulator adds p rounded to bf16
+// times v, summed in f32; o = acc / l rounded to bf16. Here the bf16
+// tiles are widened into the f32 forms' shared memory (plans unchanged:
+// 16-byte loads, 8 values each, converted and stored as two float4; a
+// synchronous copy where the f32 form's is cp.async), and a product of
+// two bf16-valued operands takes one TF32 term: a bf16 value is its own
+// TF32 split (big = x, small = 0), so big . big is the exact product,
+// summed in f32 as a bf16 mma.sync m16n8k16 would. p is rounded to bf16
+// before its product with v, after it was added to l. The backward takes
+// bf16 q, k, v, o and dO, sums in f32 (dS and P, which are not bf16
+// values, keep two terms of the split: small . big + big . big) and
+// writes dq, dk, dv in bf16; the row statistics and delta stay f32, and so
+// does the mask. The wide-head and split-row paths have no bf16 form.
+//
 // Limits: D in {8, 16, 32, 64, 128} on the tensor cores (template
 // instances; the wrapper pads any other D <= 128 with zero columns up to
 // the next instance); 128 < D <= 1024 on the wide-head path below (f32 on
@@ -132,12 +151,18 @@
 // blocks on its y (up to 65535 x 64 rows; the wide path's 65535 x 8); the
 // split-row path's B * N * T rows on x.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <type_traits>
 
 namespace {
+
+// the storage type of the bf16 form
+template <typename S>
+constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;  // 128
@@ -212,19 +237,65 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // rows [row0, row0 + R) of a [rows, D] matrix into dst (row stride D + 4),
-// zeros past its last row; every thread of the block takes part
-template <int D, int R>
+// zeros past its last row; every thread of the block takes part. f32 by
+// cp.async; bf16 widened on the way (16-byte loads of 8 values, then two
+// float4 stores), visible after the caller's barrier as the copies are.
+template <int D, int R, typename S>
 __device__ __forceinline__ void copy_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const S* __restrict__ src,
                                           int row0, int rows) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i - r * kChunks) * 4;
-    const int row = row0 + r;
-    const bool valid = row < rows;
-    cp16(dst + r * row_ld(D) + c,
-         src + (valid ? static_cast<size_t>(row) * D + c : 0), valid);
+  if constexpr (kIsBf16<S>) {
+    constexpr int kChunks = D / 8;
+    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 8;
+      const int row = row0 + r;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (row < rows)
+        u = *reinterpret_cast<const uint4*>(src +
+                                            static_cast<size_t>(row) * D + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+      float* d = dst + r * row_ld(D) + c;
+      *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
+      *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
+  } else {
+    constexpr int kChunks = D / 4;
+    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 4;
+      const int row = row0 + r;
+      const bool valid = row < rows;
+      cp16(dst + r * row_ld(D) + c,
+           src + (valid ? static_cast<size_t>(row) * D + c : 0), valid);
+    }
   }
+}
+
+// four consecutive elements of a row, widened
+template <typename S>
+__device__ __forceinline__ float4 load4(const S* p) {
+  if constexpr (kIsBf16<S>) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return *reinterpret_cast<const float4*>(p);
+  }
+}
+
+// two consecutive elements of a row
+template <typename S>
+__device__ __forceinline__ void store2(S* p, float a, float b) {
+  if constexpr (kIsBf16<S>)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // src[at + i] for i < n into dst, 0 at and past `end`, by a block of NT
@@ -283,11 +354,14 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in split TF32: the small terms first, then big . big
+// c += a b in split TF32: the small terms first, then big . big. An
+// operand that holds bf16 values (kExactA, kExactB) is its own big part:
+// its small terms are zero and left out.
+template <bool kExactA = false, bool kExactB = false>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
                                      const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
+  if (!kExactA) mma_tf32(c, a.small, b.big);
+  if (!kExactB) mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
 }
 
@@ -336,8 +410,9 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
 // of tile as, B^T the first kNt * 8 rows of tile bs. The tensor cores
 // round their sums toward zero: a long sum kept in one accumulator drifts
 // by an ulp of its size at each mma. So every kSteps k steps (at most)
-// go to a fresh accumulator, added to c in f32.
-template <int D, int kNt, int kSteps>
+// go to a fresh accumulator, added to c in f32. kExact: both tiles hold
+// bf16 values.
+template <int D, int kNt, int kSteps, bool kExact>
 __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
                                              const float* as, int r0,
                                              const float* bs, int g, int t) {
@@ -355,7 +430,7 @@ __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
       for (int h = 0; h < kStep; ++h) {
         FragB fb;
         load_bt(fb, bs, row_ld(D), 8 * j, 8 * (kk + h), g, t);
-        mma3(u, fa[h], fb);
+        mma3<kExact, kExact>(u, fa[h], fb);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) c[j][i] += u[i];
@@ -365,8 +440,8 @@ __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
 
 // acc (16 rows x D) += p (16 x kNt * 8, accumulators) times the rows of
 // tile xs in the same order; the tile's sum in a fresh accumulator for
-// each 8 columns of acc
-template <int D, int kNt>
+// each 8 columns of acc. kExactP, kExactX: p, the tile hold bf16 values.
+template <int D, int kNt, bool kExactP, bool kExactX>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&p)[kNt][4],
                                            const float* xs, int g, int t) {
@@ -380,7 +455,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
     for (int j = 0; j < kNt; ++j) {
       FragB fb;
       load_b_perm(fb, xs, row_ld(D), 8 * j, 8 * dn, g, t);
-      mma3(u, fa[j], fb);
+      mma3<kExactP, kExactX>(u, fa[j], fb);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dn][i] += u[i];
@@ -396,8 +471,8 @@ __device__ __forceinline__ void zero(float (&x)[N][M]) {
 }
 
 // rows [r0 + g, r0 + g + 8] of a [rows, D] output from acc * mul_a, mul_b
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+template <int D, typename S>
+__device__ __forceinline__ void store_rows(S* __restrict__ dst,
                                            const float (&acc)[D / 8][4],
                                            float mul_a, float mul_b, int r0,
                                            int rows, int g, int t) {
@@ -406,11 +481,11 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
   for (int dn = 0; dn < D / 8; ++dn) {
     const int c = dn * 8 + 2 * t;
     if (ra < rows)
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(ra) * D + c) =
-          make_float2(acc[dn][0] * mul_a, acc[dn][1] * mul_a);
+      store2(dst + static_cast<size_t>(ra) * D + c, acc[dn][0] * mul_a,
+             acc[dn][1] * mul_a);
     if (rb < rows)
-      *reinterpret_cast<float2*>(dst + static_cast<size_t>(rb) * D + c) =
-          make_float2(acc[dn][2] * mul_b, acc[dn][3] * mul_b);
+      store2(dst + static_cast<size_t>(rb) * D + c, acc[dn][2] * mul_b,
+             acc[dn][3] * mul_b);
   }
 }
 
@@ -445,14 +520,15 @@ __device__ __forceinline__ int kv_tiles(int q0, int kC, int Tq, int Tk,
 }
 
 // ------------------------------------------------------------ forward
-template <int D>
+template <int D, typename S>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ o, float* __restrict__ stats, int BN,
+flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                 const S* __restrict__ v, const float* __restrict__ mask,
+                 S* __restrict__ o, float* __restrict__ stats, int BN,
                  int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = kv_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
+  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                  // [64, D + 4] this block's q
   float* ring = q_s + kRows * kLd;    // 2 stages of k, v, mask
@@ -463,8 +539,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
   const int ra = r0 + g, rb = ra + 8;
-  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
-  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const S* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const S* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
   const int nk = (Tk + kC - 1) / kC;
   const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
@@ -496,7 +572,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
       float s[kNt][4];
       zero(s);
-      product_smem<D, kNt, kFwdSteps>(s, q_s, warp * 16, ks, g, t);
+      product_smem<D, kNt, kFwdSteps, kBf>(s, q_s, warp * 16, ks, g, t);
       float mx_a = kNeg, mx_b = kNeg;
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
@@ -532,6 +608,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l_a = l_a * al_a + sum_a;
       l_b = l_b * al_b + sum_b;
+      if constexpr (kBf) {  // p rounded to v's type, after l took it
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = round_bf16(s[j][e]);
+      }
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
@@ -541,7 +623,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         acc[dn][2] *= al_b;
         acc[dn][3] *= al_b;
       }
-      accumulate<D, kNt>(acc, s, vs, g, t);
+      accumulate<D, kNt, kBf, kBf>(acc, s, vs, g, t);
     }
     __syncthreads();  // the tile's reads are done before it is refilled
   }
@@ -569,23 +651,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           p[j][e] = (e < 2 ? nk_a : nk_b) && k0 + 8 * j + 2 * t + (e & 1) < Tk
                         ? 1.f
                         : 0.f;
-      accumulate<D, kNt>(acc, p, ring, g, t);
+      accumulate<D, kNt, kBf, kBf>(acc, p, ring, g, t);
       __syncthreads();
     }
   }
   const float tk_pad = padded_keys(Tk);
   const float li_a = nk_a ? tk_pad : l_a, li_b = nk_b ? tk_pad : l_b;
   // o = acc / l, as blockwise_attention divides
-  float* obase = o + static_cast<size_t>(bn) * Tq * D;
+  S* obase = o + static_cast<size_t>(bn) * Tq * D;
 #pragma unroll
   for (int dn = 0; dn < kDt; ++dn) {
     const int c = dn * 8 + 2 * t;
     if (ra < Tq)
-      *reinterpret_cast<float2*>(obase + static_cast<size_t>(ra) * D + c) =
-          make_float2(acc[dn][0] / li_a, acc[dn][1] / li_a);
+      store2(obase + static_cast<size_t>(ra) * D + c, acc[dn][0] / li_a,
+             acc[dn][1] / li_a);
     if (rb < Tq)
-      *reinterpret_cast<float2*>(obase + static_cast<size_t>(rb) * D + c) =
-          make_float2(acc[dn][2] / li_b, acc[dn][3] / li_b);
+      store2(obase + static_cast<size_t>(rb) * D + c, acc[dn][2] / li_b,
+             acc[dn][3] / li_b);
   }
   if (t == 0) {
     const size_t at = static_cast<size_t>(bn) * Tq;
@@ -602,18 +684,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ backward
-template <int D>
+template <int D, typename S>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                    const S* __restrict__ v,
                     const float* __restrict__ mask,
-                    const float* __restrict__ o,
-                    const float* __restrict__ dout,
+                    const S* __restrict__ o,
+                    const S* __restrict__ dout,
                     const float* __restrict__ stats,
-                    float* __restrict__ delta, float* __restrict__ dq,
+                    float* __restrict__ delta, S* __restrict__ dq,
                     int BN, int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = dq_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
+  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                        // [64, D + 4] this block's q
   float* do_s = q_s + kRows * kLd;          // [64, D + 4] and its dO
@@ -626,8 +709,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
   const int ra = r0 + g, rb = ra + 8;
   const size_t q_at = static_cast<size_t>(bn) * Tq * D;
-  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
-  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const S* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const S* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
   const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
 
@@ -651,12 +734,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = pass * kRpp + lane / kLpr, row = r0 + r;
       float sum = 0.f;
       if (row < Tq) {
-        const float4* orow = reinterpret_cast<const float4*>(
-            o + q_at + static_cast<size_t>(row) * D);
-        const float4* drow = reinterpret_cast<const float4*>(
-            dout + q_at + static_cast<size_t>(row) * D);
+        const S* orow = o + q_at + static_cast<size_t>(row) * D;
+        const S* drow = dout + q_at + static_cast<size_t>(row) * D;
         for (int c = lane % kLpr; c < D / 4; c += kLpr) {
-          const float4 x = orow[c], y = drow[c];
+          const float4 x = load4(orow + 4 * c), y = load4(drow + 4 * c);
           sum = fmaf(y.x, x.x, sum);
           sum = fmaf(y.y, x.y, sum);
           sum = fmaf(y.z, x.z, sum);
@@ -695,8 +776,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float s[kNt][4], dp[kNt][4];
       zero(s);
       zero(dp);
-      product_smem<D, kNt, kBwdSteps>(s, q_s, warp * 16, ks, g, t);
-      product_smem<D, kNt, kBwdSteps>(dp, do_s, warp * 16, vs, g, t);
+      product_smem<D, kNt, kBwdSteps, kBf>(s, q_s, warp * 16, ks, g, t);
+      product_smem<D, kNt, kBwdSteps, kBf>(dp, do_s, warp * 16, vs, g, t);
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -710,7 +791,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                (dp[j][e] - (e < 2 ? dl_a : dl_b))
                          : 0.f;
         }
-      accumulate<D, kNt>(acc, s, ks, g, t);
+      accumulate<D, kNt, false, kBf>(acc, s, ks, g, t);
     }
     __syncthreads();
   }
@@ -740,19 +821,20 @@ __device__ __forceinline__ int first_key(const float* __restrict__ mrow,
   return Tk;
 }
 
-template <int D>
+template <int D, typename S>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
+flash_bwd_dkdv_kernel(const S* __restrict__ q,
+                      const S* __restrict__ k,
+                      const S* __restrict__ v,
                       const float* __restrict__ mask,
-                      const float* __restrict__ dout,
+                      const S* __restrict__ dout,
                       const float* __restrict__ stats,
                       const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int BN,
+                      S* __restrict__ dk, S* __restrict__ dv, int BN,
                       int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = q_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
+  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                    // [64, D + 4] this block's keys
   float* v_s = k_s + kRows * kLd;       // [64, D + 4]
@@ -818,8 +900,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
       float s[kNt][4], dp[kNt][4];  // S^T, dP^T: [this warp's keys, queries]
       zero(s);
       zero(dp);
-      product_smem<D, kNt, kBwdSteps>(s, k_s, warp * 16, qs, g, t);
-      product_smem<D, kNt, kBwdSteps>(dp, v_s, warp * 16, dos, g, t);
+      product_smem<D, kNt, kBwdSteps, kBf>(s, k_s, warp * 16, qs, g, t);
+      product_smem<D, kNt, kBwdSteps, kBf>(dp, v_s, warp * 16, dos, g, t);
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -835,8 +917,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
           dp[j][e] = live ? p * (dp[j][e] - dl_s[c]) : 0.f;
           s[j][e] = p;
         }
-      accumulate<D, kNt>(dv_acc, s, dos, g, t);
-      accumulate<D, kNt>(dk_acc, dp, qs, g, t);
+      accumulate<D, kNt, false, kBf>(dv_acc, s, dos, g, t);
+      accumulate<D, kNt, false, kBf>(dk_acc, dp, qs, g, t);
     }
     __syncthreads();
   }
@@ -1512,70 +1594,96 @@ flash_split_dkdv_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------------- launch
-// each (kernel, D) instance's shared-memory limit, raised once a device
-unsigned g_ready[kMaxDevices];
+// each (kernel, D, form) instance's shared-memory limit, raised once a
+// device
+unsigned long long g_ready[kMaxDevices];
 
 template <typename Kernel>
 cudaError_t ready(Kernel kernel, size_t bytes, int bit) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && (g_ready[dev] >> bit & 1u)) return cudaSuccess;
+  if (dev < kMaxDevices && (g_ready[dev] >> bit & 1ull)) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < kMaxDevices) g_ready[dev] |= 1u << bit;
+  if (err == cudaSuccess && dev < kMaxDevices) g_ready[dev] |= 1ull << bit;
   return err;
 }
 
+// bits 0-14 the f32 tensor-core instances, 15-23 the wide path's, 24-38
+// the bf16 instances
+template <typename S>
 constexpr int instance_bit(int D) {
-  return D == 8 ? 0 : D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4;
+  return (kIsBf16<S> ? 24 : 0) +
+         (D == 8 ? 0 : D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4);
 }
 
 __host__ __device__ constexpr int row_blocks(int t) {
   return (t + kRows - 1) / kRows;
 }
 
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v,
-               const float* mask, float* o, float* stats, int B, int N,
+// The tensor-core launches take the operands as void pointers of the
+// storage type S (float, or bf16 for the bf16 form).
+template <int D, typename S>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const float* mask, void* o, float* stats, int B, int N,
                int Tq, int Tk, int causal, float scale, cudaStream_t s) {
   if (row_blocks(Tq) > 65535) return cudaErrorInvalidValue;
   cudaError_t err =
-      ready(flash_fwd_kernel<D>, fwd_smem(D), instance_bit(D));
+      ready(flash_fwd_kernel<D, S>, fwd_smem(D), instance_bit<S>(D));
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D><<<dim3(B * N, row_blocks(Tq)), kThreads, fwd_smem(D),
-                        s>>>(q, k, v, mask, o, stats, B * N, N, Tq, Tk,
-                             causal, scale);
+  flash_fwd_kernel<D, S><<<dim3(B * N, row_blocks(Tq)), kThreads,
+                           fwd_smem(D), s>>>(
+      static_cast<const S*>(q), static_cast<const S*>(k),
+      static_cast<const S*>(v), mask, static_cast<S*>(o), stats, B * N, N,
+      Tq, Tk, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd(const float* q, const float* k, const float* v,
-               const float* mask, const float* o, const float* dout,
-               const float* stats, float* delta, float* dq, float* dk,
-               float* dv, int B, int N, int Tq, int Tk, int causal,
+template <int D, typename S>
+int launch_bwd(const void* q, const void* k, const void* v,
+               const float* mask, const void* o, const void* dout,
+               const float* stats, float* delta, void* dq, void* dk,
+               void* dv, int B, int N, int Tq, int Tk, int causal,
                float scale, cudaStream_t s) {
   if (row_blocks(Tq) > 65535 || row_blocks(Tk) > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err =
-      ready(flash_bwd_dq_kernel<D>, dq_smem(D), 5 + instance_bit(D));
+      ready(flash_bwd_dq_kernel<D, S>, dq_smem(D), 5 + instance_bit<S>(D));
   if (err != cudaSuccess) return err;
-  err = ready(flash_bwd_dkdv_kernel<D>, dkdv_smem(D), 10 + instance_bit(D));
+  err = ready(flash_bwd_dkdv_kernel<D, S>, dkdv_smem(D),
+              10 + instance_bit<S>(D));
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D>
+  const S* qs = static_cast<const S*>(q);
+  const S* ks = static_cast<const S*>(k);
+  const S* vs = static_cast<const S*>(v);
+  const S* dos = static_cast<const S*>(dout);
+  flash_bwd_dq_kernel<D, S>
       <<<dim3(B * N, row_blocks(Tq)), kThreads, dq_smem(D), s>>>(
-          q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, causal,
-          scale);
+          qs, ks, vs, mask, static_cast<const S*>(o), dos, stats, delta,
+          static_cast<S*>(dq), B * N, N, Tq, Tk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: delta is written before this kernel starts
-  flash_bwd_dkdv_kernel<D>
+  flash_bwd_dkdv_kernel<D, S>
       <<<dim3(B * N, row_blocks(Tk)), kThreads, dkdv_smem(D), s>>>(
-          q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk,
-          causal, scale);
+          qs, ks, vs, mask, dos, stats, delta, static_cast<S*>(dk),
+          static_cast<S*>(dv), B * N, N, Tq, Tk, causal, scale);
   return cudaGetLastError();
 }
+
+// one tensor-core instance of the form: launch_fwd<D, S> or launch_bwd<D,
+// S> with the arguments; -1 for a D with no instance
+#define FLASH_TC(fn, S, ...)                       \
+  switch (D) {                                     \
+    case 8: return fn<8, S>(__VA_ARGS__);          \
+    case 16: return fn<16, S>(__VA_ARGS__);        \
+    case 32: return fn<32, S>(__VA_ARGS__);        \
+    case 64: return fn<64, S>(__VA_ARGS__);        \
+    case 128: return fn<128, S>(__VA_ARGS__);      \
+    default: break;                                \
+  }
 
 // the wide path's instances: bits 15 + 3 (index of DL) + kernel
 constexpr int wide_bit(int DL, int which) {
@@ -1628,30 +1736,20 @@ int launch_wide_bwd(const float* q, const float* k, const float* v,
 
 }  // namespace
 
+// q, k, v, o (and dO, dq, dk, dv) are float, or bf16 where bf16 != 0
+// (the tensor-core instances only); the mask, stats and delta are float.
 extern "C" int flash_fwd(const float* q, const float* k, const float* v,
                          const float* mask, float* o, float* stats, int B,
-                         int N, int Tq, int Tk, int D, int causal,
+                         int N, int Tq, int Tk, int D, int causal, int bf16,
                          float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8:
-      return launch_fwd<8>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-                           scale, s);
-    case 16:
-      return launch_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-                            scale, s);
-    case 32:
-      return launch_fwd<32>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-                            scale, s);
-    case 64:
-      return launch_fwd<64>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-                            scale, s);
-    case 128:
-      return launch_fwd<128>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-                             scale, s);
-    default:
-      break;
+  if (bf16) {
+    FLASH_TC(launch_fwd, __nv_bfloat16, q, k, v, mask, o, stats, B, N, Tq,
+             Tk, causal, scale, s)
+    return cudaErrorInvalidValue;
   }
+  FLASH_TC(launch_fwd, float, q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+           scale, s)
   if (D <= 128) return cudaErrorInvalidValue;
   if (D > kWideMaxD) {
     if (static_cast<long long>(B) * N * Tq > INT_MAX)
@@ -1677,28 +1775,16 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
                          const float* mask, const float* o,
                          const float* dout, const float* stats, float* delta,
                          float* dq, float* dk, float* dv, int B, int N,
-                         int Tq, int Tk, int D, int causal, float scale,
-                         void* stream) {
+                         int Tq, int Tk, int D, int causal, int bf16,
+                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8:
-      return launch_bwd<8>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
-                           B, N, Tq, Tk, causal, scale, s);
-    case 16:
-      return launch_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
-                            B, N, Tq, Tk, causal, scale, s);
-    case 32:
-      return launch_bwd<32>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
-                            B, N, Tq, Tk, causal, scale, s);
-    case 64:
-      return launch_bwd<64>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
-                            B, N, Tq, Tk, causal, scale, s);
-    case 128:
-      return launch_bwd<128>(q, k, v, mask, o, dout, stats, delta, dq, dk,
-                             dv, B, N, Tq, Tk, causal, scale, s);
-    default:
-      break;
+  if (bf16) {
+    FLASH_TC(launch_bwd, __nv_bfloat16, q, k, v, mask, o, dout, stats, delta,
+             dq, dk, dv, B, N, Tq, Tk, causal, scale, s)
+    return cudaErrorInvalidValue;
   }
+  FLASH_TC(launch_bwd, float, q, k, v, mask, o, dout, stats, delta, dq, dk,
+           dv, B, N, Tq, Tk, causal, scale, s)
   if (D <= 128) return cudaErrorInvalidValue;
   if (D > kWideMaxD) {
     if (static_cast<long long>(B) * N * (Tq > Tk ? Tq : Tk) > INT_MAX)

@@ -40,6 +40,21 @@ autograd node. Each entry's ``.launches`` counts the calls that launched
 its kernel; the GRU entries' ``.step_launches`` count device launches (1 a
 call on the cluster route, 2 on the other).
 
+Mixed precision. Under ``--compute_dtype bfloat16`` a cell inside a
+recurrent group meets JAX's promotion: seq2seq's decoder steps an f32
+state (booted from an f32 layer) with an f32 input and bf16 weights, and
+the reference's inline math (its default; ``PADDLE_TPU_FUSED_RNN`` off)
+computes f32 (``h @ w`` of f32 by bf16 is f32). The plain versions
+promote as JAX does (``utils/precision.py:matmul``; torch promotes the
+elementwise mix). On the card an f32 state takes the f32 kernel on the
+widened operands: widening bf16 to f32 is exact, and the promoted math is
+the f32 function of the widened values. The group widens a cell's bf16
+weights once a forward (``layers/group.py``); what is still bf16 at a
+call (x, or weights outside a group) is widened there, one cast launch
+each, counted in each entry's ``.widen_casts``. A cell whose state itself
+is bf16 runs the inline bf16 math on the CPU, as the reference does, and
+raises on the card: its all-bf16 kernel form is still to port.
+
 The launch path runs once per decoder step from a Python loop, so it is
 lean (``build.check_cell``: every check in one pass, the messages of the
 per-tensor checks on failure; ``build.call``: PyTorch's current stream,
@@ -57,11 +72,25 @@ import torch
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import H100_SMS, SMEM_BYTES
 from paddle_tpu_torch.ops.gru import gru_step
-from paddle_tpu_torch.utils.precision import matmul
+from paddle_tpu_torch.utils.precision import matmul, widen
 
 _DEFAULT_IN = ("tanh", "", None)
 _DEFAULT_GATE = ("sigmoid", "", None)
 _DEFAULT_STATE = ("tanh", "", None)
+
+
+def _promoted(kernel, fn, state, *ts):
+    """The operands of a card launch: with an f32 ``state`` every bf16
+    operand widened (exact; counted in ``fn.widen_casts``), so that the
+    f32 kernel computes JAX's promoted math; a bf16 state raises."""
+    if state.dtype != torch.float32:
+        raise ValueError(
+            f"{kernel}: a {state.dtype} cell state has no kernel form on the "
+            "card (the all-bf16 cell is still to port: ROADMAP Queue 2); "
+            "an f32 state with bf16 operands takes the f32 kernel")
+    out, casts = widen(ts)
+    fn.widen_casts += casts
+    return out
 
 
 def activation(name):
@@ -153,11 +182,13 @@ def lstm_cell(gates, c_prev, check_i, check_f, check_o, act_input="tanh",
                          activation(act_state))
     if gates.device.type == "cpu":
         return lstm_cell_plain(gates, c_prev, check_i, check_f, check_o)
-    return LstmCellFunction.apply(*_lstm_args(gates, c_prev, check_i,
-                                              check_f, check_o))
+    return LstmCellFunction.apply(*_lstm_args(*_promoted(
+        "lstm_cell", lstm_cell, c_prev, gates, c_prev, check_i, check_f,
+        check_o)))
 
 
 lstm_cell.launches = 0
+lstm_cell.widen_casts = 0
 
 
 def lstm_cell_infer(gates, c_prev, check_i, check_f, check_o,
@@ -171,13 +202,15 @@ def lstm_cell_infer(gates, c_prev, check_i, check_f, check_o,
                          activation(act_state))
     if gates.device.type == "cpu":
         return lstm_cell_plain(gates, c_prev, check_i, check_f, check_o)
-    out = _lstm_launch("lstm_cell_infer", *_lstm_args(
-        gates, c_prev, check_i, check_f, check_o))
+    out = _lstm_launch("lstm_cell_infer", *_lstm_args(*_promoted(
+        "lstm_cell_infer", lstm_cell_infer, c_prev, gates, c_prev, check_i,
+        check_f, check_o)))
     lstm_cell_infer.launches += 1
     return out
 
 
 lstm_cell_infer.launches = 0
+lstm_cell_infer.widen_casts = 0
 
 
 # -------------------------------------------------------------------- GRU
@@ -378,12 +411,15 @@ def gru_cell(x, h, w_gate, w_state, act_input="tanh", act_gate="sigmoid",
                         activation(act_gate))
     if x.device.type == "cpu":
         return gru_cell_plain(x, h, w_gate, w_state)
+    x, h, w_gate, w_state = _promoted("gru_cell", gru_cell, h, x, h, w_gate,
+                                      w_state)
     return GruCellFunction.apply(x.contiguous(), h.contiguous(), w_gate,
                                  w_state, two_launch)
 
 
 gru_cell.launches = 0
 gru_cell.step_launches = 0
+gru_cell.widen_casts = 0
 
 
 def gru_cell_infer(x, h, w_gate, w_state, act_input="tanh",
@@ -395,6 +431,8 @@ def gru_cell_infer(x, h, w_gate, w_state, act_input="tanh",
                         activation(act_gate))
     if x.device.type == "cpu":
         return gru_cell_plain(x, h, w_gate, w_state)
+    x, h, w_gate, w_state = _promoted("gru_cell_infer", gru_cell_infer, h, x,
+                                      h, w_gate, w_state)
     out, steps = _gru_launch("gru_cell_infer", x.contiguous(),
                              h.contiguous(), w_gate, w_state, two_launch)
     gru_cell_infer.launches += 1
@@ -404,3 +442,4 @@ def gru_cell_infer(x, h, w_gate, w_state, act_input="tanh",
 
 gru_cell_infer.launches = 0
 gru_cell_infer.step_launches = 0
+gru_cell_infer.widen_casts = 0

@@ -63,6 +63,29 @@ def _group_subnet(cfg) -> Network:
     return entry[1]
 
 
+# the step layers whose second input is their recurrent state
+_CELLS = ("gru_step", "lstm_step")
+
+
+def _widened_cells(net: Network, params, carry):
+    """``params`` with the bf16 weights of each cell whose state is an f32
+    memory widened to f32, once a forward of the group (under
+    ``--compute_dtype bfloat16``: JAX's promoted step is exactly the f32
+    function of the widened weights, and the cells' card kernels take f32;
+    the widened tensors carry the gradient back to the bf16 ones). A cell
+    whose state is not a memory of this group is left to widen per call."""
+    out = dict(params)
+    for name in net.order:
+        layer = net.model.layers[name]
+        state = layer.input_names()[1] if layer.type in _CELLS else None
+        if state not in carry or carry[state].dtype != torch.float32:
+            continue
+        for pname in net._layer_params[name].values():
+            if out[pname].dtype == torch.bfloat16:
+                out[pname] = out[pname].float()
+    return out
+
+
 def _resolve_kind(a: Argument, kind: str) -> str:
     if kind == "auto":
         # wire-imported groups cannot recover the link kind: a 3-D mask is
@@ -196,6 +219,7 @@ class RecurrentLayerGroup(LayerImpl):
                 carry[bname] = lead.new_full((B, size), mem.get("init", 0.0),
                                              dtype=torch.float32)
 
+        sub_params = _widened_cells(net, sub_params, carry)
         out_names = cfg.attrs["outputs"]
         # each step's seed (dropout inside the step net): the group's
         # stream with the step folded in (JAX splits it T ways)

@@ -1,7 +1,7 @@
 """Fused operators: the hand-written CUDA kernels, their wrappers and their
 plain PyTorch versions."""
 
-_COUNTERS = ("launches", "step_launches")
+_COUNTERS = ("launches", "step_launches", "widen_casts")
 
 
 def _wrappers() -> dict:

@@ -39,7 +39,27 @@ the block's warps, the partial dots added in a fixed order).
 ``mha_plain`` is the plain softmax attention, the ground truth of the
 tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
 wanted and otherwise ``FlashFunction``, whose backward is ``flash_bwd``.
-f32 on the card; the plain versions take any float type.
+The plain versions take any float type.
+
+bfloat16 (``--compute_dtype bfloat16``: seq2seq's self-attention block
+hands flash bf16 q, k and v). The reference's Pallas kernel is
+dtype-generic; at bf16 it computes (``_flash_kernel``, block 256): s =
+q k^T of the bf16 operands summed in f32, times the scale in f32, the
+mask as ``_NEG``; m and l in f32, l summing the unrounded f32 p; the
+accumulator adds p rounded to bf16 times v, summed in f32; o = acc / l
+rounded to bf16. ``blockwise_plain`` keeps exactly those rounding points
+for bf16 q (bit-equal to the interpreted Pallas kernel within one kv
+block; beyond, the online softmax's rescaling points are the kernel's).
+The backward (JAX: ``jax.vjp`` of ``blockwise_attention`` at bf16, which
+rounds the scores and their cotangents to bf16) is here the analytic
+one on the widened bf16 operands, summed in f32, dq, dk and dv rounded
+to bf16 (``flash_bwd_plain``), within 2e-2 of JAX's largest entry. On
+the card both have a bf16 form for D <= 128 (``csrc/flash_attn.cu``, the
+tensor-core kernels with bf16 loads and stores: a bf16 product of two
+bf16 values is exact in f32, so one TF32 term replaces the three of the
+split; counted in ``.bf16_launches``); a bf16 tensor with a wider head
+(the wide and split forms) raises: those forms are still to port. The
+mask stays f32.
 
 A query row that sees no key (an all-padding kv row, or with ``causal``
 and Tq > Tk the first Tq - Tk rows) gets JAX's result: JAX pads Tk to a
@@ -132,6 +152,9 @@ def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None,
     B, N, Tq, D = q.shape
     Tk = k.shape[2]
     scale = _default_scale(q, scale)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the Pallas kernel's operands: bf16 products summed in f32
+        q, k, v = q.float(), k.float(), v.float()
     block_k = min(_PLAIN_BLOCK_K, Tk)
     pad = (-Tk) % block_k
     if pad:
@@ -154,11 +177,14 @@ def blockwise_plain(q, k, v, kv_mask=None, causal=False, scale=None,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_run - m_new)
         l_run = l_run * alpha + p.sum(dim=-1)
+        if bf16:  # p rounded to v's dtype (``p.astype(v.dtype)``)
+            p = p.to(torch.bfloat16).float()
         acc = acc * alpha[..., None] + einsum(
             "bnqk,bnkd->bnqd", p, v[:, :, k0:k0 + block_k])
         m_run = m_new
     lse = torch.stack([m_run, torch.log(l_run)]).reshape(2, B * N, Tq)
-    return acc / l_run[..., None], lse
+    o = acc / l_run[..., None]
+    return (o.to(torch.bfloat16) if bf16 else o), lse
 
 
 def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
@@ -168,10 +194,16 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
     delta)`` zeroed where a score was masked or causally hidden (as
     ``jnp.where`` gives them no gradient), ``dQ = dS K scale``, ``dK = dSᵀ
     Q scale``. Returns (dq, dk, dv). ``einsum`` computes the five
-    products."""
+    products. bf16 operands: widened, the gradient in f32, dq, dk and dv
+    rounded to bf16 (the bf16 kernels' arithmetic)."""
     B, N, Tq, _ = q.shape
     Tk = k.shape[2]
     scale = _default_scale(q, scale)
+    if q.dtype == torch.bfloat16:
+        grads = flash_bwd_plain(*(t.float() for t in (q, k, v)), kv_mask,
+                                o.float(), lse, do.float(), causal, scale,
+                                einsum)
+        return tuple(t.to(torch.bfloat16) for t in grads)
     s = einsum("bnqd,bnkd->bnqk", q, k) * scale
     live = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device=q.device)
     if kv_mask is not None:
@@ -315,8 +347,9 @@ def _check(kernel, q, k, v, kv_mask, o=None, lse=None, do=None):
     """Every check of the kernels' operands in one pass (``build.
     check_cell``; the per-tensor messages on failure): q [B,N,Tq,D], k and
     v [B,N,Tk,D], the mask [B,Tk] when given and, for the backward, o and
-    dO [B,N,Tq,D] and lse [2, B·N, Tq]; contiguous float32 on one card.
-    Returns (the card's index, (B, N, Tq, Tk, D))."""
+    dO [B,N,Tq,D] and lse [2, B·N, Tq]; contiguous, on one card, q, k, v,
+    o and dO all float32 or all bf16 (q's dtype), lse and the mask
+    float32. Returns (the card's index, (B, N, Tq, Tk, D))."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{kernel}: q and k must be [B, N, T, D], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -326,9 +359,10 @@ def _check(kernel, q, k, v, kv_mask, o=None, lse=None, do=None):
         raise ValueError(f"{kernel}: Tq={Tq}, Tk={Tk}: the kernels take "
                          "T >= 1")
     kv = (B, N, Tk, D)
-    tensors = [("q", q, q.shape), ("k", k, kv), ("v", v, kv)]
+    dt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    tensors = [("q", q, q.shape, dt), ("k", k, kv, dt), ("v", v, kv, dt)]
     if o is not None:
-        tensors += [("o", o, q.shape), ("do", do, q.shape),
+        tensors += [("o", o, q.shape, dt), ("do", do, q.shape, dt),
                     ("lse", lse, (2, B * N, Tq))]
     if kv_mask is not None:
         tensors.append(("kv_mask", kv_mask, (B, Tk)))
@@ -336,15 +370,30 @@ def _check(kernel, q, k, v, kv_mask, o=None, lse=None, do=None):
     return idx, (B, N, Tq, Tk, D)
 
 
+def _bf16_form(kernel, q):
+    """Whether a card call takes the bf16 form: bf16 q with a head of at
+    most ``HEAD_DIMS[-1]``; a wider bf16 head raises."""
+    if q.dtype != torch.bfloat16:
+        return False
+    if q.shape[-1] > HEAD_DIMS[-1]:
+        raise ValueError(
+            f"{kernel}: a bfloat16 head of D={q.shape[-1]} > "
+            f"{HEAD_DIMS[-1]}: the wide-head and split-row kernels have no "
+            "bf16 form yet (ROADMAP Queue 2)")
+    return True
+
+
 def flash_fwd(q, k, v, kv_mask=None, causal=False, scale=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's wrapper: (o [B,N,Tq,D], lse [2, B·N, Tq]),
-    the results of ``blockwise_plain``. No mask: every key real (the
-    kernel takes a null mask). ``flash_fwd.launches`` counts the calls
-    that launched it."""
+    """The forward kernel's wrapper: (o [B,N,Tq,D] in q's dtype, lse [2,
+    B·N, Tq] float32), the results of ``blockwise_plain``. No mask: every
+    key real (the kernel takes a null mask). ``flash_fwd.launches`` counts
+    the calls that launched the f32 form, ``.bf16_launches`` the bf16
+    form's."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return blockwise_plain(q, k, v, kv_mask, causal, scale)
+    bf16 = _bf16_form("flash_fwd", q)
     width = padded_width(q.shape[-1])
     if width != q.shape[-1]:
         return fwd_padded(flash_fwd, width, q, k, v, kv_mask, causal, scale)
@@ -352,27 +401,31 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False, scale=None
     # the kernels read q, k, v by 16-byte copies
     q, k, v = (build.aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
-    lse = q.new_empty((2, B * N, Tq))
+    lse = q.new_empty((2, B * N, Tq), dtype=torch.float32)
     err = build.call(
-        build.bind("flash_attn", "flash_fwd", 6, 6, 1), idx, q.data_ptr(),
+        build.bind("flash_attn", "flash_fwd", 6, 7, 1), idx, q.data_ptr(),
         k.data_ptr(), v.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, N, Tq, Tk, D, int(causal), float(scale))
+        lse.data_ptr(), B, N, Tq, Tk, D, int(causal), int(bf16),
+        float(scale))
     build.raise_on(err, "flash_fwd")
-    flash_fwd.launches += 1
+    build.count_launch(flash_fwd, q)
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.bf16_launches = 0
 
 
 def flash_bwd(q, k, v, kv_mask, o, lse, do, causal=False, scale=None):
     """The backward kernels' wrapper (``flash_bwd_dq``, then
     ``flash_bwd_dkdv``): (dq, dk, dv), the results of
-    ``flash_bwd_plain``. No float atomics: two runs give the same bits."""
+    ``flash_bwd_plain``, in q's dtype. No float atomics: two runs give the
+    same bits."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal, scale)
+    bf16 = _bf16_form("flash_bwd", q)
     width = padded_width(q.shape[-1])
     if width != q.shape[-1]:
         return bwd_padded(flash_bwd, width, q, k, v, kv_mask, o, lse, do,
@@ -380,22 +433,23 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, causal=False, scale=None):
     idx, (B, N, Tq, Tk, D) = _check("flash_bwd", q, k, v, kv_mask, o, lse,
                                     do)
     q, k, v, o, do = (build.aligned(t) for t in (q, k, v, o, do))
-    delta = q.new_empty((B * N, Tq))
+    delta = q.new_empty((B * N, Tq), dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     err = build.call(
-        build.bind("flash_attn", "flash_bwd", 11, 6, 1), idx, q.data_ptr(),
+        build.bind("flash_attn", "flash_bwd", 11, 7, 1), idx, q.data_ptr(),
         k.data_ptr(), v.data_ptr(),
         None if kv_mask is None else kv_mask.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, N, Tq, Tk, D, int(causal),
-        float(scale))
+        int(bf16), float(scale))
     build.raise_on(err, "flash_bwd")
-    flash_bwd.launches += 1
+    build.count_launch(flash_bwd, q)
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.bf16_launches = 0
 
 
 # ------------------------------------------------------------- autograd
@@ -433,8 +487,9 @@ def flash_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     the kernels take contiguous tensors."""
     scale = _default_scale(q, scale)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    if kv_mask is not None:
-        kv_mask = kv_mask.to(q.dtype).contiguous()
+    if kv_mask is not None:  # f32, or f64 for f64 operands
+        kv_mask = kv_mask.to(torch.promote_types(
+            q.dtype, torch.float32)).contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashFunction.apply(q, k, v, kv_mask, causal, scale)
     return flash_fwd(q, k, v, kv_mask, causal, scale)[0]

@@ -125,16 +125,17 @@ def bind(name: str, entry: str, n_ptr: int, n_int: int, n_float: int = 0):
     return fn
 
 
-def count_launch(fn, t: torch.Tensor, steps: int):
+def count_launch(fn, t: torch.Tensor, steps: int = None):
     """One call of the wrapper ``fn`` that launched its kernel in the
     form of ``t``'s dtype: a bf16 form's in ``fn.bf16_launches``, the
     float32 form's in ``fn.launches`` with its ``steps`` device launches
-    in ``fn.step_launches``."""
+    (where the wrapper counts them) in ``fn.step_launches``."""
     if t.dtype == torch.bfloat16:
         fn.bf16_launches += 1
     else:
         fn.launches += 1
-        fn.step_launches += steps
+        if steps is not None:
+            fn.step_launches += steps
 
 
 def cuda_device(kernel: str, t: torch.Tensor) -> torch.device:
@@ -164,15 +165,17 @@ def check_tensors(kernel: str, device, **tensors):
 def check_cell(kernel, tensors, weights=()):
     """The checks of ``check_tensors`` and ``check_weight`` in one pass,
     for a wrapper called once per step: ``tensors`` are (name, tensor,
-    shape) that must be contiguous float32 on one card, ``weights`` (name,
-    matrix, shape) float32 matrices on that card with contiguous columns.
-    Returns (the card's index, the weights' row strides). Where any check
-    fails, those functions raise with their message."""
+    shape) that must be contiguous float32 on one card, or (name, tensor,
+    shape, dtype) of another dtype, ``weights`` (name, matrix, shape)
+    float32 matrices on that card with contiguous columns. Returns (the
+    card's index, the weights' row strides). Where any check fails, those
+    functions raise with their message."""
     idx = tensors[0][1].get_device()  # -1 on the CPU
     f32 = torch.float32
     ok = idx >= 0
-    for _, t, shape in tensors:
-        ok = (ok and t.dtype is f32 and t.get_device() == idx
+    for _, t, shape, *dt in tensors:
+        ok = (ok and t.dtype is (dt[0] if dt else f32)
+              and t.get_device() == idx
               and t.shape == shape and t.is_contiguous())
     lds = []
     for _, w, shape in weights:
@@ -182,7 +185,8 @@ def check_cell(kernel, tensors, weights=()):
         lds.append(st[0])
     if not ok:
         dev = cuda_device(kernel, tensors[0][1])
-        check_tensors(kernel, dev, **{n: (t, s) for n, t, s in tensors})
+        check_tensors(kernel, dev,
+                      **{n: (t, s, *dt) for n, t, s, *dt in tensors})
         for name, w, shape in weights:
             check_weight(kernel, dev, name, w, shape)
     return idx, lds

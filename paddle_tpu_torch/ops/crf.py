@@ -32,7 +32,25 @@ which the CPU tests hold against the JAX package.
 formulas of ``csrc/crf.cu`` (held equal on the card through
 ``plan_of_kernel``). ``crf_log_z`` takes ``crf_alpha_fwd`` alone when no
 gradient is wanted and otherwise ``CrfFunction``, whose backward is
-``crf_bwd``. f32 only.
+``crf_bwd``.
+
+bfloat16 (``--compute_dtype bfloat16``: the linear-CRF tagger hands its
+bf16 emissions to the CRF; the layer casts the mask to x's dtype, as
+JAX's does). The reference's kernel is dtype-generic: at bf16 its alphas
+live in bf16 (``_crf_kernel``'s scratch), exp(alpha - m) is computed in
+bf16, the product with exp(trans - tm) (itself bf16) is summed in f32 and
+rounded, and ``log(max(s, 1e-37)) + m + tm + x_t`` rounds at each
+operation; log Z's epilogue rounds each operation, its sum once. The
+backward (``_crf_bwd``) and the Viterbi (``crf_decode``) are scans whose
+every operation rounds to bf16. The plain versions keep those rounding
+points for bf16 operands (computing in f32 and rounding after each
+operation, ``_rounder``), with two departures, both the kernels'
+arithmetic: the marginal sums (dtrans, da, db) add in f32 and round once
+(JAX adds each step's sum into a bf16 accumulator), and the products sum
+in f32 in their own order. On the card the C <= 32 kernels have a bf16
+form with the same rounding points (``csrc/crf.cu``, templated on the
+storage type; counted in ``.bf16_launches``); a bf16 call with C > 32
+(the block forms) raises: those forms are still to port.
 """
 
 from __future__ import annotations
@@ -44,6 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from paddle_tpu_torch.ops import build
+from paddle_tpu_torch.ops.lstm import _rounder
 
 # csrc/crf.cu's plan constants
 WARPS = 4               # sequences a warp-variant block (C <= 32)
@@ -244,33 +263,62 @@ def plan_of_kernel(kernel: int, B: int, T: int, C: int, field: int) -> int:
 
 
 # ---------------------------------------------------------------- plain
-def _step(alpha, trans_shift, tm, x_t):
-    """One max-shifted exp-space alpha update (``ops/crf.py:_step``)."""
+_TINY = 1e-37  # the exp-space sum's floor (``jnp.maximum(s, 1e-37)``)
+
+
+def _widened(dtype, *ts):
+    """The operands and the rounder of ``dtype``: bf16 tensors widened to
+    f32 with each result rounded back to bf16 (``_rounder``), what a
+    kernel computing in f32 registers and storing bf16 does; for float32
+    and float64 the tensors themselves and the identity."""
+    if dtype != torch.bfloat16:
+        return (*ts, lambda v: v)
+    return (*(t.float() for t in ts), _rounder(dtype))
+
+
+def _exp_shift(trans, r):
+    """tm = max(trans) and exp(trans - tm), each operation rounded."""
+    tm = trans.max()
+    return tm, r(torch.exp(r(trans - tm)))
+
+
+def _log_floor(s, r):
+    """log(max(s, 1e-37)) of the product s rounded to the dtype."""
+    tiny = float(r(torch.tensor(_TINY, dtype=torch.float64)))
+    return r(torch.log(torch.clamp_min(r(s), tiny)))
+
+
+def _step(alpha, trans_shift, tm, x_t, r=lambda v: v):
+    """One max-shifted exp-space alpha update (``ops/crf.py:_step``),
+    each operation rounded by ``r``, the product summed in f32."""
     m = alpha.max(dim=-1, keepdim=True).values
-    s = torch.exp(alpha - m) @ trans_shift
-    return torch.log(torch.clamp_min(s, 1e-37)) + m + tm + x_t
+    s = r(torch.exp(r(alpha - m))) @ trans_shift
+    return r(r(r(_log_floor(s, r) + m) + tm) + x_t)
 
 
-def _log_sum_exp(v):
+def _log_sum_exp(v, r=lambda v: v):
     m = v.max(dim=-1, keepdim=True).values
-    return m[:, 0] + torch.log(torch.exp(v - m).sum(dim=-1))
+    return r(m[:, 0] + r(torch.log(r(r(torch.exp(r(v - m))).sum(dim=-1)))))
 
 
 def crf_forward_plain(x, mask, trans, a, b) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Plain PyTorch loop, spelled as ``paddle_tpu/ops/crf.py:
-    crf_log_z_ref``. x [B,T,C], mask [B,T] f32, trans [C,C], a, b [C].
+    crf_log_z_ref``. x [B,T,C], mask [B,T], trans [C,C], a, b [C].
     Returns (alphas [B,T,C] with alpha_0 = a + x_0 and alpha frozen on
-    padded steps, log Z [B])."""
-    tm = trans.max()
-    trans_shift = torch.exp(trans - tm)
-    alpha = a[None, :] + x[:, 0]
+    padded steps, log Z [B]) in x's dtype; bf16 with the reference
+    kernel's rounding points (the module note)."""
+    dt = x.dtype
+    x, trans, a, b, r = _widened(dt, x, trans, a, b)
+    tm, trans_shift = _exp_shift(trans, r)
+    alpha = r(a[None, :] + x[:, 0])
     alphas = [alpha]
     for t in range(1, x.shape[1]):
-        nxt = _step(alpha, trans_shift, tm, x[:, t])
+        nxt = _step(alpha, trans_shift, tm, x[:, t], r)
         alpha = torch.where(mask[:, t, None] > 0, nxt, alpha)
         alphas.append(alpha)
-    return torch.stack(alphas, dim=1), _log_sum_exp(alpha + b[None, :])
+    log_z = _log_sum_exp(r(alpha + b[None, :]), r)
+    return torch.stack(alphas, dim=1).to(dt), log_z.to(dt)
 
 
 def crf_log_z_plain(x, mask, trans, a, b) -> torch.Tensor:
@@ -282,71 +330,81 @@ def crf_betas_plain(x, mask, trans, b) -> torch.Tensor:
     """The beta recursion of ``paddle_tpu/ops/crf.py:_crf_bwd``, what the
     backward's chain kernel computes: betas [B,T,C] with beta_{T-1} = b and
     beta_{t-1}[i] = logsumexp_j(trans[i,j] + x_t[j] + beta_t[j]), max-shifted
-    in exp space, frozen where step t is padding."""
+    in exp space, frozen where step t is padding. In x's dtype (bf16:
+    every operation rounded, the product summed in f32)."""
     B, T, C = x.shape
-    tm = trans.max()
-    trans_shift = torch.exp(trans - tm)  # [prev, next]
+    dt = x.dtype
+    x, trans, b, r = _widened(dt, x, trans, b)
+    tm, trans_shift = _exp_shift(trans, r)  # [prev, next]
     beta = b[None, :].expand(B, C)
     betas = [beta]
     for t in range(T - 1, 0, -1):
-        y = x[:, t] + beta
+        y = r(x[:, t] + beta)
         m = y.max(dim=-1, keepdim=True).values
-        prev = torch.log(torch.clamp_min(
-            torch.exp(y - m) @ trans_shift.T, 1e-37)) + m + tm
+        prev = r(r(_log_floor(r(torch.exp(r(y - m))) @ trans_shift.T, r)
+                   + m) + tm)
         beta = torch.where(mask[:, t, None] > 0, prev, beta)
         betas.append(beta)
-    return torch.stack(betas[::-1], dim=1)  # [B,T,C], betas[:, t]
+    return torch.stack(betas[::-1], dim=1).to(dt)  # [B,T,C], betas[:, t]
 
 
 def crf_bwd_plain(x, mask, trans, b, alphas, log_z, g):
     """The analytic backward of ``paddle_tpu/ops/crf.py:_crf_bwd`` in plain
     PyTorch: the marginals of log Z weighted by ``g`` [B] (d loss / d log
-    Z). Returns (dx [B,T,C], dtrans [C,C], da [C], db [C])."""
+    Z). Returns (dx [B,T,C], dtrans [C,C], da [C], db [C]) in x's dtype;
+    bf16 with ``_crf_bwd``'s rounding points, the sums over steps and
+    sequences in f32 and rounded once (the kernels' arithmetic)."""
     T = x.shape[1]
+    dt = x.dtype
     betas = crf_betas_plain(x, mask, trans, b)
-    q = torch.exp(alphas + betas - log_z[:, None, None])
-    q = q * mask[:, :, None]
-    dx = g[:, None, None] * q
+    x, mask, trans, b, alphas, log_z, g, betas, r = _widened(
+        dt, x, mask, trans, b, alphas, log_z, g, betas)
+    q = r(torch.exp(r(r(alphas + betas) - log_z[:, None, None])))
+    q = r(q * mask[:, :, None])
+    dx = r(g[:, None, None] * q)
     # pairwise marginals exp(alpha_{t-1}[i] + trans[i,j] + x_t[j] +
     # beta_t[j] - log Z), exponentiated summed (never factorised, so
     # forbidden transitions at -1e4 cannot overflow)
     dtrans = torch.zeros_like(trans)
-    r_next = x[:, 1:] + betas[:, 1:]
+    r_next = r(x[:, 1:] + betas[:, 1:])
     pair_m = mask[:, 1:] * mask[:, :-1]
     for t in range(T - 1):
-        s = (alphas[:, t, :, None] + trans[None] + r_next[:, t, None, :]
-             - log_z[:, None, None])
-        p = torch.exp(torch.clamp_max(s, 30.0)) * (pair_m[:, t]
-                                                   * g)[:, None, None]
+        s = r(r(r(alphas[:, t, :, None] + trans[None])
+                + r_next[:, t, None, :]) - log_z[:, None, None])
+        p = r(r(torch.exp(torch.clamp_max(s, 30.0)))
+              * (pair_m[:, t] * g)[:, None, None])
         dtrans = dtrans + p.sum(dim=0)
-    da = (g[:, None] * q[:, 0]).sum(dim=0)
-    q_end = torch.exp(alphas[:, -1] + b[None, :] - log_z[:, None])
-    db = (g[:, None] * q_end).sum(dim=0)
-    return dx, dtrans, da, db
+    da = r(g[:, None] * q[:, 0]).sum(dim=0)
+    q_end = r(torch.exp(r(r(alphas[:, -1] + b[None, :]) - log_z[:, None])))
+    db = r(g[:, None] * q_end).sum(dim=0)
+    return tuple(t.to(dt) for t in (dx, dtrans, da, db))
 
 
 def crf_viterbi_plain(x, mask, trans, a, b):
     """Viterbi decode spelled as ``paddle_tpu/layers/chain.py:crf_decode``
     (scores ``alpha_i + trans_ij``, max over i, then ``+ x_j``; ties take
-    the first index). Returns (path [B,T] int32, score [B])."""
+    the first index). Returns (path [B,T] int32, score [B] in x's dtype);
+    bf16: each addition rounded, as ``crf_decode``'s at bf16."""
     B, T, C = x.shape
-    alpha = a[None, :] + x[:, 0]
+    dt = x.dtype
+    x, trans, a, b, r = _widened(dt, x, trans, a, b)
+    alpha = r(a[None, :] + x[:, 0])
     ident = torch.arange(C, device=x.device)[None, :].expand(B, C)
     ptrs = []
     for t in range(1, T):
-        scores = alpha[:, :, None] + trans[None]  # [B, prev, next]
+        scores = r(alpha[:, :, None] + trans[None])  # [B, prev, next]
         best = scores.max(dim=1).values
         best_prev = scores.argmax(dim=1)  # the first index among maxima
         live = mask[:, t, None] > 0
-        alpha = torch.where(live, best + x[:, t], alpha)
+        alpha = torch.where(live, r(best + x[:, t]), alpha)
         ptrs.append(torch.where(live, best_prev, ident))
-    final = alpha + b[None, :]
+    final = r(alpha + b[None, :])
     score, state = final.max(dim=1).values, final.argmax(dim=1)
     path = [state]
     for ptr in reversed(ptrs):
         state = ptr.gather(1, state[:, None])[:, 0]
         path.append(state)
-    return torch.stack(path[::-1], dim=1).to(torch.int32), score
+    return torch.stack(path[::-1], dim=1).to(torch.int32), score.to(dt)
 
 
 def _floor_inputs(C: int):
@@ -394,9 +452,10 @@ def chain_floor_plain(T: int, C: int, variant: str = "beta") -> torch.Tensor:
 # -------------------------------------------------------------- kernels
 def _check(kernel, x, mask, trans, more):
     """The operands' device, types and shapes in one pass
-    (``build.check_cell``; the per-tensor messages on failure). ``more``:
-    (name, tensor, shape by (B, T, C)). Returns (the card's index, B, T,
-    C)."""
+    (``build.check_cell``; the per-tensor messages on failure): all of
+    x's dtype, float32 or (C <= 32) bf16. ``more``: (name, tensor, shape
+    by (B, T, C)). Returns (the card's index, B, T, C, whether the bf16
+    form runs)."""
     if x.dim() != 3:
         raise ValueError(f"{kernel}: x must be [B, T, C], got "
                          f"{tuple(x.shape)}")
@@ -404,10 +463,17 @@ def _check(kernel, x, mask, trans, more):
     if T < 1 or C < 1:
         raise ValueError(f"{kernel}: T={T}, C={C} classes: the kernel takes "
                          "T >= 1, C >= 1")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and C > 32:
+        raise ValueError(f"{kernel}: bfloat16 at C={C} > 32 classes: the "
+                         "block forms have no bf16 form yet (ROADMAP "
+                         "Queue 2)")
+    dt = x.dtype if bf16 else torch.float32
     idx, _ = build.check_cell(kernel, (
-        ("x", x, (B, T, C)), ("mask", mask, (B, T)), ("trans", trans, (C, C)),
-        *((name, t, shape(B, T, C)) for name, t, shape in more)))
-    return idx, B, T, C
+        ("x", x, (B, T, C), dt), ("mask", mask, (B, T), dt),
+        ("trans", trans, (C, C), dt),
+        *((name, t, shape(B, T, C), dt) for name, t, shape in more)))
+    return idx, B, T, C, bf16
 
 
 _VEC = lambda B, T, C: (C,)  # noqa: E731
@@ -439,24 +505,25 @@ def crf_alpha_fwd(x, mask, trans, a, b, *, in_global=False):
     paths)."""
     if x.device.type == "cpu":
         return crf_forward_plain(x, mask, trans, a, b)
-    idx, B, T, C = _check("crf_alpha_fwd", x, mask, trans,
-                          (("a", a, _VEC), ("b", b, _VEC)))
+    idx, B, T, C, bf16 = _check("crf_alpha_fwd", x, mask, trans,
+                                (("a", a, _VEC), ("b", b, _VEC)))
     dev = x.device
-    alphas = torch.empty((B, T, C), dtype=torch.float32, device=dev)
-    log_z = torch.empty((B,), dtype=torch.float32, device=dev)
+    alphas = torch.empty((B, T, C), dtype=x.dtype, device=dev)
+    log_z = torch.empty((B,), dtype=x.dtype, device=dev)
     n = fwd_work_floats(B, C, in_global)
     work = torch.empty((n,), dtype=torch.float32, device=dev) if n else None
-    err = build.call(build.bind("crf", "crf_alpha_fwd", 8, 4), idx,
+    err = build.call(build.bind("crf", "crf_alpha_fwd", 8, 5), idx,
                      x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
                      a.data_ptr(), b.data_ptr(), _ptr(work),
                      alphas.data_ptr(), log_z.data_ptr(), B, T, C,
-                     int(in_global))
+                     int(in_global), int(bf16))
     build.raise_on(err, "crf_alpha_fwd")
-    crf_alpha_fwd.launches += 1
+    build.count_launch(crf_alpha_fwd, x)
     return alphas, log_z
 
 
 crf_alpha_fwd.launches = 0
+crf_alpha_fwd.bf16_launches = 0
 
 
 def crf_bwd(x, mask, trans, b, alphas, log_z, g):
@@ -468,28 +535,30 @@ def crf_bwd(x, mask, trans, b, alphas, log_z, g):
     a fixed order (no float atomics: two runs give the same bits)."""
     if x.device.type == "cpu":
         return crf_bwd_plain(x, mask, trans, b, alphas, log_z, g)
-    idx, B, T, C = _check("crf_bwd", x, mask, trans, (
+    idx, B, T, C, bf16 = _check("crf_bwd", x, mask, trans, (
         ("b", b, _VEC), ("alphas", alphas, lambda B, T, C: (B, T, C)),
         ("log_z", log_z, lambda B, T, C: (B,)),
         ("g", g, lambda B, T, C: (B,))))
     dev = x.device
-    dx = torch.empty((B, T, C), dtype=torch.float32, device=dev)
-    dtrans = torch.empty((C, C), dtype=torch.float32, device=dev)
-    da = torch.empty((C,), dtype=torch.float32, device=dev)
-    db = torch.empty((C,), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, T, C), dtype=x.dtype, device=dev)
+    dtrans = torch.empty((C, C), dtype=x.dtype, device=dev)
+    da = torch.empty((C,), dtype=x.dtype, device=dev)
+    db = torch.empty((C,), dtype=x.dtype, device=dev)
     work = torch.empty((bwd_work_floats(B, T, C),), dtype=torch.float32,
                        device=dev)
-    err = build.call(build.bind("crf", "crf_bwd", 12, 3), idx,
+    err = build.call(build.bind("crf", "crf_bwd", 12, 4), idx,
                      x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
                      b.data_ptr(), alphas.data_ptr(), log_z.data_ptr(),
                      g.data_ptr(), work.data_ptr(), dx.data_ptr(),
-                     dtrans.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, C)
+                     dtrans.data_ptr(), da.data_ptr(), db.data_ptr(), B, T, C,
+                     int(bf16))
     build.raise_on(err, "crf_bwd")
-    crf_bwd.launches += 1
+    build.count_launch(crf_bwd, x)
     return dx, dtrans, da, db
 
 
 crf_bwd.launches = 0
+crf_bwd.bf16_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,24 +573,25 @@ def crf_viterbi(x, mask, trans, a, b):
     (``crf_plan``)."""
     if x.device.type == "cpu":
         return crf_viterbi_plain(x, mask, trans, a, b)
-    idx, B, T, C = _check("crf_viterbi", x, mask, trans,
-                          (("a", a, _VEC), ("b", b, _VEC)))
+    idx, B, T, C, bf16 = _check("crf_viterbi", x, mask, trans,
+                                (("a", a, _VEC), ("b", b, _VEC)))
     dev = x.device
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    score = torch.empty((B,), dtype=x.dtype, device=dev)
     per_row = _viterbi_scratch(T, C)
     scratch = torch.empty((B * per_row,), dtype=torch.uint8, device=dev) \
         if per_row else None
-    err = build.call(build.bind("crf", "crf_viterbi", 8, 3), idx,
+    err = build.call(build.bind("crf", "crf_viterbi", 8, 4), idx,
                      x.data_ptr(), mask.data_ptr(), trans.data_ptr(),
                      a.data_ptr(), b.data_ptr(), _ptr(scratch),
-                     path.data_ptr(), score.data_ptr(), B, T, C)
+                     path.data_ptr(), score.data_ptr(), B, T, C, int(bf16))
     build.raise_on(err, "crf_viterbi")
-    crf_viterbi.launches += 1
+    build.count_launch(crf_viterbi, x)
     return path, score
 
 
 crf_viterbi.launches = 0
+crf_viterbi.bf16_launches = 0
 
 
 def crf_chain_floor(T: int, C: int, variant: str = "beta",

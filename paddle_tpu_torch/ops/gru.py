@@ -70,7 +70,7 @@ from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
                                         check_weight, device_sms)
 from paddle_tpu_torch.ops.lstm import _rounder, _sigmoid
-from paddle_tpu_torch.utils.precision import result_type
+from paddle_tpu_torch.utils.precision import matmul, result_type
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -176,12 +176,13 @@ def persistent_smem_of_kernel(B, H, units, chunk, backward) -> int:
 def gru_step(x_t, h, w_gate, w_state):
     """One GRU step on the projected input ``x_t`` [B, 3H] (bias folded):
     (z, r, c, h_new), spelled as ``paddle_tpu/ops/gru.py:gru_sequence_ref``
-    (``h - z*h + z*c``)."""
+    (``h - z*h + z*c``); mixed operands (an f32 state, bf16 weights)
+    promote as JAX's do."""
     H = h.shape[-1]
-    zr = x_t[:, :2 * H] + h @ w_gate
+    zr = x_t[:, :2 * H] + matmul(h, w_gate)
     z = _sigmoid(zr[:, :H])
     r = _sigmoid(zr[:, H:])
-    c = torch.tanh(x_t[:, 2 * H:] + (r * h) @ w_state)
+    c = torch.tanh(x_t[:, 2 * H:] + matmul(r * h, w_state))
     return z, r, c, h - z * h + z * c
 
 

@@ -6,6 +6,11 @@ f32 (``jnp.result_type``), while ``torch.matmul`` raises on mixed dtypes.
 ``torch.promote_types`` agrees with ``jnp.result_type`` on the floating
 dtypes the port meets (bf16 with f32 gives f32), and widening a bf16
 operand to f32 is exact, so the promoted product is JAX's.
+
+The recurrent cells meet the same mix inside a recurrent group (seq2seq's
+decoder: an f32 state and input, bf16 weights): their promoted math is
+exactly the f32 function of the widened operands, so on the card they
+take the f32 kernel on ``widen``'s results.
 """
 
 from __future__ import annotations
@@ -26,3 +31,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
+
+
+def widen(ts):
+    """``ts`` with every bf16 tensor cast to f32, exactly; other dtypes
+    pass through for the callee's checks. Returns (the tensors, the
+    number of casts made: a cast is one device launch on the card)."""
+    bf16 = torch.bfloat16
+    out = tuple(t.float() if t.dtype == bf16 else t for t in ts)
+    return out, sum(t.dtype == bf16 for t in ts)

@@ -2333,9 +2333,123 @@ def test_bf16_sequence_gradients_through_autograd_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal", [
+    (2, 2, 8, 8, 128, False), (50, 4, 50, 50, 128, False),
+    (2, 4, 300, 300, 128, True), (2, 2, 40, 70, 64, False),
+    (2, 2, 33, 33, 40, True)])
+def test_flash_bf16_forms_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
+                                              causal):
+    """The bf16 forms of the flash kernels (D <= 128, the tensor cores; D
+    = 40 padded to 64) against ``blockwise_plain`` and ``flash_bwd_plain``
+    at bf16 on the card: o, dq, dk, dv bf16 within 2e-2 of each tensor's
+    largest entry and no farther from the f32 computation of the widened
+    inputs than twice the plain version (+ 1e-3); at Tq = Tk = 8 (one
+    tile) o bit-equal; counted in ``.bf16_launches``."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + Tq + D)
+    q, k, v, do = (torch.randn(B, N, t, D, generator=g, device=cuda_device)
+                   .to(BF16) for t in (Tq, Tk, Tk, Tq))
+    mask = torch.ones(B, Tk, device=cuda_device)
+    mask[-1] = 0.0
+    mask[0, Tk // 2:] = 0.0
+    before = (tattn.flash_fwd.bf16_launches, tattn.flash_bwd.bf16_launches)
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (tattn.flash_fwd.bf16_launches,
+            tattn.flash_bwd.bf16_launches) == tuple(n + 1 for n in before)
+    assert o.dtype == BF16 and lse.dtype == torch.float32
+    assert all(t.dtype == BF16 for t in grads)
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    f = [t.float() for t in (q, k, v, do)]
+    f_o, f_lse = tattn.blockwise_plain(*f[:3], mask, causal)
+    _bf16_held((o,), (w_o,), (f_o,))
+    if Tk <= 8:
+        assert torch.equal(o, w_o)
+    _bf16_held(grads, tattn.flash_bwd_plain(q, k, v, mask, w_o, w_lse, do,
+                                            causal),
+               tattn.flash_bwd_plain(*f[:3], mask, f_o, f_lse, f[3],
+                                     causal))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C", [(16, 80, 23), (1, 80, 23), (16, 3, 23),
+                                   (4, 20, 9)])
+def test_crf_bf16_forms_match_plain_on_card(cuda_device, B, T, C):
+    """The bf16 forms of the C <= 32 CRF kernels (the alpha warp kernel,
+    the one-launch backward and its sum, the Viterbi warp kernel) against
+    their plain bf16 versions on the card, ragged: alphas, log Z, dx,
+    da, db and the scores bit-equal (one rounded operation at a time in
+    the same order), dtrans within 2e-2 of its largest entry (sums in
+    another order), the paths identical."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + T + C)
+    x = (torch.randn(B, T, C, generator=g, device=cuda_device) * 2).to(BF16)
+    trans, a, b = (torch.randn(*s, generator=g, device=cuda_device).to(BF16)
+                   for s in ((C, C), (C,), (C,)))
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=cuda_device)
+    lens[0] = T
+    mask = (torch.arange(T, device=cuda_device)[None] < lens[:, None]).to(
+        BF16)
+    gz = torch.randn(B, generator=g, device=cuda_device).to(BF16)
+    before = (tcrf.crf_alpha_fwd.bf16_launches, tcrf.crf_bwd.bf16_launches,
+              tcrf.crf_viterbi.bf16_launches)
+    alphas, log_z = tcrf.crf_alpha_fwd(x, mask, trans, a, b)
+    grads = tcrf.crf_bwd(x, mask, trans, b, alphas, log_z, gz)
+    path, score = tcrf.crf_viterbi(x, mask, trans, a, b)
+    torch.cuda.synchronize()
+    assert (tcrf.crf_alpha_fwd.bf16_launches, tcrf.crf_bwd.bf16_launches,
+            tcrf.crf_viterbi.bf16_launches) == tuple(n + 1 for n in before)
+    w_alphas, w_log_z = tcrf.crf_forward_plain(x, mask, trans, a, b)
+    w_grads = tcrf.crf_bwd_plain(x, mask, trans, b, w_alphas, w_log_z, gz)
+    w_path, w_score = tcrf.crf_viterbi_plain(x, mask, trans, a, b)
+    for got, want in ((alphas, w_alphas), (log_z, w_log_z),
+                      (grads[0], w_grads[0]), (grads[2], w_grads[2]),
+                      (grads[3], w_grads[3]), (score, w_score)):
+        assert got.dtype == BF16 and torch.equal(got, want)
+    assert (grads[1].float() - w_grads[1].float()).abs().max().item() <= \
+        2e-2 * w_grads[1].float().abs().max().item()
+    assert torch.equal(path, w_path)
+
+
+@pytest.mark.cuda
+def test_cells_take_the_f32_kernel_on_widened_operands_on_card(cuda_device):
+    """JAX's promotion in a cell (an f32 state, bf16 weights or
+    peepholes): the f32 kernel on the widened operands, the same bits as
+    a call with the f32 copies, one cast a bf16 operand counted in
+    ``.widen_casts``; a bf16 state raises (the all-bf16 cell is not
+    ported)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, H = 50, 512
+    r = lambda *s: torch.randn(*s, generator=g, device=cuda_device)  # noqa
+    x, h = r(B, 3 * H), r(B, H)
+    w0 = (r(H, 3 * H) * H ** -0.5).to(BF16)
+    c0 = rnn_cells.gru_cell.widen_casts
+    mixed = rnn_cells.gru_cell_infer(x, h, w0[:, :2 * H], w0[:, 2 * H:])
+    w32 = w0.float()
+    f32 = rnn_cells.gru_cell_infer(x, h, w32[:, :2 * H], w32[:, 2 * H:])
+    torch.cuda.synchronize()
+    assert mixed.dtype == torch.float32 and torch.equal(mixed, f32)
+    assert rnn_cells.gru_cell_infer.widen_casts >= 2
+    leaves = [t.clone().requires_grad_(True) for t in (x, h)]
+    wl = w0.clone().requires_grad_(True)
+    out = rnn_cells.gru_cell(*leaves, wl[:, :2 * H], wl[:, 2 * H:])
+    out.sum().backward()
+    assert rnn_cells.gru_cell.widen_casts == c0 + 2
+    assert wl.grad.dtype == BF16 and torch.isfinite(wl.grad.float()).all()
+    gates, c = r(B, 4 * H), r(B, H)
+    peep = [(r(H) * 0.1).to(BF16) for _ in range(3)]
+    got = rnn_cells.lstm_cell_infer(gates, c, *peep)
+    want = rnn_cells.lstm_cell_infer(gates, c, *(p.float() for p in peep))
+    assert all(torch.equal(u, w) for u, w in zip(got, want))
+    with pytest.raises(ValueError, match="Queue 2"):
+        rnn_cells.gru_cell_infer(x.to(BF16), h.to(BF16), w0[:, :2 * H],
+                                 w0[:, 2 * H:])
+
+
+@pytest.mark.cuda
 def test_f32_only_kernels_refuse_bf16_on_card(cuda_device):
-    """A bf16 CUDA tensor into an f32-only kernel raises, one of each
-    family (no quiet upcast): flash, CRF, CTC, the cells, the per-step
+    """A bf16 CUDA tensor into a kernel with no bf16 form raises, one of
+    each family (no quiet upcast): flash's wide-head and split-row paths,
+    the CRF's block forms (C > 32), CTC, the all-bf16 cells, the per-step
     backward routes, the optimizer kernels; the per-step LSTM and the
     two-launch GRU routes, which have no bf16 form, too."""
     from paddle_tpu_torch.kernels import opt_update
@@ -2344,11 +2458,14 @@ def test_f32_only_kernels_refuse_bf16_on_card(cuda_device):
     B, T, H, K = 2, 8, 32, 5
     m = torch.ones(B, T, device=cuda_device)
     calls = [
-        lambda: tattn.flash_fwd(*(torch.randn(B, 2, T, 64, **d)
+        lambda: tattn.flash_fwd(*(torch.randn(B, 2, T, 256, **d)
                                   for _ in range(3))),
-        lambda: tcrf.crf_alpha_fwd(torch.randn(B, T, K, **d), m,
-                                   torch.randn(K, K, **d),
-                                   torch.randn(K, **d), torch.randn(K, **d)),
+        lambda: tattn.flash_fwd(*(torch.randn(B, 2, T, 1056, **d)
+                                  for _ in range(3))),
+        lambda: tcrf.crf_alpha_fwd(torch.randn(B, T, 40, **d),
+                                   m.to(BF16), torch.randn(40, 40, **d),
+                                   torch.randn(40, **d),
+                                   torch.randn(40, **d)),
         lambda: tctc.ctc_fused_fwd(
             torch.randn(B, T, K, **d),
             torch.zeros(B, 3, dtype=torch.int32, device=cuda_device), m,
