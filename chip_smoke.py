@@ -473,7 +473,8 @@ non-zero without the result line:
    ``serving.json`` in ``OUT_DIR``.
 17. mixed-precision training (``--compute_dtype bfloat16``): (a) the
    bf16 forms of the LSTM sequence kernels (K1: primal and residual
-   forward; K2: the reverse chain) at the classifier's lstm0 (64, 1280,
+   forward; K2: the reverse chain; on the tensor cores, ``lstm_bf16
+   _kernel`` and ``lstm_bf16_chain_kernel``) at the classifier's lstm0 (64, 1280,
    100) and at batch 1, and of the GRU's (K3, K4) at the acoustic model's
    first layer (16, 1024, 400) forward and reversed and at batch 1
    (``_inputs`` / ``_gru_inputs`` at bf16, ragged masks), each against its
@@ -508,7 +509,9 @@ non-zero without the result line:
    with a bf16 state, the per-step routes, the optimizers); (e) the bf16
    forms of flash (D <= 128) at the seq2seq block's (50, 4, 50, 50, 128)
    with an all-padding row, (2, 4, 300, 300, 128) both ways, batch 1 and
-   Tq = Tk = 8 (the ulp rule), and of the CRF (C <= 32) at the linear
+   Tq = Tk = 8 (the ulp rule), and at [2, 4, 4096, 4096, 128] both ways
+   (BF16_FLASH_LONG, timed: beside the f32 forms and SDPA at bf16), and
+   of the CRF (C <= 32) at the linear
    tagger's (16, 80, 23) ragged, batch 1 and T = 3, each against its
    plain bf16 version as in (a) (the Viterbi: paths identical, scores
    bit-equal), timed at the path shapes beside the f32 forms, the plain
@@ -3691,7 +3694,8 @@ def check_wide_attention_layer():
         torch.testing.assert_close(y_gpu, y_cpu, **TOL,
                                    msg=lambda m: f"{where} y: {m}")
     except AssertionError:
-        _diagnose_wide_layer(net, out.name, params, xv, mask, y_gpu, heads)
+        _diagnose_wide_layer(net, out.name, params, xv, mask, y_gpu, y_cpu,
+                             heads)
         raise
     if launches != (1, 1):
         raise AssertionError(f"{where}: flash launches {launches}")
@@ -3704,12 +3708,16 @@ def check_wide_attention_layer():
     return row
 
 
-def _diagnose_wide_layer(net, name, params, xv, mask, y_gpu, heads):
+def _diagnose_wide_layer(net, name, params, xv, mask, y_gpu, y_cpu, heads):
     """Where the wide layer's card output parted from the CPU's: each
     projection (card against CPU), the flash forward on the card's own
-    q, k, v against its plain version on the CPU, and whether a second
-    card forward repeats the first one's bits. Printed as a phase line
-    before the check's failure is raised."""
+    q, k, v against its plain version on the CPU, the attention outputs
+    card against CPU, the output projection of the card's attention
+    output on both, whether a second card forward repeats the first one's
+    bits and a second CPU forward the CPU's, and the matmul settings
+    (these separate the output projection and the CPU reference, where
+    the card's other stages hold their usual bits). Printed as a phase
+    line before the check's failure is raised."""
     def stages(dev):
         p = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
         x, m = xv.to(dev), mask.to(dev)
@@ -3724,20 +3732,33 @@ def _diagnose_wide_layer(net, name, params, xv, mask, y_gpu, heads):
             y = net.apply(p, {"x": Argument(x, m)})[name].value
         return p, m, qkv, y.cpu()
 
-    _, m_cpu, qkv_cpu, _ = stages("cpu")
-    _, m_gpu, qkv_gpu, y_again = stages("cuda")
+    p_cpu, m_cpu, qkv_cpu, y_cpu_again = stages("cpu")
+    p_gpu, m_gpu, qkv_gpu, y_again = stages("cuda")
+    wo = next(k for k in params if k.endswith(".wo"))
+    merge = lambda o: o.transpose(1, 2).reshape(  # noqa: E731
+        o.shape[0], o.shape[2], -1)
     with torch.no_grad():
         o_gpu = ATT.flash_attention(*qkv_gpu, m_gpu).cpu()
         o_plain = ATT.flash_attention(*(t.cpu() for t in qkv_gpu), m_cpu)
+        o_cpu = ATT.flash_attention(*qkv_cpu, m_cpu)
+        proj_gpu = (merge(o_gpu).cuda() @ p_gpu[wo]).cpu()
+        proj_cpu = merge(o_gpu) @ p_cpu[wo]
     bad = (y_gpu - y_again).ne(0).nonzero()
+    err = lambda a, b: (a - b).abs().max().item()  # noqa: E731
     phase("flash_wide_layer_diagnosis",
           projection_max_abs_err={
               k: (g.cpu() - c).abs().max().item()
               for k, g, c in zip(("q", "k", "v"), qkv_gpu, qkv_cpu)},
-          flash_fwd_vs_plain_max_abs_err=(o_gpu - o_plain).abs()
-          .max().item(),
+          flash_fwd_vs_plain_max_abs_err=err(o_gpu, o_plain),
+          attention_card_vs_cpu_max_abs_err=err(o_gpu, o_cpu),
+          out_projection_card_vs_cpu_max_abs_err=err(proj_gpu, proj_cpu),
           second_forward_bit_equal=bool(len(bad) == 0),
-          second_forward_differs_at=bad[:16].tolist())
+          second_forward_differs_at=bad[:16].tolist(),
+          second_cpu_forward_max_abs_err=err(y_cpu_again, y_cpu),
+          y_card_vs_second_cpu_max_abs_err=err(y_gpu, y_cpu_again),
+          matmul=dict(precision=torch.get_float32_matmul_precision(),
+                      cuda_tf32=torch.backends.cuda.matmul.allow_tf32,
+                      cpu_threads=torch.get_num_threads()))
 
 
 def _baseline_flash_pieces(q, k, v, mask, o, lse, do):
@@ -5421,8 +5442,8 @@ _TRACED = {"lstm_seq_train": "lstm_persistent_kernel",
            "lstm_bwd_chain": "lstm_bwd_chain_kernel",
            "gru_seq_train": "gru_persistent_kernel",
            "gru_bwd_chain": "gru_bwd_chain_kernel",
-           "lstm_seq_train_bf16": "lstm_persistent_kernel",
-           "lstm_bwd_chain_bf16": "lstm_bwd_chain_kernel",
+           "lstm_seq_train_bf16": "lstm_bf16_kernel",
+           "lstm_bwd_chain_bf16": "lstm_bf16_chain_kernel",
            "gru_seq_train_bf16": "gru_persistent_kernel",
            "gru_bwd_chain_bf16": "gru_bwd_chain_kernel",
            "ctc_fused_fwd": "ctc_fused_fwd_kernel",
@@ -5478,7 +5499,7 @@ def _step_trace(build_model, save_dir, optimizer, feed, cpu_ops=True,
         wall_ms = step()
     expected = {}
     for k, n in device_launches().items():
-        if n > before[k]:  # a bf16 form's kernel carries its f32 form's name
+        if n > before[k]:  # the GRU's bf16 forms carry the f32 forms' names
             expected[_TRACED[k]] = expected.get(_TRACED[k], 0) + n - before[k]
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -9036,28 +9057,31 @@ def check_bf16_lstm(B, H, T, seed, timed):
                f["pF"], f["pO"], dhT, dcT)
     bh, tbh = B * H, T * B * H
     w_elems, vec = 4 * H * H, 7 * H
+    # the bf16 forms' kernels (tensor cores) and the f32 forms' beside them
+    fwd_k, chain_k = (("lstm_bf16_kernel", "lstm_persistent_kernel"),
+                      ("lstm_bf16_chain_kernel", "lstm_bwd_chain_kernel"))
     for key, fn, f_fn, plain, kernel, bound in (
             ("fwd_", run, lambda: L.lstm_seq_train(*f_args),
              lambda: L.lstm_sequence_residual_plain(
-                 *args, gate_bias=b["bias"]), "lstm_persistent_kernel",
+                 *args, gate_bias=b["bias"]), fwd_k,
              _bf16_bound(8.0 * B * H * H * T,
                          4 * tbh + w_elems + vec + 2 * bh + 2 * tbh
                          + 4 * tbh, T * B + tbh)),
             ("primal_", run_p, lambda: L.lstm_seq(*f_args),
              lambda: L.lstm_sequence_plain(*args, gate_bias=b["bias"]),
-             "lstm_persistent_kernel",
+             fwd_k,
              _bf16_bound(8.0 * B * H * H * T,
                          4 * tbh + w_elems + vec + 4 * bh, T * B + tbh)),
             ("chain_", run_c, lambda: L.lstm_bwd_chain(*f_chain),
              lambda: L.lstm_bwd_chain_plain(*chain_args),
-             "lstm_bwd_chain_kernel",
+             chain_k,
              _bf16_bound(8.0 * B * H * H * T,
                          4 * tbh + tbh + w_elems + 3 * H + 5 * bh
                          + 4 * tbh, T * B + tbh))):
         row[key + "ms"] = _time_ms(fn)
-        row[key + "device_ms"] = _bf16_device_ms(fn, kernel, calls)
+        row[key + "device_ms"] = _bf16_device_ms(fn, kernel[0], calls)
         row[key + "f32_ms"] = _time_ms(f_fn)
-        row[key + "f32_device_ms"] = _bf16_device_ms(f_fn, kernel, calls)
+        row[key + "f32_device_ms"] = _bf16_device_ms(f_fn, kernel[1], calls)
         row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
         row[key + "bound_ms"], row[key + "bound_by"] = bound
         row[key + "library_ms"] = None
@@ -9499,6 +9523,10 @@ BF16_FLASH_SHAPES = [
     (1, 4, S2S_LEN, S2S_LEN, 128, False, False),
     (2, 4, 8, 8, 128, False, False)]
 BF16_FLASH_SHORT_T = 8
+# the long-sequence rows, timed: [2, 4, 4096, 4096, 128], not causal and
+# causal (the f32 forms' T = 4096 shape of phase 7)
+BF16_FLASH_LONG = [(2, 4, 4096, 4096, 128, False, False),
+                   (2, 4, 4096, 4096, 128, True, False)]
 # the CRF: the linear-CRF tagger's batch (16 of 10-80 words, 23 labels),
 # batch 1, and the short shape
 BF16_CRF_SHAPES = [(16, 80, 23), (1, 80, 23), (16, BF16_SHORT_T, 23)]
@@ -9548,8 +9576,9 @@ def _kernels_device_ms(fn, kernels):
 
 
 def check_bf16_flash(B, N, Tq, Tk, D, causal, pad_row, seed, timed):
-    """The bf16 forms of the flash kernels (``flash_fwd_kernel`` and the
-    backward's dq and dkdv kernels with S = bf16) against
+    """The bf16 forms of the flash kernels (``flash_fwd_bf16_kernel`` and
+    the backward's ``flash_bwd_dq_bf16_kernel``, ``flash_bwd_dkdv_bf16
+    _kernel``: bf16 tiles, ``mma.sync`` bf16) against
     ``blockwise_plain`` / ``flash_bwd_plain`` at bf16 on the same card
     tensors (``_bf16_held``: o, lse, dq, dk, dv), and at Tq = Tk <=
     ``BF16_FLASH_SHORT_T`` ``_bf16_ulps``; ``timed``: CUDA-event and
@@ -9587,20 +9616,21 @@ def check_bf16_flash(B, N, Tq, Tk, D, causal, pad_row, seed, timed):
             ("fwd_", lambda: ATT.flash_fwd(q, k, v, mask, causal),
              lambda: ATT.flash_fwd(*f[:3], mask, causal),
              lambda: ATT.blockwise_plain(q, k, v, mask, causal),
-             ("flash_fwd_kernel",),
+             (("flash_fwd_bf16_kernel",), ("flash_fwd_kernel",)),
              _bf16_bound(4.0 * D * pairs, 2 * q_el + 2 * kv_el,
                          B * Tk + stats)),
             ("bwd_", lambda: ATT.flash_bwd(q, k, v, mask, o, lse, do, causal),
              lambda: ATT.flash_bwd(*f[:3], mask, f_o, f_lse, f[3], causal),
              lambda: ATT.flash_bwd_plain(q, k, v, mask, p_o, p_lse, do,
                                          causal),
-             ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+             (("flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel"),
+              ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")),
              _bf16_bound(10.0 * D * pairs, 4 * q_el + 4 * kv_el,
                          B * Tk + stats))):
         row[key + "ms"] = _time_ms(fn)
-        row[key + "device_ms"] = _kernels_device_ms(fn, kernels)
+        row[key + "device_ms"] = _kernels_device_ms(fn, kernels[0])
         row[key + "f32_ms"] = _time_ms(f_fn)
-        row[key + "f32_device_ms"] = _kernels_device_ms(f_fn, kernels)
+        row[key + "f32_device_ms"] = _kernels_device_ms(f_fn, kernels[1])
         row[key + "plain_ms"] = _time_ms(plain, reps=3, warmup=1)
         row[key + "bound_ms"], row[key + "bound_by"] = bound
     bias = torch.zeros((B, 1, Tq, Tk), device="cuda", dtype=_BF).masked_fill(
@@ -9925,18 +9955,22 @@ def check_bf16(tmp, f32_traces=(None, None)):
     flash_rows = part("flash_kernels", lambda: [
         check_bf16_flash(*shape, seed=i + 23, timed=i == 0)
         for i, shape in enumerate(BF16_FLASH_SHAPES)])
+    flash_long = part("flash_long", lambda: [
+        check_bf16_flash(*shape, seed=i + 31, timed=True)
+        for i, shape in enumerate(BF16_FLASH_LONG)])
     crf_rows = part("crf_kernels", lambda: [
         check_bf16_crf(B, T, C, seed=B + T + 29, timed=i == 0)
         for i, (B, T, C) in enumerate(BF16_CRF_SHAPES)])
     phase("bf16_kernels", lstm=lstm_rows, gru=gru_rows, flash=flash_rows,
-          crf=crf_rows)
+          flash_long=flash_long, crf=crf_rows)
     classifier = part("classifier", bf16_classifier, tmp, f32_traces[0])
     acoustic = part("acoustic", bf16_acoustic, tmp, f32_traces[1])
     seq2seq = part("seq2seq", bf16_seq2seq, tmp)
     linear_crf = part("linear_crf", bf16_linear_crf, tmp)
     refused = part("refusals", bf16_refusals)
     row = dict(lstm_shapes=lstm_rows, gru_shapes=gru_rows,
-               flash_shapes=flash_rows, crf_shapes=crf_rows,
+               flash_shapes=flash_rows, flash_long=flash_long,
+               crf_shapes=crf_rows,
                classifier=classifier, acoustic=acoustic, seq2seq=seq2seq,
                linear_crf=linear_crf, refused=refused,
                part_seconds=parts, seconds=time.perf_counter() - t0)

@@ -125,23 +125,34 @@
 // are a prefix of the head, the first (first real key) - (Tk - Tq) rows
 // (the first real key from the mask).
 //
-// The bf16 form (flash_fwd / flash_bwd with bf16 = 1; D <= 128, the
-// tensor-core kernels templated on the storage type S): the reference's
-// Pallas kernel is dtype-generic, and at bf16 it computes s = q k^T of
-// the bf16 operands summed in f32, times the scale in f32; m and l in
-// f32, l summing the unrounded p; the accumulator adds p rounded to bf16
-// times v, summed in f32; o = acc / l rounded to bf16. Here the bf16
-// tiles are widened into the f32 forms' shared memory (plans unchanged:
-// 16-byte loads, 8 values each, converted and stored as two float4; a
-// synchronous copy where the f32 form's is cp.async), and a product of
-// two bf16-valued operands takes one TF32 term: a bf16 value is its own
-// TF32 split (big = x, small = 0), so big . big is the exact product,
-// summed in f32 as a bf16 mma.sync m16n8k16 would. p is rounded to bf16
-// before its product with v, after it was added to l. The backward takes
-// bf16 q, k, v, o and dO, sums in f32 (dS and P, which are not bf16
-// values, keep two terms of the split: small . big + big . big) and
-// writes dq, dk, dv in bf16; the row statistics and delta stay f32, and so
-// does the mask. The wide-head and split-row paths have no bf16 form.
+// The bf16 form (flash_fwd / flash_bwd with bf16 = 1; D <= 128: the
+// _bf16 kernels of the last kernel section). The reference's Pallas
+// kernel is dtype-generic, and at bf16 it computes s = q k^T of the bf16
+// operands summed in f32, times the scale in f32; m and l in f32, l
+// summing the unrounded p; the accumulator adds p rounded to bf16 times v,
+// summed in f32; o = acc / l rounded to bf16. Every tile is kept as bf16
+// in shared memory (rows of D + 8 bf16: ldmatrix reads 8 rows in 8 bank
+// groups), loaded by 16-byte cp.async into the same two-stage rings and
+// read into fragments by ldmatrix (.trans for the operand whose rows are
+// the product's k: v, and the streamed or resident tile of the backward's
+// last products); every product of two bf16 values is one
+// mma.sync.m16n8k16 bf16 with f32 sums, exact products. p goes from the
+// score accumulator straight into the A fragment of p v (the m16n8
+// accumulators of two n8 tiles are the m16k16 A fragment), rounded to
+// bf16 after l took it. The backward takes bf16 q, k, v, o and dO and
+// writes dq, dk, dv in bf16; P and dS are not bf16 values, so each is
+// split into bf16 hi + lo (lo = x - hi, rounded) and its products take
+// two mma, lo first (the error of the split, 2^-16 of the value, lies far
+// below the bf16 outputs' rounding; the plain version flash_bwd_plain
+// computes those products in f32). The mask, the row statistics and
+// delta stay f32; the fresh-accumulator steps, the causal skips and the
+// rule for rows that see no key are the f32 kernels'. The wide-head and
+// split-row paths have no bf16 form. Tiles at D = 128: the forward's kv
+// stages 64 keys (q 17,408 bytes, 2 stages of 35,072: 87,552), dq's 32
+// keys (q, dO, stages, delta: 70,144), dkdv's 32 queries (k, v, stages
+// with m, log l, delta: 70,416; its dk and dv sums take 128 registers,
+// and ptxas spills 94 bytes at D = 128); D = 8 is padded to 16 (the k of
+// an mma).
 //
 // Limits: D in {8, 16, 32, 64, 128} on the tensor cores (template
 // instances; the wrapper pads any other D <= 128 with zero columns up to
@@ -156,13 +167,8 @@
 
 #include <climits>
 #include <cstddef>
-#include <type_traits>
 
 namespace {
-
-// the storage type of the bf16 form
-template <typename S>
-constexpr bool kIsBf16 = std::is_same<S, __nv_bfloat16>::value;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;  // 128
@@ -237,65 +243,19 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // rows [row0, row0 + R) of a [rows, D] matrix into dst (row stride D + 4),
-// zeros past its last row; every thread of the block takes part. f32 by
-// cp.async; bf16 widened on the way (16-byte loads of 8 values, then two
-// float4 stores), visible after the caller's barrier as the copies are.
-template <int D, int R, typename S>
+// zeros past its last row; every thread of the block takes part
+template <int D, int R>
 __device__ __forceinline__ void copy_tile(float* dst,
-                                          const S* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int rows) {
-  if constexpr (kIsBf16<S>) {
-    constexpr int kChunks = D / 8;
-    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i - r * kChunks) * 8;
-      const int row = row0 + r;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (row < rows)
-        u = *reinterpret_cast<const uint4*>(src +
-                                            static_cast<size_t>(row) * D + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-      float* d = dst + r * row_ld(D) + c;
-      *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
-      *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-    }
-  } else {
-    constexpr int kChunks = D / 4;
-    for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i - r * kChunks) * 4;
-      const int row = row0 + r;
-      const bool valid = row < rows;
-      cp16(dst + r * row_ld(D) + c,
-           src + (valid ? static_cast<size_t>(row) * D + c : 0), valid);
-    }
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 4;
+    const int row = row0 + r;
+    const bool valid = row < rows;
+    cp16(dst + r * row_ld(D) + c,
+         src + (valid ? static_cast<size_t>(row) * D + c : 0), valid);
   }
-}
-
-// four consecutive elements of a row, widened
-template <typename S>
-__device__ __forceinline__ float4 load4(const S* p) {
-  if constexpr (kIsBf16<S>) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  } else {
-    return *reinterpret_cast<const float4*>(p);
-  }
-}
-
-// two consecutive elements of a row
-template <typename S>
-__device__ __forceinline__ void store2(S* p, float a, float b) {
-  if constexpr (kIsBf16<S>)
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  else
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // src[at + i] for i < n into dst, 0 at and past `end`, by a block of NT
@@ -354,14 +314,11 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b in split TF32: the small terms first, then big . big. An
-// operand that holds bf16 values (kExactA, kExactB) is its own big part:
-// its small terms are zero and left out.
-template <bool kExactA = false, bool kExactB = false>
+// c += a b in split TF32: the small terms first, then big . big
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
                                      const FragB& b) {
-  if (!kExactA) mma_tf32(c, a.small, b.big);
-  if (!kExactB) mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
 }
 
@@ -410,9 +367,8 @@ __device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
 // of tile as, B^T the first kNt * 8 rows of tile bs. The tensor cores
 // round their sums toward zero: a long sum kept in one accumulator drifts
 // by an ulp of its size at each mma. So every kSteps k steps (at most)
-// go to a fresh accumulator, added to c in f32. kExact: both tiles hold
-// bf16 values.
-template <int D, int kNt, int kSteps, bool kExact>
+// go to a fresh accumulator, added to c in f32.
+template <int D, int kNt, int kSteps>
 __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
                                              const float* as, int r0,
                                              const float* bs, int g, int t) {
@@ -430,7 +386,7 @@ __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
       for (int h = 0; h < kStep; ++h) {
         FragB fb;
         load_bt(fb, bs, row_ld(D), 8 * j, 8 * (kk + h), g, t);
-        mma3<kExact, kExact>(u, fa[h], fb);
+        mma3(u, fa[h], fb);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) c[j][i] += u[i];
@@ -440,8 +396,8 @@ __device__ __forceinline__ void product_smem(float (&c)[kNt][4],
 
 // acc (16 rows x D) += p (16 x kNt * 8, accumulators) times the rows of
 // tile xs in the same order; the tile's sum in a fresh accumulator for
-// each 8 columns of acc. kExactP, kExactX: p, the tile hold bf16 values.
-template <int D, int kNt, bool kExactP, bool kExactX>
+// each 8 columns of acc
+template <int D, int kNt>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&p)[kNt][4],
                                            const float* xs, int g, int t) {
@@ -455,7 +411,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
     for (int j = 0; j < kNt; ++j) {
       FragB fb;
       load_b_perm(fb, xs, row_ld(D), 8 * j, 8 * dn, g, t);
-      mma3<kExactP, kExactX>(u, fa[j], fb);
+      mma3(u, fa[j], fb);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[dn][i] += u[i];
@@ -471,8 +427,8 @@ __device__ __forceinline__ void zero(float (&x)[N][M]) {
 }
 
 // rows [r0 + g, r0 + g + 8] of a [rows, D] output from acc * mul_a, mul_b
-template <int D, typename S>
-__device__ __forceinline__ void store_rows(S* __restrict__ dst,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float (&acc)[D / 8][4],
                                            float mul_a, float mul_b, int r0,
                                            int rows, int g, int t) {
@@ -481,11 +437,11 @@ __device__ __forceinline__ void store_rows(S* __restrict__ dst,
   for (int dn = 0; dn < D / 8; ++dn) {
     const int c = dn * 8 + 2 * t;
     if (ra < rows)
-      store2(dst + static_cast<size_t>(ra) * D + c, acc[dn][0] * mul_a,
-             acc[dn][1] * mul_a);
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(ra) * D + c) =
+          make_float2(acc[dn][0] * mul_a, acc[dn][1] * mul_a);
     if (rb < rows)
-      store2(dst + static_cast<size_t>(rb) * D + c, acc[dn][2] * mul_b,
-             acc[dn][3] * mul_b);
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(rb) * D + c) =
+          make_float2(acc[dn][2] * mul_b, acc[dn][3] * mul_b);
   }
 }
 
@@ -520,15 +476,14 @@ __device__ __forceinline__ int kv_tiles(int q0, int kC, int Tq, int Tk,
 }
 
 // ------------------------------------------------------------ forward
-template <int D, typename S>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
-                 const S* __restrict__ v, const float* __restrict__ mask,
-                 S* __restrict__ o, float* __restrict__ stats, int BN,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ mask,
+                 float* __restrict__ o, float* __restrict__ stats, int BN,
                  int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = kv_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
-  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                  // [64, D + 4] this block's q
   float* ring = q_s + kRows * kLd;    // 2 stages of k, v, mask
@@ -539,8 +494,8 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
   const int ra = r0 + g, rb = ra + 8;
-  const S* kbase = k + static_cast<size_t>(bn) * Tk * D;
-  const S* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
   const int nk = (Tk + kC - 1) / kC;
   const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
@@ -572,7 +527,7 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
     if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
       float s[kNt][4];
       zero(s);
-      product_smem<D, kNt, kFwdSteps, kBf>(s, q_s, warp * 16, ks, g, t);
+      product_smem<D, kNt, kFwdSteps>(s, q_s, warp * 16, ks, g, t);
       float mx_a = kNeg, mx_b = kNeg;
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
@@ -608,12 +563,6 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
       }
       l_a = l_a * al_a + sum_a;
       l_b = l_b * al_b + sum_b;
-      if constexpr (kBf) {  // p rounded to v's type, after l took it
-#pragma unroll
-        for (int j = 0; j < kNt; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = round_bf16(s[j][e]);
-      }
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
@@ -623,7 +572,7 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
         acc[dn][2] *= al_b;
         acc[dn][3] *= al_b;
       }
-      accumulate<D, kNt, kBf, kBf>(acc, s, vs, g, t);
+      accumulate<D, kNt>(acc, s, vs, g, t);
     }
     __syncthreads();  // the tile's reads are done before it is refilled
   }
@@ -651,23 +600,23 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
           p[j][e] = (e < 2 ? nk_a : nk_b) && k0 + 8 * j + 2 * t + (e & 1) < Tk
                         ? 1.f
                         : 0.f;
-      accumulate<D, kNt, kBf, kBf>(acc, p, ring, g, t);
+      accumulate<D, kNt>(acc, p, ring, g, t);
       __syncthreads();
     }
   }
   const float tk_pad = padded_keys(Tk);
   const float li_a = nk_a ? tk_pad : l_a, li_b = nk_b ? tk_pad : l_b;
   // o = acc / l, as blockwise_attention divides
-  S* obase = o + static_cast<size_t>(bn) * Tq * D;
+  float* obase = o + static_cast<size_t>(bn) * Tq * D;
 #pragma unroll
   for (int dn = 0; dn < kDt; ++dn) {
     const int c = dn * 8 + 2 * t;
     if (ra < Tq)
-      store2(obase + static_cast<size_t>(ra) * D + c, acc[dn][0] / li_a,
-             acc[dn][1] / li_a);
+      *reinterpret_cast<float2*>(obase + static_cast<size_t>(ra) * D + c) =
+          make_float2(acc[dn][0] / li_a, acc[dn][1] / li_a);
     if (rb < Tq)
-      store2(obase + static_cast<size_t>(rb) * D + c, acc[dn][2] / li_b,
-             acc[dn][3] / li_b);
+      *reinterpret_cast<float2*>(obase + static_cast<size_t>(rb) * D + c) =
+          make_float2(acc[dn][2] / li_b, acc[dn][3] / li_b);
   }
   if (t == 0) {
     const size_t at = static_cast<size_t>(bn) * Tq;
@@ -684,19 +633,18 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
 }
 
 // ------------------------------------------------------------ backward
-template <int D, typename S>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
-                    const S* __restrict__ v,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
                     const float* __restrict__ mask,
-                    const S* __restrict__ o,
-                    const S* __restrict__ dout,
+                    const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ stats,
-                    float* __restrict__ delta, S* __restrict__ dq,
+                    float* __restrict__ delta, float* __restrict__ dq,
                     int BN, int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = dq_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
-  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                        // [64, D + 4] this block's q
   float* do_s = q_s + kRows * kLd;          // [64, D + 4] and its dO
@@ -709,8 +657,8 @@ flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
   const int ra = r0 + g, rb = ra + 8;
   const size_t q_at = static_cast<size_t>(bn) * Tq * D;
-  const S* kbase = k + static_cast<size_t>(bn) * Tk * D;
-  const S* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
   const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
 
@@ -734,10 +682,12 @@ flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
       const int r = pass * kRpp + lane / kLpr, row = r0 + r;
       float sum = 0.f;
       if (row < Tq) {
-        const S* orow = o + q_at + static_cast<size_t>(row) * D;
-        const S* drow = dout + q_at + static_cast<size_t>(row) * D;
+        const float4* orow = reinterpret_cast<const float4*>(
+            o + q_at + static_cast<size_t>(row) * D);
+        const float4* drow = reinterpret_cast<const float4*>(
+            dout + q_at + static_cast<size_t>(row) * D);
         for (int c = lane % kLpr; c < D / 4; c += kLpr) {
-          const float4 x = load4(orow + 4 * c), y = load4(drow + 4 * c);
+          const float4 x = orow[c], y = drow[c];
           sum = fmaf(y.x, x.x, sum);
           sum = fmaf(y.y, x.y, sum);
           sum = fmaf(y.z, x.z, sum);
@@ -776,8 +726,8 @@ flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
       float s[kNt][4], dp[kNt][4];
       zero(s);
       zero(dp);
-      product_smem<D, kNt, kBwdSteps, kBf>(s, q_s, warp * 16, ks, g, t);
-      product_smem<D, kNt, kBwdSteps, kBf>(dp, do_s, warp * 16, vs, g, t);
+      product_smem<D, kNt, kBwdSteps>(s, q_s, warp * 16, ks, g, t);
+      product_smem<D, kNt, kBwdSteps>(dp, do_s, warp * 16, vs, g, t);
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -791,7 +741,7 @@ flash_bwd_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
                                (dp[j][e] - (e < 2 ? dl_a : dl_b))
                          : 0.f;
         }
-      accumulate<D, kNt, false, kBf>(acc, s, ks, g, t);
+      accumulate<D, kNt>(acc, s, ks, g, t);
     }
     __syncthreads();
   }
@@ -821,20 +771,19 @@ __device__ __forceinline__ int first_key(const float* __restrict__ mrow,
   return Tk;
 }
 
-template <int D, typename S>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const S* __restrict__ q,
-                      const S* __restrict__ k,
-                      const S* __restrict__ v,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
                       const float* __restrict__ mask,
-                      const S* __restrict__ dout,
+                      const float* __restrict__ dout,
                       const float* __restrict__ stats,
                       const float* __restrict__ delta,
-                      S* __restrict__ dk, S* __restrict__ dv, int BN,
+                      float* __restrict__ dk, float* __restrict__ dv, int BN,
                       int N, int Tq, int Tk, int causal, float scale) {
   constexpr int kC = q_cols(D), kLd = row_ld(D), kNt = kC / 8;
   constexpr int kDt = D / 8;
-  constexpr bool kBf = kIsBf16<S>;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                    // [64, D + 4] this block's keys
   float* v_s = k_s + kRows * kLd;       // [64, D + 4]
@@ -900,8 +849,8 @@ flash_bwd_dkdv_kernel(const S* __restrict__ q,
       float s[kNt][4], dp[kNt][4];  // S^T, dP^T: [this warp's keys, queries]
       zero(s);
       zero(dp);
-      product_smem<D, kNt, kBwdSteps, kBf>(s, k_s, warp * 16, qs, g, t);
-      product_smem<D, kNt, kBwdSteps, kBf>(dp, v_s, warp * 16, dos, g, t);
+      product_smem<D, kNt, kBwdSteps>(s, k_s, warp * 16, qs, g, t);
+      product_smem<D, kNt, kBwdSteps>(dp, v_s, warp * 16, dos, g, t);
 #pragma unroll
       for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -917,8 +866,8 @@ flash_bwd_dkdv_kernel(const S* __restrict__ q,
           dp[j][e] = live ? p * (dp[j][e] - dl_s[c]) : 0.f;
           s[j][e] = p;
         }
-      accumulate<D, kNt, false, kBf>(dv_acc, s, dos, g, t);
-      accumulate<D, kNt, false, kBf>(dk_acc, dp, qs, g, t);
+      accumulate<D, kNt>(dv_acc, s, dos, g, t);
+      accumulate<D, kNt>(dk_acc, dp, qs, g, t);
     }
     __syncthreads();
   }
@@ -1593,6 +1542,591 @@ flash_split_dkdv_kernel(const float* __restrict__ q,
   for (int d = tid; d < D; d += kSplitThreads) dk[k_at + d] *= scale;
 }
 
+// ------------------------------------------------------------ bf16 form
+using bf16 = __nv_bfloat16;
+
+// keys a kv stage of the forward and of dq, queries a query stage of dkdv
+__host__ __device__ constexpr int bf_kv_cols(int) { return 64; }
+__host__ __device__ constexpr int bf_dq_cols(int D) { return D == 128 ? 32 : 64; }
+__host__ __device__ constexpr int bf_q_cols(int D) { return D == 128 ? 32 : 64; }
+// row stride of every bf16 tile, elements: an odd number of 16-byte
+// chunks, so that the 8 rows an ldmatrix reads lie in 8 bank groups
+__host__ __device__ constexpr int bf_ld(int D) {
+  return (D / 8) % 2 ? D : D + 8;
+}
+// bytes of a tile of `rows` rows, of a ring stage (two tiles and `vecs`
+// f32 vectors of its rows), of each kernel's dynamic shared memory
+__host__ __device__ constexpr int bf_tile(int D, int rows) {
+  return 2 * rows * bf_ld(D);
+}
+__host__ __device__ constexpr int bf_stage(int D, int rows, int vecs) {
+  return 2 * bf_tile(D, rows) + 4 * vecs * rows;
+}
+__host__ __device__ constexpr size_t bf_fwd_smem(int D) {
+  return bf_tile(D, kRows) + 2 * bf_stage(D, bf_kv_cols(D), 1);
+}
+__host__ __device__ constexpr size_t bf_dq_smem(int D) {
+  return 2 * bf_tile(D, kRows) + 2 * bf_stage(D, bf_dq_cols(D), 1) +
+         4 * kRows;
+}
+__host__ __device__ constexpr size_t bf_dkdv_smem(int D) {
+  return 2 * bf_tile(D, kRows) + 2 * bf_stage(D, bf_q_cols(D), 3) +
+         sizeof(int) * kWarps;
+}
+
+// rows [row0, row0 + R) of a [rows, D] bf16 matrix into dst (row stride
+// bf_ld(D)) by 16-byte cp.async, zeros past its last row; every thread of
+// the block takes part
+template <int D, int R>
+__device__ __forceinline__ void copy_tile_bf(bf16* dst,
+                                             const bf16* __restrict__ src,
+                                             int row0, int rows) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 8;
+    const int row = row0 + r;
+    const bool valid = row < rows;
+    cp16(reinterpret_cast<float*>(dst + r * bf_ld(D) + c),
+         reinterpret_cast<const float*>(
+             src + (valid ? static_cast<size_t>(row) * D + c : 0)),
+         valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two values as a bf16x2 register, rounded to nearest even (lo: the
+// lower column, in the low half)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// c[j] (16 rows x kNt tiles of 8, kNt even) += A B^T over D: A rows
+// [r0, r0 + 16)
+// of tile as, B^T the first kNt * 8 rows of tile bs (both [rows][D]). The
+// tensor cores round their sums toward zero: every kSteps k16 steps (at
+// most) go to a fresh accumulator, added to c in f32.
+template <int D, int kNt, int kSteps>
+__device__ __forceinline__ void score_bf(float (&c)[kNt][4], const bf16* as,
+                                         int r0, const bf16* bs, int lane) {
+  constexpr int kLd = bf_ld(D), kK = D / 16;
+  constexpr int kStep = kK < kSteps ? kK : kSteps;
+#pragma unroll
+  for (int kk = 0; kk < kK; kk += kStep) {
+    unsigned a[kStep][4];
+#pragma unroll
+    for (int h = 0; h < kStep; ++h)
+      ldsm_x4(a[h], as + (r0 + (lane & 15)) * kLd + 16 * (kk + h) +
+                        8 * (lane >> 4));
+#pragma unroll
+    for (int j = 0; j < kNt; j += 2) {  // two n8 tiles an ldmatrix
+      float u0[4] = {0.f, 0.f, 0.f, 0.f}, u1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < kStep; ++h) {
+        unsigned b[4];
+        ldsm_x4(b, bs + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                       16 * (kk + h) + 8 * ((lane >> 3) & 1));
+        mma_bf16(u0, a[h], b[0], b[1]);
+        mma_bf16(u1, a[h], b[2], b[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        c[j][i] += u0[i];
+        c[j + 1][i] += u1[i];
+      }
+    }
+  }
+}
+
+// acc (16 rows x D) += p (16 x kNt * 8, accumulators) times the rows of
+// tile xs ([kNt * 8][D], read transposed): the two n8 accumulators of a
+// k16 step are its A fragment. kSplit: p is not a bf16 value, so it
+// takes two terms, lo = p - hi then hi; else p is rounded to bf16. The
+// tile's sum in a fresh accumulator for each 8 columns of acc.
+template <int D, int kNt, bool kSplit>
+__device__ __forceinline__ void accumulate_bf(float (&acc)[D / 8][4],
+                                              const float (&p)[kNt][4],
+                                              const bf16* xs, int lane) {
+  constexpr int kLd = bf_ld(D), kK = kNt / 2;
+  unsigned hi[kK][4], lo[kK][4];
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float* c = p[2 * kk + (h >> 1)];
+      const float x = c[2 * (h & 1)], y = c[2 * (h & 1) + 1];
+      const unsigned v = pack_bf16(x, y);
+      hi[kk][h] = v;
+      if constexpr (kSplit)
+        lo[kk][h] = pack_bf16(x - __uint_as_float(v << 16),
+                              y - __uint_as_float(v & 0xffff0000u));
+    }
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 8; dn += 2) {
+    float u0[4] = {0.f, 0.f, 0.f, 0.f}, u1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+      unsigned b[4];
+      ldsm_x4_t(b, xs + (16 * kk + (lane & 15)) * kLd + 8 * dn +
+                       8 * (lane >> 4));
+      if constexpr (kSplit) {
+        mma_bf16(u0, lo[kk], b[0], b[1]);
+        mma_bf16(u1, lo[kk], b[2], b[3]);
+      }
+      mma_bf16(u0, hi[kk], b[0], b[1]);
+      mma_bf16(u1, hi[kk], b[2], b[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[dn][i] += u0[i];
+      acc[dn + 1][i] += u1[i];
+    }
+  }
+}
+
+// rows [r0 + g, r0 + g + 8] of a [rows, D] bf16 output from acc * mul
+template <int D>
+__device__ __forceinline__ void store_rows_bf(bf16* __restrict__ dst,
+                                              const float (&acc)[D / 8][4],
+                                              float mul_a, float mul_b,
+                                              int r0, int rows, int g,
+                                              int t) {
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (ra < rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(ra) * D +
+                                         c) =
+          __floats2bfloat162_rn(acc[dn][0] * mul_a, acc[dn][1] * mul_a);
+    if (rb < rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(rb) * D +
+                                         c) =
+          __floats2bfloat162_rn(acc[dn][2] * mul_b, acc[dn][3] * mul_b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ mask, bf16* __restrict__ o,
+                      float* __restrict__ stats, int BN, int N, int Tq,
+                      int Tk, int causal, float scale) {
+  constexpr int kC = bf_kv_cols(D), kLd = bf_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  constexpr int kStage = bf_stage(D, kC, 1) / 2;  // bf16 elements
+  extern __shared__ uint4 bf_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(bf_smem);  // [64][kLd] this block's q
+  bf16* ring = q_s + kRows * kLd;                // 2 stages of k, v, mask
+  const int bn = blockIdx.x, b = bn / N;
+  // with causal the last query blocks sweep the most tiles: first
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const bf16* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const bf16* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  const int nk = (Tk + kC - 1) / kC;
+  const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
+
+  auto load_stage = [&](int kt) {
+    bf16* st = ring + (kt & 1) * kStage;
+    copy_tile_bf<D, kC>(st, kbase, kt * kC, Tk);
+    copy_tile_bf<D, kC>(st + kC * kLd, vbase, kt * kC, Tk);
+    copy_mask(reinterpret_cast<float*>(st + 2 * kC * kLd), mrow, kt * kC, kC,
+              Tk);
+  };
+
+  copy_tile_bf<D, kRows>(q_s, q + static_cast<size_t>(bn) * Tq * D, q0, Tq);
+  load_stage(0);
+  cp_commit();
+  float acc[kDt][4];
+  zero(acc);
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) load_stage(kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* ks = ring + (kt & 1) * kStage;
+    const bf16* vs = ks + kC * kLd;
+    const float* ms = reinterpret_cast<const float*>(vs + kC * kLd);
+    const int k0 = kt * kC;
+    // warp-uniform: rows past Tq, or every key of the tile above the
+    // diagonals of this warp's rows
+    if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
+      float s[kNt][4];
+      zero(s);
+      score_bf<D, kNt, kFwdSteps / 2>(s, q_s, warp * 16, ks, lane);
+      float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), kj = k0 + col;
+          const int row = e < 2 ? ra : rb;
+          float x;
+          if (kj >= Tk) {
+            x = -INFINITY;  // the tile's tail: left out
+          } else {
+            x = s[j][e] * scale;
+            if (!(ms[col] > 0.f) || (causal && kj > row + off)) x = kNeg;
+          }
+          s[j][e] = x;
+          if (e < 2)
+            mx_a = fmaxf(mx_a, x);
+          else
+            mx_b = fmaxf(mx_b, x);
+        }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        s[j][0] = expf(s[j][0] - mn_a);
+        s[j][1] = expf(s[j][1] - mn_a);
+        s[j][2] = expf(s[j][2] - mn_b);
+        s[j][3] = expf(s[j][3] - mn_b);
+        sum_a += s[j][0] + s[j][1];
+        sum_b += s[j][2] + s[j][3];
+      }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int dn = 0; dn < kDt; ++dn) {
+        acc[dn][0] *= al_a;
+        acc[dn][1] *= al_a;
+        acc[dn][2] *= al_b;
+        acc[dn][3] *= al_b;
+      }
+      // p rounded to v's type (after l took it) in the A fragments
+      accumulate_bf<D, kNt, false>(acc, s, vs, lane);
+    }
+    __syncthreads();  // the tile's reads are done before it is refilled
+  }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  // rows that see no key: the sum of v over every key, for them alone
+  const bool nk_a = ra < Tq && m_a == kNeg, nk_b = rb < Tq && m_b == kNeg;
+  if (__syncthreads_or(nk_a || nk_b)) {
+#pragma unroll
+    for (int dn = 0; dn < kDt; ++dn) {
+      if (nk_a) acc[dn][0] = acc[dn][1] = 0.f;
+      if (nk_b) acc[dn][2] = acc[dn][3] = 0.f;
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * kC;
+      copy_tile_bf<D, kC>(ring, vbase, k0, Tk);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      float p[kNt][4];
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[j][e] = (e < 2 ? nk_a : nk_b) && k0 + 8 * j + 2 * t + (e & 1) < Tk
+                        ? 1.f
+                        : 0.f;
+      accumulate_bf<D, kNt, false>(acc, p, ring, lane);
+      __syncthreads();
+    }
+  }
+  const float tk_pad = padded_keys(Tk);
+  const float li_a = nk_a ? tk_pad : l_a, li_b = nk_b ? tk_pad : l_b;
+  // o = acc / l, as blockwise_attention divides
+  bf16* obase = o + static_cast<size_t>(bn) * Tq * D;
+#pragma unroll
+  for (int dn = 0; dn < kDt; ++dn) {
+    const int c = dn * 8 + 2 * t;
+    if (ra < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(obase + static_cast<size_t>(ra) * D +
+                                         c) =
+          __floats2bfloat162_rn(acc[dn][0] / li_a, acc[dn][1] / li_a);
+    if (rb < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(obase + static_cast<size_t>(rb) * D +
+                                         c) =
+          __floats2bfloat162_rn(acc[dn][2] / li_b, acc[dn][3] / li_b);
+  }
+  if (t == 0) {
+    const size_t at = static_cast<size_t>(bn) * Tq;
+    const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+    if (ra < Tq) {
+      stats[at + ra] = m_a;
+      stats[at_l + ra] = logf(li_a);
+    }
+    if (rb < Tq) {
+      stats[at + rb] = m_b;
+      stats[at_l + rb] = logf(li_b);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ mask,
+                         const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ stats,
+                         float* __restrict__ delta, bf16* __restrict__ dq,
+                         int BN, int N, int Tq, int Tk, int causal,
+                         float scale) {
+  constexpr int kC = bf_dq_cols(D), kLd = bf_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  constexpr int kStage = bf_stage(D, kC, 1) / 2;  // bf16 elements
+  extern __shared__ uint4 bf_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(bf_smem);  // [64][kLd] this block's q
+  bf16* do_s = q_s + kRows * kLd;                // [64][kLd] and its dO
+  bf16* ring = do_s + kRows * kLd;               // 2 stages of k, v, mask
+  float* dl_s = reinterpret_cast<float*>(ring + 2 * kStage);  // [64] delta
+  const int bn = blockIdx.x, b = bn / N;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kRows, r0 = q0 + warp * 16, off = Tk - Tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const size_t q_at = static_cast<size_t>(bn) * Tq * D;
+  const bf16* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const bf16* vbase = v + static_cast<size_t>(bn) * Tk * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  const int nkt = kv_tiles(q0, kC, Tq, Tk, causal);
+
+  auto load_stage = [&](int kt) {
+    bf16* st = ring + (kt & 1) * kStage;
+    copy_tile_bf<D, kC>(st, kbase, kt * kC, Tk);
+    copy_tile_bf<D, kC>(st + kC * kLd, vbase, kt * kC, Tk);
+    copy_mask(reinterpret_cast<float*>(st + 2 * kC * kLd), mrow, kt * kC, kC,
+              Tk);
+  };
+
+  copy_tile_bf<D, kRows>(q_s, q + q_at, q0, Tq);
+  copy_tile_bf<D, kRows>(do_s, dout + q_at, q0, Tq);
+  load_stage(0);
+  cp_commit();
+  {
+    // delta = rowsum(dO o) of this warp's 16 rows: 8-byte loads of 4
+    // values, a row over kLpr lanes, then xor shuffles within them
+    constexpr int kLpr = D / 4 < 32 ? D / 4 : 32, kRpp = 32 / kLpr;
+#pragma unroll
+    for (int pass = 0; pass < 16 / kRpp; ++pass) {
+      const int r = pass * kRpp + lane / kLpr, row = r0 + r;
+      float sum = 0.f;
+      if (row < Tq) {
+        const bf16* orow = o + q_at + static_cast<size_t>(row) * D;
+        const bf16* drow = dout + q_at + static_cast<size_t>(row) * D;
+        for (int c = lane % kLpr; c < D / 4; c += kLpr) {
+          const uint2 ou = *reinterpret_cast<const uint2*>(orow + 4 * c);
+          const uint2 du = *reinterpret_cast<const uint2*>(drow + 4 * c);
+          const __nv_bfloat162* oh =
+              reinterpret_cast<const __nv_bfloat162*>(&ou);
+          const __nv_bfloat162* dh =
+              reinterpret_cast<const __nv_bfloat162*>(&du);
+          const float2 x0 = __bfloat1622float2(oh[0]);
+          const float2 x1 = __bfloat1622float2(oh[1]);
+          const float2 y0 = __bfloat1622float2(dh[0]);
+          const float2 y1 = __bfloat1622float2(dh[1]);
+          sum = fmaf(y0.x, x0.x, sum);
+          sum = fmaf(y0.y, x0.y, sum);
+          sum = fmaf(y1.x, x1.x, sum);
+          sum = fmaf(y1.y, x1.y, sum);
+        }
+      }
+#pragma unroll
+      for (int s = kLpr / 2; s > 0; s >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, s);
+      if (lane % kLpr == 0) {
+        dl_s[warp * 16 + r] = sum;
+        if (row < Tq) delta[static_cast<size_t>(bn) * Tq + row] = sum;
+      }
+    }
+    __syncwarp();
+  }
+  const float dl_a = dl_s[warp * 16 + g], dl_b = dl_s[warp * 16 + g + 8];
+  const size_t at = static_cast<size_t>(bn) * Tq;
+  const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+  const float m_a = ra < Tq ? stats[at + ra] : 0.f;
+  const float m_b = rb < Tq ? stats[at + rb] : 0.f;
+  const float ll_a = ra < Tq ? stats[at_l + ra] : 0.f;
+  const float ll_b = rb < Tq ? stats[at_l + rb] : 0.f;
+  float acc[kDt][4];
+  zero(acc);
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) load_stage(kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* ks = ring + (kt & 1) * kStage;
+    const bf16* vs = ks + kC * kLd;
+    const float* ms = reinterpret_cast<const float*>(vs + kC * kLd);
+    const int k0 = kt * kC;
+    if (r0 < Tq && !(causal && k0 > r0 + 15 + off)) {
+      float s[kNt][4], dp[kNt][4];
+      zero(s);
+      zero(dp);
+      score_bf<D, kNt, kBwdSteps / 2>(s, q_s, warp * 16, ks, lane);
+      score_bf<D, kNt, kBwdSteps / 2>(dp, do_s, warp * 16, vs, lane);
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), kj = k0 + col;
+          const int row = e < 2 ? ra : rb;
+          const bool live = kj < Tk && row < Tq && ms[col] > 0.f &&
+                            !(causal && kj > row + off);
+          s[j][e] = live ? expf((s[j][e] * scale - (e < 2 ? m_a : m_b)) -
+                                (e < 2 ? ll_a : ll_b)) *
+                               (dp[j][e] - (e < 2 ? dl_a : dl_b))
+                         : 0.f;
+        }
+      accumulate_bf<D, kNt, true>(acc, s, ks, lane);
+    }
+    __syncthreads();
+  }
+  store_rows_bf<D>(dq + q_at, acc, scale, scale, r0, Tq, g, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const float* __restrict__ mask,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ stats,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int BN, int N, int Tq, int Tk, int causal,
+                           float scale) {
+  constexpr int kC = bf_q_cols(D), kLd = bf_ld(D), kNt = kC / 8;
+  constexpr int kDt = D / 8;
+  constexpr int kStage = bf_stage(D, kC, 3) / 2;  // bf16 elements
+  extern __shared__ uint4 bf_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(bf_smem);  // [64][kLd] this block's keys
+  bf16* v_s = k_s + kRows * kLd;                 // [64][kLd]
+  bf16* ring = v_s + kRows * kLd;  // 2 stages of q, dO, m, log l, delta
+  int* red = reinterpret_cast<int*>(ring + 2 * kStage);
+  const int bn = blockIdx.x, b = bn / N, kb = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kb * kRows, kw0 = k0 + warp * 16, off = Tk - Tq;
+  const int ka = kw0 + g, kbk = ka + 8;
+  const size_t k_at = static_cast<size_t>(bn) * Tk * D;
+  const size_t q_at = static_cast<size_t>(bn) * Tq * D;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  copy_tile_bf<D, kRows>(k_s, k + k_at, k0, Tk);
+  copy_tile_bf<D, kRows>(v_s, v + k_at, k0, Tk);
+  cp_commit();
+  // the query tiles to visit: with causal, those holding a row that sees
+  // one of this block's keys, and those holding a row that sees no key
+  const int nq = (Tq + kC - 1) / kC;
+  int nokey_rows = 0, nokey_qt = 0, first_qt = 0;
+  if (causal) {
+    const int fk = first_key(mrow, Tk, red);
+    nokey_rows = fk - off < 0 ? 0 : (fk - off < Tq ? fk - off : Tq);
+    nokey_qt = (nokey_rows + kC - 1) / kC;
+    first_qt = (k0 - off > 0 ? k0 - off : 0) / kC;
+  }
+  const int from = nokey_qt > first_qt ? nokey_qt : first_qt;
+  const int nvis = nokey_qt + (nq > from ? nq - from : 0);
+  auto tile_of = [&](int i) { return i < nokey_qt ? i : from + i - nokey_qt; };
+  auto load_stage = [&](int i) {
+    const int qt0 = tile_of(i) * kC;
+    bf16* st = ring + (i & 1) * kStage;
+    copy_tile_bf<D, kC>(st, q + q_at, qt0, Tq);
+    copy_tile_bf<D, kC>(st + kC * kLd, dout + q_at, qt0, Tq);
+    float* vec = reinterpret_cast<float*>(st + 2 * kC * kLd);
+    copy_vec(vec, stats + static_cast<size_t>(bn) * Tq, qt0, kC, Tq);
+    copy_vec(vec + kC, stats + (static_cast<size_t>(BN) + bn) * Tq, qt0, kC,
+             Tq);
+    copy_vec(vec + 2 * kC, delta + static_cast<size_t>(bn) * Tq, qt0, kC, Tq);
+  };
+  const bool mk_a = ka < Tk && (mrow == nullptr || mrow[ka] > 0.f);
+  const bool mk_b = kbk < Tk && (mrow == nullptr || mrow[kbk] > 0.f);
+  float dk_acc[kDt][4], dv_acc[kDt][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  if (nvis > 0) load_stage(0);
+  cp_commit();
+  for (int i = 0; i < nvis; ++i) {
+    if (i + 1 < nvis) load_stage(i + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* qs = ring + (i & 1) * kStage;
+    const bf16* dos = qs + kC * kLd;
+    const float* m_s = reinterpret_cast<const float*>(dos + kC * kLd);
+    const float* ll_s = m_s + kC;
+    const float* dl_s = ll_s + kC;
+    const int qt0 = tile_of(i) * kC;
+    // warp-uniform: keys past Tk, or (causal) every pair of the tile
+    // hidden and no row of it without a key
+    if (kw0 < Tk &&
+        !(causal && qt0 + kC - 1 + off < kw0 && qt0 >= nokey_rows)) {
+      float s[kNt][4], dp[kNt][4];  // S^T, dP^T: [this warp's keys, queries]
+      zero(s);
+      zero(dp);
+      score_bf<D, kNt, kBwdSteps / 2>(s, k_s, warp * 16, qs, lane);
+      score_bf<D, kNt, kBwdSteps / 2>(dp, v_s, warp * 16, dos, lane);
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), qi = qt0 + c;
+          const int key = e < 2 ? ka : kbk;
+          const bool valid = key < Tk && qi < Tq;
+          const bool live =
+              valid && (e < 2 ? mk_a : mk_b) && !(causal && key > qi + off);
+          const float p =
+              valid ? expf(((live ? s[j][e] * scale : kNeg) - m_s[c]) - ll_s[c])
+                    : 0.f;
+          dp[j][e] = live ? p * (dp[j][e] - dl_s[c]) : 0.f;
+          s[j][e] = p;
+        }
+      accumulate_bf<D, kNt, true>(dv_acc, s, dos, lane);
+      accumulate_bf<D, kNt, true>(dk_acc, dp, qs, lane);
+    }
+    __syncthreads();
+  }
+  cp_wait<0>();
+  store_rows_bf<D>(dv + k_at, dv_acc, 1.f, 1.f, kw0, Tk, g, t);
+  store_rows_bf<D>(dk + k_at, dk_acc, scale, scale, kw0, Tk, g, t);
+}
+
 // ------------------------------------------------------------- launch
 // each (kernel, D, form) instance's shared-memory limit, raised once a
 // device
@@ -1611,78 +2145,116 @@ cudaError_t ready(Kernel kernel, size_t bytes, int bit) {
   return err;
 }
 
-// bits 0-14 the f32 tensor-core instances, 15-23 the wide path's, 24-38
-// the bf16 instances
-template <typename S>
 constexpr int instance_bit(int D) {
-  return (kIsBf16<S> ? 24 : 0) +
-         (D == 8 ? 0 : D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4);
+  return D == 8 ? 0 : D == 16 ? 1 : D == 32 ? 2 : D == 64 ? 3 : 4;
 }
 
 __host__ __device__ constexpr int row_blocks(int t) {
   return (t + kRows - 1) / kRows;
 }
 
-// The tensor-core launches take the operands as void pointers of the
-// storage type S (float, or bf16 for the bf16 form).
-template <int D, typename S>
-int launch_fwd(const void* q, const void* k, const void* v,
-               const float* mask, void* o, float* stats, int B, int N,
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v,
+               const float* mask, float* o, float* stats, int B, int N,
                int Tq, int Tk, int causal, float scale, cudaStream_t s) {
   if (row_blocks(Tq) > 65535) return cudaErrorInvalidValue;
   cudaError_t err =
-      ready(flash_fwd_kernel<D, S>, fwd_smem(D), instance_bit<S>(D));
+      ready(flash_fwd_kernel<D>, fwd_smem(D), instance_bit(D));
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D, S><<<dim3(B * N, row_blocks(Tq)), kThreads,
-                           fwd_smem(D), s>>>(
-      static_cast<const S*>(q), static_cast<const S*>(k),
-      static_cast<const S*>(v), mask, static_cast<S*>(o), stats, B * N, N,
-      Tq, Tk, causal, scale);
+  flash_fwd_kernel<D><<<dim3(B * N, row_blocks(Tq)), kThreads, fwd_smem(D),
+                        s>>>(q, k, v, mask, o, stats, B * N, N, Tq, Tk,
+                             causal, scale);
   return cudaGetLastError();
 }
 
-template <int D, typename S>
-int launch_bwd(const void* q, const void* k, const void* v,
-               const float* mask, const void* o, const void* dout,
-               const float* stats, float* delta, void* dq, void* dk,
-               void* dv, int B, int N, int Tq, int Tk, int causal,
+template <int D>
+int launch_bwd(const float* q, const float* k, const float* v,
+               const float* mask, const float* o, const float* dout,
+               const float* stats, float* delta, float* dq, float* dk,
+               float* dv, int B, int N, int Tq, int Tk, int causal,
                float scale, cudaStream_t s) {
   if (row_blocks(Tq) > 65535 || row_blocks(Tk) > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err =
-      ready(flash_bwd_dq_kernel<D, S>, dq_smem(D), 5 + instance_bit<S>(D));
+      ready(flash_bwd_dq_kernel<D>, dq_smem(D), 5 + instance_bit(D));
   if (err != cudaSuccess) return err;
-  err = ready(flash_bwd_dkdv_kernel<D, S>, dkdv_smem(D),
-              10 + instance_bit<S>(D));
+  err = ready(flash_bwd_dkdv_kernel<D>, dkdv_smem(D), 10 + instance_bit(D));
   if (err != cudaSuccess) return err;
-  const S* qs = static_cast<const S*>(q);
-  const S* ks = static_cast<const S*>(k);
-  const S* vs = static_cast<const S*>(v);
-  const S* dos = static_cast<const S*>(dout);
-  flash_bwd_dq_kernel<D, S>
+  flash_bwd_dq_kernel<D>
       <<<dim3(B * N, row_blocks(Tq)), kThreads, dq_smem(D), s>>>(
-          qs, ks, vs, mask, static_cast<const S*>(o), dos, stats, delta,
-          static_cast<S*>(dq), B * N, N, Tq, Tk, causal, scale);
+          q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, causal,
+          scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: delta is written before this kernel starts
-  flash_bwd_dkdv_kernel<D, S>
+  flash_bwd_dkdv_kernel<D>
       <<<dim3(B * N, row_blocks(Tk)), kThreads, dkdv_smem(D), s>>>(
-          qs, ks, vs, mask, dos, stats, delta, static_cast<S*>(dk),
-          static_cast<S*>(dv), B * N, N, Tq, Tk, causal, scale);
+          q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk,
+          causal, scale);
   return cudaGetLastError();
 }
 
-// one tensor-core instance of the form: launch_fwd<D, S> or launch_bwd<D,
-// S> with the arguments; -1 for a D with no instance
-#define FLASH_TC(fn, S, ...)                       \
-  switch (D) {                                     \
-    case 8: return fn<8, S>(__VA_ARGS__);          \
-    case 16: return fn<16, S>(__VA_ARGS__);        \
-    case 32: return fn<32, S>(__VA_ARGS__);        \
-    case 64: return fn<64, S>(__VA_ARGS__);        \
-    case 128: return fn<128, S>(__VA_ARGS__);      \
-    default: break;                                \
+// the bf16 instances (D 16, 32, 64, 128): bits 24 + 4 kernel + index
+constexpr int bf_bit(int D, int which) {
+  return 24 + 4 * which + (D == 16 ? 0 : D == 32 ? 1 : D == 64 ? 2 : 3);
+}
+
+template <int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    const float* mask, void* o, float* stats, int B, int N,
+                    int Tq, int Tk, int causal, float scale, cudaStream_t s) {
+  if (row_blocks(Tq) > 65535) return cudaErrorInvalidValue;
+  cudaError_t err =
+      ready(flash_fwd_bf16_kernel<D>, bf_fwd_smem(D), bf_bit(D, 0));
+  if (err != cudaSuccess) return err;
+  flash_fwd_bf16_kernel<D><<<dim3(B * N, row_blocks(Tq)), kThreads,
+                             bf_fwd_smem(D), s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), mask, static_cast<bf16*>(o), stats, B * N,
+      N, Tq, Tk, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const float* mask, const void* o, const void* dout,
+                    const float* stats, float* delta, void* dq, void* dk,
+                    void* dv, int B, int N, int Tq, int Tk, int causal,
+                    float scale, cudaStream_t s) {
+  if (row_blocks(Tq) > 65535 || row_blocks(Tk) > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      ready(flash_bwd_dq_bf16_kernel<D>, bf_dq_smem(D), bf_bit(D, 1));
+  if (err != cudaSuccess) return err;
+  err = ready(flash_bwd_dkdv_bf16_kernel<D>, bf_dkdv_smem(D), bf_bit(D, 2));
+  if (err != cudaSuccess) return err;
+  const bf16* qs = static_cast<const bf16*>(q);
+  const bf16* ks = static_cast<const bf16*>(k);
+  const bf16* vs = static_cast<const bf16*>(v);
+  const bf16* dos = static_cast<const bf16*>(dout);
+  flash_bwd_dq_bf16_kernel<D>
+      <<<dim3(B * N, row_blocks(Tq)), kThreads, bf_dq_smem(D), s>>>(
+          qs, ks, vs, mask, static_cast<const bf16*>(o), dos, stats, delta,
+          static_cast<bf16*>(dq), B * N, N, Tq, Tk, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // same stream: delta is written before this kernel starts
+  flash_bwd_dkdv_bf16_kernel<D>
+      <<<dim3(B * N, row_blocks(Tk)), kThreads, bf_dkdv_smem(D), s>>>(
+          qs, ks, vs, mask, dos, stats, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), B * N, N, Tq, Tk, causal, scale);
+  return cudaGetLastError();
+}
+
+// one bf16 instance: fn<D> with the arguments; falls through for a D with
+// no instance
+#define FLASH_BF16(fn, ...)                   \
+  switch (D) {                                \
+    case 16: return fn<16>(__VA_ARGS__);      \
+    case 32: return fn<32>(__VA_ARGS__);      \
+    case 64: return fn<64>(__VA_ARGS__);      \
+    case 128: return fn<128>(__VA_ARGS__);    \
+    default: break;                           \
   }
 
 // the wide path's instances: bits 15 + 3 (index of DL) + kernel
@@ -1737,19 +2309,37 @@ int launch_wide_bwd(const float* q, const float* k, const float* v,
 }  // namespace
 
 // q, k, v, o (and dO, dq, dk, dv) are float, or bf16 where bf16 != 0
-// (the tensor-core instances only); the mask, stats and delta are float.
+// (D in 16, 32, 64, 128: the bf16 instances); the mask, stats and delta
+// are float.
 extern "C" int flash_fwd(const float* q, const float* k, const float* v,
                          const float* mask, float* o, float* stats, int B,
                          int N, int Tq, int Tk, int D, int causal, int bf16,
                          float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    FLASH_TC(launch_fwd, __nv_bfloat16, q, k, v, mask, o, stats, B, N, Tq,
-             Tk, causal, scale, s)
+    FLASH_BF16(launch_fwd_bf16, q, k, v, mask, o, stats, B, N, Tq, Tk,
+               causal, scale, s)
     return cudaErrorInvalidValue;
   }
-  FLASH_TC(launch_fwd, float, q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
-           scale, s)
+  switch (D) {
+    case 8:
+      return launch_fwd<8>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                           scale, s);
+    case 16:
+      return launch_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                            scale, s);
+    case 32:
+      return launch_fwd<32>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                            scale, s);
+    case 64:
+      return launch_fwd<64>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                            scale, s);
+    case 128:
+      return launch_fwd<128>(q, k, v, mask, o, stats, B, N, Tq, Tk, causal,
+                             scale, s);
+    default:
+      break;
+  }
   if (D <= 128) return cudaErrorInvalidValue;
   if (D > kWideMaxD) {
     if (static_cast<long long>(B) * N * Tq > INT_MAX)
@@ -1779,12 +2369,29 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
                          float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    FLASH_TC(launch_bwd, __nv_bfloat16, q, k, v, mask, o, dout, stats, delta,
-             dq, dk, dv, B, N, Tq, Tk, causal, scale, s)
+    FLASH_BF16(launch_bwd_bf16, q, k, v, mask, o, dout, stats, delta, dq, dk,
+               dv, B, N, Tq, Tk, causal, scale, s)
     return cudaErrorInvalidValue;
   }
-  FLASH_TC(launch_bwd, float, q, k, v, mask, o, dout, stats, delta, dq, dk,
-           dv, B, N, Tq, Tk, causal, scale, s)
+  switch (D) {
+    case 8:
+      return launch_bwd<8>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
+                           B, N, Tq, Tk, causal, scale, s);
+    case 16:
+      return launch_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
+                            B, N, Tq, Tk, causal, scale, s);
+    case 32:
+      return launch_bwd<32>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
+                            B, N, Tq, Tk, causal, scale, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, mask, o, dout, stats, delta, dq, dk, dv,
+                            B, N, Tq, Tk, causal, scale, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, mask, o, dout, stats, delta, dq, dk,
+                             dv, B, N, Tq, Tk, causal, scale, s);
+    default:
+      break;
+  }
   if (D <= 128) return cudaErrorInvalidValue;
   if (D > kWideMaxD) {
     if (static_cast<long long>(B) * N * (Tq > Tk ? Tq : Tk) > INT_MAX)
@@ -1829,6 +2436,23 @@ extern "C" long long flash_smem(int which, int D) {
       return static_cast<long long>(dq_smem(D));
     case 2:
       return static_cast<long long>(dkdv_smem(D));
+    default:
+      return -1;
+  }
+}
+
+// The bf16 form's dynamic shared memory, bytes, that kernel `which` (0
+// forward, 1 dq, 2 dkdv) requests at head width D (16, 32, 64, 128); -1
+// for another D.
+extern "C" long long flash_bf16_smem(int which, int D) {
+  if (D != 16 && D != 32 && D != 64 && D != 128) return -1;
+  switch (which) {
+    case 0:
+      return static_cast<long long>(bf_fwd_smem(D));
+    case 1:
+      return static_cast<long long>(bf_dq_smem(D));
+    case 2:
+      return static_cast<long long>(bf_dkdv_smem(D));
     default:
       return -1;
   }

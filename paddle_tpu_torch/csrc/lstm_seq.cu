@@ -1,7 +1,7 @@
 // Masked peephole-LSTM sequence recurrence, f32, for Hopper (sm_90a):
 // the forward in its primal and its residual (training) form, and the
-// backward's per-step gate-gradient chain. The persistent kernels also
-// have a bf16 form (S = bf16, the _bf16 entry points; see "bf16" below).
+// backward's per-step gate-gradient chain. The persistent route also has
+// a bf16 form on the tensor cores (see "bf16" below and the last section).
 //
 // Forward. Replaces the TPU kernels paddle_tpu/ops/lstm.py:_lstm_kernel
 // (the recurrent weight resident in VMEM, h <= 512) and _lstm_kernel_tiled
@@ -89,24 +89,22 @@
 // bf16 (--compute_dtype bfloat16). The reference's Pallas kernels cannot
 // run in bf16 with an f32 mask (their h_new * m is f32, stored into a
 // bf16 ref), so what the JAX package computes is its scan
-// lstm_sequence_ref under jax.vjp, every operation rounded to bf16. The
-// bf16 forms of lstm_persistent_kernel and lstm_bwd_chain_kernel are the
-// f32 ones templated on the storage type (persistent.cuh: Store): the
-// operands are read as bf16 and widened, the weight into the same f32
-// shared rows (so lstm_smem and the plans hold unchanged), the arithmetic
-// is f32 in registers, and the kernels round to bf16 where the reference
-// does. Forward: the product once after its f32 sum; x_t + product, then
-// + bias (not folded into xs: the reference adds it third); each gate's
-// and the cell's operations (sigmoid as 1 / (1 + exp(-x)), three
-// roundings); ys = og * tanh(c) * mask in f32, unrounded as the
-// reference's f32 output is; h and c carried as bf16 values. h_t crosses
-// blocks through the f32 hbuf as in the f32 form, and the residual form
-// also stores it into the bf16 hs. Chain: every step in f32 from the
-// widened residuals, rounding dy as it meets h_new, the product once after
-// its 16 partials' f32 sum, dh_in = carry + product, dgates (dgs, the
-// exchange, holds the rounded values widened) and the dc carry. dW stays
-// one product after the chain (bf16 operands, f32 accumulation, rounded
-// once), where the reference accumulates it in bf16 step by step.
+// lstm_sequence_ref under jax.vjp, every operation rounded to bf16: the
+// recurrent product once after its f32 sum; x_t + product, then + bias
+// (not folded into xs: the reference adds it third); each gate's and the
+// cell's operations (sigmoid as 1 / (1 + exp(-x)), three roundings); ys =
+// og * tanh(c) * mask in f32, unrounded as the reference's f32 output is;
+// h and c carried as bf16 values. Its backward rounds dy as it meets
+// h_new, the product, dh_in = carry + product, dgates and the dc carry.
+// Every operand of the recurrent products is then a bf16 value, so the
+// bf16 forms (lstm_bf16_kernel, lstm_bf16_chain_kernel, last section)
+// keep the same persistent layouts (units, grids, row and column groups,
+// barriers and counters) and run the products as mma.sync m16n8k16 with
+// bf16 operands and f32 sums: W's slice resident in shared memory as bf16
+// (rows padded by 16 bytes: ldmatrix reads 8 rows in 8 bank groups), h_t
+// and dgates crossing blocks as bf16, staged by cp.async. dW stays one
+// product after the chain (bf16 operands, f32 accumulation, rounded once),
+// where the reference accumulates it in bf16 step by step.
 //
 // Bound on the H100 (SXM, 700 W): the recurrent product is
 // 2 * B * H * 4H operations per step, at the f32 rate outside the tensor
@@ -523,30 +521,17 @@ __device__ __forceinline__ void hand_over(float (&acc)[RPL][CPL], bool give,
 // h and c in registers, and writes ys, h_t into hbuf[t] (hs in the
 // residual form), and in the residual form cs and gates; in the primal
 // form cT goes to c_out.
-//
-// The bf16 form (S = bf16): xs, W, the peepholes, the unfolded gate bias,
-// c0 and the residuals hs, cs, gates and cT in bf16; ys in f32; W widened
-// into the same f32 shared rows. h_t crosses blocks through hbuf in f32
-// (the bf16 values, widened: staged exactly as the f32 form stages them;
-// h0 arrives widened) and, in the residual form, is also stored into hs.
-// The cell rounds to bf16 after every operation, as the reference's scan
-// does in bf16: the product once after its f32 sum, x_t + h W + bias in
-// that order, sigmoid as 1 / (1 + exp(-x)) (sigmoid_bf16); ys = og *
-// tanh(c) * mask, the product exact in f32 (the reference's f32 output
-// skips h_new's rounding).
-template <bool kResidual, int RPL, int U, class S>
+template <bool kResidual, int RPL, int U>
 __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
-    const S* __restrict__ xs,        // [T, B, 4H], f32: bias folded
+    const float* __restrict__ xs,    // [T, B, 4H], bias folded
     const float* __restrict__ mask,  // [T, B]
-    const S* __restrict__ w,         // [H, 4H], leading dim ldw
-    const S* __restrict__ p_i, const S* __restrict__ p_f,
-    const S* __restrict__ p_o,       // [H] each
-    const S* __restrict__ bias,      // [4H], bf16 only
-    const float* __restrict__ h0, const S* __restrict__ c0,  // [B, H]
-    float* hbuf, S* __restrict__ c_out, float* __restrict__ ys,
-    S* __restrict__ cs, S* __restrict__ gates, S* __restrict__ hs,
-    unsigned* count, int ldw, int T, int B, int H) {
-  using St = Store<S>;
+    const float* __restrict__ w,     // [H, 4H], leading dim ldw
+    const float* __restrict__ p_i, const float* __restrict__ p_f,
+    const float* __restrict__ p_o,   // [H] each
+    const float* __restrict__ h0, const float* __restrict__ c0,  // [B, H]
+    float* hbuf, float* __restrict__ c_out, float* __restrict__ ys,
+    float* __restrict__ cs, float* __restrict__ gates, unsigned* count,
+    int ldw, int T, int B, int H) {
   extern __shared__ float4 smem4[];
   const int lw = padded_ld(H);
   float* const ws = reinterpret_cast<float*>(smem4);  // [4U][lw]
@@ -558,8 +543,8 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   for (int i = threadIdx.x; i < 4 * up * H; i += kPThreads) {
     const int k = i / (4 * up), n = i % (4 * up);
     const int g = n / up, u = n % up;
-    stage_elem(ws + (4 * u + g) * lw + k,
-               w + static_cast<size_t>(k) * ldw + g * H + u0 + u);
+    cp_async4(ws + (4 * u + g) * lw + k,
+              w + static_cast<size_t>(k) * ldw + g * H + u0 + u);
   }
   cp_async_commit();
   const int mw = fwd_rows(B).mw, KW = kWarps / mw;
@@ -580,7 +565,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   bool mine[kPairs];
   int cb[kPairs], cu[kPairs];
   float hc[kPairs], cc[kPairs], pi[kPairs], pf[kPairs], po[kPairs],
-      x[kPairs][4], m[kPairs], bb[kPairs][4];
+      x[kPairs][4], m[kPairs];
 #pragma unroll
   for (int e = 0; e < kPairs; ++e) {
     const int c = threadIdx.x + e * kPThreads;
@@ -590,14 +575,10 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
     if (mine[e]) {
       const int j = u0 + cu[e];
       hc[e] = h0[cb[e] * H + j];
-      cc[e] = St::ld(c0 + cb[e] * H + j);
-      pi[e] = St::ld(p_i + j);
-      pf[e] = St::ld(p_f + j);
-      po[e] = St::ld(p_o + j);
-      if constexpr (!St::kF32) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) bb[e][g] = St::ld(bias + g * H + j);
-      }
+      cc[e] = c0[cb[e] * H + j];
+      pi[e] = p_i[j];
+      pf[e] = p_f[j];
+      po[e] = p_o[j];
     }
   }
   cp_async_wait<0>();
@@ -610,10 +591,10 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
       if (mine[e]) {
-        const S* xr = xs + (static_cast<size_t>(t) * B + cb[e]) * H4 +
-                      u0 + cu[e];
+        const float* xr = xs + (static_cast<size_t>(t) * B + cb[e]) * H4 +
+                          u0 + cu[e];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[e][g] = St::ld(xr + g * H);
+        for (int g = 0; g < 4; ++g) x[e][g] = xr[g * H];
         m[e] = mask[static_cast<size_t>(t) * B + cb[e]];
       }
     }
@@ -684,42 +665,24 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
       const size_t o = static_cast<size_t>(t) * bh +
                        static_cast<size_t>(b) * H + j;
       const float cp = cc[e];
-      float in, ig, fg, c_new, og, h_new, y;
-      if constexpr (St::kF32) {
-        in = tanhf(x[e][0] + a.x);
-        ig = sigmoid_f(x[e][1] + a.y + cp * pi[e]);
-        fg = sigmoid_f(x[e][2] + a.z + cp * pf[e]);
-        c_new = in * ig + cp * fg;
-        og = sigmoid_f(x[e][3] + a.w + c_new * po[e]);
-        h_new = og * tanhf(c_new);
-        y = h_new;
-      } else {
-        // gates = x_t + h @ W + bias, each sum rounded
-        const float g0 = St::r(St::r(x[e][0] + St::r(a.x)) + bb[e][0]);
-        const float g1 = St::r(St::r(x[e][1] + St::r(a.y)) + bb[e][1]);
-        const float g2 = St::r(St::r(x[e][2] + St::r(a.z)) + bb[e][2]);
-        const float g3 = St::r(St::r(x[e][3] + St::r(a.w)) + bb[e][3]);
-        in = St::r(tanhf(g0));
-        ig = sigmoid_bf16(St::r(g1 + St::r(cp * pi[e])));
-        fg = sigmoid_bf16(St::r(g2 + St::r(cp * pf[e])));
-        c_new = St::r(St::r(in * ig) + St::r(cp * fg));
-        og = sigmoid_bf16(St::r(g3 + St::r(c_new * po[e])));
-        y = og * St::r(tanhf(c_new));  // exact in f32
-        h_new = St::r(y);
-      }
+      const float in = tanhf(x[e][0] + a.x);
+      const float ig = sigmoid_f(x[e][1] + a.y + cp * pi[e]);
+      const float fg = sigmoid_f(x[e][2] + a.z + cp * pf[e]);
+      const float c_new = in * ig + cp * fg;
+      const float og = sigmoid_f(x[e][3] + a.w + c_new * po[e]);
+      const float h_new = og * tanhf(c_new);
       const bool live = m[e] > 0.0f;
       const float hn = live ? h_new : hc[e];
       const float cn = live ? c_new : cp;
-      ys[o] = y * m[e];
+      ys[o] = h_new * m[e];
       hbuf[o] = hn;
       if (kResidual) {
-        if constexpr (!St::kF32) St::st(hs + o, hn);
-        St::st(cs + o, cn);
-        S* gr = gates + (static_cast<size_t>(t) * B + b) * H4 + j;
-        St::st(gr, in);
-        St::st(gr + H, ig);
-        St::st(gr + 2 * H, fg);
-        St::st(gr + 3 * H, og);
+        cs[o] = cn;
+        float* gr = gates + (static_cast<size_t>(t) * B + b) * H4 + j;
+        gr[0] = in;
+        gr[H] = ig;
+        gr[2 * H] = fg;
+        gr[3 * H] = og;
       }
       hc[e] = hn;
       cc[e] = cn;
@@ -734,7 +697,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
   if (!kResidual) {
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
-      if (mine[e]) St::st(c_out + cb[e] * H + u0 + cu[e], cc[e]);
+      if (mine[e]) c_out[cb[e] * H + u0 + cu[e]] = cc[e];
     }
   }
 }
@@ -764,29 +727,20 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_persistent_kernel(
 // per column group, each only growing: a block waits only for the blocks
 // whose output it reads; halves alternate by the parity of t, so that no
 // block overwrites a buffer another may still read.
-//
-// The bf16 form (S = bf16): the residuals, c0, W, the peepholes, dhT and
-// dcT in bf16, dys (the cotangent of the f32 ys) in f32; dxs, dh0 and dc0
-// written in bf16. Each step computes in f32 from the widened inputs and
-// rounds where the reference holds bf16 values: dy as it meets h_new, the
-// recurrent product once after the f32 sum of its 16 partials, dh_in =
-// carry + product, dgates_t (the exchange dgs holds the rounded values,
-// widened) and the dc carry.
-template <int RPL, int U, class S>
+template <int RPL, int U>
 __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     const float* __restrict__ dys,    // [T, B, H]
     const float* __restrict__ mask,   // [T, B]
-    const S* __restrict__ gates,      // [T, B, 4H] activated
-    const S* __restrict__ cs,         // [T, B, H]
-    const S* __restrict__ c0,         // [B, H]
-    const S* __restrict__ w,          // [H, 4H], leading dim ldw
-    const S* __restrict__ p_i, const S* __restrict__ p_f,
-    const S* __restrict__ p_o,        // [H] each
-    const S* __restrict__ dhT, const S* __restrict__ dcT,  // [B, H]
-    S* dxs, float* dgs, float* part, S* __restrict__ dh0,
-    S* __restrict__ dc0, unsigned* count, int ldw, int T, int B,
+    const float* __restrict__ gates,  // [T, B, 4H] activated
+    const float* __restrict__ cs,     // [T, B, H]
+    const float* __restrict__ c0,     // [B, H]
+    const float* __restrict__ w,      // [H, 4H], leading dim ldw
+    const float* __restrict__ p_i, const float* __restrict__ p_f,
+    const float* __restrict__ p_o,    // [H] each
+    const float* __restrict__ dhT, const float* __restrict__ dcT,  // [B, H]
+    float* dxs, float* dgs, float* part, float* __restrict__ dh0,
+    float* __restrict__ dc0, unsigned* count, int ldw, int T, int B,
     int H) {
-  using St = Store<S>;
   constexpr int C = kGroupCols, N = C * U, G2 = RPL > 1 ? RPL / 2 : 1;
   extern __shared__ float4 smem4[];
   float* const ws = reinterpret_cast<float*>(smem4);  // [N][lk]
@@ -807,7 +761,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     const int j = r * N + n, su = (s * C + c) * U + u;
     float* dst = ws + n * lk + k;
     if (j < H && su < H) {
-      stage_elem(dst, w + static_cast<size_t>(j) * ldw + g * H + su);
+      cp_async4(dst, w + static_cast<size_t>(j) * ldw + g * H + su);
     } else {
       *dst = 0.0f;
     }
@@ -825,11 +779,11 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
     mine[e] = pb[e] < B && pu[e] < up;
     if (mine[e]) {
       const int j = u0 + pu[e];
-      dhc[e] = St::ld(dhT + pb[e] * H + j);
-      dcc[e] = St::ld(dcT + pb[e] * H + j);
-      pi[e] = St::ld(p_i + j);
-      pf[e] = St::ld(p_f + j);
-      po[e] = St::ld(p_o + j);
+      dhc[e] = dhT[pb[e] * H + j];
+      dcc[e] = dcT[pb[e] * H + j];
+      pi[e] = p_i[j];
+      pf[e] = p_f[j];
+      po[e] = p_o[j];
     }
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -936,7 +890,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       float v = got[e][0];
 #pragma unroll
       for (int k = 1; k < C; ++k) v += got[e][k];
-      dh_in[e] = St::r(dhc[e] + St::r(v));
+      dh_in[e] = dhc[e] + v;
     }
   };
 
@@ -944,18 +898,18 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
   for (int t = T - 1; t >= 0; --t) {
     // this step's inputs of the own pairs, into registers (read-only)
     float gt[kPairs][4], c_new[kPairs], c_pv[kPairs], dy[kPairs], m[kPairs];
-    const S* c_prev = t ? cs + (t - 1) * bh : c0;
+    const float* c_prev = t ? cs + (t - 1) * bh : c0;
 #pragma unroll
     for (int e = 0; e < kPairs; ++e) {
       if (!mine[e]) continue;
       const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
-      const S* gr = gates + static_cast<size_t>(t) * B * H4 +
-                    static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+      const float* gr = gates + static_cast<size_t>(t) * B * H4 +
+                        static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) gt[e][g] = St::ld(gr + g * H);
-      c_new[e] = St::ld(cs + t * bh + o);
-      c_pv[e] = St::ld(c_prev + o);
-      dy[e] = St::r(dys[t * bh + o]);
+      for (int g = 0; g < 4; ++g) gt[e][g] = gr[g * H];
+      c_new[e] = cs[t * bh + o];
+      c_pv[e] = c_prev[o];
+      dy[e] = dys[t * bh + o];
       m[e] = mask[static_cast<size_t>(t) * B + pb[e]];
     }
     float dh_in[kPairs];
@@ -971,7 +925,7 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       grid_wait(row_count, row_arrivals);
       reduce(t & 1, dh_in);
     }
-    S* dx_t = dxs + static_cast<size_t>(t) * B * H4;
+    float* dx_t = dxs + static_cast<size_t>(t) * B * H4;
     float* dg_t = dgs + static_cast<size_t>(t & 1) * dgs_half +
                   static_cast<size_t>(p) * B * 4 * U;
 #pragma unroll
@@ -988,18 +942,19 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
       const float da_i = (dc_tot * ig) * (1.0f - i * i);
       const float da_ig = ((dc_tot * i) * ig) * (1.0f - ig);
       const float da_fg = ((dc_tot * c_pv[e]) * fg) * (1.0f - fg);
-      dcc[e] = St::r((((1.0f - mm) * dcc[e] + dc_tot * fg) + da_ig * pi[e]) +
-                     da_fg * pf[e]);
+      dcc[e] = (((1.0f - mm) * dcc[e] + dc_tot * fg) + da_ig * pi[e]) +
+               da_fg * pf[e];
       dhc[e] = (1.0f - mm) * dh_in[e];
-      const float d4[4] = {St::r(da_i), St::r(da_ig), St::r(da_fg),
-                           St::r(da_og)};
-      S* dr = dx_t + static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+      float* dr = dx_t + static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+      dr[0] = da_i;
+      dr[H] = da_ig;
+      dr[2 * H] = da_fg;
+      dr[3 * H] = da_og;
       float* dg = dg_t + pb[e] * 4 * U + pu[e];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        St::st(dr + g * H, d4[g]);
-        dg[g * U] = d4[g];
-      }
+      dg[0] = da_i;
+      dg[U] = da_ig;
+      dg[2 * U] = da_fg;
+      dg[3 * U] = da_og;
     }
     grid_arrive(col_count);
   }
@@ -1015,8 +970,8 @@ __global__ void __launch_bounds__(kPThreads, 1) lstm_bwd_chain_kernel(
   for (int e = 0; e < kPairs; ++e) {
     if (!mine[e]) continue;
     const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
-    St::st(dh0 + o, dh_in[e]);
-    St::st(dc0 + o, dcc[e]);
+    dh0[o] = dh_in[e];
+    dc0[o] = dcc[e];
   }
 }
 
@@ -1052,83 +1007,22 @@ const void* by_rows(int rpl, int U) {
   return nullptr;
 }
 
-template <class S>
-struct Forms {
-  template <int RPL, int U>
-  struct Primal {
-    static const void* fn() {
-      return (const void*)lstm_persistent_kernel<false, RPL, U, S>;
-    }
-  };
-  template <int RPL, int U>
-  struct Residual {
-    static const void* fn() {
-      return (const void*)lstm_persistent_kernel<true, RPL, U, S>;
-    }
-  };
-  template <int RPL, int U>
-  struct Chain {
-    static const void* fn() {
-      return (const void*)lstm_bwd_chain_kernel<RPL, U, S>;
-    }
-  };
-};
-
-// The forward launch of either form: the kernel's arguments in order (the
-// pointers of the storage type S pass untyped: the form picks the kernel).
-template <class S>
-int forward_persistent(const void* xs, const float* mask, const void* w,
-                       const void* p_i, const void* p_f, const void* p_o,
-                       const void* bias, const float* h0, const void* c0,
-                       float* hbuf, void* c_out, float* ys, void* cs,
-                       void* gates, void* hs, unsigned* count, int residual,
-                       int ldw, int T, int B, int H, int U, cudaStream_t s) {
-  if (T == 0 || B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U)) return -4;
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xs,   &mask, &w,  &p_i, &p_f,   &p_o, &bias,
-                  &h0,   &c0,   &hbuf, &c_out, &ys,  &cs,  &gates,
-                  &hs,   &count, &ldw, &T,   &B,    &H};
-  const int rpl = fwd_rows(B).rpl;
-  using F = Forms<S>;
-  const void* kernel =
-      residual ? by_rows<F::template Residual, 4>(rpl, U)
-               : by_rows<F::template Primal, 4>(rpl, U);
-  return launch_cooperative(kernel, (H + U - 1) / U, lstm_smem(B, H, U, kFwd),
-                            args, s);
-}
-
-// The chain's launch of either form.
-template <class S>
-int chain_launch(const float* dys, const float* mask, const void* gates,
-                 const void* cs, const void* c0, const void* w,
-                 const void* p_i, const void* p_f, const void* p_o,
-                 const void* dhT, const void* dcT, void* dxs, float* dgs,
-                 float* part, void* dh0, void* dc0, unsigned* count, int ldw,
-                 int T, int B, int H, int U, cudaStream_t s) {
-  if (B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U)) return -4;
-  if (T == 0) {
-    cudaError_t err = cudaMemcpyAsync(dh0, dhT, sizeof(S) * B * H,
-                                      cudaMemcpyDeviceToDevice, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaMemcpyAsync(
-        dc0, dcT, sizeof(S) * B * H, cudaMemcpyDeviceToDevice, s));
+template <int RPL, int U>
+struct Primal {
+  static const void* fn() {
+    return (const void*)lstm_persistent_kernel<false, RPL, U>;
   }
-  const int G = chain_grid(H, U);
-  cudaError_t err = cudaMemsetAsync(
-      count, 0, sizeof(unsigned) * (G / kGroupCols + kGroupCols), s);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(dgs, 0, sizeof(float) * 2 * G * B * 4 * U, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&dys, &mask, &gates, &cs,  &c0,  &w,   &p_i,
-                  &p_f, &p_o,  &dhT,   &dcT, &dxs, &dgs, &part,
-                  &dh0, &dc0,  &count, &ldw, &T,   &B,   &H};
-  using F = Forms<S>;
-  return launch_cooperative(by_rows<F::template Chain, 8>(lane_rows(B), U),
-                            G, lstm_smem(B, H, U, kBwd), args, s);
-}
+};
+template <int RPL, int U>
+struct Residual {
+  static const void* fn() {
+    return (const void*)lstm_persistent_kernel<true, RPL, U>;
+  }
+};
+template <int RPL, int U>
+struct Chain {
+  static const void* fn() { return (const void*)lstm_bwd_chain_kernel<RPL, U>; }
+};
 
 }  // namespace
 
@@ -1139,44 +1033,723 @@ extern "C" long long lstm_persistent_smem(int B, int H, int U, int kind) {
 }
 
 // The forward sequence on the persistent route: one cooperative launch of
-// ceil(H / U) blocks, U units each. residual != 0: the residual form (ys,
-// hs, cs, gates; c_out unused), else the primal form (ys, hbuf, cT in
-// c_out; cs, gates unused). bf16_form == 0: the f32 form, every tensor f32,
-// the gate bias folded into xs (bias and hs unused: hbuf receives h_t for
-// every step, hs in the residual form). bf16_form != 0: the bf16 form, xs (the
-// bias not folded), w, the peepholes, bias ([4H]), c0, c_out, hs, cs and
-// gates in bf16, h0 widened to f32, hbuf ([T, B, H] f32) the blocks'
-// exchange of h_t. ys is f32 in both. count (one unsigned, zeroed here on
-// the stream) is scratch. h0 and hbuf must lie on 16 bytes. Returns 0, a
-// CUDA error, -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel
-// does not take).
+// ceil(H / U) blocks, U units each. hbuf ([T, B, H]) receives h_t for
+// every step (hs in the residual form). residual != 0: the residual form
+// (ys, hs, cs, gates; c_out unused), else the primal form (ys, hbuf, cT
+// in c_out; cs, gates unused). count (one unsigned, zeroed here on the
+// stream) is scratch. h0 and hbuf must lie on 16 bytes. Returns 0, a CUDA
+// error, -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel does
+// not take).
 extern "C" int lstm_seq_forward_persistent(
-    const void* xs, const float* mask, const void* w, const void* p_i,
-    const void* p_f, const void* p_o, const void* bias, const float* h0,
-    const void* c0, float* hbuf, void* c_out, float* ys, void* hs, void* cs,
-    void* gates, unsigned* count, int residual, int bf16_form, int ldw,
-    int T, int B, int H, int U, void* stream) {
-  return (bf16_form ? forward_persistent<bf16> : forward_persistent<float>)(
-      xs, mask, w, p_i, p_f, p_o, bias, h0, c0, hbuf, c_out, ys, cs, gates,
-      hs, count, residual, ldw, T, B, H, U,
-      static_cast<cudaStream_t>(stream));
+    const float* xs, const float* mask, const float* w, const float* p_i,
+    const float* p_f, const float* p_o, const float* h0, const float* c0,
+    float* hbuf, float* c_out, float* ys, float* cs, float* gates,
+    unsigned* count, int residual, int ldw, int T, int B, int H, int U,
+    void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs,    &mask, &w,  &p_i, &p_f,   &p_o,   &h0,
+                  &c0,    &hbuf, &c_out, &ys, &cs,  &gates, &count,
+                  &ldw,   &T,    &B,  &H};
+  const int rpl = fwd_rows(B).rpl;
+  const void* kernel = residual ? by_rows<Residual, 4>(rpl, U)
+                                : by_rows<Primal, 4>(rpl, U);
+  return launch_cooperative(kernel, (H + U - 1) / U,
+                            lstm_smem(B, H, U, kFwd), args, s);
 }
 
 // The backward's reverse chain on the persistent route: dxs ([T, B, 4H]),
 // dh0 and dc0 ([B, H]) from the residuals of the forward, on chain_grid(H,
-// U) blocks. bf16_form != 0: the bf16 form, the residuals, c0, w, the
-// peepholes, dhT, dcT, dxs, dh0 and dc0 in bf16; dys (the cotangent of
-// the f32 ys) and the scratch f32 in both forms. Scratch: dgs ([2, G, B,
-// 4U], zeroed here: the entries of units past H stay 0), part ([2, G, B,
-// 16U]) and count (R + 16 unsigned, R = G / 16, zeroed here). Same error
-// contract as lstm_seq_forward_persistent.
+// U) blocks. Scratch: dgs ([2, G, B, 4U], zeroed here: the entries of
+// units past H stay 0), part ([2, G, B, 16U]) and count (R + 16 unsigned,
+// R = G / 16, zeroed here). Same error contract as
+// lstm_seq_forward_persistent.
 extern "C" int lstm_bwd_chain_launch(
-    const float* dys, const float* mask, const void* gates, const void* cs,
-    const void* c0, const void* w, const void* p_i, const void* p_f,
-    const void* p_o, const void* dhT, const void* dcT, void* dxs, float* dgs,
-    float* part, void* dh0, void* dc0, unsigned* count, int bf16_form,
+    const float* dys, const float* mask, const float* gates, const float* cs,
+    const float* c0, const float* w, const float* p_i, const float* p_f,
+    const float* p_o, const float* dhT, const float* dcT, float* dxs,
+    float* dgs, float* part, float* dh0, float* dc0, unsigned* count,
     int ldw, int T, int B, int H, int U, void* stream) {
-  return (bf16_form ? chain_launch<bf16> : chain_launch<float>)(
-      dys, mask, gates, cs, c0, w, p_i, p_f, p_o, dhT, dcT, dxs, dgs, part,
-      dh0, dc0, count, ldw, T, B, H, U, static_cast<cudaStream_t>(stream));
+  if (B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    cudaError_t err = cudaMemcpyAsync(dh0, dhT, sizeof(float) * B * H,
+                                      cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaMemcpyAsync(
+        dc0, dcT, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  const int G = chain_grid(H, U);
+  cudaError_t err = cudaMemsetAsync(
+      count, 0, sizeof(unsigned) * (G / kGroupCols + kGroupCols), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(dgs, 0, sizeof(float) * 2 * G * B * 4 * U, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &cs,  &c0,  &w,   &p_i,
+                  &p_f, &p_o,  &dhT,   &dcT, &dxs, &dgs, &part,
+                  &dh0, &dc0,  &count, &ldw, &T,   &B,   &H};
+  return launch_cooperative(by_rows<Chain, 8>(lane_rows(B), U), G,
+                            lstm_smem(B, H, U, kBwd), args, s);
+}
+
+// ---------------------------------------------------------------------
+// The bf16 forms: the persistent kernels' layouts, the recurrent products
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums).
+//
+// Forward (lstm_bf16_kernel): block p owns the units [p U, p U + U) and
+// holds W[:, g H + p U + u] as the shared bf16 row n = g U + u (4U rows,
+// padded to whole n8 tiles with zero rows; K along the row, ld + 8 wide,
+// ld = H rounded up to 16 with zero columns). h_t crosses blocks through
+// the exchange hx [T + 1][B][ld] (bf16; slot 0 holds h0, the columns past
+// H are 0). Each step, warp kw sums the k16 steps [kw nk / 8, (kw + 1) nk
+// / 8) of the product h_{t-1} @ W[:, own columns] for all MT m16 tiles of
+// the batch and all n8 tiles of the columns: its ring of kBfSlots k16
+// chunks of h_{t-1} (cp.async through L2, the two 16-byte halves of a row
+// swapped on rows 4-7 of every 8 so that ldmatrix hits 8 bank groups),
+// three chunks ahead, summed in the mma's f32 accumulators (the tensor
+// cores' sums truncate: over a warp's <= 10 k16 steps that stays near
+// 2^-20 of the sum, far below the product's one bf16 rounding, where a
+// fresh accumulator a k16 step costs four f32 adds an mma). The eight
+// warps' sums meet in shared memory (where the rings
+// were) and every thread adds them for its cells in warp order: the
+// product's f32 sum, then the cell of the bf16 arithmetic above, h_t into
+// hx[t + 1]; one grid barrier, its halves with red.release and
+// ld.acquire in place of persistent.cuh's fences (arrive_rel, wait_acq).
+//
+// Chain (lstm_bf16_chain_kernel): the f32 chain's blocks, counters and
+// order of sums. Block p = 16 r + c holds W[the 16 U units of row group r,
+// the gate columns of column group c] as bf16 rows n (the unit) over K =
+// R chunks of la = 4U rounded up to 8 (column s la + g U + u; the rest 0),
+// K rounded up to 16. Its dgates_t go to the exchange dgs [2][G][B][la]
+// as the bf16 values they are; a step stages the column group's R chunks
+// (cp.async, a [B][K] tile) and warp (mw, nw) of 2 x 4 sums its m16 tiles
+// by n8 tiles of the partial [B][16 U] over all of K in the mma's f32
+// accumulators, written to part in f32; each own pair then adds its row
+// group's 16 partials in c order and rounds once, as in the f32 form.
+
+namespace {
+
+constexpr int kBfSlots = 4;  // a forward warp's ring of k16 chunks
+constexpr int kFwdBf16 = 2, kBwdBf16 = 3;  // lstm_smem kinds of the bf16 forms
+
+// The exchange's row stride, bf16 elements: H rounded up to the mma's k.
+__host__ __device__ inline int bf16_ld(int H) { return (H + 15) / 16 * 16; }
+
+// m16 tiles of the batch (the instances: 1, 2, 4).
+__host__ __device__ inline int bf16_mtiles(int B) {
+  return B <= 16 ? 1 : B <= 32 ? 2 : 4;
+}
+
+// n8 tiles of the forward's 4U gate columns.
+__host__ __device__ constexpr int fwd_ntiles(int U) { return (4 * U + 7) / 8; }
+
+// Row stride (floats) of a warp's forward sums: 8 per n8 tile, plus 8 for
+// an even count, so that the float2 stores of a half-warp hit 32 banks.
+__host__ __device__ constexpr int sums_ld(int nt) {
+  return 8 * nt + (nt % 2 ? 0 : 8);
+}
+
+// The chain's chunk of a block's dgates row: 4U rounded up to 8.
+__host__ __device__ constexpr int chain_la(int U) { return (4 * U + 7) / 8 * 8; }
+
+// The chain product's depth: R chunks, rounded up to the mma's k.
+__host__ __device__ inline int chain_kp(int H, int U) {
+  const int R = chain_grid(H, U) / kGroupCols;
+  return (R * chain_la(U) + 15) / 16 * 16;
+}
+
+// Shared-memory bytes of a bf16 block. Forward: W's 8 NT rows of ld + 8
+// bf16, then the warps' rings (kBfSlots chunks of [16 MT][16] bf16 each),
+// which then hold the warps' sums [8][16 MT][sums_ld] f32. Chain: W's 16 U
+// rows and the staged dgates' 16 MT rows, both kp + 8 bf16 wide.
+__host__ __device__ inline long long bf16_smem(int B, int H, int U,
+                                               int kind) {
+  const int mt = bf16_mtiles(B);
+  if (kind == kFwdBf16) {
+    const int nt = fwd_ntiles(U);
+    const long long w = 2LL * 8 * nt * (bf16_ld(H) + 8);
+    const long long ring = 2LL * kWarps * kBfSlots * 16 * mt * 16;
+    const long long sums = 4LL * kWarps * 16 * mt * sums_ld(nt);
+    return w + (ring > sums ? ring : sums);
+  }
+  return 2LL * (kGroupCols * U + 16 * mt) * (chain_kp(H, U) + 8);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the four 8 x 8 matrices whose rows lanes 0-7, 8-15, 16-23, 24-31 point
+// at, as an mma A fragment
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two 8 x 8 matrices (rows from lanes 0-7, 8-15), as a B fragment
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b over k = 16 (f32 sums)
+__device__ __forceinline__ void mma_add(float (&c)[4], const unsigned (&a)[4],
+                                        const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The grid barrier's halves (persistent.cuh) with release and acquire in
+// place of the fences: thread 0 counts the block in with one red.release
+// (its block's writes are ordered before it by the __syncthreads); after
+// its acquire spin, the __syncthreads orders the block's reads after the
+// others' writes.
+__device__ __forceinline__ void arrive_rel(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void wait_acq(const unsigned* count,
+                                         unsigned target) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(count) < target) {
+    }
+  }
+  __syncthreads();
+}
+
+template <bool kResidual, int MT, int U>
+__global__ void __launch_bounds__(kPThreads, 1) lstm_bf16_kernel(
+    const bf16* __restrict__ xs,     // [T, B, 4H]
+    const float* __restrict__ mask,  // [T, B]
+    const bf16* __restrict__ w,      // [H, 4H], leading dim ldw
+    const bf16* __restrict__ p_i, const bf16* __restrict__ p_f,
+    const bf16* __restrict__ p_o,    // [H] each
+    const bf16* __restrict__ bias,   // [4H]
+    const bf16* __restrict__ c0,     // [B, H]
+    bf16* hx,                        // [T + 1, B, ld]: h0, then h_t
+    bf16* __restrict__ c_out, float* __restrict__ ys,
+    bf16* __restrict__ cs, bf16* __restrict__ gates, unsigned* count,
+    int ldw, int T, int B, int H) {
+  using St = Store<bf16>;
+  constexpr int NT = fwd_ntiles(U), NW = 8 * NT, SL = sums_ld(NT);
+  constexpr int ROWS = 16 * MT;
+  extern __shared__ float4 smem4[];
+  const int ld = bf16_ld(H), lw = ld + 8;
+  bf16* const ws = reinterpret_cast<bf16*>(smem4);  // [NW][lw]
+  bf16* const rings = ws + NW * lw;  // [8][kBfSlots][ROWS][16]; then sums
+  float* const sums = reinterpret_cast<float*>(rings);  // [8][ROWS][SL]
+  const int u0 = blockIdx.x * U;
+  const int up = min(U, H - u0);
+  const size_t bh = static_cast<size_t>(B) * H;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  const size_t bl = static_cast<size_t>(B) * ld;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < ld * NW; i += kPThreads) {
+    const int k = i / NW, n = i % NW;
+    const int g = n / U, u = n % U;
+    ws[n * lw + k] = n < 4 * U && u < up && k < H
+                         ? w[static_cast<size_t>(k) * ldw + g * H + u0 + u]
+                         : zero;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  // the warp's k16 steps [q0, q1); block p starts at step p % nq, so that
+  // the blocks read different lines of L2 at a time
+  const int nk = ld / 16;
+  const int q0 = warp * nk / kWarps, q1 = (warp + 1) * nk / kWarps;
+  const int nq = q1 - q0;
+  const int first = nq > 0 ? blockIdx.x % nq : 0;
+  bf16* const ring = rings + warp * kBfSlots * ROWS * 16;
+  // the thread's cells
+  bool mine[kPairs];
+  int cb[kPairs], cu[kPairs];
+  float hc[kPairs], cc[kPairs], pi[kPairs], pf[kPairs], po[kPairs],
+      x[kPairs][4], m[kPairs], bb[kPairs][4];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    const int c = threadIdx.x + e * kPThreads;
+    cb[e] = c / up;
+    cu[e] = c % up;
+    mine[e] = cb[e] < B;
+    if (mine[e]) {
+      const int j = u0 + cu[e];
+      hc[e] = St::ld(hx + cb[e] * ld + j);
+      cc[e] = St::ld(c0 + cb[e] * H + j);
+      pi[e] = St::ld(p_i + j);
+      pf[e] = St::ld(p_f + j);
+      po[e] = St::ld(p_o + j);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) bb[e][g] = St::ld(bias + g * H + j);
+    }
+  }
+  __syncthreads();
+
+  unsigned arrivals = 0;
+  for (int t = 0; t < T; ++t) {
+    // this step's inputs of the thread's cells, into registers ahead of
+    // the product (read-only: through L1)
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      if (mine[e]) {
+        const bf16* xr = xs + (static_cast<size_t>(t) * B + cb[e]) * H4 +
+                         u0 + cu[e];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[e][g] = St::ld(xr + g * H);
+        m[e] = mask[static_cast<size_t>(t) * B + cb[e]];
+      }
+    }
+    const bf16* h_prev = hx + t * bl;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+    if (nq > 0) {
+      // chunk i of the ring: k16 step q0 + (first + i) % nq of the rows;
+      // a row's 16-byte half hh at 8 (hh ^ bit 2 of the row)
+      auto issue = [&](int i) {
+        const int q = q0 + (first + i) % nq;
+        bf16* dst = ring + (i % kBfSlots) * ROWS * 16;
+        for (int c = lane; c < 2 * B; c += 32) {
+          const int r = c / 2, hh = c % 2;
+          cp_async16(dst + r * 16 + 8 * (hh ^ ((r >> 2) & 1)),
+                        h_prev + static_cast<size_t>(r) * ld + 16 * q + 8 * hh);
+        }
+      };
+#pragma unroll
+      for (int i = 0; i < kBfSlots - 1; ++i) {
+        if (i < nq) issue(i);
+        cp_async_commit();
+      }
+      for (int i = 0; i < nq; ++i) {
+        if (i + kBfSlots - 1 < nq) issue(i + kBfSlots - 1);
+        cp_async_commit();
+        cp_async_wait<kBfSlots - 1>();
+        __syncwarp();
+        const int q = q0 + (first + i) % nq;
+        const bf16* slot = ring + (i % kBfSlots) * ROWS * 16;
+        unsigned a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int r = mt * 16 + (lane & 15), hh = lane >> 4;
+          ldsm_x4(a[mt], slot + r * 16 + 8 * (hh ^ ((r >> 2) & 1)));
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          unsigned b[2];
+          ldsm_x2(b, ws + (nt * 8 + (lane & 7)) * lw + 16 * q +
+                         8 * ((lane >> 3) & 1));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_add(acc[mt][nt], a[mt], b);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every ring read: the sums take their place
+    float* const own = sums + warp * ROWS * SL;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* o = own + (mt * 16 + g8) * SL + nt * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(o) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(o + 8 * SL) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      if (!mine[e]) continue;
+      const int b = cb[e], j = u0 + cu[e];
+      // the product's f32 sum over the warps' K slices, in warp order
+      float a[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float* s = sums + b * SL + g * U + cu[e];
+        float v = s[0];
+#pragma unroll
+        for (int kw = 1; kw < kWarps; ++kw) v += s[kw * ROWS * SL];
+        a[g] = v;
+      }
+      const size_t o = static_cast<size_t>(t) * bh +
+                       static_cast<size_t>(b) * H + j;
+      const float cp = cc[e];
+      // gates = x_t + h @ W + bias, each sum rounded
+      const float g0 = St::r(St::r(x[e][0] + St::r(a[0])) + bb[e][0]);
+      const float g1 = St::r(St::r(x[e][1] + St::r(a[1])) + bb[e][1]);
+      const float g2 = St::r(St::r(x[e][2] + St::r(a[2])) + bb[e][2]);
+      const float g3 = St::r(St::r(x[e][3] + St::r(a[3])) + bb[e][3]);
+      const float in = St::r(tanhf(g0));
+      const float ig = sigmoid_bf16(St::r(g1 + St::r(cp * pi[e])));
+      const float fg = sigmoid_bf16(St::r(g2 + St::r(cp * pf[e])));
+      const float c_new = St::r(St::r(in * ig) + St::r(cp * fg));
+      const float og = sigmoid_bf16(St::r(g3 + St::r(c_new * po[e])));
+      const float y = og * St::r(tanhf(c_new));  // exact in f32
+      const float h_new = St::r(y);
+      const bool live = m[e] > 0.0f;
+      const float hn = live ? h_new : hc[e];
+      const float cn = live ? c_new : cp;
+      ys[o] = y * m[e];
+      St::st(hx + (t + 1) * bl + static_cast<size_t>(b) * ld + j, hn);
+      if (kResidual) {
+        St::st(cs + o, cn);
+        bf16* gr = gates + (static_cast<size_t>(t) * B + b) * H4 + j;
+        St::st(gr, in);
+        St::st(gr + H, ig);
+        St::st(gr + 2 * H, fg);
+        St::st(gr + 3 * H, og);
+      }
+      hc[e] = hn;
+      cc[e] = cn;
+    }
+    if (t + 1 < T) {
+      arrivals += gridDim.x;
+      arrive_rel(count);
+      wait_acq(count, arrivals);
+    }
+  }
+  if (!kResidual) {
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      if (mine[e]) St::st(c_out + cb[e] * H + u0 + cu[e], cc[e]);
+    }
+  }
+}
+
+template <int MT, int U>
+__global__ void __launch_bounds__(kPThreads, 1) lstm_bf16_chain_kernel(
+    const float* __restrict__ dys,   // [T, B, H]
+    const float* __restrict__ mask,  // [T, B]
+    const bf16* __restrict__ gates,  // [T, B, 4H] activated
+    const bf16* __restrict__ cs,     // [T, B, H]
+    const bf16* __restrict__ c0,     // [B, H]
+    const bf16* __restrict__ w,      // [H, 4H], leading dim ldw
+    const bf16* __restrict__ p_i, const bf16* __restrict__ p_f,
+    const bf16* __restrict__ p_o,    // [H] each
+    const bf16* __restrict__ dhT, const bf16* __restrict__ dcT,  // [B, H]
+    bf16* dxs, bf16* dgs, float* part, bf16* __restrict__ dh0,
+    bf16* __restrict__ dc0, unsigned* count, int ldw, int T, int B, int H) {
+  using St = Store<bf16>;
+  constexpr int C = kGroupCols, N = C * U, LA = chain_la(U);
+  constexpr int NTT = N / 8, NTW = (NTT + 3) / 4, MTW = MT > 1 ? MT / 2 : 1;
+  extern __shared__ float4 smem4[];
+  const int G = gridDim.x, R = G / C;
+  const int p = blockIdx.x, r = p / C, c = p % C;
+  const int u0 = p * U, up = min(U, H - u0);  // up <= 0: no units
+  const int KP = chain_kp(H, U), ldk = KP + 8, KA = R * LA;
+  bf16* const ws = reinterpret_cast<bf16*>(smem4);  // [N][ldk]
+  bf16* const at = ws + N * ldk;                     // [16 MT][ldk]
+  const size_t bh = static_cast<size_t>(B) * H;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  const size_t dgs_half = static_cast<size_t>(G) * B * LA;
+  const size_t part_half = static_cast<size_t>(G) * B * N;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < N * KP; i += kPThreads) {
+    const int n = i / KP, k = i % KP;
+    const int s = k / LA, jj = k % LA, g = jj / U, u = jj % U;
+    const int j = r * N + n, su = (s * C + c) * U + u;
+    ws[n * ldk + k] = k < KA && jj < 4 * U && j < H && su < H
+                          ? w[static_cast<size_t>(j) * ldw + g * H + su]
+                          : zero;
+  }
+  // the staged tile's columns past the R chunks stay 0
+  for (int i = threadIdx.x; i < 16 * MT * (KP - KA); i += kPThreads)
+    at[(i / (KP - KA)) * ldk + KA + i % (KP - KA)] = zero;
+  // the thread's pairs b U + u, u < up
+  bool mine[kPairs];
+  int pb[kPairs], pu[kPairs];
+  float dhc[kPairs], dcc[kPairs], pi[kPairs], pf[kPairs], po[kPairs];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    const int i = threadIdx.x + e * kPThreads;
+    pb[e] = i / U;
+    pu[e] = i % U;
+    mine[e] = pb[e] < B && pu[e] < up;
+    if (mine[e]) {
+      const int j = u0 + pu[e];
+      dhc[e] = St::ld(dhT + pb[e] * H + j);
+      dcc[e] = St::ld(dcT + pb[e] * H + j);
+      pi[e] = St::ld(p_i + j);
+      pf[e] = St::ld(p_f + j);
+      po[e] = St::ld(p_o + j);
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mw = warp / 4, nw = warp % 4;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const bool active = mw * MTW < MT && nw * NTW < NTT;
+  unsigned* const row_count = count + r;
+  unsigned* const col_count = count + R + c;
+  __syncthreads();
+
+  // 1: the partial of dgates_ts (dgs half ts & 1) into part half `half`
+  auto product = [&](int ts, int half) {
+    const bf16* src = dgs + static_cast<size_t>(ts & 1) * dgs_half;
+    constexpr int Q = LA / 8;
+    for (int i = threadIdx.x; i < R * B * Q; i += kPThreads) {
+      const int s = i / (B * Q), b = (i / Q) % B, q = i % Q;
+      cp_async16(at + b * ldk + s * LA + 8 * q,
+                    src + (static_cast<size_t>(s * C + c) * B + b) * LA +
+                        8 * q);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) return;
+    float acc[MTW][NTW][4];
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+    for (int kk = 0; kk < KP / 16; ++kk) {
+      unsigned a[MTW][4];
+#pragma unroll
+      for (int i = 0; i < MTW; ++i)
+        ldsm_x4(a[i], at + ((mw * MTW + i) * 16 + (lane & 15)) * ldk +
+                          16 * kk + 8 * (lane >> 4));
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int nt = nw * NTW + j;
+        if (nt >= NTT) break;
+        unsigned b[2];
+        ldsm_x2(b, ws + (nt * 8 + (lane & 7)) * ldk + 16 * kk +
+                       8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int i = 0; i < MTW; ++i) mma_add(acc[i][j], a[i], b);
+      }
+    }
+    float* out = part + static_cast<size_t>(half) * part_half +
+                 static_cast<size_t>(p) * B * N;
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int nt = nw * NTW + j;
+        const int row = (mw * MTW + i) * 16 + g8, col = nt * 8 + 2 * t4;
+        if (nt >= NTT) break;
+        if (row < B)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N +
+                                     col) =
+              make_float2(acc[i][j][0], acc[i][j][1]);
+        if (row + 8 < B)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8) * N +
+                                     col) =
+              make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  };
+  // 2: dh_in of the own pairs from the row group's partials, c order
+  auto reduce = [&](int half, float (&dh_in)[kPairs]) {
+    const float* base = part + static_cast<size_t>(half) * part_half;
+    float got[kPairs][C];
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        got[e][k] = mine[e] ? __ldcg(base +
+                                     (static_cast<size_t>(r * C + k) * B +
+                                      pb[e]) * N + c * U + pu[e])
+                            : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      float v = got[e][0];
+#pragma unroll
+      for (int k = 1; k < C; ++k) v += got[e][k];
+      dh_in[e] = St::r(dhc[e] + St::r(v));
+    }
+  };
+
+  unsigned row_arrivals = 0, col_arrivals = 0;
+  for (int t = T - 1; t >= 0; --t) {
+    // this step's inputs of the own pairs, into registers (read-only)
+    float gt[kPairs][4], c_new[kPairs], c_pv[kPairs], dy[kPairs], m[kPairs];
+    const bf16* c_prev = t ? cs + (t - 1) * bh : c0;
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      if (!mine[e]) continue;
+      const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
+      const bf16* gr = gates + static_cast<size_t>(t) * B * H4 +
+                       static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) gt[e][g] = St::ld(gr + g * H);
+      c_new[e] = St::ld(cs + t * bh + o);
+      c_pv[e] = St::ld(c_prev + o);
+      dy[e] = St::r(dys[t * bh + o]);
+      m[e] = mask[static_cast<size_t>(t) * B + pb[e]];
+    }
+    float dh_in[kPairs];
+    if (t == T - 1) {
+#pragma unroll
+      for (int e = 0; e < kPairs; ++e) dh_in[e] = dhc[e];
+    } else {
+      col_arrivals += R;
+      wait_acq(col_count, col_arrivals);
+      product(t + 1, t & 1);
+      row_arrivals += C;
+      arrive_rel(row_count);
+      wait_acq(row_count, row_arrivals);
+      reduce(t & 1, dh_in);
+    }
+    bf16* dx_t = dxs + static_cast<size_t>(t) * B * H4;
+    bf16* dg_t = dgs + static_cast<size_t>(t & 1) * dgs_half +
+                 static_cast<size_t>(p) * B * LA;
+#pragma unroll
+    for (int e = 0; e < kPairs; ++e) {
+      if (!mine[e]) continue;
+      const float i = gt[e][0], ig = gt[e][1], fg = gt[e][2], og = gt[e][3];
+      const float mm = m[e];
+      const float dh_new = mm * (dh_in[e] + dy[e]);
+      const float dc_new = mm * dcc[e];
+      const float tc = tanhf(c_new[e]);
+      const float da_og = ((dh_new * tc) * og) * (1.0f - og);
+      const float dc_tot =
+          (dc_new + (dh_new * og) * (1.0f - tc * tc)) + da_og * po[e];
+      const float da_i = (dc_tot * ig) * (1.0f - i * i);
+      const float da_ig = ((dc_tot * i) * ig) * (1.0f - ig);
+      const float da_fg = ((dc_tot * c_pv[e]) * fg) * (1.0f - fg);
+      dcc[e] = St::r((((1.0f - mm) * dcc[e] + dc_tot * fg) + da_ig * pi[e]) +
+                     da_fg * pf[e]);
+      dhc[e] = (1.0f - mm) * dh_in[e];
+      const float d4[4] = {da_i, da_ig, da_fg, da_og};
+      bf16* dr = dx_t + static_cast<size_t>(pb[e]) * H4 + u0 + pu[e];
+      bf16* dg = dg_t + pb[e] * LA + pu[e];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        St::st(dr + g * H, d4[g]);
+        St::st(dg + g * U, d4[g]);
+      }
+    }
+    arrive_rel(col_count);
+  }
+  col_arrivals += R;
+  wait_acq(col_count, col_arrivals);
+  product(0, 1);
+  row_arrivals += C;
+  arrive_rel(row_count);
+  wait_acq(row_count, row_arrivals);
+  float dh_in[kPairs];
+  reduce(1, dh_in);
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    if (!mine[e]) continue;
+    const size_t o = static_cast<size_t>(pb[e]) * H + u0 + pu[e];
+    St::st(dh0 + o, dh_in[e]);
+    St::st(dc0 + o, dcc[e]);
+  }
+}
+
+template <int MT, int U>
+struct BfPrimal {
+  static const void* fn() {
+    return (const void*)lstm_bf16_kernel<false, MT, U>;
+  }
+};
+template <int MT, int U>
+struct BfResidual {
+  static const void* fn() {
+    return (const void*)lstm_bf16_kernel<true, MT, U>;
+  }
+};
+template <int MT, int U>
+struct BfChain {
+  static const void* fn() {
+    return (const void*)lstm_bf16_chain_kernel<MT, U>;
+  }
+};
+
+}  // namespace
+
+// Shared-memory bytes of a bf16 block (kind 0: the forward; 1: the
+// chain), as the bf16 launchers compute them; the wrapper's plan mirrors
+// it.
+extern "C" long long lstm_bf16_smem(int B, int H, int U, int kind) {
+  return bf16_smem(B, H, U, kind ? kBwdBf16 : kFwdBf16);
+}
+
+// The bf16 forward on the persistent route: one cooperative launch of
+// ceil(H / U) blocks. xs (the bias not folded), w, the peepholes, bias
+// ([4H]), c0, c_out, cs and gates bf16; ys f32. hx ([T + 1, B, ld] bf16,
+// ld = H rounded up to 16, 16-byte aligned) holds h0 in slot 0 and the
+// columns past H zero on entry, h_t in slot t + 1 on return. residual !=
+// 0: ys, hx, cs, gates (c_out unused); else ys, hx and cT in c_out (cs,
+// gates unused). count (one unsigned, zeroed here) is scratch. Same error
+// contract as lstm_seq_forward_persistent.
+extern "C" int lstm_bf16_forward(const void* xs, const float* mask,
+                                 const void* w, const void* p_i,
+                                 const void* p_f, const void* p_o,
+                                 const void* bias, const void* c0, void* hx,
+                                 void* c_out, float* ys, void* cs,
+                                 void* gates, unsigned* count, int residual,
+                                 int ldw, int T, int B, int H, int U,
+                                 void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs, &mask, &w,  &p_i, &p_f,   &p_o,   &bias, &c0,
+                  &hx, &c_out, &ys, &cs, &gates, &count, &ldw,  &T,
+                  &B,  &H};
+  const int mt = bf16_mtiles(B);
+  const void* kernel = residual ? by_rows<BfResidual, 4>(mt, U)
+                                : by_rows<BfPrimal, 4>(mt, U);
+  return launch_cooperative(kernel, (H + U - 1) / U,
+                            bf16_smem(B, H, U, kFwdBf16), args, s);
+}
+
+// The bf16 reverse chain on chain_grid(H, U) blocks: dxs ([T, B, 4H]),
+// dh0 and dc0 ([B, H]) in bf16 from the bf16 residuals, c0, w, the
+// peepholes, dhT and dcT; dys (the cotangent of the f32 ys) f32. Scratch:
+// dgs ([2, G, B, la] bf16, la = 4U rounded up to 8; zeroed here: the
+// entries of units past H and the padding stay 0), part ([2, G, B, 16U]
+// f32) and count (R + 16 unsigned, zeroed here). Same error contract as
+// lstm_seq_forward_persistent.
+extern "C" int lstm_bf16_chain(const float* dys, const float* mask,
+                               const void* gates, const void* cs,
+                               const void* c0, const void* w,
+                               const void* p_i, const void* p_f,
+                               const void* p_o, const void* dhT,
+                               const void* dcT, void* dxs, void* dgs,
+                               float* part, void* dh0, void* dc0,
+                               unsigned* count, int ldw, int T, int B, int H,
+                               int U, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    cudaError_t err = cudaMemcpyAsync(dh0, dhT, sizeof(bf16) * B * H,
+                                      cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaMemcpyAsync(
+        dc0, dcT, sizeof(bf16) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  const int G = chain_grid(H, U);
+  cudaError_t err = cudaMemsetAsync(
+      count, 0, sizeof(unsigned) * (G / kGroupCols + kGroupCols), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(dgs, 0, sizeof(bf16) * 2 * G * B * chain_la(U), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &cs,  &c0,  &w,   &p_i,
+                  &p_f, &p_o,  &dhT,   &dcT, &dxs, &dgs, &part,
+                  &dh0, &dc0,  &count, &ldw, &T,   &B,   &H};
+  return launch_cooperative(by_rows<BfChain, 4>(bf16_mtiles(B), U), G,
+                            bf16_smem(B, H, U, kBwdBf16), args, s);
 }

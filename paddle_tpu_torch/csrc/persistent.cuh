@@ -8,11 +8,10 @@
 // non-coherent L1.
 //
 // The storage types of the kernels' two forms (Store<S>): float32, and
-// bfloat16, whose values the kernels widen into f32 registers and f32
-// shared memory, so that the bf16 forms keep the f32 forms' shared-memory
-// layout; Store<S>::r rounds an f32 result to S and back (round to
-// nearest even, as the CPU's bf16 operations round), the identity for
-// float.
+// bfloat16, whose values the kernels compute on in f32 registers (gru_seq
+// .cu's bf16 forms also widen them into the f32 forms' shared memory);
+// Store<S>::r rounds an f32 result to S and back (round to nearest even,
+// as the CPU's bf16 operations round), the identity for float.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,7 +65,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));

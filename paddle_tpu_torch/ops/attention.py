@@ -55,11 +55,13 @@ rounds the scores and their cotangents to bf16) is here the analytic
 one on the widened bf16 operands, summed in f32, dq, dk and dv rounded
 to bf16 (``flash_bwd_plain``), within 2e-2 of JAX's largest entry. On
 the card both have a bf16 form for D <= 128 (``csrc/flash_attn.cu``, the
-tensor-core kernels with bf16 loads and stores: a bf16 product of two
-bf16 values is exact in f32, so one TF32 term replaces the three of the
-split; counted in ``.bf16_launches``); a bf16 tensor with a wider head
-(the wide and split forms) raises: those forms are still to port. The
-mask stays f32.
+``_bf16`` kernels: bf16 tiles in shared memory by cp.async, ldmatrix,
+``mma.sync`` m16n8k16 bf16 with f32 sums for every product of two bf16
+values; P and dS, which are not bf16 values, split into bf16 hi + lo
+terms; instances ``BF16_HEAD_DIMS``, a narrower head padded to the next
+one; ``flash_plan(D, bf16=True)``; counted in ``.bf16_launches``); a
+bf16 tensor with a wider head (the wide and split forms) raises: those
+forms are still to port. The mask stays f32.
 
 A query row that sees no key (an all-padding kv row, or with ``causal``
 and Tq > Tk the first Tq - Tk rows) gets JAX's result: JAX pads Tk to a
@@ -88,6 +90,8 @@ _PLAIN_BLOCK_K = 256
 # (csrc/flash_attn.cu); another D up to the last pads with zero columns to
 # the next one
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# the bf16 form's instances (an mma's k is 16 bf16 values)
+BF16_HEAD_DIMS = (16, 32, 64, 128)
 # the widest head of the wide-head path (csrc/flash_attn.cu: kWideMaxD),
 # which takes every D above HEAD_DIMS[-1] up to it; the split-row path
 # takes every D above it
@@ -222,13 +226,13 @@ def flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal=False,
 
 
 # ------------------------------------------------------ head-width padding
-def padded_width(D: int) -> int:
+def padded_width(D: int, bf16: bool = False) -> int:
     """The kernels' head width for D: the smallest instance >= D up to
-    ``HEAD_DIMS[-1]``, D itself on the wide-head and split-row paths above
-    it. Raises for D < 1."""
+    ``HEAD_DIMS[-1]`` (``BF16_HEAD_DIMS`` for the bf16 form), D itself on
+    the wide-head and split-row paths above it. Raises for D < 1."""
     if D < 1:
         raise ValueError(f"head width D={D}: the flash kernels take D >= 1")
-    for width in HEAD_DIMS:
+    for width in BF16_HEAD_DIMS if bf16 else HEAD_DIMS:
         if D <= width:
             return width
     return D
@@ -292,7 +296,30 @@ def _wide_plan(D: int) -> dict:
                 stage_rows=rows, max_d=WIDE_MAX_D, smem=smem)
 
 
-def flash_plan(D: int) -> dict:
+def _bf16_plan(D: int) -> dict:
+    """The bf16 form at an instance of ``BF16_HEAD_DIMS``: bf16 tiles of
+    ``ld`` = D (+ 8 where D / 8 is even: an odd number of 16-byte chunks a
+    row) elements a row, the forward's kv stages of 64 keys, dq's 32 keys
+    at D = 128 (64 below), dkdv's query stages likewise; a stage holds two
+    tiles and the mask (or m, log l, delta) as f32."""
+    if D not in BF16_HEAD_DIMS:
+        raise ValueError(f"flash_plan: D={D} is not a bf16 instance "
+                         f"({BF16_HEAD_DIMS})")
+    ld = D if (D // 8) % 2 else D + 8
+    kv, kv_dq = 64, 32 if D == 128 else 64
+    qc = kv_dq
+    tile = lambda rows: 2 * rows * ld
+    stage = lambda rows, vecs: 2 * tile(rows) + 4 * vecs * rows
+    smem = dict(fwd=tile(FLASH_ROWS) + 2 * stage(kv, 1),
+                dq=2 * tile(FLASH_ROWS) + 2 * stage(kv_dq, 1)
+                + 4 * FLASH_ROWS,
+                dkdv=2 * tile(FLASH_ROWS) + 2 * stage(qc, 3) + 4 * 4)
+    plan = dict(variant="tensor_cores_bf16", rows=FLASH_ROWS, ld=ld,
+                kv_cols=kv, dq_cols=kv_dq, q_cols=qc, max_d=WIDE_MAX_D)
+    return plan, smem
+
+
+def flash_plan(D: int, bf16: bool = False) -> dict:
     """The kernels' tiles and dynamic shared memory at head width ``D``,
     by the formulas of ``csrc/flash_attn.cu`` (``flash_smem``; a card test
     holds the two equal). An instance (``HEAD_DIMS``): ``variant``
@@ -303,8 +330,11 @@ def flash_plan(D: int) -> dict:
     streamed rows a step, no dynamic shared memory. All: ``smem_<kernel>``
     bytes and ``blocks_per_sm_<kernel>`` by shared memory, for ``fwd``,
     ``dq`` and ``dkdv``, and ``max_d``, the widest head of the wide
-    path."""
-    if D > WIDE_MAX_D:
+    path. ``bf16``: the bf16 form's plan (``_bf16_plan``; ``flash_bf16_smem``
+    in the kernel), at the instances ``BF16_HEAD_DIMS`` only."""
+    if bf16:
+        plan, smem = _bf16_plan(D)
+    elif D > WIDE_MAX_D:
         plan = dict(variant="split", rows=1, threads=SPLIT_THREADS,
                     stage_rows=SPLIT_ROWS, max_d=WIDE_MAX_D)
         smem = dict(fwd=0, dq=0, dkdv=0)
@@ -333,11 +363,13 @@ def flash_plan(D: int) -> dict:
     return plan
 
 
-def flash_smem_of_kernel(which: str, D: int) -> int:
+def flash_smem_of_kernel(which: str, D: int, bf16: bool = False) -> int:
     """The dynamic shared memory the kernel ``which`` (``fwd``, ``dq``,
     ``dkdv``) requests at head width D, by its own count (card only: it
-    loads the library), to hold ``flash_plan`` against."""
-    fn = build.load("flash_attn").flash_smem
+    loads the library), to hold ``flash_plan`` against; ``bf16``: the bf16
+    form's (``flash_bf16_smem``)."""
+    lib = build.load("flash_attn")
+    fn = lib.flash_bf16_smem if bf16 else lib.flash_smem
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
     return fn(("fwd", "dq", "dkdv").index(which), D)
@@ -372,7 +404,7 @@ def _check(kernel, q, k, v, kv_mask, o=None, lse=None, do=None):
 
 def _bf16_form(kernel, q):
     """Whether a card call takes the bf16 form: bf16 q with a head of at
-    most ``HEAD_DIMS[-1]``; a wider bf16 head raises."""
+    most ``BF16_HEAD_DIMS[-1]``; a wider bf16 head raises."""
     if q.dtype != torch.bfloat16:
         return False
     if q.shape[-1] > HEAD_DIMS[-1]:
@@ -394,7 +426,7 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False, scale=None
     if q.device.type == "cpu":
         return blockwise_plain(q, k, v, kv_mask, causal, scale)
     bf16 = _bf16_form("flash_fwd", q)
-    width = padded_width(q.shape[-1])
+    width = padded_width(q.shape[-1], bf16)
     if width != q.shape[-1]:
         return fwd_padded(flash_fwd, width, q, k, v, kv_mask, causal, scale)
     idx, (B, N, Tq, Tk, D) = _check("flash_fwd", q, k, v, kv_mask)
@@ -426,7 +458,7 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, causal=False, scale=None):
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, kv_mask, o, lse, do, causal, scale)
     bf16 = _bf16_form("flash_bwd", q)
-    width = padded_width(q.shape[-1])
+    width = padded_width(q.shape[-1], bf16)
     if width != q.shape[-1]:
         return bwd_padded(flash_bwd, width, q, k, v, kv_mask, o, lse, do,
                           causal, scale)

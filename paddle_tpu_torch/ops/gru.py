@@ -591,6 +591,31 @@ class GruFunction(torch.autograd.Function):
         return dxs, None, dWg, dWs, dh0, None
 
 
+class _BiasFold(torch.autograd.Function):
+    """``xs + bias`` of the bf16 form, whose bias gradient is summed as
+    ``jax.vjp`` of ``gru_sequence_ref`` sums it at bf16: the scan's
+    transpose reduces each step's cotangent of ``x_t + bias`` over the
+    batch (f32 accumulation, rounded to bf16 once a step) and carries the
+    bias cotangent in bf16 from the last step to the first, rounding at
+    every step. One sum over all T * B rows, rounded once, lies farther
+    from the f32 gradient where the steps cancel (a narrow encoder's
+    ``wbias``: 0.00100 against JAX's 0.00037, ROADMAP Queue 3)."""
+
+    @staticmethod
+    def forward(ctx, xs, bias):
+        return xs + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        steps = g.sum(dim=1)  # [T, 3H], one rounding a step
+        if not steps.shape[0]:
+            return g, steps.new_zeros(steps.shape[1:])
+        acc = steps[-1]
+        for t in range(steps.shape[0] - 2, -1, -1):
+            acc = acc + steps[t]
+        return g, acc
+
+
 def gru_sequence(xs, mask, w_gate, w_state, bias, h0, reverse=False,
                  two_launch=False) -> Pair:
     """Fused GRU over a padded [T,B,3H] gate-projection sequence, the
@@ -610,8 +635,10 @@ def gru_sequence(xs, mask, w_gate, w_state, bias, h0, reverse=False,
         # f32, or JAX's promoted product of a mixed call: the float32
         # kernels on the exactly widened operands
         xs, w_gate, w_state, bias, h0 = (a.float() for a in ops)
-    xs_b = (xs + bias).contiguous()  # fold the bias in once (bf16: the
-    # reference's own x_t + bias, rounded)
+    # fold the bias in once (bf16: the reference's own x_t + bias, rounded,
+    # its gradient summed as the reference's scan sums it)
+    xs_b = (_BiasFold.apply(xs, bias) if xs.dtype == _BF16 else
+            xs + bias).contiguous()
     args = (xs_b, mask.contiguous(), w_gate, w_state, h0.contiguous())
     if xs.shape[0] and torch.is_grad_enabled() and any(
             a.requires_grad for a in args):

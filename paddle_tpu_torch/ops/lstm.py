@@ -55,18 +55,21 @@ sigmoid as ``1 / (1 + exp(-x))``, three roundings), ``ys = h_new * mask``
 promoted to f32 by the f32 mask (XLA takes ``og * tanh(c_new)`` there
 before h_new's rounding: ``_ys``), ``hT`` and ``cT`` bf16. The plain
 versions run that on bf16 tensors (``_sigmoid``), and the persistent
-kernels have a bf16 form (``csrc/lstm_seq.cu``, ``S = __nv_bfloat16``)
-with the same rounding points: the wrappers take it for bf16 ``xs``
-(counted in ``.bf16_launches``) and take the bias unfolded. Its reverse
-chain computes each step in f32 from the bf16 residuals and rounds where
-it stores (dgates, the dh and dc carries) and the recurrent product once;
-``dW`` is one f32-accumulated product rounded once, where JAX accumulates
-it in bf16 step by step. A mixed call (f32 ``xs`` with bf16 weights: every
-layer after the first recurrent one, whose f32 ``ys`` promote what
-follows) is JAX's promoted f32 product: the float32 kernels on the
-exactly widened weights. The bf16 forms keep the f32 weight in shared
-memory, so the plans (``lstm_plan``) are the float32 ones; the per-step
-route has no bf16 form and refuses bf16 on the card.
+route has a bf16 form on the tensor cores (``csrc/lstm_seq.cu``:
+``lstm_bf16_kernel``, ``lstm_bf16_chain_kernel``; ``mma.sync`` m16n8k16
+with bf16 operands and f32 sums, W resident in shared memory as bf16, h_t
+and dgates exchanged as bf16) with the same rounding points: the wrappers
+take it for bf16 ``xs`` (counted in ``.bf16_launches``) and take the bias
+unfolded. Its reverse chain computes each step in f32 from the bf16
+residuals and rounds where it stores (dgates, the dh and dc carries) and
+the recurrent product once; ``dW`` is one f32-accumulated product rounded
+once, where JAX accumulates it in bf16 step by step. A mixed call (f32
+``xs`` with bf16 weights: every layer after the first recurrent one,
+whose f32 ``ys`` promote what follows) is JAX's promoted f32 product: the
+float32 kernels on the exactly widened weights. The bf16 forms keep the
+f32 forms' units and grids, so they take every (B, H) of the persistent
+route; their shared memory is ``lstm_plan(..., bf16=True)``'s. The
+per-step route has no bf16 form and refuses bf16 on the card.
 """
 
 from __future__ import annotations
@@ -95,7 +98,8 @@ UNITS = (1, 2, 4, 10)
 GROUP_COLS = 16
 MAX_ROWS = 64
 PERSISTENT, PER_STEP = "persistent", "per_step"
-# the shared-memory kinds of csrc/lstm_seq.cu:lstm_smem
+# the shared-memory kinds of csrc/lstm_seq.cu:lstm_persistent_smem and
+# lstm_bf16_smem
 _KINDS = {"fwd": 0, "bwd": 1}
 
 
@@ -163,7 +167,48 @@ WARPS = 8
 SLOTS = 3
 
 
-def lstm_smem(B, H, units, kind) -> int:
+# the bf16 forms (csrc/lstm_seq.cu, last section): a forward warp's ring
+# of k16 chunks of h (kBfSlots)
+BF16_SLOTS = 4
+
+
+def bf16_ld(H) -> int:
+    """Row stride of the bf16 forward's exchange of h (``bf16_ld``): H
+    rounded up to the mma's k = 16; the columns past H are 0."""
+    return _cdiv(H, 16) * 16
+
+
+def _bf16_mtiles(B):
+    """m16 tiles of the batch rows in the bf16 products (``bf16_mtiles``)."""
+    return 1 if B <= 16 else 2 if B <= 32 else 4
+
+
+def chain_la(units) -> int:
+    """A block's row of the bf16 chain's dgates exchange (``chain_la``):
+    4 * units rounded up to 8 (16-byte copies)."""
+    return _cdiv(4 * units, 8) * 8
+
+
+def _bf16_smem(B, H, units, kind):
+    """``bf16_smem``: forward, W's 4 * units columns as bf16 rows in whole
+    n8 tiles (``bf16_ld(H)`` + 8 wide, the 16-byte pad keeps ldmatrix off
+    bank conflicts) and the warps' rings of h chunks, which then hold the 8
+    warps' f32 sums of the product; chain, W's 16 * units rows and the
+    staged dgates' rows (16 per m16 tile) over the R chunks of
+    ``chain_la`` columns rounded up to 16, + 8."""
+    mt = _bf16_mtiles(B)
+    if kind == "fwd":
+        nt = _cdiv(4 * units, 8)
+        sums_ld = 8 * nt + (0 if nt % 2 else 8)
+        ring = 2 * WARPS * BF16_SLOTS * 16 * mt * 16
+        sums = 4 * WARPS * 16 * mt * sums_ld
+        return 2 * 8 * nt * (bf16_ld(H) + 8) + max(ring, sums)
+    R = lstm_chain_grid(H, units) // GROUP_COLS
+    kp = _cdiv(R * chain_la(units), 16) * 16
+    return 2 * (GROUP_COLS * units + 16 * mt) * (kp + 8)
+
+
+def lstm_smem(B, H, units, kind, bf16=False) -> int:
     """Shared-memory bytes of a persistent block (``lstm_smem`` in the
     kernel). Forward (``kind="fwd"``): the 4 * units resident weight rows
     (H wide, padded to an odd number of float4s) and the 8 warps' staging
@@ -172,7 +217,10 @@ def lstm_smem(B, H, units, kind) -> int:
     group's 16 * units weight rows over the column group's 4 * units * R
     columns and the staging of its dgates, which then hold the K halves'
     sums and pass the partial out half the rows at a time. The carries and
-    the own inputs live in registers."""
+    the own inputs live in registers. ``bf16``: the bf16 forms' blocks
+    (``_bf16_smem``)."""
+    if bf16:
+        return _bf16_smem(B, H, units, kind)
     if kind == "fwd":
         rpl, mw = _fwd_rows(B)
         stage = WARPS * SLOTS * 8 * rpl * 8
@@ -187,21 +235,26 @@ def lstm_smem(B, H, units, kind) -> int:
                       8 * _half_rows(rpl) * (GROUP_COLS * units + 4)))
 
 
-def lstm_plan(B, H, sms=H100_SMS) -> dict:
+def lstm_plan(B, H, sms=H100_SMS, bf16=False) -> dict:
     """The persistent route's plan for a [B, H] recurrence on a card of
     ``sms`` SMs: ``units``, the forward's ``grid`` and the chain's
     ``grid_bwd``, and the bytes ``smem_fwd`` / ``smem_bwd`` of the forward
     and of the chain; ``route``: PERSISTENT where 1 <= B <= 64,
     H % 4 == 0, the units are one of ``UNITS`` with the chain grid within
-    the card's SMs and both blocks fit the card's limit; else PER_STEP."""
+    the card's SMs and both float32 blocks fit the card's limit; else
+    PER_STEP. ``bf16``: the bf16 forms' plan, the same units and grids
+    with their own blocks' bytes, on the route where the float32 plan is
+    and its own blocks fit too (they do at every such shape: at most
+    184,960 bytes, at (64, 1280))."""
     units = lstm_units(H, sms)
     ok = 1 <= B <= MAX_ROWS and H >= 4 and H % 4 == 0 and units in UNITS
+    smem = lambda kind, bf: lstm_smem(B, H, units, kind, bf) if ok else 0
     plan = dict(units=units, grid=_cdiv(H, units) if H else 0,
                 grid_bwd=lstm_chain_grid(H, units) if H else 0,
-                smem_fwd=lstm_smem(B, H, units, "fwd") if ok else 0,
-                smem_bwd=lstm_smem(B, H, units, "bwd") if ok else 0)
+                smem_fwd=smem("fwd", bf16), smem_bwd=smem("bwd", bf16))
     ok = ok and plan["grid_bwd"] <= sms and max(
-        plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_BYTES
+        smem("fwd", False), smem("bwd", False), plan["smem_fwd"],
+        plan["smem_bwd"]) <= SMEM_BYTES
     plan["route"] = PERSISTENT if ok else PER_STEP
     return plan
 
@@ -211,10 +264,12 @@ def lstm_route(B, H, sms=H100_SMS) -> str:
     return lstm_plan(B, H, sms)["route"]
 
 
-def persistent_smem_of_kernel(B, H, units, kind) -> int:
+def persistent_smem_of_kernel(B, H, units, kind, bf16=False) -> int:
     """The kernel's own count of a persistent block's shared-memory bytes
-    (card only: it loads the library), to hold ``lstm_smem`` against."""
-    fn = build.load("lstm_seq").lstm_persistent_smem
+    (card only: it loads the library), to hold ``lstm_smem`` against;
+    ``bf16``: the bf16 forms' (``lstm_bf16_smem``)."""
+    lib = build.load("lstm_seq")
+    fn = lib.lstm_bf16_smem if bf16 else lib.lstm_persistent_smem
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     return fn(B, H, units, _KINDS[kind])
@@ -377,51 +432,68 @@ def _seq_args(kernel, xs_b, mask, w, check_i, check_f, check_o, h0, c0,
 
 
 def _persistent_plan(t, B, H, per_step):
-    """The persistent route's plan for the card ``t`` lies on, or None for
-    the per-step route (forced, or the shape's)."""
+    """The persistent route's plan for the card ``t`` lies on (the bf16
+    forms' for a bf16 ``t``), or None for the per-step route (forced, or
+    the shape's)."""
     if per_step:
         return None
-    plan = lstm_plan(B, H, device_sms(t))
+    plan = lstm_plan(B, H, device_sms(t), bf16=t.dtype == _BF16)
     return plan if plan["route"] == PERSISTENT else None
 
 
 def _forward_persistent(kernel, plan, xs_b, mask, w, check_i, check_f,
                         check_o, h0, c0, gate_bias, ldw, residual):
     """One persistent forward launch in xs_b's dtype (the f32 or the bf16
-    form): (ys, hbuf, cT) or, ``residual``, (ys, hs, cs, gates). ys is
-    f32; hbuf [T, B, H] f32 holds h_t of every step (the f32 form: hs
-    itself; the bf16 form: the bf16 values widened, the blocks' exchange,
-    which the kernel stages as the f32 form does); the rest in xs_b's
-    dtype."""
+    form): (ys, hT, cT) or, ``residual``, (ys, hs, cs, gates); ys is f32,
+    the rest in xs_b's dtype. The f32 form writes h_t of every step into
+    hs (the blocks' exchange); the bf16 form into its exchange hx [T + 1,
+    B, ``bf16_ld(H)``] of bf16 values (h0 in slot 0, zero columns past H),
+    of which hs is a view where the stride is H."""
     T, B, _ = xs_b.shape
     H = h0.shape[1]
     dev, dt = xs_b.device, xs_b.dtype
     new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
                                                device=dev)
-    bf16 = dt == _BF16
-    ys, hbuf = new(T, B, H, dtype=torch.float32), new(T, B, H,
-                                                      dtype=torch.float32)
-    hs = new(T, B, H) if residual and bf16 else None
+    ys = new(T, B, H, dtype=torch.float32)
     cs, gates = (new(T, B, H), new(T, B, 4 * H)) if residual else (None,
                                                                    None)
     c = None if residual else c0.clone()
     count = torch.empty(1, dtype=torch.int32, device=dev)
-    # h0 staged with 16-byte copies (bf16: a fresh widened tensor)
-    h0s = h0.float() if bf16 else aligned(h0)
     ptr = lambda t: None if t is None else t.data_ptr()
+    bf16 = dt == _BF16
+    if bf16:
+        ld = bf16_ld(H)
+        hx = (torch.empty if ld == H else torch.zeros)(
+            (T + 1, B, ld), dtype=dt, device=dev)
+        hx[0, :, :H].copy_(h0)
+    else:
+        hx = new(T, B, H)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_seq", "lstm_seq_forward_persistent", 16, 7)(
-            xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
-            check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
-            ptr(gate_bias if bf16 else None), h0s.data_ptr(),
-            c0.data_ptr(), hbuf.data_ptr(), ptr(c), ys.data_ptr(), ptr(hs),
-            ptr(cs), ptr(gates), count.data_ptr(), int(residual), int(bf16),
-            ldw, T, B, H, plan["units"], stream)
+        if bf16:
+            err = build.bind("lstm_seq", "lstm_bf16_forward", 14, 6)(
+                xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
+                gate_bias.data_ptr(), c0.data_ptr(), hx.data_ptr(), ptr(c),
+                ys.data_ptr(), ptr(cs), ptr(gates), count.data_ptr(),
+                int(residual), ldw, T, B, H, plan["units"], stream)
+        else:
+            # h0 staged with 16-byte copies
+            err = build.bind("lstm_seq", "lstm_seq_forward_persistent", 14,
+                             6)(
+                xs_b.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                check_i.data_ptr(), check_f.data_ptr(), check_o.data_ptr(),
+                aligned(h0).data_ptr(), c0.data_ptr(), hx.data_ptr(),
+                ptr(c), ys.data_ptr(), ptr(cs), ptr(gates),
+                count.data_ptr(), int(residual), ldw, T, B, H,
+                plan["units"], stream)
     build.raise_coop(err, kernel, plan)
-    if residual:
-        return ys, hbuf if hs is None else hs, cs, gates
-    return ys, hbuf[-1].to(dt) if T else h0, c
+    if not bf16:
+        return (ys, hx, cs, gates) if residual else (
+            ys, hx[-1] if T else h0, c)
+    hs = hx[1:, :, :H] if residual else hx[T, :, :H]
+    hs = hs if hx.shape[2] == H else hs.contiguous()
+    return (ys, hs, cs, gates) if residual else (ys, hs if T else h0, c)
 
 
 def lstm_seq(xs_b, mask, w, check_i, check_f, check_o, h0, c0,
@@ -624,19 +696,24 @@ def lstm_bwd_chain(dys, mask, gates, cs, c0, w, check_i, check_f, check_o,
                          "persistent route (lstm_route); the per-step "
                          "backward (lstm_bwd_step) takes it")
     U, G = plan["units"], plan["grid_bwd"]
+    bf16 = dt == _BF16
     dxs = torch.empty((T, B, 4 * H), dtype=dt, device=dev)
-    dgs = torch.empty((2, G, B, 4 * U), dtype=torch.float32, device=dev)
+    # the blocks' exchange of dgates: bf16 rows of chain_la(U) in the bf16
+    # form, f32 rows of 4U in the f32 form
+    dgs = torch.empty((2, G, B, chain_la(U) if bf16 else 4 * U), dtype=dt,
+                      device=dev)
     part = torch.empty((2, G, B, GROUP_COLS * U), dtype=torch.float32,
                        device=dev)
     dh0, dc0 = (torch.empty(bh, dtype=dt, device=dev) for _ in range(2))
     count = torch.empty(G // GROUP_COLS + GROUP_COLS, dtype=torch.int32,
                         device=dev)
+    entry = "lstm_bf16_chain" if bf16 else "lstm_bwd_chain_launch"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("lstm_seq", "lstm_bwd_chain_launch", 17, 6)(
+        err = build.bind("lstm_seq", entry, 17, 5)(
             *(a.data_ptr() for a in args), dxs.data_ptr(), dgs.data_ptr(),
             part.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            count.data_ptr(), int(dt == _BF16), ldw, T, B, H, U, stream)
+            count.data_ptr(), ldw, T, B, H, U, stream)
     build.raise_coop(err, "lstm_bwd_chain", plan)
     build.count_launch(lstm_bwd_chain, cs, 1 if T else 0)
     return dxs, dh0, dc0

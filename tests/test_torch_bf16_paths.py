@@ -8,6 +8,10 @@ parameters and the same batch:
 - ``seq2seq``: ``seq2seq_attention`` (its decoder's ``gru_step`` meets an
   f32 state and input with bf16 weights: JAX's promotion, which the
   port's cells raised on before);
+- ``seq2seq_narrow``: the same at embed = hidden = 8 and length 4, where
+  the encoder GRU's bias gradient cancels over the batch (the port summed
+  it over all T * B rows at once; JAX's scan sums it a step at a time in
+  bf16, ``ops/gru.py:_BiasFold``);
 - ``seq2seq_att``: the same with the encoder self-attention block
   (``seq_parallel="ring"``, dense on one device): flash gets bf16 q, k,
   v, its output promoted by the f32 mask;
@@ -62,12 +66,14 @@ from paddle_tpu_torch.trainer.trainer import SGD
 from test_torch_bf16 import _grad_close
 
 V, E, H, T = 20, 16, 16, 6        # seq2seq: dicts, embed, hidden, length
+E_N, H_N, T_N = 8, 8, 4           # the narrow seq2seq
 FEATS, LABELS = 40, 5             # the linear CRF: features, labels
 
 
-def _s2s(dsl, **kw):
+def _s2s(dsl, embed=E, hidden=H, **kw):
     fn = j_seq2seq if dsl is jdsl else t_seq2seq
-    return fn(src_vocab=V, trg_vocab=V - 4, embed_dim=E, hidden=H, **kw)[0]
+    return fn(src_vocab=V, trg_vocab=V - 4, embed_dim=embed, hidden=hidden,
+              **kw)[0]
 
 
 def _gru_group(dsl):
@@ -128,10 +134,10 @@ def linear_crf(dsl, features, labels):
     return cost
 
 
-def _s2s_batch(rng, n=4):
+def _s2s_batch(rng, n=4, t=T):
     out = []
     for _ in range(n):
-        src = rng.integers(2, V, size=int(rng.integers(1, T + 1)))
+        src = rng.integers(2, V, size=int(rng.integers(1, t + 1)))
         trg = [2 + int(i) % (V - 6) for i in src[::-1]]
         out.append((src.tolist(), [0] + trg[:-1], trg))
     return out
@@ -162,6 +168,10 @@ MODELS = {
     "seq2seq": dict(
         build=_s2s, batch=_s2s_batch, feeding=_s2s_feeding,
         bf16=("src_emb", "trg_emb", "enc_f_in", "enc_b_in")),
+    "seq2seq_narrow": dict(
+        build=lambda dsl: _s2s(dsl, embed=E_N, hidden=H_N),
+        batch=lambda rng: _s2s_batch(rng, t=T_N), feeding=_s2s_feeding,
+        bf16=("src_emb", "trg_emb", "enc_f_in", "enc_b_in"), pad=T_N),
     "seq2seq_att": dict(
         build=lambda dsl: _s2s(dsl, seq_parallel="ring", num_heads=2),
         batch=_s2s_batch, feeding=_s2s_feeding,
@@ -217,8 +227,9 @@ def model(request):
                      device="cpu", compute_dtype=dt)
                  for dt in ("bfloat16", None))
     batch = spec["batch"](np.random.default_rng(1))
-    jfeed = JFeeder(spec["feeding"](jtypes), pad_multiple=T)(batch)
-    tfeed = TFeeder(spec["feeding"](ttypes), pad_multiple=T,
+    pad = spec.get("pad", T)
+    jfeed = JFeeder(spec["feeding"](jtypes), pad_multiple=pad)(batch)
+    tfeed = TFeeder(spec["feeding"](ttypes), pad_multiple=pad,
                     device="cpu")(batch)
     return request.param, spec, jtr, ttr, jfeed, tfeed, tf32
 

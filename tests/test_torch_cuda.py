@@ -2372,6 +2372,133 @@ def test_flash_bf16_forms_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(64, 1280), (1, 1280), (33, 1280),
+                                 (64, 128), (16, 512), (5, 40), (17, 100),
+                                 (3, 12)])
+def test_lstm_bf16_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
+    """The bf16 forms' shared-memory arithmetic (``lstm_plan(...,
+    bf16=True)``) equals the kernels' own, within a block's limit, on the
+    float32 plan's units and grids."""
+    plan = tlstm.lstm_plan(B, H, bf16=True)
+    f32 = tlstm.lstm_plan(B, H)
+    assert plan["route"] == f32["route"] == tlstm.PERSISTENT
+    assert (plan["units"], plan["grid"], plan["grid_bwd"]) == (
+        f32["units"], f32["grid"], f32["grid_bwd"])
+    for kind in ("fwd", "bwd"):
+        assert tlstm.persistent_smem_of_kernel(
+            B, H, plan["units"], kind, bf16=True) == plan["smem_" + kind] \
+            <= tlstm.SMEM_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(3, 64, 1280), (9, 17, 100), (6, 3, 12),
+                                   (5, 33, 1280)])
+def test_lstm_bf16_tensor_core_forms_hold_rounding_points_on_card(
+        cuda_device, T, B, H):
+    """The tensor-core bf16 forms at widths off the mma tiles (H not a
+    multiple of 16: the exchange's zero columns; B off the m16 tiles; U =
+    1, 2, 10): within 2e-2 of the plain bf16 versions' largest entries,
+    at most 1 % of the elements beyond one bf16 ulp of their plain value,
+    none beyond 4 ulps of the largest entry; the chain bit-equal over two
+    runs."""
+    xs, mask, w, pi, pf, po, h0, c0 = (
+        torch.from_numpy(a).to(cuda_device) for a in _inputs(T, B, H, B + T))
+    bb = (torch.randn(4 * H, device=cuda_device) * 0.1).to(BF16)
+    b = [t.to(BF16) for t in (xs, w, pi, pf, po, h0, c0)]
+    args = (b[0], mask, *b[1:])
+    fl = [t.float() for t in b]
+    f_args = (fl[0] + bb.float(), mask, *fl[1:])
+
+    def ulps(got, want):
+        for g, w_ in zip(got, want):
+            g, w_ = g.float(), w_.float()
+            ulp = lambda x: torch.exp2(torch.floor(torch.log2(
+                x.abs().clamp(min=2.0 ** -126))) - 7)
+            d = (g - w_).abs()
+            assert (d > ulp(w_)).float().mean().item() <= 1e-2
+            assert (d.max() / ulp(w_.abs().max())).item() <= 4
+
+    res = tlstm.lstm_seq_train(*args, gate_bias=bb)
+    prim = tlstm.lstm_seq(*args, gate_bias=bb)
+    res_p = tlstm.lstm_sequence_residual_plain(*args, gate_bias=bb)
+    prim_p = tlstm.lstm_sequence_plain(*args, gate_bias=bb)
+    torch.cuda.synchronize()
+    _bf16_held(res, res_p, tlstm.lstm_sequence_residual_plain(*f_args))
+    _bf16_held(prim, prim_p, tlstm.lstm_sequence_plain(*f_args))
+    ulps(res, res_p)
+    ulps(prim, prim_p)
+    g = torch.Generator(device=cuda_device).manual_seed(T + B)
+    dys = torch.randn(T, B, H, generator=g, device=cuda_device)
+    dhT, dcT = (torch.randn(B, H, generator=g, device=cuda_device).to(BF16)
+                for _ in range(2))
+    chain_args = (dys, mask, res_p[3], res_p[2], b[6], b[1], *b[2:5], dhT,
+                  dcT)
+    chain = tlstm.lstm_bwd_chain(*chain_args)
+    again = tlstm.lstm_bwd_chain(*chain_args)
+    chain_p = tlstm.lstm_bwd_chain_plain(
+        *chain_args, units=tlstm.lstm_plan(B, H)["units"])
+    torch.cuda.synchronize()
+    _bf16_held(chain, chain_p, tlstm.lstm_bwd_chain_plain(
+        dys, mask, *(t.float() for t in chain_args[2:])))
+    ulps(chain, chain_p)
+    for g1, g2 in zip(chain, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", tattn.BF16_HEAD_DIMS)
+def test_flash_bf16_plan_matches_the_kernel_smem_on_card(cuda_device, D):
+    """``flash_plan(D, bf16=True)``'s shared-memory bytes are what each
+    bf16 kernel requests (``flash_bf16_smem``), within a block's limit."""
+    plan = tattn.flash_plan(D, bf16=True)
+    for kernel in ("fwd", "dq", "dkdv"):
+        assert tattn.flash_smem_of_kernel(kernel, D, bf16=True) == \
+            plan["smem_" + kernel] <= tattn.build.SMEM_BYTES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Tq,Tk,D,causal", [
+    (2, 2, 8, 8, 8, False), (2, 3, 70, 45, 16, True),
+    (1, 2, 130, 130, 32, True), (3, 2, 64, 200, 64, False),
+    (2, 2, 8, 8, 64, False)])
+def test_flash_bf16_tensor_core_forms_on_card(cuda_device, B, N, Tq, Tk, D,
+                                              causal):
+    """The tensor-core bf16 forms at every instance (D = 8 padded to 16),
+    ragged and causal with Tq != Tk (rows that see no key): o, dq, dk, dv
+    against the plain bf16 versions as ``_bf16_held``; at Tq = Tk = 8 at
+    most 1 % of the elements beyond one bf16 ulp (not causal: there the
+    first row sees one key, P = 1 and dS = dO . v - delta cancels to
+    rounding noise in both versions, so its dq row is noise); two
+    backward runs bit-equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + Tq + Tk + D)
+    q, k, v, do = (torch.randn(B, N, t, D, generator=g, device=cuda_device)
+                   .to(BF16) for t in (Tq, Tk, Tk, Tq))
+    mask = torch.ones(B, Tk, device=cuda_device)
+    mask[0, Tk // 3:] = 0.0
+    mask[-1, :2] = 0.0
+    o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+    grads = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    again = tattn.flash_bwd(q, k, v, mask, o, lse, do, causal)
+    torch.cuda.synchronize()
+    w_o, w_lse = tattn.blockwise_plain(q, k, v, mask, causal)
+    f = [t.float() for t in (q, k, v, do)]
+    f_o, f_lse = tattn.blockwise_plain(*f[:3], mask, causal)
+    _bf16_held((o,), (w_o,), (f_o,))
+    want = tattn.flash_bwd_plain(q, k, v, mask, w_o, w_lse, do, causal)
+    _bf16_held(grads, want, tattn.flash_bwd_plain(*f[:3], mask, f_o, f_lse,
+                                                  f[3], causal))
+    torch.testing.assert_close(lse, w_lse, rtol=1e-5, atol=1e-5)
+    if Tk <= 8:
+        for got, w_ in zip((o,) + grads, (w_o,) + want):
+            got, w_ = got.float(), w_.float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                w_.abs().clamp(min=2.0 ** -126))) - 7)
+            assert ((got - w_).abs() > ulp).float().mean().item() <= 1e-2
+    for g1, g2 in zip(grads, again):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,C", [(16, 80, 23), (1, 80, 23), (16, 3, 23),
                                    (4, 20, 9)])
 def test_crf_bf16_forms_match_plain_on_card(cuda_device, B, T, C):
