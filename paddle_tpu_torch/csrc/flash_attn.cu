@@ -156,11 +156,11 @@
 //
 // Limits: D in {8, 16, 32, 64, 128} on the tensor cores (template
 // instances; the wrapper pads any other D <= 128 with zero columns up to
-// the next instance); 128 < D <= 1024 on the wide-head path below (f32 on
-// the CUDA cores, a warp a row); any D above on the split-row path (a
-// block a row); B * N on the grid's x (up to 2^31 - 1), the query (or kv)
-// blocks on its y (up to 65535 x 64 rows; the wide path's 65535 x 8); the
-// split-row path's B * N * T rows on x.
+// the next instance); 128 < D <= 1024 on the wide-head path below (split
+// TF32 on the tensor cores too, 16 rows a block); any D above on the
+// split-row path (a block a row); B * N on the grid's x (up to 2^31 - 1),
+// the query (or kv) blocks on its y (up to 65535 x 64 rows; the wide
+// path's 65535 x 16); the split-row path's B * N * T rows on x.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -749,11 +749,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The first key of a mask row with mask > 0 (Tk if none; 0 for a null
-// mask); every thread of the block takes part. red: kWarps ints.
+// mask); every thread of a block of NT takes part. red: NT / 32 ints.
+template <int NT = kThreads>
 __device__ __forceinline__ int first_key(const float* __restrict__ mrow,
                                          int Tk, int* red) {
   if (mrow == nullptr) return 0;
-  for (int base = 0; base < Tk; base += kThreads) {
+  for (int base = 0; base < Tk; base += NT) {
     const int j = base + threadIdx.x;
     const bool hit = j < Tk && mrow[j] > 0.f;
     if (__syncthreads_or(hit)) {
@@ -764,7 +765,7 @@ __device__ __forceinline__ int first_key(const float* __restrict__ mrow,
       __syncthreads();
       int fk = red[0];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) fk = red[w] < fk ? red[w] : fk;
+      for (int w = 1; w < NT / 32; ++w) fk = red[w] < fk ? red[w] : fk;
       return fk;
     }
   }
@@ -877,114 +878,367 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------- wide heads
-// D > 128, up to kWideMaxD: f32 on the CUDA cores, no tensor cores (speed
-// recorded, not targeted; PERF.md). A block of kWideWarps warps owns
-// kWideWarps rows, a warp each: query rows in the forward and dq, keys in
-// dkdv. A lane holds the elements d = lane + 32 u (u < DL, D <= 32 DL) of
-// its warp's row in registers across the sweep (q and the o accumulator;
-// q, dO and dq; k, v, dk and dv). The streamed rows (k and v, or q and dO
-// with the rows' m, log l and delta) come by 4-byte cp.async, zero-filled
-// past D and past the end, into a two-stage ring of kWideStage floats a
-// tile, shared by the block's warps. A dot product is each lane's terms in
-// order, then a xor butterfly (the same bits on every lane); the online
-// softmax, masks, causal offset, key tails and rows that see no key
-// follow the tensor-core kernels' rules above: a row sees no key iff its
-// running max stays -1e9, and then o = sum_{j<Tk} v_j / Tk_pad (a second
-// pass over v), m = -1e9, log l = log Tk_pad; dq's sum takes no masked
-// score, and dkdv's P of a masked score is exp((-1e9 - m) - log l), 0 but
-// for such rows (dO / Tk_pad). Every output element is summed by one lane
-// in a fixed order: no atomics, two runs give the same bits.
+// 128 < D <= kWideMaxD: f32 on the tensor cores in split TF32, the
+// arithmetic of the kernels above. A warp's 16 x D accumulator does not
+// fit in registers above D = 256, so a block of kWideWarps warps owns
+// kWideRows rows (query rows in the forward and dq, keys in dkdv) and
+// splits the work across its warps. D is padded with zero columns to a
+// multiple of kWideChunk; the streamed operand (k and v; or q and dO)
+// comes by cp.async in chunks of kWideKeys rows by kWideChunk columns,
+// through a ring of chunks (the forward's 4: three in flight while one is
+// computed; the backward's 2; one __syncthreads a chunk):
+// - a product over D (the scores S = Q K^T and dP = dO V^T; dkdv their
+//   transposes K Q^T and V dO^T) splits the tile's kWideKeys rows: warp w
+//   sums its 8 (keys; queries in dkdv) over all of D, chunk by chunk, a
+//   fresh mma accumulator each half chunk added in f32, so that each score
+//   is one warp's sum in a fixed order;
+// - a product into D (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q)
+//   splits D: warp w owns the columns [c kWideChunk + 8 w, c kWideChunk +
+//   8 w + 8) of each chunk c, summed in its registers (Dp / 8 columns a
+//   warp), a fresh accumulator a tile added in f32; P and dS are split
+//   into TF32 big and small once, into shared memory, by the warp that
+//   computed them.
+// The block's own rows (q; q and dO; k and v), the A operand of the
+// products over D, stay in shared memory for the whole sweep, split into
+// TF32 big and small once, in the order of the mma's A fragments (each
+// warp reads all of them; split at each use they cost the forward a
+// quarter of its time on the H100); dq's and dkdv's two at D > 512 do
+// not fit so, and are split at each use. The forward's online softmax
+// takes each row's max and sum over the 8 warps' keys through shared
+// memory (the sums added in warp order); the masks, the causal offset,
+// the key tails and the rows that see no key follow the rules of the
+// kernels above. A kv tile (a query tile in dkdv) of kWideKeys rows
+// streams: forward, its k chunks (S), then its v chunks (O); dq, its k
+// (S), v (dP) and k again (dQ); dkdv, its q (S^T), dO (dP^T and dV from
+// one staging) and q again (dK). Work whose result is known is skipped: a
+// kv row with no real key takes the forward straight to its no-key pass
+// and gives dq = 0 without a sweep; a dkdv block none of whose keys is
+// real stages only the dO of the rows that see no key (dV), dK = 0. No
+// atomics: two runs give the same bits.
+// Where a launch of the 16-chunk instance (512 < D <= 1024) has fewer
+// blocks than the card has SMs (a short sequence: [2, 2, 64, 64, 1024] is
+// 16), the outputs' chunks are split over gridDim.z parts (wide_parts):
+// part z's blocks compute the products over D (the scores, dP) whole and
+// only the products into D of the chunks [z nc / parts, (z + 1) nc /
+// parts) (wide_part), staging just those chunks for them; the
+// accumulators stay indexed by the absolute chunk, so each output element
+// is the same sum in the same order, the same bits at any number of
+// parts. Part 0 writes the stats and delta. The 4- and 8-chunk instances
+// do not split: they sit at 128 registers, where the parts' bookkeeping
+// spilled and cost their backward 3-7 % at one part (PERF.md, PR 24).
+//
+// What bounds them on the H100: not the operations (the split-TF32 bound
+// of [2, 4, 300, 300, 256] is 0.003 ms forward) but shared memory and the
+// mma issue: every warp reads the whole A operand and P of its block,
+// 8 x 16 x 64 split words a chunk each (about 80 KB of shared-memory
+// reads a chunk and block, against 20 KB of k or v staged); a first
+// design that split the scores' sums over D across the warps (partials
+// added in shared memory) read less of A but as much of the partials, and
+// measured slower (PERF.md, PR 24).
 constexpr int kWideWarps = 8;
-constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideThreads = 32 * kWideWarps;  // 256
+constexpr int kWideRows = 16;   // rows a block owns
+constexpr int kWideKeys = 64;   // rows of a streamed tile: 8 a warp
+constexpr int kWideChunk = 64;  // columns of a staged chunk: 8 a warp
+// chunks of the ring: the forward's, the backward's (measured faster
+// than 4 there, where the block's rows and the ring share the SM)
+constexpr int kWideStagesFwd = 4, kWideStagesBwd = 2;
 constexpr int kWideMaxD = 1024;
-constexpr int kWideStage = 4096;  // floats of one staged tile
+constexpr int kWideLd = kWideChunk + 4;  // a staged chunk's row stride
+constexpr int kWideSld = kWideKeys + 4;  // P's (and dS's) row stride
+// floats of the ring, of P (or dS) split in two, and of the rows'
+// vectors (the warps' row maxima and sums; dq's delta)
+constexpr int kWideStage = kWideKeys * kWideLd;
+constexpr int kWideP = 2 * kWideRows * kWideSld;
+constexpr int kWideVec = 2 * kWideWarps * kWideRows + kWideRows;
 
-// a lane's elements of a row: D <= 32 DL
-__host__ __device__ constexpr int wide_lanes(int D) {
-  return D <= 256 ? 8 : (D <= 512 ? 16 : 32);
+// D padded to whole chunks, and the resident rows' stride
+__host__ __device__ constexpr int wide_dp(int D) {
+  return (D + kWideChunk - 1) / kWideChunk * kWideChunk;
 }
-// rows (keys, or queries in dkdv) a ring stage holds: 16, 8, 4
-__host__ __device__ constexpr int wide_rows(int DL) {
-  return kWideStage / (32 * DL);
+__host__ __device__ constexpr int wide_ld(int D) { return wide_dp(D) + 4; }
+// chunks of D, instance of it (4, 8, 16: D <= 256, 512, 1024)
+__host__ __device__ constexpr int wide_chunks(int D) {
+  return wide_dp(D) / kWideChunk;
 }
-// floats of a ring stage: two tiles and `vecs` vectors of its rows (the
-// mask; or m, log l, delta)
-__host__ __device__ constexpr int wide_stage(int DL, int vecs) {
-  return 2 * kWideStage + vecs * wide_rows(DL);
+__host__ __device__ constexpr int wide_instance(int D) {
+  return wide_chunks(D) <= 4 ? 4 : (wide_chunks(D) <= 8 ? 8 : 16);
 }
-// dynamic shared memory of kernel `which` (0 forward, 1 dq, 2 dkdv)
-__host__ __device__ constexpr size_t wide_smem(int which, int DL) {
-  return sizeof(float) * 2 * wide_stage(DL, which == 2 ? 3 : 1);
+// whether instance NC splits its outputs' chunks into parts
+__host__ __device__ constexpr bool wide_splits(int NC) { return NC == 16; }
+// parts the outputs' chunks split into (gridDim.z) for a launch of
+// `blocks` blocks (B N times the row blocks) at nc chunks of instance NC:
+// doubled while the blocks stay within the card's SMs and a part keeps a
+// chunk
+inline int wide_parts(long long blocks, int NC, int nc, int sms) {
+  int parts = 1;
+  while (wide_splits(NC) && 2 * parts <= nc && blocks * 2 * parts <= sms)
+    parts *= 2;
+  return parts;
+}
+// this block's part of the nc output chunks, [lo, hi): all of them where
+// instance NC does not split
+template <int NC>
+__device__ __forceinline__ void wide_part(int nc, int& lo, int& hi) {
+  lo = 0;
+  hi = nc;
+  if constexpr (wide_splits(NC)) {
+    lo = static_cast<int>(blockIdx.z) * nc / static_cast<int>(gridDim.z);
+    hi = (static_cast<int>(blockIdx.z) + 1) * nc /
+         static_cast<int>(gridDim.z);
+  }
+}
+// whether kernel `which` (0 forward, 1 dq, 2 dkdv) of instance NC keeps
+// its resident rows pre-split (2 x 16 x Dp words each), else raw (16 x
+// ld floats)
+__host__ __device__ constexpr bool wide_presplit(int which, int NC) {
+  return which == 0 || NC <= 8;
+}
+// dynamic shared memory of kernel `which`: its resident rows (q; q and
+// dO; k and v), the ring, P and the vectors
+__host__ __device__ constexpr size_t wide_smem(int which, int D) {
+  return sizeof(float) *
+         ((which == 0 ? 1 : 2) * kWideRows *
+              (wide_presplit(which, wide_instance(D)) ? 2 * wide_dp(D)
+                                                      : wide_ld(D)) +
+          (which == 0 ? kWideStagesFwd : kWideStagesBwd) * kWideStage +
+          kWideP + kWideVec);
 }
 
-__device__ __forceinline__ float wide_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// rows [row0, row0 + R) of a [rows, D] matrix into dst [R][32 DL], zeros
-// past D and past its last row; every thread of the block takes part
-template <int DL>
-__device__ __forceinline__ void wide_tile(float* dst,
+// rows [r0, r0 + R) x columns [c0, c0 + W) of a [rows, D] matrix into dst
+// (row stride ld), zeros past its last row and past D: 16-byte copies
+// where D % 4 == 0, else 4-byte; every thread of the block takes part
+template <int R, int W>
+__device__ __forceinline__ void wide_copy(float* dst,
                                           const float* __restrict__ src,
-                                          int row0, int rows, int D) {
-  constexpr int W = 32 * DL, R = wide_rows(DL);
-  for (int i = threadIdx.x; i < R * W; i += kWideThreads) {
-    const int r = i / W, d = i - r * W;
-    const int row = row0 + r;
-    const bool valid = row < rows && d < D;
-    cp4(dst + i, src + (valid ? static_cast<size_t>(row) * D + d : 0),
-        valid);
+                                          int r0, int rows, int c0, int D,
+                                          int ld) {
+  if (D % 4 == 0) {
+    for (int i = threadIdx.x; i < R * W / 4; i += kWideThreads) {
+      const int r = i / (W / 4), c = 4 * (i % (W / 4));
+      const int row = r0 + r, col = c0 + c;
+      const bool valid = row < rows && col < D;
+      cp16(dst + r * ld + c,
+           src + (valid ? static_cast<size_t>(row) * D + col : 0), valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * W; i += kWideThreads) {
+      const int r = i / W, c = i % W;
+      const int row = r0 + r, col = c0 + c;
+      const bool valid = row < rows && col < D;
+      cp4(dst + r * ld + c,
+          src + (valid ? static_cast<size_t>(row) * D + col : 0), valid);
+    }
   }
 }
 
-// a row's elements of this lane into r (0 past D, or everywhere if !valid)
-template <int DL>
-__device__ __forceinline__ void wide_row(float (&r)[DL],
-                                         const float* __restrict__ src,
-                                         bool valid, int lane, int D) {
+// the block's resident rows [r0, r0 + kWideRows) of a [rows, D] matrix,
+// every chunk (zeros past D and past its last row); not committed
+__device__ __forceinline__ void wide_resident(float* dst,
+                                              const float* __restrict__ src,
+                                              int r0, int rows, int nc,
+                                              int D, int ld) {
+  for (int c = 0; c < nc; ++c)
+    wide_copy<kWideRows, kWideChunk>(dst + c * kWideChunk, src, r0, rows,
+                                     c * kWideChunk, D, ld);
+}
+
+// rows [r0, r0 + 16) of a [rows, D] matrix (zeros past its last row and
+// past D), split into TF32 big and small in the order of the mma's A
+// fragments: words 8 (32 kk + l) + [0, 4) the big and [4, 8) the small
+// halves of lane l's (g, 8 kk + t), (g + 8, ..), (g, 8 kk + t + 4),
+// (g + 8, ..) for k step kk < nk; every thread of the block takes part
+__device__ __forceinline__ void wide_frag(unsigned* fr,
+                                          const float* __restrict__ src,
+                                          int r0, int rows, int D, int nk) {
+  for (int i = threadIdx.x; i < 32 * nk; i += kWideThreads) {
+    const int kk = i / 32, l = i % 32, g = l >> 2, t = l & 3;
+    unsigned w[8];
 #pragma unroll
-  for (int u = 0; u < DL; ++u) {
-    const int d = lane + 32 * u;
-    r[u] = valid && d < D ? src[d] : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), c = 8 * kk + t + 4 * (e >> 1);
+      split(r < rows && c < D ? src[static_cast<size_t>(r) * D + c] : 0.f,
+            w[e], w[4 + e]);
+    }
+    *reinterpret_cast<uint4*>(fr + 8 * i) = make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(fr + 8 * i + 4) =
+        make_uint4(w[4], w[5], w[6], w[7]);
   }
 }
 
-// the lane's terms of row r of a staged tile against a, in order, then
-// the butterfly
-template <int DL>
-__device__ __forceinline__ float wide_dot(const float (&a)[DL],
-                                          const float* tile, int r,
-                                          int lane) {
-  const float* row = tile + r * 32 * DL + lane;
-  float part = 0.f;
+// s (16 rows x the 8 rows [bn, bn + 8) of the staged chunk bs) += A[:,
+// ac, ac + kWideChunk) bs[bn .., :]^T over the chunk's columns in split
+// TF32: the chunk's two halves of kWideHalf k steps each in a fresh
+// accumulator (two independent mma chains, interleaved), added to s in
+// order. A: the block's rows, pre-split (kFrag: wide_frag's words at a)
+// or raw (row stride lda).
+constexpr int kWideHalf = kWideChunk / 16;
+template <bool kFrag>
+__device__ __forceinline__ void wide_scores(float (&s)[4], const void* a,
+                                            int lda, int ac, const float* bs,
+                                            int bn, int g, int t) {
+  float u[2][4] = {};
 #pragma unroll
-  for (int u = 0; u < DL; ++u) part += a[u] * row[32 * u];
-  return wide_sum(part);
-}
-
-// acc += w * row r of a staged tile
-template <int DL>
-__device__ __forceinline__ void wide_axpy(float (&acc)[DL], float w,
-                                          const float* tile, int r,
-                                          int lane) {
-  const float* row = tile + r * 32 * DL + lane;
+  for (int h = 0; h < kWideHalf; ++h) {
 #pragma unroll
-  for (int u = 0; u < DL; ++u) acc[u] += w * row[32 * u];
+    for (int half = 0; half < 2; ++half) {
+      const int kk = (ac >> 3) + half * kWideHalf + h;
+      FragA fa;
+      FragB fb;
+      if constexpr (kFrag) {
+        const uint4* f = reinterpret_cast<const uint4*>(a) +
+                         2 * (32 * kk + 4 * g + t);
+        const uint4 big = f[0], small = f[1];
+        fa.big[0] = big.x;
+        fa.big[1] = big.y;
+        fa.big[2] = big.z;
+        fa.big[3] = big.w;
+        fa.small[0] = small.x;
+        fa.small[1] = small.y;
+        fa.small[2] = small.z;
+        fa.small[3] = small.w;
+      } else {
+        load_a(fa, static_cast<const float*>(a), lda, 0, 8 * kk, g, t);
+      }
+      load_bt(fb, bs, kWideLd, bn, 8 * (half * kWideHalf + h), g, t);
+      mma3(u[half], fa, fb);
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] += u[half][i];
 }
 
-// the key rows a query block of kWideWarps rows from q0 sweeps: all, or
-// with causal up to its last row's diagonal
-__device__ __forceinline__ int wide_keys(int q0, int Tq, int Tk,
-                                         int causal) {
-  if (!causal) return Tk;
-  const int last = (q0 + kWideWarps < Tq ? q0 + kWideWarps : Tq) - 1;
-  const int n = last + (Tk - Tq) + 1;
-  return n < 0 ? 0 : (n < Tk ? n : Tk);
+// the block's resident A rows: pre-split (kFrag) or raw, not committed
+template <bool kFrag>
+__device__ __forceinline__ void wide_a_rows(void* dst,
+                                            const float* __restrict__ src,
+                                            int r0, int rows, int nc, int D,
+                                            int ld) {
+  if constexpr (kFrag) {
+    wide_frag(static_cast<unsigned*>(dst), src, r0, rows, D,
+              nc * kWideChunk / 8);
+  } else {
+    wide_resident(static_cast<float*>(dst), src, r0, rows, nc, D, ld);
+  }
 }
 
-template <int DL>
+// x into P's TF32 big and small halves at (r, c)
+__device__ __forceinline__ void wide_put_p(unsigned* pb, float x, int r,
+                                           int c) {
+  unsigned big, small;
+  split(x, big, small);
+  pb[r * kWideSld + c] = big;
+  pb[(kWideRows + r) * kWideSld + c] = small;
+}
+
+// the warp's four scores (rows g, g + 8; its columns 8 w + 2 t, + 1) into
+// P's halves
+__device__ __forceinline__ void wide_put_p4(unsigned* pb, const float (&x)[4],
+                                            int warp, int g, int t) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    wide_put_p(pb, x[e], g + 8 * (e >> 1), 8 * warp + 2 * t + (e & 1));
+}
+
+// acc (16 rows x the 8 columns [xc, xc + 8) of the staged chunk) += P X
+// over the chunk's kWideKeys rows, P split in pb (big, then small
+// [16][kWideSld] each); the rows' two halves in fresh accumulators (two
+// independent mma chains, interleaved), added in f32 in order
+__device__ __forceinline__ void wide_accumulate(float (&acc)[4],
+                                                const unsigned* pb,
+                                                const float* xs, int xc,
+                                                int g, int t) {
+  float u[2][4] = {};
+  const unsigned* ps = pb + kWideRows * kWideSld;
+#pragma unroll
+  for (int i = 0; i < kWideKeys / 8; ++i) {
+    const int half = i & 1, kk = half * (kWideKeys / 16) + (i >> 1);
+    // the k order perm (load_b_perm): A[m][k] = P[m][8 kk + perm(k)]
+    const int at = g * kWideSld + 8 * kk + 2 * t;
+    const uint2 b0 = *reinterpret_cast<const uint2*>(pb + at);
+    const uint2 b1 = *reinterpret_cast<const uint2*>(pb + at + 8 * kWideSld);
+    const uint2 s0 = *reinterpret_cast<const uint2*>(ps + at);
+    const uint2 s1 = *reinterpret_cast<const uint2*>(ps + at + 8 * kWideSld);
+    FragA fa;
+    fa.big[0] = b0.x;
+    fa.big[1] = b1.x;
+    fa.big[2] = b0.y;
+    fa.big[3] = b1.y;
+    fa.small[0] = s0.x;
+    fa.small[1] = s1.x;
+    fa.small[2] = s0.y;
+    fa.small[3] = s1.y;
+    FragB fb;
+    load_b_perm(fb, xs, kWideLd, 8 * kk, xc, g, t);
+    mma3(u[half], fa, fb);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += u[half][i];
+}
+
+// the kv tiles of kWideKeys keys query block q0 (kWideRows rows) sweeps:
+// all of them, or with causal those up to the one holding its last row's
+// diagonal (at least one)
+__device__ __forceinline__ int wide_kv_tiles(int q0, int Tq, int Tk,
+                                             int causal) {
+  const int nk = (Tk + kWideKeys - 1) / kWideKeys;
+  if (!causal) return nk;
+  const int end = q0 + kWideRows < Tq ? q0 + kWideRows : Tq;
+  const int diag = end - 1 + (Tk - Tq);
+  const int n = diag < 0 ? 1 : diag / kWideKeys + 1;
+  return n < nk ? n : nk;
+}
+
+// the warp's columns of chunks [lo, hi) of rows r0 + g, r0 + g + 8 (below
+// `rows`; columns below D) of a [rows, D] output: acc[c] / a, b (kDivide)
+// or * a, b
+template <bool kDivide, int NC>
+__device__ __forceinline__ void wide_store(float* __restrict__ dst,
+                                           const float (&acc)[NC][4],
+                                           float a, float b, int r0,
+                                           int rows, int lo, int hi, int D,
+                                           int warp, int g, int t) {
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c < lo || c >= hi) continue;
+    const int d = c * kWideChunk + 8 * warp + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (d + e >= D) continue;
+      if (ra < rows)
+        dst[static_cast<size_t>(ra) * D + d + e] =
+            kDivide ? acc[c][e] / a : acc[c][e] * a;
+      if (rb < rows)
+        dst[static_cast<size_t>(rb) * D + d + e] =
+            kDivide ? acc[c][2 + e] / b : acc[c][2 + e] * b;
+    }
+  }
+}
+
+template <int N, int M>
+__device__ __forceinline__ void zero_acc(float (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) x[i][j] = 0.f;
+}
+
+// The ring's stages (kS chunks): stage s is a chunk of one pass over a
+// tile, in the order the kernel computes them. WIDE_NEXT(s) makes stage s
+// the computed one: waits for it, synchronises the block (every warp is past
+// stage s - 1, whose slot the refill takes), issues stage s + kS - 1 and
+// returns s's slot. issue(s) is the kernel's: it copies stage s (if any)
+// and commits.
+#define WIDE_NEXT(s)                                   \
+  (cp_wait<kS - 2>(), __syncthreads(), issue((s) + kS - 1), \
+   ring + ((s) % kS) * kWideStage)
+
+template <int NC>
 __global__ void __launch_bounds__(kWideThreads)
 flash_wide_fwd_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -992,108 +1246,191 @@ flash_wide_fwd_kernel(const float* __restrict__ q,
                       const float* __restrict__ mask, float* __restrict__ o,
                       float* __restrict__ stats, int BN, int N, int Tq,
                       int Tk, int D, int causal, float scale) {
-  constexpr int R = wide_rows(DL), W = 32 * DL;
-  constexpr int kStage = wide_stage(DL, 1);
+  constexpr int kS = kWideStagesFwd;
   extern __shared__ __align__(16) float smem[];
+  const int nc = wide_chunks(D);
+  unsigned* q_f = reinterpret_cast<unsigned*>(smem);  // this block's q, split
+  float* ring = smem + 2 * kWideRows * nc * kWideChunk;  // chunks of k, v
+  unsigned* pb = reinterpret_cast<unsigned*>(ring + kS * kWideStage);
+  float* mxw = ring + kS * kWideStage + kWideP;    // [8][16] row maxima
+  float* smw = mxw + kWideWarps * kWideRows;       // [8][16] row sums
   const int bn = blockIdx.x, b = bn / N;
-  // with causal the last query blocks sweep the most keys: first
+  // with causal the last query blocks sweep the most tiles: first
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qb * kWideWarps, row = q0 + warp, off = Tk - Tq;
-  const bool live_row = row < Tq;
-  const size_t kv_at = static_cast<size_t>(bn) * Tk * D;
-  const size_t q_at = (static_cast<size_t>(bn) * Tq + row) * D;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kWideRows, off = Tk - Tq;
+  const int ra = q0 + g, rb = ra + 8;
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
-  float qr[DL], acc[DL];
-  wide_row<DL>(qr, q + (live_row ? q_at : 0), live_row, lane, D);
-#pragma unroll
-  for (int u = 0; u < DL; ++u) acc[u] = 0.f;
-  const int ntiles = (wide_keys(q0, Tq, Tk, causal) + R - 1) / R;
-  auto load_stage = [&](int it) {
-    float* st = smem + (it & 1) * kStage;
-    wide_tile<DL>(st, k + kv_at, it * R, Tk, D);
-    wide_tile<DL>(st + R * W, v + kv_at, it * R, Tk, D);
-    copy_mask<kWideThreads>(st + 2 * R * W, mrow, it * R, R, Tk);
-  };
-  if (ntiles > 0) load_stage(0);
-  cp_commit();
-  float m = kNeg, l = 0.f;
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) load_stage(it + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const float* ks = smem + (it & 1) * kStage;
-    const float* vs = ks + R * W;
-    const float* ms = vs + R * W;
-    const int k0 = it * R;
-    // warp-uniform: a row past Tq, or every key of the tile above its
-    // diagonal (exp(-1e9 - m) = 0 once a key is seen; a row that sees no
-    // key takes the second pass below)
-    if (live_row && !(causal && k0 > row + off)) {
-      float s[R];
-      float mx = kNeg;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float dot = wide_dot<DL>(qr, ks, r, lane);
-        const int kj = k0 + r;
-        float x;
-        if (kj >= Tk) {
-          x = -INFINITY;  // the tile's tail: left out
-        } else {
-          x = dot * scale;
-          if (!(ms[r] > 0.f) || (causal && kj > row + off)) x = kNeg;
-        }
-        s[r] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float mn = fmaxf(m, mx);
-      const float al = expf(m - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s[r] = expf(s[r] - mn);
-        sum += s[r];
-      }
-      l = l * al + sum;
-      m = mn;
-#pragma unroll
-      for (int u = 0; u < DL; ++u) acc[u] *= al;
-#pragma unroll
-      for (int r = 0; r < R; ++r) wide_axpy<DL>(acc, s[r], vs, r, lane);
+  // a kv row with no real key: every row sees none, the sweep is skipped
+  const bool keyless =
+      first_key<kWideThreads>(mrow, Tk, reinterpret_cast<int*>(mxw)) >= Tk;
+  const int nkt = keyless ? 0 : wide_kv_tiles(q0, Tq, Tk, causal);
+  int lo, hi;
+  wide_part<NC>(nc, lo, hi);
+  const int nv = hi - lo;
+  // the sweep's stage s: a tile's nc chunks of k (pass 0), then its
+  // chunks lo .. hi - 1 of v (pass 1); the no-key pass's: those of tile
+  // s / nv's v
+  int ns = (nc + nv) * nkt;
+  bool nokey_pass = false;
+  auto issue = [&](int s) {
+    if (s < ns) {
+      const int tile = s / (nokey_pass ? nv : nc + nv);
+      const int r = nokey_pass ? nc + s % nv : s % (nc + nv);
+      wide_copy<kWideKeys, kWideChunk>(
+          ring + (s % kS) * kWideStage, r < nc ? kbase : vbase,
+          tile * kWideKeys, Tk,
+          (!wide_splits(NC) || r < nc ? r % nc : lo + r - nc) * kWideChunk,
+          D, kWideLd);
     }
-    __syncthreads();  // the stage's reads are done before it is refilled
+    cp_commit();
+  };
+  for (int i = 0; i < kS - 1; ++i) issue(i);
+  wide_frag(q_f, q + static_cast<size_t>(bn) * Tq * D, q0, Tq, D,
+            nc * kWideChunk / 8);
+  float acc[NC][4];
+  zero_acc(acc);
+  float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;  // rows g, g + 8
+  int s = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kWideKeys, col = 8 * warp + 2 * t;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c < nc) {
+        const float* st = WIDE_NEXT(s);
+        wide_scores<true>(x, q_f, 0, c * kWideChunk, st,
+                                     8 * warp, g, t);
+        ++s;
+      }
+    }
+    float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = k0 + col + (e & 1), row = e < 2 ? ra : rb;
+      if (kj >= Tk) {
+        x[e] = -INFINITY;  // the tile's tail: left out
+      } else {
+        x[e] *= scale;
+        if (!(mrow == nullptr || mrow[kj] > 0.f) ||
+            (causal && kj > row + off))
+          x[e] = kNeg;
+      }
+    }
+    mx_a = quad_max(fmaxf(mx_a, fmaxf(x[0], x[1])));
+    mx_b = quad_max(fmaxf(mx_b, fmaxf(x[2], x[3])));
+    if (t == 0) {
+      mxw[warp * kWideRows + g] = mx_a;
+      mxw[warp * kWideRows + g + 8] = mx_b;
+    }
+    __syncthreads();
+    float ma = mxw[g], mb = mxw[g + 8];
+#pragma unroll
+    for (int w = 1; w < kWideWarps; ++w) {
+      ma = fmaxf(ma, mxw[w * kWideRows + g]);
+      mb = fmaxf(mb, mxw[w * kWideRows + g + 8]);
+    }
+    const float mn_a = fmaxf(m_a, ma), mn_b = fmaxf(m_b, mb);
+    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    x[0] = expf(x[0] - mn_a);
+    x[1] = expf(x[1] - mn_a);
+    x[2] = expf(x[2] - mn_b);
+    x[3] = expf(x[3] - mn_b);
+    const float sa = quad_sum(x[0] + x[1]), sb = quad_sum(x[2] + x[3]);
+    if (t == 0) {
+      smw[warp * kWideRows + g] = sa;
+      smw[warp * kWideRows + g + 8] = sb;
+    }
+    wide_put_p4(pb, x, warp, g, t);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[c][0] *= al_a;
+      acc[c][1] *= al_a;
+      acc[c][2] *= al_b;
+      acc[c][3] *= al_b;
+    }
+    // the next stage's synchronisation publishes P and the row sums
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c >= lo && c < hi) {
+        const float* st = WIDE_NEXT(s);
+        wide_accumulate(acc[c], pb, st, 8 * warp, g, t);
+        ++s;
+      }
+    }
+    // l = l alpha + the tile's sum, the warps' sums in warp order (read
+    // before the next tile's scores are written: their chunks'
+    // synchronisations come first)
+    float ta = smw[g], tb = smw[g + 8];
+#pragma unroll
+    for (int w = 1; w < kWideWarps; ++w) {
+      ta += smw[w * kWideRows + g];
+      tb += smw[w * kWideRows + g + 8];
+    }
+    l_a = l_a * al_a + ta;
+    l_b = l_b * al_b + tb;
   }
   cp_wait<0>();
-  if (!live_row) return;  // no barrier follows
-  if (m == kNeg) {  // the row sees no key: JAX's padded mean of v
-    const float* vb = v + kv_at;
+  // rows that see no key: the sum of v over every key, for them alone,
+  // through the ring (P = 1 on those rows' keys below Tk)
+  const bool nk_a = ra < Tq && m_a == kNeg, nk_b = rb < Tq && m_b == kNeg;
+  if (__syncthreads_or(nk_a || nk_b)) {
 #pragma unroll
-    for (int u = 0; u < DL; ++u) acc[u] = 0.f;
-    for (int j = 0; j < Tk; ++j) {
+    for (int c = 0; c < NC; ++c) {
+      if (nk_a) acc[c][0] = acc[c][1] = 0.f;
+      if (nk_b) acc[c][2] = acc[c][3] = 0.f;
+    }
+    const int nk = (Tk + kWideKeys - 1) / kWideKeys;
+    nokey_pass = true;
+    ns = nv * nk;
+    s = 0;
+    for (int i = 0; i < kS - 1; ++i) issue(i);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int kc = kt * kWideKeys + 8 * warp + 2 * t;
+      float one[4];
 #pragma unroll
-      for (int u = 0; u < DL; ++u) {
-        const int d = lane + 32 * u;
-        if (d < D) acc[u] += vb[static_cast<size_t>(j) * D + d];
+      for (int e = 0; e < 4; ++e)
+        one[e] = (e < 2 ? nk_a : nk_b) && kc + (e & 1) < Tk ? 1.f : 0.f;
+      __syncthreads();  // every warp's reads of the last P are done
+      wide_put_p4(pb, one, warp, g, t);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (c >= lo && c < hi) {
+          const float* st = WIDE_NEXT(s);
+          wide_accumulate(acc[c], pb, st, 8 * warp, g, t);
+          ++s;
+        }
       }
     }
-    l = padded_keys(Tk);
+    cp_wait<0>();
   }
-  float* orow = o + q_at;
-#pragma unroll
-  for (int u = 0; u < DL; ++u) {
-    const int d = lane + 32 * u;
-    if (d < D) orow[d] = acc[u] / l;  // as blockwise_attention divides
+  const float tk_pad = padded_keys(Tk);
+  const float li_a = nk_a ? tk_pad : l_a, li_b = nk_b ? tk_pad : l_b;
+  if ((!wide_splits(NC) || blockIdx.z == 0) && warp == 0 && t == 0) {
+    const size_t at = static_cast<size_t>(bn) * Tq;
+    const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+    if (ra < Tq) {
+      stats[at + ra] = m_a;
+      stats[at_l + ra] = logf(li_a);
+    }
+    if (rb < Tq) {
+      stats[at + rb] = m_b;
+      stats[at_l + rb] = logf(li_b);
+    }
   }
-  if (lane == 0) {
-    stats[static_cast<size_t>(bn) * Tq + row] = m;
-    stats[(static_cast<size_t>(BN) + bn) * Tq + row] = logf(l);
-  }
+  // o = acc / l, as blockwise_attention divides
+  wide_store<true>(o + static_cast<size_t>(bn) * Tq * D, acc, li_a, li_b,
+                   q0, Tq, lo, hi, D, warp, g, t);
 }
 
-// dq and delta: a warp a query row, sweeping the key tiles (as the
-// forward) with the row's m, log l and delta = rowsum(dO o) in registers
-template <int DL>
+// dq and delta: a block of query rows, sweeping the kv tiles (as the
+// forward) with its rows' m, log l and delta = rowsum(dO o)
+template <int NC>
 __global__ void __launch_bounds__(kWideThreads)
 flash_wide_dq_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
@@ -1105,81 +1442,134 @@ flash_wide_dq_kernel(const float* __restrict__ q,
                      float* __restrict__ delta, float* __restrict__ dq,
                      int BN, int N, int Tq, int Tk, int D, int causal,
                      float scale) {
-  constexpr int R = wide_rows(DL), W = 32 * DL;
-  constexpr int kStage = wide_stage(DL, 1);
+  constexpr int kS = kWideStagesBwd;
+  constexpr bool kFrag = wide_presplit(1, NC);
   extern __shared__ __align__(16) float smem[];
+  const int ld = wide_ld(D), nc = wide_chunks(D);
+  // this block's q and dO, pre-split (2 x 16 x Dp words) or raw (16 x ld)
+  const int rs = kFrag ? 2 * kWideRows * nc * kWideChunk : kWideRows * ld;
+  float* q_s = smem;
+  float* do_s = q_s + rs;
+  float* ring = do_s + rs;                // chunks of k or v
+  unsigned* pb = reinterpret_cast<unsigned*>(ring + kS * kWideStage);
+  float* dl_s = ring + kS * kWideStage + kWideP;  // [16] delta
   const int bn = blockIdx.x, b = bn / N;
   const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qb * kWideWarps, row = q0 + warp, off = Tk - Tq;
-  const bool live_row = row < Tq;
-  const size_t kv_at = static_cast<size_t>(bn) * Tk * D;
-  const size_t q_at = (static_cast<size_t>(bn) * Tq + row) * D;
-  const size_t r_at = static_cast<size_t>(bn) * Tq + row;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qb * kWideRows, off = Tk - Tq;
+  const int ra = q0 + g, rb = ra + 8;
+  const size_t q_at = static_cast<size_t>(bn) * Tq * D;
+  const float* kbase = k + static_cast<size_t>(bn) * Tk * D;
+  const float* vbase = v + static_cast<size_t>(bn) * Tk * D;
   const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
-  float qr[DL], dor[DL], acc[DL];
-  wide_row<DL>(qr, q + (live_row ? q_at : 0), live_row, lane, D);
-  wide_row<DL>(dor, dout + (live_row ? q_at : 0), live_row, lane, D);
-  wide_row<DL>(acc, o + (live_row ? q_at : 0), live_row, lane, D);
-  float dl = 0.f;
-#pragma unroll
-  for (int u = 0; u < DL; ++u) {
-    dl += dor[u] * acc[u];
-    acc[u] = 0.f;
-  }
-  dl = wide_sum(dl);
-  float m_i = 0.f, ll_i = 0.f;
-  if (live_row) {
-    if (lane == 0) delta[r_at] = dl;
-    m_i = stats[r_at];
-    ll_i = stats[static_cast<size_t>(BN) * Tq + r_at];
-  }
-  const int ntiles = (wide_keys(q0, Tq, Tk, causal) + R - 1) / R;
-  auto load_stage = [&](int it) {
-    float* st = smem + (it & 1) * kStage;
-    wide_tile<DL>(st, k + kv_at, it * R, Tk, D);
-    wide_tile<DL>(st + R * W, v + kv_at, it * R, Tk, D);
-    copy_mask<kWideThreads>(st + 2 * R * W, mrow, it * R, R, Tk);
-  };
-  if (ntiles > 0) load_stage(0);
-  cp_commit();
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) load_stage(it + 1);
+  // a kv row with no real key: every dS is 0, the sweep is skipped
+  const int nkt = first_key<kWideThreads>(mrow, Tk,
+                                          reinterpret_cast<int*>(dl_s)) >= Tk
+                      ? 0
+                      : wide_kv_tiles(q0, Tq, Tk, causal);
+  int lo, hi;
+  wide_part<NC>(nc, lo, hi);
+  // stage s: a tile's nc chunks of k (pass 0) and of v (1), then its
+  // chunks lo .. hi - 1 of k again (2)
+  const int per = 2 * nc + hi - lo, ns = per * nkt;
+  auto issue = [&](int s) {
+    if (s < ns) {
+      const int tile = s / per, r = s % per;
+      wide_copy<kWideKeys, kWideChunk>(
+          ring + (s % kS) * kWideStage,
+          r / nc == 1 ? vbase : kbase, tile * kWideKeys, Tk,
+          (!wide_splits(NC) || r < 2 * nc ? r % nc : lo + r - 2 * nc) *
+              kWideChunk,
+          D, kWideLd);
+    }
     cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const float* ks = smem + (it & 1) * kStage;
-    const float* vs = ks + R * W;
-    const float* ms = vs + R * W;
-    const int k0 = it * R;
-    if (live_row && !(causal && k0 > row + off)) {
+  };
+  wide_a_rows<kFrag>(q_s, q + q_at, q0, Tq, nc, D, ld);
+  wide_a_rows<kFrag>(do_s, dout + q_at, q0, Tq, nc, D, ld);
+  for (int i = 0; i < kS - 1; ++i) issue(i);
+  {
+    // delta of row sr: its 16 threads' columns sc + 16 i in order, then
+    // xor shuffles within them (the same bits on each)
+    const int sr = threadIdx.x >> 4, sc = threadIdx.x & 15, row = q0 + sr;
+    float dl = 0.f;
+    if (row < Tq) {
+      const float* orow = o + q_at + static_cast<size_t>(row) * D;
+      const float* drow = dout + q_at + static_cast<size_t>(row) * D;
+      for (int d = sc; d < D; d += 16) dl = fmaf(drow[d], orow[d], dl);
+    }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int kj = k0 + r;
-        // warp-uniform: a masked score takes no gradient
-        if (kj < Tk && ms[r] > 0.f && !(causal && kj > row + off)) {
-          const float s = wide_dot<DL>(qr, ks, r, lane);
-          const float dp = wide_dot<DL>(dor, vs, r, lane);
-          const float ds = expf((s * scale - m_i) - ll_i) * (dp - dl);
-          wide_axpy<DL>(acc, ds, ks, r, lane);
-        }
+    for (int w = 8; w > 0; w >>= 1) dl += __shfl_xor_sync(kFull, dl, w);
+    if (sc == 0) {
+      dl_s[sr] = dl;
+      if ((!wide_splits(NC) || blockIdx.z == 0) && row < Tq)
+        delta[static_cast<size_t>(bn) * Tq + row] = dl;
+    }
+  }
+  __syncthreads();
+  const size_t at = static_cast<size_t>(bn) * Tq;
+  const size_t at_l = (static_cast<size_t>(BN) + bn) * Tq;
+  const float dl_a = dl_s[g], dl_b = dl_s[g + 8];
+  const float m_a = ra < Tq ? stats[at + ra] : 0.f;
+  const float m_b = rb < Tq ? stats[at + rb] : 0.f;
+  const float ll_a = ra < Tq ? stats[at_l + ra] : 0.f;
+  const float ll_b = rb < Tq ? stats[at_l + rb] : 0.f;
+  float acc[NC][4];
+  zero_acc(acc);
+  int s = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kWideKeys, col = 8 * warp + 2 * t;
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c < nc) {
+        const float* st = WIDE_NEXT(s);
+        wide_scores<kFrag>(x, q_s, ld, c * kWideChunk, st,
+                                      8 * warp, g, t);
+        ++s;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c < nc) {
+        const float* st = WIDE_NEXT(s);
+        wide_scores<kFrag>(dp, do_s, ld, c * kWideChunk, st,
+                                      8 * warp, g, t);
+        ++s;
+      }
+    }
+    // dS = P (dP - delta), 0 where a score was masked (published to the
+    // other warps by the next stage's synchronisation)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kj = k0 + col + (e & 1), row = e < 2 ? ra : rb;
+      const bool live = kj < Tk && row < Tq &&
+                        (mrow == nullptr || mrow[kj] > 0.f) &&
+                        !(causal && kj > row + off);
+      x[e] = live ? expf((x[e] * scale - (e < 2 ? m_a : m_b)) -
+                         (e < 2 ? ll_a : ll_b)) *
+                        (dp[e] - (e < 2 ? dl_a : dl_b))
+                  : 0.f;
+    }
+    wide_put_p4(pb, x, warp, g, t);
+    // dQ += dS K
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c >= lo && c < hi) {
+        const float* st = WIDE_NEXT(s);
+        wide_accumulate(acc[c], pb, st, 8 * warp, g, t);
+        ++s;
+      }
+    }
   }
   cp_wait<0>();
-  if (!live_row) return;
-  float* dqrow = dq + q_at;
-#pragma unroll
-  for (int u = 0; u < DL; ++u) {
-    const int d = lane + 32 * u;
-    if (d < D) dqrow[d] = acc[u] * scale;
-  }
+  wide_store<false>(dq + q_at, acc, scale, scale, q0, Tq, lo, hi, D, warp, g,
+                    t);
 }
 
-// dk and dv: a warp a key row, sweeping every query tile (q, dO and the
-// rows' m, log l, delta staged)
-template <int DL>
+// dk and dv: a block of keys, sweeping the query tiles that hold a row
+// which sees one of its keys or sees no key (as flash_bwd_dkdv_kernel)
+template <int NC>
 __global__ void __launch_bounds__(kWideThreads)
 flash_wide_dkdv_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -1191,82 +1581,144 @@ flash_wide_dkdv_kernel(const float* __restrict__ q,
                        float* __restrict__ dk, float* __restrict__ dv,
                        int BN, int N, int Tq, int Tk, int D, int causal,
                        float scale) {
-  constexpr int R = wide_rows(DL), W = 32 * DL;
-  constexpr int kStage = wide_stage(DL, 3);
+  constexpr int kS = kWideStagesBwd;
+  constexpr bool kFrag = wide_presplit(2, NC);
   extern __shared__ __align__(16) float smem[];
+  const int ld = wide_ld(D), nc = wide_chunks(D);
+  // this block's keys and their v, pre-split or raw (as dq's)
+  const int rs = kFrag ? 2 * kWideRows * nc * kWideChunk : kWideRows * ld;
+  float* k_s = smem;
+  float* v_s = k_s + rs;
+  float* ring = v_s + rs;                 // chunks of q or dO
+  unsigned* pb = reinterpret_cast<unsigned*>(ring + kS * kWideStage);
+  int* ired = reinterpret_cast<int*>(ring + kS * kWideStage + kWideP);
   const int bn = blockIdx.x, b = bn / N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int key = blockIdx.y * kWideWarps + warp, off = Tk - Tq;
-  const bool live_key = key < Tk;
-  const size_t q_at = static_cast<size_t>(bn) * Tq * D;
-  const size_t k_at = (static_cast<size_t>(bn) * Tk + key) * D;
-  const bool mk =
-      live_key &&
-      (mask == nullptr || mask[static_cast<size_t>(b) * Tk + key] > 0.f);
-  float kr[DL], vr[DL], dkr[DL], dvr[DL];
-  wide_row<DL>(kr, k + (live_key ? k_at : 0), live_key, lane, D);
-  wide_row<DL>(vr, v + (live_key ? k_at : 0), live_key, lane, D);
-#pragma unroll
-  for (int u = 0; u < DL; ++u) dkr[u] = dvr[u] = 0.f;
-  const int ntiles = (Tq + R - 1) / R;
-  auto load_stage = [&](int it) {
-    float* st = smem + (it & 1) * kStage;
-    float* vec = st + 2 * R * W;
-    wide_tile<DL>(st, q + q_at, it * R, Tq, D);
-    wide_tile<DL>(st + R * W, dout + q_at, it * R, Tq, D);
-    copy_vec<kWideThreads>(vec, stats + static_cast<size_t>(bn) * Tq,
-                           it * R, R, Tq);
-    copy_vec<kWideThreads>(vec + R,
-                           stats + (static_cast<size_t>(BN) + bn) * Tq,
-                           it * R, R, Tq);
-    copy_vec<kWideThreads>(vec + 2 * R, delta + static_cast<size_t>(bn) * Tq,
-                           it * R, R, Tq);
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * kWideRows, off = Tk - Tq;
+  const int ka = k0 + g, kb = ka + 8;  // this lane's keys (rows of S^T)
+  const size_t k_at = static_cast<size_t>(bn) * Tk * D;
+  const float* qbase = q + static_cast<size_t>(bn) * Tq * D;
+  const float* dobase = dout + static_cast<size_t>(bn) * Tq * D;
+  const float* m_s = stats + static_cast<size_t>(bn) * Tq;
+  const float* ll_s = stats + (static_cast<size_t>(BN) + bn) * Tq;
+  const float* dl_s = delta + static_cast<size_t>(bn) * Tq;
+  const float* mrow = mask ? mask + static_cast<size_t>(b) * Tk : nullptr;
+  wide_a_rows<kFrag>(k_s, k + k_at, k0, Tk, nc, D, ld);
+  wide_a_rows<kFrag>(v_s, v + k_at, k0, Tk, nc, D, ld);
+  // the rows that see no key: with causal the first (first real key) -
+  // (Tk - Tq); without, every row of a kv row with no real key
+  const int fk = first_key<kWideThreads>(mrow, Tk, ired);
+  const int nokey_rows =
+      causal ? (fk - off < 0 ? 0 : (fk - off < Tq ? fk - off : Tq))
+             : (fk >= Tk ? Tq : 0);
+  const bool mk_a = ka < Tk && (mrow == nullptr || mrow[ka] > 0.f);
+  const bool mk_b = kb < Tk && (mrow == nullptr || mrow[kb] > 0.f);
+  // a block with none of its keys real has dK = 0 and dV only from the
+  // rows that see no key: it visits their tiles and stages dO alone
+  const bool live_keys = __syncthreads_or(mk_a || mk_b);
+  // the query tiles to visit: with causal, those holding a row that sees
+  // one of this block's keys, and those holding a row that sees no key
+  const int nq = (Tq + kWideKeys - 1) / kWideKeys;
+  const int nokey_qt = (nokey_rows + kWideKeys - 1) / kWideKeys;
+  const int first_qt =
+      !live_keys ? nq
+                 : (causal ? (k0 - off > 0 ? k0 - off : 0) / kWideKeys : 0);
+  const int from = nokey_qt > first_qt ? nokey_qt : first_qt;
+  const int nvis = nokey_qt + (nq > from ? nq - from : 0);
+  auto tile_of = [&](int i) {
+    return i < nokey_qt ? i : from + i - nokey_qt;
   };
-  load_stage(0);
-  cp_commit();
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) load_stage(it + 1);
+  int lo, hi;
+  wide_part<NC>(nc, lo, hi);
+  // stage s: a tile's nc chunks of q (pass 0) and of dO (1), then its
+  // chunks lo .. hi - 1 of q again (2); a block without a live key stages
+  // the dO chunks lo .. hi - 1 alone
+  const int per = live_keys ? 2 * nc + hi - lo : hi - lo, ns = per * nvis;
+  auto issue = [&](int s) {
+    if (s < ns) {
+      const int tile = s / per, r = s % per;
+      const int chunk = !wide_splits(NC) ? r % nc
+                        : !live_keys    ? lo + r
+                        : r < 2 * nc    ? r % nc
+                                        : lo + r - 2 * nc;
+      wide_copy<kWideKeys, kWideChunk>(
+          ring + (s % kS) * kWideStage,
+          !live_keys || r / nc == 1 ? dobase : qbase,
+          tile_of(tile) * kWideKeys, Tq, chunk * kWideChunk, D, kWideLd);
+    }
     cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const float* qs = smem + (it & 1) * kStage;
-    const float* dos = qs + R * W;
-    const float* m_s = dos + R * W;
-    const float* ll_s = m_s + R;
-    const float* dl_s = ll_s + R;
-    const int q0 = it * R;
-    if (live_key) {
+  };
+  for (int i = 0; i < kS - 1; ++i) issue(i);
+  float dk_acc[NC][4], dv_acc[NC][4];
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  int s = 0;
+  for (int i = 0; i < nvis; ++i) {
+    const int qc = tile_of(i) * kWideKeys + 8 * warp + 2 * t;
+    float x[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    // S^T = K Q^T over the tile's q, then P^T
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int qi = q0 + r;
-        // warp-uniform: the pair's score is live, or (masked) its P is 0
-        // but for a row that sees no key
-        const bool live = mk && !(causal && key > qi + off);
-        if (qi < Tq && (live || m_s[r] == kNeg)) {
-          float s = kNeg, dp = 0.f;
-          if (live) {
-            s = wide_dot<DL>(kr, qs, r, lane) * scale;
-            dp = wide_dot<DL>(vr, dos, r, lane);
-          }
-          const float p = expf((s - m_s[r]) - ll_s[r]);
-          wide_axpy<DL>(dvr, p, dos, r, lane);
-          if (live) wide_axpy<DL>(dkr, p * (dp - dl_s[r]), qs, r, lane);
-        }
+    for (int c = 0; c < NC; ++c) {
+      if (live_keys && c < nc) {
+        const float* st = WIDE_NEXT(s);
+        wide_scores<kFrag>(x, k_s, ld, c * kWideChunk, st, 8 * warp, g, t);
+        ++s;
       }
     }
-    __syncthreads();
-  }
-  cp_wait<0>();
-  if (!live_key) return;
+    bool live[4];
 #pragma unroll
-  for (int u = 0; u < DL; ++u) {
-    const int d = lane + 32 * u;
-    if (d < D) {
-      dv[k_at + d] = dvr[u];
-      dk[k_at + d] = dkr[u] * scale;
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qc + (e & 1), key = e < 2 ? ka : kb;
+      const bool valid = key < Tk && qi < Tq;
+      live[e] = valid && (e < 2 ? mk_a : mk_b) && !(causal && key > qi + off);
+      // a masked score's P is 0 but for a row that sees no key
+      x[e] = valid ? expf(((live[e] ? x[e] * scale : kNeg) - m_s[qi]) -
+                          ll_s[qi])
+                   : 0.f;
+    }
+    // (with live keys the q chunks' synchronisations came first)
+    if (!live_keys) __syncthreads();  // every warp's reads of P^T are done
+    wide_put_p4(pb, x, warp, g, t);
+    // dP^T = V dO^T and dV += P^T dO (the part's chunks), from one
+    // staging of dO
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const bool own = c >= lo && c < hi;
+      if (c < nc && (live_keys || own)) {
+        const float* st = WIDE_NEXT(s);
+        if (live_keys)
+          wide_scores<kFrag>(dp, v_s, ld, c * kWideChunk, st, 8 * warp, g,
+                             t);
+        if (own) wide_accumulate(dv_acc[c], pb, st, 8 * warp, g, t);
+        ++s;
+      }
+    }
+    if (!live_keys) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qc + (e & 1);
+      x[e] = live[e] ? x[e] * (dp[e] - dl_s[qi]) : 0.f;
+    }
+    __syncthreads();  // every warp's reads of P^T are done
+    wide_put_p4(pb, x, warp, g, t);
+    // dK += dS^T Q
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c >= lo && c < hi) {
+        const float* st = WIDE_NEXT(s);
+        wide_accumulate(dk_acc[c], pb, st, 8 * warp, g, t);
+        ++s;
+      }
     }
   }
+  cp_wait<0>();
+  wide_store<false>(dv + k_at, dv_acc, 1.f, 1.f, k0, Tk, lo, hi, D, warp, g,
+                    t);
+  wide_store<false>(dk + k_at, dk_acc, scale, scale, k0, Tk, lo, hi, D, warp,
+                    g, t);
 }
+#undef WIDE_NEXT
 
 // ------------------------------------------------------ split rows
 // D > kWideMaxD, any width: a block of kSplitThreads threads owns one row
@@ -2257,50 +2709,68 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
     default: break;                           \
   }
 
-// the wide path's instances: bits 15 + 3 (index of DL) + kernel
-constexpr int wide_bit(int DL, int which) {
-  return 15 + 3 * (DL == 8 ? 0 : DL == 16 ? 1 : 2) + which;
+// the wide path's instances (NC = 4, 8, 16 chunks): bits 15 + 3 (index
+// of NC) + kernel; each raises its limit to its widest D's bytes
+constexpr int wide_bit(int NC, int which) {
+  return 15 + 3 * (NC == 4 ? 0 : NC == 8 ? 1 : 2) + which;
 }
 
-template <int DL>
+// the card's SMs (wide_parts)
+inline int card_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  return sms;
+}
+
+template <int NC>
 int launch_wide_fwd(const float* q, const float* k, const float* v,
                     const float* mask, float* o, float* stats, int B, int N,
                     int Tq, int Tk, int D, int causal, float scale,
                     cudaStream_t s) {
-  const int qblocks = (Tq + kWideWarps - 1) / kWideWarps;
+  const int qblocks = (Tq + kWideRows - 1) / kWideRows;
   if (qblocks > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = ready(flash_wide_fwd_kernel<DL>, wide_smem(0, DL),
-                          wide_bit(DL, 0));
+  cudaError_t err = ready(flash_wide_fwd_kernel<NC>,
+                          wide_smem(0, NC * kWideChunk), wide_bit(NC, 0));
   if (err != cudaSuccess) return err;
-  flash_wide_fwd_kernel<DL><<<dim3(B * N, qblocks), kWideThreads,
-                              wide_smem(0, DL), s>>>(
+  const int parts = wide_parts(static_cast<long long>(B) * N * qblocks, NC,
+                               wide_chunks(D), card_sms());
+  flash_wide_fwd_kernel<NC><<<dim3(B * N, qblocks, parts), kWideThreads,
+                              wide_smem(0, D), s>>>(
       q, k, v, mask, o, stats, B * N, N, Tq, Tk, D, causal, scale);
   return cudaGetLastError();
 }
 
-template <int DL>
+template <int NC>
 int launch_wide_bwd(const float* q, const float* k, const float* v,
                     const float* mask, const float* o, const float* dout,
                     const float* stats, float* delta, float* dq, float* dk,
                     float* dv, int B, int N, int Tq, int Tk, int D,
                     int causal, float scale, cudaStream_t s) {
-  const int qblocks = (Tq + kWideWarps - 1) / kWideWarps;
-  const int kblocks = (Tk + kWideWarps - 1) / kWideWarps;
+  const int qblocks = (Tq + kWideRows - 1) / kWideRows;
+  const int kblocks = (Tk + kWideRows - 1) / kWideRows;
   if (qblocks > 65535 || kblocks > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = ready(flash_wide_dq_kernel<DL>, wide_smem(1, DL),
-                          wide_bit(DL, 1));
+  cudaError_t err = ready(flash_wide_dq_kernel<NC>,
+                          wide_smem(1, NC * kWideChunk), wide_bit(NC, 1));
   if (err != cudaSuccess) return err;
-  err = ready(flash_wide_dkdv_kernel<DL>, wide_smem(2, DL), wide_bit(DL, 2));
+  err = ready(flash_wide_dkdv_kernel<NC>, wide_smem(2, NC * kWideChunk),
+              wide_bit(NC, 2));
   if (err != cudaSuccess) return err;
-  flash_wide_dq_kernel<DL><<<dim3(B * N, qblocks), kWideThreads,
-                             wide_smem(1, DL), s>>>(
+  const int sms = card_sms(), nc = wide_chunks(D);
+  const long long bn = static_cast<long long>(B) * N;
+  flash_wide_dq_kernel<NC><<<dim3(B * N, qblocks,
+                                  wide_parts(bn * qblocks, NC, nc, sms)),
+                             kWideThreads, wide_smem(1, D), s>>>(
       q, k, v, mask, o, dout, stats, delta, dq, B * N, N, Tq, Tk, D, causal,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // same stream: delta is written before this kernel starts
-  flash_wide_dkdv_kernel<DL><<<dim3(B * N, kblocks), kWideThreads,
-                               wide_smem(2, DL), s>>>(
+  flash_wide_dkdv_kernel<NC><<<dim3(B * N, kblocks,
+                                    wide_parts(bn * kblocks, NC, nc, sms)),
+                               kWideThreads, wide_smem(2, D), s>>>(
       q, k, v, mask, dout, stats, delta, dk, dv, B * N, N, Tq, Tk, D, causal,
       scale);
   return cudaGetLastError();
@@ -2348,15 +2818,15 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
         q, k, v, mask, o, stats, B * N, N, Tq, Tk, D, causal, scale);
     return cudaGetLastError();
   }
-  switch (wide_lanes(D)) {
+  switch (wide_instance(D)) {
+    case 4:
+      return launch_wide_fwd<4>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
+                                causal, scale, s);
     case 8:
       return launch_wide_fwd<8>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
                                 causal, scale, s);
-    case 16:
-      return launch_wide_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
-                                 causal, scale, s);
     default:
-      return launch_wide_fwd<32>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
+      return launch_wide_fwd<16>(q, k, v, mask, o, stats, B, N, Tq, Tk, D,
                                  causal, scale, s);
   }
 }
@@ -2407,15 +2877,15 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
         causal, scale);
     return cudaGetLastError();
   }
-  switch (wide_lanes(D)) {
+  switch (wide_instance(D)) {
+    case 4:
+      return launch_wide_bwd<4>(q, k, v, mask, o, dout, stats, delta, dq, dk,
+                                dv, B, N, Tq, Tk, D, causal, scale, s);
     case 8:
       return launch_wide_bwd<8>(q, k, v, mask, o, dout, stats, delta, dq, dk,
                                 dv, B, N, Tq, Tk, D, causal, scale, s);
-    case 16:
-      return launch_wide_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq,
-                                 dk, dv, B, N, Tq, Tk, D, causal, scale, s);
     default:
-      return launch_wide_bwd<32>(q, k, v, mask, o, dout, stats, delta, dq,
+      return launch_wide_bwd<16>(q, k, v, mask, o, dout, stats, delta, dq,
                                  dk, dv, B, N, Tq, Tk, D, causal, scale, s);
   }
 }
@@ -2427,7 +2897,7 @@ extern "C" int flash_bwd(const float* q, const float* k, const float* v,
 extern "C" long long flash_smem(int which, int D) {
   if (D > kWideMaxD && which >= 0 && which <= 2) return 0;
   if (D > 128 && D <= kWideMaxD && which >= 0 && which <= 2)
-    return static_cast<long long>(wide_smem(which, wide_lanes(D)));
+    return static_cast<long long>(wide_smem(which, D));
   if (D != 8 && D != 16 && D != 32 && D != 64 && D != 128) return -1;
   switch (which) {
     case 0:

@@ -93,17 +93,10 @@
 // a row-major [H, 2H] / [H, H] block; the wrapper checks that the columns
 // are contiguous (stride 1) and passes the row stride.
 //
-// bf16 (--compute_dtype bfloat16): gru_persistent_kernel and
-// gru_bwd_chain_kernel are templated on the storage type (persistent.cuh:
-// Store), as in lstm_seq.cu: bf16 operands widened into the f32 forms'
-// shared memory (persistent_smem unchanged), f32 arithmetic, bf16
-// roundings where the reference's scan gru_sequence_ref rounds (each
-// product once, x + product, sigmoid as 1 / (1 + exp(-x)), r * h, and
-// h - z h + z c term by term; ys takes that last sum unrounded). The
-// state crosses blocks through the f32 pair h in both forms; the chain
-// exchanges its gradients through an f32 dxs scratch beside the bf16
-// dxs it returns, rounding dy, da_z, da_c, da_r, each product and the dh
-// carry at the step's last sum.
+// bf16 (--compute_dtype bfloat16): kernels of their own, in the last
+// section (gru_bf16_kernel, gru_bf16_chain_kernel): the recurrent products
+// on the tensor cores, the state and the gradients crossing blocks as the
+// bf16 values they are; the f32 kernels above take f32 only.
 //
 // Bound on the H100 (SXM, 700 W): the two products are 2 * B * H * 3H
 // operations per step at the f32 rate outside the tensor cores
@@ -609,28 +602,16 @@ __device__ __forceinline__ void block_product(
 // The forward sequence, one launch. kResidual: writes hs and gates (h
 // unused); otherwise the state ping-pongs in h [2, B, H] (h[0] = h0 on
 // entry, h[T % 2] = hT on return; hs, gates unused).
-//
-// The bf16 form (S = bf16): xs (bias folded in bf16, as the reference adds
-// it), the weights, hs and gates in bf16, ys in f32; the weights and x
-// widened into the same f32 shared memory. The state crosses blocks
-// through the f32 pair h in both forms (h0 = h[0], widened), and the
-// residual form also stores it into hs. Every operation rounds to bf16,
-// as the reference's scan: each product once after its f32 sum, x + the
-// product, sigmoid_bf16, r * h, and h - z h + z c term by term; ys takes
-// that last sum unrounded (the reference's f32 output does).
-template <bool kResidual, class S>
+template <bool kResidual>
 __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
-    const S* __restrict__ xs,        // [T, B, 3H], bias folded
+    const float* __restrict__ xs,    // [T, B, 3H], bias folded
     const float* __restrict__ mask,  // [T, B]
-    const S* __restrict__ wg,        // [H, 2H], leading dim ldg
-    const S* __restrict__ w_s,       // [H, H], leading dim lds
+    const float* __restrict__ wg,    // [H, 2H], leading dim ldg
+    const float* __restrict__ w_s,   // [H, H], leading dim lds
     const float* __restrict__ h0,    // [B, H]
-    float* h, float* __restrict__ ys, S* hs, S* __restrict__ gates,
+    float* h, float* __restrict__ ys, float* hs, float* __restrict__ gates,
     float* rh, unsigned* count, int ldg, int lds, int T, int B, int H, int U,
     int kc) {
-  using St = Store<S>;
-  // the state's exchange: h's ping-pong, or (the f32 residual form) hs
-  constexpr bool kPing = !kResidual || !St::kF32;
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   const int u0 = blockIdx.x * U;
@@ -647,12 +628,12 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
   // the x columns of the block's units and the mask of step t, into
   // buffer t & 1 (read-only inputs: a step ahead, through L1)
   auto prefetch = [&](int t) {
-    const S* x_t = xs + static_cast<size_t>(t) * B * H3;
+    const float* x_t = xs + static_cast<size_t>(t) * B * H3;
     float* xb = x_own + (t & 1) * 3 * B * U;
     for (int i = threadIdx.x; i < 3 * B * up; i += kPThreads) {
       const int b = i / (3 * up), cu = i % (3 * up);
       const int g = cu / up, u = cu % up;
-      stage_elem(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
+      cp_async4(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
     }
     for (int b = threadIdx.x; b < B; b += kPThreads)
       cp_async4(m_own + (t & 1) * B + b,
@@ -662,12 +643,12 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
   for (int i = threadIdx.x; i < 2 * up * H; i += kPThreads) {
     const int k = i / (2 * up), cu = i % (2 * up);
     const int g = cu / up, u = cu % up;
-    stage_elem(wa + cu * H + k,
-               wg + static_cast<size_t>(k) * ldg + g * H + u0 + u);
+    cp_async4(wa + cu * H + k,
+              wg + static_cast<size_t>(k) * ldg + g * H + u0 + u);
   }
   for (int i = threadIdx.x; i < up * H; i += kPThreads) {
     const int k = i / up, u = i % up;
-    stage_elem(wb + u * H + k, w_s + static_cast<size_t>(k) * lds + u0 + u);
+    cp_async4(wb + u * H + k, w_s + static_cast<size_t>(k) * lds + u0 + u);
   }
   prefetch(0);
   cp_async_commit();
@@ -680,15 +661,12 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
 
   unsigned arrivals = 0;
   for (int t = 0; t < T; ++t) {
-    const float* h_prev;
-    if constexpr (kPing) {
-      h_prev = h + (t & 1) * bh;
-    } else {
-      h_prev = t ? hs + (t - 1) * bh : h0;
-    }
+    const float* h_prev =
+        kResidual ? (t ? hs + (t - 1) * bh : h0) : h + (t & 1) * bh;
     const float* xb = x_own + (t & 1) * 3 * B * U;
     const float* mb = m_own + (t & 1) * B;
-    S* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3 : nullptr;
+    float* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3
+                           : nullptr;
     if (t + 1 < T) {
       prefetch(t + 1);
       cp_async_commit();
@@ -696,50 +674,35 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
     block_product(h_prev, H, H, wa, H, 2 * up, B, kc, stage,
                   [&](int b, int c, float acc) {
                     const int g = c >= up, u = c - g * up, j = u0 + u;
-                    const float xa = xb[b * 3 * U + g * U + u];
-                    float v;
-                    if constexpr (St::kF32) {
-                      v = sigmoid_f(xa + acc);
-                    } else {
-                      v = sigmoid_bf16(St::r(xa + St::r(acc)));
-                    }
+                    const float v =
+                        sigmoid_f(xb[b * 3 * U + g * U + u] + acc);
                     if (g == 0) {
                       z_own[b * U + u] = v;
                     } else {
-                      rh[b * H + j] = St::r(v * h_own[b * U + u]);
+                      rh[b * H + j] = v * h_own[b * U + u];
                     }
-                    if (kResidual) St::st(g_t + b * H3 + g * H + j, v);
+                    if (kResidual) g_t[b * H3 + g * H + j] = v;
                   });
     arrivals += gridDim.x;
     grid_barrier(count, arrivals);
     block_product(rh, H, H, wb, H, up, B, kc, stage,
                   [&](int b, int u, float acc) {
                     const int j = u0 + u;
-                    const float xc = xb[b * 3 * U + 2 * U + u];
+                    const float c = tanhf(xb[b * 3 * U + 2 * U + u] + acc);
                     const float hp = h_own[b * U + u];
                     const float z = z_own[b * U + u];
-                    float c, h_new, y;
-                    if constexpr (St::kF32) {
-                      c = tanhf(xc + acc);
-                      h_new = (hp - z * hp) + z * c;
-                      y = h_new;
-                    } else {
-                      c = St::r(tanhf(St::r(xc + St::r(acc))));
-                      y = St::r(hp - St::r(z * hp)) + St::r(z * c);
-                      h_new = St::r(y);
-                    }
+                    const float h_new = (hp - z * hp) + z * c;
                     const float m = mb[b];
                     const float hn = m > 0.0f ? h_new : hp;
                     h_own[b * U + u] = hn;
                     const size_t o = static_cast<size_t>(t) * bh +
                                      static_cast<size_t>(b) * H + j;
-                    ys[o] = y * m;
-                    if constexpr (kPing) {
-                      h[((t + 1) & 1) * bh + b * H + j] = hn;
-                    }
+                    ys[o] = h_new * m;
                     if (kResidual) {
-                      St::st(hs + o, hn);
-                      St::st(g_t + b * H3 + 2 * H + j, c);
+                      hs[o] = hn;
+                      g_t[b * H3 + 2 * H + j] = c;
+                    } else {
+                      h[((t + 1) & 1) * bh + b * H + j] = hn;
                     }
                   });
     if (t + 1 < T) {
@@ -752,27 +715,17 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_persistent_kernel(
 // The backward's reverse chain, one launch: dxs [T, B, 3H] and dh0 from
 // the residuals (hs, gates), the cotangents dys and dhT. Block p holds the
 // rows of Wg (2H) and Ws (H) of its units and their dh carry.
-//
-// The bf16 form (S = bf16): the residuals, h0, the weights, dhT, dh0 and
-// dxs_out in bf16; dys in f32; dxs an f32 scratch [T, B, 3H] through which
-// the blocks exchange the gradients the products read (the bf16 values,
-// widened; in the f32 form dxs is the output and dxs_out unused). Each
-// step computes in f32 from the widened inputs and rounds where the
-// reference holds bf16 values: dy as it meets h_new, da_z, da_c, da_r,
-// each product's result, and the dh carry at the step's last sum.
-template <class S>
 __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
     const float* __restrict__ dys,    // [T, B, H]
     const float* __restrict__ mask,   // [T, B]
-    const S* __restrict__ gates,      // [T, B, 3H]: z, r, c
-    const S* __restrict__ h0,         // [B, H]
-    const S* __restrict__ hs,         // [T, B, H]
-    const S* __restrict__ wg,         // [H, 2H], leading dim ldg
-    const S* __restrict__ w_s,        // [H, H], leading dim lds
-    const S* __restrict__ dhT,        // [B, H]
-    float* dxs, S* __restrict__ dxs_out, S* __restrict__ dh0,
-    unsigned* count, int ldg, int lds, int T, int B, int H, int U, int kc) {
-  using St = Store<S>;
+    const float* __restrict__ gates,  // [T, B, 3H]: z, r, c
+    const float* __restrict__ h0,     // [B, H]
+    const float* __restrict__ hs,     // [T, B, H]
+    const float* __restrict__ wg,     // [H, 2H], leading dim ldg
+    const float* __restrict__ w_s,    // [H, H], leading dim lds
+    const float* __restrict__ dhT,    // [B, H]
+    float* dxs, float* __restrict__ dh0, unsigned* count, int ldg, int lds,
+    int T, int B, int H, int U, int kc) {
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   const int u0 = blockIdx.x * U;
@@ -789,19 +742,16 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
   // the inputs of reverse step t for the block's units, into buffer t & 1
   // (read-only: a step ahead, through L1)
   auto prefetch = [&](int t) {
-    const S* g_t = gates + static_cast<size_t>(t) * B * H3;
-    const S* h_pv = t ? hs + (t - 1) * bh : h0;
+    const float* g_t = gates + static_cast<size_t>(t) * B * H3;
+    const float* h_pv = t ? hs + (t - 1) * bh : h0;
     const float* dy = dys + static_cast<size_t>(t) * bh;
     float* ib = in_own + (t & 1) * 5 * B * U;
     for (int i = threadIdx.x; i < 5 * B * up; i += kPThreads) {
       const int b = i / (5 * up), cu = i % (5 * up);
       const int g = cu / up, u = cu % up, j = u0 + u;
-      float* dst = ib + b * 5 * U + g * U + u;
-      if (g == 4) {
-        cp_async4(dst, dy + b * H + j);
-      } else {
-        stage_elem(dst, g < 3 ? g_t + b * H3 + g * H + j : h_pv + b * H + j);
-      }
+      const float* src = g < 3 ? g_t + b * H3 + g * H + j
+                               : (g == 3 ? h_pv : dy) + b * H + j;
+      cp_async4(ib + b * 5 * U + g * U + u, src);
     }
     for (int b = threadIdx.x; b < B; b += kPThreads)
       cp_async4(m_own + (t & 1) * B + b,
@@ -810,17 +760,17 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
 
   for (int i = threadIdx.x; i < up * H; i += kPThreads) {
     const int u = i / H, k = i % H;
-    stage_elem(w2 + i, w_s + static_cast<size_t>(u0 + u) * lds + k);
+    cp_async4(w2 + i, w_s + static_cast<size_t>(u0 + u) * lds + k);
   }
   for (int i = threadIdx.x; i < up * 2 * H; i += kPThreads) {
     const int u = i / (2 * H), k = i % (2 * H);
-    stage_elem(w3 + i, wg + static_cast<size_t>(u0 + u) * ldg + k);
+    cp_async4(w3 + i, wg + static_cast<size_t>(u0 + u) * ldg + k);
   }
   prefetch(T - 1);
   cp_async_commit();
   for (int i = threadIdx.x; i < B * up; i += kPThreads) {
     const int b = i / up, u = i % up;
-    dh[b * U + u] = St::ld(dhT + b * H + u0 + u);
+    dh[b * U + u] = dhT[b * H + u0 + u];
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -843,36 +793,22 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
       const float c = in[2 * U + u];
       const float hp = in[3 * U + u];
       const float d = dh[b * U + u];
-      const float dh_new = m * (d + St::r(in[4 * U + u]));
+      const float dh_new = m * (d + in[4 * U + u]);
       const float dz = dh_new * (c - hp);
-      const float da_c = St::r((dh_new * z) * (1.0f - c * c));
-      const float da_z = St::r((dz * z) * (1.0f - z));
-      dx_t[b * H3 + 2 * H + j] = da_c;
-      dx_t[b * H3 + j] = da_z;
-      if constexpr (!St::kF32) {
-        S* o = dxs_out + static_cast<size_t>(t) * B * H3 + b * H3;
-        St::st(o + 2 * H + j, da_c);
-        St::st(o + j, da_z);
-      }
+      dx_t[b * H3 + 2 * H + j] = (dh_new * z) * (1.0f - c * c);
+      dx_t[b * H3 + j] = (dz * z) * (1.0f - z);
       dh[b * U + u] = (1.0f - m) * d + dh_new * (1.0f - z);
     }
     arrivals += gridDim.x;
     grid_barrier(count, arrivals);
     // 2. drh = da_c @ Ws^T for the block's units; da_r; + drh * r
     block_product(dx_t + 2 * H, H3, H, w2, H, up, B, kc, stage,
-                  [&](int b, int u, float p) {
+                  [&](int b, int u, float drh) {
                     const int j = u0 + u;
                     const float* in = ib + b * 5 * U;
                     const float r = in[U + u];
-                    const float drh = St::r(p);
                     const float dr = drh * in[3 * U + u];
-                    const float da_r = St::r((dr * r) * (1.0f - r));
-                    dx_t[b * H3 + H + j] = da_r;
-                    if constexpr (!St::kF32) {
-                      St::st(dxs_out + static_cast<size_t>(t) * B * H3 +
-                                 b * H3 + H + j,
-                             da_r);
-                    }
+                    dx_t[b * H3 + H + j] = (dr * r) * (1.0f - r);
                     dh[b * U + u] = dh[b * U + u] + drh * r;
                   });
     // 3. + da_z @ Wg[:, :H]^T (every da_z is out since the barrier
@@ -882,70 +818,23 @@ __global__ void __launch_bounds__(kPThreads, 1) gru_bwd_chain_kernel(
     grid_arrive(count);
     block_product(dx_t, H3, H, w3, 2 * H, up, B, kc, stage,
                   [&](int b, int u, float p) {
-                    dh[b * U + u] = dh[b * U + u] + St::r(p);
+                    dh[b * U + u] = dh[b * U + u] + p;
                   });
     grid_wait(count, arrivals);
     block_product(dx_t + H, H3, H, w3 + H, 2 * H, up, B, kc, stage,
                   [&](int b, int u, float p) {
-                    dh[b * U + u] = St::r(dh[b * U + u] + St::r(p));
+                    dh[b * U + u] = dh[b * U + u] + p;
                   });
   }
   for (int i = threadIdx.x; i < B * up; i += kPThreads) {
     const int b = i / up, u = i % up;
-    St::st(dh0 + b * H + u0 + u, dh[b * U + u]);
+    dh0[b * H + u0 + u] = dh[b * U + u];
   }
 }
 
 bool bad_plan(int B, int H, int U, int kc) {
   return B < 1 || H < 4 || H % 4 != 0 || U < 1 || kc < 4 || kc % 4 != 0 ||
          slices_of(B, 2 * U) == 0;
-}
-
-// The forward launch of either form: the kernel's arguments in order (the
-// pointers of the storage type S pass untyped: the form picks the kernel).
-template <class S>
-int forward_persistent(const void* xs, const float* mask, const void* wg,
-                       const void* w_s, const float* h0, float* h, float* ys,
-                       void* hs, void* gates, float* rh, unsigned* count,
-                       int residual, int ldg, int lds, int T, int B, int H,
-                       int U, int kc, cudaStream_t s) {
-  if (T == 0 || B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U, kc)) return -4;
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&xs, &mask, &wg, &w_s, &h0, &h, &ys, &hs, &gates, &rh,
-                  &count, &ldg, &lds, &T, &B, &H, &U, &kc};
-  const int grid = (H + U - 1) / U;
-  const long long smem = persistent_smem(B, H, U, kc, false);
-  return residual
-             ? launch_cooperative(
-                   (const void*)gru_persistent_kernel<true, S>,
-                   grid, smem, args, s)
-             : launch_cooperative(
-                   (const void*)gru_persistent_kernel<false, S>,
-                   grid, smem, args, s);
-}
-
-// The chain's launch of either form.
-template <class S>
-int chain_launch(const float* dys, const float* mask, const void* gates,
-                 const void* h0, const void* hs, const void* wg,
-                 const void* w_s, const void* dhT, float* dxs, void* dxs_out,
-                 void* dh0, unsigned* count, int ldg, int lds, int T, int B,
-                 int H, int U, int kc, cudaStream_t s) {
-  if (B == 0 || H == 0) return 0;
-  if (bad_plan(B, H, U, kc)) return -4;
-  if (T == 0) {
-    return static_cast<int>(cudaMemcpyAsync(
-        dh0, dhT, sizeof(S) * B * H, cudaMemcpyDeviceToDevice, s));
-  }
-  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&dys, &mask, &gates, &h0, &hs, &wg, &w_s, &dhT, &dxs,
-                  &dxs_out, &dh0, &count, &ldg, &lds, &T, &B, &H, &U, &kc};
-  return launch_cooperative(
-      (const void*)gru_bwd_chain_kernel<S>,
-      (H + U - 1) / U, persistent_smem(B, H, U, kc, true), args, s);
 }
 
 }  // namespace
@@ -960,37 +849,666 @@ extern "C" long long gru_persistent_smem(int B, int H, int U, int kc,
 // The forward sequence on the persistent route: one cooperative launch of
 // ceil(H / U) blocks, U units each, staging chunks of kc floats (a
 // multiple of 4; H % 4 == 0). residual != 0: the residual form (ys, hs,
-// gates), else the primal form (hT in h[T % 2]). bf16_form == 0: the f32 form,
-// every tensor f32; the residual form starts from h0 (h unused), the
-// primal form from h [2, B, H] with h[0] = h0. bf16_form != 0: the bf16 form,
-// xs, the weights, hs and gates in bf16; h ([2, B, H] f32, h[0] = h0
-// widened, h0 pointing at it) the blocks' exchange of the state in both
-// forms. ys is f32 in both. rh ([B, H] f32) and count (one unsigned,
-// zeroed here on the stream) are scratch. Returns 0, a CUDA error,
-// -1/-2/-3 (see launch_cooperative) or -4 (a plan the kernel does not
-// take).
+// gates from h0; h unused), else the primal form (h [2, B, H] with
+// h[0] = h0; hT in h[T % 2]). rh ([B, H]) and count (one unsigned, zeroed
+// here on the stream) are scratch. Returns 0, a CUDA error, -1/-2/-3 (see
+// launch_cooperative) or -4 (a plan the kernel does not take).
 extern "C" int gru_seq_forward_persistent(
-    const void* xs, const float* mask, const void* wg, const void* w_s,
-    const float* h0, float* h, float* ys, void* hs, void* gates, float* rh,
-    unsigned* count, int residual, int bf16_form, int ldg, int lds, int T,
-    int B, int H, int U, int kc, void* stream) {
-  return (bf16_form ? forward_persistent<bf16> : forward_persistent<float>)(
-      xs, mask, wg, w_s, h0, h, ys, hs, gates, rh, count, residual, ldg, lds,
-      T, B, H, U, kc, static_cast<cudaStream_t>(stream));
+    const float* xs, const float* mask, const float* wg, const float* w_s,
+    const float* h0, float* h, float* ys, float* hs, float* gates, float* rh,
+    unsigned* count, int residual, int ldg, int lds, int T, int B, int H,
+    int U, int kc, void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs, &mask, &wg, &w_s, &h0, &h, &ys, &hs, &gates, &rh,
+                  &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  const int grid = (H + U - 1) / U;
+  const long long smem = persistent_smem(B, H, U, kc, false);
+  return residual
+             ? launch_cooperative(
+                   (const void*)gru_persistent_kernel<true>,
+                   grid, smem, args, s)
+             : launch_cooperative(
+                   (const void*)gru_persistent_kernel<false>,
+                   grid, smem, args, s);
 }
 
 // The backward's reverse chain on the persistent route: dxs ([T, B, 3H])
-// and dh0 ([B, H]) from the residuals of the forward. bf16_form != 0: the bf16
-// form, the residuals, h0, the weights, dhT, dxs_out and dh0 in bf16, dxs
-// ([T, B, 3H] f32) the blocks' exchange of the gradients; else every
-// tensor f32 (dxs_out unused). dys is f32 in both. Same plan, scratch and
-// error contract as gru_seq_forward_persistent.
-extern "C" int gru_bwd_chain_launch(
-    const float* dys, const float* mask, const void* gates, const void* h0,
-    const void* hs, const void* wg, const void* w_s, const void* dhT,
-    float* dxs, void* dxs_out, void* dh0, unsigned* count, int bf16_form,
-    int ldg, int lds, int T, int B, int H, int U, int kc, void* stream) {
-  return (bf16_form ? chain_launch<bf16> : chain_launch<float>)(
-      dys, mask, gates, h0, hs, wg, w_s, dhT, dxs, dxs_out, dh0, count, ldg,
-      lds, T, B, H, U, kc, static_cast<cudaStream_t>(stream));
+// and dh0 ([B, H]) from the residuals of the forward. Same plan, scratch
+// and error contract as gru_seq_forward_persistent.
+extern "C" int gru_bwd_chain_launch(const float* dys, const float* mask,
+                                    const float* gates, const float* h0,
+                                    const float* hs, const float* wg,
+                                    const float* w_s, const float* dhT,
+                                    float* dxs, float* dh0, unsigned* count,
+                                    int ldg, int lds, int T, int B, int H,
+                                    int U, int kc, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_plan(B, H, U, kc)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    return static_cast<int>(cudaMemcpyAsync(
+        dh0, dhT, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &h0,  &hs,  &wg, &w_s, &dhT, &dxs,
+                  &dh0, &count, &ldg, &lds, &T, &B, &H, &U, &kc};
+  return launch_cooperative(
+      (const void*)gru_bwd_chain_kernel,
+      (H + U - 1) / U, persistent_smem(B, H, U, kc, true), args, s);
+}
+
+// ---------------------------------------------------------------------
+// The bf16 forms: the persistent route's phases, the recurrent products
+// on the tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums), as
+// csrc/lstm_seq.cu's bf16 forms. They replace, at bf16, the same TPU
+// kernel (its bf16 semantics: the reference's scan gru_sequence_ref,
+// paddle_tpu/ops/gru.py:33, and its jax.vjp).
+//
+// Forward (gru_bf16_kernel): block p owns the units [p U, p U + U) (U
+// even) and holds, for the whole launch, bf16 rows of ld + 8 elements
+// (ld = H rounded up to 16, zero columns past H; the 16-byte pad puts the
+// 8 rows an ldmatrix reads in 8 bank groups): the z and r columns of Wg
+// of its units (rows g U8 + u, U8 = U rounded up to whole n8 tiles, zero
+// rows past the block's units) and the c columns of Ws (rows 2 U8 + u).
+// The state crosses blocks as the bf16 values it is: h_t through the
+// exchange hx (slot t holds h_t, h0 in slot 0; [T + 1][B][ld] in the
+// residual form, whose slots 1 .. T are hs, [2][B][ld] in the primal
+// form) and r * h_{t-1} through rhx [B][ld]. A step is
+//   A. h_{t-1} @ Wg[:, own z, r columns]; z, r = sigmoid(x + product),
+//      r * h_{t-1} into rhx; grid barrier;
+//   B. rhx @ Ws[:, own c columns]; c = tanh(x + product), h_t = h - z h +
+//      z c, the mask guard, h_t into hx, ys; grid barrier.
+// The barrier's halves are persistent.cuh's arrive_rel / wait_acq (one
+// red.release, an ld.acquire spin). Per-block flags polled by each warp
+// for the blocks owning its K slice, in place of the barrier, measured
+// slower on the H100 (PERF.md, PR 24), as did a ring holding a warp's
+// whole K slice.
+// A product (bf16_partials): warp kw sums the k16 steps [kw nk / 8, (kw +
+// 1) nk / 8) (nk = ld / 16) for the m16 tiles of a group of up to 64 rows
+// (MT tiles; a larger batch loops over groups) in the mma's f32
+// accumulators, from a ring of kBfSlots k16 chunks of the rows (cp.async
+// through L2, the LSTM's swizzle), three chunks ahead; the 8 warps' sums
+// meet in shared memory (where the rings were) and each cell adds them in
+// warp order, then rounds once. Every rounding point of the reference's
+// scan is kept: each product once after that sum, x + the product,
+// sigmoid_bf16, r * h, and h - z h + z c term by term; ys takes that last
+// sum unrounded. The block's own x columns and the mask come a step ahead
+// by 4-byte cp.async (two bf16 units a copy: U and H even), issued before
+// the step's last barrier.
+//
+// Chain (gru_bf16_chain_kernel): the f32 chain's phases, roundings and
+// order of sums (1. elementwise, da_z and da_c out; 2. drh = da_c @ Ws^T,
+// da_r out; 3a. + da_z @ Wg[:, :H]^T; 3b. + da_r @ Wg[:, H:]^T), the
+// three products on the mma as above from the rows of Ws and Wg of the
+// block's units (rows u, U8 + u, 2 U8 + u: Ws[j, :], Wg[j, :H], Wg[j, H:]),
+// two grid barriers a step as the f32 chain's (after 1; arrive after 2,
+// wait before 3b).
+// da_z, da_r and da_c cross blocks as the bf16 values they are through
+// the exchange dax [2][3][B][ld] (by the step's parity: a block writing
+// step t's has read every block's da_r of step t + 1, so every block is
+// past step t + 2's reads), beside the dxs it returns; the own inputs (z,
+// r, c, h_{t-1} bf16, dy f32, the mask) come a step ahead as in the
+// forward. No atomics: two runs give the same bits.
+//
+// What bounds them: the products are 2 B H 3H operations a step (the
+// chain's 6 B H^2), 0.0407 ms at B = 16, H = 1024, T = 400 at 989.4
+// TFLOP/s; a step's two grid barriers and its two exchanges through L2
+// are its latency, and a block's share of the products (its units) runs
+// serially on its SM's tensor cores. bf16 halves the resident weights,
+// so a block could own twice the f32 forms' units (fewer blocks at each
+// barrier, twice the products a block): at (16, 1024) 8 units a block
+// measured faster than 16 (PERF.md, PR 24), so gru_plan(..., bf16=True)
+// keeps 8 where they fit and never fewer than the f32 plan's units
+// (ceil(H / 132), at most 12 on the f32 route): U <= kBfMaxUnits = 16.
+
+namespace {
+
+constexpr int kBfSlots = 4;  // a warp's ring of k16 chunks
+constexpr int kBfWarps = kPThreads / 32;
+constexpr int kBfMaxUnits = 16;
+
+// The exchanges' row stride, bf16 elements: H rounded up to the mma's k.
+__host__ __device__ inline int bf16_ld(int H) { return (H + 15) / 16 * 16; }
+
+// m16 tiles of a product's row group as the batch asks (1, 2, 4: up to
+// 64 rows a group).
+__host__ __device__ inline int batch_mtiles(int B) {
+  return B <= 16 ? 1 : B <= 32 ? 2 : 4;
+}
+
+// n8 tiles of a block's U units (1, 2).
+__host__ __device__ inline int bf16_ntiles(int U) {
+  return U <= 8 ? 1 : 2;
+}
+
+// Row stride (floats) of a warp's sums: 8 per n8 tile, plus 8 for an even
+// count, so that the float2 stores of a half-warp hit 32 banks.
+__host__ __device__ constexpr int sums_ld(int nt) {
+  return 8 * nt + (nt % 2 ? 0 : 8);
+}
+
+// Shared-memory bytes of a bf16 block at mt m16 tiles a row group: the
+// 3 U8 resident weight rows of ld + 8 bf16, the warps' rings ([8]
+// [kBfSlots][16 mt][16] bf16), which then hold their sums ([8][16 mt]
+// [sums_ld(2 NT)] f32), and what it keeps of its own units: forward, the
+// h and z carries (f32), the mask and the x columns (bf16), both
+// double-buffered; backward, the dh carry (f32) and, double-buffered, dy
+// and the mask (f32) and z, r, c, h_{t-1} (bf16).
+__host__ __device__ inline long long tiles_smem(int B, int H, int U, int mt,
+                                                bool backward) {
+  const int nt = bf16_ntiles(U);
+  const long long w = 2LL * 3 * 8 * nt * (bf16_ld(H) + 8);
+  const long long ring = 2LL * kBfWarps * kBfSlots * 16 * mt * 16;
+  const long long sums = 4LL * kBfWarps * 16 * mt * sums_ld(2 * nt);
+  const long long bu = 1LL * B * U;
+  const long long own = backward ? 4 * bu + 2 * (4 * bu + 4LL * B + 8 * bu)
+                                 : 8 * bu + 2 * (4LL * B + 6 * bu);
+  return w + (ring > sums ? ring : sums) + own;
+}
+
+// m16 tiles of a product's row group: the batch's, fewer where both
+// blocks would not fit the card's limit at it.
+__host__ __device__ inline int bf16_mtiles(int B, int H, int U) {
+  int mt = batch_mtiles(B);
+  while (mt > 1 && tiles_smem(B, H, U, mt, true) > kSmemLimit) mt /= 2;
+  return mt;
+}
+
+__host__ __device__ inline long long bf16_smem(int B, int H, int U,
+                                               bool backward) {
+  return tiles_smem(B, H, U, bf16_mtiles(B, H, U), backward);
+}
+
+// v = s[0] + s[stride] + ... over the 8 warps, in warp order
+__device__ __forceinline__ float warp_order_sum(const float* s, int stride) {
+  float v = s[0];
+#pragma unroll
+  for (int kw = 1; kw < kBfWarps; ++kw) v += s[kw * stride];
+  return v;
+}
+
+// The 8 warps' partial sums of rows [r0, r0 + rows) of a (bf16, row
+// stride lda, ld columns, zero past H) times the block's NTP n8 tiles of
+// resident rows w (stride lw) over each warp's k16 steps, into sums[kw]
+// [r - r0][c] (row stride SL). Every thread calls it; it ends with the
+// block synchronised, the sums in place of the rings (every cp.async of
+// the thread done).
+template <int MT, int NTP>
+__device__ __forceinline__ void bf16_partials(const bf16* a, size_t lda,
+                                              int r0, int rows,
+                                              const bf16* w, int lw, int ld,
+                                              bf16* rings, float* sums,
+                                              int SL) {
+  constexpr int ROWS = 16 * MT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  // the warp's k16 steps [q0, q1); block p starts at step p % nq, so that
+  // the blocks read different lines of L2 at a time
+  const int nk = ld / 16;
+  const int q0 = warp * nk / kBfWarps, q1 = (warp + 1) * nk / kBfWarps;
+  const int nq = q1 - q0;
+  const int first = nq > 0 ? blockIdx.x % nq : 0;
+  bf16* const ring = rings + warp * kBfSlots * ROWS * 16;
+  float acc[MT][NTP][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTP; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  if (nq > 0) {
+    // chunk i of the ring: k16 step q0 + (first + i) % nq of the rows; a
+    // row's 16-byte half hh at 8 (hh ^ bit 2 of the row)
+    auto issue = [&](int i) {
+      const int q = q0 + (first + i) % nq;
+      bf16* dst = ring + (i % kBfSlots) * ROWS * 16;
+      for (int c = lane; c < 2 * rows; c += 32) {
+        const int r = c / 2, hh = c % 2;
+        cp_async16(dst + r * 16 + 8 * (hh ^ ((r >> 2) & 1)),
+                   a + static_cast<size_t>(r0 + r) * lda + 16 * q + 8 * hh);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < kBfSlots - 1; ++i) {
+      if (i < nq) issue(i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < nq; ++i) {
+      if (i + kBfSlots - 1 < nq) issue(i + kBfSlots - 1);
+      cp_async_commit();
+      cp_async_wait<kBfSlots - 1>();
+      __syncwarp();
+      const int q = q0 + (first + i) % nq;
+      const bf16* slot = ring + (i % kBfSlots) * ROWS * 16;
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = mt * 16 + (lane & 15), hh = lane >> 4;
+        ldsm_x4(af[mt], slot + r * 16 + 8 * (hh ^ ((r >> 2) & 1)));
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        unsigned bf[2];
+        ldsm_x2(bf, w + (nt * 8 + (lane & 7)) * lw + 16 * q +
+                        8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_add(acc[mt][nt], af[mt], bf);
+      }
+      __syncwarp();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring read: the sums take their place
+  float* const own = sums + warp * ROWS * SL;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt) {
+      float* o = own + (mt * 16 + g8) * SL + nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(o) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(o + 8 * SL) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncthreads();
+}
+
+template <bool kResidual, int MT, int NT>
+__global__ void __launch_bounds__(kPThreads, 1) gru_bf16_kernel(
+    const bf16* __restrict__ xs,     // [T, B, 3H], bias folded
+    const float* __restrict__ mask,  // [T, B]
+    const bf16* __restrict__ wg,     // [H, 2H], leading dim ldg
+    const bf16* __restrict__ w_s,    // [H, H], leading dim lds
+    bf16* hx,                        // [T + 1 or 2, B, ld]: h0 in slot 0
+    bf16* rhx,                       // [B, ld]
+    float* __restrict__ ys,          // [T, B, H]
+    bf16* __restrict__ gates,        // [T, B, 3H] (residual form)
+    unsigned* count, int ldg, int lds, int T, int B, int H, int U) {
+  using St = Store<bf16>;
+  constexpr int U8 = 8 * NT, ROWS = 16 * MT, SL = sums_ld(2 * NT);
+  extern __shared__ float4 smem4[];
+  const int ld = bf16_ld(H), lw = ld + 8;
+  bf16* const wa = reinterpret_cast<bf16*>(smem4);  // [2 U8][lw]: z, r
+  bf16* const wb = wa + 2 * U8 * lw;                // [U8][lw]: c
+  bf16* const rings = wb + U8 * lw;
+  float* const sums = reinterpret_cast<float*>(rings);
+  constexpr int kRing = 2 * kBfWarps * kBfSlots * ROWS * 16;
+  constexpr int kSums = 4 * kBfWarps * ROWS * SL;
+  float* const h_own = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(rings) + (kRing > kSums ? kRing : kSums));
+  float* const z_own = h_own + B * U;           // [B][U]
+  float* const m_own = z_own + B * U;           // [2][B]
+  bf16* const x_own = reinterpret_cast<bf16*>(m_own + 2 * B);  // [2][B][3U]
+  const int u0 = blockIdx.x * U;
+  const int up = min(U, H - u0);
+  const size_t H3 = 3 * static_cast<size_t>(H);
+  const size_t bl = static_cast<size_t>(B) * ld;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < ld * 3 * U8; i += kPThreads) {
+    const int k = i / (3 * U8), n = i % (3 * U8);
+    const int g = n / U8, u = n % U8;
+    bf16 v = zero;
+    if (u < up && k < H)
+      v = g < 2 ? wg[static_cast<size_t>(k) * ldg + g * H + u0 + u]
+                : w_s[static_cast<size_t>(k) * lds + u0 + u];
+    wa[n * lw + k] = v;
+  }
+  // the x columns of the block's units and the mask of step t, into
+  // buffer t & 1 (two units a 4-byte copy)
+  auto prefetch = [&](int t) {
+    const bf16* x_t = xs + static_cast<size_t>(t) * B * H3;
+    bf16* xb = x_own + (t & 1) * 3 * B * U;
+    const int hp = up / 2;
+    for (int i = threadIdx.x; i < 3 * B * hp; i += kPThreads) {
+      const int b = i / (3 * hp), cu = i % (3 * hp);
+      const int g = cu / hp, u = 2 * (cu % hp);
+      cp_async4(xb + b * 3 * U + g * U + u, x_t + b * H3 + g * H + u0 + u);
+    }
+    for (int b = threadIdx.x; b < B; b += kPThreads)
+      cp_async4(m_own + (t & 1) * B + b,
+                mask + static_cast<size_t>(t) * B + b);
+  };
+  prefetch(0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    h_own[b * U + u] = St::ld(hx + b * ld + u0 + u);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const bf16* h_prev = hx + (kResidual ? t : (t & 1)) * bl;
+    bf16* h_next = hx + (kResidual ? t + 1 : ((t + 1) & 1)) * bl;
+    const bf16* xb = x_own + (t & 1) * 3 * B * U;
+    const float* mb = m_own + (t & 1) * B;
+    bf16* g_t = kResidual ? gates + static_cast<size_t>(t) * B * H3 : nullptr;
+    // A. z, r and r * h_{t-1}
+    for (int r0 = 0; r0 < B; r0 += ROWS) {
+      const int rows = min(ROWS, B - r0);
+      bf16_partials<MT, 2 * NT>(h_prev, ld, r0, rows, wa, lw, ld, rings,
+                                sums, SL);
+      for (int i = threadIdx.x; i < rows * 2 * up; i += kPThreads) {
+        const int b = r0 + i / (2 * up), c = i % (2 * up);
+        const int g = c / up, u = c % up, j = u0 + u;
+        const float p = warp_order_sum(sums + (b - r0) * SL + g * U8 + u,
+                                       ROWS * SL);
+        const float v = sigmoid_bf16(
+            St::r(St::ld(xb + b * 3 * U + g * U + u) + St::r(p)));
+        if (g == 0) {
+          z_own[b * U + u] = v;
+        } else {
+          St::st(rhx + b * ld + j, v * h_own[b * U + u]);
+        }
+        if (kResidual) St::st(g_t + b * H3 + g * H + j, v);
+      }
+      __syncthreads();  // the sums read before the rings refill
+    }
+    arrive_rel(count);
+    wait_acq(count, (2 * t + 1) * gridDim.x);
+    // B. c and the new state
+    for (int r0 = 0; r0 < B; r0 += ROWS) {
+      const int rows = min(ROWS, B - r0);
+      bf16_partials<MT, NT>(rhx, ld, r0, rows, wb, lw, ld, rings, sums, SL);
+      for (int i = threadIdx.x; i < rows * up; i += kPThreads) {
+        const int b = r0 + i / up, u = i % up, j = u0 + u;
+        const float p = warp_order_sum(sums + (b - r0) * SL + u, ROWS * SL);
+        const float xc = St::ld(xb + b * 3 * U + 2 * U + u);
+        const float hp = h_own[b * U + u];
+        const float z = z_own[b * U + u];
+        const float c = St::r(tanhf(St::r(xc + St::r(p))));
+        const float y = St::r(hp - St::r(z * hp)) + St::r(z * c);
+        const float h_new = St::r(y);
+        const float m = mb[b];
+        const float hn = m > 0.0f ? h_new : hp;
+        h_own[b * U + u] = hn;
+        ys[static_cast<size_t>(t) * B * H + static_cast<size_t>(b) * H + j] =
+            y * m;
+        St::st(h_next + b * ld + j, hn);
+        if (kResidual) St::st(g_t + b * H3 + 2 * H + j, c);
+      }
+      __syncthreads();
+    }
+    if (t + 1 < T) {
+      prefetch(t + 1);
+      cp_async_commit();
+      arrive_rel(count);
+      wait_acq(count, (2 * t + 2) * gridDim.x);
+    }
+  }
+}
+
+template <int MT, int NT>
+__global__ void __launch_bounds__(kPThreads, 1) gru_bf16_chain_kernel(
+    const float* __restrict__ dys,   // [T, B, H]
+    const float* __restrict__ mask,  // [T, B]
+    const bf16* __restrict__ gates,  // [T, B, 3H]: z, r, c
+    const bf16* __restrict__ h0,     // [B, H]
+    const bf16* __restrict__ hs,     // [T, B, H]
+    const bf16* __restrict__ wg,     // [H, 2H], leading dim ldg
+    const bf16* __restrict__ w_s,    // [H, H], leading dim lds
+    const bf16* __restrict__ dhT,    // [B, H]
+    bf16* __restrict__ dxs,          // [T, B, 3H]
+    bf16* dax,                       // [2][3][B, ld]: da_z, da_r, da_c
+    bf16* __restrict__ dh0, unsigned* count, int ldg, int lds, int T, int B,
+    int H, int U) {
+  using St = Store<bf16>;
+  constexpr int U8 = 8 * NT, ROWS = 16 * MT, SL = sums_ld(2 * NT);
+  extern __shared__ float4 smem4[];
+  const int ld = bf16_ld(H), lw = ld + 8;
+  // [3 U8][lw]: Ws[j, :], Wg[j, :H], Wg[j, H:] of the units j
+  bf16* const ws = reinterpret_cast<bf16*>(smem4);
+  bf16* const rings = ws + 3 * U8 * lw;
+  float* const sums = reinterpret_cast<float*>(rings);
+  constexpr int kRing = 2 * kBfWarps * kBfSlots * ROWS * 16;
+  constexpr int kSums = 4 * kBfWarps * ROWS * SL;
+  float* const dh = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(rings) + (kRing > kSums ? kRing : kSums));
+  float* const dy_own = dh + B * U;                    // [2][B][U]
+  float* const m_own = dy_own + 2 * B * U;             // [2][B]
+  bf16* const in_own = reinterpret_cast<bf16*>(m_own + 2 * B);  // [2][B][4U]
+  const int u0 = blockIdx.x * U;
+  const int up = min(U, H - u0);
+  const size_t bh = static_cast<size_t>(B) * H;
+  const size_t H3 = 3 * static_cast<size_t>(H);
+  const size_t bl = static_cast<size_t>(B) * ld;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < 3 * U8 * ld; i += kPThreads) {
+    const int n = i / ld, k = i % ld;
+    const int g = n / U8, u = n % U8, j = u0 + u;
+    bf16 v = zero;
+    if (u < up && k < H)
+      v = g == 0 ? w_s[static_cast<size_t>(j) * lds + k]
+                 : wg[static_cast<size_t>(j) * ldg + (g - 1) * H + k];
+    ws[n * lw + k] = v;
+  }
+  // the inputs of reverse step t for the block's units, into buffer t & 1
+  // (two bf16 units a 4-byte copy)
+  auto prefetch = [&](int t) {
+    const bf16* g_t = gates + static_cast<size_t>(t) * B * H3;
+    const bf16* h_pv = t ? hs + (t - 1) * bh : h0;
+    const float* dy = dys + static_cast<size_t>(t) * bh;
+    bf16* ib = in_own + (t & 1) * 4 * B * U;
+    float* db = dy_own + (t & 1) * B * U;
+    const int hp = up / 2;
+    for (int i = threadIdx.x; i < 4 * B * hp; i += kPThreads) {
+      const int b = i / (4 * hp), cu = i % (4 * hp);
+      const int g = cu / hp, u = 2 * (cu % hp), j = u0 + u;
+      cp_async4(ib + b * 4 * U + g * U + u,
+                g < 3 ? g_t + b * H3 + g * H + j : h_pv + b * H + j);
+    }
+    for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+      const int b = i / up, u = i % up;
+      cp_async4(db + b * U + u, dy + b * H + u0 + u);
+    }
+    for (int b = threadIdx.x; b < B; b += kPThreads)
+      cp_async4(m_own + (t & 1) * B + b,
+                mask + static_cast<size_t>(t) * B + b);
+  };
+  prefetch(T - 1);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    dh[b * U + u] = St::ld(dhT + b * H + u0 + u);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    const unsigned k = T - 1 - t;  // the steps done before this one
+    const bf16* ib = in_own + (t & 1) * 4 * B * U;
+    const float* db = dy_own + (t & 1) * B * U;
+    const float* mb = m_own + (t & 1) * B;
+    bf16* const da = dax + (t & 1) * 3 * bl;  // da_z, da_r, da_c
+    bf16* const dx_t = dxs + static_cast<size_t>(t) * B * H3;
+    // 1. the block's units, elementwise
+    for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+      const int b = i / up, u = i % up, j = u0 + u;
+      const bf16* in = ib + b * 4 * U;
+      const float m = mb[b];
+      const float z = St::ld(in + u);
+      const float c = St::ld(in + 2 * U + u);
+      const float hp = St::ld(in + 3 * U + u);
+      const float d = dh[b * U + u];
+      const float dh_new = m * (d + St::r(db[b * U + u]));
+      const float dz = dh_new * (c - hp);
+      const float da_c = St::r((dh_new * z) * (1.0f - c * c));
+      const float da_z = St::r((dz * z) * (1.0f - z));
+      St::st(da + 2 * bl + b * ld + j, da_c);
+      St::st(da + b * ld + j, da_z);
+      St::st(dx_t + b * H3 + 2 * H + j, da_c);
+      St::st(dx_t + b * H3 + j, da_z);
+      dh[b * U + u] = (1.0f - m) * d + dh_new * (1.0f - z);
+    }
+    if (t > 0) {
+      prefetch(t - 1);
+      cp_async_commit();
+    }
+    arrive_rel(count);
+    wait_acq(count, (2 * k + 1) * gridDim.x);
+    // 2. drh = da_c @ Ws^T for the block's units; da_r; + drh * r
+    for (int r0 = 0; r0 < B; r0 += ROWS) {
+      const int rows = min(ROWS, B - r0);
+      bf16_partials<MT, NT>(da + 2 * bl, ld, r0, rows, ws, lw, ld, rings,
+                            sums, SL);
+      for (int i = threadIdx.x; i < rows * up; i += kPThreads) {
+        const int b = r0 + i / up, u = i % up, j = u0 + u;
+        const bf16* in = ib + b * 4 * U;
+        const float r = St::ld(in + U + u);
+        const float drh =
+            St::r(warp_order_sum(sums + (b - r0) * SL + u, ROWS * SL));
+        const float dr = drh * St::ld(in + 3 * U + u);
+        const float da_r = St::r((dr * r) * (1.0f - r));
+        St::st(da + bl + b * ld + j, da_r);
+        St::st(dx_t + b * H3 + H + j, da_r);
+        dh[b * U + u] = dh[b * U + u] + drh * r;
+      }
+      __syncthreads();
+    }
+    // 3. + da_z @ Wg[:, :H]^T (every da_z is out since the barrier
+    // above), then, once every block has written its da_r,
+    // + da_r @ Wg[:, H:]^T
+    arrive_rel(count);
+    for (int r0 = 0; r0 < B; r0 += ROWS) {
+      const int rows = min(ROWS, B - r0);
+      bf16_partials<MT, NT>(da, ld, r0, rows, ws + U8 * lw, lw, ld, rings,
+                            sums, SL);
+      for (int i = threadIdx.x; i < rows * up; i += kPThreads) {
+        const int b = r0 + i / up, u = i % up;
+        dh[b * U + u] = dh[b * U + u] +
+            St::r(warp_order_sum(sums + (b - r0) * SL + u, ROWS * SL));
+      }
+      __syncthreads();
+    }
+    wait_acq(count, (2 * k + 2) * gridDim.x);
+    for (int r0 = 0; r0 < B; r0 += ROWS) {
+      const int rows = min(ROWS, B - r0);
+      bf16_partials<MT, NT>(da + bl, ld, r0, rows, ws + 2 * U8 * lw, lw, ld,
+                            rings, sums, SL);
+      for (int i = threadIdx.x; i < rows * up; i += kPThreads) {
+        const int b = r0 + i / up, u = i % up;
+        dh[b * U + u] = St::r(dh[b * U + u] + St::r(warp_order_sum(
+            sums + (b - r0) * SL + u, ROWS * SL)));
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < B * up; i += kPThreads) {
+    const int b = i / up, u = i % up;
+    St::st(dh0 + b * H + u0 + u, dh[b * U + u]);
+  }
+}
+
+bool bad_bf16_plan(int B, int H, int U) {
+  return B < 1 || H < 4 || H % 4 != 0 || U < 2 || U % 2 != 0 ||
+         U > kBfMaxUnits;
+}
+
+// the instance for (m16 tiles, n8 tiles): Fn<MT, NT>::fn()
+template <template <int, int> class Fn>
+const void* by_tiles(int mt, int nt) {
+  switch (4 * mt + nt) {
+    case 5: return Fn<1, 1>::fn();
+    case 6: return Fn<1, 2>::fn();
+    case 9: return Fn<2, 1>::fn();
+    case 10: return Fn<2, 2>::fn();
+    case 17: return Fn<4, 1>::fn();
+    default: return Fn<4, 2>::fn();
+  }
+}
+
+template <int MT, int NT>
+struct BfPrimal {
+  static const void* fn() {
+    return (const void*)gru_bf16_kernel<false, MT, NT>;
+  }
+};
+template <int MT, int NT>
+struct BfResidual {
+  static const void* fn() {
+    return (const void*)gru_bf16_kernel<true, MT, NT>;
+  }
+};
+template <int MT, int NT>
+struct BfChain {
+  static const void* fn() {
+    return (const void*)gru_bf16_chain_kernel<MT, NT>;
+  }
+};
+
+}  // namespace
+
+// Shared-memory bytes of a bf16 block (backward != 0: the chain's), as
+// the bf16 launchers compute them; the wrapper's plan mirrors it.
+extern "C" long long gru_bf16_smem(int B, int H, int U, int backward) {
+  return bf16_smem(B, H, U, backward != 0);
+}
+
+// The bf16 forward on the persistent route: one cooperative launch of
+// ceil(H / U) blocks (U even, at most 16; H % 4 == 0). xs (bias folded),
+// the weights (any row strides ldg, lds, columns contiguous) and gates
+// bf16; ys f32. hx (bf16, 16-byte aligned) holds h0 in slot 0 and zero
+// columns past H (its rows ld = H rounded up to 16 wide): [T + 1, B, ld]
+// in the residual form (residual != 0: ys, hx, gates), h_t in slot t on
+// return; [2, B, ld] in the primal form (ys, hT in slot T % 2; gates
+// unused). rhx ([B, ld] bf16) and count (one unsigned) are scratch,
+// zeroed here. Returns 0, a CUDA error, -1/-2/-3 (see launch_cooperative)
+// or -4 (a plan the kernel does not take).
+extern "C" int gru_bf16_forward(const void* xs, const float* mask,
+                                const void* wg, const void* w_s, void* hx,
+                                void* rhx, float* ys, void* gates,
+                                unsigned* count, int residual, int ldg,
+                                int lds, int T, int B, int H, int U,
+                                void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  if (bad_bf16_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(rhx, 0, sizeof(bf16) * B * bf16_ld(H), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&xs, &mask, &wg, &w_s, &hx, &rhx, &ys, &gates, &count,
+                  &ldg, &lds, &T, &B, &H, &U};
+  const int mt = bf16_mtiles(B, H, U), nt = bf16_ntiles(U);
+  const void* kernel = residual ? by_tiles<BfResidual>(mt, nt)
+                                : by_tiles<BfPrimal>(mt, nt);
+  return launch_cooperative(kernel, (H + U - 1) / U,
+                            bf16_smem(B, H, U, false), args, s);
+}
+
+// The bf16 reverse chain on the persistent route: dxs ([T, B, 3H]) and dh0
+// ([B, H]) in bf16 from the bf16 residuals (gates, hs), h0, the weights
+// and dhT; dys (the cotangent of the f32 ys) f32. The own inputs are read
+// two units a 4-byte copy (h0, hs and gates 4-byte aligned). Scratch: dax
+// ([2, 3, B, ld] bf16) and count (one unsigned), both zeroed here.
+// Same plan and error contract as gru_bf16_forward.
+extern "C" int gru_bf16_chain(const float* dys, const float* mask,
+                              const void* gates, const void* h0,
+                              const void* hs, const void* wg,
+                              const void* w_s, const void* dhT, void* dxs,
+                              void* dax, void* dh0, unsigned* count, int ldg,
+                              int lds, int T, int B, int H, int U,
+                              void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_bf16_plan(B, H, U)) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0) {
+    return static_cast<int>(cudaMemcpyAsync(
+        dh0, dhT, sizeof(bf16) * B * H, cudaMemcpyDeviceToDevice, s));
+  }
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(dax, 0, sizeof(bf16) * 6 * B * bf16_ld(H), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&dys, &mask, &gates, &h0, &hs, &wg, &w_s, &dhT, &dxs,
+                  &dax, &dh0, &count, &ldg, &lds, &T, &B, &H, &U};
+  return launch_cooperative(
+      by_tiles<BfChain>(bf16_mtiles(B, H, U), bf16_ntiles(U)),
+      (H + U - 1) / U,
+      bf16_smem(B, H, U, true), args, s);
 }

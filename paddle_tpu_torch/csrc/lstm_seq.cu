@@ -1179,57 +1179,6 @@ __host__ __device__ inline long long bf16_smem(int B, int H, int U,
   return 2LL * (kGroupCols * U + 16 * mt) * (chain_kp(H, U) + 8);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// the four 8 x 8 matrices whose rows lanes 0-7, 8-15, 16-23, 24-31 point
-// at, as an mma A fragment
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// two 8 x 8 matrices (rows from lanes 0-7, 8-15), as a B fragment
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-// c += a b over k = 16 (f32 sums)
-__device__ __forceinline__ void mma_add(float (&c)[4], const unsigned (&a)[4],
-                                        const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The grid barrier's halves (persistent.cuh) with release and acquire in
-// place of the fences: thread 0 counts the block in with one red.release
-// (its block's writes are ordered before it by the __syncthreads); after
-// its acquire spin, the __syncthreads orders the block's reads after the
-// others' writes.
-__device__ __forceinline__ void arrive_rel(unsigned* count) {
-  __syncthreads();
-  if (threadIdx.x == 0)
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void wait_acq(const unsigned* count,
-                                         unsigned target) {
-  if (threadIdx.x == 0) {
-    while (load_acquire(count) < target) {
-    }
-  }
-  __syncthreads();
-}
-
 template <bool kResidual, int MT, int U>
 __global__ void __launch_bounds__(kPThreads, 1) lstm_bf16_kernel(
     const bf16* __restrict__ xs,     // [T, B, 4H]

@@ -7,18 +7,18 @@
 // read only through L2 (cp.async.cg, ld.global.cg), never through the
 // non-coherent L1.
 //
-// The storage types of the kernels' two forms (Store<S>): float32, and
-// bfloat16, whose values the kernels compute on in f32 registers (gru_seq
-// .cu's bf16 forms also widen them into the f32 forms' shared memory);
-// Store<S>::r rounds an f32 result to S and back (round to nearest even,
-// as the CPU's bf16 operations round), the identity for float.
+// The bf16 forms' pieces: Store<bf16> (the storage type of values the
+// kernels compute on in f32 registers; Store<S>::r rounds an f32 result
+// to S and back, round to nearest even as the CPU's bf16 operations
+// round, the identity for float), the mma.sync m16n8k16 bf16 product
+// with its ldmatrix loads, and the grid barrier's halves with release and
+// acquire in place of the fences.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <type_traits>
 
 namespace {
 
@@ -59,7 +59,7 @@ __device__ __forceinline__ float sigmoid_bf16(float x) {
   return R::r(1.0f / R::r(1.0f + R::r(expf(-x))));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src));
@@ -69,18 +69,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
-}
-
-// One element of S from global memory into f32 shared memory: a 4-byte
-// cp.async for float, a load and a widening store for bf16 (cp.async
-// copies 4, 8 or 16 bytes).
-template <class S>
-__device__ __forceinline__ void stage_elem(float* dst, const S* src) {
-  if constexpr (Store<S>::kF32) {
-    cp_async4(dst, src);
-  } else {
-    *dst = Store<S>::ld(src);
-  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -131,6 +119,57 @@ __device__ __forceinline__ void grid_barrier(unsigned* count,
                                              unsigned target) {
   grid_arrive(count);
   grid_wait(count, target);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the four 8 x 8 matrices whose rows lanes 0-7, 8-15, 16-23, 24-31 point
+// at, as an mma A fragment
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// two 8 x 8 matrices (rows from lanes 0-7, 8-15), as a B fragment
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b over k = 16 (f32 sums)
+__device__ __forceinline__ void mma_add(float (&c)[4], const unsigned (&a)[4],
+                                        const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The grid barrier's halves with release and acquire in place of the
+// fences: thread 0 counts the block in with one red.release (its
+// block's writes are ordered before it by the __syncthreads); after its
+// acquire spin, the __syncthreads orders the block's reads after the
+// others' writes.
+__device__ __forceinline__ void arrive_rel(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void wait_acq(const unsigned* count,
+                                         unsigned target) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(count) < target) {
+    }
+  }
+  __syncthreads();
 }
 
 // Columns [k0, k0 + w) of rows b < B of a (row stride lda) into

@@ -32,9 +32,12 @@ The tensor-core kernels are instantiated for D in ``HEAD_DIMS``; on the
 card another D <= 128 is padded with zero columns up to the next instance
 and the results sliced back (``fwd_padded``, ``bwd_padded``), with the
 scale of the true D. 128 < D <= ``WIDE_MAX_D`` takes the wide-head path
-of the same entries (f32 on the CUDA cores, a warp a row, any D there),
-and any wider head the split-row path (a block a row, its D split across
-the block's warps, the partial dots added in a fixed order).
+of the same entries (split TF32 on the tensor cores too, any D there: a
+block of 16 rows, D padded to whole chunks of 64 columns streamed through
+a ring; each score summed by one warp over all of D, each output column
+by one warp over the keys), and any wider head the split-row path (a
+block a row, its D split across the block's warps, the partial dots
+added in a fixed order).
 
 ``mha_plain`` is the plain softmax attention, the ground truth of the
 tests. ``flash_attention`` takes ``flash_fwd`` alone when no gradient is
@@ -273,10 +276,15 @@ SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
 
 
-# the wide-head path: a block's rows (a warp each) and the floats of one
-# staged tile (csrc/flash_attn.cu: kWideWarps, kWideStage)
-WIDE_ROWS = 8
-WIDE_STAGE = 4096
+# the wide-head path (csrc/flash_attn.cu: kWideRows, kWideKeys,
+# kWideChunk, kWideWarps, kWideStagesFwd / Bwd): a block's rows, the rows
+# of a streamed tile (8 a warp), the columns of a staged chunk (8 a warp),
+# the warps, the chunks of the forward's and the backward's rings
+WIDE_ROWS = 16
+WIDE_KEYS = 64
+WIDE_CHUNK = 64
+WIDE_WARPS = 8
+WIDE_STAGES = dict(fwd=4, dq=2, dkdv=2)
 # the split-row path: a block's threads (one row) and the rows a step
 # streams (csrc/flash_attn.cu: kSplitThreads, kSplitRows)
 SPLIT_THREADS = 256
@@ -284,16 +292,51 @@ SPLIT_ROWS = 8
 
 
 def _wide_plan(D: int) -> dict:
-    """The wide-head path at 128 < D <= ``WIDE_MAX_D``: ``lanes`` elements
-    of a row a lane (D <= 32 lanes), ``stage_rows`` rows of a ring stage
-    (keys; queries in dkdv), two stages of two tiles and the rows' mask
-    (forward, dq) or m, log l and delta (dkdv)."""
-    lanes = 8 if D <= 256 else (16 if D <= 512 else 32)
-    rows = WIDE_STAGE // (32 * lanes)
-    smem = {name: 4 * 2 * (2 * WIDE_STAGE + vecs * rows)
-            for name, vecs in (("fwd", 1), ("dq", 1), ("dkdv", 3))}
-    return dict(variant="wide", rows=WIDE_ROWS, lanes=lanes,
-                stage_rows=rows, max_d=WIDE_MAX_D, smem=smem)
+    """The wide-head path at 128 < D <= ``WIDE_MAX_D`` (``wide_smem`` in
+    the kernel): a block owns ``rows`` rows (16 queries; 16 keys in dkdv);
+    D is padded to ``padded`` (whole ``chunk``s of 64 columns); the
+    streamed operand comes in chunks of ``stage_rows`` rows by ``chunk``
+    columns through a ring of ``stages[kernel]`` chunks; a product over D
+    splits the tile's rows across the 8 warps, a product into D splits the
+    chunk's columns (8 a warp); the kernel's instance holds ``instance``
+    chunks of accumulators (4, 8, 16). Shared memory: the resident rows
+    (q; q and dO; k and v), split into TF32 big and small (2 x 16 x
+    ``padded`` words each) where ``presplit[kernel]`` (the forward's
+    always, dq's and dkdv's up to the 8-chunk instance), else raw (16 x
+    (``padded`` + 4) floats); the ring (rows of ``chunk`` + 4), P split in
+    two (2 x 16 x 68) and 272 floats of vectors (the warps' row maxima and
+    sums; dq's delta)."""
+    padded = -(-D // WIDE_CHUNK) * WIDE_CHUNK
+    chunks = padded // WIDE_CHUNK
+    instance = 4 if chunks <= 4 else 8 if chunks <= 8 else 16
+    presplit = dict(fwd=True, dq=instance <= 8, dkdv=instance <= 8)
+    shared = (2 * WIDE_ROWS * (WIDE_KEYS + 4)
+              + 2 * WIDE_WARPS * WIDE_ROWS + WIDE_ROWS)
+    smem = {name: 4 * (resident * WIDE_ROWS
+                       * (2 * padded if presplit[name] else padded + 4)
+                       + WIDE_STAGES[name] * WIDE_KEYS * (WIDE_CHUNK + 4)
+                       + shared)
+            for name, resident in (("fwd", 1), ("dq", 2), ("dkdv", 2))}
+    return dict(variant="wide", rows=WIDE_ROWS, stage_rows=WIDE_KEYS,
+                chunk=WIDE_CHUNK, stages=dict(WIDE_STAGES), padded=padded,
+                instance=instance, presplit=presplit, max_d=WIDE_MAX_D,
+                smem=smem)
+
+
+def wide_parts(blocks: int, D: int, sms: int = build.H100_SMS) -> int:
+    """The parts (``gridDim.z``, ``wide_parts`` in the kernel) a wide-head
+    launch of ``blocks`` blocks (B N times the row blocks of 16) splits its
+    outputs' chunks into: at the 16-chunk instance (D > 512), doubled while
+    the blocks stay within the card's ``sms`` SMs and a part keeps a chunk;
+    1 below it. Part z's blocks compute the products over D whole and
+    those into D for its chunks alone, so every output element is the same
+    sum at any number of parts."""
+    chunks = -(-D // WIDE_CHUNK)
+    parts = 1
+    while (_wide_plan(D)["instance"] == 16 and 2 * parts <= chunks
+           and blocks * 2 * parts <= sms):
+        parts *= 2
+    return parts
 
 
 def _bf16_plan(D: int) -> dict:

@@ -52,11 +52,18 @@ operation rounded to bf16, the products once after an f32 sum, sigmoid
 as ``1 / (1 + exp(-x))``; its f32 ``ys`` take the last sum of ``h - z*h
 + z*c`` unrounded (XLA elides the round trip into the f32 product with
 the mask), ``hT`` stays bf16. The persistent kernels' bf16 form keeps
-those rounding points; its chain computes each step in f32 from the bf16
+those rounding points on kernels of their own (``csrc/gru_seq.cu``, last
+section: ``gru_bf16_kernel``, ``gru_bf16_chain_kernel``; the recurrent
+products on the tensor cores, ``mma.sync`` m16n8k16 with bf16 operands and
+f32 sums, the weights resident as bf16, the state and the gradients
+exchanged as bf16); its chain computes each step in f32 from the bf16
 residuals and rounds where it stores (da_z, da_r, da_c, the dh carry)
-and each product once. A mixed call (f32 ``xs``, bf16 weights) takes the
-float32 kernels on the widened weights. The two-launch route has no bf16
-form and refuses bf16 on the card.
+and each product once. The bf16 forms' blocks are ``gru_plan(...,
+bf16=True)``'s: the f32 route's shapes, a block owning an even number
+of units, ``BF16_UNITS`` where it fits and never fewer than the f32
+plan's. A mixed call (f32 ``xs``, bf16 weights) takes the float32
+kernels on the widened weights. The two-launch route has no bf16 form
+and refuses bf16 on the card.
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ import torch
 from paddle_tpu_torch.ops import build
 from paddle_tpu_torch.ops.build import (H100_SMS, SMEM_BYTES, aligned,
                                         check_weight, device_sms)
-from paddle_tpu_torch.ops.lstm import _rounder, _sigmoid
+from paddle_tpu_torch.ops.lstm import _rounder, _sigmoid, bf16_ld
 from paddle_tpu_torch.utils.precision import matmul, result_type
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -81,6 +88,14 @@ TILE_ROWS = TILE_COLS = 4
 MAX_SLICES = 32
 MIN_CHUNK = 32
 PERSISTENT, TWO_LAUNCH = "persistent", "two_launch"
+# the bf16 forms (csrc/gru_seq.cu, last section): a warp's ring of k16
+# chunks (kBfSlots), the 8 warps' K slices, at most kBfMaxUnits units a
+# block; BF16_UNITS is the plan's units where they fit (the faster of 8
+# and 16 at the acoustic model's (16, 1024) on the H100, PERF.md)
+BF16_SLOTS = 4
+BF16_WARPS = 8
+BF16_MAX_UNITS = 16
+BF16_UNITS = 8
 
 
 def _cdiv(a, b):
@@ -140,12 +155,74 @@ def _chunk(B, H, units, backward):
     return chunk if chunk >= MIN_CHUNK else 0
 
 
-def gru_plan(B, H, sms=H100_SMS) -> dict:
+def _tiles_smem(B, H, units, mt, backward):
+    """``tiles_smem``: a bf16 block's bytes at ``mt`` m16 tiles a row group
+    (see ``bf16_smem``)."""
+    nt = 1 if units <= 8 else 2
+    sums_ld = 16 * nt + 8
+    weights = 2 * 3 * 8 * nt * (bf16_ld(H) + 8)
+    ring = 2 * BF16_WARPS * BF16_SLOTS * 16 * mt * 16
+    sums = 4 * BF16_WARPS * 16 * mt * sums_ld
+    bu = B * units
+    own = (4 * bu + 2 * (4 * bu + 4 * B + 8 * bu) if backward
+           else 8 * bu + 2 * (4 * B + 6 * bu))
+    return weights + max(ring, sums) + own
+
+
+def bf16_mtiles(B, H, units) -> int:
+    """m16 tiles of the bf16 products' row group (``bf16_mtiles``): 1, 2
+    or 4 as the batch asks (16, 32, 64 rows; a larger batch loops over
+    groups), halved while the chain's block would not fit."""
+    mt = 1 if B <= 16 else 2 if B <= 32 else 4
+    while mt > 1 and _tiles_smem(B, H, units, mt, True) > SMEM_BYTES:
+        mt //= 2
+    return mt
+
+
+def bf16_smem(B, H, units, backward) -> int:
+    """Shared-memory bytes of a bf16 block (``bf16_smem`` in the kernel):
+    the 3 * 8 * n8-tiles resident weight rows of ``bf16_ld(H)`` + 8 bf16
+    (the 16-byte pad keeps ldmatrix off bank conflicts), the 8 warps'
+    rings of k16 chunks (``BF16_SLOTS`` of [16 * m16 tiles][16] bf16),
+    which then hold their f32 sums, and the own units' state: forward the
+    h and z carries (f32) and, double-buffered, the mask (f32) and the x
+    columns (bf16); backward the dh carry and, double-buffered, dy and the
+    mask (f32) and z, r, c, h_prev (bf16)."""
+    return _tiles_smem(B, H, units, bf16_mtiles(B, H, units), backward)
+
+
+def _bf16_units(B, H, sms):
+    """The bf16 forms' units a block: ``BF16_UNITS`` where its blocks fit,
+    else the most below it that fit; never fewer than the f32 forms' (the
+    grid stays within the card's SMs) and always even (two units a 4-byte
+    copy)."""
+    least = _cdiv(gru_units(H, sms), 2) * 2
+    for u in range(max(BF16_UNITS, least), least - 1, -2):
+        if max(bf16_smem(B, H, u, False), bf16_smem(B, H, u, True)) \
+                <= SMEM_BYTES:
+            return u
+    return least
+
+
+def gru_plan(B, H, sms=H100_SMS, bf16=False) -> dict:
     """The persistent route's plan for a [B, H] recurrence on a card of
     ``sms`` SMs: ``route`` (PERSISTENT where H % 4 == 0, the product tiles
     fit the block and both the forward's and the backward's staging fit
     beside the weights; else TWO_LAUNCH), ``units``, ``grid``, the staging
-    ``chunk`` and ``smem`` bytes of the forward and of the backward."""
+    ``chunk`` and ``smem`` bytes of the forward and of the backward.
+    ``bf16``: the bf16 forms' plan (``units``, ``grid``, ``smem_fwd``,
+    ``smem_bwd``), PERSISTENT where the float32 plan is and its blocks
+    fit too."""
+    if bf16:
+        u = _bf16_units(B, H, sms)
+        plan = dict(units=u, grid=_cdiv(H, u) if H else 0,
+                    smem_fwd=bf16_smem(B, H, u, False),
+                    smem_bwd=bf16_smem(B, H, u, True))
+        ok = (gru_route(B, H, sms) == PERSISTENT and u % 2 == 0
+              and 2 <= u <= BF16_MAX_UNITS and plan["grid"] <= sms
+              and max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_BYTES)
+        plan["route"] = PERSISTENT if ok else TWO_LAUNCH
+        return plan
     units = gru_units(H, sms)
     plan = dict(units=units, grid=_cdiv(H, units) if H else 0)
     for kind, backward in (("fwd", False), ("bwd", True)):
@@ -171,6 +248,15 @@ def persistent_smem_of_kernel(B, H, units, chunk, backward) -> int:
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
     return fn(B, H, units, chunk, int(backward))
+
+
+def bf16_smem_of_kernel(B, H, units, backward) -> int:
+    """The kernel's own count of a bf16 block's shared-memory bytes (card
+    only), to hold ``bf16_smem`` against."""
+    fn = build.load("gru_seq").gru_bf16_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(B, H, units, int(backward))
 
 
 def gru_step(x_t, h, w_gate, w_state):
@@ -250,52 +336,66 @@ def _seq_args(kernel, xs_b, mask, w_gate, w_state, h0, plan):
 
 
 def _persistent_plan(t, B, H, two_launch):
-    """The persistent route's plan for the card ``t`` lies on, or None for
-    the two-launch route (forced, or the shape's)."""
+    """The persistent route's plan for the card ``t`` lies on (the bf16
+    forms' for a bf16 ``t``), or None for the two-launch route (forced, or
+    the shape's)."""
     if two_launch:
         return None
-    plan = gru_plan(B, H, device_sms(t))
+    plan = gru_plan(B, H, device_sms(t), bf16=t.dtype == _BF16)
     return plan if plan["route"] == PERSISTENT else None
 
 
 def _forward_persistent(kernel, plan, xs_b, mask, w_gate, w_state, h0, ldg,
                         lds, residual):
-    """One persistent forward launch in xs_b's dtype (the f32 or the bf16
-    form): (ys, hT) or, ``residual``, (ys, hs, gates); ys f32, the rest in
-    xs_b's dtype. The state pair h [2, B, H] f32 (h[0] = h0 widened) is
-    the primal form's and, in bf16, the blocks' exchange of the state in
-    both forms, staged as the f32 form stages it."""
+    """One persistent forward launch in xs_b's dtype: (ys, hT) or,
+    ``residual``, (ys, hs, gates); ys f32, the rest in xs_b's dtype. The
+    f32 form's primal state ping-pongs in h [2, B, H] (h[0] = h0), its
+    residual form's crosses blocks through hs; the bf16 form's through its
+    exchange hx ([T + 1 or 2, B, ``bf16_ld(H)``] bf16, h0 in slot 0, zero
+    columns past H), of which hs is a view where the stride is H."""
     T, B, _ = xs_b.shape
     H = h0.shape[1]
     dev, dt = xs_b.device, xs_b.dtype
-    bf16 = dt == _BF16
     new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
                                                device=dev)
-    ys, rh = new(T, B, H, dtype=torch.float32), new(B, H,
-                                                    dtype=torch.float32)
-    hs, gates = (new(T, B, H), new(T, B, 3 * H)) if residual else (None,
-                                                                   None)
-    h = None
-    if bf16 or not residual:
-        h = new(2, B, H, dtype=torch.float32)
-        h[0].copy_(h0)
-    # the f32 residual form starts from h0 itself (16-byte aligned), the
-    # others from h[0]
-    h_init = h if bf16 else aligned(h0)
+    ys = new(T, B, H, dtype=torch.float32)
+    gates = new(T, B, 3 * H) if residual else None
     count = torch.empty(1, dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
+    if dt == _BF16:
+        ld = bf16_ld(H)
+        hx = (torch.empty if ld == H else torch.zeros)(
+            (T + 1 if residual else 2, B, ld), dtype=dt, device=dev)
+        hx[0, :, :H].copy_(h0)
+        rhx = new(B, ld)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = build.bind("gru_seq", "gru_bf16_forward", 9, 7)(
+                aligned(xs_b).data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
+                w_state.data_ptr(), hx.data_ptr(), rhx.data_ptr(),
+                ys.data_ptr(), ptr(gates), count.data_ptr(), int(residual),
+                ldg, lds, T, B, H, plan["units"], stream)
+        build.raise_coop(err, kernel, plan)
+        hs = hx[1:, :, :H] if residual else hx[T % 2, :, :H]
+        hs = hs if ld == H else hs.contiguous()
+        return (ys, hs, gates) if residual else (ys, hs)
+    hs = new(T, B, H) if residual else None
+    h = None
+    if not residual:
+        h = new(2, B, H)
+        h[0].copy_(h0)
+    rh = new(B, H)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_seq_forward_persistent", 11, 9)(
+        # the residual form stages h0 itself with 16-byte copies
+        err = build.bind("gru_seq", "gru_seq_forward_persistent", 11, 8)(
             xs_b.data_ptr(), mask.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), h_init.data_ptr(), ptr(h), ys.data_ptr(),
-            ptr(hs), ptr(gates), rh.data_ptr(), count.data_ptr(),
-            int(residual), int(bf16), ldg, lds, T, B, H, plan["units"],
-            plan["chunk_fwd"], stream)
+            w_state.data_ptr(), aligned(h0).data_ptr(), ptr(h),
+            ys.data_ptr(), ptr(hs), ptr(gates), rh.data_ptr(),
+            count.data_ptr(), int(residual), ldg, lds, T, B, H,
+            plan["units"], plan["chunk_fwd"], stream)
     build.raise_coop(err, kernel, plan)
-    if residual:
-        return ys, hs, gates
-    return ys, h[T % 2].to(dt)
+    return (ys, hs, gates) if residual else (ys, h[T % 2])
 
 
 def gru_seq(xs_b, mask, w_gate, w_state, h0, two_launch=False) -> Pair:
@@ -510,26 +610,31 @@ def gru_bwd_chain(dys, mask, gates, h0, hs, w_gate, w_state, dhT):
         raise ValueError(f"gru_bwd_chain: B={B} H={H} is not on the "
                          "persistent route (gru_route); the per-step "
                          "backward (gru_bwd_step) takes it")
-    # the f32 gradients the blocks exchange (dxs itself in float32; in
-    # bf16 a scratch beside the bf16 dxs)
-    dxs = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
-    out = torch.empty((T, B, 3 * H), dtype=_BF16, device=dev) \
-        if dt == _BF16 else None
+    dxs = torch.empty((T, B, 3 * H), dtype=dt, device=dev)
     dh0 = torch.empty(bh, dtype=dt, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = build.bind("gru_seq", "gru_bwd_chain_launch", 12, 8)(
-            dys.data_ptr(), mask.data_ptr(), gates.data_ptr(),
-            h0.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
-            w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
-            None if out is None else out.data_ptr(), dh0.data_ptr(),
-            count.data_ptr(), int(dt == _BF16), ldg, lds, T, B, H,
-            plan["units"], plan["chunk_bwd"], stream)
+        if dt == _BF16:
+            # the blocks' exchange of da_z, da_r, da_c as bf16, by the
+            # step's parity (zeroed by the launcher)
+            dax = torch.empty((2, 3, B, bf16_ld(H)), dtype=dt, device=dev)
+            err = build.bind("gru_seq", "gru_bf16_chain", 12, 6)(
+                dys.data_ptr(), mask.data_ptr(), aligned(gates).data_ptr(),
+                aligned(h0).data_ptr(), aligned(hs).data_ptr(),
+                w_gate.data_ptr(),
+                w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
+                dax.data_ptr(), dh0.data_ptr(), count.data_ptr(), ldg, lds,
+                T, B, H, plan["units"], stream)
+        else:
+            err = build.bind("gru_seq", "gru_bwd_chain_launch", 11, 7)(
+                dys.data_ptr(), mask.data_ptr(), gates.data_ptr(),
+                h0.data_ptr(), hs.data_ptr(), w_gate.data_ptr(),
+                w_state.data_ptr(), dhT.data_ptr(), dxs.data_ptr(),
+                dh0.data_ptr(), count.data_ptr(), ldg, lds, T, B, H,
+                plan["units"], plan["chunk_bwd"], stream)
     build.raise_coop(err, "gru_bwd_chain", plan)
     build.count_launch(gru_bwd_chain, hs, 1 if T else 0)
-    if out is not None:
-        return out, dh0
     return dxs, dh0
 
 

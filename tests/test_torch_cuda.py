@@ -754,6 +754,24 @@ def test_gru_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(16, 1024), (50, 512), (1, 512), (64, 256),
+                                 (16, 1452), (5, 40), (217, 1024),
+                                 (163, 1060), (749, 128)])
+def test_gru_bf16_plan_matches_the_kernel_smem_on_card(cuda_device, B, H):
+    """The bf16 plan's shared-memory arithmetic equals the bf16 kernels'
+    own, within the card's limit, and at U = 8 and 16 too."""
+    plan = tgru.gru_plan(B, H, bf16=True)
+    assert plan["route"] == tgru.PERSISTENT
+    for kind, backward in (("fwd", False), ("bwd", True)):
+        assert tgru.bf16_smem_of_kernel(
+            B, H, plan["units"], backward) == plan[f"smem_{kind}"] \
+            <= tgru.SMEM_BYTES
+        for u in (8, 16):
+            assert tgru.bf16_smem_of_kernel(B, H, u, backward) == \
+                tgru.bf16_smem(B, H, u, backward)
+
+
+@pytest.mark.cuda
 def test_gru_persistent_launch_that_does_not_fit_raises(cuda_device):
     """A plan whose grid cannot be co-resident (one unit a block at
     H = 4096) is refused with the reason, not run."""
@@ -1268,8 +1286,8 @@ def test_flash_kernels_with_leading_padding_match_plain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", tattn.HEAD_DIMS + (129, 256, 257, 1024, 1056,
-                                                2048))
+@pytest.mark.parametrize("D", tattn.HEAD_DIMS + (129, 160, 256, 257, 640,
+                                                1024, 1056, 2048))
 def test_flash_plan_matches_the_kernel_smem_on_card(cuda_device, D):
     """``flash_plan``'s shared-memory bytes are what each kernel requests
     (its own count, ``flash_smem``: an instance's, the wide-head path's
@@ -1326,14 +1344,17 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
     (2, 1, 40, 57, 129, False, False),
     (2, 2, 50, 90, 384, False, True),
     (1, 2, 33, 47, 1024, True, False),
+    (2, 2, 70, 133, 640, True, True),   # 10 chunks of the 16 instance
+    (2, 3, 65, 66, 130, True, True),    # D % 4 != 0: 4-byte copies
     # the split-row path (D > 1024)
     (1, 2, 64, 64, 1056, False, True),
     (1, 2, 64, 64, 2048, True, False),
     (1, 2, 80, 64, 2048, True, True)])  # causal, Tq > Tk, a padding row
 def test_flash_wide_heads_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
                                              causal, all_padding):
-    """Head widths above 128 take the wide-head path (one launch forward,
-    two backward): o and the row statistics within rtol 1e-4 / atol 1e-5
+    """Head widths above 128 take the wide-head path (split TF32 on the
+    tensor cores, D split across a block's warps; one launch forward, two
+    backward): o and the row statistics within rtol 1e-4 / atol 1e-5
     of ``blockwise_plain``, every gradient per tensor within 1e-4 of its
     largest entry + 1e-5 of ``flash_bwd_plain``, rows that see no key
     included (JAX's padded mean of v, a zero dq); two backward runs
@@ -1359,11 +1380,43 @@ def test_flash_wide_heads_match_plain_on_card(cuda_device, B, N, Tq, Tk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D,causal,all_padding", [(1024, False, False),
+                                                  (640, True, True),
+                                                  (576, True, False)])
+def test_flash_wide_parts_give_the_same_bits_on_card(cuda_device, D, causal,
+                                                     all_padding):
+    """The 16-chunk wide kernels (D > 512) split their outputs' chunks
+    into parts where a launch has few blocks (``wide_parts``; 9 chunks
+    into 8 uneven parts at D = 576): batch rows computed in a
+    launch of few blocks (split) and again inside a launch of enough
+    blocks for none (the same rows first, 40 rows more) give the same
+    bits, forward, statistics and every gradient."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, N, T = 2, 2, 40
+    small = _attn_inputs(B, N, T, T, D, D, cuda_device, all_padding)
+    big = _attn_inputs(B + 40, N, T, T, D, D + 1, cuda_device)
+    big = [torch.cat([a, b[B:]]) for a, b in zip(small, big)]
+    blocks = lambda b: b * N * -(-T // tattn.WIDE_ROWS)
+    assert tattn.wide_parts(blocks(B), D, sms) > 1
+    assert tattn.wide_parts(blocks(B + 40), D, sms) == 1
+    got = []
+    for q, k, v, mask, do in (small, big):
+        o, lse = tattn.flash_fwd(q, k, v, mask, causal)
+        got.append((o[:B], lse[:, :B * N],
+                    *(g[:B] for g in tattn.flash_bwd(q, k, v, mask, o, lse,
+                                                      do, causal))))
+    for name, x, y in zip(("o", "stats", "dq", "dk", "dv"), *got):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
 def test_attention_layer_with_wide_heads_runs_the_kernels_on_card(
         cuda_device):
     """``multi_head_attention`` at size 512 with 2 heads (D = 256): the
     forward and every gradient on the card against the same layer on the
-    CPU (the plain versions)."""
+    CPU (the plain versions) in float64 (the CPU's float32 forward of this
+    layer is not repeatable across processes by up to 5e-5: ROADMAP Queue
+    3)."""
     from paddle_tpu_torch.config import dsl
     from paddle_tpu_torch.core.argument import Argument
     from paddle_tpu_torch.core.network import Network
@@ -1379,16 +1432,18 @@ def test_attention_layer_with_wide_heads_runs_the_kernels_on_card(
     xv = torch.from_numpy(rng.normal(size=(3, 29, 512)).astype(np.float32))
     ct = torch.from_numpy(rng.normal(size=(3, 29, 512)).astype(np.float32))
     results = []
-    for dev in ("cpu", cuda_device):
-        p = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+    for dev, dt in (("cpu", torch.float64), (cuda_device, torch.float32)):
+        p = {k: torch.from_numpy(v).to(dev, dt).requires_grad_(True)
              for k, v in params.items()}
         before = tattn.flash_bwd.launches
-        y = net.apply(p, {"x": Argument(xv.to(dev), mask.to(dev))})[
+        y = net.apply(p, {"x": Argument(xv.to(dev, dt), mask.to(dev, dt))})[
             out.name].value
-        gs = torch.autograd.grad((y * ct.to(dev)).sum(), list(p.values()))
+        gs = torch.autograd.grad((y * ct.to(dev, dt)).sum(),
+                                 list(p.values()))
         if dev != "cpu":
             assert tattn.flash_bwd.launches == before + 1
-        results.append((y.detach().cpu(), [g.cpu() for g in gs]))
+        results.append((y.detach().cpu().float(),
+                        [g.cpu().float() for g in gs]))
     (y_cpu, g_cpu), (y_gpu, g_gpu) = results
     torch.testing.assert_close(y_gpu, y_cpu, rtol=1e-4, atol=1e-5)
     for g, w in zip(g_gpu, g_cpu):
@@ -2258,11 +2313,15 @@ def test_lstm_bf16_forms_match_plain_on_card(cuda_device, T, B, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H,reverse", [(20, 5, 40, False),
                                            (40, 16, 1024, True),
-                                           (12, 1, 1024, False)])
+                                           (12, 1, 1024, False),
+                                           (6, 100, 256, False),
+                                           (4, 163, 1060, True)])
 def test_gru_bf16_forms_match_plain_on_card(cuda_device, T, B, H, reverse):
     """K3 (primal and residual) and K4 (the chain) in bf16 through
     ``gru_sequence`` and at the wrappers, with the two column slices of
-    one bf16 w0: ys f32, the rest bf16."""
+    one bf16 w0: ys f32, the rest bf16; the chain bit-equal over two
+    runs. B = 100 and 163 loop over row groups (163 at H = 1060 with
+    fewer m16 tiles a group, so that the chain's block fits)."""
     rng = np.random.default_rng(B + H)
     f = lambda *s, scale=1.0: torch.tensor(
         rng.normal(size=s) * scale, dtype=torch.float32, device=cuda_device)
@@ -2295,14 +2354,17 @@ def test_gru_bf16_forms_match_plain_on_card(cuda_device, T, B, H, reverse):
     dhT = f(B, H)
     chain_args = (dys, mask, res_p[2], h0, res_p[1], wg, ws, dhT.to(BF16))
     chain = tgru.gru_bwd_chain(*chain_args)
+    again = tgru.gru_bwd_chain(*chain_args)
     torch.cuda.synchronize()
     assert [t.dtype for t in chain] == [BF16, BF16]
+    assert all(torch.equal(a, b) for a, b in zip(chain, again))
     _bf16_held(chain, tgru.gru_bwd_chain_plain(
-        *chain_args, units=tgru.gru_plan(B, H)["units"]),
+        *chain_args, units=tgru.gru_plan(B, H, bf16=True)["units"]),
         tgru.gru_bwd_chain_plain(dys, mask, res_f[2], h0.float(), res_f[1],
                                  *f_args[2:4], dhT), 2e-2)
     assert (tgru.gru_seq.bf16_launches, tgru.gru_seq_train.bf16_launches,
-            tgru.gru_bwd_chain.bf16_launches) == tuple(n + 1 for n in before)
+            tgru.gru_bwd_chain.bf16_launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 2)
 
 
 @pytest.mark.cuda

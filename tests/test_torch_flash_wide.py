@@ -121,22 +121,33 @@ def test_the_wrappers_take_wide_heads_on_the_cpu():
 @pytest.mark.parametrize("D", [129, 160, 256, 257, 384, 512, 513, 1024])
 def test_wide_heads_route_to_the_wide_path(D):
     """Every D from 129 to ``WIDE_MAX_D`` (1024) takes the wide-head path
-    unpadded: ``padded_width`` is D itself and ``flash_plan`` gives the
-    wide variant, a lane's elements of a row (8, 16 or 32: D <= 32 of
-    them), the rows of a ring stage (4096 floats a tile) and each
-    kernel's shared memory, at least three blocks an SM."""
+    unpadded at the wrapper: ``padded_width`` is D itself and
+    ``flash_plan`` gives the wide variant, 16 rows a block, streamed tiles
+    of 64 rows in chunks of 64 columns through a ring (4 forward, 2
+    backward), D padded inside the kernels to the next chunk (the
+    instance's chunks 4, 8 or 16 hold it), and each kernel's shared memory
+    (the resident rows q; q and dO; k and v: split into 2 x padded words a
+    row, else padded + 4 floats where dq's and dkdv's are raw, above 512)
+    within a block's limit, two blocks an SM up to D = 256."""
     assert tattn.padded_width(D) == D
     plan = tattn.flash_plan(D)
     assert plan["variant"] == "wide" and plan["max_d"] == tattn.WIDE_MAX_D
-    lanes = plan["lanes"]
-    assert 32 * lanes >= D and (lanes == 8 or 32 * lanes // 2 < D)
-    assert plan["stage_rows"] * 32 * lanes == tattn.WIDE_STAGE
-    rows = plan["stage_rows"]
-    assert plan["smem_fwd"] == plan["smem_dq"] == 4 * 2 * (2 * 4096 + rows)
-    assert plan["smem_dkdv"] == 4 * 2 * (2 * 4096 + 3 * rows)
+    assert (plan["rows"], plan["stage_rows"], plan["chunk"]) == (16, 64, 64)
+    assert plan["stages"] == dict(fwd=4, dq=2, dkdv=2)
+    assert plan["padded"] % 64 == 0 and 0 <= plan["padded"] - D < 64
+    assert plan["padded"] <= 64 * plan["instance"] and (
+        plan["instance"] == 4 or 32 * plan["instance"] < plan["padded"])
+    shared = 2 * 16 * 68 + 2 * 8 * 16 + 16
+    dp = plan["padded"]
+    row = 2 * dp if plan["instance"] <= 8 else dp + 4
+    assert plan["presplit"] == dict(fwd=True, dq=plan["instance"] <= 8,
+                                    dkdv=plan["instance"] <= 8)
+    assert plan["smem_fwd"] == 4 * (16 * 2 * dp + 4 * 64 * 68 + shared)
+    assert plan["smem_dq"] == plan["smem_dkdv"] == \
+        4 * (2 * 16 * row + 2 * 64 * 68 + shared)
     for kernel in ("fwd", "dq", "dkdv"):
         assert plan["smem_" + kernel] <= build.SMEM_BYTES
-        assert plan["blocks_per_sm_" + kernel] >= 3
+        assert plan["blocks_per_sm_" + kernel] >= (2 if D <= 256 else 1)
 
 
 @pytest.mark.parametrize("D", [1025, 1056, 4096])
